@@ -1,0 +1,132 @@
+"""Torch-style module facade on ``torch.nn.Module``
+(``bigdl_tpu/core/module.py``).
+
+The JAX package keeps modules functional (``apply(params, state, x)``) under
+a stateful facade.  Here PyTorch's own modules are already stateful, so the
+facade is a thin layer of the reference's names over ``nn.Module``:
+``forward``, ``evaluate()``, ``training_()``, ``get_parameters()``,
+``set_name``, and a :class:`Container` with the builder idiom ``add()``.
+
+Seeding: leaf layers implement ``reset_parameters(gen)``; :meth:`Module.reset`
+walks the tree in order with one explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+from torch import nn
+
+from bigdl_tpu_torch.core.device import resolve_device
+
+_uid_lock = threading.Lock()
+_uid_counters: dict = {}
+
+
+def _next_uid(cls_name: str) -> int:
+    with _uid_lock:
+        n = _uid_counters.get(cls_name, 0) + 1
+        _uid_counters[cls_name] = n
+        return n
+
+
+def seeded(seed: int = 0) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+class Module(nn.Module):
+    """Base class for all layers of the port."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        cls = type(self).__name__
+        self.name = f"{cls}_{_next_uid(cls)}"
+
+    # -- initialisation -----------------------------------------------------
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Draw this layer's own parameters from ``gen`` (none by default)."""
+
+    def reset(self, seed: int = 0) -> "Module":
+        """Re-initialise every layer from one generator seeded ``seed``
+        (``AbstractModule.reset``)."""
+        gen = seeded(seed)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, Module):
+                    m.reset_parameters(gen)
+        return self
+
+    # -- device -------------------------------------------------------------
+
+    def to(self, *args, **kwargs):
+        """``nn.Module.to`` with the port's device rule: with no argument it
+        moves to ``"cuda"``, and a CUDA target without CUDA raises."""
+        if not args and not kwargs:
+            kwargs["device"] = "cuda"
+        device = torch._C._nn._parse_to(*args, **kwargs)[0]
+        if device is not None:
+            resolve_device(device)
+        return super().to(*args, **kwargs)
+
+    # -- Torch-parity facade ------------------------------------------------
+
+    def training_(self) -> "Module":
+        self.train(True)
+        return self
+
+    def evaluate(self) -> "Module":
+        self.train(False)
+        return self
+
+    def set_name(self, name: str) -> "Module":
+        """``AbstractModule.setName`` — used by name-matching loaders."""
+        self.name = name
+        return self
+
+    def get_name(self) -> str:
+        return self.name
+
+    def param_leaves(self):
+        """Parameters in the JAX package's pytree leaf order: children in
+        order, each layer's own parameters by sorted name."""
+        for k in sorted(self._parameters):
+            p = self._parameters[k]
+            if p is not None:
+                yield p
+
+    def get_parameters(self):
+        """Flat contiguous (weights, grads) — ``getParameters()`` parity;
+        a parameter without a gradient contributes zeros."""
+        leaves = list(self.param_leaves())
+        if not leaves:
+            z = torch.zeros(0)
+            return z, z.clone()
+        w = torch.cat([p.detach().reshape(-1) for p in leaves])
+        g = torch.cat([(p.grad if p.grad is not None
+                        else torch.zeros_like(p)).detach().reshape(-1)
+                       for p in leaves])
+        return w, g
+
+
+class Container(Module):
+    """Base container — parity with ``nn/Container.scala``.  Children are
+    held in order in ``self.layers``."""
+
+    def __init__(self, *modules: Module) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(modules)
+
+    def add(self, module: Module) -> "Container":
+        self.layers.append(module)
+        return self
+
+    def param_leaves(self):
+        for m in self.layers:
+            yield from m.param_leaves()
+
+
+def get_named_modules(model: Module) -> dict:
+    """{name: module} over the tree (``nn/Utils.getNamedModules``)."""
+    return {m.name: m for m in model.modules() if isinstance(m, Module)}

@@ -1,0 +1,29 @@
+"""The eval-side precision cast behind ``DLClassifier(compute_dtype=...)``
+(``bigdl_tpu/core/precision.py`` ``mixed_forward``).
+
+The forward runs with every floating parameter and buffer cast to
+``compute_dtype`` and the input in that dtype; the output comes back in
+float32.  The model's own parameters stay in their dtype.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import torch
+from torch.func import functional_call
+
+
+def cast_tensors(model: torch.nn.Module, dtype) -> dict:
+    """{name: tensor} of the model's parameters and buffers, floating ones
+    cast to ``dtype``."""
+    return {k: (v.to(dtype) if v.is_floating_point() else v)
+            for k, v in itertools.chain(model.named_parameters(),
+                                        model.named_buffers())}
+
+
+def mixed_forward(model: torch.nn.Module, data: torch.Tensor,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    y = functional_call(model, cast_tensors(model, compute_dtype),
+                        (data.to(compute_dtype),))
+    return y.float()

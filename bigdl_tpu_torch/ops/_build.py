@@ -1,0 +1,132 @@
+"""Build and load the hand-written CUDA kernels (``bigdl_tpu_torch/csrc``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with :mod:`ctypes`.  The build runs
+at first use, never at import, and is cached under
+``build/bigdl_tpu_torch/<hash>/`` in the checkout, keyed by a hash of the
+sources and the compiler flags; each ``.cu`` file compiles in its own
+``nvcc`` process, all started together, then one link step makes the
+library.  Nothing here falls back: a missing ``nvcc`` or a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "bigdl_tpu_torch"
+LIB_NAME = "libbigdl_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+# dtype codes, kept in step with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # x, y, idx, dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh, ow, stream
+    "bigdl_max_pool2d_fwd": [_P, _P, _P] + [_I] * 13 + [_P],
+    # x, y, scale, dtype, n, c, hw, size, alpha/size, beta, k, mode, stream
+    "bigdl_lrn_fwd": [_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
+                      ctypes.c_float, ctypes.c_float, ctypes.c_float, _I,
+                      _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
+                       "kernels of bigdl_tpu_torch cannot be built")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources into the cached library (a no-op when the hash
+    directory already holds it) and return its path."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    work = out_dir / f"tmp-{os.getpid()}-{threading.get_ident()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        objs, procs = [], []
+        for src in sources():
+            obj = work / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{src.name}:\n{out.decode(errors='replace')}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = work / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_lib), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" +
+                               link.stdout.decode(errors="replace"))
+        os.replace(tmp_lib, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point returned a non-zero ``cudaError_t``."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

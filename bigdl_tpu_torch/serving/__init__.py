@@ -1,0 +1,21 @@
+"""Online serving of a ``DLClassifier``: admission queue, deadline batcher,
+bucket ladder, worker pool with per-worker breakers, typed errors."""
+
+from bigdl_tpu_torch.serving.batcher import DeadlineBatcher
+from bigdl_tpu_torch.serving.breaker import CircuitBreaker
+from bigdl_tpu_torch.serving.errors import (BreakerOpenError,
+                                            DeadlineExceededError,
+                                            DeadlineUnmeetableError,
+                                            DrainingError,
+                                            ForwardFailedError,
+                                            InvalidRequestError,
+                                            PackFailedError, QueueFullError,
+                                            ServingError, ShedError)
+from bigdl_tpu_torch.serving.queue import AdmissionQueue, Request
+from bigdl_tpu_torch.serving.server import InferenceServer
+
+__all__ = ["AdmissionQueue", "BreakerOpenError", "CircuitBreaker",
+           "DeadlineBatcher", "DeadlineExceededError",
+           "DeadlineUnmeetableError", "DrainingError", "ForwardFailedError",
+           "InferenceServer", "InvalidRequestError", "PackFailedError",
+           "QueueFullError", "Request", "ServingError", "ShedError"]
