@@ -64,8 +64,18 @@ class SpatialAveragePooling(_SpatialPool):
         self.ceil_mode = ceil_mode
         self.count_include_pad = count_include_pad
         self.divide = divide
+        self._divisor_cache = {}
 
-    def _divisors(self, ih, iw, oh, ow):
+    def _divisors(self, ih, iw, oh, ow, device, dtype):
+        """The (oh, ow) divisor table, or a float when every window has the
+        same count (no padding, no ceil overhang).  Tables are built once per
+        (input size, mode, device, dtype) and kept on the device, so the
+        forward never waits on a host-to-device copy."""
+        key = (ih, iw, self.ceil_mode, self.count_include_pad, device, dtype)
+        d = self._divisor_cache.get(key)
+        if d is not None:
+            return d
+
         def axis_counts(n_out, in_size, k, stride, pad, include_pad):
             starts = np.arange(n_out) * stride - pad
             ends = starts + k
@@ -80,7 +90,15 @@ class SpatialAveragePooling(_SpatialPool):
                          self.count_include_pad)
         cw = axis_counts(ow, iw, self.kernel_w, self.stride_w, self.pad_w,
                          self.count_include_pad)
-        return torch.from_numpy(np.outer(ch, cw))  # (oh, ow)
+        table = np.outer(ch, cw)
+        if (table == table.flat[0]).all():
+            d = float(table.flat[0])
+        else:
+            # a plain tensor even when first built under inference_mode
+            with torch.inference_mode(False):
+                d = torch.from_numpy(table).to(device=device, dtype=dtype)
+        self._divisor_cache[key] = d
+        return d
 
     def forward(self, input):
         def run(x):
@@ -90,7 +108,6 @@ class SpatialAveragePooling(_SpatialPool):
             s = xp.unfold(2, self.kernel_h, self.stride_h) \
                   .unfold(3, self.kernel_w, self.stride_w).sum(dim=(-2, -1))
             if self.divide:
-                s = s / self._divisors(ih, iw, oh, ow).to(
-                    device=s.device, dtype=s.dtype)
+                s = s / self._divisors(ih, iw, oh, ow, s.device, s.dtype)
             return s
         return _maybe_batched(run, input)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,24 +91,9 @@ class BucketedRunner:
         self.classifier = classifier
         self.ladder = ladder
         self._row_shape = tuple(classifier.batch_shape[1:])
-        self._bound: Dict[int, Callable] = {}
         self._lock = threading.Lock()
         self._floor: Dict[int, float] = {}      # best observed, per rung
         self._est: Dict[int, float] = {}        # EWMA, per rung
-
-    def _bind(self, bucket: int) -> Callable:
-        """The per-rung forward; it refuses a batch of another size."""
-        run = self.classifier._run
-
-        def exe(x):
-            if x.shape[0] != bucket:
-                raise ValueError(
-                    f"bucket-{bucket} forward dispatched with a batch of "
-                    f"{x.shape[0]} rows — pad to the SAME rung")
-            return run(x)
-
-        exe.bucket = bucket
-        return exe
 
     def warmup(self) -> Dict[int, float]:
         """Run every rung twice (the first absorbs kernel builds and
@@ -117,13 +102,12 @@ class BucketedRunner:
         out: Dict[int, float] = {}
         clf = self.classifier
         for bucket in self.ladder:
-            exe = self._bound.setdefault(bucket, self._bind(bucket))
             x = torch.zeros((bucket,) + self._row_shape,
                             dtype=clf.compute_dtype or torch.float32)
-            exe(x).cpu()
+            self.run(x, bucket).cpu()
             clf.synchronize()
             t0 = time.monotonic()
-            exe(x).cpu()
+            self.run(x, bucket).cpu()
             clf.synchronize()
             dur = time.monotonic() - t0
             self.observe(bucket, dur)
@@ -136,17 +120,15 @@ class BucketedRunner:
         return self.classifier._pack(list(feats_list), size=bucket)
 
     def run(self, x, bucket: int):
-        """Dispatch ``x`` (already padded for ``bucket``) into that rung;
-        an off-ladder bucket raises."""
-        exe = self._bound.get(bucket)
-        if exe is None:
-            if bucket not in self.ladder.buckets:
-                raise ValueError(
-                    f"bucket {bucket} is not a ladder rung "
-                    f"({self.ladder.buckets})")
-            with self._lock:
-                exe = self._bound.setdefault(bucket, self._bind(bucket))
-        return exe(x)
+        """Run the forward on ``x``, already padded to ``bucket`` rows; an
+        off-ladder bucket or a batch of another size raises."""
+        if bucket not in self.ladder.buckets:
+            raise ValueError(f"bucket {bucket} is not a ladder rung "
+                             f"({self.ladder.buckets})")
+        if x.shape[0] != bucket:
+            raise ValueError(f"bucket-{bucket} forward dispatched with a "
+                             f"batch of {x.shape[0]} rows")
+        return self.classifier._run(x)
 
     # -- service-time model -------------------------------------------------
 

@@ -5,8 +5,8 @@ fault-injection seams).
 N :class:`DeviceWorker` threads, each with its own circuit breaker and
 inbox, are fed by one dispatcher thread that forms batches through the
 ``DeadlineBatcher``.  A formed batch goes to the admitting worker with the
-fewest batches in flight (``dispatch="round_robin"`` rotates instead); only
-when no worker admits does a batch fail fast with ``BreakerOpenError``.
+fewest batches in flight; only when no worker admits does a batch fail
+fast with ``BreakerOpenError``.
 """
 
 from __future__ import annotations
@@ -25,8 +25,6 @@ from bigdl_tpu_torch.serving.errors import (BreakerOpenError,
                                             PackFailedError)
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
-
-_DISPATCH_MODES = ("least_loaded", "round_robin")
 
 
 class _Warmup:
@@ -194,19 +192,13 @@ class WorkerPool:
     sentinel every inbox -> join workers."""
 
     def __init__(self, server, num_workers: int,
-                 breaker_threshold: int, breaker_reset_s: float,
-                 dispatch: str = "least_loaded"):
+                 breaker_threshold: int, breaker_reset_s: float):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
-        if dispatch not in _DISPATCH_MODES:
-            raise ValueError(f"dispatch {dispatch!r} not in "
-                             f"{_DISPATCH_MODES}")
         self.server = server
-        self.dispatch = dispatch
         self.workers = [DeviceWorker(i, server, breaker_threshold,
                                      breaker_reset_s)
                         for i in range(num_workers)]
-        self._rr = 0
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, name="bigdl-torch-serve-dispatch",
             daemon=True)
@@ -242,17 +234,13 @@ class WorkerPool:
         return {w.wid: w.breaker.state for w in self.workers}
 
     def _pick(self) -> Optional[DeviceWorker]:
-        """The worker the next batch goes to, or None when no breaker
-        admits.  Ties break on the lowest worker id."""
+        """The admitting worker with the fewest batches in flight, or None
+        when no breaker admits.  Ties break on the lowest worker id."""
         with self.server._pool_lock:
             cands = [w for w in self.workers if w.breaker.admits()]
             if not cands:
                 return None
-            if self.dispatch == "round_robin":
-                w = cands[self._rr % len(cands)]
-                self._rr += 1
-            else:
-                w = min(cands, key=lambda w: (w.pending, w.wid))
+            w = min(cands, key=lambda w: (w.pending, w.wid))
             w.pending += 1
             return w
 

@@ -34,6 +34,9 @@ from bigdl_tpu_torch.serving.scheduler.pool import WorkerPool
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
 
+# request and forward latencies kept for stats() percentiles
+_LATENCY_WINDOW = 4096
+
 
 def percentile(sorted_vals: List[float], q: float) -> float:
     """Nearest-rank percentile (ceil(q/100 * n)) on an ascending list."""
@@ -80,10 +83,8 @@ class InferenceServer:
                  forward_retries: int = 0,
                  retry_backoff_s: float = 0.01,
                  warmup: bool = True,
-                 latency_window: int = 4096,
                  num_workers: int = 1,
                  batch_buckets: Optional[Sequence[int]] = None,
-                 dispatch: str = "least_loaded",
                  device="cuda"):
         dev = resolve_device(device)
         if dev.type != classifier.device.type:
@@ -104,9 +105,9 @@ class InferenceServer:
         self._lat_lock = threading.Lock()
         self._pool_lock = threading.Lock()
         self._latencies: collections.deque = \
-            collections.deque(maxlen=latency_window)
+            collections.deque(maxlen=_LATENCY_WINDOW)
         self._forwards: Dict[int, collections.deque] = {
-            b: collections.deque(maxlen=latency_window) for b in self.ladder}
+            b: collections.deque(maxlen=_LATENCY_WINDOW) for b in self.ladder}
         self._est_s = 0.0           # EWMA batch service time (planning)
         self._floor_s = 0.0         # best observed (admission proof)
         self._batch_seq = 0
@@ -120,8 +121,7 @@ class InferenceServer:
             est_fn=lambda: self._est_s)
         self.pool = WorkerPool(self, num_workers,
                                breaker_threshold=breaker_threshold,
-                               breaker_reset_s=breaker_reset_s,
-                               dispatch=dispatch)
+                               breaker_reset_s=breaker_reset_s)
         timings = self.pool.start(warmup=warmup)
         if warmup:
             self._update_estimates()

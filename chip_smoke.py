@@ -20,7 +20,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    forward went through it;
 4. timings: each kernel's median time at the serving shapes beside its
    bound, its plain version and the library call that computes the same
-   function, then serving images/s and latency per bucket.
+   function; the classifier's forward per bucket (median of 20, packed
+   rows in, predictions back on the host); then the closed-loop serving
+   images/s and request latency per bucket.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -46,7 +48,7 @@ CLASSES = 1000
 BUCKETS = (8, 32)
 N_ROWS = 96
 CPU_ROWS = 8
-WAVES = {8: 3, 32: 2}          # warm serving waves per bucket
+WAVES = {8: 3, 32: 2}          # closed-loop serving waves per bucket
 TIMING_REPS = 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
@@ -135,14 +137,16 @@ def _pool_input(shape, dtype, device, gen, ties):
 
 
 def check_kernels(device):
-    """Hold each kernel against its plain version; returns the largest
-    error per kernel (max-pool must be bit-equal)."""
+    """Hold each kernel against its plain version; returns, per kernel, the
+    largest float32 error, the count of cases and the count of mismatches
+    (outputs out of tolerance, or argmax codes that differ)."""
     import torch
     from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_plain, max_pool2d,
                                      max_pool2d_plain)
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"max_pool2d_fwd": 0.0, "lrn_fwd": 0.0}
     cases = {"max_pool2d_fwd": 0, "lrn_fwd": 0}
+    misses = {"max_pool2d_fwd": 0, "lrn_fwd": 0}
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS + RAGGED_POOLS:
             for ties in (False, True):
@@ -153,16 +157,17 @@ def check_kernels(device):
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 yp, ip = max_pool2d_plain(x, *geom)
-                same = (torch.equal(yk, yp) and torch.equal(ik, ip)
-                        and torch.equal(yk_noidx, yp))
-                if not same:
-                    bad = (ik != ip).sum().item()
+                err = max((yk.float() - yp.float()).abs().max().item(),
+                          (yk_noidx.float() - yp.float()).abs().max().item())
+                bad = (ik != ip).sum().item()
+                if dtype == torch.float32:
+                    errs["max_pool2d_fwd"] = max(errs["max_pool2d_fwd"], err)
+                cases["max_pool2d_fwd"] += 1
+                if err != 0.0 or bad:
+                    misses["max_pool2d_fwd"] += 1
                     fail(f"max_pool2d {name} {tuple(shape)} {dtype} "
                          f"ties={ties}: not bit-equal to the plain version "
-                         f"(max |dy| "
-                         f"{(yk.float() - yp.float()).abs().max().item()}, "
-                         f"{bad} idx differ)")
-                cases["max_pool2d_fwd"] += 1
+                         f"(max |dy| {err}, {bad} idx differ)")
         for name, shape, size, alpha, beta, k in LRNS + RAGGED_LRNS:
             x = torch.randn(shape, generator=gen, device=device).to(dtype)
             yk, sk = cross_map_lrn(x, size, alpha, beta, k,
@@ -178,6 +183,7 @@ def check_kernels(device):
                                     atol=atol)
                 err = (got.float() - want.float()).abs().max().item()
                 if not ok or not torch.isfinite(got).all():
+                    misses["lrn_fwd"] += 1
                     fail(f"lrn {name} {tuple(shape)} {dtype} {what}: max "
                          f"|err| {err} beyond rtol {rtol} / atol {atol}")
                 if dtype == torch.float32:
@@ -186,7 +192,7 @@ def check_kernels(device):
     log(f"kernels vs plain: max_pool2d_fwd bit-equal in "
         f"{cases['max_pool2d_fwd']} cases; lrn_fwd within tolerance in "
         f"{cases['lrn_fwd']} cases (f32 max |err| {errs['lrn_fwd']:.3g})")
-    return errs, cases
+    return errs, cases, misses
 
 
 # -- phase 3: serving -----------------------------------------------------------
@@ -246,11 +252,13 @@ def serve(device):
                 lats += lat
             wall = time.monotonic() - t_b
             lats.sort()
-            per_bucket[b] = {"images": len(lats),
+            # a closed-loop smoke, not a throughput or tail measurement:
+            # each wave is awaited before the next is sent, and with a few
+            # dozen samples only the median and the maximum are reported
+            per_bucket[b] = {"images": len(lats), "waves": WAVES[b],
                              "images_per_s": len(lats) / wall,
                              "p50_ms": 1e3 * lats[len(lats) // 2],
-                             "p99_ms": 1e3 * lats[min(len(lats) - 1,
-                                                      int(0.99 * len(lats)))],
+                             "max_ms": 1e3 * lats[-1],
                              "preds": preds_b}
         launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
         stats = server.stats()           # the main path ends here
@@ -298,14 +306,25 @@ def serve(device):
     for b in BUCKETS:
         per_bucket[b].pop("preds")
     report = {"warmup_s": warm_s, "forwards": forwards, "requests": total,
+              "classifier": clf,
               "cpu_max_abs_logp_diff": diff, "per_bucket": per_bucket,
               "forward_by_bucket": stats["buckets"],
-              "latency_p50_ms": 1e3 * stats["latency_p50_s"],
-              "latency_p99_ms": 1e3 * stats["latency_p99_s"]}
+              "latency_p50_ms": 1e3 * stats["latency_p50_s"]}
     return report, launches
 
 
-# -- phase 4: kernel timings ----------------------------------------------------
+# -- phase 4: timings -----------------------------------------------------------
+
+def time_forwards(clf, device):
+    """Median ms of one bucket forward as a worker runs it (packed host
+    rows to the device, predictions back to the host), per bucket."""
+    rows = make_rows(max(BUCKETS), SEED + 7)
+    out = {}
+    for b in BUCKETS:
+        x = clf._pack(rows[:b], size=b)
+        out[b] = median_ms(lambda: clf._run(x).cpu(), device)
+    return out
+
 
 def time_kernels(device):
     """Per kernel, summed over one batch-32 forward's calls: median kernel
@@ -395,15 +414,21 @@ def main() -> int:
         f"{' '.join(_build.ARCH)}, {len(_build.sources())} sources)")
 
     # phase 2
-    errs, cases = check_kernels(device)
+    errs, cases, misses = check_kernels(device)
     # phase 3
     report, launches = serve(device)
     # phase 4
     times = time_kernels(device)
+    fwd_ms = time_forwards(report.pop("classifier"), device)
+    for b in BUCKETS:
+        log(f"forward bucket {b}: {fwd_ms[b]:.3f} ms median of "
+            f"{TIMING_REPS} ({b / fwd_ms[b] * 1e3:.1f} images/s)")
+    report["forward_ms"] = fwd_ms
     for b, r in report["per_bucket"].items():
-        log(f"serving bucket {b}: {r['images_per_s']:.1f} images/s, "
-            f"p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms "
-            f"({r['images']} images)")
+        log(f"serving bucket {b} (closed loop, {r['waves']} waves of {b}): "
+            f"{r['images_per_s']:.1f} images/s, request p50 "
+            f"{r['p50_ms']:.2f} ms, max {r['max_ms']:.2f} ms "
+            f"({r['images']} requests)")
     log("serving: " + json.dumps(report))
     kernels = []
     for k in KERNELS:
@@ -411,8 +436,9 @@ def main() -> int:
         kernels.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": launches[k["wrapper"]],
-            "max_abs_err": errs[k["name"]], "match": True,
-            "cases": cases[k["name"]], "ms": tk["ms"],
+            "max_abs_err": errs[k["name"]],
+            "match": misses[k["name"]] == 0, "cases": cases[k["name"]],
+            "mismatches": misses[k["name"]], "ms": tk["ms"],
             "plain_ms": tk["plain_ms"], "bound_ms": tk["bound_ms"],
             "bound_by": tk["bound_by"], "library_ms": tk["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)

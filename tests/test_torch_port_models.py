@@ -24,7 +24,7 @@ from bigdl_tpu_torch.models import Inception_v1, LeNet5, inception_module
 
 # the suite runs several pytest workers on one host: keep torch from
 # taking every core inside each of them
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _np_params(m):
@@ -131,6 +131,25 @@ def test_average_pooling_keeps_the_jax_divisor_semantics():
                                    np.asarray(a), rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="must be <"):
         tnn.SpatialMaxPooling(2, 2, 2, 2, 2, 2)
+
+
+def test_average_pooling_keeps_its_divisors_on_the_device():
+    x = np.random.RandomState(5).standard_normal((2, 3, 7, 7)) \
+        .astype(np.float32)
+    tx = torch.from_numpy(x)
+    for args, kw, constant in (
+            ((7, 7, 1, 1), {}, True),                      # Inception's pool5
+            ((3, 3, 2, 2, 1, 1), {"count_include_pad": False}, False)):
+        j = jnn.SpatialAveragePooling(*args, **kw)
+        t = tnn.SpatialAveragePooling(*args, **kw)
+        want = np.asarray(j.apply((), (), jnp.asarray(x))[0])
+        with torch.inference_mode():
+            first = t(tx)
+        second = t(tx.clone().requires_grad_())      # outside inference mode
+        np.testing.assert_allclose(first.numpy(), want, rtol=1e-5, atol=1e-6)
+        assert torch.equal(second.detach(), first)
+        (d,) = t._divisor_cache.values()
+        assert isinstance(d, float) == constant
 
 
 def test_inception_v1_parameter_tree_round_trips():

@@ -25,7 +25,7 @@ from bigdl_tpu_torch.ops.pooling import _pool_out_size
 
 # the suite runs several pytest workers on one host: keep torch from
 # taking every core inside each of them
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -22,11 +22,12 @@ from bigdl_tpu_torch.serving import (AdmissionQueue, BreakerOpenError,
                                      ForwardFailedError, InferenceServer,
                                      InvalidRequestError, QueueFullError,
                                      Request)
-from bigdl_tpu_torch.serving.scheduler import BucketLadder, pad_to_bucket
+from bigdl_tpu_torch.serving.scheduler import (BucketedRunner, BucketLadder,
+                                               pad_to_bucket)
 
 # the suite runs several pytest workers on one host: keep torch from
 # taking every core inside each of them
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 BSZ = 8
 
@@ -253,3 +254,33 @@ def test_bucket_ladder_picks_the_nearest_rung():
     with pytest.raises(ValueError):
         BucketLadder([8, 8])
     assert pad_to_bucket(np.ones((3, 2)), 8).shape == (8, 2)
+
+
+def test_bucketed_runner_takes_only_ladder_rungs_at_their_size():
+    clf = _clf()
+    runner = BucketedRunner(clf, BucketLadder([4, BSZ]))
+    x = torch.zeros((4, 28, 28))
+    assert tuple(runner.run(x, 4).shape) == (4,)
+    with pytest.raises(ValueError, match="not a ladder rung"):
+        runner.run(torch.zeros((2, 28, 28)), 2)
+    with pytest.raises(ValueError, match="batch of 4 rows"):
+        runner.run(x, BSZ)
+
+
+def test_batches_go_to_the_least_loaded_admitting_worker():
+    server = _server(num_workers=3, warmup=False)
+    try:
+        pool = server.pool
+        with server._pool_lock:
+            pool.workers[0].pending += 2
+            pool.workers[1].pending += 1
+        assert pool._pick().wid == 2          # fewest in flight
+        assert pool._pick().wid == 1          # tie 1/1 -> lowest id
+        for _ in range(3):
+            pool.workers[1].breaker.record_failure()
+        assert pool._pick().wid == 2          # an open breaker gets nothing
+        with server._pool_lock:
+            for w in pool.workers:
+                w.pending = 0
+    finally:
+        assert server.drain(timeout=30)
