@@ -1,4 +1,4 @@
-"""Copy the JAX package's parameters into the port's module tree.
+"""Copy parameters between the JAX package's pytree and the port's modules.
 
 ``load_jax_params(model, params)`` takes ``bigdl_tpu``'s parameter pytree as
 nested lists/dicts of arrays (a Container's children by index, a leaf
@@ -6,7 +6,9 @@ layer's parameters by name, ``()`` for a layer without any) and copies it
 into the matching port modules.  Conv OIHW and Linear ``(out, in)`` layouts
 are the same on both sides, so each leaf is copied as it is.  Any mismatch
 of structure, names or shapes raises ``ValueError``; nothing is copied
-partially on a failed check.
+partially on a failed check.  ``export_params(model)`` is the inverse: the
+port's parameters as that pytree of numpy arrays, so weights trained by
+the two trainers can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -55,3 +57,14 @@ def load_jax_params(model: Module, params: Any) -> Module:
         for dst, src, _ in pairs:
             dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
     return model
+
+
+def export_params(model: Module) -> Any:
+    """The model's parameters as ``bigdl_tpu``'s pytree: a list per
+    Container, a dict of float32 numpy arrays per layer with parameters,
+    ``()`` for a layer without any."""
+    if isinstance(model, Container):
+        return [export_params(m) for m in model.layers]
+    mine = {k: v.detach().cpu().float().numpy().copy()
+            for k, v in model._parameters.items() if v is not None}
+    return mine if mine else ()

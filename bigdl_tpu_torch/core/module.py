@@ -8,7 +8,9 @@ facade is a thin layer of the reference's names over ``nn.Module``:
 ``set_name``, and a :class:`Container` with the builder idiom ``add()``.
 
 Seeding: leaf layers implement ``reset_parameters(gen)``; :meth:`Module.reset`
-walks the tree in order with one explicit ``torch.Generator``.
+walks the tree in order with one explicit ``torch.Generator``.  Layers that
+draw in training (``Dropout``) use the generator that
+:meth:`Module.set_generator` hands to every layer of the tree.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class Module(nn.Module):
         super().__init__()
         cls = type(self).__name__
         self.name = f"{cls}_{_next_uid(cls)}"
+        self.generator = None
 
     # -- initialisation -----------------------------------------------------
 
@@ -56,6 +59,15 @@ class Module(nn.Module):
             for m in self.modules():
                 if isinstance(m, Module):
                     m.reset_parameters(gen)
+        return self
+
+    def set_generator(self, gen: torch.Generator) -> "Module":
+        """Hand ``gen`` to every layer of the tree: the random stream of
+        training-mode draws (``Dropout``'s masks).  It must lie on the
+        device the forward runs on."""
+        for m in self.modules():
+            if isinstance(m, Module):
+                m.generator = gen
         return self
 
     # -- device -------------------------------------------------------------

@@ -1,9 +1,15 @@
-"""The eval-side precision cast behind ``DLClassifier(compute_dtype=...)``
+"""Mixed precision, bf16 compute over f32 master weights
 (``bigdl_tpu/core/precision.py`` ``mixed_forward``).
 
 The forward runs with every floating parameter and buffer cast to
 ``compute_dtype`` and the input in that dtype; the output comes back in
-float32.  The model's own parameters stay in their dtype.
+float32, so the loss and the criterion stay in f32.  The model's own
+parameters stay in their dtype.  The casts are ordinary differentiable
+ops, so under autograd the gradients with respect to the f32 parameters
+come back in f32 (a cast's backward casts back), with no unscale pass:
+bf16 has f32's exponent range.  ``DLClassifier(compute_dtype=...)`` uses
+the same forward for inference and ``LocalOptimizer.set_mixed_precision``
+for training.
 """
 
 from __future__ import annotations

@@ -1,5 +1,8 @@
 // K2: cross-map LRN forward, y = x * scale^-beta with
-//     scale = k + alpha/size * sum_{j=c-lo}^{c+hi} x_j^2.
+//     scale = k + alpha/size * sum_{j=c-lo}^{c+hi} x_j^2,
+// and K4: its backward,
+//     q_j  = dy_j * x_j * scale_j^-beta / scale_j,
+//     dx_c = dy_c * scale_c^-beta - 2 alpha/size beta x_c sum_{j=c-hi}^{c+lo} q_j.
 //
 // Replaces bigdl_tpu/ops/lrn.py `_fwd_kernel` (reached through
 // `_lrn_pallas_fwd` -> `_grid_call`).  One thread per (image, pixel) walks
@@ -11,6 +14,14 @@
 // Bound on the H100: bytes.  x is read once and y (and scale) written once:
 // (|x| + |y| [+ |scale|]) / 3.35 TB/s; the 2*size+3 flops per element are
 // far below the f32 rate.
+//
+// K4 replaces bigdl_tpu/ops/lrn.py `_bwd_kernel` (reached through
+// `_lrn_pallas_bwd` -> `_grid_call`), which summed shifted copies of q over
+// the reversed window [-hi, lo] in VMEM.  Here, as in K2, one thread per
+// (image, pixel) walks the channels; for each channel it recomputes the
+// window's q_j in f32 from x, scale and dy (all but one load of each served
+// by L1/L2), so there is no running sum and no scratch buffer.
+// Bound on the H100: bytes, (|x| + |scale| + |dy| + |dx|) / 3.35 TB/s.
 //
 // scale^-beta uses the `_neg_pow` forms of ops/lrn.py: beta = 0.75 as
 // rsqrt(s) * sqrt(rsqrt(s)), beta = 0.5 as rsqrt(s), powf otherwise.
@@ -68,6 +79,47 @@ void launch(const void* x, void* y, void* scale, long long total, int c,
       total, c, hw, lo, hi, aos, beta, k, mode);
 }
 
+template <typename T>
+__global__ void lrn_bwd_kernel(const T* __restrict__ x,
+                               const T* __restrict__ scale,
+                               const T* __restrict__ dy, T* __restrict__ dx,
+                               long long total, int c, long long hw, int lo,
+                               int hi, float coef, float beta, int mode) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += stride) {
+    const long long b = i / hw;
+    const long long pix = i - b * hw;
+    const long long base = b * c * hw + pix;
+    for (int ch = 0; ch < c; ++ch) {
+      const int j0 = ch - hi < 0 ? 0 : ch - hi;
+      const int j1 = ch + lo > c - 1 ? c - 1 : ch + lo;
+      float rsum = 0.0f;
+      for (int j = j0; j <= j1; ++j) {
+        const long long at = base + j * hw;
+        const float s = bigdl::to_f32(scale[at]);
+        rsum += bigdl::to_f32(dy[at]) * bigdl::to_f32(x[at]) *
+                neg_pow(s, beta, mode) / s;
+      }
+      const long long at = base + ch * hw;
+      const float pb = neg_pow(bigdl::to_f32(scale[at]), beta, mode);
+      dx[at] = bigdl::from_f32<T>(bigdl::to_f32(dy[at]) * pb -
+                                  coef * bigdl::to_f32(x[at]) * rsum);
+    }
+  }
+}
+
+template <typename T>
+void launch_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                long long total, int c, long long hw, int lo, int hi,
+                float coef, float beta, int mode, cudaStream_t stream) {
+  lrn_bwd_kernel<T><<<bigdl::blocks_for(total), bigdl::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<const T*>(dy), static_cast<T*>(dx), total, c, hw, lo, hi,
+      coef, beta, mode);
+}
+
 }  // namespace
 
 extern "C" int bigdl_lrn_fwd(const void* x, void* y, void* scale, int dtype,
@@ -85,6 +137,28 @@ extern "C" int bigdl_lrn_fwd(const void* x, void* y, void* scale, int dtype,
   } else if (dtype == bigdl::kBF16) {
     launch<__nv_bfloat16>(x, y, scale, total, c, hw, lo, hi, alpha_over_size,
                           beta, k, mode, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bigdl_lrn_bwd(const void* x, const void* scale, const void* dy,
+                             void* dx, int dtype, int n, int c, long long hw,
+                             int size, float alpha_over_size, float beta,
+                             int mode, void* stream) {
+  const long long total = static_cast<long long>(n) * hw;
+  if (total == 0 || c == 0) return static_cast<int>(cudaSuccess);
+  const int lo = (size - 1) / 2;
+  const int hi = size - 1 - lo;
+  const float coef = 2.0f * alpha_over_size * beta;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == bigdl::kF32) {
+    launch_bwd<float>(x, scale, dy, dx, total, c, hw, lo, hi, coef, beta,
+                      mode, s);
+  } else if (dtype == bigdl::kBF16) {
+    launch_bwd<__nv_bfloat16>(x, scale, dy, dx, total, c, hw, lo, hi, coef,
+                              beta, mode, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

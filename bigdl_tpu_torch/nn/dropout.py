@@ -1,11 +1,17 @@
-"""Dropout (``bigdl_tpu/nn/dropout.py``): identity in eval mode.
+"""Dropout (``bigdl_tpu/nn/dropout.py``): inverted dropout in training mode,
+identity in eval mode.
 
-Training-mode dropout needs the port's explicit random stream, which comes
-with the training slice; until then a training-mode forward with ``p > 0``
-raises rather than drawing from torch's global generator.
+In training mode with ``p > 0`` each element is kept with probability
+``1 - p`` and, when ``scale``, the kept ones are divided by ``1 - p``.  The
+mask is drawn from the layer's explicit ``torch.Generator`` on the input's
+device, which the trainer hands to the model (``Module.set_generator``);
+without one, a training-mode forward raises rather than drawing from
+torch's global generator.
 """
 
 from __future__ import annotations
+
+import torch
 
 from bigdl_tpu_torch.core.module import Module
 
@@ -25,6 +31,13 @@ class Dropout(Module):
     def forward(self, input):
         if not self.training or self.p <= 0.0:
             return input
-        raise NotImplementedError(
-            "training-mode Dropout comes with the training slice of the "
-            "port; call evaluate() for inference")
+        if self.generator is None:
+            raise ValueError(
+                "Dropout needs a generator in training mode: hand one to "
+                "the model with set_generator(torch.Generator(device))")
+        keep = torch.rand(input.shape, generator=self.generator,
+                          device=input.device) < 1.0 - self.p
+        y = torch.where(keep, input, torch.zeros_like(input))
+        if self.scale:
+            y = y / (1.0 - self.p)
+        return y

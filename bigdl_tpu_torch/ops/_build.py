@@ -40,10 +40,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # x, y, idx, dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh, ow, stream
     "bigdl_max_pool2d_fwd": [_P, _P, _P] + [_I] * 13 + [_P],
+    # dy, idx, dx, dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh, ow, stream
+    "bigdl_max_pool2d_bwd": [_P, _P, _P] + [_I] * 13 + [_P],
     # x, y, scale, dtype, n, c, hw, size, alpha/size, beta, k, mode, stream
     "bigdl_lrn_fwd": [_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
                       ctypes.c_float, ctypes.c_float, ctypes.c_float, _I,
                       _P],
+    # x, scale, dy, dx, dtype, n, c, hw, size, alpha/size, beta, mode, stream
+    "bigdl_lrn_bwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
+                      ctypes.c_float, ctypes.c_float, _I, _P],
 }
 
 

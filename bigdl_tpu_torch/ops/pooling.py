@@ -1,21 +1,27 @@
-"""NCHW max pool with a stored argmax code: kernel K1 and its plain version.
+"""NCHW max pool with a stored argmax code: kernels K1 (forward) and K3
+(backward), each beside its plain version, and their autograd pair.
 
-Replaces ``bigdl_tpu/ops/pooling.py`` ``_fwd_kernel`` (the Pallas forward
-reached through ``_max_pool_fwd_impl``) with ``csrc/max_pool.cu``.  The TPU
-kernel emulated strided window reads with one-hot MXU matmuls and padded
-with a finite bf16 minimum, both Mosaic workarounds; the CUDA kernel reads
-the window with direct strided loads and skips padding cells.
+K1 replaces ``bigdl_tpu/ops/pooling.py`` ``_fwd_kernel`` (the Pallas forward
+reached through ``_max_pool_fwd_impl``) and K3 its ``_bwd_kernel`` (reached
+through ``_max_pool_pallas_bwd``), both in ``csrc/max_pool.cu``.  The TPU
+kernels emulated strided window reads and the backward scatter with one-hot
+MXU matmuls and padded with a finite bf16 minimum, all Mosaic workarounds;
+the CUDA kernels use direct strided loads and skip padding cells.
 
-What bounds it on the H100 is bytes: x read once, y and the optional uint8
-index written once, at 3.35 TB/s.  The design keeps it there with one thread
-per output element and neighbouring threads on neighbouring output columns,
-so loads and stores coalesce and window overlap is served from cache.
+What bounds both on the H100 is bytes: K1 reads x once and writes y and the
+optional uint8 index once; K3 reads dy and the index once and writes dx
+once, at 3.35 TB/s.  K1 gives one thread to each output element and K3 one
+to each element of dx (a gather, so no atomics and a fixed order of sums);
+neighbouring threads own neighbouring columns, so loads and stores
+coalesce and window overlap is served from cache.
 
-Contract shared by the kernel and :func:`max_pool2d_plain`: the window is
+Contract shared by the kernels and their plain versions: the window is
 scanned in row-major order and compared in f32 with a strict ``>``, so ties
 keep the FIRST maximal offset; the index is the window-offset code
-``p * kw + q`` as uint8.  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernel or raises.
+``p * kw + q`` as uint8.  The backward sums in f32, over ``q`` within each
+window row ``p`` and then over ``p`` in ascending order, and rounds once to
+dy's dtype, so K3 is bit-equal to :func:`max_pool2d_bwd_plain`.  A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,7 +31,6 @@ import math
 import torch
 
 from bigdl_tpu_torch.ops import _build
-from bigdl_tpu_torch.ops._grad import forward_only
 
 
 def _pool_out_size(in_size, k, stride, pad, ceil_mode):
@@ -73,6 +78,26 @@ def max_pool2d_plain(x, kh, kw, sh, sw, ph=0, pw=0, ceil_mode=False):
     return best.to(x.dtype), idx
 
 
+def max_pool2d_bwd_plain(dy, idx, geom, ih, iw):
+    """Plain PyTorch max-pool backward (``_max_pool_pallas_bwd``): route
+    each ``dy`` to the window offset its uint8 code names.  Sums in f32 over
+    ``q`` within each window row ``p``, then over ``p`` in ascending order,
+    and rounds once to dy's dtype."""
+    kh, kw, sh, sw, ph, pw, ceil_mode = geom
+    n, c, oh, ow = dy.shape
+    _, _, eh, ew = pool_geometry(ih, iw, kh, kw, sh, sw, ph, pw, ceil_mode)
+    dy32 = dy.float()
+    acc = torch.zeros((n, c, ih + ph + eh, iw + pw + ew), device=dy.device)
+    for p in range(kh):
+        row = torch.zeros((n, c, oh, acc.shape[3]), device=dy.device)
+        for q in range(kw):
+            hit = idx == p * kw + q
+            row[:, :, :, q:q + (ow - 1) * sw + 1:sw] += torch.where(
+                hit, dy32, torch.zeros_like(dy32))
+        acc[:, :, p:p + (oh - 1) * sh + 1:sh, :] += row
+    return acc[:, :, ph:ph + ih, pw:pw + iw].to(dy.dtype)
+
+
 def _launch(x, kh, kw, sh, sw, ph, pw, ceil_mode, with_idx):
     n, c, ih, iw = x.shape
     oh, ow, _, _ = pool_geometry(ih, iw, kh, kw, sh, sw, ph, pw, ceil_mode)
@@ -109,27 +134,90 @@ def _validate(x, kh, kw, sh, sw, ph, pw, ceil_mode):
                          f"{tuple(x.shape[2:])}")
 
 
+def _forward(x, geom, with_idx):
+    """``(y, idx)`` by the device's route; ``idx`` is None when not asked
+    for on the card, where the kernel then skips that write."""
+    if x.device.type == "cpu":
+        y, idx = max_pool2d_plain(x, *geom)
+        return y, idx if with_idx else None
+    if x.device.type == "cuda":
+        if not x.is_contiguous():
+            raise ValueError("max_pool2d kernel takes a contiguous tensor")
+        return _launch(x, *geom, with_idx=with_idx)
+    raise RuntimeError(f"max_pool2d has no path for device {x.device}")
+
+
+class _MaxPool2d(torch.autograd.Function):
+    """K1 with the index write on in forward, K3 in backward."""
+
+    @staticmethod
+    def forward(ctx, x, geom):
+        y, idx = _forward(x, geom, with_idx=True)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(idx)
+        ctx.geom, ctx.in_hw = geom, tuple(x.shape[2:])
+        return y, idx
+
+    @staticmethod
+    def backward(ctx, dy, _didx):
+        (idx,) = ctx.saved_tensors
+        return max_pool2d_bwd(dy, idx, ctx.geom, *ctx.in_hw), None
+
+
 def max_pool2d(x, kh, kw, sh, sw, ph=0, pw=0, ceil_mode=False,
                return_indices=False):
     """NCHW max pool: the K1 kernel for a CUDA tensor, the plain version for
-    a CPU tensor.  ``return_indices`` also returns the uint8 argmax codes;
-    without it the kernel skips that write."""
+    a CPU tensor.  ``return_indices`` also returns the uint8 argmax codes.
+    When autograd will need them (grad enabled and ``x`` requires grad) the
+    codes are written and saved for the K3 backward; otherwise, unless
+    asked for, the kernel skips that write."""
     _validate(x, kh, kw, sh, sw, ph, pw, ceil_mode)
     geom = (kh, kw, sh, sw, ph, pw, ceil_mode)
-    if x.device.type == "cpu":
-        def run(t):
-            y, idx = max_pool2d_plain(t, *geom)
-            return (y, idx) if return_indices else y
-    elif x.device.type == "cuda":
-        if not x.is_contiguous():
-            raise ValueError("max_pool2d kernel takes a contiguous tensor")
-
-        def run(t):
-            y, idx = _launch(t, *geom, with_idx=return_indices)
-            return (y, idx) if return_indices else y
+    if torch.is_grad_enabled() and x.requires_grad:
+        y, idx = _MaxPool2d.apply(x, geom)
     else:
-        raise RuntimeError(f"max_pool2d has no path for device {x.device}")
-    return forward_only(run, "max_pool2d", x)
+        y, idx = _forward(x, geom, with_idx=return_indices)
+    return (y, idx) if return_indices else y
 
 
 max_pool2d.launches = 0
+
+
+def max_pool2d_bwd(dy, idx, geom, ih, iw):
+    """Max-pool backward: ``dx`` (N, C, ih, iw) in dy's dtype from ``dy``
+    and the uint8 codes of the forward.  The K3 kernel for CUDA tensors,
+    :func:`max_pool2d_bwd_plain` for CPU tensors."""
+    kh, kw, sh, sw, ph, pw, ceil_mode = geom
+    if dy.dim() != 4 or dy.shape != idx.shape:
+        raise ValueError(f"max_pool2d_bwd takes NCHW dy and idx of one "
+                         f"shape, got {tuple(dy.shape)} and "
+                         f"{tuple(idx.shape)}")
+    if dy.dtype not in _build.DTYPE_CODES or idx.dtype != torch.uint8:
+        raise TypeError(f"max_pool2d_bwd takes float32 or bfloat16 dy and "
+                        f"uint8 idx, got {dy.dtype} and {idx.dtype}")
+    if dy.device != idx.device:
+        raise ValueError(f"dy on {dy.device} but idx on {idx.device}")
+    oh, ow, _, _ = pool_geometry(ih, iw, kh, kw, sh, sw, ph, pw, ceil_mode)
+    if (oh, ow) != tuple(dy.shape[2:]):
+        raise ValueError(f"dy has {tuple(dy.shape[2:])} windows, the "
+                         f"geometry over {(ih, iw)} gives {(oh, ow)}")
+    dy = dy.contiguous()        # autograd may hand in a strided gradient
+    if dy.device.type == "cpu":
+        return max_pool2d_bwd_plain(dy, idx, geom, ih, iw)
+    if dy.device.type != "cuda":
+        raise RuntimeError(f"max_pool2d_bwd has no path for device "
+                           f"{dy.device}")
+    if not idx.is_contiguous():
+        raise ValueError("max_pool2d_bwd kernel takes a contiguous idx")
+    n, c = dy.shape[:2]
+    dx = torch.empty((n, c, ih, iw), dtype=dy.dtype, device=dy.device)
+    rc = _build.load().bigdl_max_pool2d_bwd(
+        dy.data_ptr(), idx.data_ptr(), dx.data_ptr(),
+        _build.DTYPE_CODES[dy.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
+        oh, ow, _build.stream_ptr(dy))
+    _build.check(rc, "max_pool2d_bwd")
+    max_pool2d_bwd.launches += 1
+    return dx
+
+
+max_pool2d_bwd.launches = 0

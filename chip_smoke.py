@@ -9,20 +9,33 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
 1. card line (name and power limit from nvidia-smi) and the nvcc build of
    every kernel from ``bigdl_tpu_torch/csrc``;
-2. every kernel against its plain PyTorch version on the card, at the
-   shapes full-width Inception-v1 gives it at batch 32 and at ragged
-   shapes, in float32 and bfloat16;
+2. every forward kernel (K1 max pool, K2 LRN) against its plain PyTorch
+   version on the card, at the shapes full-width Inception-v1 gives it at
+   batch 32 and at ragged shapes, in float32 and bfloat16;
+2b. the backward kernels (K3 max pool, K4 LRN) the same way, K3 on the
+   argmax codes K1 wrote, and one autograd round trip per layer on the
+   card against the same on the CPU;
 3. serving: full-width ``Inception_v1(1000)`` with seeded random weights
    behind ``InferenceServer(DLClassifier(..., device="cuda"),
    batch_buckets=(8, 32))``; every request must resolve to the same class
    as ``DLClassifier.predict``, 8 rows must agree with a CPU run of the
    same weights, and each kernel's launch count must show that every
    forward went through it;
-4. timings: each kernel's median time at the serving shapes beside its
-   bound, its plain version and the library call that computes the same
-   function; the classifier's forward per bucket (median of 20, packed
-   rows in, predictions back on the host); then the closed-loop serving
-   images/s and request latency per bucket.
+3b. training: full-width ``Inception_v1(1000)`` (dropout 0.4, seeded
+   weights) trained 30 steps at batch 32 by ``LocalOptimizer`` with the
+   SGD of ``bigdl_tpu/models/inception.py`` ``train_main`` under bf16
+   mixed precision, on 64 seeded synthetic images (two epochs per 4 steps,
+   so it shuffles), validated by Top1/Top5 every 10 steps; every loss must
+   be finite, no step skipped, and the launch counts must show 13 K1 + 13
+   K3 + 2 K2 + 2 K4 per step (validation forwards run K1/K2 alone);
+3c. the same weights (dropout 0) trained 2 float32 steps at batch 4 on the
+   card and on the CPU: losses to rtol 1e-4, every weight to 1e-4;
+4. timings, each line stamped with the card: each kernel's median time at
+   the serving shapes and at the training shapes (bf16) beside its bound,
+   its plain version and the library call that computes the same
+   function; the classifier's forward per bucket; the closed-loop serving
+   images/s and request latency per bucket; the train step in bf16 mixed
+   precision and in float32.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -88,6 +101,11 @@ RAGGED_LRNS = [
     ("beta 1.0 (powf)", (2, 5, 3, 45), 3, 0.5, 1.0, 1.0),
 ]
 LRN_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2e-2, 1e-2)}
+# K4 against a plain version that rounds to bf16 at every op
+LRN_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
+TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
+CPU_BATCH, CPU_STEPS = 4, 2
 
 
 def log(msg: str) -> None:
@@ -126,7 +144,7 @@ def median_ms(fn, device, reps=TIMING_REPS, flush=None):
     return statistics.median(times)
 
 
-# -- phase 2: kernels against their plain versions ------------------------------
+# -- phase 2: kernels against their plain versions ----------------------------
 
 def _pool_input(shape, dtype, device, gen, ties):
     import torch
@@ -195,7 +213,97 @@ def check_kernels(device):
     return errs, cases, misses
 
 
-# -- phase 3: serving -----------------------------------------------------------
+# -- phase 2b: backward kernels against their plain versions ------------------
+
+def check_backward_kernels(device):
+    """Hold K3 (on codes K1 wrote) and K4 (on the scale K2 wrote) against
+    their plain versions, then one autograd round trip per layer on the
+    card against the CPU; returns errors, cases and mismatches per kernel
+    as :func:`check_kernels` does."""
+    import torch
+    import bigdl_tpu_torch.nn as tnn
+    from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
+                                     max_pool2d, max_pool2d_bwd,
+                                     max_pool2d_bwd_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    errs = {"max_pool2d_bwd": 0.0, "lrn_bwd": 0.0}
+    cases = {"max_pool2d_bwd": 0, "lrn_bwd": 0}
+    misses = {"max_pool2d_bwd": 0, "lrn_bwd": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS + RAGGED_POOLS:
+            for ties in (False, True):
+                x = _pool_input(shape, dtype, device, gen, ties)
+                geom = (kh, kw, sh, sw, ph, pw, ceil)
+                _, idx = max_pool2d(x, *geom, return_indices=True)
+                dy = torch.randn(tuple(idx.shape), generator=gen,
+                                 device=device).to(dtype)
+                dx = max_pool2d_bwd(dy, idx, geom, shape[2], shape[3])
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                want = max_pool2d_bwd_plain(dy, idx, geom, shape[2],
+                                            shape[3])
+                err = (dx.float() - want.float()).abs().max().item()
+                cases["max_pool2d_bwd"] += 1
+                if dtype == torch.float32:
+                    errs["max_pool2d_bwd"] = max(errs["max_pool2d_bwd"], err)
+                if dx.dtype != dtype or not torch.equal(dx, want):
+                    misses["max_pool2d_bwd"] += 1
+                    fail(f"max_pool2d_bwd {name} {tuple(shape)} {dtype} "
+                         f"ties={ties}: not bit-equal to the plain version "
+                         f"(max |ddx| {err})")
+        for name, shape, size, alpha, beta, k in LRNS + RAGGED_LRNS:
+            x = torch.randn(shape, generator=gen, device=device).to(dtype)
+            dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+            _, scale = cross_map_lrn(x, size, alpha, beta, k,
+                                     return_scale=True)
+            dx = lrn_bwd(x, scale, dy, size, alpha, beta)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            want = lrn_bwd_plain(x, scale, dy, size, alpha, beta)
+            rtol, atol = LRN_BWD_TOL[str(dtype).split(".")[-1]]
+            err = (dx.float() - want.float()).abs().max().item()
+            cases["lrn_bwd"] += 1
+            if dtype == torch.float32:
+                errs["lrn_bwd"] = max(errs["lrn_bwd"], err)
+            if not torch.allclose(dx.float(), want.float(), rtol=rtol,
+                                  atol=atol) or not torch.isfinite(dx).all():
+                misses["lrn_bwd"] += 1
+                fail(f"lrn_bwd {name} {tuple(shape)} {dtype}: max |err| "
+                     f"{err} beyond rtol {rtol} / atol {atol}")
+    # one autograd round trip per layer: y.backward(g) on the card against
+    # the same on CPU tensors (plain versions), float32
+    for layer, shape in ((tnn.SpatialMaxPooling(3, 3, 2, 2).ceil(),
+                          (2, 64, 112, 112)),
+                         (tnn.SpatialCrossMapLRN(5, 1e-4, 0.75),
+                          (2, 64, 56, 56))):
+        x = torch.randn(shape, generator=gen, device=device)
+        grads = []
+        for dev in (device, torch.device("cpu")):
+            xd = x.detach().to(dev).requires_grad_()
+            y = layer.training_()(xd)
+            g = torch.arange(y.numel(), dtype=torch.float32, device=dev)
+            y.backward((g.reshape(y.shape) % 7 - 3.0) / 3.0)
+            grads.append(xd.grad.cpu())
+        err = (grads[0] - grads[1]).abs().max().item()
+        pool = isinstance(layer, tnn.SpatialMaxPooling)
+        ok = torch.equal(*grads) if pool else torch.allclose(
+            *grads, rtol=LRN_BWD_TOL["float32"][0],
+            atol=LRN_BWD_TOL["float32"][1])
+        what = "max_pool2d_bwd" if pool else "lrn_bwd"
+        cases[what] += 1
+        errs[what] = max(errs[what], err)
+        if not ok:
+            misses[what] += 1
+            fail(f"{type(layer).__name__} backward on the card vs the CPU: "
+                 f"max |err| {err}")
+    log(f"backward kernels vs plain: max_pool2d_bwd bit-equal in "
+        f"{cases['max_pool2d_bwd']} cases; lrn_bwd within tolerance in "
+        f"{cases['lrn_bwd']} cases (f32 max |err| {errs['lrn_bwd']:.3g}); "
+        "autograd round trip card vs CPU held for both layers")
+    return errs, cases, misses
+
+
+# -- phase 3: serving ---------------------------------------------------------
 
 def build_model():
     from bigdl_tpu_torch.models import Inception_v1
@@ -313,7 +421,119 @@ def serve(device):
     return report, launches
 
 
-# -- phase 4: timings -----------------------------------------------------------
+# -- phase 3b/3c: training ----------------------------------------------------
+
+def make_samples(n, seed):
+    from bigdl_tpu_torch.dataset import Sample
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((n, 3, IMAGE, IMAGE)).astype(np.float32)
+    y = rng.randint(1, CLASSES + 1, size=n).astype(np.float32)
+    return [Sample(x[i], y[i]) for i in range(n)]
+
+
+def make_trainer(model, samples, batch, steps, mixed, device, val=None):
+    """``train_main``'s trainer (``bigdl_tpu/models/inception.py``): SGD
+    with weight decay 2e-4, momentum 0.9, no dampening and Poly(0.5) over
+    the run's horizon."""
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Poly,
+                                       Top1Accuracy, Top5Accuracy, Trigger)
+    opt = LocalOptimizer(model, ClassNLLCriterion(),
+                         DataSet.array(samples) >> SampleToBatch(batch),
+                         Trigger.max_iteration(steps), device=device)
+    opt.set_optim_method(SGD(learning_rate=0.01, weight_decay=2e-4,
+                             momentum=0.9, dampening=0.0,
+                             learning_rate_schedule=Poly(0.5, steps)))
+    opt.set_mixed_precision(mixed).set_seed(SEED)
+    if val is not None:
+        opt.set_validation(Trigger.several_iteration(VAL_EVERY),
+                           DataSet.array(val) >> SampleToBatch(batch),
+                           [Top1Accuracy(), Top5Accuracy()])
+    return opt
+
+
+def step_ms(opt):
+    """Median host time of the last TIMED_STEPS steps (batch upload to the
+    loss on the host), ms."""
+    return 1e3 * statistics.median(
+        r["dur_s"] for r in opt.step_records[-TIMED_STEPS:])
+
+
+def train(device):
+    """Drive the training path (bf16 mixed precision); returns the report
+    and the launch counts of that run."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.optim import SKIPPED_STEPS
+    model = Inception_v1(CLASSES, dropout=0.4).reset(SEED)
+    opt = make_trainer(model, make_samples(TRAIN_SAMPLES, SEED + 100), BATCH,
+                       TRAIN_STEPS, True, device,
+                       val=make_samples(VAL_SAMPLES, SEED + 200))
+    ops.reset_launches()                 # the training path starts here
+    opt.optimize()
+    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    losses = [r["loss"] for r in opt.step_records]   # the path ends here
+    log(f"train losses (bf16 mixed, {len(losses)} steps): "
+        + json.dumps([round(v, 6) for v in losses]))
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"training gave {len(losses)} losses, finite: "
+             f"{bool(np.isfinite(losses).all())}")
+    if opt.metrics.get(SKIPPED_STEPS) or opt.state.get("skippedSteps"):
+        fail(f"{opt.state.get('skippedSteps')} steps skipped as non-finite")
+    top1, top5 = opt.state.get("lastValidation") or (None, None)
+    if top1 is None or top1.count != VAL_SAMPLES or top5.count != VAL_SAMPLES:
+        fail(f"validation did not run on {VAL_SAMPLES} samples: {top1}")
+    val_fwd = TRAIN_STEPS // VAL_EVERY * (VAL_SAMPLES // BATCH)
+    want = {"max_pool2d": 13 * (TRAIN_STEPS + val_fwd),
+            "cross_map_lrn": 2 * (TRAIN_STEPS + val_fwd),
+            "max_pool2d_bwd": 13 * TRAIN_STEPS, "lrn_bwd": 2 * TRAIN_STEPS}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want} (13 K1 + 13 K3 "
+             f"+ 2 K2 + 2 K4 per step, K1/K2 per validation forward)")
+    log(f"training: {TRAIN_STEPS} steps, epochs {opt.state['epoch'] - 1} "
+        f"done, none skipped; validation {top1!r} / {top5!r}; launches "
+        f"{launches}")
+    return {"losses": losses, "step_ms": step_ms(opt),
+            "top1": top1.result()[0], "top5": top5.result()[0]}, launches
+
+
+def train_f32_step_ms(device):
+    from bigdl_tpu_torch.models import Inception_v1
+    model = Inception_v1(CLASSES, dropout=0.4).reset(SEED)
+    opt = make_trainer(model, make_samples(TRAIN_SAMPLES, SEED + 100), BATCH,
+                       TRAIN_STEPS, False, device)
+    opt.optimize()
+    return step_ms(opt)
+
+
+def train_vs_cpu(device):
+    """2 float32 steps of the same weights (dropout 0) on the card and on
+    the CPU: losses to rtol 1e-4, every weight to max |diff| 1e-4."""
+    import torch
+    from bigdl_tpu_torch.models import Inception_v1
+    samples = make_samples(CPU_BATCH * CPU_STEPS, SEED + 300)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        opt = make_trainer(Inception_v1(CLASSES, dropout=0.0).reset(SEED),
+                           samples, CPU_BATCH, CPU_STEPS, False, dev)
+        opt.optimize()
+        runs.append(opt)
+    la = [r["loss"] for r in runs[0].step_records]
+    lb = [r["loss"] for r in runs[1].step_records]
+    if not np.allclose(la, lb, rtol=1e-4, atol=0.0):
+        fail(f"card vs CPU losses {la} vs {lb} (rtol 1e-4)")
+    dw = max((a.detach().cpu() - b.detach()).abs().max().item()
+             for a, b in zip(runs[0].model.param_leaves(),
+                             runs[1].model.param_leaves()))
+    if dw > 1e-4:
+        fail(f"card vs CPU weights after {CPU_STEPS} steps: max |diff| {dw}")
+    log(f"train card vs CPU ({CPU_STEPS} f32 steps, batch {CPU_BATCH}): "
+        f"losses {la} vs {lb}, max |dw| {dw:.3g}")
+    return {"losses_card": la, "losses_cpu": lb, "max_abs_dw": dw}
+
+
+# -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
     """Median ms of one bucket forward as a worker runs it (packed host
@@ -373,6 +593,107 @@ def time_kernels(device):
     return out
 
 
+def time_train_kernels(device):
+    """Per kernel, summed over one training step's calls at batch 32 in
+    bf16: K1 with the index write, K2 with the scale write, K3 and K4;
+    median kernel time, bound, plain version, library call."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
+                                     lrn_plain, max_pool2d, max_pool2d_bwd,
+                                     max_pool2d_bwd_plain, max_pool2d_plain)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device) \
+        if device.type == "cuda" else None
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0, "bound_by": "bytes"}
+           for k in ("max_pool2d_fwd", "lrn_fwd", "max_pool2d_bwd",
+                     "lrn_bwd")}
+
+    def add(name, nbytes, nops, kern, plain, lib):
+        t = out[name]
+        t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                   nops / F32_FLOPS)
+        t["ms"] += median_ms(kern, device, flush=flush)
+        t["plain_ms"] += median_ms(plain, device, flush=flush)
+        t["library_ms"] += median_ms(lib, device, flush=flush)
+
+    for _, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS:
+        x = torch.randn(shape, generator=gen, device=device).to(bf16)
+        geom = (kh, kw, sh, sw, ph, pw, ceil)
+        _, idx = max_pool2d(x, *geom, return_indices=True)
+        dy = torch.randn(tuple(idx.shape), generator=gen,
+                         device=device).to(bf16)
+        y64, idx64 = F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
+                                  ceil_mode=ceil, return_indices=True)
+        if y64.shape != idx.shape:
+            fail(f"F.max_pool2d gives {tuple(y64.shape)} windows, the port "
+                 f"{tuple(idx.shape)}: no library yardstick")
+        nwin = idx.numel() * kh * kw
+        add("max_pool2d_fwd", 2 * x.numel() + 3 * idx.numel(), nwin,
+            lambda: max_pool2d(x, *geom, return_indices=True),
+            lambda: max_pool2d_plain(x, *geom),
+            lambda: F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
+                                 ceil_mode=ceil, return_indices=True))
+        add("max_pool2d_bwd", 3 * idx.numel() + 2 * x.numel(), nwin,
+            lambda: max_pool2d_bwd(dy, idx, geom, shape[2], shape[3]),
+            lambda: max_pool2d_bwd_plain(dy, idx, geom, shape[2], shape[3]),
+            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dy, x, [kh, kw], [sh, sw], [ph, pw], [1, 1], ceil, idx64))
+    for _, shape, size, alpha, beta, k in LRNS:
+        x = torch.randn(shape, generator=gen, device=device).to(bf16)
+        dy = torch.randn(shape, generator=gen, device=device).to(bf16)
+        _, scale = cross_map_lrn(x, size, alpha, beta, k, return_scale=True)
+        xr = x.clone().requires_grad_()
+        yr = F.local_response_norm(xr, size, alpha, beta, k)
+        add("lrn_fwd", 2 * 3 * x.numel(), x.numel() * (2 * size + 6),
+            lambda: cross_map_lrn(x, size, alpha, beta, k,
+                                  return_scale=True),
+            lambda: lrn_plain(x, size, alpha, beta, k),
+            lambda: F.local_response_norm(x, size, alpha, beta, k))
+        add("lrn_bwd", 2 * 4 * x.numel(), x.numel() * (6 * size + 8),
+            lambda: lrn_bwd(x, scale, dy, size, alpha, beta),
+            lambda: lrn_bwd_plain(x, scale, dy, size, alpha, beta),
+            lambda: torch.autograd.grad(yr, xr, dy, retain_graph=True))
+    return out
+
+
+def profile_train_steps(device, mixed, steps=3):
+    """Device time by kernel over ``steps`` training steps after as many
+    warm-up steps (``torch.profiler``): the summed kernel and copy time
+    per step and the kernels that take the most of it.  The profiler slows
+    the host, so the busy share is taken against the unprofiled step time
+    by the caller."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.optim import Trigger
+    opt = make_trainer(Inception_v1(CLASSES, dropout=0.4).reset(SEED),
+                       make_samples(TRAIN_SAMPLES, SEED + 100), BATCH, steps,
+                       mixed, device)
+    opt.optimize()
+    opt.set_end_when(Trigger.max_iteration(2 * steps))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.optimize()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != cuda:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_ms": sum(kernels.values()),
+            "top": [[name[:90], ms] for name, ms in top]}
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -389,7 +710,14 @@ KERNELS = [
     {"name": "lrn_fwd", "wrapper": "cross_map_lrn", "route": "cuda",
      "source": "bigdl_tpu_torch/csrc/lrn.cu",
      "replaces": "bigdl_tpu/ops/lrn.py:123"},
+    {"name": "max_pool2d_bwd", "wrapper": "max_pool2d_bwd", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/max_pool.cu",
+     "replaces": "bigdl_tpu/ops/pooling.py:130"},
+    {"name": "lrn_bwd", "wrapper": "lrn_bwd", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/lrn.cu",
+     "replaces": "bigdl_tpu/ops/lrn.py:133"},
 ]
+TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def main() -> int:
@@ -407,40 +735,74 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # phase 1
-    log(f"card: {card_line()}")
+    card = card_line()
+    log(f"card: {card}")
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc "
         f"{' '.join(_build.ARCH)}, {len(_build.sources())} sources)")
 
-    # phase 2
+    # phase 2 and 2b
     errs, cases, misses = check_kernels(device)
-    # phase 3
-    report, launches = serve(device)
+    for d, more in zip((errs, cases, misses), check_backward_kernels(device)):
+        d.update(more)
+    # phase 3, 3b and 3c: each path's launches counted from 0
+    report, serve_launches = serve(device)
+    train_report, train_launches = train(device)
+    train_report["card_vs_cpu"] = train_vs_cpu(device)
     # phase 4
     times = time_kernels(device)
+    train_times = time_train_kernels(device)
     fwd_ms = time_forwards(report.pop("classifier"), device)
     for b in BUCKETS:
-        log(f"forward bucket {b}: {fwd_ms[b]:.3f} ms median of "
+        log(f"[{card}] forward bucket {b}: {fwd_ms[b]:.3f} ms median of "
             f"{TIMING_REPS} ({b / fwd_ms[b] * 1e3:.1f} images/s)")
     report["forward_ms"] = fwd_ms
     for b, r in report["per_bucket"].items():
-        log(f"serving bucket {b} (closed loop, {r['waves']} waves of {b}): "
-            f"{r['images_per_s']:.1f} images/s, request p50 "
+        log(f"[{card}] serving bucket {b} (closed loop, {r['waves']} waves "
+            f"of {b}): {r['images_per_s']:.1f} images/s, request p50 "
             f"{r['p50_ms']:.2f} ms, max {r['max_ms']:.2f} ms "
             f"({r['images']} requests)")
     log("serving: " + json.dumps(report))
+    train_report["step_ms_f32"] = train_f32_step_ms(device)
+    for what, key in (("bf16 mixed", "step_ms"), ("float32", "step_ms_f32")):
+        ms = train_report[key]
+        log(f"[{card}] train step ({what}, batch {BATCH}, median of the "
+            f"last {TIMED_STEPS} of {TRAIN_STEPS}): {ms:.3f} ms "
+            f"({BATCH / ms * 1e3:.1f} images/s)")
+    for what, mixed, key in (("bf16 mixed", True, "step_ms"),
+                             ("float32", False, "step_ms_f32")):
+        p = profile_train_steps(device, mixed)
+        p["busy_share"] = p["device_ms"] / train_report[key]
+        log(f"[{card}] train step profile ({what}, batch {BATCH}): device "
+            f"{p['device_ms']:.3f} ms per step, busy share "
+            f"{p['busy_share']:.3f} of the {train_report[key]:.3f} ms step; "
+            "top kernels and copies (ms per step): " + json.dumps(p["top"]))
+        train_report["profile_" + key] = p
+    log("training: " + json.dumps(train_report))
+    for where, tt in (("serving shapes, f32", times),
+                      ("training shapes, bf16", train_times)):
+        for name, t in tt.items():
+            log(f"[{card}] {name} ({where}, per step): {t['ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+                f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms")
     kernels = []
     for k in KERNELS:
-        tk = times[k["name"]]
-        kernels.append({
-            "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "launches": launches[k["wrapper"]],
-            "max_abs_err": errs[k["name"]],
-            "match": misses[k["name"]] == 0, "cases": cases[k["name"]],
-            "mismatches": misses[k["name"]], "ms": tk["ms"],
-            "plain_ms": tk["plain_ms"], "bound_ms": tk["bound_ms"],
-            "bound_by": tk["bound_by"], "library_ms": tk["library_ms"]})
+        name, wrapper = k["name"], k["wrapper"]
+        by_path = {"serve": serve_launches[wrapper],
+                   "train": train_launches[wrapper]}
+        entry = {"name": name, "route": k["route"], "source": k["source"],
+                 "replaces": k["replaces"],
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": errs[name], "match": misses[name] == 0,
+                 "cases": cases[name], "mismatches": misses[name]}
+        if name in times:        # forward kernels: serving shapes, f32
+            entry.update({key: times[name][key] for key in TIME_KEYS})
+            entry["train"] = dict(train_times[name], dtype="bfloat16")
+        else:
+            entry.update({key: train_times[name][key] for key in TIME_KEYS})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

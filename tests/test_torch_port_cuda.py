@@ -5,16 +5,19 @@ jax nor ``bigdl_tpu``, so they also run where only PyTorch is installed:
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
 
-Tolerances: max-pool is bit-equal (values and uint8 argmax codes); LRN
-within rtol 1e-5 / atol 1e-6 in float32 and rtol 2e-2 / atol 1e-2 in
-bfloat16, where the plain version rounds to bfloat16 at every step.
+Tolerances: max-pool forward and backward are bit-equal (values and uint8
+argmax codes; the backward sums in the plain version's order); the LRN
+forward within rtol 1e-5 / atol 1e-6 in float32 and rtol 2e-2 / atol 1e-2
+in bfloat16, the LRN backward within rtol 1e-5 / atol 1e-5 and rtol 2e-2 /
+atol 2e-2, where the plain version rounds to bfloat16 at every step.
 """
 
 import pytest
 import torch
 
-from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_plain, max_pool2d,
-                                 max_pool2d_plain)
+from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
+                                 lrn_plain, max_pool2d, max_pool2d_bwd,
+                                 max_pool2d_bwd_plain, max_pool2d_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -59,13 +62,61 @@ def test_lrn_kernel_matches_plain(cuda_device, dtype, params):
     torch.testing.assert_close(scale.float(), pscale.float(), **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", [(3, 3, 2, 2, 1, 1, True),
+                                  (3, 3, 1, 1, 1, 1, False),
+                                  (3, 2, 2, 3, 0, 1, True),
+                                  (2, 2, 2, 2, 0, 0, False)],
+                         ids=["ceil-pad", "branch", "rect", "lenet"])
+def test_max_pool_bwd_kernel_is_bit_equal_to_plain(cuda_device, dtype, geom):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    dt = getattr(torch, dtype)
+    x = torch.randint(-3, 4, (3, 7, 13, 11), generator=g,
+                      device=cuda_device).to(dt)
+    _, idx = max_pool2d(x, *geom, return_indices=True)
+    dy = torch.randn(tuple(idx.shape), generator=g, device=cuda_device).to(dt)
+    dx = max_pool2d_bwd(dy, idx, geom, 13, 11)
+    torch.cuda.synchronize()
+    want = max_pool2d_bwd_plain(dy, idx, geom, 13, 11)
+    assert dx.dtype == dt and torch.equal(dx, want)
+    # through autograd: K1 saves the codes, K3 runs in backward
+    xr = x.clone().requires_grad_()
+    max_pool2d(xr, *geom).backward(dy)
+    assert torch.equal(xr.grad, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("params", [(5, 1.0, 0.75, 1.0), (4, 1.0, 0.5, 2.0),
+                                    (3, 0.5, 1.0, 1.0)],
+                         ids=["beta0.75", "beta0.5", "powf"])
+def test_lrn_bwd_kernel_matches_plain(cuda_device, dtype, params):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = torch.randn((2, 7, 9, 13), generator=g, device=cuda_device).to(dt)
+    dy = torch.randn((2, 7, 9, 13), generator=g, device=cuda_device).to(dt)
+    size, alpha, beta, k = params
+    _, scale = cross_map_lrn(x, *params, return_scale=True)
+    dx = lrn_bwd(x, scale, dy, size, alpha, beta)
+    torch.cuda.synchronize()
+    want = lrn_bwd_plain(x, scale, dy, size, alpha, beta)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(dx.float(), want.float(), **tol)
+    xr = x.clone().requires_grad_()
+    cross_map_lrn(xr, *params).backward(dy)
+    torch.testing.assert_close(xr.grad.float(), want.float(), **tol)
+
+
 def test_kernel_launches_are_counted(cuda_device):
     x = torch.randn((2, 4, 8, 8), device=cuda_device)
-    before = (max_pool2d.launches, cross_map_lrn.launches)
+    wrappers = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd)
+    before = [fn.launches for fn in wrappers]
     max_pool2d(x, 2, 2, 2, 2)
     cross_map_lrn(x)
+    xr = x.clone().requires_grad_()
+    (max_pool2d(xr, 2, 2, 2, 2).sum() + cross_map_lrn(xr).sum()).backward()
     torch.cuda.synchronize()
-    assert (max_pool2d.launches, cross_map_lrn.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert [fn.launches for fn in wrappers] == \
+        [before[0] + 2, before[1] + 2, before[2] + 1, before[3] + 1]
     with pytest.raises(ValueError, match="contiguous"):
         max_pool2d(x.transpose(2, 3), 2, 2, 2, 2)
