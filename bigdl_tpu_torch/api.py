@@ -7,6 +7,11 @@ The forward runs under ``torch.inference_mode()`` on the classifier's device
 taken on the device and the host fetches ``bsz`` int32s.  CUDA work is
 asynchronous, so up to ``pipeline_depth`` chunks are in flight before the
 oldest chunk's predictions are fetched.
+
+``quantize=`` (``"w8"``/``"int8"``, ``"w8a8"`` with ``calibration_rows``,
+``"w4"``/``"int4"``, ``"f8"``/``"fp8"``) serves a private packed copy of the
+model (``ops.quant.quantize_model``, fp leaves cast to ``compute_dtype``);
+the caller's model keeps its fp weights.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from bigdl_tpu_torch.core.device import resolve_device, synchronize
 from bigdl_tpu_torch.core.precision import mixed_forward
+from bigdl_tpu_torch.ops import quant
 
 
 class DLClassifier:
@@ -27,7 +33,9 @@ class DLClassifier:
     ``batch_shape`` is the full input batch shape including the leading
     batch dim.  ``transform`` yields one output row per input row with the
     1-based predicted class under ``predict_col``.  The model is moved to
-    ``device`` and put in eval mode in place.
+    ``device`` and put in eval mode in place.  With ``quantize=`` the
+    forward runs ``self.qmodel``, the packed copy; ``"w8a8"`` calibrates its
+    activation scales on ``calibration_rows`` first.
     """
 
     def __init__(self, model, batch_shape,
@@ -37,13 +45,16 @@ class DLClassifier:
                  compute_dtype=None,
                  device="cuda",
                  quantize: Optional[str] = None,
+                 calibration_rows: Optional[Iterable[Any]] = None,
                  mesh=None,
                  sharding=None):
-        if quantize is not None:
-            raise NotImplementedError(
-                "quantize= comes with the quantized-inference slice of the "
-                "port (kernels K13-K15)")
         if mesh is not None or sharding is not None:
+            if quantize is not None:
+                raise NotImplementedError(
+                    "quantize= with mesh= or sharding=: a quantized-inference "
+                    "classifier serves unsharded (a packed copy has no "
+                    "partition rules), and mesh=/sharding= come with the "
+                    "parallel-strategies slice of the port")
             raise NotImplementedError(
                 "mesh= and sharding= come with the parallel-strategies "
                 "slice of the port")
@@ -56,6 +67,30 @@ class DLClassifier:
         # depth=1: dispatch, then fetch the same chunk (least memory);
         # depth>=2 overlaps chunk k+1's upload and forward with chunk k
         self.pipeline_depth = max(1, int(pipeline_depth))
+        mode = quant.normalize_mode(quantize)
+        self.quantize = mode
+        self.qmodel = None
+        if mode is not None:
+            quant.check_mode(mode, quantize)
+            calib = None
+            if mode == "w8a8":
+                rows = list(calibration_rows or ())
+                if not rows:
+                    raise ValueError(
+                        "quantize='w8a8' needs calibration_rows: a few "
+                        "representative feature rows to fix the per-tensor "
+                        "activation scales (weight-only quantization is "
+                        "quantize='w8')")
+                cal = []
+                for i, r in enumerate(rows):
+                    f = self._features(r)
+                    msg = self._row_mismatch(f, f"calibration row {i}")
+                    if msg is not None:
+                        raise ValueError(msg)
+                    cal.append(f.reshape(self.batch_shape[1:]))
+                calib = quant.calibrate(self.model, [np.stack(cal)])
+            self.qmodel = quant.quantize_model(self.model, mode, calib=calib,
+                                               cast_rest=compute_dtype)
 
     # -- internals ----------------------------------------------------------
 
@@ -110,7 +145,11 @@ class DLClassifier:
         forward."""
         with torch.inference_mode():
             x = x.to(self.device, non_blocking=True)
-            if self.compute_dtype is not None:
+            if self.qmodel is not None:
+                # the packed copy carries its serving dtypes (a tree cast
+                # would cast the f32 scales); _pack cast the input
+                y = self.qmodel(x)
+            elif self.compute_dtype is not None:
                 y = mixed_forward(self.model, x, self.compute_dtype)
             else:
                 y = self.model(x)

@@ -10,7 +10,8 @@
 namespace bigdl {
 
 // dtype codes, kept in step with bigdl_tpu_torch/ops/_build.py DTYPE_CODES
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// (activations) and WEIGHT_CODES (packed weights: int8, e4m3)
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kF8E4M3 = 3 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {

@@ -4,6 +4,13 @@ Weight layout OIHW ``(outC, inC/nGroup, kH, kW)``, NCHW input, groups, and
 3-D CHW input lifted to batch 1.  The JAX package leaves convolution to
 XLA (``lax.conv_general_dilated``), outside any Pallas kernel; the port
 leaves it to ``torch.nn.functional.conv2d`` the same way.
+
+A packed weight (a ``quant.quantize_model`` copy) takes the fused int8 conv
+(``quant.int8_conv2d``: patches, then K13) when it is eligible: int8 rung,
+no activation scale, stride 1, one group.  Every other packed weight is
+widened to the input dtype and convolved by ``F.conv2d``; the bias is added
+after the conv on both paths, as the reference adds it.  A subclass with
+another geometry (dilation) must keep to the widen path.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from torch import nn
 
 from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.module import Module, seeded
+from bigdl_tpu_torch.ops import quant
 
 
 def _maybe_batched(fn, input):
@@ -70,10 +78,25 @@ class SpatialConvolution(Module):
                 self.bias.copy_(init_methods.uniform(
                     gen, (self.n_output_plane,), 1.0 / math.sqrt(fan_in)))
 
+    def _fused_int8_eligible(self, qt) -> bool:
+        return (quant.packed_kind(qt) == "q8" and "sx" not in qt
+                and self.stride_h == 1 and self.stride_w == 1
+                and self.n_group == 1)
+
     def forward(self, input):
+        qt = quant.packed_weight(self)
+        stride = (self.stride_h, self.stride_w)
+        padding = (self.pad_h, self.pad_w)
+
         def run(x):
-            return F.conv2d(x, self.weight, self.bias,
-                            stride=(self.stride_h, self.stride_w),
-                            padding=(self.pad_h, self.pad_w),
-                            groups=self.n_group)
+            if qt is None:
+                return F.conv2d(x, self.weight, self.bias, stride=stride,
+                                padding=padding, groups=self.n_group)
+            if self._fused_int8_eligible(qt):
+                y = quant.int8_conv2d(x, qt, padding=padding)
+            else:
+                y = F.conv2d(x, quant.unpack(qt, x.dtype), stride=stride,
+                             padding=padding, groups=self.n_group)
+            return y if self.bias is None else \
+                y + self.bias[None, :, None, None]
         return _maybe_batched(run, input)

@@ -1,5 +1,11 @@
 """Linear (``bigdl_tpu/nn/linear.py``): y = x W^T + b, weight
-``(outputSize, inputSize)`` as in Torch."""
+``(outputSize, inputSize)`` as in Torch.
+
+In a :func:`bigdl_tpu_torch.ops.quant.quantize_model` copy the weight is
+packed and the product runs the fused dequant-matmul (``quant.int8_matmul``:
+K13, K14 or K15 by rung); an fp weight takes ``F.linear`` and is the
+calibration point (``quant.observe``), as ``matmul_or_observe`` is in the
+reference."""
 
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ from torch import nn
 
 from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.module import Module, seeded
+from bigdl_tpu_torch.ops import quant
 
 
 class Linear(Module):
@@ -39,4 +46,9 @@ class Linear(Module):
                     1.0 / math.sqrt(self.input_size)))
 
     def forward(self, input):
+        qt = quant.packed_weight(self)
+        if qt is not None:
+            y = quant.int8_matmul(input, qt)
+            return y if self.bias is None else y + self.bias
+        quant.observe(self, input)
         return F.linear(input, self.weight, self.bias)

@@ -5,7 +5,13 @@
   ``_fwd_kernel`` and ``_bwd_kernel``);
 * ``lrn``     — K2, cross-map LRN forward, and K4, its backward
   (``csrc/lrn.cu``; replace ``bigdl_tpu/ops/lrn.py`` ``_fwd_kernel`` and
-  ``_bwd_kernel``).
+  ``_bwd_kernel``);
+* ``quant``   — the quantized-inference codecs, calibration and model
+  packing, and the fused dequant-matmuls (``csrc/quant_matmul.cu``): K13
+  (``w8_matmul`` for int8 weights, ``f8_matmul`` for e4m3; replaces
+  ``bigdl_tpu/ops/quant.py`` ``_w8_kernel``), K14 (``a8_matmul``, int8 x
+  int8; ``_a8_kernel``) and K15 (``w4_matmul``, int4 nibbles;
+  ``_w4_kernel``).
 
 A wrapper takes the plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises; there is no switch that hides a kernel.  Each
@@ -19,8 +25,14 @@ from bigdl_tpu_torch.ops.lrn import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
 from bigdl_tpu_torch.ops.pooling import (max_pool2d, max_pool2d_bwd,
                                          max_pool2d_bwd_plain,
                                          max_pool2d_plain, pool_geometry)
+from bigdl_tpu_torch.ops.quant import (a8_matmul, f8_matmul,
+                                       int4_matmul_plain,
+                                       int8_a8_matmul_plain,
+                                       int8_matmul_plain, w4_matmul,
+                                       w8_matmul)
 
-KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd)
+KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd,
+                   w8_matmul, f8_matmul, a8_matmul, w4_matmul)
 
 
 def reset_launches() -> None:
@@ -28,7 +40,8 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["cross_map_lrn", "lrn_bwd", "lrn_bwd_plain", "lrn_plain",
-           "max_pool2d", "max_pool2d_bwd", "max_pool2d_bwd_plain",
-           "max_pool2d_plain", "pool_geometry", "KERNEL_WRAPPERS",
-           "reset_launches"]
+__all__ = ["a8_matmul", "cross_map_lrn", "f8_matmul", "int4_matmul_plain",
+           "int8_a8_matmul_plain", "int8_matmul_plain", "lrn_bwd",
+           "lrn_bwd_plain", "lrn_plain", "max_pool2d", "max_pool2d_bwd",
+           "max_pool2d_bwd_plain", "max_pool2d_plain", "pool_geometry",
+           "w4_matmul", "w8_matmul", "KERNEL_WRAPPERS", "reset_launches"]

@@ -29,8 +29,10 @@ LIB_NAME = "libbigdl_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-# dtype codes, kept in step with csrc/common.cuh
+# dtype codes, kept in step with csrc/common.cuh: activations, then the
+# packed weights of the quantized matmuls
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WEIGHT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -49,6 +51,12 @@ _SIGNATURES = {
     # x, scale, dy, dx, dtype, n, c, hw, size, alpha/size, beta, mode, stream
     "bigdl_lrn_bwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
                       ctypes.c_float, ctypes.c_float, _I, _P],
+    # x, q, scale, y, x dtype, weight dtype, m, n, k, stream
+    "bigdl_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, q, scale * sx, y, y dtype, m, n, k, stream
+    "bigdl_a8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, q4, scale, y, x dtype, m, n, k, stream
+    "bigdl_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

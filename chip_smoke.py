@@ -15,6 +15,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
 2b. the backward kernels (K3 max pool, K4 LRN) the same way, K3 on the
    argmax codes K1 wrote, and one autograd round trip per layer on the
    card against the same on the CPU;
+2c. the quantized matmuls (K13 with int8 and e4m3 weights, K14 int8 x
+   int8, K15 int4) against their plain versions at every (M, K, N) that
+   quantized Inception-v1 gives them at buckets 8 and 32 and at ragged
+   shapes, in float32 and bfloat16: K14 bit-equal, K13/K15 within 1e-4 of
+   each output's sum of |products| (f32 sums in another order), plus one
+   bfloat16 rounding step in bfloat16;
 3. serving: full-width ``Inception_v1(1000)`` with seeded random weights
    behind ``InferenceServer(DLClassifier(..., device="cuda"),
    batch_buckets=(8, 32))``; every request must resolve to the same class
@@ -30,12 +36,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
    K3 + 2 K2 + 2 K4 per step (validation forwards run K1/K2 alone);
 3c. the same weights (dropout 0) trained 2 float32 steps at batch 4 on the
    card and on the CPU: losses to rtol 1e-4, every weight to 1e-4;
+3d. quantized serving: the same seeded Inception-v1 behind
+   ``InferenceServer(DLClassifier(..., quantize="w8",
+   compute_dtype=torch.bfloat16), batch_buckets=(8, 32))``; every request
+   must equal ``DLClassifier.predict``, each forward must launch 56 K13 +
+   13 K1 + 2 K2 and nothing else, and 8 rows must agree with a CPU run of
+   the same packed copy (and, argmax included, of an f32 one); then one
+   batch-32 forward each of ``w8a8`` (calibrated on 8 seeded rows),
+   ``w4`` and ``f8`` with their launch counts (55 K13 + 1 K14; 1 K15;
+   1 K13 with e4m3 weights), and for every
+   rung its top-1 agreement and mean |dlog-prob| against the unquantized
+   bf16 forward and its resident bytes against the bf16 tree (reported,
+   not gated: the weights are random);
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
    function; the classifier's forward per bucket; the closed-loop serving
    images/s and request latency per bucket; the train step in bf16 mixed
-   precision and in float32.
+   precision and in float32; K13-K15 summed over one batch-32 quantized
+   forward beside their bounds, plain versions and library calls, the
+   fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
+   bf16 forward per bucket with a profiler breakdown of its device time.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -103,6 +124,19 @@ RAGGED_LRNS = [
 LRN_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2e-2, 1e-2)}
 # K4 against a plain version that rounds to bf16 at every op
 LRN_BWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+QWAVES = {8: 3, 32: 1}         # quantized serving waves per bucket
+QCPU_ROWS = 8
+QCAL_ROWS = 8
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
+QSUM_RTOL = 1e-4               # K13/K15 vs plain, of sum |x * w| per output
+BF16_STEP = 2.0 ** -7          # one bfloat16 rounding step of the output
+QCPU_ATOL = 0.25               # w8 bf16 log-probs, card vs CPU
+RAGGED_MATMULS = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 577, 191),
+                  (1, 1024, 1000), (8, 1023, 999), (65, 9, 3),
+                  (300, 1728, 384)]
+# fused convs (unfold + K13) timed end to end against cuDNN
+QCONVS = ["conv2/3x3", "inception_3a/1x1", "inception_4e/5x5"]
 TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
 TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
 CPU_BATCH, CPU_STEPS = 4, 2
@@ -114,6 +148,18 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def launches_now():
+    from bigdl_tpu_torch import ops
+    return {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+
+
+def per_forward(counts, forwards):
+    """Every wrapper's expected launches: ``counts`` per forward, 0 else."""
+    from bigdl_tpu_torch import ops
+    return {fn.__name__: counts.get(fn.__name__, 0) * forwards
+            for fn in ops.KERNEL_WRAPPERS}
 
 
 # -- timing -------------------------------------------------------------------
@@ -303,6 +349,116 @@ def check_backward_kernels(device):
     return errs, cases, misses
 
 
+# -- phase 2c: the quantized matmuls against their plain versions -------------
+
+def quant_products(qmodel, device, bucket, dtype):
+    """Every packed product of ``qmodel``'s forward at batch ``bucket``, in
+    forward order: ``(layer name, kind, M, K, N, conv geometry)``, kind
+    ``"conv"`` for a fused conv (unfold + K13), ``"linear"`` for a packed
+    Linear; widened convs run cuDNN and are left out.  Found with forward
+    pre-hooks over one batch-1 forward in ``dtype``."""
+    import torch
+    import bigdl_tpu_torch.nn as tnn
+    from bigdl_tpu_torch.ops import quant
+    seen = []
+
+    def hook(m, args):
+        seen.append((m, tuple(args[0].shape)))
+
+    handles = [m.register_forward_pre_hook(hook) for m in qmodel.modules()
+               if quant.packed_weight(m) is not None]
+    x = torch.zeros((1, 3, IMAGE, IMAGE), device=device, dtype=dtype)
+    with torch.inference_mode():
+        qmodel(x)
+    for h in handles:
+        h.remove()
+    out = []
+    for m, shape in seen:
+        qt = quant.packed_weight(m)
+        if isinstance(m, tnn.Linear):
+            out.append((m.name, "linear", bucket, m.input_size,
+                        m.output_size, None))
+        elif m._fused_int8_eligible(qt):
+            _, c, h, w = shape
+            oh = h + 2 * m.pad_h - m.kernel_h + 1
+            ow = w + 2 * m.pad_w - m.kernel_w + 1
+            out.append((m.name, "conv", bucket * oh * ow,
+                        c * m.kernel_h * m.kernel_w, m.n_output_plane,
+                        (c, h, w, m.kernel_h, m.kernel_w, m.pad_h, m.pad_w)))
+    return out
+
+
+def quant_close(got, want, x, wide):
+    """(max |err|, within tolerance) of a K13/K15 result against its plain
+    version: QSUM_RTOL of each output's sum of |products| (f32 sums in
+    another order), plus one bf16 rounding step of the output in bf16."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    bound = QSUM_RTOL * (x.float().abs() @ wide.float().abs().t())
+    if got.dtype == torch.bfloat16:
+        bound = bound + BF16_STEP * want.float().abs()
+    return err.max().item() if err.numel() else 0.0, bool(
+        (err <= bound).all()) and bool(torch.isfinite(got).all())
+
+
+def check_quant_kernels(device, path_shapes):
+    """Hold K13 (int8 and e4m3 weights), K14 and K15 against their plain
+    versions at ``path_shapes`` ({wrapper: [(M, K, N), ...]}, the path's
+    products at buckets 8 and 32) and at RAGGED_MATMULS, in float32 and
+    bfloat16; returns per-kernel errors (float32 cases), cases and
+    mismatches as :func:`check_kernels` does."""
+    import torch
+    from bigdl_tpu_torch.ops import quant
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    names = ("w8_matmul", "f8_matmul", "a8_matmul", "w4_matmul")
+    errs = {k: 0.0 for k in names}
+    errs_bf16 = {k: 0.0 for k in names}
+    cases = {k: 0 for k in names}
+    misses = {k: 0 for k in names}
+    for name in names:
+        for m, k, n in sorted(set(path_shapes[name])) + RAGGED_MATMULS:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen,
+                                device=device).to(dtype)
+                w = torch.randn((n, k), generator=gen, device=device)
+                if name == "a8_matmul":
+                    qt = quant.pack(w, sx=3.0 / 127)
+                    xq = quant.quantize_act(x, qt["sx"])
+                    s = qt["scale"] * qt["sx"]
+                    got = quant.a8_matmul(xq, qt["q8"], s, dtype)
+                    torch.cuda.synchronize()
+                    want = quant.int8_a8_matmul_plain(xq, qt["q8"], s, dtype)
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = torch.equal(got, want)
+                elif name == "w4_matmul":
+                    qt = quant.pack(w, mode="w4")
+                    got = quant.w4_matmul(x, qt["q4"], qt["scale"], k)
+                    torch.cuda.synchronize()
+                    want = quant.int4_matmul_plain(x, qt["q4"], qt["scale"],
+                                                   k)
+                    err, ok = quant_close(got, want, x, quant.unpack(qt))
+                else:
+                    mode = "w8" if name == "w8_matmul" else "f8"
+                    qt = quant.pack(w, mode=mode)
+                    q = qt["q8" if mode == "w8" else "f8"]
+                    fn = getattr(quant, name)
+                    got = fn(x, q, qt["scale"])
+                    torch.cuda.synchronize()
+                    want = quant.int8_matmul_plain(x, q, qt["scale"])
+                    err, ok = quant_close(got, want, x, quant.unpack(qt))
+                cases[name] += 1
+                into = errs if dtype == torch.float32 else errs_bf16
+                into[name] = max(into[name], err)
+                if not ok or got.shape != (m, n) or got.dtype != dtype:
+                    misses[name] += 1
+                    fail(f"{name} {(m, k, n)} {dtype}: max |err| {err} "
+                         "beyond tolerance (K14: not bit-equal)")
+    log("quantized kernels vs plain: " + "; ".join(
+        f"{k} {cases[k]} cases, max |err| f32 {errs[k]:.3g} bf16 "
+        f"{errs_bf16[k]:.3g}" for k in names) + " (a8_matmul bit-equal)")
+    return errs, cases, misses
+
+
 # -- phase 3: serving ---------------------------------------------------------
 
 def build_model():
@@ -368,7 +524,7 @@ def serve(device):
                              "p50_ms": 1e3 * lats[len(lats) // 2],
                              "max_ms": 1e3 * lats[-1],
                              "preds": preds_b}
-        launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+        launches = launches_now()
         stats = server.stats()           # the main path ends here
     finally:
         if not server.drain(timeout=120):
@@ -378,10 +534,10 @@ def serve(device):
     total = N_ROWS + sum(b * WAVES[b] for b in BUCKETS)
     if stats["counters"].get("serve.completed") != total:
         fail(f"{stats['counters']} — expected {total} completed requests")
-    if launches["max_pool2d"] != 13 * forwards or \
-            launches["cross_map_lrn"] != 2 * forwards:
+    if launches != per_forward({"max_pool2d": 13, "cross_map_lrn": 2},
+                               forwards):
         fail(f"launches {launches} for {forwards} forwards: expected 13 "
-             "max-pool and 2 LRN launches per forward")
+             "max-pool and 2 LRN launches per forward and nothing else")
 
     # predictions equal DLClassifier.predict on the same rows
     all_rows = rows + [r for b in BUCKETS for r in wave_rows[b]]
@@ -472,7 +628,7 @@ def train(device):
                        val=make_samples(VAL_SAMPLES, SEED + 200))
     ops.reset_launches()                 # the training path starts here
     opt.optimize()
-    launches = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS}
+    launches = launches_now()
     losses = [r["loss"] for r in opt.step_records]   # the path ends here
     log(f"train losses (bf16 mixed, {len(losses)} steps): "
         + json.dumps([round(v, 6) for v in losses]))
@@ -485,9 +641,10 @@ def train(device):
     if top1 is None or top1.count != VAL_SAMPLES or top5.count != VAL_SAMPLES:
         fail(f"validation did not run on {VAL_SAMPLES} samples: {top1}")
     val_fwd = TRAIN_STEPS // VAL_EVERY * (VAL_SAMPLES // BATCH)
-    want = {"max_pool2d": 13 * (TRAIN_STEPS + val_fwd),
-            "cross_map_lrn": 2 * (TRAIN_STEPS + val_fwd),
-            "max_pool2d_bwd": 13 * TRAIN_STEPS, "lrn_bwd": 2 * TRAIN_STEPS}
+    want = per_forward({"max_pool2d": 13 * (TRAIN_STEPS + val_fwd),
+                        "cross_map_lrn": 2 * (TRAIN_STEPS + val_fwd),
+                        "max_pool2d_bwd": 13 * TRAIN_STEPS,
+                        "lrn_bwd": 2 * TRAIN_STEPS}, 1)
     if launches != want:
         fail(f"training launches {launches}, expected {want} (13 K1 + 13 K3 "
              f"+ 2 K2 + 2 K4 per step, K1/K2 per validation forward)")
@@ -531,6 +688,150 @@ def train_vs_cpu(device):
     log(f"train card vs CPU ({CPU_STEPS} f32 steps, batch {CPU_BATCH}): "
         f"losses {la} vs {lb}, max |dw| {dw:.3g}")
     return {"losses_card": la, "losses_cpu": lb, "max_abs_dw": dw}
+
+
+# -- phase 3d: quantized serving ----------------------------------------------
+
+# launches per forward of each rung (K1 and K2 as in fp serving)
+RUNG_LAUNCHES = {
+    "w8": {"w8_matmul": 56, "max_pool2d": 13, "cross_map_lrn": 2},
+    "w8a8": {"w8_matmul": 55, "a8_matmul": 1, "max_pool2d": 13,
+             "cross_map_lrn": 2},
+    "w4": {"w4_matmul": 1, "max_pool2d": 13, "cross_map_lrn": 2},
+    "f8": {"f8_matmul": 1, "max_pool2d": 13, "cross_map_lrn": 2},
+}
+
+
+def quant_classifier(model, mode, device, cal_rows=None):
+    import torch
+    from bigdl_tpu_torch.api import DLClassifier
+    return DLClassifier(model, (BATCH, 3, IMAGE, IMAGE), quantize=mode,
+                        compute_dtype=torch.bfloat16, device=device,
+                        calibration_rows=cal_rows)
+
+
+def serve_quantized(device):
+    """Drive quantized serving (w8, bf16, buckets 8 and 32), then one
+    batch-32 forward of each other rung; returns the report, the launches
+    by path and the w8 classifier."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.core.precision import mixed_forward
+    from bigdl_tpu_torch.ops import quant
+    from bigdl_tpu_torch.serving import InferenceServer
+
+    model = build_model()
+    clf = quant_classifier(model, "w8", device)
+    t0 = time.monotonic()
+    server = InferenceServer(clf, batch_buckets=BUCKETS, device=device)
+    warm_s = time.monotonic() - t0
+    wave_rows = {b: make_rows(b * QWAVES[b], SEED + 20 + b) for b in BUCKETS}
+    served = []
+    try:
+        ops.reset_launches()             # the w8 serving path starts here
+        for b in BUCKETS:
+            for w in range(QWAVES[b]):
+                futs = [server.submit(r)
+                        for r in wave_rows[b][w * b:(w + 1) * b]]
+                served += [f.result(timeout=600) for f in futs]
+        launches = launches_now()
+        stats = server.stats()           # the w8 serving path ends here
+    finally:
+        if not server.drain(timeout=120):
+            fail("quantized server did not drain")
+    forwards = sum(v["batches"] for v in stats["buckets"].values())
+    total = sum(b * QWAVES[b] for b in BUCKETS)
+    if stats["counters"].get("serve.completed") != total:
+        fail(f"{stats['counters']} — expected {total} completed requests")
+    want = per_forward(RUNG_LAUNCHES["w8"], forwards)
+    if launches != want:
+        fail(f"w8 serving launches {launches} for {forwards} forwards, "
+             f"expected {want}")
+    all_rows = [r for b in BUCKETS for r in wave_rows[b]]
+    offline = clf.predict(all_rows)
+    if list(offline) != served:
+        bad = sum(int(a != b) for a, b in zip(offline, served))
+        fail(f"{bad} of {total} quantized served predictions differ from "
+             "DLClassifier.predict")
+
+    # the same packed copy on the CPU (plain versions), on the first wave
+    cpu_q = copy.deepcopy(clf.qmodel).to("cpu")
+    x8 = clf._pack(all_rows[:QCPU_ROWS], size=QCPU_ROWS)
+    with torch.inference_mode():
+        lp_dev = clf.qmodel(x8.to(device)).float().cpu()
+        lp_cpu = cpu_q(x8).float()
+    if lp_dev.shape != (QCPU_ROWS, CLASSES) or \
+            not torch.isfinite(lp_dev).all():
+        fail(f"quantized log-probs have shape {tuple(lp_dev.shape)} or are "
+             "not finite")
+    diff = (lp_dev - lp_cpu).abs().max().item()
+    top2 = lp_cpu.topk(2, dim=1).values
+    firm = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    if diff > QCPU_ATOL or not torch.equal(lp_dev.argmax(1)[firm],
+                                           lp_cpu.argmax(1)[firm]):
+        fail(f"w8 card vs CPU log-probs: max |diff| {diff} (atol "
+             f"{QCPU_ATOL}), argmax {lp_dev.argmax(1).tolist()} vs "
+             f"{lp_cpu.argmax(1).tolist()}")
+    if (lp_dev.argmax(1) + 1).tolist() != served[:QCPU_ROWS]:
+        fail("w8 served predictions disagree with the same batch's forward")
+    same = int((lp_dev.argmax(1) == lp_cpu.argmax(1)).sum())
+    # random weights leave near ties at bf16 resolution; an f32 packed copy
+    # (K13 on FFMA) holds the argmax of the same rows against the CPU
+    q32 = quant.quantize_model(model, "w8")
+    x8f = torch.from_numpy(np.stack(all_rows[:QCPU_ROWS]))
+    with torch.inference_mode():
+        lp32_dev = q32(x8f.to(device)).cpu()
+        lp32_cpu = copy.deepcopy(q32).to("cpu")(x8f)
+    diff32 = (lp32_dev - lp32_cpu).abs().max().item()
+    if diff32 > 1e-3 or not torch.equal(lp32_dev.argmax(1),
+                                        lp32_cpu.argmax(1)):
+        fail(f"w8 f32 card vs CPU log-probs: max |diff| {diff32} (atol "
+             f"1e-3), argmax {lp32_dev.argmax(1).tolist()} vs "
+             f"{lp32_cpu.argmax(1).tolist()}")
+    log(f"quantized serving (w8, bf16): {total} requests in {forwards} "
+        f"forwards, equal to DLClassifier.predict; {QCPU_ROWS} rows vs the "
+        f"CPU: max |dlogp| {diff:.4g}, argmax equal on {same} of "
+        f"{QCPU_ROWS} rows (held on the {int(firm.sum())} whose margin "
+        f"exceeds 2x that; {int((~firm).sum())} near ties); an f32 packed "
+        f"copy: max |dlogp| {diff32:.3g}, argmax equal on all "
+        f"{QCPU_ROWS}; launches {launches}")
+
+    # every rung against the unquantized bf16 forward, one batch of 32;
+    # the other rungs' forward is each one's main path
+    rows32 = make_rows(BATCH, SEED + 30)
+    x32 = clf._pack(rows32).to(device)
+    with torch.inference_mode():
+        lp_bf16 = mixed_forward(model, x32, torch.bfloat16)
+    bf16_bytes = 2 * sum(p.numel() for p in model.parameters())
+    rungs, by_path = {}, {"serve_w8": launches}
+    for mode in ("w8", "w8a8", "w4", "f8"):
+        c = clf
+        if mode != "w8":
+            cal = make_rows(QCAL_ROWS, SEED + 40) if mode == "w8a8" else None
+            c = quant_classifier(model, mode, device, cal)
+            ops.reset_launches()         # this rung's path starts here
+            c.predict(rows32)
+            got = launches_now()         # and ends here
+            if got != per_forward(RUNG_LAUNCHES[mode], 1):
+                fail(f"{mode} forward launches {got}, expected "
+                     f"{per_forward(RUNG_LAUNCHES[mode], 1)}")
+            by_path[mode] = got
+        with torch.inference_mode():
+            lp = c.qmodel(x32).float()
+        by_dtype = quant.param_bytes_by_dtype(c.qmodel)
+        rungs[mode] = {
+            "top1_agreement_vs_bf16":
+                (lp.argmax(1) == lp_bf16.argmax(1)).float().mean().item(),
+            "mean_abs_dlogp_vs_bf16": (lp - lp_bf16).abs().mean().item(),
+            "bytes_by_dtype": by_dtype,
+            "resident_ratio_vs_bf16": sum(by_dtype.values()) / bf16_bytes,
+            "budget": quant.RUNG_BUDGETS[mode]}
+    report = {"warmup_s": warm_s, "forwards": forwards, "requests": total,
+              "cpu_max_abs_logp_diff": diff,
+              "cpu_near_ties": int((~firm).sum()),
+              "cpu_argmax_equal": same, "cpu_f32_max_abs_logp_diff": diff32,
+              "bf16_tree_bytes": bf16_bytes, "rungs": rungs}
+    return report, by_path, clf
 
 
 # -- phase 4: timings ---------------------------------------------------------
@@ -659,14 +960,129 @@ def time_train_kernels(device):
     return out
 
 
+def _shape_counts(shapes):
+    out = {}
+    for mkn in shapes:
+        out[mkn] = out.get(mkn, 0) + 1
+    return out
+
+
+def time_quant_kernels(device, prods32):
+    """K13-K15 summed over one batch-32 quantized forward's calls (per
+    distinct shape: the median of TIMING_REPS with the L2 flushed, times
+    its count): kernel, bound, plain version and library call.  K13 with
+    int8 weights is timed in bf16 (the serving path) and f32; K13 with e4m3
+    weights, K14 and K15 at the Linear, the one product each runs."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import quant
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    bf16 = torch.bfloat16
+    lin = [(m, k, n) for _, kind, m, k, n, _ in prods32 if kind == "linear"]
+    plan = {
+        "w8_matmul": (_shape_counts([(m, k, n)
+                                     for _, _, m, k, n, _ in prods32]), bf16),
+        "w8_matmul_f32": (_shape_counts([(m, k, n) for _, _, m, k, n, _
+                                         in prods32]), torch.float32),
+        "f8_matmul": (_shape_counts(lin), bf16),
+        "a8_matmul": (_shape_counts(lin), bf16),
+        "w4_matmul": (_shape_counts(lin), bf16),
+    }
+    out = {}
+    for name, (counts, dtype) in plan.items():
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+             "bytes_ms": 0.0, "ops_ms": 0.0, "calls": 0}
+        xb = 2 if dtype == bf16 else 4
+        for (m, k, n), c in counts.items():
+            x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+            w = torch.randn((n, k), generator=gen, device=device)
+            if name == "a8_matmul":
+                qt = quant.pack(w, sx=3.0 / 127)
+                xq = quant.quantize_act(x, qt["sx"])
+                s = qt["scale"] * qt["sx"]
+                q8t = qt["q8"].t()
+                nbytes = m * k + n * k + 4 * n + xb * m * n
+                peak = INT8_OPS
+                kern = lambda: quant.a8_matmul(xq, qt["q8"], s, dtype)
+                plain = lambda: quant.int8_a8_matmul_plain(xq, qt["q8"], s,
+                                                           dtype)
+                lib = lambda: (torch._int_mm(xq, q8t).float()
+                               * s).to(dtype)
+                try:        # the yardstick only: its shape rules may refuse
+                    lib()
+                except RuntimeError as e:
+                    log(f"torch._int_mm refuses {(m, k, n)}: {e}")
+                    lib = None
+            else:
+                mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(name, "w8")
+                qt = quant.pack(w, mode=mode)
+                wide = quant.unpack(qt, dtype)
+                qbytes = n * ((k + 1) // 2) if mode == "w4" else n * k
+                nbytes = xb * m * k + qbytes + 4 * n + xb * m * n
+                peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
+                if mode == "w4":
+                    kern = lambda: quant.w4_matmul(x, qt["q4"], qt["scale"],
+                                                   k)
+                    plain = lambda: quant.int4_matmul_plain(
+                        x, qt["q4"], qt["scale"], k)
+                else:
+                    q = qt["q8" if mode == "w8" else "f8"]
+                    fn = quant.w8_matmul if mode == "w8" else quant.f8_matmul
+                    kern = lambda: fn(x, q, qt["scale"])
+                    plain = lambda: quant.int8_matmul_plain(x, q,
+                                                            qt["scale"])
+                lib = lambda: F.linear(x, wide)
+            t["bytes_ms"] += c * 1e3 * nbytes / HBM_BYTES_PER_S
+            t["ops_ms"] += c * 1e3 * 2 * m * n * k / peak
+            t["bound_ms"] += c * 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                           2 * m * n * k / peak)
+            t["ms"] += c * median_ms(kern, device, flush=flush)
+            t["plain_ms"] += c * median_ms(plain, device, flush=flush)
+            t["library_ms"] = None if lib is None or t["library_ms"] is None \
+                else t["library_ms"] + c * median_ms(lib, device, flush=flush)
+            t["calls"] += c
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
+            "operations"
+        t["dtype"] = str(dtype).replace("torch.", "")
+        out[name] = t
+    return out
+
+
+def time_quant_convs(device, prods32):
+    """The fused conv end to end (unfold + K13, bf16, batch 32) against
+    cuDNN ``F.conv2d`` on the widened weight at the QCONVS layers, and the
+    unfold alone; median ms each, L2 flushed."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import quant
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    out = {}
+    for name, kind, m, k, n, geom in prods32:
+        if name not in QCONVS:
+            continue
+        c, h, w, kh, kw, ph, pw = geom
+        x = torch.randn((BATCH, c, h, w), generator=gen,
+                        device=device).to(torch.bfloat16)
+        qt = quant.pack(torch.randn((n, c, kh, kw), generator=gen,
+                                    device=device))
+        wide = quant.unpack(qt, torch.bfloat16)
+        out[name] = {
+            "M": m, "K": k, "N": n,
+            "fused_ms": median_ms(lambda: quant.int8_conv2d(x, qt, (ph, pw)),
+                                  device, flush=flush),
+            "unfold_ms": median_ms(
+                lambda: F.unfold(x, (kh, kw), padding=(ph, pw))
+                .transpose(1, 2).reshape(m, k), device, flush=flush),
+            "cudnn_ms": median_ms(lambda: F.conv2d(x, wide, padding=(ph, pw)),
+                                  device, flush=flush)}
+    return out
+
+
 def profile_train_steps(device, mixed, steps=3):
     """Device time by kernel over ``steps`` training steps after as many
-    warm-up steps (``torch.profiler``): the summed kernel and copy time
-    per step and the kernels that take the most of it.  The profiler slows
-    the host, so the busy share is taken against the unprofiled step time
-    by the caller."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    warm-up steps (:func:`device_profile`)."""
     from bigdl_tpu_torch.models import Inception_v1
     from bigdl_tpu_torch.optim import Trigger
     opt = make_trainer(Inception_v1(CLASSES, dropout=0.4).reset(SEED),
@@ -674,10 +1090,31 @@ def profile_train_steps(device, mixed, steps=3):
                        mixed, device)
     opt.optimize()
     opt.set_end_when(Trigger.max_iteration(2 * steps))
+    return device_profile(opt.optimize, steps)
+
+
+def profile_forward(clf, device, bucket, reps=3):
+    """Device time by kernel of one bucket forward as a worker runs it,
+    over ``reps`` forwards after :func:`time_forwards` warmed it."""
+    x = clf._pack(make_rows(bucket, SEED + 7), size=bucket)
+
+    def run():
+        for _ in range(reps):
+            clf._run(x).cpu()
+    return device_profile(run, reps)
+
+
+def device_profile(fn, n):
+    """``torch.profiler`` over ``fn()``, which runs ``n`` steps or forwards:
+    the summed kernel and copy time per step and the kernels that take the
+    most of it.  The profiler slows the host, so the busy share is taken
+    against an unprofiled time by the caller."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        opt.optimize()
+        fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = {}
@@ -688,7 +1125,7 @@ def profile_train_steps(device, mixed, steps=3):
         if us is None:
             us = evt.self_cuda_time_total
         if us > 0:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / steps
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / n
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"device_ms": sum(kernels.values()),
             "top": [[name[:90], ms] for name, ms in top]}
@@ -716,6 +1153,18 @@ KERNELS = [
     {"name": "lrn_bwd", "wrapper": "lrn_bwd", "route": "cuda",
      "source": "bigdl_tpu_torch/csrc/lrn.cu",
      "replaces": "bigdl_tpu/ops/lrn.py:133"},
+    {"name": "w8_matmul", "wrapper": "w8_matmul", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/quant_matmul.cu",
+     "replaces": "bigdl_tpu/ops/quant.py:417"},
+    {"name": "f8_matmul", "wrapper": "f8_matmul", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/quant_matmul.cu",
+     "replaces": "bigdl_tpu/ops/quant.py:417"},
+    {"name": "a8_matmul", "wrapper": "a8_matmul", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/quant_matmul.cu",
+     "replaces": "bigdl_tpu/ops/quant.py:459"},
+    {"name": "w4_matmul", "wrapper": "w4_matmul", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/quant_matmul.cu",
+     "replaces": "bigdl_tpu/ops/quant.py:441"},
 ]
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -742,14 +1191,37 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc "
         f"{' '.join(_build.ARCH)}, {len(_build.sources())} sources)")
 
-    # phase 2 and 2b
+    # phase 2, 2b and 2c; 2c at the products of the w8 forward
+    from bigdl_tpu_torch.ops import quant
+    probe = quant.quantize_model(build_model().to(device), "w8",
+                                 cast_rest=torch.bfloat16)
+    prods = {b: quant_products(probe, device, b, torch.bfloat16)
+             for b in BUCKETS}
+    del probe
+    lin = [(m, k, n) for b in BUCKETS for _, kind, m, k, n, _ in prods[b]
+           if kind == "linear"]
+    path_shapes = {"w8_matmul": [(m, k, n) for b in BUCKETS
+                                 for _, _, m, k, n, _ in prods[b]],
+                   "f8_matmul": lin, "a8_matmul": lin, "w4_matmul": lin}
     errs, cases, misses = check_kernels(device)
     for d, more in zip((errs, cases, misses), check_backward_kernels(device)):
         d.update(more)
-    # phase 3, 3b and 3c: each path's launches counted from 0
+    for d, more in zip((errs, cases, misses),
+                       check_quant_kernels(device, path_shapes)):
+        d.update(more)
+    # phase 3, 3b, 3c and 3d: each path's launches counted from 0
     report, serve_launches = serve(device)
     train_report, train_launches = train(device)
     train_report["card_vs_cpu"] = train_vs_cpu(device)
+    qreport, quant_launches, qclf = serve_quantized(device)
+    for mode, r in qreport["rungs"].items():
+        log(f"[{card}] rung {mode} (bf16 activations, batch {BATCH}): top-1 "
+            "agreement with the bf16 forward "
+            f"{r['top1_agreement_vs_bf16']:.4f}, mean |dlogp| "
+            f"{r['mean_abs_dlogp_vs_bf16']:.5f}, resident "
+            f"{r['resident_ratio_vs_bf16']:.4f} of the bf16 tree (budget "
+            f"{r['budget']['max_resident_ratio_vs_bf16']}), bytes "
+            f"{r['bytes_by_dtype']}")
     # phase 4
     times = time_kernels(device)
     train_times = time_train_kernels(device)
@@ -758,6 +1230,34 @@ def main() -> int:
         log(f"[{card}] forward bucket {b}: {fwd_ms[b]:.3f} ms median of "
             f"{TIMING_REPS} ({b / fwd_ms[b] * 1e3:.1f} images/s)")
     report["forward_ms"] = fwd_ms
+    qfwd_ms = time_forwards(qclf, device)
+    for b in BUCKETS:
+        log(f"[{card}] w8 bf16 forward bucket {b}: {qfwd_ms[b]:.3f} ms "
+            f"median of {TIMING_REPS} ({b / qfwd_ms[b] * 1e3:.1f} images/s)")
+    qreport["forward_ms"] = qfwd_ms
+    for b in BUCKETS:
+        p = profile_forward(qclf, device, b)
+        p["busy_share"] = p["device_ms"] / qfwd_ms[b]
+        log(f"[{card}] w8 bf16 forward profile bucket {b}: device "
+            f"{p['device_ms']:.3f} ms per forward, busy share "
+            f"{p['busy_share']:.3f} of the {qfwd_ms[b]:.3f} ms forward; top "
+            "kernels and copies (ms per forward): " + json.dumps(p["top"]))
+        qreport[f"profile_bucket_{b}"] = p
+    qtimes = time_quant_kernels(device, prods[BATCH])
+    for name, t in qtimes.items():
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        log(f"[{card}] {name} ({t['dtype']}, {t['calls']} calls of a batch-"
+            f"{BATCH} quantized forward): {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; bytes "
+            f"{t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms, library {lib} ms")
+    qreport["convs"] = time_quant_convs(device, prods[BATCH])
+    for name, t in qreport["convs"].items():
+        log(f"[{card}] fused conv {name} (bf16, batch {BATCH}, M {t['M']} K "
+            f"{t['K']} N {t['N']}): unfold + K13 {t['fused_ms']:.4f} ms "
+            f"(unfold alone {t['unfold_ms']:.4f}), cuDNN on the widened "
+            f"weight {t['cudnn_ms']:.4f} ms")
+    log("quantized serving: " + json.dumps(qreport))
     for b, r in report["per_bucket"].items():
         log(f"[{card}] serving bucket {b} (closed loop, {r['waves']} waves "
             f"of {b}): {r['images_per_s']:.1f} images/s, request p50 "
@@ -791,6 +1291,7 @@ def main() -> int:
         name, wrapper = k["name"], k["wrapper"]
         by_path = {"serve": serve_launches[wrapper],
                    "train": train_launches[wrapper]}
+        by_path.update({p: v[wrapper] for p, v in quant_launches.items()})
         entry = {"name": name, "route": k["route"], "source": k["source"],
                  "replaces": k["replaces"],
                  "launches": sum(by_path.values()),
@@ -800,6 +1301,11 @@ def main() -> int:
         if name in times:        # forward kernels: serving shapes, f32
             entry.update({key: times[name][key] for key in TIME_KEYS})
             entry["train"] = dict(train_times[name], dtype="bfloat16")
+        elif name in qtimes:     # quantized: one batch-32 forward, bf16
+            entry.update({key: qtimes[name][key] for key in TIME_KEYS})
+            entry["calls_per_forward"] = qtimes[name]["calls"]
+            if name == "w8_matmul":
+                entry["f32"] = qtimes["w8_matmul_f32"]
         else:
             entry.update({key: train_times[name][key] for key in TIME_KEYS})
         kernels.append(entry)

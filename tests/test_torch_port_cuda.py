@@ -9,7 +9,11 @@ Tolerances: max-pool forward and backward are bit-equal (values and uint8
 argmax codes; the backward sums in the plain version's order); the LRN
 forward within rtol 1e-5 / atol 1e-6 in float32 and rtol 2e-2 / atol 1e-2
 in bfloat16, the LRN backward within rtol 1e-5 / atol 1e-5 and rtol 2e-2 /
-atol 2e-2, where the plain version rounds to bfloat16 at every step.
+atol 2e-2, where the plain version rounds to bfloat16 at every step.  The
+quantized matmuls: K14 (int8 x int8) is bit-equal; K13 (int8 and e4m3
+weights) and K15 (int4) agree to 1e-4 of each output's sum of |products|
+(f32 sums taken in another order, mma.sync's accumulation in bfloat16),
+plus one bfloat16 rounding step of the output (2^-7 relative) in bfloat16.
 """
 
 import pytest
@@ -18,6 +22,7 @@ import torch
 from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                  lrn_plain, max_pool2d, max_pool2d_bwd,
                                  max_pool2d_bwd_plain, max_pool2d_plain)
+from bigdl_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
 
@@ -120,3 +125,59 @@ def test_kernel_launches_are_counted(cuda_device):
         [before[0] + 2, before[1] + 2, before[2] + 1, before[3] + 1]
     with pytest.raises(ValueError, match="contiguous"):
         max_pool2d(x.transpose(2, 3), 2, 2, 2, 2)
+
+
+MATMUL_SHAPES = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 576, 192),
+                 (300, 1024, 1000), (2, 1728, 384)]
+
+
+def _sum_close(got, want, x, wide, dtype):
+    bound = 1e-4 * (x.float().abs() @ wide.float().abs().t())
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -7 * want.float().abs()
+    return bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", MATMUL_SHAPES,
+                         ids=["x".join(map(str, s)) for s in MATMUL_SHAPES])
+def test_quant_matmul_kernels_match_plain(cuda_device, mkn, dtype):
+    m, k, n = mkn
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda_device).to(dt)
+    w = torch.randn((n, k), generator=g, device=cuda_device)
+    for mode in ("w8", "f8", "w4"):
+        qt = quant.pack(w, mode=mode)
+        if mode == "w4":
+            got = quant.w4_matmul(x, qt["q4"], qt["scale"], k)
+            want = quant.int4_matmul_plain(x, qt["q4"], qt["scale"], k)
+        else:
+            fn = quant.w8_matmul if mode == "w8" else quant.f8_matmul
+            got = fn(x, qt[mode.replace("w", "q")], qt["scale"])
+            want = quant.int8_matmul_plain(x, qt[mode.replace("w", "q")],
+                                           qt["scale"])
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (m, n)
+        assert _sum_close(got, want, x, quant.unpack(qt), dt), mode
+    qt = quant.pack(w, sx=0.05)
+    xq = quant.quantize_act(x, qt["sx"])
+    s = qt["scale"] * qt["sx"]
+    got = quant.a8_matmul(xq, qt["q8"], s, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, quant.int8_a8_matmul_plain(xq, qt["q8"], s, dt))
+
+
+def test_quant_kernel_launches_are_counted(cuda_device):
+    x = torch.randn((4, 64), device=cuda_device)
+    w = torch.randn((32, 64), device=cuda_device)
+    wrappers = (quant.w8_matmul, quant.f8_matmul, quant.a8_matmul,
+                quant.w4_matmul)
+    before = [fn.launches for fn in wrappers]
+    for mode, sx in (("w8", None), ("f8", None), ("w8", 0.1), ("w4", None)):
+        quant.int8_matmul(x, quant.pack(w, sx=sx, mode=mode))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in wrappers] == [b + 1 for b in before]
+    qt = quant.pack(w)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.w8_matmul(x.t().contiguous().t(), qt["q8"], qt["scale"])

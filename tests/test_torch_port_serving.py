@@ -107,7 +107,9 @@ def test_classifier_transform_pads_the_tail_and_keeps_dict_rows():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(quantize="int8"), "quantized-inference"),
+    # quantize= itself is served (tests/test_torch_port_quant.py); with a
+    # mesh it waits for the parallel-strategies slice
+    (dict(quantize="int8", mesh=object()), "quantized-inference"),
     (dict(mesh=object()), "parallel-strategies"),
     (dict(sharding=object()), "parallel-strategies"),
 ])
