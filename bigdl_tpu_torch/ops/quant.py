@@ -88,28 +88,27 @@ def check_mode(mode: str, quantize) -> None:
 
 
 # -- codecs -------------------------------------------------------------------
+# Every codec is per output channel, axis 0 of the stored layout (Linear's
+# (out, in), conv's OIHW).
 
-def _expand(scale, ndim: int, axis: int):
-    shape = [1] * ndim
-    shape[axis] = -1
-    return scale.reshape(shape)
-
-
-def _absmax(w, axis: int):
-    dims = tuple(i for i in range(w.dim()) if i != axis)
-    return w.float().abs().amax(dim=dims)
+def _per_channel(scale, ndim: int):
+    return scale.reshape((-1,) + (1,) * (ndim - 1))
 
 
-def quantize_channelwise(w, axis: int = 0):
-    """Symmetric per-channel int8 over ``axis``: ``(q8, scale)``, ``q8``
-    int8 of w's shape in [-127, 127], ``scale`` f32 along ``axis``."""
-    scale = _absmax(w, axis).clamp_min(1e-12) / 127.0
-    q = torch.round(w.float() / _expand(scale, w.dim(), axis))
+def _absmax(w):
+    return w.float().abs().amax(dim=tuple(range(1, w.dim())))
+
+
+def quantize_channelwise(w):
+    """Symmetric per-channel int8: ``(q8, scale)``, ``q8`` int8 of w's
+    shape in [-127, 127], ``scale`` (w.shape[0],) f32."""
+    scale = _absmax(w).clamp_min(1e-12) / 127.0
+    q = torch.round(w.float() / _per_channel(scale, w.dim()))
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
-def dequantize_channelwise(q8, scale, axis: int = 0, dtype=torch.float32):
-    return (q8.float() * _expand(scale, q8.dim(), axis)).to(dtype)
+def dequantize_channelwise(q8, scale, dtype=torch.float32):
+    return (q8.float() * _per_channel(scale, q8.dim())).to(dtype)
 
 
 def quantize_act(x, sx):
@@ -117,14 +116,14 @@ def quantize_act(x, sx):
     return torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8)
 
 
-def quantize_nibble(w, axis: int = 0):
-    """Symmetric per-channel int4 over ``axis``, two nibbles per byte,
-    split-half packed along the last axis: byte ``j`` holds column ``j`` in
-    its low nibble and column ``h + j`` (``h = ceil(K/2)``) in its high one;
-    an odd K pads one zero nibble.  Returns ``(q4, scale)``, ``q4`` int8 of
-    shape ``w.shape[:-1] + (h,)``."""
-    scale = _absmax(w, axis).clamp_min(1e-12) / 7.0
-    q = torch.round(w.float() / _expand(scale, w.dim(), axis)) \
+def quantize_nibble(w):
+    """Symmetric per-channel int4, two nibbles per byte, split-half packed
+    along the last axis: byte ``j`` holds column ``j`` in its low nibble and
+    column ``h + j`` (``h = ceil(K/2)``) in its high one; an odd K pads one
+    zero nibble.  Returns ``(q4, scale)``, ``q4`` int8 of shape
+    ``w.shape[:-1] + (h,)``."""
+    scale = _absmax(w).clamp_min(1e-12) / 7.0
+    q = torch.round(w.float() / _per_channel(scale, w.dim())) \
         .clamp(-7, 7).to(torch.int32)
     k = q.shape[-1]
     h = (k + 1) // 2
@@ -142,41 +141,39 @@ def unpack_nibbles(q4, k: int):
     return torch.cat([lo, hi], dim=-1)[..., :k]
 
 
-def dequantize_nibble(q4, scale, k: int, axis: int = 0, dtype=torch.float32):
+def dequantize_nibble(q4, scale, k: int, dtype=torch.float32):
     return (unpack_nibbles(q4, k).float()
-            * _expand(scale, q4.dim(), axis)).to(dtype)
+            * _per_channel(scale, q4.dim())).to(dtype)
 
 
-def quantize_f8(w, axis: int = 0):
-    """Scaled e4m3 over ``axis``: ``scale = absmax / 448``, then a straight
-    cast (round to nearest even).  Returns ``(f8, scale)``."""
-    scale = _absmax(w, axis).clamp_min(1e-12) / F8_MAX
-    return (w.float() / _expand(scale, w.dim(), axis)) \
+def quantize_f8(w):
+    """Scaled e4m3: ``scale = absmax / 448``, then a straight cast (round to
+    nearest even).  Returns ``(f8, scale)``."""
+    scale = _absmax(w).clamp_min(1e-12) / F8_MAX
+    return (w.float() / _per_channel(scale, w.dim())) \
         .to(torch.float8_e4m3fn), scale
 
 
-def dequantize_f8(q, scale, axis: int = 0, dtype=torch.float32):
-    return (q.float() * _expand(scale, q.dim(), axis)).to(dtype)
+def dequantize_f8(q, scale, dtype=torch.float32):
+    return (q.float() * _per_channel(scale, q.dim())).to(dtype)
 
 
 # -- packed weights -----------------------------------------------------------
 
-def pack(w, axis: int = 0, sx=None,
-         mode: str = "w8") -> Dict[str, torch.Tensor]:
-    """One weight in the packed form of ``mode`` (``axis`` is the output
-    channel of the stored layout: Linear's (out, in), conv's OIHW).  ``"odd"``
-    is a zero-size int8 stamp whose first dim is K's parity.  An activation
-    scale ``sx`` pairs with the int8 rung only."""
+def pack(w, sx=None, mode: str = "w8") -> Dict[str, torch.Tensor]:
+    """One weight in the packed form of ``mode``.  ``"odd"`` is a zero-size
+    int8 stamp whose first dim is K's parity.  An activation scale ``sx``
+    pairs with the int8 rung only."""
     if mode == "w4":
-        q4, scale = quantize_nibble(w, axis=axis)
+        q4, scale = quantize_nibble(w)
         out = {"q4": q4, "scale": scale,
                "odd": torch.zeros((w.shape[-1] % 2, 0), dtype=torch.int8,
                                   device=w.device)}
     elif mode == "f8":
-        f8, scale = quantize_f8(w, axis=axis)
+        f8, scale = quantize_f8(w)
         out = {"f8": f8, "scale": scale}
     else:
-        q8, scale = quantize_channelwise(w, axis=axis)
+        q8, scale = quantize_channelwise(w)
         out = {"q8": q8, "scale": scale}
     if sx is not None:
         if mode != "w8":
@@ -441,16 +438,15 @@ def _param_path(path: str, name: str) -> str:
     return f"{path}.{name}" if path else name
 
 
-def _quantizable(name: str, p, min_elements: int = MIN_QUANT_ELEMENTS):
+def _quantizable(name: str, p):
     # shape[0] > 1: a singleton channel axis would make one per-tensor
     # scale out of the per-channel scheme
     return (name in QUANT_KEYS and p.dim() in (2, 4)
-            and p.is_floating_point() and p.numel() >= min_elements
+            and p.is_floating_point() and p.numel() >= MIN_QUANT_ELEMENTS
             and p.shape[0] > 1)
 
 
-def calibrate(model, batches: Iterable,
-              min_elements: int = MIN_QUANT_ELEMENTS) -> Dict[str, float]:
+def calibrate(model, batches: Iterable) -> Dict[str, float]:
     """Run ``batches`` through the fp ``model`` in eval mode on its device,
     record each quantizable ``Linear`` input's max |x|, and return
     ``{param_path: absmax / 127}`` for :func:`quantize_model`'s ``calib=``.
@@ -470,7 +466,7 @@ def calibrate(model, batches: Iterable,
     for path, m in _walk(model):
         for name, p in m._parameters.items():
             if p is not None and m in store and \
-                    _quantizable(name, p, min_elements):
+                    _quantizable(name, p):
                 scales[_param_path(path, name)] = \
                     max(store[m], 1e-12) / 127.0
     return scales
@@ -480,13 +476,13 @@ def calibrate(model, batches: Iterable,
 
 def quantize_model(model, mode: str = "w8",
                    calib: Optional[Dict[str, float]] = None,
-                   cast_rest=None, min_elements: int = MIN_QUANT_ELEMENTS):
+                   cast_rest=None):
     """A private packed copy of ``model`` for quantized inference
     (``quantize_params``); the caller's model keeps its fp weights.
 
     Each parameter the reference packs (``_quantizable``: a ``QUANT_KEYS``
-    name, 2-D or 4-D, floating, at least ``min_elements``, ``shape[0] > 1``)
-    is replaced by buffers ``<name>_<field>`` of its packed form, so
+    name, 2-D or 4-D, floating, at least ``MIN_QUANT_ELEMENTS``, ``shape[0]
+    > 1``) is replaced by buffers ``<name>_<field>`` of its packed form, so
     ``.to(device)`` moves them; ``"w8a8"`` bakes ``calib``'s activation
     scale into each calibrated leaf.  Every other floating parameter is cast
     to ``cast_rest`` when given; scales stay f32."""
@@ -504,7 +500,7 @@ def quantize_model(model, mode: str = "w8",
             for name, p in list(m._parameters.items()):
                 if p is None:
                     continue
-                if _quantizable(name, p, min_elements):
+                if _quantizable(name, p):
                     sx = calib.get(_param_path(path, name)) \
                         if mode == "w8a8" else None
                     leaf = pack(p.detach(), sx=sx, mode=leaf_mode)

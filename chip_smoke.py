@@ -41,7 +41,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    compute_dtype=torch.bfloat16), batch_buckets=(8, 32))``; every request
    must equal ``DLClassifier.predict``, each forward must launch 56 K13 +
    13 K1 + 2 K2 and nothing else, and 8 rows must agree with a CPU run of
-   the same packed copy (and, argmax included, of an f32 one); then one
+   the same packed copy: logits within 3 bfloat16 steps of their largest
+   magnitude with equal argmax on every row, log-probs within one; then one
    batch-32 forward each of ``w8a8`` (calibrated on 8 seeded rows),
    ``w4`` and ``f8`` with their launch counts (55 K13 + 1 K14; 1 K15;
    1 K13 with e4m3 weights), and for every
@@ -67,6 +68,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -131,7 +133,9 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
 QSUM_RTOL = 1e-4               # K13/K15 vs plain, of sum |x * w| per output
 BF16_STEP = 2.0 ** -7          # one bfloat16 rounding step of the output
-QCPU_ATOL = 0.25               # w8 bf16 log-probs, card vs CPU
+# w8 bf16 logits, card vs CPU, in bf16 steps of their largest magnitude:
+# the card's sums in another order have shown 2, a wrong product far more
+QLOGIT_STEPS = 3
 RAGGED_MATMULS = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 577, 191),
                   (1, 1024, 1000), (8, 1023, 999), (65, 9, 3),
                   (300, 1728, 384)]
@@ -702,6 +706,20 @@ RUNG_LAUNCHES = {
 }
 
 
+def bf16_step(v: float) -> float:
+    """One bfloat16 rounding step at magnitude ``v``."""
+    return 2.0 ** (math.floor(math.log2(v)) - 7)
+
+
+def logits_and_logp(model, x):
+    """A packed Inception's logits (its LogSoftMax's input) and log-probs,
+    as float32 on the host."""
+    *body, head = model.layers
+    for m in body:
+        x = m(x)
+    return x.float().cpu(), head(x).float().cpu()
+
+
 def quant_classifier(model, mode, device, cal_rows=None):
     import torch
     from bigdl_tpu_torch.api import DLClassifier
@@ -754,47 +772,38 @@ def serve_quantized(device):
         fail(f"{bad} of {total} quantized served predictions differ from "
              "DLClassifier.predict")
 
-    # the same packed copy on the CPU (plain versions), on the first wave
+    # the same packed copy on the CPU (plain versions), on the first wave.
+    # The logits (LogSoftMax's input) are held to QLOGIT_STEPS bf16 steps
+    # of their largest magnitude, where a wrong product shows; the bf16
+    # log-probs of random weights are nearly uniform, so they are held to
+    # one bf16 step at their own magnitude, which rounding alone reaches.
     cpu_q = copy.deepcopy(clf.qmodel).to("cpu")
     x8 = clf._pack(all_rows[:QCPU_ROWS], size=QCPU_ROWS)
     with torch.inference_mode():
-        lp_dev = clf.qmodel(x8.to(device)).float().cpu()
-        lp_cpu = cpu_q(x8).float()
+        lg_dev, lp_dev = logits_and_logp(clf.qmodel, x8.to(device))
+        lg_cpu, lp_cpu = logits_and_logp(cpu_q, x8)
     if lp_dev.shape != (QCPU_ROWS, CLASSES) or \
             not torch.isfinite(lp_dev).all():
         fail(f"quantized log-probs have shape {tuple(lp_dev.shape)} or are "
              "not finite")
+    lg_tol = QLOGIT_STEPS * bf16_step(lg_cpu.abs().max().item())
+    lp_tol = bf16_step(lp_cpu.abs().max().item())
+    lg_diff = (lg_dev - lg_cpu).abs().max().item()
     diff = (lp_dev - lp_cpu).abs().max().item()
-    top2 = lp_cpu.topk(2, dim=1).values
-    firm = (top2[:, 0] - top2[:, 1]) > 2 * diff
-    if diff > QCPU_ATOL or not torch.equal(lp_dev.argmax(1)[firm],
-                                           lp_cpu.argmax(1)[firm]):
-        fail(f"w8 card vs CPU log-probs: max |diff| {diff} (atol "
-             f"{QCPU_ATOL}), argmax {lp_dev.argmax(1).tolist()} vs "
-             f"{lp_cpu.argmax(1).tolist()}")
+    top2 = lg_cpu.topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).min().item()
+    if lg_diff > lg_tol or diff > lp_tol or \
+            not torch.equal(lg_dev.argmax(1), lg_cpu.argmax(1)):
+        fail(f"w8 card vs CPU: max |dlogit| {lg_diff} (limit {lg_tol}), "
+             f"max |dlogp| {diff} (limit {lp_tol}), argmax "
+             f"{lg_dev.argmax(1).tolist()} vs {lg_cpu.argmax(1).tolist()}")
     if (lp_dev.argmax(1) + 1).tolist() != served[:QCPU_ROWS]:
         fail("w8 served predictions disagree with the same batch's forward")
-    same = int((lp_dev.argmax(1) == lp_cpu.argmax(1)).sum())
-    # random weights leave near ties at bf16 resolution; an f32 packed copy
-    # (K13 on FFMA) holds the argmax of the same rows against the CPU
-    q32 = quant.quantize_model(model, "w8")
-    x8f = torch.from_numpy(np.stack(all_rows[:QCPU_ROWS]))
-    with torch.inference_mode():
-        lp32_dev = q32(x8f.to(device)).cpu()
-        lp32_cpu = copy.deepcopy(q32).to("cpu")(x8f)
-    diff32 = (lp32_dev - lp32_cpu).abs().max().item()
-    if diff32 > 1e-3 or not torch.equal(lp32_dev.argmax(1),
-                                        lp32_cpu.argmax(1)):
-        fail(f"w8 f32 card vs CPU log-probs: max |diff| {diff32} (atol "
-             f"1e-3), argmax {lp32_dev.argmax(1).tolist()} vs "
-             f"{lp32_cpu.argmax(1).tolist()}")
     log(f"quantized serving (w8, bf16): {total} requests in {forwards} "
         f"forwards, equal to DLClassifier.predict; {QCPU_ROWS} rows vs the "
-        f"CPU: max |dlogp| {diff:.4g}, argmax equal on {same} of "
-        f"{QCPU_ROWS} rows (held on the {int(firm.sum())} whose margin "
-        f"exceeds 2x that; {int((~firm).sum())} near ties); an f32 packed "
-        f"copy: max |dlogp| {diff32:.3g}, argmax equal on all "
-        f"{QCPU_ROWS}; launches {launches}")
+        f"CPU: max |dlogit| {lg_diff:.4g} (limit {lg_tol:.4g}, smallest "
+        f"top-2 margin {margin:.4g}), argmax equal on all {QCPU_ROWS}, max "
+        f"|dlogp| {diff:.4g} (limit {lp_tol:.4g}); launches {launches}")
 
     # every rung against the unquantized bf16 forward, one batch of 32;
     # the other rungs' forward is each one's main path
@@ -827,9 +836,9 @@ def serve_quantized(device):
             "resident_ratio_vs_bf16": sum(by_dtype.values()) / bf16_bytes,
             "budget": quant.RUNG_BUDGETS[mode]}
     report = {"warmup_s": warm_s, "forwards": forwards, "requests": total,
-              "cpu_max_abs_logp_diff": diff,
-              "cpu_near_ties": int((~firm).sum()),
-              "cpu_argmax_equal": same, "cpu_f32_max_abs_logp_diff": diff32,
+              "cpu_max_abs_logit_diff": lg_diff, "cpu_logit_limit": lg_tol,
+              "cpu_min_top2_margin": margin, "cpu_max_abs_logp_diff": diff,
+              "cpu_logp_limit": lp_tol,
               "bf16_tree_bytes": bf16_bytes, "rungs": rungs}
     return report, by_path, clf
 
