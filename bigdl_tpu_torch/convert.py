@@ -1,14 +1,18 @@
 """Copy parameters between the JAX package's pytree and the port's modules.
 
 ``load_jax_params(model, params)`` takes ``bigdl_tpu``'s parameter pytree as
-nested lists/dicts of arrays (a Container's children by index, a leaf
-layer's parameters by name, ``()`` for a layer without any) and copies it
-into the matching port modules.  Conv OIHW and Linear ``(out, in)`` layouts
-are the same on both sides, so each leaf is copied as it is.  Any mismatch
-of structure, names or shapes raises ``ValueError``; nothing is copied
-partially on a failed check.  ``export_params(model)`` is the inverse: the
-port's parameters as that pytree of numpy arrays, so weights trained by
-the two trainers can be compared leaf by leaf.
+nested lists/dicts of arrays and copies it into the matching port modules,
+walking ``Module.param_tree``: a Container's children (and a
+``ModuleList``'s) by index, a layer's own parameters and its
+parameter-holding children by name, ``()`` for a layer without any.  So
+the Inception trees (lists of leaf dicts) and the TransformerLM tree
+(``{"tok", "pos", "blocks": [{"ln1", "attn": {"wq", ...}, "ln2", "fc1",
+"fc2"}], "ln_f"}``) load alike.  Conv OIHW and Linear ``(out, in)``
+layouts are the same on both sides, so each leaf is copied as it is.  Any
+mismatch of structure, names or shapes raises ``ValueError``; nothing is
+copied partially on a failed check.  ``export_params(model)`` is the
+inverse: the port's parameters as that pytree of numpy arrays, so weights
+of the two packages can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -18,53 +22,60 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.core.module import Container, Module
+from bigdl_tpu_torch.core.module import Module
 
 
-def _pairs(m: Module, p: Any, path: str) -> List[Tuple[torch.nn.Parameter,
-                                                        np.ndarray, str]]:
-    if isinstance(m, Container):
-        if not isinstance(p, (list, tuple)) or len(p) != len(m.layers):
-            n = len(p) if isinstance(p, (list, tuple)) else type(p).__name__
-            raise ValueError(f"{path}: container {m.name!r} has "
-                             f"{len(m.layers)} children, params have {n}")
-        out = []
-        for i, (child, cp) in enumerate(zip(m.layers, p)):
-            out.extend(_pairs(child, cp, f"{path}[{i}]"))
-        return out
-    mine = {k: v for k, v in m._parameters.items() if v is not None}
-    theirs = {} if isinstance(p, (list, tuple)) and len(p) == 0 else p
+def _pairs(mine: Any, theirs: Any, path: str) -> List[Tuple[
+        torch.nn.Parameter, np.ndarray, str]]:
+    """(parameter, array, path) for every leaf of the port's tree ``mine``
+    (``Module.param_tree``) and the JAX tree ``theirs``, walked together."""
+    if isinstance(mine, list):
+        if not isinstance(theirs, (list, tuple)) or len(theirs) != len(mine):
+            n = len(theirs) if isinstance(theirs, (list, tuple)) \
+                else type(theirs).__name__
+            raise ValueError(f"{path}: container has {len(mine)} children, "
+                             f"params have {n}")
+        return [pair for i, (m, t) in enumerate(zip(mine, theirs))
+                for pair in _pairs(m, t, f"{path}[{i}]")]
+    if isinstance(mine, torch.Tensor):
+        src = np.asarray(theirs)
+        if tuple(src.shape) != tuple(mine.shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)} does not "
+                             f"match {tuple(mine.shape)}")
+        return [(mine, src, path)]
+    mine = {} if isinstance(mine, tuple) else mine
+    if isinstance(theirs, (list, tuple)) and len(theirs) == 0:
+        theirs = {}
     if not isinstance(theirs, dict):
-        raise ValueError(f"{path}: layer {m.name!r} expects a dict of "
-                         f"parameters, got {type(p).__name__}")
+        raise ValueError(f"{path}: layer expects a dict of parameters, got "
+                         f"{type(theirs).__name__}")
     if set(mine) != set(theirs):
-        raise ValueError(f"{path}: layer {m.name!r} has parameters "
-                         f"{sorted(mine)}, params have {sorted(theirs)}")
-    out = []
-    for k, dst in mine.items():
-        src = np.asarray(theirs[k])
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"{path}.{k}: shape {tuple(src.shape)} does "
-                             f"not match {tuple(dst.shape)} of {m.name!r}")
-        out.append((dst, src, f"{path}.{k}"))
-    return out
+        raise ValueError(f"{path}: layer has parameters {sorted(mine)}, "
+                         f"params have {sorted(theirs)}")
+    return [pair for k in mine
+            for pair in _pairs(mine[k], theirs[k], f"{path}.{k}")]
 
 
 def load_jax_params(model: Module, params: Any) -> Module:
     """Copy ``params`` into ``model`` in place; returns ``model``."""
-    pairs = _pairs(model, params, "params")
+    pairs = _pairs(model.param_tree(), params, "params")
     with torch.no_grad():
         for dst, src, _ in pairs:
             dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
     return model
 
 
+def _to_numpy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    if isinstance(tree, tuple):
+        return ()
+    return tree.detach().cpu().float().numpy().copy()
+
+
 def export_params(model: Module) -> Any:
-    """The model's parameters as ``bigdl_tpu``'s pytree: a list per
-    Container, a dict of float32 numpy arrays per layer with parameters,
-    ``()`` for a layer without any."""
-    if isinstance(model, Container):
-        return [export_params(m) for m in model.layers]
-    mine = {k: v.detach().cpu().float().numpy().copy()
-            for k, v in model._parameters.items() if v is not None}
-    return mine if mine else ()
+    """The model's parameters as ``bigdl_tpu``'s pytree
+    (``Module.param_tree``) of float32 numpy arrays."""
+    return _to_numpy(model.param_tree())

@@ -100,13 +100,21 @@ class Module(nn.Module):
     def get_name(self) -> str:
         return self.name
 
+    def param_tree(self):
+        """This layer's parameters as the JAX package's pytree: a dict of
+        its own parameters and of its children that hold any (a child list
+        as a list), ``()`` when it holds none."""
+        tree = {k: p for k, p in self._parameters.items() if p is not None}
+        for k, c in self._modules.items():
+            if c is None or not any(True for _ in c.parameters()):
+                continue
+            tree[k] = [m.param_tree() for m in c] \
+                if isinstance(c, nn.ModuleList) else c.param_tree()
+        return tree or ()
+
     def param_leaves(self):
-        """Parameters in the JAX package's pytree leaf order: children in
-        order, each layer's own parameters by sorted name."""
-        for k in sorted(self._parameters):
-            p = self._parameters[k]
-            if p is not None:
-                yield p
+        """Parameters in the JAX package's pytree leaf order."""
+        return tree_leaves(self.param_tree())
 
     def get_parameters(self):
         """Flat contiguous (weights, grads) — ``getParameters()`` parity;
@@ -134,9 +142,22 @@ class Container(Module):
         self.layers.append(module)
         return self
 
-    def param_leaves(self):
-        for m in self.layers:
-            yield from m.param_leaves()
+    def param_tree(self):
+        """A list of the children's trees, in order."""
+        return [m.param_tree() for m in self.layers]
+
+
+def tree_leaves(tree):
+    """The leaves of a parameter pytree in JAX's order: a dict's entries by
+    sorted key, a list's items in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from tree_leaves(x)
+    else:
+        yield tree
 
 
 def get_named_modules(model: Module) -> dict:

@@ -2,7 +2,9 @@
 (``bigdl_tpu/core/precision.py`` ``mixed_forward``).
 
 The forward runs with every floating parameter and buffer cast to
-``compute_dtype`` and the input in that dtype; the output comes back in
+``compute_dtype`` and a floating input in that dtype; an integer input
+(token ids) passes through unchanged, as ``cast_tree`` passes integer
+leaves (bf16 holds integers exactly only up to 256); the output comes back in
 float32, so the loss and the criterion stay in f32.  The model's own
 parameters stay in their dtype.  The casts are ordinary differentiable
 ops, so under autograd the gradients with respect to the f32 parameters
@@ -30,6 +32,7 @@ def cast_tensors(model: torch.nn.Module, dtype) -> dict:
 
 def mixed_forward(model: torch.nn.Module, data: torch.Tensor,
                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    y = functional_call(model, cast_tensors(model, compute_dtype),
-                        (data.to(compute_dtype),))
+    if data.is_floating_point():
+        data = data.to(compute_dtype)
+    y = functional_call(model, cast_tensors(model, compute_dtype), (data,))
     return y.float()

@@ -164,23 +164,9 @@ __global__ void __launch_bounds__(kFThreads)
 constexpr int kMBM = 128, kMBN = 64, kMBK = 32, kMThreads = 256;
 constexpr int kMStride = kMBK + 8;  // bf16 per smem row: 80 bytes, no conflicts
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+using bigdl::ld32;
+using bigdl::mma_bf16;
+using bigdl::pack_bf16x2;
 
 template <typename W>
 __global__ void __launch_bounds__(kMThreads)

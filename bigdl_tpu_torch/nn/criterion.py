@@ -34,3 +34,22 @@ class ClassNLLCriterion(Module):
             total = -lp.sum()
             denom = input.shape[0]
         return total / denom if self.size_average else total
+
+
+class TimeDistributedCriterion(Module):
+    """``criterion`` at every time step of (N, T, ...) input and (N, T)
+    target, summed over the steps (divided by T when ``size_average``).
+    The steps run as one batched call (``torch.func.vmap`` over the time
+    axis, as the reference ``jax.vmap``s it), not a loop of T calls."""
+
+    def __init__(self, criterion, size_average: bool = False):
+        super().__init__()
+        self.criterion = criterion
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        target = torch.as_tensor(target, device=input.device)
+        losses = torch.func.vmap(self.criterion, in_dims=(1, 1))(input,
+                                                                 target)
+        total = losses.sum()
+        return total / input.shape[1] if self.size_average else total

@@ -11,7 +11,13 @@
   (``w8_matmul`` for int8 weights, ``f8_matmul`` for e4m3; replaces
   ``bigdl_tpu/ops/quant.py`` ``_w8_kernel``), K14 (``a8_matmul``, int8 x
   int8; ``_a8_kernel``) and K15 (``w4_matmul``, int4 nibbles;
-  ``_w4_kernel``).
+  ``_w4_kernel``);
+* ``attention`` — softmax attention, its plain versions and the dispatcher
+  ``fused_attention`` (``csrc/attention.cu``): K8 (``attention_fwd``, one
+  max per row; replaces ``bigdl_tpu/ops/attention.py`` ``_fwd_kernel``) and
+  K9 (``attention_stream_fwd``, the online softmax with an optional
+  key-padding bias; ``_stream_kernel``), forward only: their backward
+  raises until the TransformerLM training slice.
 
 A wrapper takes the plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises; there is no switch that hides a kernel.  Each
@@ -20,6 +26,11 @@ wrapper counts its launches in ``<wrapper>.launches``.  ``max_pool2d`` and
 kernels are built with ``nvcc`` at first use (``ops/_build.py``).
 """
 
+from bigdl_tpu_torch.ops.attention import (attention_fwd,
+                                           attention_reference,
+                                           attention_stream_fwd,
+                                           attention_stream_plain,
+                                           fused_attention)
 from bigdl_tpu_torch.ops.lrn import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      lrn_plain)
 from bigdl_tpu_torch.ops.pooling import (max_pool2d, max_pool2d_bwd,
@@ -32,7 +43,8 @@ from bigdl_tpu_torch.ops.quant import (a8_matmul, f8_matmul,
                                        w8_matmul)
 
 KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd,
-                   w8_matmul, f8_matmul, a8_matmul, w4_matmul)
+                   w8_matmul, f8_matmul, a8_matmul, w4_matmul,
+                   attention_fwd, attention_stream_fwd)
 
 
 def reset_launches() -> None:
@@ -40,8 +52,11 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-__all__ = ["a8_matmul", "cross_map_lrn", "f8_matmul", "int4_matmul_plain",
-           "int8_a8_matmul_plain", "int8_matmul_plain", "lrn_bwd",
-           "lrn_bwd_plain", "lrn_plain", "max_pool2d", "max_pool2d_bwd",
-           "max_pool2d_bwd_plain", "max_pool2d_plain", "pool_geometry",
-           "w4_matmul", "w8_matmul", "KERNEL_WRAPPERS", "reset_launches"]
+__all__ = ["a8_matmul", "attention_fwd", "attention_reference",
+           "attention_stream_fwd", "attention_stream_plain",
+           "cross_map_lrn", "f8_matmul", "fused_attention",
+           "int4_matmul_plain", "int8_a8_matmul_plain", "int8_matmul_plain",
+           "lrn_bwd", "lrn_bwd_plain", "lrn_plain", "max_pool2d",
+           "max_pool2d_bwd", "max_pool2d_bwd_plain", "max_pool2d_plain",
+           "pool_geometry", "w4_matmul", "w8_matmul", "KERNEL_WRAPPERS",
+           "reset_launches"]

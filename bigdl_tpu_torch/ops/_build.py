@@ -57,6 +57,12 @@ _SIGNATURES = {
     "bigdl_a8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, q4, scale, y, x dtype, m, n, k, stream
     "bigdl_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, o, dtype, bh, h, hk, tq, tk, d, scale, causal, stream
+    "bigdl_attention_fwd": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    # q, k, v, bias (or null), o, dtype, bh, h, hk, tq, tk, d, scale,
+    # causal, stream
+    "bigdl_attention_stream_fwd": [_P] * 5 + [_I] * 7 +
+    [ctypes.c_float, _I, _P],
 }
 
 

@@ -49,6 +49,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
    rung its top-1 agreement and mean |dlog-prob| against the unquantized
    bf16 forward and its resident bytes against the bf16 tree (reported,
    not gated: the weights are random);
+2d. the attention-forward kernels (K8, K9) against their plain versions
+   at the LM paths' shapes ((8, 8, 2048, 64) causal for K8 and for K9 with
+   the padded batch's bias, (1, 8, 8192, 64) causal for K9) and at ragged
+   ones (GQA 8/2 and 8/1, non-causal, Tq != Tk, head dims 16/32/128, T 8
+   and 24, a row with every key padded), in float32 (within 1e-5 of each
+   output's sum of |p·v|) and bfloat16 (within 2 bfloat16 steps of it);
+3e. LM scoring: the full-width ``TransformerLM`` of ``bench_infer.py``
+   (vocab 32000, embed 512, 8 heads, 8 layers, T 2048) with seeded random
+   weights cast to bf16, scored by ``LocalValidator`` with
+   ``Loss(TimeDistributedCriterion(ClassNLLCriterion(), size_average=True))``
+   over 16 sequences (two batches of 8): a finite loss and exactly 8 K8
+   per forward and no other kernel; the same batch with a key-padding mask
+   of per-row lengths launches exactly 8 K9 and its real positions agree
+   with the unpadded forward; the long-context model (vocab 8192, T 8192)
+   launches exactly 8 K9 in one forward at batch 1; one row in float32
+   against a CPU run of the same weights (log-probs), and the bf16 logits
+   of 2 rows against a CPU bf16 run in bf16 steps, with argmax equal
+   wherever the top-2 margin exceeds that limit, on most of the 4096
+   positions;
+3f. generation at ``measure_lm_decode``'s configuration (batch 8, prompt
+   128, 128 new tokens, bf16 cache), greedy and sampled (top_k 50, top_p
+   0.9): no K8/K9 launch (the decode path is plain, as in the reference),
+   ids in range, sampling reproducible from the generator's seed, and
+   greedy float32 tokens of 2 rows x 16 equal to the CPU's and to top_k 1
+   sampling in float32 (bf16 log-probs tie at the top, and top_k keeps
+   every tie, as the reference's does);
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -57,7 +83,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    precision and in float32; K13-K15 summed over one batch-32 quantized
    forward beside their bounds, plain versions and library calls, the
    fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
-   bf16 forward per bucket with a profiler breakdown of its device time.
+   bf16 forward per bucket with a profiler breakdown of its device time;
+   K8 and K9 per call at the LM paths' shapes beside their bound, plain
+   version and ``F.scaled_dot_product_attention``, K8 against K9 at T 512
+   to 16384, LM scoring tokens/s at both configurations, generation new
+   tokens/s and a profiler breakdown of one scoring forward.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -141,6 +171,47 @@ RAGGED_MATMULS = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 577, 191),
                   (300, 1728, 384)]
 # fused convs (unfold + K13) timed end to end against cuDNN
 QCONVS = ["conv2/3x3", "inception_3a/1x1", "inception_4e/5x5"]
+# TransformerLM: the model of bench_infer.py measure_lm_scoring /
+# measure_lm_decode, and bigdl_tpu/models/perf.py's long-context model
+LM_VOCAB, LM_EMBED, LM_HEADS, LM_LAYERS = 32000, 512, 8, 8
+LM_BATCH, LM_T, LM_SEQS = 8, 2048, 16
+LM_PAD_LENGTHS = [2048, 1900, 1536, 1024, 777, 512, 129, 1]
+LONG_VOCAB, LONG_T = 8192, 8192
+GEN_PROMPT, GEN_NEW = 128, 128
+GEN_CPU_ROWS, GEN_CPU_NEW = 2, 16
+LM_CPU_ROWS = 2
+# K8/K9 against their plain versions: f32 within ATTN_F32_RTOL of each
+# output's sum of |p·v| (softmax weights times |v|); bf16 within
+# ATTN_BF16_STEPS bf16 steps of it (the two outputs' roundings can land one
+# step apart; the kernels round p to bf16 for the tensor cores)
+ATTN_F32_RTOL = 1e-5
+ATTN_BF16_STEPS = 2
+# (name, b, h, hk, t, tk, d, causal, padded lengths or None)
+ATTN_PATH = [
+    ("LM scoring, K8", LM_BATCH, LM_HEADS, LM_HEADS, LM_T, LM_T, 64, True,
+     None),
+    ("LM padded scoring, K9 + bias", LM_BATCH, LM_HEADS, LM_HEADS, LM_T,
+     LM_T, 64, True, LM_PAD_LENGTHS),
+    ("long context, K9", 1, LM_HEADS, LM_HEADS, LONG_T, LONG_T, 64, True,
+     None),
+]
+ATTN_RAGGED = [
+    ("GQA 8/2, T 24", 2, 8, 2, 24, 24, 64, True, None),
+    ("MQA 8/1, T 8", 1, 8, 1, 8, 8, 64, True, None),
+    ("non-causal, d 32", 2, 4, 4, 40, 40, 32, False, None),
+    ("Tq != Tk, d 128", 1, 4, 4, 70, 33, 128, True, None),
+    ("Tq < Tk, non-causal, d 16", 2, 2, 1, 24, 100, 16, False, None),
+    ("a row with every key padded", 2, 8, 2, 96, 96, 64, True, [0, 50]),
+    ("padded, non-causal, d 128", 3, 4, 4, 130, 130, 128, False,
+     [130, 64, 1]),
+]
+# card vs CPU on the LM: f32 log-probs of one row, and bf16 logits of
+# LM_CPU_ROWS rows in bf16 steps of their largest magnitude
+LM_F32_ATOL = 3e-5
+LM_LOGIT_STEPS = 3
+# padded vs unpadded bf16 forward on the card (K9 vs K8): log-probs at the
+# real positions, in bf16 steps of their largest magnitude
+LM_PAD_STEPS = 2
 TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
 TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
 CPU_BATCH, CPU_STEPS = 4, 2
@@ -460,6 +531,85 @@ def check_quant_kernels(device, path_shapes):
     log("quantized kernels vs plain: " + "; ".join(
         f"{k} {cases[k]} cases, max |err| f32 {errs[k]:.3g} bf16 "
         f"{errs_bf16[k]:.3g}" for k in names) + " (a8_matmul bit-equal)")
+    return errs, cases, misses
+
+
+# -- phase 2d: the attention kernels against their plain versions -------------
+
+def attention_operands(case, dtype, device, gen):
+    """q, k, v and the (B, Tk) key-padding bias (or None) of a case."""
+    import torch
+    from bigdl_tpu_torch.ops.attention import NEG_INF
+    _, b, h, hk, t, tk, d, _, lengths = case
+    q = torch.randn((b, h, t, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, hk, tk, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, hk, tk, d), generator=gen, device=device).to(dtype)
+    bias = None
+    if lengths is not None:
+        keep = torch.arange(tk, device=device)[None, :] < \
+            torch.tensor(lengths, device=device)[:, None]
+        bias = torch.where(keep, 0.0, NEG_INF).float()
+    return q, k, v, bias
+
+
+def check_attention_kernels(device):
+    """Hold K8 and K9 against their plain versions at the LM paths' shapes
+    (ATTN_PATH) and at ATTN_RAGGED, in float32 and bfloat16: K8 on every
+    case without padding, K9 on every case.  Returns per-kernel errors
+    (float32 cases), cases and mismatches as :func:`check_kernels`
+    does."""
+    import torch
+    from bigdl_tpu_torch.ops import attention as attn
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    names = ("attention_fwd", "attention_stream_fwd")
+    errs = {k: 0.0 for k in names}
+    rels = {k: 0.0 for k in names}
+    rels_bf16 = {k: 0.0 for k in names}
+    cases = {k: 0 for k in names}
+    misses = {k: 0 for k in names}
+    for case in ATTN_PATH + ATTN_RAGGED:
+        causal = case[7]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = attention_operands(case, dtype, device, gen)
+            runs = [("attention_stream_fwd",
+                     lambda: attn.attention_stream_fwd(q, k, v, causal, None,
+                                                       bias),
+                     lambda x, y, z: attn.attention_stream_plain(
+                         x, y, z, causal, None, bias))]
+            if bias is None:
+                runs.insert(0, ("attention_fwd",
+                                lambda: attn.attention_fwd(q, k, v, causal),
+                                lambda x, y, z: attn.attention_reference(
+                                    x, y, z, causal)))
+            for name, kern, plain in runs:
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain(q, k, v)
+                mag = plain(q.float(), k.float(), v.float().abs())
+                err = (got.float() - want.float()).abs()
+                rel = (err / mag.clamp_min(1e-30)).max().item()
+                tol = (ATTN_F32_RTOL if dtype == torch.float32 else
+                       ATTN_BF16_STEPS * BF16_STEP) * mag
+                ok = bool((err <= tol).all()) and \
+                    bool(torch.isfinite(got).all()) and \
+                    got.shape == q.shape and got.dtype == dtype
+                if case[8] is not None and 0 in case[8]:
+                    ok = ok and not got[case[8].index(0)].float().abs().any()
+                cases[name] += 1
+                into = rels if dtype == torch.float32 else rels_bf16
+                into[name] = max(into[name], rel)
+                if dtype == torch.float32:
+                    errs[name] = max(errs[name], err.max().item())
+                if not ok:
+                    misses[name] += 1
+                    fail(f"{name} {case[0]} {dtype}: max |err| / sum |p·v| "
+                         f"{rel:.3g} beyond tolerance")
+                del got, want, mag
+    log("attention kernels vs plain: " + "; ".join(
+        f"{k} {cases[k]} cases, max |err| / sum |p·v| f32 {rels[k]:.3g} "
+        f"(limit {ATTN_F32_RTOL}; max |err| {errs[k]:.3g}) bf16 "
+        f"{rels_bf16[k]:.3g} (limit "
+        f"{ATTN_BF16_STEPS * BF16_STEP:.4g})" for k in names))
     return errs, cases, misses
 
 
@@ -843,6 +993,208 @@ def serve_quantized(device):
     return report, by_path, clf
 
 
+# -- phase 3e/3f: TransformerLM scoring and generation ------------------------
+
+def lm_model(vocab=None, max_len=None):
+    """A full-width TransformerLM (embed 512, 8 heads, 8 layers, GELU FFN
+    2048, learned positions) with seeded random weights, on the CPU;
+    LM_VOCAB and LM_T unless given."""
+    from bigdl_tpu_torch.models import TransformerLM
+    return TransformerLM(vocab or LM_VOCAB, max_len=max_len or LM_T,
+                         embed_dim=LM_EMBED,
+                         num_heads=LM_HEADS, num_layers=LM_LAYERS).reset(
+                             SEED).evaluate()
+
+
+def lm_ids(shape, seed, vocab=None):
+    return np.random.RandomState(seed).randint(1, (vocab or LM_VOCAB) + 1,
+                                               shape)
+
+
+def pad_mask(lengths, t):
+    import torch
+    return torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]
+
+
+def bf16_limit(ref, steps):
+    """``steps`` bfloat16 steps at the largest magnitude of ``ref``."""
+    return steps * bf16_step(ref.abs().max().item())
+
+
+def lm_scoring(device):
+    """Drive LM scoring (bf16 weights): LocalValidator with the Loss of
+    ``train_main`` over LM_SEQS seeded sequences, the padded forward, the
+    long-context forward; hold the card against the CPU.  Returns the
+    report, the launches by path and the bf16 model on the card."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Loss, LocalValidator
+
+    base = lm_model()
+    model = copy.deepcopy(base).to(device, torch.bfloat16)
+    seqs = lm_ids((LM_SEQS, LM_T + 1), SEED + 50)
+    val = DataSet.array([Sample(q[:-1], q[1:]) for q in seqs]) >> \
+        SampleToBatch(LM_BATCH)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    ops.reset_launches()                 # the LM scoring path starts here
+    (res,) = LocalValidator(model, val, device=device).test([Loss(crit)])
+    score_launches = launches_now()      # and ends here
+    forwards = LM_SEQS // LM_BATCH
+    if score_launches != per_forward({"attention_fwd": LM_LAYERS}, forwards):
+        fail(f"LM scoring launches {score_launches} for {forwards} forwards, "
+             f"expected {LM_LAYERS} attention_fwd per forward")
+    loss, count = res.result()
+    if not math.isfinite(loss) or count != LM_SEQS:
+        fail(f"LM scoring loss {loss} over {count} sequences")
+
+    ids = torch.from_numpy(seqs[:LM_BATCH, :-1]).to(device)
+    mask = pad_mask(LM_PAD_LENGTHS, LM_T).to(device)
+    with torch.inference_mode():
+        lp = model(ids).float()
+        ops.reset_launches()             # the padded LM path starts here
+        lp_pad = model(ids, key_padding_mask=mask).float()
+        pad_launches = launches_now()    # and ends here
+    if pad_launches != per_forward({"attention_stream_fwd": LM_LAYERS}, 1):
+        fail(f"padded LM forward launches {pad_launches}, expected "
+             f"{LM_LAYERS} attention_stream_fwd")
+    # causal attention over right padding: the real positions of every row
+    # see only real keys, so they must agree with the unpadded forward
+    # (K8 there, K9 here)
+    pad_diff = (lp_pad - lp).abs()[mask].max().item()
+    pad_limit = bf16_limit(lp[mask], LM_PAD_STEPS)
+    if not torch.isfinite(lp_pad[mask]).all() or pad_diff > pad_limit:
+        fail(f"padded vs unpadded LM log-probs at the real positions: max "
+             f"|d| {pad_diff} (limit {pad_limit})")
+    del lp, lp_pad
+
+    # the long-context model, one eval forward at batch 1 x T 8192
+    long_model = lm_model(LONG_VOCAB, LONG_T).to(device, torch.bfloat16)
+    long_ids = torch.from_numpy(lm_ids((1, LONG_T), SEED + 51,
+                                       LONG_VOCAB)).to(device)
+    with torch.inference_mode():
+        ops.reset_launches()             # the long-context path starts here
+        lp_long = long_model(long_ids)
+        long_launches = launches_now()   # and ends here
+    if long_launches != per_forward({"attention_stream_fwd": LM_LAYERS}, 1):
+        fail(f"long-context forward launches {long_launches}, expected "
+             f"{LM_LAYERS} attention_stream_fwd")
+    if lp_long.shape != (1, LONG_T, LONG_VOCAB) or \
+            not torch.isfinite(lp_long).all():
+        fail(f"long-context log-probs {tuple(lp_long.shape)} not finite")
+    del lp_long
+
+    # card vs CPU: one row in float32 (TF32 off), the log-probs
+    row = torch.from_numpy(seqs[:1, :-1])
+    f32 = copy.deepcopy(base).to(device)
+    with torch.inference_mode():
+        lp_dev = f32(row.to(device)).float().cpu()
+        lp_cpu = base(row)
+    del f32
+    f32_diff = (lp_dev - lp_cpu).abs().max().item()
+    if f32_diff > LM_F32_ATOL:
+        fail(f"f32 LM row, card vs CPU: max |dlogp| {f32_diff} (limit "
+             f"{LM_F32_ATOL})")
+    # card vs CPU in bf16: the logits (LogSoftMax's input) of two rows,
+    # argmax equal wherever the top-2 margin exceeds the limit
+    rows = torch.from_numpy(seqs[:LM_CPU_ROWS, :-1])
+    cpu_bf16 = copy.deepcopy(base).to("cpu", torch.bfloat16)
+    with torch.inference_mode():
+        lg_dev = model.logits(rows.to(device)).float().cpu()
+        lg_cpu = cpu_bf16.logits(rows).float()
+    del cpu_bf16
+    lg_limit = bf16_limit(lg_cpu, LM_LOGIT_STEPS)
+    lg_diff = (lg_dev - lg_cpu).abs().max().item()
+    top2 = lg_cpu.topk(2, dim=-1).values
+    firm = (top2[..., 0] - top2[..., 1]) > lg_limit
+    compared = int(firm.sum())
+    agree = int((lg_dev.argmax(-1) == lg_cpu.argmax(-1))[firm].sum())
+    positions = LM_CPU_ROWS * LM_T
+    if lg_diff > lg_limit or agree != compared or 2 * compared <= positions:
+        fail(f"bf16 LM logits, card vs CPU: max |dlogit| {lg_diff} (limit "
+             f"{lg_limit}); argmax equal at {agree} of the {compared} "
+             f"positions (of {positions}) whose top-2 margin exceeds it")
+    log(f"LM scoring (bf16, batch {LM_BATCH} x T {LM_T}): loss {loss:.5f} "
+        f"over {count} sequences, launches {score_launches}; padded forward "
+        f"launches {pad_launches}, real positions vs unpadded max |dlogp| "
+        f"{pad_diff:.4g} (limit {pad_limit:.4g}); long context (1 x "
+        f"{LONG_T}) launches {long_launches}; f32 row vs CPU max |dlogp| "
+        f"{f32_diff:.3g} (limit {LM_F32_ATOL}); bf16 logits of "
+        f"{LM_CPU_ROWS} rows vs CPU max |dlogit| {lg_diff:.4g} (limit "
+        f"{lg_limit:.4g}), argmax equal at {agree} of {compared} positions "
+        f"compared of {positions}")
+    report = {"loss": loss, "sequences": count,
+              "padded_vs_unpadded_max_abs_dlogp": pad_diff,
+              "padded_limit": pad_limit, "f32_cpu_max_abs_dlogp": f32_diff,
+              "bf16_cpu_max_abs_dlogit": lg_diff, "bf16_logit_limit": lg_limit,
+              "argmax_compared": compared, "argmax_equal": agree,
+              "positions": positions}
+    by_path = {"lm_score": score_launches, "lm_padded": pad_launches,
+               "lm_long": long_launches}
+    return report, by_path, model, long_model
+
+
+def lm_generation(device):
+    """Drive generation at the decode configuration (bf16 weights and
+    cache, batch 8, prompt 128, 128 new tokens), greedy and sampled; hold
+    greedy f32 tokens against the CPU.  Returns the report, the launches
+    and the bf16 model on the card."""
+    import torch
+    from bigdl_tpu_torch import ops
+    base = lm_model(max_len=GEN_PROMPT + GEN_NEW)
+    model = copy.deepcopy(base).to(device, torch.bfloat16)
+    prompt = torch.from_numpy(lm_ids((LM_BATCH, GEN_PROMPT),
+                                     SEED + 60)).to(device)
+
+    def gen(seed=None, **kw):
+        g = None
+        if seed is not None:
+            g = torch.Generator(device=device).manual_seed(seed)
+        return model.generate(prompt, GEN_NEW, generator=g,
+                              cache_dtype=torch.bfloat16, **kw)
+
+    ops.reset_launches()                 # the generation path starts here
+    greedy = gen()
+    sampled = gen(SEED, temperature=1.0, top_k=50, top_p=0.9)
+    launches = launches_now()            # and ends here
+    if any(launches.values()):
+        fail(f"generation launched kernels {launches}; the decode path "
+             "runs none")
+    again = gen(SEED, temperature=1.0, top_k=50, top_p=0.9)
+    for name, out in (("greedy", greedy), ("sampled", sampled)):
+        if out.shape != (LM_BATCH, GEN_NEW) or \
+                not bool(((out >= 1) & (out <= LM_VOCAB)).all()):
+            fail(f"{name} generation gave {tuple(out.shape)} or ids out of "
+                 "range")
+    if not torch.equal(sampled, again):
+        fail("sampling with the same generator seed is not reproducible")
+    # greedy in float32, card vs CPU; and top_k=1 sampling against greedy
+    # in float32 (bf16 log-probs tie at the top, and top_k keeps every
+    # tie, as the reference's does)
+    f32 = copy.deepcopy(base).to(device)
+    p2 = prompt[:GEN_CPU_ROWS]
+    got = f32.generate(p2, GEN_CPU_NEW)
+    top1 = f32.generate(p2, GEN_CPU_NEW, temperature=1.0, top_k=1,
+                        generator=torch.Generator(device=device).manual_seed(
+                            SEED + 1))
+    want = base.generate(p2.cpu(), GEN_CPU_NEW)
+    del f32
+    if not torch.equal(got.cpu(), want):
+        fail(f"greedy f32 tokens differ from the CPU's: {got.tolist()} vs "
+             f"{want.tolist()}")
+    if not torch.equal(top1, got):
+        fail("f32 sampling with top_k=1 differs from greedy decoding")
+    log(f"LM generation (bf16, batch {LM_BATCH}, prompt {GEN_PROMPT}, "
+        f"{GEN_NEW} new): greedy and sampled (top_k 50, top_p 0.9) in range, "
+        f"sampling reproducible, launches {launches}; greedy f32 "
+        f"{GEN_CPU_ROWS} rows x {GEN_CPU_NEW} tokens equal to the CPU's and "
+        f"to f32 top_k 1 sampling")
+    report = {"greedy_sampled_differ_at": int((greedy != sampled).sum()),
+              "cpu_tokens_equal": GEN_CPU_ROWS * GEN_CPU_NEW}
+    return report, {"lm_generate": launches}, model, prompt
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -1089,6 +1441,131 @@ def time_quant_convs(device, prods32):
     return out
 
 
+def attention_work(case, dtype):
+    """(bytes, FLOPs) that a call needs: q, k, v (and the bias) read once
+    and o written once; 4·D FLOPs per (query, key) pair the masks let
+    through, counted from this case's causal mask and padded lengths."""
+    _, b, h, hk, t, tk, d, causal, lengths = case
+    eb = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = eb * (2 * b * h * t * d + 2 * b * hk * tk * d)
+    if lengths is not None:
+        nbytes += 4 * b * tk
+    rows = [min(tk, L) if lengths is not None else tk
+            for L in (lengths or [tk] * b)]
+    pairs = 0
+    for real in rows:
+        if causal:   # query i sees keys [0, min(i + 1, real))
+            full = min(t, real)
+            pairs += full * (full + 1) // 2 + max(t - full, 0) * real
+        else:
+            pairs += t * real
+    return nbytes, 4 * h * d * pairs
+
+
+def sdpa_call(q, k, v, causal, bias):
+    """The same attention as one ``F.scaled_dot_product_attention`` call
+    (the yardstick only: the port never calls it): GQA heads expanded,
+    padding as a boolean ``attn_mask`` combined with the causal one."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops.attention import expand_kv_heads
+    k, v = expand_kv_heads(q, k, v)
+    if bias is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    t, tk = q.shape[2], k.shape[2]
+    keep = (bias > -1.0)[:, None, None, :]
+    if causal:
+        keep = keep & (torch.arange(t, device=q.device)[:, None] >=
+                       torch.arange(tk, device=q.device)[None, :])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+
+
+def time_attention(device):
+    """K8 and K9 per call at the LM paths' shapes in bf16 (ATTN_PATH):
+    median kernel time with the L2 flushed, its bound, the plain version
+    and SDPA; then K8 against K9 at rising T (bf16, causal, d 64), where
+    the reference's rule switches from K8 to K9 past T 2048."""
+    import torch
+    from bigdl_tpu_torch.ops import attention as attn
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    bf16 = torch.bfloat16
+    out = {}
+    for case in ATTN_PATH:
+        causal = case[7]
+        q, k, v, bias = attention_operands(case, bf16, device, gen)
+        if case[0].endswith("K8"):
+            name = "attention_fwd"
+            kern = lambda: attn.attention_fwd(q, k, v, causal)
+            plain = lambda: attn.attention_reference(q, k, v, causal)
+        else:
+            name = "attention_stream_fwd"
+            kern = lambda: attn.attention_stream_fwd(q, k, v, causal, None,
+                                                     bias)
+            plain = lambda: attn.attention_stream_plain(q, k, v, causal,
+                                                        None, bias)
+        nbytes, flops = attention_work(case, bf16)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * flops / BF16_FLOPS
+        out[case[0]] = {
+            "kernel": name, "shape": list(case[1:7]), "dtype": "bfloat16",
+            "ms": median_ms(kern, device, flush=flush),
+            "plain_ms": median_ms(plain, device, reps=5, flush=flush),
+            "library_ms": median_ms(sdpa_call(q, k, v, causal, bias), device,
+                                    flush=flush),
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        del q, k, v, bias
+    sweep = []
+    for b, t in ((8, 512), (8, 1024), (8, 2048), (4, 4096), (1, 8192),
+                 (1, 16384)):
+        case = ("sweep", b, LM_HEADS, LM_HEADS, t, t, 64, True, None)
+        q, k, v, _ = attention_operands(case, bf16, device, gen)
+        k8 = median_ms(lambda: attn.attention_fwd(q, k, v, True), device,
+                       flush=flush)
+        k9 = median_ms(lambda: attn.attention_stream_fwd(q, k, v, True),
+                       device, flush=flush)
+        sweep.append({"batch": b, "T": t, "k8_ms": k8, "k9_ms": k9,
+                      "k8_over_k9": k8 / k9,
+                      "bound_ms": 1e3 * attention_work(case, bf16)[1] /
+                      BF16_FLOPS})
+        del q, k, v
+    return out, sweep
+
+
+def time_lm(score_model, long_model, gen_model, prompt, device):
+    """Scoring tokens/s (one bf16 forward, median of 5) at both
+    configurations, generation new tokens/s (median of 3), and a profiler
+    breakdown of one scoring forward."""
+    import torch
+    ids = torch.from_numpy(lm_ids((LM_BATCH, LM_T), SEED + 52)).to(device)
+    long_ids = torch.from_numpy(lm_ids((1, LONG_T), SEED + 53,
+                                       LONG_VOCAB)).to(device)
+    out = {}
+    with torch.inference_mode():
+        for name, model, x in (("score", score_model, ids),
+                               ("long", long_model, long_ids)):
+            ms = median_ms(lambda: model(x), device, reps=5)
+            out[name] = {"forward_ms": ms,
+                         "tokens_per_s": x.numel() / ms * 1e3}
+        prof = device_profile(lambda: score_model(ids), 1)
+    prof["busy_share"] = prof["device_ms"] / out["score"]["forward_ms"]
+    out["score"]["profile"] = prof
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen_model.generate(prompt, GEN_NEW, cache_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    out["generate"] = {"ms": ms, "new_tokens_per_s":
+                       prompt.shape[0] * GEN_NEW / ms * 1e3}
+    return out
+
+
 def profile_train_steps(device, mixed, steps=3):
     """Device time by kernel over ``steps`` training steps after as many
     warm-up steps (:func:`device_profile`)."""
@@ -1174,6 +1651,12 @@ KERNELS = [
     {"name": "w4_matmul", "wrapper": "w4_matmul", "route": "cuda",
      "source": "bigdl_tpu_torch/csrc/quant_matmul.cu",
      "replaces": "bigdl_tpu/ops/quant.py:441"},
+    {"name": "attention_fwd", "wrapper": "attention_fwd", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/attention.cu",
+     "replaces": "bigdl_tpu/ops/attention.py:117"},
+    {"name": "attention_stream_fwd", "wrapper": "attention_stream_fwd",
+     "route": "cuda", "source": "bigdl_tpu_torch/csrc/attention.cu",
+     "replaces": "bigdl_tpu/ops/attention.py:207"},
 ]
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1218,6 +1701,9 @@ def main() -> int:
     for d, more in zip((errs, cases, misses),
                        check_quant_kernels(device, path_shapes)):
         d.update(more)
+    for d, more in zip((errs, cases, misses),
+                       check_attention_kernels(device)):
+        d.update(more)
     # phase 3, 3b, 3c and 3d: each path's launches counted from 0
     report, serve_launches = serve(device)
     train_report, train_launches = train(device)
@@ -1231,6 +1717,9 @@ def main() -> int:
             f"{r['resident_ratio_vs_bf16']:.4f} of the bf16 tree (budget "
             f"{r['budget']['max_resident_ratio_vs_bf16']}), bytes "
             f"{r['bytes_by_dtype']}")
+    lm_report, lm_launches, score_model, long_model = lm_scoring(device)
+    gen_report, gen_launches, gen_model, prompt = lm_generation(device)
+    lm_launches.update(gen_launches)
     # phase 4
     times = time_kernels(device)
     train_times = time_train_kernels(device)
@@ -1289,6 +1778,36 @@ def main() -> int:
             "top kernels and copies (ms per step): " + json.dumps(p["top"]))
         train_report["profile_" + key] = p
     log("training: " + json.dumps(train_report))
+    attn_times, sweep = time_attention(device)
+    for name, t in attn_times.items():
+        log(f"[{card}] {t['kernel']} at {name} {t['shape']} (bf16, per "
+            f"call): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; bytes {t['bytes_ms']:.4f}, operations "
+            f"{t['ops_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA "
+            f"{t['library_ms']:.4f} ms")
+    for r in sweep:
+        log(f"[{card}] K8 vs K9 (bf16, causal, batch {r['batch']}, 8 heads, "
+            f"T {r['T']}, d 64): K8 {r['k8_ms']:.4f} ms, K9 "
+            f"{r['k9_ms']:.4f} ms, K8/K9 {r['k8_over_k9']:.3f}, bound "
+            f"{r['bound_ms']:.4f} ms")
+    lm_report["timings"] = time_lm(score_model, long_model, gen_model,
+                                   prompt, device)
+    lt = lm_report["timings"]
+    log(f"[{card}] LM scoring forward (bf16, {LM_BATCH} x {LM_T}): "
+        f"{lt['score']['forward_ms']:.3f} ms "
+        f"({lt['score']['tokens_per_s']:.0f} tokens/s); long context (1 x "
+        f"{LONG_T}): "
+        f"{lt['long']['forward_ms']:.3f} ms ({lt['long']['tokens_per_s']:.0f} "
+        f"tokens/s); generation ({LM_BATCH} x {GEN_NEW} new after "
+        f"{GEN_PROMPT}): {lt['generate']['ms']:.1f} ms "
+        f"({lt['generate']['new_tokens_per_s']:.1f} new tokens/s)")
+    p = lt["score"]["profile"]
+    log(f"[{card}] LM scoring forward profile: device {p['device_ms']:.3f} ms"
+        f", busy share {p['busy_share']:.3f}; top ops (ms per forward): "
+        + json.dumps(p["top"]))
+    lm_report["generation"] = gen_report
+    lm_report["kernel_sweep"] = sweep
+    log("transformer LM: " + json.dumps(lm_report))
     for where, tt in (("serving shapes, f32", times),
                       ("training shapes, bf16", train_times)):
         for name, t in tt.items():
@@ -1301,6 +1820,7 @@ def main() -> int:
         by_path = {"serve": serve_launches[wrapper],
                    "train": train_launches[wrapper]}
         by_path.update({p: v[wrapper] for p, v in quant_launches.items()})
+        by_path.update({p: v[wrapper] for p, v in lm_launches.items()})
         entry = {"name": name, "route": k["route"], "source": k["source"],
                  "replaces": k["replaces"],
                  "launches": sum(by_path.values()),
@@ -1310,6 +1830,14 @@ def main() -> int:
         if name in times:        # forward kernels: serving shapes, f32
             entry.update({key: times[name][key] for key in TIME_KEYS})
             entry["train"] = dict(train_times[name], dtype="bfloat16")
+        elif wrapper in ("attention_fwd", "attention_stream_fwd"):
+            # per call at the LM path's shape, bf16 (K9: the padded LM)
+            key = ATTN_PATH[0][0] if wrapper == "attention_fwd" else \
+                ATTN_PATH[1][0]
+            entry.update({k2: attn_times[key][k2] for k2 in TIME_KEYS})
+            entry["shape"] = attn_times[key]["shape"]
+            if wrapper == "attention_stream_fwd":
+                entry["long_context"] = attn_times[ATTN_PATH[2][0]]
         elif name in qtimes:     # quantized: one batch-32 forward, bf16
             entry.update({key: qtimes[name][key] for key in TIME_KEYS})
             entry["calls_per_forward"] = qtimes[name]["calls"]

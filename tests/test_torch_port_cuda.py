@@ -14,6 +14,11 @@ quantized matmuls: K14 (int8 x int8) is bit-equal; K13 (int8 and e4m3
 weights) and K15 (int4) agree to 1e-4 of each output's sum of |products|
 (f32 sums taken in another order, mma.sync's accumulation in bfloat16),
 plus one bfloat16 rounding step of the output (2^-7 relative) in bfloat16.
+The attention kernels K8 and K9 agree with their plain versions to 1e-5 of
+each output's sum of |p·v| (the softmax weights times |v|) in float32, and
+to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two outputs' own
+roundings can land one step apart, and the kernels round p to bfloat16 for
+the tensor cores (2^-9 of the sum at most).
 """
 
 import pytest
@@ -22,6 +27,7 @@ import torch
 from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                  lrn_plain, max_pool2d, max_pool2d_bwd,
                                  max_pool2d_bwd_plain, max_pool2d_plain)
+from bigdl_tpu_torch.ops import attention as attn
 from bigdl_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
@@ -181,3 +187,82 @@ def test_quant_kernel_launches_are_counted(cuda_device):
     qt = quant.pack(w)
     with pytest.raises(ValueError, match="contiguous"):
         quant.w8_matmul(x.t().contiguous().t(), qt["q8"], qt["scale"])
+
+
+# (b, h, hk, t, tk, d, causal, padded lengths or None)
+ATTN_CASES = [
+    (2, 8, 2, 24, 24, 64, True, None),      # GQA 8/2, T = 24
+    (1, 8, 1, 8, 8, 32, True, None),        # MQA, T = 8, head dim 32
+    (1, 4, 4, 70, 33, 128, True, None),     # Tq != Tk, head dim 128
+    (2, 2, 2, 40, 56, 16, False, None),     # non-causal, head dim 16
+    (2, 4, 2, 96, 96, 64, True, [0, 50]),   # a row with every key padded
+    (3, 4, 4, 130, 130, 64, False, [130, 64, 1]),
+]
+ATTN_IDS = ["gqa", "mqa-t8", "tq-ne-tk-d128", "noncausal-d16", "all-padded",
+            "noncausal-padded"]
+
+
+def _attn_close(got, want, mag, dtype):
+    tol = (1e-5 if dtype == torch.float32 else 2 * 2.0 ** -7) * mag
+    return bool(((got.float() - want.float()).abs() <= tol).all()) and \
+        bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=ATTN_IDS)
+def test_attention_kernels_match_plain(cuda_device, case, dtype):
+    b, h, hk, t, tk, d, causal, lengths = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(t + tk + d)
+    q = torch.randn((b, h, t, d), generator=g, device=cuda_device).to(dt)
+    k = torch.randn((b, hk, tk, d), generator=g, device=cuda_device).to(dt)
+    v = torch.randn((b, hk, tk, d), generator=g, device=cuda_device).to(dt)
+    bias = None
+    if lengths is not None:
+        keep = torch.arange(tk, device=cuda_device)[None, :] < \
+            torch.tensor(lengths, device=cuda_device)[:, None]
+        bias = torch.where(keep, 0.0, attn.NEG_INF).float()
+    else:
+        got = attn.attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        want = attn.attention_reference(q, k, v, causal)
+        mag = attn.attention_reference(q.float(), k.float(),
+                                       v.float().abs(), causal)
+        assert got.dtype == dt and got.shape == q.shape
+        assert _attn_close(got, want, mag, dt)
+    got = attn.attention_stream_fwd(q, k, v, causal, None, bias)
+    torch.cuda.synchronize()
+    want = attn.attention_stream_plain(q, k, v, causal, None, bias)
+    mag = attn.attention_stream_plain(q.float(), k.float(), v.float().abs(),
+                                      causal, None, bias)
+    assert got.dtype == dt and got.shape == q.shape
+    assert _attn_close(got, want, mag, dt)
+    if lengths is not None and 0 in lengths:
+        assert not got[lengths.index(0)].float().abs().any()
+
+
+def test_attention_kernels_reject_other_head_dims(cuda_device):
+    q = torch.randn((1, 2, 16, 48), device=cuda_device)
+    before = (attn.attention_fwd.launches, attn.attention_stream_fwd.launches)
+    with pytest.raises(ValueError, match="head dims"):
+        attn.attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        attn.attention_stream_fwd(q, q, q)
+    assert (attn.attention_fwd.launches,
+            attn.attention_stream_fwd.launches) == before
+
+
+def test_attention_kernel_backward_raises(cuda_device):
+    q, k, v = (torch.randn((1, 2, 16, 32), device=cuda_device,
+                           requires_grad=True) for _ in range(3))
+    bias = torch.zeros((1, 16), device=cuda_device)
+    before = (attn.attention_fwd.launches, attn.attention_stream_fwd.launches)
+    for o in (attn.attention_fwd(q, k, v, True),
+              attn.attention_stream_fwd(q, k, v, True, None, bias)):
+        assert o.requires_grad
+        with pytest.raises(NotImplementedError, match="K10, K11"):
+            o.sum().backward()
+    torch.cuda.synchronize()
+    assert (attn.attention_fwd.launches,
+            attn.attention_stream_fwd.launches) == \
+        (before[0] + 1, before[1] + 1)
