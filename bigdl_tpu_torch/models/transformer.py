@@ -153,18 +153,21 @@ class TransformerLM(Module):
             x = blk.decode_step(x, c, pos)
         return torch.log_softmax(self._head(x), dim=-1)
 
-    @torch.inference_mode()
     def generate(self, prompt, max_new: int, temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None,
                  max_len: Optional[int] = None, cache_dtype=torch.float32,
-                 top_k: int = 0, top_p: float = 1.0):
-        """Autoregressive generation: one prefill over ``prompt`` (B, Tp)
-        1-based, then ``max_new - 1`` single-token decode steps, greedy at
-        ``temperature == 0``, else sampled from ``generator`` (on the
-        model's device), truncated to the ``top_k`` most likely tokens
-        and/or the ``top_p`` nucleus (its first token always kept).
-        Returns (B, max_new) 1-based ids."""
-        prompt = torch.as_tensor(prompt, device=self.tok.device).long()
+                 top_k: int = 0, top_p: float = 1.0, device="cuda"):
+        """Autoregressive generation on ``device`` (CUDA by default; the
+        model moves there, and a CUDA device without CUDA raises): one
+        prefill over ``prompt`` (B, Tp) 1-based, then ``max_new - 1``
+        single-token decode steps, greedy at ``temperature == 0``, else
+        sampled from ``generator`` (on ``device``), truncated to the
+        ``top_k`` most likely tokens and/or the ``top_p`` nucleus (its
+        first token always kept).  Returns (B, max_new) 1-based ids on
+        ``device``."""
+        self.to(device)   # outside inference mode: the parameters stay
+                          # usable by autograd afterwards
+        prompt = torch.as_tensor(prompt).to(self.tok.device).long()
         b, tp = prompt.shape
         ml = max_len or self.max_len
         if tp + max_new > ml:
@@ -201,11 +204,12 @@ class TransformerLM(Module):
             return torch.multinomial(torch.softmax(lp, dim=-1), 1,
                                      generator=generator)[:, 0] + 1
 
-        cache = self.init_cache(b, ml, cache_dtype)
-        out = torch.empty((b, max_new), dtype=torch.long,
-                          device=prompt.device)
-        out[:, 0] = pick(self.decode(prompt, cache, 0)[:, -1])
-        for i in range(1, max_new):
-            lp = self.decode(out[:, i - 1:i], cache, tp + i - 1)
-            out[:, i] = pick(lp[:, -1])
+        with torch.inference_mode():
+            cache = self.init_cache(b, ml, cache_dtype)
+            out = torch.empty((b, max_new), dtype=torch.long,
+                              device=prompt.device)
+            out[:, 0] = pick(self.decode(prompt, cache, 0)[:, -1])
+            for i in range(1, max_new):
+                lp = self.decode(out[:, i - 1:i], cache, tp + i - 1)
+                out[:, i] = pick(lp[:, -1])
         return out

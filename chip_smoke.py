@@ -180,6 +180,9 @@ LONG_VOCAB, LONG_T = 8192, 8192
 GEN_PROMPT, GEN_NEW = 128, 128
 GEN_CPU_ROWS, GEN_CPU_NEW = 2, 16
 LM_CPU_ROWS = 2
+# the padded rows held against the CPU at every position: lengths 777 and
+# 1, so most of their query rows are padded and see the key bias
+LM_PAD_CPU_ROWS = [4, 7]
 # K8/K9 against their plain versions: f32 within ATTN_F32_RTOL of each
 # output's sum of |p·v| (softmax weights times |v|); bf16 within
 # ATTN_BF16_STEPS bf16 steps of it (the two outputs' roundings can land one
@@ -205,13 +208,18 @@ ATTN_RAGGED = [
     ("padded, non-causal, d 128", 3, 4, 4, 130, 130, 128, False,
      [130, 64, 1]),
 ]
-# card vs CPU on the LM: f32 log-probs of one row, and bf16 logits of
-# LM_CPU_ROWS rows in bf16 steps of their largest magnitude
+# card vs CPU on the LM: f32 log-probs of one row; bf16 logits (of the
+# unpadded rows, of the padded rows at every position, and of the padded
+# forward's real positions against the unpadded forward's, K9 vs K8) in
+# bf16 steps of their largest magnitude
 LM_F32_ATOL = 3e-5
 LM_LOGIT_STEPS = 3
-# padded vs unpadded bf16 forward on the card (K9 vs K8): log-probs at the
-# real positions, in bf16 steps of their largest magnitude
-LM_PAD_STEPS = 2
+# argmax is compared where the top-2 margin exceeds that limit, and those
+# positions must be more than this share: most of the unpadded rows'
+# positions; a quarter of the padded rows', whose margins run narrower
+# (on an H100, 1287 of their 4096 positions above the limit: 334 of 778
+# real and 953 of 3318 padded ones)
+LM_FIRM_SHARE, LM_PAD_FIRM_SHARE = 0.5, 0.25
 TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
 TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
 CPU_BATCH, CPU_STEPS = 4, 2
@@ -1021,6 +1029,27 @@ def bf16_limit(ref, steps):
     return steps * bf16_step(ref.abs().max().item())
 
 
+def held_logits(what, got, want, min_share=LM_FIRM_SHARE):
+    """Hold bf16 logits ``got`` against ``want`` (float, one device, the
+    same positions): max |d| within LM_LOGIT_STEPS bf16 steps of ``want``'s
+    largest magnitude, and argmax equal at every position whose top-2
+    margin exceeds that limit, which must be more than ``min_share`` of
+    them.  Returns the figures and the positions compared, as a mask."""
+    limit = bf16_limit(want, LM_LOGIT_STEPS)
+    diff = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    firm = (top2[..., 0] - top2[..., 1]) > limit
+    compared, positions = int(firm.sum()), firm.numel()
+    agree = int((got.argmax(-1) == want.argmax(-1))[firm].sum())
+    if not math.isfinite(diff) or diff > limit or agree != compared or \
+            compared <= min_share * positions:
+        fail(f"{what}: max |dlogit| {diff} (limit {limit}); argmax equal at "
+             f"{agree} of the {compared} positions (of {positions}, at least "
+             f"{min_share} of them) whose top-2 margin exceeds it")
+    return {"max_abs_dlogit": diff, "limit": limit,
+            "argmax_compared": compared, "positions": positions}, firm
+
+
 def lm_scoring(device):
     """Drive LM scoring (bf16 weights): LocalValidator with the Loss of
     ``train_main`` over LM_SEQS seeded sequences, the padded forward, the
@@ -1052,22 +1081,38 @@ def lm_scoring(device):
     ids = torch.from_numpy(seqs[:LM_BATCH, :-1]).to(device)
     mask = pad_mask(LM_PAD_LENGTHS, LM_T).to(device)
     with torch.inference_mode():
-        lp = model(ids).float()
         ops.reset_launches()             # the padded LM path starts here
-        lp_pad = model(ids, key_padding_mask=mask).float()
+        lp_pad = model(ids, key_padding_mask=mask)
         pad_launches = launches_now()    # and ends here
     if pad_launches != per_forward({"attention_stream_fwd": LM_LAYERS}, 1):
         fail(f"padded LM forward launches {pad_launches}, expected "
              f"{LM_LAYERS} attention_stream_fwd")
+    if lp_pad.shape != (LM_BATCH, LM_T, LM_VOCAB) or \
+            not torch.isfinite(lp_pad).all():
+        fail(f"padded LM log-probs {tuple(lp_pad.shape)} not finite")
+    del lp_pad
     # causal attention over right padding: the real positions of every row
-    # see only real keys, so they must agree with the unpadded forward
-    # (K8 there, K9 here)
-    pad_diff = (lp_pad - lp).abs()[mask].max().item()
-    pad_limit = bf16_limit(lp[mask], LM_PAD_STEPS)
-    if not torch.isfinite(lp_pad[mask]).all() or pad_diff > pad_limit:
-        fail(f"padded vs unpadded LM log-probs at the real positions: max "
-             f"|d| {pad_diff} (limit {pad_limit})")
-    del lp, lp_pad
+    # see only real keys, so their logits must agree with the unpadded
+    # forward's (K9 vs K8)
+    with torch.inference_mode():
+        lg_pad = model.logits(ids, key_padding_mask=mask)
+        real, _ = held_logits("padded vs unpadded LM logits at the real "
+                              "positions", lg_pad[mask].float(),
+                              model.logits(ids)[mask].float())
+    # the padded rows against a CPU bf16 run with the same mask at every
+    # position: a padded query row sees its padded keys only through K9's
+    # bias
+    rows = LM_PAD_CPU_ROWS
+    cpu_bf16 = copy.deepcopy(base).to("cpu", torch.bfloat16)
+    with torch.inference_mode():
+        padded, firm = held_logits(
+            "padded bf16 LM logits, card vs CPU",
+            lg_pad[rows].float().cpu(),
+            cpu_bf16.logits(ids[rows].cpu(),
+                            key_padding_mask=mask[rows].cpu()).float(),
+            LM_PAD_FIRM_SHARE)
+    pad_real = mask[rows].cpu()
+    del lg_pad
 
     # the long-context model, one eval forward at batch 1 x T 8192
     long_model = lm_model(LONG_VOCAB, LONG_T).to(device, torch.bfloat16)
@@ -1096,40 +1141,34 @@ def lm_scoring(device):
     if f32_diff > LM_F32_ATOL:
         fail(f"f32 LM row, card vs CPU: max |dlogp| {f32_diff} (limit "
              f"{LM_F32_ATOL})")
-    # card vs CPU in bf16: the logits (LogSoftMax's input) of two rows,
-    # argmax equal wherever the top-2 margin exceeds the limit
+    # card vs CPU in bf16: the logits (LogSoftMax's input) of two rows
     rows = torch.from_numpy(seqs[:LM_CPU_ROWS, :-1])
-    cpu_bf16 = copy.deepcopy(base).to("cpu", torch.bfloat16)
     with torch.inference_mode():
-        lg_dev = model.logits(rows.to(device)).float().cpu()
-        lg_cpu = cpu_bf16.logits(rows).float()
+        unpadded, _ = held_logits(
+            "bf16 LM logits, card vs CPU",
+            model.logits(rows.to(device)).float().cpu(),
+            cpu_bf16.logits(rows).float())
     del cpu_bf16
-    lg_limit = bf16_limit(lg_cpu, LM_LOGIT_STEPS)
-    lg_diff = (lg_dev - lg_cpu).abs().max().item()
-    top2 = lg_cpu.topk(2, dim=-1).values
-    firm = (top2[..., 0] - top2[..., 1]) > lg_limit
-    compared = int(firm.sum())
-    agree = int((lg_dev.argmax(-1) == lg_cpu.argmax(-1))[firm].sum())
-    positions = LM_CPU_ROWS * LM_T
-    if lg_diff > lg_limit or agree != compared or 2 * compared <= positions:
-        fail(f"bf16 LM logits, card vs CPU: max |dlogit| {lg_diff} (limit "
-             f"{lg_limit}); argmax equal at {agree} of the {compared} "
-             f"positions (of {positions}) whose top-2 margin exceeds it")
+
+    def said(r):
+        return (f"max |dlogit| {r['max_abs_dlogit']:.4g} (limit "
+                f"{r['limit']:.4g}), argmax equal at all "
+                f"{r['argmax_compared']} positions compared of "
+                f"{r['positions']}")
+
     log(f"LM scoring (bf16, batch {LM_BATCH} x T {LM_T}): loss {loss:.5f} "
         f"over {count} sequences, launches {score_launches}; padded forward "
-        f"launches {pad_launches}, real positions vs unpadded max |dlogp| "
-        f"{pad_diff:.4g} (limit {pad_limit:.4g}); long context (1 x "
-        f"{LONG_T}) launches {long_launches}; f32 row vs CPU max |dlogp| "
-        f"{f32_diff:.3g} (limit {LM_F32_ATOL}); bf16 logits of "
-        f"{LM_CPU_ROWS} rows vs CPU max |dlogit| {lg_diff:.4g} (limit "
-        f"{lg_limit:.4g}), argmax equal at {agree} of {compared} positions "
-        f"compared of {positions}")
+        f"launches {pad_launches}, real positions vs unpadded: {said(real)}; "
+        f"long context (1 x {LONG_T}) launches {long_launches}; f32 row vs "
+        f"CPU max |dlogp| {f32_diff:.3g} (limit {LM_F32_ATOL}); bf16 vs CPU, "
+        f"{LM_CPU_ROWS} rows: {said(unpadded)}; padded rows "
+        f"{LM_PAD_CPU_ROWS}: {said(padded)}, of them "
+        f"{int(firm[pad_real].sum())} of {int(pad_real.sum())} real and "
+        f"{int(firm[~pad_real].sum())} of {int((~pad_real).sum())} padded")
     report = {"loss": loss, "sequences": count,
-              "padded_vs_unpadded_max_abs_dlogp": pad_diff,
-              "padded_limit": pad_limit, "f32_cpu_max_abs_dlogp": f32_diff,
-              "bf16_cpu_max_abs_dlogit": lg_diff, "bf16_logit_limit": lg_limit,
-              "argmax_compared": compared, "argmax_equal": agree,
-              "positions": positions}
+              "f32_cpu_max_abs_dlogp": f32_diff,
+              "padded_vs_unpadded": real, "bf16_vs_cpu": unpadded,
+              "padded_bf16_vs_cpu": padded}
     by_path = {"lm_score": score_launches, "lm_padded": pad_launches,
                "lm_long": long_launches}
     return report, by_path, model, long_model
@@ -1152,7 +1191,7 @@ def lm_generation(device):
         if seed is not None:
             g = torch.Generator(device=device).manual_seed(seed)
         return model.generate(prompt, GEN_NEW, generator=g,
-                              cache_dtype=torch.bfloat16, **kw)
+                              cache_dtype=torch.bfloat16, device=device, **kw)
 
     ops.reset_launches()                 # the generation path starts here
     greedy = gen()
@@ -1174,11 +1213,11 @@ def lm_generation(device):
     # tie, as the reference's does)
     f32 = copy.deepcopy(base).to(device)
     p2 = prompt[:GEN_CPU_ROWS]
-    got = f32.generate(p2, GEN_CPU_NEW)
+    got = f32.generate(p2, GEN_CPU_NEW, device=device)
     top1 = f32.generate(p2, GEN_CPU_NEW, temperature=1.0, top_k=1,
                         generator=torch.Generator(device=device).manual_seed(
-                            SEED + 1))
-    want = base.generate(p2.cpu(), GEN_CPU_NEW)
+                            SEED + 1), device=device)
+    want = base.generate(p2.cpu(), GEN_CPU_NEW, device="cpu")
     del f32
     if not torch.equal(got.cpu(), want):
         fail(f"greedy f32 tokens differ from the CPU's: {got.tolist()} vs "

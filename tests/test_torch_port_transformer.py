@@ -181,7 +181,7 @@ def test_greedy_generate_matches_jax(name):
     jm, params, state, tm = _pair(name)
     prompt = _ids((3, 5), 2)
     want = np.asarray(jm.generate(params, state, jnp.asarray(prompt), 9))
-    got = tm.generate(torch.from_numpy(prompt), 9)
+    got = tm.generate(torch.from_numpy(prompt), 9, device="cpu")
     assert got.dtype == torch.long
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -200,18 +200,26 @@ def test_generate_rejects_what_the_reference_rejects():
     for kw, match in cases:
         with pytest.raises(ValueError, match=match):
             tm.generate(prompt, generator=None if "temperature" in kw else g,
-                        **kw)
+                        device="cpu", **kw)
+
+
+def test_generate_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch):
+    _, _, _, tm = _pair("learned")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tm.generate(torch.from_numpy(_ids((2, 5))), 3)
+    assert tm.tok.device.type == "cpu"
 
 
 def test_sampling_properties():
     _, _, _, tm = _pair("rope-gqa")
     prompt = torch.from_numpy(_ids((4, 5), 3))
-    greedy = tm.generate(prompt, 8)
+    greedy = tm.generate(prompt, 8, device="cpu")
 
     def sample(seed, **kw):
         return tm.generate(prompt, 8, temperature=0.8,
                            generator=torch.Generator().manual_seed(seed),
-                           **kw)
+                           device="cpu", **kw)
 
     a = sample(7, top_k=5, top_p=0.9)
     assert a.shape == (4, 8) and bool(((a >= 1) & (a <= VOCAB)).all())
@@ -220,7 +228,7 @@ def test_sampling_properties():
     assert torch.equal(sample(2, top_p=1e-6), greedy)
     # unrestricted sampling at a high temperature leaves the greedy path
     hot = tm.generate(prompt, 8, temperature=5.0,
-                      generator=torch.Generator().manual_seed(4))
+                      generator=torch.Generator().manual_seed(4), device="cpu")
     assert not torch.equal(hot, greedy)
 
 
