@@ -30,6 +30,18 @@ def cast_tensors(model: torch.nn.Module, dtype) -> dict:
                                         model.named_buffers())}
 
 
+def promote(*tensors):
+    """The operands of one product cast to their common dtype, as ``jnp``
+    promotes mixed operands (bf16 with f32 gives f32) where torch's matmul,
+    ``F.linear`` and ``F.layer_norm`` raise.  ``None`` passes through."""
+    dt = None
+    for t in tensors:
+        if t is not None:
+            dt = t.dtype if dt is None else torch.promote_types(dt, t.dtype)
+    return tuple(t if t is None or t.dtype == dt else t.to(dt)
+                 for t in tensors)
+
+
 def mixed_forward(model: torch.nn.Module, data: torch.Tensor,
                   compute_dtype=torch.bfloat16) -> torch.Tensor:
     if data.is_floating_point():

@@ -6,9 +6,12 @@ output head.
 ``TransformerLM(ids)`` takes 1-based token ids (B, T) and returns the
 log-softmax of the tied logits (B, T, vocab).  Its attention runs K8 or K9
 on the card (``ops/attention.py`` picks them as the reference does); the
-decode path (:meth:`TransformerLM.decode`, :meth:`TransformerLM.generate`)
-is plain tensor math through a KV cache written in place, as the
-reference's ``apply_decode`` is plain einsum math.  Sampling draws from an
+decode paths (:meth:`TransformerLM.decode`, :meth:`TransformerLM.generate`
+and the slot-addressable :meth:`TransformerLM.decode_slots`) are plain
+tensor math through a KV cache written in place, as the reference's
+``apply_decode`` is plain einsum math; :meth:`TransformerLM.decode_pages`
+reads a block-paged pool through K12 on the card.  A cache dtype other
+than the model's promotes as ``jnp`` does.  Sampling draws from an
 explicit ``torch.Generator``: JAX's key stream cannot be matched, so only
 greedy decoding reproduces the reference token for token.
 """
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core.module import Module, seeded
+from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.nn.activation import gelu
 from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.dropout import Dropout
@@ -61,6 +65,20 @@ class TransformerBlock(Module):
         """The block for tokens at ``[pos, pos+S)`` through the KV cache,
         the FFN as in eval."""
         x = x_t + self.attn.apply_decode(self.ln1(x_t), cache, pos)
+        return x + self._ffn(x)
+
+    def decode_step_slots(self, x_t, cache, pos, active):
+        """:meth:`decode_step` with each row a cache slot at its own depth
+        ``pos`` (B,), ``active`` (B,) gating its write."""
+        x = x_t + self.attn.apply_decode_slots(self.ln1(x_t), cache, pos,
+                                               active)
+        return x + self._ffn(x)
+
+    def decode_step_pages(self, x_t, cache, pages, pos, active):
+        """:meth:`decode_step_slots` through the page table ``pages``
+        (B, Lp) into a shared page pool."""
+        x = x_t + self.attn.apply_decode_pages(self.ln1(x_t), cache, pages,
+                                               pos, active)
         return x + self._ffn(x)
 
 
@@ -109,9 +127,24 @@ class TransformerLM(Module):
             x = x + self.pos[offset:offset + ids.shape[1]][None]
         return x
 
+    def _embed_rows(self, ids, pos):
+        """Token rows of the 1-based ``ids`` (B, S) plus, for learned
+        positions, the table rows at each row's ``pos_b + [0, S)``, clipped
+        into the table: an out-of-table position (a right-pad token, a row
+        at its cache end) gives a finite row, where a NaN written to the
+        trash page would reach every row through 0 * NaN."""
+        ids = torch.as_tensor(ids, device=self.tok.device).long()
+        x = F.embedding(ids - 1, self.tok)
+        if self.pos is not None:
+            pos = torch.as_tensor(pos, device=self.tok.device).long()
+            positions = pos[:, None] + torch.arange(ids.shape[1],
+                                                    device=pos.device)
+            x = x + self.pos[positions.clamp(0, self.max_len - 1)]
+        return x
+
     def _head(self, x):
         """Tied logits of the final hidden states: ``ln_f(x) @ tok.T``."""
-        return torch.matmul(self.ln_f(x), self.tok.t())
+        return torch.matmul(*promote(self.ln_f(x), self.tok.t()))
 
     def logits(self, input, key_padding_mask=None):
         """LogSoftMax's input: the tied logits (B, T, vocab)."""
@@ -151,6 +184,37 @@ class TransformerLM(Module):
         x = self._embed(tokens, pos)
         for blk, c in zip(self.blocks, cache):
             x = blk.decode_step(x, c, pos)
+        return torch.log_softmax(self._head(x), dim=-1)
+
+    def decode_slots(self, tokens, cache, pos, active):
+        """Slot-addressable :meth:`decode`: row ``b`` is a cache slot whose
+        tokens (B, S) sit at ``[pos_b, pos_b + S)``; ``pos`` (B,) int,
+        ``active`` (B,) bool.  An inactive slot computes garbage log-probs
+        and never writes its cache.  Returns the log-probs (B, S, vocab).
+        The caller bounds ``pos + S`` by the cache length (the scheduler
+        sheds an over-capacity request at submit)."""
+        x = self._embed_rows(tokens, pos)
+        for blk, c in zip(self.blocks, cache):
+            x = blk.decode_step_slots(x, c, pos, active)
+        return torch.log_softmax(self._head(x), dim=-1)
+
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         dtype=torch.float32):
+        """Per-layer block-paged KV pools for :meth:`decode_pages`, each
+        (num_pages + 1, H_kv, page_size, D), the last page the trash
+        page."""
+        return [b.attn.init_paged_cache(num_pages, page_size, dtype)
+                for b in self.blocks]
+
+    def decode_pages(self, tokens, cache, pages, pos, active):
+        """Page-table :meth:`decode_slots`: row ``b``'s cache positions live
+        in the shared pool at ``pages[b, p // page_size]`` ((B, Lp) int).
+        Inactive rows and positions past the table write to the trash page,
+        never to a page another slot (or a shared prefix) owns.  Returns
+        the log-probs (B, S, vocab)."""
+        x = self._embed_rows(tokens, pos)
+        for blk, c in zip(self.blocks, cache):
+            x = blk.decode_step_pages(x, c, pages, pos, active)
         return torch.log_softmax(self._head(x), dim=-1)
 
     def generate(self, prompt, max_new: int, temperature: float = 0.0,

@@ -17,6 +17,7 @@ from torch import nn
 
 from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.module import Module, seeded
+from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.ops import quant
 
 
@@ -51,4 +52,4 @@ class Linear(Module):
             y = quant.int8_matmul(input, qt)
             return y if self.bias is None else y + self.bias
         quant.observe(self, input)
-        return F.linear(input, self.weight, self.bias)
+        return F.linear(*promote(input, self.weight, self.bias))

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core.module import Module
+from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.nn.conv import _maybe_batched
 from bigdl_tpu_torch.ops.lrn import cross_map_lrn
 
@@ -47,5 +48,5 @@ class LayerNorm(Module):
             self.bias.zero_()
 
     def forward(self, input):
-        return F.layer_norm(input, (self.normalized_size,), self.weight,
-                            self.bias, self.eps)
+        x, w, b = promote(input, self.weight, self.bias)
+        return F.layer_norm(x, (self.normalized_size,), w, b, self.eps)

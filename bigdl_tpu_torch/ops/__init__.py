@@ -16,8 +16,12 @@
   ``fused_attention`` (``csrc/attention.cu``): K8 (``attention_fwd``, one
   max per row; replaces ``bigdl_tpu/ops/attention.py`` ``_fwd_kernel``) and
   K9 (``attention_stream_fwd``, the online softmax with an optional
-  key-padding bias; ``_stream_kernel``), forward only: their backward
-  raises until the TransformerLM training slice.
+  key-padding bias; ``_stream_kernel``), whose backward raises until the
+  TransformerLM training slice (K8's is autograd of the chunked plain
+  form, as in the reference); and K12 (``paged_attention``, masked
+  attention over a block-paged KV pool through a page table;
+  ``_paged_kernel``, ``csrc/paged_attention.cu``), the read path of
+  ``ContinuousGenerator``.
 
 A wrapper takes the plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises; there is no switch that hides a kernel.  Each
@@ -30,7 +34,8 @@ from bigdl_tpu_torch.ops.attention import (attention_fwd,
                                            attention_reference,
                                            attention_stream_fwd,
                                            attention_stream_plain,
-                                           fused_attention)
+                                           fused_attention, paged_attention,
+                                           paged_attention_plain)
 from bigdl_tpu_torch.ops.lrn import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      lrn_plain)
 from bigdl_tpu_torch.ops.pooling import (max_pool2d, max_pool2d_bwd,
@@ -44,7 +49,7 @@ from bigdl_tpu_torch.ops.quant import (a8_matmul, f8_matmul,
 
 KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd,
                    w8_matmul, f8_matmul, a8_matmul, w4_matmul,
-                   attention_fwd, attention_stream_fwd)
+                   attention_fwd, attention_stream_fwd, paged_attention)
 
 
 def reset_launches() -> None:
@@ -58,5 +63,5 @@ __all__ = ["a8_matmul", "attention_fwd", "attention_reference",
            "int4_matmul_plain", "int8_a8_matmul_plain", "int8_matmul_plain",
            "lrn_bwd", "lrn_bwd_plain", "lrn_plain", "max_pool2d",
            "max_pool2d_bwd", "max_pool2d_bwd_plain", "max_pool2d_plain",
-           "pool_geometry", "w4_matmul", "w8_matmul", "KERNEL_WRAPPERS",
+           "paged_attention", "paged_attention_plain", "pool_geometry", "w4_matmul", "w8_matmul", "KERNEL_WRAPPERS",
            "reset_launches"]

@@ -63,6 +63,10 @@ _SIGNATURES = {
     # causal, stream
     "bigdl_attention_stream_fwd": [_P] * 5 + [_I] * 7 +
     [ctypes.c_float, _I, _P],
+    # q, k pool, v pool, pages, positions, o, q dtype, cache dtype, b, h,
+    # hkv, s, d, page size, lp, trash, scale, rows per block, stream
+    "bigdl_paged_attention": [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I,
+                                                    _P],
 }
 
 

@@ -24,14 +24,31 @@ The kernels (``csrc/attention.cu``):
   with every key padded gives 0.  Its plain version is
   :func:`attention_stream_plain`.
 
-Both hold no (T, T) score matrix in global memory.  A CPU tensor takes the
-plain version, which autograd differentiates; a CUDA tensor launches the
-kernel inside an autograd function whose backward raises until the flash
-backward kernels (K10, K11) come with the TransformerLM training slice.
+* K12 (:func:`paged_attention`) replaces ``_paged_kernel``
+  (``:782``, wrapper ``:813``): masked attention of decode or prefill
+  queries over a block-paged KV pool read through a page table, the
+  serving read path of ``ContinuousGenerator``.  Its plain version,
+  :func:`paged_attention_plain`, is the reference's gather path
+  (``bigdl_tpu/nn/attention.py:341-369``): trash pages zeroed, scores in
+  the promoted operand dtype, ``l <= positions[b, s]`` masked with
+  ``-inf``, softmax in f32, weights cast to the cache dtype, output in the
+  cache dtype.  The arithmetic after the gather, :func:`decode_attention`,
+  is also the decode path of ``nn/attention.py``.
+
+K8 and K9 hold no (T, T) score matrix in global memory.  A CPU tensor
+takes the plain version, which autograd differentiates.  On a CUDA tensor
+K8 runs inside an autograd function whose backward is the reference's
+(``_fused_attention_bwd``: autograd of the chunked plain form, recomputed,
+no kernel); K9's backward raises until the flash backward kernels (K10,
+K11) come with the TransformerLM training slice; K12 has no backward, as
+the reference's has none.  K8 and K9 are built for head dims
+``HEAD_DIMS``; another head dim up to 128 is zero-padded to the next of
+them, which is exact for q·kᵀ and for p·v once the output is sliced back.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-The plain versions compute in float32 whatever the input dtype (as the
-kernels do: bf16 products are exact in f32) and round once to q's dtype.
+The plain versions of K8 and K9 compute in float32 whatever the input
+dtype (as the kernels do: bf16 products are exact in f32) and round once
+to q's dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +56,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
+from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.ops import _build
 
 NEG_INF = -1e30
@@ -54,7 +73,7 @@ _EVAL_MAX_T = 8192
 
 # key block of K9's plain version: the kernels' K/V tile
 BLOCK_K = 64
-# head dims the kernels take
+# head dims K8 and K9 are built for; a smaller one is zero-padded up
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -211,44 +230,77 @@ def _kernel_operand(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _kernel_head_dim(name: str, d: int) -> int:
+    """The head dim K8/K9 run ``d`` at: the smallest of ``HEAD_DIMS`` that
+    holds it (their tiles live in static shared memory, 48 KB a block)."""
+    for kd in HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"{name} kernel takes head dims up to {HEAD_DIMS[-1]} "
+                     f"(its K/V tiles in static shared memory), got {d}")
+
+
 def _launch(wrapper, entry, q, k, v, bias, causal, scale):
     b, h, t, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     name = wrapper.__name__
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
+    kd = _kernel_head_dim(name, d)
     if b * h > 65535:
         raise ValueError(f"{name} kernel takes at most 65535 (batch, head) "
                          f"rows, got {b * h}")
+    if kd != d:
+        # zero columns add 0 to every q·k and give 0 output columns
+        q, k, v = (F.pad(x, (0, kd - d)) for x in (q, k, v))
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     o = torch.empty_like(q)
     if t == 0:
-        return o
+        return o[..., :d]
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     if entry == "bigdl_attention_stream_fwd":
         args.append(0 if bias is None else _kernel_operand(bias).data_ptr())
     rc = getattr(_build.load(), entry)(
         *args, o.data_ptr(), _build.DTYPE_CODES[q.dtype], b * h, h, hk, t,
-        tk, d, scale, int(bool(causal)), _build.stream_ptr(q))
+        tk, kd, scale, int(bool(causal)), _build.stream_ptr(q))
     _build.check(rc, name)
     wrapper.launches += 1
-    return o
+    return o if kd == d else o[..., :d].contiguous()
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """A kernel launch with autograd history whose backward raises: a bare
-    launch would give an output with no history, and so a silently
-    missing gradient."""
+class _K8(torch.autograd.Function):
+    """K8 with the reference's backward (``_fused_attention_bwd``):
+    autograd of :func:`_chunked_attention_reference`, recomputed from q, k
+    and v, one query chunk of scores at a time; no kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, wrapper, entry, causal, scale):
-        return _launch(wrapper, entry, q, k, v, bias, causal, scale)
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(attention_fwd, "bigdl_attention_fwd", q, k, v, None,
+                       causal, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensors)
+            o = _chunked_attention_reference(q, k, v, ctx.causal, ctx.scale)
+        return (*torch.autograd.grad(o, (q, k, v), do), None, None)
+
+
+class _K9(torch.autograd.Function):
+    """K9 with autograd history whose backward raises: a bare launch would
+    give an output with no history, and so a silently missing
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        return _launch(attention_stream_fwd, "bigdl_attention_stream_fwd", q,
+                       k, v, bias, causal, scale)
 
     @staticmethod
     def backward(ctx, do):
         raise NotImplementedError(
-            "the backward of the attention-forward kernels K8/K9 is the "
+            "the backward of the streaming attention kernel K9 is the "
             "flash backward (K10, K11), which comes with the TransformerLM "
             "training slice of bigdl_tpu_torch")
 
@@ -260,8 +312,7 @@ def attention_fwd(q, k, v, causal=False, scale=None):
     scale_ = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal, scale_)
-    return _ForwardOnly.apply(q, k, v, None, attention_fwd,
-                              "bigdl_attention_fwd", causal, scale_)
+    return _K8.apply(q, k, v, bool(causal), scale_)
 
 
 def attention_stream_fwd(q, k, v, causal=False, scale=None, bias=None):
@@ -271,11 +322,153 @@ def attention_stream_fwd(q, k, v, causal=False, scale=None, bias=None):
     scale_ = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
         return attention_stream_plain(q, k, v, causal, scale_, bias)
-    return _ForwardOnly.apply(q, k, v, bias, attention_stream_fwd,
-                              "bigdl_attention_stream_fwd", causal, scale_)
+    return _K9.apply(q, k, v, bias, bool(causal), scale_)
 
 
-for _fn in (attention_fwd, attention_stream_fwd):
+# -- paged attention (K12) ----------------------------------------------------
+
+# query rows (GQA group heads x positions) a K12 block owns at most, and
+# output elements a thread accumulates at most (rows x D <= 1024)
+PAGED_ROWS = 16
+_PAGED_OUT = 1024
+_PAGED_KEYS = 64                     # keys per K/V tile of a K12 block
+_SMEM_FLOATS = 232448 // 4           # a block's shared memory on Hopper
+
+
+def decode_attention(q, kk, vv, valid, scale):
+    """The reference's decode attention after the cache read
+    (``bigdl_tpu/nn/attention.py`` ``apply_decode*``): ``q`` (B, H, S, D)
+    against ``kk``/``vv`` (B, Hk, L, D) in the cache dtype, ``valid``
+    broadcastable to (B, H, S, L).  Scores in the promoted operand dtype
+    (bf16 x bf16 stays bf16, as ``jnp.einsum`` does), scaled in that
+    dtype, masked with ``-inf``; softmax in f32; the weights cast to the
+    cache dtype for ``w·v``, so the output has the cache dtype."""
+    kk, vv = expand_kv_heads(q, kk, vv)
+    qs, ks = promote(q, kk)
+    scores = torch.matmul(qs, ks.transpose(-1, -2)) * scale
+    scores = torch.where(valid, scores, float("-inf"))
+    w = torch.softmax(scores.float(), dim=-1)
+    return torch.matmul(w.to(vv.dtype), vv)
+
+
+def paged_attention_plain(q, k_pool, v_pool, pages, positions, scale):
+    """K12's plain version, the reference's gather path: each row's pages
+    gathered into a (B, Hkv, Lp*ps, D) view, trash-page positions zeroed
+    (a NaN dumped on the trash page reaches no row), key slot ``l``
+    visible to token ``s`` of row ``b`` iff ``l <= positions[b, s]``."""
+    b, d = q.shape[0], q.shape[3]
+    hkv, ps = k_pool.shape[1], k_pool.shape[2]
+    trash = k_pool.shape[0] - 1
+    pages = pages.long()
+    lp = pages.shape[1]
+    tmask = (pages == trash).repeat_interleave(ps, dim=1)[:, None, :, None]
+
+    def view(pool):
+        v = pool[pages].transpose(1, 2).reshape(b, hkv, lp * ps, d)
+        return torch.where(tmask, 0, v)
+
+    valid = torch.arange(lp * ps, device=q.device)[None, None, :] <= \
+        positions.long()[:, :, None]
+    return decode_attention(q, view(k_pool), view(v_pool), valid[:, None],
+                            scale)
+
+
+def _check_paged(q, k_pool, v_pool, pages, positions):
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"paged_attention takes (B, H, S, D) q and equal "
+                         f"(P+1, Hkv, ps, D) pools, got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    b, h, s, d = q.shape
+    if k_pool.shape[3] != d or h % k_pool.shape[1]:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} and pool "
+                         f"{tuple(k_pool.shape)} do not agree")
+    if pages.dim() != 2 or pages.shape[0] != b or \
+            tuple(positions.shape) != (b, s):
+        raise ValueError(f"paged_attention: pages must be (B, Lp) and "
+                         f"positions (B, S) = {(b, s)}, got "
+                         f"{tuple(pages.shape)} and "
+                         f"{tuple(positions.shape)}")
+    if pages.is_floating_point() or positions.is_floating_point():
+        raise TypeError("paged_attention: pages and positions must be "
+                        "integer tensors")
+    if k_pool.dtype != v_pool.dtype or \
+            q.dtype not in _build.DTYPE_CODES or \
+            k_pool.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"paged_attention takes float32 or bfloat16 q and "
+                        f"pools of one dtype, got {q.dtype}, "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
+    if any(t.device != q.device
+           for t in (k_pool, v_pool, pages, positions)):
+        raise ValueError("paged_attention: operands on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"paged_attention has no path for device "
+                           f"{q.device}")
+
+
+def paged_rows_per_block(d: int, lp: int, ps: int, rows: int) -> int:
+    """K12's query rows per block: at most ``PAGED_ROWS``, at most
+    1024 / D (the output elements a thread holds), and as many (D + L)
+    float rows as the block's shared memory holds beside one K/V tile and
+    the row's ``lp`` page ids (L = lp * ps)."""
+    length = lp * ps
+    fixed = 2 * _PAGED_KEYS + PAGED_ROWS + _PAGED_KEYS * (d + 1) + lp
+    fit = (_SMEM_FLOATS - fixed) // (d + length)
+    ts = min(PAGED_ROWS, rows, _PAGED_OUT // d, fit)
+    if ts < 1:
+        raise ValueError(
+            f"paged_attention kernel: head dim {d} with a {length}-token "
+            f"page table does not fit a block (head dim <= {_PAGED_OUT}, "
+            f"and one score row of {length} floats beside a tile of "
+            f"{_PAGED_KEYS} keys in {_SMEM_FLOATS * 4} bytes)")
+    return ts
+
+
+def paged_attention(q, k_pool, v_pool, pages, positions, scale):
+    """K12: masked attention over a block-paged KV pool, with the
+    reference's signature (``bigdl_tpu/ops/attention.py:813``): ``q``
+    (B, H, S, D); pools (P+1, Hkv, ps, D) whose last page is the trash
+    page; ``pages`` (B, Lp) int page table; ``positions`` (B, S), key slot
+    ``l`` visible to token ``s`` iff ``l <= positions[b, s]``; GQA shares
+    KV head ``h // (H / Hkv)``.  Returns (B, H, S, D) in the cache dtype.
+    Forward only: it has no backward, as the reference's has none."""
+    _check_paged(q, k_pool, v_pool, pages, positions)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, pages, positions,
+                                     scale)
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise RuntimeError("paged_attention kernel has no backward "
+                           "(inference only, as in the reference)")
+    if q.dtype == torch.bfloat16 and k_pool.dtype == torch.float32:
+        q = q.float()   # exact: the product is promoted to f32 anyway
+    b, h, s, d = q.shape
+    hkv, ps = k_pool.shape[1], k_pool.shape[2]
+    lp = pages.shape[1]
+    if b > 65535 or hkv > 65535:
+        raise ValueError(f"paged_attention kernel takes at most 65535 rows "
+                         f"and KV heads, got {b} and {hkv}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged_attention kernel takes contiguous pools "
+                         "(a copy of the pool would defeat paging)")
+    q = q.contiguous()
+    pages = pages.to(torch.int32).contiguous()
+    positions = positions.to(torch.int32).contiguous()
+    o = torch.empty((b, h, s, d), dtype=k_pool.dtype, device=q.device)
+    if b * h * s == 0:
+        return o
+    rows = (h // hkv) * s
+    ts = paged_rows_per_block(d, lp, ps, rows)
+    rc = _build.load().bigdl_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        pages.data_ptr(), positions.data_ptr(), o.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pool.dtype], b,
+        h, hkv, s, d, ps, lp, k_pool.shape[0] - 1, float(scale), ts,
+        _build.stream_ptr(q))
+    _build.check(rc, "paged_attention")
+    paged_attention.launches += 1
+    return o
+
+
+for _fn in (attention_fwd, attention_stream_fwd, paged_attention):
     _fn.launches = 0
 
 

@@ -1,5 +1,7 @@
-"""Online serving of a ``DLClassifier``: admission queue, deadline batcher,
-bucket ladder, worker pool with per-worker breakers, typed errors."""
+"""Online serving of a ``DLClassifier`` (admission queue, deadline batcher,
+bucket ladder, worker pool with per-worker breakers, typed errors) and of
+a ``TransformerLM`` (``ContinuousGenerator``: continuous batching over a
+block-paged KV pool with a prefix cache)."""
 
 from bigdl_tpu_torch.serving.batcher import DeadlineBatcher
 from bigdl_tpu_torch.serving.breaker import CircuitBreaker
@@ -10,12 +12,16 @@ from bigdl_tpu_torch.serving.errors import (BreakerOpenError,
                                             ForwardFailedError,
                                             InvalidRequestError,
                                             PackFailedError, QueueFullError,
-                                            ServingError, ShedError)
+                                            ServingError, ShedError,
+                                            SlotCapacityError)
 from bigdl_tpu_torch.serving.queue import AdmissionQueue, Request
+from bigdl_tpu_torch.serving.scheduler import (ContinuousGenerator,
+                                               PageAllocator, PrefixCache)
 from bigdl_tpu_torch.serving.server import InferenceServer
 
 __all__ = ["AdmissionQueue", "BreakerOpenError", "CircuitBreaker",
-           "DeadlineBatcher", "DeadlineExceededError",
+           "ContinuousGenerator", "DeadlineBatcher", "DeadlineExceededError",
            "DeadlineUnmeetableError", "DrainingError", "ForwardFailedError",
            "InferenceServer", "InvalidRequestError", "PackFailedError",
-           "QueueFullError", "Request", "ServingError", "ShedError"]
+           "PageAllocator", "PrefixCache", "QueueFullError", "Request",
+           "ServingError", "ShedError", "SlotCapacityError"]

@@ -54,6 +54,15 @@ class DrainingError(ShedError):
     reason = "draining"
 
 
+class SlotCapacityError(ShedError):
+    """A generation request can never fit the KV cache: its prompt plus
+    ``max_new`` exceeds the cache length, its prompt the largest prefill
+    bucket, or its tokens the whole page pool.  Admitting it would overrun
+    the cache, so ``ContinuousGenerator`` sheds it at ``submit()``."""
+
+    reason = "over_capacity"
+
+
 class InvalidRequestError(ServingError, ValueError):
     """The request's feature payload has the wrong shape or size for the
     classifier's batch shape — rejected at ``submit()``."""

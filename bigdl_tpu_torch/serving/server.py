@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import collections
 import logging
-import math
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -25,6 +24,7 @@ import numpy as np
 
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.serving.batcher import DeadlineBatcher
+from bigdl_tpu_torch.serving.counters import Counters, percentile
 from bigdl_tpu_torch.serving.errors import (BreakerOpenError, DrainingError,
                                             InvalidRequestError, ShedError)
 from bigdl_tpu_torch.serving.queue import AdmissionQueue, Request
@@ -36,30 +36,6 @@ logger = logging.getLogger("bigdl_tpu_torch.serving")
 
 # request and forward latencies kept for stats() percentiles
 _LATENCY_WINDOW = 4096
-
-
-def percentile(sorted_vals: List[float], q: float) -> float:
-    """Nearest-rank percentile (ceil(q/100 * n)) on an ascending list."""
-    if not sorted_vals:
-        return 0.0
-    rank = math.ceil(q / 100.0 * len(sorted_vals))
-    return sorted_vals[min(len(sorted_vals) - 1, max(0, rank - 1))]
-
-
-class _Counters:
-    """Thread-safe named counters."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._c: Dict[str, int] = collections.Counter()
-
-    def incr(self, name: str, n: int = 1) -> None:
-        with self._lock:
-            self._c[name] += n
-
-    def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._c)
 
 
 class InferenceServer:
@@ -101,7 +77,7 @@ class InferenceServer:
         self.retry_backoff_s = float(retry_backoff_s)
         self.runner = BucketedRunner(classifier, self.ladder)
 
-        self.metrics = _Counters()
+        self.metrics = Counters()
         self._lat_lock = threading.Lock()
         self._pool_lock = threading.Lock()
         self._latencies: collections.deque = \

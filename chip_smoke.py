@@ -52,9 +52,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
 2d. the attention-forward kernels (K8, K9) against their plain versions
    at the LM paths' shapes ((8, 8, 2048, 64) causal for K8 and for K9 with
    the padded batch's bias, (1, 8, 8192, 64) causal for K9) and at ragged
-   ones (GQA 8/2 and 8/1, non-causal, Tq != Tk, head dims 16/32/128, T 8
-   and 24, a row with every key padded), in float32 (within 1e-5 of each
-   output's sum of |p·v|) and bfloat16 (within 2 bfloat16 steps of it);
+   ones (GQA 8/2 and 8/1, non-causal, Tq != Tk, head dims 16/32/128 and
+   48/80/96 (zero-padded to the kernels' sizes), T 8 and 24, a row with
+   every key padded), in float32 (within 1e-5 of each output's sum of
+   |p·v|) and bfloat16 (within 2 bfloat16 steps of it);
+2e. the paged-attention kernel K12 against ``paged_attention_plain`` with
+   a NaN-poisoned trash page, at the continuous path's decode shape (8
+   slots, 8 heads, S 1, d 64, page size 16, Lp 128, at the traffic's
+   positions), its prefill shapes (S 512, and S 128 after a 384-token
+   head) and ragged ones (GQA 8/2 and 8/1, page sizes 5 and 8, d 48/96/128,
+   S 2/3/17, an inactive all-trash row, integer q/k with |s| ~ 30 where
+   the scores' bf16 rounding shows), in float32 and bfloat16, and f32
+   queries over a bf16 cache; the same tolerances as 2d;
 3e. LM scoring: the full-width ``TransformerLM`` of ``bench_infer.py``
    (vocab 32000, embed 512, 8 heads, 8 layers, T 2048) with seeded random
    weights cast to bf16, scored by ``LocalValidator`` with
@@ -75,6 +84,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
    greedy float32 tokens of 2 rows x 16 equal to the CPU's and to top_k 1
    sampling in float32 (bf16 log-probs tie at the top, and top_k keeps
    every tie, as the reference's does);
+3g. continuous serving: the LM of 3e (bf16 weights, a bf16 pool of 1024
+   pages of 16 tokens) behind ``ContinuousGenerator(num_slots=8,
+   max_len=2048, page_size=16, seq_buckets=(128, 512))`` (paged, prefix
+   cache, K12 on the read path), serving bench_serve.py's traffic mix at
+   this width (32 prompts of 512 tokens, about 24 with one 384-token head,
+   budgets 16-64 or, for a quarter, 96-128): every output in range and as
+   long as its budget, exactly 8 K12 per prefill and per decode step and
+   no other kernel, prefix hits, every private page free after
+   ``drain()``, an over-capacity request shed typed; one request through
+   the bf16 model over the default f32 cache; an f32 copy serving 8
+   requests x 32 tokens equal to ``generate`` and to
+   ``paged_kernel=False``, request by request;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -87,7 +108,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    K8 and K9 per call at the LM paths' shapes beside their bound, plain
    version and ``F.scaled_dot_product_attention``, K8 against K9 at T 512
    to 16384, LM scoring tokens/s at both configurations, generation new
-   tokens/s and a profiler breakdown of one scoring forward.
+   tokens/s and a profiler breakdown of one scoring forward; K12 per call
+   at the decode and prefill shapes beside its bound, plain version and
+   SDPA on the pre-gathered view, the continuous run's new tokens/s,
+   request latency p50 and max, slot occupancy, chunks and prefix hit rate
+   with a profiler breakdown of the same traffic, and the same requests
+   through ``generate`` in static waves of 8.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -199,6 +225,10 @@ ATTN_PATH = [
      None),
 ]
 ATTN_RAGGED = [
+    ("d 48 (padded to 64)", 2, 8, 2, 40, 40, 48, True, None),
+    ("d 80 (padded to 128), padded keys", 2, 4, 4, 72, 72, 80, True,
+     [72, 30]),
+    ("d 96 (padded to 128), non-causal", 1, 4, 2, 33, 50, 96, False, None),
     ("GQA 8/2, T 24", 2, 8, 2, 24, 24, 64, True, None),
     ("MQA 8/1, T 8", 1, 8, 1, 8, 8, 64, True, None),
     ("non-causal, d 32", 2, 4, 4, 40, 40, 32, False, None),
@@ -220,6 +250,32 @@ LM_LOGIT_STEPS = 3
 # (on an H100, 1287 of their 4096 positions above the limit: 334 of 778
 # real and 953 of 3318 padded ones)
 LM_FIRM_SHARE, LM_PAD_FIRM_SHARE = 0.5, 0.25
+# continuous serving (phase 3g): the LM served by ContinuousGenerator(
+# num_slots=8, max_len=2048, page_size=16, seq_buckets=(128, 512)) with a
+# bf16 pool of 1024 pages; bench_serve.py's _traffic mix at this width
+CG_SLOTS, CG_PAGE, CG_BUCKETS = 8, 16, (128, 512)
+CG_REQUESTS, CG_PROMPT, CG_HEAD, CG_HEAD_FRAC = 32, 512, 384, 0.75
+CG_SHORT, CG_LONG, CG_LONG_FRAC = (16, 64), (96, 128), 0.25
+CG_F32_REQUESTS, CG_F32_NEW = 8, 32       # the f32 copy, half sharing the head
+# K12 against its plain version (phase 2e): (name, b, h, hkv, s, d, page
+# size, lp, tokens per row (0: an inactive row, all-trash table),
+# integer-valued q/k at scale 0.3, so that |s| ~ 30); the decode case
+# takes its rows' lengths from the traffic.  Pools carry NaN on the trash
+# page.  Tolerances as K8/K9's (ATTN_F32_RTOL, ATTN_BF16_STEPS of each
+# output's sum of |p·v|).
+PAGED_RAGGED = [
+    ("prefill S 512", 1, 8, 8, 512, 64, 16, 128, [512], False),
+    ("prefill S 128 after a 384-token head", 1, 8, 8, 128, 64, 16, 128,
+     [512], False),
+    ("GQA 8/2, page size 5", 3, 8, 2, 1, 64, 5, 40, [150, 37, 1], False),
+    ("MQA 8/1, page size 8, S 2", 2, 8, 1, 2, 64, 8, 30, [200, 9], False),
+    ("d 48, S 3", 2, 8, 8, 3, 48, 16, 16, [100, 250], False),
+    ("d 96, GQA 8/4", 2, 8, 4, 1, 96, 16, 16, [60, 255], False),
+    ("d 128, S 17", 2, 4, 4, 17, 128, 8, 20, [160, 17], False),
+    ("an inactive row (all trash)", 3, 8, 8, 1, 64, 16, 8, [100, 0, 50],
+     False),
+    ("large scores, |s| ~ 30", 2, 8, 8, 4, 64, 16, 16, [200, 77], True),
+]
 TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
 TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
 CPU_BATCH, CPU_STEPS = 4, 2
@@ -619,6 +675,121 @@ def check_attention_kernels(device):
         f"{rels_bf16[k]:.3g} (limit "
         f"{ATTN_BF16_STEPS * BF16_STEP:.4g})" for k in names))
     return errs, cases, misses
+
+
+# -- phase 2e: the paged-attention kernel against its plain version ----------
+
+def cg_traffic(seed=SEED + 70):
+    """bench_serve.py's ``_traffic`` at this width: CG_REQUESTS prompts of
+    CG_PROMPT tokens, a CG_HEAD_FRAC share opening with one shared
+    CG_HEAD-token head, budgets from CG_SHORT or, at CG_LONG_FRAC, CG_LONG
+    (seeded).  Returns the prompts, the budgets and which prompts share
+    the head."""
+    rng = np.random.RandomState(seed)
+    head = rng.randint(1, LM_VOCAB + 1, size=CG_HEAD)
+    prompts, shared = [], []
+    for _ in range(CG_REQUESTS):
+        p = rng.randint(1, LM_VOCAB + 1, size=CG_PROMPT)
+        shared.append(bool(rng.rand() < CG_HEAD_FRAC))
+        if shared[-1]:
+            p[:CG_HEAD] = head
+        prompts.append(p)
+    budgets = [int(rng.randint(CG_LONG[0], CG_LONG[1] + 1))
+               if rng.rand() < CG_LONG_FRAC
+               else int(rng.randint(CG_SHORT[0], CG_SHORT[1] + 1))
+               for _ in range(CG_REQUESTS)]
+    return prompts, budgets, shared
+
+
+def paged_decode_case():
+    """The path's decode shape: 8 slots, 8 heads, S 1, d 64, page size 16,
+    Lp 128, each row halfway through the budget of one of the traffic's
+    first 8 requests."""
+    _, budgets, _ = cg_traffic()
+    return ("decode, the path's shape", CG_SLOTS, LM_HEADS, LM_HEADS, 1, 64,
+            CG_PAGE, LM_T // CG_PAGE,
+            [CG_PROMPT + n // 2 for n in budgets[:CG_SLOTS]], False)
+
+
+def paged_operands(case, dtype, cache_dtype, device, seed):
+    """q, pools (NaN on the trash page), page table, positions and scale
+    of a K12 case: each row's pages drawn from a shuffled pool, its S
+    queries at the last S of its tokens."""
+    import torch
+    _, b, h, hkv, s, d, ps, lp, lengths, large = case
+    g = torch.Generator().manual_seed(seed)
+    p = sum(-(-n // ps) for n in lengths) + 3
+    if large:
+        q = torch.randint(-3, 4, (b, h, s, d), generator=g).float()
+        k = torch.randint(-3, 4, (p + 1, hkv, ps, d), generator=g).float()
+    else:
+        q = torch.randn((b, h, s, d), generator=g)
+        k = torch.randn((p + 1, hkv, ps, d), generator=g)
+    v = torch.randn((p + 1, hkv, ps, d), generator=g)
+    k[p], v[p] = float("nan"), float("nan")
+    perm = torch.randperm(p, generator=g).int()
+    pages = torch.full((b, lp), p, dtype=torch.int32)
+    positions = torch.empty((b, s), dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(lengths):
+        if n == 0:
+            positions[r] = torch.arange(s) + 5
+            continue
+        np_ = -(-n // ps)
+        pages[r, :np_] = perm[used:used + np_]
+        used += np_
+        positions[r] = torch.arange(n - s, n)
+    scale = 0.3 if large else d ** -0.5
+    return (q.to(device, dtype), k.to(device, cache_dtype),
+            v.to(device, cache_dtype), pages.to(device), positions.to(device),
+            scale)
+
+
+def check_paged_kernel(device):
+    """Hold K12 against ``paged_attention_plain`` at the path's decode
+    shape and at PAGED_RAGGED, in float32 and bfloat16, and with f32
+    queries over a bf16 cache at the decode shape and the GQA case.
+    Returns errors, cases and mismatches as :func:`check_kernels` does."""
+    import torch
+    from bigdl_tpu_torch.ops import attention as attn
+    name = "paged_attention"
+    err = rel = rel_bf16 = 0.0
+    cases = misses = 0
+    runs = [(c, dt, dt) for c in [paged_decode_case()] + PAGED_RAGGED
+            for dt in (torch.float32, torch.bfloat16)]
+    runs += [(c, torch.float32, torch.bfloat16)
+             for c in (paged_decode_case(), PAGED_RAGGED[2])]
+    for i, (case, qdt, cdt) in enumerate(runs):
+        q, k, v, pages, pos, scale = paged_operands(case, qdt, cdt, device,
+                                                    SEED + 80 + i)
+        got = attn.paged_attention(q, k, v, pages, pos, scale)
+        torch.cuda.synchronize()
+        want = attn.paged_attention_plain(q, k, v, pages, pos, scale)
+        mag = attn.paged_attention_plain(q.float(), k.float(),
+                                         v.float().abs(), pages, pos, scale)
+        e = (got.float() - want.float()).abs()
+        r = (e / mag.clamp_min(1e-30)).max().item()
+        tol = (ATTN_F32_RTOL if cdt == torch.float32 else
+               ATTN_BF16_STEPS * BF16_STEP) * mag
+        ok = bool((e <= tol).all()) and bool(torch.isfinite(got).all()) \
+            and got.shape == q.shape and got.dtype == cdt
+        if 0 in case[8]:
+            ok = ok and not got[case[8].index(0)].float().abs().any()
+        cases += 1
+        if cdt == torch.float32:
+            rel, err = max(rel, r), max(err, e.max().item())
+        else:
+            rel_bf16 = max(rel_bf16, r)
+        if not ok:
+            misses += 1
+            fail(f"{name} {case[0]} q {qdt} cache {cdt}: max |err| / "
+                 f"sum |p·v| {r:.3g} beyond tolerance")
+        del q, k, v, got, want, mag
+    log(f"paged attention kernel vs plain: {cases} cases, max |err| / sum "
+        f"|p·v| f32 {rel:.3g} (limit {ATTN_F32_RTOL}; max |err| {err:.3g}) "
+        f"bf16 cache {rel_bf16:.3g} (limit "
+        f"{ATTN_BF16_STEPS * BF16_STEP:.4g})")
+    return {name: err}, {name: cases}, {name: misses}
 
 
 # -- phase 3: serving ---------------------------------------------------------
@@ -1234,6 +1405,131 @@ def lm_generation(device):
     return report, {"lm_generate": launches}, model, prompt
 
 
+# -- phase 3g: continuous serving ----------------------------------------------
+
+def continuous_serving(device):
+    """Drive ``ContinuousGenerator`` at the LM's full width (bf16 weights,
+    bf16 pool) over the traffic of :func:`cg_traffic`, every request
+    submitted at once; check its outputs, launches, prefix hits and page
+    accounting, one over-capacity shed, the mixed path (a bf16 model over
+    the default f32 cache) and an f32 copy's tokens against ``generate``
+    and against ``paged_kernel=False``.  Returns the report, the launches
+    and what phase 4 times again."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.serving import ContinuousGenerator, SlotCapacityError
+    base = lm_model()
+    model = copy.deepcopy(base).to(device, torch.bfloat16)
+    prompts, budgets, shared = cg_traffic()
+    kw = dict(num_slots=CG_SLOTS, max_len=LM_T, page_size=CG_PAGE,
+              seq_buckets=CG_BUCKETS, device=device)
+    t0 = time.perf_counter()
+    gen = ContinuousGenerator(model, cache_dtype=torch.bfloat16, **kw)
+    warm_s = time.perf_counter() - t0
+    ops.reset_launches()                 # the continuous path starts here
+    run = drive_continuous(gen, prompts, budgets)
+    try:
+        gen.submit(prompts[0], LM_T)
+        fail("an over-capacity request was admitted")
+    except SlotCapacityError:
+        pass
+    gen.drain()
+    launches = launches_now()            # and ends here
+    st = gen.stats()
+    prefills = st["counters"]["serve.gen.prefills"]
+    steps = st["counters"]["serve.gen.steps"]
+    want = per_forward({"paged_attention": LM_LAYERS * (prefills + steps)}, 1)
+    if launches != want or prefills != CG_REQUESTS:
+        fail(f"continuous serving launches {launches} for {prefills} "
+             f"prefills and {steps} decode steps, expected {want}")
+    for out, n in zip(run.pop("outputs"), budgets):
+        if out.shape != (n,) or out.min() < 1 or out.max() > LM_VOCAB:
+            fail(f"continuous serving gave {out.shape} ids or ids out of "
+                 f"range for max_new {n}")
+    pages, prefix = st["pages"], st["prefix"]
+    if prefix["hit_pages"] <= 0 or \
+            pages["free"] + prefix["entries"] != pages["total"]:
+        fail(f"prefix hits {prefix} or pages {pages}: a shared head must "
+             "hit, and every private page be free after drain()")
+    if st["counters"].get("serve.shed.over_capacity") != 1:
+        fail(f"over-capacity shed not counted: {st['counters']}")
+
+    # the mixed path: a bf16 model over the default f32 cache
+    with ContinuousGenerator(model, **kw) as g:
+        mixed = g.submit(prompts[0], CG_SHORT[0]).result(timeout=600)
+        mixed_pool = g.stats()["pages"]["pool_bytes"]
+    with torch.inference_mode():
+        pool = model.init_paged_cache(LM_T // CG_PAGE, CG_PAGE)
+        table = torch.arange(LM_T // CG_PAGE, dtype=torch.int32,
+                             device=device)[None]
+        lp = model.decode_pages(torch.from_numpy(prompts[0][None]).to(device),
+                                pool, table, torch.zeros(1, device=device),
+                                torch.ones(1, dtype=torch.bool, device=device))
+        finite = bool(torch.isfinite(lp).all())
+    del pool, lp
+    if not finite or mixed.shape != (CG_SHORT[0],) or mixed.min() < 1 or \
+            mixed.max() > LM_VOCAB:
+        fail(f"bf16 model over an f32 cache: log-probs finite {finite}, "
+             f"ids {mixed}")
+
+    # an f32 copy: tokens equal to generate() and to paged_kernel=False
+    f32 = copy.deepcopy(base).to(device)
+    pick = [i for i in range(CG_REQUESTS) if shared[i]][:CG_F32_REQUESTS // 2]
+    pick += [i for i in range(CG_REQUESTS)
+             if not shared[i]][:CG_F32_REQUESTS - len(pick)]
+    fprompts = [prompts[i] for i in pick]
+    outs = {}
+    for name, extra in (("kernel", {}), ("hoisted", {"paged_kernel": False})):
+        with ContinuousGenerator(f32, **kw, **extra) as g:
+            outs[name] = g.generate(fprompts, CG_F32_NEW)
+    ref = [f32.generate(torch.from_numpy(p[None]).to(device), CG_F32_NEW,
+                        device=device)[0].cpu().numpy() for p in fprompts]
+    del f32
+    for name, got in outs.items():
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if not np.array_equal(a, b):
+                fail(f"f32 continuous ({name}) request {i} differs from "
+                     f"generate(): {a.tolist()} vs {b.tolist()}")
+    log(f"continuous serving (bf16, {CG_REQUESTS} requests of {CG_PROMPT} "
+        f"tokens, {sum(shared)} with the {CG_HEAD}-token head, "
+        f"{sum(budgets)} new tokens): {prefills} prefills, {steps} decode "
+        f"steps in {st['chunks']} chunks, launches {launches}; prefix hit "
+        f"pages {prefix['hit_pages']} of {prefix['lookup_pages']}; pages "
+        f"free {pages['free']} + cached {prefix['entries']} of "
+        f"{pages['total']} after drain; over-capacity shed typed; bf16 "
+        f"model over the f32 cache: finite log-probs, ids in range; f32 "
+        f"copy: {CG_F32_REQUESTS} requests x {CG_F32_NEW} equal to "
+        f"generate() with K12 and with paged_kernel=False")
+    report = dict(run, warmup_s=warm_s, prefills=prefills,
+                  decode_steps=steps, chunks=st["chunks"],
+                  mean_slot_occupancy=st["mean_occupancy"],
+                  mean_token_occupancy=pages["mean_token_occupancy"],
+                  prefix=prefix, pool_bytes=pages["pool_bytes"],
+                  mixed_pool_bytes=mixed_pool,
+                  f32_requests_equal=CG_F32_REQUESTS)
+    return report, {"lm_continuous": launches}, (model, prompts, budgets, kw)
+
+
+def drive_continuous(gen, prompts, budgets):
+    """Submit every request at once, stamp each at its resolution, and
+    return the outputs, the wall time, new tokens/s and the latencies."""
+    done = {}
+    t0 = time.perf_counter()
+    futs = []
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        f = gen.submit(p, n)
+        f.add_done_callback(
+            lambda _f, i=i: done.__setitem__(i, time.perf_counter() - t0))
+        futs.append(f)
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    lats = sorted(done.values())
+    return {"outputs": outs, "wall_s": wall,
+            "new_tokens_per_s": sum(budgets) / wall,
+            "latency_p50_ms": 1e3 * lats[(len(lats) - 1) // 2],
+            "latency_max_ms": 1e3 * lats[-1]}
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -1605,6 +1901,94 @@ def time_lm(score_model, long_model, gen_model, prompt, device):
     return out
 
 
+def paged_work(q, k, pages, positions):
+    """(bytes, FLOPs) a K12 call needs: the K/V of each row's visible keys
+    read once per (row, KV head), q, the output, the table and the
+    positions once; 4·D FLOPs per visible (query, key) pair and head."""
+    h, d = q.shape[1], q.shape[3]
+    hkv, ps = k.shape[1], k.shape[2]
+    length = pages.shape[1] * ps
+    seen = (positions.long() + 1).clamp(max=length)
+    nbytes = (int(seen.amax(dim=1).sum()) * hkv * d * 2 * k.element_size() +
+              q.numel() * q.element_size() + q.numel() * k.element_size() +
+              4 * (pages.numel() + positions.numel()))
+    return nbytes, 4 * d * h * int(seen.sum())
+
+
+def time_paged(device):
+    """K12 per call at the path's decode shape and its two prefill shapes
+    (bf16): median kernel time with the L2 flushed, its bound, the plain
+    version (which gathers the view) and SDPA on the pre-gathered view
+    with the boolean mask (the gather excluded from its time)."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import attention as attn
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    bf16 = torch.bfloat16
+    out = {}
+    for key, case in (("decode", paged_decode_case()),
+                      ("prefill_512", PAGED_RAGGED[0]),
+                      ("prefill_128", PAGED_RAGGED[1])):
+        q, k, v, pages, pos, scale = paged_operands(case, bf16, bf16, device,
+                                                    SEED + 90)
+        b, h, s, d = q.shape
+        ps, lp = k.shape[2], pages.shape[1]
+        # the pre-gathered view, trash zeroed, heads expanded, and the mask
+        tmask = (pages.long() == k.shape[0] - 1).repeat_interleave(
+            ps, dim=1)[:, None, :, None]
+        kk, vv = (torch.where(tmask, 0, x[pages.long()].transpose(1, 2)
+                              .reshape(b, -1, lp * ps, d)) for x in (k, v))
+        kk, vv = attn.expand_kv_heads(q, kk, vv)
+        mask = (torch.arange(lp * ps, device=device)[None, None, :] <=
+                pos.long()[:, :, None])[:, None]
+        nbytes, flops = paged_work(q, k, pages, pos)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * flops / BF16_FLOPS
+        out[key] = {
+            "case": case[0], "shape": [b, h, k.shape[1], s, d, ps, lp],
+            "dtype": "bfloat16",
+            "ms": median_ms(lambda: attn.paged_attention(
+                q, k, v, pages, pos, scale), device, flush=flush),
+            "plain_ms": median_ms(lambda: attn.paged_attention_plain(
+                q, k, v, pages, pos, scale), device, reps=5, flush=flush),
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=mask, scale=scale), device,
+                flush=flush),
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        del q, k, v, kk, vv
+    return out
+
+
+def time_continuous(model, prompts, budgets, kw, device):
+    """The traffic again through a fresh generator under the profiler
+    (device time by kernel; the busy share against the unprofiled run),
+    then the same requests through ``TransformerLM.generate`` in static
+    waves of CG_SLOTS in arrival order, each decoding the traffic's
+    largest budget, as bench_serve.py's static mode does (every request of
+    a wave resolves when the wave ends)."""
+    import torch
+    from bigdl_tpu_torch.serving import ContinuousGenerator
+    with ContinuousGenerator(model, cache_dtype=torch.bfloat16, **kw) as g:
+        prof = device_profile(lambda: drive_continuous(g, prompts, budgets),
+                              1)
+    top = max(budgets)
+    done = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in range(0, len(prompts), CG_SLOTS):
+        x = torch.from_numpy(np.stack(prompts[w:w + CG_SLOTS])).to(device)
+        model.generate(x, top, cache_dtype=torch.bfloat16, device=device)
+        torch.cuda.synchronize()
+        done += [time.perf_counter() - t0] * x.shape[0]
+    wall = time.perf_counter() - t0
+    static = {"wall_s": wall, "new_tokens_per_s": sum(budgets) / wall,
+              "latency_p50_ms": 1e3 * sorted(done)[(len(done) - 1) // 2],
+              "latency_max_ms": 1e3 * max(done), "decoded_per_request": top}
+    return prof, static
+
+
 def profile_train_steps(device, mixed, steps=3):
     """Device time by kernel over ``steps`` training steps after as many
     warm-up steps (:func:`device_profile`)."""
@@ -1696,6 +2080,9 @@ KERNELS = [
     {"name": "attention_stream_fwd", "wrapper": "attention_stream_fwd",
      "route": "cuda", "source": "bigdl_tpu_torch/csrc/attention.cu",
      "replaces": "bigdl_tpu/ops/attention.py:207"},
+    {"name": "paged_attention", "wrapper": "paged_attention",
+     "route": "cuda", "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
+     "replaces": "bigdl_tpu/ops/attention.py:782"},
 ]
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -1743,6 +2130,8 @@ def main() -> int:
     for d, more in zip((errs, cases, misses),
                        check_attention_kernels(device)):
         d.update(more)
+    for d, more in zip((errs, cases, misses), check_paged_kernel(device)):
+        d.update(more)
     # phase 3, 3b, 3c and 3d: each path's launches counted from 0
     report, serve_launches = serve(device)
     train_report, train_launches = train(device)
@@ -1759,6 +2148,8 @@ def main() -> int:
     lm_report, lm_launches, score_model, long_model = lm_scoring(device)
     gen_report, gen_launches, gen_model, prompt = lm_generation(device)
     lm_launches.update(gen_launches)
+    cg_report, cg_launches, cg_run = continuous_serving(device)
+    lm_launches.update(cg_launches)
     # phase 4
     times = time_kernels(device)
     train_times = time_train_kernels(device)
@@ -1847,6 +2238,32 @@ def main() -> int:
     lm_report["generation"] = gen_report
     lm_report["kernel_sweep"] = sweep
     log("transformer LM: " + json.dumps(lm_report))
+    paged_times = time_paged(device)
+    for key, t in paged_times.items():
+        log(f"[{card}] paged_attention at {t['case']} {t['shape']} (bf16, "
+            f"per call): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; bytes {t['bytes_ms']:.4f}, operations "
+            f"{t['ops_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA on the "
+            f"pre-gathered view {t['library_ms']:.4f} ms")
+    cg_prof, cg_static = time_continuous(*cg_run, device)
+    cg_prof["busy_share"] = cg_prof["device_ms"] / (1e3 * cg_report["wall_s"])
+    cg_report.update(profile=cg_prof, static_waves=cg_static)
+    log(f"[{card}] continuous serving (bf16 weights and pool, "
+        f"{CG_REQUESTS} requests, {sum(cg_run[2])} new tokens): "
+        f"{cg_report['new_tokens_per_s']:.1f} new tokens/s, request p50 "
+        f"{cg_report['latency_p50_ms']:.1f} ms, max "
+        f"{cg_report['latency_max_ms']:.1f} ms, mean slot occupancy "
+        f"{cg_report['mean_slot_occupancy']:.3f}, {cg_report['chunks']} "
+        f"chunks, prefix hit rate {cg_report['prefix']['hit_rate']:.3f}; "
+        f"profiled run: device {cg_prof['device_ms']:.1f} ms, busy share "
+        f"{cg_prof['busy_share']:.3f} (of the unprofiled wall); top: "
+        + json.dumps(cg_prof["top"]))
+    log(f"[{card}] static waves of {CG_SLOTS} through generate (bf16, each "
+        f"decoding {cg_static['decoded_per_request']}): "
+        f"{cg_static['new_tokens_per_s']:.1f} new tokens/s, request p50 "
+        f"{cg_static['latency_p50_ms']:.1f} ms, max "
+        f"{cg_static['latency_max_ms']:.1f} ms")
+    log("continuous serving: " + json.dumps(cg_report))
     for where, tt in (("serving shapes, f32", times),
                       ("training shapes, bf16", train_times)):
         for name, t in tt.items():
@@ -1877,6 +2294,12 @@ def main() -> int:
             entry["shape"] = attn_times[key]["shape"]
             if wrapper == "attention_stream_fwd":
                 entry["long_context"] = attn_times[ATTN_PATH[2][0]]
+        elif wrapper == "paged_attention":
+            # per call at the continuous path's decode shape, bf16
+            entry.update({k2: paged_times["decode"][k2] for k2 in TIME_KEYS})
+            entry["shape"] = paged_times["decode"]["shape"]
+            entry["prefill"] = {k2: paged_times[k2]
+                                for k2 in ("prefill_512", "prefill_128")}
         elif name in qtimes:     # quantized: one batch-32 forward, bf16
             entry.update({key: qtimes[name][key] for key in TIME_KEYS})
             entry["calls_per_forward"] = qtimes[name]["calls"]

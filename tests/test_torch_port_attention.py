@@ -10,14 +10,29 @@ compute in f32 and round once, and two roundings can land one step apart.
 The dispatcher must send every shape where the reference's eligibility
 rules send it.  The kernels against their plain versions need a CUDA card
 and live in ``test_torch_port_cuda.py``.
+
+The repairs of the port's faults: K8's backward (autograd of the chunked
+plain form) against ``jax.grad`` of the reference's ``fused_attention`` to
+1e-5 of each gradient's largest magnitude in float32; decode with a cache
+dtype other than the model's against JAX's, which promotes at each
+product: log-probs within 2 bfloat16 steps of their largest magnitude
+where the model is bf16 (its LayerNorm rounds at each jnp op in JAX and
+once in torch), 1e-5 where it is f32, greedy tokens equal.  K12's plain
+version against the reference's ``paged_attention`` in interpret mode:
+float32 within 1e-6, bfloat16 within one bfloat16 step of each output's
+sum of |p·v|.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from bigdl_tpu.models.transformer import TransformerLM as JTransformerLM
 from bigdl_tpu.ops import attention as jattn
+from bigdl_tpu_torch.convert import load_jax_params
+from bigdl_tpu_torch.models import TransformerLM
 from bigdl_tpu_torch.ops import attention as tattn
 
 torch.set_num_threads(1)
@@ -275,3 +290,159 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tattn.attention_fwd(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="bias"):
         tattn.attention_stream_fwd(q, q, q, bias=torch.zeros(1, 7))
+
+
+# -- repairs: K8's backward, head dims, mixed decode dtypes ---------------------
+
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if jattn._pick_block_q(c[3], c[4])],
+                         ids=[i for c, i in zip(CASES, IDS)
+                              if jattn._pick_block_q(c[3], c[4])])
+def test_k8_backward_is_autograd_of_the_chunked_form(interpret, case):
+    """The card's K8 backward recomputes through the chunked plain form, as
+    the reference's ``_fused_attention_bwd`` does: its gradients against
+    ``jax.grad`` of the reference's dispatch, which reaches the Pallas K8
+    here."""
+    q, k, v = _qkv(case, 5)
+    causal, scale = case[6], 1.0 / np.sqrt(case[5])
+    do = np.random.RandomState(6).standard_normal(q.shape).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        o = jattn.fused_attention(q_, k_, v_, causal=causal)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ours = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tattn._chunked_attention_reference(*ours, causal, scale).backward(
+        torch.from_numpy(do))
+    for got, w in zip(ours, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(got.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+
+
+def test_head_dims_are_padded_to_the_kernels_sizes():
+    pick = tattn._kernel_head_dim
+    assert [pick("k", d) for d in (8, 16, 48, 64, 80, 96, 128)] == \
+        [16, 16, 64, 64, 128, 128, 128]
+    with pytest.raises(ValueError, match="up to 128"):
+        pick("k", 160)
+
+
+LM_CONFIGS = {"learned": dict(position="learned"),
+              "rope-gqa": dict(position="rope", num_kv_heads=2)}
+
+
+@pytest.mark.parametrize("mix", ["bf16-model-f32-cache",
+                                 "f32-model-bf16-cache"])
+@pytest.mark.parametrize("name", list(LM_CONFIGS))
+def test_mixed_cache_and_model_dtypes_decode_as_jax(name, mix):
+    jm = JTransformerLM(50, max_len=16, embed_dim=32, num_heads=4,
+                        num_layers=2, **LM_CONFIGS[name])
+    params, state = jm.init(jax.random.PRNGKey(0))
+    tm = TransformerLM(50, max_len=16, embed_dim=32, num_heads=4,
+                       num_layers=2, **LM_CONFIGS[name])
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    bf16_model = mix.startswith("bf16")
+    mdt, cdt = ((jnp.bfloat16, jnp.float32) if bf16_model
+                else (jnp.float32, jnp.bfloat16))
+    tmdt, tcdt = ((torch.bfloat16, torch.float32) if bf16_model
+                  else (torch.float32, torch.bfloat16))
+    params = jax.tree_util.tree_map(lambda a: a.astype(mdt), params)
+    tm = tm.to("cpu", tmdt).evaluate()
+    ids = np.random.RandomState(1).randint(1, 51, (2, 10))
+    jcache = jm.init_cache(2, 16, cdt)
+    cache = tm.init_cache(2, 16, tcdt)
+    with torch.inference_mode():
+        for lo, hi in ((0, 8), (8, 9), (9, 10)):
+            want, jcache = jm.decode(params, state,
+                                     jnp.asarray(ids[:, lo:hi]), jcache, lo)
+            got = tm.decode(torch.from_numpy(ids[:, lo:hi]), cache, lo)
+            want = np.asarray(want, np.float32)
+            assert got.dtype == torch.float32    # promoted, as in jnp
+            atol = 2 * BF16_STEP * 2.0 ** np.floor(
+                np.log2(np.abs(want).max())) if bf16_model else 1e-5
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=atol)
+    prompt = ids[:, :5]
+    want = np.asarray(jm.generate(params, state, jnp.asarray(prompt), 6,
+                                  cache_dtype=cdt))
+    got = tm.generate(torch.from_numpy(prompt), 6, cache_dtype=tcdt,
+                      device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- K12's plain version --------------------------------------------------------
+
+# (b, h, hkv, s, d, pages P, page size, lp, tokens per row): the cases of
+# tests/test_tuning.py's paged-kernel tests — GQA, ragged tables, S 1 and 2,
+# page sizes 4, 5 and 16 — with a NaN-poisoned trash page
+PAGED = [(3, 4, 2, 2, 8, 10, 4, 5, [11, 6, 19]),
+         (2, 4, 4, 1, 16, 9, 5, 4, [14, 3]),
+         (2, 8, 1, 2, 8, 6, 16, 3, [40, 17]),
+         (3, 4, 2, 1, 8, 10, 4, 5, [20, 0, 2])]
+PAGED_IDS = ["gqa-s2-ps4", "mha-s1-ps5", "mqa-s2-ps16", "all-trash-row"]
+
+
+def _paged_inputs(case, seed):
+    b, h, hkv, s, d, p, ps, lp, lengths = case
+    rs = np.random.RandomState(seed)
+    q = rs.standard_normal((b, h, s, d)).astype(np.float32)
+    kp = rs.standard_normal((p + 1, hkv, ps, d)).astype(np.float32)
+    vp = rs.standard_normal((p + 1, hkv, ps, d)).astype(np.float32)
+    kp[p] = vp[p] = np.nan
+    perm = list(rs.permutation(p))
+    pages = np.full((b, lp), p, np.int32)
+    pos = np.zeros((b, s), np.int32)
+    for r, n in enumerate(lengths):
+        np_ = -(-n // ps)
+        pages[r, :np_] = [perm.pop() for _ in range(np_)]
+        pos[r] = np.arange(max(n, s) - s, max(n, s))
+    return q, kp, vp, pages, pos, 1.0 / np.sqrt(d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED, ids=PAGED_IDS)
+def test_plain_k12_matches_pallas_paged_attention(interpret, case, dtype):
+    q, kp, vp, pages, pos, scale = _paged_inputs(case, 2)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jattn.paged_attention(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(pages), jnp.asarray(pos), scale), np.float32)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, kp, vp))
+    tpages, tpos = torch.from_numpy(pages), torch.from_numpy(pos)
+    got = tattn.paged_attention_plain(tq, tk, tv, tpages, tpos, scale)
+    assert got.dtype == tdt and got.shape == tq.shape
+    assert torch.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    else:
+        mag = tattn.paged_attention_plain(tq.float(), tk.float(),
+                                          tv.float().abs(), tpages, tpos,
+                                          scale).numpy()
+        np.testing.assert_array_less(np.abs(got.float().numpy() - want),
+                                     BF16_STEP * mag + 1e-30)
+
+
+def test_paged_wrapper_on_the_cpu_launches_nothing():
+    q, kp, vp, pages, pos, scale = (
+        torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        for x in _paged_inputs(PAGED[0], 3))
+    before = tattn.paged_attention.launches
+    got = tattn.paged_attention(q, kp, vp, pages, pos, scale)
+    assert tattn.paged_attention.launches == before
+    assert torch.equal(got, tattn.paged_attention_plain(q, kp, vp, pages,
+                                                        pos, scale))
+    with pytest.raises(ValueError, match="do not agree"):
+        tattn.paged_attention(q[..., :4], kp, vp, pages, pos, scale)
+    with pytest.raises(ValueError, match="positions"):
+        tattn.paged_attention(q, kp, vp, pages, pos[:, :1], scale)
+    with pytest.raises(TypeError, match="integer"):
+        tattn.paged_attention(q, kp, vp, pages.float(), pos, scale)
+    with pytest.raises(TypeError, match="one dtype"):
+        tattn.paged_attention(q, kp, vp.bfloat16(), pages, pos, scale)
+    assert tattn.paged_rows_per_block(64, 128, 16, 512) == tattn.PAGED_ROWS
+    assert tattn.paged_rows_per_block(256, 128, 16, 512) == 4
+    assert tattn.paged_rows_per_block(64, 128, 16, 3) == 3
+    with pytest.raises(ValueError, match="does not fit"):
+        tattn.paged_rows_per_block(64, 4096, 16, 1)

@@ -14,11 +14,14 @@ quantized matmuls: K14 (int8 x int8) is bit-equal; K13 (int8 and e4m3
 weights) and K15 (int4) agree to 1e-4 of each output's sum of |products|
 (f32 sums taken in another order, mma.sync's accumulation in bfloat16),
 plus one bfloat16 rounding step of the output (2^-7 relative) in bfloat16.
-The attention kernels K8 and K9 agree with their plain versions to 1e-5 of
-each output's sum of |p·v| (the softmax weights times |v|) in float32, and
-to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two outputs' own
-roundings can land one step apart, and the kernels round p to bfloat16 for
-the tensor cores (2^-9 of the sum at most).
+The attention kernels K8, K9 and K12 agree with their plain versions to
+1e-5 of each output's sum of |p·v| (the softmax weights times |v|) in
+float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
+outputs' own roundings can land one step apart, and K8/K9 round p to
+bfloat16 for the tensor cores (2^-9 of the sum at most).  K8's backward
+(autograd of the chunked plain form) agrees with autograd of the plain
+form to 1e-4 of each gradient's largest magnitude in float32 (the same
+math, f32 sums in another order).
 """
 
 import pytest
@@ -242,27 +245,149 @@ def test_attention_kernels_match_plain(cuda_device, case, dtype):
 
 
 def test_attention_kernels_reject_other_head_dims(cuda_device):
-    q = torch.randn((1, 2, 16, 48), device=cuda_device)
+    # head dims up to 128 are zero-padded to the kernels' sizes; beyond,
+    # the K/V tiles do not fit static shared memory
+    q = torch.randn((1, 2, 16, 160), device=cuda_device)
     before = (attn.attention_fwd.launches, attn.attention_stream_fwd.launches)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims up to 128"):
         attn.attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims up to 128"):
         attn.attention_stream_fwd(q, q, q)
     assert (attn.attention_fwd.launches,
             attn.attention_stream_fwd.launches) == before
 
 
 def test_attention_kernel_backward_raises(cuda_device):
+    # K9's backward is the flash backward (K10, K11), still to port; K8's
+    # is autograd of the chunked plain form (test_k8_backward_...)
     q, k, v = (torch.randn((1, 2, 16, 32), device=cuda_device,
                            requires_grad=True) for _ in range(3))
     bias = torch.zeros((1, 16), device=cuda_device)
-    before = (attn.attention_fwd.launches, attn.attention_stream_fwd.launches)
-    for o in (attn.attention_fwd(q, k, v, True),
-              attn.attention_stream_fwd(q, k, v, True, None, bias)):
-        assert o.requires_grad
-        with pytest.raises(NotImplementedError, match="K10, K11"):
-            o.sum().backward()
+    before = attn.attention_stream_fwd.launches
+    o = attn.attention_stream_fwd(q, k, v, True, None, bias)
+    assert o.requires_grad
+    with pytest.raises(NotImplementedError, match="K10, K11"):
+        o.sum().backward()
     torch.cuda.synchronize()
-    assert (attn.attention_fwd.launches,
-            attn.attention_stream_fwd.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert attn.attention_stream_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 4, 256, 64), (2, 8, 2, 128, 48),
+                                   (1, 2, 2, 2048, 64)],
+                         ids=["t256", "gqa-d48", "t2048"])
+def test_k8_backward_matches_autograd_of_the_plain_form(cuda_device, shape):
+    b, h, hk, t, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(t + d)
+    q, k, v = (torch.randn(sh, generator=g, device=cuda_device)
+               for sh in ((b, h, t, d), (b, hk, t, d), (b, hk, t, d)))
+    do = torch.randn((b, h, t, d), generator=g, device=cuda_device)
+    before = attn.attention_fwd.launches
+    ours = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = attn.attention_fwd(*ours, True)
+    o.backward(do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    attn.attention_reference(*ref, True).backward(do)
+    torch.cuda.synchronize()
+    assert attn.attention_fwd.launches == before + 1
+    for a, r in zip(ours, ref):
+        tol = 1e-4 * r.grad.abs().max().item()
+        assert (a.grad - r.grad).abs().max().item() <= tol
+
+
+# -- K12 ------------------------------------------------------------------------
+
+# (b, h, hkv, s, d, page size, lp, tokens per row (0: an inactive row with
+# an all-trash table), integer-valued q/k at scale 0.3, so |s| ~ 30)
+PAGED_CASES = [
+    (3, 8, 2, 1, 64, 16, 8, [100, 37, 1], False),
+    (2, 8, 1, 2, 32, 5, 9, [44, 7], False),
+    (2, 4, 4, 33, 128, 8, 10, [70, 33], False),
+    (3, 8, 8, 1, 64, 16, 4, [50, 0, 64], False),
+    (2, 8, 8, 4, 64, 16, 6, [90, 17], True),
+    (2, 4, 2, 3, 48, 4, 20, [77, 3], False),
+]
+PAGED_IDS = ["gqa-decode", "mqa-ps5", "prefill-d128", "inactive-row",
+             "large-scores", "d48-ps4"]
+
+
+def paged_operands(case, dtype, cache_dtype, device, seed):
+    """q, pools (NaN on the trash page), page table and positions of a
+    case, and its scale: each row's pages drawn from a shuffled pool, its
+    S queries at the last S of its tokens."""
+    b, h, hkv, s, d, ps, lp, lengths, large = case
+    g = torch.Generator().manual_seed(seed)
+    p = sum(-(-n // ps) for n in lengths) + 3
+    if large:
+        q = torch.randint(-3, 4, (b, h, s, d), generator=g).float()
+        k = torch.randint(-3, 4, (p + 1, hkv, ps, d), generator=g).float()
+    else:
+        q = torch.randn((b, h, s, d), generator=g)
+        k = torch.randn((p + 1, hkv, ps, d), generator=g)
+    v = torch.randn((p + 1, hkv, ps, d), generator=g)
+    k[p], v[p] = float("nan"), float("nan")
+    perm = torch.randperm(p, generator=g).int()
+    pages = torch.full((b, lp), p, dtype=torch.int32)
+    positions = torch.empty((b, s), dtype=torch.int32)
+    used = 0
+    for r, n in enumerate(lengths):
+        if n == 0:
+            positions[r] = torch.arange(s) + 5
+            continue
+        np_ = -(-n // ps)
+        pages[r, :np_] = perm[used:used + np_]
+        used += np_
+        positions[r] = torch.arange(n - s, n)
+    scale = 0.3 if large else d ** -0.5
+    return (q.to(device, dtype), k.to(device, cache_dtype),
+            v.to(device, cache_dtype), pages.to(device),
+            positions.to(device), scale)
+
+
+def _paged_close(ops, dtype):
+    q, k, v, pages, positions, scale = ops
+    got = attn.paged_attention(q, k, v, pages, positions, scale)
+    torch.cuda.synchronize()
+    want = attn.paged_attention_plain(q, k, v, pages, positions, scale)
+    mag = attn.paged_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     pages, positions, scale)
+    assert got.dtype == k.dtype and got.shape == q.shape
+    return _attn_close(got, want, mag, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=PAGED_IDS)
+def test_paged_attention_kernel_matches_plain(cuda_device, case, dtype):
+    dt = getattr(torch, dtype)
+    before = attn.paged_attention.launches
+    assert _paged_close(paged_operands(case, dt, dt, cuda_device, 7), dt)
+    assert attn.paged_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("pair", [("float32", "bfloat16"),
+                                  ("bfloat16", "float32")],
+                         ids=["f32-q-bf16-cache", "bf16-q-f32-cache"])
+def test_paged_attention_kernel_mixed_dtypes(cuda_device, pair):
+    qdt, cdt = (getattr(torch, x) for x in pair)
+    for case in PAGED_CASES[:2]:
+        assert _paged_close(paged_operands(case, qdt, cdt, cuda_device, 8),
+                            cdt)
+
+
+@pytest.mark.parametrize("d", [48, 80, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_other_head_dims(cuda_device, dtype, d):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn((2, 4, 40, d), generator=g, device=cuda_device).to(dt)
+    k = torch.randn((2, 2, 40, d), generator=g, device=cuda_device).to(dt)
+    v = torch.randn((2, 2, 40, d), generator=g, device=cuda_device).to(dt)
+    for kern, plain in ((attn.attention_fwd, attn.attention_reference),
+                        (attn.attention_stream_fwd,
+                         attn.attention_stream_plain)):
+        got = kern(q, k, v, True)
+        torch.cuda.synchronize()
+        mag = plain(q.float(), k.float(), v.float().abs(), True)
+        assert got.shape == q.shape
+        assert _attn_close(got, plain(q, k, v, True), mag, dt)
+    case = (2, 4, 2, 3, d, 8, 6, [41, 9], False)
+    assert _paged_close(paged_operands(case, dt, dt, cuda_device, d), dt)
