@@ -16,7 +16,13 @@
 // in the future and tiles whose keys are all padded (the optional (B, Tk)
 // additive bias) are skipped; p = 0 where s <= NEG_INF / 2; o = acc /
 // max(l, 1e-20), so a row with every key padded gives 0.  The TPU kernel
-// padded its m/l scratch to 128 lanes; here they live in registers.
+// padded its m/l scratch to 128 lanes; here they live in registers.  On the
+// training path (kLse) K9 also writes the row logsumexp m + log(l) in f32,
+// one float per row (the reference's `with_lse`, stored over LSE_W = 8
+// lanes there), from the f32 l that sums p before p is rounded; a row with
+// every key padded gets about NEG_INF, for which the flash backward
+// (flash_attention_bwd.cu) gives nothing.  The forward-only launch writes
+// no LSE.
 //
 // Design: one block of 4 warps owns (one B*H row, 64 query rows), 16 rows
 // a warp; K/V tiles of 64 keys are staged through shared memory.  Both
@@ -55,6 +61,7 @@ struct Params {
   const void* v;
   const float* bias;  // (B, Tk) or null
   void* o;
+  float* lse;         // (B*H, Tq) row logsumexp, written when kLse
   int h, hk, tq, tk;
   float scale;
   bool causal;
@@ -108,7 +115,7 @@ __device__ __forceinline__ int stage_bias(const Rows& r, const Params& p,
 
 // ---- bfloat16: mma.sync -----------------------------------------------------
 
-template <int D, bool kStream, bool kBias>
+template <int D, bool kStream, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kAttnThreads) attn_bf16(Params p) {
   constexpr int kKS = D + 8;    // K tile row stride (bf16): no bank conflicts
   constexpr int kVS = kBK + 8;  // transposed V tile row stride
@@ -274,6 +281,9 @@ __global__ void __launch_bounds__(kAttnThreads) attn_bf16(Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= p.tq) continue;
+    if (kLse && t == 0)
+      p.lse[static_cast<long long>(blockIdx.y) * p.tq + row[i]] =
+          m[i] + logf(l[i]);
 #pragma unroll
     for (int n = 0; n < kND; ++n) {
       *reinterpret_cast<uint32_t*>(
@@ -303,7 +313,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, bool kStream, bool kBias>
+template <int D, bool kStream, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kAttnThreads) attn_f32(Params p) {
   constexpr int kCols = (D + 31) / 32;  // output columns of a lane
   extern __shared__ float sm[];
@@ -430,6 +440,9 @@ __global__ void __launch_bounds__(kAttnThreads) attn_f32(Params p) {
     float li = warp_sum(l[i]);
     if (kStream) li = fmaxf(li, 1e-20f);
     if (row0 + i >= p.tq) continue;
+    if (kLse && lane == 0)
+      p.lse[static_cast<long long>(blockIdx.y) * p.tq + row0 + i] =
+          m[i] + logf(li);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = lane + 32 * c;
@@ -441,34 +454,34 @@ __global__ void __launch_bounds__(kAttnThreads) attn_f32(Params p) {
 
 // ---- launch -----------------------------------------------------------------
 
-template <bool kStream, bool kBias, int D>
+template <bool kStream, bool kBias, bool kLse, int D>
 cudaError_t launch_d(const Params& p, int dtype, int bh, cudaStream_t s) {
   const dim3 grid((p.tq + kBQ - 1) / kBQ, bh);
   if (dtype == bigdl::kBF16) {
-    attn_bf16<D, kStream, kBias><<<grid, kAttnThreads, 0, s>>>(p);
+    attn_bf16<D, kStream, kBias, kLse><<<grid, kAttnThreads, 0, s>>>(p);
   } else if (dtype == bigdl::kF32) {
     const int smem = f32_smem_floats(D) * static_cast<int>(sizeof(float));
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_f32<D, kStream, kBias>,
+        attn_f32<D, kStream, kBias, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    attn_f32<D, kStream, kBias><<<grid, kAttnThreads, smem, s>>>(p);
+    attn_f32<D, kStream, kBias, kLse><<<grid, kAttnThreads, smem, s>>>(p);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-template <bool kStream, bool kBias>
+template <bool kStream, bool kBias, bool kLse>
 int launch(const Params& p, int dtype, int bh, int d, void* stream) {
   if (p.tq == 0 || bh == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   switch (d) {
-    case 16: e = launch_d<kStream, kBias, 16>(p, dtype, bh, s); break;
-    case 32: e = launch_d<kStream, kBias, 32>(p, dtype, bh, s); break;
-    case 64: e = launch_d<kStream, kBias, 64>(p, dtype, bh, s); break;
-    case 128: e = launch_d<kStream, kBias, 128>(p, dtype, bh, s); break;
+    case 16: e = launch_d<kStream, kBias, kLse, 16>(p, dtype, bh, s); break;
+    case 32: e = launch_d<kStream, kBias, kLse, 32>(p, dtype, bh, s); break;
+    case 64: e = launch_d<kStream, kBias, kLse, 64>(p, dtype, bh, s); break;
+    case 128: e = launch_d<kStream, kBias, kLse, 128>(p, dtype, bh, s); break;
     default: break;
   }
   return static_cast<int>(e);
@@ -481,19 +494,25 @@ extern "C" int bigdl_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int bh, int h, int hk,
                                    int tq, int tk, int d, float scale,
                                    int causal, void* stream) {
-  const Params p{q, k, v, nullptr, o, h, hk, tq, tk, scale, causal != 0};
-  return launch<false, false>(p, dtype, bh, d, stream);
+  const Params p{q, k, v, nullptr, o, nullptr, h, hk, tq, tk, scale,
+                 causal != 0};
+  return launch<false, false, false>(p, dtype, bh, d, stream);
 }
 
 // K9: as K8, with an optional (bh / h, tk) f32 additive key-padding bias
+// and, when lse is not null, the (bh, tq) f32 row logsumexp
 extern "C" int bigdl_attention_stream_fwd(const void* q, const void* k,
                                           const void* v, const void* bias,
-                                          void* o, int dtype, int bh, int h,
-                                          int hk, int tq, int tk, int d,
-                                          float scale, int causal,
-                                          void* stream) {
-  const Params p{q, k, v, static_cast<const float*>(bias), o, h, hk, tq, tk,
-                 scale, causal != 0};
-  if (bias) return launch<true, true>(p, dtype, bh, d, stream);
-  return launch<true, false>(p, dtype, bh, d, stream);
+                                          void* o, void* lse, int dtype,
+                                          int bh, int h, int hk, int tq,
+                                          int tk, int d, float scale,
+                                          int causal, void* stream) {
+  const Params p{q, k, v, static_cast<const float*>(bias), o,
+                 static_cast<float*>(lse), h, hk, tq, tk, scale, causal != 0};
+  if (bias) {
+    if (lse) return launch<true, true, true>(p, dtype, bh, d, stream);
+    return launch<true, true, false>(p, dtype, bh, d, stream);
+  }
+  if (lse) return launch<true, false, true>(p, dtype, bh, d, stream);
+  return launch<true, false, false>(p, dtype, bh, d, stream);
 }

@@ -4,8 +4,7 @@ the part the trainer needs).
 Parity: ``dataset/Transformer.scala:40-241``: a transformer maps an iterator
 to an iterator and composes with ``>>``; ``SampleToBatch`` stacks Samples
 into numpy MiniBatches, the last one possibly smaller.  Everything here is
-numpy on the host; the trainer copies each batch to its device.  Padding
-for variable-length features comes with the TransformerLM slice.
+numpy on the host; the trainer copies each batch to its device.
 """
 
 from __future__ import annotations
@@ -67,11 +66,24 @@ class MiniBatch:
 
 
 class SampleToBatch(Transformer):
-    """Sample -> MiniBatch of ``batch_size`` stacked samples; the tail of
-    the stream makes a smaller last batch (``dataset/Transformer.scala``)."""
+    """Sample -> MiniBatch of ``batch_size`` stacked samples
+    (``dataset/Transformer.scala``); the tail of the stream makes a smaller
+    last batch, or none with ``drop_last`` (``train_main`` of the
+    TransformerLM drops it).  The reference's padding options
+    (``feature_padding``, ``label_padding``, ``fixed_length``) come with the
+    sharded data feed of the DistriOptimizer slice, their only caller."""
 
-    def __init__(self, batch_size: int):
+    def __init__(self, batch_size: int, feature_padding=None,
+                 label_padding=None, fixed_length=None,
+                 drop_last: bool = False):
+        if (feature_padding, label_padding, fixed_length) != \
+                (None, None, None):
+            raise NotImplementedError(
+                "SampleToBatch's feature_padding, label_padding and "
+                "fixed_length come with the DistriOptimizer slice of the "
+                "port (the sharded data feed pads batches)")
         self.batch_size = batch_size
+        self.drop_last = drop_last
 
     @staticmethod
     def _batch(feats, labels):
@@ -85,5 +97,5 @@ class SampleToBatch(Transformer):
             if len(feats) == self.batch_size:
                 yield self._batch(feats, labels)
                 feats, labels = [], []
-        if feats:
+        if feats and not self.drop_last:
             yield self._batch(feats, labels)

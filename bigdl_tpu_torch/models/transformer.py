@@ -5,7 +5,10 @@ output head.
 
 ``TransformerLM(ids)`` takes 1-based token ids (B, T) and returns the
 log-softmax of the tied logits (B, T, vocab).  Its attention runs K8 or K9
-on the card (``ops/attention.py`` picks them as the reference does); the
+on the card (``ops/attention.py`` picks them as the reference does), and in
+training K9's backward runs the flash backward kernels K10 and K11; with
+``remat`` each block is recomputed in the backward instead of keeping its
+activations (the reference's ``jax.checkpoint``); the
 decode paths (:meth:`TransformerLM.decode`, :meth:`TransformerLM.generate`
 and the slot-addressable :meth:`TransformerLM.decode_slots`) are plain
 tensor math through a KV cache written in place, as the reference's
@@ -18,12 +21,15 @@ greedy decoding reproduces the reference token for token.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from bigdl_tpu_torch.core.module import Module, seeded
 from bigdl_tpu_torch.core.precision import promote
@@ -82,6 +88,40 @@ class TransformerBlock(Module):
         return x + self._ffn(x)
 
 
+def _recomputed(blk, x, key_padding_mask):
+    """``blk(x)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward.  The recompute must compute what the forward did, so it runs
+    on the parameter tensors the forward saw (``mixed_forward`` swaps in
+    bf16 casts only while the forward runs) and, when the block drops out,
+    draws the same mask: the generator is rewound to the state the forward
+    started from and put back where it was after, as the reference
+    re-derives the block's key (``child_rng(rng, i)``)."""
+    names = [n for n, _ in blk.named_parameters()]
+    tensors = [functools.reduce(getattr, n.split("."), blk) for n in names]
+    drop = blk.dropout
+    gen = drop.generator if drop is not None and drop.training and \
+        drop.p > 0 else None
+    start = None if gen is None else gen.get_state()
+    forwards = []
+
+    def run(x_, kpm, *ts):
+        rewind = bool(forwards) and gen is not None
+        forwards.append(1)
+        if rewind:
+            now = gen.get_state()
+            gen.set_state(start)
+        try:
+            return functional_call(blk, dict(zip(names, ts)), (x_,),
+                                   {"key_padding_mask": kpm})
+        finally:
+            if rewind:
+                gen.set_state(now)
+
+    return checkpoint(run, x, key_padding_mask, *tensors,
+                      use_reentrant=False)
+
+
 class TransformerLM(Module):
 
     def __init__(self, vocab_size: int, max_len: int = 512,
@@ -89,7 +129,7 @@ class TransformerLM(Module):
                  num_layers: int = 4, ffn_dim: Optional[int] = None,
                  dropout: float = 0.0, causal: bool = True,
                  num_kv_heads: Optional[int] = None,
-                 position: str = "learned"):
+                 position: str = "learned", remat: bool = False):
         super().__init__()
         if position not in ("learned", "rope"):
             raise ValueError(f"position must be 'learned' or 'rope', got "
@@ -108,6 +148,7 @@ class TransformerLM(Module):
                              rope=position == "rope")
             for _ in range(num_layers))
         self.ln_f = LayerNorm(embed_dim)
+        self.remat = remat
         self.reset_parameters(seeded())
 
     def reset_parameters(self, gen):
@@ -154,7 +195,10 @@ class TransformerLM(Module):
                              f"{self.max_len}")
         x = self._embed(input, 0)
         for blk in self.blocks:
-            x = blk(x, key_padding_mask=key_padding_mask)
+            if self.remat and torch.is_grad_enabled():
+                x = _recomputed(blk, x, key_padding_mask)
+            else:
+                x = blk(x, key_padding_mask=key_padding_mask)
         return self._head(x)
 
     def forward(self, input, key_padding_mask=None):
@@ -277,3 +321,85 @@ class TransformerLM(Module):
                 lp = self.decode(out[:, i - 1:i], cache, tp + i - 1)
                 out[:, i] = pick(lp[:, -1])
         return out
+
+
+def train_main(argv=None, device="cuda"):
+    """CLI training of the LM on a text corpus (``bigdl_tpu/models/
+    transformer.py`` ``train_main``, the flags of ``models/rnn/
+    Train.scala:35-105``), on ``device`` (CUDA by default; it raises
+    without CUDA unless asked for the CPU): ``WordTokenizer`` over
+    ``<folder>/input.txt``, ``load_in_data``'s 80/20 split, fixed-length
+    1-based ids in batches (the last short one dropped), float32
+    ``TransformerLM(vocab + 2, max_len=--maxLen, ...)``, per-token
+    ``ClassNLLCriterion`` averaged over time, SGD or Adam with an optional
+    linear ``Warmup``, validation by ``Loss`` every epoch.  Returns the
+    trained model.  ``--model``, ``--state`` and ``--checkpoint`` come with
+    the checkpoint slice."""
+    import argparse
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.dataset import (DataSet, LabeledSentenceToTokens,
+                                         SampleToBatch, WordTokenizer,
+                                         load_in_data)
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import (SGD, Adam, Loss, Optimizer, Trigger,
+                                       Warmup)
+
+    p = argparse.ArgumentParser("transformer-train")
+    p.add_argument("-f", "--folder", default="./")
+    p.add_argument("--model", default=None, help="model snapshot location")
+    p.add_argument("--state", default=None, help="state snapshot location")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("-r", "--learningRate", type=float, default=0.01)
+    p.add_argument("-m", "--momentum", type=float, default=0.0)
+    p.add_argument("--optim", choices=["sgd", "adam"], default="sgd")
+    p.add_argument("--warmup", type=int, default=0,
+                   help="linear LR warmup iterations (0 = off)")
+    p.add_argument("--vocab", type=int, default=4000)
+    p.add_argument("--embed", type=int, default=128)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--maxLen", type=int, default=256)
+    p.add_argument("-e", "--nEpochs", type=int, default=10)
+    p.add_argument("-b", "--batchSize", type=int, default=8)
+    args = p.parse_args(argv)
+    if args.optim == "adam" and args.momentum:
+        p.error("--momentum applies to sgd only (Adam's beta1 is the "
+                "analogous knob)")
+    for flag in ("model", "state", "checkpoint"):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} (model and optimizer snapshots) comes with the "
+                "checkpoint slice of the port")
+    device = resolve_device(device)
+
+    dictionary_length = args.vocab + 1
+    WordTokenizer(f"{args.folder}/input.txt", args.folder,
+                  dictionary_length=dictionary_length).process()
+    train, val, train_max, val_max = load_in_data(args.folder,
+                                                  dictionary_length)
+    fix = min(max(train_max, val_max), args.maxLen)
+    train_set = DataSet.array(train) >> LabeledSentenceToTokens(fix) >> \
+        SampleToBatch(args.batchSize, drop_last=True)
+    val_set = DataSet.array(val) >> LabeledSentenceToTokens(fix) >> \
+        SampleToBatch(args.batchSize, drop_last=True)
+    # the position table's length comes from the flag, not the corpus
+    model = TransformerLM(dictionary_length + 1, max_len=args.maxLen,
+                          embed_dim=args.embed, num_heads=args.heads,
+                          num_layers=args.layers)
+    criterion = TimeDistributedCriterion(ClassNLLCriterion(),
+                                         size_average=True)
+    optimizer = Optimizer(model=model, dataset=train_set,
+                          criterion=criterion, device=device)
+    sched = Warmup(args.warmup) if args.warmup > 0 else None
+    if args.optim == "adam":
+        optimizer.set_optim_method(Adam(learning_rate=args.learningRate,
+                                        learning_rate_schedule=sched))
+    else:
+        optimizer.set_optim_method(SGD(learning_rate=args.learningRate,
+                                       momentum=args.momentum,
+                                       learning_rate_schedule=sched))
+    optimizer.set_end_when(Trigger.max_epoch(args.nEpochs))
+    optimizer.set_validation(Trigger.every_epoch(), val_set,
+                             [Loss(criterion)])
+    return optimizer.optimize()

@@ -16,9 +16,13 @@
   ``fused_attention`` (``csrc/attention.cu``): K8 (``attention_fwd``, one
   max per row; replaces ``bigdl_tpu/ops/attention.py`` ``_fwd_kernel``) and
   K9 (``attention_stream_fwd``, the online softmax with an optional
-  key-padding bias; ``_stream_kernel``), whose backward raises until the
-  TransformerLM training slice (K8's is autograd of the chunked plain
-  form, as in the reference); and K12 (``paged_attention``, masked
+  key-padding bias and, on the training path, its row logsumexp;
+  ``_stream_kernel``), whose backward is the flash backward
+  (``csrc/flash_attention_bwd.cu``): K10 (``attention_stream_bwd_dq``;
+  ``_bwd_dq_kernel``) and K11 (``attention_stream_bwd_dkv``, dK and dV
+  summed over a GQA group; ``_bwd_dkv_kernel``), beside their plain
+  version ``flash_bwd_plain`` (K8's backward is autograd of the chunked
+  plain form, as in the reference); and K12 (``paged_attention``, masked
   attention over a block-paged KV pool through a page table;
   ``_paged_kernel``, ``csrc/paged_attention.cu``), the read path of
   ``ContinuousGenerator``.
@@ -32,9 +36,12 @@ kernels are built with ``nvcc`` at first use (``ops/_build.py``).
 
 from bigdl_tpu_torch.ops.attention import (attention_fwd,
                                            attention_reference,
+                                           attention_stream_bwd_dkv,
+                                           attention_stream_bwd_dq,
                                            attention_stream_fwd,
                                            attention_stream_plain,
-                                           fused_attention, paged_attention,
+                                           flash_bwd_plain, fused_attention,
+                                           paged_attention,
                                            paged_attention_plain)
 from bigdl_tpu_torch.ops.lrn import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      lrn_plain)
@@ -49,7 +56,9 @@ from bigdl_tpu_torch.ops.quant import (a8_matmul, f8_matmul,
 
 KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd,
                    w8_matmul, f8_matmul, a8_matmul, w4_matmul,
-                   attention_fwd, attention_stream_fwd, paged_attention)
+                   attention_fwd, attention_stream_fwd,
+                   attention_stream_bwd_dq, attention_stream_bwd_dkv,
+                   paged_attention)
 
 
 def reset_launches() -> None:
@@ -58,8 +67,10 @@ def reset_launches() -> None:
 
 
 __all__ = ["a8_matmul", "attention_fwd", "attention_reference",
+           "attention_stream_bwd_dkv", "attention_stream_bwd_dq",
            "attention_stream_fwd", "attention_stream_plain",
-           "cross_map_lrn", "f8_matmul", "fused_attention",
+           "cross_map_lrn", "f8_matmul", "flash_bwd_plain",
+           "fused_attention",
            "int4_matmul_plain", "int8_a8_matmul_plain", "int8_matmul_plain",
            "lrn_bwd", "lrn_bwd_plain", "lrn_plain", "max_pool2d",
            "max_pool2d_bwd", "max_pool2d_bwd_plain", "max_pool2d_plain",

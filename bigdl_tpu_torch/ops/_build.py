@@ -59,10 +59,16 @@ _SIGNATURES = {
     "bigdl_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, dtype, bh, h, hk, tq, tk, d, scale, causal, stream
     "bigdl_attention_fwd": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _P],
-    # q, k, v, bias (or null), o, dtype, bh, h, hk, tq, tk, d, scale,
-    # causal, stream
-    "bigdl_attention_stream_fwd": [_P] * 5 + [_I] * 7 +
+    # q, k, v, bias (or null), o, lse (or null), dtype, bh, h, hk, tq, tk,
+    # d, scale, causal, stream
+    "bigdl_attention_stream_fwd": [_P] * 6 + [_I] * 7 +
     [ctypes.c_float, _I, _P],
+    # q, k, v, o, lse, do, bias (or null), dq, dtype, b, h, hk, tq, tk, d,
+    # scale, causal, stream
+    "bigdl_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    # q, k, v, o, lse, do, bias (or null), dk, dv, dtype, b, h, hk, tq, tk,
+    # d, scale, causal, stream
+    "bigdl_flash_bwd_dkv": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # q, k pool, v pool, pages, positions, o, q dtype, cache dtype, b, h,
     # hkv, s, d, page size, lp, trash, scale, rows per block, stream
     "bigdl_paged_attention": [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I,

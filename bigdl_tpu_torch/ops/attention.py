@@ -1,5 +1,6 @@
 """Softmax attention (``bigdl_tpu/ops/attention.py``): the plain versions,
-the dispatcher, and the attention-forward kernels K8 and K9.
+the dispatcher, the attention-forward kernels K8 and K9, the flash
+backward K10 and K11 and the paged-attention kernel K12.
 
 Operands are (B, H, T, D) queries and (B, Hk, Tk, D) keys and values; K/V
 may carry fewer heads (GQA/MQA, H % Hk == 0), KV head ``j`` serving query
@@ -21,8 +22,16 @@ The kernels (``csrc/attention.cu``):
   over key blocks with a running max, sum and accumulator in f32, causal
   blocks in the future and blocks whose keys are all padded skipped,
   ``p = 0`` where ``s <= NEG_INF/2``, ``o = acc / max(l, 1e-20)`` so a row
-  with every key padded gives 0.  Its plain version is
+  with every key padded gives 0.  On the training path it also writes the
+  row logsumexp ``m + log(l)`` (``with_lse``).  Its plain version is
   :func:`attention_stream_plain`.
+* K10 (:func:`attention_stream_bwd_dq`) and K11
+  (:func:`attention_stream_bwd_dkv`, ``csrc/flash_attention_bwd.cu``)
+  replace ``_bwd_dq_kernel`` (``:363``) and ``_bwd_dkv_kernel`` (``:415``),
+  the flash backward of ``_flash_streaming_bwd``: ``p = exp(s - lse)``
+  recomputed per block from K9's saved logsumexp, dQ summed over key
+  blocks, dK and dV over query blocks of every query head of the GQA
+  group.  Their plain version is :func:`flash_bwd_plain`.
 
 * K12 (:func:`paged_attention`) replaces ``_paged_kernel``
   (``:782``, wrapper ``:813``): masked attention of decode or prefill
@@ -35,16 +44,18 @@ The kernels (``csrc/attention.cu``):
   cache dtype.  The arithmetic after the gather, :func:`decode_attention`,
   is also the decode path of ``nn/attention.py``.
 
-K8 and K9 hold no (T, T) score matrix in global memory.  A CPU tensor
-takes the plain version, which autograd differentiates.  On a CUDA tensor
-K8 runs inside an autograd function whose backward is the reference's
-(``_fused_attention_bwd``: autograd of the chunked plain form, recomputed,
-no kernel); K9's backward raises until the flash backward kernels (K10,
-K11) come with the TransformerLM training slice; K12 has no backward, as
-the reference's has none.  K8 and K9 are built for head dims
-``HEAD_DIMS``; another head dim up to 128 is zero-padded to the next of
-them, which is exact for q·kᵀ and for p·v once the output is sliced back.
-Each wrapper counts its launches in ``<wrapper>.launches``.
+None of them holds a (T, T) score matrix in global memory.  A CPU tensor
+takes the plain version.  On a CUDA tensor K8 runs inside an autograd
+function whose backward is the reference's (``_fused_attention_bwd``:
+autograd of the chunked plain form, recomputed, no kernel); a CPU K8 call
+is autograd of its plain version.  K9 runs inside the reference's custom
+VJP (``_streaming_attention``) on either device: its forward writes the
+logsumexp only when autograd will need it, and its backward runs K10 and
+K11, or ``flash_bwd_plain`` on CPU tensors.  K12 has no backward, as the
+reference's has none.  K8-K11 are built for head dims ``HEAD_DIMS``;
+another head dim up to 128 is zero-padded to the next of them, which is
+exact for every product once the outputs are sliced back.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
 
 The plain versions of K8 and K9 compute in float32 whatever the input
 dtype (as the kernels do: bf16 products are exact in f32) and round once
@@ -114,12 +125,16 @@ def attention_reference(q, k, v, causal=False, scale=None, mask=None):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def attention_stream_plain(q, k, v, causal=False, scale=None, bias=None):
+def attention_stream_plain(q, k, v, causal=False, scale=None, bias=None,
+                           with_lse=False):
     """K9's plain version: the online softmax over key blocks of
     ``BLOCK_K`` with K9's masking, in f32.  ``bias``: optional (B, Tk)
     additive key-padding row (0 valid, ``NEG_INF`` padded).  The kernel's
     block skips are left out: a skipped block's update is the identity
-    (``p = 0`` and ``alpha = 1``)."""
+    (``p = 0`` and ``alpha = 1``).  With ``with_lse`` it also returns the
+    row logsumexp ``m + log(max(l, 1e-20))``, (B, H, T) float32, which the
+    flash backward reads (``_stream_kernel``'s ``with_lse``; the reference
+    stores it over ``LSE_W`` lanes, the port once per row)."""
     scale_ = _scale(q.shape[-1], scale)
     k, v = expand_kv_heads(q, k, v)
     b, h, t, d = q.shape
@@ -144,7 +159,58 @@ def attention_stream_plain(q, k, v, causal=False, scale=None, bias=None):
         acc = acc * alpha + torch.matmul(
             p, v[:, :, k0:k0 + BLOCK_K].float())
         m = m_new
-    return (acc / l.clamp_min(1e-20)).to(q.dtype)
+    l = l.clamp_min(1e-20)
+    o = (acc / l).to(q.dtype)
+    if with_lse:
+        return o, (m + torch.log(l))[..., 0]
+    return o
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
+                    bias=None):
+    """The flash backward's plain version (``_flash_streaming_bwd``, K10
+    and K11): dQ, dK and dV of K9's attention from its output ``o`` and
+    row logsumexp ``lse`` (B, H, T), key block by key block of
+    ``BLOCK_K``, ``p = exp(s - lse)`` recomputed per block (0 where
+    ``s <= NEG_INF/2``, so a row with every key padded gives nothing),
+    ``delta = rowsum(dO·O)``, ``ds = p·(dO·vᵀ - delta)·scale``.  It
+    rounds where the reference rounds: ``ds`` to q's dtype before ``ds·k``
+    and ``dsᵀ·q``, ``p`` to dO's (q's) dtype before ``pᵀ·dO``; every
+    product accumulates in f32.  dK and dV sum over the query heads that share a
+    KV head (GQA).  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    scale_ = _scale(q.shape[-1], scale)
+    b, h, t, d = q.shape
+    hk, tk = k.shape[1], k.shape[2]
+    group = h // hk
+    do = do.to(q.dtype)
+    ke, ve = expand_kv_heads(q, k, v)
+    qf, dof = q.float(), do.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    lse = lse.float()[..., None]
+    q_pos = torch.arange(t, device=q.device)[:, None]
+    dq = torch.zeros((b, h, t, d), device=q.device)
+    dks, dvs = [], []
+    for k0 in range(0, tk, BLOCK_K):
+        kb = ke[:, :, k0:k0 + BLOCK_K].float()
+        vb = ve[:, :, k0:k0 + BLOCK_K].float()
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale_
+        if causal:
+            k_pos = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+            s = torch.where(q_pos >= k_pos[None, :], s, NEG_INF)
+        if bias is not None:
+            s = s + bias[:, None, None, k0:k0 + BLOCK_K]
+        p = torch.where(s > NEG_INF / 2, torch.exp(s - lse), 0.0)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = (p * (dp - delta) * scale_).to(q.dtype).float()
+        dq = dq + torch.matmul(ds, kb)
+        dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+        dk = torch.matmul(ds.transpose(-1, -2), qf)
+        n = kb.shape[2]
+        dks.append(dk.reshape(b, hk, group, n, d).sum(dim=2))
+        dvs.append(dv.reshape(b, hk, group, n, d).sum(dim=2))
+    empty = torch.zeros((b, hk, 0, d), device=q.device)
+    return (dq.to(q.dtype), torch.cat(dks or [empty], dim=2).to(k.dtype),
+            torch.cat(dvs or [empty], dim=2).to(v.dtype))
 
 
 def _chunked_attention_reference(q, k, v, causal, scale, block_q=256,
@@ -240,30 +306,47 @@ def _kernel_head_dim(name: str, d: int) -> int:
                      f"(its K/V tiles in static shared memory), got {d}")
 
 
-def _launch(wrapper, entry, q, k, v, bias, causal, scale):
+def _pad_head(d: int, kd: int, *tensors):
+    """Tensors zero-padded from head dim ``d`` to ``kd`` (none when equal)
+    and made kernel operands."""
+    if kd != d:
+        tensors = [F.pad(x, (0, kd - d)) for x in tensors]
+    return [_kernel_operand(x) for x in tensors]
+
+
+def _rows_check(name: str, rows: int) -> None:
+    if rows > 65535:
+        raise ValueError(f"{name} kernel takes at most 65535 (batch, head) "
+                         f"rows, got {rows}")
+
+
+def _launch(wrapper, entry, q, k, v, bias, causal, scale, with_lse=False):
+    """One K8 or K9 launch; K9 with ``with_lse`` also writes the (B, H, T)
+    float32 row logsumexp, returned beside ``o``."""
     b, h, t, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     name = wrapper.__name__
     kd = _kernel_head_dim(name, d)
-    if b * h > 65535:
-        raise ValueError(f"{name} kernel takes at most 65535 (batch, head) "
-                         f"rows, got {b * h}")
-    if kd != d:
-        # zero columns add 0 to every q·k and give 0 output columns
-        q, k, v = (F.pad(x, (0, kd - d)) for x in (q, k, v))
-    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    _rows_check(name, b * h)
+    q, k, v = _pad_head(d, kd, q, k, v)
     o = torch.empty_like(q)
-    if t == 0:
-        return o[..., :d]
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-    if entry == "bigdl_attention_stream_fwd":
-        args.append(0 if bias is None else _kernel_operand(bias).data_ptr())
-    rc = getattr(_build.load(), entry)(
-        *args, o.data_ptr(), _build.DTYPE_CODES[q.dtype], b * h, h, hk, t,
-        tk, kd, scale, int(bool(causal)), _build.stream_ptr(q))
-    _build.check(rc, name)
-    wrapper.launches += 1
-    return o if kd == d else o[..., :d].contiguous()
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if t:
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+        if entry == "bigdl_attention_stream_fwd":
+            args.append(0 if bias is None else
+                        _kernel_operand(bias).data_ptr())
+        args.append(o.data_ptr())
+        if entry == "bigdl_attention_stream_fwd":
+            args.append(0 if lse is None else lse.data_ptr())
+        rc = getattr(_build.load(), entry)(
+            *args, _build.DTYPE_CODES[q.dtype], b * h, h, hk, t, tk, kd,
+            scale, int(bool(causal)), _build.stream_ptr(q))
+        _build.check(rc, name)
+        wrapper.launches += 1
+    o = o if kd == d else o[..., :d].contiguous()
+    return (o, lse) if with_lse else o
 
 
 class _K8(torch.autograd.Function):
@@ -288,21 +371,39 @@ class _K8(torch.autograd.Function):
 
 
 class _K9(torch.autograd.Function):
-    """K9 with autograd history whose backward raises: a bare launch would
-    give an output with no history, and so a silently missing
-    gradient."""
+    """The reference's ``_streaming_attention`` custom VJP: K9 forward,
+    writing its row logsumexp only when autograd will need it (as K1/K2
+    write their index/scale), and the flash backward, K10 (dQ) and K11
+    (dK, dV), from the saved ``q, k, v, bias, o, lse``.  The key-padding
+    bias gets no gradient (the reference defines it as zero).  On CPU
+    tensors the same function runs the plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale):
-        return _launch(attention_stream_fwd, "bigdl_attention_stream_fwd", q,
-                       k, v, bias, causal, scale)
+        need = any(ctx.needs_input_grad[:3])
+        if q.device.type == "cpu":
+            out = attention_stream_plain(q, k, v, causal, scale, bias,
+                                         with_lse=need)
+        else:
+            out = _launch(attention_stream_fwd, "bigdl_attention_stream_fwd",
+                          q, k, v, bias, causal, scale, with_lse=need)
+        if not need:
+            return out
+        o, lse = out
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the backward of the streaming attention kernel K9 is the "
-            "flash backward (K10, K11), which comes with the TransformerLM "
-            "training slice of bigdl_tpu_torch")
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        args = (q, k, v, o, lse, do, ctx.causal, ctx.scale, bias)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_bwd_plain(*args)
+        else:
+            dq = attention_stream_bwd_dq(*args)
+            dk, dv = attention_stream_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None
 
 
 def attention_fwd(q, k, v, causal=False, scale=None):
@@ -317,12 +418,80 @@ def attention_fwd(q, k, v, causal=False, scale=None):
 
 def attention_stream_fwd(q, k, v, causal=False, scale=None, bias=None):
     """K9: online-softmax attention over key blocks, with an optional
-    (B, Tk) float32 additive key-padding ``bias``."""
+    (B, Tk) float32 additive key-padding ``bias``; differentiable through
+    the flash backward (K10, K11)."""
     _check_operands("attention_stream_fwd", q, k, v, bias)
+    return _K9.apply(q, k, v, bias, bool(causal), _scale(q.shape[-1], scale))
+
+
+def _check_bwd(what, q, k, v, o, lse, do, bias):
+    _check_operands(what, q, k, v, bias)
+    b, h, t, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"{what}: o and do must be shaped like q "
+                         f"{tuple(q.shape)} (o in q's dtype), got "
+                         f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)}")
+    if tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError(f"{what}: lse must be (B, H, T) = {(b, h, t)} "
+                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
+    if any(x.device != q.device for x in (o, lse, do)):
+        raise ValueError(f"{what}: operands on different devices")
+
+
+def _launch_bwd(wrapper, entry, q, k, v, o, lse, do, causal, scale, bias):
+    """One K10 or K11 launch: head dims padded as K8/K9 pad them (zero
+    columns of q, k, v, o and dO add nothing to any score, ``delta`` or
+    product, and give zero gradient columns, sliced away)."""
+    b, h, t, d = q.shape
+    hk, tk = k.shape[1], k.shape[2]
+    name = wrapper.__name__
+    kd = _kernel_head_dim(name, d)
+    _rows_check(name, b * h)
+    q, k, v, o, do = _pad_head(d, kd, q, k, v, o, do.to(q.dtype))
+    lse = _kernel_operand(lse)
+    bias_ptr = 0 if bias is None else _kernel_operand(bias).data_ptr()
+    if entry == "bigdl_flash_bwd_dq":
+        outs = [torch.empty_like(q)]
+    else:
+        outs = [torch.empty_like(k), torch.empty_like(v)]
+    if t * tk == 0:   # nothing to attend: the gradients are zero
+        outs = [x.zero_() for x in outs]
+    else:
+        rc = getattr(_build.load(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), bias_ptr,
+            *(x.data_ptr() for x in outs), _build.DTYPE_CODES[q.dtype],
+            b, h, hk, t, tk, kd, scale, int(bool(causal)),
+            _build.stream_ptr(q))
+        _build.check(rc, name)
+        wrapper.launches += 1
+    if kd != d:
+        outs = [x[..., :d].contiguous() for x in outs]
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def attention_stream_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
+                            bias=None):
+    """K10: dQ of K9's attention (``_bwd_dq_kernel``), from its output
+    ``o`` and row logsumexp ``lse`` (B, H, T) float32; dQ in q's dtype."""
+    _check_bwd("attention_stream_bwd_dq", q, k, v, o, lse, do, bias)
     scale_ = _scale(q.shape[-1], scale)
     if q.device.type == "cpu":
-        return attention_stream_plain(q, k, v, causal, scale_, bias)
-    return _K9.apply(q, k, v, bias, bool(causal), scale_)
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale_, bias)[0]
+    return _launch_bwd(attention_stream_bwd_dq, "bigdl_flash_bwd_dq", q, k,
+                       v, o, lse, do, causal, scale_, bias)
+
+
+def attention_stream_bwd_dkv(q, k, v, o, lse, do, causal=False, scale=None,
+                             bias=None):
+    """K11: dK and dV of K9's attention (``_bwd_dkv_kernel``), each summed
+    over the query heads that share its KV head; in k's and v's dtype."""
+    _check_bwd("attention_stream_bwd_dkv", q, k, v, o, lse, do, bias)
+    scale_ = _scale(q.shape[-1], scale)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale_, bias)[1:]
+    return _launch_bwd(attention_stream_bwd_dkv, "bigdl_flash_bwd_dkv", q, k,
+                       v, o, lse, do, causal, scale_, bias)
 
 
 # -- paged attention (K12) ----------------------------------------------------
@@ -468,7 +637,8 @@ def paged_attention(q, k_pool, v_pool, pages, positions, scale):
     return o
 
 
-for _fn in (attention_fwd, attention_stream_fwd, paged_attention):
+for _fn in (attention_fwd, attention_stream_fwd, attention_stream_bwd_dq,
+            attention_stream_bwd_dkv, paged_attention):
     _fn.launches = 0
 
 

@@ -1,12 +1,14 @@
-"""Training of the port: the local trainer, SGD and its schedules,
+"""Training of the port: the local trainer, SGD, Adam and the schedules,
 triggers and validation methods (``bigdl_tpu/optim``)."""
 
 from bigdl_tpu_torch.optim.local_optimizer import (SKIPPED_STEPS,
                                                    LocalOptimizer,
                                                    LocalValidator, Validator)
-from bigdl_tpu_torch.optim.optim_method import (SGD, Default, EpochStep,
+from bigdl_tpu_torch.optim.optim_method import (SGD, Adam, Default,
+                                                EpochStep,
                                                 LearningRateSchedule,
-                                                OptimMethod, Poly, Step)
+                                                OptimMethod, Poly, Step,
+                                                Warmup)
 from bigdl_tpu_torch.optim.optimizer import Optimizer
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
@@ -14,8 +16,8 @@ from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
                                               Top5Accuracy, ValidationMethod,
                                               ValidationResult)
 
-__all__ = ["AccuracyResult", "Default", "EpochStep", "LearningRateSchedule",
+__all__ = ["AccuracyResult", "Adam", "Default", "EpochStep", "LearningRateSchedule",
            "LocalOptimizer", "LocalValidator", "Loss", "LossResult",
            "OptimMethod", "Optimizer", "Poly", "SGD", "SKIPPED_STEPS", "Step",
            "Top1Accuracy", "Top5Accuracy", "Trigger", "ValidationMethod",
-           "ValidationResult", "Validator"]
+           "ValidationResult", "Validator", "Warmup"]

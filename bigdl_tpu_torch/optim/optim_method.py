@@ -1,7 +1,8 @@
-"""Optimization methods (``bigdl_tpu/optim/optim_method.py``): SGD and the
-learning-rate schedules.
+"""Optimization methods (``bigdl_tpu/optim/optim_method.py``): SGD, Adam and
+the learning-rate schedules, Warmup among them.
 
-Parity: ``optim/SGD.scala:26-209``.  ``clr`` is the NEGATIVE current rate
+Parity: ``optim/SGD.scala:26-209``; Adam and Warmup have no Scala
+counterpart and follow the JAX package.  ``clr`` is the NEGATIVE current rate
 (``w + clr * g``), evaluated on the host by the schedule and handed to the
 update in ``config["clr"]``; without it the update applies the ``Default``
 schedule on the step counter.  ``torch.optim.SGD`` is not used: its sign
@@ -90,6 +91,27 @@ class EpochStep(LearningRateSchedule):
         return -lr * self.gamma ** ((epoch - 1) // self.step_size)
 
 
+class Warmup(LearningRateSchedule):
+    """Linear warmup: clr = -lr * (iter + 1) / warmup_iterations for the
+    first ``warmup_iterations`` iterations (``evalCounter``, 0-based), then
+    -lr.  The reference's ``after`` (a schedule taking over at the end of
+    the ramp) comes with the other schedules of the optim-methods slice."""
+
+    def __init__(self, warmup_iterations: int, after=None):
+        if after is not None:
+            raise NotImplementedError(
+                "Warmup(after=...) comes with the optim-methods slice of the "
+                "port (EpochDecay, EpochSchedule, Cosine)")
+        self.warmup_iterations = warmup_iterations
+
+    def current_rate(self, config, state):
+        lr = config.get("learningRate", 1e-3)
+        it = state.get("evalCounter", 0)
+        if it < self.warmup_iterations:
+            return -lr * (it + 1) / self.warmup_iterations
+        return -lr
+
+
 class SGD(OptimMethod):
 
     def __init__(self, learning_rate: float = 1e-3,
@@ -149,3 +171,45 @@ class SGD(OptimMethod):
             eff = grads
         new_params = [w + clr * g for w, g in zip(params, eff)]
         return new_params, {"velocity": vel}
+
+
+class Adam(OptimMethod):
+    """Adam with bias correction (Kingma & Ba), ``weight_decay`` added to
+    the gradient (L2, not decoupled), ``eps`` outside the bias-corrected
+    square root; the rate comes from ``learning_rate_schedule`` through
+    ``config["clr"]`` as SGD's does."""
+
+    def __init__(self, learning_rate: float = 1e-3, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: float = 0.0,
+                 learning_rate_schedule: Optional[LearningRateSchedule]
+                 = None):
+        self.defaults = T(learningRate=learning_rate, beta1=beta1,
+                          beta2=beta2, epsilon=epsilon,
+                          weightDecay=weight_decay)
+        self.schedule = learning_rate_schedule or Default()
+
+    def init_state(self, params):
+        return {"m": [torch.zeros_like(p) for p in params],
+                "v": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def update(self, grads, params, opt_state, config: Table, step: int):
+        c = self.defaults.clone()
+        if config:
+            c.update_(config)
+        b1, b2 = c.get("beta1", 0.9), c.get("beta2", 0.999)
+        eps = c.get("epsilon", 1e-8)
+        wd = c.get("weightDecay", 0.0)
+        clr = c.get("clr", None)
+        lr = -clr if clr is not None else c.get("learningRate", 1e-3)
+        if wd > 0:
+            grads = [g + wd * w for g, w in zip(grads, params)]
+        m = [b1 * mm + (1 - b1) * g for mm, g in zip(opt_state["m"], grads)]
+        v = [b2 * vv + (1 - b2) * g * g
+             for vv, g in zip(opt_state["v"], grads)]
+        t = float(step + 1)
+        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        new_params = [w - (lr / bc1) * mm / (torch.sqrt(vv / bc2) + eps)
+                      for w, mm, vv in zip(params, m, v)]
+        return new_params, {"m": m, "v": v}

@@ -64,6 +64,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
    S 2/3/17, an inactive all-trash row, integer q/k with |s| ~ 30 where
    the scores' bf16 rounding shows), in float32 and bfloat16, and f32
    queries over a bf16 cache; the same tolerances as 2d;
+2f. the flash backward: K9 with its row logsumexp, K10 (dQ) and K11 (dK,
+   dV) against their plain versions at the training paths' shapes ((1, 8,
+   8192, 64) causal bf16, the long-context run; (8, 8, 4096, 64) causal
+   f32, ``train_main``'s) and at ragged ones (T 520 and 1000, GQA 8/2 and
+   8/1, Tq != Tk, a padded bias with a row whose every key is padded, head
+   dims 16/32/128 and 48/80/96) in float32 and bfloat16: o as in 2d, lse
+   within 1e-5 of max(1, |lse|), each gradient within 1e-4 (f32) or two
+   bfloat16 steps (bf16) of its largest magnitude, zero gradients where
+   every key is padded; K11 bit-equal over two launches; and two autograd
+   round trips through ``fused_attention`` (T 2112 past the K/V budget, and
+   a key-padding mask) against autograd of the chunked plain form, with one
+   K9, one K10 and one K11 launch each;
 3e. LM scoring: the full-width ``TransformerLM`` of ``bench_infer.py``
    (vocab 32000, embed 512, 8 heads, 8 layers, T 2048) with seeded random
    weights cast to bf16, scored by ``LocalValidator`` with
@@ -96,6 +108,19 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the bf16 model over the default f32 cache; an f32 copy serving 8
    requests x 32 tokens equal to ``generate`` and to
    ``paged_kernel=False``, request by request;
+3h. long-context training: ``models/perf.py`` ``longcontext_perf_main`` at
+   its defaults (T 8192, 8 layers, embed 512, 8 heads, vocab 8192, remat,
+   bf16 mixed precision, SGD 0.1, one warm-up and 5 timed steps): finite
+   losses, the last below the first, and exactly 16 K9 (8 forward, 8
+   recomputed), 8 K10 and 8 K11 a step and no other kernel; one step pair
+   with ``--no-remat`` (8 K9 a step); a profile of the default run; one f32
+   step of the same model cut to 2 layers on the card and on the CPU (loss
+   within 1e-4, every gradient within 1e-4 of its largest magnitude);
+3i. ``models/transformer.py`` ``train_main`` at the long-context widths
+   (``--vocab 8000 --embed 512 --heads 8 --layers 8 --maxLen 4096 -b 8 -e
+   1``, f32) on a corpus written here (40 lines of about 4200 Zipf-drawn
+   words over 12 000 types): 4 steps and one validation, finite losses, 8
+   K9 + 8 K10 + 8 K11 a step and 8 K9 for the validation forward;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -113,7 +138,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    SDPA on the pre-gathered view, the continuous run's new tokens/s,
    request latency p50 and max, slot occupancy, chunks and prefix hit rate
    with a profiler breakdown of the same traffic, and the same requests
-   through ``generate`` in static waves of 8.
+   through ``generate`` in static waves of 8; K9 with and without its LSE,
+   K10 and K11 per call at both training shapes beside their bounds
+   (6·D and 8·D FLOPs per unmasked pair and head), their plain versions
+   and SDPA's backward (forward + backward less forward), the long-context
+   step and tokens/s with a profiler breakdown, and ``train_main``'s step.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -276,6 +305,58 @@ PAGED_RAGGED = [
      False),
     ("large scores, |s| ~ 30", 2, 8, 8, 4, 64, 16, 16, [200, 77], True),
 ]
+# the flash backward (phase 2f): K9 with its LSE, K10 and K11 against their
+# plain versions at the training paths' shapes, each in its dtype (the
+# long-context run in bf16, train_main's in f32), and at ragged ones in
+# both; (name, b, h, hk, t, tk, d, causal, padded lengths or None).  o as in
+# 2d; lse within FLASH_LSE_RTOL of max(1, |lse|); dq, dk, dv (from the same
+# o, lse and a seeded dO) within FLASH_F32_RTOL (f32) or FLASH_BF16_STEPS
+# bf16 steps (bf16) of each gradient's largest magnitude: the sums run in
+# another order, and in bf16 ds and p are rounded where the reference
+# rounds them, so one of them can land a step apart
+FLASH_PATH = [
+    ("long context, bf16", 1, LM_HEADS, LM_HEADS, LONG_T, LONG_T, 64, True,
+     None, "bfloat16"),
+    ("train_main, f32", 8, LM_HEADS, LM_HEADS, 4096, 4096, 64, True, None,
+     "float32"),
+]
+FLASH_RAGGED = [
+    ("T 520", 2, 8, 8, 520, 520, 64, True, None),
+    ("T 1000, GQA 8/2", 1, 8, 2, 1000, 1000, 64, True, None),
+    ("MQA 8/1, T 200", 2, 8, 1, 200, 200, 64, True, None),
+    ("Tq < Tk (70 x 200), d 32", 1, 4, 4, 70, 200, 32, True, None),
+    ("Tq > Tk (130 x 40), non-causal, d 16", 2, 4, 2, 130, 40, 16, False,
+     None),
+    ("padded, a row with every key padded, GQA 8/2", 3, 8, 2, 192, 192, 64,
+     True, [192, 0, 77]),
+    ("padded, non-causal, d 128", 2, 4, 4, 130, 130, 128, False, [130, 1]),
+    ("d 48 (padded to 64), GQA 8/2", 2, 8, 2, 100, 100, 48, True, None),
+    ("d 80 (padded to 128), padded keys", 2, 4, 4, 72, 72, 80, True,
+     [72, 30]),
+    ("d 96 (padded to 128), Tq < Tk, non-causal", 1, 4, 2, 33, 50, 96,
+     False, None),
+]
+FLASH_LSE_RTOL = 1e-5
+FLASH_F32_RTOL = 1e-4
+FLASH_BF16_STEPS = 2
+# one autograd round trip through fused_attention (K9 + K10 + K11) against
+# autograd of _chunked_attention_reference on the card, f32: (b, h, hk, t,
+# d, padded lengths or None); T 2112 at d 64 is past the 512 KB K/V budget
+FLASH_AUTOGRAD = [(1, 8, 2, 2112, 64, None), (2, 4, 4, 520, 64, [520, 300])]
+# phase 3h: bigdl_tpu/models/perf.py longcontext_perf_main's defaults (T
+# 8192, 8 layers, embed 512, 8 heads, vocab 8192, remat, bf16, SGD 0.1, 5
+# timed steps after one warm-up); card vs CPU on one f32 step of the same
+# model cut to 2 layers: the loss within LONG_LOSS_ATOL, every gradient
+# within LONG_GRAD_RTOL of its largest magnitude (f32 sums in another order
+# over 8192 positions)
+LONG_ITERS, LONG_CPU_LAYERS = 5, 2
+LONG_LOSS_ATOL, LONG_GRAD_RTOL = 1e-4, 1e-4
+# phase 3i: bigdl_tpu/models/transformer.py train_main at the long-context
+# widths, f32, on a corpus written here: TM_LINES lines of about TM_WORDS
+# Zipf-drawn words over TM_TYPES types (32 train, 8 validation sentences)
+TM_LINES, TM_WORDS, TM_TYPES, TM_BATCH, TM_STEPS = 40, 4200, 12000, 8, 4
+TM_FLAGS = ["--vocab", "8000", "--embed", "512", "--heads", "8", "--layers",
+            "8", "--maxLen", "4096", "-b", str(TM_BATCH), "-e", "1"]
 TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
 TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
 CPU_BATCH, CPU_STEPS = 4, 2
@@ -790,6 +871,149 @@ def check_paged_kernel(device):
         f"bf16 cache {rel_bf16:.3g} (limit "
         f"{ATTN_BF16_STEPS * BF16_STEP:.4g})")
     return {name: err}, {name: cases}, {name: misses}
+
+
+# -- phase 2f: the flash backward against its plain version --------------------
+
+def flash_grads(case, dtype, device, seed):
+    """q, k, v, the bias, the plain forward's o and lse, and a seeded dO of
+    a phase-2f case."""
+    import torch
+    from bigdl_tpu_torch.ops import attention as attn
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, bias = attention_operands(case[:9], dtype, device, gen)
+    o, lse = attn.attention_stream_plain(q, k, v, case[7], None, bias,
+                                         with_lse=True)
+    do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+    return q, k, v, bias, o, lse, do
+
+
+def check_flash_kernels(device):
+    """Hold K9 with its LSE, K10 and K11 against their plain versions at
+    FLASH_PATH (each in its dtype) and FLASH_RAGGED (f32 and bf16): o, lse,
+    and dq, dk, dv from the plain forward's o and lse; rows and KV heads
+    with every key padded must get zero gradients.  Then K11 twice on the
+    same inputs, bit-equal, and the autograd round trips of
+    FLASH_AUTOGRAD.  Returns per-kernel errors (f32 cases), cases and
+    mismatches as :func:`check_kernels` does."""
+    import torch
+    from bigdl_tpu_torch.ops import attention as attn
+    names = ("attention_stream_fwd", "attention_stream_bwd_dq",
+             "attention_stream_bwd_dkv")
+    errs = {k: 0.0 for k in names}
+    rels = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
+    cases = {k: 0 for k in names}
+    misses = {k: 0 for k in names}
+    runs = [(c, c[9]) for c in FLASH_PATH] + \
+        [(c + (dt,), dt) for c in FLASH_RAGGED
+         for dt in ("float32", "bfloat16")]
+    for i, (case, dt) in enumerate(runs):
+        dtype = getattr(torch, dt)
+        causal, lengths = case[7], case[8]
+        q, k, v, bias, o, lse, do = flash_grads(case, dtype, device,
+                                                SEED + 200 + i)
+        got_o, got_lse = attn._launch(
+            attn.attention_stream_fwd, "bigdl_attention_stream_fwd", q, k,
+            v, bias, causal, case[6] ** -0.5, with_lse=True)
+        torch.cuda.synchronize()
+        mag = attn.attention_stream_plain(q.float(), k.float(),
+                                          v.float().abs(), causal, None, bias)
+        err = (got_o.float() - o.float()).abs()
+        rel_o = (err / mag.clamp_min(1e-30)).max().item()
+        tol = (ATTN_F32_RTOL if dt == "float32" else
+               ATTN_BF16_STEPS * BF16_STEP) * mag
+        lse_err = ((got_lse - lse).abs() /
+                   lse.abs().clamp_min(1.0)).max().item()
+        ok = bool((err <= tol).all()) and lse_err <= FLASH_LSE_RTOL and \
+            bool(torch.isfinite(got_o).all())
+        checks = [("attention_stream_fwd", ok, max(rel_o, lse_err),
+                   err.max().item())]
+        dq = attn.attention_stream_bwd_dq(q, k, v, o, lse, do, causal, None,
+                                          bias)
+        dk, dv = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, causal,
+                                               None, bias)
+        torch.cuda.synchronize()
+        want = attn.flash_bwd_plain(q, k, v, o, lse, do, causal, None, bias)
+        for name, got, w in (("attention_stream_bwd_dq", [dq], want[:1]),
+                             ("attention_stream_bwd_dkv", [dk, dv],
+                              want[1:])):
+            rel, aerr, ok = 0.0, 0.0, True
+            for a, b in zip(got, w):
+                top = b.float().abs().max().item()
+                e = (a.float() - b.float()).abs().max().item()
+                limit = (FLASH_F32_RTOL if dt == "float32" else
+                         FLASH_BF16_STEPS * BF16_STEP) * top
+                ok = ok and e <= limit and bool(torch.isfinite(a).all()) \
+                    and a.shape == b.shape and a.dtype == b.dtype
+                rel, aerr = max(rel, e / max(top, 1e-30)), max(aerr, e)
+            if lengths is not None and 0 in lengths:
+                row = lengths.index(0)
+                ok = ok and not any(x[row].float().abs().any() for x in got)
+            checks.append((name, ok, rel, aerr))
+        for name, ok, rel, aerr in checks:
+            cases[name] += 1
+            rels[name][dt] = max(rels[name][dt], rel)
+            if dt == "float32":
+                errs[name] = max(errs[name], aerr)
+            if not ok:
+                misses[name] += 1
+                fail(f"{name} {case[0]} {dt}: max |err| {aerr:.3g}, "
+                     f"relative {rel:.3g} beyond tolerance")
+        del q, k, v, o, lse, do, dq, dk, dv, want, mag
+    # K11 runs no atomics: two launches on the same inputs are bit-equal
+    for case in (FLASH_PATH[0], FLASH_RAGGED[5] + ("bfloat16",)):
+        q, k, v, bias, o, lse, do = flash_grads(
+            case, getattr(torch, case[9]), device, SEED + 300)
+        a = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, case[7], None,
+                                          bias)
+        b = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, case[7], None,
+                                          bias)
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"attention_stream_bwd_dkv {case[0]}: two launches differ")
+        del q, k, v, o, lse, do, a, b
+    # autograd through the dispatcher against autograd of the chunked form
+    gen = torch.Generator(device=device).manual_seed(SEED + 310)
+    for b, h, hk, t, d, lengths in FLASH_AUTOGRAD:
+        q, k, v, bias = attention_operands(
+            ("autograd", b, h, hk, t, t, d, True, lengths), torch.float32,
+            device, gen)
+        do = torch.randn(q.shape, generator=gen, device=device)
+        kpm = None if bias is None else bias > -1.0
+        ours = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = launches_now()
+        attn.fused_attention(*ours, causal=True,
+                             key_padding_mask=kpm).backward(do)
+        after = launches_now()
+        ref = [x.clone().requires_grad_() for x in (q, k, v)]
+        attn._chunked_attention_reference(*ref, True, d ** -0.5,
+                                          bias=bias).backward(do)
+        torch.cuda.synchronize()
+        ran = {n: after[n] - before[n] for n in names}
+        if ran != {n: 1 for n in names}:
+            fail(f"fused_attention autograd at T {t}: launches {ran}, want "
+                 "one K9, one K10 and one K11")
+        for x, r in zip(ours, ref):
+            top = r.grad.abs().max().item()
+            e = (x.grad - r.grad).abs().max().item()
+            if not e <= FLASH_F32_RTOL * top:
+                fail(f"fused_attention autograd at T {t}: max |err| {e:.3g} "
+                     f"beyond {FLASH_F32_RTOL} of {top:.3g}")
+        del q, k, v, do, ours, ref
+    log("flash backward vs plain: " + "; ".join(
+        f"{k} {cases[k]} cases, max |err| relative f32 "
+        f"{rels[k]['float32']:.3g} bf16 {rels[k]['bfloat16']:.3g} (limits: o "
+        f"{ATTN_F32_RTOL} / {ATTN_BF16_STEPS * BF16_STEP:.4g} of sum |p·v|, "
+        f"lse {FLASH_LSE_RTOL}, gradients {FLASH_F32_RTOL} / "
+        f"{FLASH_BF16_STEPS * BF16_STEP:.4g} of their largest magnitude)"
+        for k in names) + "; K11 bit-equal over two launches; "
+        f"{len(FLASH_AUTOGRAD)} autograd round trips held")
+    return ({f"{k}_lse" if k == "attention_stream_fwd" else k: v
+             for k, v in errs.items()},
+            {f"{k}_lse" if k == "attention_stream_fwd" else k: v
+             for k, v in cases.items()},
+            {f"{k}_lse" if k == "attention_stream_fwd" else k: v
+             for k, v in misses.items()})
 
 
 # -- phase 3: serving ---------------------------------------------------------
@@ -1530,6 +1754,190 @@ def drive_continuous(gen, prompts, budgets):
             "latency_max_ms": 1e3 * lats[-1]}
 
 
+# -- phase 3h/3i: TransformerLM training --------------------------------------
+
+class LogArgs:
+    """Collects the arguments of one logger's records whose message starts
+    with ``prefix`` (the harness's and the trainer's unrounded numbers)."""
+
+    def __init__(self, name, prefix):
+        import logging
+        self.args = []
+        self.log = logging.getLogger(name)
+        outer = self
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                if str(record.msg).startswith(prefix):
+                    outer.args.append(record.args)
+
+        self.handler = Grab(logging.INFO)
+
+    def __enter__(self):
+        import logging
+        self.level = self.log.level
+        self.log.addHandler(self.handler)
+        self.log.setLevel(logging.INFO)
+        return self.args
+
+    def __exit__(self, *exc):
+        self.log.removeHandler(self.handler)
+        self.log.setLevel(self.level)
+
+
+def expect_launches(what, counts, want):
+    """Fail unless every wrapper's count is ``want``'s (0 where absent)."""
+    from bigdl_tpu_torch import ops
+    full = {fn.__name__: want.get(fn.__name__, 0)
+            for fn in ops.KERNEL_WRAPPERS}
+    if counts != full:
+        fail(f"{what}: launches {counts}, want {full}")
+
+
+def long_context_training(device):
+    """Phase 3h: ``longcontext_perf_main`` at its defaults (1 warm-up and
+    LONG_ITERS timed steps at T 8192, 8 layers, remat, bf16, SGD 0.1): finite
+    losses falling, 16 K9 + 8 K10 + 8 K11 a step and no other kernel; one
+    step pair with ``--no-remat`` (8 K9 a step); a profile of the default
+    run; then one f32 step at full width and T but LONG_CPU_LAYERS layers on
+    the card and on the CPU."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import perf
+    report, by_path = {}, {}
+    for key, argv, k9 in (("remat", [], 16), ("no_remat", ["--no-remat",
+                                                            "-i", "1"], 8)):
+        steps = 1 + (LONG_ITERS if not argv else 1)
+        with LogArgs("bigdl_tpu_torch.models.perf", "T=") as rec:
+            ops.reset_launches()
+            toks = perf.longcontext_perf_main(argv, device=device)
+            counts = launches_now()
+        by_path["long_context" if key == "remat" else
+                "long_context_no_remat"] = counts
+        expect_launches(f"long context ({key})", counts,
+                        {"attention_stream_fwd": k9 * steps,
+                         "attention_stream_bwd_dq": 8 * steps,
+                         "attention_stream_bwd_dkv": 8 * steps})
+        t, layers, embed, remat, ms, tps, first, last = rec[-1]
+        if not (math.isfinite(first) and math.isfinite(last) and
+                last < first):
+            fail(f"long context ({key}): losses {first} -> {last}")
+        report[key] = {"ms_per_step": ms, "tokens_per_s": tps,
+                       "first_loss": first, "last_loss": last,
+                       "steps": steps, "returned_tokens_per_s": toks,
+                       "launches_per_step": {k: v // steps for k, v in
+                                             counts.items() if v}}
+    prof = device_profile(lambda: perf.longcontext_perf_main(
+        ["-i", str(LONG_ITERS)], device=device), 1 + LONG_ITERS)
+    prof["busy_share"] = (prof["device_ms"] - prof["htod_ms"]) / \
+        report["remat"]["ms_per_step"]
+    report["profile"] = prof
+    report["card_vs_cpu"] = long_context_vs_cpu(device)
+    return report, by_path
+
+
+def long_context_vs_cpu(device):
+    """One f32 step of the long-context model (T 8192, embed 512, 8 heads,
+    vocab 8192, remat) cut to LONG_CPU_LAYERS layers, on the card (K9, K10,
+    K11, TF32 off) and on the CPU (the plain versions) from the same seeded
+    weights and ids: the losses within LONG_LOSS_ATOL, every gradient within
+    LONG_GRAD_RTOL of its largest magnitude (the key bias's, zero but for
+    rounding, of its block's key weight gradient's)."""
+    import torch
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    ids_np = np.random.RandomState(0).randint(1, LONG_VOCAB + 1, (1, LONG_T))
+    tgt_np = np.roll(ids_np, -1, axis=1).astype(np.float32)
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        model = TransformerLM(LONG_VOCAB, max_len=LONG_T, embed_dim=LM_EMBED,
+                              num_heads=LM_HEADS, num_layers=LONG_CPU_LAYERS,
+                              remat=True).reset(SEED).to(dev).training_()
+        names = {id(p): n for n, p in model.named_parameters()}
+        params = list(model.param_leaves())
+        t0 = time.perf_counter()
+        loss = crit(model(torch.from_numpy(ids_np).to(dev)),
+                    torch.from_numpy(tgt_np).to(dev))
+        grads = torch.autograd.grad(loss, params)
+        out.append((loss.item(), {names[id(p)]: g.cpu()
+                                  for p, g in zip(params, grads)},
+                    time.perf_counter() - t0))
+        del model, params, loss, grads
+    (lc, gc, tc), (lh, gh, th) = out
+    # the key projection's bias gets no gradient in exact arithmetic (it
+    # adds one constant to a query row's scores, which the softmax drops):
+    # both sides give rounding noise, held against the same block's key
+    # weight gradient
+    worst = max((gc[n] - gh[n]).abs().max().item() / max(
+        gh[n[:-2] + "wk" if n.endswith("attn.bk") else n].abs().max().item(),
+        1e-30) for n in gh)
+    if abs(lc - lh) > LONG_LOSS_ATOL or worst > LONG_GRAD_RTOL:
+        fail(f"long context card vs CPU: loss {lc} vs {lh}, worst gradient "
+             f"{worst:.3g} of its largest magnitude (limits "
+             f"{LONG_LOSS_ATOL}, {LONG_GRAD_RTOL})")
+    log(f"long context card vs CPU (f32, {LONG_CPU_LAYERS} layers, T "
+        f"{LONG_T}): loss {lc:.7f} / {lh:.7f}, worst gradient "
+        f"{worst:.3g} of its largest magnitude over {len(gc)} tensors "
+        f"(limits {LONG_LOSS_ATOL}, {LONG_GRAD_RTOL}); CPU step {th:.1f} s")
+    return {"loss_card": lc, "loss_cpu": lh, "worst_grad_rel": worst,
+            "tensors": len(gc), "cpu_s": th}
+
+
+def write_corpus(folder):
+    """TM_LINES lines of about TM_WORDS words each, drawn from a seeded
+    Zipf law (exponent 1.1) over TM_TYPES word types, so that the
+    dictionary fills and discards."""
+    rng = np.random.RandomState(SEED + 400)
+    p = 1.0 / np.arange(1, TM_TYPES + 1) ** 1.1
+    with open(os.path.join(folder, "input.txt"), "w") as f:
+        for _ in range(TM_LINES):
+            n = TM_WORDS + int(rng.randint(-50, 51))
+            draw = rng.choice(TM_TYPES, size=n, p=p / p.sum())
+            f.write(" ".join(f"w{i}" for i in draw) + ".\n")
+
+
+def train_main_long(device):
+    """Phase 3i: ``train_main`` at the long-context widths (TM_FLAGS, f32)
+    on a corpus written here: finite losses, 8 K9 + 8 K10 + 8 K11 a step and
+    8 K9 per validation forward."""
+    import shutil
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import transformer
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_corpus")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    try:
+        write_corpus(folder)
+        with LogArgs("bigdl_tpu_torch.optim", "Epoch ") as steps, \
+                LogArgs("bigdl_tpu_torch.optim", "%s is %r") as vals:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            transformer.train_main(["-f", folder] + TM_FLAGS, device=device)
+            wall = time.perf_counter() - t0
+            counts = launches_now()
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    n = len(steps)
+    expect_launches("train_main", counts,
+                    {"attention_stream_fwd": 8 * n + 8 * len(vals),
+                     "attention_stream_bwd_dq": 8 * n,
+                     "attention_stream_bwd_dkv": 8 * n})
+    losses = [a[3] for a in steps]
+    if n != TM_STEPS or len(vals) != 1 or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"train_main: {n} steps with losses {losses}, {len(vals)} "
+             f"validations (want {TM_STEPS} and 1)")
+    val = vals[0][1].result()[0]
+    if not math.isfinite(val):
+        fail(f"train_main: validation loss {val}")
+    ms = [1e3 * TM_BATCH / a[4] for a in steps]
+    return {"losses": losses, "validation_loss": val, "step_ms": ms,
+            "step_ms_median_after_first": statistics.median(ms[1:]),
+            "wall_s": wall, "launches": {k: v for k, v in counts.items()
+                                         if v}}, counts
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -1870,6 +2278,78 @@ def time_attention(device):
     return out, sweep
 
 
+def flash_work(case, dtype):
+    """(bytes, K10 FLOPs, K11 FLOPs) of a phase-2f case: q, o, dO, k, v and
+    lse read once, dq (K10) or dk and dv (K11) written once; 6·D (K10) and
+    8·D (K11) FLOPs per (query, key) pair and head the causal mask lets
+    through."""
+    _, b, h, hk, t, tk, d, causal, _ = case[:9]
+    eb = 2 if str(dtype).endswith("bfloat16") else 4
+    reads = eb * (3 * b * h * t * d + 2 * b * hk * tk * d) + 4 * b * h * t
+    pairs = b * h * (sum(min(i + 1, tk) for i in range(t)) if causal
+                     else t * tk)
+    return ((reads + eb * b * h * t * d, reads + eb * 2 * b * hk * tk * d),
+            6 * d * pairs, 8 * d * pairs)
+
+
+def time_flash(device):
+    """K9 with and without its LSE, K10 and K11 per call at FLASH_PATH (each
+    in its dtype): median kernel time with the L2 flushed, the bound, the
+    plain versions, and SDPA's backward (fwd + bwd less fwd, causal) as the
+    library yardstick for both K10 and K11."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import attention as attn
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    out = {}
+    for i, case in enumerate(FLASH_PATH):
+        dt = getattr(torch, case[9])
+        q, k, v, bias, o, lse, do = flash_grads(case, dt, device,
+                                                SEED + 500 + i)
+        causal, scale = case[7], case[6] ** -0.5
+        rate = BF16_FLOPS if case[9] == "bfloat16" else F32_FLOPS
+        (b10, b11), f10, f11 = flash_work(case, dt)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        sdpa_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), device, flush=flush)
+        sdpa_both = median_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal),
+            (qg, kg, vg), do), device, flush=flush)
+        lib = sdpa_both - sdpa_fwd
+        plain_bwd = median_ms(lambda: attn.flash_bwd_plain(
+            q, k, v, o, lse, do, causal, scale), device, reps=3, flush=flush)
+        row = {"shape": list(case[1:7]), "dtype": case[9],
+               "k9_ms": median_ms(lambda: attn._launch(
+                   attn.attention_stream_fwd, "bigdl_attention_stream_fwd",
+                   q, k, v, None, causal, scale), device, flush=flush),
+               "k9_lse_ms": median_ms(lambda: attn._launch(
+                   attn.attention_stream_fwd, "bigdl_attention_stream_fwd",
+                   q, k, v, None, causal, scale, with_lse=True), device,
+                   flush=flush),
+               "k9_lse_plain_ms": median_ms(
+                   lambda: attn.attention_stream_plain(
+                       q, k, v, causal, scale, with_lse=True), device,
+                   reps=3, flush=flush),
+               "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_both}
+        for name, fn, nbytes, flops in (
+                ("attention_stream_bwd_dq", lambda: attn.attention_stream_bwd_dq(
+                    q, k, v, o, lse, do, causal, scale), b10, f10),
+                ("attention_stream_bwd_dkv",
+                 lambda: attn.attention_stream_bwd_dkv(
+                     q, k, v, o, lse, do, causal, scale), b11, f11)):
+            bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, \
+                1e3 * flops / rate
+            row[name] = {"ms": median_ms(fn, device, flush=flush),
+                         "plain_ms": plain_bwd, "library_ms": lib,
+                         "bound_ms": max(bytes_ms, ops_ms),
+                         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                         "bound_by": "bytes" if bytes_ms >= ops_ms
+                         else "operations"}
+        out[case[0]] = row
+        del q, k, v, o, lse, do, qg, kg, vg
+    return out
+
+
 def time_lm(score_model, long_model, gen_model, prompt, device):
     """Scoring tokens/s (one bf16 forward, median of 5) at both
     configurations, generation new tokens/s (median of 3), and a profiler
@@ -2037,6 +2517,8 @@ def device_profile(fn, n):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / n
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"device_ms": sum(kernels.values()),
+            "htod_ms": sum(ms for name, ms in kernels.items()
+                           if name.startswith("Memcpy HtoD")),
             "top": [[name[:90], ms] for name, ms in top]}
 
 
@@ -2083,6 +2565,13 @@ KERNELS = [
     {"name": "paged_attention", "wrapper": "paged_attention",
      "route": "cuda", "source": "bigdl_tpu_torch/csrc/paged_attention.cu",
      "replaces": "bigdl_tpu/ops/attention.py:782"},
+    {"name": "attention_stream_bwd_dq", "wrapper": "attention_stream_bwd_dq",
+     "route": "cuda", "source": "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
+     "replaces": "bigdl_tpu/ops/attention.py:363"},
+    {"name": "attention_stream_bwd_dkv",
+     "wrapper": "attention_stream_bwd_dkv", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
+     "replaces": "bigdl_tpu/ops/attention.py:415"},
 ]
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2132,6 +2621,8 @@ def main() -> int:
         d.update(more)
     for d, more in zip((errs, cases, misses), check_paged_kernel(device)):
         d.update(more)
+    for d, more in zip((errs, cases, misses), check_flash_kernels(device)):
+        d.update(more)
     # phase 3, 3b, 3c and 3d: each path's launches counted from 0
     report, serve_launches = serve(device)
     train_report, train_launches = train(device)
@@ -2150,6 +2641,30 @@ def main() -> int:
     lm_launches.update(gen_launches)
     cg_report, cg_launches, cg_run = continuous_serving(device)
     lm_launches.update(cg_launches)
+    # phase 3h and 3i: TransformerLM training
+    long_report, long_launches = long_context_training(device)
+    lm_launches.update(long_launches)
+    for key, r in long_report.items():
+        if key in ("remat", "no_remat"):
+            log(f"[{card}] long-context training ({key}, bf16, T {LONG_T}, "
+                f"{LM_LAYERS} layers, {r['steps']} steps): "
+                f"{r['ms_per_step']:.1f} ms a step, "
+                f"{r['tokens_per_s']:.0f} tokens/s, loss "
+                f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}, launches a "
+                f"step {r['launches_per_step']}")
+    p = long_report["profile"]
+    log(f"[{card}] long-context training profile ({1 + LONG_ITERS} steps): "
+        f"device {p['device_ms']:.1f} ms a step ({p['htod_ms']:.1f} of it "
+        f"the model's upload), busy share {p['busy_share']:.3f} of the "
+        f"{long_report['remat']['ms_per_step']:.1f} ms step; top kernels "
+        "(ms a step): " + json.dumps(p["top"]))
+    tm_report, lm_launches["train_main"] = train_main_long(device)
+    log(f"[{card}] train_main (f32, {' '.join(TM_FLAGS)}): "
+        f"{len(tm_report['losses'])} steps, losses {tm_report['losses']}, "
+        f"validation loss {tm_report['validation_loss']:.4f}, step "
+        f"{tm_report['step_ms_median_after_first']:.1f} ms (median after the "
+        f"first; {tm_report['step_ms'][0]:.1f} ms the first), launches "
+        f"{tm_report['launches']}")
     # phase 4
     times = time_kernels(device)
     train_times = time_train_kernels(device)
@@ -2264,6 +2779,23 @@ def main() -> int:
         f"{cg_static['latency_p50_ms']:.1f} ms, max "
         f"{cg_static['latency_max_ms']:.1f} ms")
     log("continuous serving: " + json.dumps(cg_report))
+    flash_times = time_flash(device)
+    for name, t in flash_times.items():
+        log(f"[{card}] flash attention at {name} {t['shape']} (per call): K9 "
+            f"{t['k9_ms']:.4f} ms, K9 with LSE {t['k9_lse_ms']:.4f} ms (plain "
+            f"{t['k9_lse_plain_ms']:.3f} ms); SDPA forward "
+            f"{t['sdpa_fwd_ms']:.4f} ms, forward + backward "
+            f"{t['sdpa_fwd_bwd_ms']:.4f} ms")
+        for k in ("attention_stream_bwd_dq", "attention_stream_bwd_dkv"):
+            r = t[k]
+            log(f"[{card}] {k} at {name}: {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+                f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}), plain "
+                f"(dq, dk, dv together) {r['plain_ms']:.3f} ms, SDPA backward "
+                f"(dq, dk, dv together) {r['library_ms']:.4f} ms")
+    long_report["kernel_times"] = flash_times
+    long_report["train_main"] = tm_report
+    log("transformer LM training: " + json.dumps(long_report))
     for where, tt in (("serving shapes, f32", times),
                       ("training shapes, bf16", train_times)):
         for name, t in tt.items():
@@ -2294,6 +2826,26 @@ def main() -> int:
             entry["shape"] = attn_times[key]["shape"]
             if wrapper == "attention_stream_fwd":
                 entry["long_context"] = attn_times[ATTN_PATH[2][0]]
+                entry["with_lse"] = {
+                    "max_abs_err": errs["attention_stream_fwd_lse"],
+                    "cases": cases["attention_stream_fwd_lse"],
+                    "mismatches": misses["attention_stream_fwd_lse"],
+                    "times": {n: {k2: t[k2] for k2 in ("shape", "dtype",
+                                                       "k9_ms", "k9_lse_ms",
+                                                       "k9_lse_plain_ms")}
+                              for n, t in flash_times.items()}}
+                entry["match"] = entry["match"] and \
+                    misses["attention_stream_fwd_lse"] == 0
+        elif wrapper in ("attention_stream_bwd_dq",
+                         "attention_stream_bwd_dkv"):
+            # per call at the long-context path's shape, bf16; train_main's
+            # f32 shape beside it
+            first, second = (flash_times[c[0]] for c in FLASH_PATH)
+            entry.update({k2: first[wrapper][k2] for k2 in TIME_KEYS})
+            entry["shape"], entry["dtype"] = first["shape"], first["dtype"]
+            entry[FLASH_PATH[1][0]] = dict(second[wrapper],
+                                           shape=second["shape"],
+                                           dtype=second["dtype"])
         elif wrapper == "paged_attention":
             # per call at the continuous path's decode shape, bf16
             entry.update({k2: paged_times["decode"][k2] for k2 in TIME_KEYS})

@@ -18,10 +18,14 @@ The attention kernels K8, K9 and K12 agree with their plain versions to
 1e-5 of each output's sum of |p·v| (the softmax weights times |v|) in
 float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
 outputs' own roundings can land one step apart, and K8/K9 round p to
-bfloat16 for the tensor cores (2^-9 of the sum at most).  K8's backward
-(autograd of the chunked plain form) agrees with autograd of the plain
-form to 1e-4 of each gradient's largest magnitude in float32 (the same
-math, f32 sums in another order).
+bfloat16 for the tensor cores (2^-9 of the sum at most).  K9's row
+logsumexp agrees to 1e-5 of max(1, |lse|); K10 and K11 agree with
+``flash_bwd_plain`` to 1e-4 of each gradient's largest magnitude in
+float32 and two bfloat16 steps of it in bfloat16 (ds and p rounded where
+the reference rounds them), and K11 is bit-equal across launches.  K8's
+backward (autograd of the chunked plain form) agrees with autograd of the
+plain form to 1e-4 of each gradient's largest magnitude in float32 (the
+same math, f32 sums in another order).
 """
 
 import pytest
@@ -257,19 +261,32 @@ def test_attention_kernels_reject_other_head_dims(cuda_device):
             attn.attention_stream_fwd.launches) == before
 
 
-def test_attention_kernel_backward_raises(cuda_device):
-    # K9's backward is the flash backward (K10, K11), still to port; K8's
-    # is autograd of the chunked plain form (test_k8_backward_...)
-    q, k, v = (torch.randn((1, 2, 16, 32), device=cuda_device,
-                           requires_grad=True) for _ in range(3))
-    bias = torch.zeros((1, 16), device=cuda_device)
-    before = attn.attention_stream_fwd.launches
-    o = attn.attention_stream_fwd(q, k, v, True, None, bias)
+def test_k9_backward_runs_k10_and_k11(cuda_device):
+    # K9's backward is the flash backward: one K10 and one K11 launch, and
+    # the gradients of autograd of the plain form (see the tolerances of
+    # test_flash_kernels_match_plain); K8's is autograd of the chunked
+    # plain form (test_k8_backward_...)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((1, 2, 80, 32), generator=g, device=cuda_device)
+               for _ in range(3))
+    bias = torch.zeros((1, 80), device=cuda_device)
+    bias[:, 60:] = attn.NEG_INF
+    names = (attn.attention_stream_fwd, attn.attention_stream_bwd_dq,
+             attn.attention_stream_bwd_dkv)
+    before = [f.launches for f in names]
+    ours = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = attn.attention_stream_fwd(*ours, True, None, bias)
     assert o.requires_grad
-    with pytest.raises(NotImplementedError, match="K10, K11"):
-        o.sum().backward()
+    o.sum().backward()
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    attn.attention_reference(*ref, True,
+                             mask=(bias > -1)[:, None, None, :]).sum() \
+        .backward()
     torch.cuda.synchronize()
-    assert attn.attention_stream_fwd.launches == before + 1
+    assert [f.launches - b for f, b in zip(names, before)] == [1, 1, 1]
+    for a, r in zip(ours, ref):
+        assert (a.grad - r.grad).abs().max().item() <= \
+            1e-4 * r.grad.abs().max().item()
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 4, 256, 64), (2, 8, 2, 128, 48),
@@ -292,6 +309,86 @@ def test_k8_backward_matches_autograd_of_the_plain_form(cuda_device, shape):
     for a, r in zip(ours, ref):
         tol = 1e-4 * r.grad.abs().max().item()
         assert (a.grad - r.grad).abs().max().item() <= tol
+
+
+# -- K9 with its LSE, K10, K11 -----------------------------------------------
+
+# (b, h, hk, t, tk, d, causal, padded lengths or None)
+FLASH_CASES = [
+    (2, 8, 2, 130, 130, 64, True, None),    # GQA 8/2, T not a multiple of 64
+    (1, 8, 1, 72, 200, 32, True, None),     # MQA, Tq < Tk
+    (2, 4, 4, 100, 40, 16, False, None),    # Tq > Tk, non-causal
+    (3, 4, 2, 96, 96, 64, True, [96, 0, 41]),   # a row with every key padded
+    (2, 4, 4, 72, 72, 128, False, [72, 30]),
+    (1, 4, 2, 50, 50, 48, True, None),      # head dim 48, padded to 64
+]
+FLASH_IDS = ["gqa-t130", "mqa-tq-lt-tk", "tq-gt-tk-noncausal-d16",
+             "all-padded", "padded-d128", "d48"]
+
+
+def _flash_inputs(case, dt, device):
+    b, h, hk, t, tk, d, causal, lengths = case
+    g = torch.Generator(device=device).manual_seed(t + tk + d)
+    q = torch.randn((b, h, t, d), generator=g, device=device).to(dt)
+    k = torch.randn((b, hk, tk, d), generator=g, device=device).to(dt)
+    v = torch.randn((b, hk, tk, d), generator=g, device=device).to(dt)
+    do = torch.randn((b, h, t, d), generator=g, device=device).to(dt)
+    bias = None
+    if lengths is not None:
+        keep = torch.arange(tk, device=device)[None, :] < \
+            torch.tensor(lengths, device=device)[:, None]
+        bias = torch.where(keep, 0.0, attn.NEG_INF).float()
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_kernels_match_plain(cuda_device, case, dtype):
+    """K9 with its LSE (o as above, lse within 1e-5 of max(1, |lse|)), K10
+    and K11 (each gradient within 1e-4 of its largest magnitude in float32,
+    two bfloat16 steps of it in bfloat16: ds and p are rounded where the
+    reference rounds them, and a rounding can land one step apart) against
+    their plain versions on the plain forward's o and lse."""
+    dt = getattr(torch, dtype)
+    causal, lengths = case[6], case[7]
+    q, k, v, do, bias = _flash_inputs(case, dt, cuda_device)
+    o, lse = attn.attention_stream_plain(q, k, v, causal, None, bias,
+                                         with_lse=True)
+    got_o, got_lse = attn._launch(attn.attention_stream_fwd,
+                                  "bigdl_attention_stream_fwd", q, k, v, bias,
+                                  causal, case[5] ** -0.5, with_lse=True)
+    dq = attn.attention_stream_bwd_dq(q, k, v, o, lse, do, causal, None,
+                                      bias)
+    dk, dv = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, causal, None,
+                                           bias)
+    torch.cuda.synchronize()
+    mag = attn.attention_stream_plain(q.float(), k.float(), v.float().abs(),
+                                      causal, None, bias)
+    assert _attn_close(got_o, o, mag, dt)
+    assert ((got_lse - lse).abs() <= 1e-5 * lse.abs().clamp_min(1.0)).all()
+    want = attn.flash_bwd_plain(q, k, v, o, lse, do, causal, None, bias)
+    rtol = 1e-4 if dt == torch.float32 else 2 * 2.0 ** -7
+    for a, w in zip((dq, dk, dv), want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max().item() <= \
+            rtol * w.float().abs().max().item()
+    if lengths is not None and 0 in lengths:
+        row = lengths.index(0)
+        assert not any(x[row].float().abs().any() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k11_is_bit_equal_across_launches(cuda_device, dtype):
+    # no atomics: the sums over a GQA group's query tiles have a fixed order
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias = _flash_inputs(FLASH_CASES[3], dt, cuda_device)
+    o, lse = attn.attention_stream_plain(q, k, v, True, None, bias,
+                                         with_lse=True)
+    a = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, True, None, bias)
+    b = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, True, None, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 # -- K12 ------------------------------------------------------------------------
