@@ -112,6 +112,20 @@ class Module(nn.Module):
                 if isinstance(c, nn.ModuleList) else c.param_tree()
         return tree or ()
 
+    def state_tree(self):
+        """This layer's run-time state as the JAX package's module-state
+        pytree.  No layer of the port keeps run-time state, so it is the
+        reference's empty state: a dict over the children that hold
+        parameters (a child list as a list), ``()`` for a layer without
+        any."""
+        tree = {}
+        for k, c in self._modules.items():
+            if c is None or not any(True for _ in c.parameters()):
+                continue
+            tree[k] = [m.state_tree() for m in c] \
+                if isinstance(c, nn.ModuleList) else c.state_tree()
+        return tree or ()
+
     def param_leaves(self):
         """Parameters in the JAX package's pytree leaf order."""
         return tree_leaves(self.param_tree())
@@ -145,6 +159,10 @@ class Container(Module):
     def param_tree(self):
         """A list of the children's trees, in order."""
         return [m.param_tree() for m in self.layers]
+
+    def state_tree(self):
+        """A list of the children's states, in order."""
+        return [m.state_tree() for m in self.layers]
 
 
 def tree_leaves(tree):

@@ -38,6 +38,7 @@ from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.normalization import LayerNorm
+from bigdl_tpu_torch.utils.file import File, load_model_snapshot
 
 
 class TransformerBlock(Module):
@@ -332,9 +333,11 @@ def train_main(argv=None, device="cuda"):
     1-based ids in batches (the last short one dropped), float32
     ``TransformerLM(vocab + 2, max_len=--maxLen, ...)``, per-token
     ``ClassNLLCriterion`` averaged over time, SGD or Adam with an optional
-    linear ``Warmup``, validation by ``Loss`` every epoch.  Returns the
-    trained model.  ``--model``, ``--state`` and ``--checkpoint`` come with
-    the checkpoint slice."""
+    linear ``Warmup``, validation by ``Loss`` every epoch.  ``--model``
+    starts from a ``model.<n>`` snapshot, ``--state`` resumes a
+    ``state.<n>`` snapshot's progress and optimizer state, and
+    ``--checkpoint <dir>`` writes a snapshot pair every epoch.  Returns the
+    trained model."""
     import argparse
 
     from bigdl_tpu_torch.core.device import resolve_device
@@ -366,11 +369,6 @@ def train_main(argv=None, device="cuda"):
     if args.optim == "adam" and args.momentum:
         p.error("--momentum applies to sgd only (Adam's beta1 is the "
                 "analogous knob)")
-    for flag in ("model", "state", "checkpoint"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} (model and optimizer snapshots) comes with the "
-                "checkpoint slice of the port")
     device = resolve_device(device)
 
     dictionary_length = args.vocab + 1
@@ -387,6 +385,8 @@ def train_main(argv=None, device="cuda"):
     model = TransformerLM(dictionary_length + 1, max_len=args.maxLen,
                           embed_dim=args.embed, num_heads=args.heads,
                           num_layers=args.layers)
+    if args.model:
+        load_model_snapshot(model, args.model)
     criterion = TimeDistributedCriterion(ClassNLLCriterion(),
                                          size_average=True)
     optimizer = Optimizer(model=model, dataset=train_set,
@@ -399,7 +399,80 @@ def train_main(argv=None, device="cuda"):
         optimizer.set_optim_method(SGD(learning_rate=args.learningRate,
                                        momentum=args.momentum,
                                        learning_rate_schedule=sched))
+    if args.state:
+        optimizer.set_state(File.load(args.state))
     optimizer.set_end_when(Trigger.max_epoch(args.nEpochs))
     optimizer.set_validation(Trigger.every_epoch(), val_set,
                              [Loss(criterion)])
+    if args.checkpoint:
+        optimizer.set_checkpoint(args.checkpoint, Trigger.every_epoch())
     return optimizer.optimize()
+
+
+def generate_main(argv=None, device="cuda"):
+    """CLI generation (``bigdl_tpu/models/transformer.py`` ``generate_main``,
+    the counterpart of ``models/rnn/Test.scala:39-92``) on ``device`` (CUDA
+    by default; it raises without CUDA unless asked for the CPU): the model
+    of a ``model.<n>`` snapshot extends each ``test.txt`` sentence by
+    ``--words`` tokens through :meth:`TransformerLM.generate`, greedy at
+    ``--temperature 0``, else sampled from a generator seeded ``--seed +
+    i`` for sentence ``i`` (JAX's key stream cannot be matched, so only
+    greedy output is the reference's).  Prints the grown sentences and
+    returns them."""
+    import argparse
+
+    import numpy as np
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.dataset import Dictionary, read_sentence
+
+    p = argparse.ArgumentParser("transformer-generate")
+    p.add_argument("-f", "--folder", default="./")
+    p.add_argument("--model", required=True)
+    p.add_argument("--words", type=int, required=True)
+    p.add_argument("--vocab", type=int, default=4000)
+    p.add_argument("--embed", type=int, default=128)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--layers", type=int, default=2)
+    p.add_argument("--maxLen", type=int, default=256)
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="0 = greedy")
+    p.add_argument("--topK", type=int, default=0)
+    p.add_argument("--topP", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    device = resolve_device(device)
+
+    dictionary_length = args.vocab + 1
+    vocab = Dictionary(args.folder)
+    model = TransformerLM(dictionary_length + 1, max_len=args.maxLen,
+                          embed_dim=args.embed, num_heads=args.heads,
+                          num_layers=args.layers)
+    load_model_snapshot(model, args.model)
+    model.evaluate()
+
+    sentences = [[float(vocab.get_index(t)) for t in line]
+                 for line in read_sentence(args.folder)]
+    results = []
+    for i, seq in enumerate(sentences):
+        prompt = torch.from_numpy(np.asarray(seq, np.int64)[None] + 1)
+        gen = None
+        if args.temperature > 0:
+            gen = torch.Generator(device=device).manual_seed(args.seed + i)
+        out = model.generate(prompt, max_new=args.words,
+                             temperature=args.temperature, generator=gen,
+                             top_k=args.topK, top_p=args.topP,
+                             device=device)
+        grown = seq + [float(t - 1) for t in out[0].tolist()]
+        results.append(" ".join(vocab.get_word(t) for t in grown))
+    for line in results:
+        print(line)
+    return results
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["generate"]:
+        generate_main(sys.argv[2:])
+    else:
+        train_main()

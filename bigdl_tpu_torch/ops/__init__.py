@@ -25,7 +25,12 @@
   plain form, as in the reference); and K12 (``paged_attention``, masked
   attention over a block-paged KV pool through a page table;
   ``_paged_kernel``, ``csrc/paged_attention.cu``), the read path of
-  ``ContinuousGenerator``.
+  ``ContinuousGenerator``;
+* ``fp16``    — the fp16 wire codec (``csrc/fp16_codec.cu``): K5
+  (``fp16_compress``, float32 to its top two bytes; replaces
+  ``bigdl_tpu/ops/fp16.py`` ``_compress_kernel``), K6 (``fp16_decompress``;
+  ``_decompress_kernel``) and K7 (``fp16_add``, the sum in the fp16 domain
+  with subnormals flushed; ``_add_kernel``).
 
 A wrapper takes the plain version for a CPU tensor and launches its kernel
 for a CUDA tensor, or raises; there is no switch that hides a kernel.  Each
@@ -43,6 +48,11 @@ from bigdl_tpu_torch.ops.attention import (attention_fwd,
                                            flash_bwd_plain, fused_attention,
                                            paged_attention,
                                            paged_attention_plain)
+from bigdl_tpu_torch.ops.fp16 import (fp16_add, fp16_add_plain,
+                                      fp16_compress,
+                                      fp16_compress_reference,
+                                      fp16_decompress,
+                                      fp16_decompress_reference)
 from bigdl_tpu_torch.ops.lrn import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      lrn_plain)
 from bigdl_tpu_torch.ops.pooling import (max_pool2d, max_pool2d_bwd,
@@ -58,7 +68,7 @@ KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd,
                    w8_matmul, f8_matmul, a8_matmul, w4_matmul,
                    attention_fwd, attention_stream_fwd,
                    attention_stream_bwd_dq, attention_stream_bwd_dkv,
-                   paged_attention)
+                   paged_attention, fp16_compress, fp16_decompress, fp16_add)
 
 
 def reset_launches() -> None:
@@ -70,7 +80,9 @@ __all__ = ["a8_matmul", "attention_fwd", "attention_reference",
            "attention_stream_bwd_dkv", "attention_stream_bwd_dq",
            "attention_stream_fwd", "attention_stream_plain",
            "cross_map_lrn", "f8_matmul", "flash_bwd_plain",
-           "fused_attention",
+           "fp16_add", "fp16_add_plain", "fp16_compress",
+           "fp16_compress_reference", "fp16_decompress",
+           "fp16_decompress_reference", "fused_attention",
            "int4_matmul_plain", "int8_a8_matmul_plain", "int8_matmul_plain",
            "lrn_bwd", "lrn_bwd_plain", "lrn_plain", "max_pool2d",
            "max_pool2d_bwd", "max_pool2d_bwd_plain", "max_pool2d_plain",

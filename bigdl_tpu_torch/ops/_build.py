@@ -73,6 +73,12 @@ _SIGNATURES = {
     # hkv, s, d, page size, lp, trash, scale, rows per block, stream
     "bigdl_paged_attention": [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I,
                                                     _P],
+    # x, out, n, stream
+    "bigdl_fp16_compress": [_P, _P, ctypes.c_longlong, _P],
+    # u, out, n, stream
+    "bigdl_fp16_decompress": [_P, _P, ctypes.c_longlong, _P],
+    # a, b, out, n, stream
+    "bigdl_fp16_add": [_P, _P, _P, ctypes.c_longlong, _P],
 }
 
 

@@ -11,6 +11,16 @@ per-step log line.
 Random draws in training (``Dropout``) come from one ``torch.Generator`` on
 the device, seeded by :meth:`LocalOptimizer.set_seed` and handed to the
 model with ``Module.set_generator``.
+
+File snapshots (``set_checkpoint``): on its trigger, after validation, the
+trainer writes ``model.<neval>`` (the JAX package's params pytree and
+module state, one format in both packages) and then ``state.<neval>``
+(the progress Table, the optimizer state as host numpy arrays, the
+generator's state), the state file last: it is the pair's commit marker.
+A resumed run (``resume_from``, ``auto_resume`` or ``set_state`` with a
+state snapshot) replays the completed epochs' shuffles and skips the
+records the interrupted epoch had trained, so it takes exactly the batches,
+the updates and the dropout masks of an uninterrupted run.
 """
 
 from __future__ import annotations
@@ -18,17 +28,22 @@ from __future__ import annotations
 import collections
 import logging
 import math
+import os
+import re
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.convert import export_params
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.core.module import tree_leaves
 from bigdl_tpu_torch.core.precision import mixed_forward
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.utils.file import File, load_model_snapshot
 from bigdl_tpu_torch.utils.table import T, Table
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
@@ -83,6 +98,15 @@ class LocalOptimizer:
         self.validation_trigger: Optional[Trigger] = None
         self.validation_dataset = None
         self.validation_methods: List[ValidationMethod] = []
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.checkpoint_path: Optional[str] = None
+        # the reference's default: one model.<neval> snapshot per trigger;
+        # overwrite_checkpoint_() opts in to one overwritten pair
+        self.overwrite_checkpoint = False
+        self.auto_resume = False         # restore the latest snapshot first
+        self._resume_path: Optional[str] = None   # resume_from
+        self._resume_opt_state = None    # from a state snapshot
+        self._resume_rng = None
         self.metrics = collections.Counter()
         self.mixed_precision = False
         self.skip_nonfinite = True
@@ -103,10 +127,15 @@ class LocalOptimizer:
         return self
 
     def set_state(self, state: Table):
-        """Restore optimizer progress from a bare state Table."""
+        """Restore optimizer progress from a bare state Table or from a
+        ``state.<neval>`` snapshot (``{"state", "opt_state", "rng"}``),
+        whose optimizer state and generator state the next ``optimize()``
+        takes up."""
         if isinstance(state, dict) and "state" in state \
                 and "opt_state" in state:
-            _later("restoring a state snapshot", "checkpoint")
+            self._resume_opt_state = state["opt_state"]
+            self._resume_rng = state.get("rng")
+            state = state["state"]
         self.state.update_(state)
         return self
 
@@ -141,13 +170,26 @@ class LocalOptimizer:
 
     def set_checkpoint(self, path: str, trigger: Trigger,
                        auto_resume: bool = False):
-        _later("set_checkpoint", "checkpoint")
+        """File snapshots under ``path`` on ``trigger``.  With
+        ``auto_resume`` a relaunched run first restores the latest snapshot
+        found there, or starts fresh when there is none."""
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        self.auto_resume = auto_resume
+        return self
 
     def resume_from(self, path: str):
-        _later("resume_from", "checkpoint")
+        """Resume from the latest complete snapshot pair under ``path`` at
+        ``optimize()``, which raises ``FileNotFoundError`` when there is
+        none: an explicit resume must not quietly train a fresh model."""
+        self._resume_path = path
+        return self
 
     def overwrite_checkpoint_(self):
-        _later("overwrite_checkpoint_", "checkpoint")
+        """Write one ``model``/``state`` pair, overwritten at each trigger,
+        in place of one pair per trigger."""
+        self.overwrite_checkpoint = True
+        return self
 
     def set_mesh(self, mesh, partition_rules=None):
         _later("set_mesh", "parallel-strategies")
@@ -214,25 +256,117 @@ class LocalOptimizer:
             "kept (%d skipped so far)", self.state["neval"], skipped)
         return skipped
 
+    # -- resume (File snapshots) ---------------------------------------------
+
+    @staticmethod
+    def _latest_file_snapshot(path: str) -> Optional[str]:
+        """Suffix of the newest complete snapshot pair under ``path``:
+        ``".<n>"`` for the largest numbered pair, ``""`` for the overwrite
+        pair, None when there is neither.  Both files must be there: a
+        crash between the two writes leaves a torn pair, never resumed."""
+        if not os.path.isdir(path):
+            return None
+        names = set(os.listdir(path))
+        steps = [int(m.group(1)) for m in
+                 (re.fullmatch(r"state\.(\d+)", f) for f in names) if m]
+        good = [s for s in sorted(steps, reverse=True)
+                if f"model.{s}" in names]
+        if good:
+            return f".{good[0]}"
+        if "state" in names and "model" in names:
+            return ""
+        return None
+
+    def _maybe_resume(self):
+        """Restore the latest complete snapshot when ``resume_from`` asked
+        for one (none raises) or ``auto_resume`` is on (none starts
+        fresh)."""
+        path = self._resume_path or \
+            (self.checkpoint_path if self.auto_resume else None)
+        if not path:
+            return
+        suffix = self._latest_file_snapshot(path)
+        if suffix is None:
+            if self._resume_path is not None:
+                raise FileNotFoundError(
+                    f"resume_from({path!r}): no complete model/state "
+                    "snapshot pair found")
+            logger.info("auto_resume: no snapshot under %s — fresh start",
+                        path)
+            return
+        load_model_snapshot(self.model, f"{path}/model{suffix}")
+        self.set_state(File.load(f"{path}/state{suffix}"))
+        logger.info("resumed File snapshot %s/{model,state}%s "
+                    "(epoch %d, neval %d)", path, suffix or " (overwrite)",
+                    self.state["epoch"], self.state["neval"])
+
+    def _restore_generator(self):
+        rng, self._resume_rng = self._resume_rng, None
+        if rng is None:
+            return
+        rng = torch.from_numpy(np.asarray(rng, dtype=np.uint8))
+        if rng.numel() != self._generator.get_state().numel():
+            logger.warning(
+                "the snapshot's generator state is another device type's: "
+                "training-mode draws restart from seed %d", self.seed)
+            return
+        self._generator.set_state(rng)
+
+    def _maybe_checkpoint(self):
+        if not self.checkpoint_trigger or not self.checkpoint_path or \
+                not self.checkpoint_trigger(self.state):
+            return
+        neval = self.state["neval"]
+        suffix = "" if self.overwrite_checkpoint else f".{neval}"
+        File.save({"params": export_params(self.model),
+                   "model_state": self.model.state_tree()},
+                  f"{self.checkpoint_path}/model{suffix}", True)
+        # the state file is written last: it commits the pair
+        File.save({"state": dict(self.state), "opt_state": self.opt_state,
+                   "rng": self._generator.get_state()},
+                  f"{self.checkpoint_path}/state{suffix}", True)
+
     # -- main loop -----------------------------------------------------------
 
     def optimize(self):
+        self._maybe_resume()
         model = self.model.to(self.device).training_()
         if self._generator is None:
             self._generator = torch.Generator(device=self.device)
             self._generator.manual_seed(self.seed)
+        self._restore_generator()
         model.set_generator(self._generator)
         params = list(model.param_leaves())
-        self.opt_state = self.optim_method.init_state(
-            [p.detach() for p in params])
+        if self._resume_opt_state is not None:
+            self.opt_state = {
+                k: [_to_device(a, self.device) for a in tree_leaves(v)]
+                for k, v in self._resume_opt_state.items()}
+            self._resume_opt_state = None
+        else:
+            self.opt_state = self.optim_method.init_state(
+                [p.detach() for p in params])
 
         count_this_epoch = self.state.get("recordsProcessedThisEpoch", 0)
+        # a resumed run replays the completed epochs' shuffles
         _sync_shuffles(self.dataset, self.state.get("epoch", 1) - 1)
         data_iter = self.dataset.data(train=True)
         ds_size = self.dataset.size()
         wall_start = time.time()
+        # a fresh iterator restarts the epoch: skip the records the
+        # interrupted run had trained, so the run takes the batches an
+        # uninterrupted one would
+        records_to_skip = count_this_epoch
         while not self.end_when(self.state):
             batch = next(data_iter)
+            if records_to_skip >= batch.size():
+                records_to_skip -= batch.size()
+                continue
+            if records_to_skip > 0:
+                raise ValueError(
+                    f"resume skip remainder {records_to_skip} is smaller "
+                    f"than the batch ({batch.size()}): the batch size "
+                    "changed since the snapshot; resume with the same "
+                    "batching to keep the exact-resume contract")
             stepno = self.state["neval"]
             t0 = time.time()
             data = _to_device(batch.data, self.device)
@@ -265,6 +399,7 @@ class LocalOptimizer:
                 data_iter = self.dataset.data(train=True)
 
             self._maybe_validate()
+            self._maybe_checkpoint()
             self.state["isLastBatchOfEpoch"] = False
 
         logger.info("Training finished in %.1fs (%d iterations)",

@@ -76,6 +76,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
    round trips through ``fused_attention`` (T 2112 past the K/V budget, and
    a key-padding mask) against autograd of the chunked plain form, with one
    K9, one K10 and one K11 launch each;
+2g. the fp16 wire codec K5 (compress), K6 (decompress) and K7 (add, with
+   subnormals flushed) against their plain versions: the 42 652 672-element
+   f32 parameter vector of 3e's LM, lengths 1, 7, 8191 and 2^20 + 3, views at
+   an odd element offset (one K7 operand aligned, one not, and both
+   misaligned alike), strided views, and a table of special values (signed
+   zeros, subnormals, the smallest and largest normals, infinities, NaNs
+   with high and low payloads, quiet and signalling; every pair of the wire
+   table for K7): bit-equal wherever the plain result is not a NaN, a NaN
+   where it is; K7's flush cases equal the sums XLA gives on the CPU;
 3e. LM scoring: the full-width ``TransformerLM`` of ``bench_infer.py``
    (vocab 32000, embed 512, 8 heads, 8 layers, T 2048) with seeded random
    weights cast to bf16, scored by ``LocalValidator`` with
@@ -121,6 +130,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
    1``, f32) on a corpus written here (40 lines of about 4200 Zipf-drawn
    words over 12 000 types): 4 steps and one validation, finite losses, 8
    K9 + 8 K10 + 8 K11 a step and 8 K9 for the validation forward;
+3j. snapshots and resume on that corpus at those widths: A ``train_main -e
+   2``, B ``-e 1 --checkpoint <dir>``, C a fresh ``--model <dir>/model.4
+   --state <dir>/state.4 -e 2``: C's four losses equal A's steps 5-8 within
+   1e-5 relative, every run 8 K9 + 8 K10 + 8 K11 a step; a ``model.<n>``
+   without its ``state.<n>`` is never picked; ``generate_main --model
+   <dir>/model.4 --temperature 0 --words 16`` on two 64-word test
+   sentences: ids in range, its sentences those of greedy
+   ``TransformerLM.generate`` on the loaded model;
+3k. the fp16 codec on the path: the flat f32 gradients (33 608 704
+   elements) of two float32 SGD steps of 3h's model compressed by K5,
+   summed by K7 and widened by K6, one launch each a call: bit-equal to the plain chain,
+   each gradient's round trip within 2^-7 of each value;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -142,7 +163,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    K10 and K11 per call at both training shapes beside their bounds
    (6·D and 8·D FLOPs per unmasked pair and head), their plain versions
    and SDPA's backward (forward + backward less forward), the long-context
-   step and tokens/s with a profiler breakdown, and ``train_main``'s step.
+   step and tokens/s with a profiler breakdown, and ``train_main``'s step;
+   K5, K6 and K7 per call at 42 652 672 elements beside their bytes bound,
+   plain versions and, for K6, ``u.view(torch.bfloat16).float()`` (the
+   bf16 cast's time beside K5 as a reference of the same traffic), and the
+   save and load time of 3j's snapshot pair.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -357,6 +382,35 @@ LONG_LOSS_ATOL, LONG_GRAD_RTOL = 1e-4, 1e-4
 TM_LINES, TM_WORDS, TM_TYPES, TM_BATCH, TM_STEPS = 40, 4200, 12000, 8, 4
 TM_FLAGS = ["--vocab", "8000", "--embed", "512", "--heads", "8", "--layers",
             "8", "--maxLen", "4096", "-b", str(TM_BATCH), "-e", "1"]
+# phase 2g: the fp16 codec K5-K7 against its plain versions, bit-equal
+# wherever the plain result is not a NaN and a NaN where it is: the flat
+# f32 parameter vector of 3e's LM (vocab 32000, embed 512, 8 x 8, T 2048),
+# ragged lengths, an odd element offset, a strided view, and a table of
+# special values (float32 bits for K5; wire values for K6 and, every pair,
+# for K7, with K7's subnormal flush cases as (a, b, sum))
+CODEC_N = 42_652_672
+CODEC_RAGGED = [1, 7, 8191, (1 << 20) + 3]
+CODEC_F32 = [0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x007FFFFF,
+             0x807FFFFF, 0x00010000, 0x80010000, 0x00800000, 0x80800000,
+             0x7F7FFFFF, 0xFF7FFFFF, 0x7F800000, 0xFF800000, 0x7F800001,
+             0xFF800001, 0x7FA00000, 0x7FC00000, 0xFFC00000, 0x7FFFFFFF,
+             0x3F800000, 0x3F80FFFF, 0x3F818000, 0xBF80FFFF, 0x4B000001]
+CODEC_U16 = [0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x807F, 0x0080, 0x8080,
+             0x0081, 0x8081, 0x0100, 0x8100, 0x7F7F, 0xFF7F, 0x7F80, 0xFF80,
+             0x7F81, 0xFFBF, 0x7FC0, 0xFFC0, 0x7FFF, 0x3F80, 0xBF80, 0x3F81]
+CODEC_ADD_CASES = [(0x0001, 0x0001, 0x0000), (0x8001, 0x8001, 0x8000),
+                   (0x807F, 0x0000, 0x0000), (0x0081, 0x8080, 0x0000),
+                   (0x8081, 0x0080, 0x8000), (0x0001, 0x3F80, 0x3F80),
+                   (0x0100, 0x8080, 0x0080)]
+# phase 3k: the flat f32 gradient of 3h's model; its round trip through the
+# wire loses less than 2^-7 of each value (FP16ParameterSpec's bound)
+LONG_PARAMS = 33_608_704
+CODEC_RT_RTOL = 2.0 ** -7
+# phase 3j: snapshots and resume at 3i's widths; the resumed run's losses
+# within RESUME_RTOL of the uninterrupted run's (on the card the library's
+# backward ops may sum in another order from run to run)
+RESUME_RTOL = 1e-5
+GEN_WORDS, GEN_PROMPT_WORDS = 16, 64
 TRAIN_SAMPLES, VAL_SAMPLES = 64, 32
 TRAIN_STEPS, VAL_EVERY, TIMED_STEPS = 30, 10, 20
 CPU_BATCH, CPU_STEPS = 4, 2
@@ -1899,7 +1953,8 @@ def write_corpus(folder):
 def train_main_long(device):
     """Phase 3i: ``train_main`` at the long-context widths (TM_FLAGS, f32)
     on a corpus written here: finite losses, 8 K9 + 8 K10 + 8 K11 a step and
-    8 K9 per validation forward."""
+    8 K9 per validation forward; then phase 3j on the same corpus
+    (:func:`snapshots_and_resume`)."""
     import shutil
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.models import transformer
@@ -1916,6 +1971,7 @@ def train_main_long(device):
             transformer.train_main(["-f", folder] + TM_FLAGS, device=device)
             wall = time.perf_counter() - t0
             counts = launches_now()
+        resume = snapshots_and_resume(device, folder)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     n = len(steps)
@@ -1935,7 +1991,311 @@ def train_main_long(device):
     return {"losses": losses, "validation_loss": val, "step_ms": ms,
             "step_ms_median_after_first": statistics.median(ms[1:]),
             "wall_s": wall, "launches": {k: v for k, v in counts.items()
-                                         if v}}, counts
+                                         if v}}, counts, resume
+
+
+# -- phase 2g: the fp16 codec against its plain versions --------------------
+
+def u16_nan(u):
+    """Which wire values are NaNs (exponent all ones, mantissa not 0)."""
+    import torch
+    w = u.to(torch.int32)
+    return ((w & 0x7F80) == 0x7F80) & ((w & 0x7F) != 0)
+
+
+def codec_diff(got, want):
+    """(positions that break the codec's rule, max |error| at them): the
+    bits equal wherever ``want`` is not a NaN, a NaN wherever it is; the
+    error is taken on the values (wire values widened to float32)."""
+    import torch
+    from bigdl_tpu_torch.ops import fp16_decompress_reference as widen
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), 1), math.inf
+    if want.dtype == torch.float32:
+        nan, gnan = torch.isnan(want), torch.isnan(got)
+        same = got.view(torch.int32) == want.view(torch.int32)
+        gv, wv = got, want
+    else:
+        nan, gnan = u16_nan(want), u16_nan(got)
+        same = got.to(torch.int32) == want.to(torch.int32)
+        gv, wv = widen(got), widen(want)
+    bad = (gnan != nan) | (~nan & ~same)
+    n = int(bad.sum().item())
+    if not n:
+        return 0, 0.0
+    err = (gv[bad] - wv[bad]).abs()
+    return n, float(torch.nan_to_num(err, nan=math.inf).max().item())
+
+
+def codec_wire(values, device):
+    import torch
+    return torch.tensor(values, dtype=torch.int32).to(torch.uint16).to(
+        device)
+
+
+def codec_cases(device):
+    """(name, K5 input, K6 input, K7 inputs) of phase 2g, the values drawn
+    on the card from a seeded generator: normals for the full-width vector,
+    normals times 2^[-140, 127] (subnormals and infinities among them) for
+    the ragged lengths."""
+    import torch
+    from bigdl_tpu_torch.ops import fp16_compress_reference as wire
+    gen = torch.Generator(device=device).manual_seed(SEED + 800)
+    x = torch.randn(CODEC_N, generator=gen, device=device)
+    u, v = wire(x), wire(torch.randn(CODEC_N, generator=gen, device=device))
+    cases = [(f"n {CODEC_N}", x, u, (u, v)),
+             (f"n {CODEC_N} at offset 1", x[1:], u[1:], (u[1:], v[:-1])),
+             ("both operands at offset 1", None, None, (u[1:], v[1:])),
+             ("strided", x[::3], u[::3], (u[::3], v[::3]))]
+    for n in CODEC_RAGGED:
+        r = torch.randn(n + 1, generator=gen, device=device) * torch.pow(
+            2.0, torch.randint(-140, 128, (n + 1,), generator=gen,
+                               device=device).float())
+        rw = wire(r)
+        cases.append((f"n {n}", r[:n], rw[:n], (rw[:n], wire(r.flip(0))[:n])))
+        cases.append((f"n {n} at offset 1", r[1:], rw[1:],
+                      (rw[1:], wire(r.flip(0))[1:])))
+    special = torch.tensor(CODEC_F32, dtype=torch.int64).to(
+        torch.int32).view(torch.float32).to(device)
+    pairs = torch.tensor(CODEC_U16, dtype=torch.int32)
+    a = torch.cat([pairs.repeat_interleave(len(CODEC_U16)),
+                   torch.tensor([c[0] for c in CODEC_ADD_CASES])])
+    b = torch.cat([pairs.repeat(len(CODEC_U16)),
+                   torch.tensor([c[1] for c in CODEC_ADD_CASES])])
+    cases.append(("special values", special, codec_wire(CODEC_U16, device),
+                  (a.to(torch.uint16).to(device),
+                   b.to(torch.uint16).to(device))))
+    return cases
+
+
+def check_codec_kernels(device):
+    """Phase 2g: K5, K6 and K7 against their plain versions on the card
+    (:func:`codec_cases`), and K7's flush cases against the sums XLA gives
+    on the CPU.  Returns per-kernel errors, cases and mismatches."""
+    import torch
+    from bigdl_tpu_torch import ops
+    names = ("fp16_compress", "fp16_decompress", "fp16_add")
+    errs = {k: 0.0 for k in names}
+    cases = {k: 0 for k in names}
+    misses = {k: 0 for k in names}
+    for name, x, u, (a, b) in codec_cases(device):
+        runs = [("fp16_add", lambda: ops.fp16_add(a, b),
+                 lambda: ops.fp16_add_plain(a.reshape(-1), b.reshape(-1)))]
+        if x is not None:
+            runs += [("fp16_compress", lambda: ops.fp16_compress(x),
+                      lambda: ops.fp16_compress_reference(x.reshape(-1))),
+                     ("fp16_decompress", lambda: ops.fp16_decompress(u),
+                      lambda: ops.fp16_decompress_reference(u.reshape(-1)))]
+        for kernel, run, plain in runs:
+            got = run()
+            torch.cuda.synchronize()
+            n, err = codec_diff(got, plain())
+            cases[kernel] += 1
+            errs[kernel] = max(errs[kernel], err)
+            if n:
+                misses[kernel] += 1
+                fail(f"{kernel} {name}: {n} positions break bit equality "
+                     f"(max |err| {err:.3g})")
+    a, b, want = (codec_wire(c, device) for c in zip(*CODEC_ADD_CASES))
+    got = ops.fp16_add(a, b).cpu().to(torch.int32).tolist()
+    if got != [c[2] for c in CODEC_ADD_CASES]:
+        misses["fp16_add"] += 1
+        fail(f"fp16_add flush cases: {got}, want "
+             f"{[c[2] for c in CODEC_ADD_CASES]}")
+    log("fp16 codec vs plain: " + "; ".join(
+        f"{k} bit-equal in {cases[k]} cases" for k in names) +
+        f" (NaN where the plain result is NaN); K7's {len(CODEC_ADD_CASES)} "
+        "flush cases equal XLA's sums")
+    return errs, cases, misses
+
+
+# -- phase 3k: the codec on the long-context gradient ------------------------
+
+def codec_chain(device):
+    """Phase 3k: the flat f32 gradients of two SGD steps (0.1) of 3h's model
+    (remat, T 8192) in float32, compressed by K5, summed by K7 as the
+    reference's aggregation does and widened by K6, with one launch of each
+    kernel per call: the chain bit-equal to the plain chain, each
+    gradient's round trip within CODEC_RT_RTOL of each value.  In float32,
+    not 3h's bf16 mixed precision: a mixed-precision gradient carries bf16
+    values, which the wire keeps exactly."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    model = TransformerLM(LONG_VOCAB, max_len=LONG_T, embed_dim=LM_EMBED,
+                          num_heads=LM_HEADS, num_layers=LM_LAYERS,
+                          remat=True).reset(SEED).to(device).training_()
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    params = list(model.param_leaves())
+    grads = []
+    for step in range(2):
+        ids = lm_ids((1, LONG_T), SEED + 900 + step, LONG_VOCAB)
+        tgt = torch.from_numpy(np.roll(ids, -1, axis=1).astype(np.float32))
+        loss = crit(model(torch.from_numpy(ids).to(device)), tgt.to(device))
+        g = torch.autograd.grad(loss, params)
+        grads.append(torch.cat([t.reshape(-1).float() for t in g]))
+        with torch.no_grad():
+            for p, t in zip(params, g):
+                p.sub_(0.1 * t)
+    del model, params, g
+    g1, g2 = grads
+    if g1.numel() != LONG_PARAMS:
+        fail(f"codec chain: gradient of {g1.numel()} elements, want "
+             f"{LONG_PARAMS}")
+    ops.reset_launches()
+    w1, w2 = ops.fp16_compress(g1), ops.fp16_compress(g2)
+    total = ops.fp16_decompress(ops.fp16_add(w1, w2))
+    backs = [ops.fp16_decompress(w) for w in (w1, w2)]
+    torch.cuda.synchronize()
+    counts = launches_now()
+    expect_launches("codec chain", counts, {"fp16_compress": 2,
+                                            "fp16_add": 1,
+                                            "fp16_decompress": 3})
+    pw = [ops.fp16_compress_reference(g) for g in (g1, g2)]
+    plain = ops.fp16_decompress_reference(ops.fp16_add_plain(*pw))
+    for what, got, want in (("K5, first", w1, pw[0]),
+                            ("K5, second", w2, pw[1]),
+                            ("the chain", total, plain)):
+        n, err = codec_diff(got, want)
+        if n:
+            fail(f"codec chain: {what} breaks bit equality at {n} "
+                 f"positions (max |err| {err:.3g})")
+    worst = 0.0
+    for g, back in zip((g1, g2), backs):
+        over = (back - g).abs() - (g.abs() * CODEC_RT_RTOL + 1e-30)
+        worst = max(worst, ((back - g).abs() / g.abs().clamp_min(1e-30))
+                    .max().item())
+        if (over > 0).any() or not torch.isfinite(back).all():
+            fail(f"codec chain: round trip beyond {CODEC_RT_RTOL} of the "
+                 f"gradient at {int((over > 0).sum())} positions")
+    # the wire sum against the f32 sum, relative to |g1| + |g2| (a sum that
+    # cancels has no relative error bound of its own)
+    scale = (g1.abs() + g2.abs()).clamp_min(1e-30)
+    sum_rel = ((total - (g1 + g2)).abs() / scale).max().item()
+    report = {"elements": g1.numel(), "wire_bytes": 2 * g1.numel(),
+              "round_trip_worst_rel": worst,
+              "wire_sum_worst_vs_f32_sum": sum_rel,
+              "zeros": int((g1 == 0).sum())}
+    log(f"codec chain on the long-context gradient ({g1.numel()} elements, "
+        f"{2 * g1.numel() / 1e6:.1f} MB on the wire): K5 x2, K7, K6 bit-equal "
+        f"to the plain chain; round trip worst {worst:.3g} of a value (limit "
+        f"{CODEC_RT_RTOL:.3g}); the wire sum differs from the f32 sum by "
+        f"{sum_rel:.3g} of |g1| + |g2| at worst")
+    return report, counts
+
+
+# -- phase 3j: snapshots and resume ------------------------------------------
+
+def snapshots_and_resume(device, folder):
+    """Phase 3j on 3i's corpus at 3i's widths: A ``train_main -e 2``; B ``-e
+    1 --checkpoint``; C a fresh ``--model/--state`` of B's pair ``-e 2``: C's
+    losses equal A's last four within RESUME_RTOL, each run launching 8 K9 +
+    8 K10 + 8 K11 a step and 8 K9 a validation forward; a model file
+    without its state is never picked; greedy ``generate_main`` on B's
+    model extends test sentences with ids in range, its words those of
+    ``TransformerLM.generate`` on the loaded model.  Also the save and load
+    time of the snapshot pair."""
+    import shutil
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import Dictionary, read_sentence
+    from bigdl_tpu_torch.models import transformer
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.utils import File, load_model_snapshot
+    from bigdl_tpu_torch.utils.random_generator import RNG
+    ck = os.path.join(folder, "ck")
+    two = TM_FLAGS[:-2] + ["-e", "2"]
+    saves = []
+    real_checkpoint = LocalOptimizer._maybe_checkpoint
+
+    def timed_checkpoint(self):
+        t0 = time.perf_counter()
+        real_checkpoint(self)
+        saves.append(time.perf_counter() - t0)
+
+    runs, by_path = {}, {}
+    snap = f"{ck}/%s.{TM_STEPS}"             # B's pair, after its epoch
+    for key, argv in (("A", two), ("B", TM_FLAGS + ["--checkpoint", ck]),
+                      ("C", two + ["--model", snap % "model",
+                                   "--state", snap % "state"])):
+        RNG().set_seed(SEED + 600)           # one train/validation split
+        LocalOptimizer._maybe_checkpoint = timed_checkpoint
+        try:
+            with LogArgs("bigdl_tpu_torch.optim", "Epoch ") as steps, \
+                    LogArgs("bigdl_tpu_torch.optim", "%s is %r") as vals:
+                ops.reset_launches()
+                transformer.train_main(["-f", folder] + argv, device=device)
+                counts = launches_now()
+        finally:
+            LocalOptimizer._maybe_checkpoint = real_checkpoint
+        n = len(steps)
+        expect_launches(f"train_main run {key}", counts,
+                        {"attention_stream_fwd": 8 * n + 8 * len(vals),
+                         "attention_stream_bwd_dq": 8 * n,
+                         "attention_stream_bwd_dkv": 8 * n})
+        runs[key] = [a[3] for a in steps]
+        by_path[f"train_main_resume_{key}"] = counts
+    if [len(runs[k]) for k in "ABC"] != [2 * TM_STEPS, TM_STEPS, TM_STEPS]:
+        fail(f"resume: steps {[len(runs[k]) for k in 'ABC']}, want "
+             f"{2 * TM_STEPS}, {TM_STEPS}, {TM_STEPS}")
+    rel = max(abs(c - a) / abs(a)
+              for c, a in zip(runs["C"], runs["A"][TM_STEPS:]))
+    rel_b = max(abs(b - a) / abs(a) for b, a in zip(runs["B"], runs["A"]))
+    if max(rel, rel_b) > RESUME_RTOL:
+        fail(f"resume: C {runs['C']} against A's last {TM_STEPS} "
+             f"{runs['A'][TM_STEPS:]} (worst {rel:.3g}), B {runs['B']} "
+             f"against A's first (worst {rel_b:.3g}); limit {RESUME_RTOL}")
+    t0 = time.perf_counter()
+    model_snap = File.load(snap % "model")
+    state_snap = File.load(snap % "state")
+    load_s = time.perf_counter() - t0
+    pair_bytes = sum(os.path.getsize(snap % f) for f in ("model", "state"))
+    del model_snap, state_snap
+    # a model file whose state never landed (a crash between the writes)
+    shutil.copy(snap % "model", f"{ck}/model.{TM_STEPS + 4}")
+    if LocalOptimizer._latest_file_snapshot(ck) != f".{TM_STEPS}":
+        fail(f"resume: a torn pair was picked: "
+             f"{LocalOptimizer._latest_file_snapshot(ck)}")
+    # generation from B's model
+    vocab = Dictionary(folder)
+    with open(os.path.join(folder, "input.txt")) as f:
+        lines = [f.readline().split()[:GEN_PROMPT_WORDS] for _ in range(2)]
+    with open(os.path.join(folder, "test.txt"), "w") as f:
+        f.write("\n".join(" ".join(w) for w in lines) + "\n")
+    gen_argv = ["-f", folder, "--model", snap % "model",
+                "--words", str(GEN_WORDS), "--temperature", "0"] + \
+        TM_FLAGS[:-4]
+    RNG().set_seed(SEED + 601)
+    t0 = time.perf_counter()
+    grown = transformer.generate_main(gen_argv, device=device)
+    gen_s = time.perf_counter() - t0
+    vocab_size = int(TM_FLAGS[1]) + 2
+    model = transformer.TransformerLM(
+        vocab_size, max_len=int(TM_FLAGS[9]), embed_dim=int(TM_FLAGS[3]),
+        num_heads=int(TM_FLAGS[5]), num_layers=int(TM_FLAGS[7]))
+    load_model_snapshot(model, snap % "model").evaluate()
+    RNG().set_seed(SEED + 601)
+    expected = []
+    for words in read_sentence(folder):
+        seq = [float(vocab.get_index(w)) for w in words]
+        out = model.generate(torch.tensor([seq], dtype=torch.long) + 1,
+                             max_new=GEN_WORDS, device=device)[0].tolist()
+        if not all(1 <= t <= vocab_size for t in out):
+            fail(f"generate_main: ids out of [1, {vocab_size}]: {out}")
+        expected.append(" ".join(vocab.get_word(t) for t in
+                                 seq + [float(t - 1) for t in out]))
+    if grown != expected or [len(g.split()) for g in grown] != \
+            [len(w) + GEN_WORDS for w in lines]:
+        fail("generate_main: its sentences differ from greedy "
+             "TransformerLM.generate on the loaded model")
+    del model
+    report = {"losses": runs, "resumed_worst_rel": rel,
+              "first_epoch_worst_rel": rel_b,
+              "save_s": max(saves), "load_s": load_s,
+              "pair_bytes": pair_bytes, "generate_s": gen_s,
+              "generated": [g.split()[-GEN_WORDS:] for g in grown]}
+    return report, by_path
 
 
 # -- phase 4: timings ---------------------------------------------------------
@@ -2350,6 +2710,43 @@ def time_flash(device):
     return out
 
 
+def time_codec(device):
+    """K5, K6 and K7 per call at CODEC_N elements: median kernel time with
+    the L2 flushed, the bytes bound (6 bytes an element: each input read
+    once, the output written once), the plain versions and, for K6, the
+    one PyTorch call that computes the same function
+    (``u.view(torch.bfloat16).float()``).  No one call computes K5 (the
+    bf16 cast rounds) or K7; the bf16 cast's time stands beside K5 as a
+    reference of the same traffic only."""
+    import torch
+    from bigdl_tpu_torch import ops
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 850)
+    x = torch.randn(CODEC_N, generator=gen, device=device)
+    u = ops.fp16_compress_reference(x)
+    v = ops.fp16_compress_reference(torch.randn(CODEC_N, generator=gen,
+                                                device=device))
+    bound = 1e3 * 6 * CODEC_N / HBM_BYTES_PER_S
+    out = {}
+    for name, kern, plain, lib in (
+            ("fp16_compress", lambda: ops.fp16_compress(x),
+             lambda: ops.fp16_compress_reference(x), None),
+            ("fp16_decompress", lambda: ops.fp16_decompress(u),
+             lambda: ops.fp16_decompress_reference(u),
+             lambda: u.view(torch.bfloat16).float()),
+            ("fp16_add", lambda: ops.fp16_add(u, v),
+             lambda: ops.fp16_add_plain(u, v), None)):
+        out[name] = {"ms": median_ms(kern, device, flush=flush),
+                     "plain_ms": median_ms(plain, device, flush=flush),
+                     "library_ms": None if lib is None else
+                     median_ms(lib, device, flush=flush),
+                     "bound_ms": bound, "bytes_ms": bound, "ops_ms": 0.0,
+                     "bound_by": "bytes", "elements": CODEC_N}
+    out["fp16_compress"]["bf16_cast_ms"] = median_ms(
+        lambda: x.to(torch.bfloat16), device, flush=flush)
+    return out
+
+
 def time_lm(score_model, long_model, gen_model, prompt, device):
     """Scoring tokens/s (one bf16 forward, median of 5) at both
     configurations, generation new tokens/s (median of 3), and a profiler
@@ -2572,6 +2969,15 @@ KERNELS = [
      "wrapper": "attention_stream_bwd_dkv", "route": "cuda",
      "source": "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
      "replaces": "bigdl_tpu/ops/attention.py:415"},
+    {"name": "fp16_compress", "wrapper": "fp16_compress", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/fp16_codec.cu",
+     "replaces": "bigdl_tpu/ops/fp16.py:59"},
+    {"name": "fp16_decompress", "wrapper": "fp16_decompress",
+     "route": "cuda", "source": "bigdl_tpu_torch/csrc/fp16_codec.cu",
+     "replaces": "bigdl_tpu/ops/fp16.py:64"},
+    {"name": "fp16_add", "wrapper": "fp16_add", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/fp16_codec.cu",
+     "replaces": "bigdl_tpu/ops/fp16.py:69"},
 ]
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2623,6 +3029,8 @@ def main() -> int:
         d.update(more)
     for d, more in zip((errs, cases, misses), check_flash_kernels(device)):
         d.update(more)
+    for d, more in zip((errs, cases, misses), check_codec_kernels(device)):
+        d.update(more)
     # phase 3, 3b, 3c and 3d: each path's launches counted from 0
     report, serve_launches = serve(device)
     train_report, train_launches = train(device)
@@ -2658,7 +3066,23 @@ def main() -> int:
         f"the model's upload), busy share {p['busy_share']:.3f} of the "
         f"{long_report['remat']['ms_per_step']:.1f} ms step; top kernels "
         "(ms a step): " + json.dumps(p["top"]))
-    tm_report, lm_launches["train_main"] = train_main_long(device)
+    tm_report, lm_launches["train_main"], (resume_report, resume_launches) \
+        = train_main_long(device)
+    lm_launches.update(resume_launches)
+    losses = resume_report["losses"]
+    log(f"[{card}] snapshots and resume (train_main f32, "
+        f"{' '.join(TM_FLAGS[:-2])}): A -e 2 {losses['A']}; B -e 1 --checkpoint {losses['B']}; C "
+        f"--model/--state of B's pair -e 2 {losses['C']}: C within "
+        f"{resume_report['resumed_worst_rel']:.3g} of A's last {TM_STEPS} "
+        f"(limit {RESUME_RTOL}), B within "
+        f"{resume_report['first_epoch_worst_rel']:.3g} of A's first; "
+        f"snapshot pair {resume_report['pair_bytes'] / 1e6:.1f} MB, save "
+        f"{resume_report['save_s']:.3f} s, load {resume_report['load_s']:.3f}"
+        f" s; generate_main (greedy, {GEN_WORDS} words after "
+        f"{GEN_PROMPT_WORDS}) {resume_report['generate_s']:.2f} s, equal to "
+        "TransformerLM.generate on the loaded model")
+    # phase 3k: the codec on the long-context model's gradients
+    codec_report, lm_launches["codec"] = codec_chain(device)
     log(f"[{card}] train_main (f32, {' '.join(TM_FLAGS)}): "
         f"{len(tm_report['losses'])} steps, losses {tm_report['losses']}, "
         f"validation loss {tm_report['validation_loss']:.4f}, step "
@@ -2795,6 +3219,18 @@ def main() -> int:
                 f"(dq, dk, dv together) {r['library_ms']:.4f} ms")
     long_report["kernel_times"] = flash_times
     long_report["train_main"] = tm_report
+    long_report["snapshots_and_resume"] = resume_report
+    codec_times = time_codec(device)
+    for name, t in codec_times.items():
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        log(f"[{card}] {name} at {CODEC_N} elements (per call): "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes), plain "
+            f"{t['plain_ms']:.4f} ms, library {lib} ms")
+    log(f"[{card}] x.to(torch.bfloat16) at {CODEC_N} elements (rounds; "
+        "the same traffic as K5, not its function): "
+        f"{codec_times['fp16_compress']['bf16_cast_ms']:.4f} ms")
+    codec_report["kernel_times"] = codec_times
+    log("fp16 codec: " + json.dumps(codec_report))
     log("transformer LM training: " + json.dumps(long_report))
     for where, tt in (("serving shapes, f32", times),
                       ("training shapes, bf16", train_times)):
@@ -2852,6 +3288,9 @@ def main() -> int:
             entry["shape"] = paged_times["decode"]["shape"]
             entry["prefill"] = {k2: paged_times[k2]
                                 for k2 in ("prefill_512", "prefill_128")}
+        elif name in codec_times:    # per call at CODEC_N elements
+            entry.update({k2: codec_times[name][k2] for k2 in TIME_KEYS})
+            entry["elements"] = CODEC_N
         elif name in qtimes:     # quantized: one batch-32 forward, bf16
             entry.update({key: qtimes[name][key] for key in TIME_KEYS})
             entry["calls_per_forward"] = qtimes[name]["calls"]

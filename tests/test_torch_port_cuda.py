@@ -25,7 +25,10 @@ float32 and two bfloat16 steps of it in bfloat16 (ds and p rounded where
 the reference rounds them), and K11 is bit-equal across launches.  K8's
 backward (autograd of the chunked plain form) agrees with autograd of the
 plain form to 1e-4 of each gradient's largest magnitude in float32 (the
-same math, f32 sums in another order).
+same math, f32 sums in another order).  The fp16 codec K5, K6 and K7 is
+bit-equal to its plain versions wherever the plain result is not a NaN, and
+a NaN where it is (K7's NaN is the card's canonical one), on a table of
+special values and at misaligned offsets.
 """
 
 import pytest
@@ -35,6 +38,7 @@ from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                  lrn_plain, max_pool2d, max_pool2d_bwd,
                                  max_pool2d_bwd_plain, max_pool2d_plain)
 from bigdl_tpu_torch.ops import attention as attn
+from bigdl_tpu_torch.ops import fp16
 from bigdl_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.cuda
@@ -488,3 +492,82 @@ def test_attention_kernels_at_other_head_dims(cuda_device, dtype, d):
         assert _attn_close(got, plain(q, k, v, True), mag, dt)
     case = (2, 4, 2, 3, d, 8, 6, [41, 9], False)
     assert _paged_close(paged_operands(case, dt, dt, cuda_device, d), dt)
+
+
+# float32 bits and wire values of the codec's special cases: signed zeros,
+# subnormals, the smallest and largest normals, infinities, quiet and
+# signalling NaNs with high and low payloads, +-1
+CODEC_F32 = [0x00000000, 0x80000000, 0x00000001, 0x807FFFFF, 0x00010000,
+             0x00800000, 0x80800000, 0x7F7FFFFF, 0xFF7FFFFF, 0x7F800000,
+             0xFF800000, 0x7F800001, 0x7FA00000, 0x7FC00000, 0xFFC00000,
+             0x7FFFFFFF, 0x3F800000, 0x3F80FFFF, 0xBF818000]
+CODEC_U16 = [0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x807F, 0x0080,
+             0x8080, 0x0081, 0x8081, 0x0100, 0x7F7F, 0xFF7F, 0x7F80, 0xFF80,
+             0x7F81, 0xFFBF, 0x7FC0, 0xFFC0, 0x7FFF, 0x3F80, 0xBF80]
+
+
+def _u16_nan(u):
+    w = u.to(torch.int32)
+    return ((w & 0x7F80) == 0x7F80) & ((w & 0x7F) != 0)
+
+
+def _same_bits(got, want):
+    """Bit-equal where ``want`` is not a NaN; a NaN where it is."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if want.dtype == torch.float32:
+        nan = torch.isnan(want)
+        same = torch.isnan(got) == nan
+        bits = got.view(torch.int32) == want.view(torch.int32)
+    else:
+        nan = _u16_nan(want)
+        same = _u16_nan(got) == nan
+        bits = got.to(torch.int32) == want.to(torch.int32)
+    return bool(same.all() and (bits | nan).all())
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+def test_fp16_codec_kernels_match_plain(cuda_device, offset):
+    """K5, K6 and K7 on the special values, every pair of the wire table
+    and seeded normals, read at an element ``offset`` into their buffers
+    (the two K7 operands one element apart), so the vector path meets
+    misaligned pointers and ragged tails."""
+    g = torch.Generator(device=cuda_device).manual_seed(offset)
+    special = torch.tensor(CODEC_F32, dtype=torch.int64).to(
+        torch.int32).view(torch.float32).to(cuda_device)
+    x = torch.cat([special, torch.randn(8191, generator=g,
+                                        device=cuda_device), special])
+    pairs = torch.tensor(CODEC_U16, dtype=torch.int32)
+    a = pairs.repeat_interleave(len(CODEC_U16))
+    b = pairs.repeat(len(CODEC_U16))
+    # the wire buffers are put together in int32 (uint16 has few ops)
+    wire = fp16.fp16_compress_reference(x).to(torch.int32)
+    ua = torch.cat([a.to(cuda_device), wire, wire[:9]]).to(torch.uint16)
+    ub = torch.cat([b.to(cuda_device), wire.flip(0), wire[:10]]).to(
+        torch.uint16)
+    n = ua.numel() - 9
+    before = [fn.launches for fn in (fp16.fp16_compress,
+                                     fp16.fp16_decompress, fp16.fp16_add)]
+    xs = x[offset:]
+    got = fp16.fp16_compress(xs)
+    back = fp16.fp16_decompress(ua[offset:offset + n])
+    total = fp16.fp16_add(ua[offset:offset + n], ub[offset + 1:offset + 1 + n])
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (fp16.fp16_compress, fp16.fp16_decompress,
+                                   fp16.fp16_add)] == [c + 1 for c in before]
+    assert _same_bits(got, fp16.fp16_compress_reference(xs))
+    assert _same_bits(back, fp16.fp16_decompress_reference(
+        ua[offset:offset + n]))
+    assert _same_bits(total, fp16.fp16_add_plain(
+        ua[offset:offset + n], ub[offset + 1:offset + 1 + n]))
+    # a strided input, a reshaped output, the flush cases
+    assert _same_bits(fp16.fp16_compress(x[::3]),
+                      fp16.fp16_compress_reference(x[::3]))
+    assert fp16.fp16_decompress(got[:12], shape=(3, 4)).shape == (3, 4)
+    flush = fp16.fp16_add(
+        torch.tensor([0x0001, 0x8001, 0x807F, 0x0081, 0x0001],
+                     dtype=torch.int32).to(torch.uint16).to(cuda_device),
+        torch.tensor([0x0001, 0x8001, 0x0000, 0x8080, 0x3F80],
+                     dtype=torch.int32).to(torch.uint16).to(cuda_device))
+    assert flush.cpu().to(torch.int32).tolist() == \
+        [0x0000, 0x8000, 0x0000, 0x0000, 0x3F80]

@@ -175,8 +175,9 @@ def test_backward_matches_the_plain_backward(op):
 
 def test_build_is_lazy_and_keyed_by_the_sources(monkeypatch, tmp_path):
     names = [p.name for p in _build.sources()]
-    assert names == ["attention.cu", "flash_attention_bwd.cu", "lrn.cu",
-                     "max_pool.cu", "paged_attention.cu", "quant_matmul.cu"]
+    assert names == ["attention.cu", "flash_attention_bwd.cu",
+                     "fp16_codec.cu", "lrn.cu", "max_pool.cu",
+                     "paged_attention.cu", "quant_matmul.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert _build._lib is None or torch.cuda.is_available()
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -180,3 +180,45 @@ def test_narrow_inception_trajectory_matches_jax_kernels(monkeypatch,
         _assert_weights_close(jm, tm, atol=1e-4)
     # on the CPU every wrapper took its plain version
     assert all(fn.launches == 0 for fn in ops.KERNEL_WRAPPERS)
+
+
+def test_mid_epoch_state_resumes_at_the_reference_batch(jax_losses):
+    """A bare ``set_state`` in mid-epoch (epoch 2, 16 of 48 records
+    trained) skips the records the state says were trained, as the
+    reference's resume fast-forward does: both trainers take batches 3-6 of
+    epoch 2's shuffle, then the first of epoch 3's.  A remainder smaller
+    than a batch raises in both."""
+    from bigdl_tpu.utils.table import T as JT
+    from bigdl_tpu_torch.utils.table import T
+
+    jm, tm = JLeNet5(10), LeNet5(10)
+    _build(jm, 7)
+    load_jax_params(tm, _np_params(jm))
+
+    def pair(records, iters):
+        jopt = JLocalOptimizer(
+            jm, jnn.ClassNLLCriterion(),
+            JDataSet.array(_samples(JSample, 48, (28, 28), 10, 1)) >>
+            JSampleToBatch(8), JTrigger.max_iteration(iters))
+        topt = LocalOptimizer(
+            tm, tnn.ClassNLLCriterion(),
+            DataSet.array(_samples(Sample, 48, (28, 28), 10, 1)) >>
+            SampleToBatch(8), Trigger.max_iteration(iters), device="cpu")
+        for opt, sgd, t in ((jopt, JSGD, JT), (topt, SGD, T)):
+            opt.set_optim_method(sgd(learning_rate=0.05))
+            opt.set_state(t(epoch=2, neval=8,
+                            recordsProcessedThisEpoch=records))
+        return jopt, topt
+
+    jopt, topt = pair(16, 13)
+    jopt.optimize()
+    topt.optimize()
+    tl = [r["loss"] for r in topt.step_records]
+    assert len(tl) == len(jax_losses) == 5
+    np.testing.assert_allclose(tl, jax_losses, rtol=1e-5)
+    assert [r["epoch"] for r in topt.step_records] == [2, 2, 2, 2, 3]
+    assert (topt.state["epoch"], topt.state["neval"]) == \
+        (jopt.state["epoch"], jopt.state["neval"]) == (3, 13)
+    for opt in pair(12, 10):
+        with pytest.raises(ValueError, match="resume skip remainder 4"):
+            opt.optimize()

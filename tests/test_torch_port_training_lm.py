@@ -321,10 +321,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LocalOptimizer(TransformerLM(10, max_len=8, remat=True),
                        tnn.ClassNLLCriterion(), DataSet.array([]))
-    for flag in ("--checkpoint", "--model", "--state"):
-        with pytest.raises(NotImplementedError, match="checkpoint slice"):
-            ttransformer.train_main(["-f", str(tmp_path), flag, "x"],
-                                    device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttransformer.generate_main(["-f", str(tmp_path), "--model", "x",
+                                    "--words", "2"])
     with pytest.raises(NotImplementedError, match="DistriOptimizer slice"):
         tperf.main(["distri"])
     assert not os.path.exists(tmp_path / "dictionary.txt")
