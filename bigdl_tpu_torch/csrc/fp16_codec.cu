@@ -9,11 +9,10 @@
 // Replace bigdl_tpu/ops/fp16.py `_compress_kernel`, `_decompress_kernel` and
 // `_add_kernel` (reached through `_elementwise_call`), which padded the flat
 // vector to (rows, 128) blocks of 256 rows in VMEM.  Here a grid-stride loop
-// over the flat vector with 64-bit indices: each step moves 8 elements as
-// 16-byte vector loads and stores, once a scalar head has brought every
-// pointer to a 16-byte boundary; a scalar tail takes what is left.  When no
-// head aligns them all (a view at an odd element offset beside a fresh
-// output), the loop runs scalar over the whole vector.
+// over the flat vector with 64-bit indices: when every pointer lies on a
+// 16-byte boundary, each step moves 8 elements as 16-byte vector loads and
+// stores and a scalar tail takes the last n % 8; otherwise (a view at an
+// odd offset) the scalar loop takes the whole vector.
 //
 // K7 adds with `add.rn.ftz.f32`: the TPU, and XLA on the CPU, flush
 // subnormals in f32 arithmetic, so a subnormal input counts as signed zero
@@ -25,6 +24,8 @@
 // Bound on the H100: bytes.  Each kernel reads its inputs once and writes
 // its output once: 6 bytes per element (K5: 4 in, 2 out; K6: 2 in, 4 out;
 // K7: 2 + 2 in, 2 out) at 3.35 TB/s; the one add per element is nothing.
+#include <initializer_list>
+
 #include "common.cuh"
 
 namespace {
@@ -54,42 +55,33 @@ __device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
          (add_ftz(a >> 16, b >> 16) << 16);
 }
 
-// Element i of the scalar part: the head [0, head), then the tail from
-// head + kVec * vecs.
-__device__ __forceinline__ long long scalar_index(long long s, long long head,
-                                                  long long tail0) {
-  return s < head ? s : tail0 + (s - head);
-}
-
 __global__ void compress_kernel(const float* __restrict__ x,
                                 uint16_t* __restrict__ out, long long n,
-                                long long head, long long vecs) {
+                                long long vecs) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const float4* xv = reinterpret_cast<const float4*>(x + head);
-  uint4* ov = reinterpret_cast<uint4*>(out + head);
+  const float4* xv = reinterpret_cast<const float4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
   for (long long v = tid; v < vecs; v += stride) {
     const float4 p = xv[2 * v];
     const float4 q = xv[2 * v + 1];
     ov[v] = make_uint4(compress2(p.x, p.y), compress2(p.z, p.w),
                        compress2(q.x, q.y), compress2(q.z, q.w));
   }
-  const long long tail0 = head + kVec * vecs;
-  for (long long s = tid; s < head + n - tail0; s += stride) {
-    const long long i = scalar_index(s, head, tail0);
+  for (long long i = kVec * vecs + tid; i < n; i += stride) {
     out[i] = static_cast<uint16_t>(__float_as_uint(x[i]) >> 16);
   }
 }
 
 __global__ void decompress_kernel(const uint16_t* __restrict__ u,
                                   float* __restrict__ out, long long n,
-                                  long long head, long long vecs) {
+                                  long long vecs) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const uint4* uv = reinterpret_cast<const uint4*>(u + head);
-  float4* ov = reinterpret_cast<float4*>(out + head);
+  const uint4* uv = reinterpret_cast<const uint4*>(u);
+  float4* ov = reinterpret_cast<float4*>(out);
   for (long long v = tid; v < vecs; v += stride) {
     const uint4 w = uv[v];
     ov[2 * v] = make_float4(widen(w.x & 0xFFFFu), __uint_as_float(
@@ -99,9 +91,7 @@ __global__ void decompress_kernel(const uint16_t* __restrict__ u,
         w.z & 0xFFFF0000u), widen(w.w & 0xFFFFu),
         __uint_as_float(w.w & 0xFFFF0000u));
   }
-  const long long tail0 = head + kVec * vecs;
-  for (long long s = tid; s < head + n - tail0; s += stride) {
-    const long long i = scalar_index(s, head, tail0);
+  for (long long i = kVec * vecs + tid; i < n; i += stride) {
     out[i] = widen(u[i]);
   }
 }
@@ -109,54 +99,36 @@ __global__ void decompress_kernel(const uint16_t* __restrict__ u,
 __global__ void add_kernel(const uint16_t* __restrict__ a,
                            const uint16_t* __restrict__ b,
                            uint16_t* __restrict__ out, long long n,
-                           long long head, long long vecs) {
+                           long long vecs) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const uint4* av = reinterpret_cast<const uint4*>(a + head);
-  const uint4* bv = reinterpret_cast<const uint4*>(b + head);
-  uint4* ov = reinterpret_cast<uint4*>(out + head);
+  const uint4* av = reinterpret_cast<const uint4*>(a);
+  const uint4* bv = reinterpret_cast<const uint4*>(b);
+  uint4* ov = reinterpret_cast<uint4*>(out);
   for (long long v = tid; v < vecs; v += stride) {
     const uint4 p = av[v];
     const uint4 q = bv[v];
     ov[v] = make_uint4(add2(p.x, q.x), add2(p.y, q.y), add2(p.z, q.z),
                        add2(p.w, q.w));
   }
-  const long long tail0 = head + kVec * vecs;
-  for (long long s = tid; s < head + n - tail0; s += stride) {
-    const long long i = scalar_index(s, head, tail0);
+  for (long long i = kVec * vecs + tid; i < n; i += stride) {
     out[i] = static_cast<uint16_t>(add_ftz(a[i], b[i]));
   }
 }
 
-// The vector run's geometry: `head`, the fewest leading elements (< kVec)
-// after which every pointer (element sizes `sizes`) lies on a 16-byte
-// boundary, and `vecs`, the whole vector steps after it; head = n and
-// vecs = 0 when no such head exists.
-struct Split {
-  long long head, vecs;
-};
-
-Split split(long long n, const void* const* ptrs, const int* sizes,
-            int count) {
-  for (int h = 0; h < kVec; ++h) {
-    bool aligned = true;
-    for (int i = 0; i < count; ++i) {
-      aligned = aligned &&
-                (reinterpret_cast<uintptr_t>(ptrs[i]) +
-                 static_cast<uintptr_t>(h) * sizes[i]) % 16 == 0;
-    }
-    if (aligned) {
-      const long long head = h < n ? h : n;
-      return {head, (n - head) / kVec};
-    }
+// Whole 8-element vector steps: n / kVec when every pointer lies on a
+// 16-byte boundary, else 0 (the scalar loop takes the whole vector).
+long long vector_steps(long long n, std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 0;
   }
-  return {n, 0};
+  return n / kVec;
 }
 
-unsigned int blocks(const Split& sp, long long n) {
-  const long long scalars = n - kVec * sp.vecs;
-  const long long units = sp.vecs > scalars ? sp.vecs : scalars;
+unsigned int blocks(long long vecs, long long n) {
+  const long long scalars = n - kVec * vecs;
+  const long long units = vecs > scalars ? vecs : scalars;
   const long long b = (units + bigdl::kThreads - 1) / bigdl::kThreads;
   return static_cast<unsigned int>(b < kMaxBlocks ? (b < 1 ? 1 : b)
                                                   : kMaxBlocks);
@@ -167,38 +139,30 @@ unsigned int blocks(const Split& sp, long long n) {
 extern "C" int bigdl_fp16_compress(const void* x, void* out, long long n,
                                    void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const void* ptrs[] = {x, out};
-  const int sizes[] = {4, 2};
-  const Split sp = split(n, ptrs, sizes, 2);
-  compress_kernel<<<blocks(sp, n), bigdl::kThreads, 0,
+  const long long vecs = vector_steps(n, {x, out});
+  compress_kernel<<<blocks(vecs, n), bigdl::kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<uint16_t*>(out), n, sp.head,
-      sp.vecs);
+      static_cast<const float*>(x), static_cast<uint16_t*>(out), n, vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bigdl_fp16_decompress(const void* u, void* out, long long n,
                                      void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const void* ptrs[] = {u, out};
-  const int sizes[] = {2, 4};
-  const Split sp = split(n, ptrs, sizes, 2);
-  decompress_kernel<<<blocks(sp, n), bigdl::kThreads, 0,
+  const long long vecs = vector_steps(n, {u, out});
+  decompress_kernel<<<blocks(vecs, n), bigdl::kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(u), static_cast<float*>(out), n, sp.head,
-      sp.vecs);
+      static_cast<const uint16_t*>(u), static_cast<float*>(out), n, vecs);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bigdl_fp16_add(const void* a, const void* b, void* out,
                               long long n, void* stream) {
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const void* ptrs[] = {a, b, out};
-  const int sizes[] = {2, 2, 2};
-  const Split sp = split(n, ptrs, sizes, 3);
-  add_kernel<<<blocks(sp, n), bigdl::kThreads, 0,
+  const long long vecs = vector_steps(n, {a, b, out});
+  add_kernel<<<blocks(vecs, n), bigdl::kThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
-      static_cast<uint16_t*>(out), n, sp.head, sp.vecs);
+      static_cast<uint16_t*>(out), n, vecs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,10 @@ generator's state), the state file last: it is the pair's commit marker.
 A resumed run (``resume_from``, ``auto_resume`` or ``set_state`` with a
 state snapshot) replays the completed epochs' shuffles and skips the
 records the interrupted epoch had trained, so it takes exactly the batches,
-the updates and the dropout masks of an uninterrupted run.
+the updates and the dropout masks of an uninterrupted run.  A generator
+state of another device type (a snapshot taken on the card, resumed on the
+CPU) cannot be restored: that run keeps the batches and the updates, and
+its draws restart from the seed.
 """
 
 from __future__ import annotations

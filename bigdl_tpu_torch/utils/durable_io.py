@@ -21,10 +21,12 @@ import threading
 from typing import Optional
 
 
-def _publish(path: str, data: str, encoding: str = "utf-8") -> None:
+def atomic_write_bytes(path: str, data: bytes) -> None:
+    """Durably publish ``data`` at ``path`` (the guarantee of
+    :func:`atomic_write_json`, for bytes)."""
     tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
     try:
-        with open(tmp, "w", encoding=encoding) as f:
+        with open(tmp, "wb") as f:
             f.write(data)
             f.flush()
             os.fsync(f.fileno())
@@ -51,4 +53,4 @@ def atomic_write_text(path: str, data: str,
                       encoding: str = "utf-8") -> None:
     """Durably publish ``data`` at ``path`` (the guarantee of
     :func:`atomic_write_json`, for other text)."""
-    _publish(path, data, encoding=encoding)
+    atomic_write_bytes(path, data.encode(encoding))

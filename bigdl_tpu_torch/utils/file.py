@@ -5,8 +5,9 @@ of a tree of host numpy arrays and plain Python values: tensors are
 brought to the host as numpy before the pickle, so a file holds no torch
 object and has one format in both packages.  A ``model.<n>`` snapshot is
 ``{"params", "model_state"}`` with ``params`` the JAX package's pytree
-(``convert.export_params``).  Local paths are written to ``<path>.tmp``,
-fsynced and renamed; a ``scheme://`` path goes through an opener given to
+(``convert.export_params``).  Local paths are published atomically
+(``durable_io.atomic_write_bytes``: a tmp file per writer, fsynced and
+renamed); a ``scheme://`` path goes through an opener given to
 :func:`register_filesystem`, else through ``fsspec`` where it is installed.
 
 :meth:`File.load` refuses a pickle that names a class of ``bigdl_tpu`` or
@@ -21,6 +22,8 @@ import pickle
 from typing import Any, Callable, Dict
 
 import torch
+
+from bigdl_tpu_torch.utils.durable_io import atomic_write_bytes
 
 # scheme -> opener(path, mode) -> file object; takes precedence over fsspec
 _REGISTRY: Dict[str, Callable[[str, str], Any]] = {}
@@ -110,12 +113,7 @@ class File:
             d = os.path.dirname(local)
             if d:
                 os.makedirs(d, exist_ok=True)
-            tmp = local + ".tmp"
-            with open(tmp, "wb") as f:
-                pickle.dump(obj, f, protocol=4)
-                f.flush()
-                os.fsync(f.fileno())         # pin the bytes before the rename
-            os.replace(tmp, local)           # atomic on POSIX
+            atomic_write_bytes(local, pickle.dumps(obj, protocol=4))
         else:
             # object stores upload whole objects: no tmp and rename
             with _open(path, "wb") as f:
@@ -125,14 +123,6 @@ class File:
     def load(path: str) -> Any:
         with _open(path, "rb") as f:
             return _Unpickler(f).load()
-
-
-def save(obj: Any, path: str, is_overwrite: bool = False) -> None:
-    File.save(obj, path, is_overwrite)
-
-
-def load(path: str) -> Any:
-    return File.load(path)
 
 
 def tree_structure(tree: Any):

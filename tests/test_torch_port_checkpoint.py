@@ -275,10 +275,10 @@ def test_file_save_load_and_the_refused_classes(tmp_path):
     with pytest.raises(FileExistsError):
         tfile.File.save({}, path)
     tfile.File.save({"x": 1}, path, is_overwrite=True)
-    assert tfile.load(path) == {"x": 1}
+    assert tfile.File.load(path) == {"x": 1}
     # the port's validation results load; the JAX package's are refused
-    tfile.save({"lastValidation": [LossResult(2.0, 4)]}, path, True)
-    assert tfile.load(path)["lastValidation"][0].result() == (0.5, 4)
+    tfile.File.save({"lastValidation": [LossResult(2.0, 4)]}, path, True)
+    assert tfile.File.load(path)["lastValidation"][0].result() == (0.5, 4)
     jfile.File.save({"state": {"lastValidation": [JLossResult(2.0, 4)]}},
                     path, True)
     with pytest.raises(ValueError,

@@ -28,18 +28,27 @@ plain form to 1e-4 of each gradient's largest magnitude in float32 (the
 same math, f32 sums in another order).  The fp16 codec K5, K6 and K7 is
 bit-equal to its plain versions wherever the plain result is not a NaN, and
 a NaN where it is (K7's NaN is the card's canonical one), on a table of
-special values and at misaligned offsets.
+special values and at misaligned offsets.  A LocalOptimizer run resumed from
+a snapshot on the card draws the uninterrupted run's dropout masks (the
+CUDA generator's state is restored exactly) and agrees with it to 1e-5.
 """
 
+import numpy as np
 import pytest
 import torch
 
+import bigdl_tpu_torch.nn as tnn
+from bigdl_tpu_torch.convert import export_params, load_jax_params
+from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
+from bigdl_tpu_torch.models import TransformerLM
 from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                  lrn_plain, max_pool2d, max_pool2d_bwd,
                                  max_pool2d_bwd_plain, max_pool2d_plain)
 from bigdl_tpu_torch.ops import attention as attn
 from bigdl_tpu_torch.ops import fp16
 from bigdl_tpu_torch.ops import quant
+from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+from bigdl_tpu_torch.core.module import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -526,12 +535,13 @@ def _same_bits(got, want):
     return bool(same.all() and (bits | nan).all())
 
 
-@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+@pytest.mark.parametrize("offset", [0, 1, 3, 4, 8])
 def test_fp16_codec_kernels_match_plain(cuda_device, offset):
     """K5, K6 and K7 on the special values, every pair of the wire table
     and seeded normals, read at an element ``offset`` into their buffers
-    (the two K7 operands one element apart), so the vector path meets
-    misaligned pointers and ragged tails."""
+    (the two K7 operands one element apart): the vector path at 0 and 8
+    (K5 also at 4), the scalar path where a pointer is misaligned, and
+    ragged tails."""
     g = torch.Generator(device=cuda_device).manual_seed(offset)
     special = torch.tensor(CODEC_F32, dtype=torch.int64).to(
         torch.int32).view(torch.float32).to(cuda_device)
@@ -571,3 +581,60 @@ def test_fp16_codec_kernels_match_plain(cuda_device, offset):
                      dtype=torch.int32).to(torch.uint16).to(cuda_device))
     assert flush.cpu().to(torch.int32).tolist() == \
         [0x0000, 0x8000, 0x0000, 0x0000, 0x3F80]
+
+
+CARD_LM = dict(max_len=12, embed_dim=16, num_heads=2, num_layers=1)
+
+
+def _card_lm_trainer(device, weights, iters, dropout=0.3, seed=3):
+    """A 1-layer LM with ``dropout`` on the card over 12 seeded sequences
+    in batches of 4 (3 steps an epoch, reshuffled at each epoch), from
+    ``weights``."""
+    tm = TransformerLM(30, dropout=dropout, **CARD_LM)
+    load_jax_params(tm, weights)
+    ids = np.random.RandomState(4).randint(1, 31, (12, 12)).astype(
+        np.float32)
+    opt = LocalOptimizer(
+        tm, tnn.TimeDistributedCriterion(tnn.ClassNLLCriterion(),
+                                         size_average=True),
+        DataSet.array([Sample(x, np.roll(x, -1)) for x in ids]) >>
+        SampleToBatch(4), Trigger.max_iteration(iters), device=device)
+    opt.set_optim_method(SGD(learning_rate=0.2, momentum=0.9,
+                             dampening=0.0)).set_seed(seed)
+    return opt
+
+
+def test_resume_on_the_card_draws_the_same_dropout_masks(cuda_device,
+                                                          tmp_path):
+    """7 steps straight on the card, against 4 steps with a snapshot
+    (mid-epoch 2) and 3 more by a fresh trainer that crosses into epoch 3:
+    the snapshot carries the CUDA generator's state, so the resumed run
+    draws the uninterrupted run's dropout masks and its generator ends in
+    the same state.  Losses within 1e-5 relative and weights within 1e-5
+    of each tensor's largest magnitude (library backward ops may sum in
+    another order on the card); a run seeded otherwise, whose masks differ,
+    moves the losses far beyond that."""
+    weights = export_params(TransformerLM(30, **CARD_LM).reset(5))
+    straight = _card_lm_trainer(cuda_device, weights, 7)
+    straight.optimize()
+    first = _card_lm_trainer(cuda_device, weights, 4)
+    first.set_checkpoint(str(tmp_path), Trigger.several_iteration(4))
+    first.optimize()
+    resumed = _card_lm_trainer(
+        cuda_device, export_params(TransformerLM(30, **CARD_LM).reset(9)), 7)
+    resumed.resume_from(str(tmp_path))
+    resumed.optimize()
+    assert torch.equal(resumed._generator.get_state(),
+                       straight._generator.get_state())
+    want = np.array([r["loss"] for r in straight.step_records])
+    got = np.array([r["loss"] for r in first.step_records +
+                    resumed.step_records])
+    assert got.shape == (7,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(export_params(resumed.model)),
+                    tree_leaves(export_params(straight.model))):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+    other = _card_lm_trainer(cuda_device, weights, 7, seed=4)
+    other.optimize()
+    moved = np.array([r["loss"] for r in other.step_records])
+    assert np.abs(moved - want).max() > 1e-3 * np.abs(want).max()
