@@ -1,64 +1,93 @@
 // The flash backward of the streaming attention (K9, attention.cu): dQ, dK
-// and dV from q (B*H, Tq, D), k, v (B*Hk, Tk, D), K9's output o and its row
-// logsumexp lse (B*H, Tq) f32, the upstream gradient do (like q) and the
-// optional (B, Tk) f32 additive key-padding bias.  Per (query, key) pair,
-// p = exp(s - lse) (0 where s <= NEG_INF / 2, the guard applied before the
-// exp: a row with every key padded has lse ~ NEG_INF and would otherwise
-// get exp(0) = 1), delta = rowsum(dO * O), dp = dO v^T,
+// and dV from q (B*H, Tq, D), k, v (B*Hk, Tk, D), K9's row logsumexp lse
+// (B*H, Tq) f32, the upstream gradient do (like q), the optional (B, Tk)
+// f32 additive key-padding bias and delta = rowsum(dO * O) (B*H, Tq) f32.
+// Per (query, key) pair, p = exp(s - lse) (0 where s <= NEG_INF / 2, the
+// guard applied before the exp: a row with every key padded has lse ~
+// NEG_INF and would otherwise get exp(0) = 1), dp = dO v^T,
 // ds = p (dp - delta) scale; dq = ds k, dk = ds^T q, dv = p^T dO.  Query
 // head i of batch row b reads KV row b*Hk + i / (H / Hk) (GQA); the causal
 // mask is top-left aligned (q_pos >= k_pos), masked scores NEG_INF.
 //
-// K10 replaces bigdl_tpu/ops/attention.py `_bwd_dq_kernel` (via
-// `_flash_streaming_bwd`).  The TPU kernel carried dq in VMEM scratch over
-// a sequential K grid axis and recomputed delta per block.  Here one block
-// of 4 warps owns (one B*H row, 64 query rows, 16 a warp), computes delta
-// once per row in its prologue, keeps dq in f32 registers, and walks the
-// 64-key K/V tiles up to the causal frontier, skipping tiles whose keys
-// are all padded, as K9 does.
-// K11 replaces `_bwd_dkv_kernel`.  The TPU kernel ran an inner grid of
-// group * n_q_blocks steps per KV block (every query block of every query
-// head sharing the KV head) into VMEM scratch.  Here one block owns (one
-// B*Hk row, 64 keys), keeps dk and dv in f32 registers, and loops over the
-// same group * n_q query tiles itself, from the KV tile's causal frontier
-// on (the first query tile that reaches its first key).  So K11 needs no
-// atomicAdd: its sums have a fixed order and two launches are bit-equal.
-// A KV tile whose keys are all padded writes zeros and loops over nothing.
+// The delta pass (bigdl_flash_bwd_delta) computes delta once per backward,
+// 8 lanes a row with 16-byte loads of O and dO, for K10 and K11 to share:
+// the TPU kernels recomputed it per block (bigdl_tpu/ops/attention.py
+// `_bwd_dq_kernel`, `_bwd_dkv_kernel`), where the VPU had cycles to spare;
+// per (KV tile, query tile) that is Tk / 64 strided passes over O and dO
+// for every row.  It reads 2 Tq D elements and is bound by bytes.
 //
-// * bf16: every product on mma.sync m16n8k16 with f32 accumulators.  The
-//   row-major K (V) tile gives the B operand of q k^T (dO v^T); the
-//   transposed copies give the B operand of ds k (K10) and of p^T dO and
-//   ds^T q (K11), whose A operand is the score fragment itself, rounded to
-//   bf16 where the reference rounds (ds to q's dtype, p to dO's).
-// * f32: FFMA, one lane per key (K10) or per query (K11) for the scores,
-//   one lane per output column for the products.
+// K10 replaces `_bwd_dq_kernel` (via `_flash_streaming_bwd`).  The TPU
+// kernel carried dq in VMEM scratch over a sequential K grid axis.  Here a
+// block owns (one B*H row, 64 query rows), keeps dq in f32 registers, and
+// walks the 64-key K/V tiles up to the causal frontier, last rows first
+// (they have the most tiles), skipping tiles whose keys are all padded, as
+// K9 does.  K11 replaces `_bwd_dkv_kernel`.  The TPU kernel ran an inner
+// grid of group * n_q_blocks steps per KV block (every query block of every
+// query head sharing the KV head) into VMEM scratch.  Here a block owns
+// (one B*Hk row, 64 keys), first keys first, keeps dk and dv in f32
+// registers, and loops over the same group * n_q query tiles of 64 rows
+// itself, from its causal frontier on.  So neither needs an atomicAdd:
+// their sums have a fixed order and two launches are bit-equal.  A K11
+// tile whose keys are all padded writes zeros and loops over nothing.
+//
+// * bf16 (the long-context path): bound by the tensor cores' rate over the
+//   causal half of 6 D (K10) and 8 D (K11) FLOPs per pair and head.  A
+//   block is one warpgroup (128 threads) and every product a Hopper wgmma
+//   (wgmma.cuh) with f32 accumulators.  The tiles that stay (q and dO for
+//   K10, k and v for K11) are copied once into shared memory by TMA; the
+//   streamed tiles (k and v for K10; q and dO for K11) come through a
+//   3-stage ring, each stage filled by TMA two tiles ahead and completing
+//   on its own mbarrier, so one thread's two copy instructions replace the
+//   threads' loads and the copies overlap the products (the bias for K10,
+//   lse and delta for K11 ride along as 4-byte cp.async copies, since a row
+//   of them need not be 16-byte aligned).  TMA writes the tiles in wgmma's
+//   swizzled layout, zero-filling rows past T, and wgmma reads them
+//   K-major for s = q k^T and dp = dO v^T (K11: s^T = k q^T,
+//   dp^T = v dO^T), and MN-major, through the descriptor alone, for ds k
+//   (K10), p^T dO and ds^T q (K11): no transposed copy is made.  p and ds
+//   are rounded to bf16 in registers (p to dO's dtype, ds to q's, where the
+//   reference rounds) and are the register A operand of the second
+//   products.  The mask is applied only on tiles that cross the causal
+//   diagonal or a ragged tail; inside, p = 2^(s c - lse log2 e) is one FMA
+//   and one ex2.  What bounds them now: within a warpgroup a tile's first
+//   products, its elementwise step and its second products run in series
+//   (no producer warp, no ping-pong between warpgroups), so the tensor
+//   cores idle during the elementwise step; the other blocks on the SM
+//   hide part of it.
+// * f32 (train_main's path): FFMA, one lane per key (K10) or per query
+//   (K11) for the scores, one lane per output column for the products,
+//   every tile staged single-buffered by the threads; bound by FFMA's rate
+//   over the same FLOPs.  No TF32: the reference computes in f32.
 // Head dims 16/32/64/128 (the wrapper zero-pads others); rows past Tq or
-// keys past Tk are masked, so T need not be a multiple of 64.  Bound on the
-// H100 at the path's shapes (T 4096-8192, D 64, causal): the tensor cores'
-// (bf16) or FFMA's (f32) rate over the causal half of 6 D (K10) and 8 D
-// (K11) FLOPs per pair and head; each K/V (K10) or q/dO (K11) tile is read
-// once per block, mostly from L2.  Every tile is staged through shared
-// memory single-buffered; cp.async, wgmma and TMA are later work.
+// keys past Tk are zero-filled and masked, so T need not be a multiple of
+// 64.
 #include <cstdint>
 
+#include <cuda.h>
+#include <dlfcn.h>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using bigdl::ld32;
-using bigdl::mma_bf16;
 using bigdl::pack_bf16x2;
+using bf16 = __nv_bfloat16;
+namespace wg = bigdl::wg;
 
 constexpr float kNegInf = -1e30f;
-constexpr int kTile = 64;           // query rows (K10) or keys (K11) a block
-constexpr int kThreads = 128;       // 4 warps, 16 rows (keys) each
-constexpr int kF32DkvThreads = 256; // K11 f32: 8 warps, 8 keys each
+constexpr int kTile = 64;           // query rows (K10) or keys (K11) a
+                                    // block, rows of a streamed tile
+constexpr int kThreads = 128;       // f32 K10: 4 warps, 16 rows each
+constexpr int kF32DkvThreads = 256; // f32 K11: 8 warps, 8 keys each
+constexpr int kWgThreads = 128;     // bf16: one warpgroup a block
+constexpr int kStages = 3;          // bf16: depth of the cp.async ring
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;
+  const float* delta;  // (B*H, Tq)
   const float* lse;
   const void* dout;
   const float* bias;  // (B, Tk) or null
@@ -86,6 +115,15 @@ __device__ __forceinline__ float prob(float s, float lse) {
   return s > kNegInf / 2 ? __expf(s - lse) : 0.0f;
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (what __expf uses after its scaling)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Stage 64 keys' bias from k0 into bs and report whether any of them is
 // real (a barrier for the whole block).
 __device__ __forceinline__ int stage_bias(const Params& p, int b, int k0,
@@ -101,306 +139,401 @@ __device__ __forceinline__ int stage_bias(const Params& p, int b, int k0,
   return __syncthreads_or(real);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// the dynamic shared memory rounded up to the 1024 bytes the swizzle needs
+// (kernels ask for 1024 more than their layout)
+__device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw,
+                                                 unsigned char** at) {
+  const uint32_t a = wg::smem_addr(raw);
+  const uint32_t base = (a + 1023u) & ~1023u;
+  *at = raw + (base - a);
+  return base;
 }
 
-// rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a row-major tile of
-// stride rs and, when t is not null, a transposed one (t[c][row], stride
-// ts); rows past n are zeros
-template <int D>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* src, int r0,
-                                           int n, __nv_bfloat16* rm, int rs,
-                                           __nv_bfloat16* tr, int ts) {
-  for (int e = threadIdx.x; e < kTile * D / 8; e += blockDim.x) {
-    const int row = e / (D / 8), c = (e % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < n)
-      x = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(r0 + row) * D + c);
-    *reinterpret_cast<uint4*>(rm + row * rs + c) = x;
-    if (tr) {
-      const __nv_bfloat16* h8 = reinterpret_cast<const __nv_bfloat16*>(&x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(c + i) * ts + row] = h8[i];
-    }
-  }
+// rows a block's warpgroup owns: warp w of it rows 16 w + g and + 8
+__device__ __forceinline__ int frag_row(int i) {  // i: accumulator register
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
+         8 * ((i >> 1) & 1);
 }
 
-// A fragments (16 rows from r, all of D) of a (rows, D) bf16 matrix
-template <int D>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* src, int r, int n,
-                                       uint32_t (&a)[D / 16][4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rr = r + g + 8 * (j & 1);
-      a[kd][j] = rr < n
-          ? ld32(src + static_cast<long long>(rr) * D + kd * 16 + 2 * t +
-                 (j >> 1) * 8)
-          : 0u;
-    }
-  }
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
 }
 
-// c[n] = A B^T over D for 8 column groups of 8: A in fragments, B row-major
-// in shared memory (64 rows of stride bs): c[n][j] is (row g + 8 (j / 2),
-// column 8 n + 2 t + j % 2)
-template <int D>
-__device__ __forceinline__ void mma_abt(const uint32_t (&a)[D / 16][4],
-                                        const __nv_bfloat16* b, int bs,
-                                        float (&c)[8][4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+// x (64 x 64 accumulator, rows r, columns c) rounded to bf16 as the A
+// operand of a product over its 64 columns, 16 at a time
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[4][4]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int c = 0; c < 4; ++c)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[n][j] = 0.0f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const __nv_bfloat16* bp = b + (8 * n + g) * bs + kd * 16 + 2 * t;
-      const uint32_t bb[2] = {ld32(bp), ld32(bp + 8)};
-      mma_bf16(c[n], a[kd], bb);
-    }
-  }
-}
-
-// acc += S X over the 64-wide inner dim: S in the C layout of mma_abt,
-// rounded to bf16 as the A operand; X transposed in shared memory (xt[c][i],
-// stride xs), acc[n] in the C layout over D / 8 column groups
-template <int D>
-__device__ __forceinline__ void mma_sx(const float (&s)[8][4],
-                                       const __nv_bfloat16* xt, int xs,
-                                       float (&acc)[D / 8][4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t a[4] = {pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
-                           pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
-                           pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                           pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* bp = xt + (8 * n + g) * xs + 16 * kc + 2 * t;
-      const uint32_t b[2] = {ld32(bp), ld32(bp + 8)};
-      mma_bf16(acc[n], a, b);
-    }
-  }
+    for (int j = 0; j < 4; ++j)
+      a[c][j] = pack_bf16x2(x[8 * c + 2 * j], x[8 * c + 2 * j + 1]);
 }
 
 // ---- K10, bfloat16 ---------------------------------------------------------
 
 template <int D>
-constexpr int dq_bf16_smem() {  // K and V row-major, K transposed, bias
-  return 2 * kTile * (D + 8) * 2 + D * (kTile + 8) * 2 + kTile * 4;
+struct DqLayout {  // byte offsets from the 1024-aligned base
+  static constexpr int kKv = kTile * D * 2;  // one q, dO, K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kKv;
+  static constexpr int kK = 2 * kKv;         // + stage * kKv
+  static constexpr int kV = kK + kStages * kKv;
+  static constexpr int kBias = kV + kStages * kKv;
+  static constexpr int kBars = kBias + kStages * kTile * 4;  // kStages + 1
+  static constexpr int kBytes = kBars + (kStages + 1) * 8 + 1024;
+};
+
+// p, then ds = p (dp - delta) scale into s, for one 64 x 64 tile: rows of
+// this thread r[2] with their lse and delta, keys k0 + column; kEdge masks
+// (causal diagonal, ragged tails), else only the bias applies
+template <bool kEdge, bool kBias>
+__device__ __forceinline__ void dq_scores(float (&s)[32],
+                                          const float (&dp)[32],
+                                          const Params& p, const int (&r)[2],
+                                          const float (&lse)[2],
+                                          const float (&delta)[2], int k0,
+                                          const float* bs) {
+  const float c = p.scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int ri = (i >> 1) & 1, col = frag_col(i);
+    float pj;
+    if (!kEdge && !kBias) {  // no mask, and every row has a finite lse
+      pj = ex2(fmaf(s[i], c, -lse[ri] * kLog2e));
+    } else if (kEdge) {
+      pj = prob(mask_score(s[i], p, r[ri], k0 + col, kBias ? bs : nullptr,
+                           col), lse[ri]);
+    } else {
+      pj = prob(s[i] * p.scale + bs[col], lse[ri]);
+    }
+    s[i] = pj * (dp[i] - delta[ri]) * p.scale;
+  }
+}
+
+// x = the 64 rows of tile a times the 64 rows of tile b, transposed, over D
+template <int D>
+__device__ __forceinline__ void product(float (&x)[32], uint32_t a,
+                                        uint32_t b) {
+  using T = wg::Tile<D>;
+  wg::mma_ss_n64_first(x, T::template kmajor<kTile>(a, 0),
+                       T::template kmajor<kTile>(b, 0));
+#pragma unroll
+  for (int kk = 1; kk < D / 16; ++kk)
+    wg::mma_ss_n64(x, T::template kmajor<kTile>(a, kk),
+                   T::template kmajor<kTile>(b, kk));
 }
 
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads) dq_bf16(Params p) {
-  constexpr int kRS = D + 8, kTS = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kTile * kRS;
-  __nv_bfloat16* kt = vs + kTile * kRS;
-  float* bs = reinterpret_cast<float*>(kt + D * kTS);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+__global__ void __launch_bounds__(kWgThreads) dq_bf16(
+    Params p, const __grid_constant__ CUtensorMap m_q,
+    const __grid_constant__ CUtensorMap m_do,
+    const __grid_constant__ CUtensorMap m_k,
+    const __grid_constant__ CUtensorMap m_v) {
+  using T = wg::Tile<D>;
+  using L = DqLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem;
+  const uint32_t base = aligned_smem(smem_raw, &smem);
+  const float* bias_s = reinterpret_cast<const float*>(smem + L::kBias);
+  const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / p.h;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
-  const long long q_row = static_cast<long long>(bh) * p.tq * D;
-  const long long kv_row = (static_cast<long long>(b) * p.hk +
-                            (bh % p.h) / (p.h / p.hk)) * p.tk * D;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + q_row;
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + q_row;
-  const __nv_bfloat16* dout =
-      static_cast<const __nv_bfloat16*>(p.dout) + q_row;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + kv_row;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + kv_row;
-  const int r0 = q0 + warp * 16;
-  const int row[2] = {r0 + g, r0 + g + 8};
-
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D>(q, r0, p.tq, qa);
-  load_a<D>(dout, r0, p.tq, da);
-  // delta = rowsum(dO * O) over this lane's columns, then its quad's
-  float lse[2], delta[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse[i] = row[i] < p.tq ? p.lse[static_cast<long long>(bh) * p.tq +
-                                   row[i]] : 0.0f;
-    if (row[i] >= p.tq) continue;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int c = kd * 16 + 2 * t + 8 * hi;
-        const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(
-            dout + static_cast<long long>(row[i]) * D + c);
-        const __nv_bfloat162 o2 = *reinterpret_cast<const __nv_bfloat162*>(
-            o + static_cast<long long>(row[i]) * D + c);
-        delta[i] += __bfloat162float(d2.x) * __bfloat162float(o2.x) +
-                    __bfloat162float(d2.y) * __bfloat162float(o2.y);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
-    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.0f;
-
+  const long long q_row = static_cast<long long>(bh) * p.tq;
+  const int kvz = b * p.hk + (bh % p.h) / (p.h / p.hk);  // the KV row
   const int k_end = p.causal ? min(p.tk, q0 + kTile) : p.tk;
-  float s[8][4], dp[8][4];
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_bf16<D>(k, k0, p.tk, ks, kRS, kt, kTS);
-    stage_bf16<D>(v, k0, p.tk, vs, kRS, nullptr, 0);
-    if (kBias) {
-      if (!stage_bias(p, b, k0, bs)) continue;  // every key padded
+  const int n_iter = (k_end + kTile - 1) / kTile;
+  const uint32_t bars = base + L::kBars;  // a barrier a stage, then q's
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(bars + 8 * i, 1);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_stage = [&](int it) {  // K, V (and the bias) of key tile it
+    const int s = it % kStages, k0 = it * kTile;
+    if (tid == 0) {
+      wg::mbar_expect(bars + 8 * s, 2 * L::kKv);
+      T::template tma<kTile>(base + L::kK + s * L::kKv, &m_k, bars + 8 * s,
+                             k0, kvz);
+      T::template tma<kTile>(base + L::kV + s * L::kKv, &m_v, bars + 8 * s,
+                             k0, kvz);
+    }
+    if (kBias && tid < kTile) {
+      const bool ok = k0 + tid < p.tk;
+      wg::cp4(base + L::kBias + (s * kTile + tid) * 4,
+              p.bias + static_cast<long long>(b) * p.tk + (ok ? k0 + tid : 0),
+              ok);
+    }
+  };
+
+  if (tid == 0) {  // q and dO, once
+    wg::mbar_expect(bars + 8 * kStages, 2 * L::kKv);
+    T::template tma<kTile>(base + L::kQ, &m_q, bars + 8 * kStages, q0, bh);
+    T::template tma<kTile>(base + L::kDo, &m_do, bars + 8 * kStages, q0, bh);
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_iter) load_stage(s);
+    wg::cp_commit();
+  }
+
+  int r[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    r[ri] = q0 + frag_row(2 * ri);
+    const bool in = r[ri] < p.tq;
+    lse[ri] = in ? p.lse[q_row + r[ri]] : 0.0f;
+    delta[ri] = in ? p.delta[q_row + r[ri]] : 0.0f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  wg::mbar_wait(bars + 8 * kStages, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages, k0 = it * kTile;
+    const float* bs = bias_s + s * kTile;
+    wg::cp_wait<kStages - 2>();  // this thread's bias copies of tile it
+    wg::mbar_wait(bars + 8 * s, (it / kStages) & 1);  // its K and V
+    bool live = true;
+    if (kBias) {                 // every thread's copies, and any key real
+      live = __syncthreads_or(tid < kTile && k0 + tid < p.tk &&
+                              bs[tid] > kNegInf / 2);
     } else {
       __syncthreads();
     }
-    mma_abt<D>(qa, ks, kRS, s);
-    mma_abt<D>(da, vs, kRS, dp);
+    // into the stage of tile it - 1, whose products are done
+    if (it + kStages - 1 < n_iter) load_stage(it + kStages - 1);
+    wg::cp_commit();
+    if (!live) continue;  // every key of the tile padded
+
+    const uint32_t ks = base + L::kK + s * L::kKv;
+    float sc[32], dp[32];
+    wg::mma_fence();
+    product<D>(sc, base + L::kQ, ks);                          // q k^T
+    product<D>(dp, base + L::kDo, base + L::kV + s * L::kKv);  // dO v^T
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(sc);
+    wg::fence_regs(dp);
+    if ((p.causal && k0 + kTile - 1 > q0) || k0 + kTile > p.tk)
+      dq_scores<true, kBias>(sc, dp, p, r, lse, delta, k0, bs);
+    else
+      dq_scores<false, kBias>(sc, dp, p, r, lse, delta, k0, bs);
+    uint32_t a[4][4];
+    to_a(sc, a);  // ds rounded to bf16, as the reference
+    wg::mma_fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = j >> 1, col = 8 * n + 2 * t + (j & 1);
-        const float x = mask_score(s[n][j], p, row[i], k0 + col,
-                                   kBias ? bs : nullptr, col);
-        s[n][j] = prob(x, lse[i]) * (dp[n][j] - delta[i]) * p.scale;
-      }
-    }
-    mma_sx<D>(s, kt, kTS, acc);  // ds rounded to bf16, as the reference
+    for (int c = 0; c < 4; ++c)  // dq += ds k, K read MN-major
+      wg::mma_rs(acc, a[c], T::template mnmajor<kTile>(ks, c));
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(acc);
   }
 
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + q_row;
+  bf16* dq = static_cast<bf16*>(p.dq) + q_row * D;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= p.tq) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(
-          dq + static_cast<long long>(row[i]) * D + 8 * n + 2 * t) =
-          pack_bf16x2(acc[n][2 * i], acc[n][2 * i + 1]);
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = q0 + frag_row(i);
+    if (row < p.tq)
+      *reinterpret_cast<uint32_t*>(dq + static_cast<long long>(row) * D +
+                                   frag_col(i)) =
+          pack_bf16x2(acc[i], acc[i + 1]);
   }
 }
 
 // ---- K11, bfloat16 ---------------------------------------------------------
 
 template <int D>
-constexpr int dkv_bf16_smem() {  // q and dO row-major and transposed, rows
-  return 2 * kTile * (D + 8) * 2 + 2 * D * (kTile + 8) * 2 + 3 * kTile * 4;
+struct DkvLayout {  // byte offsets from the 1024-aligned base
+  static constexpr int kQd = kTile * D * 2;  // one K, V, q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kQd;
+  static constexpr int kQ = 2 * kQd;         // + stage * kQd
+  static constexpr int kDo = kQ + kStages * kQd;
+  static constexpr int kLse = kDo + kStages * kQd;
+  static constexpr int kDelta = kLse + kStages * kTile * 4;
+  static constexpr int kBias = kDelta + kStages * kTile * 4;
+  static constexpr int kBars = kBias + kTile * 4;  // kStages + 1 barriers
+  static constexpr int kBytes = kBars + (kStages + 1) * 8 + 1024;
+};
+
+// p into st and ds = p (dp - delta) scale into dpt for one 64 x 64 tile of
+// s^T: this thread's keys key[2] (their bias kb), queries q0 + column with
+// their lse and delta in shared memory
+template <bool kEdge, bool kBias>
+__device__ __forceinline__ void dkv_scores(float (&st)[32], float (&dpt)[32],
+                                           const Params& p,
+                                           const int (&key)[2],
+                                           const float (&kb)[2], int q0,
+                                           const float* ls, const float* dl) {
+  const float c = p.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = frag_col(4 * j);
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, ri = e >> 1;
+      const float lse = (e & 1) ? l2.y : l2.x;
+      const float delta = (e & 1) ? d2.y : d2.x;
+      float pj;
+      if (!kEdge && !kBias) {  // no mask, and every row has a finite lse
+        pj = ex2(fmaf(st[i], c, -lse * kLog2e));
+      } else {
+        float x;
+        if (kEdge) {
+          x = mask_score(st[i], p, q0 + col + (e & 1), key[ri], nullptr, 0);
+          if (kBias && x != -INFINITY) x += kb[ri];
+        } else {
+          x = st[i] * p.scale + kb[ri];
+        }
+        pj = prob(x, lse);
+      }
+      st[i] = pj;
+      dpt[i] = pj * (dpt[i] - delta) * p.scale;
+    }
+  }
 }
 
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads) dkv_bf16(Params p) {
-  constexpr int kRS = D + 8, kTS = kTile + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ds = qs + kTile * kRS;
-  __nv_bfloat16* qt = ds + kTile * kRS;
-  __nv_bfloat16* dt = qt + D * kTS;
-  float* lse_s = reinterpret_cast<float*>(dt + D * kTS);
-  float* delta_s = lse_s + kTile;
-  float* bs = delta_s + kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+__global__ void __launch_bounds__(kWgThreads) dkv_bf16(
+    Params p, const __grid_constant__ CUtensorMap m_q,
+    const __grid_constant__ CUtensorMap m_do,
+    const __grid_constant__ CUtensorMap m_k,
+    const __grid_constant__ CUtensorMap m_v) {
+  using T = wg::Tile<D>;
+  using L = DkvLayout<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem;
+  const uint32_t base = aligned_smem(smem_raw, &smem);
+  const float* lse_s = reinterpret_cast<const float*>(smem + L::kLse);
+  const float* delta_s = reinterpret_cast<const float*>(smem + L::kDelta);
+  float* bias_s = reinterpret_cast<float*>(smem + L::kBias);
+  const int tid = threadIdx.x;
   const int kvr = blockIdx.y, b = kvr / p.hk, kvh = kvr % p.hk;
   const int group = p.h / p.hk;
-  const int k0 = blockIdx.x * kTile;
-  const long long kv_row = static_cast<long long>(kvr) * p.tk * D;
-  const int kr0 = k0 + warp * 16;
-  const int key[2] = {kr0 + g, kr0 + g + 8};
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.dk) + kv_row;
-  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.dv) + kv_row;
+  const int k0 = blockIdx.x * kTile;  // the most query tiles first
+  const long long kv_row = static_cast<long long>(kvr) * p.tk;
+  const uint32_t bars = base + L::kBars;  // a barrier a stage, then k's
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) wg::mbar_init(bars + 8 * i, 1);
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
 
-  float dka[D / 8][4], dva[D / 8][4];
+  int key[2];
+  float kb[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int ri = 0; ri < 2; ++ri) key[ri] = k0 + frag_row(2 * ri);
+  bool live = true;
+  if (kBias) {  // a tile whose keys are all padded computes nothing
+    const int kk = k0 + tid;
+    const float x = kk < p.tk
+        ? p.bias[static_cast<long long>(b) * p.tk + kk] : kNegInf;
+    if (tid < kTile) bias_s[tid] = x;
+    live = __syncthreads_or(tid < kTile && x > kNegInf / 2);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dka[n][j] = dva[n][j] = 0.0f;
+    for (int ri = 0; ri < 2; ++ri) kb[ri] = bias_s[key[ri] - k0];
+  }
+  const int nq = (p.tq + kTile - 1) / kTile;
+  const int first = p.causal ? min(k0 / kTile, nq) : 0;  // causal frontier
+  const int per = nq - first;  // query tiles a head
+  const int n_iter = live ? group * per : 0;
 
-  const bool live = kBias ? stage_bias(p, b, k0, bs) != 0 : true;
-  if (live) {
-    uint32_t ka[D / 16][4], va[D / 16][4];
-    load_a<D>(static_cast<const __nv_bfloat16*>(p.k) + kv_row, kr0, p.tk,
-              ka);
-    load_a<D>(static_cast<const __nv_bfloat16*>(p.v) + kv_row, kr0, p.tk,
-              va);
-    const int nq = (p.tq + kTile - 1) / kTile;
-    const int first = p.causal ? k0 / kTile : 0;
-    float st[8][4], dpt[8][4];
-    for (int hh = 0; hh < group; ++hh) {
-      const int bh = b * p.h + kvh * group + hh;
-      const long long q_row = static_cast<long long>(bh) * p.tq * D;
-      const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + q_row;
-      const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + q_row;
-      const __nv_bfloat16* dout =
-          static_cast<const __nv_bfloat16*>(p.dout) + q_row;
-      for (int qb = first; qb < nq; ++qb) {
-        const int q0 = qb * kTile;
-        __syncthreads();  // the previous tile's readers are done
-        stage_bf16<D>(q, q0, p.tq, qs, kRS, qt, kTS);
-        stage_bf16<D>(dout, q0, p.tq, ds, kRS, dt, kTS);
-        // delta and lse of the tile's 64 rows, 16 a warp
-        for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-          const int qr = q0 + r;
-          float x = 0.0f;
-          if (qr < p.tq)
-            for (int c = lane; c < D; c += 32)
-              x += __bfloat162float(dout[static_cast<long long>(qr) * D + c]) *
-                   __bfloat162float(o[static_cast<long long>(qr) * D + c]);
-          x = warp_sum(x);
-          if (lane == 0) {
-            delta_s[r] = x;
-            lse_s[r] = qr < p.tq
-                ? p.lse[static_cast<long long>(bh) * p.tq + qr] : 0.0f;
-          }
-        }
-        __syncthreads();
-        mma_abt<D>(ka, qs, kRS, st);    // s^T: (key, query)
-        mma_abt<D>(va, ds, kRS, dpt);   // dp^T = v dO^T
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int i = j >> 1, col = 8 * n + 2 * t + (j & 1);
-            const float x = mask_score(st[n][j], p, q0 + col, key[i],
-                                       kBias ? bs : nullptr,
-                                       warp * 16 + g + 8 * i);
-            const float pj = prob(x, lse_s[col]);
-            st[n][j] = pj;
-            dpt[n][j] = pj * (dpt[n][j] - delta_s[col]) * p.scale;
-          }
-        }
-        mma_sx<D>(st, dt, kTS, dva);   // dv += p^T dO, p rounded to bf16
-        mma_sx<D>(dpt, qt, kTS, dka);  // dk += ds^T q, ds rounded to bf16
-      }
+  auto load_stage = [&](int it) {  // q, dO, lse, delta of query tile it
+    const int s = it % kStages;
+    const int q0 = (first + it % per) * kTile;
+    const int bh = b * p.h + kvh * group + it / per;
+    const long long q_row = static_cast<long long>(bh) * p.tq;
+    if (tid == 0) {
+      wg::mbar_expect(bars + 8 * s, 2 * L::kQd);
+      T::template tma<kTile>(base + L::kQ + s * L::kQd, &m_q, bars + 8 * s,
+                             q0, bh);
+      T::template tma<kTile>(base + L::kDo + s * L::kQd, &m_do, bars + 8 * s,
+                             q0, bh);
     }
+    // lse by the first 64 threads, delta by the next
+    const int rr = tid % kTile;
+    const bool ok = q0 + rr < p.tq;
+    wg::cp4(base + (tid < kTile ? L::kLse : L::kDelta) + (s * kTile + rr) * 4,
+            (tid < kTile ? p.lse : p.delta) + q_row + (ok ? q0 + rr : 0), ok);
+  };
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+
+  if (n_iter > 0) {
+    if (tid == 0) {  // k and v, once
+      wg::mbar_expect(bars + 8 * kStages, 2 * L::kQd);
+      T::template tma<kTile>(base + L::kK, &m_k, bars + 8 * kStages, k0,
+                             kvr);
+      T::template tma<kTile>(base + L::kV, &m_v, bars + 8 * kStages, k0,
+                             kvr);
+    }
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_iter) load_stage(s);
+      wg::cp_commit();
+    }
+    wg::mbar_wait(bars + 8 * kStages, 0);
+  }
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const int q0 = (first + it % per) * kTile;
+    wg::cp_wait<kStages - 2>();  // this thread's lse and delta copies
+    wg::mbar_wait(bars + 8 * s, (it / kStages) & 1);  // q and dO of tile it
+    __syncthreads();             // every thread's copies
+    // into the stage of tile it - 1, whose products are done
+    if (it + kStages - 1 < n_iter) load_stage(it + kStages - 1);
+    wg::cp_commit();
+
+    const uint32_t qs = base + L::kQ + s * L::kQd;
+    const uint32_t ds = base + L::kDo + s * L::kQd;
+    float st[32], dpt[32];
+    wg::mma_fence();
+    product<D>(st, base + L::kK, qs);   // s^T = k q^T
+    product<D>(dpt, base + L::kV, ds);  // dp^T = v dO^T
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(st);
+    wg::fence_regs(dpt);
+    const float* ls = lse_s + s * kTile;
+    const float* dl = delta_s + s * kTile;
+    if ((p.causal && q0 < k0 + kTile - 1) || q0 + kTile > p.tq ||
+        k0 + kTile > p.tk)
+      dkv_scores<true, kBias>(st, dpt, p, key, kb, q0, ls, dl);
+    else
+      dkv_scores<false, kBias>(st, dpt, p, key, kb, q0, ls, dl);
+    uint32_t pa[4][4], da[4][4];
+    to_a(st, pa);   // p rounded to dO's dtype
+    to_a(dpt, da);  // ds to q's
+    wg::mma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)  // dv += p^T dO, dO read MN-major
+      wg::mma_rs(dva, pa[c], T::template mnmajor<kTile>(ds, c));
+#pragma unroll
+    for (int c = 0; c < 4; ++c)  // dk += ds^T q, q read MN-major
+      wg::mma_rs(dka, da[c], T::template mnmajor<kTile>(qs, c));
+    wg::mma_commit();
+    wg::mma_wait<0>();
+    wg::fence_regs(dva);
+    wg::fence_regs(dka);
   }
 
+  bf16* dk = static_cast<bf16*>(p.dk) + kv_row * D;
+  bf16* dv = static_cast<bf16*>(p.dv) + kv_row * D;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= p.tk) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const long long at = static_cast<long long>(key[i]) * D + 8 * n + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack_bf16x2(dka[n][2 * i], dka[n][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          pack_bf16x2(dva[n][2 * i], dva[n][2 * i + 1]);
-    }
+  for (int i = 0; i < D / 2; i += 2) {
+    const int kk = k0 + frag_row(i);
+    if (kk >= p.tk) continue;
+    const long long at = static_cast<long long>(kk) * D + frag_col(i);
+    *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16x2(dka[i], dka[i + 1]);
+    *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16x2(dva[i], dva[i + 1]);
   }
 }
 
@@ -428,7 +561,6 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
   const long long kv_row = (static_cast<long long>(b) * p.hk +
                             (bh % p.h) / (p.h / p.hk)) * p.tk * D;
   const float* q = static_cast<const float*>(p.q) + q_row;
-  const float* o = static_cast<const float*>(p.o) + q_row;
   const float* dout = static_cast<const float*>(p.dout) + q_row;
   const float* k = static_cast<const float*>(p.k) + kv_row;
   const float* v = static_cast<const float*>(p.v) + kv_row;
@@ -445,13 +577,9 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int rr = row0 + i;
-    float x = 0.0f;
-    if (rr < p.tq)
-      for (int c = lane; c < D; c += 32)
-        x += dos[(warp * 16 + i) * D + c] *
-             o[static_cast<long long>(rr) * D + c];
-    delta[i] = warp_sum(x);
-    lse[i] = rr < p.tq ? p.lse[static_cast<long long>(bh) * p.tq + rr] : 0.0f;
+    const long long at = static_cast<long long>(bh) * p.tq + rr;
+    delta[i] = rr < p.tq ? p.delta[at] : 0.0f;
+    lse[i] = rr < p.tq ? p.lse[at] : 0.0f;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
@@ -594,7 +722,6 @@ __global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
       const int bh = b * p.h + kvh * group + hh;
       const long long q_row = static_cast<long long>(bh) * p.tq * D;
       const float* q = static_cast<const float*>(p.q) + q_row;
-      const float* o = static_cast<const float*>(p.o) + q_row;
       const float* dout = static_cast<const float*>(p.dout) + q_row;
       for (int qb = first; qb < nq; ++qb) {
         const int q0 = qb * kTile;
@@ -606,20 +733,11 @@ __global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
           qs[r * (D + 1) + c] = in ? q[at] : 0.0f;
           dos[r * (D + 1) + c] = in ? dout[at] : 0.0f;
         }
-        __syncthreads();
-        for (int r = warp * kF32Keys; r < warp * kF32Keys + kF32Keys; ++r) {
-          const int qr = q0 + r;
-          float x = 0.0f;
-          if (qr < p.tq)
-            for (int c = lane; c < D; c += 32)
-              x += dos[r * (D + 1) + c] *
-                   o[static_cast<long long>(qr) * D + c];
-          x = warp_sum(x);
-          if (lane == 0) {
-            delta_s[r] = x;
-            lse_s[r] = qr < p.tq
-                ? p.lse[static_cast<long long>(bh) * p.tq + qr] : 0.0f;
-          }
+        if (threadIdx.x < kTile) {
+          const int qr = q0 + threadIdx.x;
+          const long long at = static_cast<long long>(bh) * p.tq + qr;
+          delta_s[threadIdx.x] = qr < p.tq ? p.delta[at] : 0.0f;
+          lse_s[threadIdx.x] = qr < p.tq ? p.lse[at] : 0.0f;
         }
         __syncthreads();
         // s[j][i], dp[j][i]: key key0 + i, query q0 + lane + 32 j
@@ -695,16 +813,95 @@ __global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
   }
 }
 
+// ---- the delta pass --------------------------------------------------------
+
+constexpr int kDeltaLanes = 8;  // lanes a row
+
+// delta[row] = sum over d of dO[row][d] * O[row][d] in f32 (both already in
+// q's dtype), kDeltaLanes lanes a row with 16-byte loads where the row
+// allows them
+template <typename T>
+__global__ void __launch_bounds__(bigdl::kThreads) delta_kernel(
+    const T* o, const T* dout, float* delta, long long rows, int d) {
+  constexpr int kV = 16 / sizeof(T);
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) /
+      kDeltaLanes;
+  const int lane = threadIdx.x % kDeltaLanes;
+  float x = 0.0f;
+  if (row < rows) {
+    const T* a = o + row * d;
+    const T* b = dout + row * d;
+    if (d % kV == 0) {
+      for (int c = lane * kV; c < d; c += kDeltaLanes * kV) {
+        const uint4 ua = *reinterpret_cast<const uint4*>(a + c);
+        const uint4 ub = *reinterpret_cast<const uint4*>(b + c);
+        const T* va = reinterpret_cast<const T*>(&ua);
+        const T* vb = reinterpret_cast<const T*>(&ub);
+#pragma unroll
+        for (int i = 0; i < kV; ++i)
+          x += bigdl::to_f32(va[i]) * bigdl::to_f32(vb[i]);
+      }
+    } else {
+      for (int c = lane; c < d; c += kDeltaLanes)
+        x += bigdl::to_f32(a[c]) * bigdl::to_f32(b[c]);
+    }
+  }
+#pragma unroll
+  for (int off = kDeltaLanes / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  if (row < rows && lane == 0) delta[row] = x;
+}
+
 // ---- launch ----------------------------------------------------------------
 
-template <typename K>
-cudaError_t run(K kernel, dim3 grid, int threads, int smem, const Params& p,
-                cudaStream_t s) {
+template <typename K, typename... A>
+cudaError_t run(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
+                const A&... args) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, s>>>(p);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from libcuda.so.1, which the process has loaded
+// already (no link against it); null if it is not there
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of a (z, n, D) bf16 tensor whose boxes are the panels of a
+// 64-row tile (wgmma.cuh), swizzled as the tile is, rows past n zeros
+template <int D>
+bool tile_map(CUtensorMap* map, const void* ptr, int n, int z) {
+  using T = bigdl::wg::Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(z)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(n) * D * 2};
+  const cuuint32_t box[3] = {T::kW / 2, kTile, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      T::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool kDq, bool kBias, int D>
@@ -712,17 +909,23 @@ cudaError_t launch_d(const Params& p, int dtype, int b, cudaStream_t s) {
   const dim3 grid_q((p.tq + kTile - 1) / kTile, b * p.h);
   const dim3 grid_k((p.tk + kTile - 1) / kTile, b * p.hk);
   if (dtype == bigdl::kBF16) {
+    CUtensorMap mq, mdo, mk, mv;
+    if (!tile_map<D>(&mq, p.q, p.tq, b * p.h) ||
+        !tile_map<D>(&mdo, p.dout, p.tq, b * p.h) ||
+        !tile_map<D>(&mk, p.k, p.tk, b * p.hk) ||
+        !tile_map<D>(&mv, p.v, p.tk, b * p.hk))
+      return cudaErrorNotSupported;
     if (kDq)
-      return run(dq_bf16<D, kBias>, grid_q, kThreads, dq_bf16_smem<D>(), p,
-                 s);
-    return run(dkv_bf16<D, kBias>, grid_k, kThreads, dkv_bf16_smem<D>(), p,
-               s);
+      return run(dq_bf16<D, kBias>, grid_q, kWgThreads, DqLayout<D>::kBytes,
+                 s, p, mq, mdo, mk, mv);
+    return run(dkv_bf16<D, kBias>, grid_k, kWgThreads, DkvLayout<D>::kBytes,
+               s, p, mq, mdo, mk, mv);
   }
   if (dtype == bigdl::kF32) {
     if (kDq)
-      return run(dq_f32<D, kBias>, grid_q, kThreads, dq_f32_smem<D>(), p, s);
+      return run(dq_f32<D, kBias>, grid_q, kThreads, dq_f32_smem<D>(), s, p);
     return run(dkv_f32<D, kBias>, grid_k, kF32DkvThreads, dkv_f32_smem<D>(),
-               p, s);
+               s, p);
   }
   return cudaErrorInvalidValue;
 }
@@ -752,15 +955,38 @@ int launch(const Params& p, int dtype, int b, int d, void* stream) {
 
 }  // namespace
 
-// K10: dq (b*h, tq, d) like q from q, k, v, o, lse (b*h, tq) f32, do and an
-// optional (b, tk) f32 bias
+// delta (rows) f32 = rowsum(dO * O) over d, for o and do (rows, d) in one
+// dtype
+extern "C" int bigdl_flash_bwd_delta(const void* o, const void* dout,
+                                     void* delta, int dtype, long long rows,
+                                     int d, void* stream) {
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = bigdl::blocks_for(rows * kDeltaLanes);
+  float* out = static_cast<float*>(delta);
+  if (dtype == bigdl::kBF16)
+    delta_kernel<<<blocks, bigdl::kThreads, 0, s>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), out,
+        rows, d);
+  else if (dtype == bigdl::kF32)
+    delta_kernel<<<blocks, bigdl::kThreads, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), out,
+        rows, d);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: dq (b*h, tq, d) like q from q, k, v, delta (b*h, tq) f32, lse
+// (b*h, tq) f32, do and an optional (b, tk) f32 bias
 extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                  const void* o, const void* lse,
+                                  const void* delta, const void* lse,
                                   const void* dout, const void* bias,
                                   void* dq, int dtype, int b, int h, int hk,
                                   int tq, int tk, int d, float scale,
                                   int causal, void* stream) {
-  const Params p{q, k, v, o, static_cast<const float*>(lse), dout,
+  const Params p{q, k, v, static_cast<const float*>(delta),
+                 static_cast<const float*>(lse), dout,
                  static_cast<const float*>(bias), dq, nullptr, nullptr, h,
                  hk, tq, tk, scale, causal != 0};
   return launch<true>(p, dtype, b, d, stream);
@@ -769,12 +995,13 @@ extern "C" int bigdl_flash_bwd_dq(const void* q, const void* k, const void* v,
 // K11: dk, dv (b*hk, tk, d) like k, each summed over the query heads that
 // share its KV head
 extern "C" int bigdl_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                   const void* o, const void* lse,
+                                   const void* delta, const void* lse,
                                    const void* dout, const void* bias,
                                    void* dk, void* dv, int dtype, int b,
                                    int h, int hk, int tq, int tk, int d,
                                    float scale, int causal, void* stream) {
-  const Params p{q, k, v, o, static_cast<const float*>(lse), dout,
+  const Params p{q, k, v, static_cast<const float*>(delta),
+                 static_cast<const float*>(lse), dout,
                  static_cast<const float*>(bias), nullptr, dk, dv, h, hk,
                  tq, tk, scale, causal != 0};
   return launch<false>(p, dtype, b, d, stream);

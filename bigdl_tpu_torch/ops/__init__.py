@@ -21,11 +21,12 @@
   (``csrc/flash_attention_bwd.cu``): K10 (``attention_stream_bwd_dq``;
   ``_bwd_dq_kernel``) and K11 (``attention_stream_bwd_dkv``, dK and dV
   summed over a GQA group; ``_bwd_dkv_kernel``), beside their plain
-  version ``flash_bwd_plain`` (K8's backward is autograd of the chunked
-  plain form, as in the reference); and K12 (``paged_attention``, masked
-  attention over a block-paged KV pool through a page table;
-  ``_paged_kernel``, ``csrc/paged_attention.cu``), the read path of
-  ``ContinuousGenerator``;
+  version ``flash_bwd_plain``, both fed by one ``flash_bwd_delta`` pass
+  (``rowsum(dO·O)``, a helper with no TPU kernel of its own; K8's backward
+  is autograd of the chunked plain form, as in the reference); and K12
+  (``paged_attention``, masked attention over a block-paged KV pool
+  through a page table; ``_paged_kernel``, ``csrc/paged_attention.cu``),
+  the read path of ``ContinuousGenerator``;
 * ``fp16``    — the fp16 wire codec (``csrc/fp16_codec.cu``): K5
   (``fp16_compress``, float32 to its top two bytes; replaces
   ``bigdl_tpu/ops/fp16.py`` ``_compress_kernel``), K6 (``fp16_decompress``;
@@ -45,6 +46,8 @@ from bigdl_tpu_torch.ops.attention import (attention_fwd,
                                            attention_stream_bwd_dq,
                                            attention_stream_fwd,
                                            attention_stream_plain,
+                                           flash_bwd_delta,
+                                           flash_bwd_delta_plain,
                                            flash_bwd_plain, fused_attention,
                                            paged_attention,
                                            paged_attention_plain)
@@ -68,7 +71,8 @@ KERNEL_WRAPPERS = (max_pool2d, cross_map_lrn, max_pool2d_bwd, lrn_bwd,
                    w8_matmul, f8_matmul, a8_matmul, w4_matmul,
                    attention_fwd, attention_stream_fwd,
                    attention_stream_bwd_dq, attention_stream_bwd_dkv,
-                   paged_attention, fp16_compress, fp16_decompress, fp16_add)
+                   flash_bwd_delta, paged_attention, fp16_compress,
+                   fp16_decompress, fp16_add)
 
 
 def reset_launches() -> None:
@@ -79,7 +83,8 @@ def reset_launches() -> None:
 __all__ = ["a8_matmul", "attention_fwd", "attention_reference",
            "attention_stream_bwd_dkv", "attention_stream_bwd_dq",
            "attention_stream_fwd", "attention_stream_plain",
-           "cross_map_lrn", "f8_matmul", "flash_bwd_plain",
+           "cross_map_lrn", "f8_matmul", "flash_bwd_delta",
+           "flash_bwd_delta_plain", "flash_bwd_plain",
            "fp16_add", "fp16_add_plain", "fp16_compress",
            "fp16_compress_reference", "fp16_decompress",
            "fp16_decompress_reference", "fused_attention",

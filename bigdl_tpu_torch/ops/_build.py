@@ -63,11 +63,13 @@ _SIGNATURES = {
     # d, scale, causal, stream
     "bigdl_attention_stream_fwd": [_P] * 6 + [_I] * 7 +
     [ctypes.c_float, _I, _P],
-    # q, k, v, o, lse, do, bias (or null), dq, dtype, b, h, hk, tq, tk, d,
-    # scale, causal, stream
-    "bigdl_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P],
-    # q, k, v, o, lse, do, bias (or null), dk, dv, dtype, b, h, hk, tq, tk,
+    # o, do, delta, dtype, rows, d, stream
+    "bigdl_flash_bwd_delta": [_P, _P, _P, _I, ctypes.c_longlong, _I, _P],
+    # q, k, v, delta, lse, do, bias (or null), dq, dtype, b, h, hk, tq, tk,
     # d, scale, causal, stream
+    "bigdl_flash_bwd_dq": [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    # q, k, v, delta, lse, do, bias (or null), dk, dv, dtype, b, h, hk, tq,
+    # tk, d, scale, causal, stream
     "bigdl_flash_bwd_dkv": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # q, k pool, v pool, pages, positions, o, q dtype, cache dtype, b, h,
     # hkv, s, d, page size, lp, trash, scale, rows per block, stream

@@ -31,7 +31,10 @@ The kernels (``csrc/attention.cu``):
   the flash backward of ``_flash_streaming_bwd``: ``p = exp(s - lse)``
   recomputed per block from K9's saved logsumexp, dQ summed over key
   blocks, dK and dV over query blocks of every query head of the GQA
-  group.  Their plain version is :func:`flash_bwd_plain`.
+  group.  Their plain version is :func:`flash_bwd_plain`.  Both take
+  ``delta = rowsum(dO·O)`` from one pass, :func:`flash_bwd_delta` (plain
+  version :func:`flash_bwd_delta_plain`), which the TPU kernels recomputed
+  per block; it is a helper of K10/K11 with no TPU kernel of its own.
 
 * K12 (:func:`paged_attention`) replaces ``_paged_kernel``
   (``:782``, wrapper ``:813``): masked attention of decode or prefill
@@ -166,18 +169,27 @@ def attention_stream_plain(q, k, v, causal=False, scale=None, bias=None,
     return o
 
 
+def flash_bwd_delta_plain(o, do):
+    """``delta = rowsum(dO·O)`` (B, H, T) float32, the plain version of
+    :func:`flash_bwd_delta`: dO cast to o's (q's) dtype first, the
+    products summed in f32, as ``_bwd_dq_kernel`` computes it."""
+    return (do.to(o.dtype).float() * o.float()).sum(dim=-1)
+
+
 def flash_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
-                    bias=None):
+                    bias=None, delta=None):
     """The flash backward's plain version (``_flash_streaming_bwd``, K10
     and K11): dQ, dK and dV of K9's attention from its output ``o`` and
     row logsumexp ``lse`` (B, H, T), key block by key block of
     ``BLOCK_K``, ``p = exp(s - lse)`` recomputed per block (0 where
     ``s <= NEG_INF/2``, so a row with every key padded gives nothing),
-    ``delta = rowsum(dO·O)``, ``ds = p·(dO·vᵀ - delta)·scale``.  It
-    rounds where the reference rounds: ``ds`` to q's dtype before ``ds·k``
-    and ``dsᵀ·q``, ``p`` to dO's (q's) dtype before ``pᵀ·dO``; every
-    product accumulates in f32.  dK and dV sum over the query heads that share a
-    KV head (GQA).  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    ``delta = rowsum(dO·O)`` (``delta``, (B, H, T) float32, or computed
+    here by :func:`flash_bwd_delta_plain`),
+    ``ds = p·(dO·vᵀ - delta)·scale``.  It rounds where the reference
+    rounds: ``ds`` to q's dtype before ``ds·k`` and ``dsᵀ·q``, ``p`` to
+    dO's (q's) dtype before ``pᵀ·dO``; every product accumulates in f32.
+    dK and dV sum over the query heads that share a KV head (GQA).
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
     scale_ = _scale(q.shape[-1], scale)
     b, h, t, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
@@ -185,7 +197,9 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
     do = do.to(q.dtype)
     ke, ve = expand_kv_heads(q, k, v)
     qf, dof = q.float(), do.float()
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    if delta is None:
+        delta = flash_bwd_delta_plain(o, do)
+    delta = delta.float()[..., None]
     lse = lse.float()[..., None]
     q_pos = torch.arange(t, device=q.device)[:, None]
     dq = torch.zeros((b, h, t, d), device=q.device)
@@ -400,9 +414,10 @@ class _K9(torch.autograd.Function):
         args = (q, k, v, o, lse, do, ctx.causal, ctx.scale, bias)
         if q.device.type == "cpu":
             dq, dk, dv = flash_bwd_plain(*args)
-        else:
-            dq = attention_stream_bwd_dq(*args)
-            dk, dv = attention_stream_bwd_dkv(*args)
+        else:   # one delta pass, shared by K10 and K11
+            delta = flash_bwd_delta(o, do)
+            dq = attention_stream_bwd_dq(*args, delta=delta)
+            dk, dv = attention_stream_bwd_dkv(*args, delta=delta)
         return dq, dk, dv, None, None, None
 
 
@@ -424,31 +439,62 @@ def attention_stream_fwd(q, k, v, causal=False, scale=None, bias=None):
     return _K9.apply(q, k, v, bias, bool(causal), _scale(q.shape[-1], scale))
 
 
-def _check_bwd(what, q, k, v, o, lse, do, bias):
+def _check_bwd(what, q, k, v, o, lse, do, bias, delta=None):
     _check_operands(what, q, k, v, bias)
     b, h, t, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"{what}: o and do must be shaped like q "
                          f"{tuple(q.shape)} (o in q's dtype), got "
                          f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)}")
-    if tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32:
-        raise ValueError(f"{what}: lse must be (B, H, T) = {(b, h, t)} "
-                         f"float32, got {tuple(lse.shape)} {lse.dtype}")
-    if any(x.device != q.device for x in (o, lse, do)):
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x is not None and (tuple(x.shape) != (b, h, t) or
+                              x.dtype != torch.float32):
+            raise ValueError(f"{what}: {name} must be (B, H, T) = "
+                             f"{(b, h, t)} float32, got {tuple(x.shape)} "
+                             f"{x.dtype}")
+    rows = (o, lse, do) if delta is None else (o, lse, do, delta)
+    if any(x.device != q.device for x in rows):
         raise ValueError(f"{what}: operands on different devices")
 
 
-def _launch_bwd(wrapper, entry, q, k, v, o, lse, do, causal, scale, bias):
+def flash_bwd_delta(o, do):
+    """The delta pass of the flash backward: ``rowsum(dO·O)`` (B, H, T)
+    float32 for o (B, H, T, D) and do like it (cast to o's dtype), once
+    per backward for K10 and K11 to share."""
+    if o.dim() != 4 or do.shape != o.shape or \
+            o.dtype not in _build.DTYPE_CODES or do.device != o.device:
+        raise ValueError("flash_bwd_delta takes (B, H, T, D) float32 or "
+                         "bfloat16 o and do of its shape on its device, got "
+                         f"{tuple(o.shape)} {o.dtype} and {tuple(do.shape)}")
+    if o.device.type == "cpu":
+        return flash_bwd_delta_plain(o, do)
+    if o.device.type != "cuda":
+        raise RuntimeError(f"flash_bwd_delta has no path for device "
+                           f"{o.device}")
+    b, h, t, d = o.shape
+    o, do = _kernel_operand(o), _kernel_operand(do.to(o.dtype))
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=o.device)
+    if delta.numel():
+        rc = _build.load().bigdl_flash_bwd_delta(
+            o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+            _build.DTYPE_CODES[o.dtype], b * h * t, d, _build.stream_ptr(o))
+        _build.check(rc, "flash_bwd_delta")
+        flash_bwd_delta.launches += 1
+    return delta
+
+
+def _launch_bwd(wrapper, entry, q, k, v, delta, lse, do, causal, scale,
+                bias):
     """One K10 or K11 launch: head dims padded as K8/K9 pad them (zero
-    columns of q, k, v, o and dO add nothing to any score, ``delta`` or
-    product, and give zero gradient columns, sliced away)."""
+    columns of q, k, v and dO add nothing to any score or product, and give
+    zero gradient columns, sliced away)."""
     b, h, t, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     name = wrapper.__name__
     kd = _kernel_head_dim(name, d)
     _rows_check(name, b * h)
-    q, k, v, o, do = _pad_head(d, kd, q, k, v, o, do.to(q.dtype))
-    lse = _kernel_operand(lse)
+    q, k, v, do = _pad_head(d, kd, q, k, v, do.to(q.dtype))
+    lse, delta = _kernel_operand(lse), _kernel_operand(delta)
     bias_ptr = 0 if bias is None else _kernel_operand(bias).data_ptr()
     if entry == "bigdl_flash_bwd_dq":
         outs = [torch.empty_like(q)]
@@ -458,7 +504,7 @@ def _launch_bwd(wrapper, entry, q, k, v, o, lse, do, causal, scale, bias):
         outs = [x.zero_() for x in outs]
     else:
         rc = getattr(_build.load(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), delta.data_ptr(),
             lse.data_ptr(), do.data_ptr(), bias_ptr,
             *(x.data_ptr() for x in outs), _build.DTYPE_CODES[q.dtype],
             b, h, hk, t, tk, kd, scale, int(bool(causal)),
@@ -471,27 +517,35 @@ def _launch_bwd(wrapper, entry, q, k, v, o, lse, do, causal, scale, bias):
 
 
 def attention_stream_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
-                            bias=None):
+                            bias=None, delta=None):
     """K10: dQ of K9's attention (``_bwd_dq_kernel``), from its output
-    ``o`` and row logsumexp ``lse`` (B, H, T) float32; dQ in q's dtype."""
-    _check_bwd("attention_stream_bwd_dq", q, k, v, o, lse, do, bias)
+    ``o`` and row logsumexp ``lse`` (B, H, T) float32; dQ in q's dtype.
+    ``delta``: :func:`flash_bwd_delta` of (o, do), run here when None."""
+    _check_bwd("attention_stream_bwd_dq", q, k, v, o, lse, do, bias, delta)
     scale_ = _scale(q.shape[-1], scale)
+    if delta is None:
+        delta = flash_bwd_delta(o, do)
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale_, bias)[0]
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale_, bias,
+                               delta)[0]
     return _launch_bwd(attention_stream_bwd_dq, "bigdl_flash_bwd_dq", q, k,
-                       v, o, lse, do, causal, scale_, bias)
+                       v, delta, lse, do, causal, scale_, bias)
 
 
 def attention_stream_bwd_dkv(q, k, v, o, lse, do, causal=False, scale=None,
-                             bias=None):
+                             bias=None, delta=None):
     """K11: dK and dV of K9's attention (``_bwd_dkv_kernel``), each summed
-    over the query heads that share its KV head; in k's and v's dtype."""
-    _check_bwd("attention_stream_bwd_dkv", q, k, v, o, lse, do, bias)
+    over the query heads that share its KV head; in k's and v's dtype.
+    ``delta`` as for :func:`attention_stream_bwd_dq`."""
+    _check_bwd("attention_stream_bwd_dkv", q, k, v, o, lse, do, bias, delta)
     scale_ = _scale(q.shape[-1], scale)
+    if delta is None:
+        delta = flash_bwd_delta(o, do)
     if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale_, bias)[1:]
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, scale_, bias,
+                               delta)[1:]
     return _launch_bwd(attention_stream_bwd_dkv, "bigdl_flash_bwd_dkv", q, k,
-                       v, o, lse, do, causal, scale_, bias)
+                       v, delta, lse, do, causal, scale_, bias)
 
 
 # -- paged attention (K12) ----------------------------------------------------
@@ -638,7 +692,7 @@ def paged_attention(q, k_pool, v_pool, pages, positions, scale):
 
 
 for _fn in (attention_fwd, attention_stream_fwd, attention_stream_bwd_dq,
-            attention_stream_bwd_dkv, paged_attention):
+            attention_stream_bwd_dkv, flash_bwd_delta, paged_attention):
     _fn.launches = 0
 
 

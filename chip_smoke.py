@@ -64,18 +64,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
    S 2/3/17, an inactive all-trash row, integer q/k with |s| ~ 30 where
    the scores' bf16 rounding shows), in float32 and bfloat16, and f32
    queries over a bf16 cache; the same tolerances as 2d;
-2f. the flash backward: K9 with its row logsumexp, K10 (dQ) and K11 (dK,
-   dV) against their plain versions at the training paths' shapes ((1, 8,
+2f. the flash backward: K9 with its row logsumexp, the delta pass
+   (``rowsum(dO·O)``, shared by K10 and K11), K10 (dQ) and K11 (dK, dV)
+   against their plain versions at the training paths' shapes ((1, 8,
    8192, 64) causal bf16, the long-context run; (8, 8, 4096, 64) causal
-   f32, ``train_main``'s) and at ragged ones (T 520 and 1000, GQA 8/2 and
-   8/1, Tq != Tk, a padded bias with a row whose every key is padded, head
-   dims 16/32/128 and 48/80/96) in float32 and bfloat16: o as in 2d, lse
-   within 1e-5 of max(1, |lse|), each gradient within 1e-4 (f32) or two
-   bfloat16 steps (bf16) of its largest magnitude, zero gradients where
-   every key is padded; K11 bit-equal over two launches; and two autograd
-   round trips through ``fused_attention`` (T 2112 past the K/V budget, and
-   a key-padding mask) against autograd of the chunked plain form, with one
-   K9, one K10 and one K11 launch each;
+   f32, ``train_main``'s) and at ragged ones (T 520 and 1000, T 63, 64, 65
+   and 129 at the kernels' 64-row tiles, GQA 8/2, 8/1 and 8/1 at T 8191,
+   Tq != Tk, a padded bias with a row whose every key is padded, head dims
+   16/32/128 (causal too, the wgmma widths N 16 and 128) and 48/80/96) in
+   float32 and bfloat16: o as in 2d, lse within 1e-5 of max(1, |lse|),
+   delta within 1e-5 of each row's sum |dO·O|, each gradient within 1e-4
+   (f32) or two bfloat16 steps (bf16) of its largest magnitude, zero
+   gradients where every key is padded; K10 and K11 each bit-equal over two
+   launches; and two autograd round trips through ``fused_attention`` (T
+   2112 past the K/V budget, and a key-padding mask) against autograd of
+   the chunked plain form, with one K9, one delta pass, one K10 and one K11
+   launch each;
 2g. the fp16 wire codec K5 (compress), K6 (decompress) and K7 (add, with
    subnormals flushed) against their plain versions: the 42 652 672-element
    f32 parameter vector of 3e's LM, lengths 1, 7, 8191 and 2^20 + 3, views at
@@ -121,7 +125,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    its defaults (T 8192, 8 layers, embed 512, 8 heads, vocab 8192, remat,
    bf16 mixed precision, SGD 0.1, one warm-up and 5 timed steps): finite
    losses, the last below the first, and exactly 16 K9 (8 forward, 8
-   recomputed), 8 K10 and 8 K11 a step and no other kernel; one step pair
+   recomputed), 8 delta passes, 8 K10 and 8 K11 a step and no other
+   kernel; one step pair
    with ``--no-remat`` (8 K9 a step); a profile of the default run; one f32
    step of the same model cut to 2 layers on the card and on the CPU (loss
    within 1e-4, every gradient within 1e-4 of its largest magnitude);
@@ -129,11 +134,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (``--vocab 8000 --embed 512 --heads 8 --layers 8 --maxLen 4096 -b 8 -e
    1``, f32) on a corpus written here (40 lines of about 4200 Zipf-drawn
    words over 12 000 types): 4 steps and one validation, finite losses, 8
-   K9 + 8 K10 + 8 K11 a step and 8 K9 for the validation forward;
+   K9 + 8 delta + 8 K10 + 8 K11 a step and 8 K9 for the validation forward;
 3j. snapshots and resume on that corpus at those widths: A ``train_main -e
    2``, B ``-e 1 --checkpoint <dir>``, C a fresh ``--model <dir>/model.4
    --state <dir>/state.4 -e 2``: C's four losses equal A's steps 5-8 within
-   1e-5 relative, every run 8 K9 + 8 K10 + 8 K11 a step; a ``model.<n>``
+   1e-5 relative, every run 8 K9 + 8 delta + 8 K10 + 8 K11 a step; a
+   ``model.<n>``
    without its ``state.<n>`` is never picked; ``generate_main --model
    <dir>/model.4 --temperature 0 --words 16`` on two 64-word test
    sentences: ids in range, its sentences those of greedy
@@ -160,9 +166,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    request latency p50 and max, slot occupancy, chunks and prefix hit rate
    with a profiler breakdown of the same traffic, and the same requests
    through ``generate`` in static waves of 8; K9 with and without its LSE,
-   K10 and K11 per call at both training shapes beside their bounds
-   (6·D and 8·D FLOPs per unmasked pair and head), their plain versions
-   and SDPA's backward (forward + backward less forward), the long-context
+   the delta pass, K10 and K11 per call at both training shapes beside
+   their bounds (6·D and 8·D FLOPs per unmasked pair and head; the delta
+   pass by its bytes), their plain versions, and their sum beside SDPA's
+   backward (forward + backward less forward), the long-context
    step and tokens/s with a profiler breakdown, and ``train_main``'s step;
    K5, K6 and K7 per call at 42 652 672 elements beside their bytes bound,
    plain versions and, for K6, ``u.view(torch.bfloat16).float()`` (the
@@ -360,8 +367,20 @@ FLASH_RAGGED = [
      [72, 30]),
     ("d 96 (padded to 128), Tq < Tk, non-causal", 1, 4, 2, 33, 50, 96,
      False, None),
+    # the edges of the bf16 kernels' 64-row (K10) and 64-key (K11) tiles,
+    # and the wgmma widths N 16 and 128 on the causal path
+    ("T 63", 1, 8, 8, 63, 63, 64, True, None),
+    ("T 64", 1, 8, 8, 64, 64, 64, True, None),
+    ("T 65", 1, 8, 8, 65, 65, 64, True, None),
+    ("T 129, GQA 8/2", 1, 8, 2, 129, 129, 64, True, None),
+    ("MQA 8/1, T 8191", 1, 8, 1, 8191, 8191, 64, True, None),
+    ("d 16, T 300", 1, 4, 4, 300, 300, 16, True, None),
+    ("d 128, T 300, GQA 4/2", 1, 4, 2, 300, 300, 128, True, None),
 ]
 FLASH_LSE_RTOL = 1e-5
+# the delta pass within FLASH_DELTA_RTOL of each row's sum |dO·O| (f32 sums
+# in another order)
+FLASH_DELTA_RTOL = 1e-5
 FLASH_F32_RTOL = 1e-4
 FLASH_BF16_STEPS = 2
 # one autograd round trip through fused_attention (K9 + K10 + K11) against
@@ -943,17 +962,18 @@ def flash_grads(case, dtype, device, seed):
 
 
 def check_flash_kernels(device):
-    """Hold K9 with its LSE, K10 and K11 against their plain versions at
-    FLASH_PATH (each in its dtype) and FLASH_RAGGED (f32 and bf16): o, lse,
-    and dq, dk, dv from the plain forward's o and lse; rows and KV heads
-    with every key padded must get zero gradients.  Then K11 twice on the
-    same inputs, bit-equal, and the autograd round trips of
-    FLASH_AUTOGRAD.  Returns per-kernel errors (f32 cases), cases and
-    mismatches as :func:`check_kernels` does."""
+    """Hold K9 with its LSE, the delta pass, K10 and K11 against their plain
+    versions at FLASH_PATH (each in its dtype) and FLASH_RAGGED (f32 and
+    bf16): o, lse, delta, and dq, dk, dv from the plain forward's o and lse
+    and the delta pass's delta; rows and KV heads with every key padded
+    must get zero gradients.  Then K10 and K11 twice each on the same
+    inputs, bit-equal, and the autograd round trips of FLASH_AUTOGRAD.
+    Returns per-kernel errors (f32 cases), cases and mismatches as
+    :func:`check_kernels` does."""
     import torch
     from bigdl_tpu_torch.ops import attention as attn
-    names = ("attention_stream_fwd", "attention_stream_bwd_dq",
-             "attention_stream_bwd_dkv")
+    names = ("attention_stream_fwd", "flash_bwd_delta",
+             "attention_stream_bwd_dq", "attention_stream_bwd_dkv")
     errs = {k: 0.0 for k in names}
     rels = {k: {"float32": 0.0, "bfloat16": 0.0} for k in names}
     cases = {k: 0 for k in names}
@@ -982,10 +1002,18 @@ def check_flash_kernels(device):
             bool(torch.isfinite(got_o).all())
         checks = [("attention_stream_fwd", ok, max(rel_o, lse_err),
                    err.max().item())]
+        delta = attn.flash_bwd_delta(o, do)
+        torch.cuda.synchronize()
+        derr = (delta - attn.flash_bwd_delta_plain(o, do)).abs()
+        dmag = (do.float() * o.float()).abs().sum(dim=-1)
+        checks.append(("flash_bwd_delta", bool(
+            (derr <= FLASH_DELTA_RTOL * dmag).all()) and
+            delta.dtype == torch.float32 and delta.shape == lse.shape,
+            (derr / dmag.clamp_min(1e-30)).max().item(), derr.max().item()))
         dq = attn.attention_stream_bwd_dq(q, k, v, o, lse, do, causal, None,
-                                          bias)
+                                          bias, delta=delta)
         dk, dv = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, causal,
-                                               None, bias)
+                                               None, bias, delta=delta)
         torch.cuda.synchronize()
         want = attn.flash_bwd_plain(q, k, v, o, lse, do, causal, None, bias)
         for name, got, w in (("attention_stream_bwd_dq", [dq], want[:1]),
@@ -1013,19 +1041,23 @@ def check_flash_kernels(device):
                 misses[name] += 1
                 fail(f"{name} {case[0]} {dt}: max |err| {aerr:.3g}, "
                      f"relative {rel:.3g} beyond tolerance")
-        del q, k, v, o, lse, do, dq, dk, dv, want, mag
-    # K11 runs no atomics: two launches on the same inputs are bit-equal
+        del q, k, v, o, lse, do, dq, dk, dv, want, mag, delta
+    # K10 and K11 run no atomics: two launches on the same inputs are
+    # bit-equal
     for case in (FLASH_PATH[0], FLASH_RAGGED[5] + ("bfloat16",)):
         q, k, v, bias, o, lse, do = flash_grads(
             case, getattr(torch, case[9]), device, SEED + 300)
-        a = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, case[7], None,
-                                          bias)
-        b = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, case[7], None,
-                                          bias)
-        torch.cuda.synchronize()
-        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-            fail(f"attention_stream_bwd_dkv {case[0]}: two launches differ")
-        del q, k, v, o, lse, do, a, b
+        args = (q, k, v, o, lse, do, case[7], None, bias)
+        for name, fn in (("attention_stream_bwd_dq",
+                          lambda: (attn.attention_stream_bwd_dq(*args),)),
+                         ("attention_stream_bwd_dkv",
+                          lambda: attn.attention_stream_bwd_dkv(*args))):
+            a, b = fn(), fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"{name} {case[0]}: two launches differ")
+            del a, b
+        del q, k, v, o, lse, do
     # autograd through the dispatcher against autograd of the chunked form
     gen = torch.Generator(device=device).manual_seed(SEED + 310)
     for b, h, hk, t, d, lengths in FLASH_AUTOGRAD:
@@ -1046,7 +1078,7 @@ def check_flash_kernels(device):
         ran = {n: after[n] - before[n] for n in names}
         if ran != {n: 1 for n in names}:
             fail(f"fused_attention autograd at T {t}: launches {ran}, want "
-                 "one K9, one K10 and one K11")
+                 "one K9, one delta pass, one K10 and one K11")
         for x, r in zip(ours, ref):
             top = r.grad.abs().max().item()
             e = (x.grad - r.grad).abs().max().item()
@@ -1056,11 +1088,12 @@ def check_flash_kernels(device):
         del q, k, v, do, ours, ref
     log("flash backward vs plain: " + "; ".join(
         f"{k} {cases[k]} cases, max |err| relative f32 "
-        f"{rels[k]['float32']:.3g} bf16 {rels[k]['bfloat16']:.3g} (limits: o "
-        f"{ATTN_F32_RTOL} / {ATTN_BF16_STEPS * BF16_STEP:.4g} of sum |p·v|, "
-        f"lse {FLASH_LSE_RTOL}, gradients {FLASH_F32_RTOL} / "
-        f"{FLASH_BF16_STEPS * BF16_STEP:.4g} of their largest magnitude)"
-        for k in names) + "; K11 bit-equal over two launches; "
+        f"{rels[k]['float32']:.3g} bf16 {rels[k]['bfloat16']:.3g}"
+        for k in names) + f" (limits: o {ATTN_F32_RTOL} / "
+        f"{ATTN_BF16_STEPS * BF16_STEP:.4g} of sum |p·v|, lse "
+        f"{FLASH_LSE_RTOL}, delta {FLASH_DELTA_RTOL} of sum |dO·O|, "
+        f"gradients {FLASH_F32_RTOL} / {FLASH_BF16_STEPS * BF16_STEP:.4g} of "
+        "their largest magnitude); K10 and K11 bit-equal over two launches; "
         f"{len(FLASH_AUTOGRAD)} autograd round trips held")
     return ({f"{k}_lse" if k == "attention_stream_fwd" else k: v
              for k, v in errs.items()},
@@ -1851,10 +1884,10 @@ def expect_launches(what, counts, want):
 def long_context_training(device):
     """Phase 3h: ``longcontext_perf_main`` at its defaults (1 warm-up and
     LONG_ITERS timed steps at T 8192, 8 layers, remat, bf16, SGD 0.1): finite
-    losses falling, 16 K9 + 8 K10 + 8 K11 a step and no other kernel; one
-    step pair with ``--no-remat`` (8 K9 a step); a profile of the default
-    run; then one f32 step at full width and T but LONG_CPU_LAYERS layers on
-    the card and on the CPU."""
+    losses falling, 16 K9 + 8 delta + 8 K10 + 8 K11 a step and no other
+    kernel; one step pair with ``--no-remat`` (8 K9 a step); a profile of
+    the default run; then one f32 step at full width and T but
+    LONG_CPU_LAYERS layers on the card and on the CPU."""
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.models import perf
     report, by_path = {}, {}
@@ -1869,6 +1902,7 @@ def long_context_training(device):
                 "long_context_no_remat"] = counts
         expect_launches(f"long context ({key})", counts,
                         {"attention_stream_fwd": k9 * steps,
+                         "flash_bwd_delta": 8 * steps,
                          "attention_stream_bwd_dq": 8 * steps,
                          "attention_stream_bwd_dkv": 8 * steps})
         t, layers, embed, remat, ms, tps, first, last = rec[-1]
@@ -1952,9 +1986,9 @@ def write_corpus(folder):
 
 def train_main_long(device):
     """Phase 3i: ``train_main`` at the long-context widths (TM_FLAGS, f32)
-    on a corpus written here: finite losses, 8 K9 + 8 K10 + 8 K11 a step and
-    8 K9 per validation forward; then phase 3j on the same corpus
-    (:func:`snapshots_and_resume`)."""
+    on a corpus written here: finite losses, 8 K9 + 8 delta + 8 K10 + 8 K11
+    a step and 8 K9 per validation forward; then phase 3j on the same
+    corpus (:func:`snapshots_and_resume`)."""
     import shutil
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.models import transformer
@@ -1977,6 +2011,7 @@ def train_main_long(device):
     n = len(steps)
     expect_launches("train_main", counts,
                     {"attention_stream_fwd": 8 * n + 8 * len(vals),
+                     "flash_bwd_delta": 8 * n,
                      "attention_stream_bwd_dq": 8 * n,
                      "attention_stream_bwd_dkv": 8 * n})
     losses = [a[3] for a in steps]
@@ -2191,8 +2226,8 @@ def snapshots_and_resume(device, folder):
     """Phase 3j on 3i's corpus at 3i's widths: A ``train_main -e 2``; B ``-e
     1 --checkpoint``; C a fresh ``--model/--state`` of B's pair ``-e 2``: C's
     losses equal A's last four within RESUME_RTOL, each run launching 8 K9 +
-    8 K10 + 8 K11 a step and 8 K9 a validation forward; a model file
-    without its state is never picked; greedy ``generate_main`` on B's
+    8 delta + 8 K10 + 8 K11 a step and 8 K9 a validation forward; a model
+    file without its state is never picked; greedy ``generate_main`` on B's
     model extends test sentences with ids in range, its words those of
     ``TransformerLM.generate`` on the loaded model.  Also the save and load
     time of the snapshot pair."""
@@ -2232,6 +2267,7 @@ def snapshots_and_resume(device, folder):
         n = len(steps)
         expect_launches(f"train_main run {key}", counts,
                         {"attention_stream_fwd": 8 * n + 8 * len(vals),
+                         "flash_bwd_delta": 8 * n,
                          "attention_stream_bwd_dq": 8 * n,
                          "attention_stream_bwd_dkv": 8 * n})
         runs[key] = [a[3] for a in steps]
@@ -2653,10 +2689,13 @@ def flash_work(case, dtype):
 
 
 def time_flash(device):
-    """K9 with and without its LSE, K10 and K11 per call at FLASH_PATH (each
-    in its dtype): median kernel time with the L2 flushed, the bound, the
-    plain versions, and SDPA's backward (fwd + bwd less fwd, causal) as the
-    library yardstick for both K10 and K11."""
+    """K9 with and without its LSE, the delta pass, K10 and K11 per call at
+    FLASH_PATH (each in its dtype): median kernel time with the L2 flushed,
+    the bound, the plain versions, and SDPA's backward (fwd + bwd less fwd,
+    causal) as the library yardstick for both K10 and K11 and for their sum
+    with the delta pass (K10 and K11 timed on a precomputed delta).  The
+    delta pass has no one-call library equivalent (a bf16 ``vecdot`` rounds
+    its sums to bf16)."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import attention as attn
@@ -2691,22 +2730,35 @@ def time_flash(device):
                        q, k, v, causal, scale, with_lse=True), device,
                    reps=3, flush=flush),
                "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_both}
-        for name, fn, nbytes, flops in (
-                ("attention_stream_bwd_dq", lambda: attn.attention_stream_bwd_dq(
-                    q, k, v, o, lse, do, causal, scale), b10, f10),
+        delta = attn.flash_bwd_delta(o, do)
+        eb = do.element_size()
+        for name, fn, plain, nbytes, flops, library in (
+                ("flash_bwd_delta", lambda: attn.flash_bwd_delta(o, do),
+                 median_ms(lambda: attn.flash_bwd_delta_plain(o, do), device,
+                           flush=flush),
+                 2 * eb * o.numel() + 4 * lse.numel(), 2 * o.numel(), None),
+                ("attention_stream_bwd_dq",
+                 lambda: attn.attention_stream_bwd_dq(
+                     q, k, v, o, lse, do, causal, scale, delta=delta),
+                 plain_bwd, b10, f10, lib),
                 ("attention_stream_bwd_dkv",
                  lambda: attn.attention_stream_bwd_dkv(
-                     q, k, v, o, lse, do, causal, scale), b11, f11)):
+                     q, k, v, o, lse, do, causal, scale, delta=delta),
+                 plain_bwd, b11, f11, lib)):
             bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, \
                 1e3 * flops / rate
             row[name] = {"ms": median_ms(fn, device, flush=flush),
-                         "plain_ms": plain_bwd, "library_ms": lib,
+                         "plain_ms": plain, "library_ms": library,
                          "bound_ms": max(bytes_ms, ops_ms),
                          "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                          "bound_by": "bytes" if bytes_ms >= ops_ms
                          else "operations"}
+        row["bwd_sum_ms"] = sum(row[n]["ms"] for n in (
+            "flash_bwd_delta", "attention_stream_bwd_dq",
+            "attention_stream_bwd_dkv"))
+        row["sdpa_bwd_ms"] = lib
         out[case[0]] = row
-        del q, k, v, o, lse, do, qg, kg, vg
+        del q, k, v, o, lse, do, qg, kg, vg, delta
     return out
 
 
@@ -2975,6 +3027,11 @@ KERNELS = [
      "wrapper": "attention_stream_bwd_dkv", "route": "cuda",
      "source": "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
      "replaces": "bigdl_tpu/ops/attention.py:415"},
+    # a helper of K10/K11 with no TPU kernel of its own: the delta that
+    # _bwd_dq_kernel and _bwd_dkv_kernel recomputed per block
+    {"name": "flash_bwd_delta", "wrapper": "flash_bwd_delta", "route": "cuda",
+     "source": "bigdl_tpu_torch/csrc/flash_attention_bwd.cu",
+     "replaces": "bigdl_tpu/ops/attention.py:389"},
     {"name": "fp16_compress", "wrapper": "fp16_compress", "route": "cuda",
      "source": "bigdl_tpu_torch/csrc/fp16_codec.cu",
      "replaces": "bigdl_tpu/ops/fp16.py:59"},
@@ -3216,13 +3273,22 @@ def main() -> int:
             f"{t['k9_lse_plain_ms']:.3f} ms); SDPA forward "
             f"{t['sdpa_fwd_ms']:.4f} ms, forward + backward "
             f"{t['sdpa_fwd_bwd_ms']:.4f} ms")
-        for k in ("attention_stream_bwd_dq", "attention_stream_bwd_dkv"):
+        for k in ("flash_bwd_delta", "attention_stream_bwd_dq",
+                  "attention_stream_bwd_dkv"):
             r = t[k]
+            plain = "delta alone" if k == "flash_bwd_delta" else \
+                "dq, dk, dv together"
+            lib = "none" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f} ms (SDPA backward, dq, dk, dv " \
+                "together)"
             log(f"[{card}] {k} at {name}: {r['ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
                 f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}), plain "
-                f"(dq, dk, dv together) {r['plain_ms']:.3f} ms, SDPA backward "
-                f"(dq, dk, dv together) {r['library_ms']:.4f} ms")
+                f"({plain}) {r['plain_ms']:.3f} ms, library {lib}")
+        ratio = t["bwd_sum_ms"] / t["sdpa_bwd_ms"]
+        log(f"[{card}] flash backward at {name}: delta + K10 + K11 "
+            f"{t['bwd_sum_ms']:.4f} ms, SDPA backward "
+            f"{t['sdpa_bwd_ms']:.4f} ms ({ratio:.2f}x)")
     long_report["kernel_times"] = flash_times
     long_report["train_main"] = tm_report
     long_report["snapshots_and_resume"] = resume_report
@@ -3276,7 +3342,7 @@ def main() -> int:
                 entry["match"] = entry["match"] and \
                     misses["attention_stream_fwd_lse"] == 0
         elif wrapper in ("attention_stream_bwd_dq",
-                         "attention_stream_bwd_dkv"):
+                         "attention_stream_bwd_dkv", "flash_bwd_delta"):
             # per call at the long-context path's shape, bf16; train_main's
             # f32 shape beside it
             first, second = (flash_times[c[0]] for c in FLASH_PATH)

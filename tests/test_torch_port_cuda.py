@@ -19,10 +19,11 @@ The attention kernels K8, K9 and K12 agree with their plain versions to
 float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
 outputs' own roundings can land one step apart, and K8/K9 round p to
 bfloat16 for the tensor cores (2^-9 of the sum at most).  K9's row
-logsumexp agrees to 1e-5 of max(1, |lse|); K10 and K11 agree with
-``flash_bwd_plain`` to 1e-4 of each gradient's largest magnitude in
-float32 and two bfloat16 steps of it in bfloat16 (ds and p rounded where
-the reference rounds them), and K11 is bit-equal across launches.  K8's
+logsumexp agrees to 1e-5 of max(1, |lse|); the delta pass agrees with
+``flash_bwd_delta_plain`` to 1e-5 of each row's sum |dO·O|; K10 and K11
+agree with ``flash_bwd_plain`` to 1e-4 of each gradient's largest magnitude
+in float32 and two bfloat16 steps of it in bfloat16 (ds and p rounded where
+the reference rounds them), and both are bit-equal across launches.  K8's
 backward (autograd of the chunked plain form) agrees with autograd of the
 plain form to 1e-4 of each gradient's largest magnitude in float32 (the
 same math, f32 sums in another order).  The fp16 codec K5, K6 and K7 is
@@ -284,8 +285,8 @@ def test_k9_backward_runs_k10_and_k11(cuda_device):
                for _ in range(3))
     bias = torch.zeros((1, 80), device=cuda_device)
     bias[:, 60:] = attn.NEG_INF
-    names = (attn.attention_stream_fwd, attn.attention_stream_bwd_dq,
-             attn.attention_stream_bwd_dkv)
+    names = (attn.attention_stream_fwd, attn.flash_bwd_delta,
+             attn.attention_stream_bwd_dq, attn.attention_stream_bwd_dkv)
     before = [f.launches for f in names]
     ours = [x.clone().requires_grad_() for x in (q, k, v)]
     o = attn.attention_stream_fwd(*ours, True, None, bias)
@@ -296,7 +297,7 @@ def test_k9_backward_runs_k10_and_k11(cuda_device):
                              mask=(bias > -1)[:, None, None, :]).sum() \
         .backward()
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(names, before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(names, before)] == [1, 1, 1, 1]
     for a, r in zip(ours, ref):
         assert (a.grad - r.grad).abs().max().item() <= \
             1e-4 * r.grad.abs().max().item()
@@ -334,9 +335,18 @@ FLASH_CASES = [
     (3, 4, 2, 96, 96, 64, True, [96, 0, 41]),   # a row with every key padded
     (2, 4, 4, 72, 72, 128, False, [72, 30]),
     (1, 4, 2, 50, 50, 48, True, None),      # head dim 48, padded to 64
+    # the edges of the bf16 kernels' 64-row and 64-key tiles, MQA at the
+    # long-context length, the wgmma widths N 16 and 128 with the causal mask
+    (1, 8, 8, 63, 63, 64, True, None),
+    (1, 8, 8, 64, 64, 64, True, None),
+    (1, 8, 8, 65, 65, 64, True, None),
+    (1, 8, 1, 8191, 8191, 64, True, None),
+    (1, 4, 4, 300, 300, 16, True, None),
+    (1, 4, 2, 300, 300, 128, True, None),
 ]
 FLASH_IDS = ["gqa-t130", "mqa-tq-lt-tk", "tq-gt-tk-noncausal-d16",
-             "all-padded", "padded-d128", "d48"]
+             "all-padded", "padded-d128", "d48", "t63", "t64", "t65",
+             "mqa-t8191", "causal-d16", "causal-d128"]
 
 
 def _flash_inputs(case, dt, device):
@@ -389,6 +399,42 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
     if lengths is not None and 0 in lengths:
         row = lengths.index(0)
         assert not any(x[row].float().abs().any() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[3],
+                                  FLASH_CASES[-1]],
+                         ids=["gqa-t130", "all-padded", "causal-d128"])
+def test_delta_pass_matches_plain(cuda_device, case, dtype):
+    # rowsum(dO·O) in f32 from 16-byte loads, 8 lanes a row: within 1e-5 of
+    # each row's sum |dO·O| (f32 sums in another order); dO in f32 is cast
+    # to o's dtype first
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias = _flash_inputs(case, dt, cuda_device)
+    o, _ = attn.attention_stream_plain(q, k, v, case[6], None, bias,
+                                       with_lse=True)
+    before = attn.flash_bwd_delta.launches
+    for d in (do, do.float()):
+        got = attn.flash_bwd_delta(o, d)
+        torch.cuda.synchronize()
+        want = attn.flash_bwd_delta_plain(o, d)
+        mag = (d.to(dt).float() * o.float()).abs().sum(dim=-1)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert ((got - want).abs() <= 1e-5 * mag).all()
+    assert attn.flash_bwd_delta.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k10_is_bit_equal_across_launches(cuda_device, dtype):
+    # no atomics: the sums over a block's key tiles have a fixed order
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias = _flash_inputs(FLASH_CASES[3], dt, cuda_device)
+    o, lse = attn.attention_stream_plain(q, k, v, True, None, bias,
+                                         with_lse=True)
+    a = attn.attention_stream_bwd_dq(q, k, v, o, lse, do, True, None, bias)
+    b = attn.attention_stream_bwd_dq(q, k, v, o, lse, do, True, None, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -14,8 +14,12 @@ max(1, |lse|) in both, since both sides compute it in f32);
 o and lse and the same dO, each gradient within 1e-5 (float32) or two
 bfloat16 steps (bfloat16) of its largest magnitude: the sums run in
 another order, and in bfloat16 both sides round ds and p, so a rounding
-can land one step apart.  Autograd through the port's dispatcher against
-``jax.grad`` of the reference's, routed to the streaming kernels by a
+can land one step apart.  ``flash_bwd_delta_plain`` (the delta pass that
+K10 and K11 share) against ``rowsum(dO·O)`` as ``_bwd_dq_kernel`` computes
+it, within 1e-6 of each row's sum |dO·O| (f32 sums in another order), and
+``flash_bwd_plain`` given that delta equal to it computing its own.
+Autograd through the port's dispatcher against ``jax.grad`` of the
+reference's, routed to the streaming kernels by a
 key-padding mask or by keys past the 512 KB budget (T 2112 at d 64),
 within 1e-5 of each gradient's largest magnitude in float32.  The kernels
 against their plain versions need a card: ``test_torch_port_cuda.py``.
@@ -135,6 +139,49 @@ def test_flash_bwd_plain_matches_pallas_flash_backward(interpret, case,
         assert not any(x[row].float().abs().any() for x in got)
 
 
+def _reference_delta(o, do, dtype):
+    """delta as ``_bwd_dq_kernel`` computes it: dO cast to q's dtype, the
+    products of the f32 casts summed over the head dim."""
+    jdt = getattr(jnp, dtype)
+    jo, jdo = jnp.asarray(o, jdt), jnp.asarray(do, jdt)
+    return np.asarray(jnp.sum(jdo.astype(jnp.float32) *
+                              jo.astype(jnp.float32), axis=-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_flash_bwd_delta_plain_matches_the_reference_delta(case, dtype):
+    q, k, v, do, bias = _inputs(case, 5)
+    o, _ = tattn.attention_stream_plain(
+        *(_torch(x, dtype) for x in (q, k, v)), case[6], None,
+        None if bias is None else torch.from_numpy(bias), with_lse=True)
+    o32 = o.float().numpy()
+    want = _reference_delta(o32, do, dtype)
+    got = tattn.flash_bwd_delta_plain(o, _torch(do, dtype))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    mag = np.abs(np.asarray(_torch(do, dtype).float()) * o32).sum(-1)
+    assert np.all(np.abs(got.numpy() - want) <= 1e-6 * mag + 1e-30)
+    # the wrapper takes the plain version on CPU tensors, dO in any dtype
+    torch.testing.assert_close(
+        tattn.flash_bwd_delta(o, torch.from_numpy(do)),
+        tattn.flash_bwd_delta_plain(o, torch.from_numpy(do)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_flash_bwd_plain_takes_a_precomputed_delta(case):
+    q, k, v, do, bias = (None if x is None else torch.from_numpy(x)
+                         for x in _inputs(case, 6))
+    causal = case[6]
+    o, lse = tattn.attention_stream_plain(q, k, v, causal, None, bias,
+                                          with_lse=True)
+    delta = tattn.flash_bwd_delta_plain(o, do)
+    got = tattn.flash_bwd_plain(q, k, v, o, lse, do, causal, None, bias,
+                                delta=delta)
+    want = tattn.flash_bwd_plain(q, k, v, o, lse, do, causal, None, bias)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_flash_bwd_plain_sums_the_gqa_group():
     """dK and dV of a KV head shared by a group of query heads are the sums
     of what each query head alone would give it."""
@@ -225,17 +272,24 @@ def test_backward_wrappers_on_the_cpu_launch_nothing():
                          for x in _inputs(CASES[4], 4))
     o, lse = tattn.attention_stream_plain(q, k, v, True, None, bias,
                                           with_lse=True)
-    before = (tattn.attention_stream_bwd_dq.launches,
-              tattn.attention_stream_bwd_dkv.launches)
+    wrappers = (tattn.flash_bwd_delta, tattn.attention_stream_bwd_dq,
+                tattn.attention_stream_bwd_dkv)
+    before = [w.launches for w in wrappers]
+    delta = tattn.flash_bwd_delta(o, do)
     dq = tattn.attention_stream_bwd_dq(q, k, v, o, lse, do, True, None, bias)
     dk, dv = tattn.attention_stream_bwd_dkv(q, k, v, o, lse, do, True, None,
-                                            bias)
-    assert (tattn.attention_stream_bwd_dq.launches,
-            tattn.attention_stream_bwd_dkv.launches) == before
+                                            bias, delta=delta)
+    assert [w.launches for w in wrappers] == before
+    assert torch.equal(delta, tattn.flash_bwd_delta_plain(o, do))
     want = tattn.flash_bwd_plain(q, k, v, o, lse, do, True, None, bias)
     for a, b in zip((dq, dk, dv), want):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="lse must be"):
         tattn.attention_stream_bwd_dq(q, k, v, o, lse[..., :-1], do)
+    with pytest.raises(ValueError, match="delta must be"):
+        tattn.attention_stream_bwd_dkv(q, k, v, o, lse, do,
+                                       delta=delta[..., :-1])
     with pytest.raises(ValueError, match="shaped like q"):
         tattn.attention_stream_bwd_dkv(q, k, v, o[:, :, :-1], lse, do)
+    with pytest.raises(ValueError, match="flash_bwd_delta takes"):
+        tattn.flash_bwd_delta(o, do[:, :, :-1])
