@@ -1,150 +1,70 @@
 #!/usr/bin/env python3
-"""The port's flash backward on the card: K10, K11 and the delta pass beside
-SDPA's backward, a parent checkout against this one, the mutation check of
-``chip_smoke.py`` phase 2f, and an ablation of the bf16 kernels.
+"""The port's flash backward on the card: a parent checkout against this
+one, the kernels' ptxas figures, and the mutation check of
+``chip_smoke.py`` phase 2f.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 bench_flash_bwd.py time [--host-profile]
     python3 bench_flash_bwd.py ab <parent checkout>
+    python3 bench_flash_bwd.py ptxas
     python3 bench_flash_bwd.py mutants
-    python3 bench_flash_bwd.py ablate
 
-``time`` times the tree in the working directory: K10 and K11 through their
-public wrappers and, where the tree has the delta pass, K10 and K11 on a
-precomputed delta and the pass alone, at FLASH_PATH's shapes ((1, 8, 8192,
-64) causal bf16 and (8, 8, 4096, 64) causal f32; CUDA events, median of 20
-with the L2 flushed), SDPA's backward (forward + backward less forward),
-and ``longcontext_perf_main``'s step with and without remat; it prints one
-``RESULT {json}`` line.  ``--host-profile`` adds the host-side top ops of
-two remat steps.  ``ab`` runs ``time`` in the parent checkout and in this
-one in turns (parent, this, this, parent), each in its own process, and
-prints their RESULT lines; make the parent with ``git archive <commit>
-bigdl_tpu_torch | tar -x -C build/parent`` (``build/`` is not committed).
-``mutants`` copies the port and ``chip_smoke.py`` under
-``build/mutant_<name>/``, breaks one product of K11 in each copy, and
-fails unless ``check_flash_kernels`` fails in every copy.  ``ablate``
-builds copies of ``flash_attention_bwd.cu`` with one part of the bf16
-kernels switched off (the elementwise softmax-gradient step, or the second
-products, whose inputs the compiler then drops too) and times K10 and K11
-at the long-context shape: the numbers are wrong by design, only the
-times mean anything.  (The streamed loads cannot be switched off: each
-stage's barrier waits for its TMA copies.)
-Every line is stamped with the card's name and power limit.
+``ab`` runs each checkout's own ``chip_smoke.time_flash`` (K10, K11 and,
+where the tree has it, the delta pass, beside SDPA's backward at
+FLASH_PATH's shapes) and ``chip_smoke.long_context_training`` (phase 3h) in
+the parent and in this checkout in turns (parent, this, this, parent), each
+in its own process, and prints one ``RESULT {json}`` line a run.  Make the
+parent with ``git archive <commit> bigdl_tpu_torch chip_smoke.py | tar -x -C
+build/parent`` (``build/`` is not committed).  ``ptxas`` compiles
+``flash_attention_bwd.cu`` with ``-Xptxas -v`` under ``build/ptxas/`` and
+prints each kernel's registers, spills and whether ptxas serialized its
+wgmma (info C7515).  ``mutants`` copies the port and ``chip_smoke.py`` under
+``build/mutant_<name>/``, breaks one product of K11 in each copy, and fails
+unless ``check_flash_kernels`` fails in every copy.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
+import re
 import shutil
-import statistics
 import subprocess
 import sys
 
 CU = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
+WGMMA = "bigdl_tpu_torch/csrc/wgmma.cuh"
 
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-
-
-def median_ms(fn, flush, reps=20):
-    import torch
-    for _ in range(3):
-        fn()
-    out = []
-    for _ in range(reps):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    return statistics.median(out)
-
-
-def flash_inputs(b, h, t, dtype, device, attn):
-    import torch
-    g = torch.Generator(device=device).manual_seed(500)
-    q, k, v, do = (torch.randn((b, h, t, 64), generator=g,
-                               device=device).to(dtype) for _ in range(4))
-    o, lse = attn.attention_stream_plain(q, k, v, True, None, None,
-                                         with_lse=True)
-    return q, k, v, do, o, lse
-
-
-PATH = (("long context, bf16", 1, 8, 8192, "bfloat16"),
-        ("train_main, f32", 8, 8, 4096, "float32"))
-
-
-def cmd_time(label: str, host_profile: bool) -> None:
-    sys.path.insert(0, os.getcwd())
-    import torch
-    import torch.nn.functional as F
-    from bigdl_tpu_torch.models import perf
-    from bigdl_tpu_torch.ops import attention as attn
-    dev = torch.device("cuda")
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
-    res = {"label": label, "card": card_line()}
-    for name, b, h, t, dt in PATH:
-        q, k, v, do, o, lse = flash_inputs(b, h, t, getattr(torch, dt), dev,
-                                           attn)
-        args = (q, k, v, o, lse, do, True)
-        r = {"k10_public_ms": median_ms(
-                 lambda: attn.attention_stream_bwd_dq(*args), flush),
-             "k11_public_ms": median_ms(
-                 lambda: attn.attention_stream_bwd_dkv(*args), flush)}
-        if hasattr(attn, "flash_bwd_delta"):
-            delta = attn.flash_bwd_delta(o, do)
-            r["delta_ms"] = median_ms(lambda: attn.flash_bwd_delta(o, do),
-                                      flush)
-            r["k10_ms"] = median_ms(lambda: attn.attention_stream_bwd_dq(
-                *args, delta=delta), flush)
-            r["k11_ms"] = median_ms(lambda: attn.attention_stream_bwd_dkv(
-                *args, delta=delta), flush)
-        else:   # a tree whose K10 and K11 compute delta themselves
-            r.update(delta_ms=0.0, k10_ms=r["k10_public_ms"],
-                     k11_ms=r["k11_public_ms"])
-        r["sum_ms"] = r["k10_ms"] + r["k11_ms"] + r["delta_ms"]
-        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-        fwd = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), flush)
-        both = median_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg, is_causal=True),
-            (qg, kg, vg), do), flush)
-        r["sdpa_bwd_ms"] = both - fwd
-        res[name] = r
-        del q, k, v, do, o, lse, qg, kg, vg
-    for key, argv in (("step_remat_ms", []),
-                      ("step_no_remat_ms", ["--no-remat"])):
-        res[key] = 8192 / perf.longcontext_perf_main(argv, device=dev) * 1e3
-    print("RESULT " + json.dumps(res), flush=True)
-    if host_profile:
-        from torch.profiler import ProfilerActivity, profile
-        perf.longcontext_perf_main(["-i", "1"], device=dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            perf.longcontext_perf_main(["-i", "2"], device=dev)
-        print(prof.key_averages().table(sort_by="self_cpu_time_total",
-                                        row_limit=25,
-                                        max_name_column_width=60))
+# one run of ``ab``, in the checkout it is started in
+_AB_RUN = """
+import json, sys, torch
+import chip_smoke as cs
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+res = {"label": sys.argv[1], "card": cs.card_line()}
+for name, r in cs.time_flash(dev).items():
+    ms = {k: r[k]["ms"] for k in ("flash_bwd_delta",
+                                  "attention_stream_bwd_dq",
+                                  "attention_stream_bwd_dkv") if k in r}
+    res[name] = dict(ms, sum_ms=sum(ms.values()),
+                     sdpa_bwd_ms=r["attention_stream_bwd_dq"]["library_ms"])
+long, _ = cs.long_context_training(dev)
+for key in ("remat", "no_remat"):
+    res[key] = {k: long[key][k] for k in ("ms_per_step", "tokens_per_s",
+                                          "launches_per_step")}
+res["busy_share"] = long["profile"]["busy_share"]
+print("RESULT " + json.dumps(res), flush=True)
+"""
 
 
 def cmd_ab(parent: str) -> int:
-    me = os.path.abspath(__file__)
-    here = os.path.dirname(me)
+    here = os.path.dirname(os.path.abspath(__file__))
     rc = 0
     for label, cwd in (("parent 1", parent), ("change 1", here),
                        ("change 2", here), ("parent 2", parent)):
-        r = subprocess.run([sys.executable, me, "time", "--label", label],
-                           cwd=cwd, capture_output=True, text=True)
+        r = subprocess.run([sys.executable, "-c", _AB_RUN, label], cwd=cwd,
+                           capture_output=True, text=True)
         lines = [ln for ln in r.stdout.splitlines()
                  if ln.startswith("RESULT ")]
         print(lines[-1] if lines else f"{label}: rc {r.returncode}\n"
@@ -153,41 +73,69 @@ def cmd_ab(parent: str) -> int:
     return rc
 
 
-# K11 broken three ways: each copy must fail phase 2f
-_FLIPPED = ("__device__ __forceinline__ void mma_rs_flipped(float (&d)[32],\n"
-            "    const uint32_t (&a)[4], uint64_t b) {\n  asm volatile(\n"
-            "      \"{\\n.reg .pred p;\\nsetp.ne.b32 p, %37, 0;\\n\"\n"
-            "      \"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {\"\n"
-            + "".join(f"      \"%{i}{', ' if i < 31 else ''}\"\n"
-                      for i in range(32)) +
-            "      \"}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\\n}\\n\"\n"
-            "      : " + ", ".join(f'"+f"(d[{i}])' for i in range(32)) +
-            "\n      : \"r\"(a[0]), \"r\"(a[1]), \"r\"(a[2]), \"r\"(a[3]),"
-            " \"l\"(b), \"r\"(1));\n}\n\n}  // namespace wg\n")
+def ptxas_lines(log: str):
+    """One line a kernel from ``nvcc -Xptxas -v``'s log: its name and
+    template arguments, registers and spills."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            m2 = re.search(r"((?:dq|dkv)_(?:bf16|f32))ILi(\d+)ELb([01])E",
+                           m.group(1))
+            name = (f"{m2.group(1)} D {m2.group(2)} bias {m2.group(3)}"
+                    if m2 else "delta_kernel " +
+                    ("bf16" if "bfloat16" in m.group(1) else "f32"))
+        elif name and "spill" in ln:
+            spills = ln.strip()
+        elif name and "Used" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spills}")
+    return out
+
+
+def cmd_ptxas() -> int:
+    sys.path.insert(0, os.getcwd())
+    from bigdl_tpu_torch.ops import _build
+    os.makedirs("build/ptxas", exist_ok=True)
+    r = subprocess.run([_build._nvcc(), *_build.ARCH, *_build.FLAGS,
+                        "-Xptxas", "-v", "-c", CU, "-o",
+                        "build/ptxas/flash_attention_bwd.o"],
+                       capture_output=True, text=True)
+    print(f"nvcc -Xptxas -v {CU}: rc {r.returncode}")
+    print("\n".join(ptxas_lines(r.stderr)))
+    if r.returncode:
+        print(r.stderr[-3000:])
+    print("C7515 (wgmma serialized): " +
+          ("REPORTED" if "C7515" in r.stderr else "not reported"))
+    return r.returncode
+
+
+# K11 broken two ways: each copy must fail phase 2f.  The dv product
+# pᵀ·dO reads dO MN-major (transpose bit 1); the second mutant reads it
+# through a K-major descriptor with the bit 0, i.e. dO transposed inside
+# its tile
 _DV = "      wg::mma_rs(dva, pa[c], T::template mnmajor<kTile>(ds, c));"
+_DV_T0 = ("      if constexpr (D == 64)\n        wg::mma_rs_t0(dva, pa[c], "
+          "T::template kmajor<kTile>(ds, c));\n      else\n  " + _DV)
 
 
-def _dv_flipped(descriptor: str) -> str:
-    return ("      if constexpr (D == 64)\n"
-            "        wg::mma_rs_flipped(dva, pa[c],\n"
-            f"                           T::template {descriptor}<kTile>"
-            "(ds, c));\n      else\n  " + _DV)
+def _with_t0(wgmma: str) -> str:
+    """wgmma.cuh with a copy of the N 64 ``mma_rs``, ``mma_rs_t0``, whose
+    B operand's transpose bit is 0."""
+    start = wgmma.index("__device__ __forceinline__ void mma_rs(float "
+                        "(&d)[32],")
+    end = wgmma.index("\n}\n", start) + 3
+    fn = wgmma[start:end].replace("mma_rs(", "mma_rs_t0(").replace(
+        "p, 1, 1, 1;", "p, 1, 1, 0;")
+    return wgmma[:end] + "\n" + fn + wgmma[end:]
 
 
 MUTANTS = {
     # the diagonal tile takes the unmasked path: no causal mask
-    "k11_no_diagonal_mask": [(
-        CU, "    if ((p.causal && q0 < k0 + kTile - 1) || q0 + kTile > p.tq ||",
-        "    if (q0 + kTile > p.tq ||")],
-    # the dv product's B operand (dO) with its transpose bit flipped
-    "k11_dv_transpose_bit": [
-        ("bigdl_tpu_torch/csrc/wgmma.cuh", "}  // namespace wg\n", _FLIPPED),
-        (CU, _DV, _dv_flipped("mnmajor"))],
-    # the same bit with a K-major descriptor, every read inside the tile:
-    # dO read transposed
-    "k11_dv_read_k_major": [
-        ("bigdl_tpu_torch/csrc/wgmma.cuh", "}  // namespace wg\n", _FLIPPED),
-        (CU, _DV, _dv_flipped("kmajor"))],
+    "k11_no_diagonal_mask": [(CU, lambda s: s.replace(
+        "    if ((p.causal && q0 < k0 + kTile - 1) || q0 + kTile > p.tq ||",
+        "    if (q0 + kTile > p.tq ||"))],
+    "k11_dv_transpose_bit": [(WGMMA, _with_t0),
+                             (CU, lambda s: s.replace(_DV, _DV_T0))],
 }
 
 
@@ -200,19 +148,19 @@ def cmd_mutants() -> int:
         shutil.copytree("bigdl_tpu_torch", f"{root}/bigdl_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy("chip_smoke.py", root)
-        for path, old, new in edits:
+        for path, edit in edits:
             text = open(f"{root}/{path}").read()
-            if text.count(old) != 1:
+            if edit(text) == text:
                 raise SystemExit(f"mutant {name}: {path} no longer holds "
-                                 f"the text to break: {old!r}")
-            open(f"{root}/{path}", "w").write(text.replace(old, new))
+                                 "the text to break")
+            open(f"{root}/{path}", "w").write(edit(text))
         r = subprocess.run(
             [sys.executable, "-c", "import torch, chip_smoke as cs; "
              "cs.check_flash_kernels(torch.device('cuda'))"],
             cwd=root, capture_output=True, text=True)
         why = [ln for ln in r.stderr.splitlines()
                if "FAILED" in ln or "Error" in ln]
-        print(f"[{card_line()}] mutant {name}: rc {r.returncode}; "
+        print(f"mutant {name}: rc {r.returncode}; "
               f"{why[-1] if why else r.stderr[-300:]}", flush=True)
         caught = caught and r.returncode != 0
         shutil.rmtree(root, ignore_errors=True)
@@ -221,89 +169,21 @@ def cmd_mutants() -> int:
     return 0 if caught else 1
 
 
-ABLATIONS = {
-    "full": [],
-    "no elementwise step": [
-        ("dkv_scores<true, kBias>(st", "if (0) dkv_scores<true, kBias>(st"),
-        ("dkv_scores<false, kBias>(st", "if (0) dkv_scores<false, kBias>(st"),
-        ("dq_scores<true, kBias>(sc", "if (0) dq_scores<true, kBias>(sc"),
-        ("dq_scores<false, kBias>(sc", "if (0) dq_scores<false, kBias>(sc")],
-    "no second products": [
-        ("wg::mma_rs(dva, pa[c]", "if (0) wg::mma_rs(dva, pa[c]"),
-        ("wg::mma_rs(dka, da[c]", "if (0) wg::mma_rs(dka, da[c]"),
-        ("wg::mma_rs(acc, a[c]", "if (0) wg::mma_rs(acc, a[c]")],
-}
-
-
-def cmd_ablate() -> int:
-    sys.path.insert(0, os.getcwd())
-    import torch
-    from bigdl_tpu_torch.ops import _build
-    from bigdl_tpu_torch.ops import attention as attn
-    out_dir = os.path.join("build", "ablate")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for i, (name, subs) in enumerate(ABLATIONS.items()):
-        text = open(CU).read()
-        for old, new in subs:
-            text = text.replace(old, new)
-        src = os.path.join(os.path.dirname(CU), f"_ablate_{i}.cu")
-        open(src, "w").write(text)
-        procs[name] = (src, subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", src,
-             "-o", os.path.join(out_dir, f"{i}.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for i, (name, (src, p)) in enumerate(procs.items()):
-        log = p.communicate()[0]
-        os.remove(src)
-        if p.returncode:
-            print(f"{name}: nvcc failed\n{log[-3000:]}")
-            return 1
-        lib = ctypes.CDLL(os.path.abspath(os.path.join(out_dir, f"{i}.so")))
-        for fn in ("bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    dev = torch.device("cuda")
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
-    name, b, h, t, dt = PATH[0]
-    q, k, v, do, o, lse = flash_inputs(b, h, t, torch.bfloat16, dev, attn)
-    delta = attn.flash_bwd_delta(o, do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
-        torch.empty_like(v)
-    st = _build.stream_ptr(q)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), delta.data_ptr(),
-              lse.data_ptr(), do.data_ptr(), 0)
-    shape = (_build.DTYPE_CODES[torch.bfloat16], b, h, h, t, t, 64,
-             64 ** -0.5, 1, st)
-    for label, lib in list(libs.items()) * 2:   # in turns, twice
-        t10 = median_ms(lambda: lib.bigdl_flash_bwd_dq(
-            *common, dq.data_ptr(), *shape), flush)
-        t11 = median_ms(lambda: lib.bigdl_flash_bwd_dkv(
-            *common, dk.data_ptr(), dv.data_ptr(), *shape), flush)
-        print(f"[{card_line()}] {name}, {label}: K10 {t10:.4f} ms, K11 "
-              f"{t11:.4f} ms", flush=True)
-    return 0
-
-
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("bench_flash_bwd: CUDA is not available", file=sys.stderr)
         return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
     cmd = argv[0] if argv else ""
-    if cmd == "time":
-        label = argv[argv.index("--label") + 1] if "--label" in argv \
-            else "this tree"
-        cmd_time(label, "--host-profile" in argv)
-        return 0
     if cmd == "ab" and len(argv) == 2:
         return cmd_ab(os.path.abspath(argv[1]))
+    if cmd == "ptxas":
+        return cmd_ptxas()
     if cmd == "mutants":
         return cmd_mutants()
-    if cmd == "ablate":
-        return cmd_ablate()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -81,7 +81,7 @@ constexpr int kTile = 64;           // query rows (K10) or keys (K11) a
 constexpr int kThreads = 128;       // f32 K10: 4 warps, 16 rows each
 constexpr int kF32DkvThreads = 256; // f32 K11: 8 warps, 8 keys each
 constexpr int kWgThreads = 128;     // bf16: one warpgroup a block
-constexpr int kStages = 3;          // bf16: depth of the cp.async ring
+constexpr int kStages = 3;          // bf16: depth of the TMA ring
 
 struct Params {
   const void* q;

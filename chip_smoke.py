@@ -2694,8 +2694,10 @@ def time_flash(device):
     the bound, the plain versions, and SDPA's backward (fwd + bwd less fwd,
     causal) as the library yardstick for both K10 and K11 and for their sum
     with the delta pass (K10 and K11 timed on a precomputed delta).  The
-    delta pass has no one-call library equivalent (a bf16 ``vecdot`` rounds
-    its sums to bf16)."""
+    delta pass's library call is ``torch.linalg.vecdot(do, o)`` in f32,
+    held once against the plain version within FLASH_DELTA_RTOL of each
+    row's sum |dO·O|; in bf16 it has none (a bf16 ``vecdot`` rounds its
+    sums to bf16)."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import attention as attn
@@ -2731,12 +2733,23 @@ def time_flash(device):
                    reps=3, flush=flush),
                "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_both}
         delta = attn.flash_bwd_delta(o, do)
+        delta_lib = None
+        if case[9] == "float32":
+            derr = (torch.linalg.vecdot(do, o, dim=-1) -
+                    attn.flash_bwd_delta_plain(o, do)).abs()
+            if not bool((derr <= FLASH_DELTA_RTOL * (do * o).abs().sum(
+                    dim=-1)).all()):
+                fail(f"torch.linalg.vecdot at {case[0]}: max |err| "
+                     f"{derr.max().item():.3g} against the plain delta")
+            delta_lib = median_ms(lambda: torch.linalg.vecdot(do, o, dim=-1),
+                                  device, flush=flush)
         eb = do.element_size()
         for name, fn, plain, nbytes, flops, library in (
                 ("flash_bwd_delta", lambda: attn.flash_bwd_delta(o, do),
                  median_ms(lambda: attn.flash_bwd_delta_plain(o, do), device,
                            flush=flush),
-                 2 * eb * o.numel() + 4 * lse.numel(), 2 * o.numel(), None),
+                 2 * eb * o.numel() + 4 * lse.numel(), 2 * o.numel(),
+                 delta_lib),
                 ("attention_stream_bwd_dq",
                  lambda: attn.attention_stream_bwd_dq(
                      q, k, v, o, lse, do, causal, scale, delta=delta),
@@ -3279,8 +3292,9 @@ def main() -> int:
             plain = "delta alone" if k == "flash_bwd_delta" else \
                 "dq, dk, dv together"
             lib = "none" if r["library_ms"] is None else \
-                f"{r['library_ms']:.4f} ms (SDPA backward, dq, dk, dv " \
-                "together)"
+                f"{r['library_ms']:.4f} ms (" + (
+                    "torch.linalg.vecdot" if k == "flash_bwd_delta" else
+                    "SDPA backward, dq, dk, dv together") + ")"
             log(f"[{card}] {k} at {name}: {r['ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
                 f"{r['bytes_ms']:.4f}, operations {r['ops_ms']:.4f}), plain "
