@@ -63,10 +63,8 @@
 // 64.
 #include <cstdint>
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -216,12 +214,12 @@ template <int D>
 __device__ __forceinline__ void product(float (&x)[32], uint32_t a,
                                         uint32_t b) {
   using T = wg::Tile<D>;
-  wg::mma_ss_n64_first(x, T::template kmajor<kTile>(a, 0),
-                       T::template kmajor<kTile>(b, 0));
+  wg::Ss<64>::mma<true>(x, T::template kmajor<kTile>(a, 0),
+                        T::template kmajor<kTile>(b, 0));
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
-    wg::mma_ss_n64(x, T::template kmajor<kTile>(a, kk),
-                   T::template kmajor<kTile>(b, kk));
+    wg::Ss<64>::mma<false>(x, T::template kmajor<kTile>(a, kk),
+                           T::template kmajor<kTile>(b, kk));
 }
 
 template <int D, bool kBias>
@@ -865,43 +863,18 @@ cudaError_t run(K kernel, dim3 grid, int threads, int smem, cudaStream_t s,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from libcuda.so.1, which the process has loaded
-// already (no link against it); null if it is not there
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
 // the TMA map of a (z, n, D) bf16 tensor whose boxes are the panels of a
 // 64-row tile (wgmma.cuh), swizzled as the tile is, rows past n zeros
 template <int D>
 bool tile_map(CUtensorMap* map, const void* ptr, int n, int z) {
   using T = bigdl::wg::Tile<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(z)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(n) * D * 2};
-  const cuuint32_t box[3] = {T::kW / 2, kTile, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      T::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : T::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bigdl::tma::bf16_map<3>(
+      map, ptr,
+      {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(n),
+       static_cast<cuuint64_t>(z)},
+      {static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(n) * D * 2},
+      {static_cast<cuuint32_t>(T::kW / 2), static_cast<cuuint32_t>(kTile),
+       1u});
 }
 
 template <bool kDq, bool kBias, int D>

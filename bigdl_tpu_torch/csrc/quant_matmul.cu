@@ -15,30 +15,44 @@
 // concatenated [x[:, :h] | x[:, h:]] padded to 128 lanes for Mosaic.
 //
 // The TPU kernels padded M/N/K to 128/128/512 tiles in memory and carried
-// the K sum across sequential grid steps in VMEM.  Here each block owns one
-// output tile, loops over K inside itself, and masks the ragged edges;
-// nothing is padded in memory.  The weight is widened on its way into
-// shared memory (int8 and e4m3 are exact in bf16 and f32), so no widened
-// copy of it ever exists in device memory.
+// the K sum across sequential grid steps in VMEM.  Here nothing is padded
+// in memory: blocks mask (or TMA zero-fills) the ragged edges.  The weight
+// is widened inside the block (int8, e4m3 and int4 are exact in bf16 and
+// f32), so no widened copy of it ever exists in device memory.
 //
-// Bound on the H100, from the path's shapes (Inception-v1 at batch 32: the
-// convs' patch matrices, e.g. conv2/3x3's 100,352 x 576, dominate the bytes;
-// the weights are small): bytes at 3.35 TB/s for bf16 x (the arithmetic at
-// 989 TFLOP/s would take about a third of that), FFMA throughput at 67 TFLOP/s
-// for f32 x.  The designs:
-// * f32 x (K13/K15): 64x64 output tile per 256-thread block, 4x4 outputs a
-//   thread, K in steps of 16 through shared memory, fmaf in full f32 (no
-//   TF32), so it matches the reference's full-f32 product;
-// * bf16 x (K13/K15): 128x64 tile, 8 warps of 32x32, mma.sync m16n8k16 bf16
-//   with f32 accumulators on the exactly widened operands, K in steps of
-//   32; x tiles come in 16-byte loads when K % 8 == 0;
+// What bounds them on the H100, at the path's shapes (Inception-v1's 55
+// stride-1 convs as patch matrices and its classifier, batch 8 and 32):
+// * bf16 x (K13, K15; the serving path): the convs' bytes.  A product
+//   does 2 M N K operations on about 2 M (K + N) bytes, N K / (N + K) =
+//   15-315 operations a byte, below the card's 295 for every conv but
+//   inception_5b/3x3; conv2/3x3's x alone is 100,352 x 576 (116 MB).  The
+//   classifier (M 8 or 32, K 1024, N 1000) moves 1 MB and is bound by
+//   latency: a launch and one chain of K steps.  So the kernel
+//   (quant_bf16.cuh) keeps x's bytes moving and the card full: TMA copies
+//   x's tiles and the packed weight's into a 4-stage ring, wgmma runs on
+//   them as they land, a block's N tile covers all of N up to 256 so x is
+//   read once (two or four N tiles above, neighbours in the grid, the
+//   second reading x from L2), and where M tiles x N tiles give fewer
+//   blocks than the card's 132 SMs (the late stages, the classifier) the K
+//   steps are split across blocks, whose f32 partial sums a second pass
+//   (splitk_finish) adds in split order, scales and rounds once: no
+//   atomics, so two launches are bit-equal.  The plan per shape (bm, bn,
+//   splits) is ops/quant.py `bf16_plan`'s.  Measured, it runs at about
+//   half of the bytes rate on the large convs: a block's step (widening,
+//   products, a barrier) and its copies overlap only in part at one block
+//   a streaming multiprocessor (PERF.md, PR 10).
+// * f32 x (K13/K15): FFMA throughput at 67 TFLOP/s; a 64x64 output tile
+//   per 256-thread block, 4x4 outputs a thread, K in steps of 16 through
+//   shared memory, fmaf in full f32 (no TF32), so it matches the
+//   reference's full-f32 product;
 // * K14: 64x64 tile, 4x4 int32 accumulators a thread, 4 bytes of K per
 //   __dp4a, K in steps of 32 bytes.
-// All tiles are single-buffered: a simple right kernel first; cp.async or
-// TMA pipelining and wgmma are later work.
+// The f32 kernel and K14 are single-buffered: a simple right kernel first.
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
+#include "quant_bf16.cuh"
 
 namespace {
 
@@ -55,42 +69,25 @@ __device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
                                          (man << 20)));
 }
 
-// Weight decoders: element (n, k) of the widened (N, K) weight as float, and
-// for int8/e4m3 eight K-consecutive elements at once (k % 8 == 0).
+// Weight decoders of the f32 kernel: element (n, k) of the widened (N, K)
+// weight as float.
 struct W8 {
-  static constexpr bool kVec = true;
   const int8_t* q;
   int k;
   __device__ __forceinline__ float at(int n, int kk) const {
     return static_cast<float>(q[static_cast<long long>(n) * k + kk]);
   }
-  __device__ __forceinline__ void load8(int n, int kk, float* f) const {
-    const uint2 v =
-        *reinterpret_cast<const uint2*>(q + static_cast<long long>(n) * k + kk);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = static_cast<float>(b[j]);
-  }
 };
 
 struct WF8 {
-  static constexpr bool kVec = true;
   const uint8_t* q;
   int k;
   __device__ __forceinline__ float at(int n, int kk) const {
     return e4m3_to_f32(q[static_cast<long long>(n) * k + kk]);
   }
-  __device__ __forceinline__ void load8(int n, int kk, float* f) const {
-    const uint2 v =
-        *reinterpret_cast<const uint2*>(q + static_cast<long long>(n) * k + kk);
-    const uint8_t* b = reinterpret_cast<const uint8_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) f[j] = e4m3_to_f32(b[j]);
-  }
 };
 
 struct W4 {
-  static constexpr bool kVec = false;
   const int8_t* q;
   int k;
   int h;  // bytes per row, ceil(k / 2)
@@ -100,7 +97,6 @@ struct W4 {
     const int v = low ? ((b & 15) ^ 8) - 8 : (((b >> 4) & 15) ^ 8) - 8;
     return static_cast<float>(v);
   }
-  __device__ __forceinline__ void load8(int, int, float*) const {}
 };
 
 // ---- float32 x: FFMA ---------------------------------------------------------
@@ -159,123 +155,44 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
-// ---- bfloat16 x: mma.sync m16n8k16 -------------------------------------------
+// ---- bfloat16 x: the second pass of a split K -----------------------------
 
-constexpr int kMBM = 128, kMBN = 64, kMBK = 32, kMThreads = 256;
-constexpr int kMStride = kMBK + 8;  // bf16 per smem row: 80 bytes, no conflicts
-
-using bigdl::ld32;
-using bigdl::mma_bf16;
-using bigdl::pack_bf16x2;
-
-template <typename W>
-__global__ void __launch_bounds__(kMThreads)
-    dequant_mm_bf16(const __nv_bfloat16* __restrict__ x, W w,
-                    const float* __restrict__ scale,
-                    __nv_bfloat16* __restrict__ y, int m, int n, int k,
-                    bool vec) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kMBM * kMStride];
-  __shared__ __align__(16) __nv_bfloat16 ws[kMBN * kMStride];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps of 32 x 32
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kMBM, n0 = blockIdx.x * kMBN;
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += kMBK) {
-    if (vec) {  // 128 rows x 4 chunks of 8 bf16
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int e = tid + i * kMThreads;
-        const int r = e >> 2, c = (e & 3) * 8;
-        const int gm = m0 + r, gk = k0 + c;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (gm < m && gk < k)
-          v = *reinterpret_cast<const uint4*>(
-              x + static_cast<long long>(gm) * k + gk);
-        *reinterpret_cast<uint4*>(xs + r * kMStride + c) = v;
-      }
+// y = (ws[0] + ws[1] + ... + ws[splits - 1]) * scale, rounded once to
+// bf16, for the f32 partial sums ws (splits, total = m n) of
+// quant_bf16.cuh's kernel; the splits are added in order, so the sum has a
+// fixed order.  V outputs a thread: 4 where n % 4 == 0 and the pointers
+// allow 16-byte loads (8-byte stores), else 1.
+template <int V>
+__global__ void splitk_finish(const float* __restrict__ ws,
+                              const float* __restrict__ scale,
+                              __nv_bfloat16* __restrict__ y, int total, int n,
+                              int splits) {
+  for (int i = V * (blockIdx.x * blockDim.x + threadIdx.x); i < total;
+       i += V * gridDim.x * blockDim.x) {
+    float v[V], w[V];
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(ws + i);
     } else {
-      const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-#pragma unroll 4
-      for (int i = 0; i < 16; ++i) {
-        const int e = tid + i * kMThreads;
-        const int r = e >> 5, c = e & 31;
-        const int gm = m0 + r, gk = k0 + c;
-        xs[r * kMStride + c] =
-            (gm < m && gk < k) ? x[static_cast<long long>(gm) * k + gk] : zero;
-      }
+      v[0] = ws[i];
     }
-    if (W::kVec && vec) {  // 64 rows x 4 chunks of 8 weights
-      const int r = tid >> 2, c = (tid & 3) * 8;
-      const int gn = n0 + r, gk = k0 + c;
-      float f[8];
-      if (gn < n && gk < k) {
-        w.load8(gn, gk, f);
+    for (int j = 1; j < splits; ++j) {
+      const float* p = ws + static_cast<long long>(j) * total + i;
+      if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(w) = *reinterpret_cast<const float4*>(p);
       } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = 0.0f;
+        w[0] = p[0];
       }
-      *reinterpret_cast<uint4*>(ws + r * kMStride + c) =
-          make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
-                     pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] += w[e];
+    }
+    const int col = i % n;
+    if constexpr (V == 4) {
+      const float4 sc = *reinterpret_cast<const float4*>(scale + col);
+      *reinterpret_cast<uint2*>(y + i) =
+          make_uint2(bigdl::pack_bf16x2(v[0] * sc.x, v[1] * sc.y),
+                     bigdl::pack_bf16x2(v[2] * sc.z, v[3] * sc.w));
     } else {
-#pragma unroll 4
-      for (int i = 0; i < 8; ++i) {
-        const int e = tid + i * kMThreads;
-        const int r = e >> 5, c = e & 31;
-        const int gn = n0 + r, gk = k0 + c;
-        ws[r * kMStride + c] =
-            __float2bfloat16((gn < n && gk < k) ? w.at(gn, gk) : 0.0f);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kMBK; ks += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const __nv_bfloat16* p =
-            xs + (wm * 32 + mi * 16 + g) * kMStride + ks + 2 * t;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * kMStride);
-        a[mi][2] = ld32(p + 8);
-        a[mi][3] = ld32(p + 8 * kMStride + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* p =
-            ws + (wn * 32 + ni * 8 + g) * kMStride + ks + 2 * t;
-        b[ni][0] = ld32(p);
-        b[ni][1] = ld32(p + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
-  }
-  // accumulator (mi, ni, j): row g (+8 for j >= 2), column 2t + (j & 1)
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gm = m0 + wm * 32 + mi * 16 + g + (j >> 1) * 8;
-        const int gn = n0 + wn * 32 + ni * 8 + 2 * t + (j & 1);
-        if (gm < m && gn < n)
-          y[static_cast<long long>(gm) * n + gn] =
-              __float2bfloat16(acc[mi][ni][j] * scale[gn]);
-      }
+      y[i] = __float2bfloat16(v[0] * scale[col]);
     }
   }
 }
@@ -350,59 +267,100 @@ __global__ void __launch_bounds__(kAThreads)
   }
 }
 
-inline bool aligned(const void* p, unsigned int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 inline unsigned int tiles(int total, int tile) {
   return static_cast<unsigned int>((total + tile - 1) / tile);
 }
 
 template <typename W>
-int launch_dequant(const void* x, W w, const void* scale, void* y, int xdtype,
-                   int m, int n, int k, bool vec, cudaStream_t s) {
-  const float* sc = static_cast<const float*>(scale);
-  if (xdtype == bigdl::kF32) {
-    dequant_mm_f32<W><<<dim3(tiles(n, kFBN), tiles(m, kFBM)), kFThreads, 0,
-                        s>>>(static_cast<const float*>(x), w, sc,
-                             static_cast<float*>(y), m, n, k);
-  } else if (xdtype == bigdl::kBF16) {
-    dequant_mm_bf16<W><<<dim3(tiles(n, kMBN), tiles(m, kMBM)), kMThreads, 0,
-                         s>>>(static_cast<const __nv_bfloat16*>(x), w, sc,
-                              static_cast<__nv_bfloat16*>(y), m, n, k, vec);
-  } else {
+int launch_f32(const void* x, W w, const void* scale, void* y, int m, int n,
+               int k, cudaStream_t s) {
+  dequant_mm_f32<W><<<dim3(tiles(n, kFBN), tiles(m, kFBM)), kFThreads, 0,
+                      s>>>(static_cast<const float*>(x), w,
+                           static_cast<const float*>(scale),
+                           static_cast<float*>(y), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel of weight kind W with the plan (bm, bn, splits), then
+// the second pass when the plan splits K.
+template <typename W>
+int run_bf16(const void* x, const void* q, const void* scale, void* y, int m,
+             int n, int k, int bm, int bn, int splits, void* ws,
+             cudaStream_t s) {
+  using bigdl::quant::Bf16Args;
+  if (k == 0)  // an empty sum
+    return static_cast<int>(cudaMemsetAsync(
+        y, 0, static_cast<size_t>(m) * n * sizeof(__nv_bfloat16), s));
+  Bf16Args a{};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.q = static_cast<const uint8_t*>(q);
+  a.scale = static_cast<const float*>(scale);
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.ws = static_cast<float*>(ws);
+  a.m = m;
+  a.n = n;
+  a.k = k;
+  a.bm = bm;
+  a.bn = bn;
+  a.splits = splits;
+  const long long total = static_cast<long long>(m) * n;
+  if (splits > 1 && total > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int rc = bigdl::quant::launch_bf16<W>(a, s);
+  if (rc != 0 || splits == 1) return rc;
+  const bool vec = n % 4 == 0 && bigdl::quant::aligned_to(ws, 16) &&
+                   bigdl::quant::aligned_to(scale, 16) &&
+                   bigdl::quant::aligned_to(y, 8);
+  const unsigned int blocks = bigdl::blocks_for(vec ? total / 4 : total);
+  if (vec)
+    splitk_finish<4><<<blocks, bigdl::kThreads, 0, s>>>(
+        a.ws, a.scale, a.y, static_cast<int>(total), n, splits);
+  else
+    splitk_finish<1><<<blocks, bigdl::kThreads, 0, s>>>(
+        a.ws, a.scale, a.y, static_cast<int>(total), n, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K13: x (m, k) f32/bf16, q (n, k) int8 or e4m3, scale (n,) f32 -> y (m, n)
+// K13: x (m, k) f32/bf16, q (n, k) int8 or e4m3, scale (n,) f32 -> y (m, n);
+// bf16 with the plan (bm, bn, splits) and, when splits > 1, an f32
+// workspace ws (splits, m, n) (f32 x takes neither)
 extern "C" int bigdl_w8_matmul(const void* x, const void* q, const void* scale,
                                void* y, int xdtype, int wdtype, int m, int n,
-                               int k, void* stream) {
+                               int k, int bm, int bn, int splits, void* ws,
+                               void* stream) {
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = k % 8 == 0 && aligned(x, 16) && aligned(q, 8);
-  if (wdtype == bigdl::kI8)
-    return launch_dequant(x, W8{static_cast<const int8_t*>(q), k}, scale, y,
-                          xdtype, m, n, k, vec, s);
-  if (wdtype == bigdl::kF8E4M3)
-    return launch_dequant(x, WF8{static_cast<const uint8_t*>(q), k}, scale, y,
-                          xdtype, m, n, k, vec, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8 = wdtype == bigdl::kI8;
+  if (!int8 && wdtype != bigdl::kF8E4M3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (xdtype == bigdl::kF32)
+    return int8 ? launch_f32(x, W8{static_cast<const int8_t*>(q), k}, scale,
+                             y, m, n, k, s)
+                : launch_f32(x, WF8{static_cast<const uint8_t*>(q), k},
+                             scale, y, m, n, k, s);
+  if (xdtype != bigdl::kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  return int8 ? run_bf16<bigdl::quant::Int8>(x, q, scale, y, m, n, k, bm, bn,
+                                             splits, ws, s)
+              : run_bf16<bigdl::quant::E4m3>(x, q, scale, y, m, n, k, bm, bn,
+                                             splits, ws, s);
 }
 
-// K15: x (m, k) f32/bf16, q4 (n, ceil(k/2)) split-half nibbles -> y (m, n)
+// K15: x (m, k) f32/bf16, q4 (n, ceil(k/2)) split-half nibbles -> y (m, n);
+// the plan and workspace as for K13
 extern "C" int bigdl_w4_matmul(const void* x, const void* q4,
                                const void* scale, void* y, int xdtype, int m,
-                               int n, int k, void* stream) {
+                               int n, int k, int bm, int bn, int splits,
+                               void* ws, void* stream) {
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const bool vec = k % 8 == 0 && aligned(x, 16);
-  return launch_dequant(x, W4{static_cast<const int8_t*>(q4), k, (k + 1) / 2},
-                        scale, y, xdtype, m, n, k, vec,
-                        static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (xdtype == bigdl::kF32)
+    return launch_f32(x, W4{static_cast<const int8_t*>(q4), k, (k + 1) / 2},
+                      scale, y, m, n, k, s);
+  if (xdtype != bigdl::kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  return run_bf16<bigdl::quant::Int4>(x, q4, scale, y, m, n, k, bm, bn,
+                                      splits, ws, s);
 }
 
 // K14: xq (m, k) int8, q (n, k) int8, s = scale * sx (n,) f32 -> y (m, n)
@@ -411,7 +369,8 @@ extern "C" int bigdl_a8_matmul(const void* xq, const void* q, const void* s,
                                void* stream) {
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = k % 4 == 0 && aligned(xq, 4) && aligned(q, 4);
+  const bool vec = k % 4 == 0 && bigdl::quant::aligned_to(xq, 4) &&
+                   bigdl::quant::aligned_to(q, 4);
   const dim3 grid(tiles(n, kABN), tiles(m, kABM));
   const int8_t* a = static_cast<const int8_t*>(xq);
   const int8_t* b = static_cast<const int8_t*>(q);

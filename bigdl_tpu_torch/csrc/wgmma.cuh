@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the flash backward kernels: TMA tile
-// copies into shared memory that complete on an mbarrier, 4-byte cp.async
-// copies for row vectors, the 128/64/32-byte swizzled tile layout that TMA
-// writes and wgmma reads, its shared-memory matrix descriptors, and the
-// bf16 wgmma products (f32 accumulators) in the two forms the kernels use.
+// Hopper building blocks shared by the flash backward kernels and the bf16
+// quantized matmuls: TMA tile copies into shared memory that complete on an
+// mbarrier, 4-byte cp.async copies for row vectors, the 128/64/32-byte
+// swizzled tile layout that TMA writes and wgmma reads, its shared-memory
+// matrix descriptors, and the bf16 wgmma products (f32 accumulators): both
+// operands from shared memory at N 8-256, or A from registers.
 // Compiled for sm_90a only (wgmma does not exist on plain sm_90).
 //
 // Layouts.  A warpgroup is 4 consecutive warps (128 threads); warp w of it
@@ -84,6 +85,12 @@ __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
                :: "r"(bar), "r"(bytes) : "memory");
 }
 
+// one arrival on the barrier (its count set at init)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
 // wait until the barrier has completed the phase of this parity
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done = 0;
@@ -106,6 +113,22 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2) : "memory");
+}
+
+// the box at (c0, c1) of a 2-D tensor map, as tma_load_3d
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1) : "memory");
+}
+
+// make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads, TMA) after the next barrier
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // keep the compiler from touching accumulators across an async product
@@ -160,53 +183,99 @@ struct Tile {
   }
 };
 
-// d = A B over k16 (the first step of a sum: d is only written, so no
-// other instruction defines it inside the product's pipeline stage): A
-// (64 x 16) and B (64 x 16) from shared memory, both K-major
-__device__ __forceinline__ void mma_ss_n64_first(float (&d)[32], uint64_t a,
-                                                uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31])
-      : "l"(a), "l"(b), "r"(0));
-}
+// d (64 x N) = A B (kFirst: d is only written, so no other instruction
+// defines it inside the product's pipeline stage) or d += A B, over k16:
+// A (64 x 16) and B (N x 16) from shared memory, both K-major.  N is 8,
+// 16, 32, 64, 128 or 256; the accumulator is N / 2 registers a thread.
+template <int N>
+struct Ss;
 
-// d += A B over k16, A and B as for mma_ss_n64_first
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
+// the accumulator's operands: BIGDL_ACCn(c) is c(d[0]), ..., c(d[n - 1])
+#define BIGDL_G4(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
+#define BIGDL_ACC4(c) BIGDL_G4(c, 0)
+#define BIGDL_ACC8(c) BIGDL_G4(c, 0), BIGDL_G4(c, 4)
+#define BIGDL_ACC16(c) BIGDL_G4(c, 0), BIGDL_G4(c, 4), BIGDL_G4(c, 8), \
+    BIGDL_G4(c, 12)
+#define BIGDL_ACC32(c) BIGDL_G4(c, 0), BIGDL_G4(c, 4), BIGDL_G4(c, 8), \
+    BIGDL_G4(c, 12), BIGDL_G4(c, 16), BIGDL_G4(c, 20), \
+    BIGDL_G4(c, 24), BIGDL_G4(c, 28)
+#define BIGDL_ACC64(c) BIGDL_G4(c, 0), BIGDL_G4(c, 4), BIGDL_G4(c, 8), \
+    BIGDL_G4(c, 12), BIGDL_G4(c, 16), BIGDL_G4(c, 20), \
+    BIGDL_G4(c, 24), BIGDL_G4(c, 28), BIGDL_G4(c, 32), \
+    BIGDL_G4(c, 36), BIGDL_G4(c, 40), BIGDL_G4(c, 44), \
+    BIGDL_G4(c, 48), BIGDL_G4(c, 52), BIGDL_G4(c, 56), \
+    BIGDL_G4(c, 60)
+#define BIGDL_ACC128(c) BIGDL_G4(c, 0), BIGDL_G4(c, 4), \
+    BIGDL_G4(c, 8), BIGDL_G4(c, 12), BIGDL_G4(c, 16), \
+    BIGDL_G4(c, 20), BIGDL_G4(c, 24), BIGDL_G4(c, 28), \
+    BIGDL_G4(c, 32), BIGDL_G4(c, 36), BIGDL_G4(c, 40), \
+    BIGDL_G4(c, 44), BIGDL_G4(c, 48), BIGDL_G4(c, 52), \
+    BIGDL_G4(c, 56), BIGDL_G4(c, 60), BIGDL_G4(c, 64), \
+    BIGDL_G4(c, 68), BIGDL_G4(c, 72), BIGDL_G4(c, 76), \
+    BIGDL_G4(c, 80), BIGDL_G4(c, 84), BIGDL_G4(c, 88), \
+    BIGDL_G4(c, 92), BIGDL_G4(c, 96), BIGDL_G4(c, 100), \
+    BIGDL_G4(c, 104), BIGDL_G4(c, 108), BIGDL_G4(c, 112), \
+    BIGDL_G4(c, 116), BIGDL_G4(c, 120), BIGDL_G4(c, 124)
+
+#define BIGDL_SS(N, REGS, ACC, A, B, SCALE)                                 \
+  template <>                                                               \
+  struct Ss<N> {                                                            \
+    template <bool kFirst>                                                  \
+    __device__ static __forceinline__ void mma(float (&d)[N / 2],          \
+                                               uint64_t a, uint64_t b) {   \
+      if constexpr (kFirst)                                                 \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"     \
+                     "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16"  \
+                     ".bf16 {" REGS "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"   \
+                     : ACC("=f") : "l"(a), "l"(b), "r"(0));                 \
+      else                                                                  \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"     \
+                     "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16"  \
+                     ".bf16 {" REGS "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"   \
+                     : ACC("+f") : "l"(a), "l"(b), "r"(1));                 \
+    }                                                                       \
+  };
+
+BIGDL_SS(8, "%0, %1, %2, %3", BIGDL_ACC4, "%4", "%5", "%6")
+BIGDL_SS(16, "%0, %1, %2, %3, %4, %5, %6, %7", BIGDL_ACC8, "%8", "%9", "%10")
+BIGDL_SS(32,
+         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+         "%14, %15",
+         BIGDL_ACC16, "%16", "%17", "%18")
+BIGDL_SS(64,
+         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+         "%26, %27, %28, %29, %30, %31",
+         BIGDL_ACC32, "%32", "%33", "%34")
+BIGDL_SS(128,
+         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+         "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+         "%62, %63",
+         BIGDL_ACC64, "%64", "%65", "%66")
+BIGDL_SS(256,
+         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+         "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+         "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+         "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+         "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127",
+         BIGDL_ACC128, "%128", "%129", "%130")
+#undef BIGDL_SS
+#undef BIGDL_ACC128
+#undef BIGDL_ACC64
+#undef BIGDL_ACC32
+#undef BIGDL_ACC16
+#undef BIGDL_ACC8
+#undef BIGDL_ACC4
+#undef BIGDL_G4
 
 // d += A B over k16: A (64 x 16) in registers, B (16 x 16) from shared
 // memory, MN-major

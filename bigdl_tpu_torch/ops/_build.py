@@ -51,12 +51,14 @@ _SIGNATURES = {
     # x, scale, dy, dx, dtype, n, c, hw, size, alpha/size, beta, mode, stream
     "bigdl_lrn_bwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
                       ctypes.c_float, ctypes.c_float, _I, _P],
-    # x, q, scale, y, x dtype, weight dtype, m, n, k, stream
-    "bigdl_w8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, q, scale, y, x dtype, weight dtype, m, n, k, bm, bn, splits,
+    # workspace (or null), stream
+    "bigdl_w8_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
     # xq, q, scale * sx, y, y dtype, m, n, k, stream
     "bigdl_a8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, q4, scale, y, x dtype, m, n, k, stream
-    "bigdl_w4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, q4, scale, y, x dtype, m, n, k, bm, bn, splits, workspace (or
+    # null), stream
+    "bigdl_w4_matmul": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],
     # q, k, v, o, dtype, bh, h, hk, tq, tk, d, scale, causal, stream
     "bigdl_attention_fwd": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # q, k, v, bias (or null), o, lse (or null), dtype, bh, h, hk, tq, tk,
@@ -166,4 +168,7 @@ def check(rc: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` of the current stream on t's card (without
+    building a ``torch.cuda.Stream``: a wrapper's host time counts where
+    the kernel is short)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -15,31 +15,43 @@ The kernels (``csrc/quant_matmul.cu``), ``y = x @ dequant(q).T``:
 
 * K13 (:func:`w8_matmul`, :func:`f8_matmul`) replaces ``_w8_kernel``
   (``bigdl_tpu/ops/quant.py:417``, reached through ``_fused_call`` and, for
-  e4m3 weights, ``_f8_pallas``): int8 or e4m3 weights widened on their way
-  into shared memory, f32 accumulation, ``scale[n]`` applied once on the
-  output before the single rounding to x's dtype.  float32 x runs on FFMA
-  (full f32, as the reference's product); bfloat16 x runs ``mma.sync`` on
-  the exactly widened operands.
+  e4m3 weights, ``_f8_pallas``): int8 or e4m3 weights widened inside the
+  kernel, f32 accumulation, ``scale[n]`` applied once on the output before
+  the single rounding to x's dtype.  float32 x runs on FFMA (full f32, as
+  the reference's product); bfloat16 x runs the Hopper kernel of
+  ``csrc/quant_bf16.cuh``.
 * K14 (:func:`a8_matmul`) replaces ``_a8_kernel`` (``quant.py:459``):
   int8 x int8 -> int32 with ``__dp4a``, then ``float(acc) * s[n]``.  The sums
   are exact, so it is bit-equal to :func:`int8_a8_matmul_plain`.
 * K15 (:func:`w4_matmul`) replaces ``_w4_kernel`` (``quant.py:441``): the
-  split-half nibble layout is decoded in place, so x is never re-laid out.
+  split-half nibble layout is decoded in place, so x is never re-laid out
+  (one K step reads a byte tile once, against x's columns ``[j, j + w)``
+  for the low nibbles and ``[h + j, h + j + w)`` for the high ones).
 
 The TPU kernels padded M/N/K to whole tiles in memory and carried the K
-sum across grid steps; here each block owns one output tile, loops over K
-itself and masks the ragged edges.  What bounds them on the H100 at the
-Inception shapes is bytes in bf16 (the patch matrices dominate) and FFMA
-throughput in f32.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+sum across grid steps.  What bounds the bf16 kernel on the H100 is the
+bytes of the convs' patch matrices (x; 15-315 operations a byte, below
+the card's 295 for all but one conv) and, at the classifier (M 8 or 32),
+launch and K-chain latency.  So x's tiles and the packed weight's come by
+TMA into a 4-stage ring while ``wgmma`` runs on the tiles that landed
+(the weight widened exactly in shared memory, never in device memory), a
+block's N tile covers up to 256 columns (x read once), and the grid is
+planned per shape by
+:func:`bf16_plan` to fill the card: where M tiles x N tiles give fewer
+blocks than it has SMs, K is split across blocks and a second pass adds
+the f32 partial sums in split order (no atomics: launches are bit-equal).
+float32 is bound by FFMA throughput.  A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.  Each wrapper counts
+its launches in ``<wrapper>.launches`` (a split's second pass is part of
+one launch).
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -249,6 +261,66 @@ def int4_matmul_plain(x, q4, scale, k: int):
     return int8_matmul_plain(x, unpack_nibbles(q4, k), scale)
 
 
+# -- the bf16 kernel's plan --------------------------------------------------
+
+MAX_BN = 256         # widest N tile: wgmma's largest N
+H100_SMS = 132       # streaming multiprocessors of an H100 SXM
+
+
+class Bf16Plan(NamedTuple):
+    """The grid of the bf16 K13/K15 kernel for one product: ``bm`` rows a
+    block (64, 128 or 192), ``bn`` columns a block (N over ``n_tiles``, rounded
+    up to 8), ``splits`` blocks along K of ``per`` K steps each (the last
+    may have fewer), of ``steps`` in all (64 x columns a step)."""
+    bm: int
+    bn: int
+    n_tiles: int
+    splits: int
+    per: int
+    steps: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(m: int, k: int, n: int, nibbles: bool = False,
+              sms: int = H100_SMS) -> Bf16Plan:
+    """Plan the bf16 kernel's grid for an (M, K, N) product (``nibbles``:
+    K15's int4 layout, 32 packed bytes a step) on a card of ``sms`` SMs.
+    One N tile up to 256 columns, so x is read once; above, the fewest
+    tiles of at most 256 (N 257-512 takes two), neighbours in the grid.
+    The most rows a block (192 where the tile is at most 192 columns wide,
+    128, or 64) that still give a block per SM: a block widens its weight
+    tile once for all its rows.  Where the tiles give fewer blocks than
+    ``sms``, K is split into the fewest non-empty splits that reach
+    ``sms`` blocks, or one step each."""
+    steps = _cdiv(_cdiv(k, 2), 32) if nibbles else _cdiv(k, 64)
+    n_tiles = max(1, _cdiv(n, MAX_BN))
+    bn = max(8, 8 * _cdiv(_cdiv(n, n_tiles), 8))
+    bm = 64
+    for rows in (192, 128):
+        if (rows == 128 or bn <= 192) and _cdiv(m, rows) * n_tiles >= sms:
+            bm = rows
+            break
+    tiles = max(1, _cdiv(m, bm) * n_tiles)
+    splits, per = 1, steps
+    if tiles < sms and steps > 1:
+        splits, per = steps, 1
+        for want in range(_cdiv(sms, tiles), steps + 1):
+            p = _cdiv(steps, want)
+            if tiles * _cdiv(steps, p) >= sms:
+                splits, per = _cdiv(steps, p), p
+                break
+    return Bf16Plan(bm, bn, n_tiles, splits, per, steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # -- wrappers -----------------------------------------------------------------
 
 def _check_matmul(what, x, q, scale, kbytes):
@@ -277,6 +349,24 @@ def _launch(fn, what, x, q, scale, y, *dims):
     _build.check(rc, what)
 
 
+def _dequant_launch(fn, what, x, q, scale, k, dims, nibbles):
+    """Launch K13 or K15 (``fn``, ``dims`` its codes and shape) into a new
+    y; bf16 x with its :func:`bf16_plan` and, when that splits K, an f32
+    workspace of the partial sums."""
+    m, n = x.shape[0], q.shape[0]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    plan, ws = (64, 8, 1), None
+    if x.dtype == torch.bfloat16:
+        p = bf16_plan(m, k, n, nibbles, _device_sms(x.device.index))
+        plan = (p.bm, p.bn, p.splits)
+        if p.splits > 1:
+            ws = torch.empty((p.splits, m, n), dtype=torch.float32,
+                             device=x.device)
+    _launch(fn, what, x, q, scale, y, *dims, *plan,
+            None if ws is None else ws.data_ptr())
+    return y
+
+
 def _dequant_matmul(wrapper, x, q, scale, wdtype):
     name = wrapper.__name__
     _check_matmul(name, x, q, scale, x.shape[1])
@@ -286,10 +376,10 @@ def _dequant_matmul(wrapper, x, q, scale, wdtype):
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale)
     m, k = x.shape
-    n = q.shape[0]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _launch(_build.load().bigdl_w8_matmul, name, x, q, scale, y,
-            _build.DTYPE_CODES[x.dtype], _build.WEIGHT_CODES[wdtype], m, n, k)
+    y = _dequant_launch(_build.load().bigdl_w8_matmul, name, x, q, scale, k,
+                        (_build.DTYPE_CODES[x.dtype],
+                         _build.WEIGHT_CODES[wdtype], m, q.shape[0], k),
+                        False)
     wrapper.launches += 1
     return y
 
@@ -339,11 +429,9 @@ def w4_matmul(x, q4, scale, k: int):
                         f"nibble bytes, got {x.dtype} and {q4.dtype}")
     if x.device.type == "cpu":
         return int4_matmul_plain(x, q4, scale, k)
-    m = x.shape[0]
-    n = q4.shape[0]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    _launch(_build.load().bigdl_w4_matmul, "w4_matmul", x, q4, scale, y,
-            _build.DTYPE_CODES[x.dtype], m, n, k)
+    y = _dequant_launch(_build.load().bigdl_w4_matmul, "w4_matmul", x, q4,
+                        scale, k, (_build.DTYPE_CODES[x.dtype], x.shape[0],
+                                   q4.shape[0], k), True)
     w4_matmul.launches += 1
     return y
 

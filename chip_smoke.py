@@ -17,10 +17,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
    card against the same on the CPU;
 2c. the quantized matmuls (K13 with int8 and e4m3 weights, K14 int8 x
    int8, K15 int4) against their plain versions at every (M, K, N) that
-   quantized Inception-v1 gives them at buckets 8 and 32 and at ragged
-   shapes, in float32 and bfloat16: K14 bit-equal, K13/K15 within 1e-4 of
-   each output's sum of |products| (f32 sums in another order), plus one
-   bfloat16 rounding step in bfloat16;
+   quantized Inception-v1 gives them at buckets 8 and 32, at ragged shapes
+   and at the edges of the bf16 kernel's tiles and plan (M 63-65 and
+   127-129, N 8/24/256/257/384, K 600, odd K, K split unevenly over
+   blocks, x at row 1 of a larger tensor), in float32 and bfloat16: K14
+   bit-equal, K13/K15 within 1e-4 of each output's sum of |products| (f32
+   sums in another order), plus one bfloat16 rounding step in bfloat16;
+   K13 (both weight kinds) and K15 bit-equal over two bf16 launches at a
+   split-K shape and at conv2's; then the bf16 kernel's plan (rows and
+   columns a block, splits of K) and x's copy (TMA or loads) at every
+   product of the path;
 3. serving: full-width ``Inception_v1(1000)`` with seeded random weights
    behind ``InferenceServer(DLClassifier(..., device="cuda"),
    batch_buckets=(8, 32))``; every request must resolve to the same class
@@ -153,8 +159,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    its plain version and the library call that computes the same
    function; the classifier's forward per bucket; the closed-loop serving
    images/s and request latency per bucket; the train step in bf16 mixed
-   precision and in float32; K13-K15 summed over one batch-32 quantized
-   forward beside their bounds, plain versions and library calls, the
+   precision and in float32; K13-K15 at every distinct product of the
+   quantized forward at buckets 32 and 8 (CUDA events, device time from
+   torch.profiler, the wrapper's host time), summed per stage of
+   Inception-v1 and over the batch-32 forward beside their bounds, plain
+   versions and library calls (``F.linear`` on the widened weight; K14
+   ``torch._int_mm`` + scale) by both clocks, the
    fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
    bf16 forward per bucket with a profiler breakdown of its device time;
    K8 and K9 per call at the LM paths' shapes beside their bound, plain
@@ -256,6 +266,19 @@ QLOGIT_STEPS = 3
 RAGGED_MATMULS = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 577, 191),
                   (1, 1024, 1000), (8, 1023, 999), (65, 9, 3),
                   (300, 1728, 384)]
+# (M, K, N) at the edges of the bf16 kernel's tiles and plan: M around its
+# 64 and 128 rows and ragged at 192, N 8, 24, 256, 257 and 384, K 600
+# (8-byte weight rows; K15's 300-byte rows in 4-byte pieces and its x by
+# loads, since its high tile would start off 16 bytes), odd K (K15's rows
+# byte by byte, x not by TMA), and shapes whose K steps split unevenly (13
+# steps in 7 splits, 19 in 19, 8 in 2 at a path width)
+QUANT_EDGES = [(63, 64, 8), (64, 128, 24), (65, 192, 256), (127, 256, 257),
+               (128, 600, 384), (129, 333, 56), (25400, 72, 40),
+               (1568, 832, 160), (392, 1200, 128), (6272, 512, 24)]
+# x at row 1 of a larger tensor: k 1001 puts it off 16 bytes (no TMA)
+QUANT_OFFSET = [(33, 1001, 48), (130, 512, 96)]
+# K13 and K15 bit-equal over two bf16 launches: a split-K shape and conv2
+QUANT_BITEQ = [(1568, 832, 160), (100352, 576, 192)]
 # fused convs (unfold + K13) timed end to end against cuDNN
 QCONVS = ["conv2/3x3", "inception_3a/1x1", "inception_4e/5x5"]
 # TransformerLM: the model of bench_infer.py measure_lm_scoring /
@@ -697,8 +720,10 @@ def quant_close(got, want, x, wide):
 def check_quant_kernels(device, path_shapes):
     """Hold K13 (int8 and e4m3 weights), K14 and K15 against their plain
     versions at ``path_shapes`` ({wrapper: [(M, K, N), ...]}, the path's
-    products at buckets 8 and 32) and at RAGGED_MATMULS, in float32 and
-    bfloat16; returns per-kernel errors (float32 cases), cases and
+    products at buckets 8 and 32), at RAGGED_MATMULS and QUANT_EDGES, and
+    with x at row 1 of a larger tensor (QUANT_OFFSET), in float32 and
+    bfloat16; then K13 and K15 bit-equal over two bf16 launches at
+    QUANT_BITEQ.  Returns per-kernel errors (float32 cases), cases and
     mismatches as :func:`check_kernels` does."""
     import torch
     from bigdl_tpu_torch.ops import quant
@@ -706,13 +731,16 @@ def check_quant_kernels(device, path_shapes):
     names = ("w8_matmul", "f8_matmul", "a8_matmul", "w4_matmul")
     errs = {k: 0.0 for k in names}
     errs_bf16 = {k: 0.0 for k in names}
-    cases = {k: 0 for k in names}
+    counts = {k: 0 for k in names}
     misses = {k: 0 for k in names}
+    cases = [(mkn, False) for mkn in RAGGED_MATMULS + QUANT_EDGES] + \
+        [(mkn, True) for mkn in QUANT_OFFSET]
     for name in names:
-        for m, k, n in sorted(set(path_shapes[name])) + RAGGED_MATMULS:
+        for (m, k, n), offset in [(mkn, False) for mkn in
+                                  sorted(set(path_shapes[name]))] + cases:
             for dtype in (torch.float32, torch.bfloat16):
-                x = torch.randn((m, k), generator=gen,
-                                device=device).to(dtype)
+                x = torch.randn((m + offset, k), generator=gen,
+                                device=device).to(dtype)[offset:]
                 w = torch.randn((n, k), generator=gen, device=device)
                 if name == "a8_matmul":
                     qt = quant.pack(w, sx=3.0 / 127)
@@ -739,17 +767,51 @@ def check_quant_kernels(device, path_shapes):
                     torch.cuda.synchronize()
                     want = quant.int8_matmul_plain(x, q, qt["scale"])
                     err, ok = quant_close(got, want, x, quant.unpack(qt))
-                cases[name] += 1
                 into = errs if dtype == torch.float32 else errs_bf16
                 into[name] = max(into[name], err)
                 if not ok or got.shape != (m, n) or got.dtype != dtype:
                     misses[name] += 1
-                    fail(f"{name} {(m, k, n)} {dtype}: max |err| {err} "
+                    fail(f"{name} {(m, k, n)} {dtype}"
+                         f"{' at row 1' if offset else ''}: max |err| {err} "
                          "beyond tolerance (K14: not bit-equal)")
+                counts[name] += 1
+    for m, k, n in QUANT_BITEQ:
+        x = torch.randn((m, k), generator=gen,
+                        device=device).to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device=device)
+        for mode, fn in (("w8", quant.w8_matmul), ("f8", quant.f8_matmul),
+                         ("w4", quant.w4_matmul)):
+            qt = quant.pack(w, mode=mode)
+            args = (x, qt[{"w8": "q8", "f8": "f8", "w4": "q4"}[mode]],
+                    qt["scale"]) + ((k,) if mode == "w4" else ())
+            a, b = fn(*args), fn(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"{fn.__name__} {(m, k, n)} bf16: two launches differ")
     log("quantized kernels vs plain: " + "; ".join(
-        f"{k} {cases[k]} cases, max |err| f32 {errs[k]:.3g} bf16 "
-        f"{errs_bf16[k]:.3g}" for k in names) + " (a8_matmul bit-equal)")
-    return errs, cases, misses
+        f"{k} {counts[k]} cases, max |err| f32 {errs[k]:.3g} bf16 "
+        f"{errs_bf16[k]:.3g}" for k in names) + " (a8_matmul bit-equal); "
+        f"w8/f8/w4_matmul bit-equal over two bf16 launches at {QUANT_BITEQ}")
+    return errs, counts, misses
+
+
+def log_quant_plans(path_shapes):
+    """One line: the bf16 kernel's plan at every product of the path, and
+    whether x comes by TMA there (every Inception shape should)."""
+    import torch
+    from bigdl_tpu_torch.ops import quant
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for name, nib in (("w8_matmul", False), ("w4_matmul", True)):
+        for m, k, n in sorted(set(path_shapes[name])):
+            p = quant.bf16_plan(m, k, n, nib, sms)
+            blocks = -(-m // p.bm) * p.n_tiles * p.splits
+            tma = k % 8 == 0 and (not nib or (k + 1) // 2 % 8 == 0)
+            plans.append(f"{'K15' if nib else 'K13'} {m}x{k}x{n}: bm {p.bm} "
+                         f"bn {p.bn}x{p.n_tiles} splits {p.splits}x{p.per}/"
+                         f"{p.steps} = {blocks} blocks, x by "
+                         f"{'TMA' if tma else 'loads'}")
+    log("bf16 plans: " + "; ".join(plans))
 
 
 # -- phase 2d: the attention kernels against their plain versions -------------
@@ -2460,93 +2522,240 @@ def time_train_kernels(device):
     return out
 
 
-def _shape_counts(shapes):
+QSTAGES = ("conv2", "3a/3b", "4a-4e", "5a/5b", "classifier")
+
+
+def quant_stage(layer):
+    """The Inception-v1 stage of a packed product, from its layer's name."""
+    for prefix, stage in (("conv2", "conv2"), ("inception_3", "3a/3b"),
+                          ("inception_4", "4a-4e"),
+                          ("inception_5", "5a/5b")):
+        if layer.startswith(prefix):
+            return stage
+    return "classifier"
+
+
+_FLUSH_KERNELS = set()
+
+
+def _profiled_us(run):
+    """Device time in us by kernel (and copy) name of ``run()`` under
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
     out = {}
-    for mkn in shapes:
-        out[mkn] = out.get(mkn, 0) + 1
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        out[evt.key] = out.get(evt.key, 0.0) + us
     return out
 
 
-def time_quant_kernels(device, prods32):
-    """K13-K15 summed over one batch-32 quantized forward's calls (per
-    distinct shape: the median of TIMING_REPS with the L2 flushed, times
-    its count): kernel, bound, plain version and library call.  K13 with
-    int8 weights is timed in bf16 (the serving path) and f32; K13 with e4m3
-    weights, K14 and K15 at the Linear, the one product each runs."""
+def device_ms(fn, flush, reps=TIMING_REPS):
+    """Device time of one ``fn()`` in ms from torch.profiler: every kernel
+    it launches, summed, over ``reps`` calls each after an L2 flush (the
+    flush's own kernels left out).  The profiler now and then misses a
+    kernel, which only lowers a sum, so this takes the larger of two
+    windows, and of four where both read nothing; None (not measured)
+    where all four do."""
+    for _ in range(3):  # the flush's own kernels, once the profiler is warm
+        if _FLUSH_KERNELS:
+            break
+        _profiled_us(flush.zero_)
+        _FLUSH_KERNELS.update(k for k, v in _profiled_us(flush.zero_).items()
+                              if v > 0)
+    fn()
+
+    def run():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+
+    def flush_kernel(name):  # zero_ is a fill kernel (or a memset)
+        return name in _FLUSH_KERNELS or "FillFunctor" in name or \
+            name.startswith("Memset")
+
+    us = 0.0
+    for window in range(4):
+        us = max(us, sum(v for name, v in _profiled_us(run).items()
+                         if not flush_kernel(name)))
+        if window and us > 0:
+            return us / 1e3 / reps
+    log("torch.profiler recorded no kernel of a timed call in four windows: "
+        "its device time is not measured")
+    return None
+
+
+def host_ms(fn, reps=TIMING_REPS):
+    """Median host time of one ``fn()`` in ms: perf_counter around the call
+    with no synchronize, the card idle before each call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def quant_cases(prods):
+    """``{(wrapper, bucket, stage, (M, K, N)): calls}``: K13 int8 at every
+    product of the w8 forward (bf16 at both buckets, f32 at batch 32), and
+    K13 e4m3 and K15 (both buckets) and K14 (batch 32) at the classifier,
+    the one product each of those rungs runs."""
+    cases = {}
+    for b, ps in prods.items():
+        for layer, kind, m, k, n, _ in ps:
+            names = ["w8_matmul"] + (["w8_matmul_f32"] if b == BATCH else [])
+            if kind == "linear":
+                names += ["f8_matmul", "w4_matmul"] + \
+                    (["a8_matmul"] if b == BATCH else [])
+            for name in names:
+                key = (name, b, quant_stage(layer), (m, k, n))
+                cases[key] = cases.get(key, 0) + 1
+    return cases
+
+
+QSUM_KEYS = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+             "library_device_ms", "bound_ms", "bytes_ms", "ops_ms")
+
+
+def _quant_sums(rows):
+    """Σ calls · value over ``rows`` for QSUM_KEYS (None if any is None)."""
+    t = {"calls": sum(r["calls"] for r in rows)}
+    for key in QSUM_KEYS:
+        vals = [r[key] for r in rows]
+        t[key] = None if any(v is None for v in vals) else sum(
+            r["calls"] * r[key] for r in rows)
+    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
+        "operations"
+    return t
+
+
+def time_quant_kernels(device, prods):
+    """K13-K15 per distinct product of the quantized forward (``prods``:
+    :func:`quant_products` per bucket, QUANT_CASES' wrappers): per product
+    the kernel's CUDA-event median (L2 flushed between calls), its device
+    time from torch.profiler, its wrapper's host time, the plain version's
+    time (batch 32), and ``F.linear`` on the widened weight (K14:
+    ``torch._int_mm`` + scale) by both clocks, beside the bound; the bf16
+    kernel's plan where the package has one.  Returns ``(sums, rows)``:
+    per wrapper (``w8_matmul_f32`` for K13 int8 in f32) the batch-32 sums
+    over the forward's calls with ``"buckets"`` ({bucket: sums}) and
+    ``"stages"`` ({bucket: {stage: sums}}), and the per-product rows."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import quant
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     bf16 = torch.bfloat16
-    lin = [(m, k, n) for _, kind, m, k, n, _ in prods32 if kind == "linear"]
-    plan = {
-        "w8_matmul": (_shape_counts([(m, k, n)
-                                     for _, _, m, k, n, _ in prods32]), bf16),
-        "w8_matmul_f32": (_shape_counts([(m, k, n) for _, _, m, k, n, _
-                                         in prods32]), torch.float32),
-        "f8_matmul": (_shape_counts(lin), bf16),
-        "a8_matmul": (_shape_counts(lin), bf16),
-        "w4_matmul": (_shape_counts(lin), bf16),
-    }
-    out = {}
-    for name, (counts, dtype) in plan.items():
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "bytes_ms": 0.0, "ops_ms": 0.0, "calls": 0}
+    plan = getattr(quant, "bf16_plan", None)
+    rows = []
+    for (name, b, stage, (m, k, n)), c in sorted(quant_cases(prods).items()):
+        dtype = torch.float32 if name == "w8_matmul_f32" else bf16
         xb = 2 if dtype == bf16 else 4
-        for (m, k, n), c in counts.items():
-            x = torch.randn((m, k), generator=gen, device=device).to(dtype)
-            w = torch.randn((n, k), generator=gen, device=device)
-            if name == "a8_matmul":
-                qt = quant.pack(w, sx=3.0 / 127)
-                xq = quant.quantize_act(x, qt["sx"])
-                s = qt["scale"] * qt["sx"]
-                q8t = qt["q8"].t()
-                nbytes = m * k + n * k + 4 * n + xb * m * n
-                peak = INT8_OPS
-                kern = lambda: quant.a8_matmul(xq, qt["q8"], s, dtype)
-                plain = lambda: quant.int8_a8_matmul_plain(xq, qt["q8"], s,
-                                                           dtype)
-                lib = lambda: (torch._int_mm(xq, q8t).float()
-                               * s).to(dtype)
-                try:        # the yardstick only: its shape rules may refuse
-                    lib()
-                except RuntimeError as e:
-                    log(f"torch._int_mm refuses {(m, k, n)}: {e}")
-                    lib = None
+        x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+        w = torch.randn((n, k), generator=gen, device=device)
+        if name == "a8_matmul":
+            qt = quant.pack(w, sx=3.0 / 127)
+            xq = quant.quantize_act(x, qt["sx"])
+            s = qt["scale"] * qt["sx"]
+            q8t = qt["q8"].t()
+            nbytes = m * k + n * k + 4 * n + xb * m * n
+            peak = INT8_OPS
+            kern = lambda: quant.a8_matmul(xq, qt["q8"], s, dtype)
+            plain = lambda: quant.int8_a8_matmul_plain(xq, qt["q8"], s,
+                                                       dtype)
+            lib = lambda: (torch._int_mm(xq, q8t).float() * s).to(dtype)
+            try:        # the yardstick only: its shape rules may refuse
+                lib()
+            except RuntimeError as e:
+                log(f"torch._int_mm refuses {(m, k, n)}: {e}")
+                lib = None
+        else:
+            mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(name, "w8")
+            qt = quant.pack(w, mode=mode)
+            wide = quant.unpack(qt, dtype)
+            qbytes = n * ((k + 1) // 2) if mode == "w4" else n * k
+            nbytes = xb * m * k + qbytes + 4 * n + xb * m * n
+            peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
+            if mode == "w4":
+                kern = lambda: quant.w4_matmul(x, qt["q4"], qt["scale"], k)
+                plain = lambda: quant.int4_matmul_plain(x, qt["q4"],
+                                                        qt["scale"], k)
             else:
-                mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(name, "w8")
-                qt = quant.pack(w, mode=mode)
-                wide = quant.unpack(qt, dtype)
-                qbytes = n * ((k + 1) // 2) if mode == "w4" else n * k
-                nbytes = xb * m * k + qbytes + 4 * n + xb * m * n
-                peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
-                if mode == "w4":
-                    kern = lambda: quant.w4_matmul(x, qt["q4"], qt["scale"],
-                                                   k)
-                    plain = lambda: quant.int4_matmul_plain(
-                        x, qt["q4"], qt["scale"], k)
-                else:
-                    q = qt["q8" if mode == "w8" else "f8"]
-                    fn = quant.w8_matmul if mode == "w8" else quant.f8_matmul
-                    kern = lambda: fn(x, q, qt["scale"])
-                    plain = lambda: quant.int8_matmul_plain(x, q,
-                                                            qt["scale"])
-                lib = lambda: F.linear(x, wide)
-            t["bytes_ms"] += c * 1e3 * nbytes / HBM_BYTES_PER_S
-            t["ops_ms"] += c * 1e3 * 2 * m * n * k / peak
-            t["bound_ms"] += c * 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                           2 * m * n * k / peak)
-            t["ms"] += c * median_ms(kern, device, flush=flush)
-            t["plain_ms"] += c * median_ms(plain, device, flush=flush)
-            t["library_ms"] = None if lib is None or t["library_ms"] is None \
-                else t["library_ms"] + c * median_ms(lib, device, flush=flush)
-            t["calls"] += c
-        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else \
-            "operations"
-        t["dtype"] = str(dtype).replace("torch.", "")
+                q = qt["q8" if mode == "w8" else "f8"]
+                fn = quant.w8_matmul if mode == "w8" else quant.f8_matmul
+                kern = lambda: fn(x, q, qt["scale"])
+                plain = lambda: quant.int8_matmul_plain(x, q, qt["scale"])
+            lib = lambda: F.linear(x, wide)
+        r = {"name": name, "bucket": b, "stage": stage, "M": m, "K": k,
+             "N": n, "calls": c, "dtype": str(dtype).replace("torch.", ""),
+             "ms": median_ms(kern, device, flush=flush),
+             "device_ms": device_ms(kern, flush), "host_ms": host_ms(kern),
+             "plain_ms": median_ms(plain, device, flush=flush)
+             if b == BATCH else None,
+             "library_ms": None if lib is None else
+             median_ms(lib, device, flush=flush),
+             "library_device_ms": None if lib is None else
+             device_ms(lib, flush),
+             "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+             "ops_ms": 1e3 * 2 * m * n * k / peak}
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        if plan is not None and dtype == bf16 and name != "a8_matmul":
+            r["plan"] = plan(m, k, n, nibbles=name == "w4_matmul")._asdict()
+        rows.append(r)
+    out = {}
+    for name in sorted({r["name"] for r in rows}):
+        mine = [r for r in rows if r["name"] == name]
+        t = _quant_sums([r for r in mine if r["bucket"] == BATCH])
+        t["dtype"] = mine[0]["dtype"]
+        t["buckets"] = {b: _quant_sums([r for r in mine if r["bucket"] == b])
+                        for b in sorted({r["bucket"] for r in mine})}
+        t["stages"] = {b: {s: _quant_sums([r for r in mine
+                                           if r["bucket"] == b and
+                                           r["stage"] == s])
+                           for s in QSTAGES
+                           if any(r["bucket"] == b and r["stage"] == s
+                                  for r in mine)}
+                       for b in t["buckets"]}
         out[name] = t
-    return out
+    return out, rows
+
+
+def log_quant_times(card, qtimes, qrows):
+    """Phase 4's K13-K15 lines: per wrapper its batch-32 sums, per stage
+    and bucket the bf16 K13 int8 sums, and every product in one line."""
+    def ms(v):
+        return "n/a" if v is None else f"{v:.4f}"
+    for name, t in qtimes.items():
+        log(f"[{card}] {name} ({t['dtype']}, {t['calls']} calls of a batch-"
+            f"{BATCH} quantized forward): events {t['ms']:.4f} ms, device "
+            f"{ms(t['device_ms'])} ms, wrapper host {t['host_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; bytes "
+            f"{t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), plain "
+            f"{ms(t['plain_ms'])} ms, library events {ms(t['library_ms'])} "
+            f"ms, device {ms(t['library_device_ms'])} ms")
+        for b, stages in t["stages"].items():
+            if name == "w8_matmul":
+                log(f"[{card}] {name} bucket {b} by stage (device / events "
+                    "ms, kernel | library; bound): " + "; ".join(
+                        f"{s} x{v['calls']} {ms(v['device_ms'])} / "
+                        f"{v['ms']:.4f} | {ms(v['library_device_ms'])} / "
+                        f"{ms(v['library_ms'])}; {v['bound_ms']:.4f}"
+                        for s, v in stages.items()))
+    log("quantized products: " + json.dumps(qrows))
 
 
 def time_quant_convs(device, prods32):
@@ -2966,23 +3175,8 @@ def device_profile(fn, n):
     the summed kernel and copy time per step and the kernels that take the
     most of it.  The profiler slows the host, so the busy share is taken
     against an unprofiled time by the caller."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = {}
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != cuda:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / n
+    kernels = {name: us / 1e3 / n for name, us in _profiled_us(fn).items()
+               if us > 0}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"device_ms": sum(kernels.values()),
             "htod_ms": sum(ms for name, ms in kernels.items()
@@ -3098,6 +3292,7 @@ def main() -> int:
     for d, more in zip((errs, cases, misses),
                        check_quant_kernels(device, path_shapes)):
         d.update(more)
+    log_quant_plans(path_shapes)
     for d, more in zip((errs, cases, misses),
                        check_attention_kernels(device)):
         d.update(more)
@@ -3186,14 +3381,8 @@ def main() -> int:
             f"{p['busy_share']:.3f} of the {qfwd_ms[b]:.3f} ms forward; top "
             "kernels and copies (ms per forward): " + json.dumps(p["top"]))
         qreport[f"profile_bucket_{b}"] = p
-    qtimes = time_quant_kernels(device, prods[BATCH])
-    for name, t in qtimes.items():
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        log(f"[{card}] {name} ({t['dtype']}, {t['calls']} calls of a batch-"
-            f"{BATCH} quantized forward): {t['ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; bytes "
-            f"{t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), plain "
-            f"{t['plain_ms']:.4f} ms, library {lib} ms")
+    qtimes, qrows = time_quant_kernels(device, prods)
+    log_quant_times(card, qtimes, qrows)
     qreport["convs"] = time_quant_convs(device, prods[BATCH])
     for name, t in qreport["convs"].items():
         log(f"[{card}] fused conv {name} (bf16, batch {BATCH}, M {t['M']} K "
@@ -3375,10 +3564,14 @@ def main() -> int:
             entry.update({k2: codec_times[name][k2] for k2 in TIME_KEYS})
             entry["elements"] = CODEC_N
         elif name in qtimes:     # quantized: one batch-32 forward, bf16
-            entry.update({key: qtimes[name][key] for key in TIME_KEYS})
+            entry.update({key: qtimes[name][key] for key in TIME_KEYS +
+                          ("device_ms", "library_device_ms", "host_ms",
+                           "stages")})
             entry["calls_per_forward"] = qtimes[name]["calls"]
             if name == "w8_matmul":
-                entry["f32"] = qtimes["w8_matmul_f32"]
+                entry["f32"] = {key: v for key, v in
+                                qtimes["w8_matmul_f32"].items()
+                                if key != "stages"}
         else:
             entry.update({key: train_times[name][key] for key in TIME_KEYS})
         kernels.append(entry)

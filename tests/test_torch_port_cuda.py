@@ -12,8 +12,9 @@ in bfloat16, the LRN backward within rtol 1e-5 / atol 1e-5 and rtol 2e-2 /
 atol 2e-2, where the plain version rounds to bfloat16 at every step.  The
 quantized matmuls: K14 (int8 x int8) is bit-equal; K13 (int8 and e4m3
 weights) and K15 (int4) agree to 1e-4 of each output's sum of |products|
-(f32 sums taken in another order, mma.sync's accumulation in bfloat16),
-plus one bfloat16 rounding step of the output (2^-7 relative) in bfloat16.
+(f32 sums taken in another order: wgmma's, and a split K's partial sums),
+plus one bfloat16 rounding step of the output (2^-7 relative) in bfloat16,
+and are bit-equal across two launches.
 The attention kernels K8, K9 and K12 agree with their plain versions to
 1e-5 of each output's sum of |p·v| (the softmax weights times |v|) in
 float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
@@ -154,8 +155,18 @@ def test_kernel_launches_are_counted(cuda_device):
         max_pool2d(x.transpose(2, 3), 2, 2, 2, 2)
 
 
+# ragged shapes; then the bf16 kernel's edges: M at its 64- and 128-row
+# tiles, N 8, 24, 256, 257 and 384, K 600 (8-byte weight rows) and odd K
+# (byte rows, x not by TMA), 192-row tiles with M and K ragged; then
+# shapes its plan splits over K, unevenly
 MATMUL_SHAPES = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 576, 192),
-                 (300, 1024, 1000), (2, 1728, 384)]
+                 (300, 1024, 1000), (2, 1728, 384),
+                 (63, 64, 8), (64, 600, 24), (65, 192, 256), (127, 256, 257),
+                 (128, 333, 384), (129, 200, 56), (25400, 72, 40),
+                 (1568, 832, 160), (392, 1200, 128)]
+# shapes the bf16 plan splits over K: 13 steps in 7 splits, the classifier
+# (16 in 16), 9 in 2
+SPLIT_SHAPES = [(1568, 832, 160), (32, 1024, 1000), (6272, 528, 32)]
 
 
 def _sum_close(got, want, x, wide, dtype):
@@ -193,6 +204,55 @@ def test_quant_matmul_kernels_match_plain(cuda_device, mkn, dtype):
     got = quant.a8_matmul(xq, qt["q8"], s, dt)
     torch.cuda.synchronize()
     assert torch.equal(got, quant.int8_a8_matmul_plain(xq, qt["q8"], s, dt))
+
+
+def _dequant_calls(x, w, k):
+    """(wrapper, packed weight, args) of K13 int8, K13 e4m3 and K15."""
+    out = []
+    for mode, fn, key in (("w8", quant.w8_matmul, "q8"),
+                          ("f8", quant.f8_matmul, "f8"),
+                          ("w4", quant.w4_matmul, "q4")):
+        qt = quant.pack(w, mode=mode)
+        out.append((fn, qt, (x, qt[key], qt["scale"]) +
+                    ((k,) if mode == "w4" else ())))
+    return out
+
+
+@pytest.mark.parametrize("mkn", SPLIT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in SPLIT_SHAPES])
+def test_split_k_matches_plain(cuda_device, mkn):
+    m, k, n = mkn
+    for nibbles in (False, True):
+        plan = quant.bf16_plan(m, k, n, nibbles)
+        assert plan.splits > 1
+    g = torch.Generator(device=cuda_device).manual_seed(m + k)
+    x = torch.randn((m, k), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=g, device=cuda_device)
+    for fn, qt, args in _dequant_calls(x, w, k):
+        got = fn(*args)
+        if fn is quant.w4_matmul:
+            want = quant.int4_matmul_plain(*args)
+        else:
+            want = quant.int8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        assert _sum_close(got, want, x, quant.unpack(qt), torch.bfloat16), \
+            fn.__name__
+
+
+@pytest.mark.parametrize("mkn", [(1568, 832, 160), (100352, 576, 192)],
+                         ids=["split-k", "conv2"])
+def test_k13_and_k15_are_bit_equal_across_launches(cuda_device, mkn):
+    # no atomics: a split's partial sums are added in split order
+    m, k, n = mkn
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    x = torch.randn((m, k), generator=g,
+                    device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((n, k), generator=g, device=cuda_device)
+    for fn, _, args in _dequant_calls(x, w, k):
+        a, b = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), fn.__name__
 
 
 def test_quant_kernel_launches_are_counted(cuda_device):

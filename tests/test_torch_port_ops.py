@@ -177,7 +177,9 @@ def test_build_is_lazy_and_keyed_by_the_sources(monkeypatch, tmp_path):
     names = [p.name for p in _build.sources()]
     assert names == ["attention.cu", "flash_attention_bwd.cu",
                      "fp16_codec.cu", "lrn.cu", "max_pool.cu",
-                     "paged_attention.cu", "quant_matmul.cu"]
+                     "paged_attention.cu", "quant_bf16_e4m3.cu",
+                     "quant_bf16_int4.cu", "quant_bf16_int8.cu",
+                     "quant_matmul.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert _build._lib is None or torch.cuda.is_available()
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -16,6 +16,7 @@ float32; the quantized classifier's log-probabilities agree to 1e-4 in
 float32 (conv sums in another order) with equal predictions.
 """
 
+import functools
 import os
 
 import jax
@@ -198,6 +199,87 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         tq.w8_matmul(x, pf["f8"], pf["scale"])
     with pytest.raises(ValueError, match="do not agree"):
         tq.w8_matmul(x[:, :10], p8["q8"], p8["scale"])
+
+
+# -- (c2) the bf16 kernel's grid plan ------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _inception_products(bucket):
+    """(M, K, N) of every packed product of the port's full-width
+    Inception-v1 ``w8`` forward at batch ``bucket``: the fused stride-1
+    convs as patch matrices and the classifier (found with pre-hooks over
+    one batch-1 forward on the CPU, as chip_smoke.py's quant_products)."""
+    from bigdl_tpu_torch.models import Inception_v1
+    qmodel = tq.quantize_model(Inception_v1(1000).reset(0), "w8")
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, tuple(args[0].shape))))
+        for m in qmodel.modules() if tq.packed_weight(m) is not None]
+    with torch.inference_mode():
+        qmodel(torch.zeros((1, 3, 224, 224)))
+    for h in hooks:
+        h.remove()
+    out = []
+    for m, (_, c, h, w) in [(m, s) for m, s in seen if len(s) == 4]:
+        if m._fused_int8_eligible(tq.packed_weight(m)):
+            oh = h + 2 * m.pad_h - m.kernel_h + 1
+            ow = w + 2 * m.pad_w - m.kernel_w + 1
+            out.append((bucket * oh * ow, c * m.kernel_h * m.kernel_w,
+                        m.n_output_plane))
+    out += [(bucket, m.input_size, m.output_size) for m, s in seen
+            if isinstance(m, tnn.Linear)]
+    return out
+
+
+def _blocks(m, plan):
+    return -(-m // plan.bm) * plan.n_tiles * plan.splits
+
+
+def _check_plan(m, k, n, plan):
+    assert plan.bm in (64, 128, 192) and plan.bn % 8 == 0
+    assert 8 <= plan.bn <= (192 if plan.bm == 192 else 256)
+    assert plan.bn * plan.n_tiles >= n > plan.bn * (plan.n_tiles - 1)
+    assert plan.n_tiles == (1 if n <= 256 else 2 if n <= 512 else
+                            -(-n // 256))
+    # no split is empty, and together they cover every K step
+    assert plan.per * plan.splits >= plan.steps
+    assert plan.per * (plan.splits - 1) < plan.steps
+
+
+@pytest.mark.parametrize("nibbles", [False, True], ids=["int8-e4m3", "int4"])
+@pytest.mark.parametrize("bucket", [8, 32])
+def test_bf16_plan_fills_the_card_at_every_inception_product(bucket,
+                                                             nibbles):
+    prods = _inception_products(bucket)
+    assert len(prods) == 56             # 55 stride-1 convs, the classifier
+    for m, k, n in prods:
+        plan = tq.bf16_plan(m, k, n, nibbles)
+        _check_plan(m, k, n, plan)
+        # at least one block a streaming multiprocessor, or one K step a
+        # split; and no split where the tiles alone fill the card
+        assert _blocks(m, plan) >= tq.H100_SMS or plan.per == 1, (m, k, n)
+        if -(-m // plan.bm) * plan.n_tiles >= tq.H100_SMS:
+            assert plan.splits == 1, (m, k, n)
+    # N 288-384 (4d/3x3, 4e/3x3, 5a/3x3, 5b/1x1, 5b/3x3) takes two N tiles
+    assert {n for m, k, n in prods
+            if tq.bf16_plan(m, k, n).n_tiles == 2} == {288, 320, 384}
+
+
+@pytest.mark.parametrize("mkn,want", [
+    ((100352, 576, 192), (192, 192, 1, 1)),   # conv2/3x3 at batch 32
+    ((25088, 1152, 192), (128, 192, 1, 1)),   # 3b/3x3: 131 tiles of 192
+    ((6272, 480, 16), (64, 16, 1, 2)),        # 4a/5x5_reduce: 98 tiles
+    ((1568, 832, 160), (64, 160, 1, 7)),      # 13 K steps in 7 splits
+    ((32, 1024, 1000), (64, 256, 4, 16)),     # the classifier: one step each
+    ((8, 5, 257), (64, 136, 2, 1)),           # N 257 in two tiles, one step
+    ((1, 7, 5), (64, 8, 1, 1)),
+], ids=["conv2", "3b-3x3", "4a-5x5-reduce", "uneven", "classifier", "n257",
+        "tiny"])
+def test_bf16_plan_at_edges(mkn, want):
+    m, k, n = mkn
+    plan = tq.bf16_plan(m, k, n)
+    _check_plan(m, k, n, plan)
+    assert (plan.bm, plan.bn, plan.n_tiles, plan.splits) == want
 
 
 # -- (d) the fused int8 conv --------------------------------------------------
