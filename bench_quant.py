@@ -6,8 +6,8 @@ ablation of the bf16 kernel.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 bench_quant.py times [<checkout>]
-    python3 bench_quant.py ab <parent checkout>
+    python3 bench_quant.py times [<checkout>] [--out <dir>]
+    python3 bench_quant.py ab <parent checkout> [--out <dir>]
     python3 bench_quant.py ptxas
     python3 bench_quant.py mutants
     python3 bench_quant.py ablate
@@ -17,7 +17,8 @@ product of the quantized Inception-v1 forward at buckets 8 and 32: CUDA
 events, torch.profiler device time, the wrapper's host time, the plain
 version and ``F.linear`` on the widened weight) against the package of
 ``<checkout>`` (this one by default), prints the sums per stage, and
-writes every product's row to ``chiprun_out/bench_quant_<label>.json``.
+writes every product's row to ``<dir>/bench_quant_<label>.json``
+(``build/bench_quant`` by default).
 ``ab`` does that in the parent and in this checkout in turns (parent,
 this, this, parent), each in its own process, and runs phase 3d
 (``serve_quantized``: w8 bf16 serving, logits against the CPU) in each.
@@ -46,7 +47,8 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # one run of ``times``: this checkout's chip_smoke against <checkout>'s
-# package; argv: label, checkout, 3d ("1" runs serve_quantized)
+# package; argv: label, checkout, 3d ("1" runs serve_quantized), this
+# checkout, the output directory
 _RUN = """
 import importlib.util, json, os, sys, torch
 sys.path.insert(0, sys.argv[2])
@@ -74,8 +76,8 @@ if sys.argv[3] == "1":
         "cpu_max_abs_logit_diff", "cpu_logit_limit", "cpu_max_abs_logp_diff",
         "cpu_logp_limit", "forwards", "requests")}
     res["serve_quantized"]["launches"] = launches
-os.makedirs(os.path.join(sys.argv[4], "chiprun_out"), exist_ok=True)
-out = os.path.join(sys.argv[4], "chiprun_out",
+os.makedirs(sys.argv[5], exist_ok=True)
+out = os.path.join(sys.argv[5],
                    "bench_quant_" + label.replace(" ", "_") + ".json")
 with open(out, "w") as f:
     json.dump(dict(res, rows=rows), f, indent=1)
@@ -93,9 +95,9 @@ print("RESULT " + json.dumps({k: v for k, v in res.items() if k != "sums"}),
 """
 
 
-def run_times(label: str, checkout: str, with_3d: bool) -> int:
+def run_times(label: str, checkout: str, with_3d: bool, out: str) -> int:
     r = subprocess.run([sys.executable, "-c", _RUN, label, checkout,
-                        "1" if with_3d else "0", HERE], cwd=checkout,
+                        "1" if with_3d else "0", HERE, out], cwd=checkout,
                        capture_output=True, text=True)
     lines = [ln for ln in r.stdout.splitlines()
              if ln.startswith(("STAGE ", "RESULT "))]
@@ -106,11 +108,11 @@ def run_times(label: str, checkout: str, with_3d: bool) -> int:
     return r.returncode
 
 
-def cmd_ab(parent: str) -> int:
+def cmd_ab(parent: str, out: str) -> int:
     rc = 0
     for label, tree in (("parent 1", parent), ("change 1", HERE),
                         ("change 2", HERE), ("parent 2", parent)):
-        rc = rc or run_times(label, tree, True)
+        rc = rc or run_times(label, tree, True, out)
     return rc
 
 
@@ -318,13 +320,18 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
+    out = os.path.join(HERE, "build", "bench_quant")
+    if "--out" in argv[:-1]:
+        i = argv.index("--out")
+        out = os.path.abspath(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     cmd = argv[0] if argv else ""
     if cmd == "times" and len(argv) <= 2:
         tree = os.path.abspath(argv[1]) if len(argv) == 2 else HERE
         return run_times("parent" if len(argv) == 2 else "this", tree,
-                         False)
+                         False, out)
     if cmd == "ab" and len(argv) == 2:
-        return cmd_ab(os.path.abspath(argv[1]))
+        return cmd_ab(os.path.abspath(argv[1]), out)
     if cmd == "ptxas":
         return cmd_ptxas()
     if cmd == "mutants":

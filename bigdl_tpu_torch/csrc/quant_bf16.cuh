@@ -36,7 +36,7 @@
 //   store whole rows in 16-byte pieces; several: the consumers write their
 //   f32 partial sums to the caller's workspace, and quant_matmul.cu's
 //   second pass adds them in split order.
-// What bounds it, measured (PERF.md, PR 10): at the large convs the
+// What bounds it, measured (PERF.md §6): at the large convs the
 // producer's widening of BN x 64 weights a step, which 192 rows a block
 // spreads over more of x.
 #pragma once

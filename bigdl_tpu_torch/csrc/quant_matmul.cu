@@ -40,7 +40,7 @@
 //   splits) is ops/quant.py `bf16_plan`'s.  Measured, it runs at about
 //   half of the bytes rate on the large convs: a block's step (widening,
 //   products, a barrier) and its copies overlap only in part at one block
-//   a streaming multiprocessor (PERF.md, PR 10).
+//   a streaming multiprocessor (PERF.md §6).
 // * f32 x (K13/K15): FFMA throughput at 67 TFLOP/s; a 64x64 output tile
 //   per 256-thread block, 4x4 outputs a thread, K in steps of 16 through
 //   shared memory, fmaf in full f32 (no TF32), so it matches the

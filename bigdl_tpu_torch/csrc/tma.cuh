@@ -12,7 +12,7 @@ namespace tma {
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
-// cuTensorMapEncodeTiled, or null if the driver is not there
+// cuTensorMapEncodeTiled, or null if libcuda.so.1 is not there
 inline EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
@@ -27,7 +27,7 @@ inline EncodeTiled encode_tiled() {
 // The map of a rank-R tensor of elements of `type` (dims[0] contiguous;
 // strides[i] the bytes between steps of dim i + 1) whose boxes of box[0] x
 // ... elements land in shared memory as laid out by `swizzle`; elements
-// past dims arrive as zeros.  False if the driver refuses it.
+// past dims arrive as zeros.  False if the encoder refuses it.
 template <int R>
 bool tile_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
               const cuuint64_t (&dims)[R], const cuuint64_t (&strides)[R - 1],
