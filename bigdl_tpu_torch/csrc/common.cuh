@@ -1,5 +1,6 @@
 // Shared helpers for the hand-written Hopper kernels: dtype codes that the
-// Python wrappers pass through ctypes, and f32 <-> storage conversions.
+// Python wrappers pass through ctypes, f32 <-> storage conversions, and
+// 2^x on the special-function unit.
 #pragma once
 
 #include <cmath>
@@ -28,28 +29,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch casts
 }
 
-// Two consecutive bf16 in one 32-bit register (the lower address in the
-// lower half), as the mma.sync fragments take them.
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
+// Two floats rounded to bf16 in one 32-bit register (lo in the lower half).
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// d += a * b on the tensor cores: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// d 16x8 f32.  Fragments of lane (g = lane / 4, t = lane % 4):
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, d[j] = D[g + 8 (j / 2)][2t + j % 2].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// 2^x on the special-function unit (what __expf uses after its scaling)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 constexpr int kThreads = 256;

@@ -58,9 +58,16 @@
 //   (K11) for the scores, one lane per output column for the products,
 //   every tile staged single-buffered by the threads; bound by FFMA's rate
 //   over the same FLOPs.  No TF32: the reference computes in f32.
-// Head dims 16/32/64/128 (the wrapper zero-pads others); rows past Tq or
-// keys past Tk are zero-filled and masked, so T need not be a multiple of
-// 64.
+// Head dims 16, 32, 64, 128 and 256 (the wrapper zero-pads others up to
+// 256); rows past Tq or keys past Tk are zero-filled and masked, so T need
+// not be a multiple of 64.  At D 256 (a tile of 64 rows is 32 KB in bf16):
+// the bf16 ring has two stages, not three (K10: q and dO, then K and V a
+// stage, 192 KB in all; K11: K and V, then q and dO a stage); the bf16 K11
+// would need 256 registers a thread for dk and dv, so a block holds one
+// half of their columns (a third grid axis) and recomputes s and dp over
+// all of D, 1.5x the FLOPs; the f32 K10 takes 32 query rows a block (8 a
+// warp) and the f32 K11 32 keys (4 a warp), 205 568 and 214 144 bytes of
+// shared memory.
 #include <cstdint>
 
 #include "common.cuh"
@@ -69,17 +76,27 @@
 
 namespace {
 
+using bigdl::ex2;
 using bigdl::pack_bf16x2;
 using bf16 = __nv_bfloat16;
 namespace wg = bigdl::wg;
+using wg::frag_col;
+using wg::frag_row;
+using wg::to_a;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;           // query rows (K10) or keys (K11) a
                                     // block, rows of a streamed tile
-constexpr int kThreads = 128;       // f32 K10: 4 warps, 16 rows each
-constexpr int kF32DkvThreads = 256; // f32 K11: 8 warps, 8 keys each
+constexpr int kThreads = 128;       // f32 K10: 4 warps
+constexpr int kF32DkvThreads = 256; // f32 K11: 8 warps
 constexpr int kWgThreads = 128;     // bf16: one warpgroup a block
-constexpr int kStages = 3;          // bf16: depth of the TMA ring
+
+// bf16: the depth of the TMA ring; three stages of 64-row tiles at D 256
+// would not fit a block's shared memory beside the tiles that stay
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D <= 128 ? 3 : 2;
+}
 
 struct Params {
   const void* q;
@@ -115,19 +132,12 @@ __device__ __forceinline__ float prob(float s, float lse) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 2^x on the special-function unit (what __expf uses after its scaling)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Stage 64 keys' bias from k0 into bs and report whether any of them is
+// Stage n keys' bias from k0 into bs and report whether any of them is
 // real (a barrier for the whole block).
 __device__ __forceinline__ int stage_bias(const Params& p, int b, int k0,
-                                          float* bs) {
+                                          int n, float* bs) {
   bool real = false;
-  if (threadIdx.x < kTile) {
+  if (threadIdx.x < n) {
     const int key = k0 + threadIdx.x;
     const float x = key < p.tk
         ? p.bias[static_cast<long long>(b) * p.tk + key] : kNegInf;
@@ -147,31 +157,12 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw,
   return base;
 }
 
-// rows a block's warpgroup owns: warp w of it rows 16 w + g and + 8
-__device__ __forceinline__ int frag_row(int i) {  // i: accumulator register
-  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
-         8 * ((i >> 1) & 1);
-}
-
-__device__ __forceinline__ int frag_col(int i) {
-  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
-}
-
-// x (64 x 64 accumulator, rows r, columns c) rounded to bf16 as the A
-// operand of a product over its 64 columns, 16 at a time
-__device__ __forceinline__ void to_a(const float (&x)[32],
-                                     uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a[c][j] = pack_bf16x2(x[8 * c + 2 * j], x[8 * c + 2 * j + 1]);
-}
 
 // ---- K10, bfloat16 ---------------------------------------------------------
 
 template <int D>
 struct DqLayout {  // byte offsets from the 1024-aligned base
+  static constexpr int kStages = stages<D>();
   static constexpr int kKv = kTile * D * 2;  // one q, dO, K or V tile
   static constexpr int kQ = 0;
   static constexpr int kDo = kKv;
@@ -230,6 +221,7 @@ __global__ void __launch_bounds__(kWgThreads) dq_bf16(
     const __grid_constant__ CUtensorMap m_v) {
   using T = wg::Tile<D>;
   using L = DqLayout<D>;
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = aligned_smem(smem_raw, &smem);
@@ -346,6 +338,11 @@ __global__ void __launch_bounds__(kWgThreads) dq_bf16(
 
 template <int D>
 struct DkvLayout {  // byte offsets from the 1024-aligned base
+  static constexpr int kStages = stages<D>();
+  // columns of dk and dv a block holds: all of D up to 128; at D 256 a
+  // block holds one half (their f32 sums would take 256 registers a
+  // thread) and recomputes s and dp, which span all of D
+  static constexpr int kN = D <= 128 ? D : 128;
   static constexpr int kQd = kTile * D * 2;  // one K, V, q or dO tile
   static constexpr int kK = 0;
   static constexpr int kV = kQd;
@@ -405,6 +402,7 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
     const __grid_constant__ CUtensorMap m_v) {
   using T = wg::Tile<D>;
   using L = DkvLayout<D>;
+  constexpr int kStages = L::kStages, kN = L::kN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem;
   const uint32_t base = aligned_smem(smem_raw, &smem);
@@ -415,6 +413,9 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
   const int kvr = blockIdx.y, b = kvr / p.hk, kvh = kvr % p.hk;
   const int group = p.h / p.hk;
   const int k0 = blockIdx.x * kTile;  // the most query tiles first
+  const int c0 = blockIdx.z * kN;     // the block's first column of dk, dv
+  // its panels of an MN-major q or dO tile start here
+  const uint32_t cols = c0 / (T::kW / 2) * kTile * T::kW;
   const long long kv_row = static_cast<long long>(kvr) * p.tk;
   const uint32_t bars = base + L::kBars;  // a barrier a stage, then k's
   if (tid == 0) {
@@ -461,9 +462,9 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
             (tid < kTile ? p.lse : p.delta) + q_row + (ok ? q0 + rr : 0), ok);
   };
 
-  float dka[D / 2], dva[D / 2];
+  float dka[kN / 2], dva[kN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = 0; i < kN / 2; ++i) dka[i] = dva[i] = 0.0f;
 
   if (n_iter > 0) {
     if (tid == 0) {  // k and v, once
@@ -513,10 +514,10 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
     wg::mma_fence();
 #pragma unroll
     for (int c = 0; c < 4; ++c)  // dv += p^T dO, dO read MN-major
-      wg::mma_rs(dva, pa[c], T::template mnmajor<kTile>(ds, c));
+      wg::mma_rs(dva, pa[c], T::template mnmajor<kTile>(ds + cols, c));
 #pragma unroll
     for (int c = 0; c < 4; ++c)  // dk += ds^T q, q read MN-major
-      wg::mma_rs(dka, da[c], T::template mnmajor<kTile>(qs, c));
+      wg::mma_rs(dka, da[c], T::template mnmajor<kTile>(qs + cols, c));
     wg::mma_commit();
     wg::mma_wait<0>();
     wg::fence_regs(dva);
@@ -526,10 +527,10 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
   bf16* dk = static_cast<bf16*>(p.dk) + kv_row * D;
   bf16* dv = static_cast<bf16*>(p.dv) + kv_row * D;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < kN / 2; i += 2) {
     const int kk = k0 + frag_row(i);
     if (kk >= p.tk) continue;
-    const long long at = static_cast<long long>(kk) * D + frag_col(i);
+    const long long at = static_cast<long long>(kk) * D + c0 + frag_col(i);
     *reinterpret_cast<uint32_t*>(dk + at) = pack_bf16x2(dka[i], dka[i + 1]);
     *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16x2(dva[i], dva[i + 1]);
   }
@@ -537,24 +538,33 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
 
 // ---- K10, float32 ----------------------------------------------------------
 
+// query rows of an f32 K10 block: 64 (16 a warp), or 32 (8 a warp) at D
+// 256, where 64 rows of q and dO beside the K and V tiles would not fit
+template <int D>
+__host__ __device__ constexpr int dq_f32_rows() {
+  return D <= 128 ? kTile : kTile / 2;
+}
+
 template <int D>
 constexpr int dq_f32_smem() {  // q, dO, K and V (padded rows), ds, bias
-  return (2 * kTile * D + 2 * kTile * (D + 1) + 4 * 16 * kTile + kTile) * 4;
+  return (2 * dq_f32_rows<D>() * D + 2 * kTile * (D + 1) +
+          dq_f32_rows<D>() * kTile + kTile) * 4;
 }
 
 template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
   constexpr int kCols = (D + 31) / 32;  // output columns of a lane
+  constexpr int kRows = dq_f32_rows<D>(), kWR = kRows / 4;  // rows a warp
   extern __shared__ float sm[];
-  float* qs = sm;                      // [64][D]
-  float* dos = qs + kTile * D;         // [64][D]
-  float* ks = dos + kTile * D;         // [64][D + 1]
+  float* qs = sm;                      // [kRows][D]
+  float* dos = qs + kRows * D;         // [kRows][D]
+  float* ks = dos + kRows * D;         // [64][D + 1]
   float* vs = ks + kTile * (D + 1);    // [64][D + 1]
-  float* bs = vs + kTile * (D + 1) + 4 * 16 * kTile;
+  float* bs = vs + kTile * (D + 1) + kRows * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ps = vs + kTile * (D + 1) + warp * 16 * kTile;  // this warp's ds
+  float* ps = vs + kTile * (D + 1) + warp * kWR * kTile;  // this warp's ds
   const int bh = blockIdx.y, b = bh / p.h;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const long long q_row = static_cast<long long>(bh) * p.tq * D;
   const long long kv_row = (static_cast<long long>(b) * p.hk +
                             (bh % p.h) / (p.h / p.hk)) * p.tk * D;
@@ -562,18 +572,18 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
   const float* dout = static_cast<const float*>(p.dout) + q_row;
   const float* k = static_cast<const float*>(p.k) + kv_row;
   const float* v = static_cast<const float*>(p.v) + kv_row;
-  const int row0 = q0 + warp * 16;
+  const int row0 = q0 + warp * kWR;
 
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
     const int rr = q0 + e / D;
     const long long at = static_cast<long long>(rr) * D + e % D;
     qs[e] = rr < p.tq ? q[at] : 0.0f;
     dos[e] = rr < p.tq ? dout[at] : 0.0f;
   }
   __syncthreads();
-  float lse[16], delta[16], acc[16][kCols];
+  float lse[kWR], delta[kWR], acc[kWR][kCols];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < kWR; ++i) {
     const int rr = row0 + i;
     const long long at = static_cast<long long>(bh) * p.tq + rr;
     delta[i] = rr < p.tq ? p.delta[at] : 0.0f;
@@ -582,9 +592,9 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
 
-  const int k_end = p.causal ? min(p.tk, q0 + kTile) : p.tk;
-  const float* qp = qs + warp * 16 * D;
-  const float* dp_ = dos + warp * 16 * D;
+  const int k_end = p.causal ? min(p.tk, q0 + kRows) : p.tk;
+  const float* qp = qs + warp * kWR * D;
+  const float* dp_ = dos + warp * kWR * D;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();
     for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
@@ -595,14 +605,14 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
       vs[key * (D + 1) + c] = in ? v[at] : 0.0f;
     }
     if (kBias) {
-      if (!stage_bias(p, b, k0, bs)) continue;
+      if (!stage_bias(p, b, k0, kTile, bs)) continue;
     } else {
       __syncthreads();
     }
     // s[j][i], dp[j][i]: row row0 + i, key k0 + lane + 32 j
-    float s[2][16], dp[2][16];
+    float s[2][kWR], dp[2][kWR];
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
+    for (int i = 0; i < kWR; ++i)
       s[0][i] = s[1][i] = dp[0][i] = dp[1][i] = 0.0f;
     const float* k0p = ks + lane * (D + 1);
     const float* k1p = ks + (lane + 32) * (D + 1);
@@ -612,7 +622,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
     for (int d = 0; d < D; ++d) {
       const float ka = k0p[d], kb = k1p[d], va = v0p[d], vb = v1p[d];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kWR; ++i) {
         const float qv = qp[i * D + d], dv = dp_[i * D + d];
         s[0][i] = fmaf(qv, ka, s[0][i]);
         s[1][i] = fmaf(qv, kb, s[1][i]);
@@ -624,7 +634,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
     for (int j = 0; j < 2; ++j) {
       const int col = lane + 32 * j;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kWR; ++i) {
         const float x = mask_score(s[j][i], p, row0 + i, k0 + col,
                                    kBias ? bs : nullptr, col);
         ps[i * kTile + col] = prob(x, lse[i]) * (dp[j][i] - delta[i]) *
@@ -640,7 +650,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
         kv[c] = col < D ? ks[key * (D + 1) + col] : 0.0f;
       }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < kWR; ++i) {
         const float x = ps[i * kTile + key];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(x, kv[c], acc[i][c]);
@@ -651,7 +661,7 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
 
   float* dq = static_cast<float*>(p.dq) + q_row;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < kWR; ++i) {
     if (row0 + i >= p.tq) continue;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -663,34 +673,41 @@ __global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
 
 // ---- K11, float32 ----------------------------------------------------------
 
-constexpr int kF32Keys = 8;  // keys of a warp in K11 f32
+// keys of an f32 K11 block: 64 (8 a warp), or 32 (4 a warp) at D 256,
+// where 64 keys of K and V beside the q and dO tiles would not fit
+template <int D>
+__host__ __device__ constexpr int dkv_f32_keys() {
+  return D <= 128 ? kTile : kTile / 2;
+}
 
 template <int D>
 constexpr int dkv_f32_smem() {  // K, V; q, dO (padded rows); p, ds; rows
-  return (2 * kTile * D + 2 * kTile * (D + 1) +
-          2 * (kF32DkvThreads / 32) * kF32Keys * kTile + 3 * kTile) * 4;
+  return (2 * dkv_f32_keys<D>() * D + 2 * kTile * (D + 1) +
+          2 * dkv_f32_keys<D>() * kTile + 2 * kTile + dkv_f32_keys<D>()) *
+         4;
 }
 
 template <int D, bool kBias>
 __global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
   constexpr int kCols = (D + 31) / 32;
   constexpr int kWarps = kF32DkvThreads / 32;
+  constexpr int kKeys = dkv_f32_keys<D>(), kF32Keys = kKeys / kWarps;
   extern __shared__ float sm[];
-  float* ks = sm;                          // [64][D]
-  float* vs = ks + kTile * D;              // [64][D]
-  float* qs = vs + kTile * D;              // [64][D + 1]
+  float* ks = sm;                          // [kKeys][D]
+  float* vs = ks + kKeys * D;              // [kKeys][D]
+  float* qs = vs + kKeys * D;              // [64][D + 1]
   float* dos = qs + kTile * (D + 1);       // [64][D + 1]
-  float* pb = dos + kTile * (D + 1);       // [warps][8][64]
-  float* db = pb + kWarps * kF32Keys * kTile;
-  float* lse_s = db + kWarps * kF32Keys * kTile;
+  float* pb = dos + kTile * (D + 1);       // [warps][keys a warp][64]
+  float* db = pb + kKeys * kTile;
+  float* lse_s = db + kKeys * kTile;
   float* delta_s = lse_s + kTile;
-  float* bs = delta_s + kTile;
+  float* bs = delta_s + kTile;             // [kKeys]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* pw = pb + warp * kF32Keys * kTile;
   float* dw = db + warp * kF32Keys * kTile;
   const int kvr = blockIdx.y, b = kvr / p.hk, kvh = kvr % p.hk;
   const int group = p.h / p.hk;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * kKeys;
   const long long kv_row = static_cast<long long>(kvr) * p.tk * D;
   const int key0 = k0 + warp * kF32Keys;  // this warp's first key
   float* dk = static_cast<float*>(p.dk) + kv_row;
@@ -702,11 +719,11 @@ __global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
 #pragma unroll
     for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.0f;
 
-  const bool live = kBias ? stage_bias(p, b, k0, bs) != 0 : true;
+  const bool live = kBias ? stage_bias(p, b, k0, kKeys, bs) != 0 : true;
   if (live) {
     const float* k = static_cast<const float*>(p.k) + kv_row;
     const float* v = static_cast<const float*>(p.v) + kv_row;
-    for (int e = threadIdx.x; e < kTile * D; e += kF32DkvThreads) {
+    for (int e = threadIdx.x; e < kKeys * D; e += kF32DkvThreads) {
       const int kk = k0 + e / D;
       const long long at = static_cast<long long>(kk) * D + e % D;
       ks[e] = kk < p.tk ? k[at] : 0.0f;
@@ -879,9 +896,10 @@ bool tile_map(CUtensorMap* map, const void* ptr, int n, int z) {
 
 template <bool kDq, bool kBias, int D>
 cudaError_t launch_d(const Params& p, int dtype, int b, cudaStream_t s) {
-  const dim3 grid_q((p.tq + kTile - 1) / kTile, b * p.h);
-  const dim3 grid_k((p.tk + kTile - 1) / kTile, b * p.hk);
   if (dtype == bigdl::kBF16) {
+    const dim3 grid_q((p.tq + kTile - 1) / kTile, b * p.h);
+    const dim3 grid_k((p.tk + kTile - 1) / kTile, b * p.hk,
+                      D / DkvLayout<D>::kN);
     CUtensorMap mq, mdo, mk, mv;
     if (!tile_map<D>(&mq, p.q, p.tq, b * p.h) ||
         !tile_map<D>(&mdo, p.dout, p.tq, b * p.h) ||
@@ -895,10 +913,12 @@ cudaError_t launch_d(const Params& p, int dtype, int b, cudaStream_t s) {
                s, p, mq, mdo, mk, mv);
   }
   if (dtype == bigdl::kF32) {
+    constexpr int rows = dq_f32_rows<D>(), keys = dkv_f32_keys<D>();
     if (kDq)
-      return run(dq_f32<D, kBias>, grid_q, kThreads, dq_f32_smem<D>(), s, p);
-    return run(dkv_f32<D, kBias>, grid_k, kF32DkvThreads, dkv_f32_smem<D>(),
-               s, p);
+      return run(dq_f32<D, kBias>, dim3((p.tq + rows - 1) / rows, b * p.h),
+                 kThreads, dq_f32_smem<D>(), s, p);
+    return run(dkv_f32<D, kBias>, dim3((p.tk + keys - 1) / keys, b * p.hk),
+               kF32DkvThreads, dkv_f32_smem<D>(), s, p);
   }
   return cudaErrorInvalidValue;
 }
@@ -920,6 +940,7 @@ int launch(const Params& p, int dtype, int b, int d, void* stream) {
     BIGDL_CASE(32)
     BIGDL_CASE(64)
     BIGDL_CASE(128)
+    BIGDL_CASE(256)
 #undef BIGDL_CASE
     default: break;
   }

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by the flash backward kernels and the bf16
-// quantized matmuls: TMA tile copies into shared memory that complete on an
-// mbarrier, 4-byte cp.async copies for row vectors, the 128/64/32-byte
-// swizzled tile layout that TMA writes and wgmma reads, its shared-memory
-// matrix descriptors, and the bf16 wgmma products (f32 accumulators): both
-// operands from shared memory at N 8-256, or A from registers.
+// Hopper building blocks shared by the attention forward and flash backward
+// kernels and the bf16 quantized matmuls: TMA tile copies into shared
+// memory that complete on an mbarrier, 4-byte cp.async copies for row
+// vectors, the 128/64/32-byte swizzled tile layout that TMA writes and
+// wgmma reads, its shared-memory matrix descriptors, and the bf16 wgmma
+// products (f32 accumulators): both operands from shared memory at N
+// 8-256, or A from registers at N 16-256.
 // Compiled for sm_90a only (wgmma does not exist on plain sm_90).
 //
 // Layouts.  A warpgroup is 4 consecutive warps (128 threads); warp w of it
@@ -29,6 +30,8 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+
+#include "common.cuh"
 
 namespace bigdl {
 namespace wg {
@@ -136,6 +139,28 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// accumulator register i of this thread in its warpgroup's m64 product: its
+// row of the 64 and its column (see the header)
+__device__ __forceinline__ int frag_row(int i) {
+  return ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2) +
+         8 * ((i >> 1) & 1);
+}
+
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// a 64 x 64 accumulator rounded to bf16 as the register A operand of a
+// product over its 64 columns, 16 at a time (a[c] for columns 16c..)
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[c][j] = pack_bf16x2(x[8 * c + 2 * j], x[8 * c + 2 * j + 1]);
 }
 
 // The tile layout of D columns (see the header).
@@ -255,20 +280,33 @@ BIGDL_SS(128,
          "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
          "%62, %63",
          BIGDL_ACC64, "%64", "%65", "%66")
-BIGDL_SS(256,
-         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-         "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-         "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-         "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-         "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127",
-         BIGDL_ACC128, "%128", "%129", "%130")
+#define BIGDL_REGS128                                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "     \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "     \
+  "%122, %123, %124, %125, %126, %127"
+BIGDL_SS(256, BIGDL_REGS128, BIGDL_ACC128, "%128", "%129", "%130")
 #undef BIGDL_SS
+
+// d += A B over k16: A (64 x 16) in registers, B (16 x 256) from shared
+// memory, MN-major
+__device__ __forceinline__ void mma_rs(float (&d)[128],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{" BIGDL_REGS128 "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : BIGDL_ACC128("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef BIGDL_REGS128
 #undef BIGDL_ACC128
 #undef BIGDL_ACC64
 #undef BIGDL_ACC32

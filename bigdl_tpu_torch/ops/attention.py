@@ -56,8 +56,9 @@ VJP (``_streaming_attention``) on either device: its forward writes the
 logsumexp only when autograd will need it, and its backward runs K10 and
 K11, or ``flash_bwd_plain`` on CPU tensors.  K12 has no backward, as the
 reference's has none.  K8-K11 are built for head dims ``HEAD_DIMS``;
-another head dim up to 128 is zero-padded to the next of them, which is
-exact for every product once the outputs are sliced back.  Each wrapper
+another head dim up to 256 is zero-padded to the next of them, which is
+exact for every product once the outputs are sliced back; a larger one
+raises ``ValueError`` before any launch.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
 The plain versions of K8 and K9 compute in float32 whatever the input
@@ -87,8 +88,8 @@ _EVAL_MAX_T = 8192
 
 # key block of K9's plain version: the kernels' K/V tile
 BLOCK_K = 64
-# head dims K8 and K9 are built for; a smaller one is zero-padded up
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims K8-K11 are built for; a smaller one is zero-padded up
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def expand_kv_heads(q, k, v):
@@ -311,13 +312,14 @@ def _kernel_operand(t):
 
 
 def _kernel_head_dim(name: str, d: int) -> int:
-    """The head dim K8/K9 run ``d`` at: the smallest of ``HEAD_DIMS`` that
-    holds it (their tiles live in static shared memory, 48 KB a block)."""
+    """The head dim K8-K11 run ``d`` at: the smallest of ``HEAD_DIMS`` that
+    holds it (a block's tiles of 64 rows must fit its 227 KB of shared
+    memory)."""
     for kd in HEAD_DIMS:
         if d <= kd:
             return kd
     raise ValueError(f"{name} kernel takes head dims up to {HEAD_DIMS[-1]} "
-                     f"(its K/V tiles in static shared memory), got {d}")
+                     f"(its tiles in a block's shared memory), got {d}")
 
 
 def _pad_head(d: int, kd: int, *tensors):
@@ -455,6 +457,8 @@ def _check_bwd(what, q, k, v, o, lse, do, bias, delta=None):
     rows = (o, lse, do) if delta is None else (o, lse, do, delta)
     if any(x.device != q.device for x in rows):
         raise ValueError(f"{what}: operands on different devices")
+    if q.device.type == "cuda":   # before the delta pass launches
+        _kernel_head_dim(what, q.shape[-1])
 
 
 def flash_bwd_delta(o, do):

@@ -58,10 +58,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
 2d. the attention-forward kernels (K8, K9) against their plain versions
    at the LM paths' shapes ((8, 8, 2048, 64) causal for K8 and for K9 with
    the padded batch's bias, (1, 8, 8192, 64) causal for K9) and at ragged
-   ones (GQA 8/2 and 8/1, non-causal, Tq != Tk, head dims 16/32/128 and
-   48/80/96 (zero-padded to the kernels' sizes), T 8 and 24, a row with
-   every key padded), in float32 (within 1e-5 of each output's sum of
-   |p·v|) and bfloat16 (within 2 bfloat16 steps of it);
+   ones (GQA 8/2 and 8/1, non-causal, Tq != Tk, head dims 16/32/128/256
+   and 48/80/96/160 (zero-padded to the kernels' sizes), T 8, 24 and 200,
+   a row with every key padded, at head dim 256 too), in float32 (within
+   1e-5 of each output's sum of |p·v|) and bfloat16 (within 2 bfloat16
+   steps of it);
 2e. the paged-attention kernel K12 against ``paged_attention_plain`` with
    a NaN-poisoned trash page, at the continuous path's decode shape (8
    slots, 8 heads, S 1, d 64, page size 16, Lp 128, at the traffic's
@@ -77,12 +78,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    f32, ``train_main``'s) and at ragged ones (T 520 and 1000, T 63, 64, 65
    and 129 at the kernels' 64-row tiles, GQA 8/2, 8/1 and 8/1 at T 8191,
    Tq != Tk, a padded bias with a row whose every key is padded, head dims
-   16/32/128 (causal too, the wgmma widths N 16 and 128) and 48/80/96) in
+   16/32/128/256 (causal too, the wgmma widths N 16 and 128) and
+   48/80/96/160) in
    float32 and bfloat16: o as in 2d, lse within 1e-5 of max(1, |lse|),
    delta within 1e-5 of each row's sum |dO·O|, each gradient within 1e-4
    (f32) or two bfloat16 steps (bf16) of its largest magnitude, zero
    gradients where every key is padded; K10 and K11 each bit-equal over two
-   launches; and two autograd round trips through ``fused_attention`` (T
+   launches (head dims 64 and 256); and two autograd round trips through ``fused_attention`` (T
    2112 past the K/V budget, and a key-padding mask) against autograd of
    the chunked plain form, with one K9, one delta pass, one K10 and one K11
    launch each;
@@ -107,7 +109,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    against a CPU run of the same weights (log-probs), and the bf16 logits
    of 2 rows against a CPU bf16 run in bf16 steps, with argmax equal
    wherever the top-2 margin exceeds that limit, on most of the 4096
-   positions;
+   positions; the same LM at head dim 256 (embed 512 over 2 heads, T 2048)
+   scored at batch 4 with exactly 8 K9 and no other kernel, one row's
+   logits against a CPU bf16 run within 3 bf16 steps, then one bf16 SGD
+   step (lr 0.1) on one row, on the card with exactly 8 K9 (with its LSE),
+   8 delta passes, 8 K10 and 8 K11, and on the CPU: losses and the stepped
+   models' logits within 3 bf16 steps;
 3f. generation at ``measure_lm_decode``'s configuration (batch 8, prompt
    128, 128 new tokens, bf16 cache), greedy and sampled (top_k 50, top_p
    0.9): no K8/K9 launch (the decode path is plain, as in the reference),
@@ -167,7 +174,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``torch._int_mm`` + scale) by both clocks, the
    fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
    bf16 forward per bucket with a profiler breakdown of its device time;
-   K8 and K9 per call at the LM paths' shapes beside their bound, plain
+   K8 and K9 per call at the LM paths' shapes, at train_main's f32 shape
+   (8, 8, 4096, 64) and at the LM widths over head dims 128 and 256 in bf16
+   (CUDA events and torch.profiler's device time) beside their bound, plain
    version and ``F.scaled_dot_product_attention``, K8 against K9 at T 512
    to 16384, LM scoring tokens/s at both configurations, generation new
    tokens/s and a profiler breakdown of one scoring forward; K12 per call
@@ -321,6 +330,23 @@ ATTN_RAGGED = [
     ("a row with every key padded", 2, 8, 2, 96, 96, 64, True, [0, 50]),
     ("padded, non-causal, d 128", 3, 4, 4, 130, 130, 128, False,
      [130, 64, 1]),
+    # head dims 129-256 (zero-padded to 256) and 256, and a T that is not
+    # a multiple of the bf16 block's 128 query rows
+    ("d 160 (padded to 256)", 2, 4, 2, 100, 100, 160, True, None),
+    ("d 256, causal, GQA 8/2", 2, 8, 2, 200, 200, 256, True, None),
+    ("d 256, padded keys, a row with every key padded", 3, 4, 4, 130, 130,
+     256, True, [130, 0, 77]),
+    ("d 256, Tq != Tk", 1, 4, 4, 70, 33, 256, True, None),
+    ("T 200", 2, 8, 8, 200, 200, 64, True, None),
+]
+# phase 4 beside ATTN_PATH: (name, b, h, hk, t, tk, d, causal, lengths,
+# dtype) of K8 and K9 (both timed at each): train_main's f32 shape, and the
+# bf16 LM widths at head dims 128 and 256 (embed 512 over 4 and 2 heads)
+ATTN_TIMED = [
+    ("train_main's shape, f32", 8, LM_HEADS, LM_HEADS, 4096, 4096, 64, True,
+     None, "float32"),
+    ("d 128", LM_BATCH, 4, 4, LM_T, LM_T, 128, True, None, "bfloat16"),
+    ("d 256", LM_BATCH, 2, 2, LM_T, LM_T, 256, True, None, "bfloat16"),
 ]
 # card vs CPU on the LM: f32 log-probs of one row; bf16 logits (of the
 # unpadded rows, of the padded rows at every position, and of the padded
@@ -328,6 +354,12 @@ ATTN_RAGGED = [
 # bf16 steps of their largest magnitude
 LM_F32_ATOL = 3e-5
 LM_LOGIT_STEPS = 3
+# phase 3e at head dim 256: the LM of 3e at embed 512 over 2 heads, T 2048
+# (K9: its keys pass the 512 KB K/V budget), scored on the card at
+# LM_D256_BATCH and held against the CPU on LM_D256_CPU_ROWS; then one bf16
+# SGD step (LM_D256_LR) on one row on the card and on the CPU: the losses
+# and the stepped model's logits within LM_LOGIT_STEPS bf16 steps
+LM_D256_HEADS, LM_D256_BATCH, LM_D256_CPU_ROWS, LM_D256_LR = 2, 4, 1, 0.1
 # argmax is compared where the top-2 margin exceeds that limit, and those
 # positions must be more than this share: most of the unpadded rows'
 # positions; a quarter of the padded rows', whose margins run narrower
@@ -399,6 +431,12 @@ FLASH_RAGGED = [
     ("MQA 8/1, T 8191", 1, 8, 1, 8191, 8191, 64, True, None),
     ("d 16, T 300", 1, 4, 4, 300, 300, 16, True, None),
     ("d 128, T 300, GQA 4/2", 1, 4, 2, 300, 300, 128, True, None),
+    # head dims 129-256: the bf16 ring of two stages, K11's column halves,
+    # the f32 tiles of 32 rows (K10) and 32 keys (K11)
+    ("d 160 (padded to 256), GQA 8/2", 1, 8, 2, 200, 200, 160, True, None),
+    ("d 256, T 300", 1, 4, 4, 300, 300, 256, True, None),
+    ("d 256, padded, non-causal, a row with every key padded", 2, 4, 2, 130,
+     130, 256, False, [130, 0]),
 ]
 FLASH_LSE_RTOL = 1e-5
 # the delta pass within FLASH_DELTA_RTOL of each row's sum |dO·O| (f32 sums
@@ -1105,8 +1143,11 @@ def check_flash_kernels(device):
                      f"relative {rel:.3g} beyond tolerance")
         del q, k, v, o, lse, do, dq, dk, dv, want, mag, delta
     # K10 and K11 run no atomics: two launches on the same inputs are
-    # bit-equal
-    for case in (FLASH_PATH[0], FLASH_RAGGED[5] + ("bfloat16",)):
+    # bit-equal, at head dim 256 too (two ring stages, K11's column halves;
+    # the f32 32-row and 32-key tiles)
+    for case in (FLASH_PATH[0], FLASH_RAGGED[5] + ("bfloat16",),
+                 FLASH_RAGGED[18] + ("bfloat16",),
+                 FLASH_RAGGED[19] + ("float32",)):
         q, k, v, bias, o, lse, do = flash_grads(
             case, getattr(torch, case[9]), device, SEED + 300)
         args = (q, k, v, o, lse, do, case[7], None, bias)
@@ -1716,6 +1757,85 @@ def lm_scoring(device):
     by_path = {"lm_score": score_launches, "lm_padded": pad_launches,
                "lm_long": long_launches}
     return report, by_path, model, long_model
+
+
+def lm_head_dim_256(device):
+    """Phase 3e at head dim 256: the LM of 3e at embed 512 over
+    LM_D256_HEADS heads (bf16, seeded), scored at LM_D256_BATCH x LM_T on
+    the card with exactly 8 K9 and no other kernel, its logits held against
+    a CPU bf16 run on LM_D256_CPU_ROWS rows; then one bf16 SGD step on one
+    row on the card (8 K9 with LSE, 8 delta passes, 8 K10, 8 K11) and on the
+    CPU: the losses and the stepped models' logits within LM_LOGIT_STEPS
+    bf16 steps.  Returns the report and the launches by path."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    base = TransformerLM(LM_VOCAB, max_len=LM_T, embed_dim=LM_EMBED,
+                         num_heads=LM_D256_HEADS,
+                         num_layers=LM_LAYERS).reset(SEED + 1).evaluate()
+    card = copy.deepcopy(base).to(device, torch.bfloat16)
+    cpu = copy.deepcopy(base).to("cpu", torch.bfloat16)
+    del base
+    seqs = lm_ids((LM_D256_BATCH, LM_T + 1), SEED + 54)
+    ids = torch.from_numpy(seqs[:, :-1])
+    with torch.inference_mode():
+        ops.reset_launches()             # the head-dim-256 scoring starts
+        lg = card.logits(ids.to(device))
+        score = launches_now()           # and ends here
+        expect_launches("head dim 256 LM scoring", score,
+                        {"attention_stream_fwd": LM_LAYERS})
+        if lg.shape != (LM_D256_BATCH, LM_T, LM_VOCAB) or \
+                not torch.isfinite(lg).all():
+            fail(f"head dim 256 LM logits {tuple(lg.shape)} not finite")
+        rows = slice(0, LM_D256_CPU_ROWS)
+        scored, _ = held_logits("head dim 256 bf16 LM logits, card vs CPU",
+                                lg[rows].float().cpu(),
+                                cpu.logits(ids[rows]).float())
+    del lg
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    x, y = ids[:1], torch.from_numpy(seqs[:1, 1:].astype(np.float32))
+    losses, step = [], None
+    for model, dev in ((card, device), (cpu, torch.device("cpu"))):
+        model.training_()
+        params = list(model.param_leaves())
+        ops.reset_launches()             # the training step starts here
+        loss = crit(model(x.to(dev)), y.to(dev))
+        grads = torch.autograd.grad(loss, params)
+        if dev.type == "cuda":
+            step = launches_now()        # and ends here
+        with torch.no_grad():
+            for w, g in zip(params, grads):
+                w.sub_(LM_D256_LR * g)
+        model.evaluate()
+        losses.append(loss.item())
+        del loss, grads, params
+    expect_launches("head dim 256 LM training step", step,
+                    {n: LM_LAYERS for n in (
+                        "attention_stream_fwd", "flash_bwd_delta",
+                        "attention_stream_bwd_dq",
+                        "attention_stream_bwd_dkv")})
+    loss_limit = LM_LOGIT_STEPS * bf16_step(abs(losses[1]))
+    if not abs(losses[0] - losses[1]) <= loss_limit:
+        fail(f"head dim 256 LM step, card vs CPU: loss {losses[0]} vs "
+             f"{losses[1]} (limit {loss_limit})")
+    with torch.inference_mode():
+        stepped, _ = held_logits(
+            "head dim 256 LM after one SGD step, card vs CPU",
+            card.logits(x.to(device)).float().cpu(),
+            cpu.logits(x).float())
+    del card, cpu
+    log(f"LM at head dim 256 (bf16, embed {LM_EMBED} over {LM_D256_HEADS} "
+        f"heads, {LM_LAYERS} layers, {LM_D256_BATCH} x T {LM_T}): scoring "
+        f"launches {score}, {LM_D256_CPU_ROWS} row vs CPU max |dlogit| "
+        f"{scored['max_abs_dlogit']:.4g} (limit {scored['limit']:.4g}); one "
+        f"SGD step ({LM_D256_LR}) launches {step}, loss {losses[0]:.5f} vs "
+        f"CPU {losses[1]:.5f} (limit {loss_limit:.4g}), stepped logits max "
+        f"|dlogit| {stepped['max_abs_dlogit']:.4g} (limit "
+        f"{stepped['limit']:.4g})")
+    return ({"bf16_vs_cpu": scored, "step_loss_card": losses[0],
+             "step_loss_cpu": losses[1], "stepped_vs_cpu": stepped},
+            {"lm_d256": score, "lm_d256_step": step})
 
 
 def lm_generation(device):
@@ -2734,26 +2854,31 @@ def time_quant_kernels(device, prods):
     return out, rows
 
 
+def fmt_ms(v):
+    """A time in ms for the log, or "not measured" (None)."""
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 def log_quant_times(card, qtimes, qrows):
     """Phase 4's K13-K15 lines: per wrapper its batch-32 sums, per stage
     and bucket the bf16 K13 int8 sums, and every product in one line."""
-    def ms(v):
-        return "n/a" if v is None else f"{v:.4f}"
     for name, t in qtimes.items():
         log(f"[{card}] {name} ({t['dtype']}, {t['calls']} calls of a batch-"
             f"{BATCH} quantized forward): events {t['ms']:.4f} ms, device "
-            f"{ms(t['device_ms'])} ms, wrapper host {t['host_ms']:.4f} ms, "
+            f"{fmt_ms(t['device_ms'])}, wrapper host {t['host_ms']:.4f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; bytes "
             f"{t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), plain "
-            f"{ms(t['plain_ms'])} ms, library events {ms(t['library_ms'])} "
-            f"ms, device {ms(t['library_device_ms'])} ms")
+            f"{fmt_ms(t['plain_ms'])}, library events "
+            f"{fmt_ms(t['library_ms'])}, device "
+            f"{fmt_ms(t['library_device_ms'])}")
         for b, stages in t["stages"].items():
             if name == "w8_matmul":
-                log(f"[{card}] {name} bucket {b} by stage (device / events "
-                    "ms, kernel | library; bound): " + "; ".join(
-                        f"{s} x{v['calls']} {ms(v['device_ms'])} / "
-                        f"{v['ms']:.4f} | {ms(v['library_device_ms'])} / "
-                        f"{ms(v['library_ms'])}; {v['bound_ms']:.4f}"
+                log(f"[{card}] {name} bucket {b} by stage (device / events, "
+                    "kernel | library; bound ms): " + "; ".join(
+                        f"{s} x{v['calls']} {fmt_ms(v['device_ms'])} / "
+                        f"{fmt_ms(v['ms'])} | "
+                        f"{fmt_ms(v['library_device_ms'])} / "
+                        f"{fmt_ms(v['library_ms'])}; {v['bound_ms']:.4f}"
                         for s, v in stages.items()))
     log("quantized products: " + json.dumps(qrows))
 
@@ -2830,38 +2955,45 @@ def sdpa_call(q, k, v, causal, bias):
 
 
 def time_attention(device):
-    """K8 and K9 per call at the LM paths' shapes in bf16 (ATTN_PATH):
-    median kernel time with the L2 flushed, its bound, the plain version
-    and SDPA; then K8 against K9 at rising T (bf16, causal, d 64), where
-    the reference's rule switches from K8 to K9 past T 2048."""
+    """K8 and K9 per call at the LM paths' shapes in bf16 (ATTN_PATH) and
+    at ATTN_TIMED (both kernels at each): median kernel time with the L2
+    flushed by CUDA events and by torch.profiler's device time, its bound
+    (the bf16 tensor cores' or the f32 FFMA rate), the plain version and
+    SDPA by both clocks; then K8 against K9 at rising T (bf16, causal, d
+    64), where the reference's rule switches from K8 to K9 past T 2048."""
     import torch
     from bigdl_tpu_torch.ops import attention as attn
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     bf16 = torch.bfloat16
+    runs = [(c[0], c[:9], "bfloat16",
+             "attention_fwd" if c[0].endswith("K8") else
+             "attention_stream_fwd") for c in ATTN_PATH]
+    runs += [(f"{c[0]}, {k}", c[:9], c[9], k) for c in ATTN_TIMED
+             for k in ("attention_fwd", "attention_stream_fwd")]
     out = {}
-    for case in ATTN_PATH:
-        causal = case[7]
-        q, k, v, bias = attention_operands(case, bf16, device, gen)
-        if case[0].endswith("K8"):
-            name = "attention_fwd"
+    for key, case, dt, name in runs:
+        causal, dtype = case[7], getattr(torch, dt)
+        q, k, v, bias = attention_operands(case, dtype, device, gen)
+        if name == "attention_fwd":
             kern = lambda: attn.attention_fwd(q, k, v, causal)
             plain = lambda: attn.attention_reference(q, k, v, causal)
         else:
-            name = "attention_stream_fwd"
             kern = lambda: attn.attention_stream_fwd(q, k, v, causal, None,
                                                      bias)
             plain = lambda: attn.attention_stream_plain(q, k, v, causal,
                                                         None, bias)
-        nbytes, flops = attention_work(case, bf16)
+        lib = sdpa_call(q, k, v, causal, bias)
+        nbytes, flops = attention_work(case, dtype)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * flops / BF16_FLOPS
-        out[case[0]] = {
-            "kernel": name, "shape": list(case[1:7]), "dtype": "bfloat16",
+        ops_ms = 1e3 * flops / (BF16_FLOPS if dtype == bf16 else F32_FLOPS)
+        out[key] = {
+            "kernel": name, "shape": list(case[1:7]), "dtype": dt,
             "ms": median_ms(kern, device, flush=flush),
+            "device_ms": device_ms(kern, flush),
             "plain_ms": median_ms(plain, device, reps=5, flush=flush),
-            "library_ms": median_ms(sdpa_call(q, k, v, causal, bias), device,
-                                    flush=flush),
+            "library_ms": median_ms(lib, device, flush=flush),
+            "library_device_ms": device_ms(lib, flush),
             "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -3316,6 +3448,8 @@ def main() -> int:
             f"{r['budget']['max_resident_ratio_vs_bf16']}), bytes "
             f"{r['bytes_by_dtype']}")
     lm_report, lm_launches, score_model, long_model = lm_scoring(device)
+    lm_report["head_dim_256"], more = lm_head_dim_256(device)
+    lm_launches.update(more)
     gen_report, gen_launches, gen_model, prompt = lm_generation(device)
     lm_launches.update(gen_launches)
     cg_report, cg_launches, cg_run = continuous_serving(device)
@@ -3414,11 +3548,12 @@ def main() -> int:
     log("training: " + json.dumps(train_report))
     attn_times, sweep = time_attention(device)
     for name, t in attn_times.items():
-        log(f"[{card}] {t['kernel']} at {name} {t['shape']} (bf16, per "
-            f"call): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}; bytes {t['bytes_ms']:.4f}, operations "
-            f"{t['ops_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA "
-            f"{t['library_ms']:.4f} ms")
+        log(f"[{card}] {t['kernel']} at {name} {t['shape']} ({t['dtype']}, "
+            f"per call): {t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; bytes "
+            f"{t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), plain "
+            f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms, device "
+            f"{fmt_ms(t['library_device_ms'])}")
     for r in sweep:
         log(f"[{card}] K8 vs K9 (bf16, causal, batch {r['batch']}, 8 heads, "
             f"T {r['T']}, d 64): K8 {r['k8_ms']:.4f} ms, K9 "
@@ -3530,8 +3665,13 @@ def main() -> int:
             # per call at the LM path's shape, bf16 (K9: the padded LM)
             key = ATTN_PATH[0][0] if wrapper == "attention_fwd" else \
                 ATTN_PATH[1][0]
-            entry.update({k2: attn_times[key][k2] for k2 in TIME_KEYS})
+            entry.update({k2: attn_times[key][k2] for k2 in TIME_KEYS +
+                          ("device_ms", "library_device_ms")})
             entry["shape"] = attn_times[key]["shape"]
+            entry["other_shapes"] = {
+                n: t for n, t in attn_times.items()
+                if t["kernel"] == wrapper and n not in
+                (ATTN_PATH[0][0], ATTN_PATH[1][0], ATTN_PATH[2][0])}
             if wrapper == "attention_stream_fwd":
                 entry["long_context"] = attn_times[ATTN_PATH[2][0]]
                 entry["with_lse"] = {

@@ -52,6 +52,9 @@ CASES = [
     (2, 2, 2, 32, 32, 8, True),
     (1, 4, 4, 8, 24, 16, True),
     (2, 2, 1, 64, 64, 64, True),
+    # head dims the kernels pad to 256 (160) or take as they are (256)
+    (2, 2, 1, 16, 16, 160, True),
+    (2, 2, 2, 24, 16, 256, False),
 ]
 IDS = [f"b{c[0]}h{c[1]}kv{c[2]}t{c[3]}tk{c[4]}d{c[5]}" +
        ("causal" if c[6] else "") for c in CASES]
@@ -323,10 +326,10 @@ def test_k8_backward_is_autograd_of_the_chunked_form(interpret, case):
 
 def test_head_dims_are_padded_to_the_kernels_sizes():
     pick = tattn._kernel_head_dim
-    assert [pick("k", d) for d in (8, 16, 48, 64, 80, 96, 128)] == \
-        [16, 16, 64, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match="up to 128"):
-        pick("k", 160)
+    assert [pick("k", d) for d in (8, 16, 48, 64, 80, 96, 128, 160, 256)] == \
+        [16, 16, 64, 64, 128, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="up to 256"):
+        pick("k", 257)
 
 
 LM_CONFIGS = {"learned": dict(position="learned"),

@@ -19,7 +19,10 @@ The attention kernels K8, K9 and K12 agree with their plain versions to
 1e-5 of each output's sum of |p·v| (the softmax weights times |v|) in
 float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
 outputs' own roundings can land one step apart, and K8/K9 round p to
-bfloat16 for the tensor cores (2^-9 of the sum at most).  K9's row
+bfloat16 for the tensor cores (2^-9 of the sum at most); the bf16 K8 and
+K9 are bit-equal across two launches.  K8-K11 hold these tolerances at
+head dims 160 (zero-padded) and 256, and raise above 256 before any
+launch.  K9's row
 logsumexp agrees to 1e-5 of max(1, |lse|); the delta pass agrees with
 ``flash_bwd_delta_plain`` to 1e-5 of each row's sum |dO·O|; K10 and K11
 agree with ``flash_bwd_plain`` to 1e-4 of each gradient's largest magnitude
@@ -322,17 +325,72 @@ def test_attention_kernels_match_plain(cuda_device, case, dtype):
         assert not got[lengths.index(0)].float().abs().any()
 
 
-def test_attention_kernels_reject_other_head_dims(cuda_device):
-    # head dims up to 128 are zero-padded to the kernels' sizes; beyond,
-    # the K/V tiles do not fit static shared memory
-    q = torch.randn((1, 2, 16, 160), device=cuda_device)
-    before = (attn.attention_fwd.launches, attn.attention_stream_fwd.launches)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        attn.attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        attn.attention_stream_fwd(q, q, q)
-    assert (attn.attention_fwd.launches,
-            attn.attention_stream_fwd.launches) == before
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_reject_other_head_dims(cuda_device, dtype, d):
+    # head dims up to 256 run: 160 zero-padded to 256, and 256 itself
+    # (K8, K9 with its LSE, K10 and K11 at test_flash_kernels_match_plain's
+    # tolerances); above 256 every wrapper raises before any launch
+    dt = getattr(torch, dtype)
+    case = (2, 4, 2, 130, 130, d, True, [130, 77])
+    q, k, v, do, bias = _flash_inputs(case, dt, cuda_device)
+    got = attn.attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    mag = attn.attention_reference(q.float(), k.float(), v.float().abs(),
+                                   True)
+    assert got.shape == q.shape
+    assert _attn_close(got, attn.attention_reference(q, k, v, True), mag, dt)
+    o, lse = attn.attention_stream_plain(q, k, v, True, None, bias,
+                                         with_lse=True)
+    got_o, got_lse = attn._launch(attn.attention_stream_fwd,
+                                  "bigdl_attention_stream_fwd", q, k, v, bias,
+                                  True, d ** -0.5, with_lse=True)
+    dq = attn.attention_stream_bwd_dq(q, k, v, o, lse, do, True, None, bias)
+    dk, dv = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, True, None,
+                                           bias)
+    torch.cuda.synchronize()
+    mag = attn.attention_stream_plain(q.float(), k.float(), v.float().abs(),
+                                      True, None, bias)
+    assert got_o.shape == q.shape and _attn_close(got_o, o, mag, dt)
+    assert ((got_lse - lse).abs() <= 1e-5 * lse.abs().clamp_min(1.0)).all()
+    rtol = 1e-4 if dt == torch.float32 else 2 * 2.0 ** -7
+    for a, w in zip((dq, dk, dv),
+                    attn.flash_bwd_plain(q, k, v, o, lse, do, True, None,
+                                         bias)):
+        assert a.shape == w.shape and torch.isfinite(a).all()
+        assert (a.float() - w.float()).abs().max().item() <= \
+            rtol * w.float().abs().max().item()
+
+    x = torch.randn((1, 2, 16, 300), device=cuda_device).to(dt)
+    lse = torch.zeros((1, 2, 16), device=cuda_device)
+    wrappers = (attn.attention_fwd, attn.attention_stream_fwd,
+                attn.flash_bwd_delta, attn.attention_stream_bwd_dq,
+                attn.attention_stream_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    for run in (lambda: attn.attention_fwd(x, x, x),
+                lambda: attn.attention_stream_fwd(x, x, x),
+                lambda: attn.attention_stream_bwd_dq(x, x, x, x, lse, x),
+                lambda: attn.attention_stream_bwd_dkv(x, x, x, x, lse, x)):
+        with pytest.raises(ValueError, match="head dims up to 256"):
+            run()
+    assert [f.launches for f in wrappers] == before
+
+
+@pytest.mark.parametrize("case", [(2, 8, 2, 200, 200, 64, True, None),
+                                  (3, 4, 4, 130, 130, 128, True,
+                                   [130, 0, 77])],
+                         ids=["ragged-t200", "padded"])
+def test_bf16_k8_and_k9_are_bit_equal_across_launches(cuda_device, case):
+    # each row's sums run over its key tiles in a fixed order: no atomics,
+    # no split over blocks
+    q, k, v, _, bias = _flash_inputs(case, torch.bfloat16, cuda_device)
+    runs = [lambda: attn.attention_stream_fwd(q, k, v, True, None, bias)]
+    if bias is None:
+        runs.append(lambda: attn.attention_fwd(q, k, v, True))
+    for run in runs:
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 def test_k9_backward_runs_k10_and_k11(cuda_device):
@@ -508,6 +566,23 @@ def test_k11_is_bit_equal_across_launches(cuda_device, dtype):
     b = attn.attention_stream_bwd_dkv(q, k, v, o, lse, do, True, None, bias)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k10_and_k11_are_bit_equal_at_head_dim_256(cuda_device, dtype):
+    # the bf16 ring of two stages and K11's column halves, the f32 tiles of
+    # 32 rows (K10) and 32 keys (K11): still no atomics
+    dt = getattr(torch, dtype)
+    q, k, v, do, bias = _flash_inputs((2, 4, 2, 130, 130, 256, True,
+                                       [130, 0]), dt, cuda_device)
+    o, lse = attn.attention_stream_plain(q, k, v, True, None, bias,
+                                         with_lse=True)
+    args = (q, k, v, o, lse, do, True, None, bias)
+    for fn in (lambda: (attn.attention_stream_bwd_dq(*args),),
+               lambda: attn.attention_stream_bwd_dkv(*args)):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # -- K12 ------------------------------------------------------------------------

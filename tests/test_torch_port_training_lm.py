@@ -21,6 +21,7 @@ import logging
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -141,6 +142,75 @@ def test_lm_training_steps_match_jax_through_the_flash_backward(
         assert len(jleaves) == len(tleaves) > 0
         for a, b in zip(jleaves, tleaves):
             np.testing.assert_allclose(b, a, rtol=0, atol=1e-4)
+
+
+# head dim 256, the kernels' largest (embed 512 over 2 heads); the key-
+# padding mask routes both frameworks' attention to the streaming kernels
+D256 = dict(max_len=64, embed_dim=512, num_heads=2, num_layers=2)
+
+
+@pytest.mark.parametrize("what", ["eval", "step"])
+def test_head_dim_256_lm_matches_jax(monkeypatch, what):
+    """Eval log-probs (rtol/atol 1e-4) and one SGD step (the loss to rtol
+    1e-5, each gradient to 1e-4 of its largest magnitude plus 1e-7, the
+    stepped model's log-probs to 1e-4) of a head-dim-256 LM through the port's K9
+    autograd function (the plain versions here) against JAX's K9 and flash
+    backward in interpret mode."""
+    monkeypatch.setenv("BIGDL_TPU_PALLAS_INTERPRET", "1")
+    jm = JTransformerLM(VOCAB, **D256)
+    params, state = jm.init(jax.random.PRNGKey(0))
+    tm = TransformerLM(VOCAB, **D256)
+    load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    rs = np.random.RandomState(7)
+    ids = rs.randint(1, VOCAB + 1, (2, 65))
+    x, y = ids[:, :-1], ids[:, 1:]
+    kpm = np.ones((2, 64), bool)
+    kpm[1, 40:] = False
+    jx, jkpm = jnp.asarray(x), jnp.asarray(kpm)
+    tx, tkpm = torch.from_numpy(x), torch.from_numpy(kpm)
+    seen = []
+    real = tattn._K9.apply
+    monkeypatch.setattr(tattn._K9, "apply",
+                        lambda *a: seen.append(1) or real(*a))
+    if what == "eval":
+        want, _ = jm.apply(params, state, jx, key_padding_mask=jkpm)
+        with torch.inference_mode():
+            got = tm.evaluate()(tx, key_padding_mask=tkpm)
+        assert len(seen) == D256["num_layers"]
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+        return
+
+    def jloss(p):
+        logp, _ = jm.apply(p, state, jx, training=True,
+                           key_padding_mask=jkpm)
+        return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(y)[..., None],
+                                             -1))
+
+    want_loss, want_grads = jax.value_and_grad(jloss)(params)
+    tm.training_()
+    logp = tm(tx, key_padding_mask=tkpm)
+    loss = -logp.gather(-1, torch.from_numpy(y)[..., None]).mean()
+    loss.backward()
+    assert len(seen) == D256["num_layers"]
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    jleaves = jax.tree_util.tree_leaves(
+        jax.tree_util.tree_map(np.asarray, want_grads))
+    tleaves = list(tm.param_leaves())
+    assert len(jleaves) == len(tleaves) > 0
+    for w, p in zip(jleaves, tleaves):   # plus 1e-7: the key bias's
+        np.testing.assert_allclose(      # gradient is zero but for rounding
+            p.grad.numpy(), w, rtol=0, atol=1e-4 * np.abs(w).max() + 1e-7)
+    lr = 0.1
+    stepped = jax.tree_util.tree_map(lambda p, g: p - lr * g, params,
+                                     want_grads)
+    with torch.no_grad():
+        for p in tleaves:
+            p.sub_(lr * p.grad)
+        got = tm.evaluate()(tx, key_padding_mask=tkpm)
+    want, _ = jm.apply(stepped, state, jx, key_padding_mask=jkpm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["f32", "bf16-mixed"])
