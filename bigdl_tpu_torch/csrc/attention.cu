@@ -71,10 +71,15 @@ namespace {
 
 using bigdl::ex2;
 using bigdl::pack_bf16x2;
+using bigdl::rounded;
+using bigdl::warp_max;
+using bigdl::warp_sum;
 using bf16 = __nv_bfloat16;
 namespace wg = bigdl::wg;
+using wg::accumulate;
 using wg::frag_col;
 using wg::frag_row;
+using wg::scores;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -170,20 +175,6 @@ __device__ __forceinline__ bool keys_live(const float* bias, int k0,
   return __any_sync(0xffffffffu, live);
 }
 
-// s = the 64 rows of tile a times the 64 rows of tile b, transposed, over
-// D; the first k16 step only writes s
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
-                                       uint32_t b) {
-  using T = wg::Tile<D>;
-  wg::Ss<64>::mma<true>(s, T::template kmajor<kBQ>(a, 0),
-                        T::template kmajor<kBK>(b, 0));
-#pragma unroll
-  for (int ks = 1; ks < D / 16; ++ks)
-    wg::Ss<64>::mma<false>(s, T::template kmajor<kBQ>(a, ks),
-                           T::template kmajor<kBK>(b, ks));
-}
-
 // s (raw dots) into the masked, scaled scores: the whole mask on an edge
 // tile (it crosses the causal diagonal of these rows or the Tk tail), else
 // the bias alone
@@ -240,23 +231,6 @@ __device__ __forceinline__ void probs(float (&s)[32], float (&l)[2],
     s[i] = pj;
     l[ri] += pj;
   }
-}
-
-// acc += p v over the tile: p rounded to bf16 as the register A operand, V
-// read MN-major
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 2],
-                                           const float (&pr)[32],
-                                           uint32_t vs) {
-  uint32_t a[4][4];
-  wg::to_a(pr, a);
-  wg::mma_fence();
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    wg::mma_rs(acc, a[c], wg::Tile<D>::template mnmajor<kBK>(vs, c));
-  wg::mma_commit();
-  wg::mma_wait<0>();
-  wg::fence_regs(acc);
 }
 
 template <int D, bool kStream, bool kBias, bool kLse>
@@ -453,19 +427,6 @@ constexpr int f32_smem_floats(int d) {
   return kBQ * d + kBK * (d + 1) + kBK * d + 4 * 16 * kBK;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 template <int D, bool kStream, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kAttnThreads) attn_f32(Params p) {
   constexpr int kCols = (D + 31) / 32;  // output columns of a lane
@@ -605,6 +566,163 @@ __global__ void __launch_bounds__(kAttnThreads) attn_f32(Params p) {
   }
 }
 
+// ---- head dims above 256: FFMA over 64-column panels ----------------------
+
+// Above D 256 neither dtype's tiles of whole rows fit a block, so a block of
+// 4 warps (16 query rows each, as attn_f32) owns 64 query rows and the
+// kWideCols output columns [blockIdx.z * kWideCols, ...) of a (B*H row):
+// the scores of each 64-key tile are summed over D in panels of kPanel
+// columns, q's and K's panel staged through shared memory as f32 (so the
+// shared memory does not grow with D), and every column block recomputes
+// them; then the tile's V columns of the block are staged for p v.  T is
+// the operand type: bf16 operands are widened exactly as they are staged,
+// and p is rounded to bf16 for p v where the bf16 kernels round it (l sums
+// the f32 p); the output is rounded once to T.
+constexpr int kPanel = 64;     // columns of a staged q or K panel
+constexpr int kWideCols = 128; // output columns a block
+constexpr int kWideSmem =      // q panel, K panel (padded rows), V, p
+    (kBQ * kPanel + kBK * (kPanel + 1) + kBK * kWideCols + 4 * 16 * kBK) *
+    static_cast<int>(sizeof(float));
+
+template <typename T, bool kStream, bool kBias, bool kLse>
+__global__ void __launch_bounds__(kAttnThreads) attn_wide(Params p, int d) {
+  constexpr int kCols = kWideCols / 32;  // output columns of a lane
+  extern __shared__ float sm[];
+  float* qp = sm;                        // [kBQ][kPanel]
+  float* kp = qp + kBQ * kPanel;         // [kBK][kPanel + 1]
+  float* vp = kp + kBK * (kPanel + 1);   // [kBK][kWideCols]
+  __shared__ float bs[kBK];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* ps = vp + kBK * kWideCols + warp * 16 * kBK;  // this warp's p
+  const Rows r = block_rows(p, d);
+  const int c0 = blockIdx.z * kWideCols;  // the block's first output column
+  const T* q = static_cast<const T*>(p.q) + r.q_row;
+  const T* k = static_cast<const T*>(p.k) + r.kv_row;
+  const T* v = static_cast<const T*>(p.v) + r.kv_row;
+  const int row0 = r.q0 + warp * 16;
+
+  float m[16], l[16], acc[16][kCols];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    m[i] = kStream ? kNegInf : -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+  }
+
+  // s[j][i]: the masked, scaled score of row row0 + i and key k0 + lane +
+  // 32 j, summed over D one panel at a time
+  auto scores = [&](int k0, float (&s)[2][16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[0][i] = s[1][i] = 0.0f;
+    for (int c = 0; c < d; c += kPanel) {
+      __syncthreads();  // the previous panel's readers are done
+      for (int e = tid; e < kBQ * kPanel; e += kAttnThreads) {
+        const int rr = r.q0 + e / kPanel;
+        qp[e] = rr < p.tq ? bigdl::to_f32(
+            q[static_cast<long long>(rr) * d + c + e % kPanel]) : 0.0f;
+      }
+      for (int e = tid; e < kBK * kPanel; e += kAttnThreads) {
+        const int key = e / kPanel, cc = e % kPanel;
+        kp[key * (kPanel + 1) + cc] = k0 + key < p.tk ? bigdl::to_f32(
+            k[static_cast<long long>(k0 + key) * d + c + cc]) : 0.0f;
+      }
+      __syncthreads();
+      const float* k0p = kp + lane * (kPanel + 1);
+      const float* k1p = kp + (lane + 32) * (kPanel + 1);
+      const float* qw = qp + warp * 16 * kPanel;
+#pragma unroll 4
+      for (int cc = 0; cc < kPanel; ++cc) {
+        const float a = k0p[cc], b = k1p[cc];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float qv = qw[i * kPanel + cc];
+          s[0][i] = fmaf(qv, a, s[0][i]);
+          s[1][i] = fmaf(qv, b, s[1][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        s[j][i] = mask_score(s[j][i], p, row0 + i, k0 + lane + 32 * j,
+                             kBias ? bs : nullptr, lane + 32 * j);
+  };
+
+  float s[2][16];
+  if (!kStream) {  // K8 pass 1: the row max over every key
+    for (int k0 = 0; k0 < r.k_end; k0 += kBK) {
+      scores(k0, s);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) m[i] = fmaxf(m[i], fmaxf(s[0][i], s[1][i]));
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) m[i] = warp_max(m[i]);
+  }
+
+  for (int k0 = 0; k0 < r.k_end; k0 += kBK) {
+    if (kBias && !stage_bias(r, p, k0, bs)) continue;  // every key padded
+    scores(k0, s);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      if (kStream) {
+        const float m_new = fmaxf(m[i], warp_max(fmaxf(s[0][i], s[1][i])));
+        const float alpha = __expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float x = s[j][i];
+        const float pj = kStream ? (x > kNegInf / 2 ? __expf(x - m[i]) : 0.0f)
+                                 : __expf(x - m[i]);
+        l[i] += pj;
+        ps[i * kBK + lane + 32 * j] = rounded<T>(pj);
+      }
+    }
+    __syncthreads();  // the last panel's readers are done with the buffers
+    for (int e = tid; e < kBK * kWideCols; e += kAttnThreads) {
+      const int key = e / kWideCols, col = c0 + e % kWideCols;
+      vp[e] = k0 + key < p.tk && col < d ? bigdl::to_f32(
+          v[static_cast<long long>(k0 + key) * d + col]) : 0.0f;
+    }
+    __syncthreads();
+    for (int key = 0; key < kBK; ++key) {
+      float vv[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        vv[c] = vp[key * kWideCols + lane + 32 * c];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float pv = ps[i * kBK + key];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pv, vv[c], acc[i][c]);
+      }
+    }
+  }
+
+  T* o = static_cast<T*>(p.o) + r.q_row;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float li = warp_sum(l[i]);
+    if (kStream) li = fmaxf(li, 1e-20f);
+    if (row0 + i >= p.tq) continue;
+    if (kLse && lane == 0 && blockIdx.z == 0)
+      p.lse[static_cast<long long>(blockIdx.y) * p.tq + row0 + i] =
+          m[i] + logf(li);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < d)
+        o[static_cast<long long>(row0 + i) * d + col] =
+            bigdl::from_f32<T>(acc[i][c] / li);
+    }
+  }
+}
+
 // ---- launch -----------------------------------------------------------------
 
 // the TMA map of a (z, n, D) bf16 tensor whose boxes are the panels of a
@@ -650,6 +768,21 @@ cudaError_t launch_d(const Params& p, int dtype, int bh, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+// a head dim above 256 (a multiple of kPanel): the D-chunked kernel
+template <bool kStream, bool kBias, bool kLse>
+cudaError_t launch_wide(const Params& p, int dtype, int bh, int d,
+                        cudaStream_t s) {
+  const dim3 grid((p.tq + kBQ - 1) / kBQ, bh,
+                  (d + kWideCols - 1) / kWideCols);
+  if (dtype == bigdl::kBF16)
+    return run(attn_wide<bf16, kStream, kBias, kLse>, grid, kAttnThreads,
+               kWideSmem, s, p, d);
+  if (dtype == bigdl::kF32)
+    return run(attn_wide<float, kStream, kBias, kLse>, grid, kAttnThreads,
+               kWideSmem, s, p, d);
+  return cudaErrorInvalidValue;
+}
+
 template <bool kStream, bool kBias, bool kLse>
 int launch(const Params& p, int dtype, int bh, int d, void* stream) {
   if (p.tq == 0 || bh == 0) return static_cast<int>(cudaSuccess);
@@ -661,7 +794,10 @@ int launch(const Params& p, int dtype, int bh, int d, void* stream) {
     case 64: e = launch_d<kStream, kBias, kLse, 64>(p, dtype, bh, s); break;
     case 128: e = launch_d<kStream, kBias, kLse, 128>(p, dtype, bh, s); break;
     case 256: e = launch_d<kStream, kBias, kLse, 256>(p, dtype, bh, s); break;
-    default: break;
+    default:
+      if (d > 256 && d % kPanel == 0)
+        e = launch_wide<kStream, kBias, kLse>(p, dtype, bh, d, s);
+      break;
   }
   return static_cast<int>(e);
 }

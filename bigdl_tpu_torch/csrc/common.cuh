@@ -1,6 +1,6 @@
 // Shared helpers for the hand-written Hopper kernels: dtype codes that the
-// Python wrappers pass through ctypes, f32 <-> storage conversions, and
-// 2^x on the special-function unit.
+// Python wrappers pass through ctypes, f32 <-> storage conversions and
+// rounding, warp reductions, and 2^x on the special-function unit.
 #pragma once
 
 #include <cmath>
@@ -27,6 +27,25 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch casts
+}
+
+// x rounded to T and widened back (the identity for float)
+template <typename T>
+__device__ __forceinline__ float rounded(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // Two floats rounded to bf16 in one 32-bit register (lo in the lower half).

@@ -78,6 +78,7 @@ namespace {
 
 using bigdl::ex2;
 using bigdl::pack_bf16x2;
+using bigdl::rounded;
 using bf16 = __nv_bfloat16;
 namespace wg = bigdl::wg;
 using wg::frag_col;
@@ -828,6 +829,303 @@ __global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
   }
 }
 
+// ---- head dims above 256: FFMA over 64-column panels ----------------------
+
+// Above D 256 neither dtype's tiles of whole rows fit a block.  As the
+// forward's attn_wide: the products over D (s = q k^T and dp = dO v^T) are
+// summed in panels of kPanel columns staged through shared memory as f32,
+// and the outputs (dq; dk and dv) are split into column blocks of
+// kWideCols over the grid's third axis, each block recomputing s and dp.
+// T is the operand type: bf16 operands are widened as they are staged, ds
+// is rounded to q's dtype and p to dO's where the reference rounds them,
+// and the outputs are rounded once to T.
+constexpr int kPanel = 64;      // columns of a staged panel
+constexpr int kWideCols = 128;  // output columns a block
+constexpr int kWideRows = 32;   // K10: query rows a block (8 a warp)
+
+// a panel of n rows of x (row stride d) from row r0 and column c into dst
+// (row stride ld) as f32, zeros for rows at or past `end`
+template <typename T>
+__device__ __forceinline__ void stage_panel(float* dst, int ld, const T* x,
+                                            int d, int r0, int end, int c,
+                                            int n, int cols) {
+  for (int e = threadIdx.x; e < n * cols; e += blockDim.x) {
+    const int r = e / cols, cc = e % cols;
+    dst[r * ld + cc] = r0 + r < end && c + cc < d
+        ? bigdl::to_f32(x[static_cast<long long>(r0 + r) * d + c + cc])
+        : 0.0f;
+  }
+}
+
+constexpr int dq_wide_smem() {  // q, dO; K, V (padded rows); K's columns;
+                                // ds; bias
+  return (2 * kWideRows * kPanel + 2 * kTile * (kPanel + 1) +
+          kTile * kWideCols + kWideRows * kTile + kTile) * 4;
+}
+
+template <typename T, bool kBias>
+__global__ void __launch_bounds__(kThreads) dq_wide(Params p, int d) {
+  constexpr int kWR = kWideRows / 4, kCols = kWideCols / 32;
+  extern __shared__ float sm[];
+  float* qs = sm;                          // [kWideRows][kPanel]
+  float* dos = qs + kWideRows * kPanel;    // [kWideRows][kPanel]
+  float* ks = dos + kWideRows * kPanel;    // [64][kPanel + 1]
+  float* vs = ks + kTile * (kPanel + 1);   // [64][kPanel + 1]
+  float* kc = vs + kTile * (kPanel + 1);   // [64][kWideCols]
+  float* bs = kc + kTile * kWideCols + kWideRows * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ps = kc + kTile * kWideCols + warp * kWR * kTile;  // this warp's ds
+  const int bh = blockIdx.y, b = bh / p.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWideRows;
+  const int c0 = blockIdx.z * kWideCols;
+  const long long q_row = static_cast<long long>(bh) * p.tq * d;
+  const long long kv_row = (static_cast<long long>(b) * p.hk +
+                            (bh % p.h) / (p.h / p.hk)) * p.tk * d;
+  const T* q = static_cast<const T*>(p.q) + q_row;
+  const T* dout = static_cast<const T*>(p.dout) + q_row;
+  const T* k = static_cast<const T*>(p.k) + kv_row;
+  const T* v = static_cast<const T*>(p.v) + kv_row;
+  const int row0 = q0 + warp * kWR;
+
+  float lse[kWR], delta[kWR], acc[kWR][kCols];
+#pragma unroll
+  for (int i = 0; i < kWR; ++i) {
+    const int rr = row0 + i;
+    const long long at = static_cast<long long>(bh) * p.tq + rr;
+    delta[i] = rr < p.tq ? p.delta[at] : 0.0f;
+    lse[i] = rr < p.tq ? p.lse[at] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+  }
+
+  const int k_end = p.causal ? min(p.tk, q0 + kWideRows) : p.tk;
+  const float* qp = qs + warp * kWR * kPanel;
+  const float* dp_ = dos + warp * kWR * kPanel;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    if (kBias) {
+      if (!stage_bias(p, b, k0, kTile, bs)) continue;
+    }
+    // s[j][i], dp[j][i]: row row0 + i, key k0 + lane + 32 j, over all of D
+    float s[2][kWR], dp[2][kWR];
+#pragma unroll
+    for (int i = 0; i < kWR; ++i)
+      s[0][i] = s[1][i] = dp[0][i] = dp[1][i] = 0.0f;
+    for (int c = 0; c < d; c += kPanel) {
+      __syncthreads();  // the previous panel's (or tile's) readers are done
+      stage_panel(qs, kPanel, q, d, q0, p.tq, c, kWideRows, kPanel);
+      stage_panel(dos, kPanel, dout, d, q0, p.tq, c, kWideRows, kPanel);
+      stage_panel(ks, kPanel + 1, k, d, k0, p.tk, c, kTile, kPanel);
+      stage_panel(vs, kPanel + 1, v, d, k0, p.tk, c, kTile, kPanel);
+      __syncthreads();
+      const float* k0p = ks + lane * (kPanel + 1);
+      const float* k1p = ks + (lane + 32) * (kPanel + 1);
+      const float* v0p = vs + lane * (kPanel + 1);
+      const float* v1p = vs + (lane + 32) * (kPanel + 1);
+#pragma unroll 2
+      for (int cc = 0; cc < kPanel; ++cc) {
+        const float ka = k0p[cc], kb = k1p[cc], va = v0p[cc], vb = v1p[cc];
+#pragma unroll
+        for (int i = 0; i < kWR; ++i) {
+          const float qv = qp[i * kPanel + cc], dv = dp_[i * kPanel + cc];
+          s[0][i] = fmaf(qv, ka, s[0][i]);
+          s[1][i] = fmaf(qv, kb, s[1][i]);
+          dp[0][i] = fmaf(dv, va, dp[0][i]);
+          dp[1][i] = fmaf(dv, vb, dp[1][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = lane + 32 * j;
+#pragma unroll
+      for (int i = 0; i < kWR; ++i) {
+        const float x = mask_score(s[j][i], p, row0 + i, k0 + col,
+                                   kBias ? bs : nullptr, col);
+        ps[i * kTile + col] = rounded<T>(prob(x, lse[i]) *
+                                         (dp[j][i] - delta[i]) * p.scale);
+      }
+    }
+    __syncthreads();  // every panel read; the ds of every warp written
+    stage_panel(kc, kWideCols, k, d, k0, p.tk, c0, kTile, kWideCols);
+    __syncthreads();
+    for (int key = 0; key < kTile; ++key) {
+      float kv[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        kv[c] = kc[key * kWideCols + lane + 32 * c];
+#pragma unroll
+      for (int i = 0; i < kWR; ++i) {
+        const float x = ps[i * kTile + key];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(x, kv[c], acc[i][c]);
+      }
+    }
+  }
+
+  T* dq = static_cast<T*>(p.dq) + q_row;
+#pragma unroll
+  for (int i = 0; i < kWR; ++i) {
+    if (row0 + i >= p.tq) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < d)
+        dq[static_cast<long long>(row0 + i) * d + col] =
+            bigdl::from_f32<T>(acc[i][c]);
+    }
+  }
+}
+
+// K11 above D 256: 8 warps of 8 keys each over 64 keys a block, lanes over
+// the 64 query rows of a tile; the panels and the column blocks share one
+// region of shared memory (they are used one after the other)
+constexpr int kWideKeys = kF32DkvThreads / 32 * 8;  // 64
+constexpr int kPanels = 2 * kWideKeys * kPanel + 2 * kTile * (kPanel + 1);
+constexpr int kColBlocks = 2 * kTile * kWideCols;
+
+constexpr int dkv_wide_smem() {  // panels or column blocks; p, ds; rows
+  return ((kPanels > kColBlocks ? kPanels : kColBlocks) +
+          2 * kWideKeys * kTile + 2 * kTile + kWideKeys) * 4;
+}
+
+template <typename T, bool kBias>
+__global__ void __launch_bounds__(kF32DkvThreads) dkv_wide(Params p, int d) {
+  constexpr int kCols = kWideCols / 32, kWK = 8;  // keys a warp
+  extern __shared__ float sm[];
+  float* ks = sm;                          // [64][kPanel]
+  float* vs = ks + kWideKeys * kPanel;     // [64][kPanel]
+  float* qs = vs + kWideKeys * kPanel;     // [64][kPanel + 1]
+  float* dos = qs + kTile * (kPanel + 1);  // [64][kPanel + 1]
+  float* qc = sm;                          // [64][kWideCols], over the panels
+  float* dc = qc + kTile * kWideCols;      // [64][kWideCols]
+  float* pb = sm + (kPanels > kColBlocks ? kPanels : kColBlocks);
+  float* db = pb + kWideKeys * kTile;      // [keys][64]
+  float* lse_s = db + kWideKeys * kTile;
+  float* delta_s = lse_s + kTile;
+  float* bs = delta_s + kTile;             // [kWideKeys]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* pw = pb + warp * kWK * kTile;
+  float* dw = db + warp * kWK * kTile;
+  const int kvr = blockIdx.y, b = kvr / p.hk, kvh = kvr % p.hk;
+  const int group = p.h / p.hk;
+  const int k0 = blockIdx.x * kWideKeys;
+  const int c0 = blockIdx.z * kWideCols;
+  const long long kv_row = static_cast<long long>(kvr) * p.tk * d;
+  const int key0 = k0 + warp * kWK;  // this warp's first key
+  const T* k = static_cast<const T*>(p.k) + kv_row;
+  const T* v = static_cast<const T*>(p.v) + kv_row;
+
+  float dka[kWK][kCols], dva[kWK][kCols];
+#pragma unroll
+  for (int i = 0; i < kWK; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.0f;
+
+  const bool live = kBias ? stage_bias(p, b, k0, kWideKeys, bs) != 0 : true;
+  if (live) {
+    const int nq = (p.tq + kTile - 1) / kTile;
+    const int first = p.causal ? k0 / kTile : 0;
+    const float* kp = ks + warp * kWK * kPanel;
+    const float* vp = vs + warp * kWK * kPanel;
+    for (int hh = 0; hh < group; ++hh) {
+      const int bh = b * p.h + kvh * group + hh;
+      const long long q_row = static_cast<long long>(bh) * p.tq * d;
+      const T* q = static_cast<const T*>(p.q) + q_row;
+      const T* dout = static_cast<const T*>(p.dout) + q_row;
+      for (int qb = first; qb < nq; ++qb) {
+        const int q0 = qb * kTile;
+        __syncthreads();  // the previous tile's readers are done
+        if (threadIdx.x < kTile) {
+          const int qr = q0 + threadIdx.x;
+          const long long at = static_cast<long long>(bh) * p.tq + qr;
+          delta_s[threadIdx.x] = qr < p.tq ? p.delta[at] : 0.0f;
+          lse_s[threadIdx.x] = qr < p.tq ? p.lse[at] : 0.0f;
+        }
+        // s[j][i], dp[j][i]: key key0 + i, query q0 + lane + 32 j
+        float s[2][kWK], dp[2][kWK];
+#pragma unroll
+        for (int i = 0; i < kWK; ++i)
+          s[0][i] = s[1][i] = dp[0][i] = dp[1][i] = 0.0f;
+        for (int c = 0; c < d; c += kPanel) {
+          __syncthreads();
+          stage_panel(ks, kPanel, k, d, k0, p.tk, c, kWideKeys, kPanel);
+          stage_panel(vs, kPanel, v, d, k0, p.tk, c, kWideKeys, kPanel);
+          stage_panel(qs, kPanel + 1, q, d, q0, p.tq, c, kTile, kPanel);
+          stage_panel(dos, kPanel + 1, dout, d, q0, p.tq, c, kTile, kPanel);
+          __syncthreads();
+          const float* q0p = qs + lane * (kPanel + 1);
+          const float* q1p = qs + (lane + 32) * (kPanel + 1);
+          const float* d0p = dos + lane * (kPanel + 1);
+          const float* d1p = dos + (lane + 32) * (kPanel + 1);
+#pragma unroll 2
+          for (int cc = 0; cc < kPanel; ++cc) {
+            const float qa = q0p[cc], qb2 = q1p[cc], da = d0p[cc],
+                        db2 = d1p[cc];
+#pragma unroll
+            for (int i = 0; i < kWK; ++i) {
+              const float kv = kp[i * kPanel + cc], vv = vp[i * kPanel + cc];
+              s[0][i] = fmaf(kv, qa, s[0][i]);
+              s[1][i] = fmaf(kv, qb2, s[1][i]);
+              dp[0][i] = fmaf(vv, da, dp[0][i]);
+              dp[1][i] = fmaf(vv, db2, dp[1][i]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = lane + 32 * j;
+#pragma unroll
+          for (int i = 0; i < kWK; ++i) {
+            const float x = mask_score(s[j][i], p, q0 + col, key0 + i,
+                                       kBias ? bs : nullptr, warp * kWK + i);
+            const float pj = prob(x, lse_s[col]);
+            pw[i * kTile + col] = rounded<T>(pj);
+            dw[i * kTile + col] =
+                rounded<T>(pj * (dp[j][i] - delta_s[col]) * p.scale);
+          }
+        }
+        __syncthreads();  // every panel read: the column blocks replace them
+        stage_panel(qc, kWideCols, q, d, q0, p.tq, c0, kTile, kWideCols);
+        stage_panel(dc, kWideCols, dout, d, q0, p.tq, c0, kTile, kWideCols);
+        __syncthreads();
+        for (int r = 0; r < kTile; ++r) {
+          float qv[kCols], dov[kCols];
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            qv[c] = qc[r * kWideCols + lane + 32 * c];
+            dov[c] = dc[r * kWideCols + lane + 32 * c];
+          }
+#pragma unroll
+          for (int i = 0; i < kWK; ++i) {
+            const float pv = pw[i * kTile + r], dsv = dw[i * kTile + r];
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              dva[i][c] = fmaf(pv, dov[c], dva[i][c]);
+              dka[i][c] = fmaf(dsv, qv[c], dka[i][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  T* dk = static_cast<T*>(p.dk) + kv_row;
+  T* dv = static_cast<T*>(p.dv) + kv_row;
+#pragma unroll
+  for (int i = 0; i < kWK; ++i) {
+    if (key0 + i >= p.tk) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < d) {
+        const long long at = static_cast<long long>(key0 + i) * d + col;
+        dk[at] = bigdl::from_f32<T>(dka[i][c]);
+        dv[at] = bigdl::from_f32<T>(dva[i][c]);
+      }
+    }
+  }
+}
+
 // ---- the delta pass --------------------------------------------------------
 
 constexpr int kDeltaLanes = 8;  // lanes a row
@@ -923,6 +1221,29 @@ cudaError_t launch_d(const Params& p, int dtype, int b, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+// a head dim above 256 (a multiple of kPanel): the D-chunked kernels
+template <bool kDq, bool kBias, typename T>
+cudaError_t launch_wide_t(const Params& p, int b, int d, cudaStream_t s) {
+  const int cols = (d + kWideCols - 1) / kWideCols;
+  if (kDq)
+    return run(dq_wide<T, kBias>,
+               dim3((p.tq + kWideRows - 1) / kWideRows, b * p.h, cols),
+               kThreads, dq_wide_smem(), s, p, d);
+  return run(dkv_wide<T, kBias>,
+             dim3((p.tk + kWideKeys - 1) / kWideKeys, b * p.hk, cols),
+             kF32DkvThreads, dkv_wide_smem(), s, p, d);
+}
+
+template <bool kDq, bool kBias>
+cudaError_t launch_wide(const Params& p, int dtype, int b, int d,
+                        cudaStream_t s) {
+  if (dtype == bigdl::kBF16)
+    return launch_wide_t<kDq, kBias, bf16>(p, b, d, s);
+  if (dtype == bigdl::kF32)
+    return launch_wide_t<kDq, kBias, float>(p, b, d, s);
+  return cudaErrorInvalidValue;
+}
+
 template <bool kDq>
 int launch(const Params& p, int dtype, int b, int d, void* stream) {
   if (p.tq == 0 || p.tk == 0 || b == 0) return static_cast<int>(cudaSuccess);
@@ -942,7 +1263,11 @@ int launch(const Params& p, int dtype, int b, int d, void* stream) {
     BIGDL_CASE(128)
     BIGDL_CASE(256)
 #undef BIGDL_CASE
-    default: break;
+    default:
+      if (d > 256 && d % kPanel == 0)
+        e = bias ? launch_wide<kDq, true>(p, dtype, b, d, s)
+                 : launch_wide<kDq, false>(p, dtype, b, d, s);
+      break;
   }
   return static_cast<int>(e);
 }

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the attention forward and flash backward
-// kernels and the bf16 quantized matmuls: TMA tile copies into shared
-// memory that complete on an mbarrier, 4-byte cp.async copies for row
-// vectors, the 128/64/32-byte swizzled tile layout that TMA writes and
+// kernels, the paged attention and the bf16 quantized matmuls: TMA tile
+// copies into shared memory that complete on an mbarrier, 4- and 16-byte
+// cp.async copies, the 128/64/32-byte swizzled tile layout that TMA writes and
 // wgmma reads, its shared-memory matrix descriptors, and the bf16 wgmma
 // products (f32 accumulators): both operands from shared memory at N
 // 8-256, or A from registers at N 16-256.
@@ -46,6 +46,14 @@ __device__ __forceinline__ void cp4(uint32_t dst, const void* src,
                                     bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// 16 bytes global -> shared, asynchronously, bypassing L1; zeros when
+// !valid (src is then not read, but must still be a mapped address)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -406,6 +414,37 @@ __device__ __forceinline__ void mma_rs(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// s = the 64 rows of tile a times the 64 rows of tile b, transposed, over
+// D (both K-major, tiles of D columns); the first k16 step only writes s
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[32], uint32_t a,
+                                       uint32_t b) {
+  using T = Tile<D>;
+  Ss<64>::mma<true>(s, T::template kmajor<64>(a, 0),
+                    T::template kmajor<64>(b, 0));
+#pragma unroll
+  for (int ks = 1; ks < D / 16; ++ks)
+    Ss<64>::mma<false>(s, T::template kmajor<64>(a, ks),
+                       T::template kmajor<64>(b, ks));
+}
+
+// acc += p v over a 64-key tile: p (a 64 x 64 accumulator) rounded to
+// bf16 as the register A operand, the V tile read MN-major
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2],
+                                           const float (&pr)[32],
+                                           uint32_t vs) {
+  uint32_t a[4][4];
+  to_a(pr, a);
+  mma_fence();
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    mma_rs(acc, a[c], Tile<D>::template mnmajor<64>(vs, c));
+  mma_commit();
+  mma_wait<0>();
+  fence_regs(acc);
 }
 
 }  // namespace wg

@@ -73,10 +73,11 @@ _SIGNATURES = {
     # q, k, v, delta, lse, do, bias (or null), dk, dv, dtype, b, h, hk, tq,
     # tk, d, scale, causal, stream
     "bigdl_flash_bwd_dkv": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P],
-    # q, k pool, v pool, pages, positions, o, q dtype, cache dtype, b, h,
-    # hkv, s, d, page size, lp, trash, scale, rows per block, stream
-    "bigdl_paged_attention": [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I,
-                                                    _P],
+    # q, k pool, v pool, pages, positions, o, scratch (or null), q dtype,
+    # cache dtype, b, h, hkv, s, d, page size, lp, trash, scale, tensor-core
+    # path, rows per block, splits, pages a split, keys a tile, stream
+    "bigdl_paged_attention": [_P] * 7 + [_I] * 10 + [ctypes.c_float] +
+    [_I] * 5 + [_P],
     # x, out, n, stream
     "bigdl_fp16_compress": [_P, _P, ctypes.c_longlong, _P],
     # u, out, n, stream

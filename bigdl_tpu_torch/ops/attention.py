@@ -45,7 +45,10 @@ The kernels (``csrc/attention.cu``):
   the promoted operand dtype, ``l <= positions[b, s]`` masked with
   ``-inf``, softmax in f32, weights cast to the cache dtype, output in the
   cache dtype.  The arithmetic after the gather, :func:`decode_attention`,
-  is also the decode path of ``nn/attention.py``.
+  is also the decode path of ``nn/attention.py``.  On the card
+  :func:`paged_plan` picks one of two kernels from the shapes alone: bf16
+  prefill on the tensor cores, everything else split over the row's
+  pages.
 
 None of them holds a (T, T) score matrix in global memory.  A CPU tensor
 takes the plain version.  On a CUDA tensor K8 runs inside an autograd
@@ -56,10 +59,11 @@ VJP (``_streaming_attention``) on either device: its forward writes the
 logsumexp only when autograd will need it, and its backward runs K10 and
 K11, or ``flash_bwd_plain`` on CPU tensors.  K12 has no backward, as the
 reference's has none.  K8-K11 are built for head dims ``HEAD_DIMS``;
-another head dim up to 256 is zero-padded to the next of them, which is
-exact for every product once the outputs are sliced back; a larger one
-raises ``ValueError`` before any launch.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+another head dim up to 256 is zero-padded to the next of them, and one
+above 256 to the next multiple of ``WIDE_PANEL`` (64), where D-chunked
+FFMA kernels run it in either dtype; the padding is exact for every
+product once the outputs are sliced back.  Each wrapper counts its
+launches in ``<wrapper>.launches``.
 
 The plain versions of K8 and K9 compute in float32 whatever the input
 dtype (as the kernels do: bf16 products are exact in f32) and round once
@@ -69,12 +73,14 @@ to q's dtype.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops.quant import H100_SMS, _cdiv, _device_sms
 
 NEG_INF = -1e30
 
@@ -88,8 +94,10 @@ _EVAL_MAX_T = 8192
 
 # key block of K9's plain version: the kernels' K/V tile
 BLOCK_K = 64
-# head dims K8-K11 are built for; a smaller one is zero-padded up
+# head dims K8-K11 are built for; a smaller one is zero-padded up, a larger
+# one to a multiple of WIDE_PANEL (the D-chunked kernels' column panel)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WIDE_PANEL = 64
 
 
 def expand_kv_heads(q, k, v):
@@ -311,15 +319,15 @@ def _kernel_operand(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _kernel_head_dim(name: str, d: int) -> int:
+def _kernel_head_dim(d: int) -> int:
     """The head dim K8-K11 run ``d`` at: the smallest of ``HEAD_DIMS`` that
-    holds it (a block's tiles of 64 rows must fit its 227 KB of shared
-    memory)."""
+    holds it, or above 256 the next multiple of ``WIDE_PANEL``, which the
+    D-chunked kernels stage 64 columns at a time (so their shared memory
+    does not grow with D)."""
     for kd in HEAD_DIMS:
         if d <= kd:
             return kd
-    raise ValueError(f"{name} kernel takes head dims up to {HEAD_DIMS[-1]} "
-                     f"(its tiles in a block's shared memory), got {d}")
+    return _cdiv(d, WIDE_PANEL) * WIDE_PANEL
 
 
 def _pad_head(d: int, kd: int, *tensors):
@@ -342,7 +350,7 @@ def _launch(wrapper, entry, q, k, v, bias, causal, scale, with_lse=False):
     b, h, t, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     name = wrapper.__name__
-    kd = _kernel_head_dim(name, d)
+    kd = _kernel_head_dim(d)
     _rows_check(name, b * h)
     q, k, v = _pad_head(d, kd, q, k, v)
     o = torch.empty_like(q)
@@ -457,8 +465,6 @@ def _check_bwd(what, q, k, v, o, lse, do, bias, delta=None):
     rows = (o, lse, do) if delta is None else (o, lse, do, delta)
     if any(x.device != q.device for x in rows):
         raise ValueError(f"{what}: operands on different devices")
-    if q.device.type == "cuda":   # before the delta pass launches
-        _kernel_head_dim(what, q.shape[-1])
 
 
 def flash_bwd_delta(o, do):
@@ -495,7 +501,7 @@ def _launch_bwd(wrapper, entry, q, k, v, delta, lse, do, causal, scale,
     b, h, t, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     name = wrapper.__name__
-    kd = _kernel_head_dim(name, d)
+    kd = _kernel_head_dim(d)
     _rows_check(name, b * h)
     q, k, v, do = _pad_head(d, kd, q, k, v, do.to(q.dtype))
     lse, delta = _kernel_operand(lse), _kernel_operand(delta)
@@ -554,12 +560,72 @@ def attention_stream_bwd_dkv(q, k, v, o, lse, do, causal=False, scale=None,
 
 # -- paged attention (K12) ----------------------------------------------------
 
-# query rows (GQA group heads x positions) a K12 block owns at most, and
-# output elements a thread accumulates at most (rows x D <= 1024)
+# K12's plan (:func:`paged_plan`).  The tensor-core path: bf16 q over a
+# bf16 cache, at least PAGED_TC_ROWS packed query rows (GQA group heads x
+# positions) of one (row, KV head), a head dim of HEAD_DIMS; one consumer
+# warpgroup a block owns PAGED_TC_ROWS of them.  The page-split path, every
+# other call: a block owns at most PAGED_ROWS packed rows (and rows x D <=
+# PAGED_OUT, the output elements its threads hold) and one split of the
+# row's pages, at least PAGED_SPLIT_KEYS keys long; the splits are as many
+# as give about PAGED_WAVES waves of blocks on the card, so that a row
+# which fills a quarter of its table still keeps two waves busy.  Its K/V
+# tiles take PAGED_KEYS keys, fewer where two stages of K and V would pass
+# PAGED_STAGE_BYTES of shared memory.
+PAGED_TC_ROWS = 64
 PAGED_ROWS = 16
-_PAGED_OUT = 1024
-_PAGED_KEYS = 64                     # keys per K/V tile of a K12 block
-_SMEM_FLOATS = 232448 // 4           # a block's shared memory on Hopper
+PAGED_OUT = 1024
+PAGED_SPLIT_KEYS = 64
+PAGED_WAVES = 8
+PAGED_KEYS = 64
+PAGED_STAGE_BYTES = 96 * 1024
+
+
+class PagedPlan(NamedTuple):
+    """K12's launch for one call: ``path`` "tensor_core" or "split";
+    ``rows_per_block`` packed query rows a block over ``row_tiles`` tiles a
+    (row, KV head); ``splits`` blocks along the row's pages of
+    ``pages_per_split`` pages each (the last may have fewer; one split
+    writes the output directly, more write f32 partials that a second
+    pass adds in split order); ``keys_per_tile`` keys a staged K/V tile."""
+    path: str
+    rows_per_block: int
+    row_tiles: int
+    splits: int
+    pages_per_split: int
+    keys_per_tile: int
+
+
+def paged_plan(b: int, h: int, hkv: int, s: int, d: int, ps: int, lp: int,
+               q_dtype, cache_dtype, aligned: bool = True,
+               sms: int = H100_SMS) -> PagedPlan:
+    """Plan K12 for q (b, h, s, d) over pools of ``hkv`` KV heads and page
+    size ``ps`` through an ``lp``-page table, by shape alone (the
+    positions and the table are never read on the host).  ``aligned``:
+    both pools start on 16 bytes (the tensor-core path copies 16-byte rows
+    of them).  Raises ``ValueError`` for a head dim above ``PAGED_OUT``."""
+    rows = (h // hkv) * s
+    if q_dtype == cache_dtype == torch.bfloat16 and d in HEAD_DIMS and \
+            rows >= PAGED_TC_ROWS and aligned:
+        return PagedPlan("tensor_core", PAGED_TC_ROWS,
+                         _cdiv(rows, PAGED_TC_ROWS), 1, lp, PAGED_TC_ROWS)
+    if d > PAGED_OUT:
+        raise ValueError(f"paged_attention kernel takes head dims up to "
+                         f"{PAGED_OUT} (a block holds rows x D <= "
+                         f"{PAGED_OUT} output elements), got {d}")
+    per = max(1, min(PAGED_ROWS, PAGED_OUT // d, rows))
+    tiles = _cdiv(rows, per)
+    splits, pages = 1, lp
+    if lp:
+        most = _cdiv(lp, _cdiv(PAGED_SPLIT_KEYS, ps))
+        want = _cdiv(PAGED_WAVES * sms, max(1, b * hkv * tiles))
+        pages = _cdiv(lp, max(1, min(most, want)))
+        splits = _cdiv(lp, pages)
+    esize = 4 if cache_dtype == torch.float32 else 2
+    stride = 16 * _cdiv(d * esize, 16) + 16    # a staged row, padded
+    keys = PAGED_KEYS
+    while keys > 8 and 4 * keys * stride > PAGED_STAGE_BYTES:
+        keys //= 2
+    return PagedPlan("split", per, tiles, splits, pages, keys)
 
 
 def decode_attention(q, kk, vv, valid, scale):
@@ -632,24 +698,6 @@ def _check_paged(q, k_pool, v_pool, pages, positions):
                            f"{q.device}")
 
 
-def paged_rows_per_block(d: int, lp: int, ps: int, rows: int) -> int:
-    """K12's query rows per block: at most ``PAGED_ROWS``, at most
-    1024 / D (the output elements a thread holds), and as many (D + L)
-    float rows as the block's shared memory holds beside one K/V tile and
-    the row's ``lp`` page ids (L = lp * ps)."""
-    length = lp * ps
-    fixed = 2 * _PAGED_KEYS + PAGED_ROWS + _PAGED_KEYS * (d + 1) + lp
-    fit = (_SMEM_FLOATS - fixed) // (d + length)
-    ts = min(PAGED_ROWS, rows, _PAGED_OUT // d, fit)
-    if ts < 1:
-        raise ValueError(
-            f"paged_attention kernel: head dim {d} with a {length}-token "
-            f"page table does not fit a block (head dim <= {_PAGED_OUT}, "
-            f"and one score row of {length} floats beside a tile of "
-            f"{_PAGED_KEYS} keys in {_SMEM_FLOATS * 4} bytes)")
-    return ts
-
-
 def paged_attention(q, k_pool, v_pool, pages, positions, scale):
     """K12: masked attention over a block-paged KV pool, with the
     reference's signature (``bigdl_tpu/ops/attention.py:813``): ``q``
@@ -657,7 +705,9 @@ def paged_attention(q, k_pool, v_pool, pages, positions, scale):
     page; ``pages`` (B, Lp) int page table; ``positions`` (B, S), key slot
     ``l`` visible to token ``s`` iff ``l <= positions[b, s]``; GQA shares
     KV head ``h // (H / Hkv)``.  Returns (B, H, S, D) in the cache dtype.
-    Forward only: it has no backward, as the reference's has none."""
+    Forward only: it has no backward, as the reference's has none.  On the
+    card the launch follows :func:`paged_plan`; a split plan's partials
+    live in scratch allocated here."""
     _check_paged(q, k_pool, v_pool, pages, positions)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, pages, positions,
@@ -670,26 +720,35 @@ def paged_attention(q, k_pool, v_pool, pages, positions, scale):
     b, h, s, d = q.shape
     hkv, ps = k_pool.shape[1], k_pool.shape[2]
     lp = pages.shape[1]
-    if b > 65535 or hkv > 65535:
-        raise ValueError(f"paged_attention kernel takes at most 65535 rows "
-                         f"and KV heads, got {b} and {hkv}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged_attention kernel takes contiguous pools "
                          "(a copy of the pool would defeat paging)")
-    q = q.contiguous()
+    plan = paged_plan(b, h, hkv, s, d, ps, lp, q.dtype, k_pool.dtype,
+                      k_pool.data_ptr() % 16 == 0 and
+                      v_pool.data_ptr() % 16 == 0,
+                      _device_sms(q.device.index))
+    if b > 65535 or plan.row_tiles * hkv > 65535:
+        raise ValueError(f"paged_attention kernel takes at most 65535 rows "
+                         f"and 65535 (row tile, KV head) pairs, got {b} and "
+                         f"{plan.row_tiles * hkv}")
+    q = _kernel_operand(q)
     pages = pages.to(torch.int32).contiguous()
     positions = positions.to(torch.int32).contiguous()
     o = torch.empty((b, h, s, d), dtype=k_pool.dtype, device=q.device)
     if b * h * s == 0:
         return o
-    rows = (h // hkv) * s
-    ts = paged_rows_per_block(d, lp, ps, rows)
+    scratch = None
+    if plan.splits > 1:   # per (row, KV head, packed row, split): m, l, acc
+        scratch = torch.empty(b * hkv * (h // hkv) * s * plan.splits *
+                              (d + 2), dtype=torch.float32, device=q.device)
     rc = _build.load().bigdl_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         pages.data_ptr(), positions.data_ptr(), o.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(),
         _build.DTYPE_CODES[q.dtype], _build.DTYPE_CODES[k_pool.dtype], b,
-        h, hkv, s, d, ps, lp, k_pool.shape[0] - 1, float(scale), ts,
-        _build.stream_ptr(q))
+        h, hkv, s, d, ps, lp, k_pool.shape[0] - 1, float(scale),
+        int(plan.path == "tensor_core"), plan.rows_per_block, plan.splits,
+        plan.pages_per_split, plan.keys_per_tile, _build.stream_ptr(q))
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return o

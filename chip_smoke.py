@@ -59,18 +59,22 @@ Phases, each of which ends the run with a non-zero exit on failure:
    at the LM paths' shapes ((8, 8, 2048, 64) causal for K8 and for K9 with
    the padded batch's bias, (1, 8, 8192, 64) causal for K9) and at ragged
    ones (GQA 8/2 and 8/1, non-causal, Tq != Tk, head dims 16/32/128/256
-   and 48/80/96/160 (zero-padded to the kernels' sizes), T 8, 24 and 200,
-   a row with every key padded, at head dim 256 too), in float32 (within
+   and 48/80/96/160 (zero-padded to the kernels' sizes), 320 and 512 and
+   300 (padded to 320) on the D-chunked kernels, T 8, 24 and 200, a row
+   with every key padded, at head dims 256 and 512 too), in float32 (within
    1e-5 of each output's sum of |p·v|) and bfloat16 (within 2 bfloat16
    steps of it);
 2e. the paged-attention kernel K12 against ``paged_attention_plain`` with
    a NaN-poisoned trash page, at the continuous path's decode shape (8
    slots, 8 heads, S 1, d 64, page size 16, Lp 128, at the traffic's
    positions), its prefill shapes (S 512, and S 128 after a 384-token
-   head) and ragged ones (GQA 8/2 and 8/1, page sizes 5 and 8, d 48/96/128,
-   S 2/3/17, an inactive all-trash row, integer q/k with |s| ~ 30 where
-   the scores' bf16 rounding shows), in float32 and bfloat16, and f32
-   queries over a bf16 cache; the same tolerances as 2d;
+   head) and ragged ones (GQA 8/2 and 8/1, page sizes 5 and 8, d 48/96/128
+   /256/512, S 2/3/17, GQA rows packed across the tensor-core path's
+   64-row tile, an inactive all-trash row, integer q/k with |s| ~ 30 where
+   the scores' bf16 rounding shows, a 65 536-token table past the old
+   kernel's limit), in float32 and bfloat16, and f32 queries over a bf16
+   cache, logging the path each case took (tensor cores or page split);
+   the same tolerances as 2d; two launches bit-equal on each path;
 2f. the flash backward: K9 with its row logsumexp, the delta pass
    (``rowsum(dO·O)``, shared by K10 and K11), K10 (dQ) and K11 (dK, dV)
    against their plain versions at the training paths' shapes ((1, 8,
@@ -78,13 +82,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    f32, ``train_main``'s) and at ragged ones (T 520 and 1000, T 63, 64, 65
    and 129 at the kernels' 64-row tiles, GQA 8/2, 8/1 and 8/1 at T 8191,
    Tq != Tk, a padded bias with a row whose every key is padded, head dims
-   16/32/128/256 (causal too, the wgmma widths N 16 and 128) and
-   48/80/96/160) in
+   16/32/128/256 (causal too, the wgmma widths N 16 and 128),
+   48/80/96/160 and 320/512 (the D-chunked kernels)) in
    float32 and bfloat16: o as in 2d, lse within 1e-5 of max(1, |lse|),
    delta within 1e-5 of each row's sum |dO·O|, each gradient within 1e-4
    (f32) or two bfloat16 steps (bf16) of its largest magnitude, zero
    gradients where every key is padded; K10 and K11 each bit-equal over two
-   launches (head dims 64 and 256); and two autograd round trips through ``fused_attention`` (T
+   launches (head dims 64, 256 and 512); and two autograd round trips through ``fused_attention`` (T
    2112 past the K/V budget, and a key-padding mask) against autograd of
    the chunked plain form, with one K9, one delta pass, one K10 and one K11
    launch each;
@@ -133,7 +137,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``drain()``, an over-capacity request shed typed; one request through
    the bf16 model over the default f32 cache; an f32 copy serving 8
    requests x 32 tokens equal to ``generate`` and to
-   ``paged_kernel=False``, request by request;
+   ``paged_kernel=False``, request by request (phase 4 reports K12's
+   device time summed over the traffic, by path);
 3h. long-context training: ``models/perf.py`` ``longcontext_perf_main`` at
    its defaults (T 8192, 8 layers, embed 512, 8 heads, vocab 8192, remat,
    bf16 mixed precision, SGD 0.1, one warm-up and 5 timed steps): finite
@@ -175,17 +180,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
    bf16 forward per bucket with a profiler breakdown of its device time;
    K8 and K9 per call at the LM paths' shapes, at train_main's f32 shape
-   (8, 8, 4096, 64) and at the LM widths over head dims 128 and 256 in bf16
+   (8, 8, 4096, 64), at the LM widths over head dims 128 and 256 in bf16
+   and at (1, 2, 2048, 512) in bf16
    (CUDA events and torch.profiler's device time) beside their bound, plain
    version and ``F.scaled_dot_product_attention``, K8 against K9 at T 512
    to 16384, LM scoring tokens/s at both configurations, generation new
    tokens/s and a profiler breakdown of one scoring forward; K12 per call
-   at the decode and prefill shapes beside its bound, plain version and
-   SDPA on the pre-gathered view, the continuous run's new tokens/s,
+   at the decode shape (the page split) and the prefill shapes (the
+   tensor-core path) with its plan and the blocks that hold visible keys
+   (at least one an SM at the decode shape), by CUDA events and
+   torch.profiler's device time, beside its bound, plain version and SDPA
+   on the pre-gathered view; the continuous run's new tokens/s,
    request latency p50 and max, slot occupancy, chunks and prefix hit rate
-   with a profiler breakdown of the same traffic, and the same requests
+   with a profiler breakdown of the same traffic (K12's device time by
+   path among it), and the same requests
    through ``generate`` in static waves of 8; K9 with and without its LSE,
-   the delta pass, K10 and K11 per call at both training shapes beside
+   the delta pass, K10 and K11 per call at both training shapes and at
+   (1, 2, 2048, 512) in bf16 beside
    their bounds (6·D and 8·D FLOPs per unmasked pair and head; the delta
    pass by its bytes), their plain versions, and their sum beside SDPA's
    backward (forward + backward less forward), the long-context
@@ -338,6 +349,13 @@ ATTN_RAGGED = [
      256, True, [130, 0, 77]),
     ("d 256, Tq != Tk", 1, 4, 4, 70, 33, 256, True, None),
     ("T 200", 2, 8, 8, 200, 200, 64, True, None),
+    # head dims above 256: the D-chunked kernels (320 and 512 as they are,
+    # 300 zero-padded to 320)
+    ("d 320, GQA 8/2", 2, 8, 2, 100, 100, 320, True, None),
+    ("d 300 (padded to 320), non-causal, Tq != Tk", 1, 4, 4, 70, 33, 300,
+     False, None),
+    ("d 512, padded keys, a row with every key padded", 2, 4, 4, 130, 130,
+     512, True, [130, 0]),
 ]
 # phase 4 beside ATTN_PATH: (name, b, h, hk, t, tk, d, causal, lengths,
 # dtype) of K8 and K9 (both timed at each): train_main's f32 shape, and the
@@ -347,6 +365,7 @@ ATTN_TIMED = [
      None, "float32"),
     ("d 128", LM_BATCH, 4, 4, LM_T, LM_T, 128, True, None, "bfloat16"),
     ("d 256", LM_BATCH, 2, 2, LM_T, LM_T, 256, True, None, "bfloat16"),
+    ("d 512", 1, 2, 2, LM_T, LM_T, 512, True, None, "bfloat16"),
 ]
 # card vs CPU on the LM: f32 log-probs of one row; bf16 logits (of the
 # unpadded rows, of the padded rows at every position, and of the padded
@@ -391,6 +410,22 @@ PAGED_RAGGED = [
     ("an inactive row (all trash)", 3, 8, 8, 1, 64, 16, 8, [100, 0, 50],
      False),
     ("large scores, |s| ~ 30", 2, 8, 8, 4, 64, 16, 16, [200, 77], True),
+    # the tensor-core path's shapes in bf16 (the page split in f32): GQA
+    # rows packed across the 64-row tile, page sizes 5 and 8, head dims 128
+    # and 256, large scores; and past the old kernel's table limit
+    ("GQA 8/2, S 17: 68 packed rows", 2, 8, 2, 17, 64, 16, 8, [100, 40],
+     False),
+    ("page size 5, d 128, 80 packed rows", 1, 8, 2, 20, 128, 5, 30, [140],
+     False),
+    ("page size 8, d 256, 128 packed rows, an inactive row", 2, 4, 1, 32,
+     256, 8, 20, [150, 0], False),
+    ("large scores, 128 packed rows", 2, 8, 1, 16, 64, 16, 6, [90, 17],
+     True),
+    ("d 512, S 2", 2, 4, 2, 2, 512, 16, 8, [100, 30], False),
+    ("a 65 536-token table, decode", 2, 4, 4, 1, 64, 16, 4096,
+     [40000, 65536], False),
+    ("a 65 536-token table, 64 packed rows", 1, 2, 2, 64, 64, 16, 4096,
+     [65536], False),
 ]
 # the flash backward (phase 2f): K9 with its LSE, K10 and K11 against their
 # plain versions at the training paths' shapes, each in its dtype (the
@@ -437,7 +472,15 @@ FLASH_RAGGED = [
     ("d 256, T 300", 1, 4, 4, 300, 300, 256, True, None),
     ("d 256, padded, non-causal, a row with every key padded", 2, 4, 2, 130,
      130, 256, False, [130, 0]),
+    # head dims above 256: the D-chunked kernels
+    ("d 320, GQA 8/2", 1, 8, 2, 200, 200, 320, True, None),
+    ("d 512, padded, a row with every key padded", 2, 4, 2, 130, 130, 512,
+     True, [130, 0]),
 ]
+# phase 4 beside FLASH_PATH: K9 with its LSE, the delta pass, K10 and K11
+# once at head dim 512 (the D-chunked kernels), bf16
+FLASH_TIMED = [("d 512, bf16", 1, 2, 2, LM_T, LM_T, 512, True, None,
+                "bfloat16")]
 FLASH_LSE_RTOL = 1e-5
 # the delta pass within FLASH_DELTA_RTOL of each row's sum |dO·O| (f32 sums
 # in another order)
@@ -1002,7 +1045,9 @@ def paged_operands(case, dtype, cache_dtype, device, seed):
 def check_paged_kernel(device):
     """Hold K12 against ``paged_attention_plain`` at the path's decode
     shape and at PAGED_RAGGED, in float32 and bfloat16, and with f32
-    queries over a bf16 cache at the decode shape and the GQA case.
+    queries over a bf16 cache at the decode shape and the GQA case, logging
+    the path each case took (``paged_plan``); then two launches of the
+    decode shape and of the 68-row GQA case on each path, bit-equal.
     Returns errors, cases and mismatches as :func:`check_kernels` does."""
     import torch
     from bigdl_tpu_torch.ops import attention as attn
@@ -1013,9 +1058,13 @@ def check_paged_kernel(device):
             for dt in (torch.float32, torch.bfloat16)]
     runs += [(c, torch.float32, torch.bfloat16)
              for c in (paged_decode_case(), PAGED_RAGGED[2])]
+    paths = {"tensor_core": [], "split": []}
     for i, (case, qdt, cdt) in enumerate(runs):
         q, k, v, pages, pos, scale = paged_operands(case, qdt, cdt, device,
                                                     SEED + 80 + i)
+        plan = attn.paged_plan(*case[1:8], qdt, cdt)
+        paths[plan.path].append(f"{case[0]} (q {qdt}, cache {cdt}, "
+                                f"{plan.splits} splits)")
         got = attn.paged_attention(q, k, v, pages, pos, scale)
         torch.cuda.synchronize()
         want = attn.paged_attention_plain(q, k, v, pages, pos, scale)
@@ -1036,13 +1085,25 @@ def check_paged_kernel(device):
             rel_bf16 = max(rel_bf16, r)
         if not ok:
             misses += 1
-            fail(f"{name} {case[0]} q {qdt} cache {cdt}: max |err| / "
-                 f"sum |p·v| {r:.3g} beyond tolerance")
+            fail(f"{name} {case[0]} q {qdt} cache {cdt} ({plan.path}): max "
+                 f"|err| / sum |p·v| {r:.3g} beyond tolerance")
         del q, k, v, got, want, mag
+    # no atomics on either path: two launches are bit-equal
+    for i, case in enumerate((paged_decode_case(), PAGED_RAGGED[9])):
+        for dt in (torch.float32, torch.bfloat16):
+            ops = paged_operands(case, dt, dt, device, SEED + 95 + i)
+            a = attn.paged_attention(*ops)
+            b = attn.paged_attention(*ops)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"{name} {case[0]} {dt}: two launches differ")
+            del ops, a, b
     log(f"paged attention kernel vs plain: {cases} cases, max |err| / sum "
         f"|p·v| f32 {rel:.3g} (limit {ATTN_F32_RTOL}; max |err| {err:.3g}) "
         f"bf16 cache {rel_bf16:.3g} (limit "
-        f"{ATTN_BF16_STEPS * BF16_STEP:.4g})")
+        f"{ATTN_BF16_STEPS * BF16_STEP:.4g}); two launches bit-equal on "
+        f"both paths; tensor-core path: {'; '.join(paths['tensor_core'])}; "
+        f"page split: {'; '.join(paths['split'])}")
     return {name: err}, {name: cases}, {name: misses}
 
 
@@ -1144,10 +1205,11 @@ def check_flash_kernels(device):
         del q, k, v, o, lse, do, dq, dk, dv, want, mag, delta
     # K10 and K11 run no atomics: two launches on the same inputs are
     # bit-equal, at head dim 256 too (two ring stages, K11's column halves;
-    # the f32 32-row and 32-key tiles)
+    # the f32 32-row and 32-key tiles) and at 512 (the D-chunked kernels)
     for case in (FLASH_PATH[0], FLASH_RAGGED[5] + ("bfloat16",),
                  FLASH_RAGGED[18] + ("bfloat16",),
-                 FLASH_RAGGED[19] + ("float32",)):
+                 FLASH_RAGGED[19] + ("float32",),
+                 FLASH_RAGGED[21] + ("bfloat16",)):
         q, k, v, bias, o, lse, do = flash_grads(
             case, getattr(torch, case[9]), device, SEED + 300)
         args = (q, k, v, o, lse, do, case[7], None, bias)
@@ -3031,7 +3093,8 @@ def flash_work(case, dtype):
 
 def time_flash(device):
     """K9 with and without its LSE, the delta pass, K10 and K11 per call at
-    FLASH_PATH (each in its dtype): median kernel time with the L2 flushed,
+    FLASH_PATH and FLASH_TIMED (each in its dtype): median kernel time with
+    the L2 flushed,
     the bound, the plain versions, and SDPA's backward (fwd + bwd less fwd,
     causal) as the library yardstick for both K10 and K11 and for their sum
     with the delta pass (K10 and K11 timed on a precomputed delta).  The
@@ -3044,7 +3107,7 @@ def time_flash(device):
     from bigdl_tpu_torch.ops import attention as attn
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     out = {}
-    for i, case in enumerate(FLASH_PATH):
+    for i, case in enumerate(FLASH_PATH + FLASH_TIMED):
         dt = getattr(torch, case[9])
         q, k, v, bias, o, lse, do = flash_grads(case, dt, device,
                                                 SEED + 500 + i)
@@ -3204,11 +3267,33 @@ def paged_work(q, k, pages, positions):
     return nbytes, 4 * d * h * int(seen.sum())
 
 
+def paged_blocks(plan, case, pos):
+    """(blocks, blocks that hold visible keys) of K12's grid under ``plan``
+    for a case and its positions (B, S): a split holds visible keys when
+    its first key lies at or before the last key any row of its tile
+    sees."""
+    b, h, hkv, s = case[1:5]
+    ps = case[6]
+    g, per = h // hkv, plan.rows_per_block
+    keys = plan.pages_per_split * ps
+    live = 0
+    for row in range(b):
+        for t in range(plan.row_tiles):
+            packed = range(t * per, min((t + 1) * per, g * s))
+            top = max(int(pos[row, r % s]) for r in packed)
+            live += hkv * sum(1 for j in range(plan.splits)
+                              if j * keys <= top)
+    return b * hkv * plan.row_tiles * plan.splits, live
+
+
 def time_paged(device):
-    """K12 per call at the path's decode shape and its two prefill shapes
-    (bf16): median kernel time with the L2 flushed, its bound, the plain
-    version (which gathers the view) and SDPA on the pre-gathered view
-    with the boolean mask (the gather excluded from its time)."""
+    """K12 per call at the path's decode shape (the page split) and its two
+    prefill shapes (the tensor-core path), bf16: median kernel time with
+    the L2 flushed by CUDA events and torch.profiler's device time (K12's
+    kernels: the split and its combine), its plan and the blocks that hold
+    visible keys, its bound, the plain version (which gathers the view)
+    and SDPA on the pre-gathered view with the boolean mask (the gather
+    excluded from its time) by both clocks."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import attention as attn
@@ -3222,6 +3307,8 @@ def time_paged(device):
                                                     SEED + 90)
         b, h, s, d = q.shape
         ps, lp = k.shape[2], pages.shape[1]
+        plan = attn.paged_plan(*case[1:8], bf16, bf16)
+        blocks, live = paged_blocks(plan, case, pos.cpu())
         # the pre-gathered view, trash zeroed, heads expanded, and the mask
         tmask = (pages.long() == k.shape[0] - 1).repeat_interleave(
             ps, dim=1)[:, None, :, None]
@@ -3233,16 +3320,20 @@ def time_paged(device):
         nbytes, flops = paged_work(q, k, pages, pos)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * flops / BF16_FLOPS
+        kern = lambda: attn.paged_attention(q, k, v, pages, pos, scale)
+        lib = lambda: F.scaled_dot_product_attention(q, kk, vv,
+                                                     attn_mask=mask,
+                                                     scale=scale)
         out[key] = {
             "case": case[0], "shape": [b, h, k.shape[1], s, d, ps, lp],
-            "dtype": "bfloat16",
-            "ms": median_ms(lambda: attn.paged_attention(
-                q, k, v, pages, pos, scale), device, flush=flush),
+            "dtype": "bfloat16", "plan": plan._asdict(), "blocks": blocks,
+            "blocks_with_visible_keys": live,
+            "ms": median_ms(kern, device, flush=flush),
+            "device_ms": device_ms(kern, flush),
             "plain_ms": median_ms(lambda: attn.paged_attention_plain(
                 q, k, v, pages, pos, scale), device, reps=5, flush=flush),
-            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-                q, kk, vv, attn_mask=mask, scale=scale), device,
-                flush=flush),
+            "library_ms": median_ms(lib, device, flush=flush),
+            "library_device_ms": device_ms(lib, flush),
             "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -3261,7 +3352,7 @@ def time_continuous(model, prompts, budgets, kw, device):
     from bigdl_tpu_torch.serving import ContinuousGenerator
     with ContinuousGenerator(model, cache_dtype=torch.bfloat16, **kw) as g:
         prof = device_profile(lambda: drive_continuous(g, prompts, budgets),
-                              1)
+                              1, PAGED_KERNELS)
     top = max(budgets)
     done = []
     torch.cuda.synchronize()
@@ -3302,18 +3393,30 @@ def profile_forward(clf, device, bucket, reps=3):
     return device_profile(run, reps)
 
 
-def device_profile(fn, n):
+# K12's kernels by name (csrc/paged_attention.cu): each path's, and the
+# page split's second pass
+PAGED_KERNELS = {"tensor_core": "paged_tc<", "split": "paged_split<",
+                 "combine": "paged_combine<"}
+
+
+def device_profile(fn, n, groups=None):
     """``torch.profiler`` over ``fn()``, which runs ``n`` steps or forwards:
-    the summed kernel and copy time per step and the kernels that take the
-    most of it.  The profiler slows the host, so the busy share is taken
-    against an unprofiled time by the caller."""
+    the summed kernel and copy time per step, the kernels that take the
+    most of it, and per label of ``groups`` the time of the kernels whose
+    name holds its substring.  The profiler slows the host, so the busy
+    share is taken against an unprofiled time by the caller."""
     kernels = {name: us / 1e3 / n for name, us in _profiled_us(fn).items()
                if us > 0}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    return {"device_ms": sum(kernels.values()),
-            "htod_ms": sum(ms for name, ms in kernels.items()
-                           if name.startswith("Memcpy HtoD")),
-            "top": [[name[:90], ms] for name, ms in top]}
+    out = {"device_ms": sum(kernels.values()),
+           "htod_ms": sum(ms for name, ms in kernels.items()
+                          if name.startswith("Memcpy HtoD")),
+           "top": [[name[:90], ms] for name, ms in top]}
+    if groups:
+        out["groups"] = {label: sum(ms for name, ms in kernels.items()
+                                    if part in name)
+                         for label, part in groups.items()}
+    return out
 
 
 def card_line() -> str:
@@ -3579,14 +3682,30 @@ def main() -> int:
     log("transformer LM: " + json.dumps(lm_report))
     paged_times = time_paged(device)
     for key, t in paged_times.items():
+        pl = t["plan"]
         log(f"[{card}] paged_attention at {t['case']} {t['shape']} (bf16, "
-            f"per call): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}; bytes {t['bytes_ms']:.4f}, operations "
-            f"{t['ops_ms']:.4f}), plain {t['plain_ms']:.3f} ms, SDPA on the "
-            f"pre-gathered view {t['library_ms']:.4f} ms")
+            f"per call, {pl['path']} path: {pl['rows_per_block']} packed "
+            f"rows a block, {pl['row_tiles']} row tiles, {pl['splits']} "
+            f"splits of {pl['pages_per_split']} pages; {t['blocks']} blocks, "
+            f"{t['blocks_with_visible_keys']} with visible keys): "
+            f"{t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}; bytes "
+            f"{t['bytes_ms']:.4f}, operations {t['ops_ms']:.4f}), plain "
+            f"{t['plain_ms']:.3f} ms, SDPA on the pre-gathered view "
+            f"{t['library_ms']:.4f} ms, device "
+            f"{fmt_ms(t['library_device_ms'])}")
+    if paged_times["decode"]["blocks_with_visible_keys"] < \
+            torch.cuda.get_device_properties(0).multi_processor_count:
+        fail("paged_attention's plan at the decode shape puts fewer blocks "
+             "with visible keys than the card has SMs")
     cg_prof, cg_static = time_continuous(*cg_run, device)
     cg_prof["busy_share"] = cg_prof["device_ms"] / (1e3 * cg_report["wall_s"])
     cg_report.update(profile=cg_prof, static_waves=cg_static)
+    k12 = cg_prof["groups"]
+    log(f"[{card}] continuous serving, K12's device time over the profiled "
+        f"run: {sum(k12.values()):.3f} ms (tensor-core path "
+        f"{k12['tensor_core']:.3f}, page split {k12['split']:.3f}, its "
+        f"combine {k12['combine']:.3f}) of {cg_prof['device_ms']:.3f} ms")
     log(f"[{card}] continuous serving (bf16 weights and pool, "
         f"{CG_REQUESTS} requests, {sum(cg_run[2])} new tokens): "
         f"{cg_report['new_tokens_per_s']:.1f} new tokens/s, request p50 "
@@ -3688,18 +3807,24 @@ def main() -> int:
                          "attention_stream_bwd_dkv", "flash_bwd_delta"):
             # per call at the long-context path's shape, bf16; train_main's
             # f32 shape beside it
-            first, second = (flash_times[c[0]] for c in FLASH_PATH)
+            first = flash_times[FLASH_PATH[0][0]]
             entry.update({k2: first[wrapper][k2] for k2 in TIME_KEYS})
             entry["shape"], entry["dtype"] = first["shape"], first["dtype"]
-            entry[FLASH_PATH[1][0]] = dict(second[wrapper],
-                                           shape=second["shape"],
-                                           dtype=second["dtype"])
+            for c in FLASH_PATH[1:] + FLASH_TIMED:
+                t = flash_times[c[0]]
+                entry[c[0]] = dict(t[wrapper], shape=t["shape"],
+                                   dtype=t["dtype"])
         elif wrapper == "paged_attention":
-            # per call at the continuous path's decode shape, bf16
-            entry.update({k2: paged_times["decode"][k2] for k2 in TIME_KEYS})
+            # per call at the continuous path's decode shape (the page
+            # split), bf16; the prefill shapes (the tensor-core path) beside
+            entry.update({k2: paged_times["decode"][k2] for k2 in TIME_KEYS +
+                          ("device_ms", "library_device_ms")})
             entry["shape"] = paged_times["decode"]["shape"]
-            entry["prefill"] = {k2: paged_times[k2]
-                                for k2 in ("prefill_512", "prefill_128")}
+            entry["paths"] = {
+                "split": {"decode": paged_times["decode"]},
+                "tensor_core": {k2: paged_times[k2]
+                                for k2 in ("prefill_512", "prefill_128")}}
+            entry["continuous_device_ms"] = cg_prof["groups"]
         elif name in codec_times:    # per call at CODEC_N elements
             entry.update({k2: codec_times[name][k2] for k2 in TIME_KEYS})
             entry["elements"] = CODEC_N

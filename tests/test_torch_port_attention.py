@@ -20,7 +20,9 @@ where the model is bf16 (its LayerNorm rounds at each jnp op in JAX and
 once in torch), 1e-5 where it is f32, greedy tokens equal.  K12's plain
 version against the reference's ``paged_attention`` in interpret mode:
 float32 within 1e-6, bfloat16 within one bfloat16 step of each output's
-sum of |p·v|.
+sum of |p·v|.  K12's plan (``paged_plan``, which picks the kernel's path
+and grid from the shapes alone) on the continuous path's shapes and at the
+paths' edges.
 """
 
 import jax
@@ -52,9 +54,11 @@ CASES = [
     (2, 2, 2, 32, 32, 8, True),
     (1, 4, 4, 8, 24, 16, True),
     (2, 2, 1, 64, 64, 64, True),
-    # head dims the kernels pad to 256 (160) or take as they are (256)
+    # head dims the kernels pad to 256 (160) or take as they are (256), and
+    # one the D-chunked kernels take (320, a multiple of their panel)
     (2, 2, 1, 16, 16, 160, True),
     (2, 2, 2, 24, 16, 256, False),
+    (2, 2, 1, 16, 16, 320, True),
 ]
 IDS = [f"b{c[0]}h{c[1]}kv{c[2]}t{c[3]}tk{c[4]}d{c[5]}" +
        ("causal" if c[6] else "") for c in CASES]
@@ -325,11 +329,12 @@ def test_k8_backward_is_autograd_of_the_chunked_form(interpret, case):
 
 
 def test_head_dims_are_padded_to_the_kernels_sizes():
+    # up to 256 the wgmma tiles' sizes; above, multiples of the D-chunked
+    # kernels' 64-column panel, with no upper limit
     pick = tattn._kernel_head_dim
-    assert [pick("k", d) for d in (8, 16, 48, 64, 80, 96, 128, 160, 256)] == \
-        [16, 16, 64, 64, 128, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="up to 256"):
-        pick("k", 257)
+    dims = (8, 16, 48, 64, 80, 96, 128, 160, 256, 257, 300, 320, 512, 1000)
+    assert [pick(d) for d in dims] == \
+        [16, 16, 64, 64, 128, 128, 128, 256, 256, 320, 320, 320, 512, 1024]
 
 
 LM_CONFIGS = {"learned": dict(position="learned"),
@@ -377,18 +382,24 @@ def test_mixed_cache_and_model_dtypes_decode_as_jax(name, mix):
 
 # -- K12's plain version --------------------------------------------------------
 
-# (b, h, hkv, s, d, pages P, page size, lp, tokens per row): the cases of
-# tests/test_tuning.py's paged-kernel tests — GQA, ragged tables, S 1 and 2,
-# page sizes 4, 5 and 16 — with a NaN-poisoned trash page
-PAGED = [(3, 4, 2, 2, 8, 10, 4, 5, [11, 6, 19]),
-         (2, 4, 4, 1, 16, 9, 5, 4, [14, 3]),
-         (2, 8, 1, 2, 8, 6, 16, 3, [40, 17]),
-         (3, 4, 2, 1, 8, 10, 4, 5, [20, 0, 2])]
-PAGED_IDS = ["gqa-s2-ps4", "mha-s1-ps5", "mqa-s2-ps16", "all-trash-row"]
+# (b, h, hkv, s, d, pages P, page size, lp, tokens per row, (row, logical
+# page) slots set to the trash page): the cases of tests/test_tuning.py's
+# paged-kernel tests — GQA, ragged tables, S 1 and 2, page sizes 4, 5 and
+# 16 — with a NaN-poisoned trash page; a GQA prefill of 68 packed rows (the
+# kernel's tensor-core path in bf16, across its 64-row tile); page size 5
+# with a trash page inside a row's visible keys
+PAGED = [(3, 4, 2, 2, 8, 10, 4, 5, [11, 6, 19], []),
+         (2, 4, 4, 1, 16, 9, 5, 4, [14, 3], []),
+         (2, 8, 1, 2, 8, 6, 16, 3, [40, 17], []),
+         (3, 4, 2, 1, 8, 10, 4, 5, [20, 0, 2], []),
+         (2, 8, 2, 17, 16, 12, 16, 5, [70, 40], []),
+         (2, 4, 2, 3, 8, 12, 5, 6, [27, 18], [(0, 2)])]
+PAGED_IDS = ["gqa-s2-ps4", "mha-s1-ps5", "mqa-s2-ps16", "all-trash-row",
+             "gqa-prefill-68-rows", "ps5-trash-inside"]
 
 
 def _paged_inputs(case, seed):
-    b, h, hkv, s, d, p, ps, lp, lengths = case
+    b, h, hkv, s, d, p, ps, lp, lengths, holes = case
     rs = np.random.RandomState(seed)
     q = rs.standard_normal((b, h, s, d)).astype(np.float32)
     kp = rs.standard_normal((p + 1, hkv, ps, d)).astype(np.float32)
@@ -401,6 +412,8 @@ def _paged_inputs(case, seed):
         np_ = -(-n // ps)
         pages[r, :np_] = [perm.pop() for _ in range(np_)]
         pos[r] = np.arange(max(n, s) - s, max(n, s))
+    for r, page in holes:
+        pages[r, page] = p
     return q, kp, vp, pages, pos, 1.0 / np.sqrt(d)
 
 
@@ -444,8 +457,83 @@ def test_paged_wrapper_on_the_cpu_launches_nothing():
         tattn.paged_attention(q, kp, vp, pages.float(), pos, scale)
     with pytest.raises(TypeError, match="one dtype"):
         tattn.paged_attention(q, kp, vp.bfloat16(), pages, pos, scale)
-    assert tattn.paged_rows_per_block(64, 128, 16, 512) == tattn.PAGED_ROWS
-    assert tattn.paged_rows_per_block(256, 128, 16, 512) == 4
-    assert tattn.paged_rows_per_block(64, 128, 16, 3) == 3
-    with pytest.raises(ValueError, match="does not fit"):
-        tattn.paged_rows_per_block(64, 4096, 16, 1)
+    # the page-split path's rows a block: at most PAGED_ROWS, rows x D <=
+    # PAGED_OUT; the table's length no longer limits them (the score row
+    # left shared memory)
+    f32 = torch.float32
+    assert tattn.paged_plan(1, 8, 8, 512, 64, 16, 128, f32,
+                            f32).rows_per_block == tattn.PAGED_ROWS
+    assert tattn.paged_plan(1, 8, 8, 512, 256, 16, 128, f32,
+                            f32).rows_per_block == 4
+    assert tattn.paged_plan(1, 3, 1, 1, 64, 16, 128, f32,
+                            f32).rows_per_block == 3
+    assert tattn.paged_plan(1, 1, 1, 1, 64, 16, 4096, f32,
+                            f32).rows_per_block == 1
+    with pytest.raises(ValueError, match="head dims up to 1024"):
+        tattn.paged_plan(1, 1, 1, 1, 1025, 16, 8, f32, f32)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (b, h, hkv, s, d, ps, lp, q dtype, cache dtype, path): the continuous
+# path's decode and prefill shapes (8 slots, 8 heads, d 64, page size 16, a
+# 2048-token table), GQA prefill at the tensor-core path's edge, and what
+# takes the page split: f32, f32 q over a bf16 cache, d 48, 63 packed rows
+PLAN_PATHS = [(8, 8, 8, 1, 64, 16, 128, BF16, BF16, "split"),
+              (1, 8, 8, 512, 64, 16, 128, BF16, BF16, "tensor_core"),
+              (1, 8, 8, 128, 64, 16, 128, BF16, BF16, "tensor_core"),
+              (2, 8, 2, 16, 128, 8, 20, BF16, BF16, "tensor_core"),
+              (2, 8, 2, 17, 256, 5, 20, BF16, BF16, "tensor_core"),
+              (1, 8, 8, 512, 64, 16, 128, F32, F32, "split"),
+              (1, 8, 8, 512, 64, 16, 128, F32, BF16, "split"),
+              (1, 8, 8, 512, 48, 16, 128, BF16, BF16, "split"),
+              (1, 9, 1, 7, 64, 16, 128, BF16, BF16, "split")]
+
+
+@pytest.mark.parametrize("case", PLAN_PATHS,
+                         ids=["decode", "prefill-512", "prefill-128",
+                              "gqa-64-rows", "gqa-68-rows-d256", "f32",
+                              "f32-q-bf16-cache", "d48", "63-rows"])
+def test_paged_plan_picks_the_path_by_shape(case):
+    b, h, hkv, s, d, ps, lp, qdt, cdt, path = case
+    plan = tattn.paged_plan(b, h, hkv, s, d, ps, lp, qdt, cdt)
+    rows = h // hkv * s
+    assert plan.path == path
+    assert plan.row_tiles == -(-rows // plan.rows_per_block)
+    if path == "tensor_core":
+        assert plan.rows_per_block == 64 and plan.splits == 1
+        # a pool that does not start on 16 bytes takes the page split
+        assert tattn.paged_plan(b, h, hkv, s, d, ps, lp, qdt, cdt,
+                                aligned=False).path == "split"
+        return
+    assert 1 <= plan.rows_per_block <= tattn.PAGED_ROWS
+    assert plan.rows_per_block * d <= tattn.PAGED_OUT
+    assert plan.keys_per_tile in (8, 16, 32, 64)
+    # the splits cover the table once, none of them empty of pages
+    assert plan.pages_per_split * plan.splits >= lp
+    assert plan.pages_per_split * (plan.splits - 1) < lp
+    assert plan.pages_per_split * ps >= min(tattn.PAGED_SPLIT_KEYS, lp * ps)
+
+
+def test_paged_plan_fills_the_card_at_the_decode_shape():
+    # 8 slots x 8 heads, S 1, d 64 over a 2048-token table, each row with
+    # 520-576 visible keys (the continuous run's decode steps): the splits
+    # put at least one block with visible keys on each of the 132 SMs, and
+    # the grid holds two waves or more
+    plan = tattn.paged_plan(8, 8, 8, 1, 64, 16, 128, BF16, BF16)
+    blocks = 8 * 8 * plan.row_tiles * plan.splits
+    assert blocks >= 2 * tattn.H100_SMS
+    keys = plan.pages_per_split * 16
+    visible = sum(-(-n // keys) for n in [520, 576] * 32)
+    assert visible >= tattn.H100_SMS
+
+
+@pytest.mark.parametrize("dtypes", [(BF16, BF16), (F32, F32), (F32, BF16)],
+                         ids=["bf16", "f32", "f32-q-bf16-cache"])
+def test_paged_plan_takes_a_65536_token_table(dtypes):
+    # the old kernel kept a row of L scores in shared memory and raised
+    # here; the plan now sets no limit on the table's length
+    for s in (1, 512):
+        plan = tattn.paged_plan(8, 8, 8, s, 64, 16, 4096, *dtypes)
+        assert plan.pages_per_split * plan.splits >= 4096
+    plan = tattn.paged_plan(1, 1, 1, 1, 1024, 1, 65536, F32, F32)
+    assert plan.path == "split" and plan.keys_per_tile >= 8

@@ -21,8 +21,9 @@ float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
 outputs' own roundings can land one step apart, and K8/K9 round p to
 bfloat16 for the tensor cores (2^-9 of the sum at most); the bf16 K8 and
 K9 are bit-equal across two launches.  K8-K11 hold these tolerances at
-head dims 160 (zero-padded) and 256, and raise above 256 before any
-launch.  K9's row
+head dims 160 (zero-padded) and 256 and, through their D-chunked kernels,
+320 and 512.  K12 holds them on both of its paths (tensor cores, page
+split) and is bit-equal across two launches.  K9's row
 logsumexp agrees to 1e-5 of max(1, |lse|); the delta pass agrees with
 ``flash_bwd_delta_plain`` to 1e-5 of each row's sum |dO·O|; K10 and K11
 agree with ``flash_bwd_plain`` to 1e-4 of each gradient's largest magnitude
@@ -325,13 +326,17 @@ def test_attention_kernels_match_plain(cuda_device, case, dtype):
         assert not got[lengths.index(0)].float().abs().any()
 
 
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 320, 512])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_kernels_reject_other_head_dims(cuda_device, dtype, d):
-    # head dims up to 256 run: 160 zero-padded to 256, and 256 itself
-    # (K8, K9 with its LSE, K10 and K11 at test_flash_kernels_match_plain's
-    # tolerances); above 256 every wrapper raises before any launch
+def test_attention_kernels_take_every_head_dim(cuda_device, dtype, d):
+    # 160 zero-padded to 256 and 256 itself on the wgmma (bf16) and FFMA
+    # (f32) kernels; 320 and 512 on the D-chunked kernels of either dtype:
+    # K8, K9 with its LSE, K10 and K11 at test_flash_kernels_match_plain's
+    # tolerances, one launch each
     dt = getattr(torch, dtype)
+    wrappers = (attn.attention_fwd, attn.attention_stream_fwd,
+                attn.attention_stream_bwd_dq, attn.attention_stream_bwd_dkv)
+    before = [f.launches for f in wrappers]
     case = (2, 4, 2, 130, 130, d, True, [130, 77])
     q, k, v, do, bias = _flash_inputs(case, dt, cuda_device)
     got = attn.attention_fwd(q, k, v, True)
@@ -360,20 +365,7 @@ def test_attention_kernels_reject_other_head_dims(cuda_device, dtype, d):
         assert a.shape == w.shape and torch.isfinite(a).all()
         assert (a.float() - w.float()).abs().max().item() <= \
             rtol * w.float().abs().max().item()
-
-    x = torch.randn((1, 2, 16, 300), device=cuda_device).to(dt)
-    lse = torch.zeros((1, 2, 16), device=cuda_device)
-    wrappers = (attn.attention_fwd, attn.attention_stream_fwd,
-                attn.flash_bwd_delta, attn.attention_stream_bwd_dq,
-                attn.attention_stream_bwd_dkv)
-    before = [f.launches for f in wrappers]
-    for run in (lambda: attn.attention_fwd(x, x, x),
-                lambda: attn.attention_stream_fwd(x, x, x),
-                lambda: attn.attention_stream_bwd_dq(x, x, x, x, lse, x),
-                lambda: attn.attention_stream_bwd_dkv(x, x, x, x, lse, x)):
-        with pytest.raises(ValueError, match="head dims up to 256"):
-            run()
-    assert [f.launches for f in wrappers] == before
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1] * 4
 
 
 @pytest.mark.parametrize("case", [(2, 8, 2, 200, 200, 64, True, None),
@@ -596,9 +588,22 @@ PAGED_CASES = [
     (3, 8, 8, 1, 64, 16, 4, [50, 0, 64], False),
     (2, 8, 8, 4, 64, 16, 6, [90, 17], True),
     (2, 4, 2, 3, 48, 4, 20, [77, 3], False),
+    # the tensor-core path in bf16 (the page split in f32): 68 packed GQA
+    # rows across its 64-row tile, page sizes 5 and 8, head dims 128 and
+    # 256, large scores, an all-trash row
+    (2, 8, 2, 17, 64, 16, 8, [100, 40], False),
+    (1, 8, 2, 20, 128, 5, 30, [140], False),
+    (2, 4, 1, 32, 256, 8, 20, [150, 0], False),
+    (2, 8, 1, 16, 64, 16, 6, [90, 17], True),
+    # a 65 536-token table, past the old kernel's limit (a row of L scores
+    # in shared memory): decode on the page split, 64 rows on either path
+    (2, 4, 4, 1, 64, 16, 4096, [40000, 65536], False),
+    (1, 2, 2, 64, 64, 16, 4096, [65536], False),
 ]
 PAGED_IDS = ["gqa-decode", "mqa-ps5", "prefill-d128", "inactive-row",
-             "large-scores", "d48-ps4"]
+             "large-scores", "d48-ps4", "gqa-68-rows", "ps5-d128-80-rows",
+             "ps8-d256-128-rows", "large-scores-64-rows", "table-65536",
+             "table-65536-64-rows"]
 
 
 def paged_operands(case, dtype, cache_dtype, device, seed):
@@ -652,6 +657,26 @@ def test_paged_attention_kernel_matches_plain(cuda_device, case, dtype):
     before = attn.paged_attention.launches
     assert _paged_close(paged_operands(case, dt, dt, cuda_device, 7), dt)
     assert attn.paged_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [PAGED_CASES[0], PAGED_CASES[6],
+                                  PAGED_CASES[8]],
+                         ids=["gqa-decode", "gqa-68-rows",
+                              "ps8-d256-128-rows"])
+def test_paged_attention_kernel_is_bit_equal_across_launches(cuda_device,
+                                                             case, dtype):
+    # the page split adds its partials in split order and the tensor-core
+    # path walks a row's tiles in order: no atomics
+    dt = getattr(torch, dtype)
+    ops = paged_operands(case, dt, dt, cuda_device, 9)
+    b, h, hkv, s, d, ps, lp = case[:7]
+    plan = attn.paged_plan(b, h, hkv, s, d, ps, lp, dt, dt)
+    assert plan.path == ("tensor_core" if dt == torch.bfloat16 and s > 1
+                         else "split")
+    a, c = attn.paged_attention(*ops), attn.paged_attention(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("pair", [("float32", "bfloat16"),

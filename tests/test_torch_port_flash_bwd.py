@@ -56,10 +56,12 @@ CASES = [
     (2, 4, 1, 48, 48, 32, False, [20, 48]),
     (1, 4, 2, 72, 72, 160, True, None),
     (2, 2, 1, 40, 40, 256, True, [40, 17]),
+    # above 256: the D-chunked kernels' head dims
+    (2, 2, 1, 40, 40, 320, True, [40, 17]),
 ]
 IDS = ["gqa2-t72", "mqa-tq40-tk136-noncausal", "tq136-tk72",
        "gqa2-noncausal", "padded-a-row-all-padded", "mqa-padded-noncausal",
-       "d160-t72", "d256-padded"]
+       "d160-t72", "d256-padded", "d320-padded"]
 
 
 def _inputs(case, seed):

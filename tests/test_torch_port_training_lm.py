@@ -144,9 +144,11 @@ def test_lm_training_steps_match_jax_through_the_flash_backward(
             np.testing.assert_allclose(b, a, rtol=0, atol=1e-4)
 
 
-# head dim 256, the kernels' largest (embed 512 over 2 heads); the key-
+# head dim 256, the wgmma kernels' largest (embed 512 over 2 heads), and
+# 320 (embed 640 over 2 heads), which the D-chunked kernels take; the key-
 # padding mask routes both frameworks' attention to the streaming kernels
 D256 = dict(max_len=64, embed_dim=512, num_heads=2, num_layers=2)
+D320 = dict(D256, embed_dim=640)
 
 
 @pytest.mark.parametrize("what", ["eval", "step"])
@@ -156,10 +158,21 @@ def test_head_dim_256_lm_matches_jax(monkeypatch, what):
     stepped model's log-probs to 1e-4) of a head-dim-256 LM through the port's K9
     autograd function (the plain versions here) against JAX's K9 and flash
     backward in interpret mode."""
+    _wide_head_lm_matches_jax(monkeypatch, what, D256)
+
+
+@pytest.mark.parametrize("what", ["eval", "step"])
+def test_head_dim_320_lm_matches_jax(monkeypatch, what):
+    """As the head-dim-256 test, at head dim 320 (padded to no other size:
+    a multiple of the D-chunked kernels' 64-column panel)."""
+    _wide_head_lm_matches_jax(monkeypatch, what, D320)
+
+
+def _wide_head_lm_matches_jax(monkeypatch, what, config):
     monkeypatch.setenv("BIGDL_TPU_PALLAS_INTERPRET", "1")
-    jm = JTransformerLM(VOCAB, **D256)
+    jm = JTransformerLM(VOCAB, **config)
     params, state = jm.init(jax.random.PRNGKey(0))
-    tm = TransformerLM(VOCAB, **D256)
+    tm = TransformerLM(VOCAB, **config)
     load_jax_params(tm, jax.tree_util.tree_map(np.asarray, params))
     rs = np.random.RandomState(7)
     ids = rs.randint(1, VOCAB + 1, (2, 65))
@@ -176,7 +189,7 @@ def test_head_dim_256_lm_matches_jax(monkeypatch, what):
         want, _ = jm.apply(params, state, jx, key_padding_mask=jkpm)
         with torch.inference_mode():
             got = tm.evaluate()(tx, key_padding_mask=tkpm)
-        assert len(seen) == D256["num_layers"]
+        assert len(seen) == config["num_layers"]
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-4)
         return
@@ -192,7 +205,7 @@ def test_head_dim_256_lm_matches_jax(monkeypatch, what):
     logp = tm(tx, key_padding_mask=tkpm)
     loss = -logp.gather(-1, torch.from_numpy(y)[..., None]).mean()
     loss.backward()
-    assert len(seen) == D256["num_layers"]
+    assert len(seen) == config["num_layers"]
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
     jleaves = jax.tree_util.tree_leaves(
         jax.tree_util.tree_map(np.asarray, want_grads))
