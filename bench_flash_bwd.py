@@ -9,9 +9,11 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 bench_flash_bwd.py ab <parent checkout>
     python3 bench_flash_bwd.py ptxas
     python3 bench_flash_bwd.py mutants
+    python3 bench_flash_bwd.py ablate
 
 ``ab`` runs each checkout's own ``chip_smoke.long_context_training``
-(phase 3h), ``chip_smoke.time_attention`` (K8 and K9 per call beside
+(phase 3h), ``chip_smoke.train_main_long`` (phase 3i, f32 ``train_main``
+at 8 x 4096, then 3j's resume), ``chip_smoke.time_attention`` (K8 and K9 per call beside
 SDPA), the bf16 LM scoring forwards (8 x 2048 and 1 x 8192, with their
 device time by torch.profiler) and ``chip_smoke.time_flash`` (K10, K11
 and, where the tree has it, the delta pass, beside SDPA's backward at
@@ -23,9 +25,15 @@ archive <commit> bigdl_tpu_torch chip_smoke.py | tar -x -C build/parent``
 ``flash_attention_bwd.cu`` with ``-Xptxas -v`` under ``build/ptxas/`` and
 prints each kernel's registers, spills and whether ptxas serialized its
 wgmma (info C7515).  ``mutants`` copies the port and ``chip_smoke.py`` under
-``build/mutant_<name>/``, breaks one step of K8/K9 or one product of K11 in
-each copy, and fails unless phase 2d (``check_attention_kernels``) or 2f
-(``check_flash_kernels``) fails in every copy.
+``build/mutant_<name>/``, breaks one step of K8/K9, of the bf16 K11 or of
+the f32 K10 or K11 in each copy, and fails unless phase 2d
+(``check_attention_kernels``) or 2f (``check_flash_kernels``) fails in every
+copy.  ``ablate`` builds edited copies of ``flash_attention_bwd.cu`` under
+``build/ablate/<name>/``, each into a library of its own (all ``nvcc`` runs
+started together), and times the f32 K10 and K11 of each at ``train_main``'s
+shape (FLASH_PATH's f32 case, CUDA events, the L2 flushed) in turns, the
+unedited copy first and last: parts of the kernels switched off, to see
+where their time goes, and other tile shapes.
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ for key in ("remat", "no_remat"):
                                           "launches_per_step")}
 res["busy_share"] = long["profile"]["busy_share"]
 res["device_ms_per_step"] = long["profile"]["device_ms"]
+tm, _, _ = cs.train_main_long(dev)   # f32, 8 x 4096: 8 K10 + 8 K11 a step
+res["train_main"] = {k: tm[k] for k in ("step_ms_median_after_first",
+                                        "step_ms", "losses")}
 attn, sweep = cs.time_attention(dev)
 res["attention"] = {name: {k: r.get(k) for k in (
     "kernel", "dtype", "ms", "device_ms", "library_ms", "bound_ms")}
@@ -107,9 +118,16 @@ def _kernel_name(mangled: str) -> str:
     if m:
         return (f"{'K9' if m.group(3) == '1' else 'K8'} {m.group(1)} D "
                 f"{m.group(2)} bias {m.group(4)} lse {m.group(5)}")
-    m = re.search(r"((?:dq|dkv)_(?:bf16|f32))ILi(\d+)ELb([01])E", mangled)
+    m = re.search(r"((?:dq|dkv)_(?:bf16|f32_ring))ILi(\d+)ELb([01])E",
+                  mangled)
     if m:
         return f"{m.group(1)} D {m.group(2)} bias {m.group(3)}"
+    m = re.search(r"((?:attn|dq|dkv)_wide)I(f|13__nv_bfloat16)((?:Lb[01]E?)+)",
+                  mangled)
+    if m:
+        flags = " ".join(re.findall(r"Lb([01])", m.group(3)))
+        return (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'} "
+                f"flags {flags}")
     return "delta_kernel " + ("bf16" if "bfloat16" in mangled else "f32")
 
 
@@ -150,14 +168,14 @@ def cmd_ptxas() -> int:
     return rc
 
 
-# K8/K9 broken three ways, each copy must fail phase 2d; K11 two ways,
-# each must fail phase 2f.  The products p·V (K8/K9) and pᵀ·dO (K11's dv)
+# K8/K9 broken three ways, each copy must fail phase 2d; the bf16 K11 two
+# ways and the f32 K10 and K11 one way each, each must fail phase 2f.  The products p·V (K8/K9) and pᵀ·dO (K11's dv)
 # read their B operand MN-major (transpose bit 1); those mutants read it
 # through a K-major descriptor with the bit 0, i.e. transposed inside its
 # tile
-_PV = "    wg::mma_rs(acc, a[c], wg::Tile<D>::template mnmajor<kBK>(vs, c));"
-_PV_T0 = ("    if constexpr (D == 64)\n      wg::mma_rs_t0(acc, a[c], "
-          "wg::Tile<D>::template kmajor<kBK>(vs, c));\n    else\n  " + _PV)
+_PV = "    mma_rs(acc, a[c], Tile<D>::template mnmajor<64>(vs, c));"
+_PV_T0 = ("    if constexpr (D == 64)\n      mma_rs_t0(acc, a[c], "
+          "Tile<D>::template kmajor<64>(vs, c));\n    else\n  " + _PV)
 _DV = ("      wg::mma_rs(dva, pa[c], T::template mnmajor<kTile>(ds + cols, "
        "c));")
 _DV_T0 = ("      if constexpr (D == 64)\n        wg::mma_rs_t0(dva, pa[c], "
@@ -190,8 +208,9 @@ MUTANTS = {
     "k9_no_alpha_rescale": ([(FWD_CU, lambda s: s.replace(
         "const float alpha = ex2((m[ri] - m_new) * kLog2e);",
         "const float alpha = 1.0f;"))], "check_attention_kernels"),
+    # (the p·V product of K8/K9 is wgmma.cuh's `accumulate`)
     "k8_k9_v_kmajor": ([(WGMMA, _with_t0),
-                        (FWD_CU, lambda s: s.replace(_PV, _PV_T0))],
+                        (WGMMA, lambda s: s.replace(_PV, _PV_T0))],
                        "check_attention_kernels"),
     "k8_per_tile_max": ([(FWD_CU, lambda s: s.replace(
         _K8_P2.format("", "m", ""), _K8_TILE_MAX))],
@@ -203,6 +222,19 @@ MUTANTS = {
     "k11_dv_transpose_bit": ([(WGMMA, _with_t0),
                               (CU, lambda s: s.replace(_DV, _DV_T0))],
                              "check_flash_kernels"),
+    # the f32 K11 sums dv from ds in place of p
+    "k11_f32_dv_from_ds": ([(CU, lambda s: s.replace(
+        "outer<C, kInner>(acc, ps + ln.co, dot + ln.cc * C::kVec);",
+        "outer<C, kInner>(acc, dss + ln.co, dot + ln.cc * C::kVec);"))],
+        "check_flash_kernels"),
+    # the f32 K10 reads K and V from the ring stage one tile late (the
+    # stage of tile it - 1, which the copies of tile it + 1 are filling)
+    "k10_f32_stage_late": ([(CU, lambda s: s.replace(
+        "    const float* kt = ks + s * C::kTileF;\n"
+        "    const float* vt = vs + s * C::kTileF;",
+        "    const float* kt = ks + (s ^ 1) * C::kTileF;\n"
+        "    const float* vt = vs + (s ^ 1) * C::kTileF;"))],
+        "check_flash_kernels"),
 }
 
 
@@ -236,6 +268,98 @@ def cmd_mutants() -> int:
     return 0 if caught else 1
 
 
+# name: edits of flash_attention_bwd.cu (the first is the unedited copy).
+# Switched-off parts keep their code (a condition the kernel cannot know to
+# be false), so the rest compiles as before; their outputs are wrong.
+_NEVER = "if (p.tq < 0) "
+ABLATIONS = {
+    "as committed": [],
+    # no second products: dq = ds k, and dv = p^T dO, dk = ds^T q
+    "no second products": [
+        ("    outer<C, kHalf>(acc,", "    " + _NEVER + "outer<C, kHalf>(acc,"),
+        ("    outer<C, kInner>(acc,", "    " + _NEVER + "outer<C, kInner>(acc,")],
+    # s and dp over the first 2 of D's columns only
+    "scores over 2 columns": [
+        ("  for (int d = 0; d < C::kD; d += 2) {",
+         "  for (int d = 0; d < 2; d += 2) {")],
+    "scores unrolled 1": [
+        ("#pragma unroll 2\n  for (int d = 0; d < C::kD; d += 2) {",
+         "#pragma unroll 1\n  for (int d = 0; d < C::kD; d += 2) {")],
+    "scores unrolled 4": [
+        ("#pragma unroll 2\n  for (int d = 0; d < C::kD; d += 2) {",
+         "#pragma unroll 4\n  for (int d = 0; d < C::kD; d += 2) {")],
+    "second products unrolled 2": [
+        ("#pragma unroll 4\n  for (int r = 0; r < N; ++r) {",
+         "#pragma unroll 2\n  for (int r = 0; r < N; ++r) {")],
+}
+
+
+def cmd_ablate() -> int:
+    import ctypes
+    import torch
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import attention as attn
+    src = open(CU).read()
+    procs = {}
+    for i, (name, edits) in enumerate(ABLATIONS.items()):
+        root = os.path.join("build", "ablate", str(i))
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        for h in os.listdir(os.path.dirname(CU)):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(os.path.dirname(CU), h), root)
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"ablation {name}: the source no longer "
+                                 f"holds {old!r}")
+            text = text.replace(old, new)
+        open(f"{root}/k.cu", "w").write(text)
+        procs[name] = (root, subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", "-o",
+             f"{root}/k.so", f"{root}/k.cu"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (root, proc) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"ablation {name}: nvcc failed\n{out[-3000:]}")
+        lib = ctypes.CDLL(os.path.abspath(f"{root}/k.so"))
+        for entry in ("bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv"):
+            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+            getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = lib
+    dev = torch.device("cuda", 0)
+    case = cs.FLASH_PATH[1]
+    b, h, hk, t, tk, d = case[1:7]
+    q, k, v, bias, o, lse, do = cs.flash_grads(case, torch.float32, dev,
+                                               cs.SEED + 500)
+    delta = attn.flash_bwd_delta(o, do)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), delta.data_ptr(),
+              lse.data_ptr(), do.data_ptr(), None)
+
+    def timed(lib):
+        ms = {}
+        for key, entry, outs in (("k10_ms", "bigdl_flash_bwd_dq", (dq,)),
+                                 ("k11_ms", "bigdl_flash_bwd_dkv", (dk, dv))):
+            fn = getattr(lib, entry)
+            args = common + tuple(x.data_ptr() for x in outs) + (
+                0, b, h, hk, t, tk, d, d ** -0.5, 1,
+                _build.stream_ptr(q))
+            ms[key] = cs.median_ms(lambda: _build.check(fn(*args), entry),
+                                   dev, flush=flush)
+        return ms
+    order = list(libs) + [next(iter(libs))]
+    for name in order:
+        print("RESULT " + json.dumps(dict(timed(libs[name]), name=name)),
+              flush=True)
+    return 0
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -251,6 +375,8 @@ def main(argv) -> int:
         return cmd_ptxas()
     if cmd == "mutants":
         return cmd_mutants()
+    if cmd == "ablate":
+        return cmd_ablate()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -18,14 +18,15 @@
 //
 // K10 replaces `_bwd_dq_kernel` (via `_flash_streaming_bwd`).  The TPU
 // kernel carried dq in VMEM scratch over a sequential K grid axis.  Here a
-// block owns (one B*H row, 64 query rows), keeps dq in f32 registers, and
-// walks the 64-key K/V tiles up to the causal frontier, last rows first
+// block owns (one B*H row, 64 query rows; f32 as below), keeps dq in f32
+// registers, and walks the K/V tiles up to the causal frontier, last rows
+// first
 // (they have the most tiles), skipping tiles whose keys are all padded, as
 // K9 does.  K11 replaces `_bwd_dkv_kernel`.  The TPU kernel ran an inner
 // grid of group * n_q_blocks steps per KV block (every query block of every
 // query head sharing the KV head) into VMEM scratch.  Here a block owns
-// (one B*Hk row, 64 keys), first keys first, keeps dk and dv in f32
-// registers, and loops over the same group * n_q query tiles of 64 rows
+// (one B*Hk row, 64 keys; f32 as below), first keys first, keeps dk and
+// dv in f32 registers, and loops over the same group * n_q query tiles
 // itself, from its causal frontier on.  So neither needs an atomicAdd:
 // their sums have a fixed order and two launches are bit-equal.  A K11
 // tile whose keys are all padded writes zeros and loops over nothing.
@@ -54,20 +55,46 @@
 //   (no producer warp, no ping-pong between warpgroups), so the tensor
 //   cores idle during the elementwise step; the other blocks on the SM
 //   hide part of it.
-// * f32 (train_main's path): FFMA, one lane per key (K10) or per query
-//   (K11) for the scores, one lane per output column for the products,
-//   every tile staged single-buffered by the threads; bound by FFMA's rate
-//   over the same FLOPs.  No TF32: the reference computes in f32.
+// * f32 (train_main's path): bound by FFMA's rate over the same FLOPs (no
+//   TF32: the reference computes in f32), and as much by what shared
+//   memory hands the FFMA units: 128 bytes a clock an SM, one 4-byte
+//   register a lane, against 128 FFMA lanes, so a product loop keeps pace
+//   only with 4 FFMA or more per register it loads.  A block is 256
+//   threads, one an SM (up to 254 registers a thread, no spills).  The tiles
+//   that stay (q, dO, lse and delta for K10; K and V for K11) are copied
+//   once; the streamed tiles (K, V and the bias for K10; q, dO, lse and
+//   delta for K11) come through a 2-stage ring of 16-byte cp.async.cg
+//   copies (4-byte ones for lse, delta and the bias), each tile's issued
+//   while the tile before it is computed; rows past T are zero-filled by a
+//   source size of 0.  The block's two halves split the products: the
+//   first sums s, the second dp, each thread an 8 x 8 micro-tile read as
+//   float2 along D (16 loads for 128 FFMA: 8 a load instruction, 4 a
+//   register).  K10's halves then hand each other s or dp through ds^T in
+//   shared memory and each finishes ds for one half of the tile's keys, and
+//   sums dq = ds k over them (adding the two halves' dq at the end); K11's
+//   first half writes p and sums dv = p^T dO while the second turns p into
+//   ds and sums dk = ds^T q (named barriers let each half go on as soon as
+//   its operand is whole).  In those second products a thread owns 8
+//   output rows x 8 columns and reads p or ds (stored transposed: a row a
+//   key for K10, a row a query for K11) and the streamed tile's row as
+//   float4: 4 loads for 64 FFMA, 16 a load instruction, 4 a register.
+//   Rows are padded to D + 4 floats, so a warp's loads are free of bank
+//   conflicts.  Tiles (a block's own x streamed), and micro-tiles (scores;
+//   outputs): up to D 64 K10 128 query rows x 64 keys and K11 128 keys x 64
+//   query rows (8 x 8; 8 x 8, but 8 x 4 at D 32 and 4 x 4 at D 16, 10.7 and
+//   8 FFMA a load instruction); at D 128 K10 64 x 64 (8 x 4, 5.3 a load
+//   instruction; 8 x 8) and K11 64 x 32, since 64 rows of q and dO would
+//   not fit beside K and V (4 x 4, 4; 8 x 8); at D 256 both 32 x 32 (4 x 2,
+//   2.7; 8 x 8).  The mask only on tiles across the causal diagonal or a
+//   ragged tail; elsewhere, without a bias, p = 2^(s c - lse log2 e).
 // Head dims 16, 32, 64, 128 and 256 (the wrapper zero-pads others up to
 // 256); rows past Tq or keys past Tk are zero-filled and masked, so T need
-// not be a multiple of 64.  At D 256 (a tile of 64 rows is 32 KB in bf16):
-// the bf16 ring has two stages, not three (K10: q and dO, then K and V a
-// stage, 192 KB in all; K11: K and V, then q and dO a stage); the bf16 K11
-// would need 256 registers a thread for dk and dv, so a block holds one
+// not be a multiple of a tile.  At D 256 (a tile of 64 rows is 32 KB in
+// bf16): the bf16 ring has two stages, not three (K10: q and dO, then K and
+// V a stage, 192 KB in all; K11: K and V, then q and dO a stage); the bf16
+// K11 would need 256 registers a thread for dk and dv, so a block holds one
 // half of their columns (a third grid axis) and recomputes s and dp over
-// all of D, 1.5x the FLOPs; the f32 K10 takes 32 query rows a block (8 a
-// warp) and the f32 K11 32 keys (4 a warp), 205 568 and 214 144 bytes of
-// shared memory.
+// all of D, 1.5x the FLOPs.
 #include <cstdint>
 
 #include "common.cuh"
@@ -88,8 +115,9 @@ using wg::to_a;
 constexpr float kNegInf = -1e30f;
 constexpr int kTile = 64;           // query rows (K10) or keys (K11) a
                                     // block, rows of a streamed tile
-constexpr int kThreads = 128;       // f32 K10: 4 warps
-constexpr int kF32DkvThreads = 256; // f32 K11: 8 warps
+constexpr int kF32Threads = 256;    // f32 K10 and K11: 8 warps
+constexpr int kThreads = 128;       // dq_wide: 4 warps
+constexpr int kWideDkvThreads = 256;  // dkv_wide: 8 warps
 constexpr int kWgThreads = 128;     // bf16: one warpgroup a block
 
 // bf16: the depth of the TMA ring; three stages of 64-row tiles at D 256
@@ -537,295 +565,524 @@ __global__ void __launch_bounds__(kWgThreads) dkv_bf16(
   }
 }
 
-// ---- K10, float32 ----------------------------------------------------------
+// ---- K10 and K11, float32 --------------------------------------------------
 
-// query rows of an f32 K10 block: 64 (16 a warp), or 32 (8 a warp) at D
-// 256, where 64 rows of q and dO beside the K and V tiles would not fit
-template <int D>
-__host__ __device__ constexpr int dq_f32_rows() {
-  return D <= 128 ? kTile : kTile / 2;
+// The tiles of the f32 K10 and K11.  The outer side is a block's own (K10:
+// its query rows, whose q and dO stay; K11: its keys, whose K and V stay),
+// the inner side comes through the ring (K10: the keys of a K/V tile; K11:
+// the query rows of a q/dO tile).  A block's two halves of 128 threads
+// split every product: the first half sums s, the second dp (each thread
+// a kAo x kAi micro-tile of outer x inner); then K10's halves each sum dq
+// over one half of the tile's keys (added at the end), K11's first half dv
+// and its second dk (each thread kCo outer indices x kCc columns).  Rows
+// of q, K, V and dO are padded to D + 4 floats and rows of p and ds to
+// kOuter + 4: 16-byte aligned, and eight consecutive rows start on eight
+// distinct 8-byte bank pairs.
+template <int D, bool kDq>
+struct F32Tiles {
+  static constexpr int kD = D;
+  static constexpr int kOuter = D <= 64 ? 128 : D == 128 ? 64 : 32;
+  // K11 at D 128 streams 32 query rows: 64 would not fit beside its K/V
+  static constexpr int kInner = D <= 64 || (kDq && D == 128) ? 64 : 32;
+  static constexpr int kAo = D <= 64 || (kDq && D == 128) ? 8 : 4;
+  static constexpr int kAi = kOuter * kInner / 128 / kAo;
+  static constexpr int kAog = kOuter / kAo, kAig = kInner / kAi;
+  static constexpr int kCo = D == 16 ? 4 : 8;
+  static constexpr int kCc = kOuter * D / 128 / kCo;
+  static constexpr int kCcg = D / kCc;
+  static constexpr int kVec = kCc < 4 ? kCc : 4;
+  static constexpr int kLd = D + 4, kLdx = kOuter + 4;
+  static constexpr int kTileF = kInner * kLd;  // floats of a streamed tile
+  // floats: K10 q, dO; K and V a stage; the bias a stage; lse, delta; ds^T.
+  // K11 K, V; q and dO a stage; lse and delta a stage; p, ds
+  static constexpr int kFloats =
+      kDq ? 2 * kOuter * kLd + 2 * 2 * kTileF + 2 * kInner + 2 * kOuter +
+                kInner * kLdx
+          : 2 * kOuter * kLd + 2 * 2 * kTileF + 2 * 2 * kInner +
+                2 * kInner * kLdx;
+  static constexpr int kBytes = kFloats * 4;
+  static_assert(kAog * kAig == 128 && kAog >= 4 && kAig >= 8, "s lanes");
+  static_assert(kOuter / kCo * kCcg == 128, "output lanes");
+};
+
+// A thread's half and indices.  In s or dp its outer indices are ao +
+// kAog i and its inner ones ai + kAig j, a warp 4 x 8 of them, so that a
+// warp's loads of either side read 4 or 8 consecutive rows.  In the
+// outputs its outer indices are co + i (i < kCo) and its columns cc kVec +
+// g kCcg kVec + e (e < kVec), a warp 4 x 8 of them (8 x 4 at D 16): its
+// loads of p or ds read 128 consecutive bytes, its loads of the streamed
+// tile 32 consecutive floats or fewer.
+template <typename C>
+struct F32Lanes {
+  int half, ao, ai, co, cc;
+  __device__ __forceinline__ F32Lanes() {
+    const int t = threadIdx.x % 128, w = t / 32, l = t % 32;
+    half = threadIdx.x / 128;
+    constexpr int kAw = C::kAig / 8;  // warps across the inner side
+    ao = w / kAw * 4 + l / 8;
+    ai = w % kAw * 8 + l % 8;
+    constexpr int kLw = C::kCcg < 8 ? C::kCcg : 8;  // lanes across columns
+    constexpr int kCw = C::kCcg / kLw;              // warps across columns
+    co = (w / kCw * (32 / kLw) + l / kLw) * C::kCo;
+    cc = w % kCw * kLw + l % kLw;
+  }
+};
+
+// a named barrier of n threads (id 0 is __syncthreads'): bar_arrive
+// counts the thread in without waiting, bar_sync waits until all n have
+// come; either orders the thread's earlier shared-memory writes before
+// the barrier completes
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-template <int D>
-constexpr int dq_f32_smem() {  // q, dO, K and V (padded rows), ds, bias
-  return (2 * dq_f32_rows<D>() * D + 2 * kTile * (D + 1) +
-          dq_f32_rows<D>() * kTile + kTile) * 4;
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// n rows of D floats from row r0 of x into dst (rows of D + 4 floats) by
+// 16-byte cp.async copies of every thread; rows at or past `end` zero-filled
+template <int D, int N>
+__device__ __forceinline__ void copy_rows(float* dst, const float* x, int r0,
+                                          int end) {
+  constexpr int kChunks = D / 4;
+  static_assert(N * kChunks % kF32Threads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int n = 0; n < N * kChunks / kF32Threads; ++n) {
+    const int e = threadIdx.x + n * kF32Threads;
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = r0 + r < end;
+    wg::cp16(wg::smem_addr(dst + r * (D + 4) + 4 * c),
+             x + (ok ? static_cast<long long>(r0 + r) * D + 4 * c : 0), ok);
+  }
+}
+
+// n floats of x from r0 into dst by 4-byte cp.async copies of threads
+// [t0, t0 + n); zeros at or past `end`
+__device__ __forceinline__ void copy_row(float* dst, const float* x, int r0,
+                                         int end, int t0, int n) {
+  const int r = static_cast<int>(threadIdx.x) - t0;
+  if (r >= 0 && r < n) {
+    const bool ok = r0 + r < end;
+    wg::cp4(wg::smem_addr(dst + r), x + (ok ? r0 + r : 0), ok);
+  }
+}
+
+// x[i][j] = sum over d of a[i][d] b[j][d], the thread's outer rows at a +
+// kAog i (D + 4) and inner rows at b + kAig j (D + 4), both read as float2
+// along D: kAo + kAi loads for 2 kAo kAi FFMA, d in order
+template <typename C>
+__device__ __forceinline__ void dots(float (&x)[C::kAo][C::kAi],
+                                     const float* a, const float* b) {
+  constexpr int kLd = C::kLd;
+#pragma unroll
+  for (int i = 0; i < C::kAo; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kAi; ++j) x[i][j] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < C::kD; d += 2) {
+    float2 av[C::kAo], bv[C::kAi];
+#pragma unroll
+    for (int i = 0; i < C::kAo; ++i)
+      av[i] = *reinterpret_cast<const float2*>(a + C::kAog * i * kLd + d);
+#pragma unroll
+    for (int j = 0; j < C::kAi; ++j)
+      bv[j] = *reinterpret_cast<const float2*>(b + C::kAig * j * kLd + d);
+#pragma unroll
+    for (int i = 0; i < C::kAo; ++i)
+#pragma unroll
+      for (int j = 0; j < C::kAi; ++j) {
+        x[i][j] = fmaf(av[i].x, bv[j].x, x[i][j]);
+        x[i][j] = fmaf(av[i].y, bv[j].y, x[i][j]);
+      }
+  }
+}
+
+// acc[i][c] += sum over r < N of x[r][i] y[r][column c]: x rows at x + r
+// (kOuter + 4), the thread's kCo outer indices read as float4; y rows at
+// y + r (D + 4) from the thread's first column, its columns in groups of
+// kVec a kCcg kVec apart.  kCo / 4 + kCc / kVec loads for kCo kCc FFMA, r
+// in order
+template <typename C, int N>
+__device__ __forceinline__ void outer(float (&acc)[C::kCo][C::kCc],
+                                      const float* x, const float* y) {
+  constexpr int kCo = C::kCo, kCc = C::kCc, kV = C::kVec;
+#pragma unroll 4
+  for (int r = 0; r < N; ++r) {
+    float xs[kCo], yv[kCc];
+#pragma unroll
+    for (int g = 0; g < kCo / 4; ++g) {
+      const float4 t = *reinterpret_cast<const float4*>(x + r * C::kLdx +
+                                                        4 * g);
+      xs[4 * g] = t.x, xs[4 * g + 1] = t.y, xs[4 * g + 2] = t.z,
+      xs[4 * g + 3] = t.w;
+    }
+#pragma unroll
+    for (int g = 0; g < kCc / kV; ++g) {
+      const float* at = y + r * C::kLd + g * C::kCcg * kV;
+      if constexpr (kV == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(at);
+        yv[4 * g] = t.x, yv[4 * g + 1] = t.y, yv[4 * g + 2] = t.z,
+        yv[4 * g + 3] = t.w;
+      } else if constexpr (kV == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(at);
+        yv[2 * g] = t.x, yv[2 * g + 1] = t.y;
+      } else {
+        yv[g] = *at;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCo; ++i)
+#pragma unroll
+      for (int c = 0; c < kCc; ++c) acc[i][c] = fmaf(xs[i], yv[c], acc[i][c]);
+  }
+}
+
+// the address of the thread's column group g in a row of D floats
+template <typename C>
+__device__ __forceinline__ int col_at(int cc, int g) {
+  return g * C::kCcg * C::kVec + cc * C::kVec;
+}
+
+// one output row (D floats at out) from the thread's acc at its columns
+template <typename C>
+__device__ __forceinline__ void store_row(float* out,
+                                          const float (&acc)[C::kCc],
+                                          int cc) {
+  constexpr int kV = C::kVec;
+#pragma unroll
+  for (int g = 0; g < C::kCc / kV; ++g) {
+    float* at = out + col_at<C>(cc, g);
+    if constexpr (kV == 4)
+      *reinterpret_cast<float4*>(at) =
+          make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2],
+                      acc[4 * g + 3]);
+    else if constexpr (kV == 2)
+      *reinterpret_cast<float2*>(at) = make_float2(acc[2 * g], acc[2 * g + 1]);
+    else
+      *at = acc[g];
+  }
+}
+
+// p of one score: the masked path (kEdge: causal diagonal, ragged tails;
+// bias b added unless masked), the bias alone, or neither (one FMA and one
+// ex2 on log2e-scaled operands: every row has a finite lse there)
+template <bool kEdge, bool kBias>
+__device__ __forceinline__ float tile_p(float s, const Params& p, int q_pos,
+                                        int k_pos, float b, float lse) {
+  if (!kEdge && !kBias) return ex2(fmaf(s, p.scale * kLog2e, -lse * kLog2e));
+  float x;
+  if (kEdge) {
+    x = mask_score(s, p, q_pos, k_pos, nullptr, 0);
+    if (kBias && x != -INFINITY) x += b;
+  } else {
+    x = s * p.scale + b;
+  }
+  return prob(x, lse);
+}
+
+// K10's ds of one tile for the keys half H finishes (its j in [H kAi / 2,
+// (H + 1) kAi / 2)): the thread's rows q0 + ao + kAog i (their lse and
+// delta in ls, dl) and keys k0 + ai + kAig j (their bias in bs); it holds
+// s (H 0) or dp (H 1) in sd, and the other half left the other operand at
+// the element's place in ds^T (xs, a row of kOuter + 4 a key), where ds
+// goes
+template <typename C, int H, bool kEdge, bool kBias>
+__device__ __forceinline__ void dq_ds(const float (&sd)[C::kAo][C::kAi],
+                                      const Params& p, int q0, int k0,
+                                      const F32Lanes<C>& ln, const float* ls,
+                                      const float* dl, const float* bs,
+                                      float* xs) {
+  constexpr int kJh = C::kAi / 2;
+#pragma unroll
+  for (int i = 0; i < C::kAo; ++i) {
+    const int row = ln.ao + C::kAog * i;
+    const float lse = ls[row], delta = dl[row];
+#pragma unroll
+    for (int j = H * kJh; j < (H + 1) * kJh; ++j) {
+      const int key = ln.ai + C::kAig * j;
+      float* at = xs + key * C::kLdx + row;
+      const float s = H == 0 ? sd[i][j] : *at;
+      const float dp = H == 0 ? *at : sd[i][j];
+      *at = tile_p<kEdge, kBias>(s, p, q0 + row, k0 + key,
+                                 kBias ? bs[key] : 0.0f, lse) *
+            (dp - delta) * p.scale;
+    }
+  }
 }
 
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads) dq_f32(Params p) {
-  constexpr int kCols = (D + 31) / 32;  // output columns of a lane
-  constexpr int kRows = dq_f32_rows<D>(), kWR = kRows / 4;  // rows a warp
-  extern __shared__ float sm[];
-  float* qs = sm;                      // [kRows][D]
-  float* dos = qs + kRows * D;         // [kRows][D]
-  float* ks = dos + kRows * D;         // [64][D + 1]
-  float* vs = ks + kTile * (D + 1);    // [64][D + 1]
-  float* bs = vs + kTile * (D + 1) + kRows * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ps = vs + kTile * (D + 1) + warp * kWR * kTile;  // this warp's ds
+__global__ void __launch_bounds__(kF32Threads, 1) dq_f32_ring(Params p) {
+  using C = F32Tiles<D, true>;
+  constexpr int kOuter = C::kOuter, kInner = C::kInner, kLd = C::kLd;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                        // [kOuter][kLd]
+  float* dos = qs + kOuter * kLd;        // [kOuter][kLd]
+  float* ks = dos + kOuter * kLd;        // [stage][kInner][kLd]
+  float* vs = ks + 2 * C::kTileF;        // [stage][kInner][kLd]
+  float* bias_s = vs + 2 * C::kTileF;    // [stage][kInner]
+  float* ls = bias_s + 2 * kInner;       // [kOuter]
+  float* dl = ls + kOuter;               // [kOuter]
+  float* xs = dl + kOuter;               // [kInner][kLdx]: s or dp, ds
+  const int tid = threadIdx.x;
+  const F32Lanes<C> ln;
   const int bh = blockIdx.y, b = bh / p.h;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const long long q_row = static_cast<long long>(bh) * p.tq * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kOuter;  // longest rows first
+  const long long q_row = static_cast<long long>(bh) * p.tq;
   const long long kv_row = (static_cast<long long>(b) * p.hk +
-                            (bh % p.h) / (p.h / p.hk)) * p.tk * D;
-  const float* q = static_cast<const float*>(p.q) + q_row;
-  const float* dout = static_cast<const float*>(p.dout) + q_row;
-  const float* k = static_cast<const float*>(p.k) + kv_row;
-  const float* v = static_cast<const float*>(p.v) + kv_row;
-  const int row0 = q0 + warp * kWR;
+                            (bh % p.h) / (p.h / p.hk)) * p.tk;
+  const float* k = static_cast<const float*>(p.k) + kv_row * D;
+  const float* v = static_cast<const float*>(p.v) + kv_row * D;
+  const int k_end = p.causal ? min(p.tk, q0 + kOuter) : p.tk;
+  const int n_iter = (k_end + kInner - 1) / kInner;
 
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) {
-    const int rr = q0 + e / D;
-    const long long at = static_cast<long long>(rr) * D + e % D;
-    qs[e] = rr < p.tq ? q[at] : 0.0f;
-    dos[e] = rr < p.tq ? dout[at] : 0.0f;
-  }
-  __syncthreads();
-  float lse[kWR], delta[kWR], acc[kWR][kCols];
-#pragma unroll
-  for (int i = 0; i < kWR; ++i) {
-    const int rr = row0 + i;
-    const long long at = static_cast<long long>(bh) * p.tq + rr;
-    delta[i] = rr < p.tq ? p.delta[at] : 0.0f;
-    lse[i] = rr < p.tq ? p.lse[at] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
+  // q, dO, lse and delta once, then K, V (and the bias) of key tile 0
+  copy_rows<D, kOuter>(qs, static_cast<const float*>(p.q) + q_row * D, q0,
+                       p.tq);
+  copy_rows<D, kOuter>(dos, static_cast<const float*>(p.dout) + q_row * D, q0,
+                       p.tq);
+  copy_row(ls, p.lse + q_row, q0, p.tq, 0, kOuter);
+  copy_row(dl, p.delta + q_row, q0, p.tq, kOuter, kOuter);
+  auto load_stage = [&](int it) {
+    const int s = it % 2, k0 = it * kInner;
+    copy_rows<D, kInner>(ks + s * C::kTileF, k, k0, p.tk);
+    copy_rows<D, kInner>(vs + s * C::kTileF, v, k0, p.tk);
+    if (kBias)
+      copy_row(bias_s + s * kInner, p.bias + static_cast<long long>(b) * p.tk,
+               k0, p.tk, 0, kInner);
+  };
+  if (n_iter > 0) load_stage(0);
+  wg::cp_commit();
 
-  const int k_end = p.causal ? min(p.tk, q0 + kRows) : p.tk;
-  const float* qp = qs + warp * kWR * D;
-  const float* dp_ = dos + warp * kWR * D;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-      const int key = e / D, c = e % D;
-      const bool in = k0 + key < p.tk;
-      const long long at = static_cast<long long>(k0 + key) * D + c;
-      ks[key * (D + 1) + c] = in ? k[at] : 0.0f;
-      vs[key * (D + 1) + c] = in ? v[at] : 0.0f;
-    }
-    if (kBias) {
-      if (!stage_bias(p, b, k0, kTile, bs)) continue;
+  // the thread's dq over its half's keys of every tile
+  float acc[C::kCo][C::kCc];
+#pragma unroll
+  for (int i = 0; i < C::kCo; ++i)
+#pragma unroll
+    for (int c = 0; c < C::kCc; ++c) acc[i][c] = 0.0f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % 2, k0 = it * kInner;
+    const float* kt = ks + s * C::kTileF;
+    const float* vt = vs + s * C::kTileF;
+    const float* bs = bias_s + s * kInner;
+    wg::cp_wait<0>();  // this thread's copies of tile it
+    bool live = true;
+    if (kBias) {       // every thread's copies, and any key real
+      live = __syncthreads_or(tid < kInner && k0 + tid < p.tk &&
+                              bs[tid] > kNegInf / 2);
     } else {
       __syncthreads();
     }
-    // s[j][i], dp[j][i]: row row0 + i, key k0 + lane + 32 j
-    float s[2][kWR], dp[2][kWR];
+    // into the other stage, whose tile it - 1 is done
+    if (it + 1 < n_iter) load_stage(it + 1);
+    wg::cp_commit();
+    if (!live) continue;  // every key of the tile padded
+
+    // the first half s = q k^T, the second dp = dO v^T
+    float sd[C::kAo][C::kAi];
+    dots<C>(sd, (ln.half ? dos : qs) + ln.ao * kLd,
+            (ln.half ? vt : kt) + ln.ai * kLd);
+    // each half finishes ds for one half of the keys (the first the lower
+    // keys, j < kAi / 2): it leaves its s or dp of the other keys in ds^T
+    // for the other half, then reads the other's at its own
+    constexpr int kJh = C::kAi / 2;
 #pragma unroll
-    for (int i = 0; i < kWR; ++i)
-      s[0][i] = s[1][i] = dp[0][i] = dp[1][i] = 0.0f;
-    const float* k0p = ks + lane * (D + 1);
-    const float* k1p = ks + (lane + 32) * (D + 1);
-    const float* v0p = vs + lane * (D + 1);
-    const float* v1p = vs + (lane + 32) * (D + 1);
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      const float ka = k0p[d], kb = k1p[d], va = v0p[d], vb = v1p[d];
+    for (int i = 0; i < C::kAo; ++i)
 #pragma unroll
-      for (int i = 0; i < kWR; ++i) {
-        const float qv = qp[i * D + d], dv = dp_[i * D + d];
-        s[0][i] = fmaf(qv, ka, s[0][i]);
-        s[1][i] = fmaf(qv, kb, s[1][i]);
-        dp[0][i] = fmaf(dv, va, dp[0][i]);
-        dp[1][i] = fmaf(dv, vb, dp[1][i]);
-      }
+      for (int j = 0; j < C::kAi; ++j)
+        if ((j < kJh) == (ln.half == 1))
+          xs[(ln.ai + C::kAig * j) * C::kLdx + ln.ao + C::kAog * i] =
+              sd[i][j];
+    __syncthreads();
+    const bool edge =
+        (p.causal && k0 + kInner - 1 > q0) || k0 + kInner > p.tk;
+    if (ln.half == 0) {
+      if (edge)
+        dq_ds<C, 0, true, kBias>(sd, p, q0, k0, ln, ls, dl, bs, xs);
+      else
+        dq_ds<C, 0, false, kBias>(sd, p, q0, k0, ln, ls, dl, bs, xs);
+    } else {
+      if (edge)
+        dq_ds<C, 1, true, kBias>(sd, p, q0, k0, ln, ls, dl, bs, xs);
+      else
+        dq_ds<C, 1, false, kBias>(sd, p, q0, k0, ln, ls, dl, bs, xs);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = lane + 32 * j;
-#pragma unroll
-      for (int i = 0; i < kWR; ++i) {
-        const float x = mask_score(s[j][i], p, row0 + i, k0 + col,
-                                   kBias ? bs : nullptr, col);
-        ps[i * kTile + col] = prob(x, lse[i]) * (dp[j][i] - delta[i]) *
-                              p.scale;
-      }
-    }
-    __syncwarp();
-    for (int key = 0; key < kTile; ++key) {
-      float kv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int col = lane + 32 * c;
-        kv[c] = col < D ? ks[key * (D + 1) + col] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kWR; ++i) {
-        const float x = ps[i * kTile + key];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(x, kv[c], acc[i][c]);
-      }
-    }
-    __syncwarp();
+    // dq += ds k over the half's keys, once the half's ds is whole
+    if (ln.half == 0)
+      bar_sync(2, kF32Threads / 2);
+    else
+      bar_sync(3, kF32Threads / 2);
+    constexpr int kHalf = kInner / 2;
+    outer<C, kHalf>(acc, xs + ln.half * kHalf * C::kLdx + ln.co,
+                    kt + ln.half * kHalf * kLd + ln.cc * C::kVec);
   }
 
-  float* dq = static_cast<float*>(p.dq) + q_row;
+  // dq = the first half's sum + the second's, through q's rows
+  if (ln.half == 1) {
 #pragma unroll
-  for (int i = 0; i < kWR; ++i) {
-    if (row0 + i >= p.tq) continue;
+    for (int i = 0; i < C::kCo; ++i)
+      store_row<C>(qs + (ln.co + i) * kLd, acc[i], ln.cc);
+  }
+  __syncthreads();
+  if (ln.half == 0) {
+    float* dq = static_cast<float*>(p.dq) + q_row * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) dq[static_cast<long long>(row0 + i) * D + col] = acc[i][c];
+    for (int i = 0; i < C::kCo; ++i) {
+#pragma unroll
+      for (int g = 0; g < C::kCc / C::kVec; ++g)
+#pragma unroll
+        for (int e = 0; e < C::kVec; ++e)
+          acc[i][g * C::kVec + e] +=
+              qs[(ln.co + i) * kLd + col_at<C>(ln.cc, g) + e];
+      if (q0 + ln.co + i < p.tq)
+        store_row<C>(dq + static_cast<long long>(q0 + ln.co + i) * D, acc[i],
+                     ln.cc);
     }
   }
 }
 
-// ---- K11, float32 ----------------------------------------------------------
-
-// keys of an f32 K11 block: 64 (8 a warp), or 32 (4 a warp) at D 256,
-// where 64 keys of K and V beside the q and dO tiles would not fit
-template <int D>
-__host__ __device__ constexpr int dkv_f32_keys() {
-  return D <= 128 ? kTile : kTile / 2;
-}
-
-template <int D>
-constexpr int dkv_f32_smem() {  // K, V; q, dO (padded rows); p, ds; rows
-  return (2 * dkv_f32_keys<D>() * D + 2 * kTile * (D + 1) +
-          2 * dkv_f32_keys<D>() * kTile + 2 * kTile + dkv_f32_keys<D>()) *
-         4;
+// K11's p of one tile into p (ps, a row of kOuter + 4 a query): s^T of the
+// thread's keys k0 + ao + kAog i (their bias kb) and rows q0 + ai + kAig j,
+// their lse in ls
+template <typename C, bool kEdge, bool kBias>
+__device__ __forceinline__ void dkv_p(const float (&s)[C::kAo][C::kAi],
+                                      const Params& p, int q0, int k0,
+                                      const F32Lanes<C>& ln,
+                                      const float (&kb)[C::kAo],
+                                      const float* ls, float* ps) {
+#pragma unroll
+  for (int j = 0; j < C::kAi; ++j) {
+    const int row = ln.ai + C::kAig * j;
+    const float lse = ls[row];
+#pragma unroll
+    for (int i = 0; i < C::kAo; ++i) {
+      const int key = ln.ao + C::kAog * i;
+      ps[row * C::kLdx + key] = tile_p<kEdge, kBias>(
+          s[i][j], p, q0 + row, k0 + key, kb[i], lse);
+    }
+  }
 }
 
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kF32DkvThreads) dkv_f32(Params p) {
-  constexpr int kCols = (D + 31) / 32;
-  constexpr int kWarps = kF32DkvThreads / 32;
-  constexpr int kKeys = dkv_f32_keys<D>(), kF32Keys = kKeys / kWarps;
-  extern __shared__ float sm[];
-  float* ks = sm;                          // [kKeys][D]
-  float* vs = ks + kKeys * D;              // [kKeys][D]
-  float* qs = vs + kKeys * D;              // [64][D + 1]
-  float* dos = qs + kTile * (D + 1);       // [64][D + 1]
-  float* pb = dos + kTile * (D + 1);       // [warps][keys a warp][64]
-  float* db = pb + kKeys * kTile;
-  float* lse_s = db + kKeys * kTile;
-  float* delta_s = lse_s + kTile;
-  float* bs = delta_s + kTile;             // [kKeys]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* pw = pb + warp * kF32Keys * kTile;
-  float* dw = db + warp * kF32Keys * kTile;
+__global__ void __launch_bounds__(kF32Threads, 1) dkv_f32_ring(Params p) {
+  using C = F32Tiles<D, false>;
+  constexpr int kOuter = C::kOuter, kInner = C::kInner, kLd = C::kLd;
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;                        // [kOuter][kLd]
+  float* vs = ks + kOuter * kLd;         // [kOuter][kLd]
+  float* qs = vs + kOuter * kLd;         // [stage][kInner][kLd]
+  float* dos = qs + 2 * C::kTileF;       // [stage][kInner][kLd]
+  float* lse_s = dos + 2 * C::kTileF;    // [stage][kInner]
+  float* delta_s = lse_s + 2 * kInner;   // [stage][kInner]
+  float* ps = delta_s + 2 * kInner;      // [kInner][kLdx]
+  float* dss = ps + kInner * C::kLdx;    // [kInner][kLdx]
+  const int tid = threadIdx.x;
+  const F32Lanes<C> ln;
   const int kvr = blockIdx.y, b = kvr / p.hk, kvh = kvr % p.hk;
   const int group = p.h / p.hk;
-  const int k0 = blockIdx.x * kKeys;
-  const long long kv_row = static_cast<long long>(kvr) * p.tk * D;
-  const int key0 = k0 + warp * kF32Keys;  // this warp's first key
-  float* dk = static_cast<float*>(p.dk) + kv_row;
-  float* dv = static_cast<float*>(p.dv) + kv_row;
+  const int k0 = blockIdx.x * kOuter;  // the most query tiles first
+  const long long kv_row = static_cast<long long>(kvr) * p.tk;
 
-  float dka[kF32Keys][kCols], dva[kF32Keys][kCols];
+  float kb[C::kAo];  // the bias of the thread's keys in s
 #pragma unroll
-  for (int i = 0; i < kF32Keys; ++i)
+  for (int i = 0; i < C::kAo; ++i) kb[i] = 0.0f;
+  bool live = true;
+  if (kBias) {  // a block whose keys are all padded computes nothing
+    const float* bb = p.bias + static_cast<long long>(b) * p.tk;
+    live = __syncthreads_or(tid < kOuter && k0 + tid < p.tk &&
+                            bb[k0 + tid] > kNegInf / 2);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.0f;
-
-  const bool live = kBias ? stage_bias(p, b, k0, kKeys, bs) != 0 : true;
-  if (live) {
-    const float* k = static_cast<const float*>(p.k) + kv_row;
-    const float* v = static_cast<const float*>(p.v) + kv_row;
-    for (int e = threadIdx.x; e < kKeys * D; e += kF32DkvThreads) {
-      const int kk = k0 + e / D;
-      const long long at = static_cast<long long>(kk) * D + e % D;
-      ks[e] = kk < p.tk ? k[at] : 0.0f;
-      vs[e] = kk < p.tk ? v[at] : 0.0f;
+    for (int i = 0; i < C::kAo; ++i) {
+      const int key = k0 + ln.ao + C::kAog * i;
+      if (key < p.tk) kb[i] = bb[key];
     }
-    const int nq = (p.tq + kTile - 1) / kTile;
-    const int first = p.causal ? k0 / kTile : 0;
-    const float* kp = ks + warp * kF32Keys * D;
-    const float* vp = vs + warp * kF32Keys * D;
-    for (int hh = 0; hh < group; ++hh) {
-      const int bh = b * p.h + kvh * group + hh;
-      const long long q_row = static_cast<long long>(bh) * p.tq * D;
-      const float* q = static_cast<const float*>(p.q) + q_row;
-      const float* dout = static_cast<const float*>(p.dout) + q_row;
-      for (int qb = first; qb < nq; ++qb) {
-        const int q0 = qb * kTile;
-        __syncthreads();
-        for (int e = threadIdx.x; e < kTile * D; e += kF32DkvThreads) {
-          const int r = e / D, c = e % D;
-          const bool in = q0 + r < p.tq;
-          const long long at = static_cast<long long>(q0 + r) * D + c;
-          qs[r * (D + 1) + c] = in ? q[at] : 0.0f;
-          dos[r * (D + 1) + c] = in ? dout[at] : 0.0f;
+  }
+  const int nq = (p.tq + kInner - 1) / kInner;
+  const int first = p.causal ? min(k0 / kInner, nq) : 0;  // causal frontier
+  const int per = nq - first;  // query tiles a head
+  const int n_iter = live ? group * per : 0;
+
+  auto load_stage = [&](int it) {  // q, dO, lse, delta of query tile it
+    const int s = it % 2, q0 = (first + it % per) * kInner;
+    const long long q_row =
+        static_cast<long long>(b * p.h + kvh * group + it / per) * p.tq;
+    copy_rows<D, kInner>(qs + s * C::kTileF,
+                         static_cast<const float*>(p.q) + q_row * D, q0,
+                         p.tq);
+    copy_rows<D, kInner>(dos + s * C::kTileF,
+                         static_cast<const float*>(p.dout) + q_row * D, q0,
+                         p.tq);
+    copy_row(lse_s + s * kInner, p.lse + q_row, q0, p.tq, 0, kInner);
+    copy_row(delta_s + s * kInner, p.delta + q_row, q0, p.tq, kInner,
+             kInner);
+  };
+  if (n_iter > 0) {  // K and V once, then query tile 0
+    copy_rows<D, kOuter>(ks, static_cast<const float*>(p.k) + kv_row * D, k0,
+                         p.tk);
+    copy_rows<D, kOuter>(vs, static_cast<const float*>(p.v) + kv_row * D, k0,
+                         p.tk);
+    load_stage(0);
+  }
+  wg::cp_commit();
+
+  // the first half's dv, the second half's dk
+  float acc[C::kCo][C::kCc];
+#pragma unroll
+  for (int i = 0; i < C::kCo; ++i)
+#pragma unroll
+    for (int c = 0; c < C::kCc; ++c) acc[i][c] = 0.0f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % 2, q0 = (first + it % per) * kInner;
+    const float* qt = qs + s * C::kTileF;
+    const float* dot = dos + s * C::kTileF;
+    wg::cp_wait<0>();  // this thread's copies of tile it
+    __syncthreads();   // every thread's; tile it - 1's products are done
+    if (it + 1 < n_iter) load_stage(it + 1);
+    wg::cp_commit();
+
+    // the first half s^T = k q^T, the second dp^T = v dO^T
+    float sd[C::kAo][C::kAi];
+    dots<C>(sd, (ln.half ? vs : ks) + ln.ao * kLd,
+            (ln.half ? dot : qt) + ln.ai * kLd);
+    const float* ls = lse_s + s * kInner;
+    const float* dl = delta_s + s * kInner;
+    // the first half writes p and sums dv += p^T dO as soon as its p is
+    // whole (barrier 2), while the second waits for that p (barrier 1),
+    // writes ds and sums dk += ds^T q once its ds is whole (barrier 3)
+    if (ln.half == 0) {
+      if ((p.causal && q0 < k0 + kOuter - 1) || q0 + kInner > p.tq ||
+          k0 + kOuter > p.tk)
+        dkv_p<C, true, kBias>(sd, p, q0, k0, ln, kb, ls, ps);
+      else
+        dkv_p<C, false, kBias>(sd, p, q0, k0, ln, kb, ls, ps);
+      bar_arrive(1, kF32Threads);
+      bar_sync(2, kF32Threads / 2);
+      outer<C, kInner>(acc, ps + ln.co, dot + ln.cc * C::kVec);
+    } else {
+      bar_sync(1, kF32Threads);
+#pragma unroll
+      for (int j = 0; j < C::kAi; ++j) {
+        const int row = ln.ai + C::kAig * j;
+        const float delta = dl[row];
+#pragma unroll
+        for (int i = 0; i < C::kAo; ++i) {
+          const int at = row * C::kLdx + ln.ao + C::kAog * i;
+          dss[at] = ps[at] * (sd[i][j] - delta) * p.scale;
         }
-        if (threadIdx.x < kTile) {
-          const int qr = q0 + threadIdx.x;
-          const long long at = static_cast<long long>(bh) * p.tq + qr;
-          delta_s[threadIdx.x] = qr < p.tq ? p.delta[at] : 0.0f;
-          lse_s[threadIdx.x] = qr < p.tq ? p.lse[at] : 0.0f;
-        }
-        __syncthreads();
-        // s[j][i], dp[j][i]: key key0 + i, query q0 + lane + 32 j
-        float s[2][kF32Keys], dp[2][kF32Keys];
-#pragma unroll
-        for (int i = 0; i < kF32Keys; ++i)
-          s[0][i] = s[1][i] = dp[0][i] = dp[1][i] = 0.0f;
-        const float* q0p = qs + lane * (D + 1);
-        const float* q1p = qs + (lane + 32) * (D + 1);
-        const float* d0p = dos + lane * (D + 1);
-        const float* d1p = dos + (lane + 32) * (D + 1);
-#pragma unroll 2
-        for (int d = 0; d < D; ++d) {
-          const float qa = q0p[d], qb2 = q1p[d], da = d0p[d], db2 = d1p[d];
-#pragma unroll
-          for (int i = 0; i < kF32Keys; ++i) {
-            const float kv = kp[i * D + d], vv = vp[i * D + d];
-            s[0][i] = fmaf(kv, qa, s[0][i]);
-            s[1][i] = fmaf(kv, qb2, s[1][i]);
-            dp[0][i] = fmaf(vv, da, dp[0][i]);
-            dp[1][i] = fmaf(vv, db2, dp[1][i]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = lane + 32 * j;
-#pragma unroll
-          for (int i = 0; i < kF32Keys; ++i) {
-            const float x = mask_score(s[j][i], p, q0 + col, key0 + i,
-                                       kBias ? bs : nullptr,
-                                       warp * kF32Keys + i);
-            const float pj = prob(x, lse_s[col]);
-            pw[i * kTile + col] = pj;
-            dw[i * kTile + col] = pj * (dp[j][i] - delta_s[col]) * p.scale;
-          }
-        }
-        __syncwarp();
-        for (int r = 0; r < kTile; ++r) {
-          float qv[kCols], dov[kCols];
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const int col = lane + 32 * c;
-            qv[c] = col < D ? qs[r * (D + 1) + col] : 0.0f;
-            dov[c] = col < D ? dos[r * (D + 1) + col] : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < kF32Keys; ++i) {
-            const float pv = pw[i * kTile + r], dsv = dw[i * kTile + r];
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              dva[i][c] = fmaf(pv, dov[c], dva[i][c]);
-              dka[i][c] = fmaf(dsv, qv[c], dka[i][c]);
-            }
-          }
-        }
-        __syncwarp();
       }
+      bar_sync(3, kF32Threads / 2);
+      outer<C, kInner>(acc, dss + ln.co, qt + ln.cc * C::kVec);
     }
   }
 
+  float* out = static_cast<float*>(ln.half ? p.dk : p.dv) + kv_row * D;
 #pragma unroll
-  for (int i = 0; i < kF32Keys; ++i) {
-    if (key0 + i >= p.tk) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) {
-        const long long at = static_cast<long long>(key0 + i) * D + col;
-        dk[at] = dka[i][c];
-        dv[at] = dva[i][c];
-      }
-    }
+  for (int i = 0; i < C::kCo; ++i) {
+    const int key = k0 + ln.co + i;
+    if (key < p.tk)
+      store_row<C>(out + static_cast<long long>(key) * D, acc[i], ln.cc);
   }
 }
 
@@ -979,7 +1236,7 @@ __global__ void __launch_bounds__(kThreads) dq_wide(Params p, int d) {
 // K11 above D 256: 8 warps of 8 keys each over 64 keys a block, lanes over
 // the 64 query rows of a tile; the panels and the column blocks share one
 // region of shared memory (they are used one after the other)
-constexpr int kWideKeys = kF32DkvThreads / 32 * 8;  // 64
+constexpr int kWideKeys = kWideDkvThreads / 32 * 8;  // 64
 constexpr int kPanels = 2 * kWideKeys * kPanel + 2 * kTile * (kPanel + 1);
 constexpr int kColBlocks = 2 * kTile * kWideCols;
 
@@ -989,7 +1246,7 @@ constexpr int dkv_wide_smem() {  // panels or column blocks; p, ds; rows
 }
 
 template <typename T, bool kBias>
-__global__ void __launch_bounds__(kF32DkvThreads) dkv_wide(Params p, int d) {
+__global__ void __launch_bounds__(kWideDkvThreads) dkv_wide(Params p, int d) {
   constexpr int kCols = kWideCols / 32, kWK = 8;  // keys a warp
   extern __shared__ float sm[];
   float* ks = sm;                          // [64][kPanel]
@@ -1211,12 +1468,15 @@ cudaError_t launch_d(const Params& p, int dtype, int b, cudaStream_t s) {
                s, p, mq, mdo, mk, mv);
   }
   if (dtype == bigdl::kF32) {
-    constexpr int rows = dq_f32_rows<D>(), keys = dkv_f32_keys<D>();
+    using Q = F32Tiles<D, true>;
+    using K = F32Tiles<D, false>;
     if (kDq)
-      return run(dq_f32<D, kBias>, dim3((p.tq + rows - 1) / rows, b * p.h),
-                 kThreads, dq_f32_smem<D>(), s, p);
-    return run(dkv_f32<D, kBias>, dim3((p.tk + keys - 1) / keys, b * p.hk),
-               kF32DkvThreads, dkv_f32_smem<D>(), s, p);
+      return run(dq_f32_ring<D, kBias>,
+                 dim3((p.tq + Q::kOuter - 1) / Q::kOuter, b * p.h),
+                 kF32Threads, Q::kBytes, s, p);
+    return run(dkv_f32_ring<D, kBias>,
+               dim3((p.tk + K::kOuter - 1) / K::kOuter, b * p.hk),
+               kF32Threads, K::kBytes, s, p);
   }
   return cudaErrorInvalidValue;
 }
@@ -1231,7 +1491,7 @@ cudaError_t launch_wide_t(const Params& p, int b, int d, cudaStream_t s) {
                kThreads, dq_wide_smem(), s, p, d);
   return run(dkv_wide<T, kBias>,
              dim3((p.tk + kWideKeys - 1) / kWideKeys, b * p.hk, cols),
-             kF32DkvThreads, dkv_wide_smem(), s, p, d);
+             kWideDkvThreads, dkv_wide_smem(), s, p, d);
 }
 
 template <bool kDq, bool kBias>

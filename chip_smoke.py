@@ -476,6 +476,25 @@ FLASH_RAGGED = [
     ("d 320, GQA 8/2", 1, 8, 2, 200, 200, 320, True, None),
     ("d 512, padded, a row with every key padded", 2, 4, 2, 130, 130, 512,
      True, [130, 0]),
+    # the edges of the f32 kernels' tiles (a block's own x streamed): up to
+    # d 64 K10 128 query rows x 64 keys and K11 128 keys x 64 query rows
+    # (T 63-65 above), at d 128 K10 64 x 64 and K11 64 x 32, at d 256 both
+    # 32 x 32; a padded GQA batch whose second row leaves whole tiles padded
+    ("T 127", 1, 8, 8, 127, 127, 64, True, None),
+    ("T 128", 1, 8, 8, 128, 128, 64, True, None),
+    ("T 2049, GQA 8/2, padded", 2, 8, 2, 2049, 2049, 64, True,
+     [2049, 1500]),
+    ("T 31, d 128", 1, 4, 4, 31, 31, 128, True, None),
+    ("T 32, d 128", 1, 4, 4, 32, 32, 128, True, None),
+    ("T 33, d 128, GQA 4/2", 1, 4, 2, 33, 33, 128, True, None),
+    ("T 65, d 128, GQA 8/2, padded", 2, 8, 2, 65, 65, 128, True, [65, 40]),
+    ("T 31, d 256", 1, 4, 4, 31, 31, 256, True, None),
+    ("T 32, d 256", 1, 4, 4, 32, 32, 256, True, None),
+    ("T 33, d 256, GQA 4/2", 1, 4, 2, 33, 33, 256, True, None),
+    ("T 65, d 32, GQA 8/2", 1, 8, 2, 65, 65, 32, True, None),
+    ("T 63, d 16, non-causal, padded", 2, 4, 4, 63, 63, 16, False, [63, 20]),
+    ("T 63, d 128", 1, 4, 4, 63, 63, 128, True, None),
+    ("T 64, d 128", 1, 4, 4, 64, 64, 128, True, None),
 ]
 # phase 4 beside FLASH_PATH: K9 with its LSE, the delta pass, K10 and K11
 # once at head dim 512 (the D-chunked kernels), bf16
@@ -1205,11 +1224,14 @@ def check_flash_kernels(device):
         del q, k, v, o, lse, do, dq, dk, dv, want, mag, delta
     # K10 and K11 run no atomics: two launches on the same inputs are
     # bit-equal, at head dim 256 too (two ring stages, K11's column halves;
-    # the f32 32-row and 32-key tiles) and at 512 (the D-chunked kernels)
+    # the f32 32 x 32 tiles), at 512 (the D-chunked kernels) and on the f32
+    # tiles of d 64 and d 128
     for case in (FLASH_PATH[0], FLASH_RAGGED[5] + ("bfloat16",),
                  FLASH_RAGGED[18] + ("bfloat16",),
                  FLASH_RAGGED[19] + ("float32",),
-                 FLASH_RAGGED[21] + ("bfloat16",)):
+                 FLASH_RAGGED[21] + ("bfloat16",),
+                 FLASH_RAGGED[5] + ("float32",),
+                 FLASH_RAGGED[28] + ("float32",)):
         q, k, v, bias, o, lse, do = flash_grads(
             case, getattr(torch, case[9]), device, SEED + 300)
         args = (q, k, v, o, lse, do, case[7], None, bias)

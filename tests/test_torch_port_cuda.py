@@ -453,10 +453,25 @@ FLASH_CASES = [
     (1, 8, 1, 8191, 8191, 64, True, None),
     (1, 4, 4, 300, 300, 16, True, None),
     (1, 4, 2, 300, 300, 128, True, None),
+    # the edges of the f32 kernels' tiles: 128 x 64 up to d 64, 64 x 64
+    # (K10) and 64 x 32 (K11) at d 128, 32 x 32 at d 256; a padded GQA
+    # batch whose second row leaves whole tiles padded
+    (1, 8, 8, 127, 127, 64, True, None),
+    (1, 8, 8, 128, 128, 64, True, None),
+    (1, 8, 8, 129, 129, 64, True, None),
+    (1, 4, 4, 64, 64, 128, True, None),
+    (2, 8, 2, 2049, 2049, 64, True, [2049, 1500]),
+    (1, 4, 4, 31, 31, 128, True, None),
+    (1, 4, 2, 33, 33, 128, True, None),
+    (1, 4, 4, 32, 32, 256, True, None),
+    (1, 4, 2, 33, 33, 256, True, None),
+    (1, 8, 2, 65, 65, 32, True, None),
 ]
 FLASH_IDS = ["gqa-t130", "mqa-tq-lt-tk", "tq-gt-tk-noncausal-d16",
              "all-padded", "padded-d128", "d48", "t63", "t64", "t65",
-             "mqa-t8191", "causal-d16", "causal-d128"]
+             "mqa-t8191", "causal-d16", "causal-d128", "t127", "t128",
+             "t129", "t64-d128", "gqa-t2049-padded", "t31-d128", "gqa-t33-d128", "t32-d256",
+             "gqa-t33-d256", "gqa-t65-d32"]
 
 
 def _flash_inputs(case, dt, device):
@@ -513,7 +528,7 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[3],
-                                  FLASH_CASES[-1]],
+                                  FLASH_CASES[11]],
                          ids=["gqa-t130", "all-padded", "causal-d128"])
 def test_delta_pass_matches_plain(cuda_device, case, dtype):
     # rowsum(dO·O) in f32 from 16-byte loads, 8 lanes a row: within 1e-5 of
@@ -563,7 +578,7 @@ def test_k11_is_bit_equal_across_launches(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k10_and_k11_are_bit_equal_at_head_dim_256(cuda_device, dtype):
     # the bf16 ring of two stages and K11's column halves, the f32 tiles of
-    # 32 rows (K10) and 32 keys (K11): still no atomics
+    # 32 rows x 32 keys: still no atomics
     dt = getattr(torch, dtype)
     q, k, v, do, bias = _flash_inputs((2, 4, 2, 130, 130, 256, True,
                                        [130, 0]), dt, cuda_device)
