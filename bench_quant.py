@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The port's quantized matmuls K13-K15 on the card: per-stage times of a
-checkout, a parent checkout against this one, the bf16 kernel's ptxas
-figures, the mutation check of ``chip_smoke.py`` phase 2c, and an
-ablation of the bf16 kernel.
+checkout, a parent checkout against this one, the kernels' ptxas figures,
+the mutation check of ``chip_smoke.py`` phase 2c, and ablations of the bf16
+and the f32 kernels.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
@@ -11,28 +11,41 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 bench_quant.py ptxas
     python3 bench_quant.py mutants
     python3 bench_quant.py ablate
+    python3 bench_quant.py ablate-f32
 
 ``times`` runs this checkout's ``chip_smoke.time_quant_kernels`` (every
-product of the quantized Inception-v1 forward at buckets 8 and 32: CUDA
+product of the quantized Inception-v1 forward at buckets 8 and 32: K13 int8
+in bf16 at both buckets and in f32 at batch 32; K13 e4m3, K15 and K14 at the
+classifier at both buckets, K13 e4m3 and K15 also in f32 at batch 32; CUDA
 events, torch.profiler device time, the wrapper's host time, the plain
 version and ``F.linear`` on the widened weight) against the package of
 ``<checkout>`` (this one by default), prints the sums per stage, and
 writes every product's row to ``<dir>/bench_quant_<label>.json``
 (``build/bench_quant`` by default).
 ``ab`` does that in the parent and in this checkout in turns (parent,
-this, this, parent), each in its own process, and runs phase 3d
-(``serve_quantized``: w8 bf16 serving, logits against the CPU) in each.
+this, this, parent), each in its own process, and runs phase 3d in each:
+``serve_quantized`` (w8 bf16 serving, logits against the CPU) and
+``serve_quantized_f32`` (the default f32 w8 classifier, logits against the
+CPU) with its forward per bucket and the profiler's device time of the
+forward and of its K13 kernels (``F32FORWARD`` lines).
 Make the parent with ``git archive <commit> bigdl_tpu_torch | tar -x -C
 build/parent`` (``build/`` is not committed).  ``ptxas`` compiles the
 quantized-matmul sources with ``-Xptxas -v`` under ``build/ptxas/`` and
-prints each bf16 kernel's registers, shared memory and spills and whether
-ptxas serialized its wgmma (info C7515).  ``mutants`` copies the port and
-``chip_smoke.py`` under ``build/mutant_<name>/``, breaks K15's nibble
-decoder in one copy and the split-K pass in another, and fails unless
-``check_quant_kernels`` fails in every copy.  ``ablate`` times K13 (int8,
-bf16, device time) at ABLATE_SHAPES in copies of the port with one part
-of the kernel taken out or one choice of its plan changed (ABLATIONS),
-each built anew under ``build/ablate_<name>/``.
+prints each kernel's registers, shared memory and spills (the bf16 kernel
+by weight kind and N tile, the f32 kernel by weight kind and block tile,
+K14 by output type and N tile) and whether ptxas serialized a wgmma (info
+C7515: the bf16 kernel, K14).  ``mutants`` copies the port and
+``chip_smoke.py`` under ``build/mutant_<name>/``, breaks one kernel in
+each copy (K15's nibble decoder, the split-K pass, the f32 kernel's ring
+read a stage late, K14's sum of the split partial sums without the last
+split), and fails unless ``check_quant_kernels`` fails in every copy.
+``ablate`` times K13 (int8, bf16, device time) at ABLATE_SHAPES in copies
+of the port with one part of the kernel taken out or one choice of its
+plan changed (ABLATIONS), each built anew under ``build/ablate_<name>/``.
+``ablate-f32`` times the f32 K13 (int8) over the batch-32 f32 w8 forward's
+56 products (CUDA events, L2 flushed) with a part taken out or a choice
+changed (F32_ABLATIONS): edited copies of ``quant_matmul.cu`` built in
+parallel beside the bf16 objects, built once, all in one process.
 """
 
 from __future__ import annotations
@@ -76,6 +89,18 @@ if sys.argv[3] == "1":
         "cpu_max_abs_logit_diff", "cpu_logit_limit", "cpu_max_abs_logp_diff",
         "cpu_logp_limit", "forwards", "requests")}
     res["serve_quantized"]["launches"] = launches
+    report, launches, clf = cs.serve_quantized_f32(dev)
+    # the parent's f32 K13 is dequant_mm_f32
+    report.update(cs.time_quantized_f32(res["card"], clf, dev, dict(
+        cs.F32_K13_KERNELS, dequant_mm_f32="dequant_mm_f32<")))
+    res["serve_quantized_f32"] = dict(report, launches=launches)
+    for b in cs.BUCKETS:
+        p = report[f"profile_bucket_{b}"]
+        print(f"F32FORWARD {label} | bucket {b} | forward "
+              f"{report['forward_ms'][b]:.3f} ms | device "
+              f"{p['device_ms']:.3f} ms | K13 device "
+              f"{sum(p['groups'].values()):.3f} ms | busy "
+              f"{p['busy_share']:.3f}", flush=True)
 os.makedirs(sys.argv[5], exist_ok=True)
 out = os.path.join(sys.argv[5],
                    "bench_quant_" + label.replace(" ", "_") + ".json")
@@ -100,7 +125,7 @@ def run_times(label: str, checkout: str, with_3d: bool, out: str) -> int:
                         "1" if with_3d else "0", HERE, out], cwd=checkout,
                        capture_output=True, text=True)
     lines = [ln for ln in r.stdout.splitlines()
-             if ln.startswith(("STAGE ", "RESULT "))]
+             if ln.startswith(("STAGE ", "F32FORWARD ", "RESULT "))]
     print("\n".join(lines) if lines else f"{label}: rc {r.returncode}",
           flush=True)
     if r.returncode:
@@ -135,19 +160,51 @@ def smem_bytes(kind: str, bn: int, bm: int = 128) -> int:
             stages * bn * step_bytes + (2 * stages + 4) * 8 + 1024)
 
 
+# the f32 kernel's tiles by its template arguments (micro-tile columns,
+# column lanes): (rows, columns) a block
+F32_TILES = {(8, 16): (64, 128), (8, 8): (128, 64), (4, 8): (128, 32)}
+
+
+def f32_smem_bytes(kind: str, bm: int, bn: int) -> int:
+    """Dynamic shared memory of the f32 kernel (quant_matmul.cu
+    launch_f32_tile): x's 3-stage ring and the widened weight in rows of
+    20 floats, the packed weight's ring (16 bytes a row a step, int4 8);
+    or the staged output tile (rows of bn + 8 floats) where larger."""
+    ring = 4 * (3 * bm * 20 + bn * 20) + 3 * bn * (8 if kind == "Int4"
+                                                    else 16)
+    return max(ring, 4 * bm * (bn + 8))
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a quantized kernel: the bf16 kernel's weight
+    kind and N tile (with its shared memory at bm 128), the f32 kernel's
+    weight kind and block tile, K14's output type and N tile, or the
+    first 60 characters of another kernel's mangled name."""
+    m = re.search(r"dequant_mm_wgmmaI\w*?(Int8|E4m3|Int4)ELi(\d+)E", mangled)
+    if m:
+        return (f"dequant_mm_wgmma {m.group(1)} BN {m.group(2)} (smem "
+                f"{smem_bytes(m.group(1), int(m.group(2)))} B at bm 128)")
+    m = re.search(r"f32_mmI\w*?F(Int8|E4m3|Int4)ELi(\d+)ELi(\d+)E", mangled)
+    if m:
+        bm, bn = F32_TILES[(int(m.group(2)), int(m.group(3)))]
+        return (f"f32_mm {m.group(1)} {bm} x {bn} (smem "
+                f"{f32_smem_bytes(m.group(1), bm, bn)} B)")
+    m = re.search(r"a8_wgmmaI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if m:
+        bn = int(m.group(2))
+        return (f"a8_wgmma (K14) y {'f32' if m.group(1) == 'f' else 'bf16'} "
+                f"BN {bn} (smem {4 * (64 + bn) * 128 + 1024} B)")
+    return mangled[:60]
+
+
 def ptxas_lines(log: str):
-    """One line a kernel from ``nvcc -Xptxas -v``'s log: the bf16 kernel's
-    weight kind and N tile (with its shared memory at bm 128), or another
-    kernel's name; registers and spills."""
+    """One line a kernel from ``nvcc -Xptxas -v``'s log (:func:`kernel_name`):
+    registers and spills."""
     out, name, spills = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            m2 = re.search(r"dequant_mm_wgmmaI\w*?(Int8|E4m3|Int4)ELi(\d+)E",
-                           m.group(1))
-            name = (f"dequant_mm_wgmma {m2.group(1)} BN {m2.group(2)} "
-                    f"(smem {smem_bytes(m2.group(1), int(m2.group(2)))} B "
-                    "at bm 128)" if m2 else m.group(1)[:60])
+            name = kernel_name(m.group(1))
         elif name and "spill" in ln:
             spills = ln.strip()
         elif name and "Used" in ln:
@@ -170,7 +227,7 @@ def cmd_ptxas() -> int:
         print(f"nvcc -Xptxas -v {cu}: rc {p.returncode}")
         print("\n".join(ptxas_lines(out)))
         c7515 = [ln for ln in out.splitlines() if "C7515" in ln]
-        print("C7515 (wgmma serialized): " + (
+        print("C7515 (wgmma serialized; quant_matmul.cu: K14): " + (
             f"REPORTED {len(c7515)} times: {c7515[:2]}" if c7515
             else "not reported"), flush=True)
         if p.returncode:
@@ -179,7 +236,8 @@ def cmd_ptxas() -> int:
     return rc
 
 
-# K15 and the split-K pass broken one way each: each copy must fail 2c
+# K15, the split-K pass, the f32 kernel's ring and K14's split sums broken
+# one way each: each copy must fail 2c
 MUTANTS = {
     # ((b >> 4) & 15) - 8: the high nibble without its sign
     "k15_high_nibble_unsigned": (
@@ -188,6 +246,16 @@ MUTANTS = {
     "splitk_drops_last_split": (
         QUANT_CU, "for (int j = 1; j < splits; ++j)",
         "for (int j = 1; j < splits - 1; ++j)"),
+    # the f32 kernel's products read x from the stage of the step before
+    "f32_reads_ring_stage_late": (
+        QUANT_CU,
+        "const float* xr = xs + s * kBM * kFLd + ao * kFLd;",
+        "const float* xr = xs + (it + kFStages - 1) % kFStages * kBM * kFLd"
+        " + ao * kFLd;"),
+    # K14's last block of a tile adds every split's partial sums but the last
+    "k14_drops_last_split": (
+        QUANT_CU, "for (int j = 0; j < a.splits; ++j)",
+        "for (int j = 0; j < a.splits - 1; ++j)"),
 }
 
 _CHECK_2C = """
@@ -312,6 +380,115 @@ def cmd_ablate() -> int:
     return rc
 
 
+# ablate-f32: the f32 K13's parts and plan choices, each an edited copy of
+# quant_matmul.cu (the bf16 objects built once) or a setting of the plan,
+# timed over the batch-32 f32 w8 forward's 56 products
+_NO_PRODUCTS_F32 = [("    for (int kk = 0; kk < kFK; kk += 4) {",
+                     "    for (int kk = 0; kk < kFK * (n_iter < 0); kk += 4) "
+                     "{")]
+_NO_COPIES_F32 = [("    if (it + kFStages - 1 < n_iter) load(it + kFStages - 1);",
+                   "    if (n_iter < 0) load(it + kFStages - 1);")]
+_STAGES_4_F32 = [("constexpr int kFThreads = 128, kFStages = 3;",
+                  "constexpr int kFThreads = 128, kFStages = 4;")]
+# name: (edits of quant_matmul.cu, plan settings of ops/quant.py)
+F32_ABLATIONS = {
+    "as is": ([], {}),
+    "no products": (_NO_PRODUCTS_F32, {}),
+    "no copies after the first stages": (_NO_COPIES_F32, {}),
+    "4 stages": (_STAGES_4_F32, {}),
+    "fill 1 block an SM": ([], {"F32_BLOCKS_PER_SM": 1}),
+    "fill 3 blocks an SM": ([], {"F32_BLOCKS_PER_SM": 3}),
+}
+
+_ABLATE_F32_RUN = """
+import ctypes, json, os, sys, torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from bigdl_tpu_torch.ops import _build, quant
+names, libs = json.loads(sys.argv[1]), {}
+for name, lib in names.items():
+    libs[name] = ctypes.CDLL(os.path.abspath(lib))
+    for fn, argtypes in _build._SIGNATURES.items():
+        if hasattr(libs[name], fn):
+            getattr(libs[name], fn).argtypes = argtypes
+            getattr(libs[name], fn).restype = ctypes.c_int
+settings = json.loads(sys.argv[2])
+plain = {k: getattr(quant, k) for k in ("F32_BLOCKS_PER_SM",)}
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+probe = quant.quantize_model(cs.build_model().to(dev), "w8")
+counts = {}
+for _, _, m, k, n, _ in cs.quant_products(probe, dev, cs.BATCH, torch.float32):
+    counts[(m, k, n)] = counts.get((m, k, n), 0) + 1
+del probe
+g = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+ops = {mkn: (torch.randn(mkn[:2], generator=g, device=dev),
+             quant.pack(torch.randn((mkn[2], mkn[1]), generator=g,
+                                    device=dev))) for mkn in counts}
+flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+for name in list(names) + [list(names)[0]]:
+    _build._lib = libs[name]
+    for key, v in plain.items():
+        setattr(quant, key, settings[name].get(key, v))
+    quant.f32_plan.cache_clear()
+    per = {}
+    for (m, k, n), (x, qt) in ops.items():
+        per[f"{m}x{k}x{n}"] = cs.median_ms(
+            lambda: quant.w8_matmul(x, qt["q8"], qt["scale"]), dev,
+            flush=flush)
+    total = sum(counts[tuple(map(int, key.split("x")))] * t
+                for key, t in per.items())
+    print("ABLATE-F32 " + json.dumps({"name": name, "sum_ms": total,
+                                      "per_product_ms": per}), flush=True)
+"""
+
+
+def cmd_ablate_f32() -> int:
+    sys.path.insert(0, HERE)
+    from bigdl_tpu_torch.ops import _build
+    root = os.path.join("build", "ablate_f32")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cc = [_build._nvcc(), *_build.ARCH, *_build.FLAGS]
+    procs = [(f"{root}/{os.path.basename(cu)}.o", subprocess.Popen(
+        cc + ["-c", cu, "-o", f"{root}/{os.path.basename(cu)}.o"]))
+        for cu in QUANT_SOURCES[:3]]
+    libs, settings = {}, {}
+    for name, (edits, plan) in F32_ABLATIONS.items():
+        d = os.path.join(root, re.sub(r"\W", "_", name))
+        shutil.copytree("bigdl_tpu_torch/csrc", d)
+        src = open(f"{d}/quant_matmul.cu").read()
+        for text, repl in edits:
+            if text not in src:
+                raise SystemExit(f"f32 ablation {name}: quant_matmul.cu no "
+                                 "longer holds the text to change")
+            src = src.replace(text, repl)
+        open(f"{d}/quant_matmul.cu", "w").write(src)
+        procs.append((f"{d}/qm.o", subprocess.Popen(
+            cc + ["-c", f"{d}/quant_matmul.cu", "-o", f"{d}/qm.o"])))
+        libs[name], settings[name] = f"{d}/lib.so", plan
+    if any(p.wait() for _, p in procs):
+        print("f32 ablation: nvcc failed", flush=True)
+        return 1
+    for name, lib in libs.items():
+        subprocess.run([_build._nvcc(), *_build.ARCH, "-shared", "-o", lib,
+                        f"{os.path.dirname(lib)}/qm.o"] +
+                       [o for o, _ in procs[:3]], check=True)
+    r = subprocess.run([sys.executable, "-c", _ABLATE_F32_RUN,
+                        json.dumps(libs), json.dumps(settings)],
+                       capture_output=True, text=True)
+    for ln in r.stdout.splitlines():
+        if ln.startswith("ABLATE-F32 "):
+            row = json.loads(ln[11:])
+            print(f"{row['name']}: sum over the batch-32 f32 w8 forward's "
+                  f"products {row['sum_ms']:.4f} ms (CUDA events); "
+                  + json.dumps(row["per_product_ms"]), flush=True)
+    if r.returncode:
+        print(r.stderr[-3000:], flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return r.returncode
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -338,6 +515,8 @@ def main(argv) -> int:
         return cmd_mutants()
     if cmd == "ablate":
         return cmd_ablate()
+    if cmd == "ablate-f32":
+        return cmd_ablate_f32()
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -4,7 +4,8 @@
 // cp.async copies, the 128/64/32-byte swizzled tile layout that TMA writes and
 // wgmma reads, its shared-memory matrix descriptors, and the bf16 wgmma
 // products (f32 accumulators): both operands from shared memory at N
-// 8-256, or A from registers at N 16-256.
+// 8-256, or A from registers at N 16-256; and the int8 products of K14
+// (int32 accumulators, both operands from shared memory, N 64-256).
 // Compiled for sm_90a only (wgmma does not exist on plain sm_90).
 //
 // Layouts.  A warpgroup is 4 consecutive warps (128 threads); warp w of it
@@ -147,6 +148,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // accumulator register i of this thread in its warpgroup's m64 product: its
@@ -301,6 +308,49 @@ BIGDL_SS(128,
   "%122, %123, %124, %125, %126, %127"
 BIGDL_SS(256, BIGDL_REGS128, BIGDL_ACC128, "%128", "%129", "%130")
 #undef BIGDL_SS
+
+// d (64 x N, int32) = A B (kFirst: written only, as Ss) or d += A B over
+// k32: A (64 x 32) and B (N x 32) int8 from shared memory, both K-major
+// (8-bit wgmma takes no other layout).  A k32 step of int8 is 32 bytes of a
+// row, as a k16 step of bf16, so Tile's descriptors serve both; the
+// accumulator's layout is the f32 one (the header's).  N is 64, 128 or 256.
+template <int N>
+struct Ss8;
+
+#define BIGDL_SS8(N, REGS, ACC, A, B, SCALE)                                \
+  template <>                                                               \
+  struct Ss8<N> {                                                           \
+    template <bool kFirst>                                                  \
+    __device__ static __forceinline__ void mma(int (&d)[N / 2], uint64_t a,\
+                                               uint64_t b) {               \
+      if constexpr (kFirst)                                                 \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"     \
+                     "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8"    \
+                     ".s8 {" REGS "}, " A ", " B ", p;\n}\n"                \
+                     : ACC("=r") : "l"(a), "l"(b), "r"(0));                 \
+      else                                                                  \
+        asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SCALE ", 0;\n"     \
+                     "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8"    \
+                     ".s8 {" REGS "}, " A ", " B ", p;\n}\n"                \
+                     : ACC("+r") : "l"(a), "l"(b), "r"(1));                 \
+    }                                                                       \
+  };
+
+BIGDL_SS8(64,
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+          "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+          "%26, %27, %28, %29, %30, %31",
+          BIGDL_ACC32, "%32", "%33", "%34")
+BIGDL_SS8(128,
+          "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+          "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+          "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+          "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+          "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+          "%62, %63",
+          BIGDL_ACC64, "%64", "%65", "%66")
+BIGDL_SS8(256, BIGDL_REGS128, BIGDL_ACC128, "%128", "%129", "%130")
+#undef BIGDL_SS8
 
 // d += A B over k16: A (64 x 16) in registers, B (16 x 256) from shared
 // memory, MN-major

@@ -54,8 +54,9 @@ _SIGNATURES = {
     # x, q, scale, y, x dtype, weight dtype, m, n, k, bm, bn, splits,
     # workspace (or null), stream
     "bigdl_w8_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],
-    # xq, q, scale * sx, y, y dtype, m, n, k, stream
-    "bigdl_a8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xq, q, scale * sx, y, y dtype, m, n, k, bn, splits, workspace and
+    # tickets (or null), stream
+    "bigdl_a8_matmul": [_P, _P, _P, _P] + [_I] * 6 + [_P, _P, _P],
     # x, q4, scale, y, x dtype, m, n, k, bm, bn, splits, workspace (or
     # null), stream
     "bigdl_w4_matmul": [_P, _P, _P, _P] + [_I] * 7 + [_P, _P],

@@ -17,16 +17,18 @@ The kernels (``csrc/quant_matmul.cu``), ``y = x @ dequant(q).T``:
   (``bigdl_tpu/ops/quant.py:417``, reached through ``_fused_call`` and, for
   e4m3 weights, ``_f8_pallas``): int8 or e4m3 weights widened inside the
   kernel, f32 accumulation, ``scale[n]`` applied once on the output before
-  the single rounding to x's dtype.  float32 x runs on FFMA (full f32, as
-  the reference's product); bfloat16 x runs the Hopper kernel of
-  ``csrc/quant_bf16.cuh``.
+  the single rounding to x's dtype.  bfloat16 x runs the Hopper kernel of
+  ``csrc/quant_bf16.cuh``; float32 x the register-tiled FFMA kernel
+  ``f32_mm`` (full f32, as the reference's product).
 * K14 (:func:`a8_matmul`) replaces ``_a8_kernel`` (``quant.py:459``):
-  int8 x int8 -> int32 with ``__dp4a``, then ``float(acc) * s[n]``.  The sums
-  are exact, so it is bit-equal to :func:`int8_a8_matmul_plain`.
+  int8 x int8 -> int32 on the int8 tensor cores (``wgmma`` s32.s8.s8),
+  then ``float(acc) * s[n]``.  The sums are exact, so it is bit-equal to
+  :func:`int8_a8_matmul_plain`.
 * K15 (:func:`w4_matmul`) replaces ``_w4_kernel`` (``quant.py:441``): the
   split-half nibble layout is decoded in place, so x is never re-laid out
   (one K step reads a byte tile once, against x's columns ``[j, j + w)``
-  for the low nibbles and ``[h + j, h + j + w)`` for the high ones).
+  for the low nibbles and ``[h + j, h + j + w)`` for the high ones); in
+  float32 it runs ``f32_mm`` too.
 
 The TPU kernels padded M/N/K to whole tiles in memory and carried the K
 sum across grid steps.  What bounds the bf16 kernel on the H100 is the
@@ -36,14 +38,20 @@ launch and K-chain latency.  So x's tiles and the packed weight's come by
 TMA into a 4-stage ring while ``wgmma`` runs on the tiles that landed
 (the weight widened exactly in shared memory, never in device memory), a
 block's N tile covers up to 256 columns (x read once), and the grid is
-planned per shape by
-:func:`bf16_plan` to fill the card: where M tiles x N tiles give fewer
-blocks than it has SMs, K is split across blocks and a second pass adds
-the f32 partial sums in split order (no atomics: launches are bit-equal).
-float32 is bound by FFMA throughput.  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises.  Each wrapper counts
-its launches in ``<wrapper>.launches`` (a split's second pass is part of
-one launch).
+planned per shape by :func:`bf16_plan` to fill the card.  float32 is
+bound by FFMA's rate and by what shared memory hands it: ``f32_mm``
+gives each thread an 8 x 8 micro-tile (4 FFMA a loaded register) and
+feeds it through a 3-stage ``cp.async`` ring, the packed bytes widened
+once a step into an f32 tile; :func:`f32_plan` picks the block tile by
+N and M.  K14 is bound by latency: :func:`a8_plan` picks its N tile and
+splits K so that the classifier's blocks reach the card's SMs, and the
+last block of each output tile (an atomic ticket) adds the int32 partial
+sums in split order in the same launch.  Wherever M tiles x N tiles give
+fewer blocks than the card has SMs, K is split across blocks and the
+partial sums are added in split order (no atomics on the sums: launches
+are bit-equal).  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.  Each wrapper counts its launches in
+``<wrapper>.launches`` (a split's second pass is part of one launch).
 """
 
 from __future__ import annotations
@@ -316,6 +324,99 @@ def bf16_plan(m: int, k: int, n: int, nibbles: bool = False,
     return Bf16Plan(bm, bn, n_tiles, splits, per, steps)
 
 
+def _k_splits(tiles: int, steps: int, sms: int):
+    """``(splits, per)``: K unsplit where ``tiles`` blocks fill ``sms``
+    SMs, else the fewest non-empty splits of ``per`` steps that reach
+    ``sms`` blocks, or one step each."""
+    if tiles >= sms or steps <= 1:
+        return 1, steps
+    for want in range(_cdiv(sms, tiles), steps + 1):
+        per = _cdiv(steps, want)
+        if tiles * _cdiv(steps, per) >= sms:
+            return _cdiv(steps, per), per
+    return steps, 1
+
+
+# -- the f32 kernel's plan ---------------------------------------------------
+
+F32_TILES = ((64, 128), (128, 64), (128, 32))    # (rows, columns) a block
+F32_STEP = 16                                    # weight columns a K step
+F32_BLOCKS_PER_SM = 2                            # blocks an SM to fill
+
+
+class F32Plan(NamedTuple):
+    """The grid of the f32 K13/K15 kernel for one product: ``bm`` x ``bn``
+    a block (one of F32_TILES), ``n_tiles`` of them along N, ``splits``
+    blocks along K of ``per`` K steps each (the last may have fewer), of
+    ``steps`` in all (16 weight columns a step)."""
+    bm: int
+    bn: int
+    n_tiles: int
+    splits: int
+    per: int
+    steps: int
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(m: int, k: int, n: int, nibbles: bool = False,
+             sms: int = H100_SMS) -> F32Plan:
+    """Plan the f32 kernel's grid for an (M, K, N) product (``nibbles``:
+    K15's int4 layout, 8 packed bytes a step) on a card of ``sms`` SMs.
+    The block tile that computes the least padding (its rows and columns
+    past M and N), the widest on a tie: 64 x 128, 128 x 64, or 128 x 32
+    (the 8 x 4 micro-tile) where N <= 32.  A block alone on an SM leaves
+    its FFMA units waiting on shared memory, so where the tiles give fewer
+    than F32_BLOCKS_PER_SM blocks an SM, K is split as :func:`bf16_plan`
+    splits it, to that many blocks (filling one or three an SM measured
+    slower over the forward's products: too few blocks, or the partial
+    sums' traffic and a tail wave)."""
+    steps = _cdiv(_cdiv(k, 2), F32_STEP // 2) if nibbles else \
+        _cdiv(k, F32_STEP)
+    bm, bn = min((t for t in F32_TILES if t[1] > 32 or n <= 32),
+                 key=lambda t: _cdiv(m, t[0]) * t[0] * _cdiv(n, t[1]) * t[1])
+    n_tiles = _cdiv(n, bn)
+    splits, per = _k_splits(max(1, _cdiv(m, bm) * n_tiles), steps,
+                            F32_BLOCKS_PER_SM * sms)
+    return F32Plan(bm, bn, n_tiles, splits, per, steps)
+
+
+# -- K14's plan ----------------------------------------------------------------
+
+A8_BM = 64                 # rows a block: one warpgroup's wgmma
+A8_BN = (256, 128, 64)     # its N tiles
+A8_STEP = 128              # bytes of K a step
+A8_TICKETS = 1024          # output tiles a split launch may have
+
+
+class A8Plan(NamedTuple):
+    """K14's grid for one product: 64 rows x ``bn`` columns a block,
+    ``n_tiles`` along N, ``splits`` blocks along K of ``per`` K steps each
+    (the last may have fewer), of ``steps`` in all (128 bytes a step)."""
+    bn: int
+    n_tiles: int
+    splits: int
+    per: int
+    steps: int
+
+
+@functools.lru_cache(maxsize=None)
+def a8_plan(m: int, k: int, n: int, sms: int = H100_SMS) -> A8Plan:
+    """Plan K14's grid for an (M, K, N) product on a card of ``sms`` SMs.
+    K14 is bound by latency, so from the narrowest N tile that covers N
+    (256 above 256) it narrows the tile until one K step a block would
+    give ``sms`` blocks (64 columns at least), then splits K into the
+    fewest splits that reach ``sms`` blocks, or one step each."""
+    steps = _cdiv(k, A8_STEP)
+    m_tiles = _cdiv(m, A8_BM)
+    widths = [w for w in A8_BN
+              if w <= min([c for c in A8_BN if c >= n] or [A8_BN[0]])]
+    bn = next((w for w in widths if m_tiles * _cdiv(n, w) * steps >= sms),
+              A8_BN[-1])
+    n_tiles = _cdiv(n, bn)
+    splits, per = _k_splits(max(1, m_tiles * n_tiles), steps, sms)
+    return A8Plan(bn, n_tiles, splits, per, steps)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -351,18 +452,17 @@ def _launch(fn, what, x, q, scale, y, *dims):
 
 def _dequant_launch(fn, what, x, q, scale, k, dims, nibbles):
     """Launch K13 or K15 (``fn``, ``dims`` its codes and shape) into a new
-    y; bf16 x with its :func:`bf16_plan` and, when that splits K, an f32
-    workspace of the partial sums."""
+    y with the plan of x's dtype (:func:`bf16_plan` or :func:`f32_plan`)
+    and, when that splits K, an f32 workspace of the partial sums."""
     m, n = x.shape[0], q.shape[0]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    plan, ws = (64, 8, 1), None
-    if x.dtype == torch.bfloat16:
-        p = bf16_plan(m, k, n, nibbles, _device_sms(x.device.index))
-        plan = (p.bm, p.bn, p.splits)
-        if p.splits > 1:
-            ws = torch.empty((p.splits, m, n), dtype=torch.float32,
-                             device=x.device)
-    _launch(fn, what, x, q, scale, y, *dims, *plan,
+    planner = bf16_plan if x.dtype == torch.bfloat16 else f32_plan
+    p = planner(m, k, n, nibbles, _device_sms(x.device.index))
+    ws = None
+    if p.splits > 1:
+        ws = torch.empty((p.splits, m, n), dtype=torch.float32,
+                         device=x.device)
+    _launch(fn, what, x, q, scale, y, *dims, p.bm, p.bn, p.splits,
             None if ws is None else ws.data_ptr())
     return y
 
@@ -411,10 +511,36 @@ def a8_matmul(xq, q8, s_combined, out_dtype):
     m, k = xq.shape
     n = q8.shape[0]
     y = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    p = a8_plan(m, k, n, _device_sms(xq.device.index))
+    ws = tickets = None
+    if p.splits > 1:
+        ws = torch.empty((p.splits, m, n), dtype=torch.int32,
+                         device=xq.device)
+        tickets = _a8_tickets(xq)
+        if _cdiv(m, A8_BM) * p.n_tiles > tickets.numel():
+            raise ValueError(f"a8_matmul {(m, k, n)}: more split tiles than "
+                             f"{tickets.numel()} tickets")
     _launch(_build.load().bigdl_a8_matmul, "a8_matmul", xq, q8, s_combined,
-            y, _build.DTYPE_CODES[out_dtype], m, n, k)
+            y, _build.DTYPE_CODES[out_dtype], m, n, k, p.bn, p.splits,
+            None if ws is None else ws.data_ptr(),
+            None if tickets is None else tickets.data_ptr())
     a8_matmul.launches += 1
     return y
+
+
+_tickets: Dict = {}
+
+
+def _a8_tickets(xq):
+    """K14's ticket counters for xq's card and current stream: zeroed once,
+    and each launch leaves them zero (its last blocks reset theirs), so
+    launches in stream order share them; another stream gets its own."""
+    key = (xq.device.index, _build.stream_ptr(xq))
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets.setdefault(key, torch.zeros(
+            A8_TICKETS, dtype=torch.int32, device=xq.device))
+    return t
 
 
 def w4_matmul(x, q4, scale, k: int):

@@ -24,9 +24,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    bit-equal, K13/K15 within 1e-4 of each output's sum of |products| (f32
    sums in another order), plus one bfloat16 rounding step in bfloat16;
    K13 (both weight kinds) and K15 bit-equal over two bf16 launches at a
-   split-K shape and at conv2's; then the bf16 kernel's plan (rows and
-   columns a block, splits of K) and x's copy (TMA or loads) at every
-   product of the path;
+   split-K shape and at conv2's, and over two f32 launches at a split-K
+   shape and at the classifier (both split K); K14 bit-equal over two
+   launches at the classifier at buckets 32 and 8 (split K); then the
+   bf16 kernel's plan (rows and columns a block, splits of K) and x's copy
+   (TMA or loads), the f32 kernel's plan and x's copy (16- or 4-byte), and
+   K14's plan at every product of the path;
 3. serving: full-width ``Inception_v1(1000)`` with seeded random weights
    behind ``InferenceServer(DLClassifier(..., device="cuda"),
    batch_buckets=(8, 32))``; every request must resolve to the same class
@@ -54,7 +57,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
    1 K13 with e4m3 weights), and for every
    rung its top-1 agreement and mean |dlog-prob| against the unquantized
    bf16 forward and its resident bytes against the bf16 tree (reported,
-   not gated: the weights are random);
+   not gated: the weights are random); then the default quantized
+   classifier, ``DLClassifier(..., quantize="w8")`` with no
+   ``compute_dtype`` (f32 activations, every product on the f32 K13),
+   behind an ``InferenceServer`` at buckets 8 and 32, one wave each: 56 K13
+   + 13 K1 + 2 K2 a forward and nothing else, classes equal to
+   ``DLClassifier.predict``'s, and 8 rows against a CPU run of the same
+   packed copy (argmax on every row, logits within 1e-4 of their largest
+   magnitude);
 2d. the attention-forward kernels (K8, K9) against their plain versions
    at the LM paths' shapes ((8, 8, 2048, 64) causal for K8 and for K9 with
    the padded batch's bias, (1, 8, 8192, 64) causal for K9) and at ragged
@@ -176,9 +186,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    torch.profiler, the wrapper's host time), summed per stage of
    Inception-v1 and over the batch-32 forward beside their bounds, plain
    versions and library calls (``F.linear`` on the widened weight; K14
-   ``torch._int_mm`` + scale) by both clocks, the
+   ``torch._int_mm`` + scale) by both clocks (K14 at buckets 8 and 32,
+   and K13-e4m3 and K15 also in f32 at the classifier), the
    fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
-   bf16 forward per bucket with a profiler breakdown of its device time;
+   bf16 and the default f32 ``w8`` forward per bucket with a profiler
+   breakdown of their device time (the f32 K13's share of it);
    K8 and K9 per call at the LM paths' shapes, at train_main's f32 shape
    (8, 8, 4096, 64), at the LM widths over head dims 128 and 256 in bf16
    and at (1, 2, 2048, 512) in bf16
@@ -297,8 +309,16 @@ QUANT_EDGES = [(63, 64, 8), (64, 128, 24), (65, 192, 256), (127, 256, 257),
                (1568, 832, 160), (392, 1200, 128), (6272, 512, 24)]
 # x at row 1 of a larger tensor: k 1001 puts it off 16 bytes (no TMA)
 QUANT_OFFSET = [(33, 1001, 48), (130, 512, 96)]
-# K13 and K15 bit-equal over two bf16 launches: a split-K shape and conv2
+# K13 and K15 bit-equal over two bf16 launches: a split-K shape and conv2;
+# over two f32 launches: a split-K shape and the classifier (both split);
+# K14 over two launches at the classifier, buckets 32 and 8 (split K)
 QUANT_BITEQ = [(1568, 832, 160), (100352, 576, 192)]
+QUANT_BITEQ_F32 = [(1568, 832, 160), (32, 1024, 1000)]
+QUANT_BITEQ_A8 = [(32, 1024, 1000), (8, 1024, 1000)]
+# the default f32 w8 forward's logits, card vs CPU, of their largest
+# magnitude: f32 sums in another order through 22 layers (no bf16
+# rounding; the H100 showed 4.5e-7); a wrong product shows far above it
+QF32_LOGIT_RTOL = 1e-4
 # fused convs (unfold + K13) timed end to end against cuDNN
 QCONVS = ["conv2/3x3", "inception_3a/1x1", "inception_4e/5x5"]
 # TransformerLM: the model of bench_infer.py measure_lm_scoring /
@@ -875,43 +895,75 @@ def check_quant_kernels(device, path_shapes):
                          f"{' at row 1' if offset else ''}: max |err| {err} "
                          "beyond tolerance (K14: not bit-equal)")
                 counts[name] += 1
-    for m, k, n in QUANT_BITEQ:
-        x = torch.randn((m, k), generator=gen,
-                        device=device).to(torch.bfloat16)
-        w = torch.randn((n, k), generator=gen, device=device)
-        for mode, fn in (("w8", quant.w8_matmul), ("f8", quant.f8_matmul),
-                         ("w4", quant.w4_matmul)):
-            qt = quant.pack(w, mode=mode)
-            args = (x, qt[{"w8": "q8", "f8": "f8", "w4": "q4"}[mode]],
-                    qt["scale"]) + ((k,) if mode == "w4" else ())
-            a, b = fn(*args), fn(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(a, b):
-                fail(f"{fn.__name__} {(m, k, n)} bf16: two launches differ")
+    for dtype, shapes in ((torch.bfloat16, QUANT_BITEQ),
+                          (torch.float32, QUANT_BITEQ_F32)):
+        for m, k, n in shapes:
+            x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+            w = torch.randn((n, k), generator=gen, device=device)
+            for mode, fn in (("w8", quant.w8_matmul),
+                             ("f8", quant.f8_matmul),
+                             ("w4", quant.w4_matmul)):
+                qt = quant.pack(w, mode=mode)
+                args = (x, qt[{"w8": "q8", "f8": "f8", "w4": "q4"}[mode]],
+                        qt["scale"]) + ((k,) if mode == "w4" else ())
+                a, b = fn(*args), fn(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    fail(f"{fn.__name__} {(m, k, n)} {dtype}: two launches "
+                         "differ")
+    for m, k, n in QUANT_BITEQ_A8:
+        x = torch.randn((m, k), generator=gen, device=device)
+        qt = quant.pack(torch.randn((n, k), generator=gen, device=device),
+                        sx=3.0 / 127)
+        xq = quant.quantize_act(x, qt["sx"])
+        s = qt["scale"] * qt["sx"]
+        a = quant.a8_matmul(xq, qt["q8"], s, torch.float32)
+        b = quant.a8_matmul(xq, qt["q8"], s, torch.float32)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"a8_matmul {(m, k, n)}: two launches differ")
     log("quantized kernels vs plain: " + "; ".join(
         f"{k} {counts[k]} cases, max |err| f32 {errs[k]:.3g} bf16 "
         f"{errs_bf16[k]:.3g}" for k in names) + " (a8_matmul bit-equal); "
-        f"w8/f8/w4_matmul bit-equal over two bf16 launches at {QUANT_BITEQ}")
+        f"w8/f8/w4_matmul bit-equal over two bf16 launches at {QUANT_BITEQ} "
+        f"and two f32 launches at {QUANT_BITEQ_F32}; a8_matmul over two "
+        f"launches at {QUANT_BITEQ_A8}")
     return errs, counts, misses
 
 
 def log_quant_plans(path_shapes):
-    """One line: the bf16 kernel's plan at every product of the path, and
-    whether x comes by TMA there (every Inception shape should)."""
+    """Three lines: the bf16 kernel's plan at every product of the path,
+    and whether x comes by TMA there (every Inception shape should); the
+    f32 kernel's plan there, and whether x comes by 16-byte copies; K14's
+    plan at its products."""
     import torch
     from bigdl_tpu_torch.ops import quant
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plans = []
+    plans, f32, a8 = [], [], []
     for name, nib in (("w8_matmul", False), ("w4_matmul", True)):
+        tag = "K15" if nib else "K13"
         for m, k, n in sorted(set(path_shapes[name])):
             p = quant.bf16_plan(m, k, n, nib, sms)
             blocks = -(-m // p.bm) * p.n_tiles * p.splits
             tma = k % 8 == 0 and (not nib or (k + 1) // 2 % 8 == 0)
-            plans.append(f"{'K15' if nib else 'K13'} {m}x{k}x{n}: bm {p.bm} "
+            plans.append(f"{tag} {m}x{k}x{n}: bm {p.bm} "
                          f"bn {p.bn}x{p.n_tiles} splits {p.splits}x{p.per}/"
                          f"{p.steps} = {blocks} blocks, x by "
                          f"{'TMA' if tma else 'loads'}")
+            p = quant.f32_plan(m, k, n, nib, sms)
+            blocks = -(-m // p.bm) * p.n_tiles * p.splits
+            vec = k % 4 == 0 and (not nib or (k + 1) // 2 % 4 == 0)
+            f32.append(f"{tag} {m}x{k}x{n}: {p.bm}x{p.bn} x{p.n_tiles} "
+                       f"splits {p.splits}x{p.per}/{p.steps} = {blocks} "
+                       f"blocks, x by {16 if vec else 4}-byte copies")
+    for m, k, n in sorted(set(path_shapes["a8_matmul"])):
+        p = quant.a8_plan(m, k, n, sms)
+        blocks = -(-m // quant.A8_BM) * p.n_tiles * p.splits
+        a8.append(f"K14 {m}x{k}x{n}: bn {p.bn}x{p.n_tiles} splits "
+                  f"{p.splits}x{p.per}/{p.steps} = {blocks} blocks")
     log("bf16 plans: " + "; ".join(plans))
+    log("f32 plans: " + "; ".join(f32))
+    log("K14 plans: " + "; ".join(a8))
 
 
 # -- phase 2d: the attention kernels against their plain versions -------------
@@ -1667,6 +1719,71 @@ def serve_quantized(device):
               "cpu_min_top2_margin": margin, "cpu_max_abs_logp_diff": diff,
               "cpu_logp_limit": lp_tol,
               "bf16_tree_bytes": bf16_bytes, "rungs": rungs}
+    return report, by_path, clf
+
+
+def serve_quantized_f32(device):
+    """The default quantized classifier: the same seeded Inception-v1 under
+    ``DLClassifier(..., quantize="w8")`` with no ``compute_dtype`` (f32
+    activations, every product on the f32 K13) behind an
+    ``InferenceServer`` at buckets 8 and 32, one wave each: every forward
+    launches 56 K13 + 13 K1 + 2 K2 and nothing else, the served classes
+    equal ``DLClassifier.predict``'s, and 8 rows agree with a CPU run of
+    the same packed copy (argmax on every row, logits within
+    QF32_LOGIT_RTOL of their largest magnitude).  Returns the report, the
+    launches by bucket and the classifier."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.api import DLClassifier
+    from bigdl_tpu_torch.serving import InferenceServer
+
+    clf = DLClassifier(build_model(), (BATCH, 3, IMAGE, IMAGE),
+                       quantize="w8", device=device)
+    server = InferenceServer(clf, batch_buckets=BUCKETS, device=device)
+    rows = {b: make_rows(b, SEED + 50 + b) for b in BUCKETS}
+    served, by_path = {}, {}
+    try:
+        for b in BUCKETS:
+            before = server.stats()["buckets"]
+            ops.reset_launches()         # this bucket's wave starts here
+            futs = [server.submit(r) for r in rows[b]]
+            served[b] = [f.result(timeout=600) for f in futs]
+            got = launches_now()         # and ends here
+            after = server.stats()["buckets"]
+            forwards = sum(v["batches"] for v in after.values()) - \
+                sum(v["batches"] for v in before.values())
+            if got != per_forward(RUNG_LAUNCHES["w8"], forwards):
+                fail(f"f32 w8 serving, a wave of {b}: launches {got} for "
+                     f"{forwards} forwards, expected "
+                     f"{per_forward(RUNG_LAUNCHES['w8'], forwards)}")
+            by_path[f"serve_w8_f32_wave_{b}"] = got
+    finally:
+        if not server.drain(timeout=120):
+            fail("f32 quantized server did not drain")
+    for b in BUCKETS:
+        if list(clf.predict(rows[b])) != served[b]:
+            fail(f"f32 w8 served classes of the wave of {b} differ from "
+                 "DLClassifier.predict")
+    cpu_q = copy.deepcopy(clf.qmodel).to("cpu")
+    x8 = clf._pack(rows[8], size=QCPU_ROWS)
+    with torch.inference_mode():
+        lg_dev, _ = logits_and_logp(clf.qmodel, x8.to(device))
+        lg_cpu, _ = logits_and_logp(cpu_q, x8)
+    if lg_dev.shape != (QCPU_ROWS, CLASSES) or \
+            not torch.isfinite(lg_dev).all():
+        fail(f"f32 w8 logits have shape {tuple(lg_dev.shape)} or are not "
+             "finite")
+    tol = QF32_LOGIT_RTOL * lg_cpu.abs().max().item()
+    diff = (lg_dev - lg_cpu).abs().max().item()
+    if diff > tol or not torch.equal(lg_dev.argmax(1), lg_cpu.argmax(1)):
+        fail(f"f32 w8 card vs CPU: max |dlogit| {diff} (limit {tol}), "
+             f"argmax {lg_dev.argmax(1).tolist()} vs "
+             f"{lg_cpu.argmax(1).tolist()}")
+    log(f"quantized serving (w8, f32, the default): waves of {BUCKETS} "
+        "equal to DLClassifier.predict; launches by wave "
+        f"{json.dumps(by_path)}; {QCPU_ROWS} rows vs the CPU: max |dlogit| "
+        f"{diff:.4g} (limit {tol:.4g}), argmax equal on all {QCPU_ROWS}")
+    report = {"cpu_max_abs_logit_diff": diff, "cpu_logit_limit": tol}
     return report, by_path, clf
 
 
@@ -2816,15 +2933,17 @@ def host_ms(fn, reps=TIMING_REPS):
 def quant_cases(prods):
     """``{(wrapper, bucket, stage, (M, K, N)): calls}``: K13 int8 at every
     product of the w8 forward (bf16 at both buckets, f32 at batch 32), and
-    K13 e4m3 and K15 (both buckets) and K14 (batch 32) at the classifier,
-    the one product each of those rungs runs."""
+    K13 e4m3, K15 and K14 (both buckets; K13 e4m3 and K15 also f32 at batch
+    32) at the classifier, the one product each of those rungs runs.  A
+    name ending in ``_f32`` is its wrapper in float32."""
     cases = {}
     for b, ps in prods.items():
         for layer, kind, m, k, n, _ in ps:
             names = ["w8_matmul"] + (["w8_matmul_f32"] if b == BATCH else [])
             if kind == "linear":
-                names += ["f8_matmul", "w4_matmul"] + \
-                    (["a8_matmul"] if b == BATCH else [])
+                names += ["f8_matmul", "w4_matmul", "a8_matmul"] + \
+                    (["f8_matmul_f32", "w4_matmul_f32"] if b == BATCH
+                     else [])
             for name in names:
                 key = (name, b, quant_stage(layer), (m, k, n))
                 cases[key] = cases.get(key, 0) + 1
@@ -2847,27 +2966,40 @@ def _quant_sums(rows):
     return t
 
 
+def quant_plan(name, dtype, m, k, n):
+    """The plan a wrapper's kernel takes at (M, K, N) in ``dtype`` (where
+    the package plans it), as a dict."""
+    import torch
+    from bigdl_tpu_torch.ops import quant
+    if name == "a8_matmul":
+        planner = getattr(quant, "a8_plan", None)
+        return None if planner is None else planner(m, k, n)._asdict()
+    planner = getattr(quant, "bf16_plan" if dtype == torch.bfloat16 else
+                      "f32_plan", None)
+    return None if planner is None else planner(
+        m, k, n, nibbles=name.startswith("w4_matmul"))._asdict()
+
+
 def time_quant_kernels(device, prods):
     """K13-K15 per distinct product of the quantized forward (``prods``:
     :func:`quant_products` per bucket, QUANT_CASES' wrappers): per product
     the kernel's CUDA-event median (L2 flushed between calls), its device
     time from torch.profiler, its wrapper's host time, the plain version's
     time (batch 32), and ``F.linear`` on the widened weight (K14:
-    ``torch._int_mm`` + scale) by both clocks, beside the bound; the bf16
+    ``torch._int_mm`` + scale) by both clocks, beside the bound; the
     kernel's plan where the package has one.  Returns ``(sums, rows)``:
-    per wrapper (``w8_matmul_f32`` for K13 int8 in f32) the batch-32 sums
-    over the forward's calls with ``"buckets"`` ({bucket: sums}) and
-    ``"stages"`` ({bucket: {stage: sums}}), and the per-product rows."""
+    per wrapper (``<wrapper>_f32`` in f32) the batch-32 sums over the
+    forward's calls with ``"buckets"`` ({bucket: sums}) and ``"stages"``
+    ({bucket: {stage: sums}}), and the per-product rows."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import quant
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     bf16 = torch.bfloat16
-    plan = getattr(quant, "bf16_plan", None)
     rows = []
     for (name, b, stage, (m, k, n)), c in sorted(quant_cases(prods).items()):
-        dtype = torch.float32 if name == "w8_matmul_f32" else bf16
+        dtype = torch.float32 if name.endswith("_f32") else bf16
         xb = 2 if dtype == bf16 else 4
         x = torch.randn((m, k), generator=gen, device=device).to(dtype)
         w = torch.randn((n, k), generator=gen, device=device)
@@ -2888,7 +3020,8 @@ def time_quant_kernels(device, prods):
                 log(f"torch._int_mm refuses {(m, k, n)}: {e}")
                 lib = None
         else:
-            mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(name, "w8")
+            mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(
+                name.replace("_f32", ""), "w8")
             qt = quant.pack(w, mode=mode)
             wide = quant.unpack(qt, dtype)
             qbytes = n * ((k + 1) // 2) if mode == "w4" else n * k
@@ -2917,8 +3050,7 @@ def time_quant_kernels(device, prods):
              "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
              "ops_ms": 1e3 * 2 * m * n * k / peak}
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-        if plan is not None and dtype == bf16 and name != "a8_matmul":
-            r["plan"] = plan(m, k, n, nibbles=name == "w4_matmul")._asdict()
+        r["plan"] = quant_plan(name, dtype, m, k, n)
         rows.append(r)
     out = {}
     for name in sorted({r["name"] for r in rows}):
@@ -2956,7 +3088,7 @@ def log_quant_times(card, qtimes, qrows):
             f"{fmt_ms(t['library_ms'])}, device "
             f"{fmt_ms(t['library_device_ms'])}")
         for b, stages in t["stages"].items():
-            if name == "w8_matmul":
+            if name in ("w8_matmul", "w8_matmul_f32"):
                 log(f"[{card}] {name} bucket {b} by stage (device / events, "
                     "kernel | library; bound ms): " + "; ".join(
                         f"{s} x{v['calls']} {fmt_ms(v['device_ms'])} / "
@@ -3404,15 +3536,40 @@ def profile_train_steps(device, mixed, steps=3):
     return device_profile(opt.optimize, steps)
 
 
-def profile_forward(clf, device, bucket, reps=3):
+# the f32 K13's kernels by name (csrc/quant_matmul.cu): the FFMA kernel
+# and a split's second pass
+F32_K13_KERNELS = {"f32_mm": "f32_mm<", "splitk_finish": "splitk_finish<"}
+
+
+def time_quantized_f32(card, clf, device, groups=None):
+    """Phase 4's default f32 ``w8`` forward: per bucket its median time
+    (as a worker runs it) and a profiler breakdown of its device time, with
+    the K13 kernels' share (``groups``, F32_K13_KERNELS by default)."""
+    fwd_ms = time_forwards(clf, device)
+    out = {"forward_ms": fwd_ms}
+    for b in BUCKETS:
+        p = profile_forward(clf, device, b, groups=groups or F32_K13_KERNELS)
+        p["busy_share"] = p["device_ms"] / fwd_ms[b]
+        k13 = sum(p["groups"].values())
+        log(f"[{card}] w8 f32 forward bucket {b}: {fwd_ms[b]:.3f} ms median "
+            f"of {TIMING_REPS} ({b / fwd_ms[b] * 1e3:.1f} images/s); device "
+            f"{p['device_ms']:.3f} ms per forward ({k13:.3f} of it in K13 "
+            f"and its split passes), busy share {p['busy_share']:.3f}; top "
+            "kernels and copies (ms per forward): " + json.dumps(p["top"]))
+        out[f"profile_bucket_{b}"] = p
+    return out
+
+
+def profile_forward(clf, device, bucket, reps=3, groups=None):
     """Device time by kernel of one bucket forward as a worker runs it,
-    over ``reps`` forwards after :func:`time_forwards` warmed it."""
+    over ``reps`` forwards after :func:`time_forwards` warmed it
+    (:func:`device_profile`'s ``groups``)."""
     x = clf._pack(make_rows(bucket, SEED + 7), size=bucket)
 
     def run():
         for _ in range(reps):
             clf._run(x).cpu()
-    return device_profile(run, reps)
+    return device_profile(run, reps, groups)
 
 
 # K12's kernels by name (csrc/paged_attention.cu): each path's, and the
@@ -3564,6 +3721,8 @@ def main() -> int:
     train_report, train_launches = train(device)
     train_report["card_vs_cpu"] = train_vs_cpu(device)
     qreport, quant_launches, qclf = serve_quantized(device)
+    qreport["f32"], more, qclf_f32 = serve_quantized_f32(device)
+    quant_launches.update(more)
     for mode, r in qreport["rungs"].items():
         log(f"[{card}] rung {mode} (bf16 activations, batch {BATCH}): top-1 "
             "agreement with the bf16 forward "
@@ -3640,6 +3799,7 @@ def main() -> int:
             f"{p['busy_share']:.3f} of the {qfwd_ms[b]:.3f} ms forward; top "
             "kernels and copies (ms per forward): " + json.dumps(p["top"]))
         qreport[f"profile_bucket_{b}"] = p
+    qreport["f32"].update(time_quantized_f32(card, qclf_f32, device))
     qtimes, qrows = time_quant_kernels(device, prods)
     log_quant_times(card, qtimes, qrows)
     qreport["convs"] = time_quant_convs(device, prods[BATCH])
@@ -3855,10 +4015,12 @@ def main() -> int:
                           ("device_ms", "library_device_ms", "host_ms",
                            "stages")})
             entry["calls_per_forward"] = qtimes[name]["calls"]
-            if name == "w8_matmul":
+            if name + "_f32" in qtimes:
                 entry["f32"] = {key: v for key, v in
-                                qtimes["w8_matmul_f32"].items()
+                                qtimes[name + "_f32"].items()
                                 if key != "stages"}
+            if name == "a8_matmul":
+                entry["buckets"] = qtimes[name]["buckets"]
         else:
             entry.update({key: train_times[name][key] for key in TIME_KEYS})
         kernels.append(entry)

@@ -10,11 +10,13 @@ argmax codes; the backward sums in the plain version's order); the LRN
 forward within rtol 1e-5 / atol 1e-6 in float32 and rtol 2e-2 / atol 1e-2
 in bfloat16, the LRN backward within rtol 1e-5 / atol 1e-5 and rtol 2e-2 /
 atol 2e-2, where the plain version rounds to bfloat16 at every step.  The
-quantized matmuls: K14 (int8 x int8) is bit-equal; K13 (int8 and e4m3
-weights) and K15 (int4) agree to 1e-4 of each output's sum of |products|
-(f32 sums taken in another order: wgmma's, and a split K's partial sums),
-plus one bfloat16 rounding step of the output (2^-7 relative) in bfloat16,
-and are bit-equal across two launches.
+quantized matmuls: K14 (int8 x int8) is bit-equal, also where it splits K
+(its last block of a tile adds the int32 partial sums); K13 (int8 and
+e4m3 weights) and K15 (int4) agree to 1e-4 of each output's sum of
+|products| (f32 sums taken in another order: wgmma's, the f32 kernel's,
+and a split K's partial sums), plus one bfloat16 rounding step of the
+output (2^-7 relative) in bfloat16, and are bit-equal across two launches
+in both dtypes.
 The attention kernels K8, K9 and K12 agree with their plain versions to
 1e-5 of each output's sum of |p·v| (the softmax weights times |v|) in
 float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
@@ -162,12 +164,18 @@ def test_kernel_launches_are_counted(cuda_device):
 # ragged shapes; then the bf16 kernel's edges: M at its 64- and 128-row
 # tiles, N 8, 24, 256, 257 and 384, K 600 (8-byte weight rows) and odd K
 # (byte rows, x not by TMA), 192-row tiles with M and K ragged; then
-# shapes its plan splits over K, unevenly
+# shapes its plan splits over K, unevenly; then the f32 kernel's edges: N
+# 16, 24 and 32 (the 32-column tile), 48 (the 64-column one) and 257, M
+# around its 128- and 256-row tiles, K % 4 != 0 (x by 4-byte copies); and
+# the classifier at buckets 8 and 32 (K14 and the f32 kernel split K)
 MATMUL_SHAPES = [(1, 7, 5), (13, 33, 17), (37, 130, 70), (129, 576, 192),
                  (300, 1024, 1000), (2, 1728, 384),
                  (63, 64, 8), (64, 600, 24), (65, 192, 256), (127, 256, 257),
                  (128, 333, 384), (129, 200, 56), (25400, 72, 40),
-                 (1568, 832, 160), (392, 1200, 128)]
+                 (1568, 832, 160), (392, 1200, 128),
+                 (127, 64, 16), (128, 96, 24), (257, 36, 32), (255, 130, 48),
+                 (256, 577, 257), (129, 1001, 130), (8, 1024, 1000),
+                 (32, 1024, 1000)]
 # shapes the bf16 plan splits over K: 13 steps in 7 splits, the classifier
 # (16 in 16), 9 in 2
 SPLIT_SHAPES = [(1568, 832, 160), (32, 1024, 1000), (6272, 528, 32)]
@@ -204,6 +212,35 @@ def test_quant_matmul_kernels_match_plain(cuda_device, mkn, dtype):
         assert _sum_close(got, want, x, quant.unpack(qt), dt), mode
     qt = quant.pack(w, sx=0.05)
     xq = quant.quantize_act(x, qt["sx"])
+    s = qt["scale"] * qt["sx"]
+    got = quant.a8_matmul(xq, qt["q8"], s, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, quant.int8_a8_matmul_plain(xq, qt["q8"], s, dt))
+
+
+# x at row 1 of a larger tensor: k 1001 puts it off 16 bytes (f32: 4-byte
+# copies; bf16: x by loads)
+OFFSET_SHAPES = [(33, 1001, 48), (130, 512, 96)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mkn", OFFSET_SHAPES,
+                         ids=["x".join(map(str, s)) for s in OFFSET_SHAPES])
+def test_quant_matmul_kernels_take_x_at_row_1(cuda_device, mkn, dtype):
+    m, k, n = mkn
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(m + k)
+    x = torch.randn((m + 1, k), generator=g, device=cuda_device).to(dt)[1:]
+    w = torch.randn((n, k), generator=g, device=cuda_device)
+    for fn, qt, args in _dequant_calls(x, w, k):
+        got = fn(*args)
+        want = quant.int4_matmul_plain(*args) if fn is quant.w4_matmul \
+            else quant.int8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        assert _sum_close(got, want, x, quant.unpack(qt), dt), fn.__name__
+    qt = quant.pack(w, sx=0.05)
+    xq = quant.quantize_act(x.float(), qt["sx"])
+    xq = torch.cat([xq[:1], xq])[1:]     # int8 x at row 1 too
     s = qt["scale"] * qt["sx"]
     got = quant.a8_matmul(xq, qt["q8"], s, dt)
     torch.cuda.synchronize()
@@ -257,6 +294,54 @@ def test_k13_and_k15_are_bit_equal_across_launches(cuda_device, mkn):
         a, b = fn(*args), fn(*args)
         torch.cuda.synchronize()
         assert torch.equal(a, b), fn.__name__
+
+
+@pytest.mark.parametrize("mkn", [(1568, 832, 160), (32, 1024, 1000)],
+                         ids=["split-k", "classifier"])
+def test_f32_k13_and_k15_are_bit_equal_across_launches(cuda_device, mkn):
+    # the f32 kernel splits K at both; its partial sums are added in order
+    m, k, n = mkn
+    for nibbles in (False, True):
+        assert quant.f32_plan(m, k, n, nibbles).splits > 1
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    x = torch.randn((m, k), generator=g, device=cuda_device)
+    w = torch.randn((n, k), generator=g, device=cuda_device)
+    for fn, qt, args in _dequant_calls(x, w, k):
+        a, b = fn(*args), fn(*args)
+        want = quant.int4_matmul_plain(*args) if fn is quant.w4_matmul \
+            else quant.int8_matmul_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), fn.__name__
+        assert _sum_close(a, want, x, quant.unpack(qt), torch.float32), \
+            fn.__name__
+
+
+# K14's split edges: the classifier at buckets 8 and 32 (16 N tiles, 8
+# splits of one step), 20 tiles of 256 columns, and a ragged last step
+A8_SPLIT_SHAPES = [(8, 1024, 1000), (32, 1024, 1000), (300, 1024, 1000),
+                   (130, 1000, 96)]
+
+
+@pytest.mark.parametrize("mkn", A8_SPLIT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in A8_SPLIT_SHAPES])
+def test_k14_is_bit_equal_at_its_splits(cuda_device, mkn):
+    # the last block of each tile adds the int32 partial sums (a ticket):
+    # bit-equal to plain, launch after launch, the tickets left at zero
+    m, k, n = mkn
+    assert quant.a8_plan(m, k, n).splits > 1
+    g = torch.Generator(device=cuda_device).manual_seed(m + n)
+    x = torch.randn((m, k), generator=g, device=cuda_device)
+    qt = quant.pack(torch.randn((n, k), generator=g, device=cuda_device),
+                    sx=3.0 / 127)
+    xq = quant.quantize_act(x, qt["sx"])
+    s = qt["scale"] * qt["sx"]
+    for dt in (torch.float32, torch.bfloat16):
+        want = quant.int8_a8_matmul_plain(xq, qt["q8"], s, dt)
+        for _ in range(3):
+            got = quant.a8_matmul(xq, qt["q8"], s, dt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), dt
+    assert not quant._a8_tickets(xq).any()
 
 
 def test_quant_kernel_launches_are_counted(cuda_device):

@@ -282,6 +282,98 @@ def test_bf16_plan_at_edges(mkn, want):
     assert (plan.bm, plan.bn, plan.n_tiles, plan.splits) == want
 
 
+# -- (c3) the f32 kernel's and K14's grid plans -------------------------------
+
+def _check_splits(tiles, plan, slots):
+    # no split is empty, and together they cover every K step; the card's
+    # ``slots`` blocks filled, or one K step a split; no split where the
+    # tiles alone fill them
+    assert plan.per * plan.splits >= plan.steps
+    assert plan.per * (plan.splits - 1) < plan.steps
+    assert tiles * plan.splits >= slots or plan.per == 1
+    if tiles >= slots:
+        assert plan.splits == 1
+
+
+def _check_f32_plan(m, k, n, nibbles, plan):
+    assert (plan.bm, plan.bn) in tq.F32_TILES
+    assert plan.bn > 32 or n <= 32          # the 8 x 4 tile only there
+    assert plan.bn * plan.n_tiles >= n > plan.bn * (plan.n_tiles - 1)
+    assert plan.steps == (-(-(-(-k // 2)) // 8) if nibbles else -(-k // 16))
+    # no other tile computes less padding
+    area = -(-m // plan.bm) * plan.bm * plan.n_tiles * plan.bn
+    assert all(-(-m // bm) * bm * -(-n // bn) * bn >= area
+               for bm, bn in tq.F32_TILES if bn > 32 or n <= 32)
+    # the f32 kernel's card holds F32_BLOCKS_PER_SM blocks an SM
+    _check_splits(-(-m // plan.bm) * plan.n_tiles, plan,
+                  tq.F32_BLOCKS_PER_SM * tq.H100_SMS)
+
+
+def _check_a8_plan(m, k, n, plan):
+    assert plan.bn in tq.A8_BN
+    assert plan.bn * plan.n_tiles >= n > plan.bn * (plan.n_tiles - 1)
+    assert plan.steps == -(-k // tq.A8_STEP)
+    _check_splits(-(-m // tq.A8_BM) * plan.n_tiles, plan, tq.H100_SMS)
+
+
+@pytest.mark.parametrize("nibbles", [False, True], ids=["int8-e4m3", "int4"])
+@pytest.mark.parametrize("bucket", [8, 32])
+def test_f32_plan_fills_the_card_at_every_inception_product(bucket, nibbles):
+    prods = _inception_products(bucket)
+    assert len(prods) == 56
+    for m, k, n in prods:
+        _check_f32_plan(m, k, n, nibbles, tq.f32_plan(m, k, n, nibbles))
+    # the narrow 1x1 convs take the 32-column tile, N 48 the 64-column one
+    assert {n for m, k, n in prods
+            if tq.f32_plan(m, k, n, nibbles).bn == 32} == {16, 24, 32}
+    assert tq.f32_plan(bucket * 49, 832, 48, nibbles).bn == 64
+
+
+@pytest.mark.parametrize("bucket", [8, 32])
+def test_a8_plan_fills_the_card_at_every_inception_product(bucket):
+    prods = _inception_products(bucket)
+    for m, k, n in prods:
+        _check_a8_plan(m, k, n, tq.a8_plan(m, k, n))
+
+
+@pytest.mark.parametrize("mkn,nibbles,want", [
+    ((100352, 576, 192), False, (128, 64, 3, 1)),   # conv2/3x3: 2352 tiles
+    ((25088, 1152, 192), False, (128, 64, 3, 1)),   # 3b/3x3: 588 tiles
+    ((6272, 480, 16), False, (128, 32, 1, 6)),      # 4a/5x5_reduce: 49 tiles
+    ((1568, 832, 160), False, (128, 64, 3, 7)),     # 52 K steps in 7 splits
+    ((32, 1024, 1000), False, (64, 128, 8, 64)),    # the classifier: 1 step
+    ((8, 1024, 1000), False, (64, 128, 8, 64)),     # at bucket 8
+    ((32, 1024, 1000), True, (64, 128, 8, 64)),     # K15's 8 byte steps
+    ((1568, 1001, 130), False, (128, 64, 3, 7)),    # 63 steps, 9 a split
+    ((1, 7, 5), False, (128, 32, 1, 1)),
+], ids=["conv2", "3b-3x3", "4a-5x5-reduce", "split", "classifier",
+        "classifier-8", "classifier-int4", "uneven", "tiny"])
+def test_f32_plan_at_edges(mkn, nibbles, want):
+    m, k, n = mkn
+    plan = tq.f32_plan(m, k, n, nibbles)
+    _check_f32_plan(m, k, n, nibbles, plan)
+    assert (plan.bm, plan.bn, plan.n_tiles, plan.splits) == want
+
+
+@pytest.mark.parametrize("mkn,want", [
+    ((100352, 576, 192), (256, 1, 1)),   # conv2/3x3: tiles fill the card
+    ((25088, 1152, 192), (256, 1, 1)),   # 3b/3x3
+    ((6272, 480, 16), (64, 1, 2)),       # 4a/5x5_reduce: 98 tiles, 4 steps
+    ((1568, 832, 160), (256, 1, 7)),     # one K step a split
+    ((32, 1024, 1000), (64, 16, 8)),     # the classifier: one step a split
+    ((8, 1024, 1000), (64, 16, 8)),      # at bucket 8
+    ((300, 1024, 1000), (256, 4, 8)),    # 20 tiles: one step a split
+    ((130, 1000, 96), (64, 2, 8)),       # 8 steps, the last ragged
+    ((1, 7, 5), (64, 1, 1)),
+], ids=["conv2", "3b-3x3", "4a-5x5-reduce", "split", "classifier",
+        "classifier-8", "wide-m", "ragged-k", "tiny"])
+def test_a8_plan_at_edges(mkn, want):
+    m, k, n = mkn
+    plan = tq.a8_plan(m, k, n)
+    _check_a8_plan(m, k, n, plan)
+    assert (plan.bn, plan.n_tiles, plan.splits) == want
+
+
 # -- (d) the fused int8 conv --------------------------------------------------
 
 @pytest.mark.parametrize("k,pad", [(1, 0), (3, 1), (5, 2)],
