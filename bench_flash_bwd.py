@@ -8,32 +8,38 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 bench_flash_bwd.py ab <parent checkout>
     python3 bench_flash_bwd.py ptxas
-    python3 bench_flash_bwd.py mutants
-    python3 bench_flash_bwd.py ablate
+    python3 bench_flash_bwd.py mutants [name ...]
+    python3 bench_flash_bwd.py ablate [fwd|bwd]
 
 ``ab`` runs each checkout's own ``chip_smoke.long_context_training``
 (phase 3h), ``chip_smoke.train_main_long`` (phase 3i, f32 ``train_main``
-at 8 x 4096, then 3j's resume), ``chip_smoke.time_attention`` (K8 and K9 per call beside
-SDPA), the bf16 LM scoring forwards (8 x 2048 and 1 x 8192, with their
-device time by torch.profiler) and ``chip_smoke.time_flash`` (K10, K11
-and, where the tree has it, the delta pass, beside SDPA's backward at
-FLASH_PATH's shapes) in the parent and in this
-checkout in turns (parent, this, this, parent), each in its own process,
-and prints one ``RESULT {json}`` line a run.  Make the parent with ``git
-archive <commit> bigdl_tpu_torch chip_smoke.py | tar -x -C build/parent``
-(``build/`` is not committed).  ``ptxas`` compiles ``attention.cu`` and
-``flash_attention_bwd.cu`` with ``-Xptxas -v`` under ``build/ptxas/`` and
-prints each kernel's registers, spills and whether ptxas serialized its
-wgmma (info C7515).  ``mutants`` copies the port and ``chip_smoke.py`` under
-``build/mutant_<name>/``, breaks one step of K8/K9, of the bf16 K11 or of
-the f32 K10 or K11 in each copy, and fails unless phase 2d
-(``check_attention_kernels``) or 2f (``check_flash_kernels``) fails in every
-copy.  ``ablate`` builds edited copies of ``flash_attention_bwd.cu`` under
-``build/ablate/<name>/``, each into a library of its own (all ``nvcc`` runs
-started together), and times the f32 K10 and K11 of each at ``train_main``'s
-shape (FLASH_PATH's f32 case, CUDA events, the L2 flushed) in turns, the
-unedited copy first and last: parts of the kernels switched off, to see
-where their time goes, and other tile shapes.
+at 8 x 4096, then 3j's resume), ``chip_smoke.time_attention`` (K8 and K9
+per call beside SDPA, the f32 ones at ``train_main``'s shape and at the
+f32 LM scoring shape), the LM scoring forwards (bf16 8 x 2048 and 1 x
+8192, f32 8 x 2048, with their device time by torch.profiler) and
+``chip_smoke.time_flash`` (K10, K11 and, where the tree has it, the delta
+pass, beside SDPA's backward at FLASH_PATH's shapes) in the parent and in
+this checkout in turns (parent, this, this, parent), each in its own
+process, and prints one ``RESULT {json}`` line a run.  Make the parent
+with ``git archive <commit> bigdl_tpu_torch chip_smoke.py | tar -x -C
+build/parent`` (``build/`` is not committed).  ``ptxas`` compiles
+``attention.cu`` and ``flash_attention_bwd.cu`` with ``-Xptxas -v`` under
+``build/ptxas/`` and prints each kernel's registers, spills and whether
+ptxas serialized its wgmma (info C7515).  ``mutants`` copies the port and
+``chip_smoke.py`` under ``build/mutant_<name>/``, breaks one step of K8/K9
+(bf16 or f32), of the bf16 K11 or of the f32 K10 or K11 in each copy, and
+fails unless phase 2d (``check_attention_kernels``) or 2f
+(``check_flash_kernels``) fails in every copy (only the named mutants
+where names are given).  ``ablate`` builds edited
+copies of the sources under ``build/ablate/<n>/``, each into a library of
+its own (all ``nvcc`` runs started together), and times them in turns, the
+unedited copy first and last: ``fwd`` copies of ``attention.cu`` (and
+``ffma.cuh``) timing the f32 K9 with its LSE and K8 at ``train_main``'s
+shape and K8 at the f32 LM scoring shape, ``bwd`` copies of
+``flash_attention_bwd.cu`` (and ``ffma.cuh``) timing the f32 K10 and K11 at
+``train_main``'s shape (FLASH_PATH's f32 case); CUDA events, the L2
+flushed.  The edits switch parts of the kernels off, to see where their
+time goes, or try other tile shapes; without an argument both run.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import sys
 CU = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
 FWD_CU = "bigdl_tpu_torch/csrc/attention.cu"
 WGMMA = "bigdl_tpu_torch/csrc/wgmma.cuh"
+FFMA = "bigdl_tpu_torch/csrc/ffma.cuh"
 
 # one run of ``ab``, in the checkout it is started in
 _AB_RUN = """
@@ -73,12 +80,34 @@ res["attention"] = {name: {k: r.get(k) for k in (
     "kernel", "dtype", "ms", "device_ms", "library_ms", "bound_ms")}
     for name, r in attn.items()}
 res["k8_vs_k9"] = [[r["T"], r["k8_ms"], r["k9_ms"]] for r in sweep]
+# the f32 K8 and K9 (with and without the LSE) and SDPA at the f32 LM
+# scoring shape and at train_main's, by both clocks, the same in each tree
+from bigdl_tpu_torch.ops import attention as A
+gen = torch.Generator(device=dev).manual_seed(cs.SEED + 9)
+flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+res["f32_attention"] = {}
+for b, t in ((cs.LM_BATCH, cs.LM_T), (8, 4096)):
+    q, k, v, _ = cs.attention_operands(("f32", b, 8, 8, t, t, 64, True, None),
+                                       torch.float32, dev, gen)
+    runs = {"k8": lambda: A.attention_fwd(q, k, v, True),
+            "k9": lambda: A.attention_stream_fwd(q, k, v, True),
+            "k9_lse": lambda: A._launch(
+                A.attention_stream_fwd, "bigdl_attention_stream_fwd", q, k,
+                v, None, True, 0.125, with_lse=True),
+            "sdpa": cs.sdpa_call(q, k, v, True, None)}
+    res["f32_attention"][f"({b}, 8, {t}, 64)"] = {
+        n: {"ms": cs.median_ms(fn, dev, flush=flush),
+            "device_ms": cs.device_ms(fn, flush)} for n, fn in runs.items()}
+    del q, k, v
 with torch.inference_mode():
-    for key, model, ids in (
-            ("lm_scoring_forward", cs.lm_model(), (cs.LM_BATCH, cs.LM_T)),
+    for key, model, ids, dt in (
+            ("lm_scoring_forward", cs.lm_model(), (cs.LM_BATCH, cs.LM_T),
+             torch.bfloat16),
             ("long_context_forward", cs.lm_model(cs.LONG_VOCAB, cs.LONG_T),
-             (1, cs.LONG_T))):
-        model = model.to(dev, torch.bfloat16)
+             (1, cs.LONG_T), torch.bfloat16),
+            ("lm_scoring_forward_f32", cs.lm_model(), (cs.LM_BATCH, cs.LM_T),
+             torch.float32)):
+        model = model.to(dev, dt)
         x = torch.from_numpy(cs.lm_ids(ids, cs.SEED + 52,
                                        model.vocab_size)).to(dev)
         ms = cs.median_ms(lambda: model(x), dev, reps=5)
@@ -113,8 +142,8 @@ def cmd_ab(parent: str) -> int:
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name."""
-    m = re.search(r"(attn_(?:bf16|f32))ILi(\d+)ELb([01])ELb([01])ELb([01])E",
-                  mangled)
+    m = re.search(r"(attn_(?:bf16|f32_ring))ILi(\d+)ELb([01])ELb([01])"
+                  r"ELb([01])E", mangled)
     if m:
         return (f"{'K9' if m.group(3) == '1' else 'K8'} {m.group(1)} D "
                 f"{m.group(2)} bias {m.group(4)} lse {m.group(5)}")
@@ -168,11 +197,12 @@ def cmd_ptxas() -> int:
     return rc
 
 
-# K8/K9 broken three ways, each copy must fail phase 2d; the bf16 K11 two
-# ways and the f32 K10 and K11 one way each, each must fail phase 2f.  The products p·V (K8/K9) and pᵀ·dO (K11's dv)
-# read their B operand MN-major (transpose bit 1); those mutants read it
-# through a K-major descriptor with the bit 0, i.e. transposed inside its
-# tile
+# The bf16 K8/K9 broken three ways and the f32 K8/K9 three ways, each copy
+# must fail phase 2d; the bf16 K11 two ways and the f32 K10 and K11 one way
+# each, each must fail phase 2f.  The products p·V (the bf16 K8/K9) and
+# pᵀ·dO (K11's dv) read their B operand MN-major (transpose bit 1); those
+# mutants read it through a K-major descriptor with the bit 0, i.e.
+# transposed inside its tile
 _PV = "    mma_rs(acc, a[c], Tile<D>::template mnmajor<64>(vs, c));"
 _PV_T0 = ("    if constexpr (D == 64)\n      mma_rs_t0(acc, a[c], "
           "Tile<D>::template kmajor<64>(vs, c));\n    else\n  " + _PV)
@@ -235,12 +265,37 @@ MUTANTS = {
         "    const float* kt = ks + (s ^ 1) * C::kTileF;\n"
         "    const float* vt = vs + (s ^ 1) * C::kTileF;"))],
         "check_flash_kernels"),
+    # the f32 K8/K9 read K and V from the ring a stage late (the stage the
+    # copies of the next slot are filling)
+    "k8_k9_f32_stage_late": ([(FWD_CU, lambda s: s.replace(
+        "    const float* kt = ks + st * C::kTileF;\n"
+        "    const float* vt = vs + st * C::kTileF;",
+        "    const float* kt = ks + (st + 1) % S * C::kTileF;\n"
+        "    const float* vt = vs + (st + 1) % S * C::kTileF;"))],
+        "check_attention_kernels"),
+    # the f32 K8's first pass leaves the last tile out of the row max
+    "k8_f32_pass1_skips_last_tile": ([(FWD_CU, lambda s: s.replace(
+        "    if (!kStream && !second) {  // K8 pass 1: the row max over every "
+        "key\n",
+        "    if (!kStream && !second) {  // K8 pass 1: the row max over every "
+        "key\n      if (it == n_tiles - 1) continue;\n"))],
+        "check_attention_kernels"),
+    # the f32 K9's online softmax rescales l but not acc
+    "k9_f32_no_acc_rescale": ([(FWD_CU, lambda s: s.replace(
+        "for (int c = 0; c < C::kCc; ++c) acc[i][c] *= alpha;",
+        "for (int c = 0; c < C::kCc; ++c) acc[i][c] *= 1.0f;"))],
+        "check_attention_kernels"),
 }
 
 
-def cmd_mutants() -> int:
+def cmd_mutants(names) -> int:
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        raise SystemExit(f"no mutant named {sorted(unknown)}")
     caught = True
     for name, (edits, check) in MUTANTS.items():
+        if names and name not in names:
+            continue
         root = os.path.join("build", f"mutant_{name}")
         shutil.rmtree(root, ignore_errors=True)
         os.makedirs(root)
@@ -268,70 +323,119 @@ def cmd_mutants() -> int:
     return 0 if caught else 1
 
 
-# name: edits of flash_attention_bwd.cu (the first is the unedited copy).
-# Switched-off parts keep their code (a condition the kernel cannot know to
-# be false), so the rest compiles as before; their outputs are wrong.
+# name: (path, old, new) edits of the sources (the first is the unedited
+# copy).  Switched-off parts keep their code (a condition the kernel cannot
+# know to be false), so the rest compiles as before; their outputs are
+# wrong.
 _NEVER = "if (p.tq < 0) "
 ABLATIONS = {
     "as committed": [],
     # no second products: dq = ds k, and dv = p^T dO, dk = ds^T q
     "no second products": [
-        ("    outer<C, kHalf>(acc,", "    " + _NEVER + "outer<C, kHalf>(acc,"),
-        ("    outer<C, kInner>(acc,", "    " + _NEVER + "outer<C, kInner>(acc,")],
+        (CU, "    outer<C, kHalf>(acc,",
+         "    " + _NEVER + "outer<C, kHalf>(acc,"),
+        (CU, "    outer<C, kInner>(acc,",
+         "    " + _NEVER + "outer<C, kInner>(acc,")],
     # s and dp over the first 2 of D's columns only
     "scores over 2 columns": [
-        ("  for (int d = 0; d < C::kD; d += 2) {",
+        (FFMA, "  for (int d = 0; d < C::kD; d += 2) {",
          "  for (int d = 0; d < 2; d += 2) {")],
     "scores unrolled 1": [
-        ("#pragma unroll 2\n  for (int d = 0; d < C::kD; d += 2) {",
+        (FFMA, "#pragma unroll 2\n  for (int d = 0; d < C::kD; d += 2) {",
          "#pragma unroll 1\n  for (int d = 0; d < C::kD; d += 2) {")],
     "scores unrolled 4": [
-        ("#pragma unroll 2\n  for (int d = 0; d < C::kD; d += 2) {",
+        (FFMA, "#pragma unroll 2\n  for (int d = 0; d < C::kD; d += 2) {",
          "#pragma unroll 4\n  for (int d = 0; d < C::kD; d += 2) {")],
     "second products unrolled 2": [
-        ("#pragma unroll 4\n  for (int r = 0; r < N; ++r) {",
+        (FFMA, "#pragma unroll 4\n  for (int r = 0; r < N; ++r) {",
          "#pragma unroll 2\n  for (int r = 0; r < N; ++r) {")],
+}
+# the same for the f32 K8/K9 (attention.cu)
+FWD_ABLATIONS = {
+    "as committed": [],
+    # neither s = q k^T nor acc += p v (s stays zero)
+    "no products": [
+        (FWD_CU, "    float s[C::kR][C::kAi];\n    dots<C>(",
+         "    float s[C::kR][C::kAi] = {};\n    " + _NEVER + "dots<C>("),
+        (FWD_CU, "      outer<C, 8>(acc,",
+         "      " + _NEVER + "outer<C, 8>(acc,")],
+    # s, the softmax and p's chunks, but no acc += p v
+    "no p v": [
+        (FWD_CU, "      outer<C, 8>(acc,",
+         "      " + _NEVER + "outer<C, 8>(acc,")],
+    # the ring's first stages only: every later tile reads stale stages
+    "no copies after the first stages": [
+        (FWD_CU, "    if (it + S - 1 < n_it) load(it + S - 1);",
+         "    if (p.tq < 0 && it + S - 1 < n_it) load(it + S - 1);")],
+    # three ring stages (one block an SM at D 64)
+    "3 stages": [
+        (FWD_CU, "  static constexpr int kStages = 2;",
+         "  static constexpr int kStages = 3;")],
+    # 8 warps, 256 query rows a block at D 64 (one block an SM)
+    "8 warps a block at D 64": [
+        (FWD_CU, "  static constexpr int kWarps = D <= 64 ? 4 : 8;",
+         "  static constexpr int kWarps = D <= 32 ? 4 : 8;")],
 }
 
 
-def cmd_ablate() -> int:
+def _build_copies(src: str, ablations, tag: str):
+    """Each ablation's edited copy of the sources under
+    ``build/ablate/<tag><n>/``, compiled from ``src`` into a library of its
+    own, all ``nvcc`` runs started together; {name: loaded library}."""
     import ctypes
-    import torch
-    sys.path.insert(0, os.getcwd())
-    import chip_smoke as cs
     from bigdl_tpu_torch.ops import _build
-    from bigdl_tpu_torch.ops import attention as attn
-    src = open(CU).read()
-    procs = {}
-    for i, (name, edits) in enumerate(ABLATIONS.items()):
-        root = os.path.join("build", "ablate", str(i))
+    csrc = os.path.dirname(CU)
+    roots = {}
+    for i, (name, edits) in enumerate(ablations.items()):
+        root = os.path.join("build", "ablate", f"{tag}{i}")
         shutil.rmtree(root, ignore_errors=True)
         os.makedirs(root)
-        for h in os.listdir(os.path.dirname(CU)):
-            if h.endswith(".cuh"):
-                shutil.copy(os.path.join(os.path.dirname(CU), h), root)
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"ablation {name}: the source no longer "
-                                 f"holds {old!r}")
-            text = text.replace(old, new)
-        open(f"{root}/k.cu", "w").write(text)
-        procs[name] = (root, subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", "-o",
-             f"{root}/k.so", f"{root}/k.cu"], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        texts = {os.path.join(csrc, f): open(os.path.join(csrc, f)).read()
+                 for f in os.listdir(csrc) if f.endswith(".cuh")}
+        texts[src] = open(src).read()
+        for path, old, new in edits:
+            if old not in texts[path]:
+                raise SystemExit(f"ablation {name}: {path} no longer holds "
+                                 f"{old!r}")
+            texts[path] = texts[path].replace(old, new)
+        for path, text in texts.items():
+            out = "k.cu" if path == src else os.path.basename(path)
+            open(os.path.join(root, out), "w").write(text)
+        roots[name] = root
+    # every copy written (an edit that no longer applies stops the run
+    # before any nvcc starts), then all built at once
+    procs = {name: (root, subprocess.Popen(
+        [_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", "-o",
+         f"{root}/k.so", f"{root}/k.cu"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for name, root in roots.items()}
     libs = {}
     for name, (root, proc) in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"ablation {name}: nvcc failed\n{out[-3000:]}")
         lib = ctypes.CDLL(os.path.abspath(f"{root}/k.so"))
-        for entry in ("bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv"):
-            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
-            getattr(lib, entry).restype = ctypes.c_int
+        for entry in ("bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv",
+                      "bigdl_attention_fwd", "bigdl_attention_stream_fwd"):
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+                getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
-    dev = torch.device("cuda", 0)
+    return libs
+
+
+def _in_turns(libs, timed) -> None:
+    """Each library's times, the unedited copy again at the end."""
+    for name in list(libs) + [next(iter(libs))]:
+        print("RESULT " + json.dumps(dict(timed(libs[name]), name=name)),
+              flush=True)
+
+
+def ablate_bwd(dev) -> None:
+    import torch
+    import chip_smoke as cs
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import attention as attn
+    libs = _build_copies(CU, ABLATIONS, "bwd")
     case = cs.FLASH_PATH[1]
     b, h, hk, t, tk, d = case[1:7]
     q, k, v, bias, o, lse, do = cs.flash_grads(case, torch.float32, dev,
@@ -353,10 +457,51 @@ def cmd_ablate() -> int:
             ms[key] = cs.median_ms(lambda: _build.check(fn(*args), entry),
                                    dev, flush=flush)
         return ms
-    order = list(libs) + [next(iter(libs))]
-    for name in order:
-        print("RESULT " + json.dumps(dict(timed(libs[name]), name=name)),
-              flush=True)
+    _in_turns(libs, timed)
+
+
+def ablate_fwd(dev) -> None:
+    import torch
+    import chip_smoke as cs
+    from bigdl_tpu_torch.ops import _build
+    libs = _build_copies(FWD_CU, FWD_ABLATIONS, "fwd")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 501)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    shapes = {"train_main": cs.ATTN_TIMED[0][:9],
+              "lm_scoring": cs.ATTN_TIMED[1][:9]}
+    ops = {}
+    for key, case in shapes.items():
+        _, b, h, hk, t, tk, d, causal, _ = case
+        q, k, v, _ = cs.attention_operands(case, torch.float32, dev, gen)
+        o, lse = torch.empty_like(q), q.new_empty((b, h, t))
+        ops[key] = (q, k, v, o, lse, (0, b * h, h, hk, t, tk, d, d ** -0.5,
+                                      int(causal), _build.stream_ptr(q)))
+
+    def timed(lib):
+        ms = {}
+        for key, (q, k, v, o, lse, rest) in ops.items():
+            qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+            runs = [("k8", "bigdl_attention_fwd", qkv + (o.data_ptr(),))]
+            if key == "train_main":
+                runs.append(("k9_lse", "bigdl_attention_stream_fwd",
+                             qkv + (None, o.data_ptr(), lse.data_ptr())))
+            for what, entry, ptrs in runs:
+                fn = getattr(lib, entry)
+                args = ptrs + rest
+                ms[f"{what}_{key}_ms"] = cs.median_ms(
+                    lambda: _build.check(fn(*args), entry), dev, flush=flush)
+        return ms
+    _in_turns(libs, timed)
+
+
+def cmd_ablate(which: str) -> int:
+    import torch
+    sys.path.insert(0, os.getcwd())
+    dev = torch.device("cuda", 0)
+    if which in ("", "fwd"):
+        ablate_fwd(dev)
+    if which in ("", "bwd"):
+        ablate_bwd(dev)
     return 0
 
 
@@ -374,9 +519,10 @@ def main(argv) -> int:
     if cmd == "ptxas":
         return cmd_ptxas()
     if cmd == "mutants":
-        return cmd_mutants()
-    if cmd == "ablate":
-        return cmd_ablate()
+        return cmd_mutants(argv[1:])
+    if cmd == "ablate" and len(argv) <= 2 and argv[1:] in ([], ["fwd"],
+                                                           ["bwd"]):
+        return cmd_ablate(argv[1] if len(argv) == 2 else "")
     print(__doc__, file=sys.stderr)
     return 2
 

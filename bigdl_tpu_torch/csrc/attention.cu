@@ -49,12 +49,25 @@
 // D 32 the 64-byte one, D >= 64 panels of 64 columns with the 128-byte
 // one.  At D 256 the q tile (32 KB) and two stages of K and V (64 KB each)
 // take 160 KB of shared memory.
-// * f32: FFMA, one block of 4 warps a (B*H row, 64 query rows), 16 rows a
-//   warp; K/V tiles of 64 keys staged through shared memory by the
-//   threads; one lane per key of the tile for the scores, one lane per
-//   output column for p v, in full f32.  At D 256 its dynamic shared
-//   memory is 213 248 bytes and each lane holds 16 rows x 8 columns of
-//   acc.
+// * f32 (train_main's and the f32 LM's path): FFMA in full f32 (no TF32:
+//   the reference computes in f32).  What bounds it is FFMA's rate and as
+//   much what shared memory hands the FFMA units (ffma.cuh): a product loop
+//   keeps pace only with 4 FFMA or more per register it loads.  A block of
+//   4 warps (8 at D 128 and 256) owns 128 query rows (64 at D 256),
+//   longest causal rows first; its q is copied once, and K/V tiles of 64
+//   keys (32 at D 256) come through a 2-stage ring of 16-byte cp.async
+//   copies (4-byte ones for the bias) issued a tile ahead, rows past Tk
+//   zero-filled; K8's first pass asks the ring for K alone.  Each thread sums an 8 x 8
+//   micro-tile of s = q k^T (rows x keys, read as float2 along D: 4 FFMA a
+//   loaded register; 4 x 8 at D 128, 2 x 4 at D 256) and holds acc for the
+//   same rows (8 x 8 at D 64: rows x columns, V read as float4), so its m,
+//   l and rescale stay in its registers and a row's max is 3 shuffles among
+//   the 8 lanes that share it; p = 2^(s c - m log2 e) is one FMA and one
+//   ex2 where no mask applies; p crosses from s to p v through a padded
+//   chunk of 8 keys in shared memory that only the warp's own lanes touch.
+//   A warp skips the tiles past its own causal frontier; masks only on the
+//   tiles that cross its rows' diagonal or the Tk tail.  Up to D 64 two
+//   blocks share an SM (114 176 bytes each); at D 128 and 256 one.
 // Bound on the H100 at the path's shapes (T 2048 and 8192, D 64): the
 // tensor cores' rate over the causal half of the FLOPs in bf16 (K/V are
 // read once per block of 64 kWG query rows, from L2 mostly), FFMA in
@@ -64,6 +77,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "ffma.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -76,6 +90,11 @@ using bigdl::warp_max;
 using bigdl::warp_sum;
 using bf16 = __nv_bfloat16;
 namespace wg = bigdl::wg;
+using bigdl::ffma::copy_row;
+using bigdl::ffma::copy_rows;
+using bigdl::ffma::dots;
+using bigdl::ffma::outer;
+using bigdl::ffma::store_row;
 using wg::accumulate;
 using wg::frag_col;
 using wg::frag_row;
@@ -83,10 +102,10 @@ using wg::scores;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBQ = 64;             // query rows of an f32 block and of a
-                                    // bf16 consumer warpgroup
+constexpr int kBQ = 64;             // query rows of an attn_wide block and
+                                    // of a bf16 consumer warpgroup
 constexpr int kBK = 64;             // keys per K/V tile
-constexpr int kAttnThreads = 128;   // f32: 4 warps, 16 rows each
+constexpr int kAttnThreads = 128;   // attn_wide: 4 warps, 16 rows each
 
 struct Params {
   const void* q;
@@ -100,7 +119,7 @@ struct Params {
   bool causal;
 };
 
-struct Rows {  // an f32 block's place in the problem
+struct Rows {  // an attn_wide block's place in the problem
   long long q_row, kv_row;  // first element of q/o and of k/v
   const float* bias;
   int q0, k_end;
@@ -420,156 +439,237 @@ __global__ void __launch_bounds__(Bf16<D>::kThreads) attn_bf16(
       if (row[ri] < p.tq) p.lse[q_row + row[ri]] = m[ri] + logf(l[ri]);
 }
 
-// ---- float32: FFMA ----------------------------------------------------------
+// ---- float32: register-tiled FFMA fed by a cp.async ring -------------------
 
-constexpr int f32_smem_floats(int d) {
-  // q block, K tile (padded rows), V tile, p of each warp's 16 rows
-  return kBQ * d + kBK * (d + 1) + kBK * d + 4 * 16 * kBK;
+// The tiles of the f32 K8/K9 (ffma.cuh names the micro-tile's shape).  A
+// block of kWarps warps owns kRows query rows, whose q stays in shared
+// memory; K and V tiles of kKeys keys come through a kStages-stage ring.
+// Eight lanes share a row group: a thread's rows are g + 4 i (i < kR) of
+// its warp's 4 kR rows (g = lane / 8), its keys in s are ai + 8 j (ai =
+// lane % 8, j < kKeys / 8) and its output columns ai kVec + 8 kVec g' + e.
+// So a thread holds the same rows in s and in acc: m, l and the rescale
+// stay in its registers, and a row's max takes 3 shuffles among 8 lanes.
+// p goes from s to p v through shared memory 8 keys at a time (a chunk: a
+// row a key, the warp's rows across, each thread's rows side by side), two
+// chunk buffers a warp: only the warp's own lanes write and read them.
+template <int D>
+struct F32Fwd {
+  static constexpr int kD = D, kLd = D + 4;
+  static constexpr int kR = D <= 64 ? 8 : D == 128 ? 4 : 2;  // rows a thread
+  static constexpr int kKeys = D <= 128 ? 64 : 32;            // keys a tile
+  static constexpr int kWarps = D <= 64 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kWarpRows = 4 * kR;
+  static constexpr int kRows = kWarps * kWarpRows;
+  static constexpr int kStages = 2;
+  // s (dots): outer = the thread's rows, inner = its keys
+  static constexpr int kAo = kR, kAi = kKeys / 8, kAog = 4, kAig = 8;
+  // acc (outer): x = a p chunk, y = the V tile's rows
+  static constexpr int kCo = kR, kCc = D / 8, kCcg = 8;
+  static constexpr int kVec = kCc < 4 ? kCc : 4;
+  static constexpr int kLdx = kWarpRows + 4;
+  static constexpr int kTileF = kKeys * kLd;  // floats of a K or V tile
+  static constexpr int kChunkF = 8 * kLdx;    // floats of a p chunk
+  // floats: q; K and V a stage; the bias a stage; two p chunks a warp
+  static constexpr int kFloats = kRows * kLd + 2 * kStages * kTileF +
+                                 kStages * kKeys + kWarps * 2 * kChunkF;
+  static constexpr int kBytes = kFloats * 4;
+  static_assert(kKeys <= kThreads && (kCo % 4 == 0 || kCo == 2),
+                "tile shape");
+};
+
+// each row's max over the thread's keys of s, then over its 8 lanes: of s
+// times scale (kRaw: s holds the raw dots of a tile that needs no mask)
+// or of s
+template <typename C, bool kRaw>
+__device__ __forceinline__ void tile_max(const float (&s)[C::kR][C::kAi],
+                                         float (&mt)[C::kR], float scale) {
+#pragma unroll
+  for (int i = 0; i < C::kR; ++i) {
+    mt[i] = s[i][0];
+#pragma unroll
+    for (int j = 1; j < C::kAi; ++j) mt[i] = fmaxf(mt[i], s[i][j]);
+#pragma unroll
+    for (int x = 1; x < 8; x <<= 1)
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], x));
+    if (kRaw) mt[i] *= scale;
+  }
 }
 
 template <int D, bool kStream, bool kBias, bool kLse>
-__global__ void __launch_bounds__(kAttnThreads) attn_f32(Params p) {
-  constexpr int kCols = (D + 31) / 32;  // output columns of a lane
-  extern __shared__ float sm[];
-  float* qs = sm;                   // [kBQ][D]
-  float* ks = qs + kBQ * D;         // [kBK][D + 1]
-  float* vs = ks + kBK * (D + 1);   // [kBK][D]
-  __shared__ float bs[kBK];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* ps = vs + kBK * D + warp * 16 * kBK;  // [16][kBK] of this warp
-  const Rows r = block_rows(p, D);
-  const float* q = static_cast<const float*>(p.q) + r.q_row;
-  const float* k = static_cast<const float*>(p.k) + r.kv_row;
-  const float* v = static_cast<const float*>(p.v) + r.kv_row;
-  const int row0 = r.q0 + warp * 16;
+__global__ void __launch_bounds__(F32Fwd<D>::kThreads)
+    attn_f32_ring(Params p) {
+  using C = F32Fwd<D>;
+  constexpr int kKeys = C::kKeys, kLd = C::kLd, S = C::kStages;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                      // [kRows][kLd]
+  float* ks = qs + C::kRows * kLd;     // [stage][kKeys][kLd]
+  float* vs = ks + S * C::kTileF;      // [stage][kKeys][kLd]
+  float* bias_s = vs + S * C::kTileF;  // [stage][kKeys]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 8, ai = lane % 8;  // the row group, the key lane
+  float* pc = bias_s + S * kKeys + warp * 2 * C::kChunkF;  // [2][8][kLdx]
+  const int bh = blockIdx.y, b = bh / p.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kRows;  // longest first
+  const long long q_row = static_cast<long long>(bh) * p.tq;
+  const long long kv_row = (static_cast<long long>(b) * p.hk +
+                            (bh % p.h) / (p.h / p.hk)) * p.tk;
+  const float* k = static_cast<const float*>(p.k) + kv_row * D;
+  const float* v = static_cast<const float*>(p.v) + kv_row * D;
+  const int k_end = p.causal ? min(p.tk, q0 + C::kRows) : p.tk;
+  const int n_tiles = (k_end + kKeys - 1) / kKeys;
+  // ring slots: K9 one a tile; K8 one a tile for K alone, then K and V
+  const int n_it = kStream ? n_tiles : 2 * n_tiles;
+  // the warp's rows are w0 + g + 4 i; tiles at or past w_end lie in the
+  // future of all of them (or the warp has no real row)
+  const int w0 = q0 + warp * C::kWarpRows;
+  const int w_end = w0 >= p.tq ? 0
+                  : p.causal ? min(k_end, w0 + C::kWarpRows) : k_end;
 
-  for (int e = tid; e < kBQ * D; e += kAttnThreads) {
-    const int rr = r.q0 + e / D;
-    qs[e] = rr < p.tq ? q[static_cast<long long>(rr) * D + e % D] : 0.0f;
+  auto load = [&](int it) {  // slot it's tile into its stage
+    const int st = it % S;
+    const bool second = !kStream && it >= n_tiles;
+    const int k0 = (second ? it - n_tiles : it) * kKeys;
+    copy_rows<D, kKeys, C::kThreads>(ks + st * C::kTileF, k, k0, p.tk);
+    if (kStream || second)
+      copy_rows<D, kKeys, C::kThreads>(vs + st * C::kTileF, v, k0, p.tk);
+    if (kBias)
+      copy_row(bias_s + st * kKeys, p.bias + static_cast<long long>(b) * p.tk,
+               k0, p.tk, 0, kKeys);
+  };
+  // q once, with the first slots
+  copy_rows<D, C::kRows, C::kThreads>(
+      qs, static_cast<const float*>(p.q) + q_row * D, q0, p.tq);
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < n_it) load(it);
+    wg::cp_commit();
   }
 
-  float m[16], l[16], acc[16][kCols];
+  float m[C::kR], l[C::kR], acc[C::kR][C::kCc];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < C::kR; ++i) {
     m[i] = kStream ? kNegInf : -INFINITY;
-    l[i] = 0.0f;
+    l[i] = 0.0f;  // the thread's keys only, summed over the lanes at the end
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < C::kCc; ++c) acc[i][c] = 0.0f;
   }
+  const float* qa = qs + (warp * C::kWarpRows + g) * kLd;
 
-  auto stage = [&](int k0, bool with_v) -> bool {
-    __syncthreads();
-    for (int e = tid; e < kBK * D; e += kAttnThreads) {
-      const int key = e / D, c = e % D;
-      const bool in = k0 + key < p.tk;
-      const long long at = static_cast<long long>(k0 + key) * D + c;
-      ks[key * (D + 1) + c] = in ? k[at] : 0.0f;
-      if (with_v) vs[e] = in ? v[at] : 0.0f;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % S;
+    const bool second = !kStream && it >= n_tiles;
+    const int k0 = (second ? it - n_tiles : it) * kKeys;
+    const float* kt = ks + st * C::kTileF;
+    const float* vt = vs + st * C::kTileF;
+    const float* bs = bias_s + st * kKeys;
+    wg::cp_wait<S - 2>();  // this thread's copies of slot it
+    bool live = true;
+    if (kBias) {           // every thread's copies, and any key real
+      live = __syncthreads_or(tid < kKeys && k0 + tid < p.tk &&
+                              bs[tid] > kNegInf / 2);
+    } else {
+      __syncthreads();
     }
-    if (kBias) return stage_bias(r, p, k0, bs) != 0;
-    __syncthreads();
-    return true;
-  };
+    // into the stage whose slot it - 1 every thread is done with
+    if (it + S - 1 < n_it) load(it + S - 1);
+    wg::cp_commit();
+    if (!live || k0 >= w_end) continue;  // every key padded, or the future
 
-  // s[j][i]: score of row row0 + i, key k0 + lane + 32 j
-  auto scores = [&](int k0, float (&s)[2][16]) {
+    float s[C::kR][C::kAi];
+    dots<C>(s, qa, kt + ai * kLd);
+    // mask this tile: it crosses the causal diagonal of the warp's rows,
+    // or the Tk tail
+    const bool edge = (p.causal && k0 + kKeys - 1 > w0) || k0 + kKeys > p.tk;
+    const bool raw = !kBias && !edge;  // no mask, no bias: the raw dots
+    if (!raw) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s[0][i] = s[1][i] = 0.0f;
-    const float* k0p = ks + lane * (D + 1);
-    const float* k1p = ks + (lane + 32) * (D + 1);
-    const float* qp = qs + warp * 16 * D;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float a = k0p[d], b = k1p[d];
+      for (int i = 0; i < C::kR; ++i)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float qv = qp[i * D + d];
-        s[0][i] = fmaf(qv, a, s[0][i]);
-        s[1][i] = fmaf(qv, b, s[1][i]);
-      }
+        for (int j = 0; j < C::kAi; ++j) {
+          const int key = ai + 8 * j;
+          s[i][j] = edge ? mask_score(s[i][j], p, w0 + g + 4 * i, k0 + key,
+                                      kBias ? bs : nullptr, key)
+                         : s[i][j] * p.scale + bs[key];
+        }
     }
+    float mt[C::kR];
+    if (raw)
+      tile_max<C, true>(s, mt, p.scale);
+    else
+      tile_max<C, false>(s, mt, p.scale);
+    if (!kStream && !second) {  // K8 pass 1: the row max over every key
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        s[j][i] = mask_score(s[j][i], p, row0 + i, k0 + lane + 32 * j,
-                             kBias ? bs : nullptr, lane + 32 * j);
-  };
-
-  float s[2][16];
-  if (!kStream) {  // K8 pass 1
-    for (int k0 = 0; k0 < r.k_end; k0 += kBK) {
-      stage(k0, false);
-      scores(k0, s);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) m[i] = fmaxf(m[i], fmaxf(s[0][i], s[1][i]));
+      for (int i = 0; i < C::kR; ++i) m[i] = fmaxf(m[i], mt[i]);
+      continue;
     }
+    if (kStream) {  // the online rescale
 #pragma unroll
-    for (int i = 0; i < 16; ++i) m[i] = warp_max(m[i]);
-  }
-
-  for (int k0 = 0; k0 < r.k_end; k0 += kBK) {
-    if (!stage(k0, true)) continue;
-    scores(k0, s);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      if (kStream) {
-        const float m_new = fmaxf(m[i], warp_max(fmaxf(s[0][i], s[1][i])));
-        const float alpha = __expf(m[i] - m_new);
+      for (int i = 0; i < C::kR; ++i) {
+        const float m_new = fmaxf(m[i], mt[i]);
+        const float alpha = ex2((m[i] - m_new) * kLog2e);
         m[i] = m_new;
         l[i] *= alpha;
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+        for (int c = 0; c < C::kCc; ++c) acc[i][c] *= alpha;
       }
+    }
+    // p = exp(x - m) into s, l += p: where no mask applies, 2^(s c - m
+    // log2 e), one FMA before the ex2; K9 gives p = 0 where x <= NEG_INF / 2
+    const float c = p.scale * kLog2e;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float x = s[j][i];
-        const float pj = kStream ? (x > kNegInf / 2 ? __expf(x - m[i]) : 0.0f)
-                                 : __expf(x - m[i]);
+    for (int i = 0; i < C::kR; ++i) {
+      const float ml = m[i] * kLog2e;
+#pragma unroll
+      for (int j = 0; j < C::kAi; ++j) {
+        const float x = raw ? fmaf(s[i][j], c, -ml)
+                            : (s[i][j] - m[i]) * kLog2e;
+        const float pj = !kStream || raw || s[i][j] > kNegInf / 2
+                             ? ex2(x) : 0.0f;
         l[i] += pj;
-        ps[i * kBK + lane + 32 * j] = pj;
+        s[i][j] = pj;
       }
     }
-    __syncwarp();
-    for (int key = 0; key < kBK; ++key) {
-      float vv[kCols];
+    // acc += p v, a chunk of 8 keys at a time: the thread leaves its p of
+    // key ai + 8 j at its rows' place in the chunk, then reads the whole
+    // chunk of its rows
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int col = lane + 32 * c;
-        vv[c] = col < D ? vs[key * D + col] : 0.0f;
+    for (int j = 0; j < C::kAi; ++j) {
+      float* chunk = pc + (j & 1) * C::kChunkF;
+      float* at = chunk + ai * C::kLdx + g * C::kR;
+      if constexpr (C::kR == 2) {
+        *reinterpret_cast<float2*>(at) = make_float2(s[0][j], s[1][j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < C::kR; i += 4)
+          *reinterpret_cast<float4*>(at + i) =
+              make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);
       }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float pv = ps[i * kBK + key];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(pv, vv[c], acc[i][c]);
-      }
+      __syncwarp();
+      outer<C, 8>(acc, chunk + g * C::kR, vt + 8 * j * kLd + ai * C::kVec);
     }
-    __syncwarp();
   }
 
-  float* o = static_cast<float*>(p.o) + r.q_row;
+  float* o = static_cast<float*>(p.o) + q_row * D;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    float li = warp_sum(l[i]);
-    if (kStream) li = fmaxf(li, 1e-20f);
-    if (row0 + i >= p.tq) continue;
-    if (kLse && lane == 0)
-      p.lse[static_cast<long long>(blockIdx.y) * p.tq + row0 + i] =
-          m[i] + logf(li);
+  for (int i = 0; i < C::kR; ++i) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D)
-        o[static_cast<long long>(row0 + i) * D + col] = acc[i][c] / li;
-    }
+    for (int x = 1; x < 8; x <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+    if (kStream) l[i] = fmaxf(l[i], 1e-20f);
+    const int row = w0 + g + 4 * i;
+    if (row >= p.tq) continue;
+    if (kLse && ai == 0) p.lse[q_row + row] = m[i] + logf(l[i]);
+#pragma unroll
+    for (int c = 0; c < C::kCc; ++c) acc[i][c] = acc[i][c] / l[i];
+    store_row<C>(o + static_cast<long long>(row) * D, acc[i], ai);
   }
 }
 
 // ---- head dims above 256: FFMA over 64-column panels ----------------------
 
 // Above D 256 neither dtype's tiles of whole rows fit a block, so a block of
-// 4 warps (16 query rows each, as attn_f32) owns 64 query rows and the
+// 4 warps (16 query rows each) owns 64 query rows and the
 // kWideCols output columns [blockIdx.z * kWideCols, ...) of a (B*H row):
 // the scores of each 64-key tile are summed over D in panels of kPanel
 // columns, q's and K's panel staged through shared memory as f32 (so the
@@ -761,10 +861,17 @@ cudaError_t launch_d(const Params& p, int dtype, int bh, cudaStream_t s) {
                dim3((p.tq + C::kRows - 1) / C::kRows, bh), C::kThreads,
                C::kBytes, s, p, mq, mk, mv);
   }
-  if (dtype == bigdl::kF32)
-    return run(attn_f32<D, kStream, kBias, kLse>,
-               dim3((p.tq + kBQ - 1) / kBQ, bh), kAttnThreads,
-               f32_smem_floats(D) * static_cast<int>(sizeof(float)), s, p);
+  if (dtype == bigdl::kF32) {
+    using C = F32Fwd<D>;
+    const auto kernel = attn_f32_ring<D, kStream, kBias, kLse>;
+    // the whole of the SM's 228 KB as shared memory: at D 64 two blocks
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    return run(kernel, dim3((p.tq + C::kRows - 1) / C::kRows, bh),
+               C::kThreads, C::kBytes, s, p);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -87,6 +87,8 @@
 //   not fit beside K and V (4 x 4, 4; 8 x 8); at D 256 both 32 x 32 (4 x 2,
 //   2.7; 8 x 8).  The mask only on tiles across the causal diagonal or a
 //   ragged tail; elsewhere, without a bias, p = 2^(s c - lse log2 e).
+//   The copies, `dots`, `outer` and the named barriers are ffma.cuh's,
+//   shared with the f32 forward (attention.cu).
 // Head dims 16, 32, 64, 128 and 256 (the wrapper zero-pads others up to
 // 256); rows past Tq or keys past Tk are zero-filled and masked, so T need
 // not be a multiple of a tile.  At D 256 (a tile of 64 rows is 32 KB in
@@ -98,6 +100,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "ffma.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -108,6 +111,14 @@ using bigdl::pack_bf16x2;
 using bigdl::rounded;
 using bf16 = __nv_bfloat16;
 namespace wg = bigdl::wg;
+using bigdl::ffma::bar_arrive;
+using bigdl::ffma::bar_sync;
+using bigdl::ffma::col_at;
+using bigdl::ffma::copy_row;
+using bigdl::ffma::copy_rows;
+using bigdl::ffma::dots;
+using bigdl::ffma::outer;
+using bigdl::ffma::store_row;
 using wg::frag_col;
 using wg::frag_row;
 using wg::to_a;
@@ -628,142 +639,6 @@ struct F32Lanes {
   }
 };
 
-// a named barrier of n threads (id 0 is __syncthreads'): bar_arrive
-// counts the thread in without waiting, bar_sync waits until all n have
-// come; either orders the thread's earlier shared-memory writes before
-// the barrier completes
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-// n rows of D floats from row r0 of x into dst (rows of D + 4 floats) by
-// 16-byte cp.async copies of every thread; rows at or past `end` zero-filled
-template <int D, int N>
-__device__ __forceinline__ void copy_rows(float* dst, const float* x, int r0,
-                                          int end) {
-  constexpr int kChunks = D / 4;
-  static_assert(N * kChunks % kF32Threads == 0, "whole rounds of copies");
-#pragma unroll
-  for (int n = 0; n < N * kChunks / kF32Threads; ++n) {
-    const int e = threadIdx.x + n * kF32Threads;
-    const int r = e / kChunks, c = e % kChunks;
-    const bool ok = r0 + r < end;
-    wg::cp16(wg::smem_addr(dst + r * (D + 4) + 4 * c),
-             x + (ok ? static_cast<long long>(r0 + r) * D + 4 * c : 0), ok);
-  }
-}
-
-// n floats of x from r0 into dst by 4-byte cp.async copies of threads
-// [t0, t0 + n); zeros at or past `end`
-__device__ __forceinline__ void copy_row(float* dst, const float* x, int r0,
-                                         int end, int t0, int n) {
-  const int r = static_cast<int>(threadIdx.x) - t0;
-  if (r >= 0 && r < n) {
-    const bool ok = r0 + r < end;
-    wg::cp4(wg::smem_addr(dst + r), x + (ok ? r0 + r : 0), ok);
-  }
-}
-
-// x[i][j] = sum over d of a[i][d] b[j][d], the thread's outer rows at a +
-// kAog i (D + 4) and inner rows at b + kAig j (D + 4), both read as float2
-// along D: kAo + kAi loads for 2 kAo kAi FFMA, d in order
-template <typename C>
-__device__ __forceinline__ void dots(float (&x)[C::kAo][C::kAi],
-                                     const float* a, const float* b) {
-  constexpr int kLd = C::kLd;
-#pragma unroll
-  for (int i = 0; i < C::kAo; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kAi; ++j) x[i][j] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < C::kD; d += 2) {
-    float2 av[C::kAo], bv[C::kAi];
-#pragma unroll
-    for (int i = 0; i < C::kAo; ++i)
-      av[i] = *reinterpret_cast<const float2*>(a + C::kAog * i * kLd + d);
-#pragma unroll
-    for (int j = 0; j < C::kAi; ++j)
-      bv[j] = *reinterpret_cast<const float2*>(b + C::kAig * j * kLd + d);
-#pragma unroll
-    for (int i = 0; i < C::kAo; ++i)
-#pragma unroll
-      for (int j = 0; j < C::kAi; ++j) {
-        x[i][j] = fmaf(av[i].x, bv[j].x, x[i][j]);
-        x[i][j] = fmaf(av[i].y, bv[j].y, x[i][j]);
-      }
-  }
-}
-
-// acc[i][c] += sum over r < N of x[r][i] y[r][column c]: x rows at x + r
-// (kOuter + 4), the thread's kCo outer indices read as float4; y rows at
-// y + r (D + 4) from the thread's first column, its columns in groups of
-// kVec a kCcg kVec apart.  kCo / 4 + kCc / kVec loads for kCo kCc FFMA, r
-// in order
-template <typename C, int N>
-__device__ __forceinline__ void outer(float (&acc)[C::kCo][C::kCc],
-                                      const float* x, const float* y) {
-  constexpr int kCo = C::kCo, kCc = C::kCc, kV = C::kVec;
-#pragma unroll 4
-  for (int r = 0; r < N; ++r) {
-    float xs[kCo], yv[kCc];
-#pragma unroll
-    for (int g = 0; g < kCo / 4; ++g) {
-      const float4 t = *reinterpret_cast<const float4*>(x + r * C::kLdx +
-                                                        4 * g);
-      xs[4 * g] = t.x, xs[4 * g + 1] = t.y, xs[4 * g + 2] = t.z,
-      xs[4 * g + 3] = t.w;
-    }
-#pragma unroll
-    for (int g = 0; g < kCc / kV; ++g) {
-      const float* at = y + r * C::kLd + g * C::kCcg * kV;
-      if constexpr (kV == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(at);
-        yv[4 * g] = t.x, yv[4 * g + 1] = t.y, yv[4 * g + 2] = t.z,
-        yv[4 * g + 3] = t.w;
-      } else if constexpr (kV == 2) {
-        const float2 t = *reinterpret_cast<const float2*>(at);
-        yv[2 * g] = t.x, yv[2 * g + 1] = t.y;
-      } else {
-        yv[g] = *at;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kCo; ++i)
-#pragma unroll
-      for (int c = 0; c < kCc; ++c) acc[i][c] = fmaf(xs[i], yv[c], acc[i][c]);
-  }
-}
-
-// the address of the thread's column group g in a row of D floats
-template <typename C>
-__device__ __forceinline__ int col_at(int cc, int g) {
-  return g * C::kCcg * C::kVec + cc * C::kVec;
-}
-
-// one output row (D floats at out) from the thread's acc at its columns
-template <typename C>
-__device__ __forceinline__ void store_row(float* out,
-                                          const float (&acc)[C::kCc],
-                                          int cc) {
-  constexpr int kV = C::kVec;
-#pragma unroll
-  for (int g = 0; g < C::kCc / kV; ++g) {
-    float* at = out + col_at<C>(cc, g);
-    if constexpr (kV == 4)
-      *reinterpret_cast<float4*>(at) =
-          make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2],
-                      acc[4 * g + 3]);
-    else if constexpr (kV == 2)
-      *reinterpret_cast<float2*>(at) = make_float2(acc[2 * g], acc[2 * g + 1]);
-    else
-      *at = acc[g];
-  }
-}
-
 // p of one score: the masked path (kEdge: causal diagonal, ragged tails;
 // bias b added unless masked), the bias alone, or neither (one FMA and one
 // ex2 on log2e-scaled operands: every row has a finite lse there)
@@ -837,16 +712,16 @@ __global__ void __launch_bounds__(kF32Threads, 1) dq_f32_ring(Params p) {
   const int n_iter = (k_end + kInner - 1) / kInner;
 
   // q, dO, lse and delta once, then K, V (and the bias) of key tile 0
-  copy_rows<D, kOuter>(qs, static_cast<const float*>(p.q) + q_row * D, q0,
-                       p.tq);
-  copy_rows<D, kOuter>(dos, static_cast<const float*>(p.dout) + q_row * D, q0,
-                       p.tq);
+  copy_rows<D, kOuter, kF32Threads>(
+      qs, static_cast<const float*>(p.q) + q_row * D, q0, p.tq);
+  copy_rows<D, kOuter, kF32Threads>(
+      dos, static_cast<const float*>(p.dout) + q_row * D, q0, p.tq);
   copy_row(ls, p.lse + q_row, q0, p.tq, 0, kOuter);
   copy_row(dl, p.delta + q_row, q0, p.tq, kOuter, kOuter);
   auto load_stage = [&](int it) {
     const int s = it % 2, k0 = it * kInner;
-    copy_rows<D, kInner>(ks + s * C::kTileF, k, k0, p.tk);
-    copy_rows<D, kInner>(vs + s * C::kTileF, v, k0, p.tk);
+    copy_rows<D, kInner, kF32Threads>(ks + s * C::kTileF, k, k0, p.tk);
+    copy_rows<D, kInner, kF32Threads>(vs + s * C::kTileF, v, k0, p.tk);
     if (kBias)
       copy_row(bias_s + s * kInner, p.bias + static_cast<long long>(b) * p.tk,
                k0, p.tk, 0, kInner);
@@ -1007,21 +882,21 @@ __global__ void __launch_bounds__(kF32Threads, 1) dkv_f32_ring(Params p) {
     const int s = it % 2, q0 = (first + it % per) * kInner;
     const long long q_row =
         static_cast<long long>(b * p.h + kvh * group + it / per) * p.tq;
-    copy_rows<D, kInner>(qs + s * C::kTileF,
-                         static_cast<const float*>(p.q) + q_row * D, q0,
-                         p.tq);
-    copy_rows<D, kInner>(dos + s * C::kTileF,
-                         static_cast<const float*>(p.dout) + q_row * D, q0,
-                         p.tq);
+    copy_rows<D, kInner, kF32Threads>(
+        qs + s * C::kTileF, static_cast<const float*>(p.q) + q_row * D, q0,
+        p.tq);
+    copy_rows<D, kInner, kF32Threads>(
+        dos + s * C::kTileF, static_cast<const float*>(p.dout) + q_row * D,
+        q0, p.tq);
     copy_row(lse_s + s * kInner, p.lse + q_row, q0, p.tq, 0, kInner);
     copy_row(delta_s + s * kInner, p.delta + q_row, q0, p.tq, kInner,
              kInner);
   };
   if (n_iter > 0) {  // K and V once, then query tile 0
-    copy_rows<D, kOuter>(ks, static_cast<const float*>(p.k) + kv_row * D, k0,
-                         p.tk);
-    copy_rows<D, kOuter>(vs, static_cast<const float*>(p.v) + kv_row * D, k0,
-                         p.tk);
+    copy_rows<D, kOuter, kF32Threads>(
+        ks, static_cast<const float*>(p.k) + kv_row * D, k0, p.tk);
+    copy_rows<D, kOuter, kF32Threads>(
+        vs, static_cast<const float*>(p.v) + kv_row * D, k0, p.tk);
     load_stage(0);
   }
   wg::cp_commit();

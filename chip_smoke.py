@@ -73,7 +73,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
    300 (padded to 320) on the D-chunked kernels, T 8, 24 and 200, a row
    with every key padded, at head dims 256 and 512 too), in float32 (within
    1e-5 of each output's sum of |p·v|) and bfloat16 (within 2 bfloat16
-   steps of it);
+   steps of it); in float32 also at the f32 kernel's block edges (T 127,
+   128, 129 and 257, GQA 8/2 at head dims 128 and 256 with T not a
+   multiple of the block, key-padding holes that pad whole tiles inside a
+   block's causal range, Tq < Tk without the causal mask at Tk 300), and
+   the f32 K8 and K9 (with the bias and its LSE) bit-equal over two
+   launches;
 2e. the paged-attention kernel K12 against ``paged_attention_plain`` with
    a NaN-poisoned trash page, at the continuous path's decode shape (8
    slots, 8 heads, S 1, d 64, page size 16, Lp 128, at the traffic's
@@ -120,7 +125,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    of per-row lengths launches exactly 8 K9 and its real positions agree
    with the unpadded forward; the long-context model (vocab 8192, T 8192)
    launches exactly 8 K9 in one forward at batch 1; one row in float32
-   against a CPU run of the same weights (log-probs), and the bf16 logits
+   (exactly 8 K8) against a CPU run of the same weights (log-probs), and
+   the bf16 logits
    of 2 rows against a CPU bf16 run in bf16 steps, with argmax equal
    wherever the top-2 margin exceeds that limit, on most of the 4096
    positions; the same LM at head dim 256 (embed 512 over 2 heads, T 2048)
@@ -192,7 +198,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    bf16 and the default f32 ``w8`` forward per bucket with a profiler
    breakdown of their device time (the f32 K13's share of it);
    K8 and K9 per call at the LM paths' shapes, at train_main's f32 shape
-   (8, 8, 4096, 64), at the LM widths over head dims 128 and 256 in bf16
+   (8, 8, 4096, 64) and the f32 LM scoring shape (8, 8, 2048, 64), at the
+   LM widths over head dims 128 and 256 in bf16
    and at (1, 2, 2048, 512) in bf16
    (CUDA events and torch.profiler's device time) beside their bound, plain
    version and ``F.scaled_dot_product_attention``, K8 against K9 at T 512
@@ -377,11 +384,40 @@ ATTN_RAGGED = [
     ("d 512, padded keys, a row with every key padded", 2, 4, 4, 130, 130,
      512, True, [130, 0]),
 ]
+# f32 cases at the edges of the f32 kernel's blocks (128 query rows up to d
+# 128, 64 at d 256; key tiles of 64, 32 at d 256): T one short of, equal
+# to and past a block, GQA at d 128 and 256 with T not a multiple of the
+# block, key-padding holes ((lo, hi): keys [lo, hi) padded) that pad whole
+# tiles inside a block's causal range (the tiles are skipped, the ring goes
+# on), Tq < Tk without the causal mask at a Tk that is not a multiple of 64
+ATTN_F32_EDGES = [
+    ("T 127", 2, 4, 2, 127, 127, 64, True, None),
+    ("T 128", 2, 4, 2, 128, 128, 64, True, None),
+    ("T 129", 2, 4, 2, 129, 129, 64, True, None),
+    ("T 257", 1, 8, 2, 257, 257, 64, True, None),
+    ("d 128, GQA 8/2, T 200", 2, 8, 2, 200, 200, 128, True, None),
+    ("d 256, GQA 8/2, T 100", 2, 8, 2, 100, 100, 256, True, None),
+    ("padded middle tiles, a row with every key padded", 2, 4, 2, 384, 384,
+     64, True, [(64, 256), 0]),
+    ("d 256, padded middle tiles", 1, 4, 4, 200, 200, 256, True, [(40, 130)]),
+    ("Tq < Tk, non-causal, Tk 300", 1, 4, 4, 100, 300, 64, False, None),
+    ("Tq < Tk, non-causal, Tk 300, padded keys", 2, 4, 4, 100, 300, 64,
+     False, [300, 150]),
+]
+# f32 K8 and K9 (with the bias and its LSE) bit-equal over two launches:
+# each row's sums run over its key tiles in a fixed order
+ATTN_F32_BITEQ = [
+    ("T 257, GQA 8/2", 2, 8, 2, 257, 257, 64, True, [257, 100]),
+    ("d 256, T 130", 2, 4, 4, 130, 130, 256, True, [130, 77]),
+]
 # phase 4 beside ATTN_PATH: (name, b, h, hk, t, tk, d, causal, lengths,
-# dtype) of K8 and K9 (both timed at each): train_main's f32 shape, and the
-# bf16 LM widths at head dims 128 and 256 (embed 512 over 4 and 2 heads)
+# dtype) of K8 and K9 (both timed at each): train_main's f32 shape, the
+# f32 LM scoring shape (K8's path in f32), and the bf16 LM widths at head
+# dims 128 and 256 (embed 512 over 4 and 2 heads)
 ATTN_TIMED = [
     ("train_main's shape, f32", 8, LM_HEADS, LM_HEADS, 4096, 4096, 64, True,
+     None, "float32"),
+    ("LM scoring, f32", LM_BATCH, LM_HEADS, LM_HEADS, LM_T, LM_T, 64, True,
      None, "float32"),
     ("d 128", LM_BATCH, 4, 4, LM_T, LM_T, 128, True, None, "bfloat16"),
     ("d 256", LM_BATCH, 2, 2, LM_T, LM_T, 256, True, None, "bfloat16"),
@@ -977,18 +1013,22 @@ def attention_operands(case, dtype, device, gen):
     k = torch.randn((b, hk, tk, d), generator=gen, device=device).to(dtype)
     v = torch.randn((b, hk, tk, d), generator=gen, device=device).to(dtype)
     bias = None
-    if lengths is not None:
-        keep = torch.arange(tk, device=device)[None, :] < \
-            torch.tensor(lengths, device=device)[:, None]
+    if lengths is not None:   # a length, or a (lo, hi) hole of padded keys
+        pos = torch.arange(tk, device=device)
+        keep = torch.stack([
+            (pos < L) if isinstance(L, int) else (pos < L[0]) | (pos >= L[1])
+            for L in lengths])
         bias = torch.where(keep, 0.0, NEG_INF).float()
     return q, k, v, bias
 
 
 def check_attention_kernels(device):
     """Hold K8 and K9 against their plain versions at the LM paths' shapes
-    (ATTN_PATH) and at ATTN_RAGGED, in float32 and bfloat16: K8 on every
-    case without padding, K9 on every case.  Returns per-kernel errors
-    (float32 cases), cases and mismatches as :func:`check_kernels`
+    (ATTN_PATH) and at ATTN_RAGGED, in float32 and bfloat16, and at
+    ATTN_F32_EDGES in float32: K8 on every case without padding, K9 on
+    every case; then the f32 K8 and K9 (with the bias and its LSE)
+    bit-equal over two launches at ATTN_F32_BITEQ.  Returns per-kernel
+    errors (float32 cases), cases and mismatches as :func:`check_kernels`
     does."""
     import torch
     from bigdl_tpu_torch.ops import attention as attn
@@ -999,9 +1039,11 @@ def check_attention_kernels(device):
     rels_bf16 = {k: 0.0 for k in names}
     cases = {k: 0 for k in names}
     misses = {k: 0 for k in names}
-    for case in ATTN_PATH + ATTN_RAGGED:
+    both = (torch.float32, torch.bfloat16)
+    for case, dtypes in [(c, both) for c in ATTN_PATH + ATTN_RAGGED] + \
+            [(c, (torch.float32,)) for c in ATTN_F32_EDGES]:
         causal = case[7]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, bias = attention_operands(case, dtype, device, gen)
             runs = [("attention_stream_fwd",
                      lambda: attn.attention_stream_fwd(q, k, v, causal, None,
@@ -1037,11 +1079,30 @@ def check_attention_kernels(device):
                     fail(f"{name} {case[0]} {dtype}: max |err| / sum |p·v| "
                          f"{rel:.3g} beyond tolerance")
                 del got, want, mag
+    for case in ATTN_F32_BITEQ:
+        q, k, v, bias = attention_operands(case, torch.float32, device, gen)
+        runs = (("attention_fwd",
+                 lambda: (attn.attention_fwd(q, k, v, case[7]),)),
+                ("attention_stream_fwd",
+                 lambda: attn._launch(attn.attention_stream_fwd,
+                                      "bigdl_attention_stream_fwd", q, k, v,
+                                      bias, case[7], case[6] ** -0.5,
+                                      with_lse=True)))
+        for name, run in runs:
+            a, b = run(), run()
+            torch.cuda.synchronize()
+            cases[name] += 1
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                misses[name] += 1
+                fail(f"{name} {case[0]} float32: two launches differ")
+        del q, k, v, bias
     log("attention kernels vs plain: " + "; ".join(
         f"{k} {cases[k]} cases, max |err| / sum |p·v| f32 {rels[k]:.3g} "
         f"(limit {ATTN_F32_RTOL}; max |err| {errs[k]:.3g}) bf16 "
         f"{rels_bf16[k]:.3g} (limit "
-        f"{ATTN_BF16_STEPS * BF16_STEP:.4g})" for k in names))
+        f"{ATTN_BF16_STEPS * BF16_STEP:.4g})" for k in names) +
+        f"; f32 K8 and K9 (bias, LSE) bit-equal over two launches at "
+        f"{[c[0] for c in ATTN_F32_BITEQ]}")
     return errs, cases, misses
 
 
@@ -1920,9 +1981,14 @@ def lm_scoring(device):
     row = torch.from_numpy(seqs[:1, :-1])
     f32 = copy.deepcopy(base).to(device)
     with torch.inference_mode():
+        ops.reset_launches()             # the f32 LM scoring path starts here
         lp_dev = f32(row.to(device)).float().cpu()
+        f32_launches = launches_now()    # and ends here
         lp_cpu = base(row)
     del f32
+    if f32_launches != per_forward({"attention_fwd": LM_LAYERS}, 1):
+        fail(f"f32 LM forward launches {f32_launches}, expected {LM_LAYERS} "
+             "attention_fwd")
     f32_diff = (lp_dev - lp_cpu).abs().max().item()
     if f32_diff > LM_F32_ATOL:
         fail(f"f32 LM row, card vs CPU: max |dlogp| {f32_diff} (limit "
@@ -1945,7 +2011,8 @@ def lm_scoring(device):
     log(f"LM scoring (bf16, batch {LM_BATCH} x T {LM_T}): loss {loss:.5f} "
         f"over {count} sequences, launches {score_launches}; padded forward "
         f"launches {pad_launches}, real positions vs unpadded: {said(real)}; "
-        f"long context (1 x {LONG_T}) launches {long_launches}; f32 row vs "
+        f"long context (1 x {LONG_T}) launches {long_launches}; f32 row "
+        f"launches {f32_launches}, vs "
         f"CPU max |dlogp| {f32_diff:.3g} (limit {LM_F32_ATOL}); bf16 vs CPU, "
         f"{LM_CPU_ROWS} rows: {said(unpadded)}; padded rows "
         f"{LM_PAD_CPU_ROWS}: {said(padded)}, of them "
@@ -1956,7 +2023,7 @@ def lm_scoring(device):
               "padded_vs_unpadded": real, "bf16_vs_cpu": unpadded,
               "padded_bf16_vs_cpu": padded}
     by_path = {"lm_score": score_launches, "lm_padded": pad_launches,
-               "lm_long": long_launches}
+               "lm_long": long_launches, "lm_f32_row": f32_launches}
     return report, by_path, model, long_model
 
 

@@ -59,6 +59,20 @@ CASES = [
     (2, 2, 1, 16, 16, 160, True),
     (2, 2, 2, 24, 16, 256, False),
     (2, 2, 1, 16, 16, 320, True),
+    # the f32 kernel's block edges (128 query rows up to d 128, 64 at d
+    # 256; key tiles of 64, 32 at d 256), as phase 2d of chip_smoke.py
+    # sends them to the card: T one short of, equal to and past a block,
+    # GQA 8/2 at d 128 and 256 with T not a multiple of the block, Tq < Tk
+    # without the causal mask at a Tk that is not a multiple of 64, and a
+    # T whose blocks hold whole padded key tiles under the hole bias
+    (1, 2, 1, 127, 127, 64, True),
+    (1, 2, 1, 128, 128, 64, True),
+    (1, 2, 1, 129, 129, 64, True),
+    (1, 2, 2, 257, 257, 64, True),
+    (1, 8, 2, 200, 200, 128, True),
+    (1, 8, 2, 100, 100, 256, True),
+    (1, 4, 4, 100, 300, 64, False),
+    (2, 2, 1, 384, 384, 64, True),
 ]
 IDS = [f"b{c[0]}h{c[1]}kv{c[2]}t{c[3]}tk{c[4]}d{c[5]}" +
        ("causal" if c[6] else "") for c in CASES]
@@ -72,10 +86,15 @@ def _qkv(case, seed):
             rs.standard_normal((b, hk, tk, d)).astype(np.float32))
 
 
-def _bias(b, tk):
-    """Row 0 padded from the middle, row 1 with every key padded."""
+def _bias(b, tk, hole=False):
+    """Row 0 padded from the middle (``hole``: keys [Tk/4, 3 Tk/4) padded,
+    whole key tiles inside the causal range at Tk 384), row 1 with every
+    key padded."""
     kpm = np.ones((b, tk), bool)
-    kpm[0, tk // 2 + 1:] = False
+    if hole:
+        kpm[0, tk // 4:3 * tk // 4] = False
+    else:
+        kpm[0, tk // 2 + 1:] = False
     if b > 1:
         kpm[1, :] = False
     return np.where(kpm, 0.0, tattn.NEG_INF).astype(np.float32)
@@ -108,17 +127,23 @@ def test_plain_k8_matches_pallas_fused_forward(interpret, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("padded", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("padded", [False, True, "hole"],
+                         ids=["nobias", "bias", "hole"])
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_plain_k9_matches_pallas_streaming_forward(interpret, case, padded,
                                                    dtype):
     q, k, v = _qkv(case, 1)
     causal, scale = case[6], 1.0 / np.sqrt(case[5])
-    bias = _bias(case[0], case[4]) if padded else None
+    bias = _bias(case[0], case[4], padded == "hole") if padded else None
     jdt = getattr(jnp, dtype)
+    # lengths the reference's tiling rule refuses (T 127, 129, 257) run as
+    # one block each way: the kernel is the same, its grid one step
+    blocks = None if jattn._pick_stream_blocks(case[3], case[4]) else \
+        (case[3], case[4])
     want = jattn._streaming_forward(
         jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
-        causal, scale, bias=None if bias is None else jnp.asarray(bias))
+        causal, scale, bias=None if bias is None else jnp.asarray(bias),
+        blocks=blocks)
     tdt = getattr(torch, dtype)
     tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
     tb = None if bias is None else torch.from_numpy(bias)

@@ -21,8 +21,11 @@ The attention kernels K8, K9 and K12 agree with their plain versions to
 1e-5 of each output's sum of |p·v| (the softmax weights times |v|) in
 float32, and to two bfloat16 steps (2 * 2^-7) of it in bfloat16: the two
 outputs' own roundings can land one step apart, and K8/K9 round p to
-bfloat16 for the tensor cores (2^-9 of the sum at most); the bf16 K8 and
-K9 are bit-equal across two launches.  K8-K11 hold these tolerances at
+bfloat16 for the tensor cores (2^-9 of the sum at most); K8 and K9 are
+bit-equal across two launches in both dtypes.  The f32 K8/K9 hold these
+tolerances at the edges of their blocks and key tiles at every head dim
+16-256, and K9 writes o = 0 and an lse of about NEG_INF for a row whose
+every key is padded.  K8-K11 hold these tolerances at
 head dims 160 (zero-padded) and 256 and, through their D-chunked kernels,
 320 and 512.  K12 holds them on both of its paths (tensor cores, page
 split) and is bit-equal across two launches.  K9's row
@@ -470,6 +473,88 @@ def test_bf16_k8_and_k9_are_bit_equal_across_launches(cuda_device, case):
         assert torch.equal(a, b)
 
 
+# the f32 K8/K9's block edges (128 query rows up to head dim 128, 64 at
+# 256; key tiles of 64, 32 at 256): T one short of, equal to and past a
+# block, GQA 8/2 at head dims 128 and 256 with T not a multiple of the
+# block, key-padding holes ((lo, hi): keys [lo, hi) padded) that pad whole
+# tiles inside a block's causal range, Tq < Tk without the causal mask
+F32_EDGE_CASES = [
+    (2, 4, 2, 127, 127, 64, True, None),
+    (2, 4, 2, 128, 128, 64, True, None),
+    (2, 4, 2, 129, 129, 64, True, None),
+    (1, 8, 2, 257, 257, 64, True, None),
+    (2, 8, 2, 200, 200, 128, True, None),
+    (2, 8, 2, 100, 100, 256, True, None),
+    (2, 4, 2, 384, 384, 64, True, [(64, 256), 0]),
+    (1, 4, 4, 200, 200, 256, True, [(40, 130)]),
+    (1, 4, 4, 100, 300, 64, False, None),
+    (2, 4, 4, 100, 300, 64, False, [300, 150]),
+]
+F32_EDGE_IDS = ["t127", "t128", "t129", "t257", "gqa-d128-t200",
+                "gqa-d256-t100", "hole-and-all-padded", "hole-d256",
+                "tq-lt-tk", "tq-lt-tk-padded"]
+
+
+def _f32_fwd_close(case, device):
+    """The f32 K8 (on a case without padding) and K9 with its LSE against
+    their plain versions: o within 1e-5 of each output's sum |p·v|, lse
+    within 1e-5 of max(1, |lse|); a row with every key padded gives o = 0
+    and lse about NEG_INF."""
+    causal, lengths = case[6], case[7]
+    q, k, v, _, bias = _flash_inputs(case, torch.float32, device)
+    if bias is None:
+        got = attn.attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        mag = attn.attention_reference(q, k, v.abs(), causal)
+        assert got.shape == q.shape
+        assert _attn_close(got, attn.attention_reference(q, k, v, causal),
+                           mag, torch.float32)
+    o, lse = attn.attention_stream_plain(q, k, v, causal, None, bias,
+                                         with_lse=True)
+    got_o, got_lse = attn._launch(attn.attention_stream_fwd,
+                                  "bigdl_attention_stream_fwd", q, k, v, bias,
+                                  causal, case[5] ** -0.5, with_lse=True)
+    torch.cuda.synchronize()
+    mag = attn.attention_stream_plain(q, k, v.abs(), causal, None, bias)
+    assert got_o.shape == q.shape and _attn_close(got_o, o, mag,
+                                                  torch.float32)
+    assert ((got_lse - lse).abs() <= 1e-5 * lse.abs().clamp_min(1.0)).all()
+    if lengths is not None and 0 in lengths:
+        row = lengths.index(0)
+        assert not got_o[row].abs().any()
+        assert (got_lse[row] <= attn.NEG_INF / 2).all()
+
+
+@pytest.mark.parametrize("case", F32_EDGE_CASES, ids=F32_EDGE_IDS)
+def test_f32_attention_kernels_at_the_block_edges(cuda_device, case):
+    _f32_fwd_close(case, cuda_device)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_f32_attention_kernels_take_every_head_dim(cuda_device, d):
+    # each head dim's own tiles (rows a thread, keys a tile, warps a
+    # block), GQA 4/2, a T past one block, a row with every key padded
+    _f32_fwd_close((2, 4, 2, 130, 130, d, True, None), cuda_device)
+    _f32_fwd_close((2, 4, 2, 130, 130, d, True, [130, 0]), cuda_device)
+
+
+@pytest.mark.parametrize("case", [(2, 8, 2, 257, 257, 64, True, [257, 100]),
+                                  (2, 4, 4, 130, 130, 256, True, [130, 77])],
+                         ids=["gqa-t257", "d256"])
+def test_f32_k8_and_k9_are_bit_equal_across_launches(cuda_device, case):
+    # each row's sums run over its key tiles in a fixed order: no atomics,
+    # no split over blocks; K9 with the bias and its LSE
+    q, k, v, _, bias = _flash_inputs(case, torch.float32, cuda_device)
+    runs = [lambda: (attn.attention_fwd(q, k, v, True),),
+            lambda: attn._launch(attn.attention_stream_fwd,
+                                 "bigdl_attention_stream_fwd", q, k, v, bias,
+                                 True, case[5] ** -0.5, with_lse=True)]
+    for run in runs:
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def test_k9_backward_runs_k10_and_k11(cuda_device):
     # K9's backward is the flash backward: one K10 and one K11 launch, and
     # the gradients of autograd of the plain form (see the tolerances of
@@ -567,9 +652,11 @@ def _flash_inputs(case, dt, device):
     v = torch.randn((b, hk, tk, d), generator=g, device=device).to(dt)
     do = torch.randn((b, h, t, d), generator=g, device=device).to(dt)
     bias = None
-    if lengths is not None:
-        keep = torch.arange(tk, device=device)[None, :] < \
-            torch.tensor(lengths, device=device)[:, None]
+    if lengths is not None:   # a length, or a (lo, hi) hole of padded keys
+        pos = torch.arange(tk, device=device)
+        keep = torch.stack([
+            (pos < n) if isinstance(n, int) else (pos < n[0]) | (pos >= n[1])
+            for n in lengths])
         bias = torch.where(keep, 0.0, attn.NEG_INF).float()
     return q, k, v, do, bias
 
