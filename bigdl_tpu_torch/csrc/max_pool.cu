@@ -1,175 +1,508 @@
 // K1: NCHW max pool forward with an optional stored argmax code, and
 // K3: its backward, routing dy through that code.
 //
-// K1 replaces bigdl_tpu/ops/pooling.py `_fwd_kernel` (reached through
-// `_max_pool_fwd_impl`).  One thread per output element; neighbouring
-// threads own neighbouring `ow`, so each window row is read with strided but
-// coalesced loads and y/idx are stored coalesced.  The TPU kernel's one-hot
-// selection matmuls and finite bf16-min padding existed only because Mosaic
-// had no strided loads; here padding cells are simply skipped.
+// K1 replaces bigdl_tpu/ops/pooling.py:99 `_fwd_kernel` (reached through
+// `_max_pool_fwd_impl`), K3 bigdl_tpu/ops/pooling.py:130 `_bwd_kernel`
+// (reached through `_max_pool_pallas_bwd`).  The TPU kernels emulated
+// strided window reads and the backward scatter with one-hot MXU matmuls
+// and dilations in VMEM, and padded with a finite bf16 minimum: Mosaic
+// workarounds with no counterpart here.
 //
-// Bound on the H100: bytes.  The pool reads x once and writes y (and idx)
-// once; the window re-reads hit L1/L2, so the floor is
-// (|x| + |y| + |idx|) / 3.35 TB/s.
+// Bound on the H100: bytes.  K1 reads x once and writes y (and idx) once,
+// (|x| + |y| + |idx|) / 3.35 TB/s; K3 reads dy and idx once and writes dx
+// once, (|dy| + |idx| + |dx|) / 3.35 TB/s.  Per element there are at most
+// kh * kw compares (K1) or code tests (K3), far below the card's rate.
+//
+// Design.  A block owns a contiguous span of its planes: `planes` whole
+// planes (ops/pooling.py `pool_plan` picks them so that the 13 Inception
+// pools put several blocks on every SM), or, for a plane over the plan's
+// shared-memory budget or too few planes to fill the card, a band of
+// `rows` rows of one plane (blockIdx.y), with its halo: the input rows its
+// windows reach (K1: kh - sh rows past the band at stride sh), or the dy
+// and code rows of every window that reaches the band's dx rows (K3).
+// 1. The block copies its input span into shared memory: 16-byte cp.async
+//    copies over the 16-byte aligned body, scalar loads for a misaligned
+//    head and tail, into a buffer placed at the source's address mod 16 so
+//    that both ends of every 16-byte copy are aligned.  Window overlap
+//    (each x cell read by up to 9 windows at stride 1) then costs no device
+//    traffic.
+// 2. Each thread walks the block's work items a block's thread count
+//    apart: y elements (K1); stride cells of sh x sw dx elements (K3, fixed
+//    windows) or dx elements (K3, generic).  Its (plane, row, item) is
+//    carried forward by adds and compares: two 32-bit divisions per thread,
+//    at its start, and none per element or in 64 bits.  Results go to
+//    shared memory, placed like the output's address mod 16.
+// 3. The block stores its output span with 16-byte stores over the aligned
+//    body and scalar stores at a misaligned head and tail.
+// Both kernels are templated on the window (kh, kw, sh, sw) of the path's
+// geometries, 3x3/2, 3x3/1 and 2x2/2, and their window loops unroll with
+// no branch: K1 starts its scan at the window's first cell in the plane
+// and reads -inf outside it; a K3 thread loads each window that reaches
+// its stride cell once, and knows at compile time at which offset (p, q)
+// each of them reaches each of its cells, so a code test is one compare
+// and the stride tests are gone.  Every other geometry takes the generic
+// instantiation (<0, 0, 0, 0>), whose sizes are read at run time; its K3
+// takes each padded dx row's and column's quotient and remainder by the
+// stride from tables built once per block, so it too divides per row and
+// per column, not per element.
+// `bigdl_max_pool2d_variant` names the instantiation a geometry takes.
 //
 // Tie rule: the window is scanned in row-major order and compared in f32
 // with a strict `>`, so the FIRST maximal offset wins (Torch / XLA /
 // `ops/pooling.py:123`).  The index is the window-offset code p*kw+q as
-// uint8 (kh*kw <= 255, checked by the wrapper).
-//
-// K3 replaces bigdl_tpu/ops/pooling.py `_bwd_kernel` (reached through
-// `_max_pool_pallas_bwd`), which scattered dy with one-hot MXU matmuls and
-// dilations in VMEM.  Here it is a GATHER: one thread per element of dx
-// visits the output windows that cover its cell and adds dy where the
+// uint8 (kh*kw <= 255, checked by the wrapper).  K3 is a gather: each dx
+// element visits the windows that cover its cell and adds dy where the
 // stored code names its own offset (p, q).  No atomics, so the result is
 // deterministic; the sum is taken in f32 over q within each window row p,
 // then over p in ascending order, and rounded once to dy's dtype, which is
 // the order of ops/pooling.py `max_pool2d_bwd_plain`, so the two are
 // bit-equal.  Padding cells and the ceil-mode tail are never written.
-//
-// Bound on the H100: bytes, (|dy| + |idx| + |dx|) / 3.35 TB/s; each thread
-// reads at most kh*kw codes, re-reads of neighbouring windows hit L1/L2.
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+constexpr int kMaxThreads = 256;
+constexpr int kDefaultSmem = 48 * 1024;
+
+// The geometry of a launch and its plan.  B is the rows of a band: y rows
+// (K1) or dx rows (K3), the plane's all in whole-plane blocks.  A block's
+// threads walk its work items (y elements in K1; dx elements in the
+// generic K3, stride cells of sh x sw dx elements in the fixed ones) in
+// rows of wl items, wb rows a plane (kBandRows in a band, which is of one
+// plane); (dg, dr, dc) is the block's thread count as planes, rows and
+// items of that walk.
+struct PoolArgs {
+  int planes;
+  int h, w, oh, ow;
+  int kh, kw, sh, sw, ph, pw;
+  int G, B;
+  int wl, wb, dg, dr, dc;
+  int ni, nj;  // K3: ceil(kh / sh), ceil(kw / sw)
+};
+
+constexpr int kBandRows = 1 << 30;
+
+__host__ __device__ __forceinline__ int round16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// A thread's place in its block's walk: plane g, row r, item c.
+struct Walk {
+  int g, r, c;
+  __device__ __forceinline__ Walk(int j, const PoolArgs& a) {
+    const int row = j / a.wl;
+    c = j - row * a.wl;
+    g = row / a.wb;
+    r = row - g * a.wb;
+  }
+  __device__ __forceinline__ void step(const PoolArgs& a) {
+    c += a.dc;
+    r += a.dr;
+    g += a.dg;
+    if (c >= a.wl) {
+      c -= a.wl;
+      ++r;
+    }
+    if (r >= a.wb) {
+      r -= a.wb;
+      ++g;
+    }
+  }
+};
+
+// Copy n elements of src into the shared region at `region` (16 + n *
+// sizeof(T) bytes, 16-byte aligned) and return where they start there: at
+// src's address mod 16, so the 16-byte aligned body goes by 16-byte
+// cp.async copies; the head before it and the tail after it by scalar
+// loads.  The caller waits for the copies (wait_copies) before it reads.
 template <typename T>
-__global__ void max_pool2d_fwd_kernel(const T* __restrict__ x,
-                                      T* __restrict__ y,
-                                      uint8_t* __restrict__ idx,
-                                      long long total, int h, int w, int kh,
-                                      int kw, int sh, int sw, int ph, int pw,
-                                      int oh, int ow) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < total; i += stride) {
-    const int ox = static_cast<int>(i % ow);
-    const long long t = i / ow;
-    const int oy = static_cast<int>(t % oh);
-    const long long plane = t / oh;
-    const T* xp = x + plane * h * w;
-    const int y0 = oy * sh - ph;
-    const int x0 = ox * sw - pw;
-    float best = -INFINITY;
-    int best_code = 0;
-    bool have = false;
+__device__ __forceinline__ T* stage_in(unsigned char* region, const T* src,
+                                       int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  T* dst = reinterpret_cast<T*>(region + mis);
+  const int head = min(n, ((16 - mis) & 15) / static_cast<int>(sizeof(T)));
+  const int body = (n - head) / kVec;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int v = threadIdx.x; v < body; v += blockDim.x)
+    bigdl::wg::cp16(bigdl::wg::smem_addr(dst + head + v * kVec),
+                    src + head + v * kVec, true);
+  for (int i = head + body * kVec + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+  return dst;
+}
+
+__device__ __forceinline__ void wait_copies() {
+  bigdl::wg::cp_commit();
+  bigdl::wg::cp_wait<0>();
+  __syncthreads();
+}
+
+// Where in a shared region an output span bound for `p` is built: at p's
+// address mod 16, as stage_in places an input.
+template <typename T>
+__device__ __forceinline__ T* placed(unsigned char* region, const T* p) {
+  return reinterpret_cast<T*>(region + (reinterpret_cast<uintptr_t>(p) & 15));
+}
+
+// Store n elements built at src (placed for dst) to dst: 16-byte stores
+// over the aligned body, scalar stores at the head and tail.
+template <typename T>
+__device__ __forceinline__ void store_out(const T* src, T* dst, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  const int head = min(n, ((16 - mis) & 15) / static_cast<int>(sizeof(T)));
+  const int body = (n - head) / kVec;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  const uint4* s = reinterpret_cast<const uint4*>(src + head);
+  uint4* d = reinterpret_cast<uint4*>(dst + head);
+  for (int v = threadIdx.x; v < body; v += blockDim.x) d[v] = s[v];
+  for (int i = head + body * kVec + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+// K1.  Block (blockIdx.x, blockIdx.y): planes [G x, G x + G) of the n*c, y
+// rows [B y, B y + B) (all of them in whole-plane blocks).
+template <typename T, int KH, int KW, int SH, int SW>
+__global__ void __launch_bounds__(kMaxThreads)
+    pool_fwd(const T* __restrict__ x, T* __restrict__ y,
+             uint8_t* __restrict__ idx, PoolArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kh = KH ? KH : a.kh, kw = KW ? KW : a.kw;
+  const int sh = SH ? SH : a.sh, sw = SW ? SW : a.sw;
+  const int g0 = blockIdx.x * a.G;  // the block's first plane
+  const int gn = min(a.G, a.planes - g0);
+  int oy0 = 0, R = a.oh, ir0 = 0, ir1 = a.h;
+  if (gridDim.y > 1) {  // a band of one plane and the input rows it reads
+    oy0 = blockIdx.y * a.B;
+    R = min(a.B, a.oh - oy0);
+    ir0 = max(0, oy0 * sh - a.ph);
+    ir1 = min(a.h, (oy0 + R - 1) * sh - a.ph + kh);
+  }
+  const int in_plane = (ir1 - ir0) * a.w, out_plane = R * a.ow;
+  const int n_in = gn * in_plane, n_out = gn * out_plane;
+  const long long in_off =
+      static_cast<long long>(g0) * a.h * a.w + static_cast<long long>(ir0) * a.w;
+  const long long out_off = static_cast<long long>(g0) * a.oh * a.ow +
+                            static_cast<long long>(oy0) * a.ow;
+
+  unsigned char* region = smem;
+  const T* xs = stage_in(region, x + in_off, n_in);
+  region += round16(16 + n_in * static_cast<int>(sizeof(T)));
+  T* ys = placed(region, y + out_off);
+  region += round16(16 + n_out * static_cast<int>(sizeof(T)));
+  uint8_t* is = idx != nullptr ? placed(region, idx + out_off) : nullptr;
+  wait_copies();
+
+  Walk at(threadIdx.x, a);
+  for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
+    const T* xp = xs + at.g * in_plane;
+    const int y0 = (oy0 + at.r) * sh - a.ph;  // the window's first input row
+    const int x0 = at.c * sw - a.pw;
+    const int o = (y0 - ir0) * a.w + x0;      // and its origin in xp
+    // the window's cells in the plane are rows [p_lo, ..) by columns
+    // [q_lo, ..): its first one in row-major order starts the scan, and a
+    // cell outside reads -inf, which no strict > takes
+    const int p_lo = max(0, -y0), q_lo = max(0, -x0);
+    float best = bigdl::to_f32(xp[o + p_lo * a.w + q_lo]);
+    int code = p_lo * kw + q_lo;
+#pragma unroll
     for (int p = 0; p < kh; ++p) {
-      const int iy = y0 + p;
-      if (iy < 0 || iy >= h) continue;
+      const bool row_in = y0 + p >= 0 && y0 + p < a.h;
+#pragma unroll
       for (int q = 0; q < kw; ++q) {
-        const int ix = x0 + q;
-        if (ix < 0 || ix >= w) continue;
-        const float v = bigdl::to_f32(xp[iy * w + ix]);
-        if (!have || v > best) {
+        const bool in = row_in && x0 + q >= 0 && x0 + q < a.w;
+        const float v = in ? bigdl::to_f32(xp[o + p * a.w + q]) : -INFINITY;
+        if (v > best) {
           best = v;
-          best_code = p * kw + q;
-          have = true;
+          code = p * kw + q;
         }
       }
     }
-    y[i] = bigdl::from_f32<T>(best);
-    if (idx != nullptr) idx[i] = static_cast<uint8_t>(best_code);
+    ys[j] = bigdl::from_f32<T>(best);
+    if (is != nullptr) is[j] = static_cast<uint8_t>(code);
+    at.step(a);
   }
+  __syncthreads();
+  store_out(ys, y + out_off, n_out);
+  if (is != nullptr) store_out(is, idx + out_off, n_out);
 }
 
-template <typename T>
-void launch(const void* x, void* y, void* idx, long long total, int h, int w,
-            int kh, int kw, int sh, int sw, int ph, int pw, int oh, int ow,
-            cudaStream_t stream) {
-  max_pool2d_fwd_kernel<T><<<bigdl::blocks_for(total), bigdl::kThreads, 0,
-                             stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<uint8_t*>(idx), total, h, w, kh, kw, sh, sw, ph, pw, oh,
-      ow);
-}
+// K3.  Block (blockIdx.x, blockIdx.y): planes [G x, G x + G), dx rows
+// [B y, B y + B) (all of them in whole-plane blocks) and the windows
+// [oy_lo, oy_hi] that reach them.
+template <typename T, int KH, int KW, int SH, int SW>
+__global__ void __launch_bounds__(kMaxThreads)
+    pool_bwd(const T* __restrict__ dy, const uint8_t* __restrict__ idx,
+             T* __restrict__ dx, PoolArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kFixed = KH > 0;
+  const int kh = KH ? KH : a.kh, kw = KW ? KW : a.kw;
+  const int sh = SH ? SH : a.sh, sw = SW ? SW : a.sw;
+  const int g0 = blockIdx.x * a.G;  // the block's first plane
+  const int gn = min(a.G, a.planes - g0);
+  int iy0 = 0, R = a.h, oy_lo = 0, oy_hi = a.oh - 1;
+  if (gridDim.y > 1) {  // a band of one plane and the windows that reach it
+    iy0 = blockIdx.y * a.B;
+    R = min(a.B, a.h - iy0);
+    const int top = iy0 + a.ph - kh + 1;  // padded row of window oy_lo's end
+    oy_lo = top > 0 ? (top + sh - 1) / sh : 0;
+    oy_hi = min(a.oh - 1, (iy0 + R - 1 + a.ph) / sh);
+  }
+  const int win_plane = max(0, oy_hi - oy_lo + 1) * a.ow;
+  const int out_plane = R * a.w;
+  const int n_in = gn * win_plane, n_out = gn * out_plane;
+  const long long in_off = static_cast<long long>(g0) * a.oh * a.ow +
+                           static_cast<long long>(oy_lo) * a.ow;
+  const long long out_off =
+      static_cast<long long>(g0) * a.h * a.w + static_cast<long long>(iy0) * a.w;
 
-template <typename T>
-__global__ void max_pool2d_bwd_kernel(const T* __restrict__ dy,
-                                      const uint8_t* __restrict__ idx,
-                                      T* __restrict__ dx, long long total,
-                                      int h, int w, int kh, int kw, int sh,
-                                      int sw, int ph, int pw, int oh,
-                                      int ow) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < total; i += stride) {
-    const int ix = static_cast<int>(i % w);
-    const long long t = i / w;
-    const int iy = static_cast<int>(t % h);
-    const long long plane = t / h;
-    const T* dyp = dy + plane * oh * ow;
-    const uint8_t* ip = idx + plane * oh * ow;
-    // position in the padded plane; window (oy, ox) covers it at offset
-    // (p, q) when oy*sh + p == r and ox*sw + q == col
-    const int r = iy + ph;
-    const int col = ix + pw;
-    float acc = 0.0f;
-    for (int p = 0; p < kh && p <= r; ++p) {
-      const int rr = r - p;
-      if (rr % sh != 0 || rr / sh >= oh) continue;
-      const int oy = rr / sh;
-      float row = 0.0f;
-      for (int q = 0; q < kw && q <= col; ++q) {
-        const int cc = col - q;
-        if (cc % sw != 0 || cc / sw >= ow) continue;
-        const long long o = static_cast<long long>(oy) * ow + cc / sw;
-        if (ip[o] == p * kw + q) row += bigdl::to_f32(dyp[o]);
-      }
-      acc += row;
+  unsigned char* region = smem;
+  const T* dys = stage_in(region, dy + in_off, n_in);
+  region += round16(16 + n_in * static_cast<int>(sizeof(T)));
+  const uint8_t* codes = stage_in(region, idx + in_off, n_in);
+  region += round16(16 + n_in);
+  T* dxs = placed(region, dx + out_off);
+  region += round16(16 + n_out * static_cast<int>(sizeof(T)));
+  // generic windows: each padded row's and column's (quotient, remainder)
+  // by the stride, rows [0, R) then columns [0, w)
+  int2* tab = reinterpret_cast<int2*>(region);
+  if (!kFixed) {
+    for (int i = threadIdx.x; i < R + a.w; i += blockDim.x) {
+      const int v = i < R ? iy0 + i + a.ph : i - R + a.pw;
+      const int s = i < R ? sh : sw;
+      const int qt = v / s;
+      tab[i] = make_int2(qt, v - qt * s);
     }
-    dx[i] = bigdl::from_f32<T>(acc);
+  }
+  wait_copies();
+
+  const int base = -oy_lo * a.ow;  // window (oy, ox) of plane g at
+                                   // g win_plane + base + oy ow + ox
+  Walk at(threadIdx.x, a);
+  if constexpr (kFixed) {
+    // a thread's item is the stride cell (ga, gb): padded rows [SH ga, SH
+    // ga + SH) by columns [SW gb, SW gb + SW), reached by windows (ga - i,
+    // gb - m), i < NI, m < NJ, window (ga - i, gb - m) at row p = SH i + u
+    // and column q = SW m + v of cell (u, v): all known at compile time
+    constexpr int NI = (KH + SH - 1) / SH, NJ = (KW + SW - 1) / SW;
+    const int a_lo = (iy0 + a.ph) / SH, b_lo = a.pw / SW;
+    const int na = (iy0 + R - 1 + a.ph) / SH - a_lo + 1;
+    const int n_cells = gn * na * a.wl;
+    for (int j = threadIdx.x; j < n_cells; j += blockDim.x) {
+      const int ga = a_lo + at.r, gb = b_lo + at.c;
+      const int wbase = at.g * win_plane + base;
+      int cw[NI][NJ];
+      float dw[NI][NJ];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+#pragma unroll
+        for (int m = 0; m < NJ; ++m) {
+          const int oy = ga - i, ox = gb - m;
+          const bool in = oy >= oy_lo && oy <= oy_hi && ox >= 0 && ox < a.ow;
+          const int o = wbase + oy * a.ow + ox;
+          cw[i][m] = in ? codes[o] : 255;  // no window's code is 255
+          dw[i][m] = in ? bigdl::to_f32(dys[o]) : 0.0f;
+        }
+      }
+      T* dxp = dxs + at.g * out_plane;
+#pragma unroll
+      for (int u = 0; u < SH; ++u) {
+        const int row = SH * ga + u - a.ph;
+        if (row < iy0 || row >= iy0 + R) continue;
+#pragma unroll
+        for (int v = 0; v < SW; ++v) {
+          const int col = SW * gb + v - a.pw;
+          if (col < 0 || col >= a.w) continue;
+          // a window that does not name the cell adds +0.0, which changes
+          // no sum here (a sum that starts at +0.0 never becomes -0.0)
+          float acc = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NI; ++i) {  // window rows in ascending order
+            if (SH * i + u >= KH) continue;
+            float rsum = 0.0f;
+#pragma unroll
+            for (int m = 0; m < NJ; ++m) {
+              if (SW * m + v >= KW) continue;
+              const int code = (SH * i + u) * KW + SW * m + v;
+              rsum += cw[i][m] == code ? dw[i][m] : 0.0f;
+            }
+            acc += rsum;
+          }
+          dxp[(row - iy0) * a.w + col] = bigdl::from_f32<T>(acc);
+        }
+      }
+      at.step(a);
+    }
+  } else {
+    // a thread's item is one dx cell; the windows that reach it from its
+    // row's and column's (quotient, remainder) by the stride
+    for (int j = threadIdx.x; j < n_out; j += blockDim.x) {
+      const int wbase = at.g * win_plane + base;
+      const int2 rt = tab[at.r], ct = tab[R + at.c];
+      const int oy0 = rt.x, p0 = rt.y, ox0 = ct.x, q0 = ct.y;
+      float acc = 0.0f;
+      for (int i = 0; i < a.ni; ++i) {
+        const int p = p0 + i * sh, oy = oy0 - i;
+        const bool row_in = p < kh && oy >= 0 && oy < a.oh;
+        const int o = wbase + oy * a.ow + ox0;
+        float rsum = 0.0f;
+        for (int m = 0; m < a.nj; ++m) {
+          const int q = q0 + m * sw, ox = ox0 - m;
+          if (row_in && q < kw && ox >= 0 && ox < a.ow &&
+              codes[o - m] == p * kw + q)
+            rsum += bigdl::to_f32(dys[o - m]);
+        }
+        acc += rsum;
+      }
+      dxs[j] = bigdl::from_f32<T>(acc);
+      at.step(a);
+    }
+  }
+  __syncthreads();
+  store_out(dxs, dx + out_off, n_out);
+}
+
+// 0: generic; 1: 3x3 stride 2; 2: 3x3 stride 1; 3: 2x2 stride 2
+int variant(int kh, int kw, int sh, int sw) {
+  if (kh == 3 && kw == 3 && sh == 2 && sw == 2) return 1;
+  if (kh == 3 && kw == 3 && sh == 1 && sw == 1) return 2;
+  if (kh == 2 && kw == 2 && sh == 2 && sw == 2) return 3;
+  return 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel k, int smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+template <typename T, int KH, int KW, int SH, int SW>
+cudaError_t launch_fwd(const void* x, void* y, void* idx, const PoolArgs& a,
+                       dim3 grid, int threads, int smem, cudaStream_t s) {
+  auto k = pool_fwd<T, KH, KW, SH, SW>;
+  const cudaError_t e = allow_smem(k, smem);
+  if (e != cudaSuccess) return e;
+  k<<<grid, threads, smem, s>>>(static_cast<const T*>(x), static_cast<T*>(y),
+                                static_cast<uint8_t*>(idx), a);
+  return cudaGetLastError();
+}
+
+template <typename T, int KH, int KW, int SH, int SW>
+cudaError_t launch_bwd(const void* dy, const void* idx, void* dx,
+                       const PoolArgs& a, dim3 grid, int threads, int smem,
+                       cudaStream_t s) {
+  auto k = pool_bwd<T, KH, KW, SH, SW>;
+  const cudaError_t e = allow_smem(k, smem);
+  if (e != cudaSuccess) return e;
+  k<<<grid, threads, smem, s>>>(static_cast<const T*>(dy),
+                                static_cast<const uint8_t*>(idx),
+                                static_cast<T*>(dx), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fwd_for(const void* x, void* y, void* idx, const PoolArgs& a,
+                    dim3 grid, int threads, int smem, cudaStream_t s) {
+  switch (variant(a.kh, a.kw, a.sh, a.sw)) {
+    case 1: return launch_fwd<T, 3, 3, 2, 2>(x, y, idx, a, grid, threads, smem, s);
+    case 2: return launch_fwd<T, 3, 3, 1, 1>(x, y, idx, a, grid, threads, smem, s);
+    case 3: return launch_fwd<T, 2, 2, 2, 2>(x, y, idx, a, grid, threads, smem, s);
+    default: return launch_fwd<T, 0, 0, 0, 0>(x, y, idx, a, grid, threads, smem, s);
   }
 }
 
 template <typename T>
-void launch_bwd(const void* dy, const void* idx, void* dx, long long total,
-                int h, int w, int kh, int kw, int sh, int sw, int ph, int pw,
-                int oh, int ow, cudaStream_t stream) {
-  max_pool2d_bwd_kernel<T><<<bigdl::blocks_for(total), bigdl::kThreads, 0,
-                             stream>>>(
-      static_cast<const T*>(dy), static_cast<const uint8_t*>(idx),
-      static_cast<T*>(dx), total, h, w, kh, kw, sh, sw, ph, pw, oh, ow);
+cudaError_t bwd_for(const void* dy, const void* idx, void* dx,
+                    const PoolArgs& a, dim3 grid, int threads, int smem,
+                    cudaStream_t s) {
+  switch (variant(a.kh, a.kw, a.sh, a.sw)) {
+    case 1: return launch_bwd<T, 3, 3, 2, 2>(dy, idx, dx, a, grid, threads, smem, s);
+    case 2: return launch_bwd<T, 3, 3, 1, 1>(dy, idx, dx, a, grid, threads, smem, s);
+    case 3: return launch_bwd<T, 2, 2, 2, 2>(dy, idx, dx, a, grid, threads, smem, s);
+    default: return launch_bwd<T, 0, 0, 0, 0>(dy, idx, dx, a, grid, threads, smem, s);
+  }
+}
+
+// The args and grid of a plan of `planes` planes a block or bands of
+// `rows` of the plane's `full` rows, with a walk of wl items a row and wb
+// rows a plane in whole-plane blocks; false when the plan is not one the
+// kernels take.
+bool plan_grid(PoolArgs& a, int full, int planes, int rows, int threads,
+               int smem, int wl, int wb, dim3& grid) {
+  if (planes < 1 || rows < 1 || rows > full || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 || smem < 0 ||
+      smem > 232448 || wl < 1 || wb < 1)
+    return false;
+  const int bands = (full + rows - 1) / rows;
+  if (bands > 1 && planes != 1) return false;  // a band is of one plane
+  if (bands > 65535) return false;
+  a.G = planes;
+  a.B = rows;
+  a.wl = wl;
+  a.wb = bands > 1 ? kBandRows : wb;
+  const int row_step = threads / wl;
+  a.dc = threads - row_step * wl;
+  a.dg = row_step / a.wb;
+  a.dr = row_step - a.dg * a.wb;
+  a.ni = (a.kh + a.sh - 1) / a.sh;
+  a.nj = (a.kw + a.sw - 1) / a.sw;
+  grid = dim3((a.planes + planes - 1) / planes, bands);
+  return true;
 }
 
 }  // namespace
 
+extern "C" int bigdl_max_pool2d_variant(int kh, int kw, int sh, int sw) {
+  return variant(kh, kw, sh, sw);
+}
+
 extern "C" int bigdl_max_pool2d_fwd(const void* x, void* y, void* idx,
                                     int dtype, int n, int c, int h, int w,
                                     int kh, int kw, int sh, int sw, int ph,
-                                    int pw, int oh, int ow, void* stream) {
-  const long long total = static_cast<long long>(n) * c * oh * ow;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bigdl::kF32) {
-    launch<float>(x, y, idx, total, h, w, kh, kw, sh, sw, ph, pw, oh, ow, s);
-  } else if (dtype == bigdl::kBF16) {
-    launch<__nv_bfloat16>(x, y, idx, total, h, w, kh, kw, sh, sw, ph, pw, oh,
-                          ow, s);
-  } else {
+                                    int pw, int oh, int ow, int planes,
+                                    int rows, int threads, int smem,
+                                    void* stream) {
+  if (static_cast<long long>(n) * c * oh * ow == 0)
+    return static_cast<int>(cudaSuccess);
+  PoolArgs a{n * c, h, w, oh, ow, kh, kw, sh, sw, ph, pw};
+  dim3 grid;
+  if (!plan_grid(a, oh, planes, rows, threads, smem, ow, oh, grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == bigdl::kF32)
+    return static_cast<int>(fwd_for<float>(x, y, idx, a, grid, threads, smem, s));
+  if (dtype == bigdl::kBF16)
+    return static_cast<int>(
+        fwd_for<__nv_bfloat16>(x, y, idx, a, grid, threads, smem, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int bigdl_max_pool2d_bwd(const void* dy, const void* idx, void* dx,
                                     int dtype, int n, int c, int h, int w,
                                     int kh, int kw, int sh, int sw, int ph,
-                                    int pw, int oh, int ow, void* stream) {
-  const long long total = static_cast<long long>(n) * c * h * w;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bigdl::kF32) {
-    launch_bwd<float>(dy, idx, dx, total, h, w, kh, kw, sh, sw, ph, pw, oh,
-                      ow, s);
-  } else if (dtype == bigdl::kBF16) {
-    launch_bwd<__nv_bfloat16>(dy, idx, dx, total, h, w, kh, kw, sh, sw, ph,
-                              pw, oh, ow, s);
-  } else {
+                                    int pw, int oh, int ow, int planes,
+                                    int rows, int threads, int smem,
+                                    void* stream) {
+  if (static_cast<long long>(n) * c * h * w == 0)
+    return static_cast<int>(cudaSuccess);
+  PoolArgs a{n * c, h, w, oh, ow, kh, kw, sh, sw, ph, pw};
+  // the fixed windows walk stride cells, the generic one dx elements
+  const bool fixed = variant(kh, kw, sh, sw) != 0;
+  const int wl = fixed ? (w - 1 + pw) / sw - pw / sw + 1 : w;
+  const int wb = fixed ? (h - 1 + ph) / sh - ph / sh + 1 : h;
+  dim3 grid;
+  if (!plan_grid(a, h, planes, rows, threads, smem, wl, wb, grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == bigdl::kF32)
+    return static_cast<int>(bwd_for<float>(dy, idx, dx, a, grid, threads, smem, s));
+  if (dtype == bigdl::kBF16)
+    return static_cast<int>(
+        bwd_for<__nv_bfloat16>(dy, idx, dx, a, grid, threads, smem, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

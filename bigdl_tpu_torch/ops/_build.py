@@ -40,10 +40,13 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, y, idx, dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh, ow, stream
-    "bigdl_max_pool2d_fwd": [_P, _P, _P] + [_I] * 13 + [_P],
-    # dy, idx, dx, dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh, ow, stream
-    "bigdl_max_pool2d_bwd": [_P, _P, _P] + [_I] * 13 + [_P],
+    # x, y, idx (or null), dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh,
+    # ow, planes a block, rows a band, threads, shared bytes, stream
+    "bigdl_max_pool2d_fwd": [_P, _P, _P] + [_I] * 17 + [_P],
+    # dy, idx, dx, then as the forward
+    "bigdl_max_pool2d_bwd": [_P, _P, _P] + [_I] * 17 + [_P],
+    # kh, kw, sh, sw: the instantiation K1 and K3 take
+    "bigdl_max_pool2d_variant": [_I] * 4,
     # x, y, scale, dtype, n, c, hw, size, alpha/size, beta, k, mode, stream
     "bigdl_lrn_fwd": [_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
                       ctypes.c_float, ctypes.c_float, ctypes.c_float, _I,

@@ -6,14 +6,17 @@ reached through ``_max_pool_fwd_impl``) and K3 its ``_bwd_kernel`` (reached
 through ``_max_pool_pallas_bwd``), both in ``csrc/max_pool.cu``.  The TPU
 kernels emulated strided window reads and the backward scatter with one-hot
 MXU matmuls and padded with a finite bf16 minimum, all Mosaic workarounds;
-the CUDA kernels use direct strided loads and skip padding cells.
+the CUDA kernels read windows from shared memory and skip padding cells.
 
 What bounds both on the H100 is bytes: K1 reads x once and writes y and the
 optional uint8 index once; K3 reads dy and the index once and writes dx
-once, at 3.35 TB/s.  K1 gives one thread to each output element and K3 one
-to each element of dx (a gather, so no atomics and a fixed order of sums);
-neighbouring threads own neighbouring columns, so loads and stores
-coalesce and window overlap is served from cache.
+once, at 3.35 TB/s.  A block stages a contiguous span of its planes in
+shared memory (16-byte copies), computes every output of the span from
+there and stores the span with 16-byte stores; :func:`pool_plan` picks the
+planes a block, or the rows of a band of one plane with its halo, and the
+threads a block.  The kernels are templated on the path's windows (3x3
+stride 2, 3x3 stride 1, 2x2 stride 2) with a generic instantiation for the
+rest (:func:`pool_variant`).
 
 Contract shared by the kernels and their plain versions: the window is
 scanned in row-major order and compared in f32 with a strict ``>``, so ties
@@ -26,7 +29,9 @@ tensor takes the plain version; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -98,17 +103,125 @@ def max_pool2d_bwd_plain(dy, idx, geom, ih, iw):
     return acc[:, :, ph:ph + ih, pw:pw + iw].to(dy.dtype)
 
 
+# -- the kernels' plan ----------------------------------------------------------
+
+H100_SMS = 132
+POOL_SMEM_BUDGET = 48 * 1024     # a block's shared memory, so 4 blocks an SM
+POOL_SMEM_LIMIT = 232448         # the most one block can have on the H100
+POOL_BLOCKS_PER_SM = 8           # blocks the plan aims for on each SM
+POOL_MAX_THREADS = 256
+# the instantiations by csrc/max_pool.cu `bigdl_max_pool2d_variant`'s code
+POOL_VARIANTS = ("generic", "3x3/2", "3x3/1", "2x2/2")
+_FIXED_WINDOWS = {(3, 3, 2, 2): 1, (3, 3, 1, 1): 2, (2, 2, 2, 2): 3}
+
+
+def pool_variant(kh, kw, sh, sw):
+    """The instantiation of K1 and K3 a window takes: one of the path's
+    fixed windows (``"3x3/2"``, ``"3x3/1"``, ``"2x2/2"``) or
+    ``"generic"``."""
+    return POOL_VARIANTS[_FIXED_WINDOWS.get((kh, kw, sh, sw), 0)]
+
+
+class PoolPlan(NamedTuple):
+    """A launch of K1 or K3: ``planes`` whole planes a block, or (planes 1)
+    bands of ``rows`` rows of one plane, y rows in K1 and dx rows in K3
+    (``rows`` is the plane's all in whole-plane blocks); ``bands`` a plane,
+    ``blocks`` in all, ``threads`` a block and ``smem`` bytes of dynamic
+    shared memory a block."""
+    planes: int
+    rows: int
+    bands: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+def _r16(nbytes):
+    return (nbytes + 15) // 16 * 16
+
+
+def pool_smem(h, w, geom, itemsize, planes, rows, backward=False):
+    """Shared memory of a K1 (or, ``backward``, K3) block of ``planes``
+    planes of ``rows`` rows, as ``csrc/max_pool.cu`` lays it out: each span
+    in a region of 16 bytes more than it holds (it starts at its global
+    address mod 16), 16-byte aligned.  K1: x (a band's input rows: its
+    windows' reach), y, idx.  K3: dy and the codes of the windows that
+    reach the band's dx rows, dx, and for the generic window the rows' and
+    columns' (quotient, remainder) by the stride."""
+    kh, kw, sh, sw = geom[:4]
+    oh, ow, _, _ = pool_geometry(h, w, *geom)
+    if backward:
+        win = oh if rows >= h else min(oh, (rows + kh - 2) // sh + 1)
+        tables = 0 if (kh, kw, sh, sw) in _FIXED_WINDOWS else 8 * (rows + w)
+        return (_r16(16 + planes * win * ow * itemsize) +
+                _r16(16 + planes * win * ow) +
+                _r16(16 + planes * rows * w * itemsize) + tables)
+    rows_in = h if rows >= oh else min(h, (rows - 1) * sh + kh)
+    return (_r16(16 + planes * rows_in * w * itemsize) +
+            _r16(16 + planes * rows * ow * itemsize) +
+            _r16(16 + planes * rows * ow))
+
+
+@functools.lru_cache(maxsize=None)
+def pool_plan(n, c, h, w, geom, dtype, backward=False, sms=H100_SMS):
+    """Plan K1 (or, ``backward``, K3) over an (n, c, h, w) input on a card
+    of ``sms`` SMs.  Whole planes share a block while the blocks stay at
+    least POOL_BLOCKS_PER_SM an SM and their shared memory within
+    POOL_SMEM_BUDGET; with one plane a block, a plane is cut into bands of
+    rows when it is over the budget or when there are too few planes for
+    that many blocks.  About four work items a thread, 64 to 256
+    threads."""
+    oh, ow, _, _ = pool_geometry(h, w, *geom)
+    size = torch.empty((), dtype=dtype).element_size()
+    planes = n * c
+    full, length = (h, w) if backward else (oh, ow)
+
+    def smem(g, rows):
+        return pool_smem(h, w, geom, size, g, rows, backward)
+
+    target = POOL_BLOCKS_PER_SM * sms
+    g = max(1, planes // target)
+    while g > 1 and smem(g, full) > POOL_SMEM_BUDGET:
+        g -= 1
+    rows = full
+    if g == 1:
+        if planes < target:
+            rows = -(-full // -(-target // planes))
+        while rows > 1 and smem(1, rows) > POOL_SMEM_BUDGET:
+            rows -= 1
+        if smem(1, rows) > POOL_SMEM_LIMIT:
+            raise ValueError(f"max pool: a band of one row of a {h}x{w} "
+                             f"plane needs {smem(1, rows)} bytes of shared "
+                             f"memory, over the {POOL_SMEM_LIMIT} a block "
+                             "can have")
+    bands = -(-full // rows)
+    rows = -(-full // bands)        # the same bands, evened out
+    threads = 64
+    while threads < POOL_MAX_THREADS and 4 * threads < g * rows * length:
+        threads *= 2
+    return PoolPlan(g, rows, bands, -(-planes // g) * bands, threads,
+                    smem(g, rows))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(x, kh, kw, sh, sw, ph, pw, ceil_mode, with_idx):
     n, c, ih, iw = x.shape
-    oh, ow, _, _ = pool_geometry(ih, iw, kh, kw, sh, sw, ph, pw, ceil_mode)
+    geom = (kh, kw, sh, sw, ph, pw, ceil_mode)
+    oh, ow, _, _ = pool_geometry(ih, iw, *geom)
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
     idx = torch.empty((n, c, oh, ow), dtype=torch.uint8, device=x.device) \
         if with_idx else None
+    p = pool_plan(n, c, ih, iw, geom, x.dtype,
+                  sms=_device_sms(x.device.index))
     lib = _build.load()
     rc = lib.bigdl_max_pool2d_fwd(
         x.data_ptr(), y.data_ptr(), None if idx is None else idx.data_ptr(),
         _build.DTYPE_CODES[x.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
-        oh, ow, _build.stream_ptr(x))
+        oh, ow, p.planes, p.rows, p.threads, p.smem, _build.stream_ptr(x))
     _build.check(rc, "max_pool2d_fwd")
     max_pool2d.launches += 1
     return y, idx
@@ -211,10 +324,12 @@ def max_pool2d_bwd(dy, idx, geom, ih, iw):
         raise ValueError("max_pool2d_bwd kernel takes a contiguous idx")
     n, c = dy.shape[:2]
     dx = torch.empty((n, c, ih, iw), dtype=dy.dtype, device=dy.device)
+    p = pool_plan(n, c, ih, iw, tuple(geom), dy.dtype, backward=True,
+                  sms=_device_sms(dy.device.index))
     rc = _build.load().bigdl_max_pool2d_bwd(
         dy.data_ptr(), idx.data_ptr(), dx.data_ptr(),
         _build.DTYPE_CODES[dy.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
-        oh, ow, _build.stream_ptr(dy))
+        oh, ow, p.planes, p.rows, p.threads, p.smem, _build.stream_ptr(dy))
     _build.check(rc, "max_pool2d_bwd")
     max_pool2d_bwd.launches += 1
     return dx

@@ -11,10 +11,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
    every kernel from ``bigdl_tpu_torch/csrc``;
 2. every forward kernel (K1 max pool, K2 LRN) against its plain PyTorch
    version on the card, at the shapes full-width Inception-v1 gives it at
-   batch 32 and at ragged shapes, in float32 and bfloat16;
+   batch 32 and at ragged shapes, in float32 and bfloat16; K1 bit-equal
+   also at the edges of its plan (``POOL_EDGES``: n*c off a multiple of
+   the planes a block, 7x7 and 13x11 planes whose bytes are no multiple
+   of 16, an input off 16 bytes, planes over the shared-memory budget in
+   bands at every instantiation, ResNet's stem), logging the instantiation
+   and plan of each case, and failing unless every instantiation (3x3/2,
+   3x3/1, 2x2/2, generic) ran on whole planes and on bands;
 2b. the backward kernels (K3 max pool, K4 LRN) the same way, K3 on the
-   argmax codes K1 wrote, and one autograd round trip per layer on the
-   card against the same on the CPU;
+   argmax codes K1 wrote (dy and codes off 16 bytes where the case's
+   input is), with the same coverage rule, K3 through autograd with a
+   strided dy, and one autograd round trip per layer on the card against
+   the same on the CPU;
 2c. the quantized matmuls (K13 with int8 and e4m3 weights, K14 int8 x
    int8, K15 int4) against their plain versions at every (M, K, N) that
    quantized Inception-v1 gives them at buckets 8 and 32, at ragged shapes
@@ -185,7 +193,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
-   function; the classifier's forward per bucket; the closed-loop serving
+   function, K1 (f32 without its index, bf16 with it) and K3 per pool
+   layer and summed, by CUDA events and torch.profiler device time, the
+   library's too; the classifier's forward per bucket; the closed-loop serving
    images/s and request latency per bucket; the train step in bf16 mixed
    precision and in float32; K13-K15 at every distinct product of the
    quantized forward at buckets 32 and 8 (CUDA events, device time from
@@ -277,6 +287,51 @@ RAGGED_POOLS = [
     ("odd HW, floor, pad 1", (2, 7, 9, 7), 3, 3, 2, 2, 1, 1, False),
     ("C=3, 2x2 floor", (3, 3, 15, 15), 2, 2, 2, 2, 0, 0, False),
     ("C=7, ceil, rect window", (2, 7, 10, 13), 3, 2, 2, 3, 0, 1, True),
+]
+# K1/K3 at the edges of their plan (ops/pooling.py pool_plan): n*c not a
+# multiple of the planes a block (25792 planes of 7x7, 24 a block: 98-byte
+# bf16 planes start off 16 bytes); 13x11 planes (286 bytes in bf16) two a
+# block; an input at element 1 of a larger tensor (dy and the codes too in
+# phase 2b); planes over the shared-memory budget, so bands of rows run,
+# at each fixed window and the generic one (n*c 1056: bands by the budget;
+# n*c 6: one-row bands to fill the card); ResNet's stem (3x3/2, pad 1) and
+# 2x2/2 pools on whole planes and on VGG's 224x224 ones.  (name, shape, kh, kw, sh, sw, ph, pw, ceil, at element
+# 1 of a larger tensor)
+POOL_EDGES = [
+    ("7x7, planes not a multiple", (31, 832, 7, 7), 3, 3, 1, 1, 1, 1, False,
+     False),
+    ("13x11, two planes a block", (4, 600, 13, 11), 3, 3, 2, 2, 0, 0, True,
+     False),
+    ("base off 16 bytes", (4, 96, 28, 28), 3, 3, 1, 1, 1, 1, False, True),
+    ("base off 16 bytes, 7x7", (31, 832, 7, 7), 3, 3, 2, 2, 0, 0, True,
+     True),
+    ("224x224 bands, 3x3/2", (8, 132, 224, 224), 3, 3, 2, 2, 0, 0, True,
+     False),
+    ("224x224 bands, 3x3/1", (8, 132, 224, 224), 3, 3, 1, 1, 1, 1, False,
+     False),
+    ("224x224 bands, 2x2/2 (VGG)", (8, 132, 224, 224), 2, 2, 2, 2, 0, 0,
+     False, False),
+    ("224x224 bands, generic 3x2/(2,3)", (8, 132, 224, 224), 3, 2, 2, 3, 0,
+     1, True, False),
+    ("one-row bands, 3x3/2", (2, 3, 224, 224), 3, 3, 2, 2, 0, 0, True, True),
+    ("one-row bands, 3x3/1", (2, 3, 224, 224), 3, 3, 1, 1, 1, 1, False,
+     False),
+    ("one-row bands, 2x2/2", (2, 3, 224, 224), 2, 2, 2, 2, 0, 0, False,
+     False),
+    ("one-row bands, generic 3x3/3", (2, 3, 224, 224), 3, 3, 3, 3, 1, 1,
+     True, False),
+    ("ResNet stem 3x3/2 pad 1", (32, 64, 112, 112), 3, 3, 2, 2, 1, 1, False,
+     False),
+    ("2x2/2, whole planes", (32, 64, 56, 56), 2, 2, 2, 2, 0, 0, False,
+     False),
+    ("generic 2x3/(1,2), planes a block", (16, 256, 14, 14), 2, 3, 1, 2, 1,
+     1, True, False),
+]
+# K3 through autograd with a strided gradient (every other column of a
+# wider tensor): (name, shape, kh, kw, sh, sw, ph, pw, ceil)
+POOL_STRIDED_DY = [
+    ("pool2/3x3_s2", (8, 192, 56, 56), 3, 3, 2, 2, 0, 0, True),
+    ("inception_4a/pool", (8, 480, 14, 14), 3, 3, 1, 1, 1, 1, False),
 ]
 # (name, shape, size, alpha, beta, k) of the 2 LRN layers, then ragged
 LRNS = [
@@ -664,12 +719,69 @@ def median_ms(fn, device, reps=TIMING_REPS, flush=None):
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
-def _pool_input(shape, dtype, device, gen, ties):
+def _pool_input(shape, dtype, device, gen, ties, offset=False):
+    """A seeded pool input; with ``offset``, a contiguous view at element 1
+    of a larger tensor (its base off 16 bytes)."""
     import torch
     if ties:
         x = torch.randint(-3, 4, shape, generator=gen, device=device)
-        return x.to(dtype)
-    return torch.randn(shape, generator=gen, device=device).to(dtype)
+    else:
+        x = torch.randn(shape, generator=gen, device=device)
+    return _offset_copy(x.to(dtype)) if offset else x.to(dtype)
+
+
+def _offset_copy(t):
+    """A copy of ``t`` as a contiguous view at element 1 of a larger
+    tensor."""
+    import torch
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    big[1:].copy_(t.reshape(-1))
+    return big[1:].view(t.shape)
+
+
+def pool_cases():
+    """Phase 2's and 2b's pool cases: (name, shape, geometry, offset)."""
+    for case in POOLS + RAGGED_POOLS + POOL_EDGES:
+        name, shape = case[:2]
+        yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
+
+
+def pool_take(shape, geom, dtype, backward):
+    """The instantiation and plan K1 (or K3) takes at a case, as the
+    library names it and the wrapper plans it: (variant, plan, mode), mode
+    "whole planes" or "bands"; fails where the library's instantiation is
+    not the one ops/pooling.py pool_variant names."""
+    import torch
+    from bigdl_tpu_torch.ops import _build, pooling
+    kh, kw, sh, sw = geom[:4]
+    variant = pooling.POOL_VARIANTS[
+        _build.load().bigdl_max_pool2d_variant(kh, kw, sh, sw)]
+    if variant != pooling.pool_variant(kh, kw, sh, sw):
+        fail(f"max pool {geom}: the library takes {variant}, "
+             f"pool_variant names {pooling.pool_variant(kh, kw, sh, sw)}")
+    n, c, h, w = shape
+    plan = pooling.pool_plan(
+        n, c, h, w, geom, dtype, backward=backward,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    return variant, plan, "bands" if plan.bands > 1 else "whole planes"
+
+
+def fmt_plan(plan):
+    return (f"{plan.planes} planes x {plan.rows} rows a block, "
+            f"{plan.bands} bands, {plan.blocks} blocks of {plan.threads} "
+            f"threads, {plan.smem} B shared")
+
+
+def pool_coverage(what, seen, ragged_groups):
+    """Fail unless every instantiation ran both whole planes and bands, and
+    some case's n*c was not a multiple of its planes a block."""
+    from bigdl_tpu_torch.ops.pooling import POOL_VARIANTS
+    missing = [f"{v} {m}" for v in POOL_VARIANTS
+               for m in ("whole planes", "bands") if (v, m) not in seen]
+    if missing:
+        fail(f"{what}: untested instantiations and paths: {missing}")
+    if not ragged_groups:
+        fail(f"{what}: no case had n*c off a multiple of its planes a block")
 
 
 def check_kernels(device):
@@ -683,11 +795,17 @@ def check_kernels(device):
     errs = {"max_pool2d_fwd": 0.0, "lrn_fwd": 0.0}
     cases = {"max_pool2d_fwd": 0, "lrn_fwd": 0}
     misses = {"max_pool2d_fwd": 0, "lrn_fwd": 0}
+    seen, ragged_groups = set(), 0
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS + RAGGED_POOLS:
+        for name, shape, geom, offset in pool_cases():
+            variant, plan, mode = pool_take(shape, geom, dtype, False)
+            seen.add((variant, mode))
+            ragged_groups += shape[0] * shape[1] % plan.planes != 0
+            log(f"max_pool2d {name} {tuple(shape)} {dtype}"
+                f"{', base off 16 bytes' if offset else ''}: {variant}, "
+                f"{mode}, {fmt_plan(plan)}")
             for ties in (False, True):
-                x = _pool_input(shape, dtype, device, gen, ties)
-                geom = (kh, kw, sh, sw, ph, pw, ceil)
+                x = _pool_input(shape, dtype, device, gen, ties, offset)
                 yk, ik = max_pool2d(x, *geom, return_indices=True)
                 yk_noidx = max_pool2d(x, *geom)
                 if device.type == "cuda":
@@ -699,11 +817,14 @@ def check_kernels(device):
                 if dtype == torch.float32:
                     errs["max_pool2d_fwd"] = max(errs["max_pool2d_fwd"], err)
                 cases["max_pool2d_fwd"] += 1
-                if err != 0.0 or bad:
+                if not (torch.equal(yk, yp) and torch.equal(yk_noidx, yp)) \
+                        or bad:
                     misses["max_pool2d_fwd"] += 1
                     fail(f"max_pool2d {name} {tuple(shape)} {dtype} "
                          f"ties={ties}: not bit-equal to the plain version "
                          f"(max |dy| {err}, {bad} idx differ)")
+    pool_coverage("max_pool2d (phase 2)", seen, ragged_groups)
+    for dtype in (torch.float32, torch.bfloat16):
         for name, shape, size, alpha, beta, k in LRNS + RAGGED_LRNS:
             x = torch.randn(shape, generator=gen, device=device).to(dtype)
             yk, sk = cross_map_lrn(x, size, alpha, beta, k,
@@ -726,7 +847,8 @@ def check_kernels(device):
                     errs["lrn_fwd"] = max(errs["lrn_fwd"], err)
             cases["lrn_fwd"] += 1
     log(f"kernels vs plain: max_pool2d_fwd bit-equal in "
-        f"{cases['max_pool2d_fwd']} cases; lrn_fwd within tolerance in "
+        f"{cases['max_pool2d_fwd']} cases (every instantiation on whole "
+        f"planes and on bands); lrn_fwd within tolerance in "
         f"{cases['lrn_fwd']} cases (f32 max |err| {errs['lrn_fwd']:.3g})")
     return errs, cases, misses
 
@@ -742,33 +864,67 @@ def check_backward_kernels(device):
     import bigdl_tpu_torch.nn as tnn
     from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      max_pool2d, max_pool2d_bwd,
-                                     max_pool2d_bwd_plain)
+                                     max_pool2d_bwd_plain, max_pool2d_plain)
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     errs = {"max_pool2d_bwd": 0.0, "lrn_bwd": 0.0}
     cases = {"max_pool2d_bwd": 0, "lrn_bwd": 0}
     misses = {"max_pool2d_bwd": 0, "lrn_bwd": 0}
+    seen, ragged_groups = set(), 0
+
+    def held(what, dx, want, dtype):
+        err = (dx.float() - want.float()).abs().max().item()
+        cases["max_pool2d_bwd"] += 1
+        if dtype == torch.float32:
+            errs["max_pool2d_bwd"] = max(errs["max_pool2d_bwd"], err)
+        if dx.dtype != dtype or not torch.equal(dx, want):
+            misses["max_pool2d_bwd"] += 1
+            fail(f"max_pool2d_bwd {what}: not bit-equal to the plain "
+                 f"version (max |ddx| {err})")
+
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS + RAGGED_POOLS:
+        for name, shape, geom, offset in pool_cases():
+            variant, plan, mode = pool_take(shape, geom, dtype, True)
+            seen.add((variant, mode))
+            ragged_groups += shape[0] * shape[1] % plan.planes != 0
+            log(f"max_pool2d_bwd {name} {tuple(shape)} {dtype}"
+                f"{', dy and codes off 16 bytes' if offset else ''}: "
+                f"{variant}, {mode}, {fmt_plan(plan)}")
             for ties in (False, True):
                 x = _pool_input(shape, dtype, device, gen, ties)
-                geom = (kh, kw, sh, sw, ph, pw, ceil)
                 _, idx = max_pool2d(x, *geom, return_indices=True)
                 dy = torch.randn(tuple(idx.shape), generator=gen,
                                  device=device).to(dtype)
+                if offset:
+                    dy, idx = _offset_copy(dy), _offset_copy(idx)
                 dx = max_pool2d_bwd(dy, idx, geom, shape[2], shape[3])
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 want = max_pool2d_bwd_plain(dy, idx, geom, shape[2],
                                             shape[3])
-                err = (dx.float() - want.float()).abs().max().item()
-                cases["max_pool2d_bwd"] += 1
-                if dtype == torch.float32:
-                    errs["max_pool2d_bwd"] = max(errs["max_pool2d_bwd"], err)
-                if dx.dtype != dtype or not torch.equal(dx, want):
-                    misses["max_pool2d_bwd"] += 1
-                    fail(f"max_pool2d_bwd {name} {tuple(shape)} {dtype} "
-                         f"ties={ties}: not bit-equal to the plain version "
-                         f"(max |ddx| {err})")
+                held(f"{name} {tuple(shape)} {dtype} ties={ties}", dx, want,
+                     dtype)
+        # through autograd with a strided gradient: the wrapper makes dy
+        # contiguous before K3
+        for name, shape, *geom in POOL_STRIDED_DY:
+            geom = tuple(geom)
+            x = _pool_input(shape, dtype, device, gen, False)
+            xr = x.clone().requires_grad_()
+            y = tnn_pool(tnn, geom).training_()(xr)
+            wide = torch.randn(y.shape[:3] + (2 * y.shape[3],),
+                               generator=gen, device=device).to(dtype)
+            g = wide[..., ::2]
+            if g.is_contiguous():
+                fail("the strided gradient is contiguous")
+            y.backward(g)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            _, idx = max_pool2d_plain(x, *geom)
+            want = max_pool2d_bwd_plain(g.contiguous(), idx, geom, shape[2],
+                                        shape[3])
+            held(f"{name} {tuple(shape)} {dtype} through autograd with a "
+                 "strided dy", xr.grad, want, dtype)
+    pool_coverage("max_pool2d_bwd (phase 2b)", seen, ragged_groups)
+    for dtype in (torch.float32, torch.bfloat16):
         for name, shape, size, alpha, beta, k in LRNS + RAGGED_LRNS:
             x = torch.randn(shape, generator=gen, device=device).to(dtype)
             dy = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -815,10 +971,19 @@ def check_backward_kernels(device):
             fail(f"{type(layer).__name__} backward on the card vs the CPU: "
                  f"max |err| {err}")
     log(f"backward kernels vs plain: max_pool2d_bwd bit-equal in "
-        f"{cases['max_pool2d_bwd']} cases; lrn_bwd within tolerance in "
-        f"{cases['lrn_bwd']} cases (f32 max |err| {errs['lrn_bwd']:.3g}); "
-        "autograd round trip card vs CPU held for both layers")
+        f"{cases['max_pool2d_bwd']} cases (every instantiation on whole "
+        f"planes and on bands, strided dy through autograd); lrn_bwd within "
+        f"tolerance in {cases['lrn_bwd']} cases (f32 max |err| "
+        f"{errs['lrn_bwd']:.3g}); autograd round trip card vs CPU held for "
+        "both layers")
     return errs, cases, misses
+
+
+def tnn_pool(tnn, geom):
+    """``nn.SpatialMaxPooling`` of a phase-2b geometry."""
+    kh, kw, sh, sw, ph, pw, ceil = geom
+    layer = tnn.SpatialMaxPooling(kw, kh, sw, sh, pw, ph)
+    return layer.ceil() if ceil else layer
 
 
 # -- phase 2c: the quantized matmuls against their plain versions -------------
@@ -2797,35 +2962,105 @@ def time_forwards(clf, device):
     return out
 
 
-def time_kernels(device):
-    """Per kernel, summed over one batch-32 forward's calls: median kernel
-    time, bound, plain version, library call."""
+def time_pool_layers(device, dtype, backward, plain=True, library=True):
+    """K1 or (``backward``) K3 at each Inception-v1 pool layer at batch 32:
+    per layer its CUDA-event median (L2 flushed) and torch.profiler device
+    time, its bytes bound, the plain version's time and the library call's
+    (events and device time; ``plain`` and ``library`` False leave those
+    out).  K1 writes its index in bfloat16, as
+    training calls it, and not in float32, as serving does; the library
+    calls are ``F.max_pool2d`` (with indices in bfloat16) and ATen's
+    ``max_pool2d_with_indices_backward``."""
     import torch
     import torch.nn.functional as F
-    from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_plain, max_pool2d,
-                                     max_pool2d_plain, pool_geometry)
+    from bigdl_tpu_torch.ops import (max_pool2d, max_pool2d_bwd,
+                                     max_pool2d_bwd_plain, max_pool2d_plain)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    with_idx = dtype == torch.bfloat16
+    size = torch.empty((), dtype=dtype).element_size()
+    rows = []
+    for name, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS:
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        geom = (kh, kw, sh, sw, ph, pw, ceil)
+        _, idx = max_pool2d(x, *geom, return_indices=True)
+        y64, idx64 = F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
+                                  ceil_mode=ceil, return_indices=True)
+        if y64.shape != idx.shape:
+            fail(f"F.max_pool2d gives {tuple(y64.shape)} windows, the port "
+                 f"{tuple(idx.shape)}: no library yardstick")
+        if backward:
+            dy = torch.randn(tuple(idx.shape), generator=gen,
+                             device=device).to(dtype)
+            nbytes = (size + 1) * idx.numel() + size * x.numel()
+            kern = lambda: max_pool2d_bwd(dy, idx, geom, shape[2], shape[3])
+            ref = lambda: max_pool2d_bwd_plain(dy, idx, geom, shape[2],
+                                               shape[3])
+            lib = lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dy, x, [kh, kw], [sh, sw], [ph, pw], [1, 1], ceil, idx64)
+        else:
+            nbytes = size * (x.numel() + idx.numel()) + \
+                (idx.numel() if with_idx else 0)
+            kern = lambda: max_pool2d(x, *geom, return_indices=with_idx)
+            ref = lambda: max_pool2d_plain(x, *geom)
+            lib = lambda: F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
+                                       ceil_mode=ceil,
+                                       return_indices=with_idx)
+        nops = idx.numel() * kh * kw
+        rows.append({
+            "layer": name, "shape": list(shape),
+            "ms": median_ms(kern, device, flush=flush),
+            "device_ms": device_ms(kern, flush),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  nops / F32_FLOPS),
+            "plain_ms": median_ms(ref, device, flush=flush) if plain
+            else None,
+            "library_ms": median_ms(lib, device, flush=flush) if library
+            else None,
+            "library_device_ms": device_ms(lib, flush) if library
+            else None})
+    return rows
+
+
+def pool_sums(rows):
+    """A kernel's entry from :func:`time_pool_layers`' rows: each time
+    summed over the layers (None where a layer's was not measured), and
+    the rows themselves."""
+    out = {"bound_by": "bytes", "per_layer": rows}
+    for key in ("ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
+                "library_device_ms"):
+        vals = [r[key] for r in rows]
+        out[key] = None if None in vals else sum(vals)
+    return out
+
+
+def log_pool_times(card, what, t):
+    """Phase 4's K1/K3 lines: per pool layer, then summed."""
+    for r in t["per_layer"]:
+        log(f"[{card}] {what} {r['layer']} {tuple(r['shape'])}: "
+            f"{r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])}, bound "
+            f"{r['bound_ms']:.4f} ms (bytes), plain {fmt_ms(r['plain_ms'])}"
+            f", library {r['library_ms']:.4f} ms, device "
+            f"{fmt_ms(r['library_device_ms'])}")
+    log(f"[{card}] {what}, summed over the {len(t['per_layer'])} pools: "
+        f"{t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, bound "
+        f"{t['bound_ms']:.4f} ms (bytes), plain {fmt_ms(t['plain_ms'])}, "
+        f"library {t['library_ms']:.4f} ms, device "
+        f"{fmt_ms(t['library_device_ms'])}")
+
+
+def time_kernels(device):
+    """Per kernel, summed over one batch-32 f32 serving forward's calls:
+    median kernel time, bound, plain version, library call; K1 per pool
+    layer too (:func:`time_pool_layers`)."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import cross_map_lrn, lrn_plain
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device) \
         if device.type == "cuda" else None
-    out = {}
-    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for _, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS:
-        x = torch.randn(shape, generator=gen, device=device)
-        n, c, h, w = shape
-        oh, ow, _, _ = pool_geometry(h, w, kh, kw, sh, sw, ph, pw, ceil)
-        nbytes = 4 * (x.numel() + n * c * oh * ow)
-        nops = n * c * oh * ow * kh * kw
-        t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                   nops / F32_FLOPS)
-        geom = (kh, kw, sh, sw, ph, pw, ceil)
-        t["ms"] += median_ms(lambda: max_pool2d(x, *geom), device,
-                             flush=flush)
-        t["plain_ms"] += median_ms(lambda: max_pool2d_plain(x, *geom),
-                                   device, flush=flush)
-        t["library_ms"] += median_ms(
-            lambda: F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
-                                 ceil_mode=ceil), device, flush=flush)
-    out["max_pool2d_fwd"] = dict(t, bound_by="bytes")
+    out = {"max_pool2d_fwd": pool_sums(
+        time_pool_layers(device, torch.float32, False))}
     t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for _, shape, size, alpha, beta, k in LRNS:
         x = torch.randn(shape, generator=gen, device=device)
@@ -2846,21 +3081,22 @@ def time_kernels(device):
 
 def time_train_kernels(device):
     """Per kernel, summed over one training step's calls at batch 32 in
-    bf16: K1 with the index write, K2 with the scale write, K3 and K4;
-    median kernel time, bound, plain version, library call."""
+    bf16: K1 with the index write and K3 (per pool layer too), K2 with the
+    scale write and K4; median kernel time, bound, plain version, library
+    call."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
-                                     lrn_plain, max_pool2d, max_pool2d_bwd,
-                                     max_pool2d_bwd_plain, max_pool2d_plain)
+                                     lrn_plain)
     bf16 = torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device) \
         if device.type == "cuda" else None
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "bound_by": "bytes"}
-           for k in ("max_pool2d_fwd", "lrn_fwd", "max_pool2d_bwd",
-                     "lrn_bwd")}
+           for k in ("lrn_fwd", "lrn_bwd")}
+    out["max_pool2d_fwd"] = pool_sums(time_pool_layers(device, bf16, False))
+    out["max_pool2d_bwd"] = pool_sums(time_pool_layers(device, bf16, True))
 
     def add(name, nbytes, nops, kern, plain, lib):
         t = out[name]
@@ -2870,28 +3106,6 @@ def time_train_kernels(device):
         t["plain_ms"] += median_ms(plain, device, flush=flush)
         t["library_ms"] += median_ms(lib, device, flush=flush)
 
-    for _, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS:
-        x = torch.randn(shape, generator=gen, device=device).to(bf16)
-        geom = (kh, kw, sh, sw, ph, pw, ceil)
-        _, idx = max_pool2d(x, *geom, return_indices=True)
-        dy = torch.randn(tuple(idx.shape), generator=gen,
-                         device=device).to(bf16)
-        y64, idx64 = F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
-                                  ceil_mode=ceil, return_indices=True)
-        if y64.shape != idx.shape:
-            fail(f"F.max_pool2d gives {tuple(y64.shape)} windows, the port "
-                 f"{tuple(idx.shape)}: no library yardstick")
-        nwin = idx.numel() * kh * kw
-        add("max_pool2d_fwd", 2 * x.numel() + 3 * idx.numel(), nwin,
-            lambda: max_pool2d(x, *geom, return_indices=True),
-            lambda: max_pool2d_plain(x, *geom),
-            lambda: F.max_pool2d(x, (kh, kw), (sh, sw), (ph, pw),
-                                 ceil_mode=ceil, return_indices=True))
-        add("max_pool2d_bwd", 3 * idx.numel() + 2 * x.numel(), nwin,
-            lambda: max_pool2d_bwd(dy, idx, geom, shape[2], shape[3]),
-            lambda: max_pool2d_bwd_plain(dy, idx, geom, shape[2], shape[3]),
-            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                dy, x, [kh, kw], [sh, sw], [ph, pw], [1, 1], ceil, idx64))
     for _, shape, size, alpha, beta, k in LRNS:
         x = torch.randn(shape, generator=gen, device=device).to(bf16)
         dy = torch.randn(shape, generator=gen, device=device).to(bf16)
@@ -4007,6 +4221,12 @@ def main() -> int:
     codec_report["kernel_times"] = codec_times
     log("fp16 codec: " + json.dumps(codec_report))
     log("transformer LM training: " + json.dumps(long_report))
+    log_pool_times(card, "max_pool2d_fwd (f32, no index, serving)",
+                   times["max_pool2d_fwd"])
+    log_pool_times(card, "max_pool2d_fwd (bf16 with index, training)",
+                   train_times["max_pool2d_fwd"])
+    log_pool_times(card, "max_pool2d_bwd (bf16, training)",
+                   train_times["max_pool2d_bwd"])
     for where, tt in (("serving shapes, f32", times),
                       ("training shapes, bf16", train_times)):
         for name, t in tt.items():
@@ -4028,6 +4248,9 @@ def main() -> int:
                  "cases": cases[name], "mismatches": misses[name]}
         if name in times:        # forward kernels: serving shapes, f32
             entry.update({key: times[name][key] for key in TIME_KEYS})
+            if "device_ms" in times[name]:
+                entry.update({key: times[name][key] for key in (
+                    "device_ms", "library_device_ms", "per_layer")})
             entry["train"] = dict(train_times[name], dtype="bfloat16")
         elif wrapper in ("attention_fwd", "attention_stream_fwd"):
             # per call at the LM path's shape, bf16 (K9: the padded LM)
@@ -4090,6 +4313,9 @@ def main() -> int:
                 entry["buckets"] = qtimes[name]["buckets"]
         else:
             entry.update({key: train_times[name][key] for key in TIME_KEYS})
+            if "device_ms" in train_times[name]:
+                entry.update({key: train_times[name][key] for key in (
+                    "device_ms", "library_device_ms", "per_layer")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ jax nor ``bigdl_tpu``, so they also run where only PyTorch is installed:
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda --noconftest
 
 Tolerances: max-pool forward and backward are bit-equal (values and uint8
-argmax codes; the backward sums in the plain version's order); the LRN
+argmax codes; the backward sums in the plain version's order), also at the
+edges of their plan (bases off 16 bytes, bands of rows, many planes a
+block); the LRN
 forward within rtol 1e-5 / atol 1e-6 in float32 and rtol 2e-2 / atol 1e-2
 in bfloat16, the LRN backward within rtol 1e-5 / atol 1e-5 and rtol 2e-2 /
 atol 2e-2, where the plain version rounds to bfloat16 at every step.  The
@@ -125,6 +127,56 @@ def test_max_pool_bwd_kernel_is_bit_equal_to_plain(cuda_device, dtype, geom):
     xr = x.clone().requires_grad_()
     max_pool2d(xr, *geom).backward(dy)
     assert torch.equal(xr.grad, want)
+
+
+def _offset(t):
+    """t as a contiguous view at element 1 of a larger tensor (its base off
+    16 bytes)."""
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    big[1:].copy_(t.reshape(-1))
+    return big[1:].view(t.shape)
+
+
+# K1 and K3 at the edges of their plan: bases off 16 bytes (x, dy and the
+# codes), planes over the shared-memory budget (bands of rows, at a fixed
+# window and the generic one), many 7x7 planes a block with n*c not a
+# multiple of them
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    ("offset", (4, 96, 28, 28), (3, 3, 1, 1, 1, 1, False), True),
+    ("offset-7x7", (31, 832, 7, 7), (3, 3, 2, 2, 0, 0, True), True),
+    ("bands", (2, 64, 224, 224), (3, 3, 2, 2, 0, 0, True), False),
+    ("bands-generic", (2, 64, 224, 224), (3, 2, 2, 3, 0, 1, True), False),
+    ("planes-a-block", (31, 832, 7, 7), (3, 3, 1, 1, 1, 1, False), False),
+], ids=lambda c: c[0])
+def test_max_pool_kernels_hold_at_the_plan_edges(cuda_device, dtype, case):
+    from bigdl_tpu_torch.ops import pooling
+    _, shape, geom, offset = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dt)
+    if offset:
+        x = _offset(x)
+    plans = [pooling.pool_plan(*shape, geom, dt, backward=b,
+                               sms=torch.cuda.get_device_properties(0)
+                               .multi_processor_count) for b in (False, True)]
+    if case[0].startswith("bands"):
+        assert all(p.bands > 1 for p in plans)
+    if case[0] == "planes-a-block":
+        assert all(p.planes > 1 and shape[0] * shape[1] % p.planes
+                   for p in plans)
+    y, idx = max_pool2d(x, *geom, return_indices=True)
+    torch.cuda.synchronize()
+    py, pidx = max_pool2d_plain(x, *geom)
+    assert torch.equal(y, py) and torch.equal(idx, pidx)
+    dy = torch.randn(tuple(idx.shape), generator=g,
+                     device=cuda_device).to(dt)
+    if offset:
+        dy, idx = _offset(dy), _offset(idx)
+    dx = max_pool2d_bwd(dy, idx, geom, shape[2], shape[3])
+    torch.cuda.synchronize()
+    assert torch.equal(dx, max_pool2d_bwd_plain(dy, idx, geom, shape[2],
+                                                shape[3]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -22,6 +22,7 @@ from bigdl_tpu.ops import pooling as jpool
 from bigdl_tpu_torch.ops import (_build, cross_map_lrn, lrn_bwd_plain,
                                  lrn_plain, max_pool2d, max_pool2d_bwd_plain,
                                  max_pool2d_plain, pool_geometry)
+from bigdl_tpu_torch.ops import pooling
 from bigdl_tpu_torch.ops.pooling import _pool_out_size
 
 # the suite runs several pytest workers on one host: keep torch from
@@ -97,6 +98,169 @@ def test_pool_geometry_matches_reference(ih, k, s, p, ceil):
     assert _pool_out_size(ih, k, s, p, ceil) == j_out(ih, k, s, p, ceil)
     assert pool_geometry(ih, ih + 1, k, k, s, s, p, p, ceil) == \
         jpool.pool_geometry(ih, ih + 1, k, k, s, s, p, p, ceil)
+
+
+# (name, input shape at batch 32, kh, kw, sh, sw, ph, pw, ceil) of
+# Inception-v1's 13 max pools
+INCEPTION_POOLS = [
+    ("pool1/3x3_s2", (32, 64, 112, 112), 3, 3, 2, 2, 0, 0, True),
+    ("pool2/3x3_s2", (32, 192, 56, 56), 3, 3, 2, 2, 0, 0, True),
+    ("inception_3a/pool", (32, 192, 28, 28), 3, 3, 1, 1, 1, 1, False),
+    ("inception_3b/pool", (32, 256, 28, 28), 3, 3, 1, 1, 1, 1, False),
+    ("pool3/3x3_s2", (32, 480, 28, 28), 3, 3, 2, 2, 0, 0, True),
+    ("inception_4a/pool", (32, 480, 14, 14), 3, 3, 1, 1, 1, 1, False),
+    ("inception_4b/pool", (32, 512, 14, 14), 3, 3, 1, 1, 1, 1, False),
+    ("inception_4c/pool", (32, 512, 14, 14), 3, 3, 1, 1, 1, 1, False),
+    ("inception_4d/pool", (32, 512, 14, 14), 3, 3, 1, 1, 1, 1, False),
+    ("inception_4e/pool", (32, 528, 14, 14), 3, 3, 1, 1, 1, 1, False),
+    ("pool4/3x3_s2", (32, 832, 14, 14), 3, 3, 2, 2, 0, 0, True),
+    ("inception_5a/pool", (32, 832, 7, 7), 3, 3, 1, 1, 1, 1, False),
+    ("inception_5b/pool", (32, 832, 7, 7), 3, 3, 1, 1, 1, 1, False),
+]
+
+
+def _r16(nbytes):
+    return (nbytes + 15) // 16 * 16
+
+
+def _plan_blocks(plan, shape, geom, itemsize, backward):
+    """Each block of a K1 (or K3) launch as csrc/max_pool.cu computes it:
+    (first plane, planes, first output row, rows, first staged row, staged
+    rows, shared bytes its spans take).  K1: y rows and the input rows they
+    read; K3: dx rows and the window rows that reach them."""
+    n, c, h, w = shape
+    kh, kw, sh, sw, ph = geom[:5]
+    oh, ow, _, _ = pool_geometry(h, w, *geom)
+    planes = n * c
+    fixed = pooling.pool_variant(kh, kw, sh, sw) != "generic"
+    for x in range(-(-planes // plan.planes)):
+        g0 = x * plan.planes
+        gn = min(plan.planes, planes - g0)
+        for band in range(plan.bands):
+            if backward:
+                iy0, r, lo, hi = 0, h, 0, oh - 1
+                if plan.bands > 1:
+                    iy0 = band * plan.rows
+                    r = min(plan.rows, h - iy0)
+                    top = iy0 + ph - kh + 1
+                    lo = -(-top // sh) if top > 0 else 0
+                    hi = min(oh - 1, (iy0 + r - 1 + ph) // sh)
+                nwin = max(0, hi - lo + 1)
+                used = (_r16(16 + gn * nwin * ow * itemsize) +
+                        _r16(16 + gn * nwin * ow) +
+                        _r16(16 + gn * r * w * itemsize) +
+                        (0 if fixed else 8 * (r + w)))
+                yield g0, gn, iy0, r, lo, nwin, used
+            else:
+                oy0, r, ir0, ir1 = 0, oh, 0, h
+                if plan.bands > 1:
+                    oy0 = band * plan.rows
+                    r = min(plan.rows, oh - oy0)
+                    ir0 = max(0, oy0 * sh - ph)
+                    ir1 = min(h, (oy0 + r - 1) * sh - ph + kh)
+                used = (_r16(16 + gn * (ir1 - ir0) * w * itemsize) +
+                        _r16(16 + gn * r * ow * itemsize) +
+                        _r16(16 + gn * r * ow))
+                yield g0, gn, oy0, r, ir0, ir1 - ir0, used
+
+
+def _hold_plan(shape, geom, dtype, backward, sms=132):
+    """pool_plan at one case: every plane (or band) covered once, the halo
+    right (a band stages exactly the rows its windows read, or the windows
+    that reach its rows), shared memory within the limit with two blocks
+    an SM, a thread count the kernels take."""
+    n, c, h, w = shape
+    kh, sh, ph = geom[0], geom[2], geom[4]
+    oh = pool_geometry(h, w, *geom)[0]
+    size = torch.empty((), dtype=dtype).element_size()
+    plan = pooling.pool_plan(n, c, h, w, geom, dtype, backward=backward,
+                             sms=sms)
+    full = h if backward else oh
+    assert plan.bands == -(-full // plan.rows)
+    assert plan.bands == 1 or plan.planes == 1
+    assert 64 <= plan.threads <= 256 and plan.threads % 32 == 0
+    assert plan.smem <= pooling.POOL_SMEM_LIMIT
+    # two blocks fit on an SM of 228 KB, 1 KB of it each block's own
+    assert 2 * (plan.smem + 1024) <= 233472
+    covered = np.zeros((n * c, full), dtype=np.int64)
+    blocks = 0
+    for g0, gn, r0, r, s0, sn, used in _plan_blocks(plan, shape, geom, size,
+                                                    backward):
+        blocks += 1
+        assert used <= plan.smem
+        covered[g0:g0 + gn, r0:r0 + r] += 1
+        if backward:     # the windows that reach dx rows [r0, r0 + r)
+            need = {oy for oy in range(oh) for p in range(kh)
+                    if r0 <= oy * sh + p - ph < r0 + r}
+        else:            # the input rows y rows [r0, r0 + r) read
+            need = {oy * sh - ph + p for oy in range(r0, r0 + r)
+                    for p in range(kh) if 0 <= oy * sh - ph + p < h}
+        if plan.bands == 1:
+            assert (s0, sn) == (0, oh if backward else h)
+        else:
+            want = (min(need), len(need)) if need else (s0, 0)
+            assert (s0, sn) == want
+            assert need == set(range(s0, s0 + sn))
+    assert (covered == 1).all()
+    assert blocks == plan.blocks
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("batch", [8, 32])
+@pytest.mark.parametrize("pool", INCEPTION_POOLS,
+                         ids=[p[0] for p in INCEPTION_POOLS])
+def test_pool_plan_holds_at_the_inception_pools(pool, batch, dtype):
+    shape = (batch,) + pool[1][1:]
+    geom = pool[2:]
+    for backward in (False, True):
+        plan = _hold_plan(shape, tuple(geom), dtype, backward)
+        # enough blocks to fill the card: the plan's aim on 132 SMs
+        assert plan.blocks >= pooling.POOL_BLOCKS_PER_SM * 132
+        # within the budget, as the path's pools all fit it
+        assert plan.smem <= pooling.POOL_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", [
+    ("one element", (1, 1, 1, 1), (1, 1, 1, 1, 0, 0, False)),
+    ("one element, 3x3 pad 1", (2, 3, 1, 1), (3, 3, 1, 1, 1, 1, False)),
+    ("over the budget", (2, 64, 224, 224), (3, 3, 2, 2, 0, 0, True)),
+    ("over the budget, 2x2/2", (8, 132, 224, 224), (2, 2, 2, 2, 0, 0,
+                                                    False)),
+    ("over the budget, generic", (8, 132, 224, 224), (3, 2, 2, 3, 0, 1,
+                                                      True)),
+    ("n*c prime", (1, 2113, 7, 7), (3, 3, 1, 1, 1, 1, False)),
+    ("n*c prime, 13x11", (1, 4099, 13, 11), (3, 3, 2, 2, 0, 0, True)),
+    ("stride past the window", (2, 5, 17, 19), (2, 2, 3, 3, 1, 1, True)),
+], ids=lambda c: c[0].replace(" ", "-"))
+def test_pool_plan_holds_at_its_edges(case, dtype):
+    name, shape, geom = case
+    size = torch.empty((), dtype=dtype).element_size()
+    for backward in (False, True):
+        plan = _hold_plan(shape, geom, dtype, backward)
+        full_smem = pooling.pool_smem(shape[2], shape[3], geom, size, 1,
+                                      shape[2] if backward else
+                                      pool_geometry(shape[2], shape[3],
+                                                    *geom)[0], backward)
+        if full_smem > pooling.POOL_SMEM_BUDGET:   # a plane over the budget
+            assert plan.bands > 1 and plan.smem <= pooling.POOL_SMEM_BUDGET
+        if name.startswith("n*c prime"):
+            assert plan.planes > 1 and shape[1] % plan.planes != 0
+
+
+def test_pool_plan_names_the_instantiations():
+    assert pooling.pool_variant(3, 3, 2, 2) == "3x3/2"
+    assert pooling.pool_variant(3, 3, 1, 1) == "3x3/1"
+    assert pooling.pool_variant(2, 2, 2, 2) == "2x2/2"
+    assert pooling.pool_variant(3, 2, 2, 3) == "generic"
+    assert pooling.pool_variant(3, 3, 3, 3) == "generic"
+    # a row too wide for one block's shared memory is refused, not cut
+    with pytest.raises(ValueError, match="shared memory"):
+        pooling.pool_plan(1, 1, 4, 40000, (3, 3, 1, 1, 1, 1, False),
+                          torch.float32)
 
 
 LRN_CASES = [
