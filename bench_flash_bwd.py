@@ -39,7 +39,8 @@ shape and K8 at the f32 LM scoring shape, ``bwd`` copies of
 ``flash_attention_bwd.cu`` (and ``ffma.cuh``) timing the f32 K10 and K11 at
 ``train_main``'s shape (FLASH_PATH's f32 case); CUDA events, the L2
 flushed.  The edits switch parts of the kernels off, to see where their
-time goes, or try other tile shapes; without an argument both run.
+time goes, or try other tile shapes; without an argument both run.  The
+machinery of copies, edits and A/B runs is ``bench_common.py``'s.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ import re
 import shutil
 import subprocess
 import sys
+
+import bench_common as bc
 
 CU = "bigdl_tpu_torch/csrc/flash_attention_bwd.cu"
 FWD_CU = "bigdl_tpu_torch/csrc/attention.cu"
@@ -126,18 +129,15 @@ print("RESULT " + json.dumps(res), flush=True)
 
 
 def cmd_ab(parent: str) -> int:
-    here = os.path.dirname(os.path.abspath(__file__))
-    rc = 0
-    for label, cwd in (("parent 1", parent), ("change 1", here),
-                       ("change 2", here), ("parent 2", parent)):
+    def run_one(label, cwd):
         r = subprocess.run([sys.executable, "-c", _AB_RUN, label], cwd=cwd,
                            capture_output=True, text=True)
         lines = [ln for ln in r.stdout.splitlines()
                  if ln.startswith("RESULT ")]
         print(lines[-1] if lines else f"{label}: rc {r.returncode}\n"
               f"{r.stderr[-3000:]}", flush=True)
-        rc = rc or r.returncode
-    return rc
+        return r.returncode
+    return bc.ab(parent, run_one)
 
 
 def _kernel_name(mangled: str) -> str:
@@ -235,55 +235,55 @@ def _with_t0(wgmma: str) -> str:
 # name: (the edits, the phase's check that must fail)
 MUTANTS = {
     # K9's online softmax without its rescale of l and acc (alpha = 1)
-    "k9_no_alpha_rescale": ([(FWD_CU, lambda s: s.replace(
+    "k9_no_alpha_rescale": ([(FWD_CU,
         "const float alpha = ex2((m[ri] - m_new) * kLog2e);",
-        "const float alpha = 1.0f;"))], "check_attention_kernels"),
+        "const float alpha = 1.0f;")], "check_attention_kernels"),
     # (the p·V product of K8/K9 is wgmma.cuh's `accumulate`)
     "k8_k9_v_kmajor": ([(WGMMA, _with_t0),
-                        (WGMMA, lambda s: s.replace(_PV, _PV_T0))],
+                        (WGMMA, _PV, _PV_T0)],
                        "check_attention_kernels"),
-    "k8_per_tile_max": ([(FWD_CU, lambda s: s.replace(
-        _K8_P2.format("", "m", ""), _K8_TILE_MAX))],
+    "k8_per_tile_max": ([(FWD_CU,
+        _K8_P2.format("", "m", ""), _K8_TILE_MAX)],
         "check_attention_kernels"),
     # the diagonal tile takes the unmasked path: no causal mask
-    "k11_no_diagonal_mask": ([(CU, lambda s: s.replace(
+    "k11_no_diagonal_mask": ([(CU,
         "    if ((p.causal && q0 < k0 + kTile - 1) || q0 + kTile > p.tq ||",
-        "    if (q0 + kTile > p.tq ||"))], "check_flash_kernels"),
+        "    if (q0 + kTile > p.tq ||")], "check_flash_kernels"),
     "k11_dv_transpose_bit": ([(WGMMA, _with_t0),
-                              (CU, lambda s: s.replace(_DV, _DV_T0))],
+                              (CU, _DV, _DV_T0)],
                              "check_flash_kernels"),
     # the f32 K11 sums dv from ds in place of p
-    "k11_f32_dv_from_ds": ([(CU, lambda s: s.replace(
+    "k11_f32_dv_from_ds": ([(CU,
         "outer<C, kInner>(acc, ps + ln.co, dot + ln.cc * C::kVec);",
-        "outer<C, kInner>(acc, dss + ln.co, dot + ln.cc * C::kVec);"))],
+        "outer<C, kInner>(acc, dss + ln.co, dot + ln.cc * C::kVec);")],
         "check_flash_kernels"),
     # the f32 K10 reads K and V from the ring stage one tile late (the
     # stage of tile it - 1, which the copies of tile it + 1 are filling)
-    "k10_f32_stage_late": ([(CU, lambda s: s.replace(
+    "k10_f32_stage_late": ([(CU,
         "    const float* kt = ks + s * C::kTileF;\n"
         "    const float* vt = vs + s * C::kTileF;",
         "    const float* kt = ks + (s ^ 1) * C::kTileF;\n"
-        "    const float* vt = vs + (s ^ 1) * C::kTileF;"))],
+        "    const float* vt = vs + (s ^ 1) * C::kTileF;")],
         "check_flash_kernels"),
     # the f32 K8/K9 read K and V from the ring a stage late (the stage the
     # copies of the next slot are filling)
-    "k8_k9_f32_stage_late": ([(FWD_CU, lambda s: s.replace(
+    "k8_k9_f32_stage_late": ([(FWD_CU,
         "    const float* kt = ks + st * C::kTileF;\n"
         "    const float* vt = vs + st * C::kTileF;",
         "    const float* kt = ks + (st + 1) % S * C::kTileF;\n"
-        "    const float* vt = vs + (st + 1) % S * C::kTileF;"))],
+        "    const float* vt = vs + (st + 1) % S * C::kTileF;")],
         "check_attention_kernels"),
     # the f32 K8's first pass leaves the last tile out of the row max
-    "k8_f32_pass1_skips_last_tile": ([(FWD_CU, lambda s: s.replace(
+    "k8_f32_pass1_skips_last_tile": ([(FWD_CU,
         "    if (!kStream && !second) {  // K8 pass 1: the row max over every "
         "key\n",
         "    if (!kStream && !second) {  // K8 pass 1: the row max over every "
-        "key\n      if (it == n_tiles - 1) continue;\n"))],
+        "key\n      if (it == n_tiles - 1) continue;\n")],
         "check_attention_kernels"),
     # the f32 K9's online softmax rescales l but not acc
-    "k9_f32_no_acc_rescale": ([(FWD_CU, lambda s: s.replace(
+    "k9_f32_no_acc_rescale": ([(FWD_CU,
         "for (int c = 0; c < C::kCc; ++c) acc[i][c] *= alpha;",
-        "for (int c = 0; c < C::kCc; ++c) acc[i][c] *= 1.0f;"))],
+        "for (int c = 0; c < C::kCc; ++c) acc[i][c] *= 1.0f;")],
         "check_attention_kernels"),
 }
 
@@ -296,18 +296,9 @@ def cmd_mutants(names) -> int:
     for name, (edits, check) in MUTANTS.items():
         if names and name not in names:
             continue
-        root = os.path.join("build", f"mutant_{name}")
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
-        shutil.copytree("bigdl_tpu_torch", f"{root}/bigdl_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        shutil.copy("chip_smoke.py", root)
-        for path, edit in edits:
-            text = open(f"{root}/{path}").read()
-            if edit(text) == text:
-                raise SystemExit(f"mutant {name}: {path} no longer holds "
-                                 "the text to break")
-            open(f"{root}/{path}", "w").write(edit(text))
+        root = bc.copy_port(os.path.join(bc.HERE, "build",
+                                         f"mutant_{name}"))
+        bc.apply_edits(root, edits, f"mutant {name}")
         r = subprocess.run(
             [sys.executable, "-c", "import torch, chip_smoke as cs; "
              f"cs.{check}(torch.device('cuda'))"],
@@ -335,7 +326,7 @@ ABLATIONS = {
         (CU, "    outer<C, kHalf>(acc,",
          "    " + _NEVER + "outer<C, kHalf>(acc,"),
         (CU, "    outer<C, kInner>(acc,",
-         "    " + _NEVER + "outer<C, kInner>(acc,")],
+         "    " + _NEVER + "outer<C, kInner>(acc,", 2)],
     # s and dp over the first 2 of D's columns only
     "scores over 2 columns": [
         (FFMA, "  for (int d = 0; d < C::kD; d += 2) {",
@@ -379,48 +370,12 @@ FWD_ABLATIONS = {
 
 
 def _build_copies(src: str, ablations, tag: str):
-    """Each ablation's edited copy of the sources under
-    ``build/ablate/<tag><n>/``, compiled from ``src`` into a library of its
-    own, all ``nvcc`` runs started together; {name: loaded library}."""
-    import ctypes
-    from bigdl_tpu_torch.ops import _build
-    csrc = os.path.dirname(CU)
-    roots = {}
-    for i, (name, edits) in enumerate(ablations.items()):
-        root = os.path.join("build", "ablate", f"{tag}{i}")
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
-        texts = {os.path.join(csrc, f): open(os.path.join(csrc, f)).read()
-                 for f in os.listdir(csrc) if f.endswith(".cuh")}
-        texts[src] = open(src).read()
-        for path, old, new in edits:
-            if old not in texts[path]:
-                raise SystemExit(f"ablation {name}: {path} no longer holds "
-                                 f"{old!r}")
-            texts[path] = texts[path].replace(old, new)
-        for path, text in texts.items():
-            out = "k.cu" if path == src else os.path.basename(path)
-            open(os.path.join(root, out), "w").write(text)
-        roots[name] = root
-    # every copy written (an edit that no longer applies stops the run
-    # before any nvcc starts), then all built at once
-    procs = {name: (root, subprocess.Popen(
-        [_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-shared", "-o",
-         f"{root}/k.so", f"{root}/k.cu"], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)) for name, root in roots.items()}
-    libs = {}
-    for name, (root, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"ablation {name}: nvcc failed\n{out[-3000:]}")
-        lib = ctypes.CDLL(os.path.abspath(f"{root}/k.so"))
-        for entry in ("bigdl_flash_bwd_dq", "bigdl_flash_bwd_dkv",
-                      "bigdl_attention_fwd", "bigdl_attention_stream_fwd"):
-            if hasattr(lib, entry):
-                getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
-                getattr(lib, entry).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    """Each ablation's edited copy of the sources, ``src`` compiled into a
+    library of its own under ``build/ablate/<tag>/`` (bench_common
+    build_libraries); {name: loaded library}."""
+    libs = bc.build_libraries(ablations, os.path.join(
+        bc.HERE, "build", "ablate", tag), [src])
+    return {name: bc.load_library(lib) for name, lib in libs.items()}
 
 
 def _in_turns(libs, timed) -> None:
@@ -506,13 +461,8 @@ def cmd_ablate(which: str) -> int:
 
 
 def main(argv) -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("bench_flash_bwd: CUDA is not available", file=sys.stderr)
+    if not bc.card_or_exit("bench_flash_bwd"):
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
     cmd = argv[0] if argv else ""
     if cmd == "ab" and len(argv) == 2:
         return cmd_ab(os.path.abspath(argv[1]))

@@ -27,9 +27,10 @@ time).  Each run writes its rows to ``<dir>/bench_maxpool_<label>.json``
 (``build/`` is not committed).
 ``mutants`` builds edited copies of ``csrc/max_pool.cu`` under
 ``build/maxpool_mutants/`` (K3 summing window rows in descending order, K1
-comparing with ``>=``, K1's band halo one row short, the misaligned head
-of a staged span skipped), each its own library beside ``lrn.cu``, and
-fails unless ``check_kernels`` (phase 2) or ``check_backward_kernels``
+comparing with ``>=``, K1's band halo one row short, a K1 tile's halo one
+column short, the misaligned head of a staged span skipped, K1 reading a
+window wholly past the plane), each its own library beside ``lrn.cu``,
+and fails unless ``check_kernels`` (phase 2) or ``check_backward_kernels``
 (phase 2b) fails on every one.
 ``ablate`` times K1 and K3 (device time, summed over the 13 pools) with a
 part of the kernels taken out (edited copies of ``max_pool.cu``, built in
@@ -37,7 +38,8 @@ parallel) or a setting of ``ops/pooling.py``'s plan changed (ABLATIONS,
 or those named, beside the kernels as they are).
 ``sass`` compiles ``max_pool.cu`` of this checkout (and of a parent) to a
 cubin and counts, per kernel, its SASS instructions and those of integer
-division (calls, ``MUFU.RCP`` sequences).
+division (calls, ``MUFU.RCP`` sequences).  The machinery of copies,
+edits and A/B runs is ``bench_common.py``'s.
 """
 
 from __future__ import annotations
@@ -45,12 +47,14 @@ from __future__ import annotations
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+import bench_common as bc
+
+HERE = bc.HERE
 POOL_CU = "bigdl_tpu_torch/csrc/max_pool.cu"
+LRN_CU = "bigdl_tpu_torch/csrc/lrn.cu"
 
 # one run of ``ab``: this checkout's chip_smoke against <checkout>'s
 # package; argv: label, checkout, this checkout, the output directory
@@ -108,9 +112,7 @@ with open(os.path.join(sys.argv[4], "bench_maxpool_" +
 
 
 def cmd_ab(parent: str, out: str) -> int:
-    rc = 0
-    for label, tree in (("parent 1", parent), ("change 1", HERE),
-                        ("change 2", HERE), ("parent 2", parent)):
+    def run_one(label, tree):
         r = subprocess.run([sys.executable, "-c", _RUN, label, tree, HERE,
                             out], cwd=tree, capture_output=True, text=True)
         lines = [ln for ln in r.stdout.splitlines()
@@ -119,84 +121,38 @@ def cmd_ab(parent: str, out: str) -> int:
               flush=True)
         if r.returncode:
             print(r.stderr[-3000:], flush=True)
-            rc = r.returncode
-    return rc
+        return r.returncode
+    return bc.ab(parent, run_one)
 
-
-def build_variants(edits_by_name, root, extra=()):
-    """Compile an edited copy of max_pool.cu per name ({name: [(text,
-    replacement)]}) beside ``extra`` sources compiled once, each into its
-    own library under ``root``, all nvcc processes at once; returns {name:
-    library path}."""
-    sys.path.insert(0, HERE)
-    from bigdl_tpu_torch.ops import _build
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    cc = [_build._nvcc(), *_build.ARCH, *_build.FLAGS]
-    csrc = os.path.join(HERE, "bigdl_tpu_torch", "csrc")
-    procs, shared = [], []
-    for src in extra:
-        obj = os.path.join(root, os.path.basename(src) + ".o")
-        shared.append(obj)
-        procs.append(subprocess.Popen(cc + ["-c", src, "-o", obj]))
-    libs = {}
-    for name, edits in edits_by_name.items():
-        d = os.path.join(root, re.sub(r"\W", "_", name))
-        shutil.copytree(csrc, d)
-        path = os.path.join(d, "max_pool.cu")
-        text = open(path).read()
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: max_pool.cu holds the text to "
-                                 f"change {text.count(old)} times, not once")
-            text = text.replace(old, new)
-        open(path, "w").write(text)
-        procs.append(subprocess.Popen(
-            cc + ["-c", path, "-o", os.path.join(d, "max_pool.o")]))
-        libs[name] = os.path.join(d, "lib.so")
-    if any(p.wait() for p in procs):
-        raise SystemExit("nvcc failed")
-    for name, lib in libs.items():
-        subprocess.run([_build._nvcc(), *_build.ARCH, "-shared", "-o", lib,
-                        os.path.join(os.path.dirname(lib), "max_pool.o"),
-                        *shared], check=True)
-    return libs
-
-
-# loads a library built by build_variants in place of the package's
-_USE_LIB = """
-import ctypes, os, sys
-sys.path.insert(0, os.getcwd())
-from bigdl_tpu_torch.ops import _build
-def use(path):
-    lib = ctypes.CDLL(os.path.abspath(path))
-    for fn, argtypes in _build._SIGNATURES.items():
-        if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-    _build._lib = lib
-"""
 
 # each copy must fail phase 2 or 2b
 MUTANTS = {
     "K3 sums window rows in descending order": [
-        ("for (int i = 0; i < NI; ++i) {  // window rows in ascending order",
+        (POOL_CU,
+         "for (int i = 0; i < NI; ++i) {  // window rows in ascending order",
          "for (int i = NI - 1; i >= 0; --i) {")],
-    "K1 compares with >=": [("if (v > best) {", "if (v >= best) {")],
+    "K1 compares with >=": [(POOL_CU, "if (v > best) {", "if (v >= best) {")],
     "K1's band halo one row short": [
-        ("ir1 = min(a.h, (oy0 + R - 1) * sh - a.ph + kh);",
-         "ir1 = min(a.h, (oy0 + R - 1) * sh - a.ph + kh - 1);")],
+        (POOL_CU, "ir1 = max(ir0, min(a.h, (oy0 + R - 1) * sh - a.ph + kh));",
+         "ir1 = max(ir0, min(a.h, (oy0 + R - 1) * sh - a.ph + kh - 1));")],
+    "K1's tile halo one column short": [
+        (POOL_CU, "ic1 = max(ic0, min(a.w, (oc0 + Cn - 1) * sw - a.pw + kw));",
+         "ic1 = max(ic0, min(a.w, (oc0 + Cn - 1) * sw - a.pw + kw - 1));")],
     "the misaligned head skipped": [
-        ("  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = "
+        (POOL_CU,
+         "  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = "
          "src[i];\n  for (int v = threadIdx.x; v < body; v += blockDim.x)\n"
          "    bigdl::wg::cp16(",
          "  for (int v = threadIdx.x; v < body; v += blockDim.x)\n"
          "    bigdl::wg::cp16(")],
+    "K1 reads a window wholly past the plane": [
+        (POOL_CU, "const bool none = !kFixed && (y0 >= a.h || x0 >= a.w);",
+         "const bool none = false;")],
 }
 
-_CHECK = _USE_LIB + """
-import torch, chip_smoke as cs
-use(sys.argv[1])
+_CHECK = """
+import sys, torch, bench_common, chip_smoke as cs
+bench_common.use_library(sys.argv[1])
 dev = torch.device("cuda", 0)
 failed = []
 for fn in (cs.check_kernels, cs.check_backward_kernels):
@@ -210,10 +166,9 @@ print("CAUGHT " + failed[0] if failed else "PASSED", flush=True)
 
 
 def cmd_mutants() -> int:
-    libs = build_variants(MUTANTS, os.path.join(HERE, "build",
-                                                "maxpool_mutants"),
-                          extra=[os.path.join(HERE, "bigdl_tpu_torch", "csrc",
-                                              "lrn.cu")])
+    libs = bc.build_libraries(MUTANTS, os.path.join(HERE, "build",
+                                                    "maxpool_mutants"),
+                              [POOL_CU], extra=[LRN_CU])
     caught = True
     for name, lib in libs.items():
         r = subprocess.run([sys.executable, "-c", _CHECK, lib], cwd=HERE,
@@ -232,16 +187,18 @@ def cmd_mutants() -> int:
 # ablate: a part of the kernels taken out (edits of max_pool.cu) or a
 # setting of the plan changed (ops/pooling.py)
 _NO_WINDOWS = [
-    ("for (int p = 0; p < kh; ++p) {",
+    (POOL_CU, "for (int p = 0; p < kh; ++p) {",
      "for (int p = 0; p < kh * (a.planes < 0); ++p) {"),
-    ("for (int i = 0; i < NI; ++i) {  // window rows in ascending order",
+    (POOL_CU,
+     "for (int i = 0; i < NI; ++i) {  // window rows in ascending order",
      "for (int i = 0; i < NI * (a.planes < 0); ++i) {")]
-_NO_COPIES = [("for (int v = threadIdx.x; v < body; v += blockDim.x)\n"
-               "    bigdl::wg::cp16(",
+_NO_COPIES = [(POOL_CU, "for (int v = threadIdx.x; v < body; v += "
+               "blockDim.x)\n    bigdl::wg::cp16(",
                "for (int v = threadIdx.x; v < body * (n < 0); v += "
                "blockDim.x)\n    bigdl::wg::cp16(")]
-_NO_STORES = [("for (int v = threadIdx.x; v < body; v += blockDim.x) d[v] = "
-               "s[v];", "for (int v = threadIdx.x; v < body * (n < 0); v += "
+_NO_STORES = [(POOL_CU, "for (int v = threadIdx.x; v < body; v += "
+               "blockDim.x) d[v] = s[v];",
+               "for (int v = threadIdx.x; v < body * (n < 0); v += "
                "blockDim.x) d[v] = s[v];")]
 ABLATIONS = {
     "as is": ([], {}),
@@ -255,8 +212,9 @@ ABLATIONS = {
     "budget 96 KB": ([], {"POOL_SMEM_BUDGET": 96 * 1024}),
 }
 
-_ABLATE = _USE_LIB + """
-import json, torch, chip_smoke as cs
+_ABLATE = """
+import json, sys, torch, chip_smoke as cs
+from bench_common import use_library as use
 from bigdl_tpu_torch.ops import pooling
 libs, settings = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 plain = {k: getattr(pooling, k) for k in ("POOL_BLOCKS_PER_SM",
@@ -282,9 +240,10 @@ for name in list(libs) + [list(libs)[0]]:
 def cmd_ablate(names) -> int:
     chosen = {n: ABLATIONS[n] for n in ["as is"] + [
         n for n in (names or ABLATIONS) if n != "as is"]}
-    libs = build_variants({name: edits for name, (edits, _) in
-                           chosen.items() if edits or name == "as is"},
-                          os.path.join(HERE, "build", "maxpool_ablate"))
+    libs = bc.build_libraries({name: edits for name, (edits, _) in
+                               chosen.items() if edits or name == "as is"},
+                              os.path.join(HERE, "build", "maxpool_ablate"),
+                              [POOL_CU])
     names = {name: libs.get(name, libs["as is"]) for name in chosen}
     r = subprocess.run([sys.executable, "-c", _ABLATE, json.dumps(names),
                         json.dumps({n: s for n, (_, s) in
@@ -346,13 +305,8 @@ def cmd_sass(parent) -> int:
 
 
 def main(argv) -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("bench_maxpool: CUDA is not available", file=sys.stderr)
+    if not bc.card_or_exit("bench_maxpool"):
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
     out = os.path.join(HERE, "build", "bench_maxpool")
     if "--out" in argv[:-1]:
         i = argv.index("--out")

@@ -45,7 +45,8 @@ plan changed (ABLATIONS), each built anew under ``build/ablate_<name>/``.
 ``ablate-f32`` times the f32 K13 (int8) over the batch-32 f32 w8 forward's
 56 products (CUDA events, L2 flushed) with a part taken out or a choice
 changed (F32_ABLATIONS): edited copies of ``quant_matmul.cu`` built in
-parallel beside the bf16 objects, built once, all in one process.
+parallel beside the bf16 objects, built once, all in one process.  The
+machinery of copies, edits and A/B runs is ``bench_common.py``'s.
 """
 
 from __future__ import annotations
@@ -57,7 +58,9 @@ import shutil
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+import bench_common as bc
+
+HERE = bc.HERE
 
 # one run of ``times``: this checkout's chip_smoke against <checkout>'s
 # package; argv: label, checkout, 3d ("1" runs serve_quantized), this
@@ -134,11 +137,8 @@ def run_times(label: str, checkout: str, with_3d: bool, out: str) -> int:
 
 
 def cmd_ab(parent: str, out: str) -> int:
-    rc = 0
-    for label, tree in (("parent 1", parent), ("change 1", HERE),
-                        ("change 2", HERE), ("parent 2", parent)):
-        rc = rc or run_times(label, tree, True, out)
-    return rc
+    return bc.ab(parent, lambda label, tree: run_times(label, tree, True,
+                                                       out))
 
 
 QUANT_SOURCES = ["bigdl_tpu_torch/csrc/quant_bf16_int8.cu",
@@ -277,18 +277,9 @@ cs.check_quant_kernels(dev, {
 
 def cmd_mutants() -> int:
     caught = True
-    for name, (path, text, broken) in MUTANTS.items():
-        root = os.path.join("build", f"mutant_{name}")
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
-        shutil.copytree("bigdl_tpu_torch", f"{root}/bigdl_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        shutil.copy("chip_smoke.py", root)
-        src = open(f"{root}/{path}").read()
-        if text not in src:
-            raise SystemExit(f"mutant {name}: {path} no longer holds the "
-                             "text to break")
-        open(f"{root}/{path}", "w").write(src.replace(text, broken))
+    for name, edit in MUTANTS.items():
+        root = bc.copy_port(os.path.join(HERE, "build", f"mutant_{name}"))
+        bc.apply_edits(root, [edit], f"mutant {name}")
         r = subprocess.run([sys.executable, "-c", _CHECK_2C], cwd=root,
                            capture_output=True, text=True)
         why = [ln for ln in r.stderr.splitlines()
@@ -355,18 +346,9 @@ print("ABLATE " + json.dumps(out), flush=True)
 def cmd_ablate() -> int:
     rc = 0
     for name, edits in ABLATIONS.items():
-        root = os.path.join("build", "ablate_" + re.sub(r"\W", "_", name))
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
-        shutil.copytree("bigdl_tpu_torch", f"{root}/bigdl_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        shutil.copy("chip_smoke.py", root)
-        for path, text, repl in edits:
-            src = open(f"{root}/{path}").read()
-            if text not in src:
-                raise SystemExit(f"ablation {name}: {path} no longer holds "
-                                 "the text to change")
-            open(f"{root}/{path}", "w").write(src.replace(text, repl))
+        root = bc.copy_port(os.path.join(
+            HERE, "build", "ablate_" + re.sub(r"\W", "_", name)))
+        bc.apply_edits(root, edits, f"ablation {name}")
         r = subprocess.run([sys.executable, "-c", _ABLATE_RUN, root,
                             name,
                             json.dumps(ABLATE_SHAPES)],
@@ -383,12 +365,13 @@ def cmd_ablate() -> int:
 # ablate-f32: the f32 K13's parts and plan choices, each an edited copy of
 # quant_matmul.cu (the bf16 objects built once) or a setting of the plan,
 # timed over the batch-32 f32 w8 forward's 56 products
-_NO_PRODUCTS_F32 = [("    for (int kk = 0; kk < kFK; kk += 4) {",
+_NO_PRODUCTS_F32 = [(QUANT_CU, "    for (int kk = 0; kk < kFK; kk += 4) {",
                      "    for (int kk = 0; kk < kFK * (n_iter < 0); kk += 4) "
                      "{")]
-_NO_COPIES_F32 = [("    if (it + kFStages - 1 < n_iter) load(it + kFStages - 1);",
+_NO_COPIES_F32 = [(QUANT_CU, "    if (it + kFStages - 1 < n_iter) "
+                   "load(it + kFStages - 1);",
                    "    if (n_iter < 0) load(it + kFStages - 1);")]
-_STAGES_4_F32 = [("constexpr int kFThreads = 128, kFStages = 3;",
+_STAGES_4_F32 = [(QUANT_CU, "constexpr int kFThreads = 128, kFStages = 3;",
                   "constexpr int kFThreads = 128, kFStages = 4;")]
 # name: (edits of quant_matmul.cu, plan settings of ops/quant.py)
 F32_ABLATIONS = {
@@ -401,17 +384,12 @@ F32_ABLATIONS = {
 }
 
 _ABLATE_F32_RUN = """
-import ctypes, json, os, sys, torch
+import json, os, sys, torch
 sys.path.insert(0, os.getcwd())
-import chip_smoke as cs
+import bench_common, chip_smoke as cs
 from bigdl_tpu_torch.ops import _build, quant
-names, libs = json.loads(sys.argv[1]), {}
-for name, lib in names.items():
-    libs[name] = ctypes.CDLL(os.path.abspath(lib))
-    for fn, argtypes in _build._SIGNATURES.items():
-        if hasattr(libs[name], fn):
-            getattr(libs[name], fn).argtypes = argtypes
-            getattr(libs[name], fn).restype = ctypes.c_int
+names = json.loads(sys.argv[1])
+libs = {name: bench_common.load_library(lib) for name, lib in names.items()}
 settings = json.loads(sys.argv[2])
 plain = {k: getattr(quant, k) for k in ("F32_BLOCKS_PER_SM",)}
 dev = torch.device("cuda", 0)
@@ -444,39 +422,14 @@ for name in list(names) + [list(names)[0]]:
 
 
 def cmd_ablate_f32() -> int:
-    sys.path.insert(0, HERE)
-    from bigdl_tpu_torch.ops import _build
-    root = os.path.join("build", "ablate_f32")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    cc = [_build._nvcc(), *_build.ARCH, *_build.FLAGS]
-    procs = [(f"{root}/{os.path.basename(cu)}.o", subprocess.Popen(
-        cc + ["-c", cu, "-o", f"{root}/{os.path.basename(cu)}.o"]))
-        for cu in QUANT_SOURCES[:3]]
-    libs, settings = {}, {}
-    for name, (edits, plan) in F32_ABLATIONS.items():
-        d = os.path.join(root, re.sub(r"\W", "_", name))
-        shutil.copytree("bigdl_tpu_torch/csrc", d)
-        src = open(f"{d}/quant_matmul.cu").read()
-        for text, repl in edits:
-            if text not in src:
-                raise SystemExit(f"f32 ablation {name}: quant_matmul.cu no "
-                                 "longer holds the text to change")
-            src = src.replace(text, repl)
-        open(f"{d}/quant_matmul.cu", "w").write(src)
-        procs.append((f"{d}/qm.o", subprocess.Popen(
-            cc + ["-c", f"{d}/quant_matmul.cu", "-o", f"{d}/qm.o"])))
-        libs[name], settings[name] = f"{d}/lib.so", plan
-    if any(p.wait() for _, p in procs):
-        print("f32 ablation: nvcc failed", flush=True)
-        return 1
-    for name, lib in libs.items():
-        subprocess.run([_build._nvcc(), *_build.ARCH, "-shared", "-o", lib,
-                        f"{os.path.dirname(lib)}/qm.o"] +
-                       [o for o, _ in procs[:3]], check=True)
+    root = os.path.join(HERE, "build", "ablate_f32")
+    libs = bc.build_libraries({name: edits for name, (edits, _) in
+                               F32_ABLATIONS.items()}, root, [QUANT_CU],
+                              extra=QUANT_SOURCES[:3])
+    settings = {name: plan for name, (_, plan) in F32_ABLATIONS.items()}
     r = subprocess.run([sys.executable, "-c", _ABLATE_F32_RUN,
                         json.dumps(libs), json.dumps(settings)],
-                       capture_output=True, text=True)
+                       cwd=HERE, capture_output=True, text=True)
     for ln in r.stdout.splitlines():
         if ln.startswith("ABLATE-F32 "):
             row = json.loads(ln[11:])
@@ -490,13 +443,8 @@ def cmd_ablate_f32() -> int:
 
 
 def main(argv) -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("bench_quant: CUDA is not available", file=sys.stderr)
+    if not bc.card_or_exit("bench_quant"):
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
     out = os.path.join(HERE, "build", "bench_quant")
     if "--out" in argv[:-1]:
         i = argv.index("--out")

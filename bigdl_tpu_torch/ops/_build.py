@@ -41,7 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # x, y, idx (or null), dtype, n, c, h, w, kh, kw, sh, sw, ph, pw, oh,
-    # ow, planes a block, rows a band, threads, shared bytes, stream
+    # ow, planes a block, rows a band, columns a tile, threads, stream
     "bigdl_max_pool2d_fwd": [_P, _P, _P] + [_I] * 17 + [_P],
     # dy, idx, dx, then as the forward
     "bigdl_max_pool2d_bwd": [_P, _P, _P] + [_I] * 17 + [_P],

@@ -13,10 +13,11 @@ optional uint8 index once; K3 reads dy and the index once and writes dx
 once, at 3.35 TB/s.  A block stages a contiguous span of its planes in
 shared memory (16-byte copies), computes every output of the span from
 there and stores the span with 16-byte stores; :func:`pool_plan` picks the
-planes a block, or the rows of a band of one plane with its halo, and the
-threads a block.  The kernels are templated on the path's windows (3x3
-stride 2, 3x3 stride 1, 2x2 stride 2) with a generic instantiation for the
-rest (:func:`pool_variant`).
+planes a block, or the rows of a band of one plane with its halo (and the
+columns of a tile, where a row is over the budget), and the threads a
+block.  The kernels are templated on the path's windows (3x3 stride 2, 3x3
+stride 1, 2x2 stride 2) with a generic instantiation for the rest
+(:func:`pool_variant`).
 
 Contract shared by the kernels and their plain versions: the window is
 scanned in row-major order and compared in f32 with a strict ``>``, so ties
@@ -110,27 +111,34 @@ POOL_SMEM_BUDGET = 48 * 1024     # a block's shared memory, so 4 blocks an SM
 POOL_SMEM_LIMIT = 232448         # the most one block can have on the H100
 POOL_BLOCKS_PER_SM = 8           # blocks the plan aims for on each SM
 POOL_MAX_THREADS = 256
-# the instantiations by csrc/max_pool.cu `bigdl_max_pool2d_variant`'s code
+# the instantiations, by the code ``csrc/max_pool.cu``
+# ``bigdl_max_pool2d_variant`` gives a window (the one table of which
+# window takes which is there)
 POOL_VARIANTS = ("generic", "3x3/2", "3x3/1", "2x2/2")
-_FIXED_WINDOWS = {(3, 3, 2, 2): 1, (3, 3, 1, 1): 2, (2, 2, 2, 2): 3}
 
 
 def pool_variant(kh, kw, sh, sw):
-    """The instantiation of K1 and K3 a window takes: one of the path's
-    fixed windows (``"3x3/2"``, ``"3x3/1"``, ``"2x2/2"``) or
-    ``"generic"``."""
-    return POOL_VARIANTS[_FIXED_WINDOWS.get((kh, kw, sh, sw), 0)]
+    """The instantiation of K1 and K3 a window takes, as the library picks
+    it: one of the path's fixed windows (``"3x3/2"``, ``"3x3/1"``,
+    ``"2x2/2"``) or ``"generic"``.  Loads (and builds) the library."""
+    return POOL_VARIANTS[_build.load().bigdl_max_pool2d_variant(kh, kw, sh,
+                                                                 sw)]
 
 
 class PoolPlan(NamedTuple):
     """A launch of K1 or K3: ``planes`` whole planes a block, or (planes 1)
     bands of ``rows`` rows of one plane, y rows in K1 and dx rows in K3
-    (``rows`` is the plane's all in whole-plane blocks); ``bands`` a plane,
-    ``blocks`` in all, ``threads`` a block and ``smem`` bytes of dynamic
-    shared memory a block."""
+    (``rows`` is the plane's all in whole-plane blocks), cut into tiles of
+    ``cols`` columns, y columns in K1 and dx columns in K3, when a row is
+    over the budget (``cols`` is the row's all otherwise); ``bands`` a
+    plane, ``tiles`` a row, ``blocks`` in all, ``threads`` a block and
+    ``smem`` bytes of dynamic shared memory a block, as the kernels' entry
+    points size it."""
     planes: int
     rows: int
+    cols: int
     bands: int
+    tiles: int
     blocks: int
     threads: int
     smem: int
@@ -140,26 +148,32 @@ def _r16(nbytes):
     return (nbytes + 15) // 16 * 16
 
 
-def pool_smem(h, w, geom, itemsize, planes, rows, backward=False):
-    """Shared memory of a K1 (or, ``backward``, K3) block of ``planes``
-    planes of ``rows`` rows, as ``csrc/max_pool.cu`` lays it out: each span
-    in a region of 16 bytes more than it holds (it starts at its global
-    address mod 16), 16-byte aligned.  K1: x (a band's input rows: its
-    windows' reach), y, idx.  K3: dy and the codes of the windows that
-    reach the band's dx rows, dx, and for the generic window the rows' and
-    columns' (quotient, remainder) by the stride."""
+def pool_smem(h, w, geom, itemsize, planes, rows, cols, backward=False):
+    """Shared memory of the largest K1 (or, ``backward``, K3) block of
+    ``planes`` planes of ``rows`` rows and ``cols`` columns, as
+    ``csrc/max_pool.cu`` ``fwd_smem`` / ``bwd_smem`` size it: each span in a
+    region of 16 bytes more than it holds, 16-byte aligned.  K1: x (a
+    band's input rows, a tile's input columns in rows of ``(cols - 1) * sw
+    + kw``), y, idx.  K3: dy and the codes of the windows that reach the
+    block's dx rows and columns, dx, and the generic window's tables of the
+    rows' and columns' (quotient, remainder) by the stride (counted for
+    every window)."""
     kh, kw, sh, sw = geom[:4]
     oh, ow, _, _ = pool_geometry(h, w, *geom)
+    full, width = (h, w) if backward else (oh, ow)
+    whole, tiled = rows >= full and cols >= width, cols < width
+    n_out = planes * rows * cols
     if backward:
-        win = oh if rows >= h else min(oh, (rows + kh - 2) // sh + 1)
-        tables = 0 if (kh, kw, sh, sw) in _FIXED_WINDOWS else 8 * (rows + w)
-        return (_r16(16 + planes * win * ow * itemsize) +
-                _r16(16 + planes * win * ow) +
-                _r16(16 + planes * rows * w * itemsize) + tables)
-    rows_in = h if rows >= oh else min(h, (rows - 1) * sh + kh)
-    return (_r16(16 + planes * rows_in * w * itemsize) +
-            _r16(16 + planes * rows * ow * itemsize) +
-            _r16(16 + planes * rows * ow))
+        win = oh if whole else min(oh, (rows + kh - 2) // sh + 1)
+        pitch = (cols + kw - 2) // sw + 1 if tiled else ow
+        n_in = planes * win * pitch
+        return (_r16(16 + n_in * itemsize) + _r16(16 + n_in) +
+                _r16(16 + n_out * itemsize) + 8 * (rows + cols))
+    rows_in = h if whole else min(h, (rows - 1) * sh + kh)
+    pitch = (cols - 1) * sw + kw if tiled else w
+    n_in = planes * rows_in * pitch
+    return (_r16(16 + n_in * itemsize) + _r16(16 + n_out * itemsize) +
+            _r16(16 + n_out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,38 +183,39 @@ def pool_plan(n, c, h, w, geom, dtype, backward=False, sms=H100_SMS):
     least POOL_BLOCKS_PER_SM an SM and their shared memory within
     POOL_SMEM_BUDGET; with one plane a block, a plane is cut into bands of
     rows when it is over the budget or when there are too few planes for
-    that many blocks.  About four work items a thread, 64 to 256
-    threads."""
+    that many blocks, and a row over the budget into tiles of columns (in
+    K3 a multiple of the stride, so that a tile starts on a stride cell).
+    About four work items a thread, 64 to 256 threads."""
     oh, ow, _, _ = pool_geometry(h, w, *geom)
     size = torch.empty((), dtype=dtype).element_size()
     planes = n * c
-    full, length = (h, w) if backward else (oh, ow)
+    full, width = (h, w) if backward else (oh, ow)
+    step = geom[3] if backward else 1
 
-    def smem(g, rows):
-        return pool_smem(h, w, geom, size, g, rows, backward)
+    def smem(g, rows, cols=width):
+        return pool_smem(h, w, geom, size, g, rows, cols, backward)
 
     target = POOL_BLOCKS_PER_SM * sms
     g = max(1, planes // target)
     while g > 1 and smem(g, full) > POOL_SMEM_BUDGET:
         g -= 1
-    rows = full
+    rows, cols = full, width
     if g == 1:
         if planes < target:
             rows = -(-full // -(-target // planes))
         while rows > 1 and smem(1, rows) > POOL_SMEM_BUDGET:
             rows -= 1
-        if smem(1, rows) > POOL_SMEM_LIMIT:
-            raise ValueError(f"max pool: a band of one row of a {h}x{w} "
-                             f"plane needs {smem(1, rows)} bytes of shared "
-                             f"memory, over the {POOL_SMEM_LIMIT} a block "
-                             "can have")
+        while cols > step and smem(1, rows, cols) > POOL_SMEM_BUDGET:
+            cols = max(step, cols // 2 // step * step)
     bands = -(-full // rows)
     rows = -(-full // bands)        # the same bands, evened out
+    tiles = -(-width // cols)
     threads = 64
-    while threads < POOL_MAX_THREADS and 4 * threads < g * rows * length:
+    while threads < POOL_MAX_THREADS and 4 * threads < g * rows * cols:
         threads *= 2
-    return PoolPlan(g, rows, bands, -(-planes // g) * bands, threads,
-                    smem(g, rows))
+    return PoolPlan(g, rows, cols, bands, tiles,
+                    -(-planes // g) * bands * tiles, threads,
+                    smem(g, rows, cols))
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,7 +236,7 @@ def _launch(x, kh, kw, sh, sw, ph, pw, ceil_mode, with_idx):
     rc = lib.bigdl_max_pool2d_fwd(
         x.data_ptr(), y.data_ptr(), None if idx is None else idx.data_ptr(),
         _build.DTYPE_CODES[x.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
-        oh, ow, p.planes, p.rows, p.threads, p.smem, _build.stream_ptr(x))
+        oh, ow, p.planes, p.rows, p.cols, p.threads, _build.stream_ptr(x))
     _build.check(rc, "max_pool2d_fwd")
     max_pool2d.launches += 1
     return y, idx
@@ -329,7 +344,7 @@ def max_pool2d_bwd(dy, idx, geom, ih, iw):
     rc = _build.load().bigdl_max_pool2d_bwd(
         dy.data_ptr(), idx.data_ptr(), dx.data_ptr(),
         _build.DTYPE_CODES[dy.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
-        oh, ow, p.planes, p.rows, p.threads, p.smem, _build.stream_ptr(dy))
+        oh, ow, p.planes, p.rows, p.cols, p.threads, _build.stream_ptr(dy))
     _build.check(rc, "max_pool2d_bwd")
     max_pool2d_bwd.launches += 1
     return dx

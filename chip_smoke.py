@@ -15,9 +15,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
    also at the edges of its plan (``POOL_EDGES``: n*c off a multiple of
    the planes a block, 7x7 and 13x11 planes whose bytes are no multiple
    of 16, an input off 16 bytes, planes over the shared-memory budget in
-   bands at every instantiation, ResNet's stem), logging the instantiation
-   and plan of each case, and failing unless every instantiation (3x3/2,
-   3x3/1, 2x2/2, generic) ran on whole planes and on bands;
+   bands and rows over it in column tiles at every instantiation, ResNet's
+   stem, ceil-mode windows wholly past the plane), logging the
+   instantiation and plan of each case, and failing unless every
+   instantiation (3x3/2, 3x3/1, 2x2/2, generic) ran on whole planes, on
+   bands and on column tiles;
 2b. the backward kernels (K3 max pool, K4 LRN) the same way, K3 on the
    argmax codes K1 wrote (dy and codes off 16 bytes where the case's
    input is), with the same coverage rule, K3 through autograd with a
@@ -294,9 +296,13 @@ RAGGED_POOLS = [
 # block; an input at element 1 of a larger tensor (dy and the codes too in
 # phase 2b); planes over the shared-memory budget, so bands of rows run,
 # at each fixed window and the generic one (n*c 1056: bands by the budget;
-# n*c 6: one-row bands to fill the card); ResNet's stem (3x3/2, pad 1) and
-# 2x2/2 pools on whole planes and on VGG's 224x224 ones.  (name, shape, kh, kw, sh, sw, ph, pw, ceil, at element
-# 1 of a larger tensor)
+# n*c 6: one-row bands to fill the card); rows over the budget, so column
+# tiles run, at each fixed window and the generic one (3x3/2 with pad 1:
+# K3's stride cells straddle its tiles); ResNet's stem (3x3/2, pad 1) and
+# 2x2/2 pools on whole planes and on VGG's 224x224 ones; ceil-mode windows
+# with the stride past the window, the last of them wholly past the plane
+# (-inf and code 0).  (name, shape, kh, kw, sh, sw, ph, pw, ceil, at
+# element 1 of a larger tensor)
 POOL_EDGES = [
     ("7x7, planes not a multiple", (31, 832, 7, 7), 3, 3, 1, 1, 1, 1, False,
      False),
@@ -326,6 +332,19 @@ POOL_EDGES = [
      False),
     ("generic 2x3/(1,2), planes a block", (16, 256, 14, 14), 2, 3, 1, 2, 1,
      1, True, False),
+    ("column tiles, 3x3/2", (1, 2, 5, 30001), 3, 3, 2, 2, 0, 0, True, True),
+    ("column tiles, 3x3/2 pad 1", (1, 3, 5, 20001), 3, 3, 2, 2, 1, 1, False,
+     False),
+    ("column tiles, 3x3/1", (1, 2, 4, 30000), 3, 3, 1, 1, 1, 1, False,
+     False),
+    ("column tiles, 2x2/2", (1, 2, 4, 30000), 2, 2, 2, 2, 0, 0, False,
+     False),
+    ("column tiles, generic 2x2/3, windows past the plane", (1, 2, 6, 30000),
+     2, 2, 3, 3, 0, 0, True, False),
+    ("windows past the plane, 2x2/3", (2, 3, 6, 6), 2, 2, 3, 3, 0, 0, True,
+     False),
+    ("windows past the plane, 1x1/3", (1, 1, 5, 5), 1, 1, 3, 3, 0, 0, True,
+     False),
 ]
 # K3 through autograd with a strided gradient (every other column of a
 # wider tensor): (name, shape, kh, kw, sh, sw, ph, pw, ceil)
@@ -746,38 +765,46 @@ def pool_cases():
         yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
 
 
+POOL_MODES = ("whole planes", "bands", "column tiles")
+
+
 def pool_take(shape, geom, dtype, backward):
     """The instantiation and plan K1 (or K3) takes at a case, as the
-    library names it and the wrapper plans it: (variant, plan, mode), mode
-    "whole planes" or "bands"; fails where the library's instantiation is
-    not the one ops/pooling.py pool_variant names."""
+    library picks it and the wrapper plans it: (variant, plan, mode), mode
+    one of POOL_MODES."""
     import torch
-    from bigdl_tpu_torch.ops import _build, pooling
-    kh, kw, sh, sw = geom[:4]
-    variant = pooling.POOL_VARIANTS[
-        _build.load().bigdl_max_pool2d_variant(kh, kw, sh, sw)]
-    if variant != pooling.pool_variant(kh, kw, sh, sw):
-        fail(f"max pool {geom}: the library takes {variant}, "
-             f"pool_variant names {pooling.pool_variant(kh, kw, sh, sw)}")
+    from bigdl_tpu_torch.ops import pooling
     n, c, h, w = shape
     plan = pooling.pool_plan(
         n, c, h, w, geom, dtype, backward=backward,
         sms=torch.cuda.get_device_properties(0).multi_processor_count)
-    return variant, plan, "bands" if plan.bands > 1 else "whole planes"
+    mode = POOL_MODES[2 if plan.tiles > 1 else 1 if plan.bands > 1 else 0]
+    return pooling.pool_variant(*geom[:4]), plan, mode
 
 
 def fmt_plan(plan):
-    return (f"{plan.planes} planes x {plan.rows} rows a block, "
-            f"{plan.bands} bands, {plan.blocks} blocks of {plan.threads} "
-            f"threads, {plan.smem} B shared")
+    return (f"{plan.planes} planes x {plan.rows} rows x {plan.cols} "
+            f"columns a block, {plan.bands} bands x {plan.tiles} tiles, "
+            f"{plan.blocks} blocks of {plan.threads} threads, {plan.smem} B "
+            "shared")
+
+
+def max_abs_diff(got, want):
+    """The largest |got - want| in f32, where cells that are equal (-inf
+    among them) count 0."""
+    import torch
+    d = (got.float() - want.float()).abs()
+    return torch.where(got.float() == want.float(), torch.zeros_like(d),
+                       d).max().item()
 
 
 def pool_coverage(what, seen, ragged_groups):
-    """Fail unless every instantiation ran both whole planes and bands, and
-    some case's n*c was not a multiple of its planes a block."""
+    """Fail unless every instantiation ran on whole planes, on bands and
+    on column tiles, and some case's n*c was not a multiple of its planes
+    a block."""
     from bigdl_tpu_torch.ops.pooling import POOL_VARIANTS
     missing = [f"{v} {m}" for v in POOL_VARIANTS
-               for m in ("whole planes", "bands") if (v, m) not in seen]
+               for m in POOL_MODES if (v, m) not in seen]
     if missing:
         fail(f"{what}: untested instantiations and paths: {missing}")
     if not ragged_groups:
@@ -811,8 +838,7 @@ def check_kernels(device):
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 yp, ip = max_pool2d_plain(x, *geom)
-                err = max((yk.float() - yp.float()).abs().max().item(),
-                          (yk_noidx.float() - yp.float()).abs().max().item())
+                err = max(max_abs_diff(yk, yp), max_abs_diff(yk_noidx, yp))
                 bad = (ik != ip).sum().item()
                 if dtype == torch.float32:
                     errs["max_pool2d_fwd"] = max(errs["max_pool2d_fwd"], err)
@@ -848,7 +874,7 @@ def check_kernels(device):
             cases["lrn_fwd"] += 1
     log(f"kernels vs plain: max_pool2d_fwd bit-equal in "
         f"{cases['max_pool2d_fwd']} cases (every instantiation on whole "
-        f"planes and on bands); lrn_fwd within tolerance in "
+        f"planes, bands and column tiles); lrn_fwd within tolerance in "
         f"{cases['lrn_fwd']} cases (f32 max |err| {errs['lrn_fwd']:.3g})")
     return errs, cases, misses
 
@@ -972,8 +998,8 @@ def check_backward_kernels(device):
                  f"max |err| {err}")
     log(f"backward kernels vs plain: max_pool2d_bwd bit-equal in "
         f"{cases['max_pool2d_bwd']} cases (every instantiation on whole "
-        f"planes and on bands, strided dy through autograd); lrn_bwd within "
-        f"tolerance in {cases['lrn_bwd']} cases (f32 max |err| "
+        f"planes, bands and column tiles, strided dy through autograd); "
+        f"lrn_bwd within tolerance in {cases['lrn_bwd']} cases (f32 max |err| "
         f"{errs['lrn_bwd']:.3g}); autograd round trip card vs CPU held for "
         "both layers")
     return errs, cases, misses

@@ -139,8 +139,10 @@ def _offset(t):
 
 # K1 and K3 at the edges of their plan: bases off 16 bytes (x, dy and the
 # codes), planes over the shared-memory budget (bands of rows, at a fixed
-# window and the generic one), many 7x7 planes a block with n*c not a
-# multiple of them
+# window and the generic one), rows over it (column tiles, K3's stride
+# cells straddling them at 3x3/2 pad 1), many 7x7 planes a block with n*c
+# not a multiple of them, ceil-mode windows wholly past the plane (-inf and
+# code 0)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", [
     ("offset", (4, 96, 28, 28), (3, 3, 1, 1, 1, 1, False), True),
@@ -148,6 +150,11 @@ def _offset(t):
     ("bands", (2, 64, 224, 224), (3, 3, 2, 2, 0, 0, True), False),
     ("bands-generic", (2, 64, 224, 224), (3, 2, 2, 3, 0, 1, True), False),
     ("planes-a-block", (31, 832, 7, 7), (3, 3, 1, 1, 1, 1, False), False),
+    ("tiles", (1, 2, 4, 30000), (3, 3, 1, 1, 1, 1, False), True),
+    ("tiles-pad", (1, 3, 5, 20001), (3, 3, 2, 2, 1, 1, False), False),
+    ("tiles-generic", (1, 2, 6, 30000), (2, 2, 3, 3, 0, 0, True), False),
+    ("past-2x2-s3", (2, 3, 6, 6), (2, 2, 3, 3, 0, 0, True), False),
+    ("past-1x1-s3", (1, 1, 5, 5), (1, 1, 3, 3, 0, 0, True), False),
 ], ids=lambda c: c[0])
 def test_max_pool_kernels_hold_at_the_plan_edges(cuda_device, dtype, case):
     from bigdl_tpu_torch.ops import pooling
@@ -162,6 +169,8 @@ def test_max_pool_kernels_hold_at_the_plan_edges(cuda_device, dtype, case):
                                .multi_processor_count) for b in (False, True)]
     if case[0].startswith("bands"):
         assert all(p.bands > 1 for p in plans)
+    if case[0].startswith("tiles"):
+        assert all(p.tiles > 1 for p in plans)
     if case[0] == "planes-a-block":
         assert all(p.planes > 1 and shape[0] * shape[1] % p.planes
                    for p in plans)

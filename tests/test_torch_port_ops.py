@@ -125,83 +125,123 @@ def _r16(nbytes):
 
 def _plan_blocks(plan, shape, geom, itemsize, backward):
     """Each block of a K1 (or K3) launch as csrc/max_pool.cu computes it:
-    (first plane, planes, first output row, rows, first staged row, staged
-    rows, shared bytes its spans take).  K1: y rows and the input rows they
-    read; K3: dx rows and the window rows that reach them."""
+    (first plane, planes, first output row, rows, first output column,
+    columns, first staged row, staged rows, first staged column, staged
+    columns, shared bytes its spans take).  K1: y rows and columns and the
+    input rows and columns they read; K3: dx rows and columns and the
+    window rows and columns that reach them."""
     n, c, h, w = shape
-    kh, kw, sh, sw, ph = geom[:5]
+    kh, kw, sh, sw, ph, pw = geom[:6]
     oh, ow, _, _ = pool_geometry(h, w, *geom)
     planes = n * c
-    fixed = pooling.pool_variant(kh, kw, sh, sw) != "generic"
+    tiled = plan.tiles > 1
     for x in range(-(-planes // plan.planes)):
         g0 = x * plan.planes
         gn = min(plan.planes, planes - g0)
         for band in range(plan.bands):
-            if backward:
-                iy0, r, lo, hi = 0, h, 0, oh - 1
-                if plan.bands > 1:
-                    iy0 = band * plan.rows
-                    r = min(plan.rows, h - iy0)
-                    top = iy0 + ph - kh + 1
-                    lo = -(-top // sh) if top > 0 else 0
-                    hi = min(oh - 1, (iy0 + r - 1 + ph) // sh)
-                nwin = max(0, hi - lo + 1)
-                used = (_r16(16 + gn * nwin * ow * itemsize) +
-                        _r16(16 + gn * nwin * ow) +
-                        _r16(16 + gn * r * w * itemsize) +
-                        (0 if fixed else 8 * (r + w)))
-                yield g0, gn, iy0, r, lo, nwin, used
-            else:
-                oy0, r, ir0, ir1 = 0, oh, 0, h
-                if plan.bands > 1:
-                    oy0 = band * plan.rows
-                    r = min(plan.rows, oh - oy0)
-                    ir0 = max(0, oy0 * sh - ph)
-                    ir1 = min(h, (oy0 + r - 1) * sh - ph + kh)
-                used = (_r16(16 + gn * (ir1 - ir0) * w * itemsize) +
-                        _r16(16 + gn * r * ow * itemsize) +
-                        _r16(16 + gn * r * ow))
-                yield g0, gn, oy0, r, ir0, ir1 - ir0, used
+            for tile in range(plan.tiles):
+                if backward:
+                    iy0, r, lo, hi = 0, h, 0, oh - 1
+                    if plan.bands > 1 or tiled:
+                        iy0 = band * plan.rows
+                        r = min(plan.rows, h - iy0)
+                        top = iy0 + ph - kh + 1
+                        lo = -(-top // sh) if top > 0 else 0
+                        hi = min(oh - 1, (iy0 + r - 1 + ph) // sh)
+                    ic0, cn, clo, chi, pitch = 0, w, 0, ow - 1, ow
+                    if tiled:
+                        ic0 = tile * plan.cols
+                        cn = min(plan.cols, w - ic0)
+                        left = ic0 + pw - kw + 1
+                        clo = -(-left // sw) if left > 0 else 0
+                        chi = min(ow - 1, (ic0 + cn - 1 + pw) // sw)
+                        pitch = (plan.cols + kw - 2) // sw + 1
+                    nwin, ncol = max(0, hi - lo + 1), max(0, chi - clo + 1)
+                    assert ncol <= pitch
+                    n_in, n_out = gn * nwin * pitch, gn * r * plan.cols
+                    used = (_r16(16 + n_in * itemsize) + _r16(16 + n_in) +
+                            _r16(16 + n_out * itemsize) +
+                            8 * (r + plan.cols))
+                    yield (g0, gn, iy0, r, ic0, cn, lo, nwin, clo, ncol,
+                           used)
+                else:
+                    oy0, r, ir0, ir1 = 0, oh, 0, h
+                    if plan.bands > 1 or tiled:
+                        oy0 = band * plan.rows
+                        r = min(plan.rows, oh - oy0)
+                        ir0 = min(h, max(0, oy0 * sh - ph))
+                        ir1 = max(ir0, min(h, (oy0 + r - 1) * sh - ph + kh))
+                    oc0, cn, ic0, ic1, pitch = 0, ow, 0, w, w
+                    if tiled:
+                        oc0 = tile * plan.cols
+                        cn = min(plan.cols, ow - oc0)
+                        ic0 = min(w, max(0, oc0 * sw - pw))
+                        ic1 = max(ic0, min(w, (oc0 + cn - 1) * sw - pw + kw))
+                        pitch = (plan.cols - 1) * sw + kw
+                    assert ic1 - ic0 <= pitch
+                    n_in = gn * (ir1 - ir0) * pitch
+                    n_out = gn * r * plan.cols
+                    used = (_r16(16 + n_in * itemsize) +
+                            _r16(16 + n_out * itemsize) + _r16(16 + n_out))
+                    yield (g0, gn, oy0, r, oc0, cn, ir0, ir1 - ir0, ic0,
+                           ic1 - ic0, used)
+
+
+def _reach(lo, n, k, s, p, size, backward):
+    """The input cells (K1) that outputs [lo, lo + n) along one axis read,
+    or the windows (K3) that reach cells [lo, lo + n) of it."""
+    if backward:
+        return {o for o in range(size) for q in range(k)
+                if lo <= o * s + q - p < lo + n}
+    return {o * s - p + q for o in range(lo, lo + n) for q in range(k)
+            if 0 <= o * s - p + q < size}
 
 
 def _hold_plan(shape, geom, dtype, backward, sms=132):
-    """pool_plan at one case: every plane (or band) covered once, the halo
-    right (a band stages exactly the rows its windows read, or the windows
-    that reach its rows), shared memory within the limit with two blocks
-    an SM, a thread count the kernels take."""
+    """pool_plan at one case: every plane (or band, or tile) covered once,
+    the halo right (a band or tile stages exactly the rows and columns its
+    windows read, or the windows that reach its rows and columns), shared
+    memory within the limit with two blocks an SM, a thread count the
+    kernels take, a tile of K3 starting on a stride cell."""
     n, c, h, w = shape
-    kh, sh, ph = geom[0], geom[2], geom[4]
-    oh = pool_geometry(h, w, *geom)[0]
+    kh, kw, sh, sw, ph, pw = geom[:6]
+    oh, ow, _, _ = pool_geometry(h, w, *geom)
     size = torch.empty((), dtype=dtype).element_size()
     plan = pooling.pool_plan(n, c, h, w, geom, dtype, backward=backward,
                              sms=sms)
-    full = h if backward else oh
+    full, width = (h, w) if backward else (oh, ow)
     assert plan.bands == -(-full // plan.rows)
-    assert plan.bands == 1 or plan.planes == 1
+    assert plan.tiles == -(-width // plan.cols)
+    assert (plan.bands == 1 and plan.tiles == 1) or plan.planes == 1
+    assert plan.tiles == 1 or not backward or plan.cols % sw == 0
     assert 64 <= plan.threads <= 256 and plan.threads % 32 == 0
     assert plan.smem <= pooling.POOL_SMEM_LIMIT
     # two blocks fit on an SM of 228 KB, 1 KB of it each block's own
     assert 2 * (plan.smem + 1024) <= 233472
+    # each (plane, row) covered by tiles of `width` columns in all
     covered = np.zeros((n * c, full), dtype=np.int64)
     blocks = 0
-    for g0, gn, r0, r, s0, sn, used in _plan_blocks(plan, shape, geom, size,
-                                                    backward):
+    for (g0, gn, r0, r, c0, cn, s0, sn, t0, tn,
+         used) in _plan_blocks(plan, shape, geom, size, backward):
         blocks += 1
         assert used <= plan.smem
-        covered[g0:g0 + gn, r0:r0 + r] += 1
-        if backward:     # the windows that reach dx rows [r0, r0 + r)
-            need = {oy for oy in range(oh) for p in range(kh)
-                    if r0 <= oy * sh + p - ph < r0 + r}
-        else:            # the input rows y rows [r0, r0 + r) read
-            need = {oy * sh - ph + p for oy in range(r0, r0 + r)
-                    for p in range(kh) if 0 <= oy * sh - ph + p < h}
-        if plan.bands == 1:
+        assert c0 == (blocks - 1) % plan.tiles * plan.cols
+        covered[g0:g0 + gn, r0:r0 + r] += cn
+        if plan.bands == 1 and plan.tiles == 1:
             assert (s0, sn) == (0, oh if backward else h)
-        else:
-            want = (min(need), len(need)) if need else (s0, 0)
-            assert (s0, sn) == want
-            assert need == set(range(s0, s0 + sn))
-    assert (covered == 1).all()
+            continue
+        # the span staged along each axis cut (rows; columns of a tile):
+        # from the first cell read (or window reaching) to the last
+        axes = [(r0, r, s0, sn, kh, sh, ph, oh if backward else h)]
+        if plan.tiles > 1:
+            axes.append((c0, cn, t0, tn, kw, sw, pw, ow if backward else w))
+        for a0, an, b0, bn, k, s, p, extent in axes:
+            need = _reach(a0, an, k, s, p, extent, backward)
+            if need:
+                assert (b0, bn) == (min(need), max(need) - min(need) + 1)
+            else:
+                assert bn == 0
+    assert (covered == width).all()
     assert blocks == plan.blocks
     return plan
 
@@ -218,8 +258,8 @@ def test_pool_plan_holds_at_the_inception_pools(pool, batch, dtype):
         plan = _hold_plan(shape, tuple(geom), dtype, backward)
         # enough blocks to fill the card: the plan's aim on 132 SMs
         assert plan.blocks >= pooling.POOL_BLOCKS_PER_SM * 132
-        # within the budget, as the path's pools all fit it
-        assert plan.smem <= pooling.POOL_SMEM_BUDGET
+        # within the budget, as the path's pools all fit it, in whole rows
+        assert plan.smem <= pooling.POOL_SMEM_BUDGET and plan.tiles == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
@@ -235,32 +275,69 @@ def test_pool_plan_holds_at_the_inception_pools(pool, batch, dtype):
     ("n*c prime", (1, 2113, 7, 7), (3, 3, 1, 1, 1, 1, False)),
     ("n*c prime, 13x11", (1, 4099, 13, 11), (3, 3, 2, 2, 0, 0, True)),
     ("stride past the window", (2, 5, 17, 19), (2, 2, 3, 3, 1, 1, True)),
+    ("row over the budget", (1, 2, 4, 40000), (3, 3, 1, 1, 1, 1, False)),
+    ("row over the budget, 3x3/2 pad 1", (1, 3, 5, 20001),
+     (3, 3, 2, 2, 1, 1, False)),
+    ("row over the budget, generic", (1, 2, 6, 30000),
+     (2, 2, 3, 3, 0, 0, True)),
+    ("windows past the plane, 2x2/3", (2, 3, 6, 6),
+     (2, 2, 3, 3, 0, 0, True)),
+    ("windows past the plane, 1x1/3", (1, 1, 5, 5),
+     (1, 1, 3, 3, 0, 0, True)),
 ], ids=lambda c: c[0].replace(" ", "-"))
 def test_pool_plan_holds_at_its_edges(case, dtype):
     name, shape, geom = case
     size = torch.empty((), dtype=dtype).element_size()
     for backward in (False, True):
         plan = _hold_plan(shape, geom, dtype, backward)
+        oh, ow = pool_geometry(shape[2], shape[3], *geom)[:2]
+        full, width = shape[2:] if backward else (oh, ow)
         full_smem = pooling.pool_smem(shape[2], shape[3], geom, size, 1,
-                                      shape[2] if backward else
-                                      pool_geometry(shape[2], shape[3],
-                                                    *geom)[0], backward)
+                                      full, width, backward)
+        row_smem = pooling.pool_smem(shape[2], shape[3], geom, size, 1, 1,
+                                     width, backward)
         if full_smem > pooling.POOL_SMEM_BUDGET:   # a plane over the budget
             assert plan.bands > 1 and plan.smem <= pooling.POOL_SMEM_BUDGET
+        if row_smem > pooling.POOL_SMEM_BUDGET:    # a row over it: tiles
+            assert plan.tiles > 1 and plan.rows == 1
+        else:
+            assert plan.tiles == 1
         if name.startswith("n*c prime"):
             assert plan.planes > 1 and shape[1] % plan.planes != 0
+        if name.startswith("windows past the plane"):
+            # the last window starts at or past the plane's end
+            assert (oh - 1) * geom[2] >= shape[2]
 
 
-def test_pool_plan_names_the_instantiations():
+def test_pool_plan_names_the_instantiations(monkeypatch):
+    """pool_variant names the instantiation by the code the library gives
+    a window (csrc/max_pool.cu `variant`, the one table of them), and the
+    plan's shared memory does not depend on it: the generic window's
+    tables are counted for every window."""
+    from bigdl_tpu_torch.ops import _build
+    codes = {(3, 3, 2, 2): 1, (3, 3, 1, 1): 2, (2, 2, 2, 2): 3}
+
+    class Lib:
+        @staticmethod
+        def bigdl_max_pool2d_variant(kh, kw, sh, sw):
+            return codes.get((kh, kw, sh, sw), 0)
+
+    monkeypatch.setattr(_build, "load", lambda: Lib)
     assert pooling.pool_variant(3, 3, 2, 2) == "3x3/2"
     assert pooling.pool_variant(3, 3, 1, 1) == "3x3/1"
     assert pooling.pool_variant(2, 2, 2, 2) == "2x2/2"
     assert pooling.pool_variant(3, 2, 2, 3) == "generic"
     assert pooling.pool_variant(3, 3, 3, 3) == "generic"
-    # a row too wide for one block's shared memory is refused, not cut
-    with pytest.raises(ValueError, match="shared memory"):
-        pooling.pool_plan(1, 1, 4, 40000, (3, 3, 1, 1, 1, 1, False),
-                          torch.float32)
+    # K3 at a fixed window, 4 bf16 28x28 planes (14x14 windows): dy, the
+    # codes, dx and the generic window's tables of 28 + 28 entries
+    assert pooling.pool_smem(28, 28, (3, 3, 2, 2, 0, 0, True), 2, 4, 28, 28,
+                             True) == (16 + 4 * 196 * 2 + 16 + 4 * 196 +
+                                       16 + 4 * 784 * 2 + 8 * (28 + 28))
+    # a row too wide for one block's shared memory is cut into tiles of
+    # columns, not refused
+    plan = pooling.pool_plan(1, 1, 4, 40000, (3, 3, 1, 1, 1, 1, False),
+                             torch.float32)
+    assert plan.tiles > 1 and plan.smem <= pooling.POOL_SMEM_BUDGET
 
 
 LRN_CASES = [
