@@ -1,9 +1,10 @@
 """What the port's per-kernel bench scripts share (``bench_maxpool.py``,
-``bench_quant.py``, ``bench_flash_bwd.py``): the card check and its line,
-the parent/change/change/parent order of an A/B in one call, edits of the
-kernel sources that must apply a known number of times, copies of the
-port, and libraries built from edited copies of ``bigdl_tpu_torch/csrc``
-(every ``nvcc`` started together) and loaded in place of the package's.
+``bench_lrn.py``, ``bench_quant.py``, ``bench_flash_bwd.py``): the card
+check and its line, the parent/change/change/parent order of an A/B in one
+call, edits of the kernel sources that must apply a known number of times,
+copies of the port, libraries built from edited copies of
+``bigdl_tpu_torch/csrc`` (every ``nvcc`` started together) and loaded in
+place of the package's, and SASS instruction counts per kernel.
 
 An edit is ``(path, old, new)``, which must match exactly once,
 ``(path, old, new, count)``, which must match ``count`` times, or ``(path,
@@ -148,6 +149,35 @@ def build_libraries(variants, root: str, sources, extra=()):
                         libs[name]] + [obj(d, s) for s in sources] +
                        [obj(root, s) for s in extra], check=True)
     return libs
+
+
+def sass_counts(cu: str, root: str, patterns):
+    """Per kernel of ``cu``, compiled to a cubin under ``root``: its SASS
+    instruction count and, for each ``patterns`` entry {name: text}, the
+    instructions that contain the text."""
+    import re
+    sys.path.insert(0, HERE)
+    from bigdl_tpu_torch.ops import _build
+    os.makedirs(root, exist_ok=True)
+    cubin = os.path.join(root, os.path.basename(cu) + ".cubin")
+    subprocess.run([_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-cubin",
+                    cu, "-o", cubin], check=True,
+                   cwd=os.path.dirname(os.path.abspath(cu)))
+    nvcc_dir = os.path.dirname(_build._nvcc())
+    sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
+                           cubin], check=True, capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = dict.fromkeys(["instructions", *patterns], 0)
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            out[name]["instructions"] += 1
+            for key, text in patterns.items():
+                out[name][key] += text in ln
+    return out
 
 
 def load_library(path: str):

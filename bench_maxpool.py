@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -263,40 +262,13 @@ def cmd_ablate(names) -> int:
     return r.returncode
 
 
-def sass_counts(cu: str, root: str):
-    """Per kernel of ``cu``: its SASS instruction count, and the calls and
-    MUFU.RCP instructions (integer division by a run-time value: a call to
-    the 64-bit routine, or the 32-bit sequence built on MUFU.RCP)."""
-    sys.path.insert(0, HERE)
-    from bigdl_tpu_torch.ops import _build
-    os.makedirs(root, exist_ok=True)
-    cubin = os.path.join(root, "max_pool.cubin")
-    subprocess.run([_build._nvcc(), *_build.ARCH, *_build.FLAGS, "-cubin",
-                    cu, "-o", cubin], check=True,
-                   cwd=os.path.dirname(os.path.abspath(cu)))
-    nvcc_dir = os.path.dirname(_build._nvcc())
-    sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
-                           cubin], check=True, capture_output=True,
-                          text=True).stdout
-    out, name = {}, None
-    for ln in sass.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            name = m.group(1)
-            out[name] = {"instructions": 0, "calls": 0, "mufu_rcp": 0}
-        elif name and re.search(r"/\*[0-9a-f]{4}\*/", ln):
-            out[name]["instructions"] += 1
-            out[name]["calls"] += " CALL" in ln
-            out[name]["mufu_rcp"] += "MUFU.RCP" in ln
-    return out
-
-
 def cmd_sass(parent) -> int:
     trees = [("this", HERE)] + ([("parent", parent)] if parent else [])
     for label, tree in trees:
-        counts = sass_counts(os.path.join(tree, POOL_CU),
-                             os.path.join(HERE, "build", "maxpool_sass",
-                                          label))
+        counts = bc.sass_counts(os.path.join(tree, POOL_CU),
+                                os.path.join(HERE, "build", "maxpool_sass",
+                                             label),
+                                {"calls": " CALL", "mufu_rcp": "MUFU.RCP"})
         for name, c in sorted(counts.items()):
             print(f"SASS {label} | {name[:80]} | {c['instructions']} "
                   f"instructions | {c['calls']} calls | {c['mufu_rcp']} "

@@ -47,13 +47,16 @@ _SIGNATURES = {
     "bigdl_max_pool2d_bwd": [_P, _P, _P] + [_I] * 17 + [_P],
     # kh, kw, sh, sw: the instantiation K1 and K3 take
     "bigdl_max_pool2d_variant": [_I] * 4,
-    # x, y, scale, dtype, n, c, hw, size, alpha/size, beta, k, mode, stream
+    # x, y, scale, dtype, n, c, hw, size, alpha/size, beta, k, mode, then
+    # the plan: fixed size (0 generic), pixels a thread, channels a thread,
+    # threads a block; stream
     "bigdl_lrn_fwd": [_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
-                      ctypes.c_float, ctypes.c_float, ctypes.c_float, _I,
-                      _P],
-    # x, scale, dy, dx, dtype, n, c, hw, size, alpha/size, beta, mode, stream
+                      ctypes.c_float, ctypes.c_float, ctypes.c_float] +
+    [_I] * 5 + [_P],
+    # x, scale, dy, dx, dtype, n, c, hw, size, alpha/size, beta, mode, the
+    # plan as for the forward, stream
     "bigdl_lrn_bwd": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
-                      ctypes.c_float, ctypes.c_float, _I, _P],
+                      ctypes.c_float, ctypes.c_float] + [_I] * 5 + [_P],
     # x, q, scale, y, x dtype, weight dtype, m, n, k, bm, bn, splits,
     # workspace (or null), stream
     "bigdl_w8_matmul": [_P, _P, _P, _P] + [_I] * 8 + [_P, _P],

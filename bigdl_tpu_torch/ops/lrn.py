@@ -11,14 +11,20 @@ plain version, and their autograd pair.
 K2 replaces ``bigdl_tpu/ops/lrn.py`` ``_fwd_kernel`` (reached through
 ``_lrn_pallas_fwd``) and K4 its ``_bwd_kernel`` (reached through
 ``_lrn_pallas_bwd``), both in ``csrc/lrn.cu``.  The TPU kernels tiled
-(C, pixels) blocks in VMEM and summed shifted copies; the CUDA kernels give
-each thread one (image, pixel) and walk the channels, neighbouring threads
-on neighbouring pixels, so each channel plane is read coalesced.
+(C, pixels) blocks in VMEM and summed shifted copies, so each element was
+read once and q formed once.  The CUDA kernels give each thread a vector
+of adjacent pixels of one image (16 bytes in K2, 8 in K4; fewer, or a
+single pixel, where the planes or the tensors' bases are not aligned to
+them) and a chunk of channels, which it walks with the window kept in
+registers: K2 sums each output's window of squares from registers, K4
+forms q once as its channel enters the window.  :func:`lrn_plan` picks
+the instantiation, the vector, the chunk and the grid.
 
 What bounds both on the H100 is bytes: K2 reads x once and writes y (and
 the optional ``scale``, kept for the backward) once; K4 reads x, scale and
-dy once and writes dx once, at 3.35 TB/s.  Window sums are taken in f32 and
-recomputed per channel from cache rather than carried as a running sum.
+dy once and writes dx once, at 3.35 TB/s; a chunk's halo of size - 1
+channels is read again, from L2.  Window sums are taken in f32, in the
+order of the reference's window sum.
 
 :func:`lrn_plain` mirrors ``_lrn_xla`` (``ops/lrn.py:81-86``) and
 :func:`lrn_bwd_plain` mirrors ``_bwd_kernel`` (``ops/lrn.py:133-141``),
@@ -29,11 +35,29 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from bigdl_tpu_torch.ops import _build
+from bigdl_tpu_torch.ops.quant import H100_SMS, _device_sms
 
 _POW_MODES = {0.75: 0, 0.5: 1}      # csrc/lrn.cu PowMode; 2 = powf
+
+# window sizes with their own instantiation (csrc/lrn.cu kFixedSize; the
+# library refuses a plan that names another)
+LRN_FIXED_SIZES = (5,)
+LRN_GROUP = 2                   # planes a thread loads a step (kGroup)
+LRN_THREADS = 128               # threads a block
+LRN_MIN_CHUNK = 4               # channels a thread at least
+# per kernel, K2 ("fwd") and K4 ("bwd"): the most bytes of adjacent
+# pixels a thread loads from each tensor, and the threads the plan aims
+# for on each SM.  K4 carries three tensors' windows, so 8 bytes and
+# fewer, longer walks keep its registers and its halo in bounds
+# (bench_lrn.py ablate)
+LRN_VECTOR_BYTES = {"fwd": 16, "bwd": 8}
+LRN_THREADS_PER_SM = {"fwd": 2048, "bwd": 512}
 
 
 def _neg_pow(scale, beta):
@@ -77,6 +101,70 @@ def lrn_bwd_plain(x, scale, dy, size=5, alpha=1.0, beta=0.75):
     return dy * pow_b - 2.0 * (alpha / size) * beta * x * rsum
 
 
+class LrnPlan(NamedTuple):
+    """A launch of K2 or K4: the instantiation (``"size 5"`` for a window
+    fixed at compile time, or ``"generic"``), ``vec`` adjacent pixels a
+    thread (4, 8 or 16 bytes' worth, or 1), ``chunk`` channels a thread
+    (the last chunk of a plane column may hold fewer), ``chunks`` chunks
+    over C, ``vecs`` pixel vectors a plane, ``threads`` a block and
+    ``blocks`` in all.  Thread t of the grid (pixel vectors fastest) owns
+    vector t mod vecs, chunk (t // vecs) mod chunks, image t // (vecs *
+    chunks)."""
+    variant: str
+    vec: int
+    chunk: int
+    chunks: int
+    vecs: int
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def lrn_plan(n, c, hw, size, dtype, align, backward=False, sms=H100_SMS):
+    """Plan K2 (or, ``backward``, K4) over an (n, c, hw) tensor on a card
+    of ``sms`` SMs.  ``align``: the bytes (a power of two, at most 16)
+    every tensor of the call is aligned to.  A thread takes the widest
+    vector of adjacent pixels, 16, 8 or 4 bytes and at most
+    LRN_VECTOR_BYTES, whose size divides ``hw`` and the alignment, else one
+    pixel; the chunk is the largest that still gives about
+    LRN_THREADS_PER_SM threads an SM (at least LRN_MIN_CHUNK channels),
+    evened out over C."""
+    key = "bwd" if backward else "fwd"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vec = next((nbytes // itemsize for nbytes in (16, 8, 4)
+                if itemsize < nbytes <= min(LRN_VECTOR_BYTES[key], align)
+                and hw % (nbytes // itemsize) == 0), 1)
+    vecs = -(-hw // vec)
+    want = -(-LRN_THREADS_PER_SM[key] * sms // (n * vecs))
+    chunk = max(LRN_MIN_CHUNK, -(-c // want))
+    chunks = -(-c // chunk)
+    chunk = -(-c // chunks)         # the same chunks, evened out
+    chunks = -(-c // chunk)
+    variant = f"size {size}" if size in LRN_FIXED_SIZES else "generic"
+    return LrnPlan(variant, vec, chunk, chunks, vecs, LRN_THREADS,
+                   -(-n * chunks * vecs // LRN_THREADS))
+
+
+def lrn_plan_for(tensors, size, backward=False):
+    """The plan of a call on CUDA ``tensors`` (x first)."""
+    x = tensors[0]
+    n, c, h, w = x.shape
+    ptrs = 0
+    for t in tensors:
+        ptrs |= t.data_ptr()
+    align = min(16, ptrs & -ptrs) if ptrs else 16
+    return lrn_plan(n, c, h * w, size, x.dtype, align, backward,
+                    _device_sms(x.device.index))
+
+
+def _plan_args(tensors, size, backward=False):
+    """The plan's arguments of the C entry points for a call on
+    ``tensors`` (x first): fixed size (0 generic), vec, chunk, threads."""
+    p = lrn_plan_for(tensors, size, backward)
+    return (size if p.variant != "generic" else 0, p.vec, p.chunk,
+            p.threads)
+
+
 def _launch(x, size, alpha, beta, k, with_scale):
     n, c, h, w = x.shape
     y = torch.empty_like(x)
@@ -86,7 +174,8 @@ def _launch(x, size, alpha, beta, k, with_scale):
         x.data_ptr(), y.data_ptr(),
         None if scale is None else scale.data_ptr(),
         _build.DTYPE_CODES[x.dtype], n, c, h * w, size, alpha / size, beta,
-        k, _POW_MODES.get(beta, 2), _build.stream_ptr(x))
+        k, _POW_MODES.get(beta, 2), *_plan_args((x, y), size),
+        _build.stream_ptr(x))
     _build.check(rc, "lrn_fwd")
     cross_map_lrn.launches += 1
     return y, scale
@@ -177,7 +266,9 @@ def lrn_bwd(x, scale, dy, size=5, alpha=1.0, beta=0.75):
     rc = _build.load().bigdl_lrn_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
         _build.DTYPE_CODES[x.dtype], n, c, h * w, size, alpha / size, beta,
-        _POW_MODES.get(beta, 2), _build.stream_ptr(x))
+        _POW_MODES.get(beta, 2),
+        *_plan_args((x, scale, dy, dx), size, backward=True),
+        _build.stream_ptr(x))
     _build.check(rc, "lrn_bwd")
     lrn_bwd.launches += 1
     return dx

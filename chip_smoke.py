@@ -11,17 +11,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    every kernel from ``bigdl_tpu_torch/csrc``;
 2. every forward kernel (K1 max pool, K2 LRN) against its plain PyTorch
    version on the card, at the shapes full-width Inception-v1 gives it at
-   batch 32 and at ragged shapes, in float32 and bfloat16; K1 bit-equal
-   also at the edges of its plan (``POOL_EDGES``: n*c off a multiple of
-   the planes a block, 7x7 and 13x11 planes whose bytes are no multiple
-   of 16, an input off 16 bytes, planes over the shared-memory budget in
-   bands and rows over it in column tiles at every instantiation, ResNet's
-   stem, ceil-mode windows wholly past the plane), logging the
-   instantiation and plan of each case, and failing unless every
-   instantiation (3x3/2, 3x3/1, 2x2/2, generic) ran on whole planes, on
-   bands and on column tiles;
-2b. the backward kernels (K3 max pool, K4 LRN) the same way, K3 on the
-   argmax codes K1 wrote (dy and codes off 16 bytes where the case's
+   batch 32 and at ragged shapes, in float32 and bfloat16; K2 also at the
+   edges of its plan (``RAGGED_LRNS``: odd planes, planes no multiple of
+   16 bytes, a batch slice off 16 bytes, C below the window, C = 1, C off
+   a multiple of the chunk, sizes 1 and 4, AlexNet's two LRNs), logging
+   each case's plan and failing unless the size-5 and generic
+   instantiations both ran with vectors and with one pixel a thread; K1
+   bit-equal also at the edges of its plan (``POOL_EDGES``: n*c off a
+   multiple of the planes a block, 7x7 and 13x11 planes whose bytes are
+   no multiple of 16, an input off 16 bytes, planes over the shared-memory
+   budget in bands and rows over it in column tiles at every
+   instantiation, ResNet's stem, ceil-mode windows wholly past the plane),
+   logging the instantiation and plan of each case, and failing unless
+   every instantiation (3x3/2, 3x3/1, 2x2/2, generic) ran on whole planes,
+   on bands and on column tiles;
+2b. the backward kernels (K3 max pool, K4 LRN) the same way (K4 on the
+   scale K2 wrote, at the same cases and with the same coverage rule), K3
+   on the argmax codes K1 wrote (dy and codes off 16 bytes where the case's
    input is), with the same coverage rule, K3 through autograd with a
    strided dy, and one autograd round trip per layer on the card against
    the same on the CPU;
@@ -357,11 +363,34 @@ LRNS = [
     ("pool1/norm1", (BATCH, 64, 56, 56), 5, 1e-4, 0.75, 1.0),
     ("conv2/norm2", (BATCH, 192, 56, 56), 5, 1e-4, 0.75, 1.0),
 ]
+# K2/K4 at the edges of their plan (ops/lrn.py lrn_plan), each in f32 and
+# bf16: odd planes (35, 117 and AlexNet's 55x55 pixels: one pixel a
+# thread), planes of 36 and 34 pixels (8- and 4-byte vectors), a
+# contiguous slice x[1:] of a batch of odd planes and a tensor at element
+# 1 of a larger one (bases aligned to one element: one pixel a thread; dy
+# too in phase 2b), C below the window, C = 1, C off a multiple of the
+# chunk (7, 13, 97), window sizes 1, 3 and 4 (the generic instantiation; 4
+# is even, lo != hi) with vectors and one pixel a thread, AlexNet's (2, 96,
+# 55, 55) and (2, 256, 27, 27).
+# (name, shape, size, alpha, beta, k[, "slice" or "element 1"])
 RAGGED_LRNS = [
     ("C=3, HW=35", (2, 3, 5, 7), 5, 1.0, 0.75, 1.0),
     ("C=7, HW=117, even window", (3, 7, 9, 13), 4, 1.0, 0.75, 2.0),
     ("beta 0.5", (2, 7, 9, 13), 5, 1.0, 0.5, 1.0),
     ("beta 1.0 (powf)", (2, 5, 3, 45), 3, 0.5, 1.0, 1.0),
+    ("odd HW, x[1:] of a batch", (3, 7, 9, 13), 5, 1.0, 0.75, 1.0, "slice"),
+    ("HW=64, at element 1", (2, 9, 8, 8), 5, 1.0, 0.75, 1.0, "element 1"),
+    ("HW=36, not a multiple of 8", (2, 9, 6, 6), 5, 1.0, 0.75, 1.0),
+    ("HW=34, not a multiple of 4", (2, 9, 2, 17), 5, 1.0, 0.75, 1.0),
+    ("C=3 < size", (2, 3, 8, 8), 5, 1.0, 0.75, 1.0),
+    ("C=1", (2, 1, 8, 8), 5, 1e-4, 0.75, 1.0),
+    ("C=7, chunks of 4", (4, 7, 16, 16), 5, 1.0, 0.75, 1.0),
+    ("C=13, beta 0.5", (2, 13, 8, 8), 5, 1.0, 0.5, 2.0),
+    ("C=97, many chunks", (1, 97, 8, 8), 5, 1.0, 0.75, 1.0),
+    ("size 1", (2, 6, 8, 8), 1, 1.0, 0.75, 1.0),
+    ("size 4, vectors", (2, 11, 8, 8), 4, 1.0, 0.75, 2.0),
+    ("AlexNet norm1", (2, 96, 55, 55), 5, 1e-4, 0.75, 1.0),
+    ("AlexNet norm2", (2, 256, 27, 27), 5, 1e-4, 0.75, 1.0),
 ]
 LRN_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2e-2, 1e-2)}
 # K4 against a plain version that rounds to bf16 at every op
@@ -789,6 +818,48 @@ def fmt_plan(plan):
             "shared")
 
 
+def lrn_cases():
+    """Phase 2's and 2b's LRN cases: (name, shape, size, alpha, beta, k,
+    placement), placement None, "slice" or "element 1"."""
+    for case in LRNS + RAGGED_LRNS:
+        yield tuple(case[:6]) + (case[6] if len(case) > 6 else None,)
+
+
+def lrn_input(shape, dtype, device, gen, placement):
+    """A seeded LRN input: a contiguous slice x[1:] of a batch one image
+    larger, a copy at element 1 of a larger tensor, or a fresh tensor."""
+    import torch
+    if placement == "slice":
+        return torch.randn((shape[0] + 1,) + tuple(shape[1:]), generator=gen,
+                           device=device).to(dtype)[1:]
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return _offset_copy(x) if placement == "element 1" else x
+
+
+def lrn_mode(plan, dtype):
+    """What :func:`lrn_coverage` counts of a case: its instantiation,
+    vectors or one pixel a thread, and its dtype."""
+    import torch
+    return (plan.variant, "vectors" if plan.vec > 1 else "one pixel",
+            "f32" if dtype == torch.float32 else "bf16")
+
+
+def fmt_lrn_plan(plan):
+    return (f"{plan.variant}, {plan.vec} pixels x {plan.chunk} channels a "
+            f"thread, {plan.chunks} chunks x {plan.vecs} vectors, "
+            f"{plan.blocks} blocks of {plan.threads} threads")
+
+
+def lrn_coverage(what, seen):
+    """Fail unless the size-5 and generic instantiations each ran with
+    vectors and with one pixel a thread, in both dtypes."""
+    missing = [f"{v} {m} {d}" for v in ("size 5", "generic")
+               for m in ("vectors", "one pixel") for d in ("f32", "bf16")
+               if (v, m, d) not in seen]
+    if missing:
+        fail(f"{what}: untested instantiations: {missing}")
+
+
 def max_abs_diff(got, want):
     """The largest |got - want| in f32, where cells that are equal (-inf
     among them) count 0."""
@@ -818,6 +889,7 @@ def check_kernels(device):
     import torch
     from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_plain, max_pool2d,
                                      max_pool2d_plain)
+    from bigdl_tpu_torch.ops.lrn import lrn_plan_for
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"max_pool2d_fwd": 0.0, "lrn_fwd": 0.0}
     cases = {"max_pool2d_fwd": 0, "lrn_fwd": 0}
@@ -850,9 +922,15 @@ def check_kernels(device):
                          f"ties={ties}: not bit-equal to the plain version "
                          f"(max |dy| {err}, {bad} idx differ)")
     pool_coverage("max_pool2d (phase 2)", seen, ragged_groups)
+    seen = set()
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shape, size, alpha, beta, k in LRNS + RAGGED_LRNS:
-            x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        for name, shape, size, alpha, beta, k, placement in lrn_cases():
+            x = lrn_input(shape, dtype, device, gen, placement)
+            plan = lrn_plan_for((x,), size)
+            seen.add(lrn_mode(plan, dtype))
+            log(f"lrn {name} {tuple(shape)} {dtype}"
+                f"{', ' + placement if placement else ''}: "
+                f"{fmt_lrn_plan(plan)}")
             yk, sk = cross_map_lrn(x, size, alpha, beta, k,
                                    return_scale=True)
             yk_noscale = cross_map_lrn(x, size, alpha, beta, k)
@@ -872,10 +950,12 @@ def check_kernels(device):
                 if dtype == torch.float32:
                     errs["lrn_fwd"] = max(errs["lrn_fwd"], err)
             cases["lrn_fwd"] += 1
+    lrn_coverage("lrn (phase 2)", seen)
     log(f"kernels vs plain: max_pool2d_fwd bit-equal in "
         f"{cases['max_pool2d_fwd']} cases (every instantiation on whole "
         f"planes, bands and column tiles); lrn_fwd within tolerance in "
-        f"{cases['lrn_fwd']} cases (f32 max |err| {errs['lrn_fwd']:.3g})")
+        f"{cases['lrn_fwd']} cases (every instantiation with vectors and "
+        f"one pixel a thread; f32 max |err| {errs['lrn_fwd']:.3g})")
     return errs, cases, misses
 
 
@@ -891,6 +971,7 @@ def check_backward_kernels(device):
     from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      max_pool2d, max_pool2d_bwd,
                                      max_pool2d_bwd_plain, max_pool2d_plain)
+    from bigdl_tpu_torch.ops.lrn import lrn_plan_for
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     errs = {"max_pool2d_bwd": 0.0, "lrn_bwd": 0.0}
     cases = {"max_pool2d_bwd": 0, "lrn_bwd": 0}
@@ -950,12 +1031,20 @@ def check_backward_kernels(device):
             held(f"{name} {tuple(shape)} {dtype} through autograd with a "
                  "strided dy", xr.grad, want, dtype)
     pool_coverage("max_pool2d_bwd (phase 2b)", seen, ragged_groups)
+    seen = set()
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shape, size, alpha, beta, k in LRNS + RAGGED_LRNS:
-            x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        for name, shape, size, alpha, beta, k, placement in lrn_cases():
+            x = lrn_input(shape, dtype, device, gen, placement)
             dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+            if placement:
+                dy = _offset_copy(dy)
             _, scale = cross_map_lrn(x, size, alpha, beta, k,
                                      return_scale=True)
+            plan = lrn_plan_for((x, scale, dy), size, backward=True)
+            seen.add(lrn_mode(plan, dtype))
+            log(f"lrn_bwd {name} {tuple(shape)} {dtype}"
+                f"{', x and dy ' + placement if placement else ''}: "
+                f"{fmt_lrn_plan(plan)}")
             dx = lrn_bwd(x, scale, dy, size, alpha, beta)
             if device.type == "cuda":
                 torch.cuda.synchronize()
@@ -970,6 +1059,7 @@ def check_backward_kernels(device):
                 misses["lrn_bwd"] += 1
                 fail(f"lrn_bwd {name} {tuple(shape)} {dtype}: max |err| "
                      f"{err} beyond rtol {rtol} / atol {atol}")
+    lrn_coverage("lrn_bwd (phase 2b)", seen)
     # one autograd round trip per layer: y.backward(g) on the card against
     # the same on CPU tensors (plain versions), float32
     for layer, shape in ((tnn.SpatialMaxPooling(3, 3, 2, 2).ceil(),
@@ -999,7 +1089,8 @@ def check_backward_kernels(device):
     log(f"backward kernels vs plain: max_pool2d_bwd bit-equal in "
         f"{cases['max_pool2d_bwd']} cases (every instantiation on whole "
         f"planes, bands and column tiles, strided dy through autograd); "
-        f"lrn_bwd within tolerance in {cases['lrn_bwd']} cases (f32 max |err| "
+        f"lrn_bwd within tolerance in {cases['lrn_bwd']} cases (every "
+        f"instantiation with vectors and one pixel a thread; f32 max |err| "
         f"{errs['lrn_bwd']:.3g}); autograd round trip card vs CPU held for "
         "both layers")
     return errs, cases, misses
@@ -3049,9 +3140,9 @@ def time_pool_layers(device, dtype, backward, plain=True, library=True):
 
 
 def pool_sums(rows):
-    """A kernel's entry from :func:`time_pool_layers`' rows: each time
-    summed over the layers (None where a layer's was not measured), and
-    the rows themselves."""
+    """A kernel's entry from :func:`time_pool_layers`' (or
+    :func:`time_lrn_layers`') rows: each time summed over the layers (None
+    where a layer's was not measured), and the rows themselves."""
     out = {"bound_by": "bytes", "per_layer": rows}
     for key in ("ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
                 "library_device_ms"):
@@ -3060,94 +3151,97 @@ def pool_sums(rows):
     return out
 
 
-def log_pool_times(card, what, t):
-    """Phase 4's K1/K3 lines: per pool layer, then summed."""
+def log_pool_times(card, what, t, layers="pools"):
+    """Phase 4's K1-K4 lines: per pool (or LRN) layer, then summed."""
     for r in t["per_layer"]:
         log(f"[{card}] {what} {r['layer']} {tuple(r['shape'])}: "
             f"{r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])}, bound "
             f"{r['bound_ms']:.4f} ms (bytes), plain {fmt_ms(r['plain_ms'])}"
             f", library {r['library_ms']:.4f} ms, device "
             f"{fmt_ms(r['library_device_ms'])}")
-    log(f"[{card}] {what}, summed over the {len(t['per_layer'])} pools: "
+    log(f"[{card}] {what}, summed over the {len(t['per_layer'])} {layers}: "
         f"{t['ms']:.4f} ms, device {fmt_ms(t['device_ms'])}, bound "
         f"{t['bound_ms']:.4f} ms (bytes), plain {fmt_ms(t['plain_ms'])}, "
         f"library {t['library_ms']:.4f} ms, device "
         f"{fmt_ms(t['library_device_ms'])}")
 
 
-def time_kernels(device):
-    """Per kernel, summed over one batch-32 f32 serving forward's calls:
-    median kernel time, bound, plain version, library call; K1 per pool
-    layer too (:func:`time_pool_layers`)."""
-    import torch
-    import torch.nn.functional as F
-    from bigdl_tpu_torch.ops import cross_map_lrn, lrn_plain
-    gen = torch.Generator(device=device).manual_seed(SEED + 1)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=device) \
-        if device.type == "cuda" else None
-    out = {"max_pool2d_fwd": pool_sums(
-        time_pool_layers(device, torch.float32, False))}
-    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for _, shape, size, alpha, beta, k in LRNS:
-        x = torch.randn(shape, generator=gen, device=device)
-        nbytes = 4 * 2 * x.numel()
-        nops = x.numel() * (2 * size + 6)
-        t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                   nops / F32_FLOPS)
-        t["ms"] += median_ms(lambda: cross_map_lrn(x, size, alpha, beta, k),
-                             device, flush=flush)
-        t["plain_ms"] += median_ms(lambda: lrn_plain(x, size, alpha, beta, k),
-                                   device, flush=flush)
-        t["library_ms"] += median_ms(
-            lambda: F.local_response_norm(x, size, alpha, beta, k), device,
-            flush=flush)
-    out["lrn_fwd"] = dict(t, bound_by="bytes")
-    return out
-
-
-def time_train_kernels(device):
-    """Per kernel, summed over one training step's calls at batch 32 in
-    bf16: K1 with the index write and K3 (per pool layer too), K2 with the
-    scale write and K4; median kernel time, bound, plain version, library
-    call."""
+def time_lrn_layers(device, dtype, backward, with_scale=False, plain=True,
+                    library=True):
+    """K2 or (``backward``) K4 at each Inception-v1 LRN layer at batch 32:
+    per layer its CUDA-event median (L2 flushed) and torch.profiler device
+    time, its bound, the plain version's time and the library call's
+    (events and device time; ``plain`` and ``library`` False leave those
+    out).  K2 writes its scale with ``with_scale``, as training calls it,
+    and not without, as serving does; the library calls are
+    ``F.local_response_norm`` and, for K4, autograd's backward of it."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import (cross_map_lrn, lrn_bwd, lrn_bwd_plain,
                                      lrn_plain)
-    bf16 = torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=device) \
-        if device.type == "cuda" else None
-    out = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "bound_by": "bytes"}
-           for k in ("lrn_fwd", "lrn_bwd")}
-    out["max_pool2d_fwd"] = pool_sums(time_pool_layers(device, bf16, False))
-    out["max_pool2d_bwd"] = pool_sums(time_pool_layers(device, bf16, True))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    size_of = torch.empty((), dtype=dtype).element_size()
+    rows = []
+    for name, shape, size, alpha, beta, k in LRNS:
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        if backward:
+            dy = torch.randn(shape, generator=gen, device=device).to(dtype)
+            _, scale = cross_map_lrn(x, size, alpha, beta, k,
+                                     return_scale=True)
+            xr = x.clone().requires_grad_()
+            yr = F.local_response_norm(xr, size, alpha, beta, k)
+            nbytes, nops = 4 * size_of * x.numel(), x.numel() * (6 * size + 8)
+            kern = lambda: lrn_bwd(x, scale, dy, size, alpha, beta)
+            ref = lambda: lrn_bwd_plain(x, scale, dy, size, alpha, beta)
+            lib = lambda: torch.autograd.grad(yr, xr, dy, retain_graph=True)
+        else:
+            nbytes = (2 + with_scale) * size_of * x.numel()
+            nops = x.numel() * (2 * size + 6)
+            kern = lambda: cross_map_lrn(x, size, alpha, beta, k,
+                                         return_scale=with_scale)
+            ref = lambda: lrn_plain(x, size, alpha, beta, k)
+            lib = lambda: F.local_response_norm(x, size, alpha, beta, k)
+        rows.append({
+            "layer": name, "shape": list(shape),
+            "ms": median_ms(kern, device, flush=flush),
+            "device_ms": device_ms(kern, flush),
+            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  nops / F32_FLOPS),
+            "plain_ms": median_ms(ref, device, flush=flush) if plain
+            else None,
+            "library_ms": median_ms(lib, device, flush=flush) if library
+            else None,
+            "library_device_ms": device_ms(lib, flush) if library
+            else None})
+    return rows
 
-    def add(name, nbytes, nops, kern, plain, lib):
-        t = out[name]
-        t["bound_ms"] += 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                   nops / F32_FLOPS)
-        t["ms"] += median_ms(kern, device, flush=flush)
-        t["plain_ms"] += median_ms(plain, device, flush=flush)
-        t["library_ms"] += median_ms(lib, device, flush=flush)
 
-    for _, shape, size, alpha, beta, k in LRNS:
-        x = torch.randn(shape, generator=gen, device=device).to(bf16)
-        dy = torch.randn(shape, generator=gen, device=device).to(bf16)
-        _, scale = cross_map_lrn(x, size, alpha, beta, k, return_scale=True)
-        xr = x.clone().requires_grad_()
-        yr = F.local_response_norm(xr, size, alpha, beta, k)
-        add("lrn_fwd", 2 * 3 * x.numel(), x.numel() * (2 * size + 6),
-            lambda: cross_map_lrn(x, size, alpha, beta, k,
-                                  return_scale=True),
-            lambda: lrn_plain(x, size, alpha, beta, k),
-            lambda: F.local_response_norm(x, size, alpha, beta, k))
-        add("lrn_bwd", 2 * 4 * x.numel(), x.numel() * (6 * size + 8),
-            lambda: lrn_bwd(x, scale, dy, size, alpha, beta),
-            lambda: lrn_bwd_plain(x, scale, dy, size, alpha, beta),
-            lambda: torch.autograd.grad(yr, xr, dy, retain_graph=True))
-    return out
+def time_kernels(device):
+    """Per kernel, summed over one batch-32 f32 serving forward's calls:
+    median kernel time, torch.profiler device time, bound, plain version,
+    library call; per layer too (:func:`time_pool_layers`,
+    :func:`time_lrn_layers`)."""
+    import torch
+    return {"max_pool2d_fwd": pool_sums(
+                time_pool_layers(device, torch.float32, False)),
+            "lrn_fwd": pool_sums(
+                time_lrn_layers(device, torch.float32, False))}
+
+
+def time_train_kernels(device):
+    """Per kernel, summed over one training step's calls at batch 32 in
+    bf16: K1 with the index write and K3, K2 with the scale write and K4;
+    median kernel time, torch.profiler device time, bound, plain version,
+    library call, per layer too."""
+    import torch
+    bf16 = torch.bfloat16
+    return {
+        "max_pool2d_fwd": pool_sums(time_pool_layers(device, bf16, False)),
+        "max_pool2d_bwd": pool_sums(time_pool_layers(device, bf16, True)),
+        "lrn_fwd": pool_sums(time_lrn_layers(device, bf16, False,
+                                             with_scale=True)),
+        "lrn_bwd": pool_sums(time_lrn_layers(device, bf16, True))}
 
 
 QSTAGES = ("conv2", "3a/3b", "4a-4e", "5a/5b", "classifier")
@@ -4253,6 +4347,12 @@ def main() -> int:
                    train_times["max_pool2d_fwd"])
     log_pool_times(card, "max_pool2d_bwd (bf16, training)",
                    train_times["max_pool2d_bwd"])
+    log_pool_times(card, "lrn_fwd (f32, no scale, serving)",
+                   times["lrn_fwd"], "LRN layers")
+    log_pool_times(card, "lrn_fwd (bf16 with scale, training)",
+                   train_times["lrn_fwd"], "LRN layers")
+    log_pool_times(card, "lrn_bwd (bf16, training)", train_times["lrn_bwd"],
+                   "LRN layers")
     for where, tt in (("serving shapes, f32", times),
                       ("training shapes, bf16", train_times)):
         for name, t in tt.items():

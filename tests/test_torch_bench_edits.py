@@ -8,6 +8,7 @@ import pytest
 
 import bench_common
 import bench_flash_bwd
+import bench_lrn
 import bench_maxpool
 import bench_quant
 
@@ -17,6 +18,10 @@ def _edit_sets():
                 for n, e in bench_maxpool.MUTANTS.items())
     yield from (("maxpool ablation " + n, e)
                 for n, (e, _) in bench_maxpool.ABLATIONS.items())
+    yield from (("lrn mutant " + n, e)
+                for n, e in bench_lrn.MUTANTS.items())
+    yield from (("lrn ablation " + n, e)
+                for n, (e, _) in bench_lrn.ABLATIONS.items())
     yield from (("quant mutant " + n, [e])
                 for n, e in bench_quant.MUTANTS.items())
     yield from (("quant ablation " + n, e)

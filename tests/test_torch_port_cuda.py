@@ -11,7 +11,9 @@ edges of their plan (bases off 16 bytes, bands of rows, many planes a
 block); the LRN
 forward within rtol 1e-5 / atol 1e-6 in float32 and rtol 2e-2 / atol 1e-2
 in bfloat16, the LRN backward within rtol 1e-5 / atol 1e-5 and rtol 2e-2 /
-atol 2e-2, where the plain version rounds to bfloat16 at every step.  The
+atol 2e-2, where the plain version rounds to bfloat16 at every step, also
+at the edges of their plan (bases off 16 bytes, odd planes, C below the
+window or off a multiple of the chunk, window sizes 1 and 4).  The
 quantized matmuls: K14 (int8 x int8) is bit-equal, also where it splits K
 (its last block of a tile adds the int32 partial sums); K13 (int8 and
 e4m3 weights) and K15 (int4) agree to 1e-4 of each output's sum of
@@ -89,14 +91,53 @@ def test_max_pool_kernel_is_bit_equal_to_plain(cuda_device, dtype, geom):
     assert torch.equal(max_pool2d(x, *geom), py)
 
 
+# (shape, (size, alpha, beta, k), placement) of the LRN kernels' cases:
+# the three pow forms, then the edges of ops/lrn.py lrn_plan (odd planes,
+# bases off 16 bytes, planes no multiple of 4 or 8 elements, C below the
+# window, C = 1, C off a multiple of the chunk, sizes 1 and 4, AlexNet's
+# LRNs); placement "slice" is x[1:] of a batch one image larger, "element
+# 1" a copy at element 1 of a larger tensor (dy too in the backward)
+LRN_CASES = {
+    "beta0.75": ((2, 7, 9, 13), (5, 1.0, 0.75, 1.0), None),
+    "beta0.5": ((2, 7, 9, 13), (4, 1.0, 0.5, 2.0), None),
+    "powf": ((2, 7, 9, 13), (3, 0.5, 1.0, 1.0), None),
+    "odd-hw-batch-slice": ((3, 7, 9, 13), (5, 1.0, 0.75, 1.0), "slice"),
+    "base-off-16-bytes": ((2, 9, 8, 8), (5, 1.0, 0.75, 1.0), "element 1"),
+    "hw-36": ((2, 9, 6, 6), (5, 1.0, 0.75, 1.0), None),
+    "hw-34": ((2, 9, 2, 17), (5, 1.0, 0.75, 1.0), None),
+    "c-3-below-size": ((2, 3, 8, 8), (5, 1.0, 0.75, 1.0), None),
+    "c-1": ((2, 1, 8, 8), (5, 1.0, 0.75, 1.0), None),
+    "c-7-off-the-chunk": ((4, 7, 16, 16), (5, 1.0, 0.75, 1.0), None),
+    "c-97": ((1, 97, 8, 8), (5, 1.0, 0.5, 2.0), None),
+    "size-1": ((2, 6, 8, 8), (1, 1.0, 0.75, 1.0), None),
+    "size-4-vectors": ((2, 11, 8, 8), (4, 1.0, 0.75, 2.0), None),
+    "alexnet-norm1": ((2, 96, 55, 55), (5, 1e-4, 0.75, 1.0), None),
+    "alexnet-norm2": ((2, 256, 27, 27), (5, 1e-4, 0.75, 1.0), None),
+}
+
+
+def _placed(t, placement):
+    """``t`` as the case places it (see LRN_CASES)."""
+    if placement == "slice":
+        big = torch.cat([torch.zeros_like(t[:1]), t])
+        return big[1:]
+    if placement == "element 1":
+        big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        big[1:].copy_(t.reshape(-1))
+        return big[1:].view(t.shape)
+    return t
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("params", [(5, 1.0, 0.75, 1.0), (4, 1.0, 0.5, 2.0),
-                                    (3, 0.5, 1.0, 1.0)],
-                         ids=["beta0.75", "beta0.5", "powf"])
-def test_lrn_kernel_matches_plain(cuda_device, dtype, params):
+@pytest.mark.parametrize("case", list(LRN_CASES.values()),
+                         ids=list(LRN_CASES))
+def test_lrn_kernel_matches_plain(cuda_device, dtype, case):
+    shape, params, placement = case
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = torch.randn((2, 7, 9, 13), generator=g,
-                    device=cuda_device).to(getattr(torch, dtype))
+    x = _placed(torch.randn(shape, generator=g,
+                            device=cuda_device).to(getattr(torch, dtype)),
+                placement)
+    assert x.is_contiguous()
     y, scale = cross_map_lrn(x, *params, return_scale=True)
     torch.cuda.synchronize()
     py, pscale = lrn_plain(x, *params)
@@ -104,6 +145,8 @@ def test_lrn_kernel_matches_plain(cuda_device, dtype, params):
         dict(rtol=2e-2, atol=1e-2)
     torch.testing.assert_close(y.float(), py.float(), **tol)
     torch.testing.assert_close(scale.float(), pscale.float(), **tol)
+    torch.testing.assert_close(cross_map_lrn(x, *params).float(), py.float(),
+                               **tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -189,14 +232,16 @@ def test_max_pool_kernels_hold_at_the_plan_edges(cuda_device, dtype, case):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("params", [(5, 1.0, 0.75, 1.0), (4, 1.0, 0.5, 2.0),
-                                    (3, 0.5, 1.0, 1.0)],
-                         ids=["beta0.75", "beta0.5", "powf"])
-def test_lrn_bwd_kernel_matches_plain(cuda_device, dtype, params):
+@pytest.mark.parametrize("case", list(LRN_CASES.values()),
+                         ids=list(LRN_CASES))
+def test_lrn_bwd_kernel_matches_plain(cuda_device, dtype, case):
+    shape, params, placement = case
     g = torch.Generator(device=cuda_device).manual_seed(3)
     dt = getattr(torch, dtype)
-    x = torch.randn((2, 7, 9, 13), generator=g, device=cuda_device).to(dt)
-    dy = torch.randn((2, 7, 9, 13), generator=g, device=cuda_device).to(dt)
+    x = _placed(torch.randn(shape, generator=g, device=cuda_device).to(dt),
+                placement)
+    dy = _placed(torch.randn(shape, generator=g, device=cuda_device).to(dt),
+                 placement)
     size, alpha, beta, k = params
     _, scale = cross_map_lrn(x, *params, return_scale=True)
     dx = lrn_bwd(x, scale, dy, size, alpha, beta)

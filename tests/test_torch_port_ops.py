@@ -22,7 +22,9 @@ from bigdl_tpu.ops import pooling as jpool
 from bigdl_tpu_torch.ops import (_build, cross_map_lrn, lrn_bwd_plain,
                                  lrn_plain, max_pool2d, max_pool2d_bwd_plain,
                                  max_pool2d_plain, pool_geometry)
+from bigdl_tpu_torch.ops import lrn as lrn_mod
 from bigdl_tpu_torch.ops import pooling
+from bigdl_tpu_torch.ops.lrn import lrn_plan
 from bigdl_tpu_torch.ops.pooling import _pool_out_size
 
 # the suite runs several pytest workers on one host: keep torch from
@@ -366,6 +368,210 @@ def test_lrn_plain_matches_pallas_kernel_and_reference(interpret, case):
     ref = jlrn.lrn_reference(jnp.asarray(x), size, alpha, beta, k)
     np.testing.assert_allclose(ty.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-6)
+
+
+# -- K2/K4's plan (ops/lrn.py lrn_plan) and their walk over it ---------------
+
+INCEPTION_LRNS = [("pool1/norm1", 64, 56 * 56),
+                  ("conv2/norm2", 192, 56 * 56)]
+
+# name, shape, size, the bytes every tensor is aligned to (0: one
+# element's, as a tensor at element 1 of a larger one is)
+LRN_EDGES = [
+    ("odd hw (AlexNet 55x55)", (2, 96, 55 * 55), 5, 16),
+    ("AlexNet 27x27", (2, 256, 27 * 27), 5, 16),
+    ("odd hw, base off 16 bytes", (3, 7, 9 * 13), 5, 0),
+    ("hw a multiple of 8, base off 16 bytes", (2, 9, 64), 5, 0),
+    ("hw a multiple of 8, base on 8 bytes", (2, 9, 64), 5, 8),
+    ("hw not a multiple of 8", (2, 9, 36), 5, 16),
+    ("hw not a multiple of 4", (2, 9, 34), 5, 16),
+    ("C < size", (2, 3, 64), 5, 16),
+    ("C = 1", (2, 1, 64), 5, 16),
+    ("C not a multiple of the chunk", (4, 7, 256), 5, 16),
+    ("C prime, many chunks", (1, 97, 64), 5, 16),
+    ("size 1", (2, 6, 64), 1, 16),
+    ("even size", (3, 7, 117), 4, 16),
+    ("even size, vectors", (2, 11, 64), 4, 16),
+    ("size 3", (2, 5, 135), 3, 16),
+]
+
+
+def _lrn_threads(plan, n, c):
+    """Each thread of the grid as the kernels place it: image, first
+    channel, channels and pixel vector."""
+    t = np.arange(n * plan.chunks * plan.vecs)
+    v, r = t % plan.vecs, t // plan.vecs
+    c0 = r % plan.chunks * plan.chunk
+    return r // plan.chunks, c0, np.minimum(plan.chunk, c - c0), v
+
+
+def _lrn_reads(c0, nout, size, c, backward):
+    """The channels a chunk's walk loads: its outputs' windows, [c - lo,
+    c + hi] in K2 and [c - hi, c + lo] in K4, within [0, c)."""
+    lo = (size - 1) // 2
+    hi = size - 1 - lo
+    before, after = (hi, lo) if backward else (lo, hi)
+    return range(max(0, c0 - before), min(c, c0 + nout + after))
+
+
+def _hold_lrn_plan(shape, size, dtype, align, backward):
+    """lrn_plan at one case: the vector the settings and the alignment
+    allow, every (image, channel, pixel) written by exactly one thread,
+    each chunk's halo the size - 1 channels its windows reach, a block
+    size the kernels take."""
+    n, c, hw = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    align = align or itemsize
+    plan = lrn_plan(n, c, hw, size, dtype, align, backward)
+    # the widest vector within the setting that hw and the alignment allow
+    most = lrn_mod.LRN_VECTOR_BYTES["bwd" if backward else "fwd"]
+    fits = [b // itemsize for b in (4, 8, 16) if itemsize < b <= most and
+            b <= align and hw % (b // itemsize) == 0]
+    assert plan.vec == max(fits, default=1)
+    assert plan.vecs * plan.vec == hw or plan.vec == 1 and plan.vecs == hw
+    assert plan.variant == ("size 5" if size == 5 else "generic")
+    assert plan.chunks == -(-c // plan.chunk)
+    assert plan.blocks == -(-n * plan.chunks * plan.vecs // plan.threads)
+    assert plan.threads % 32 == 0 and plan.threads <= 256
+    b, c0, nout, v = _lrn_threads(plan, n, c)
+    assert (nout >= 1).all()
+    written = np.zeros((n, c), dtype=np.int64)   # pixel vectors a channel
+    for k in range(plan.chunks):
+        sel = c0 == k * plan.chunk
+        np.add.at(written, (b[sel][:, None],
+                            k * plan.chunk + np.arange(nout[sel][0])), 1)
+        assert np.array_equal(np.sort(v[sel].reshape(n, -1), axis=1),
+                              np.tile(np.arange(plan.vecs), (n, 1)))
+    assert (written == plan.vecs).all()
+    for k in range(plan.chunks):
+        first, cnt = k * plan.chunk, min(plan.chunk, c - k * plan.chunk)
+        for backward in (False, True):
+            reads = _lrn_reads(first, cnt, size, c, backward)
+            # the halo: size - 1 channels, less those past either end of C
+            lo = (size - 1) // 2
+            before, after = ((size - 1 - lo, lo) if backward else
+                             (lo, size - 1 - lo))
+            assert len(reads) - cnt == min(before, first) + \
+                min(after, c - first - cnt)
+            for ch in range(first, first + cnt):
+                assert set(range(max(0, ch - before),
+                                 min(c, ch + after + 1))) <= set(reads)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("batch", [8, 32])
+@pytest.mark.parametrize("layer", INCEPTION_LRNS,
+                         ids=[x[0] for x in INCEPTION_LRNS])
+def test_lrn_plan_holds_at_the_inception_lrns(layer, batch, dtype):
+    _, c, hw = layer
+    for backward in (False, True):
+        plan = _hold_lrn_plan((batch, c, hw), 5, dtype, 16, backward)
+        # the size-5 instantiation, and a grid within a fifth of the
+        # plan's aim (chunks evened out over C) unless the least chunk
+        # stops it, two blocks an SM or more
+        assert plan.variant == "size 5"
+        threads = batch * plan.chunks * plan.vecs
+        aim = lrn_mod.LRN_THREADS_PER_SM["bwd" if backward else "fwd"]
+        assert threads >= 0.8 * min(
+            aim * 132, batch * plan.vecs * -(-c // lrn_mod.LRN_MIN_CHUNK))
+        assert plan.blocks >= 2 * 132
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", LRN_EDGES,
+                         ids=[e[0].replace(" ", "-") for e in LRN_EDGES])
+def test_lrn_plan_holds_at_its_edges(case, dtype):
+    name, shape, size, align = case
+    for backward in (False, True):
+        plan = _hold_lrn_plan(shape, size, dtype, align, backward)
+        if "off 16 bytes" in name or "odd hw" in name:  # one pixel a thread
+            assert plan.vec == 1
+        if name.startswith("C not a multiple") or name.startswith("C prime"):
+            assert shape[1] % plan.chunk != 0
+        # a small case is written exactly once, cell by cell
+        n, c, hw = shape
+        b, c0, nout, v = _lrn_threads(plan, n, c)
+        cells = np.zeros((n, c, hw), dtype=np.int64)
+        for t in range(len(b)):
+            cells[b[t], c0[t]:c0[t] + nout[t],
+                  v[t] * plan.vec:(v[t] + 1) * plan.vec] += 1
+        assert (cells == 1).all()
+
+
+def _walk(plan, x, size, alpha, beta, k, scale=None, dy=None):
+    """K2 (or, given ``scale`` and ``dy``, K4) as ``csrc/lrn.cu`` walks its
+    plan at a window fixed at compile time, every thread of a chunk at
+    once: the chunk's input planes enter LRN_GROUP at a time as zeros
+    outside [0, C) (scale 1), the window stays in a list of slots, each
+    output sums its slots in the kernel's order.  Plain PyTorch ops in the
+    plain versions' arithmetic, so the result is theirs, bit for bit."""
+    n, c, h, w = x.shape
+    xs = x.reshape(n, c, h * w)
+    lo = (size - 1) // 2
+    hi = size - 1 - lo
+    back = dy is not None
+    out = [torch.empty_like(xs) for _ in range(1 if back else 2)]
+    group = lrn_mod.LRN_GROUP
+
+    def enter(j, want):
+        if not (want and 0 <= j < c):
+            zero = torch.zeros_like(xs[:, 0])
+            return (zero, zero + 1.0, zero) if back else zero
+        if not back:
+            return xs[:, j]
+        sv, xv = scale.reshape(n, c, -1)[:, j], xs[:, j]
+        dv = dy.reshape(n, c, -1)[:, j]
+        pb = lrn_mod._neg_pow(sv, beta)
+        return dv * xv * pb / sv, pb, xv, dv
+
+    for c0 in range(0, c, plan.chunk):
+        nout = min(plan.chunk, c - c0)
+        first = c0 - (hi if back else lo)
+        slots = [enter(first + i, True) for i in range(size - 1)]
+        for o0 in range(0, nout, group):
+            slots += [enter(first + o0 + size - 1 + u, o0 + u < nout)
+                      for u in range(group)]
+            for u in range(min(group, nout - o0)):
+                acc = torch.zeros_like(xs[:, 0])
+                if back:
+                    for i in range(size):
+                        acc = acc + slots[u + i][0]
+                    _, pb, xv, dv = slots[u + hi]
+                    out[0][:, c0 + o0 + u] = \
+                        dv * pb - 2.0 * (alpha / size) * beta * xv * acc
+                    continue
+                for i in range(size):
+                    acc = acc + slots[u + i] * slots[u + i]
+                sc = k + (alpha / size) * acc
+                out[0][:, c0 + o0 + u] = slots[u + lo] * \
+                    lrn_mod._neg_pow(sc, beta)
+                out[1][:, c0 + o0 + u] = sc
+            slots = slots[group:]
+    return [o.reshape(x.shape) for o in out]
+
+
+@pytest.mark.parametrize("case", LRN_EDGES + [
+    ("Inception's parameters", (2, 24, 20), 5, 16)],
+    ids=[e[0].replace(" ", "-") for e in LRN_EDGES] + ["inception-params"])
+def test_lrn_walk_gives_the_plain_versions_bits(case):
+    name, (n, c, hw), size, align = case
+    alpha, beta, k = (1e-4, 0.75, 1.0) if "Inception" in name else \
+        (1.0, (0.75, 0.5, 1.0)[c % 3], 2.0)
+    plan = lrn_plan(n, c, hw, size, torch.float32, align or 4)
+    rng = np.random.RandomState(c)
+    x = torch.from_numpy(rng.standard_normal((n, c, 1, hw))
+                         .astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((n, c, 1, hw))
+                          .astype(np.float32))
+    y, scale = _walk(plan, x, size, alpha, beta, k)
+    py, pscale = lrn_plain(x, size, alpha, beta, k)
+    assert torch.equal(y, py) and torch.equal(scale, pscale)
+    (dx,) = _walk(lrn_plan(n, c, hw, size, torch.float32, align or 4,
+                           backward=True), x, size, alpha, beta, k, scale, dy)
+    assert torch.equal(dx, lrn_bwd_plain(x, scale, dy, size, alpha, beta))
 
 
 def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
