@@ -11,6 +11,11 @@ Seeding: leaf layers implement ``reset_parameters(gen)``; :meth:`Module.reset`
 walks the tree in order with one explicit ``torch.Generator``.  Layers that
 draw in training (``Dropout``) use the generator that
 :meth:`Module.set_generator` hands to every layer of the tree.
+
+Run-time state (BatchNorm's running statistics) lives in buffers that a
+layer names in ``STATE``; :meth:`Module.state_tree` gives them in the JAX
+package's module-state layout and :meth:`Module.load_state_tree` copies
+such a tree back.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ def seeded(seed: int = 0) -> torch.Generator:
 
 class Module(nn.Module):
     """Base class for all layers of the port."""
+
+    # names of this layer's own buffers that are run-time state
+    STATE: tuple = ()
 
     def __init__(self) -> None:
         super().__init__()
@@ -114,17 +122,28 @@ class Module(nn.Module):
 
     def state_tree(self):
         """This layer's run-time state as the JAX package's module-state
-        pytree.  No layer of the port keeps run-time state, so it is the
-        reference's empty state: a dict over the children that hold
-        parameters (a child list as a list), ``()`` for a layer without
-        any."""
-        tree = {}
+        pytree: a dict of its own ``STATE`` buffers and of its children
+        that hold parameters or state (a child list as a list), ``()``
+        for a layer without any."""
+        tree = {k: self._buffers[k] for k in self.STATE}
         for k, c in self._modules.items():
-            if c is None or not any(True for _ in c.parameters()):
+            if c is None or not (any(True for _ in c.parameters())
+                                 or _holds_state(c)):
                 continue
             tree[k] = [m.state_tree() for m in c] \
                 if isinstance(c, nn.ModuleList) else c.state_tree()
         return tree or ()
+
+    def state_leaves(self):
+        """State buffers in the JAX package's pytree leaf order."""
+        return tree_leaves(self.state_tree())
+
+    def load_state_tree(self, tree) -> "Module":
+        """Copy a tree shaped like :meth:`state_tree` (tensors or arrays)
+        into this model's state buffers; ``convert.load_jax_state`` checks
+        structure, names and shapes first."""
+        from bigdl_tpu_torch.convert import load_jax_state
+        return load_jax_state(self, tree)
 
     def param_leaves(self):
         """Parameters in the JAX package's pytree leaf order."""
@@ -163,6 +182,17 @@ class Container(Module):
     def state_tree(self):
         """A list of the children's states, in order."""
         return [m.state_tree() for m in self.layers]
+
+
+def _holds_state(module: nn.Module) -> bool:
+    return any(getattr(m, "STATE", ()) for m in module.modules())
+
+
+def state_buffer_names(model: nn.Module) -> set:
+    """Qualified names (as ``named_buffers`` gives them) of the model's
+    run-time state buffers."""
+    return {f"{p}.{k}" if p else k for p, m in model.named_modules()
+            for k in getattr(m, "STATE", ())}
 
 
 def tree_leaves(tree):

@@ -1,8 +1,13 @@
 """Model builders of the port."""
 
-from bigdl_tpu_torch.models.inception import Inception_v1, inception_module
+from bigdl_tpu_torch.models.inception import (Inception_v1, Inception_v2,
+                                              inception_module,
+                                              inception_module_v2)
 from bigdl_tpu_torch.models.lenet import LeNet5
+from bigdl_tpu_torch.models.resnet import (ResNet, basic_block, bottleneck,
+                                           cifar10_decay)
 from bigdl_tpu_torch.models.transformer import TransformerBlock, TransformerLM
 
-__all__ = ["Inception_v1", "LeNet5", "TransformerBlock", "TransformerLM",
-           "inception_module"]
+__all__ = ["Inception_v1", "Inception_v2", "LeNet5", "ResNet",
+           "TransformerBlock", "TransformerLM", "basic_block", "bottleneck",
+           "cifar10_decay", "inception_module", "inception_module_v2"]

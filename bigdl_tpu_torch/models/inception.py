@@ -1,4 +1,5 @@
-"""Inception v1 / GoogLeNet (``bigdl_tpu/models/inception.py``).
+"""Inception v1 / GoogLeNet and Inception v2 / BN-Inception
+(``bigdl_tpu/models/inception.py``).
 
 Input is NCHW 3x224x224; output LogSoftMax over ``class_num``.  Layer names
 follow the caffe GoogLeNet convention, as in the reference.  The builder
@@ -103,3 +104,83 @@ def Inception_v1(class_num: int = 1000,
               .set_name("loss3/classifier"))
          .add(nn.LogSoftMax().set_name("loss3/loss3")))
     return m
+
+
+def _conv_bn(ni, no, kw, kh, sw=1, sh=1, pw=0, ph=0):
+    """Conv (no bias: the BN cancels it), BN (eps 1e-3), ReLU."""
+    return (nn.Sequential()
+            .add(nn.SpatialConvolution(ni, no, kw, kh, sw, sh, pw, ph,
+                                       init_method=init_methods.XAVIER,
+                                       with_bias=False))
+            .add(nn.SpatialBatchNormalization(no, 1e-3))
+            .add(nn.ReLU(True)))
+
+
+def _conv_bn_into(seq, ni, no, stride):
+    """A 3x3 pad-1 conv, BN and ReLU appended to ``seq``."""
+    return (seq.add(nn.SpatialConvolution(ni, no, 3, 3, stride, stride, 1, 1,
+                                          init_method=init_methods.XAVIER,
+                                          with_bias=False))
+            .add(nn.SpatialBatchNormalization(no, 1e-3))
+            .add(nn.ReLU(True)))
+
+
+def inception_module_v2(input_size: int, c1: int, c3r: int, c3: int,
+                        c5r: int, c5: int, pool_proj: int,
+                        pool: str = "avg", stride: int = 1) -> nn.Concat:
+    """The BN-Inception block (``Inception_v2.scala``): the 5x5 branch is
+    two stacked 3x3s; a stride-2 reduction block has no 1x1 branch and
+    pools without padding (padding would give 15x15 beside the conv
+    branches' 14x14)."""
+    concat = nn.Concat(2)
+    if c1 > 0:
+        concat.add(_conv_bn(input_size, c1, 1, 1))
+    concat.add(_conv_bn_into(_conv_bn(input_size, c3r, 1, 1), c3r, c3,
+                             stride))
+    b3 = _conv_bn_into(_conv_bn(input_size, c5r, 1, 1), c5r, c5, 1)
+    concat.add(_conv_bn_into(b3, c5, c5, stride))
+    pool_branch = nn.Sequential()
+    if pool == "avg":
+        pool_branch.add(nn.SpatialAveragePooling(3, 3, stride, stride, 1, 1,
+                                                 ceil_mode=True))
+    elif stride == 1:
+        pool_branch.add(nn.SpatialMaxPooling(3, 3, 1, 1, 1, 1).ceil())
+    else:
+        pool_branch.add(nn.SpatialMaxPooling(3, 3, stride, stride).ceil())
+    if pool_proj > 0:
+        pool_branch.add(nn.SpatialConvolution(
+            input_size, pool_proj, 1, 1, init_method=init_methods.XAVIER,
+            with_bias=False))
+        pool_branch.add(nn.SpatialBatchNormalization(pool_proj, 1e-3))
+        pool_branch.add(nn.ReLU(True))
+    concat.add(pool_branch)
+    return concat
+
+
+def Inception_v2(class_num: int = 1000) -> nn.Sequential:
+    """BN-Inception: five max pools (K1 on the card), seven 3x3 ceil-mode
+    average pools, 69 BatchNorms."""
+    return (nn.Sequential()
+            .add(_conv_bn(3, 64, 7, 7, 2, 2, 3, 3))
+            .add(nn.SpatialMaxPooling(3, 3, 2, 2).ceil())
+            .add(_conv_bn(64, 64, 1, 1))
+            .add(_conv_bn(64, 192, 3, 3, 1, 1, 1, 1))
+            .add(nn.SpatialMaxPooling(3, 3, 2, 2).ceil())
+            .add(inception_module_v2(192, 64, 64, 64, 64, 96, 32))   # ->256
+            .add(inception_module_v2(256, 64, 64, 96, 64, 96, 64))   # ->320
+            .add(inception_module_v2(320, 0, 128, 160, 64, 96, 0,
+                                     pool="max", stride=2))          # ->576
+            .add(inception_module_v2(576, 224, 64, 96, 96, 128, 128))
+            .add(inception_module_v2(576, 192, 96, 128, 96, 128, 128))
+            .add(inception_module_v2(576, 160, 128, 160, 128, 160, 96))
+            .add(inception_module_v2(576, 96, 128, 192, 160, 192, 96))
+            .add(inception_module_v2(576, 0, 128, 192, 192, 256, 0,
+                                     pool="max", stride=2))          # ->1024
+            .add(inception_module_v2(1024, 352, 192, 320, 160, 224, 128))
+            .add(inception_module_v2(1024, 352, 192, 320, 192, 224, 128,
+                                     pool="max"))
+            .add(nn.SpatialAveragePooling(7, 7, 1, 1))
+            .add(nn.View(1024).set_num_input_dims(3))
+            .add(nn.Linear(1024, class_num,
+                           init_method=init_methods.XAVIER))
+            .add(nn.LogSoftMax()))

@@ -36,6 +36,18 @@ class ClassNLLCriterion(Module):
         return total / denom if self.size_average else total
 
 
+class CrossEntropyCriterion(Module):
+    """``log_softmax`` over the last axis, then :class:`ClassNLLCriterion`
+    (``nn/CrossEntropyCriterion.scala``)."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        super().__init__()
+        self.nll = ClassNLLCriterion(weights, size_average)
+
+    def forward(self, input, target):
+        return self.nll(torch.log_softmax(input, dim=-1), target)
+
+
 class TimeDistributedCriterion(Module):
     """``criterion`` at every time step of (N, T, ...) input and (N, T)
     target, summed over the steps (divided by T when ``size_average``).

@@ -1,10 +1,12 @@
-"""Reshape and View (``bigdl_tpu/nn/shape_ops.py``), with the reference's
-batch-dimension inference."""
+"""Reshape, View and Padding (``bigdl_tpu/nn/shape_ops.py``), with the
+reference's batch-dimension inference."""
 
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
+
+import torch.nn.functional as F
 
 from bigdl_tpu_torch.core.module import Module
 
@@ -66,3 +68,24 @@ class View(Module):
             if total != n and total % n == 0:
                 return input.reshape((total // n,) + self.sizes)
         return input.reshape(self.sizes)
+
+
+class Padding(Module):
+    """Pad ``pad`` entries (negative = before) of ``value`` on the 1-based
+    dimension ``dim`` of an ``n_input_dim``-dimensional sample; a batched
+    input (more dimensions) shifts the axis (``nn/Padding.scala``)."""
+
+    def __init__(self, dim: int, pad: int, n_input_dim: int,
+                 value: float = 0.0, n_index: int = 1):
+        super().__init__()
+        self.dim, self.pad = dim, pad
+        self.n_input_dim = n_input_dim
+        self.value = value
+
+    def forward(self, input):
+        ax = self.dim - 1
+        if 0 < self.n_input_dim < input.dim():
+            ax += input.dim() - self.n_input_dim
+        widths = [0, 0] * (input.dim() - ax)
+        widths[-2:] = (-self.pad, 0) if self.pad < 0 else (0, self.pad)
+        return F.pad(input, widths, value=self.value)

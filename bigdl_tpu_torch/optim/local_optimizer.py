@@ -217,10 +217,14 @@ class LocalOptimizer:
                epoch=self.state.get("epoch", 1))
         return float(sched.current_rate(cfg, st))
 
-    def _step(self, params, data, labels, clr: float,
-              stepno: int) -> torch.Tensor:
+    def _step(self, params, data, labels, clr: float, stepno: int,
+              state=()) -> torch.Tensor:
         """Forward, backward and update in place; returns the loss on the
-        device, NaN when the guard kept the previous weights."""
+        device, NaN when the guard kept the previous weights and the
+        previous module ``state`` (the running statistics a training
+        forward moves in place)."""
+        if self.skip_nonfinite:
+            old_state = [b.clone() for b in state]
         if self.mixed_precision:
             y = mixed_forward(self.model, data)
         else:
@@ -245,6 +249,8 @@ class LocalOptimizer:
                                  for a, b in zip(v, self.opt_state[k])]
                              for k, v in opt_state.items()}
                 loss = torch.where(ok, loss, torch.full_like(loss, math.nan))
+                for b, o in zip(state, old_state):
+                    b.copy_(torch.where(ok, b, o))
             for p, a in zip(old, new):
                 p.copy_(a)
             self.opt_state = opt_state
@@ -340,6 +346,7 @@ class LocalOptimizer:
         self._restore_generator()
         model.set_generator(self._generator)
         params = list(model.param_leaves())
+        state = list(model.state_leaves())
         if self._resume_opt_state is not None:
             self.opt_state = {
                 k: [_to_device(a, self.device) for a in tree_leaves(v)]
@@ -375,7 +382,8 @@ class LocalOptimizer:
             data = _to_device(batch.data, self.device)
             labels = _to_device(batch.labels, self.device)
             clr = self._current_clr()
-            loss = float(self._step(params, data, labels, clr, stepno))
+            loss = float(self._step(params, data, labels, clr, stepno,
+                                    state))
             dt = time.time() - t0
             if self.skip_nonfinite and math.isnan(loss):
                 self._record_skipped_step()
@@ -432,8 +440,9 @@ class LocalOptimizer:
 
 def _evaluate(model, dataset, methods, device):
     """Shared evaluation loop (``optim/Validator.scala`` role): an eval-mode
-    float32 forward per batch under ``inference_mode``, the model's mode
-    restored after.  An empty dataset returns []."""
+    float32 forward per batch under ``inference_mode`` (BatchNorm reads its
+    running statistics and moves none), the model's mode restored after.
+    An empty dataset returns []."""
     was_training = model.training
     model.evaluate()
     results = None

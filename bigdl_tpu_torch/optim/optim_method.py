@@ -1,12 +1,14 @@
-"""Optimization methods (``bigdl_tpu/optim/optim_method.py``): SGD, Adam and
-the learning-rate schedules, Warmup among them.
+"""Optimization methods (``bigdl_tpu/optim/optim_method.py``): SGD, Adam
+(AdamW as its decoupled-decay flag), Adagrad and the learning-rate
+schedules.
 
-Parity: ``optim/SGD.scala:26-209``; Adam and Warmup have no Scala
-counterpart and follow the JAX package.  ``clr`` is the NEGATIVE current rate
-(``w + clr * g``), evaluated on the host by the schedule and handed to the
-update in ``config["clr"]``; without it the update applies the ``Default``
-schedule on the step counter.  ``torch.optim.SGD`` is not used: its sign
-convention and its first momentum step differ (see :meth:`SGD.update`).
+Parity: ``optim/SGD.scala:26-209``, ``optim/Adagrad.scala``; Adam, AdamW,
+Warmup and Cosine have no Scala counterpart and follow the JAX package.
+``clr`` is the NEGATIVE current rate (``w + clr * g``), evaluated on the
+host by the schedule and handed to the update in ``config["clr"]``;
+without it the update applies the ``Default`` schedule on the step
+counter.  ``torch.optim.SGD`` is not used: its sign convention and its
+first momentum step differ (see :meth:`SGD.update`).
 
 ``params`` and ``grads`` are lists of tensors in the model's leaf order;
 the update is plain tensor code under ``torch.no_grad()`` and returns new
@@ -15,7 +17,8 @@ tensors, so the caller can keep the old ones (the non-finite guard does).
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Callable, Optional
 
 import torch
 
@@ -91,25 +94,79 @@ class EpochStep(LearningRateSchedule):
         return -lr * self.gamma ** ((epoch - 1) // self.step_size)
 
 
+class EpochDecay(LearningRateSchedule):
+    """clr = -lr * 0.1^decay_fn(epoch)."""
+
+    def __init__(self, decay_fn: Callable[[int], float]):
+        self.decay_fn = decay_fn
+
+    def current_rate(self, config, state):
+        lr = config.get("learningRate", 1e-3)
+        return -lr * (0.1 ** self.decay_fn(state.get("epoch", 1)))
+
+
+class Regime:
+    """Hyperparameters ``config`` for the epochs ``start_epoch`` to
+    ``end_epoch`` (both included)."""
+
+    def __init__(self, start_epoch: int, end_epoch: int, config: Table):
+        self.start_epoch, self.end_epoch = start_epoch, end_epoch
+        self.config = config
+
+
+class EpochSchedule(LearningRateSchedule):
+    """Per-epoch-range regimes (``SGD.EpochSchedule``): each regime that
+    holds the epoch updates the config, and the rate is its
+    ``learningRate``."""
+
+    def __init__(self, regimes):
+        self.regimes = list(regimes)
+
+    def current_rate(self, config, state):
+        epoch = state.get("epoch", 1)
+        for r in self.regimes:
+            if r.start_epoch <= epoch <= r.end_epoch:
+                config.update_(r.config)
+        return -config.get("learningRate", 1e-3)
+
+
 class Warmup(LearningRateSchedule):
     """Linear warmup: clr = -lr * (iter + 1) / warmup_iterations for the
     first ``warmup_iterations`` iterations (``evalCounter``, 0-based), then
-    -lr.  The reference's ``after`` (a schedule taking over at the end of
-    the ramp) comes with the other schedules of the optim-methods slice."""
+    ``after`` with the counter re-zeroed at the boundary (so a decay starts
+    from the peak), or -lr without it."""
 
-    def __init__(self, warmup_iterations: int, after=None):
-        if after is not None:
-            raise NotImplementedError(
-                "Warmup(after=...) comes with the optim-methods slice of the "
-                "port (EpochDecay, EpochSchedule, Cosine)")
+    def __init__(self, warmup_iterations: int,
+                 after: Optional[LearningRateSchedule] = None):
         self.warmup_iterations = warmup_iterations
+        self.after = after
 
     def current_rate(self, config, state):
         lr = config.get("learningRate", 1e-3)
         it = state.get("evalCounter", 0)
         if it < self.warmup_iterations:
             return -lr * (it + 1) / self.warmup_iterations
+        if self.after is not None:
+            shifted = T()
+            shifted.update_(state)
+            shifted["evalCounter"] = it - self.warmup_iterations
+            return self.after.current_rate(config, shifted)
         return -lr
+
+
+class Cosine(LearningRateSchedule):
+    """Cosine decay from lr to ``min_ratio * lr`` over ``max_iteration``
+    iterations, the floor held after."""
+
+    def __init__(self, max_iteration: int, min_ratio: float = 0.0):
+        self.max_iteration = max_iteration
+        self.min_ratio = min_ratio
+
+    def current_rate(self, config, state):
+        lr = config.get("learningRate", 1e-3)
+        it = min(state.get("evalCounter", 0), self.max_iteration)
+        cos = 0.5 * (1 + math.cos(math.pi * it / self.max_iteration))
+        return -lr * (self.min_ratio + (1 - self.min_ratio) * cos)
 
 
 class SGD(OptimMethod):
@@ -174,20 +231,23 @@ class SGD(OptimMethod):
 
 
 class Adam(OptimMethod):
-    """Adam with bias correction (Kingma & Ba), ``weight_decay`` added to
-    the gradient (L2, not decoupled), ``eps`` outside the bias-corrected
-    square root; the rate comes from ``learning_rate_schedule`` through
-    ``config["clr"]`` as SGD's does."""
+    """Adam with bias correction (Kingma & Ba), ``eps`` outside the
+    bias-corrected square root; the rate comes from
+    ``learning_rate_schedule`` through ``config["clr"]`` as SGD's does.
+    ``weight_decay`` is added to the gradient (L2), or with ``decoupled``
+    taken off the weight after the step (``new -= lr * wd * w``, Loshchilov
+    & Hutter; :class:`AdamW`)."""
 
     def __init__(self, learning_rate: float = 1e-3, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
                  weight_decay: float = 0.0,
                  learning_rate_schedule: Optional[LearningRateSchedule]
-                 = None):
+                 = None, decoupled: bool = False):
         self.defaults = T(learningRate=learning_rate, beta1=beta1,
                           beta2=beta2, epsilon=epsilon,
                           weightDecay=weight_decay)
         self.schedule = learning_rate_schedule or Default()
+        self.decoupled = decoupled
 
     def init_state(self, params):
         return {"m": [torch.zeros_like(p) for p in params],
@@ -203,7 +263,7 @@ class Adam(OptimMethod):
         wd = c.get("weightDecay", 0.0)
         clr = c.get("clr", None)
         lr = -clr if clr is not None else c.get("learningRate", 1e-3)
-        if wd > 0:
+        if wd > 0 and not self.decoupled:
             grads = [g + wd * w for g, w in zip(grads, params)]
         m = [b1 * mm + (1 - b1) * g for mm, g in zip(opt_state["m"], grads)]
         v = [b2 * vv + (1 - b2) * g * g
@@ -212,4 +272,47 @@ class Adam(OptimMethod):
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
         new_params = [w - (lr / bc1) * mm / (torch.sqrt(vv / bc2) + eps)
                       for w, mm, vv in zip(params, m, v)]
+        if wd > 0 and self.decoupled:
+            new_params = [n - lr * wd * w for n, w in zip(new_params, params)]
         return new_params, {"m": m, "v": v}
+
+
+def AdamW(learning_rate: float = 1e-3, beta1: float = 0.9,
+          beta2: float = 0.999, epsilon: float = 1e-8,
+          weight_decay: float = 0.01,
+          learning_rate_schedule: Optional[LearningRateSchedule] = None
+          ) -> Adam:
+    """:class:`Adam` with decoupled weight decay (0.01 by default)."""
+    return Adam(learning_rate, beta1, beta2, epsilon, weight_decay,
+                learning_rate_schedule, decoupled=True)
+
+
+class Adagrad(OptimMethod):
+    """Accumulated squared gradients (``optim/Adagrad.scala``): the rate
+    lr / (1 + step * lrDecay) from the step counter, the update
+    ``w - clr * g / (sqrt(v) + 1e-10)``."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 learning_rate_decay: float = 0.0,
+                 weight_decay: float = 0.0):
+        self.defaults = T(learningRate=learning_rate,
+                          learningRateDecay=learning_rate_decay,
+                          weightDecay=weight_decay)
+
+    def init_state(self, params):
+        return {"variance": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def update(self, grads, params, opt_state, config: Table, step: int):
+        c = self.defaults.clone()
+        if config:
+            c.update_(config)
+        wd = c.get("weightDecay", 0.0)
+        if wd > 0:
+            grads = [g + wd * w for g, w in zip(grads, params)]
+        clr = c.get("learningRate", 1e-3) / \
+            (1 + step * c.get("learningRateDecay", 0.0))
+        var = [v + g * g for v, g in zip(opt_state["variance"], grads)]
+        new_params = [w - clr * g / (torch.sqrt(v) + 1e-10)
+                      for w, g, v in zip(params, grads, var)]
+        return new_params, {"variance": var}

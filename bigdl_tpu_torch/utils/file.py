@@ -4,8 +4,9 @@ Parity: ``utils/File.scala:27-131``.  A snapshot is a pickle (protocol 4)
 of a tree of host numpy arrays and plain Python values: tensors are
 brought to the host as numpy before the pickle, so a file holds no torch
 object and has one format in both packages.  A ``model.<n>`` snapshot is
-``{"params", "model_state"}`` with ``params`` the JAX package's pytree
-(``convert.export_params``).  Local paths are published atomically
+``{"params", "model_state"}`` with ``params`` and ``model_state`` the JAX
+package's pytrees (``convert.export_params``, ``convert.export_state``).
+Local paths are published atomically
 (``durable_io.atomic_write_bytes``: a tmp file per writer, fsynced and
 renamed); a ``scheme://`` path goes through an opener given to
 :func:`register_filesystem`, else through ``fsspec`` where it is installed.
@@ -138,18 +139,33 @@ def tree_structure(tree: Any):
 def load_model_snapshot(model, path: str):
     """Restore a ``model.<neval>`` snapshot (``{"params", "model_state"}``)
     into ``model``, the resume path every train and test entry point
-    shares.  The snapshot's params tree must have the structure of the
-    model's (``convert.export_params``): a mismatched tree (a snapshot of
-    another builder or version) raises ``ValueError``, and nothing is
-    copied.  Leaf shapes are checked as they are copied."""
-    from bigdl_tpu_torch.convert import export_params, load_jax_params
+    shares.  The snapshot's params and module-state trees must have the
+    structure of the model's (``convert.export_params``,
+    ``convert.export_state``): a mismatched tree (a snapshot of another
+    builder or version) raises ``ValueError``, and nothing is copied.
+    Leaf shapes are checked before anything is copied.  A model without
+    state (no BatchNorm) takes the snapshot's state only when that holds
+    no leaf either."""
+    from bigdl_tpu_torch.convert import (_copy, _pairs, export_params,
+                                         export_state)
+    from bigdl_tpu_torch.core.module import tree_leaves
 
     snap = File.load(path)
-    want = tree_structure(export_params(model))
-    got = tree_structure(snap["params"])
-    if want != got:
-        raise ValueError(
-            f"snapshot {path!r} does not match the model architecture: "
-            f"snapshot params tree {got} != model params tree {want}. "
-            "Was it saved by a different model builder/version?")
-    return load_jax_params(model, snap["params"])
+    state = snap.get("model_state", ())
+    stateful = any(True for _ in tree_leaves(model.state_tree()))
+    trees = [("params", export_params(model), snap["params"])]
+    if stateful or any(True for _ in tree_leaves(state)):
+        trees.append(("model_state", export_state(model), state))
+    for key, mine, theirs in trees:
+        want, got = tree_structure(mine), tree_structure(theirs)
+        if want != got:
+            raise ValueError(
+                f"snapshot {path!r} does not match the model architecture: "
+                f"snapshot {key} tree {got} != model {key} tree {want}. "
+                "Was it saved by a different model builder/version?")
+    # every shape is checked before the first copy
+    pairs = _pairs(model.param_tree(), snap["params"], "params")
+    if stateful:
+        pairs += _pairs(model.state_tree(), state, "state", "state")
+    _copy(pairs)
+    return model

@@ -11,7 +11,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    every kernel from ``bigdl_tpu_torch/csrc``;
 2. every forward kernel (K1 max pool, K2 LRN) against its plain PyTorch
    version on the card, at the shapes full-width Inception-v1 gives it at
-   batch 32 and at ragged shapes, in float32 and bfloat16; K2 also at the
+   batch 32 (K1 also at ResNet-50's stem pool and Inception-v2's five
+   pools, ``RESNET_POOLS`` and ``V2_POOLS``) and at ragged shapes, in
+   float32 and bfloat16; K2 also at the
    edges of its plan (``RAGGED_LRNS``: odd planes, planes no multiple of
    16 bytes, a batch slice off 16 bytes, C below the window, C = 1, C off
    a multiple of the chunk, sizes 1 and 4, AlexNet's two LRNs), logging
@@ -198,6 +200,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
    elements) of two float32 SGD steps of 3h's model compressed by K5,
    summed by K7 and widened by K6, one launch each a call: bit-equal to the plain chain,
    each gradient's round trip within 2^-7 of each value;
+3l. ResNet-50 (``ResNet(1000, 50, "B", "imagenet")``, seeded weights, its
+   BN statistics set by one training-mode forward over 8 seeded images, as
+   a trained model has them) behind ``InferenceServer(DLClassifier(...),
+   batch_buckets=(8, 32))`` in float32 with 3's waves: answers equal to
+   ``DLClassifier.predict``, 2 rows against a CPU copy (log-probs within
+   1e-3), exactly 1 K1 a forward; one bf16 eval forward of 2 rows against
+   the CPU's, within the CPU's own bf16 error (its bf16 logits against its
+   f32 ones); then ``models/resnet.py`` ``train_main``'s recipe (SGD 0.1,
+   weight decay 1e-4, momentum 0.9, nesterov, ``EpochDecay(cifar10_decay)``,
+   ``CrossEntropyCriterion``) in bf16 mixed precision, 30 steps at batch 32,
+   validated every 10: finite losses, none skipped, 1 K1 + 1 K3 a step and
+   1 K1 a validation forward, every BN layer's running statistics f32,
+   finite and moved from 0 and 1; then 2 f32 steps at batch 2 on the card
+   and on the CPU: step 1's loss and statistics within 1e-4, later
+   quantities within 4 times the CPU's distance from itself under a one-ulp
+   change of its input (the gradient at random init amplifies rounding);
+3m. Inception-v2 (BN-Inception) the same way: one f32 serving wave at each
+   bucket (5 K1 a forward), ``models/inception.py`` ``train_main``'s recipe
+   (SGD 0.01, weight decay 2e-4, momentum 0.9, ``Poly(0.5)``,
+   ``ClassNLLCriterion``) in bf16 for 20 steps (5 K1 + 5 K3 a step), the
+   running-statistics check and the card-vs-CPU steps;
+3n. the CIFAR-10 ResNet-20 (shortcut A: ``Padding``) by ResNet's recipe in
+   float32 at batch 128 for 8 steps: finite losses, no pool kernel
+   launched, the statistics moved;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -240,8 +266,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    step and tokens/s with a profiler breakdown, and ``train_main``'s step;
    K5, K6 and K7 per call at 42 652 672 elements beside their bytes bound,
    plain versions and, for K6, ``u.view(torch.bfloat16).float()`` (the
-   bf16 cast's time beside K5 as a reference of the same traffic), and the
-   save and load time of 3j's snapshot pair.
+   bf16 cast's time beside K5 as a reference of the same traffic), the
+   save and load time of 3j's snapshot pair; K1 (f32, and bf16 with its
+   index) and K3 at ResNet-50's and Inception-v2's pools beside their
+   bounds, plain versions and ATen's; both models' f32 forward per bucket
+   and serving images/s and latency, their bf16 step and images/s trained,
+   and a profile of the step (BN's kernels, K1/K3 and the busy share), and
+   the CIFAR ResNet's f32 step.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -289,6 +320,24 @@ POOLS = [
     ("pool4/3x3_s2", (BATCH, 832, 14, 14), 3, 3, 2, 2, 0, 0, True),
     ("inception_5a/pool", (BATCH, 832, 7, 7), 3, 3, 1, 1, 1, 1, False),
     ("inception_5b/pool", (BATCH, 832, 7, 7), 3, 3, 1, 1, 1, 1, False),
+]
+# the SpatialMaxPooling layers of ResNet-50 (phase 3l) and Inception-v2
+# (phase 3m) at batch 32, in forward order
+RESNET_POOLS = [
+    ("resnet50/stem 3x3_s2 pad 1", (BATCH, 64, 112, 112), 3, 3, 2, 2, 1, 1,
+     False),
+]
+V2_POOLS = [
+    ("inception_v2/pool1 3x3_s2", (BATCH, 64, 112, 112), 3, 3, 2, 2, 0, 0,
+     True),
+    ("inception_v2/pool2 3x3_s2", (BATCH, 192, 56, 56), 3, 3, 2, 2, 0, 0,
+     True),
+    ("inception_v2/3c pool 3x3_s2", (BATCH, 320, 28, 28), 3, 3, 2, 2, 0, 0,
+     True),
+    ("inception_v2/4e pool 3x3_s2", (BATCH, 576, 14, 14), 3, 3, 2, 2, 0, 0,
+     True),
+    ("inception_v2/5b pool 3x3_s1", (BATCH, 1024, 7, 7), 3, 3, 1, 1, 1, 1,
+     True),
 ]
 RAGGED_POOLS = [
     ("odd HW, ceil, pad 1", (2, 3, 13, 11), 3, 3, 2, 2, 1, 1, True),
@@ -789,7 +838,7 @@ def _offset_copy(t):
 
 def pool_cases():
     """Phase 2's and 2b's pool cases: (name, shape, geometry, offset)."""
-    for case in POOLS + RAGGED_POOLS + POOL_EDGES:
+    for case in POOLS + RESNET_POOLS + V2_POOLS + RAGGED_POOLS + POOL_EDGES:
         name, shape = case[:2]
         yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
 
@@ -1698,21 +1747,29 @@ def make_rows(n, seed):
             for _ in range(n)]
 
 
-def serve(device):
-    """Drive the serving path; returns (report, launches, model, rows)."""
+def serve(device, model=None, counts=None, what="serving", n_rows=N_ROWS,
+          waves=None, cpu_rows=CPU_ROWS, atol=1e-3):
+    """Drive the serving path of ``model`` (Inception-v1 by default) with
+    ``n_rows`` requests, then ``waves`` closed-loop waves per bucket;
+    ``counts`` are the launches a forward makes (13 K1 + 2 K2 by default),
+    and ``cpu_rows`` rows are held against a CPU copy to ``atol``.  Returns
+    (report, launches)."""
     import torch
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.api import DLClassifier
     from bigdl_tpu_torch.serving import InferenceServer
 
-    model = build_model()
-    cpu_model = copy.deepcopy(model)
+    model = build_model() if model is None else model
+    counts = {"max_pool2d": 13, "cross_map_lrn": 2} if counts is None \
+        else counts
+    waves = WAVES if waves is None else waves
+    cpu_model = copy.deepcopy(model).to("cpu")
     clf = DLClassifier(model, (BATCH, 3, IMAGE, IMAGE), device=device)
     t0 = time.monotonic()
     server = InferenceServer(clf, batch_buckets=BUCKETS, device=device)
     warm_s = time.monotonic() - t0
-    rows = make_rows(N_ROWS, SEED)
-    wave_rows = {b: make_rows(b * WAVES[b], SEED + b) for b in BUCKETS}
+    rows = make_rows(n_rows, SEED)
+    wave_rows = {b: make_rows(b * waves[b], SEED + b) for b in BUCKETS}
 
     def timed_wave(batch_rows):
         done = {}
@@ -1736,7 +1793,7 @@ def serve(device):
         for b in BUCKETS:
             lats, preds_b = [], []
             t_b = time.monotonic()
-            for w in range(WAVES[b]):
+            for w in range(waves[b]):
                 p, lat = timed_wave(wave_rows[b][w * b:(w + 1) * b])
                 preds_b += p
                 lats += lat
@@ -1745,7 +1802,7 @@ def serve(device):
             # a closed-loop smoke, not a throughput or tail measurement:
             # each wave is awaited before the next is sent, and with a few
             # dozen samples only the median and the maximum are reported
-            per_bucket[b] = {"images": len(lats), "waves": WAVES[b],
+            per_bucket[b] = {"images": len(lats), "waves": waves[b],
                              "images_per_s": len(lats) / wall,
                              "p50_ms": 1e3 * lats[len(lats) // 2],
                              "max_ms": 1e3 * lats[-1],
@@ -1757,13 +1814,13 @@ def serve(device):
             fail("server did not drain")
 
     forwards = sum(v["batches"] for v in stats["buckets"].values())
-    total = N_ROWS + sum(b * WAVES[b] for b in BUCKETS)
+    total = n_rows + sum(b * waves[b] for b in BUCKETS)
     if stats["counters"].get("serve.completed") != total:
-        fail(f"{stats['counters']} — expected {total} completed requests")
-    if launches != per_forward({"max_pool2d": 13, "cross_map_lrn": 2},
-                               forwards):
-        fail(f"launches {launches} for {forwards} forwards: expected 13 "
-             "max-pool and 2 LRN launches per forward and nothing else")
+        fail(f"{what}: {stats['counters']} — expected {total} completed "
+             "requests")
+    if launches != per_forward(counts, forwards):
+        fail(f"{what}: launches {launches} for {forwards} forwards: expected "
+             f"{counts} per forward and nothing else")
 
     # predictions equal DLClassifier.predict on the same rows
     all_rows = rows + [r for b in BUCKETS for r in wave_rows[b]]
@@ -1771,27 +1828,27 @@ def serve(device):
     offline = clf.predict(all_rows)
     if list(offline) != list(all_served):
         bad = sum(int(a != b) for a, b in zip(offline, all_served))
-        fail(f"{bad} of {len(all_rows)} served predictions differ from "
-             "DLClassifier.predict")
+        fail(f"{what}: {bad} of {len(all_rows)} served predictions differ "
+             "from DLClassifier.predict")
 
     # the same weights on the CPU (plain ops), TF32 off on the card
-    x8 = torch.from_numpy(np.stack(rows[:CPU_ROWS]))
+    x8 = torch.from_numpy(np.stack(rows[:cpu_rows]))
     with torch.inference_mode():
         lp_dev = model(x8.to(device)).float().cpu()
         lp_cpu = cpu_model.evaluate()(x8)
-    if lp_dev.shape != (CPU_ROWS, CLASSES) or \
+    if lp_dev.shape != (cpu_rows, CLASSES) or \
             not torch.isfinite(lp_dev).all():
-        fail(f"device log-probs have shape {tuple(lp_dev.shape)} or are "
-             "not finite")
+        fail(f"{what}: device log-probs have shape {tuple(lp_dev.shape)} or "
+             "are not finite")
     diff = (lp_dev - lp_cpu).abs().max().item()
-    if diff > 1e-3 or not torch.equal(lp_dev.argmax(1), lp_cpu.argmax(1)):
-        fail(f"device vs CPU log-probs: max |diff| {diff} (atol 1e-3), "
-             f"argmax {lp_dev.argmax(1).tolist()} vs "
+    if diff > atol or not torch.equal(lp_dev.argmax(1), lp_cpu.argmax(1)):
+        fail(f"{what}: device vs CPU log-probs: max |diff| {diff} (atol "
+             f"{atol}), argmax {lp_dev.argmax(1).tolist()} vs "
              f"{lp_cpu.argmax(1).tolist()}")
-    if (lp_cpu.argmax(1) + 1).tolist() != list(served[:CPU_ROWS]):
-        fail("served predictions disagree with the CPU run")
-    log(f"serving: {total} requests answered in {forwards} forwards, equal "
-        f"to DLClassifier.predict; {CPU_ROWS} rows match the CPU run "
+    if (lp_cpu.argmax(1) + 1).tolist() != list(served[:cpu_rows]):
+        fail(f"{what}: served predictions disagree with the CPU run")
+    log(f"{what}: {total} requests answered in {forwards} forwards, equal "
+        f"to DLClassifier.predict; {cpu_rows} rows match the CPU run "
         f"(max |dlogp| {diff:.3g}); launches {launches}")
     for b in BUCKETS:
         per_bucket[b].pop("preds")
@@ -1805,11 +1862,11 @@ def serve(device):
 
 # -- phase 3b/3c: training ----------------------------------------------------
 
-def make_samples(n, seed):
+def make_samples(n, seed, image=IMAGE, classes=CLASSES):
     from bigdl_tpu_torch.dataset import Sample
     rng = np.random.RandomState(seed)
-    x = rng.standard_normal((n, 3, IMAGE, IMAGE)).astype(np.float32)
-    y = rng.randint(1, CLASSES + 1, size=n).astype(np.float32)
+    x = rng.standard_normal((n, 3, image, image)).astype(np.float32)
+    y = rng.randint(1, classes + 1, size=n).astype(np.float32)
     return [Sample(x[i], y[i]) for i in range(n)]
 
 
@@ -3066,6 +3123,376 @@ def snapshots_and_resume(device, folder):
     return report, by_path
 
 
+# -- phase 3l/3m/3n: ResNet-50, Inception-v2 and the CIFAR-10 ResNet ---------
+
+# rows and batch held against the CPU: a CPU forward of ResNet-50 takes
+# about a second a row, Inception-v2's two
+CNN_CPU_ROWS = 2
+CNN_CPU_BATCH = 2
+CNN_TOL = 1e-4                 # f32 card vs CPU, of the largest magnitude
+CNN_FLOOR_FACTOR = 4           # card vs CPU after an update, of the floor
+CNN_WAVES = {8: 1, 32: 1}      # Inception-v2: one serving wave per bucket
+V2_STEPS = 20
+CIFAR_IMAGE, CIFAR_CLASSES = 32, 10
+CIFAR_BATCH, CIFAR_STEPS, CIFAR_SAMPLES = 128, 8, 512
+# BatchNorm's kernels by name, ATen's own (a BN without weight, as the port
+# calls it) and cuDNN's, and K1's and K3's (csrc/max_pool.cu)
+CNN_KERNELS = {"batch_norm (ATen)": "batch_norm", "batch_norm (cuDNN)": "bn_",
+               "K1": "pool_fwd<", "K3": "pool_bwd<"}
+
+
+def resnet50():
+    from bigdl_tpu_torch.models import ResNet
+    return ResNet(CLASSES, 50, "B", "imagenet").reset(SEED)
+
+
+def inception_v2():
+    from bigdl_tpu_torch.models import Inception_v2
+    return Inception_v2(CLASSES).reset(SEED)
+
+
+def cifar_resnet20():
+    from bigdl_tpu_torch.models import ResNet
+    return ResNet(CIFAR_CLASSES, 20, "A", "cifar10").reset(SEED)
+
+
+def resnet_recipe(steps):
+    """``models/resnet.py`` ``train_main``'s criterion and SGD: lr 0.1,
+    weight decay 1e-4, momentum 0.9, no dampening, nesterov,
+    ``EpochDecay(cifar10_decay)``."""
+    from bigdl_tpu_torch.models import cifar10_decay
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, EpochDecay
+    return CrossEntropyCriterion(), SGD(
+        learning_rate=0.1, weight_decay=1e-4, momentum=0.9, dampening=0.0,
+        nesterov=True, learning_rate_schedule=EpochDecay(cifar10_decay))
+
+
+def inception_recipe(steps):
+    """``models/inception.py`` ``train_main``'s: ClassNLL, SGD 0.01, weight
+    decay 2e-4, momentum 0.9, no dampening, ``Poly(0.5)`` over the run."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, Poly
+    return ClassNLLCriterion(), SGD(
+        learning_rate=0.01, weight_decay=2e-4, momentum=0.9, dampening=0.0,
+        learning_rate_schedule=Poly(0.5, steps))
+
+
+def cnn_trainer(model, recipe, samples, batch, steps, mixed, device,
+                val=None):
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.optim import (LocalOptimizer, Top1Accuracy,
+                                       Top5Accuracy, Trigger)
+    criterion, method = recipe(steps)
+    opt = LocalOptimizer(model, criterion,
+                         DataSet.array(samples) >> SampleToBatch(batch),
+                         Trigger.max_iteration(steps), device=device)
+    opt.set_optim_method(method).set_mixed_precision(mixed).set_seed(SEED)
+    if val is not None:
+        opt.set_validation(Trigger.several_iteration(VAL_EVERY),
+                           DataSet.array(val) >> SampleToBatch(batch),
+                           [Top1Accuracy(), Top5Accuracy()])
+    return opt
+
+
+def bn_layers(model):
+    from bigdl_tpu_torch.nn import BatchNormalization
+    return [m for m in model.modules() if isinstance(m, BatchNormalization)]
+
+
+def calibrate_bn(model, device, seed):
+    """Give every BN layer of ``model`` the statistics of one training-mode
+    forward over 8 seeded images (momentum 1 for that forward), as a trained
+    model has statistics that fit its activations; with the reset ones (0
+    and 1) the activations of an eval forward vanish and the log-probs are
+    the classifier's bias.  Returns the model on ``device``, in eval
+    mode."""
+    import torch
+    layers = bn_layers(model)
+    saved = [m.momentum for m in layers]
+    x = torch.from_numpy(np.stack(make_rows(8, seed))).to(device)
+    for m in layers:
+        m.momentum = 1.0
+    model.to(device).training_()
+    with torch.no_grad():
+        model(x)
+    for m, momentum in zip(layers, saved):
+        m.momentum = momentum
+    return model.evaluate()
+
+
+def check_running_stats(what, model):
+    """Fail unless every BN layer's running mean and variance are f32,
+    finite, and moved from their reset values 0 and 1."""
+    import torch
+    layers = bn_layers(model)
+    bad = [i for i, m in enumerate(layers)
+           if m.running_mean.dtype != torch.float32
+           or m.running_var.dtype != torch.float32
+           or not torch.isfinite(m.running_mean).all()
+           or not torch.isfinite(m.running_var).all()
+           or not bool((m.running_mean != 0).any())
+           or not bool((m.running_var != 1).any())]
+    if not layers or bad:
+        fail(f"{what}: the running statistics of BN layers {bad} (of "
+             f"{len(layers)}) are not f32, not finite or did not move")
+    return len(layers)
+
+
+def train_cnn(device, what, build, recipe, steps, counts, val_counts,
+              mixed=True, batch=None, image=IMAGE, classes=CLASSES,
+              n_samples=None, validate=True):
+    """Train ``build()`` ``steps`` steps by ``recipe`` (bf16 mixed precision
+    by default), validating every VAL_EVERY steps; fail unless the losses
+    are finite, no step is skipped, the launches are ``counts`` a step and
+    ``val_counts`` a validation forward, and every BN layer's running
+    statistics moved.  Returns (report, launches, trainer)."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.optim import SKIPPED_STEPS
+    batch = BATCH if batch is None else batch
+    n_samples = TRAIN_SAMPLES if n_samples is None else n_samples
+    val = make_samples(VAL_SAMPLES, SEED + 200, image, classes) \
+        if validate else None
+    opt = cnn_trainer(build(), recipe,
+                      make_samples(n_samples, SEED + 100, image, classes),
+                      batch, steps, mixed, device, val=val)
+    ops.reset_launches()                 # the training path starts here
+    opt.optimize()
+    launches = launches_now()
+    losses = [r["loss"] for r in opt.step_records]   # the path ends here
+    log(f"{what} losses ({'bf16 mixed' if mixed else 'f32'}, "
+        f"{len(losses)} steps): "
+        + json.dumps([round(v, 6) for v in losses]))
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{what}: {len(losses)} losses, finite: "
+             f"{bool(np.isfinite(losses).all())}")
+    if opt.metrics.get(SKIPPED_STEPS) or opt.state.get("skippedSteps"):
+        fail(f"{what}: {opt.state.get('skippedSteps')} steps skipped as "
+             "non-finite")
+    val_fwd = 0
+    report = {}
+    if validate:
+        top1, top5 = opt.state.get("lastValidation") or (None, None)
+        if top1 is None or top1.count != VAL_SAMPLES:
+            fail(f"{what}: validation did not run on {VAL_SAMPLES} "
+                 f"samples: {top1}")
+        val_fwd = steps // VAL_EVERY * (VAL_SAMPLES // batch)
+        report.update(top1=top1.result()[0], top5=top5.result()[0])
+    want = {k: v * steps for k, v in counts.items()}
+    for k, v in val_counts.items():
+        want[k] = want.get(k, 0) + v * val_fwd
+    expect_launches(f"{what} training", launches, want)
+    n_bn = check_running_stats(f"{what} training", opt.model)
+    report.update(losses=losses, steps=steps, batch=batch, bn_layers=n_bn,
+                  step_ms=1e3 * statistics.median(
+                      r["dur_s"] for r in opt.step_records[1:]),
+                  first_step_ms=1e3 * opt.step_records[0]["dur_s"])
+    report["images_per_s"] = batch / report["step_ms"] * 1e3
+    log(f"{what} training: {steps} steps at batch {batch}, none skipped, "
+        f"{n_bn} BN layers' running statistics moved; launches {launches}")
+    return report, launches, opt
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| over every tensor of the two lists
+    together, in f64 on the host."""
+    num = sum(float((a.detach().double().cpu() - b.detach().double().cpu())
+                    .pow(2).sum()) for a, b in zip(got, want))
+    den = sum(float(b.detach().double().cpu().pow(2).sum()) for b in want)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def largest_rel(got, want):
+    """max over pairs of max |got - want| / max |want|."""
+    return max((a.detach().float().cpu() - b.detach().float().cpu()).abs()
+               .max().item() / max(b.detach().float().abs().max().item(),
+                                   1e-30)
+               for a, b in zip(got, want))
+
+
+def perturbed(samples, seed):
+    """``samples`` with every input value moved by about one f32 rounding
+    step (x * (1 + 1e-7 z), z standard normal)."""
+    from bigdl_tpu_torch.dataset import Sample
+    rng = np.random.RandomState(seed)
+    return [Sample((s.feature * (1 + 1e-7 * rng.standard_normal(
+        s.feature.shape))).astype(np.float32), s.label) for s in samples]
+
+
+def two_steps(build, recipe, samples, batch, device):
+    """Two f32 steps of ``recipe``: (losses, state leaves after step 1,
+    weights and state leaves after step 2) on the host."""
+    from bigdl_tpu_torch.optim import Trigger
+    opt = cnn_trainer(build(), recipe, samples, batch, 1, False, device)
+    opt.optimize()
+    state1 = [b.detach().cpu().clone() for b in opt.model.state_leaves()]
+    opt.set_end_when(Trigger.max_iteration(2))
+    opt.optimize()
+    return ([r["loss"] for r in opt.step_records], state1,
+            [p.detach().cpu() for p in opt.model.param_leaves()],
+            [b.detach().cpu() for b in opt.model.state_leaves()])
+
+
+def cnn_train_vs_cpu(device, what, build, recipe, batch=CNN_CPU_BATCH):
+    """Two f32 steps of the recipe from the same weights on the card and on
+    the CPU.  Step 1's loss and the running statistics it leaves are a
+    forward's and agree within CNN_TOL of their largest magnitude.  From
+    step 1's update on, the two runs part as the model amplifies rounding
+    (at random init BatchNorm makes the gradient sensitive to it), so the
+    weights, step 2's loss and the statistics after it are held within
+    CNN_FLOOR_FACTOR times the CPU's distance from itself when its input
+    moves by one f32 rounding step (a third run), by the same measures
+    (losses relative, tensors by relative L2 over all of them), and never
+    tighter than CNN_TOL."""
+    import torch
+    samples = make_samples(2 * batch, SEED + 300)
+    card = two_steps(build, recipe, samples, batch, device)
+    cpu = two_steps(build, recipe, samples, batch, torch.device("cpu"))
+    moved = two_steps(build, recipe, perturbed(samples, SEED + 301), batch,
+                      torch.device("cpu"))
+
+    def measures(run):
+        return {"loss1": abs(run[0][0] - cpu[0][0]) / abs(cpu[0][0]),
+                "state1": largest_rel(run[1], cpu[1]),
+                "loss2": abs(run[0][1] - cpu[0][1]) / abs(cpu[0][1]),
+                "weights2": rel_l2(run[2], cpu[2]),
+                "state2": rel_l2(run[3], cpu[3])}
+    got, floor = measures(card), measures(moved)
+    limits = {k: CNN_TOL if k in ("loss1", "state1") else
+              max(CNN_TOL, CNN_FLOOR_FACTOR * floor[k]) for k in got}
+    log(f"{what} train card vs CPU (2 f32 steps, batch {batch}): "
+        f"losses {card[0]} vs {cpu[0]}; card "
+        + ", ".join(f"{k} {got[k]:.3g} (limit {limits[k]:.3g}, CPU floor "
+                    f"{floor[k]:.3g})" for k in got))
+    bad = [k for k in got if not got[k] <= limits[k]]
+    if bad:
+        fail(f"{what}: card vs CPU beyond the limits at {bad}")
+    return {"losses_card": card[0], "losses_cpu": cpu[0], "card": got,
+            "cpu_floor": floor, "limits": limits}
+
+
+def cnn_bf16_vs_cpu(device, what, model, rows):
+    """One bf16 eval forward (``mixed_forward``) of ``model`` (on the card,
+    its statistics calibrated) on ``rows`` against the same on the CPU.
+    Over a deep net bf16 rounding adds up: the limit is the CPU's own bf16
+    error on these rows (max |bf16 - f32| of its logits), also given in
+    bf16 steps of the largest logit; argmax equal on every row whose top-2
+    margin exceeds the limit."""
+    import torch
+    from bigdl_tpu_torch.core.precision import mixed_forward
+    from bigdl_tpu_torch.nn import Sequential
+    body = Sequential(*list(model.layers)[:-1]).evaluate()
+    cpu_body = copy.deepcopy(body).to("cpu")
+    x = torch.from_numpy(np.stack(rows))
+    with torch.inference_mode():
+        got = mixed_forward(body, x.to(device)).cpu()
+        want = mixed_forward(cpu_body, x)
+        exact = cpu_body(x)
+    limit = (want - exact).abs().max().item()
+    steps = limit / bf16_step(want.abs().max().item())
+    diff = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    firm = (top2[:, 0] - top2[:, 1]) > limit
+    agree = bool((got.argmax(-1) == want.argmax(-1))[firm].all())
+    log(f"{what} bf16 eval forward card vs CPU ({len(rows)} rows): max "
+        f"|dlogit| {diff:.4g}, limit {limit:.4g} (the CPU's bf16 against its "
+        f"f32: {steps:.1f} bf16 steps of {want.abs().max().item():.4g}); "
+        f"argmax compared on {int(firm.sum())} rows")
+    if not math.isfinite(diff) or diff > limit or not agree:
+        fail(f"{what}: bf16 eval logits card vs CPU: max |d| {diff} beyond "
+             f"{limit}, or argmax differs on a firm row")
+    return {"max_abs_dlogit": diff, "limit": limit, "limit_bf16_steps": steps,
+            "argmax_compared": int(firm.sum())}
+
+
+def cnn_path(device, what, build, recipe, steps, pools, n_rows, waves):
+    """Phases 3l and 3m: serve ``build()`` (statistics calibrated) through
+    ``DLClassifier`` + ``InferenceServer`` (``n_rows`` requests, then
+    ``waves`` per bucket), train it by ``recipe`` in bf16, hold 2 f32 steps
+    and a bf16 eval forward against the CPU.  ``pools`` is its count of K1
+    a forward (and of K3 a step).  Returns (serving report, training
+    report, launches by path)."""
+    model = calibrate_bn(build(), device, SEED + 9)
+    report, serve_launches = serve(
+        device, model, {"max_pool2d": pools}, f"{what} serving",
+        n_rows=n_rows, waves=waves, cpu_rows=CNN_CPU_ROWS)
+    report["bf16_vs_cpu"] = cnn_bf16_vs_cpu(
+        device, what, model, make_rows(CNN_CPU_ROWS, SEED + 11))
+    train_report, train_launches, _ = train_cnn(
+        device, what, build, recipe, steps,
+        {"max_pool2d": pools, "max_pool2d_bwd": pools},
+        {"max_pool2d": pools})
+    train_report["card_vs_cpu"] = cnn_train_vs_cpu(device, what, build,
+                                                   recipe)
+    return report, train_report, {"serve": serve_launches,
+                                  "train": train_launches}
+
+
+def cifar_path(device):
+    """Phase 3n: the CIFAR-10 ResNet-20 (shortcut A: ``Padding``) trained
+    by the reference recipe in f32 at batch 128: no pool kernel runs."""
+    report, launches, _ = train_cnn(
+        device, "CIFAR-10 ResNet-20", cifar_resnet20, resnet_recipe,
+        CIFAR_STEPS, {}, {}, mixed=False, batch=CIFAR_BATCH,
+        image=CIFAR_IMAGE, classes=CIFAR_CLASSES, n_samples=CIFAR_SAMPLES,
+        validate=False)
+    return report, launches
+
+
+def profile_cnn_steps(device, build, recipe, mixed=True, steps=3):
+    """Device time by kernel over ``steps`` training steps after as many
+    warm-up steps, BN's and K1/K3's kernels grouped (CNN_KERNELS)."""
+    from bigdl_tpu_torch.optim import Trigger
+    opt = cnn_trainer(build(), recipe, make_samples(TRAIN_SAMPLES, SEED + 100),
+                      BATCH, steps, mixed, device)
+    opt.optimize()
+    opt.set_end_when(Trigger.max_iteration(2 * steps))
+    return device_profile(opt.optimize, steps, CNN_KERNELS)
+
+
+def time_cnn(card, device, what, path, pools):
+    """Phase 4 of a CNN path: K1/K3 at its pools (f32 serving, bf16
+    training), its serving forward per bucket, its bf16 step, and a
+    profile of the step (BN's share, the device's busy share)."""
+    import torch
+    serve_report, train_report, build, recipe = path
+    fwd = {"max_pool2d_fwd": pool_sums(
+               time_pool_layers(device, torch.float32, False, layers=pools))}
+    train = {"max_pool2d_fwd": pool_sums(time_pool_layers(
+                 device, torch.bfloat16, False, layers=pools)),
+             "max_pool2d_bwd": pool_sums(time_pool_layers(
+                 device, torch.bfloat16, True, layers=pools))}
+    log_pool_times(card, f"{what} max_pool2d_fwd (f32, no index, serving)",
+                   fwd["max_pool2d_fwd"])
+    log_pool_times(card, f"{what} max_pool2d_fwd (bf16 with index, "
+                   "training)", train["max_pool2d_fwd"])
+    log_pool_times(card, f"{what} max_pool2d_bwd (bf16, training)",
+                   train["max_pool2d_bwd"])
+    fwd_ms = time_forwards(serve_report.pop("classifier"), device)
+    serve_report["forward_ms"] = fwd_ms
+    for b in BUCKETS:
+        r = serve_report["per_bucket"][b]
+        log(f"[{card}] {what} forward bucket {b} (f32): {fwd_ms[b]:.3f} ms "
+            f"median of {TIMING_REPS} ({b / fwd_ms[b] * 1e3:.1f} images/s); "
+            f"serving (closed loop, {r['waves']} waves of {b}): "
+            f"{r['images_per_s']:.1f} images/s, request p50 "
+            f"{r['p50_ms']:.2f} ms, max {r['max_ms']:.2f} ms")
+    ms = train_report["step_ms"]
+    p = profile_cnn_steps(device, build, recipe)
+    p["busy_share"] = p["device_ms"] / ms
+    train_report["profile"] = p
+    bn = p["groups"]["batch_norm (ATen)"] + p["groups"]["batch_norm (cuDNN)"]
+    log(f"[{card}] {what} train step (bf16 mixed, batch {BATCH}, median "
+        f"after the first of {train_report['steps']}): {ms:.3f} ms "
+        f"({train_report['images_per_s']:.1f} images/s); profile: device "
+        f"{p['device_ms']:.3f} ms a step, busy share "
+        f"{p['busy_share']:.3f}; BN kernels {bn:.3f} ms a step "
+        f"({bn / p['device_ms']:.3f} of the device time; "
+        f"{json.dumps(p['groups'])}); top kernels (ms a step): "
+        + json.dumps(p["top"]))
+    return fwd, train
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -3079,8 +3506,10 @@ def time_forwards(clf, device):
     return out
 
 
-def time_pool_layers(device, dtype, backward, plain=True, library=True):
-    """K1 or (``backward``) K3 at each Inception-v1 pool layer at batch 32:
+def time_pool_layers(device, dtype, backward, plain=True, library=True,
+                     layers=POOLS):
+    """K1 or (``backward``) K3 at each pool layer of ``layers`` (those of
+    Inception-v1 by default) at batch 32:
     per layer its CUDA-event median (L2 flushed) and torch.profiler device
     time, its bytes bound, the plain version's time and the library call's
     (events and device time; ``plain`` and ``library`` False leave those
@@ -3097,7 +3526,7 @@ def time_pool_layers(device, dtype, backward, plain=True, library=True):
     with_idx = dtype == torch.bfloat16
     size = torch.empty((), dtype=dtype).element_size()
     rows = []
-    for name, shape, kh, kw, sh, sw, ph, pw, ceil in POOLS:
+    for name, shape, kh, kw, sh, sw, ph, pw, ceil in layers:
         x = torch.randn(shape, generator=gen, device=device).to(dtype)
         geom = (kh, kw, sh, sw, ph, pw, ceil)
         _, idx = max_pool2d(x, *geom, return_indices=True)
@@ -4179,7 +4608,32 @@ def main() -> int:
         f"{tm_report['step_ms_median_after_first']:.1f} ms (median after the "
         f"first; {tm_report['step_ms'][0]:.1f} ms the first), launches "
         f"{tm_report['launches']}")
+    # phase 3l, 3m and 3n: ResNet-50, Inception-v2, the CIFAR-10 ResNet
+    cnn = {"resnet50": cnn_path(device, "ResNet-50", resnet50, resnet_recipe,
+                                TRAIN_STEPS, 1, N_ROWS, WAVES),
+           "inception_v2": cnn_path(device, "Inception-v2", inception_v2,
+                                    inception_recipe, V2_STEPS, 5, 8,
+                                    CNN_WAVES)}
+    cifar_report, cifar_launches = cifar_path(device)
+    cnn_launches = {f"{key}_{p}": v for key, (_, _, by) in cnn.items()
+                    for p, v in by.items()}
+    cnn_launches["cifar_resnet20_train"] = cifar_launches
     # phase 4
+    cnn_times = {
+        key: time_cnn(card, device, what, (cnn[key][0], cnn[key][1], build,
+                                           recipe), pools)
+        for key, what, build, recipe, pools in (
+            ("resnet50", "ResNet-50", resnet50, resnet_recipe, RESNET_POOLS),
+            ("inception_v2", "Inception-v2", inception_v2, inception_recipe,
+             V2_POOLS))}
+    for key in cnn:
+        log(f"{key} serving: " + json.dumps(cnn[key][0]))
+        log(f"{key} training: " + json.dumps(cnn[key][1]))
+    log(f"[{card}] CIFAR-10 ResNet-20 train step (f32, batch {CIFAR_BATCH}, "
+        f"median after the first of {CIFAR_STEPS}): "
+        f"{cifar_report['step_ms']:.3f} ms "
+        f"({cifar_report['images_per_s']:.1f} images/s)")
+    log("cifar_resnet20 training: " + json.dumps(cifar_report))
     times = time_kernels(device)
     train_times = time_train_kernels(device)
     fwd_ms = time_forwards(report.pop("classifier"), device)
@@ -4366,6 +4820,7 @@ def main() -> int:
                    "train": train_launches[wrapper]}
         by_path.update({p: v[wrapper] for p, v in quant_launches.items()})
         by_path.update({p: v[wrapper] for p, v in lm_launches.items()})
+        by_path.update({p: v[wrapper] for p, v in cnn_launches.items()})
         entry = {"name": name, "route": k["route"], "source": k["source"],
                  "replaces": k["replaces"],
                  "launches": sum(by_path.values()),
@@ -4378,6 +4833,10 @@ def main() -> int:
                 entry.update({key: times[name][key] for key in (
                     "device_ms", "library_device_ms", "per_layer")})
             entry["train"] = dict(train_times[name], dtype="bfloat16")
+            for key, (cnn_fwd, cnn_train) in cnn_times.items():
+                if name in cnn_fwd:     # K1 at ResNet-50's, Inception-v2's
+                    entry[key] = {"serve_f32": cnn_fwd[name],
+                                  "train_bf16": cnn_train[name]}
         elif wrapper in ("attention_fwd", "attention_stream_fwd"):
             # per call at the LM path's shape, bf16 (K9: the padded LM)
             key = ATTN_PATH[0][0] if wrapper == "attention_fwd" else \
@@ -4442,6 +4901,9 @@ def main() -> int:
             if "device_ms" in train_times[name]:
                 entry.update({key: train_times[name][key] for key in (
                     "device_ms", "library_device_ms", "per_layer")})
+            if name == "max_pool2d_bwd":
+                for key, (_, cnn_train) in cnn_times.items():
+                    entry[key] = {"train_bf16": cnn_train[name]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,8 +43,12 @@ plain form to 1e-4 of each gradient's largest magnitude in float32 (the
 same math, f32 sums in another order).  The fp16 codec K5, K6 and K7 is
 bit-equal to its plain versions wherever the plain result is not a NaN, and
 a NaN where it is (K7's NaN is the card's canonical one), on a table of
-special values and at misaligned offsets.  A LocalOptimizer run resumed from
-a snapshot on the card draws the uninterrupted run's dropout masks (the
+special values and at misaligned offsets.  BatchNorm's running statistics
+stay f32 buffers on the card and move under bf16 mixed precision; a
+ResNet-50 bf16 step on the card is held against the CPU's bf16 step with
+the CPU's own f32 step as the yardstick of bf16 rounding.  A
+LocalOptimizer run resumed from a snapshot on the card draws the
+uninterrupted run's dropout masks (the
 CUDA generator's state is restored exactly) and agrees with it to 1e-5.
 """
 
@@ -1137,3 +1141,83 @@ def test_resume_on_the_card_draws_the_same_dropout_masks(cuda_device,
     other.optimize()
     moved = np.array([r["loss"] for r in other.step_records])
     assert np.abs(moved - want).max() > 1e-3 * np.abs(want).max()
+
+
+def _bn_trainer(device, model, iters, mixed, batch=8, image=32, classes=10):
+    """ResNet recipe (nesterov SGD, CrossEntropyCriterion) over seeded
+    images, ``batch`` a step."""
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    rng = np.random.RandomState(17)
+    x = rng.standard_normal((batch * iters, 3, image, image)) \
+        .astype(np.float32)
+    y = rng.randint(1, classes + 1, size=batch * iters).astype(np.float32)
+    opt = LocalOptimizer(
+        model, CrossEntropyCriterion(),
+        DataSet.array([Sample(a, b) for a, b in zip(x, y)]) >>
+        SampleToBatch(batch), Trigger.max_iteration(iters), device=device)
+    opt.set_optim_method(SGD(learning_rate=0.1, weight_decay=1e-4,
+                             momentum=0.9, dampening=0.0, nesterov=True))
+    return opt.set_mixed_precision(mixed)
+
+
+def test_bn_running_stats_move_under_mixed_precision_on_the_card(
+        cuda_device):
+    """bf16 mixed precision on the card: every BN layer's running mean and
+    variance stay f32 buffers on the card, are finite, and moved from 0
+    and 1 (a cast copy would have taken the updates and dropped them)."""
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import BatchNormalization
+    opt = _bn_trainer(cuda_device, ResNet(10, 8, "B", "cifar10").reset(3), 3,
+                      True)
+    opt.optimize()
+    layers = [m for m in opt.model.modules()
+              if isinstance(m, BatchNormalization)]
+    assert len(layers) == 9
+    for m in layers:
+        for buf, reset in ((m.running_mean, 0.0), (m.running_var, 1.0)):
+            assert buf.dtype == torch.float32 and buf.is_cuda
+            assert torch.isfinite(buf).all() and bool((buf != reset).any())
+    assert np.isfinite([r["loss"] for r in opt.step_records]).all()
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| of two host tensors."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def test_resnet50_bf16_step_on_the_card_matches_the_cpu(cuda_device):
+    """One bf16 mixed-precision step of full-width ResNet-50 at batch 2
+    from the same weights, on the card and on the CPU, with the CPU's f32
+    step as the yardstick: bf16 rounding over 53 convolutions and BNs
+    moves the CPU's own loss and statistics away from its f32 ones, and the
+    card's may differ from the CPU's by no more than twice that (plus one
+    bf16 step of the loss).  The gradient itself is not comparable
+    elementwise: at random init BatchNorm makes it sensitive to rounding
+    (a 1e-7 relative change of the input moves it by 2 % in L2 on the
+    CPU), so of the weights the test holds the classifier's update, a
+    product of forward quantities, to the same rule, and requires every
+    tensor's update to be finite and non-zero."""
+    from bigdl_tpu_torch.models import ResNet
+    runs = {}
+    for key, dev, mixed in (("card", cuda_device, True),
+                            ("cpu", torch.device("cpu"), True),
+                            ("cpu_f32", torch.device("cpu"), False)):
+        model = ResNet(1000, 50).reset(5)
+        start = [p.detach().clone() for p in model.param_leaves()]
+        opt = _bn_trainer(dev, model, 1, mixed, batch=2, image=224,
+                          classes=1000)
+        opt.optimize()
+        runs[key] = (opt.step_records[0]["loss"], start,
+                     [p.detach().cpu() for p in opt.model.param_leaves()],
+                     [b.detach().cpu() for b in opt.model.state_leaves()])
+    (lc, w0, wc, sc), (lb, _, wb, sb), (lf, _, wf, sf) = \
+        runs["card"], runs["cpu"], runs["cpu_f32"]
+    step = 2.0 ** (np.floor(np.log2(abs(lb))) - 7)
+    assert np.isfinite(lc) and abs(lc - lb) <= 2 * abs(lb - lf) + step
+    spread = max(_rel(b, f) for b, f in zip(sb, sf))
+    assert max(_rel(c, b) for c, b in zip(sc, sb)) <= 2 * spread
+    for c, b, f, w in zip(wc[-2:], wb[-2:], wf[-2:], w0[-2:]):
+        # the classifier's bias and weight: its update against the CPU's
+        assert _rel(c - w, b - w) <= 2 * _rel(b - w, f - w)
+    for c, w in zip(wc, w0):
+        assert torch.isfinite(c - w).all() and bool((c != w).any())

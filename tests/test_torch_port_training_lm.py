@@ -291,8 +291,17 @@ def test_adam_with_warmup_matches_jax_over_five_updates():
     _update_both(joptim.Adam(learning_rate=0.05, learning_rate_schedule=jw),
                  toptim.Adam(learning_rate=0.05, learning_rate_schedule=tw),
                  (jw, tw))
-    with pytest.raises(NotImplementedError, match="optim-methods slice"):
-        toptim.Warmup(3, after=toptim.Poly(0.5, 10))
+    # with a schedule after the ramp, its counter re-zeroed at the boundary
+    jw = joptim.Warmup(3, after=joptim.Poly(0.5, 10))
+    tw = toptim.Warmup(3, after=toptim.Poly(0.5, 10))
+    rates = [tw.current_rate(T(learningRate=0.1), T(evalCounter=i))
+             for i in range(15)]
+    assert rates == [jw.current_rate(T(learningRate=0.1), T(evalCounter=i))
+                     for i in range(15)]
+    assert rates[3] == -0.1 and rates[13] == 0.0 and rates[14] == 0.0
+    _update_both(joptim.Adam(learning_rate=0.05, learning_rate_schedule=jw),
+                 toptim.Adam(learning_rate=0.05, learning_rate_schedule=tw),
+                 (jw, tw), steps=8)
 
 
 def _corpus(path, lines=6, words=12, types=40, seed=3):
