@@ -12,8 +12,11 @@ Phases, each of which ends the run with a non-zero exit on failure:
 2. every forward kernel (K1 max pool, K2 LRN) against its plain PyTorch
    version on the card, at the shapes full-width Inception-v1 gives it at
    batch 32 (K1 also at ResNet-50's stem pool and Inception-v2's five
-   pools, ``RESNET_POOLS`` and ``V2_POOLS``) and at ragged shapes, in
-   float32 and bfloat16; K2 also at the
+   pools, ``RESNET_POOLS`` and ``V2_POOLS``, and at the perf harness's
+   pools at batch 128: AlexNet's and AlexNet-OWT's 3x3/2 and VGG's five
+   2x2/2 on 224 to 14-pixel planes, ``ALEXNET_POOLS`` and ``VGG_POOLS``;
+   K2 also at AlexNet's two LRNs at batch 128, ``ALEXNET_LRNS``) and at
+   ragged shapes, in float32 and bfloat16; K2 also at the
    edges of its plan (``RAGGED_LRNS``: odd planes, planes no multiple of
    16 bytes, a batch slice off 16 bytes, C below the window, C = 1, C off
    a multiple of the chunk, sizes 1 and 4, AlexNet's two LRNs), logging
@@ -224,6 +227,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
 3n. the CIFAR-10 ResNet-20 (shortcut A: ``Padding``) by ResNet's recipe in
    float32 at batch 128 for 8 steps: finite losses, no pool kernel
    launched, the statistics moved;
+3o. the perf harness, ``models/perf.py`` ``local_perf_main`` (f32 train
+   steps, SGD 0.01) and ``infer_perf_main`` (bf16 forward, argmax to the
+   host) for each of its six models (AlexNet, AlexNet-OWT, Inception-v1
+   and v2, VGG-16 and VGG-19) at batch 128, ``-d random``, ``-i 5``:
+   finite losses, and each wrapper's launches the model's count a
+   forward (AlexNet 3 K1 + 2 K2, AlexNet-OWT 3 K1, Inception-v1 13 K1 + 2
+   K2, Inception-v2 and VGG 5 K1) or a step (K3 and K4 besides, as many)
+   times the warm-up and the 5 iterations; per run the records/s, ms a
+   step, a profiled run's device time and busy share, the peak of
+   allocated memory and the K1-K4 plans it took; then the harness's step
+   on a dropout-free AlexNet-OWT at batch 2 on the card and on the CPU
+   (two losses within 1e-4), AlexNet's and VGG-16's f32 eval log-probs at
+   batch 1 against the CPU's (1e-4 of their largest magnitude), and their
+   bf16 eval logits on 2 rows within the CPU's own bf16-vs-f32 error;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -272,7 +289,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
    bounds, plain versions and ATen's; both models' f32 forward per bucket
    and serving images/s and latency, their bf16 step and images/s trained,
    and a profile of the step (BN's kernels, K1/K3 and the busy share), and
-   the CIFAR ResNet's f32 step.
+   the CIFAR ResNet's f32 step; K1 and K3 at VGG's five pools and
+   AlexNet's three, K2 and K4 at AlexNet's two LRNs (odd planes, one pixel
+   a thread), at batch 128 in float32 as ``perf local`` calls them and K1
+   and K2 in bfloat16 as ``perf infer`` does, per layer and summed beside
+   their bounds, plain versions and ATen's calls (``F.max_pool2d``,
+   ``max_pool2d_with_indices_backward``, ``F.local_response_norm`` and
+   autograd's backward of it), by events and device time.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -339,6 +362,28 @@ V2_POOLS = [
     ("inception_v2/5b pool 3x3_s1", (BATCH, 1024, 7, 7), 3, 3, 1, 1, 1, 1,
      True),
 ]
+# the SpatialMaxPooling layers of the perf harness's models (phase 3o) at
+# its batch of 128: AlexNet's and AlexNet-OWT's 3x3/2 pools on 55, 27 and
+# 13-pixel planes, and the five 2x2/2 pools of VGG-16 and VGG-19 on 224,
+# 112, 56, 28 and 14-pixel planes, in forward order
+HARNESS_BATCH = 128
+ALEXNET_POOLS = [
+    ("alexnet/pool1 3x3_s2", (HARNESS_BATCH, 96, 55, 55), 3, 3, 2, 2, 0, 0,
+     False),
+    ("alexnet/pool2 3x3_s2", (HARNESS_BATCH, 256, 27, 27), 3, 3, 2, 2, 0, 0,
+     False),
+    ("alexnet/pool5 3x3_s2", (HARNESS_BATCH, 256, 13, 13), 3, 3, 2, 2, 0, 0,
+     False),
+    ("alexnetowt/pool1 3x3_s2", (HARNESS_BATCH, 64, 55, 55), 3, 3, 2, 2, 0,
+     0, False),
+    ("alexnetowt/pool2 3x3_s2", (HARNESS_BATCH, 192, 27, 27), 3, 3, 2, 2, 0,
+     0, False),
+]
+VGG_POOLS = [
+    (f"vgg/pool{i + 1} 2x2_s2", (HARNESS_BATCH, c, hw, hw), 2, 2, 2, 2, 0, 0,
+     False)
+    for i, (c, hw) in enumerate(((64, 224), (128, 112), (256, 56), (512, 28),
+                                 (512, 14)))]
 RAGGED_POOLS = [
     ("odd HW, ceil, pad 1", (2, 3, 13, 11), 3, 3, 2, 2, 1, 1, True),
     ("odd HW, floor, pad 1", (2, 7, 9, 7), 3, 3, 2, 2, 1, 1, False),
@@ -411,6 +456,12 @@ POOL_STRIDED_DY = [
 LRNS = [
     ("pool1/norm1", (BATCH, 64, 56, 56), 5, 1e-4, 0.75, 1.0),
     ("conv2/norm2", (BATCH, 192, 56, 56), 5, 1e-4, 0.75, 1.0),
+]
+# AlexNet's two LRN layers at the harness's batch (phase 3o): planes of
+# 3025 and 729 pixels, odd, so one pixel a thread
+ALEXNET_LRNS = [
+    ("alexnet/norm1", (HARNESS_BATCH, 96, 55, 55), 5, 1e-4, 0.75, 1.0),
+    ("alexnet/norm2", (HARNESS_BATCH, 256, 27, 27), 5, 1e-4, 0.75, 1.0),
 ]
 # K2/K4 at the edges of their plan (ops/lrn.py lrn_plan), each in f32 and
 # bf16: odd planes (35, 117 and AlexNet's 55x55 pixels: one pixel a
@@ -838,7 +889,8 @@ def _offset_copy(t):
 
 def pool_cases():
     """Phase 2's and 2b's pool cases: (name, shape, geometry, offset)."""
-    for case in POOLS + RESNET_POOLS + V2_POOLS + RAGGED_POOLS + POOL_EDGES:
+    for case in (POOLS + RESNET_POOLS + V2_POOLS + ALEXNET_POOLS + VGG_POOLS
+                 + RAGGED_POOLS + POOL_EDGES):
         name, shape = case[:2]
         yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
 
@@ -856,8 +908,12 @@ def pool_take(shape, geom, dtype, backward):
     plan = pooling.pool_plan(
         n, c, h, w, geom, dtype, backward=backward,
         sms=torch.cuda.get_device_properties(0).multi_processor_count)
-    mode = POOL_MODES[2 if plan.tiles > 1 else 1 if plan.bands > 1 else 0]
-    return pooling.pool_variant(*geom[:4]), plan, mode
+    return pooling.pool_variant(*geom[:4]), plan, pool_mode(plan)
+
+
+def pool_mode(plan):
+    """The POOL_MODES entry of a K1/K3 plan."""
+    return POOL_MODES[2 if plan.tiles > 1 else 1 if plan.bands > 1 else 0]
 
 
 def fmt_plan(plan):
@@ -870,7 +926,7 @@ def fmt_plan(plan):
 def lrn_cases():
     """Phase 2's and 2b's LRN cases: (name, shape, size, alpha, beta, k,
     placement), placement None, "slice" or "element 1"."""
-    for case in LRNS + RAGGED_LRNS:
+    for case in LRNS + ALEXNET_LRNS + RAGGED_LRNS:
         yield tuple(case[:6]) + (case[6] if len(case) > 6 else None,)
 
 
@@ -3371,13 +3427,16 @@ def cnn_train_vs_cpu(device, what, build, recipe, batch=CNN_CPU_BATCH):
             "cpu_floor": floor, "limits": limits}
 
 
-def cnn_bf16_vs_cpu(device, what, model, rows):
+def cnn_bf16_vs_cpu(device, what, model, rows, min_steps=0):
     """One bf16 eval forward (``mixed_forward``) of ``model`` (on the card,
     its statistics calibrated) on ``rows`` against the same on the CPU.
     Over a deep net bf16 rounding adds up: the limit is the CPU's own bf16
     error on these rows (max |bf16 - f32| of its logits), also given in
-    bf16 steps of the largest logit; argmax equal on every row whose top-2
-    margin exceeds the limit."""
+    bf16 steps of the largest logit, and never below ``min_steps`` of
+    those steps (the logits are themselves rounded to bf16, so where the
+    CPU's own error is under one step, one rounding of the last layer's
+    output can part the two by one step); argmax equal on every row whose
+    top-2 margin exceeds the limit."""
     import torch
     from bigdl_tpu_torch.core.precision import mixed_forward
     from bigdl_tpu_torch.nn import Sequential
@@ -3388,16 +3447,18 @@ def cnn_bf16_vs_cpu(device, what, model, rows):
         got = mixed_forward(body, x.to(device)).cpu()
         want = mixed_forward(cpu_body, x)
         exact = cpu_body(x)
-    limit = (want - exact).abs().max().item()
-    steps = limit / bf16_step(want.abs().max().item())
+    step = bf16_step(want.abs().max().item())
+    limit = max((want - exact).abs().max().item(), min_steps * step)
+    steps = limit / step
     diff = (got - want).abs().max().item()
     top2 = want.topk(2, dim=-1).values
     firm = (top2[:, 0] - top2[:, 1]) > limit
     agree = bool((got.argmax(-1) == want.argmax(-1))[firm].all())
     log(f"{what} bf16 eval forward card vs CPU ({len(rows)} rows): max "
         f"|dlogit| {diff:.4g}, limit {limit:.4g} (the CPU's bf16 against its "
-        f"f32: {steps:.1f} bf16 steps of {want.abs().max().item():.4g}); "
-        f"argmax compared on {int(firm.sum())} rows")
+        f"f32: {(want - exact).abs().max().item() / step:.1f} bf16 steps of "
+        f"{want.abs().max().item():.4g}; at least {min_steps}); argmax "
+        f"compared on {int(firm.sum())} rows")
     if not math.isfinite(diff) or diff > limit or not agree:
         fail(f"{what}: bf16 eval logits card vs CPU: max |d| {diff} beyond "
              f"{limit}, or argmax differs on a firm row")
@@ -3493,6 +3554,243 @@ def time_cnn(card, device, what, path, pools):
     return fwd, train
 
 
+# -- phase 3o: the perf harness (models/perf.py local and infer) -----------
+
+HARNESS_ITERS = 5              # the harness's -i, cut from its default 50
+# each wrapper's launches in one forward of the harness's models; a step
+# launches each backward kernel as often as its forward
+HARNESS_FORWARD = {
+    "alexnet": {"max_pool2d": 3, "cross_map_lrn": 2},
+    "alexnetowt": {"max_pool2d": 3},
+    "inception_v1": {"max_pool2d": 13, "cross_map_lrn": 2},
+    "inception_v2": {"max_pool2d": 5},
+    "vgg16": {"max_pool2d": 5},
+    "vgg19": {"max_pool2d": 5},
+}
+BACKWARD_OF = {"max_pool2d": "max_pool2d_bwd", "cross_map_lrn": "lrn_bwd"}
+# K1-K4 by kernel name (csrc/max_pool.cu, csrc/lrn.cu), cuDNN's layout
+# transforms around its bf16 and NHWC convolutions, PyTorch's elementwise
+# kernels and BatchNorm's; the rest of the device time is cuDNN's
+# convolutions and cuBLAS's products
+HARNESS_KERNELS = {"K1": "pool_fwd<", "K3": "pool_bwd<", "K2": "lrn_fwd",
+                   "K4": "lrn_bwd",
+                   "layout transforms": ("nchwToNhwc", "nhwcToNchw",
+                                         "genericTranspose"),
+                   "elementwise": "elementwise_kernel",
+                   "batch_norm": "batch_norm"}
+
+
+def harness_step_counts(name):
+    fwd = HARNESS_FORWARD[name]
+    return dict(fwd, **{BACKWARD_OF[k]: v for k, v in fwd.items()})
+
+
+class PlanLog:
+    """Records the plan of every K1-K4 launch while open, by (kernel,
+    shape, geometry or window, dtype)."""
+
+    def __enter__(self):
+        from bigdl_tpu_torch.ops import lrn, pooling
+        self.seen = {}
+        self.saved = (pooling.pool_plan, lrn.lrn_plan_for)
+        pool_plan, lrn_plan_for = self.saved
+
+        def pool_wrapped(n, c, h, w, geom, dtype, backward=False, **kw):
+            plan = pool_plan(n, c, h, w, geom, dtype, backward=backward,
+                             **kw)
+            self.seen[("K3" if backward else "K1", (n, c, h, w),
+                       tuple(geom), str(dtype))] = plan
+            return plan
+
+        def lrn_wrapped(tensors, size, backward=False):
+            plan = lrn_plan_for(tensors, size, backward)
+            self.seen[("K4" if backward else "K2", tuple(tensors[0].shape),
+                       size, str(tensors[0].dtype))] = plan
+            return plan
+        pooling.pool_plan, lrn.lrn_plan_for = pool_wrapped, lrn_wrapped
+        return self.seen
+
+    def __exit__(self, *exc):
+        from bigdl_tpu_torch.ops import lrn, pooling
+        pooling.pool_plan, lrn.lrn_plan_for = self.saved
+
+
+def fmt_seen_plan(key, plan):
+    kernel, shape, geom, dtype = key
+    dtype = dtype.replace("torch.", "")
+    if kernel in ("K1", "K3"):
+        return (f"{kernel} {shape} {dtype} {geom}: {pool_mode(plan)}, "
+                f"{fmt_plan(plan)}")
+    return f"{kernel} {shape} {dtype} size {geom}: {fmt_lrn_plan(plan)}"
+
+
+def harness_profile(name, sub, device, steps=3):
+    """Device time a step (``local``) or a forward (``infer``, bf16) of
+    the harness's own step or forward on a fresh build of ``name`` at its
+    batch, over ``steps`` after one, by torch.profiler, its kernels
+    grouped (HARNESS_KERNELS)."""
+    import torch
+    from bigdl_tpu_torch.models import perf
+    model = perf._build(name).to(device)
+    data, labels = perf._synthetic_batch(name, HARNESS_BATCH, "random")
+    if sub == "local":
+        model.training_().set_generator(
+            torch.Generator(device).manual_seed(1))
+        step = perf.local_step(model, data, labels, device)
+        float(step(0))
+
+        def run():
+            for i in range(1, steps + 1):
+                float(step(i))
+    else:
+        fwd = perf.infer_forward(model.evaluate(), data, False, device)
+        fwd()
+
+        def run():
+            for _ in range(steps):
+                fwd()
+    return device_profile(run, steps, HARNESS_KERNELS)
+
+
+def perf_harness(device, card):
+    """Phase 3o: ``perf local`` and ``perf infer`` (bf16) for each model of
+    the harness at batch 128, ``-d random``, ``-i HARNESS_ITERS``, through
+    ``models/perf.py``'s own entry points.  Fails unless every loss is
+    finite and every wrapper's launches are the model's counts a step (or
+    a forward) times the warm-up and the timed iterations.  Logs records/s,
+    ms a step, the device time and busy share of a profiled run of the
+    harness's step or forward, the peak of allocated memory and the K1-K4
+    plans each run took.  Returns (report, launches by path)."""
+    import gc
+    import logging
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import perf
+    torch.cuda.init()       # the allocator's statistics need it
+    root = logging.getLogger("bigdl_tpu_torch")
+    saved = (list(root.handlers), root.propagate, root.level)
+    report, launches = {}, {}
+    try:
+        for name in perf._INPUT_SIZES:
+            report[name] = {}
+            for sub, main_fn, counts in (
+                    ("local", perf.local_perf_main,
+                     harness_step_counts(name)),
+                    ("infer", perf.infer_perf_main, HARNESS_FORWARD[name])):
+                argv = ["-m", name, "-b", str(HARNESS_BATCH), "-i",
+                        str(HARNESS_ITERS), "-d", "random"]
+                torch.cuda.reset_peak_memory_stats(device)
+                with LogArgs("bigdl_tpu_torch.models.perf",
+                             "Iteration ") as lines, PlanLog() as plans:
+                    ops.reset_launches()        # the harness starts here
+                    ips = main_fn(argv, device=device)
+                    got = launches_now()        # and ends here
+                peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+                gc.collect()
+                torch.cuda.empty_cache()
+                path = f"perf_{sub}_{name}"
+                launches[path] = got
+                expect_launches(f"perf {sub} {name}", got,
+                                {k: v * (HARNESS_ITERS + 1)
+                                 for k, v in counts.items()})
+                losses = [a[1] for a in lines] if sub == "local" else []
+                if len(lines) != HARNESS_ITERS or \
+                        not np.isfinite(losses).all():
+                    fail(f"perf {sub} {name}: {len(lines)} iterations "
+                         f"logged, losses {losses}")
+                for key, plan in sorted(plans.items()):
+                    log(f"perf {sub} {name} plan: {fmt_seen_plan(key, plan)}")
+                prof = harness_profile(name, sub, device)
+                gc.collect()
+                torch.cuda.empty_cache()
+                ms = HARNESS_BATCH / ips * 1e3
+                prof["busy_share"] = prof["device_ms"] / ms
+                prof["groups"]["the rest: convolutions, products"] = \
+                    prof["device_ms"] - prof["htod_ms"] - \
+                    sum(prof["groups"].values())
+                r = {"records_per_s": ips, "ms": ms, "losses": losses,
+                     "iteration_records_per_s": [a[-1] for a in lines],
+                     "peak_allocated_gib": peak, "profile": prof,
+                     "launches_per_step": {k: v // (HARNESS_ITERS + 1)
+                                           for k, v in got.items() if v}}
+                report[name][sub] = r
+                what = ("f32 train step" if sub == "local"
+                        else "bf16 forward with the argmax to the host")
+                log(f"[{card}] perf {sub} -m {name} -b {HARNESS_BATCH} -i "
+                    f"{HARNESS_ITERS}: {ips:.1f} records/s, {ms:.3f} ms a "
+                    f"{what}; profiled: device {prof['device_ms']:.3f} ms "
+                    f"({prof['htod_ms']:.3f} of it the upload), busy share "
+                    f"{prof['busy_share']:.3f}; peak allocated "
+                    f"{peak:.2f} GiB; groups (ms) "
+                    + json.dumps({k: round(v, 4)
+                                  for k, v in prof["groups"].items()})
+                    + "; top (ms): " + json.dumps(prof["top"][:6]))
+    finally:        # init_logging gave the port's logger its own handler
+        root.handlers[:] = saved[0]
+        root.propagate = saved[1]
+        root.setLevel(saved[2])
+    report["card_vs_cpu"] = harness_vs_cpu(device)
+    return report, launches
+
+
+def harness_vs_cpu(device):
+    """Phase 3o's checks against the CPU, float32 unless named: step 1's
+    and step 2's losses of the harness's step on a dropout-free
+    ``AlexNet_OWT`` at batch 2 within CNN_TOL relative; AlexNet's and
+    VGG-16's eval log-probs at batch 1 within CNN_TOL of their largest
+    magnitude, argmax equal where the top-2 margin exceeds that; their bf16
+    eval logits (``infer``'s cast) on CNN_CPU_ROWS rows within the CPU's own
+    bf16-vs-f32 error and at least one bf16 step of the largest logit
+    (``cnn_bf16_vs_cpu``: at random init these shallow nets' CPU error is
+    under one step)."""
+    import torch
+    from bigdl_tpu_torch.models import AlexNet, AlexNet_OWT, Vgg_16, perf
+    cpu = torch.device("cpu")
+    out = {}
+    data, labels = perf._synthetic_batch("alexnetowt", CNN_CPU_BATCH,
+                                         "random")
+    losses = []
+    for dev in (device, cpu):
+        model = AlexNet_OWT(CLASSES, has_dropout=False).reset(SEED)
+        step = perf.local_step(model.to(dev).training_(), data, labels, dev)
+        losses.append([float(step(i)) for i in range(2)])
+    rel = [abs(a - b) / abs(b) for a, b in zip(*losses)]
+    log(f"perf local alexnetowt (no dropout) card vs CPU, batch "
+        f"{CNN_CPU_BATCH}: losses {losses[0]} vs {losses[1]}, relative "
+        f"{rel} (limit {CNN_TOL})")
+    if not all(math.isfinite(v) and v <= CNN_TOL for v in rel):
+        fail(f"perf local alexnetowt: card vs CPU losses differ by {rel}")
+    out["alexnetowt_losses"] = {"card": losses[0], "cpu": losses[1],
+                                "relative": rel}
+    for name, build in (("alexnet", AlexNet), ("vgg16", Vgg_16)):
+        c, h, w = perf._INPUT_SIZES[name]
+        rng = np.random.RandomState(SEED + 12)
+        x = torch.from_numpy(rng.standard_normal((1, c, h, w))
+                             .astype(np.float32))
+        model = build(CLASSES).reset(SEED).evaluate()
+        with torch.inference_mode():
+            want = model(x)[0]
+            got = copy.deepcopy(model).to(device)(x.to(device))[0].cpu()
+        limit = CNN_TOL * want.abs().max().item()
+        err = (got - want).abs().max().item()
+        top2 = want.topk(2).values
+        firm = bool(top2[0] - top2[1] > limit)
+        log(f"perf {name} eval log-probs card vs CPU (batch 1): max |d| "
+            f"{err:.3g} (limit {limit:.3g}); argmax "
+            + ("compared" if firm else "not compared (top-2 within the "
+               "limit)"))
+        if not err <= limit or (firm and got.argmax() != want.argmax()):
+            fail(f"perf {name}: card vs CPU log-probs differ by {err}")
+        rows = [rng.standard_normal((c, h, w)).astype(np.float32)
+                for _ in range(CNN_CPU_ROWS)]
+        out[name] = {"max_abs_dlogp": err, "limit": limit,
+                     "bf16": cnn_bf16_vs_cpu(device, f"perf {name}",
+                                             model.to(device), rows,
+                                             min_steps=1)}
+        del model
+    return out
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -3507,23 +3805,24 @@ def time_forwards(clf, device):
 
 
 def time_pool_layers(device, dtype, backward, plain=True, library=True,
-                     layers=POOLS):
+                     layers=POOLS, with_idx=None):
     """K1 or (``backward``) K3 at each pool layer of ``layers`` (those of
-    Inception-v1 by default) at batch 32:
+    Inception-v1 at batch 32 by default):
     per layer its CUDA-event median (L2 flushed) and torch.profiler device
     time, its bytes bound, the plain version's time and the library call's
     (events and device time; ``plain`` and ``library`` False leave those
-    out).  K1 writes its index in bfloat16, as
-    training calls it, and not in float32, as serving does; the library
-    calls are ``F.max_pool2d`` (with indices in bfloat16) and ATen's
-    ``max_pool2d_with_indices_backward``."""
+    out).  K1 writes its index where ``with_idx`` says, by default in
+    bfloat16, as training calls it, and not in float32, as serving does;
+    the library calls are ``F.max_pool2d`` (with indices where K1 writes
+    them) and ATen's ``max_pool2d_with_indices_backward``."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import (max_pool2d, max_pool2d_bwd,
                                      max_pool2d_bwd_plain, max_pool2d_plain)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
-    with_idx = dtype == torch.bfloat16
+    if with_idx is None:
+        with_idx = dtype == torch.bfloat16
     size = torch.empty((), dtype=dtype).element_size()
     rows = []
     for name, shape, kh, kw, sh, sw, ph, pw, ceil in layers:
@@ -3596,8 +3895,9 @@ def log_pool_times(card, what, t, layers="pools"):
 
 
 def time_lrn_layers(device, dtype, backward, with_scale=False, plain=True,
-                    library=True):
-    """K2 or (``backward``) K4 at each Inception-v1 LRN layer at batch 32:
+                    library=True, layers=LRNS):
+    """K2 or (``backward``) K4 at each LRN layer of ``layers`` (those of
+    Inception-v1 at batch 32 by default):
     per layer its CUDA-event median (L2 flushed) and torch.profiler device
     time, its bound, the plain version's time and the library call's
     (events and device time; ``plain`` and ``library`` False leave those
@@ -3612,7 +3912,7 @@ def time_lrn_layers(device, dtype, backward, with_scale=False, plain=True,
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     size_of = torch.empty((), dtype=dtype).element_size()
     rows = []
-    for name, shape, size, alpha, beta, k in LRNS:
+    for name, shape, size, alpha, beta, k in layers:
         x = torch.randn(shape, generator=gen, device=device).to(dtype)
         if backward:
             dy = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -3671,6 +3971,46 @@ def time_train_kernels(device):
         "lrn_fwd": pool_sums(time_lrn_layers(device, bf16, False,
                                              with_scale=True)),
         "lrn_bwd": pool_sums(time_lrn_layers(device, bf16, True))}
+
+
+# phase 4's K1-K4 at the harness's shapes: what each timing stands for
+HARNESS_TIMES = {
+    "max_pool2d_fwd": "f32 with its index, perf local",
+    "max_pool2d_fwd_infer": "bf16, no index, perf infer",
+    "max_pool2d_bwd": "f32, perf local",
+    "lrn_fwd": "f32 with its scale, perf local",
+    "lrn_fwd_infer": "bf16, no scale, perf infer",
+    "lrn_bwd": "f32, perf local"}
+
+
+def time_harness_kernels(device):
+    """K1-K4 at the shapes of the perf harness's paths at batch 128: K1
+    and K3 at VGG's five 2x2/2 pools (224 to 14-pixel planes) and
+    AlexNet's three 3x3/2 pools, K2 and K4 at AlexNet's two LRNs (odd
+    planes, one pixel a thread), each in float32 as ``perf local`` calls
+    it (K1 with its index, K2 with its scale) and K1/K2 also in bfloat16
+    as ``perf infer`` calls them; per layer and summed, by CUDA events and
+    torch.profiler device time, beside bound, plain version and the
+    library call."""
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    for key, layers in (("vgg", VGG_POOLS), ("alexnet", ALEXNET_POOLS[:3])):
+        out[key] = {
+            "max_pool2d_fwd": pool_sums(time_pool_layers(
+                device, f32, False, layers=layers, with_idx=True)),
+            "max_pool2d_fwd_infer": pool_sums(time_pool_layers(
+                device, bf16, False, layers=layers, with_idx=False)),
+            "max_pool2d_bwd": pool_sums(time_pool_layers(
+                device, f32, True, layers=layers))}
+    out["alexnet"].update({
+        "lrn_fwd": pool_sums(time_lrn_layers(
+            device, f32, False, with_scale=True, layers=ALEXNET_LRNS)),
+        "lrn_fwd_infer": pool_sums(time_lrn_layers(
+            device, bf16, False, layers=ALEXNET_LRNS)),
+        "lrn_bwd": pool_sums(time_lrn_layers(
+            device, f32, True, layers=ALEXNET_LRNS))})
+    return out
 
 
 QSTAGES = ("conv2", "3a/3b", "4a-4e", "5a/5b", "classifier")
@@ -4412,7 +4752,7 @@ def device_profile(fn, n, groups=None):
     """``torch.profiler`` over ``fn()``, which runs ``n`` steps or forwards:
     the summed kernel and copy time per step, the kernels that take the
     most of it, and per label of ``groups`` the time of the kernels whose
-    name holds its substring.  The profiler slows the host, so the busy
+    name holds its substring (or one of its tuple of substrings).  The profiler slows the host, so the busy
     share is taken against an unprofiled time by the caller."""
     kernels = {name: us / 1e3 / n for name, us in _profiled_us(fn).items()
                if us > 0}
@@ -4422,9 +4762,11 @@ def device_profile(fn, n, groups=None):
                           if name.startswith("Memcpy HtoD")),
            "top": [[name[:90], ms] for name, ms in top]}
     if groups:
-        out["groups"] = {label: sum(ms for name, ms in kernels.items()
-                                    if part in name)
-                         for label, part in groups.items()}
+        out["groups"] = {label: sum(
+            ms for name, ms in kernels.items()
+            if any(p in name for p in ((part,) if isinstance(part, str)
+                                       else part)))
+            for label, part in groups.items()}
     return out
 
 
@@ -4618,7 +4960,18 @@ def main() -> int:
     cnn_launches = {f"{key}_{p}": v for key, (_, _, by) in cnn.items()
                     for p, v in by.items()}
     cnn_launches["cifar_resnet20_train"] = cifar_launches
+    # phase 3o: the perf harness, local and infer, each model at batch 128
+    harness_report, harness_launches = perf_harness(device, card)
+    cnn_launches.update(harness_launches)
+    log("perf harness: " + json.dumps(harness_report))
     # phase 4
+    harness_times = time_harness_kernels(device)
+    for key, tt in harness_times.items():
+        for kname, t in tt.items():
+            log_pool_times(card, f"{key} {kname} ({HARNESS_TIMES[kname]}, "
+                           f"batch {HARNESS_BATCH})", t,
+                           "LRN layers" if kname.startswith("lrn")
+                           else "pools")
     cnn_times = {
         key: time_cnn(card, device, what, (cnn[key][0], cnn[key][1], build,
                                            recipe), pools)
@@ -4904,6 +5257,11 @@ def main() -> int:
             if name == "max_pool2d_bwd":
                 for key, (_, cnn_train) in cnn_times.items():
                     entry[key] = {"train_bf16": cnn_train[name]}
+        harness = {key: {kname: tt[kname] for kname in tt
+                         if kname.startswith(name)}
+                   for key, tt in harness_times.items()}
+        if any(harness.values()):
+            entry["harness"] = {k2: v for k2, v in harness.items() if v}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

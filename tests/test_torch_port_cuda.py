@@ -50,6 +50,8 @@ the CPU's own f32 step as the yardstick of bf16 rounding.  A
 LocalOptimizer run resumed from a snapshot on the card draws the
 uninterrupted run's dropout masks (the
 CUDA generator's state is restored exactly) and agrees with it to 1e-5.
+The perf harness's AlexNet and VGG-16 launch K1 and K2 (3 + 2 and 5) in a
+bf16 forward and K3 and K4 besides in an f32 step, and nothing else.
 """
 
 import numpy as np
@@ -1221,3 +1223,37 @@ def test_resnet50_bf16_step_on_the_card_matches_the_cpu(cuda_device):
         assert _rel(c - w, b - w) <= 2 * _rel(b - w, f - w)
     for c, w in zip(wc, w0):
         assert torch.isfinite(c - w).all() and bool((c != w).any())
+
+
+# each wrapper's launches in one forward (bf16, as ``perf infer`` runs it)
+# and in one f32 training step (``perf local``) of the harness's models
+HARNESS_LAUNCHES = [
+    ("alexnet", {"max_pool2d": 3, "cross_map_lrn": 2},
+     {"max_pool2d": 3, "max_pool2d_bwd": 3, "cross_map_lrn": 2,
+      "lrn_bwd": 2}),
+    ("vgg16", {"max_pool2d": 5}, {"max_pool2d": 5, "max_pool2d_bwd": 5})]
+
+
+@pytest.mark.parametrize("name, forward, step", HARNESS_LAUNCHES,
+                         ids=[c[0] for c in HARNESS_LAUNCHES])
+def test_harness_models_launch_their_kernels(cuda_device, name, forward,
+                                             step):
+    """AlexNet's two LRNs and three pools and VGG-16's five pools run K1
+    and K2 in a forward and K3 and K4 besides in a step, nothing else."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import perf
+    model = perf._build(name).to(cuda_device)
+    data, labels = perf._synthetic_batch(name, 2, "random")
+    for counts, run in (
+            (forward, lambda: perf.infer_forward(
+                model.evaluate(), data, False, cuda_device)()),
+            (step, lambda: float(perf.local_step(
+                model.training_().set_generator(
+                    torch.Generator(cuda_device).manual_seed(1)),
+                data, labels, cuda_device)(0)))):
+        ops.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == \
+            {fn.__name__: counts.get(fn.__name__, 0)
+             for fn in ops.KERNEL_WRAPPERS}
