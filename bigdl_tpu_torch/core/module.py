@@ -90,6 +90,16 @@ class Module(nn.Module):
             resolve_device(device)
         return super().to(*args, **kwargs)
 
+    def tensor_device(self) -> torch.device:
+        """The device of the layer's first parameter or buffer (a
+        ``quant.quantize_model`` copy may hold a packed weight as buffers
+        only)."""
+        for t in self.parameters():
+            return t.device
+        for t in self.buffers():
+            return t.device
+        raise ValueError(f"{self.name} holds no tensor")
+
     # -- Torch-parity facade ------------------------------------------------
 
     def training_(self) -> "Module":

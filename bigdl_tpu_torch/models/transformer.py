@@ -14,7 +14,12 @@ and the slot-addressable :meth:`TransformerLM.decode_slots`) are plain
 tensor math through a KV cache written in place, as the reference's
 ``apply_decode`` is plain einsum math; :meth:`TransformerLM.decode_pages`
 reads a block-paged pool through K12 on the card.  A cache dtype other
-than the model's promotes as ``jnp`` does.  Sampling draws from an
+than the model's promotes as ``jnp`` does.  Every path serves a
+``quant.quantize_model(lm, mode, extra_keys=("tok",))`` copy, as the
+reference's serve a packed tree: its projections run K13, K14 or K15 by
+rung, its tied table is gathered packed with only the gathered rows
+widened, to float32 (so the copy computes in f32 from the embedding on, as
+the reference's does), and its head runs ``quant.int8_matmul``.  Sampling draws from an
 explicit ``torch.Generator``: JAX's key stream cannot be matched, so only
 greedy decoding reproduces the reference token for token.
 """
@@ -38,6 +43,7 @@ from bigdl_tpu_torch.nn.attention import MultiHeadAttention
 from bigdl_tpu_torch.nn.dropout import Dropout
 from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.normalization import LayerNorm
+from bigdl_tpu_torch.ops import quant
 from bigdl_tpu_torch.utils.file import File, load_model_snapshot
 
 
@@ -160,11 +166,20 @@ class TransformerLM(Module):
                     p.copy_(torch.randn(tuple(p.shape), generator=gen) *
                             scale)
 
+    def _tok_rows(self, ids):
+        """Rows of the 0-based ``ids`` of the tied table: gathered packed
+        and widened to float32 where a ``quantize_model(...,
+        extra_keys=("tok",))`` copy packs it (``_embed_rows``)."""
+        qt = quant.packed_weight(self, "tok")
+        if qt is not None:
+            return quant.int8_gather_rows(qt, ids)
+        return F.embedding(ids, self.tok)
+
     def _embed(self, ids, offset: int):
         """Token rows of the 1-based ``ids`` plus learned positions from
         ``offset``."""
-        ids = torch.as_tensor(ids, device=self.tok.device).long() - 1
-        x = F.embedding(ids, self.tok)
+        ids = torch.as_tensor(ids, device=self.tensor_device()).long() - 1
+        x = self._tok_rows(ids)
         if self.pos is not None:
             x = x + self.pos[offset:offset + ids.shape[1]][None]
         return x
@@ -175,18 +190,27 @@ class TransformerLM(Module):
         into the table: an out-of-table position (a right-pad token, a row
         at its cache end) gives a finite row, where a NaN written to the
         trash page would reach every row through 0 * NaN."""
-        ids = torch.as_tensor(ids, device=self.tok.device).long()
-        x = F.embedding(ids - 1, self.tok)
+        ids = torch.as_tensor(ids, device=self.tensor_device()).long()
+        x = self._tok_rows(ids - 1)
         if self.pos is not None:
-            pos = torch.as_tensor(pos, device=self.tok.device).long()
+            pos = torch.as_tensor(pos, device=self.tensor_device()).long()
             positions = pos[:, None] + torch.arange(ids.shape[1],
                                                     device=pos.device)
             x = x + self.pos[positions.clamp(0, self.max_len - 1)]
         return x
 
+    def _tied_logits(self, x):
+        """``x @ tok.T``, the weight-tied head (``_tied_logits``): a packed
+        table runs ``quant.int8_matmul`` with the per-row scales of the
+        gather, in x's dtype."""
+        qt = quant.packed_weight(self, "tok")
+        if qt is not None:
+            return quant.int8_matmul(x, qt)
+        return torch.matmul(*promote(x, self.tok.t()))
+
     def _head(self, x):
         """Tied logits of the final hidden states: ``ln_f(x) @ tok.T``."""
-        return torch.matmul(*promote(self.ln_f(x), self.tok.t()))
+        return self._tied_logits(self.ln_f(x))
 
     def logits(self, input, key_padding_mask=None):
         """LogSoftMax's input: the tied logits (B, T, vocab)."""
@@ -255,8 +279,10 @@ class TransformerLM(Module):
         """Page-table :meth:`decode_slots`: row ``b``'s cache positions live
         in the shared pool at ``pages[b, p // page_size]`` ((B, Lp) int).
         Inactive rows and positions past the table write to the trash page,
-        never to a page another slot (or a shared prefix) owns.  Returns
-        the log-probs (B, S, vocab)."""
+        never to a page another slot (or a shared prefix) owns.  Every row
+        writes its K/V before any row reads, so a row sees the positions
+        that rows before it wrote in the same call.  Returns the log-probs
+        (B, S, vocab)."""
         x = self._embed_rows(tokens, pos)
         for blk, c in zip(self.blocks, cache):
             x = blk.decode_step_pages(x, c, pages, pos, active)
@@ -276,7 +302,7 @@ class TransformerLM(Module):
         ``device``."""
         self.to(device)   # outside inference mode: the parameters stay
                           # usable by autograd afterwards
-        prompt = torch.as_tensor(prompt).to(self.tok.device).long()
+        prompt = torch.as_tensor(prompt).to(self.tensor_device()).long()
         b, tp = prompt.shape
         ml = max_len or self.max_len
         if tp + max_new > ml:

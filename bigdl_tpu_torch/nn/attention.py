@@ -8,7 +8,9 @@ apply_decode`, :meth:`~MultiHeadAttention.apply_decode_slots`) are plain
 tensor math, as in the reference; the paged path
 (:meth:`~MultiHeadAttention.apply_decode_pages`) reads through
 :func:`~bigdl_tpu_torch.ops.attention.paged_attention` (K12 on the card).
-Mixed cache and model dtypes promote at each product as ``jnp`` does.
+Mixed cache and model dtypes promote at each product as ``jnp`` does.  The
+q/k/v/out projections go through ``quant.matmul_or_observe``: in a
+``quant.quantize_model`` copy they run K13, K14 or K15 by rung.
 Parameters ``wq``/``wk``/``wv``/``wo`` are (out, in) and ``bq``/``bk``/
 ``bv``/``bo`` the biases, under the reference's names.  GQA: K/V project to
 ``num_kv_heads`` heads, KV head ``j`` serving query heads
@@ -20,12 +22,11 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.module import Module, seeded
-from bigdl_tpu_torch.core.precision import promote
+from bigdl_tpu_torch.ops import quant
 from bigdl_tpu_torch.ops.attention import (decode_attention, fused_attention,
                                            paged_attention)
 
@@ -101,9 +102,8 @@ class MultiHeadAttention(Module):
         return x.transpose(1, 2).reshape(b, t, h * d)
 
     def _qkv(self, x):
-        q = F.linear(*promote(x, self.wq, self.bq))
-        k = F.linear(*promote(x, self.wk, self.bk))
-        v = F.linear(*promote(x, self.wv, self.bv))
+        q, k, v = (quant.matmul_or_observe(self, w, x, getattr(self, b))
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
         return (self._split(q, self.num_heads),
                 self._split(k, self.num_kv_heads),
                 self._split(v, self.num_kv_heads))
@@ -111,7 +111,7 @@ class MultiHeadAttention(Module):
     def _out(self, o):
         """The output projection of (B, H, S, D) attention outputs: ``o``
         has the cache's dtype in decode, ``wo`` the model's."""
-        return F.linear(*promote(self._merge(o), self.wo, self.bo))
+        return quant.matmul_or_observe(self, "wo", self._merge(o), self.bo)
 
     def forward(self, x, key_padding_mask=None):
         q, k, v = self._qkv(x)
@@ -130,8 +130,9 @@ class MultiHeadAttention(Module):
         """Zeroed KV cache for :meth:`apply_decode`, (B, H_kv, max_len, D)
         per tensor, on the parameters' device."""
         shape = (batch, self.num_kv_heads, max_len, self.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.wq.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.wq.device)}
+        dev = self.tensor_device()
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
     def apply_decode(self, x_t, cache, pos: int):
         """Incremental attention for the tokens ``x_t`` (B, S, E) at
@@ -200,8 +201,9 @@ class MultiHeadAttention(Module):
         device.  The last page (id ``num_pages``) is the trash page:
         unmapped table slots and inactive rows write there."""
         shape = (num_pages + 1, self.num_kv_heads, page_size, self.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.wq.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.wq.device)}
+        dev = self.tensor_device()
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
     def apply_decode_pages(self, x_t, cache, pages, pos, active):
         """Page-table :meth:`apply_decode_slots`: logical page ``l`` of row
@@ -209,7 +211,9 @@ class MultiHeadAttention(Module):
         token's K/V is written in place at ``(pages[b, p // ps], p % ps)``;
         an inactive row, and a position whose logical page lies past the
         table, write to the trash page instead, so a write never reaches a
-        page outside the row's own table.  The read is
+        page outside the row's own table.  Every row writes before any row
+        reads, so a row sees what the rows before it wrote in this call
+        (a speculative verify pass relies on it).  The read is
         :func:`~bigdl_tpu_torch.ops.attention.paged_attention` (K12 on the
         card), which zeroes trash pages.  Returns y (B, S, E)."""
         q, k, v = self._qkv(x_t)

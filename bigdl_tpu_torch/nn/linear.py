@@ -12,8 +12,8 @@ take the reference's names (``weight``, ``bias``; ``Scale``'s ``cmul`` and
 In a :func:`bigdl_tpu_torch.ops.quant.quantize_model` copy ``Linear``'s
 weight is packed and the product runs the fused dequant-matmul
 (``quant.int8_matmul``: K13, K14 or K15 by rung); an fp weight takes
-``F.linear`` and is the calibration point (``quant.observe``), as
-``matmul_or_observe`` is in the reference."""
+``F.linear`` and is the calibration point, both through
+``quant.matmul_or_observe`` as in the reference."""
 
 from __future__ import annotations
 
@@ -21,12 +21,10 @@ import math
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from bigdl_tpu_torch.core import init as init_methods
 from bigdl_tpu_torch.core.module import Module, seeded
-from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.ops import quant
 
 
@@ -56,12 +54,7 @@ class Linear(Module):
                     1.0 / math.sqrt(self.input_size)))
 
     def forward(self, input):
-        qt = quant.packed_weight(self)
-        if qt is not None:
-            y = quant.int8_matmul(input, qt)
-            return y if self.bias is None else y + self.bias
-        quant.observe(self, input)
-        return F.linear(*promote(input, self.weight, self.bias))
+        return quant.matmul_or_observe(self, "weight", input, self.bias)
 
 
 class Bilinear(Module):

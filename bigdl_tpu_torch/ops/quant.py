@@ -59,13 +59,14 @@ from __future__ import annotations
 import copy
 import functools
 import threading
-from typing import Dict, Iterable, NamedTuple, Optional
+from typing import Dict, Iterable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.core.module import Container
+from bigdl_tpu_torch.core.precision import promote
 from bigdl_tpu_torch.ops import _build
 
 # parameter names of matmul/conv weights the layers route through the
@@ -237,13 +238,30 @@ def maybe_unpack(w, dtype=torch.float32):
     return unpack(w, dtype) if is_quantized(w) else w
 
 
-def packed_weight(module) -> Optional[Dict[str, torch.Tensor]]:
-    """The packed ``weight`` of a layer of a :func:`quantize_model` copy (its
-    fields are buffers named ``weight_<field>``), or None for an fp layer."""
-    fields = getattr(module, "packed_fields", None)
+def packed_weight(module, name: str = "weight"
+                  ) -> Optional[Dict[str, torch.Tensor]]:
+    """The packed parameter ``name`` of a layer of a :func:`quantize_model`
+    copy (its fields are buffers named ``<name>_<field>``), or None where
+    that parameter is not packed."""
+    fields = getattr(module, "packed_fields", {}).get(name)
     if not fields:
         return None
-    return {f: getattr(module, "weight_" + f) for f in fields}
+    return {f: getattr(module, f"{name}_{f}") for f in fields}
+
+
+def int8_gather_rows(qt, idx):
+    """Embedding rows ``idx`` of a packed table (``int8_gather_rows``): the
+    packed rows and their per-row scales are gathered and only those rows
+    widened, to float32 (the reference widens to its ``"dt"`` stamp, which
+    no packed LM here carries), so the table stays packed on the card."""
+    kind = packed_kind(qt)
+    if kind == "q4":
+        rows = unpack_nibbles(qt["q4"][idx], packed_k(qt)).float()
+    elif kind == "f8":        # gathered as bytes: the same bits, any device
+        rows = qt["f8"].view(torch.uint8)[idx].view(qt["f8"].dtype).float()
+    else:
+        rows = qt["q8"][idx].float()
+    return rows * qt["scale"][idx][..., None]
 
 
 # -- plain versions of the kernels -------------------------------------------
@@ -586,6 +604,22 @@ def int8_matmul(x, qt):
     return y.reshape(lead + (y.shape[-1],))
 
 
+def matmul_or_observe(module, name: str, x, b=None):
+    """The one dispatch of every quant-aware product, ``x @ w.T + b`` with
+    ``w`` the parameter ``name`` of ``module`` (``matmul_or_observe``): a
+    packed ``w`` (:func:`packed_weight`) runs :func:`int8_matmul` (K13, K14
+    or K15 by rung) in x's dtype, the bias added after; an fp ``w`` is the
+    calibration point (:func:`observe`) and takes ``F.linear`` with the
+    operands promoted as ``jnp`` promotes them."""
+    qt = packed_weight(module, name)
+    if qt is not None:
+        y = int8_matmul(x, qt)
+        return y if b is None else y + b
+    w = getattr(module, name)
+    observe(w, x)
+    return F.linear(*promote(x, w, b))
+
+
 def int8_conv2d(x, qt, padding=(0, 0)):
     """Stride-1 NCHW conv over a packed int8 OIHW weight: (C, kh, kw)
     patches of x from ``F.unfold`` (outside the kernel, as the reference
@@ -612,19 +646,21 @@ def int8_conv2d(x, qt, padding=(0, 0)):
 _collector = threading.local()
 
 
-def observe(module, x) -> None:
-    """Calibration hook of every fp ``Linear``: records max |x| per layer
-    inside :class:`calibrating`, a no-op (one thread-local read) outside."""
+def observe(w, x) -> None:
+    """Calibration hook of every fp product site (:func:`matmul_or_observe`):
+    records max |x| per weight ``w`` inside :class:`calibrating`, so the four
+    projections of an attention layer each get their own input's scale; a
+    no-op (one thread-local read) outside."""
     store = getattr(_collector, "store", None)
     if store is None:
         return
     v = float(x.detach().float().abs().max())
-    store[module] = max(store.get(module, 0.0), v)
+    store[id(w)] = max(store.get(id(w), 0.0), v)
 
 
 class calibrating:
     """Context manager arming :func:`observe` with an absmax store keyed by
-    layer (internal: :func:`calibrate` is the public pass)."""
+    weight (internal: :func:`calibrate` is the public pass)."""
 
     def __init__(self, store: Dict):
         self.store = store
@@ -638,34 +674,44 @@ class calibrating:
 
 
 def _walk(model, path: str = ""):
-    """``(path, layer)`` for every leaf layer, with the JAX package's pytree
-    paths (a Container's children by index), so calibration scales and
-    packed leaves are keyed as ``bigdl_tpu.ops.quant._walk`` keys them."""
+    """``(path, layer)`` for every layer, with the paths of its parameters'
+    place in :meth:`~bigdl_tpu_torch.core.module.Module.param_tree` (a
+    Container's or a ``ModuleList``'s children by index, any other child by
+    attribute name: ``blocks.3.attn``, ``blocks.3.fc1``, ``""`` for the
+    root), so calibration scales and packed leaves are keyed as
+    ``bigdl_tpu.ops.quant._walk`` keys the JAX package's pytree."""
     if isinstance(model, Container):
         for i, m in enumerate(model.layers):
-            yield from _walk(m, f"{path}.{i}" if path else str(i))
-    else:
-        yield path, model
+            yield from _walk(m, _param_path(path, str(i)))
+        return
+    yield path, model
+    for name, child in model._modules.items():
+        if isinstance(child, torch.nn.ModuleList):
+            for i, m in enumerate(child):
+                yield from _walk(m, _param_path(path, f"{name}.{i}"))
+        elif child is not None:
+            yield from _walk(child, _param_path(path, name))
 
 
 def _param_path(path: str, name: str) -> str:
     return f"{path}.{name}" if path else name
 
 
-def _quantizable(name: str, p):
+def _quantizable(name: str, p, extra_keys=()):
     # shape[0] > 1: a singleton channel axis would make one per-tensor
     # scale out of the per-channel scheme
-    return (name in QUANT_KEYS and p.dim() in (2, 4)
+    return ((name in QUANT_KEYS or name in extra_keys) and p.dim() in (2, 4)
             and p.is_floating_point() and p.numel() >= MIN_QUANT_ELEMENTS
             and p.shape[0] > 1)
 
 
 def calibrate(model, batches: Iterable) -> Dict[str, float]:
     """Run ``batches`` through the fp ``model`` in eval mode on its device,
-    record each quantizable ``Linear`` input's max |x|, and return
+    record the max |x| of each quantizable weight's input, and return
     ``{param_path: absmax / 127}`` for :func:`quantize_model`'s ``calib=``.
-    (The reference also writes a ``quant.calibration`` ledger record; the
-    port has no ledger yet.)"""
+    Integer batches (token ids) stay integers; any other batch goes in as
+    float32.  (The reference also writes a ``quant.calibration`` ledger
+    record; the port has no ledger yet.)"""
     device = next(model.parameters()).device
     store: Dict = {}
     was_training = model.training
@@ -673,16 +719,18 @@ def calibrate(model, batches: Iterable) -> Dict[str, float]:
     try:
         with calibrating(store), torch.inference_mode():
             for x in batches:
-                model(torch.as_tensor(np.asarray(x, np.float32)).to(device))
+                x = np.asarray(x)
+                if not np.issubdtype(x.dtype, np.integer):
+                    x = x.astype(np.float32)
+                model(torch.as_tensor(x).to(device))
     finally:
         model.train(was_training)
     scales: Dict[str, float] = {}
     for path, m in _walk(model):
         for name, p in m._parameters.items():
-            if p is not None and m in store and \
-                    _quantizable(name, p):
+            if p is not None and id(p) in store and _quantizable(name, p):
                 scales[_param_path(path, name)] = \
-                    max(store[m], 1e-12) / 127.0
+                    max(store[id(p)], 1e-12) / 127.0
     return scales
 
 
@@ -690,16 +738,22 @@ def calibrate(model, batches: Iterable) -> Dict[str, float]:
 
 def quantize_model(model, mode: str = "w8",
                    calib: Optional[Dict[str, float]] = None,
-                   cast_rest=None):
+                   cast_rest=None, extra_keys: Sequence[str] = ()):
     """A private packed copy of ``model`` for quantized inference
     (``quantize_params``); the caller's model keeps its fp weights.
 
     Each parameter the reference packs (``_quantizable``: a ``QUANT_KEYS``
-    name, 2-D or 4-D, floating, at least ``MIN_QUANT_ELEMENTS``, ``shape[0]
-    > 1``) is replaced by buffers ``<name>_<field>`` of its packed form, so
-    ``.to(device)`` moves them; ``"w8a8"`` bakes ``calib``'s activation
-    scale into each calibrated leaf.  Every other floating parameter is cast
-    to ``cast_rest`` when given; scales stay f32."""
+    name or one of ``extra_keys``, 2-D or 4-D, floating, at least
+    ``MIN_QUANT_ELEMENTS``, ``shape[0] > 1``) is replaced by buffers
+    ``<name>_<field>`` of its packed form, so ``.to(device)`` moves them,
+    and its layer's ``packed_fields[name]`` names the fields
+    (:func:`packed_weight`).  ``extra_keys=("tok",)`` packs a
+    ``TransformerLM``'s tied table, whose per-row scales serve both the
+    gather and the head.  ``"w8a8"`` bakes ``calib``'s activation scale
+    into each calibrated leaf; a packed leaf without one (the tied head,
+    which the reference never observes) serves weight-only.  Every other
+    floating parameter is cast to ``cast_rest`` when given; scales stay
+    f32."""
     req = mode
     mode = normalize_mode(mode)
     check_mode(mode, req)
@@ -714,14 +768,15 @@ def quantize_model(model, mode: str = "w8",
             for name, p in list(m._parameters.items()):
                 if p is None:
                     continue
-                if _quantizable(name, p):
+                if _quantizable(name, p, extra_keys):
                     sx = calib.get(_param_path(path, name)) \
                         if mode == "w8a8" else None
                     leaf = pack(p.detach(), sx=sx, mode=leaf_mode)
                     m._parameters[name] = None
                     for f, t in leaf.items():
                         m.register_buffer(f"{name}_{f}", t)
-                    m.packed_fields = tuple(leaf)
+                    m.packed_fields = dict(getattr(m, "packed_fields", {}),
+                                           **{name: tuple(leaf)})
                 else:
                     v = p.detach()
                     if cast_rest is not None and v.is_floating_point():

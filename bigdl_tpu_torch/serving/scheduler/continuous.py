@@ -37,9 +37,25 @@ rebuilds the pool and the prefix cache.  Right-padded prefill is safe:
 garbage K/V past a prompt's real length is hidden by the validity mask
 (``l <= pos``) and overwritten the step it would become visible.
 
-Left for later slices: ``quantize``/``calibration_prompts``, speculative
-decoding (``draft_model``/``spec_k``), sessions (``session``/``park``/
-``close_session``), the memory ``budgeter`` and ``ledger_tags``.
+* **Quantized serving** (``quantize=``): prefill and decode run a private
+  packed copy of the model (``quant.quantize_model(..., extra_keys=
+  ("tok",))``: the projections on K13, K14 or K15 by rung, the tied table
+  gathered packed); ``"w8a8"`` first runs ``calibration_prompts`` through
+  the fp model once to fix the activation scales.  The caller's model keeps
+  its fp weights.
+* **Speculative decoding** (``draft_model=``, greedy only, paged only): a
+  round is ``spec_k + 1`` greedy draft steps through the draft's own row
+  cache (the extra step writes the last proposal's K/V, so a full-accept
+  round leaves no hole), then one target verify pass through
+  ``decode_pages`` with every slot expanded into ``spec_k + 1`` rows at
+  S = 1 (its page table repeated, positions ``pos + i``), then the host's
+  accept walk: the matched prefix plus the target's own next token, the
+  limit and ``eos_id`` replayed token by token.  The output is the target's
+  greedy path.  A rejected proposal's K/V lie past the accepted frontier,
+  hidden until the round that overwrites them.
+
+Left for later slices: sessions (``session``/``park``/``close_session``),
+the memory ``budgeter`` and ``ledger_tags``.
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.ops import quant
 from bigdl_tpu_torch.serving.counters import Counters, percentile
 from bigdl_tpu_torch.serving.errors import (DrainingError, InvalidRequestError,
                                             QueueFullError,
@@ -156,6 +173,14 @@ class ContinuousGenerator:
     the worker thread before the first request, so the kernel build and
     each rung's first run land in no request's latency.  Use as a context
     manager or call :meth:`drain`.
+
+    ``quantize``: ``"w8"``/``"int8"``, ``"w8a8"`` (with
+    ``calibration_prompts``, a few token-id prompts), ``"w4"``/``"int4"``
+    or ``"f8"``/``"fp8"`` serves a packed copy (module doc); the rung is
+    ``self.quantize``.  ``draft_model``/``draft_quantize``/``spec_k`` arm
+    speculative decoding: the draft shares the target's vocab,
+    ``draft_quantize="w8"`` packs it int8, and a round proposes ``spec_k``
+    tokens; ``stats()["spec"]`` counts what was proposed and accepted.
     """
 
     def __init__(self, model, *, num_slots: int = 4,
@@ -167,10 +192,42 @@ class ContinuousGenerator:
                  cache_dtype=None, warmup: bool = True, paged: bool = True,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  paged_kernel: Optional[bool] = None,
-                 prefix_cache: Optional[bool] = None, device="cuda"):
+                 prefix_cache: Optional[bool] = None,
+                 quantize: Optional[str] = None, calibration_prompts=None,
+                 draft_model=None, draft_quantize: Optional[str] = None,
+                 spec_k: int = 4, device="cuda"):
+        qmode = quant.normalize_mode(quantize)
+        if qmode is not None and qmode not in quant.MODES:
+            raise ValueError(
+                f"unsupported quantize mode {quantize!r} for generation: use "
+                "'w8'/'int8', 'w8a8', 'w4'/'int4' or 'f8'/'fp8'")
+        prompts = list(calibration_prompts or ())
+        if qmode == "w8a8" and not prompts:
+            raise ValueError(
+                "quantize='w8a8' needs calibration_prompts: a few token-id "
+                "prompts run through the fp model once to fix the per-tensor "
+                "activation scales (weight-only quantization is 'w8')")
+        self.spec_k = int(spec_k)
+        dmode = self._check_draft(model, draft_model, draft_quantize, paged,
+                                  paged_kernel, temperature)
         self.device = resolve_device(device)
         model.to(self.device)    # outside inference mode, as generate()
-        self.model = model.evaluate()
+        model.evaluate()
+        if qmode is not None:
+            calib = quant.calibrate(model, [
+                np.asarray(p, np.int64).reshape(1, -1) for p in prompts]) \
+                if qmode == "w8a8" else None
+            model = quant.quantize_model(model, qmode, calib=calib,
+                                         extra_keys=("tok",))
+        self.quantize = qmode
+        self.model = model
+        self._draft = None
+        if draft_model is not None:
+            draft_model.to(self.device)
+            self._draft = draft_model.evaluate()
+            if dmode is not None:
+                self._draft = quant.quantize_model(self._draft, dmode,
+                                                   extra_keys=("tok",))
         self.max_len = int(max_len or model.max_len)
         if model.position == "learned" and self.max_len > model.max_len:
             raise ValueError(
@@ -234,6 +291,7 @@ class ContinuousGenerator:
         self._active = np.zeros(n, bool)
         self._limit = np.zeros(n, np.int64)
         self._cache = None                   # built by the worker thread
+        self._dcache = None                  # the draft's, likewise
         self._page_bytes = 0
         self._chunks = 0
         self._emitted = 0
@@ -254,6 +312,36 @@ class ContinuousGenerator:
         if self._startup_error is not None:
             self._worker.join()
             raise self._startup_error
+
+    def _check_draft(self, model, draft, draft_quantize, paged,
+                     paged_kernel, temperature):
+        """The reference's ``ValueError``s for speculative decoding; returns
+        the draft's rung (None or ``"w8"``)."""
+        if draft is None:
+            return None
+        if not paged:
+            raise ValueError("speculative decoding requires paged=True (the "
+                             "verify pass runs through decode_pages)")
+        if paged_kernel is False:
+            raise ValueError("speculative decoding reads through the paged "
+                             "kernel: its verify pass runs decode_pages, so "
+                             "paged_kernel=False cannot hold")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if temperature > 0:
+            raise ValueError("speculative decoding is greedy-only: the accept "
+                             "rule compares draft proposals against the "
+                             "target model's argmax path")
+        if getattr(draft, "vocab_size", None) != model.vocab_size:
+            raise ValueError(
+                f"draft vocab {getattr(draft, 'vocab_size', '?')} != target "
+                f"vocab {model.vocab_size}: proposals would not be "
+                "comparable")
+        dmode = quant.normalize_mode(draft_quantize)
+        if dmode not in (None, "w8"):
+            raise ValueError(f"unsupported draft_quantize "
+                             f"{draft_quantize!r}: use 'w8'")
+        return dmode
 
     # -- the worker thread ---------------------------------------------------
 
@@ -276,6 +364,11 @@ class ContinuousGenerator:
             self._loop()
 
     def _new_cache(self):
+        """A zeroed pool (or row cache) and, when speculating, the draft's
+        zeroed row cache of ``num_slots x max_len``."""
+        if self._draft is not None:
+            self._dcache = self._draft.init_cache(
+                self.slots.num_slots, self.max_len, self._cache_dtype)
         if self._paged:
             return self.model.init_paged_cache(
                 self._alloc.num_pages, self._alloc.page_size,
@@ -284,10 +377,11 @@ class ContinuousGenerator:
                                      self._cache_dtype)
 
     def _warmup(self) -> None:
-        """Every prefill rung and one decode chunk, before the first
-        request.  Paged warmup runs against an all-trash table, so its
-        writes land on the trash page only; row warmup writes slot 0, whose
-        next prefill zeroes it."""
+        """Every prefill rung (the draft's too) and one decode chunk or
+        speculative round, before the first request.  Paged warmup runs
+        against an all-trash table, so its writes land on the trash page
+        only; row warmup (and the draft's) writes slot 0, whose next prefill
+        zeroes it."""
         trash_row = (np.full(self._lp, self._alloc.trash, np.int32)
                      if self._paged else None)
         for b in self.seq_ladder:
@@ -296,7 +390,12 @@ class ContinuousGenerator:
                 self._prefill_pages(dummy, 1, trash_row, 0)
             else:
                 self._prefill_row(dummy, 1, 0)
-        self._run_chunk()
+            if self._draft is not None:
+                self._row_prefill(self._draft, self._dcache, dummy, 0)
+        if self._draft is not None:
+            self._run_round()
+        else:
+            self._run_chunk()
 
     def _loop(self) -> None:
         while True:
@@ -314,15 +413,18 @@ class ContinuousGenerator:
                         break
                     self._place(req)
                     continue
-                self._plain_chunk()
+                if self._draft is not None:
+                    self._spec_chunk()
+                else:
+                    self._plain_chunk()
             except BaseException:                # the worker must not die
                 logger.exception("continuous generator: unexpected error")
                 self._fail_all_and_recover()
 
     def _fail_all_and_recover(self) -> None:
-        """Fail every live slot typed, then rebuild the pool: a failed call
-        may have left it half written, so the prefix cache's pages go with
-        it."""
+        """Fail every live slot typed, then rebuild the pool (and the
+        draft's cache): a failed call may have left it half written, so the
+        prefix cache's pages go with it."""
         for j, r in enumerate(self._requests):
             if r is not None:
                 self._evict(j, "failed")
@@ -471,6 +573,12 @@ class ContinuousGenerator:
         padded[0, :ts] = req.prompt[start:]
         try:
             first = self._prefill_pages(padded, ts, table_row, start)
+            if self._draft is not None:
+                # the draft ingests the whole prompt, prefix hit or not:
+                # its row cache shares nothing
+                full = np.ones((1, self.seq_ladder.pick(tp)), np.int64)
+                full[0, :tp] = req.prompt
+                self._row_prefill(self._draft, self._dcache, full, slot)
         except Exception as e:
             self._release_partial(slot, priv, slot_keys)
             self._prefill_failed(req, e)
@@ -533,14 +641,20 @@ class ContinuousGenerator:
 
     def _prefill_row(self, padded, tp: int, slot: int) -> int:
         """Prefill into the zeroed cache row of ``slot``."""
+        lp = self._row_prefill(self.model, self._cache, padded, slot)
+        return int(self._pick(lp[:, tp - 1])[0])
+
+    def _row_prefill(self, model, cache, padded, slot: int):
+        """``model.decode`` of ``padded`` (1, bucket) from position 0 into
+        row ``slot`` of a row cache, zeroed first (a local one-row prefill
+        copied into the row, as the reference's); returns the log-probs."""
         rows = [{side: c[side][slot:slot + 1] for side in ("k", "v")}
-                for c in self._cache]
+                for c in cache]
         for r in rows:
             r["k"].zero_()
             r["v"].zero_()
-        lp = self.model.decode(torch.from_numpy(padded).to(self.device),
-                               rows, 0)
-        return int(self._pick(lp[:, tp - 1])[0])
+        return model.decode(torch.from_numpy(padded).to(self.device), rows,
+                            0)
 
     def _commit_placed(self, req: GenRequest, slot: int, tp: int,
                        first: int, bucket: int) -> None:
@@ -671,11 +785,71 @@ class ContinuousGenerator:
                 to_pool(c[side], v[side])
         return out
 
+    def _run_round(self):
+        """The device part of one speculative round from the host mirrors:
+        ``spec_k + 1`` greedy draft steps (each write gated on ``active &
+        pos < max_len``), then the target's verify pass over ``num_slots x
+        (spec_k + 1)`` rows at S = 1.  Returns (drafts (B, k), the
+        target's picks (B, k + 1)) on the host after one sync."""
+        dev, k = self.device, self.spec_k
+        cur, pos, active = (torch.from_numpy(a).to(dev) for a in (
+            self._tokens, self._pos, self._active))
+        tok, p, proposals = cur, pos, []
+        for _ in range(k + 1):
+            lp = self._draft.decode_slots(tok[:, None], self._dcache, p,
+                                          active & (p < self.max_len))
+            tok = torch.where(active, lp[:, -1].argmax(dim=-1) + 1, tok)
+            p = p + 1
+            proposals.append(tok)
+        drafts = torch.stack(proposals[:k], dim=1)
+        b = cur.shape[0]
+        table = torch.from_numpy(self._page_table).to(dev)
+        lp = self.model.decode_pages(
+            torch.cat([cur[:, None], drafts], dim=1).reshape(b * (k + 1), 1),
+            self._cache, table.repeat_interleave(k + 1, dim=0),
+            (pos[:, None] + torch.arange(k + 1, device=dev)).reshape(-1),
+            active.repeat_interleave(k + 1))
+        greedy = lp[:, 0].argmax(dim=-1) + 1
+        host = torch.cat([drafts.reshape(-1), greedy]).cpu().numpy()
+        return host[:b * k].reshape(b, k), host[b * k:].reshape(b, k + 1)
+
+    def _spec_chunk(self) -> None:
+        """One speculative round: the host accepts each slot's matched
+        prefix of proposals plus the target's next token (its correction,
+        or a bonus token when all matched), replaying the limit and
+        ``eos_id`` rule token by token."""
+        n_active = int(self._active.sum())
+        drafts, greedy = self._run_round()
+        k = self.spec_k
+        chunk_tokens = proposed = accepted = 0
+        for j, req in enumerate(self._requests):
+            if req is None or not self._active[j]:
+                continue
+            n = 0
+            while n < k and drafts[j, n] == greedy[j, n]:
+                n += 1
+            proposed += k
+            accepted += n
+            for i in range(n + 1):
+                t = int(greedy[j, i])
+                req.tokens.append(t)
+                self._tokens[j] = t
+                self._pos[j] += 1
+                chunk_tokens += 1
+                if self._pos[j] >= self._limit[j] or \
+                        (self.eos_id is not None and t == self.eos_id):
+                    self._evict(j, "ok")
+                    break
+        self.metrics.incr("serve.gen.spec.proposed", proposed)
+        self.metrics.incr("serve.gen.spec.accepted", accepted)
+        self._account_chunk(n_active, chunk_tokens, 1)
+
     def _plain_chunk(self) -> None:
         n_active = int(self._active.sum())
         tok, pos, active, toks, emitted = self._run_chunk()
         self._tokens, self._pos = tok, pos
-        self._account_chunk(n_active, int(emitted.sum()))
+        self._account_chunk(n_active, int(emitted.sum()),
+                            self.steps_per_sync)
         for j, req in enumerate(self._requests):
             if req is None:
                 continue
@@ -685,11 +859,12 @@ class ContinuousGenerator:
             else:
                 self._evict(j, "ok")
 
-    def _account_chunk(self, n_active: int, chunk_tokens: int) -> None:
+    def _account_chunk(self, n_active: int, chunk_tokens: int,
+                       steps: int) -> None:
         self._emitted += chunk_tokens
         self._chunks += 1
         self._occupancy_sum += n_active / self.slots.num_slots
-        self.metrics.incr("serve.gen.steps", self.steps_per_sync)
+        self.metrics.incr("serve.gen.steps", steps)
         if self._paged:
             # tokens held, each shared page once: every slot's private
             # positions plus the prefix cache's pages
@@ -742,8 +917,9 @@ class ContinuousGenerator:
         with self._lat_lock:
             lats = sorted(self._latencies)
         chunks = self._chunks
+        counters = self.metrics.snapshot()
         out = {
-            "counters": self.metrics.snapshot(),
+            "counters": counters,
             "queue_depth": self.queue.depth,
             "slots": self.slots.num_slots,
             "active": int(self._active.sum()),
@@ -770,4 +946,11 @@ class ContinuousGenerator:
             }
             out["prefix"] = (self._prefix.stats()
                              if self._prefix is not None else None)
+        if self._draft is not None:
+            proposed = counters.get("serve.gen.spec.proposed", 0)
+            accepted = counters.get("serve.gen.spec.accepted", 0)
+            out["spec"] = {"k": self.spec_k, "proposed": proposed,
+                           "accepted": accepted,
+                           "accept_rate": (accepted / proposed if proposed
+                                           else 0.0)}
         return out

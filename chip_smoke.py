@@ -50,7 +50,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    launches at the classifier at buckets 32 and 8 (split K); then the
    bf16 kernel's plan (rows and columns a block, splits of K) and x's copy
    (TMA or loads), the f32 kernel's plan and x's copy (16- or 4-byte), and
-   K14's plan at every product of the path;
+   K14's plan at every product of the path; the same at the packed LM's
+   products (``LM_QUANT_MS`` x ``LM_QUANT_KN``: M 8, 32, 128, 512 and 33
+   against (K, N) (512, 512), (512, 2048), (2048, 512) and (512, 32000))
+   for every rung in both dtypes;
 3. serving: full-width ``Inception_v1(1000)`` with seeded random weights
    behind ``InferenceServer(DLClassifier(..., device="cuda"),
    batch_buckets=(8, 32))``; every request must resolve to the same class
@@ -110,7 +113,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    the scores' bf16 rounding shows, a 65 536-token table past the old
    kernel's limit), in float32 and bfloat16, and f32 queries over a bf16
    cache, logging the path each case took (tensor cores or page split);
-   the same tolerances as 2d; two launches bit-equal on each path;
+   the speculative verify shape (8 slots x 4 rows at S 1, each table
+   repeated, positions pos + i) in the same three dtype pairs; the same
+   tolerances as 2d; two launches bit-equal on each path;
 2f. the flash backward: K9 with its row logsumexp, the delta pass
    (``rowsum(dO·O)``, shared by K10 and K11), K10 (dQ) and K11 (dK, dV)
    against their plain versions at the training paths' shapes ((1, 8,
@@ -176,6 +181,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
    requests x 32 tokens equal to ``generate`` and to
    ``paged_kernel=False``, request by request (phase 4 reports K12's
    device time summed over the traffic, by path);
+3p. the same LM quantized behind the same generator
+   (``quantize="w8"`` over the whole traffic, ``"w8a8"`` calibrated on 4
+   of its prompts, ``"w4"`` and ``"f8"`` over the f32 copy's 8 requests x
+   32 tokens): each rung's launches exactly ``LM_RUNG_LAUNCHES`` and 8 K12
+   a prefill and a decode step (over the run, and in one prefill and one
+   step, whose products must be f32 but the out projection's, bf16 from
+   the pool), resident bytes within the rung's ``RUNG_BUDGETS`` ratio to
+   the bf16 model, new tokens/s, latency and the first-token agreement
+   with the fp generator logged, the plan of every product of a step;
+   f32 copies' w8 and w8a8 prefill log-probs of two requests on the card
+   against the CPU on the same packed copy (``QF32_LOGIT_RTOL`` of their
+   largest magnitude, argmax where the top-2 margin is wider than twice
+   that; w8a8's CPU run takes the card's activation codes, each within one
+   code of its own, every differing one within ``QA8_EDGE`` of a rounding
+   edge); a profile of 8 requests under w8; then speculative decoding: the
+   bf16 LM with a ``draft_quantize="w8"`` draft of its first 4 blocks,
+   ``spec_k`` 3, over the whole traffic: exactly 25 K13 a draft prefill
+   and a draft step (4 a round) and 8 K12 a prefill and a verify pass,
+   the accept rate, a round's host time and a profile of 8 requests; on
+   f32 copies the
+   tokens with that draft, with a draft of the first 7 blocks (accept rate
+   strictly between 0 and 1) and with the target as its own draft equal
+   to plain continuous decoding's and ``generate``'s;
 3h. long-context training: ``models/perf.py`` ``longcontext_perf_main`` at
    its defaults (T 8192, 8 layers, embed 512, 8 heads, vocab 8192, remat,
    bf16 mixed precision, SGD 0.1, one warm-up and 5 timed steps): finite
@@ -254,7 +282,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    Inception-v1 and over the batch-32 forward beside their bounds, plain
    versions and library calls (``F.linear`` on the widened weight; K14
    ``torch._int_mm`` + scale) by both clocks (K14 at buckets 8 and 32,
-   and K13-e4m3 and K15 also in f32 at the classifier), the
+   and K13-e4m3 and K15 also in f32 at the classifier), each rung's
+   kernels summed over the packed LM's decode step (49 products at M 8,
+   f32 but the out projection's bf16) beside the same bound and library
+   calls, the
    fused conv (unfold + K13) against cuDNN at three layers, and the ``w8``
    bf16 and the default f32 ``w8`` forward per bucket with a profiler
    breakdown of their device time (the f32 K13's share of it);
@@ -266,8 +297,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    version and ``F.scaled_dot_product_attention``, K8 against K9 at T 512
    to 16384, LM scoring tokens/s at both configurations, generation new
    tokens/s and a profiler breakdown of one scoring forward; K12 per call
-   at the decode shape (the page split) and the prefill shapes (the
-   tensor-core path) with its plan and the blocks that hold visible keys
+   at the decode shape (the page split), the prefill shapes (the
+   tensor-core path) and the speculative verify shape (32 rows) with its
+   plan and the blocks that hold visible keys
    (at least one an SM at the decode shape), by CUDA events and
    torch.profiler's device time, beside its bound, plain version and SDPA
    on the pre-gathered view; the continuous run's new tokens/s,
@@ -651,6 +683,33 @@ CG_SLOTS, CG_PAGE, CG_BUCKETS = 8, 16, (128, 512)
 CG_REQUESTS, CG_PROMPT, CG_HEAD, CG_HEAD_FRAC = 32, 512, 384, 0.75
 CG_SHORT, CG_LONG, CG_LONG_FRAC = (16, 64), (96, 128), 0.25
 CG_F32_REQUESTS, CG_F32_NEW = 8, 32       # the f32 copy, half sharing the head
+# quantized and speculative continuous serving (phase 3p): the LM of 3g
+# behind the same generator under each rung (w8 over the whole traffic, the
+# other rungs over the f32 copy's requests; w8a8 calibrated on the first
+# CG_QCAL_PROMPTS of the traffic's prompts), and with a draft of its first
+# SPEC_DRAFT_LAYERS blocks (bench_serve.py's truncated draft at its default
+# half) under w8, proposing SPEC_K tokens a round (its default); the f32
+# token check adds a draft of the first SPEC_PARTIAL_LAYERS blocks, which
+# agrees with the target part of the time (0 < accept rate < 1), so rounds
+# that accept some proposals and leave the rejected ones' K/V behind are
+# held to plain decoding
+CG_QCAL_PROMPTS, SPEC_K, SPEC_DRAFT_LAYERS = 4, 3, 4
+SPEC_PARTIAL_LAYERS = LM_LAYERS - 1
+# the LM's packed products a forward, by rung: 8 x (4 projections + fc1 +
+# fc2) and the tied head; the head has no activation scale in w8a8 (the
+# reference never observes it), so it runs K13 weight-only there
+LM_RUNG_LAUNCHES = {
+    "w8": {"w8_matmul": 49}, "w8a8": {"a8_matmul": 48, "w8_matmul": 1},
+    "w4": {"w4_matmul": 49}, "f8": {"f8_matmul": 49}}
+# K13-K15 against their plain versions at the LM's products (phase 2c): M
+# of a decode step, of a verify pass (8 x (SPEC_K + 1)), of the two prefill
+# buckets and a ragged M; (K, N) of the projections, fc1, fc2 and the head
+LM_QUANT_MS = (8, 32, 128, 512, 33)
+LM_QUANT_KN = ((512, 512), (512, 2048), (2048, 512), (512, 32000))
+# the f32 w8a8 prefill, card vs CPU (phase 3p): an activation code the card
+# rounds otherwise than the CPU lies within this of a rounding edge, in
+# units of the activation scale
+QA8_EDGE = 1e-3
 # K12 against its plain version (phase 2e): (name, b, h, hkv, s, d, page
 # size, lp, tokens per row (0: an inactive row, all-trash table),
 # integer-valued q/k at scale 0.3, so that |s| ~ 30); the decode case
@@ -1517,6 +1576,14 @@ def cg_traffic(seed=SEED + 70):
     return prompts, budgets, shared
 
 
+def cg_picks(shared):
+    """The f32 copy's requests: the first CG_F32_REQUESTS // 2 of the
+    traffic that share the head, the rest from those that do not."""
+    pick = [i for i in range(CG_REQUESTS) if shared[i]][:CG_F32_REQUESTS // 2]
+    return pick + [i for i in range(CG_REQUESTS)
+                   if not shared[i]][:CG_F32_REQUESTS - len(pick)]
+
+
 def paged_decode_case():
     """The path's decode shape: 8 slots, 8 heads, S 1, d 64, page size 16,
     Lp 128, each row halfway through the budget of one of the traffic's
@@ -1525,6 +1592,65 @@ def paged_decode_case():
     return ("decode, the path's shape", CG_SLOTS, LM_HEADS, LM_HEADS, 1, 64,
             CG_PAGE, LM_T // CG_PAGE,
             [CG_PROMPT + n // 2 for n in budgets[:CG_SLOTS]], False)
+
+
+def paged_verify_operands(dtype, cache_dtype, device, seed):
+    """A speculative verify pass at the path's decode shape: each of the
+    CG_SLOTS rows of :func:`paged_decode_case` expanded into SPEC_K + 1
+    rows at S 1, its page table repeated, positions ``pos + i`` over its
+    last SPEC_K + 1 tokens.  Returns the case (its b the expanded rows)
+    and the operands."""
+    import torch
+    case = paged_decode_case()
+    q, k, v, pages, pos, scale = paged_operands(case, dtype, cache_dtype,
+                                                device, seed)
+    r = SPEC_K + 1
+    g = torch.Generator().manual_seed(seed + 1)
+    qv = torch.randn((case[1] * r,) + tuple(q.shape[1:]), generator=g)
+    vpos = (pos - SPEC_K + torch.arange(r, device=device)).reshape(-1, 1)
+    vcase = ("verify pass, the path's shape",
+             case[1] * r) + case[2:8] + ([n for n in case[8] for _ in
+                                          range(r)], False)
+    return vcase, (qv.to(device, dtype), k, v,
+                   pages.repeat_interleave(r, dim=0), vpos, scale)
+
+
+def check_paged_verify(device):
+    """K12 at the verify shape (:func:`paged_verify_operands`) against its
+    plain version, in f32, bf16 and f32 q over a bf16 cache.  Returns (max
+    |err| f32, max relative error f32 and bf16, cases, mismatches, the
+    plan of the verify rows)."""
+    import torch
+    from bigdl_tpu_torch.ops import attention as attn
+    err = rel = rel_bf16 = 0.0
+    cases = misses = 0
+    for i, (qdt, cdt) in enumerate(((torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16))):
+        case, ops = paged_verify_operands(qdt, cdt, device, SEED + 110 + i)
+        q, k, v, pages, pos, scale = ops
+        got = attn.paged_attention(*ops)
+        torch.cuda.synchronize()
+        want = attn.paged_attention_plain(*ops)
+        mag = attn.paged_attention_plain(q.float(), k.float(),
+                                         v.float().abs(), pages, pos, scale)
+        e = (got.float() - want.float()).abs()
+        rr = (e / mag.clamp_min(1e-30)).max().item()
+        tol = (ATTN_F32_RTOL if cdt == torch.float32 else
+               ATTN_BF16_STEPS * BF16_STEP) * mag
+        ok = bool((e <= tol).all()) and bool(torch.isfinite(got).all())
+        cases += 1
+        if cdt == torch.float32:
+            rel, err = max(rel, rr), max(err, e.max().item())
+        else:
+            rel_bf16 = max(rel_bf16, rr)
+        if not ok:
+            misses += 1
+            fail(f"paged_attention {case[0]} q {qdt} cache {cdt}: max |err| "
+                 f"/ sum |p·v| {rr:.3g}")
+    plan = attn.paged_plan(CG_SLOTS * (SPEC_K + 1), *paged_decode_case()[2:8],
+                           torch.float32, torch.float32)._asdict()
+    return err, rel, rel_bf16, cases, misses, plan
 
 
 def paged_operands(case, dtype, cache_dtype, device, seed):
@@ -1617,6 +1743,14 @@ def check_paged_kernel(device):
             if not torch.equal(a, b):
                 fail(f"{name} {case[0]} {dt}: two launches differ")
             del ops, a, b
+    v_err, v_rel, v_rel_bf16, v_cases, v_misses, v_plan = \
+        check_paged_verify(device)
+    err, rel, rel_bf16 = max(err, v_err), max(rel, v_rel), \
+        max(rel_bf16, v_rel_bf16)
+    cases, misses = cases + v_cases, misses + v_misses
+    log(f"paged attention at the verify shape ({CG_SLOTS} slots x "
+        f"{SPEC_K + 1} rows, tables repeated, positions pos + i; f32, bf16, "
+        f"f32 q over a bf16 cache): within tolerance (f32 plan {v_plan})")
     log(f"paged attention kernel vs plain: {cases} cases, max |err| / sum "
         f"|p·v| f32 {rel:.3g} (limit {ATTN_F32_RTOL}; max |err| {err:.3g}) "
         f"bf16 cache {rel_bf16:.3g} (limit "
@@ -2630,10 +2764,7 @@ def continuous_serving(device):
 
     # an f32 copy: tokens equal to generate() and to paged_kernel=False
     f32 = copy.deepcopy(base).to(device)
-    pick = [i for i in range(CG_REQUESTS) if shared[i]][:CG_F32_REQUESTS // 2]
-    pick += [i for i in range(CG_REQUESTS)
-             if not shared[i]][:CG_F32_REQUESTS - len(pick)]
-    fprompts = [prompts[i] for i in pick]
+    fprompts = [prompts[i] for i in cg_picks(shared)]
     outs = {}
     for name, extra in (("kernel", {}), ("hoisted", {"paged_kernel": False})):
         with ContinuousGenerator(f32, **kw, **extra) as g:
@@ -2684,6 +2815,421 @@ def drive_continuous(gen, prompts, budgets):
             "new_tokens_per_s": sum(budgets) / wall,
             "latency_p50_ms": 1e3 * lats[(len(lats) - 1) // 2],
             "latency_max_ms": 1e3 * lats[-1]}
+
+
+# -- phase 3p: quantized and speculative continuous serving -----------------
+
+def timed_calls(obj, name, into):
+    """Wrap ``obj.<name>`` so each call appends its wall seconds to
+    ``into`` (a generator's chunk or round, called by its worker)."""
+    real = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            into.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+
+
+def lm_step_launches(qmodel, device):
+    """Each wrapper's launches in one prefill (1 x CG_PROMPT) and in one
+    decode step (CG_SLOTS x 1) of a packed LM through ``decode_pages`` on
+    a scratch bf16 pool, the step's packed products as (M, K, N, x dtype,
+    rung) and the dtype of its log-probs."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.ops import quant
+    lp = CG_PROMPT // CG_PAGE + 1
+    seen = []
+    real = quant.int8_matmul
+
+    def spy(x, qt):
+        seen.append((x.numel() // x.shape[-1], x.shape[-1],
+                     qt["scale"].shape[0], str(x.dtype).replace("torch.", ""),
+                     quant.packed_kind(qt) + ("+sx" if "sx" in qt else "")))
+        return real(x, qt)
+
+    ids = torch.from_numpy(lm_ids((CG_SLOTS, CG_PROMPT + 1), SEED + 75))
+    ids = ids.to(device)
+    ones = torch.ones(CG_SLOTS, dtype=torch.bool, device=device)
+    quant.int8_matmul = spy
+    try:
+        with torch.inference_mode():
+            pool = qmodel.init_paged_cache(CG_SLOTS * lp, CG_PAGE,
+                                           torch.bfloat16)
+            table = torch.arange(CG_SLOTS * lp, dtype=torch.int32,
+                                 device=device).reshape(CG_SLOTS, lp)
+            ops.reset_launches()
+            qmodel.decode_pages(ids[:1, :CG_PROMPT], pool, table[:1],
+                                torch.zeros(1, device=device), ones[:1])
+            torch.cuda.synchronize()
+            prefill = launches_now()
+            del seen[:]
+            ops.reset_launches()
+            out = qmodel.decode_pages(
+                ids[:, CG_PROMPT:], pool, table,
+                torch.full((CG_SLOTS,), CG_PROMPT, device=device), ones)
+            torch.cuda.synchronize()
+            step = launches_now()
+    finally:
+        quant.int8_matmul = real
+    return prefill, step, seen, out.dtype
+
+
+def held_f32(what, got, want):
+    """Hold f32 log-probs ``got`` against ``want`` (the CPU's): max |d|
+    within QF32_LOGIT_RTOL of ``want``'s largest magnitude (the rule phase
+    3d holds the f32 w8 logits to), and argmax equal wherever the top-2
+    margin exceeds twice that.  Returns the figures."""
+    limit = QF32_LOGIT_RTOL * want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    firm = (top2[..., 0] - top2[..., 1]) > 2 * limit
+    agree = int((got.argmax(-1) == want.argmax(-1))[firm].sum())
+    if not math.isfinite(diff) or diff > limit or agree != int(firm.sum()):
+        fail(f"{what}: max |dlogp| {diff} (limit {limit}); argmax equal at "
+             f"{agree} of the {int(firm.sum())} positions whose top-2 margin "
+             "exceeds twice the limit")
+    return {"max_abs_dlogp": diff, "mean_abs_dlogp":
+            (got - want).abs().mean().item(), "limit": limit,
+            "argmax_compared": int(firm.sum()), "positions": firm.numel()}
+
+
+def quant_card_vs_cpu(device, base, prompts):
+    """The w8 and w8a8 prefill log-probs of two requests (f32 copies, the
+    same packed copy on the card and on the CPU; w8a8 calibrated on the
+    card over CG_QCAL_PROMPTS prompts) through ``decode_pages``, held by
+    :func:`held_f32`.  w8a8 rounds every product's input to its int8
+    grid, so where an element lies on a rounding edge the card's and the
+    CPU's f32 sums, one ulp apart, round it to neighbouring codes and the
+    forwards part from there.  So the CPU run takes the card's codes
+    (recorded in call order): each must be within one code of the CPU's
+    own, and every element that differs must lie within QA8_EDGE of a
+    rounding edge on the CPU; the flips are counted."""
+    import torch
+    from bigdl_tpu_torch.ops import quant
+    f32 = copy.deepcopy(base).to(device)
+    calib = quant.calibrate(f32, [p.reshape(1, -1)
+                                  for p in prompts[:CG_QCAL_PROMPTS]])
+    del f32
+    ids = torch.from_numpy(np.stack(prompts[:2]))
+    lp = CG_PROMPT // CG_PAGE
+    real = quant.quantize_act
+    codes, flips = [], {"elements": 0, "codes": 0, "edge": 0.0}
+
+    def record(x, sx):
+        q = real(x, sx)
+        codes.append(q.cpu())
+        flips["codes"] += q.numel()
+        return q
+
+    def replay(x, sx):
+        q, card = real(x, sx), codes.pop(0)
+        off = q.int() - card.int()
+        if off.abs().max().item() > 1:
+            fail(f"w8a8 card vs CPU: an activation code {off.abs().max()} "
+                 "steps from the CPU's")
+        off = off != 0
+        if off.any():
+            v = (x.float() / sx)[off]
+            flips["elements"] += int(off.sum())
+            flips["edge"] = max(flips["edge"], (
+                v - v.floor() - 0.5).abs().max().item())
+        return card
+
+    def prefill(m, d, act):
+        quant.quantize_act = act
+        try:
+            with torch.inference_mode():
+                pool = m.init_paged_cache(2 * lp, CG_PAGE)
+                table = torch.arange(2 * lp, dtype=torch.int32,
+                                     device=d).reshape(2, lp)
+                return m.decode_pages(
+                    ids.to(d), pool, table, torch.zeros(2, device=d),
+                    torch.ones(2, dtype=torch.bool, device=d)).cpu()
+        finally:
+            quant.quantize_act = real
+
+    out = {}
+    for mode in ("w8", "w8a8"):
+        cpu_q = quant.quantize_model(base, mode, extra_keys=("tok",),
+                                     calib=calib if mode == "w8a8" else None)
+        card = prefill(copy.deepcopy(cpu_q).to(device), device, record)
+        cpu = prefill(cpu_q, torch.device("cpu"),
+                      replay if mode == "w8a8" else real)
+        out[mode] = held_f32(f"{mode} f32 prefill, card vs CPU", card, cpu)
+        if mode == "w8a8":
+            if codes or flips["edge"] > QA8_EDGE:
+                fail(f"w8a8 card vs CPU: {len(codes)} products unreplayed, "
+                     f"or a flipped code {flips['edge']} from a rounding "
+                     f"edge (limit {QA8_EDGE})")
+            out[mode]["flipped_codes"] = dict(flips)
+    return out
+
+
+def quantized_continuous(device, model, card):
+    """Phase 3p, the rungs: ``model`` (3g's bf16 LM on the card, bf16 pool)
+    behind ContinuousGenerator(quantize=mode) for each rung, w8 over the
+    whole traffic and the others over the f32 copy's requests.  Fails on a
+    resident ratio over the rung's budget or launch counts other than
+    LM_RUNG_LAUNCHES and 8 K12 a prefill and a step (over the run, and in
+    one prefill and one step); logs tokens/s, latency, bytes by dtype and
+    the first-token agreement with the fp generator, then the f32 card vs
+    CPU check and a profile of the w8 traffic.  Returns the report and the
+    launches by path."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.ops import quant
+    from bigdl_tpu_torch.serving import ContinuousGenerator
+    prompts, budgets, shared = cg_traffic()
+    picks = cg_picks(shared)
+    fprompts = [prompts[i] for i in picks]
+    kw = dict(num_slots=CG_SLOTS, max_len=LM_T, page_size=CG_PAGE,
+              seq_buckets=CG_BUCKETS, cache_dtype=torch.bfloat16,
+              device=device)
+    with ContinuousGenerator(model, **kw) as g:
+        fp = g.generate(fprompts, CG_F32_NEW)
+    fp_bytes = sum(quant.param_bytes_by_dtype(model).values())
+    report, launches, w8 = {}, {}, None
+    for mode in quant.MODES:
+        extra = {"calibration_prompts": prompts[:CG_QCAL_PROMPTS]} \
+            if mode == "w8a8" else {}
+        t0 = time.perf_counter()
+        gen = ContinuousGenerator(model, quantize=mode, **extra, **kw)
+        build_s = time.perf_counter() - t0
+        full = mode == "w8"
+        rp, rb = (prompts, budgets) if full else \
+            (fprompts, [CG_F32_NEW] * len(fprompts))
+        chunks = []
+        timed_calls(gen, "_plain_chunk", chunks)
+        ops.reset_launches()                 # this rung's run starts here
+        run = drive_continuous(gen, rp, rb)
+        gen.drain()
+        got = launches_now()                 # and ends here
+        st = gen.stats()
+        prefills = st["counters"]["serve.gen.prefills"]
+        steps = st["counters"]["serve.gen.steps"]
+        per = dict(LM_RUNG_LAUNCHES[mode], paged_attention=LM_LAYERS)
+        if got != per_forward(per, prefills + steps):
+            fail(f"{mode} continuous serving: launches {got} for {prefills} "
+                 f"prefills and {steps} decode steps, expected "
+                 f"{per_forward(per, prefills + steps)}")
+        outs = run.pop("outputs")
+        for out, n in zip(outs, rb):
+            if out.shape != (n,) or out.min() < 1 or out.max() > LM_VOCAB:
+                fail(f"{mode} continuous serving gave {out.shape} ids or ids "
+                     f"out of range for max_new {n}")
+        mine = [outs[i] for i in picks] if full else outs
+        first = float(np.mean([a[0] == b[0] for a, b in zip(mine, fp)]))
+        same = float(np.mean([np.mean(a[:len(b)] == b[:len(a)])
+                              for a, b in zip(mine, fp)]))
+        by_dtype = quant.param_bytes_by_dtype(gen.model)
+        ratio = sum(by_dtype.values()) / fp_bytes
+        budget = quant.RUNG_BUDGETS[mode]
+        if ratio > budget["max_resident_ratio_vs_bf16"]:
+            fail(f"{mode}: resident {ratio:.4f} of the bf16 model's bytes, "
+                 f"over its budget {budget['max_resident_ratio_vs_bf16']}")
+        prefill1, step1, products, out_dtype = lm_step_launches(gen.model,
+                                                                device)
+        if prefill1 != per_forward(per, 1) or step1 != per_forward(per, 1):
+            fail(f"{mode}: one prefill launched {prefill1} and one decode "
+                 f"step {step1}, expected {per_forward(per, 1)} each")
+        want_products = sorted(
+            (CG_SLOTS, k, n, dt) for k, n, calls, dt in lm_step_products()
+            for _ in range(calls))
+        if out_dtype != torch.float32 or \
+                sorted(p[:4] for p in products) != want_products:
+            fail(f"{mode}: the packed LM's step gave {out_dtype} log-probs "
+                 f"from products {sorted(set(products))}, expected f32 from "
+                 f"{lm_step_products()} at M {CG_SLOTS}")
+        kinds = sorted({(m, k, n, dt, kind) for m, k, n, dt, kind
+                        in products})
+        plans = [f"{kind} {m}x{k}x{n} {dt}: " + json.dumps(
+            quant.a8_plan(m, k, n)._asdict() if kind == "q8+sx" else
+            (quant.f32_plan if dt == "float32" else quant.bf16_plan)(
+                m, k, n, kind == "q4")._asdict())
+            for m, k, n, dt, kind in kinds]
+        report[mode] = dict(
+            run, requests=len(rp), new_tokens=sum(rb), build_s=build_s,
+            prefills=prefills, decode_steps=steps,
+            chunk_ms_median=1e3 * statistics.median(chunks),
+            first_token_agreement_vs_fp=first,
+            token_agreement_vs_fp=same, bytes_by_dtype=by_dtype,
+            resident_ratio_vs_bf16=ratio, budget=budget,
+            launches_per_forward=per, step_products=kinds)
+        launches[f"lm_quant_{mode}"] = got
+        log(f"[{card}] quantized continuous serving {mode} (bf16 model and "
+            f"pool; f32 activations from the packed gather, the out "
+            f"projection's bf16 from the pool; {len(rp)} "
+            f"requests, {sum(rb)} new tokens): "
+            f"{run['new_tokens_per_s']:.1f} new tokens/s, request p50 "
+            f"{run['latency_p50_ms']:.1f} ms, max "
+            f"{run['latency_max_ms']:.1f} ms, {prefills} prefills, {steps} "
+            f"decode steps, a chunk of {gen.steps_per_sync} steps "
+            f"{report[mode]['chunk_ms_median']:.2f} ms (median); first "
+            f"tokens equal to the fp generator's on {first:.3f} of "
+            f"{len(fp)} requests, tokens on {same:.3f} (random weights; "
+            f"budget top-1 drop {budget['max_top1_drop']}); resident "
+            f"{ratio:.4f} of the bf16 model (limit "
+            f"{budget['max_resident_ratio_vs_bf16']}), bytes {by_dtype}; "
+            f"launches {per} a prefill and a step; the step's products and "
+            "plans: " + "; ".join(plans))
+        del gen
+    report["card_vs_cpu"] = quant_card_vs_cpu(device, lm_model(), prompts)
+    log(f"[{card}] quantized LM, f32 copies, card vs CPU (two {CG_PROMPT}-"
+        "token prefills, the same packed copy; log-probs within "
+        f"QF32_LOGIT_RTOL {QF32_LOGIT_RTOL} of their largest magnitude; "
+        "w8a8's CPU run on the card's activation codes, each flip within "
+        f"QA8_EDGE {QA8_EDGE} of a rounding edge): " +
+        json.dumps(report["card_vs_cpu"]))
+    with ContinuousGenerator(model, quantize="w8", **kw) as g:
+        prof = profiled_run(g, fprompts, "serve.gen.steps")
+    report["w8"]["profile"] = prof
+    log(f"[{card}] w8 continuous serving profile ({len(fprompts)} requests "
+        f"x {CG_F32_NEW}): device {prof['device_ms']:.1f} ms "
+        f"({prof['device_ms_per_step']:.3f} ms a decode step with the "
+        f"prefills spread over them), busy share {prof['busy_share']:.3f} of "
+        f"the unprofiled {prof['unprofiled_wall_s']:.3f} s; by kernel "
+        f"{json.dumps(prof['groups'])}; top: " + json.dumps(prof["top"]))
+    return report, launches
+
+
+def profiled_run(gen, prompts, counter):
+    """``prompts`` x CG_F32_NEW through the warm ``gen`` unprofiled, then
+    again under torch.profiler: the device time by kernel, the busy share
+    against the unprofiled wall time, and the device time per ``counter``
+    (a decode step or a speculative round) of the profiled run."""
+    budgets = [CG_F32_NEW] * len(prompts)
+    wall = drive_continuous(gen, prompts, budgets)["wall_s"]
+    before = gen.stats()["counters"][counter]
+    prof = device_profile(lambda: drive_continuous(gen, prompts, budgets),
+                          1, QUANT_LM_KERNELS)
+    n = gen.stats()["counters"][counter] - before
+    prof.update(unprofiled_wall_s=wall,
+                busy_share=prof["device_ms"] / (1e3 * wall),
+                device_ms_per_step=prof["device_ms"] / n)
+    return prof
+
+
+def draft_of(base, layers):
+    """``base``'s first ``layers`` blocks with its ``tok``, ``pos`` and
+    ``ln_f`` (bench_serve.py's truncated draft), on the CPU."""
+    from bigdl_tpu_torch.convert import export_params, load_jax_params
+    from bigdl_tpu_torch.models import TransformerLM
+    tree = export_params(base)
+    tree["blocks"] = tree["blocks"][:layers]
+    draft = TransformerLM(LM_VOCAB, max_len=LM_T, embed_dim=LM_EMBED,
+                          num_heads=LM_HEADS, num_layers=layers)
+    return load_jax_params(draft, tree).evaluate()
+
+
+def speculative_continuous(device, model, card):
+    """Phase 3p, speculation: ``model`` (3g's bf16 LM on the card) with a
+    w8 draft of its first SPEC_DRAFT_LAYERS blocks, SPEC_K proposals a
+    round, over the whole traffic with the prefix cache on: launches
+    exactly 25 K13 a draft prefill and a draft step (SPEC_K + 1 a round)
+    and 8 K12 a prefill and a verify pass; then on f32 copies the tokens
+    with the truncated w8 draft, with a draft of SPEC_PARTIAL_LAYERS blocks
+    (which must accept some proposals and reject others) and with the
+    target as its own draft equal to plain continuous decoding's and to
+    ``generate``'s, and a profile of the traffic.  Returns the report and the launches by path."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.serving import ContinuousGenerator
+    prompts, budgets, shared = cg_traffic()
+    base = lm_model()
+    draft = draft_of(base, SPEC_DRAFT_LAYERS).to(device, torch.bfloat16)
+    kw = dict(num_slots=CG_SLOTS, max_len=LM_T, page_size=CG_PAGE,
+              seq_buckets=CG_BUCKETS, device=device)
+    spec = dict(draft_model=draft, draft_quantize="w8", spec_k=SPEC_K)
+    gen = ContinuousGenerator(model, cache_dtype=torch.bfloat16, **spec,
+                              **kw)
+    rounds_s = []
+    timed_calls(gen, "_spec_chunk", rounds_s)
+    ops.reset_launches()                 # the speculative run starts here
+    run = drive_continuous(gen, prompts, budgets)
+    gen.drain()
+    got = launches_now()                 # and ends here
+    st = gen.stats()
+    prefills = st["counters"]["serve.gen.prefills"]
+    rounds = st["counters"]["serve.gen.steps"]
+    draft_products = 6 * SPEC_DRAFT_LAYERS + 1
+    want = per_forward({}, 0)
+    want.update(w8_matmul=draft_products * (prefills + (SPEC_K + 1) * rounds),
+                paged_attention=LM_LAYERS * (prefills + rounds))
+    if got != want or prefills != CG_REQUESTS:
+        fail(f"speculative serving: launches {got} for {prefills} prefills "
+             f"and {rounds} rounds, expected {want}")
+    for out, n in zip(run.pop("outputs"), budgets):
+        if out.shape != (n,) or out.min() < 1 or out.max() > LM_VOCAB:
+            fail(f"speculative serving gave {out.shape} ids or ids out of "
+                 f"range for max_new {n}")
+    fprompts = [prompts[i] for i in cg_picks(shared)]
+    with ContinuousGenerator(model, cache_dtype=torch.bfloat16, **spec,
+                             **kw) as g:
+        prof = profiled_run(g, fprompts, "serve.gen.steps")
+    report = dict(run, prefills=prefills, rounds=rounds, spec=st["spec"],
+                  prefix=st["prefix"], round_ms_median=1e3 * statistics.median(
+                      rounds_s),
+                  launches_per_round={"w8_matmul": draft_products *
+                                      (SPEC_K + 1),
+                                      "paged_attention": LM_LAYERS},
+                  profile=prof)
+
+    # f32 copies: the speculative tokens are plain decoding's
+    f32 = copy.deepcopy(base).to(device)
+    fdraft = draft_of(base, SPEC_DRAFT_LAYERS).to(device)
+    pdraft = draft_of(base, SPEC_PARTIAL_LAYERS).to(device)
+    with ContinuousGenerator(f32, **kw) as g:
+        plain = g.generate(fprompts, CG_F32_NEW)
+    ref = [f32.generate(torch.from_numpy(p[None]).to(device), CG_F32_NEW,
+                        device=device)[0].cpu().numpy() for p in fprompts]
+    checks = {}
+    for name, extra in (("truncated w8 draft",
+                         dict(draft_model=fdraft, draft_quantize="w8",
+                              spec_k=SPEC_K)),
+                        ("partial draft", dict(draft_model=pdraft,
+                                               spec_k=SPEC_K)),
+                        ("self-draft", dict(draft_model=f32, spec_k=SPEC_K))):
+        with ContinuousGenerator(f32, **extra, **kw) as g:
+            outs = g.generate(fprompts, CG_F32_NEW)
+            checks[name] = g.stats()["spec"]
+        for i, (a, b, c) in enumerate(zip(outs, plain, ref)):
+            if not (np.array_equal(a, b) and np.array_equal(a, c)):
+                fail(f"f32 speculative ({name}) request {i} differs from "
+                     f"plain continuous decoding or generate(): "
+                     f"{a.tolist()} vs {b.tolist()} and {c.tolist()}")
+    rate = checks["partial draft"]["accept_rate"]
+    if not 0.0 < rate < 1.0:
+        fail(f"f32 speculative (partial draft of {SPEC_PARTIAL_LAYERS} "
+             f"blocks): accept rate {rate}, so no round accepted part of its "
+             "proposals")
+    del f32, fdraft, pdraft, draft
+    report["f32_token_check"] = checks
+    s = st["spec"]
+    log(f"[{card}] speculative continuous serving (bf16 target and pool, "
+        f"w8 draft of {SPEC_DRAFT_LAYERS} blocks, spec_k {SPEC_K}; "
+        f"{CG_REQUESTS} requests, {sum(budgets)} new tokens): "
+        f"{run['new_tokens_per_s']:.1f} new tokens/s, request p50 "
+        f"{run['latency_p50_ms']:.1f} ms, max {run['latency_max_ms']:.1f} "
+        f"ms; {rounds} rounds (median {report['round_ms_median']:.2f} ms a "
+        f"round on the host's clock; over {len(fprompts)} requests x "
+        f"{CG_F32_NEW} profiled: device {prof['device_ms_per_step']:.3f} ms "
+        f"a round with the prefills spread over them, busy share "
+        f"{prof['busy_share']:.3f}), accept "
+        f"rate {s['accept_rate']:.4f} ({s['accepted']} of {s['proposed']} "
+        f"proposed); launches a round {report['launches_per_round']}, "
+        f"{draft_products} K13 and {LM_LAYERS} K12 a prefill; by kernel "
+        f"{json.dumps(prof['groups'])}; top: " + json.dumps(prof["top"]))
+    log(f"[{card}] f32 speculative tokens ({CG_F32_REQUESTS} requests x "
+        f"{CG_F32_NEW}) equal to plain continuous decoding's and "
+        f"generate()'s with the truncated w8 draft (accept rate "
+        f"{checks['truncated w8 draft']['accept_rate']:.4f}), the draft of "
+        f"{SPEC_PARTIAL_LAYERS} blocks (accept rate {rate:.4f}) and the "
+        f"self-draft (accept rate {checks['self-draft']['accept_rate']:.4f})")
+    return report, {"lm_speculative": got}
 
 
 # -- phase 3h/3i: TransformerLM training --------------------------------------
@@ -4150,6 +4696,107 @@ def quant_plan(name, dtype, m, k, n):
         m, k, n, nibbles=name.startswith("w4_matmul"))._asdict()
 
 
+def time_product(name, dtype, m, k, n, gen, flush, device, plain=True):
+    """One packed product through the wrapper ``name`` at (M, K, N) in
+    ``dtype``, seeded x and weight: the kernel's CUDA-event median (L2
+    flushed between calls), its device time from torch.profiler, its
+    wrapper's host time, the plain version's time (when ``plain``), and
+    ``F.linear`` on the widened weight (K14: ``torch._int_mm`` + scale,
+    None where its shape rules refuse) by both clocks, beside the bound and
+    the kernel's plan."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    xb = 2 if dtype == bf16 else 4
+    x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+    w = torch.randn((n, k), generator=gen, device=device)
+    if name == "a8_matmul":
+        qt = quant.pack(w, sx=3.0 / 127)
+        xq = quant.quantize_act(x, qt["sx"])
+        s = qt["scale"] * qt["sx"]
+        q8t = qt["q8"].t()
+        nbytes = m * k + n * k + 4 * n + xb * m * n
+        peak = INT8_OPS
+        kern = lambda: quant.a8_matmul(xq, qt["q8"], s, dtype)
+        pl = lambda: quant.int8_a8_matmul_plain(xq, qt["q8"], s, dtype)
+        lib = lambda: (torch._int_mm(xq, q8t).float() * s).to(dtype)
+        try:        # the yardstick only: its shape rules may refuse
+            lib()
+        except RuntimeError as e:
+            log(f"torch._int_mm refuses {(m, k, n)}: {e}")
+            lib = None
+    else:
+        mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(name, "w8")
+        qt = quant.pack(w, mode=mode)
+        wide = quant.unpack(qt, dtype)
+        qbytes = n * ((k + 1) // 2) if mode == "w4" else n * k
+        nbytes = xb * m * k + qbytes + 4 * n + xb * m * n
+        peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
+        if mode == "w4":
+            kern = lambda: quant.w4_matmul(x, qt["q4"], qt["scale"], k)
+            pl = lambda: quant.int4_matmul_plain(x, qt["q4"], qt["scale"], k)
+        else:
+            q = qt["q8" if mode == "w8" else "f8"]
+            fn = quant.w8_matmul if mode == "w8" else quant.f8_matmul
+            kern = lambda: fn(x, q, qt["scale"])
+            pl = lambda: quant.int8_matmul_plain(x, q, qt["scale"])
+        lib = lambda: F.linear(x, wide)
+    r = {"M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
+         "ms": median_ms(kern, device, flush=flush),
+         "device_ms": device_ms(kern, flush), "host_ms": host_ms(kern),
+         "plain_ms": median_ms(pl, device, flush=flush) if plain else None,
+         "library_ms": None if lib is None else
+         median_ms(lib, device, flush=flush),
+         "library_device_ms": None if lib is None else device_ms(lib, flush),
+         "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+         "ops_ms": 1e3 * 2 * m * n * k / peak}
+    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+    r["plan"] = quant_plan(name, dtype, m, k, n)
+    return r
+
+
+def lm_step_products(pool_dtype="bfloat16"):
+    """(K, N, calls, x dtype) of the packed products of one LM decode step:
+    q/k/v, out, fc1 and fc2 of every block, and the tied head.  The packed
+    gather widens to f32, so every product takes f32 x but the out
+    projection, whose x is the attention output in the pool's dtype (as in
+    the reference, ``nn/attention.py`` ``apply_decode_pages``)."""
+    e, f32 = LM_EMBED, "float32"
+    return [(e, e, 3 * LM_LAYERS, f32), (e, e, LM_LAYERS, pool_dtype),
+            (e, 4 * e, LM_LAYERS, f32), (4 * e, e, LM_LAYERS, f32),
+            (e, LM_VOCAB, 1, f32)]
+
+
+def time_lm_quant(device):
+    """Each rung's kernels summed over one decode step's 49 packed products
+    at M = CG_SLOTS in the path's dtypes (:func:`lm_step_products`: f32,
+    the out projection bf16 over phase 3p's bf16 pool), per product as
+    :func:`time_product` times it (w8a8: K14 at the 48 calibrated
+    products, K13 at the head).  Returns ``{rung: sums with "products"}``
+    and ``{wrapper: its sums over the step}`` for the kernels line."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    wrappers = {"w8": "w8_matmul", "w8a8": "a8_matmul", "w4": "w4_matmul",
+                "f8": "f8_matmul"}
+    rungs, by_wrapper = {}, {}
+    for mode, wrapper in wrappers.items():
+        rows = []
+        for k, n, calls, dtype in lm_step_products():
+            name = "w8_matmul" if mode == "w8a8" and n == LM_VOCAB else \
+                wrapper
+            r = time_product(name, getattr(torch, dtype), CG_SLOTS, k, n,
+                             gen, flush, device)
+            r.update(name=name, calls=calls)
+            rows.append(r)
+        rungs[mode] = dict(_quant_sums(rows), products=rows)
+        by_wrapper[wrapper] = dict(_quant_sums(
+            [r for r in rows if r["name"] == wrapper]), M=CG_SLOTS,
+            products=rows)
+    return rungs, by_wrapper
+
+
 def time_quant_kernels(device, prods):
     """K13-K15 per distinct product of the quantized forward (``prods``:
     :func:`quant_products` per bucket, QUANT_CASES' wrappers): per product
@@ -4162,65 +4809,14 @@ def time_quant_kernels(device, prods):
     forward's calls with ``"buckets"`` ({bucket: sums}) and ``"stages"``
     ({bucket: {stage: sums}}), and the per-product rows."""
     import torch
-    import torch.nn.functional as F
-    from bigdl_tpu_torch.ops import quant
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
-    bf16 = torch.bfloat16
     rows = []
     for (name, b, stage, (m, k, n)), c in sorted(quant_cases(prods).items()):
-        dtype = torch.float32 if name.endswith("_f32") else bf16
-        xb = 2 if dtype == bf16 else 4
-        x = torch.randn((m, k), generator=gen, device=device).to(dtype)
-        w = torch.randn((n, k), generator=gen, device=device)
-        if name == "a8_matmul":
-            qt = quant.pack(w, sx=3.0 / 127)
-            xq = quant.quantize_act(x, qt["sx"])
-            s = qt["scale"] * qt["sx"]
-            q8t = qt["q8"].t()
-            nbytes = m * k + n * k + 4 * n + xb * m * n
-            peak = INT8_OPS
-            kern = lambda: quant.a8_matmul(xq, qt["q8"], s, dtype)
-            plain = lambda: quant.int8_a8_matmul_plain(xq, qt["q8"], s,
-                                                       dtype)
-            lib = lambda: (torch._int_mm(xq, q8t).float() * s).to(dtype)
-            try:        # the yardstick only: its shape rules may refuse
-                lib()
-            except RuntimeError as e:
-                log(f"torch._int_mm refuses {(m, k, n)}: {e}")
-                lib = None
-        else:
-            mode = {"w4_matmul": "w4", "f8_matmul": "f8"}.get(
-                name.replace("_f32", ""), "w8")
-            qt = quant.pack(w, mode=mode)
-            wide = quant.unpack(qt, dtype)
-            qbytes = n * ((k + 1) // 2) if mode == "w4" else n * k
-            nbytes = xb * m * k + qbytes + 4 * n + xb * m * n
-            peak = BF16_FLOPS if dtype == bf16 else F32_FLOPS
-            if mode == "w4":
-                kern = lambda: quant.w4_matmul(x, qt["q4"], qt["scale"], k)
-                plain = lambda: quant.int4_matmul_plain(x, qt["q4"],
-                                                        qt["scale"], k)
-            else:
-                q = qt["q8" if mode == "w8" else "f8"]
-                fn = quant.w8_matmul if mode == "w8" else quant.f8_matmul
-                kern = lambda: fn(x, q, qt["scale"])
-                plain = lambda: quant.int8_matmul_plain(x, q, qt["scale"])
-            lib = lambda: F.linear(x, wide)
-        r = {"name": name, "bucket": b, "stage": stage, "M": m, "K": k,
-             "N": n, "calls": c, "dtype": str(dtype).replace("torch.", ""),
-             "ms": median_ms(kern, device, flush=flush),
-             "device_ms": device_ms(kern, flush), "host_ms": host_ms(kern),
-             "plain_ms": median_ms(plain, device, flush=flush)
-             if b == BATCH else None,
-             "library_ms": None if lib is None else
-             median_ms(lib, device, flush=flush),
-             "library_device_ms": None if lib is None else
-             device_ms(lib, flush),
-             "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-             "ops_ms": 1e3 * 2 * m * n * k / peak}
-        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-        r["plan"] = quant_plan(name, dtype, m, k, n)
+        dtype = torch.float32 if name.endswith("_f32") else torch.bfloat16
+        r = time_product(name.replace("_f32", ""), dtype, m, k, n, gen,
+                         flush, device, plain=b == BATCH)
+        r.update(name=name, bucket=b, stage=stage, calls=c)
         rows.append(r)
     out = {}
     for name in sorted({r["name"] for r in rows}):
@@ -4578,14 +5174,20 @@ def time_lm(score_model, long_model, gen_model, prompt, device):
 
 
 def paged_work(q, k, pages, positions):
-    """(bytes, FLOPs) a K12 call needs: the K/V of each row's visible keys
-    read once per (row, KV head), q, the output, the table and the
-    positions once; 4·D FLOPs per visible (query, key) pair and head."""
+    """(bytes, FLOPs) a K12 call needs: the K/V of the keys visible through
+    each distinct page table read once per KV head (a verify pass's rows
+    share their slot's table), q, the output, the table and the positions
+    once; 4·D FLOPs per visible (query, key) pair and head."""
+    import torch
     h, d = q.shape[1], q.shape[3]
     hkv, ps = k.shape[1], k.shape[2]
     length = pages.shape[1] * ps
     seen = (positions.long() + 1).clamp(max=length)
-    nbytes = (int(seen.amax(dim=1).sum()) * hkv * d * 2 * k.element_size() +
+    tables, which = torch.unique(pages, dim=0, return_inverse=True)
+    keys = torch.zeros(tables.shape[0], dtype=torch.long,
+                       device=seen.device).scatter_reduce(
+        0, which, seen.amax(dim=1), "amax")
+    nbytes = (int(keys.sum()) * hkv * d * 2 * k.element_size() +
               q.numel() * q.element_size() + q.numel() * k.element_size() +
               4 * (pages.numel() + positions.numel()))
     return nbytes, 4 * d * h * int(seen.sum())
@@ -4611,8 +5213,10 @@ def paged_blocks(plan, case, pos):
 
 
 def time_paged(device):
-    """K12 per call at the path's decode shape (the page split) and its two
-    prefill shapes (the tensor-core path), bf16: median kernel time with
+    """K12 per call at the path's decode shape (the page split), its two
+    prefill shapes (the tensor-core path) and the speculative verify shape
+    (CG_SLOTS x (SPEC_K + 1) rows), bf16: median
+    kernel time with
     the L2 flushed by CUDA events and torch.profiler's device time (K12's
     kernels: the split and its combine), its plan and the blocks that hold
     visible keys, its bound, the plain version (which gathers the view)
@@ -4624,14 +5228,17 @@ def time_paged(device):
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     bf16 = torch.bfloat16
     out = {}
-    for key, case in (("decode", paged_decode_case()),
-                      ("prefill_512", PAGED_RAGGED[0]),
-                      ("prefill_128", PAGED_RAGGED[1])):
-        q, k, v, pages, pos, scale = paged_operands(case, bf16, bf16, device,
-                                                    SEED + 90)
+    vcase, vops = paged_verify_operands(bf16, bf16, device, SEED + 91)
+    for key, case, ops in (
+            ("decode", paged_decode_case(), None),
+            ("prefill_512", PAGED_RAGGED[0], None),
+            ("prefill_128", PAGED_RAGGED[1], None),
+            ("verify", vcase, vops)):
+        q, k, v, pages, pos, scale = ops or paged_operands(
+            case, bf16, bf16, device, SEED + 90)
         b, h, s, d = q.shape
         ps, lp = k.shape[2], pages.shape[1]
-        plan = attn.paged_plan(*case[1:8], bf16, bf16)
+        plan = attn.paged_plan(case[1], *case[2:8], bf16, bf16)
         blocks, live = paged_blocks(plan, case, pos.cpu())
         # the pre-gathered view, trash zeroed, heads expanded, and the mask
         tmask = (pages.long() == k.shape[0] - 1).repeat_interleave(
@@ -4746,6 +5353,11 @@ def profile_forward(clf, device, bucket, reps=3, groups=None):
 # page split's second pass
 PAGED_KERNELS = {"tensor_core": "paged_tc<", "split": "paged_split<",
                  "combine": "paged_combine<"}
+# phase 3p's profiles: the quantized products (f32, and K14), K12, and the
+# library's products (the bf16 target's projections under speculation)
+QUANT_LM_KERNELS = dict(PAGED_KERNELS, f32_mm="f32_mm<",
+                        splitk_finish="splitk_finish<", a8_wgmma="a8_wgmma",
+                        library_gemm=("gemm", "Gemm", "cutlass", "xmma"))
 
 
 def device_profile(fn, n, groups=None):
@@ -4872,6 +5484,10 @@ def main() -> int:
     path_shapes = {"w8_matmul": [(m, k, n) for b in BUCKETS
                                  for _, _, m, k, n, _ in prods[b]],
                    "f8_matmul": lin, "a8_matmul": lin, "w4_matmul": lin}
+    # and at the packed LM's (phase 3p): decode, verify and prefill rows
+    lm_shapes = [(m, k, n) for m in LM_QUANT_MS for k, n in LM_QUANT_KN]
+    path_shapes = {name: shapes + lm_shapes
+                   for name, shapes in path_shapes.items()}
     errs, cases, misses = check_kernels(device)
     for d, more in zip((errs, cases, misses), check_backward_kernels(device)):
         d.update(more)
@@ -4910,6 +5526,11 @@ def main() -> int:
     lm_launches.update(gen_launches)
     cg_report, cg_launches, cg_run = continuous_serving(device)
     lm_launches.update(cg_launches)
+    # phase 3p: the LM quantized behind the generator, and speculating
+    qcg_report, more = quantized_continuous(device, cg_run[0], card)
+    lm_launches.update(more)
+    spec_report, more = speculative_continuous(device, cg_run[0], card)
+    lm_launches.update(more)
     # phase 3h and 3i: TransformerLM training
     long_report, long_launches = long_context_training(device)
     lm_launches.update(long_launches)
@@ -5112,6 +5733,21 @@ def main() -> int:
         f"{cg_static['latency_p50_ms']:.1f} ms, max "
         f"{cg_static['latency_max_ms']:.1f} ms")
     log("continuous serving: " + json.dumps(cg_report))
+    lm_quant_rungs, lm_quant_times = time_lm_quant(device)
+    for mode, t in lm_quant_rungs.items():
+        log(f"[{card}] {mode} kernels over one LM decode step ({t['calls']} "
+            f"products at M {CG_SLOTS}, float32): events {t['ms']:.4f} ms, "
+            f"device {fmt_ms(t['device_ms'])}, wrapper host "
+            f"{t['host_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}; bytes {t['bytes_ms']:.4f}, operations "
+            f"{t['ops_ms']:.4f}), plain {fmt_ms(t['plain_ms'])}, library "
+            f"(F.linear on the widened weight"
+            f"{'; torch._int_mm + scale at K14' if mode == 'w8a8' else ''}) "
+            f"events {fmt_ms(t['library_ms'])}, device "
+            f"{fmt_ms(t['library_device_ms'])}")
+    qcg_report["decode_step_kernels"] = lm_quant_rungs
+    log("quantized continuous serving: " + json.dumps(qcg_report))
+    log("speculative continuous serving: " + json.dumps(spec_report))
     flash_times = time_flash(device)
     for name, t in flash_times.items():
         log(f"[{card}] flash attention at {name} {t['shape']} (per call): K9 "
@@ -5231,7 +5867,8 @@ def main() -> int:
                           ("device_ms", "library_device_ms")})
             entry["shape"] = paged_times["decode"]["shape"]
             entry["paths"] = {
-                "split": {"decode": paged_times["decode"]},
+                "split": {"decode": paged_times["decode"],
+                          "verify": paged_times["verify"]},
                 "tensor_core": {k2: paged_times[k2]
                                 for k2 in ("prefill_512", "prefill_128")}}
             entry["continuous_device_ms"] = cg_prof["groups"]
@@ -5249,6 +5886,8 @@ def main() -> int:
                                 if key != "stages"}
             if name == "a8_matmul":
                 entry["buckets"] = qtimes[name]["buckets"]
+            # the packed LM's decode step, f32 at M 8 (phase 3p's path)
+            entry["lm_decode_step"] = lm_quant_times[wrapper]
         else:
             entry.update({key: train_times[name][key] for key in TIME_KEYS})
             if "device_ms" in train_times[name]:

@@ -1257,3 +1257,128 @@ def test_harness_models_launch_their_kernels(cuda_device, name, forward,
         assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == \
             {fn.__name__: counts.get(fn.__name__, 0)
              for fn in ops.KERNEL_WRAPPERS}
+
+
+# -- the quantized LM and speculative decoding on the card -----------------------
+
+# the packed products of one decode step of the 2-layer LM below: 2 x (4
+# projections + fc1 + fc2) and the tied head; w8a8 runs the 12 calibrated
+# ones on K14 and the head, which has no activation scale, on K13
+LM_STEP_LAUNCHES = {
+    "w8": {"w8_matmul": 13},
+    "w8a8": {"a8_matmul": 12, "w8_matmul": 1},
+    "w4": {"w4_matmul": 13},
+    "f8": {"f8_matmul": 13}}
+LM_LOGP_RTOL = 1e-4       # of the largest |log-prob|: f32 sums reordered
+
+
+def _packed_lm(mode):
+    """A seeded TransformerLM(300, embed 64, 4 heads, 2 layers) packed on
+    the CPU (``w8a8`` calibrated on two seeded prompts there) and its copy
+    on the card."""
+    import copy
+    lm = TransformerLM(300, max_len=64, embed_dim=64, num_heads=4,
+                       num_layers=2).reset(3).evaluate()
+    calib = None
+    if mode == "w8a8":
+        calib = quant.calibrate(lm, [np.random.RandomState(s).randint(
+            1, 301, (1, 12)) for s in (1, 2)])
+    cpu = quant.quantize_model(lm, mode, calib=calib, extra_keys=("tok",))
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
+@pytest.mark.parametrize("mode", list(LM_STEP_LAUNCHES))
+def test_quantized_lm_decode_step_matches_the_cpu(cuda_device, mode):
+    """A prefill and a decode step of a packed LM through ``decode_pages``
+    on the card against the same packed copy on the CPU: log-probs within
+    LM_LOGP_RTOL of their largest magnitude, float32 (the packed gather
+    widens to f32), argmax equal; the step launches its rung's kernels
+    and two K12, nothing else."""
+    from bigdl_tpu_torch import ops
+    cpu, dev = _packed_lm(mode)
+    ids = torch.from_numpy(np.random.RandomState(4).randint(1, 301, (2, 9)))
+    pages = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32)
+    calls = [(ids[:, :8], [0, 0]), (ids[:, 8:], [8, 8])]
+    outs = {}
+    for name, m, d in (("cpu", cpu, "cpu"), ("card", dev, cuda_device)):
+        pool = m.init_paged_cache(8, 16)
+        got = []
+        with torch.inference_mode():
+            for tok, pos in calls:
+                ops.reset_launches()
+                got.append(m.decode_pages(
+                    tok.to(d), pool, pages.to(d), torch.tensor(pos).to(d),
+                    torch.ones(2, dtype=torch.bool, device=d)).cpu())
+        outs[name] = got
+    torch.cuda.synchronize()
+    assert {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS} == \
+        {fn.__name__: dict(LM_STEP_LAUNCHES[mode],
+                           paged_attention=2).get(fn.__name__, 0)
+         for fn in ops.KERNEL_WRAPPERS}
+    for a, b in zip(outs["card"], outs["cpu"]):
+        assert a.dtype == b.dtype == torch.float32
+        assert (a - b).abs().max() <= LM_LOGP_RTOL * b.abs().max()
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_at_the_verify_shape_matches_plain(cuda_device,
+                                                           dtype):
+    """A verify pass of 8 slots x 4 rows: each slot's page table repeated
+    and its rows at pos + i, against K12's plain version (the tolerance of
+    every K12 case)."""
+    dt = getattr(torch, dtype)
+    b, k1 = 8, 4
+    case = (b, 8, 8, 1, 64, 16, 128, [600 + 37 * r for r in range(b)],
+            False)
+    q, kp, vp, pages, pos, scale = paged_operands(case, dt, dt, cuda_device,
+                                                  11)
+    qv = torch.randn((b * k1, 8, 1, 64), device=cuda_device).to(dt)
+    vpos = (pos - k1 + 1 + torch.arange(k1, device=cuda_device)).reshape(-1,
+                                                                         1)
+    assert _paged_close((qv, kp, vp, pages.repeat_interleave(k1, dim=0),
+                         vpos, scale), dt)
+
+
+def test_speculative_tokens_equal_plain_decoding_on_the_card(cuda_device):
+    """An f32 LM served on the card with a truncated draft, with a w8
+    draft and with itself as the draft: the tokens are plain continuous
+    decoding's on the card.  The truncated drafts agree with the target
+    part of the time (0 < accept rate < 1), so rounds that accept some of
+    their proposals and leave the rejected ones' K/V behind in the pool
+    and the draft's cache are held to plain decoding too; the self-draft
+    accepts every proposal.  One request fills the cache (prompt +
+    max_new = max_len), so its verify rows run past the position table
+    and write the trash page."""
+    from bigdl_tpu_torch.serving import ContinuousGenerator
+    lm = TransformerLM(300, max_len=96, embed_dim=64, num_heads=4,
+                       num_layers=2).reset(5)
+    draft = TransformerLM(300, max_len=96, embed_dim=64, num_heads=4,
+                          num_layers=1)
+    load_jax_params(draft, {**export_params(lm),
+                            "blocks": export_params(lm)["blocks"][:1]})
+    rs = np.random.RandomState(12)
+    prompts = [rs.randint(1, 301, size=rs.randint(5, 30)) for _ in range(6)]
+    budgets = [int(rs.randint(5, 40)) for _ in range(6)]
+    prompts.append(rs.randint(1, 301, size=20))
+    budgets.append(96 - 20)
+    kw = dict(num_slots=4, page_size=16, seq_buckets=[32],
+              device=cuda_device)
+
+    def run(**extra):
+        with ContinuousGenerator(lm, **kw, **extra) as g:
+            outs = [f.result(timeout=300) for f in
+                    [g.submit(p, n) for p, n in zip(prompts, budgets)]]
+            return outs, g.stats()
+
+    plain, _ = run()
+    for extra in (dict(draft_model=draft, spec_k=3),
+                  dict(draft_model=draft, draft_quantize="w8", spec_k=3),
+                  dict(draft_model=lm, spec_k=4)):
+        outs, st = run(**extra)
+        for a, b in zip(outs, plain):
+            np.testing.assert_array_equal(a, b)
+        if extra["draft_model"] is lm:
+            assert st["spec"]["accept_rate"] == 1.0
+        else:
+            assert 0.0 < st["spec"]["accept_rate"] < 1.0
