@@ -63,6 +63,16 @@ class SlotCapacityError(ShedError):
     reason = "over_capacity"
 
 
+class MemoryBudgetError(ShedError):
+    """The tenant's device-memory budget cannot cover the request's KV
+    bytes (pages for ``prompt + max_new``), even after the degradation
+    ladder (budgeter reclaimers, prefix-cache leaves, idle-session parking)
+    has run.  Byte starvation sheds typed instead of surfacing later as a
+    device out-of-memory crash; neighbour tenants' budgets are untouched."""
+
+    reason = "byte_starved"
+
+
 class InvalidRequestError(ServingError, ValueError):
     """The request's feature payload has the wrong shape or size for the
     classifier's batch shape — rejected at ``submit()``."""

@@ -32,8 +32,9 @@ the device with one host sync at its end (the reference's ``lax.scan``);
 the page table is uploaded once per chunk.  One worker thread owns the
 pool, the page table and the device work; ``submit`` runs on the caller's
 thread and only touches the admission queue.  The pool is written in
-place, so a failed prefill or chunk fails every live request typed and
-rebuilds the pool and the prefix cache.  Right-padded prefill is safe:
+place, so a failed prefill or chunk fails every live request typed,
+closes every session and rebuilds the pool and the prefix cache.
+Right-padded prefill is safe:
 garbage K/V past a prompt's real length is hidden by the validity mask
 (``l <= pos``) and overwritten the step it would become visible.
 
@@ -54,8 +55,28 @@ garbage K/V past a prompt's real length is hidden by the validity mask
   greedy path.  A rejected proposal's K/V lie past the accepted frontier,
   hidden until the round that overwrites them.
 
-Left for later slices: sessions (``session``/``park``/``close_session``),
-the memory ``budgeter`` and ``ledger_tags``.
+* **Sessions** (``submit(..., session=)``, :meth:`~ContinuousGenerator.
+  park`, :meth:`~ContinuousGenerator.close_session`; paged only, no draft):
+  a finished turn keeps its KV up to ``kv_pos`` (the last emitted token's
+  K/V is never written, so ``kv_pos == len(history) - 1``), frees the
+  tail pages its ``max_new`` headroom took, and its prefix pins pass to the
+  session; the next turn prefills only ``history[kv_pos:] + prompt`` from
+  ``start = kv_pos``.  Parking gathers an idle session's private pages on
+  the device, copies each layer's K and V to host RAM in one synchronous
+  copy (:class:`~.paging.HostOffloadTier`) and frees their ids; a resume
+  writes them into fresh ids in place, so a resumed session equals one
+  that never parked.  Shared prefix pages are never parked: a neighbour
+  may be reading them.
+* **Memory budget** (``budgeter=``, ``budget_tenant=``): every page the
+  generator allocates is charged to a :class:`~.membudget.MemoryBudgeter`
+  (``kv_pages``; published pages move to ``prefix_pages``, parked ones to
+  ``host_offload``).  A request whose worst-case pages exceed the tenant's
+  whole budget sheds ``MemoryBudgetError`` at ``submit()``; placement under
+  page or byte pressure runs the ladder (the budgeter's reclaimers,
+  prefix-cache leaves, then idle resident sessions, least recently used
+  first) and holds back what still does not fit.
+
+Left for later slices: ``ledger_tags`` and the run ledger's records.
 """
 
 from __future__ import annotations
@@ -75,11 +96,13 @@ from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.ops import quant
 from bigdl_tpu_torch.serving.counters import Counters, percentile
 from bigdl_tpu_torch.serving.errors import (DrainingError, InvalidRequestError,
+                                            MemoryBudgetError,
                                             QueueFullError,
                                             SlotCapacityError)
 from bigdl_tpu_torch.serving.queue import AdmissionQueue
 from bigdl_tpu_torch.serving.scheduler.buckets import BucketLadder
-from bigdl_tpu_torch.serving.scheduler.paging import (PageAllocator,
+from bigdl_tpu_torch.serving.scheduler.paging import (HostOffloadTier,
+                                                      PageAllocator,
                                                       PrefixCache)
 
 logger = logging.getLogger("bigdl_tpu_torch.serving")
@@ -95,9 +118,10 @@ class GenRequest:
     ``max_new`` long, shorter only at ``eos_id``)."""
 
     __slots__ = ("rid", "prompt", "max_new", "future", "deadline",
-                 "t_submit", "slot", "tokens", "counted")
+                 "t_submit", "slot", "tokens", "counted", "session")
 
-    def __init__(self, prompt: np.ndarray, max_new: int):
+    def __init__(self, prompt: np.ndarray, max_new: int,
+                 session: Optional[str] = None):
         self.rid = next(_rids)
         self.prompt = prompt
         self.max_new = int(max_new)
@@ -108,6 +132,74 @@ class GenRequest:
         self.tokens: List[int] = []
         self.counted = False            # prefix census counted once, even
                                         # when held back and placed again
+        self.session = session          # multi-turn session id
+
+
+class Session:
+    """One multi-turn session: the KV of its earlier turns stays between
+    turns, so a continuing turn prefills only ``tokens[kv_pos:]`` and its
+    new prompt, from ``start = kv_pos``.
+
+    States: ``new`` (no KV yet), ``active`` (a turn holds a slot),
+    ``resident`` (idle, private pages on the device), ``parked`` (idle,
+    private pages in the host tier, their ids freed).  The session keeps
+    its prefix-chain pins in every state.  ``row`` is the page-table prefix
+    for positions ``[0, kv_pos)``, shared head first; ``pages`` its private
+    tail, what a park moves and a close frees.  The scheduler thread
+    mutates it; ``submit`` reads ``tokens`` and flips ``busy`` under the
+    generator's lock."""
+
+    __slots__ = ("sid", "tokens", "kv_pos", "row", "pages", "keys",
+                 "state", "busy", "last_used")
+
+    def __init__(self, sid: str):
+        self.sid = sid
+        self.tokens: List[int] = []     # the whole history, 1-based
+        self.kv_pos = 0                 # cache positions held
+        self.row = np.zeros(0, np.int32)  # page ids of [0, kv_pos)
+        self.pages: List[int] = []      # private page ids on the device
+        self.keys: List[str] = []       # pinned prefix-chain keys
+        self.state = "new"
+        self.busy = False               # a turn is queued or decoding
+        self.last_used = time.monotonic()
+
+
+class _Control:
+    """A park or close command for the scheduler thread.  It rides the
+    admission queue (FIFO with the requests, and it wakes an idle worker),
+    so the one thread that owns the page table runs it; ``deadline``,
+    ``priority`` and ``t_submit`` are the queue's duck fields."""
+
+    __slots__ = ("op", "sid", "future", "deadline", "priority",
+                 "t_submit")
+
+    def __init__(self, op: str, sid: str):
+        self.op = op
+        self.sid = sid
+        self.future: Future = Future()
+        self.deadline = None
+        self.priority = 0
+        self.t_submit = time.monotonic()
+
+
+def gather_pages(cache, ids: Sequence[int]):
+    """Host copies of pages ``ids`` of every layer's K and V pool: one
+    gather on the device, then one synchronous copy of it (the ids may be
+    handed out again as soon as this returns)."""
+    idx = torch.tensor(list(ids), dtype=torch.long,
+                       device=cache[0]["k"].device)
+    return [{side: c[side][idx].cpu() for side in ("k", "v")}
+            for c in cache]
+
+
+def scatter_pages(cache, ids: Sequence[int], payload) -> None:
+    """Write :func:`gather_pages`' ``payload`` into pages ``ids`` of every
+    layer's pools, in place (the pools stay the tensors the kernels read)."""
+    idx = torch.tensor(list(ids), dtype=torch.long,
+                       device=cache[0]["k"].device)
+    for c, pl in zip(cache, payload):
+        for side in ("k", "v"):
+            c[side].index_copy_(0, idx, pl[side].to(c[side].device))
 
 
 class SlotManager:
@@ -181,6 +273,11 @@ class ContinuousGenerator:
     speculative decoding: the draft shares the target's vocab,
     ``draft_quantize="w8"`` packs it int8, and a round proposes ``spec_k``
     tokens; ``stats()["spec"]`` counts what was proposed and accepted.
+
+    ``budgeter``/``budget_tenant`` charge every page to a
+    :class:`~.membudget.MemoryBudgeter` under the tenant name
+    ``budget_tenant`` (default ``"default"``); ``submit(..., session=)``
+    names a multi-turn session (module doc).
     """
 
     def __init__(self, model, *, num_slots: int = 4,
@@ -195,7 +292,8 @@ class ContinuousGenerator:
                  prefix_cache: Optional[bool] = None,
                  quantize: Optional[str] = None, calibration_prompts=None,
                  draft_model=None, draft_quantize: Optional[str] = None,
-                 spec_k: int = 4, device="cuda"):
+                 spec_k: int = 4, budgeter=None,
+                 budget_tenant: Optional[str] = None, device="cuda"):
         qmode = quant.normalize_mode(quantize)
         if qmode is not None and qmode not in quant.MODES:
             raise ValueError(
@@ -264,13 +362,20 @@ class ContinuousGenerator:
             self._slot_priv: List[List[int]] = [[] for _ in range(n)]
             self._slot_keys: List[List[str]] = [[] for _ in range(n)]
             self._slot_shared = [0] * n      # shared-prefix tokens per slot
+            self._offload = HostOffloadTier()
             pool_tokens = self._alloc.capacity_tokens
         else:
             if prefix_cache:
                 raise ValueError("prefix_cache requires paged=True (shared "
                                  "pages need the page table)")
-            self._alloc = self._prefix = None
+            self._alloc = self._prefix = self._offload = None
             pool_tokens = None
+        self._sessions: "dict[str, Session]" = {}
+        self._lock = threading.Lock()        # guards _sessions and busy
+        # the pool itself is not charged: budgets size what is used, and
+        # parking exists so that use can exceed the pool
+        self._budget = budgeter
+        self._bt = budget_tenant or "default"
         if paged_kernel and not self._paged:
             raise ValueError("paged_kernel requires paged=True (the kernel "
                              "reads through the page table)")
@@ -411,6 +516,9 @@ class ContinuousGenerator:
                     req = self.queue.take(timeout=None)
                     if req is None:              # closed and empty
                         break
+                    if isinstance(req, _Control):
+                        self._control(req)
+                        continue
                     self._place(req)
                     continue
                 if self._draft is not None:
@@ -423,15 +531,23 @@ class ContinuousGenerator:
 
     def _fail_all_and_recover(self) -> None:
         """Fail every live slot typed, then rebuild the pool (and the
-        draft's cache): a failed call may have left it half written, so the
-        prefix cache's pages go with it."""
+        draft's cache): a failed call may have left it half written, so
+        every retained session (parked ones too: their shared heads are
+        gone) and the prefix cache's pages go with it, their bytes
+        discharged, so the budgeter stays exact through the crash."""
         for j, r in enumerate(self._requests):
             if r is not None:
                 self._evict(j, "failed")
         self._active[:] = False
         self._cache = self._new_cache()
+        if self._paged:
+            with self._lock:
+                sessions = list(self._sessions.values())
+            for sess in sessions:
+                self._destroy_session(sess)
         if self._prefix is not None:
-            self._prefix.evict_for(self._alloc.num_pages, self._alloc)
+            freed = self._prefix.evict_for(self._alloc.num_pages, self._alloc)
+            self._budget_sub("prefix_pages", freed * self._page_bytes)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -457,8 +573,40 @@ class ContinuousGenerator:
         self.metrics.incr(f"serve.shed.{exc.reason}")
         raise exc
 
-    def submit(self, prompt, max_new: int) -> Future:
-        """Admit one request or raise a typed shed synchronously."""
+    # -- the memory budget: no-ops without a budgeter ------------------------
+
+    def _budget_add(self, cls: str, nbytes: int) -> None:
+        if self._budget is not None and nbytes:
+            self._budget.charge(self._bt, cls, nbytes)
+
+    def _budget_sub(self, cls: str, nbytes: int) -> None:
+        if self._budget is not None and nbytes:
+            self._budget.discharge(self._bt, cls, nbytes)
+
+    def _budget_move(self, src: str, dst: str, nbytes: int) -> None:
+        if self._budget is not None and nbytes:
+            self._budget.transfer(self._bt, src, dst, nbytes)
+
+    def _require_budget(self, tokens: int, what: str) -> None:
+        """Shed ``MemoryBudgetError`` when the pages of ``tokens`` cache
+        positions exceed the tenant's whole budget."""
+        if self._budget is None:
+            return
+        try:
+            self._budget.require_possible(
+                self._bt, self._alloc.pages_for(tokens) * self._page_bytes,
+                what=what)
+        except MemoryBudgetError as e:
+            self._shed(e)
+
+    def submit(self, prompt, max_new: int, *,
+               session: Optional[str] = None) -> Future:
+        """Admit one request or raise a typed shed synchronously.
+
+        ``session`` names a multi-turn session: ``prompt`` is the new
+        turn's tokens only, the generator prepends the history, and the
+        turn's KV is kept when it finishes (a parked session resumes
+        transparently).  One outstanding turn per session."""
         if self._closed:
             self._shed(DrainingError("generator is draining"))
         p = np.asarray(prompt).reshape(-1)
@@ -472,10 +620,15 @@ class ContinuousGenerator:
         if max_new < 1:
             self._shed(InvalidRequestError(
                 f"max_new must be >= 1, got {max_new}"))
+        if session is not None:
+            return self._submit_session(p.astype(np.int64), int(max_new),
+                                        str(session))
         try:
             self.slots.check(p.size, max_new)
         except SlotCapacityError as e:
             self._shed(e)
+        if self._paged:
+            self._require_budget(p.size + max_new - 1, "request")
         req = GenRequest(p.astype(np.int64), max_new)
         try:
             self.queue.offer(req)
@@ -483,6 +636,111 @@ class ContinuousGenerator:
             self._shed(e)
         self.metrics.incr("serve.gen.submitted")
         return req.future
+
+    def _submit_session(self, p: np.ndarray, max_new: int,
+                        sid: str) -> Future:
+        """The session half of :meth:`submit`: take the session's turn
+        latch, build the whole prompt (history and new tokens) and run the
+        capacity and budget checks on it."""
+        if not self._paged:
+            self._shed(InvalidRequestError(
+                "sessions require paged=True (KV retention is a page-list "
+                "swap)"))
+        if self._draft is not None:
+            self._shed(InvalidRequestError(
+                "sessions are not supported with speculative decoding (the "
+                "draft's row cache has no park/resume path)"))
+        with self._lock:
+            sess = self._sessions.get(sid)
+            created = sess is None
+            if created:
+                sess = Session(sid)
+                self._sessions[sid] = sess
+            busy = sess.busy
+            if not busy:
+                sess.busy = True
+                history = list(sess.tokens)
+                kv_pos = sess.kv_pos
+        if busy:
+            self._shed(InvalidRequestError(
+                f"session {sid!r} already has an outstanding turn (one turn "
+                "at a time per session)"))
+        # the latch is ours: a shed below releases it, and drops a session
+        # that never held KV
+        try:
+            full = (np.concatenate([np.asarray(history, np.int64), p])
+                    if history else p)
+            total = int(full.size) + max_new
+            ts = int(full.size) - kv_pos         # the prefill suffix
+            try:
+                if total > self.max_len:
+                    raise SlotCapacityError(
+                        f"session {sid!r}: history+prompt {full.size} + "
+                        f"max_new {max_new} exceeds the KV-cache capacity "
+                        f"{self.max_len}")
+                if ts > self.slots.max_prompt:
+                    raise SlotCapacityError(
+                        f"session {sid!r}: turn suffix {ts} exceeds the "
+                        f"largest prefill bucket {self.slots.max_prompt}")
+                if total - 1 > self.slots.pool_tokens:
+                    raise SlotCapacityError(
+                        f"session {sid!r} needs {total - 1} cache tokens at "
+                        "once but the page pool holds "
+                        f"{self.slots.pool_tokens} in total")
+            except SlotCapacityError as e:
+                self._shed(e)
+            self._require_budget(total - 1, f"session:{sid}")
+            req = GenRequest(full, max_new, session=sid)
+            try:
+                self.queue.offer(req)
+            except (QueueFullError, DrainingError) as e:
+                self._shed(e)
+        except BaseException:
+            with self._lock:
+                if self._sessions.get(sid) is sess:
+                    sess.busy = False
+                    if created and sess.state == "new":
+                        del self._sessions[sid]
+            raise
+        self.metrics.incr("serve.gen.submitted")
+        return req.future
+
+    # -- session lifecycle ---------------------------------------------------
+
+    def _command(self, op: str, sid) -> Future:
+        cmd = _Control(op, str(sid))
+        try:
+            self.queue.offer(cmd)
+        except (QueueFullError, DrainingError) as e:
+            self._shed(e)
+        return cmd.future
+
+    def park(self, sid: str) -> Future:
+        """Ask the scheduler to park session ``sid`` in host RAM; resolves
+        True when parked, False when it was busy, unknown or parked
+        already.  The command rides the admission queue, so the thread that
+        owns the page table runs it: a park racing a live turn lands after
+        the turn retires, or not at all.  Pressure parks idle sessions by
+        itself; this is the client's explicit form."""
+        return self._command("park", sid)
+
+    def close_session(self, sid: str) -> Future:
+        """Release session ``sid``'s KV (device pages or parked copy) and
+        its prefix pins; resolves True when closed, False when unknown or
+        mid-turn."""
+        return self._command("close", sid)
+
+    def session_info(self, sid: str) -> Optional[dict]:
+        """A snapshot of one session (None when unknown)."""
+        with self._lock:
+            sess = self._sessions.get(str(sid))
+            if sess is None:
+                return None
+            return {"sid": sess.sid, "state": sess.state,
+                    "busy": sess.busy, "kv_pos": sess.kv_pos,
+                    "tokens": len(sess.tokens),
+                    "private_pages": len(sess.pages),
+                    "shared_pages": len(sess.keys)}
 
     def generate(self, prompts, max_new: int) -> List[np.ndarray]:
         """Submit every prompt and wait for the outputs in order."""
@@ -499,15 +757,165 @@ class ContinuousGenerator:
                 req = self.queue.take(timeout=0.0)
                 if req is None:
                     return
+                if isinstance(req, _Control):
+                    self._control(req)
+                    continue
             if not self._place(req):
                 return                   # held back again
 
-    def _make_room(self, pages_needed: int) -> None:
-        """Evict unreferenced prefix pages until ``pages_needed`` are free
-        or nothing is evictable (the caller holds back or sheds)."""
-        need = pages_needed - self._alloc.free_count
-        if need > 0 and self._prefix is not None:
-            self._prefix.evict_for(need, self._alloc)
+    # -- park and resume (the scheduler thread only) -------------------------
+
+    def _control(self, cmd: _Control) -> None:
+        """Run a park or close command on the scheduler thread."""
+        try:
+            if cmd.op == "park":
+                out = self._park_session(cmd.sid)
+            elif cmd.op == "close":
+                out = self._close_session(cmd.sid)
+            else:
+                raise ValueError(f"unknown control op {cmd.op!r}")
+            cmd.future.set_result(out)
+        except Exception as e:
+            try:
+                cmd.future.set_exception(e)
+            except Exception:            # the client cancelled
+                pass
+
+    def _park_session(self, sid: str) -> bool:
+        sess = self._sessions.get(sid)
+        if sess is None or sess.state != "resident" or sess.busy:
+            return False             # mid-turn, unknown or parked already
+        self._park(sess)
+        return True
+
+    def _park(self, sess: Session) -> None:
+        """Copy the session's private pages to the host tier and free their
+        ids; its shared prefix pages stay pinned on the device."""
+        ids = sess.pages
+        nbytes = len(ids) * self._page_bytes
+        payload = gather_pages(self._cache, ids) if ids else []
+        self._offload.park(sess.sid, payload, nbytes)
+        if ids:
+            self._alloc.free(ids)
+        self._budget_move("kv_pages", "host_offload", nbytes)
+        sess.pages = []
+        sess.state = "parked"
+        self.metrics.incr("serve.gen.parks")
+
+    def _resume_into(self, sess: Session, ids: List[int]) -> None:
+        """Write the parked pages into the fresh ``ids`` and re-point the
+        session's row at them: contents copied verbatim, addressed through
+        the table, so the session equals one that never parked."""
+        payload = self._offload.resume(sess.sid)
+        if ids:
+            scatter_pages(self._cache, ids, payload)
+        self._budget_move("host_offload", "kv_pages",
+                          len(ids) * self._page_bytes)
+        row = np.array(sess.row)
+        row[len(sess.keys):] = ids
+        sess.row = row
+        sess.pages = list(ids)
+        sess.state = "resident"
+        sess.last_used = time.monotonic()
+        self.metrics.incr("serve.gen.resumes")
+
+    def _close_session(self, sid: str) -> bool:
+        sess = self._sessions.get(sid)
+        if sess is None or sess.busy or sess.state == "active":
+            return False
+        self._destroy_session(sess)
+        return True
+
+    def _destroy_session(self, sess: Session) -> None:
+        """Free what a session that holds no slot keeps: its device pages
+        or parked copy, and its prefix pins.  A slot-bound session is torn
+        down by :meth:`_evict`, which owns its pages then."""
+        with self._lock:
+            self._sessions.pop(sess.sid, None)
+        if sess.state == "parked":
+            self._budget_sub("host_offload", self._offload.drop(sess.sid))
+        elif sess.pages:
+            self._alloc.free(sess.pages)
+            self._budget_sub("kv_pages", len(sess.pages) * self._page_bytes)
+        if sess.keys and self._prefix is not None:
+            self._prefix.release(sess.keys)
+        sess.pages, sess.keys = [], []
+        sess.state, sess.busy = "closed", False
+
+    def _session_abort(self, req: GenRequest) -> None:
+        """A turn died before retention (shed, cancel, failure): release
+        the session's latch and drop a session that never held KV."""
+        if req.session is None or not self._paged:
+            return
+        with self._lock:
+            sess = self._sessions.get(req.session)
+            if sess is None:
+                return
+            sess.busy = False
+            if sess.state == "new" and not sess.tokens:
+                del self._sessions[req.session]
+
+    def _make_room(self, pages_needed: int,
+                   protect: Optional[Session] = None) -> None:
+        """The degradation ladder, in order: the budgeter's reclaimers
+        (byte pressure only), prefix-cache leaves, then parking resident
+        sessions, least recently used first (``protect``, the session being
+        placed, is exempt).  It runs until ``pages_needed`` fit the free
+        list and the tenant's headroom, or it is dry: the caller holds back
+        or sheds."""
+        alloc, prefix, pb = self._alloc, self._prefix, self._page_bytes
+
+        def page_deficit() -> int:
+            return pages_needed - alloc.free_count
+
+        def byte_deficit() -> int:
+            head = (None if self._budget is None
+                    else self._budget.headroom(self._bt))
+            return 0 if head is None else pages_needed * pb - int(head)
+
+        if byte_deficit() > 0:
+            self._budget.reclaim(self._bt, byte_deficit())
+        need = page_deficit()
+        if pb and byte_deficit() > 0:
+            need = max(need, -(-byte_deficit() // pb))
+        if need > 0 and prefix is not None:
+            self._budget_sub("prefix_pages",
+                             prefix.evict_for(need, alloc) * pb)
+        while page_deficit() > 0 or byte_deficit() > 0:
+            # any resident session may go, one whose next turn is queued
+            # too (its KV sits idle; placement resumes it), so a burst of
+            # continuations cannot wedge the pool; only slot-bound ones stay
+            with self._lock:
+                idle = [s for s in self._sessions.values()
+                        if s.state == "resident" and s is not protect]
+            if not idle:
+                break
+            self._park(min(idle, key=lambda s: s.last_used))
+
+    def _budgeted(self) -> bool:
+        return self._budget is not None and \
+            self._budget.headroom(self._bt) is not None
+
+    def _starved(self, pages: int) -> bool:
+        """``pages`` more device pages exceed the tenant's headroom."""
+        if self._budget is None:
+            return False
+        head = self._budget.headroom(self._bt)
+        return head is not None and pages * self._page_bytes > head
+
+    def _shed_starved(self, req: GenRequest, pages: int, what: str) -> None:
+        """Fail a byte-starved request typed when the generator is idle
+        (holding it back could wedge the loop)."""
+        exc: Exception
+        try:
+            self._budget.admit(self._bt, pages * self._page_bytes,
+                               what=what, reclaim=False)
+            exc = MemoryBudgetError("byte-starved at placement (budget "
+                                    "headroom vanished under the check)")
+        except MemoryBudgetError as e:
+            exc = e
+        self._session_abort(req)
+        self._fail_typed(req, exc)
 
     # -- placement -----------------------------------------------------------
 
@@ -520,6 +928,11 @@ class ContinuousGenerator:
             self._place_row(req)
             return True
         alloc, prefix = self._alloc, self._prefix
+        sess: Optional[Session] = None
+        if req.session is not None:
+            sess = self._sessions.get(req.session)
+            if sess is not None and sess.state in ("resident", "parked"):
+                return self._place_continuation(req, sess, force)
         tp = int(req.prompt.size)
         ps = alloc.page_size
         pages_total = alloc.pages_for(tp + req.max_new - 1)
@@ -540,15 +953,20 @@ class ContinuousGenerator:
         if slot_keys:
             prefix.acquire(slot_keys)
         priv_needed = pages_total - depth
-        if alloc.free_count < priv_needed:
-            self._make_room(priv_needed)
-        priv = alloc.alloc(priv_needed)
+        if alloc.free_count < priv_needed or self._budgeted():
+            self._make_room(priv_needed, protect=sess)
+        starved = self._starved(priv_needed)
+        priv = None if starved else alloc.alloc(priv_needed)
         if priv is None:
             if slot_keys:
                 prefix.release(slot_keys)
             if not force:
                 self._pending = req
                 return False
+            if starved:
+                self._shed_starved(req, priv_needed, f"rid:{req.rid}")
+                return True
+            self._session_abort(req)
             self._fail_typed(req, SlotCapacityError(
                 f"page pool exhausted: request needs {priv_needed} pages, "
                 f"{alloc.free_count} free and nothing evictable"))
@@ -557,10 +975,12 @@ class ContinuousGenerator:
             alloc.free(priv)
             if slot_keys:
                 prefix.release(slot_keys)
+            self._session_abort(req)
             self.metrics.incr("serve.gen.cancelled")
             return True
         slot = self.slots.alloc()
         assert slot is not None, "placed with no free slot"
+        self._budget_add("kv_pages", len(priv) * self._page_bytes)
         # the slot's table row: shared prefix pages, its private pages,
         # trash beyond its allocation
         table_row = np.full(self._lp, alloc.trash, np.int32)
@@ -592,12 +1012,101 @@ class ContinuousGenerator:
                 published = set(table_row[depth:len(keys)].tolist())
                 priv = [p for p in priv if p not in published]
                 slot_keys = list(keys)
+                # the published pages' bytes follow their ownership, so
+                # evict_for discharges exactly what it frees
+                self._budget_move("kv_pages", "prefix_pages",
+                                  len(published) * self._page_bytes)
             self.metrics.incr("serve.gen.prefix.lookup_pages", len(keys))
             self.metrics.incr("serve.gen.prefix.hit_pages", depth)
         self._page_table[slot] = table_row
         self._slot_priv[slot] = priv
         self._slot_keys[slot] = slot_keys
         self._slot_shared[slot] = len(slot_keys) * ps
+        if sess is not None:
+            sess.state = "active"
+            sess.last_used = time.monotonic()
+        self._commit_placed(req, slot, tp, first, bucket)
+        return True
+
+    def _place_continuation(self, req: GenRequest, sess: Session,
+                            force: bool) -> bool:
+        """Place a session's next turn: its retained KV (resident, or
+        parked and resumed first) is extended in place and only the suffix
+        past ``kv_pos`` is prefilled, from ``start = kv_pos``.  The page
+        holding ``kv_pos`` lies past the shared full pages, so it is the
+        session's own: the extension never writes a page another reader
+        holds."""
+        alloc, pb = self._alloc, self._page_bytes
+        tp = int(req.prompt.size)
+        start = sess.kv_pos
+        pages_total = alloc.pages_for(tp + req.max_new - 1)
+        row_len = len(sess.row)
+        new_needed = max(0, pages_total - row_len)
+        resume_pages = (row_len - len(sess.keys)
+                        if sess.state == "parked" else 0)
+        pool_need = new_needed + resume_pages
+        if alloc.free_count < pool_need or self._budgeted():
+            self._make_room(pool_need, protect=sess)
+        # a resume moves bytes from host_offload to kv_pages: only the new
+        # pages are fresh device bytes
+        starved = self._starved(new_needed)
+        got = None if starved else alloc.alloc(pool_need)
+        if got is None:
+            if not force:
+                self._pending = req
+                return False
+            if starved:
+                self._shed_starved(req, new_needed, f"session:{sess.sid}")
+                return True
+            self._session_abort(req)
+            self._fail_typed(req, SlotCapacityError(
+                f"page pool exhausted: continuation needs {pool_need} "
+                f"pages, {alloc.free_count} free and nothing evictable"))
+            return True
+        if not req.future.set_running_or_notify_cancel():
+            alloc.free(got)
+            self._session_abort(req)
+            self.metrics.incr("serve.gen.cancelled")
+            return True
+        resumed, new_priv = got[:resume_pages], got[resume_pages:]
+        if sess.state == "parked":
+            try:
+                self._resume_into(sess, resumed)
+            except Exception as e:
+                alloc.free(got)
+                if sess.sid not in self._offload:
+                    # the payload was taken before the copy failed
+                    self._budget_sub("host_offload", resume_pages * pb)
+                self._destroy_session(sess)
+                self._prefill_failed(req, e)
+                return True
+        self._budget_add("kv_pages", len(new_priv) * pb)
+        slot = self.slots.alloc()
+        assert slot is not None, "placed with no free slot"
+        table_row = np.full(self._lp, alloc.trash, np.int32)
+        table_row[:row_len] = sess.row
+        table_row[row_len:pages_total] = new_priv
+        ts = tp - start
+        bucket = self.seq_ladder.pick(ts)
+        padded = np.ones((1, bucket), np.int64)
+        padded[0, :ts] = req.prompt[start:]
+        try:
+            first = self._prefill_pages(padded, ts, table_row, start)
+        except Exception as e:
+            self.slots.release(slot)
+            if new_priv:
+                alloc.free(new_priv)
+            self._budget_sub("kv_pages", len(new_priv) * pb)
+            self._destroy_session(sess)
+            self._prefill_failed(req, e)
+            return True
+        self._page_table[slot] = table_row
+        self._slot_priv[slot] = list(sess.pages) + list(new_priv)
+        self._slot_keys[slot] = list(sess.keys)
+        self._slot_shared[slot] = len(sess.keys) * alloc.page_size
+        sess.state = "active"
+        sess.last_used = time.monotonic()
+        self.metrics.incr("serve.gen.continuations")
         self._commit_placed(req, slot, tp, first, bucket)
         return True
 
@@ -679,6 +1188,7 @@ class ContinuousGenerator:
         self.slots.release(slot)
         if priv:
             self._alloc.free(priv)
+            self._budget_sub("kv_pages", len(priv) * self._page_bytes)
         if slot_keys:
             self._prefix.release(slot_keys)
 
@@ -693,6 +1203,7 @@ class ContinuousGenerator:
         """A failed prefill may have written the pool half way: fail the
         live requests typed and rebuild it, then fail this request."""
         self._fail_all_and_recover()
+        self._session_abort(req)
         self.metrics.incr("serve.gen.failed")
         try:
             req.future.set_exception(RuntimeError(
@@ -867,26 +1378,49 @@ class ContinuousGenerator:
         self.metrics.incr("serve.gen.steps", steps)
         if self._paged:
             # tokens held, each shared page once: every slot's private
-            # positions plus the prefix cache's pages
+            # positions, the prefix cache's pages and the private positions
+            # of idle resident sessions
+            ps = self._alloc.page_size
             held = sum(int(self._pos[j]) - self._slot_shared[j]
                        for j, r in enumerate(self._requests)
                        if r is not None)
             if self._prefix is not None:
-                held += self._prefix.held_pages * self._alloc.page_size
+                held += self._prefix.held_pages * ps
+            with self._lock:
+                held += sum(s.kv_pos - len(s.keys) * ps
+                            for s in self._sessions.values()
+                            if s.state == "resident")
             self._token_occupancy_sum += held / self._alloc.capacity_tokens
 
     def _evict(self, slot: int, status: str) -> None:
         """Finish the request in ``slot`` and free the slot: private pages
-        go back to the allocator, shared prefix pages lose one reader."""
+        go back to the allocator, shared prefix pages lose one reader.  A
+        session's finished turn keeps its KV instead (module doc); a failed
+        one tears the session down."""
         req = self._requests[slot]
         self._requests[slot] = None
         self._active[slot] = False
         self.slots.release(slot)
         if self._paged:
-            if self._slot_keys[slot]:
-                self._prefix.release(self._slot_keys[slot])
-            if self._slot_priv[slot]:
-                self._alloc.free(self._slot_priv[slot])
+            sess = (self._sessions.get(req.session)
+                    if req.session is not None else None)
+            if sess is not None and status == "ok":
+                self._retain(sess, req, slot)
+            else:
+                if self._slot_keys[slot]:
+                    self._prefix.release(self._slot_keys[slot])
+                if self._slot_priv[slot]:
+                    self._alloc.free(self._slot_priv[slot])
+                    self._budget_sub(
+                        "kv_pages",
+                        len(self._slot_priv[slot]) * self._page_bytes)
+                if sess is not None:
+                    # the KV past kv_pos is lost with the turn
+                    with self._lock:
+                        self._sessions.pop(sess.sid, None)
+                        sess.busy = False
+                    sess.pages, sess.keys = [], []
+                    sess.state = "closed"
             self._slot_keys[slot] = []
             self._slot_priv[slot] = []
             self._slot_shared[slot] = 0
@@ -910,6 +1444,27 @@ class ContinuousGenerator:
             except Exception:
                 pass
             self.metrics.incr("serve.gen.failed")
+
+    def _retain(self, sess: Session, req: GenRequest, slot: int) -> None:
+        """Keep a finished turn's KV for the session: positions ``[0,
+        kv_pos)`` (the last token's K/V was never written), the tail pages
+        freed, the slot's prefix pins passed to the session."""
+        kv_pos = int(self._pos[slot])
+        keep_n = self._alloc.pages_for(kv_pos)
+        priv = self._slot_priv[slot]
+        cut = keep_n - len(self._slot_keys[slot])
+        if priv[cut:]:
+            self._alloc.free(priv[cut:])
+            self._budget_sub("kv_pages", len(priv[cut:]) * self._page_bytes)
+        sess.tokens = req.prompt.tolist() + list(req.tokens)
+        sess.kv_pos = kv_pos
+        sess.row = np.array(self._page_table[slot][:keep_n])
+        sess.pages = priv[:cut]
+        sess.keys = list(self._slot_keys[slot])
+        sess.state = "resident"
+        sess.last_used = time.monotonic()
+        with self._lock:
+            sess.busy = False
 
     # -- introspection -------------------------------------------------------
 
@@ -946,6 +1501,23 @@ class ContinuousGenerator:
             }
             out["prefix"] = (self._prefix.stats()
                              if self._prefix is not None else None)
+            with self._lock:
+                sessions = list(self._sessions.values())
+            kv = {state: [s.kv_pos for s in sessions if s.state == state]
+                  for state in ("active", "resident", "parked")}
+            out["sessions"] = {
+                "open": len(sessions),
+                "active": len(kv["active"]),
+                "resident": len(kv["resident"]),
+                "parked": len(kv["parked"]),
+                "device_tokens": sum(kv["active"]) + sum(kv["resident"]),
+                "parked_tokens": sum(kv["parked"]),
+                "total_tokens": sum(s.kv_pos for s in sessions),
+            }
+            out["offload"] = self._offload.stats()
+            if self._budget is not None:
+                out["budget"] = self._budget.snapshot()["tenants"].get(
+                    self._bt)
         if self._draft is not None:
             proposed = counters.get("serve.gen.spec.proposed", 0)
             accepted = counters.get("serve.gen.spec.accepted", 0)

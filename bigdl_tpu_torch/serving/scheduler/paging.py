@@ -13,9 +13,12 @@
   allocator only when no reader holds them and pressure evicts them
   (:meth:`PrefixCache.evict_for`, leaf first, least recently used first).
 
+* :class:`HostOffloadTier` — host-RAM parking of idle sessions' private
+  KV pages: storage and byte accounting only.  The device copies belong to
+  the scheduler, which owns the pool.
+
 Host bookkeeping for the scheduler's one worker thread: no locks, no
 tensors.  The device half is ``nn/attention.py`` ``apply_decode_pages``.
-The reference's ``HostOffloadTier`` comes with the sessions slice.
 """
 
 from __future__ import annotations
@@ -226,4 +229,70 @@ class PrefixCache:
                          if self.lookup_pages else 0.0),
             "inserted_pages": self.inserted_pages,
             "evicted_pages": self.evicted_pages,
+        }
+
+
+class HostOffloadTier:
+    """Host-RAM parking lot for idle sessions' private KV pages.
+
+    Parking copies a session's private pages to the host and frees their
+    ids (shared prefix pages stay on the device, pinned by the session: a
+    neighbour may be reading them); resuming writes them into fresh ids and
+    re-points the session's page-table row.  Contents are copied verbatim
+    both ways and addressed through the table, so a resumed session equals
+    one that never parked.  This class only stores the payloads and counts
+    their bytes, on the scheduler's thread.
+    """
+
+    def __init__(self):
+        self._parked: Dict[str, tuple] = {}   # sid -> (payload, nbytes)
+        self.parks = 0
+        self.resumes = 0
+        self.parked_bytes = 0
+        self.peak_parked_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._parked)
+
+    def __contains__(self, sid: str) -> bool:
+        return sid in self._parked
+
+    def park(self, sid: str, payload, nbytes: int) -> None:
+        """Store ``payload`` (the host copy of the session's private pages)
+        under ``sid``.  A double park raises: it would leak the first copy."""
+        if sid in self._parked:
+            raise ValueError(f"session {sid!r} is already parked")
+        nbytes = int(nbytes)
+        self._parked[sid] = (payload, nbytes)
+        self.parks += 1
+        self.parked_bytes += nbytes
+        self.peak_parked_bytes = max(self.peak_parked_bytes,
+                                     self.parked_bytes)
+
+    def resume(self, sid: str):
+        """Pop and return ``sid``'s payload; an unknown ``sid`` raises
+        (resuming a session that is not parked is a lifecycle bug)."""
+        if sid not in self._parked:
+            raise KeyError(f"session {sid!r} is not parked")
+        payload, nbytes = self._parked.pop(sid)
+        self.resumes += 1
+        self.parked_bytes -= nbytes
+        return payload
+
+    def drop(self, sid: str) -> int:
+        """Discard a parked session's pages (closed while parked); returns
+        the bytes released, 0 for an unknown ``sid``."""
+        if sid not in self._parked:
+            return 0
+        _, nbytes = self._parked.pop(sid)
+        self.parked_bytes -= nbytes
+        return nbytes
+
+    def stats(self) -> dict:
+        return {
+            "parked_sessions": len(self._parked),
+            "parks": self.parks,
+            "resumes": self.resumes,
+            "parked_bytes": self.parked_bytes,
+            "peak_parked_bytes": self.peak_parked_bytes,
         }

@@ -111,7 +111,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    /256/512, S 2/3/17, GQA rows packed across the tensor-core path's
    64-row tile, an inactive all-trash row, integer q/k with |s| ~ 30 where
    the scores' bf16 rounding shows, a 65 536-token table past the old
-   kernel's limit), in float32 and bfloat16, and f32 queries over a bf16
+   kernel's limit, a session's next turn: S 128 from a 530-token history,
+   a mid-page start), in float32 and bfloat16, and f32 queries over a bf16
    cache, logging the path each case took (tensor cores or page split);
    the speculative verify shape (8 slots x 4 rows at S 1, each table
    repeated, positions pos + i) in the same three dtype pairs; the same
@@ -204,6 +205,23 @@ Phases, each of which ends the run with a non-zero exit on failure:
    tokens with that draft, with a draft of the first 7 blocks (accept rate
    strictly between 0 and 1) and with the target as its own draft equal
    to plain continuous decoding's and ``generate``'s;
+3q. multi-turn sessions: 3g's bf16 LM and generator with the pool cut to
+   256 pages (4096 tokens) and a ``MemoryBudgeter`` of 192 pages' bytes:
+   48 sessions open with 3g's 384-token head and 12 seeded tokens (32 new),
+   then take a second turn of 64 seeded tokens (32 new), so byte pressure
+   parks idle sessions to host RAM and their next turns resume them: the
+   open sessions' token census at least 3x the pool after turn 1, parks
+   above 0, parks = resumes + sessions still parked, every session
+   resident or parked after each turn, the budget's device bytes within
+   it and its ``kv_pages`` and ``host_offload`` equal to the sessions'
+   private pages and the parked bytes after each turn and 0 after every
+   session closes, exactly 8 K12 a prefill and a decode step, ids in
+   range; a request over a second generator's 96-page budget shed
+   ``MemoryBudgetError`` at submit; an f32 copy's 8 sessions (3g's f32
+   requests, then 16 tokens and 16 new) parked explicitly between turns,
+   with K12 and with ``paged_kernel=False``: every turn's tokens equal to
+   ``generate`` over the whole history and to a run that never parks;
+   ``mem_drill --smoke`` on the card returns 0;
 3h. long-context training: ``models/perf.py`` ``longcontext_perf_main`` at
    its defaults (T 8192, 8 layers, embed 512, 8 heads, vocab 8192, remat,
    bf16 mixed precision, SGD 0.1, one warm-up and 5 timed steps): finite
@@ -300,13 +318,17 @@ Phases, each of which ends the run with a non-zero exit on failure:
    at the decode shape (the page split), the prefill shapes (the
    tensor-core path) and the speculative verify shape (32 rows) with its
    plan and the blocks that hold visible keys
-   (at least one an SM at the decode shape), by CUDA events and
+   (at least one an SM at the decode shape), and at a session's next-turn
+   prefill (S 128 from a mid-page start), by CUDA events and
    torch.profiler's device time, beside its bound, plain version and SDPA
    on the pre-gathered view; the continuous run's new tokens/s,
    request latency p50 and max, slot occupancy, chunks and prefix hit rate
    with a profiler breakdown of the same traffic (K12's device time by
    path among it), and the same requests
-   through ``generate`` in static waves of 8; K9 with and without its LSE,
+   through ``generate`` in static waves of 8; a park and a resume of one
+   9-page session at 3q's widths (CUDA events around the gather, the D2H
+   copy, the H2D copy and the in-place write; GB/s beside the host
+   link's rate); K9 with and without its LSE,
    the delta pass, K10 and K11 per call at both training shapes and at
    (1, 2, 2048, 512) in bf16 beside
    their bounds (6·D and 8·D FLOPs per unmasked pair and head; the delta
@@ -695,6 +717,24 @@ CG_F32_REQUESTS, CG_F32_NEW = 8, 32       # the f32 copy, half sharing the head
 # held to plain decoding
 CG_QCAL_PROMPTS, SPEC_K, SPEC_DRAFT_LAYERS = 4, 3, 4
 SPEC_PARTIAL_LAYERS = LM_LAYERS - 1
+# multi-turn sessions (phase 3q): 3g's LM and generator with the pool cut
+# to SESS_PAGES pages and a budget of SESS_BUDGET_PAGES pages' bytes, so
+# byte pressure parks sessions before the free list runs dry; SESS_N
+# sessions open with 3g's CG_HEAD-token head and SESS_UNIQUE seeded tokens
+# (every session's published chain is that head's 24 pages: unique long
+# prompts would pin a chain each, which no parking frees), then take a turn
+# of SESS_TURN2 seeded tokens, SESS_NEW new tokens each turn; a second
+# generator's budget of SESS_SMALL_BUDGET pages sheds a 2048-token request
+# (128 pages) at submit; the f32 check's second turn: SESS_F32_TURN2 tokens
+# and as many new
+SESS_PAGES, SESS_BUDGET_PAGES, SESS_SMALL_BUDGET = 256, 192, 96
+SESS_N, SESS_UNIQUE, SESS_TURN2, SESS_NEW = 48, 12, 64, 32
+SESS_F32_TURN2 = 16
+# phase 4: a park and a resume of a session of SESS_PARK_PAGES private
+# pages; the host link's rate per direction (PCIe Gen5 x16 on the H100 SXM
+# data sheet: 128 GB/s both ways)
+SESS_PARK_PAGES = 9
+HOST_LINK_BYTES_PER_S = 64e9
 # the LM's packed products a forward, by rung: 8 x (4 projections + fc1 +
 # fc2) and the tied head; the head has no activation scale in w8a8 (the
 # reference never observes it), so it runs K13 weight-only there
@@ -745,6 +785,11 @@ PAGED_RAGGED = [
     ("a 65 536-token table, 64 packed rows", 1, 2, 2, 64, 64, 16, 4096,
      [65536], False),
 ]
+# a session's next turn (phase 3q's shape): S 128 prefilled from a
+# 530-token history, so its first position is mid-page
+PAGED_SESSION = ("session continuation: S 128 after a 530-token history",
+                 1, 8, 8, 128, 64, 16, 128, [658], False)
+PAGED_RAGGED.append(PAGED_SESSION)
 # the flash backward (phase 2f): K9 with its LSE, K10 and K11 against their
 # plain versions at the training paths' shapes, each in its dtype (the
 # long-context run in bf16, train_main's in f32), and at ragged ones in
@@ -3232,6 +3277,204 @@ def speculative_continuous(device, model, card):
     return report, {"lm_speculative": got}
 
 
+# -- phase 3q: multi-turn sessions, parking and the memory budget -----------
+
+def session_traffic():
+    """3q's two turns: SESS_N prompts of 3g's CG_HEAD-token head and
+    SESS_UNIQUE seeded tokens, then SESS_N seeded turns of SESS_TURN2."""
+    prompts, _, shared = cg_traffic()
+    head = prompts[shared.index(True)][:CG_HEAD]
+    rng = np.random.RandomState(SEED + 140)
+    turn1 = [np.concatenate([head, rng.randint(1, LM_VOCAB + 1,
+                                               SESS_UNIQUE)])
+             for _ in range(SESS_N)]
+    turn2 = [rng.randint(1, LM_VOCAB + 1, SESS_TURN2) for _ in range(SESS_N)]
+    return turn1, turn2
+
+
+def session_turn(gen, prompts, max_new):
+    """Submit one turn of every session at once; return the outputs and
+    the wall seconds to the last."""
+    t0 = time.perf_counter()
+    futs = [gen.submit(p, max_new, session=f"s{i}")
+            for i, p in enumerate(prompts)]
+    outs = [f.result(timeout=600) for f in futs]
+    return outs, time.perf_counter() - t0
+
+
+def check_session_books(what, gen, budgeter, tenant, budget_bytes, n):
+    """After a turn: every session resident or parked, the tenant's device
+    bytes within its budget, ``kv_pages`` the sessions' private pages and
+    ``host_offload`` the tier's parked bytes.  Returns the stats."""
+    st = gen.stats()
+    pb = st["pages"]["page_bytes"]
+    infos = [gen.session_info(f"s{i}") for i in range(n)]
+    states = sorted({i["state"] for i in infos if i is not None})
+    if None in infos or not set(states) <= {"resident", "parked"}:
+        fail(f"sessions after {what}: states {states}, "
+             f"{sum(i is None for i in infos)} unknown")
+    snap = budgeter.snapshot()["tenants"][tenant]
+    charged = snap["charged"]
+    priv = sum(i["private_pages"] for i in infos)
+    if snap["device_bytes"] > budget_bytes:
+        fail(f"after {what} the budget's device bytes {snap['device_bytes']}"
+             f" exceed the budget {budget_bytes}")
+    if charged["kv_pages"] != priv * pb or \
+            charged["host_offload"] != st["offload"]["parked_bytes"]:
+        fail(f"budget after {what}: {charged}; the sessions hold {priv} "
+             f"private pages of {pb} bytes, the tier "
+             f"{st['offload']['parked_bytes']} bytes")
+    return st
+
+
+def session_serving(device, model, card):
+    """Phase 3q: ``model`` (3g's bf16 LM on the card) behind 3g's generator
+    with the pool cut to SESS_PAGES pages and a budget of
+    SESS_BUDGET_PAGES pages' bytes, two turns of SESS_N sessions
+    (:func:`session_traffic`); the checks of the module doc, then the
+    shed on a second generator, the f32 check and ``mem_drill --smoke``.
+    Returns the report and the launches of the two turns."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.serving import (ContinuousGenerator,
+                                         MemoryBudgetError, MemoryBudgeter)
+    from bigdl_tpu_torch.serving.scheduler import mem_drill
+    turn1, turn2 = session_traffic()
+    kw = dict(num_slots=CG_SLOTS, max_len=LM_T, page_size=CG_PAGE,
+              seq_buckets=CG_BUCKETS, device=device)
+    budgeter = MemoryBudgeter()
+    gen = ContinuousGenerator(model, cache_dtype=torch.bfloat16,
+                              num_pages=SESS_PAGES, budgeter=budgeter,
+                              budget_tenant="chat", **kw)
+    pages = gen.stats()["pages"]
+    budget_bytes = SESS_BUDGET_PAGES * pages["page_bytes"]
+    budgeter.set_budget("chat", budget_bytes)
+    ops.reset_launches()                 # the session path starts here
+    out1, wall1 = session_turn(gen, turn1, SESS_NEW)
+    st1 = check_session_books("turn 1", gen, budgeter, "chat", budget_bytes,
+                              SESS_N)
+    out2, wall2 = session_turn(gen, turn2, SESS_NEW)
+    launches = launches_now()            # and ends here
+    st2 = check_session_books("turn 2", gen, budgeter, "chat", budget_bytes,
+                              SESS_N)
+    census = st1["sessions"]["total_tokens"]
+    if census < 3 * pages["capacity_tokens"]:
+        fail(f"open sessions hold {census} tokens after turn 1, under 3x "
+             f"the pool's {pages['capacity_tokens']}")
+    off = st2["offload"]
+    if off["parks"] <= 0 or \
+            off["parks"] != off["resumes"] + off["parked_sessions"]:
+        fail(f"parks {off['parks']}, resumes {off['resumes']}, still parked "
+             f"{off['parked_sessions']}: a parked copy was lost or none "
+             "was made")
+    prefills = st2["counters"]["serve.gen.prefills"]
+    steps = st2["counters"]["serve.gen.steps"]
+    want = per_forward({"paged_attention": LM_LAYERS * (prefills + steps)}, 1)
+    if launches != want or prefills != 2 * SESS_N:
+        fail(f"sessions launched {launches} over {prefills} prefills and "
+             f"{steps} decode steps, expected {want}")
+    for out in out1 + out2:
+        if out.shape != (SESS_NEW,) or out.min() < 1 or \
+                out.max() > LM_VOCAB:
+            fail(f"a session turn gave {out.shape} ids or ids out of range")
+    for i in range(SESS_N):
+        if gen.close_session(f"s{i}").result(timeout=60) is not True:
+            fail(f"session s{i} did not close")
+    charged = budgeter.snapshot()["tenants"]["chat"]["charged"]
+    gen.drain()
+    if charged["kv_pages"] or charged["host_offload"]:
+        fail(f"budget after closing every session: {charged}")
+
+    # a request whose pages can never fit a budget under 128 pages
+    small = MemoryBudgeter()
+    with ContinuousGenerator(model, cache_dtype=torch.bfloat16,
+                             num_pages=SESS_PAGES, budgeter=small,
+                             warmup=False, **kw) as g:
+        small.set_budget("default", SESS_SMALL_BUDGET * pages["page_bytes"])
+        try:       # 128 pages at most: max_len 2048 allows no more
+            g.submit(turn1[0], LM_T - turn1[0].size)
+            fail("a request over the whole budget was admitted")
+        except MemoryBudgetError as e:
+            shed = str(e)
+    f32 = sessions_f32(device)
+    drill = mem_drill.main(["--smoke", "--device", "cuda"])
+    if drill != 0:
+        fail(f"mem_drill --smoke returned {drill} on the card")
+    report = {
+        "sessions": SESS_N, "pool_pages": SESS_PAGES,
+        "budget_pages": SESS_BUDGET_PAGES,
+        "page_bytes": pages["page_bytes"],
+        "census_tokens_after_turn1": census,
+        "turn1_wall_s": wall1, "turn2_wall_s": wall2,
+        "turn2_new_tokens_per_s": SESS_N * SESS_NEW / wall2,
+        "offload": off, "sessions_after_turn2": st2["sessions"],
+        "budget_after_turn2": st2["budget"], "prefills": prefills,
+        "decode_steps": steps, "chunks": st2["chunks"],
+        "prefix": st2["prefix"], "small_budget_shed": shed,
+        "f32": f32, "mem_drill_smoke": drill}
+    log(f"[{card}] sessions (bf16, {SESS_N} sessions, pool {SESS_PAGES} "
+        f"pages, budget {SESS_BUDGET_PAGES} pages of "
+        f"{pages['page_bytes']} B): census after turn 1 {census} tokens "
+        f"({census / pages['capacity_tokens']:.2f}x the pool); turn 1 "
+        f"{wall1:.3f} s, turn 2 {wall2:.3f} s "
+        f"({report['turn2_new_tokens_per_s']:.1f} new tokens/s); parks "
+        f"{off['parks']}, resumes {off['resumes']}, still parked "
+        f"{off['parked_sessions']}, peak parked {off['peak_parked_bytes']} B; "
+        f"{prefills} prefills, {steps} decode steps, launches {launches}; "
+        f"budget exact after each turn and 0 after the closes; "
+        f"byte-starved shed typed; f32 tokens equal generate() and a run "
+        f"that never parks with K12 and paged_kernel=False; mem_drill "
+        f"--smoke 0")
+    return report, {"lm_sessions": launches}
+
+
+def sessions_f32(device):
+    """3q's f32 check: 3g's f32 requests as 8 sessions, all parked after
+    turn 1, then SESS_F32_TURN2 seeded tokens and as many new, with K12
+    and with ``paged_kernel=False``: each turn's tokens equal ``generate``
+    over the whole history on the card and a run that never parks."""
+    import torch
+    from bigdl_tpu_torch.serving import ContinuousGenerator
+    prompts, _, shared = cg_traffic()
+    first = [prompts[i] for i in cg_picks(shared)]
+    rng = np.random.RandomState(SEED + 141)
+    second = [rng.randint(1, LM_VOCAB + 1, SESS_F32_TURN2) for _ in first]
+    f32 = lm_model().to(device)
+    kw = dict(num_slots=CG_SLOTS, max_len=LM_T, page_size=CG_PAGE,
+              seq_buckets=CG_BUCKETS, device=device)
+
+    def gen_ref(p, n):
+        return f32.generate(torch.from_numpy(np.asarray(p)[None]).to(device),
+                            n, device=device)[0].cpu().numpy()
+
+    ref1 = [gen_ref(p, CG_F32_NEW) for p in first]
+    ref2 = [gen_ref(np.concatenate([p, r, q]), SESS_F32_TURN2)
+            for p, r, q in zip(first, ref1, second)]
+    runs = {}
+    for name, extra in (("kernel", {}), ("hoisted", {"paged_kernel": False})):
+        for park in (True, False):
+            with ContinuousGenerator(f32, **kw, **extra) as g:
+                a, _ = session_turn(g, first, CG_F32_NEW)
+                if park and not all(g.park(f"s{i}").result(timeout=60)
+                                    for i in range(len(first))):
+                    fail(f"f32 sessions ({name}): a park was refused")
+                b, _ = session_turn(g, second, SESS_F32_TURN2)
+                off = g.stats()["offload"]
+            want = len(first) if park else 0
+            if off["parks"] != want or off["resumes"] != want:
+                fail(f"f32 sessions ({name}, park {park}): {off}")
+            runs[(name, park)] = a + b
+    for key, outs in runs.items():
+        for i, (o, r) in enumerate(zip(outs, ref1 + ref2)):
+            if not np.array_equal(o, r):
+                fail(f"f32 session turn {1 + i // len(first)} ({key}) of "
+                     f"request {i % len(first)} differs from generate(): "
+                     f"{o.tolist()} vs {r.tolist()}")
+    del f32
+    return {"sessions": len(first), "turn1_new": CG_F32_NEW,
+            "turn2_tokens": SESS_F32_TURN2, "runs_equal": len(runs)}
+
+
 # -- phase 3h/3i: TransformerLM training --------------------------------------
 
 class LogArgs:
@@ -5214,8 +5457,9 @@ def paged_blocks(plan, case, pos):
 
 def time_paged(device):
     """K12 per call at the path's decode shape (the page split), its two
-    prefill shapes (the tensor-core path) and the speculative verify shape
-    (CG_SLOTS x (SPEC_K + 1) rows), bf16: median
+    prefill shapes and a session's next-turn prefill from a mid-page start
+    (the tensor-core path) and the speculative verify shape (CG_SLOTS x
+    (SPEC_K + 1) rows), bf16: median
     kernel time with
     the L2 flushed by CUDA events and torch.profiler's device time (K12's
     kernels: the split and its combine), its plan and the blocks that hold
@@ -5233,6 +5477,7 @@ def time_paged(device):
             ("decode", paged_decode_case(), None),
             ("prefill_512", PAGED_RAGGED[0], None),
             ("prefill_128", PAGED_RAGGED[1], None),
+            ("continuation", PAGED_SESSION, None),
             ("verify", vcase, vops)):
         q, k, v, pages, pos, scale = ops or paged_operands(
             case, bf16, bf16, device, SEED + 90)
@@ -5269,6 +5514,75 @@ def time_paged(device):
             "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         del q, k, v, kk, vv
+    return out
+
+
+def time_park_resume(device):
+    """A park and a resume of one session of SESS_PARK_PAGES private pages
+    at 3q's widths (LM_LAYERS layers' bf16 K and V pools of SESS_PAGES
+    pages), as ``ContinuousGenerator`` runs them: median of TIMING_REPS by
+    CUDA events around the device gather and the D2H copy
+    (``gather_pages``), and around the H2D copy and the in-place write
+    (``scatter_pages``), each call whole by the host's clock; the copies'
+    GB/s beside the host link's rate."""
+    import torch
+    from bigdl_tpu_torch.serving.scheduler.continuous import (gather_pages,
+                                                              scatter_pages)
+    g = torch.Generator(device=device).manual_seed(SEED + 150)
+    shape = (SESS_PAGES + 1, LM_HEADS, CG_PAGE, LM_EMBED // LM_HEADS)
+    with torch.inference_mode():
+        # init_paged_cache's pools, trash page last
+        cache = [{side: torch.randn(shape, generator=g, device=device)
+                  .to(torch.bfloat16) for side in ("k", "v")}
+                 for _ in range(LM_LAYERS)]
+        ids = np.random.RandomState(SEED + 150).permutation(
+            SESS_PAGES)[:SESS_PARK_PAGES].tolist()
+        idx = torch.tensor(ids, device=device)
+        nbytes = SESS_PARK_PAGES * sum(c[side][0].numel() * 2 for c in cache
+                                       for side in ("k", "v"))
+        stages = {k: [] for k in ("gather", "d2h", "h2d", "write", "park",
+                                  "resume")}
+        for _ in range(TIMING_REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            dev = [{side: c[side][idx] for side in ("k", "v")}
+                   for c in cache]
+            ev[1].record()
+            host = [{side: d[side].cpu() for side in ("k", "v")}
+                    for d in dev]
+            ev[2].record()
+            torch.cuda.synchronize()
+            stages["gather"].append(ev[0].elapsed_time(ev[1]))
+            stages["d2h"].append(ev[1].elapsed_time(ev[2]))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            up = [{side: h[side].to(device) for side in ("k", "v")}
+                  for h in host]
+            ev[1].record()
+            for c, u in zip(cache, up):
+                for side in ("k", "v"):
+                    c[side].index_copy_(0, idx, u[side])
+            ev[2].record()
+            torch.cuda.synchronize()
+            stages["h2d"].append(ev[0].elapsed_time(ev[1]))
+            stages["write"].append(ev[1].elapsed_time(ev[2]))
+            t0 = time.perf_counter()
+            payload = gather_pages(cache, ids)
+            stages["park"].append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            scatter_pages(cache, ids, payload)
+            torch.cuda.synchronize()
+            stages["resume"].append(1e3 * (time.perf_counter() - t0))
+        if not all(torch.equal(p[side], h[side]) for p, h in
+                   zip(payload, host) for side in ("k", "v")):
+            fail("gather_pages differs from the timed gather and copy")
+    del cache
+    out = {k: statistics.median(v) for k, v in stages.items()}
+    link_ms = 1e3 * nbytes / HOST_LINK_BYTES_PER_S
+    out.update(pages=SESS_PARK_PAGES, bytes=nbytes, link_bound_ms=link_ms,
+               d2h_gb_s=nbytes / out["d2h"] / 1e6,
+               h2d_gb_s=nbytes / out["h2d"] / 1e6,
+               host_link_gb_s=HOST_LINK_BYTES_PER_S / 1e9)
     return out
 
 
@@ -5531,6 +5845,9 @@ def main() -> int:
     lm_launches.update(more)
     spec_report, more = speculative_continuous(device, cg_run[0], card)
     lm_launches.update(more)
+    # phase 3q: multi-turn sessions, parking and the memory budget
+    sess_report, more = session_serving(device, cg_run[0], card)
+    lm_launches.update(more)
     # phase 3h and 3i: TransformerLM training
     long_report, long_launches = long_context_training(device)
     lm_launches.update(long_launches)
@@ -5709,6 +6026,19 @@ def main() -> int:
             torch.cuda.get_device_properties(0).multi_processor_count:
         fail("paged_attention's plan at the decode shape puts fewer blocks "
              "with visible keys than the card has SMs")
+    park = time_park_resume(device)
+    sess_report["park_resume"] = park
+    log(f"[{card}] park and resume of a {park['pages']}-page session "
+        f"({park['bytes']} B over {LM_LAYERS} layers' bf16 K and V, "
+        f"median of {TIMING_REPS}): gather {park['gather']:.4f} ms, D2H "
+        f"copy {park['d2h']:.4f} ms ({park['d2h_gb_s']:.2f} GB/s), H2D copy "
+        f"{park['h2d']:.4f} ms ({park['h2d_gb_s']:.2f} GB/s), in-place "
+        f"write {park['write']:.4f} ms; the host link "
+        f"{park['host_link_gb_s']:.0f} GB/s a direction bounds each copy at "
+        f"{park['link_bound_ms']:.4f} ms; a park whole "
+        f"{park['park']:.4f} ms, a resume whole {park['resume']:.4f} ms "
+        "(host clock)")
+    log("sessions: " + json.dumps(sess_report))
     cg_prof, cg_static = time_continuous(*cg_run, device)
     cg_prof["busy_share"] = cg_prof["device_ms"] / (1e3 * cg_report["wall_s"])
     cg_report.update(profile=cg_prof, static_waves=cg_static)
@@ -5870,7 +6200,8 @@ def main() -> int:
                 "split": {"decode": paged_times["decode"],
                           "verify": paged_times["verify"]},
                 "tensor_core": {k2: paged_times[k2]
-                                for k2 in ("prefill_512", "prefill_128")}}
+                                for k2 in ("prefill_512", "prefill_128",
+                                           "continuation")}}
             entry["continuous_device_ms"] = cg_prof["groups"]
         elif name in codec_times:    # per call at CODEC_N elements
             entry.update({k2: codec_times[name][k2] for k2 in TIME_KEYS})

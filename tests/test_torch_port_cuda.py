@@ -1382,3 +1382,47 @@ def test_speculative_tokens_equal_plain_decoding_on_the_card(cuda_device):
             assert st["spec"]["accept_rate"] == 1.0
         else:
             assert 0.0 < st["spec"]["accept_rate"] < 1.0
+
+
+def test_parked_bf16_session_resumes_on_the_card(cuda_device):
+    """A bf16 LM's sessions over a bf16 pool on the card, parked between
+    turns (private pages gathered and copied to host RAM, then written
+    into fresh ids): the second turn's tokens equal a run that never
+    parks, every parked session resumes, and K12 launches once a layer
+    for each prefill and decode step, nothing else."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.serving import ContinuousGenerator
+    lm = TransformerLM(300, max_len=128, embed_dim=64, num_heads=4,
+                       num_layers=2).reset(7).to(cuda_device, torch.bfloat16)
+    rs = np.random.RandomState(13)
+    first = [rs.randint(1, 301, size=n) for n in (21, 37, 9)]
+    second = [rs.randint(1, 301, size=n) for n in (5, 11, 3)]
+    outs = {}
+    for park in (True, False):
+        with ContinuousGenerator(lm, num_slots=2, page_size=16,
+                                 seq_buckets=[64], cache_dtype=torch.bfloat16,
+                                 device=cuda_device) as g:
+            ops.reset_launches()
+            got = [f.result(timeout=300) for f in
+                   [g.submit(p, 12, session=f"s{i}")
+                    for i, p in enumerate(first)]]
+            if park:
+                assert all(g.park(f"s{i}").result(timeout=60)
+                           for i in range(len(first)))
+            got += [f.result(timeout=300) for f in
+                    [g.submit(p, 10, session=f"s{i}")
+                     for i, p in enumerate(second)]]
+            launches = {fn.__name__: fn.launches
+                        for fn in ops.KERNEL_WRAPPERS}
+            st = g.stats()
+        c = st["counters"]
+        assert launches == {
+            fn.__name__: (2 * (c["serve.gen.prefills"] + c["serve.gen.steps"])
+                          if fn.__name__ == "paged_attention" else 0)
+            for fn in ops.KERNEL_WRAPPERS}
+        assert st["offload"]["parks"] == st["offload"]["resumes"] == \
+            (len(first) if park else 0)
+        outs[park] = got
+    for a, b in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(a, b)
+        assert a.min() >= 1 and a.max() <= 300
