@@ -6,6 +6,8 @@ a stateful facade.  Here PyTorch's own modules are already stateful, so the
 facade is a thin layer of the reference's names over ``nn.Module``:
 ``forward``, ``evaluate()``, ``training_()``, ``get_parameters()``,
 ``set_name``, and a :class:`Container` with the builder idiom ``add()``.
+Losses derive from :class:`Criterion` (``AbstractCriterion``): a functional
+``apply(input, target)`` under ``forward``/``backward``.
 
 Seeding: leaf layers implement ``reset_parameters(gen)``; :meth:`Module.reset`
 walks the tree in order with one explicit ``torch.Generator``.  Layers that
@@ -20,6 +22,7 @@ such a tree back.
 
 from __future__ import annotations
 
+import copy
 import threading
 
 import torch
@@ -194,6 +197,48 @@ class Container(Module):
         return [m.state_tree() for m in self.layers]
 
 
+class Criterion:
+    """Loss base (``AbstractCriterion``).  Its functional core is
+    ``apply(input, target) -> loss``; ``forward`` returns the loss with its
+    autograd graph (the trainer differentiates it) and keeps a detached copy
+    in ``output``, so the criterion holds no step's graph alive.
+    ``backward`` gives ``gradInput``, the gradient of the loss's sum with
+    respect to ``input`` by autograd, in the input's table structure.
+    ``TimeDistributedCriterion`` maps ``apply`` over time with
+    ``torch.func.vmap``, never ``forward``."""
+
+    def __init__(self) -> None:
+        self.output = None
+        self.gradInput = None
+
+    def apply(self, input, target):
+        raise NotImplementedError
+
+    def forward(self, input, target):
+        loss = self.apply(input, target)
+        self.output = loss.detach()
+        return loss
+
+    def __call__(self, input, target):
+        return self.forward(input, target)
+
+    def backward(self, input, target):
+        x = tree_map(lambda t: t.detach().requires_grad_(True), input)
+        leaves = list(tree_leaves(x))
+        with torch.enable_grad():
+            loss = self.apply(x, target).sum()
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+        def fill(leaf):
+            g = next(grads)
+            return torch.zeros_like(leaf) if g is None else g
+        self.gradInput = tree_map(fill, x)
+        return self.gradInput
+
+    def clone_criterion(self) -> "Criterion":
+        return copy.deepcopy(self)
+
+
 def _holds_state(module: nn.Module) -> bool:
     return any(getattr(m, "STATE", ()) for m in module.modules())
 
@@ -216,6 +261,14 @@ def tree_leaves(tree):
             yield from tree_leaves(x)
     else:
         yield tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a table (nested lists) or a tensor, in
+    :func:`tree_leaves`' order; tables come back as lists."""
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, x) for x in tree]
+    return fn(tree)
 
 
 def get_named_modules(model: Module) -> dict:

@@ -27,6 +27,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    no multiple of 16, an input off 16 bytes, planes over the shared-memory
    budget in bands and rows over it in column tiles at every
    instantiation, ResNet's stem, ceil-mode windows wholly past the plane),
+   and at the Fast R-CNN trunk's four pools (``RCNN_POOLS``, bands of
+   600x800 planes and pool4's odd 75 rows),
    logging the instantiation and plan of each case, and failing unless
    every instantiation (3x3/2, 3x3/1, 2x2/2, generic) ran on whole planes,
    on bands and on column tiles;
@@ -287,12 +289,36 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (two losses within 1e-4), AlexNet's and VGG-16's f32 eval log-probs at
    batch 1 against the CPU's (1e-4 of their largest magnitude), and their
    bf16 eval logits on 2 rows within the CPU's own bf16-vs-f32 error;
+3r. the criterions, the table ops, ``RoiPooling`` and ``Nms``: (a) the
+   autoencoder's recipe (``bigdl_tpu/models/autoencoder.py``:
+   ``Autoencoder(32)`` through ``Optimizer(..., MSECriterion())``, SGD 0.01
+   with momentum 0.9, batch 150) on 1500 seeded 28x28 images (one image
+   under per-image noise of 16 grey levels) for 30 f32
+   steps: finite losses, the mean of the last 5 below the mean of the
+   first 5, no kernel launched, the first two losses within 1e-5 relative
+   of a CPU run from the same weights; (b) Fast R-CNN's VGG16 head (the
+   port's ``Vgg_16(21)`` modules 0-29 beside the rois, ``RoiPooling(7, 7,
+   1/16)``, fc6 and fc7, a ``ConcatTable`` of 21 scores and 84 box
+   regressions; ``ParallelCriterion`` of ``SoftmaxWithCriterion`` and
+   ``SmoothL1CriterionWithWeights``) over 2 seeded 3x600x800 images and
+   256 rois: one training forward, loss and backward (finite loss,
+   RoiPooling's (256, 512, 7, 7), a finite nonzero conv1_1 weight
+   gradient, exactly 4 K1 + 4 K3), an eval forward (4 K1) with ``Nms`` at
+   IoU 0.3 for the 20 foreground classes equal to a numpy greedy walk,
+   and card vs CPU at 1 x 3 x 192 x 256 and 32 rois (``RCNN_*_TOL``
+   constants; ``Nms`` on the card's scores equal on both, and on the CPU's
+   own scores equal in every class without two scores within twice the
+   score error); (c) each of the 24 criterions' forward and backward at
+   (128, 1000) and each table, shape and distance layer's forward and
+   input gradient at a shape users meet, card vs CPU within 1e-5 of the
+   largest value;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
    function, K1 (f32 without its index, bf16 with it) and K3 per pool
-   layer and summed, by CUDA events and torch.profiler device time, the
-   library's too; the classifier's forward per bucket; the closed-loop serving
+   layer and summed, by CUDA events and torch.profiler device time (a
+   profiled window counts only with every launch recorded and, for a
+   kernel, not under its bound), the library's too; the classifier's forward per bucket; the closed-loop serving
    images/s and request latency per bucket; the train step in bf16 mixed
    precision and in float32; K13-K15 at every distinct product of the
    quantized forward at buckets 32 and 8 (CUDA events, device time from
@@ -349,7 +375,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    and K2 in bfloat16 as ``perf infer`` does, per layer and summed beside
    their bounds, plain versions and ATen's calls (``F.max_pool2d``,
    ``max_pool2d_with_indices_backward``, ``F.local_response_norm`` and
-   autograd's backward of it), by events and device time.
+   autograd's backward of it), by events and device time; K1 (f32 with
+   its index) and K3 at the Fast R-CNN trunk's four pools (batch 2 on
+   600x800 input) the same way, with each launch's plan; the head's forward and step, RoiPooling's device
+   time, the 20 ``Nms`` calls and the autoencoder's step.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -994,7 +1023,7 @@ def _offset_copy(t):
 def pool_cases():
     """Phase 2's and 2b's pool cases: (name, shape, geometry, offset)."""
     for case in (POOLS + RESNET_POOLS + V2_POOLS + ALEXNET_POOLS + VGG_POOLS
-                 + RAGGED_POOLS + POOL_EDGES):
+                 + RCNN_POOLS + RAGGED_POOLS + POOL_EDGES):
         name, shape = case[:2]
         yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
 
@@ -4580,6 +4609,666 @@ def harness_vs_cpu(device):
     return out
 
 
+# -- phase 3r: the criterions, the table ops, RoiPooling and Nms -------------
+
+# the autoencoder's recipe (bigdl_tpu/models/autoencoder.py:16-69): 784 ->
+# 32 -> 784, MSECriterion, SGD 0.01 with momentum 0.9 at batch 150, MNIST
+# normalised by its mean and std; cut to 1500 seeded images and 30 steps
+AE_SAMPLES, AE_BATCH, AE_STEPS, AE_CPU_STEPS = 1500, 150, 30, 2
+AE_MEAN, AE_STD = 0.13066047740239506, 0.3081078
+AE_NOISE = 16.0                # grey levels, per image
+AE_LOSS_RTOL = 1e-5            # card vs CPU, the first two losses
+# Fast R-CNN's VGG16 setting (Girshick, ICCV 2015): a 7x7 RoI pool at 1/16
+# over conv5_3, 2 images of 128 rois each, the 21 PASCAL VOC classes; the
+# longer side cut from up to 1000 to 800 so both images share one shape
+RCNN_CLASSES, RCNN_POOLED, RCNN_SCALE = 21, 7, 1.0 / 16
+RCNN_IMAGES, RCNN_H, RCNN_W, RCNN_ROIS = 2, 600, 800, 128
+RCNN_FG = 0.25                 # foreground share of the rois
+RCNN_NMS_IOU = 0.3
+RCNN_BOX_OFFSET = 4096.0       # per image, so one Nms call never mixes two
+# card vs CPU at a cut: 1 image of 3x192x256, 32 rois
+RCNN_CPU = (1, 192, 256, 32)
+RCNN_LOSS_RTOL = 1e-5          # the loss, relative
+RCNN_ROI_TOL = 1e-5            # RoiPooling's output, of its largest value
+RCNN_GRAD_RTOL = 1e-4          # fc6's and conv5_3's weight gradients, rel L2
+# the trunk's four 2x2/2 pools (K1, K3) at batch 2 on 600x800 input
+RCNN_POOLS = [
+    (f"vgg16-rcnn/pool{i + 1} 2x2_s2", (RCNN_IMAGES, c, h, w), 2, 2, 2, 2,
+     0, 0, False)
+    for i, (c, h, w) in enumerate(((64, 600, 800), (128, 300, 400),
+                                   (256, 150, 200), (512, 75, 100)))]
+SWEEP_ROWS, SWEEP_CLASSES = 128, 1000     # the classifier's output
+SWEEP_RTOL = 1e-5              # card vs CPU, of each result's largest value
+
+
+def ae_samples(n, seed):
+    """Seeded 28x28 grey images in [0, 255]: one seeded image under
+    per-image noise of AE_NOISE grey levels, rounded and clipped, as
+    bytes; normalised as ``GreyImgNormalizer(AE_MEAN, AE_STD)`` and
+    flattened; the target is the input (``Train.scala``'s
+    ``toAutoencoderBatch``).  The shared image gives the model something
+    to learn in AE_STEPS steps: over images of independent pixels the
+    loss moves less in 30 steps than its spread from batch to batch."""
+    from bigdl_tpu_torch.dataset import Sample
+    rng = np.random.RandomState(seed)
+    base = rng.randint(0, 256, 784).astype(np.float32)
+    raw = np.clip(np.round(base + rng.normal(0, AE_NOISE, (n, 784))), 0, 255)
+    flat = ((raw / 255.0 - AE_MEAN) / AE_STD).astype(np.float32)
+    return [Sample(flat[i], flat[i]) for i in range(n)]
+
+
+def ae_trainer(model, steps, device):
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.nn import MSECriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    opt = Optimizer(model, DataSet.array(ae_samples(AE_SAMPLES, SEED + 90))
+                    >> SampleToBatch(AE_BATCH), MSECriterion(),
+                    Trigger.max_iteration(steps), device=device)
+    opt.set_optim_method(SGD(learning_rate=0.01, momentum=0.9))
+    return opt.set_seed(SEED)
+
+
+def autoencoder_recipe(device, card):
+    """Phase 3r-a: the autoencoder's recipe through ``Optimizer`` with
+    ``MSECriterion``, AE_STEPS steps at batch AE_BATCH in float32.  Fails
+    unless every loss is finite, the mean of the last 5 is below the mean
+    of the first 5, no kernel launched (the path has none), and the first
+    two losses agree with a CPU run from the same weights within
+    AE_LOSS_RTOL.  Returns (report, launches)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import Autoencoder
+    from bigdl_tpu_torch.optim import Trigger
+    init = Autoencoder(32).reset(SEED + 91)
+    opt = ae_trainer(copy.deepcopy(init), AE_STEPS, device)
+    ops.reset_launches()                 # the path starts here
+    opt.optimize()
+    launches = launches_now()            # and ends here
+    expect_launches("autoencoder recipe", launches, {})
+    losses = [r["loss"] for r in opt.step_records]
+    if len(losses) != AE_STEPS or not np.isfinite(losses).all() or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"autoencoder recipe: losses {losses}")
+    cpu = ae_trainer(copy.deepcopy(init), AE_CPU_STEPS, torch.device("cpu"))
+    cpu.optimize()
+    cpu_losses = [r["loss"] for r in cpu.step_records]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    if len(rel) != AE_CPU_STEPS or not max(rel) <= AE_LOSS_RTOL:
+        fail(f"autoencoder recipe card vs CPU: losses {losses[:2]} vs "
+             f"{cpu_losses} (relative {rel}, limit {AE_LOSS_RTOL})")
+    ms = 1e3 * statistics.median(
+        r["dur_s"] for r in opt.step_records[-TIMED_STEPS:])
+    opt.set_end_when(Trigger.max_iteration(AE_STEPS + 3))
+    prof = device_profile(opt.optimize, 3)
+    report = {"losses": losses, "cpu_losses": cpu_losses,
+              "card_vs_cpu_rel": rel, "step_ms": ms,
+              "records_per_s": AE_BATCH / ms * 1e3,
+              "busy_share": prof["device_ms"] / ms, "profile": prof}
+    log(f"[{card}] autoencoder recipe (f32, batch {AE_BATCH}, {AE_STEPS} "
+        f"steps): loss {losses[0]:.6f} -> {losses[-1]:.6f} (mean of the "
+        f"first 5 {np.mean(losses[:5]):.6f}, of the last 5 "
+        f"{np.mean(losses[-5:]):.6f}); card vs CPU, steps 1-2, relative "
+        f"{max(rel):.3g} (limit {AE_LOSS_RTOL}); step {ms:.3f} ms (median "
+        f"of the last {TIMED_STEPS}), {report['records_per_s']:.1f} "
+        f"records/s; device {prof['device_ms']:.3f} ms a step "
+        f"({prof['htod_ms']:.3f} of it the upload), busy share "
+        f"{report['busy_share']:.3f}; top (ms): "
+        + json.dumps(prof["top"][:5]))
+    return report, launches
+
+
+def rcnn_head(seed):
+    """Fast R-CNN's head on the port's ``Vgg_16(21)``: its modules 0-29
+    (13 convs, their ReLUs, 4 pools) as the trunk beside the rois,
+    ``RoiPooling(7, 7, 1/16)``, ``View(25088)``, Vgg_16's modules 32-37
+    (fc6, Threshold, Dropout, fc7, Threshold, Dropout) and a
+    ``ConcatTable`` of the class scores and the 84 box regressions; every
+    weight drawn from one generator seeded ``seed``."""
+    import bigdl_tpu_torch.nn as nn
+    from bigdl_tpu_torch.models import Vgg_16
+    vgg = Vgg_16(RCNN_CLASSES)
+    head = (nn.Sequential()
+            .add(nn.ParallelTable().add(nn.Sequential(*vgg.layers[:30]))
+                 .add(nn.Identity()))
+            .add(nn.RoiPooling(RCNN_POOLED, RCNN_POOLED, RCNN_SCALE))
+            .add(nn.View(512 * RCNN_POOLED * RCNN_POOLED)))
+    for m in vgg.layers[32:38]:
+        head.add(m)
+    head.add(nn.ConcatTable().add(nn.Linear(4096, RCNN_CLASSES))
+             .add(nn.Linear(4096, 4 * RCNN_CLASSES)))
+    return head.reset(seed)
+
+
+def rcnn_criterion(n_rois):
+    from bigdl_tpu_torch.nn import (ParallelCriterion,
+                                    SmoothL1CriterionWithWeights,
+                                    SoftmaxWithCriterion)
+    return (ParallelCriterion()
+            .add(SoftmaxWithCriterion(), 1.0)
+            .add(SmoothL1CriterionWithWeights(1.0, n_rois), 1.0))
+
+
+def rcnn_inputs(images, h, w, per_image, seed):
+    """Seeded images and rois (1-based image index, box in image pixels,
+    16 to 600 wide; a third with corners and sides on multiples of 8,
+    which land on .5 at 1/16, and some reaching the image's edge) and Fast
+    R-CNN's targets: a quarter of the rois foreground (labels 2-21, the 4
+    columns of their class weighed 1), the rest background (label 1,
+    weight 0)."""
+    rng = np.random.RandomState(seed)
+    img = rng.standard_normal((images, 3, h, w)).astype(np.float32)
+    rois = []
+    for b in range(images):
+        for i in range(per_image):
+            bw = rng.randint(16, min(600, w) + 1)
+            bh = rng.randint(16, min(600, h) + 1)
+            x1, y1 = rng.randint(0, w - 8), rng.randint(0, h - 8)
+            if i % 3 == 0:
+                x1, y1, bw, bh = (8 * (v // 8) for v in (x1, y1, bw, bh))
+            rois.append([b + 1, x1, y1, min(x1 + bw, w - 1),
+                         min(y1 + bh, h - 1)])
+    rois = np.asarray(rois, np.float32)
+    r = len(rois)
+    labels = np.ones(r, np.float32)
+    fg = rng.permutation(r)[:int(r * RCNN_FG)]
+    labels[fg] = rng.randint(2, RCNN_CLASSES + 1, len(fg))
+    targets = rng.standard_normal((r, 4 * RCNN_CLASSES)).astype(np.float32)
+    weights = np.zeros((r, 4 * RCNN_CLASSES), np.float32)
+    for i in fg:
+        c = int(labels[i]) - 1
+        weights[i, 4 * c:4 * c + 4] = 1.0
+    return img, rois, [labels, [targets, weights, weights.copy()]]
+
+
+def rcnn_boxes(rois):
+    """The rois' boxes, each image's offset by RCNN_BOX_OFFSET, so that
+    boxes of two images never overlap."""
+    return rois[:, 1:5] + (rois[:, :1] - 1) * RCNN_BOX_OFFSET
+
+
+def nms_walk(scores, boxes, thresh):
+    """An independent greedy NMS in numpy float32: boxes in descending
+    score (a stable sort), each kept unless its IoU (+1 pixel convention)
+    with a box kept before it is above ``thresh``."""
+    scores = np.asarray(scores, np.float32)
+    boxes = np.asarray(boxes, np.float32)
+    thresh, one, zero = np.float32(thresh), np.float32(1), np.float32(0)
+    areas = (boxes[:, 2] - boxes[:, 0] + one) * \
+        (boxes[:, 3] - boxes[:, 1] + one)
+    kept = []
+    for i in np.argsort(-scores, kind="stable"):
+        bi = boxes[i]
+        for k in kept:
+            bk = boxes[k]
+            iw = min(bi[2], bk[2]) - max(bi[0], bk[0]) + one
+            ih = min(bi[3], bk[3]) - max(bi[1], bk[1]) + one
+            inter = max(iw, zero) * max(ih, zero)
+            if inter / (areas[k] + areas[i] - inter) > thresh:
+                break
+        else:
+            kept.append(int(i))
+    return kept
+
+
+def rcnn_nms(scores, rois):
+    """``Nms`` at RCNN_NMS_IOU for each of the 20 foreground classes over
+    every roi (:func:`rcnn_boxes`): the kept lists by class."""
+    from bigdl_tpu_torch.nn import Nms
+    nms, boxes = Nms(), rcnn_boxes(rois)
+    return [nms(scores[:, c], boxes, RCNN_NMS_IOU).tolist()
+            for c in range(1, RCNN_CLASSES)]
+
+
+class Capture:
+    """The output of one module's forward, while open."""
+
+    def __init__(self, module):
+        self.module, self.out = module, None
+
+    def __enter__(self):
+        def hook(m, args, out):
+            self.out = out
+        self.handle = self.module.register_forward_hook(hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def rcnn_run(head, img, rois, target, device, train=True):
+    """One forward and the loss of ``head`` on ``device``, in training
+    mode (with its backward) or in eval mode; returns (loss, outputs,
+    RoiPooling's output)."""
+    import torch
+    head.train(train)
+    with Capture(head.layers[1]) as roi:
+        out = head([torch.from_numpy(img).to(device),
+                    torch.from_numpy(rois).to(device)])
+    loss = rcnn_criterion(len(rois))(out, [
+        torch.from_numpy(target[0]).to(device),
+        [torch.from_numpy(t).to(device) for t in target[1]]])
+    if train:
+        loss.backward()
+    return loss, out, roi.out
+
+
+def fast_rcnn_head(device, card):
+    """Phase 3r-b: a Fast R-CNN head on VGG-16 (:func:`rcnn_head`) over
+    RCNN_IMAGES seeded 3x600x800 images and 256 rois.  Training mode: one
+    forward, the loss and one backward through the module and criterion
+    API; fails unless the loss is finite, RoiPooling's output is (256,
+    512, 7, 7), conv1_1's weight gradient is finite and nonzero (the
+    gradient crossed RoiPooling and the trunk), and the step launched
+    exactly 4 K1 and 4 K3.  Eval mode: a forward (4 K1), a softmax over the
+    21 scores and ``Nms`` for each foreground class, whose kept lists must
+    equal :func:`nms_walk`'s.  Then card vs CPU (:func:`rcnn_vs_cpu`) and
+    the timings (:func:`time_rcnn`).  Returns (report, launches by
+    path)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    torch.cuda.init()       # the allocator's statistics need it
+    head = rcnn_head(SEED + 80)
+    cpu_head = copy.deepcopy(head)
+    head.to(device).set_generator(torch.Generator(device).manual_seed(SEED))
+    img, rois, target = rcnn_inputs(RCNN_IMAGES, RCNN_H, RCNN_W, RCNN_ROIS,
+                                    SEED + 81)
+    n_rois = len(rois)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()                 # the training path starts here
+    loss, out, pooled = rcnn_run(head, img, rois, target, device)
+    train_launches = launches_now()      # and ends here
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    conv1 = head.layers[0].layers[0].layers[0].weight.grad
+    expect_launches("Fast R-CNN head, training step", train_launches,
+                    {"max_pool2d": 4, "max_pool2d_bwd": 4})
+    if not math.isfinite(loss.item()):
+        fail(f"Fast R-CNN head: loss {loss.item()}")
+    if tuple(pooled.shape) != (n_rois, 512, RCNN_POOLED, RCNN_POOLED):
+        fail(f"Fast R-CNN head: RoiPooling's output {tuple(pooled.shape)}")
+    if conv1 is None or not bool(torch.isfinite(conv1).all()) or \
+            not conv1.abs().max().item() > 0:
+        fail("Fast R-CNN head: conv1_1's weight gradient is missing, "
+             "non-finite or zero: the gradient did not cross RoiPooling")
+    log(f"Fast R-CNN head (training): loss {loss.item():.6f}, RoiPooling "
+        f"{tuple(pooled.shape)}, conv1_1's weight gradient max |g| "
+        f"{conv1.abs().max().item():.3g}, launches {train_launches}")
+    del loss, out, pooled
+    head.zero_grad(set_to_none=True)
+
+    head.evaluate()
+    r = torch.from_numpy(rois).to(device)
+    ops.reset_launches()                 # the eval path starts here
+    with torch.no_grad():
+        out = head([torch.from_numpy(img).to(device), r])
+        scores = torch.softmax(out[0], dim=1)
+        kept = rcnn_nms(scores, r)
+    eval_launches = launches_now()       # and ends here
+    expect_launches("Fast R-CNN head, eval forward", eval_launches,
+                    {"max_pool2d": 4})
+    boxes = rcnn_boxes(rois)
+    want = [nms_walk(scores[:, c].cpu().numpy(), boxes, RCNN_NMS_IOU)
+            for c in range(1, RCNN_CLASSES)]
+    if kept != want:
+        fail(f"Fast R-CNN head: Nms kept {kept}, the numpy walk {want}")
+    log(f"Fast R-CNN head (eval): Nms at IoU {RCNN_NMS_IOU} kept "
+        f"{[len(k) for k in kept]} of {n_rois} rois by class, equal to the "
+        "numpy walk")
+    report = {"peak_allocated_gib": peak, "kept": [len(k) for k in kept],
+              "card_vs_cpu": rcnn_vs_cpu(head, cpu_head, device)}
+    del cpu_head
+    report.update(time_rcnn(head, img, rois, target, scores, device))
+    log(f"[{card}] Fast R-CNN head on VGG-16 (f32, {RCNN_IMAGES} x 3 x "
+        f"{RCNN_H} x {RCNN_W}, {n_rois} rois): eval forward "
+        f"{report['forward_ms']:.3f} ms, training forward + loss + backward "
+        f"{report['step_ms']:.3f} ms (median of 5; device "
+        f"{report['step_device_ms']:.3f} ms, busy share "
+        f"{report['busy_share']:.3f}); RoiPooling forward "
+        f"{fmt_ms(report['roi_fwd_device_ms'])} and backward "
+        f"{fmt_ms(report['roi_bwd_device_ms'])} of device time (forward "
+        f"{report['roi_fwd_ms']:.4f} ms by events); 20 Nms calls "
+        f"{report['nms_ms']:.3f} ms (host clock, median of 5); peak "
+        f"allocated {peak:.2f} GiB (the training step); top (ms): "
+        + json.dumps(report["top"][:6]))
+    return report, {"rcnn_train": train_launches, "rcnn_eval": eval_launches}
+
+
+def rcnn_vs_cpu(head, cpu_head, device):
+    """Card vs CPU at RCNN_CPU, eval mode (no dropout), the same weights:
+    the loss within RCNN_LOSS_RTOL, RoiPooling's output within
+    RCNN_ROI_TOL of its largest value, fc6's and conv5_3's weight
+    gradients within RCNN_GRAD_RTOL relative L2, and the card's ``Nms``
+    lists equal to the CPU's on the same scores, and to the CPU's on its
+    own scores in every class where no two scores lie within twice the
+    largest score error, card vs CPU (so that the error cannot reorder
+    them); the classes left out for such near ties are logged."""
+    import torch
+    images, h, w, per = RCNN_CPU
+    img, rois, target = rcnn_inputs(images, h, w, per, SEED + 82)
+    runs = []
+    for model, dev in ((head, device), (cpu_head, torch.device("cpu"))):
+        model.zero_grad(set_to_none=True)
+        loss, out, pooled = rcnn_run(model, img, rois, target, dev,
+                                     train=False)
+        loss.backward()
+        grads = [model.layers[3].weight.grad,                   # fc6
+                 model.layers[0].layers[0].layers[28].weight.grad]  # conv5_3
+        runs.append((loss.item(), out, pooled, grads))
+    (la, oa, pa, ga), (lb, ob, pb, gb) = runs
+    loss_rel = abs(la - lb) / abs(lb)
+    roi_err = (pa.detach().cpu() - pb.detach()).abs().max().item() / \
+        pb.abs().max().item()
+    grad_rel = [rel_l2([a], [b]) for a, b in zip(ga, gb)]
+    head.zero_grad(set_to_none=True)
+    scores = torch.softmax(oa[0].detach(), dim=1)
+    r = torch.from_numpy(rois)
+    kept_card = rcnn_nms(scores, r.to(device))
+    kept_cpu = rcnn_nms(scores.cpu(), r)
+    own_scores = torch.softmax(ob[0].detach(), dim=1)
+    own_cpu = rcnn_nms(own_scores, r)
+    score_err = (scores.cpu() - own_scores).abs().max().item()
+    gaps = own_scores.sort(dim=0).values.diff(dim=0).min(dim=0).values
+    classes = range(1, RCNN_CLASSES)
+    near_ties = [c for c in classes if gaps[c].item() <= 2 * score_err]
+    own_missed = [c for c in classes if c not in near_ties
+                  and kept_card[c - 1] != own_cpu[c - 1]]
+    log(f"Fast R-CNN head card vs CPU ({images} x 3 x {h} x {w}, {per} "
+        f"rois, eval): loss {la:.7f} vs {lb:.7f} (relative {loss_rel:.3g}, "
+        f"limit {RCNN_LOSS_RTOL}); RoiPooling {roi_err:.3g} of its largest "
+        f"(limit {RCNN_ROI_TOL}); fc6's and conv5_3's weight gradients, "
+        f"relative L2 {grad_rel[0]:.3g} and {grad_rel[1]:.3g} (limit "
+        f"{RCNN_GRAD_RTOL}); Nms on the card "
+        + ("equal" if kept_card == kept_cpu else "NOT equal")
+        + " to the CPU's on the same scores; on the CPU's own scores (score "
+        f"error {score_err:.3g}) "
+        + (f"NOT equal in classes {own_missed}" if own_missed else
+           f"equal in the {len(classes) - len(near_ties)} classes held")
+        + (f"; classes {near_ties} not held, two of their scores lying "
+           f"within {2 * score_err:.3g} (there "
+           + ("equal too" if kept_card == own_cpu else "not equal") + ")"
+           if near_ties else ""))
+    if not (loss_rel <= RCNN_LOSS_RTOL and roi_err <= RCNN_ROI_TOL and
+            max(grad_rel) <= RCNN_GRAD_RTOL and kept_card == kept_cpu
+            and not own_missed):
+        fail("Fast R-CNN head: card vs CPU out of its limits")
+    return {"loss": [la, lb], "loss_rel": loss_rel, "roi_err": roi_err,
+            "grad_rel_l2": {"fc6": grad_rel[0], "conv5_3": grad_rel[1]},
+            "score_err": score_err, "nms_near_tie_classes": near_ties,
+            "nms_equal_on_own_cpu_scores": kept_card == own_cpu}
+
+
+def time_rcnn(head, img, rois, target, scores, device):
+    """The head's eval forward and training step (CUDA events, median of
+    5), a profile of one step, RoiPooling's forward and backward device
+    time at the head's shapes (L2 flushed), and the 20 ``Nms`` calls (host
+    clock, median of 5)."""
+    import torch
+    x = torch.from_numpy(img).to(device)
+    r = torch.from_numpy(rois).to(device)
+
+    def forward():
+        with torch.no_grad():
+            head([x, r])
+
+    def step():
+        head.zero_grad(set_to_none=True)
+        rcnn_run(head, img, rois, target, device)
+
+    head.evaluate()
+    out = {"forward_ms": median_ms(forward, device, reps=5),
+           "step_ms": median_ms(step, device, reps=5)}
+    prof = device_profile(step, 1)
+    out.update(step_device_ms=prof["device_ms"], top=prof["top"],
+               busy_share=prof["device_ms"] / out["step_ms"])
+    head.zero_grad(set_to_none=True)
+    head.evaluate()
+    with torch.no_grad():
+        feat = head.layers[0]([x, r])[0]
+    roi = head.layers[1]
+    leaf = feat.clone().requires_grad_(True)
+    pooled = roi([leaf, r])
+    g = torch.randn_like(pooled)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    out["roi_fwd_device_ms"] = device_ms(lambda: roi([feat, r]), flush)
+    out["roi_bwd_device_ms"] = device_ms(
+        lambda: torch.autograd.grad(pooled, leaf, g, retain_graph=True),
+        flush)
+    out["roi_fwd_ms"] = median_ms(lambda: roi([feat, r]), device,
+                                  flush=flush)
+
+    def nms_calls():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rcnn_nms(scores, r)
+        return (time.perf_counter() - t0) * 1e3
+    out["nms_ms"] = statistics.median(nms_calls() for _ in range(5))
+    return out
+
+
+def sweep_criterions(n=SWEEP_ROWS, c=SWEEP_CLASSES):
+    """(name, criterion, input, target) of the 24 criterions at (n, c), by
+    default the classifier's output (SWEEP_ROWS x SWEEP_CLASSES, f32;
+    TimeDistributed over 4 steps of it), each target seeded to its
+    contract.  The card's tests take the same cases at a smaller size."""
+    import bigdl_tpu_torch.nn as nn
+    rng = np.random.RandomState(SEED + 95)
+    f32 = np.float32
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(f32)
+
+    def log_softmax(v):
+        v = v - v.max(-1, keepdims=True)
+        return (v - np.log(np.exp(v).sum(-1, keepdims=True))).astype(f32)
+
+    def signs(*shape):
+        return np.where(rng.rand(*shape) > 0.5, 1, -1).astype(f32)
+
+    x, x2, x3 = normal(n, c), normal(n, c), normal(n, c)
+    labels = rng.randint(1, c + 1, n).astype(f32)
+    bits = (rng.rand(n, c) > 0.5).astype(f32)
+    probs = np.clip(1 / (1 + np.exp(-x)), 0.01, 0.99).astype(f32)
+    dist = np.exp(log_softmax(normal(n, c)))
+    dist[rng.rand(n, c) < 0.1] = 0
+    multi = np.zeros((n, c), f32)
+    for i in range(n):
+        k = rng.randint(0, 6)
+        multi[i, :k] = rng.choice(c, k, replace=False) + 1
+    inside = np.zeros((n, c), f32)
+    inside[:, :84] = bits[:, :84]
+    return [
+        ("ClassNLLCriterion", nn.ClassNLLCriterion(), log_softmax(x),
+         labels),
+        ("CrossEntropyCriterion", nn.CrossEntropyCriterion(), x, labels),
+        ("TimeDistributedCriterion", nn.TimeDistributedCriterion(
+            nn.ClassNLLCriterion(), size_average=True),
+         log_softmax(normal(n, 4, c)),
+         rng.randint(1, c + 1, (n, 4)).astype(f32)),
+        ("MSECriterion", nn.MSECriterion(), x, x2),
+        ("AbsCriterion", nn.AbsCriterion(), x, x2),
+        ("BCECriterion", nn.BCECriterion(), probs, bits),
+        ("ClassSimplexCriterion", nn.ClassSimplexCriterion(c), x, labels),
+        ("CosineEmbeddingCriterion", nn.CosineEmbeddingCriterion(0.1),
+         [x, x2], signs(n)),
+        ("DistKLDivCriterion", nn.DistKLDivCriterion(), log_softmax(x),
+         dist),
+        ("HingeEmbeddingCriterion", nn.HingeEmbeddingCriterion(), x,
+         signs(n, c)),
+        ("L1Cost", nn.L1Cost(), x, None),
+        ("L1HingeEmbeddingCriterion", nn.L1HingeEmbeddingCriterion(2e5),
+         [x, x2], f32(-1)),
+        ("MarginCriterion", nn.MarginCriterion(), x, signs(n, c)),
+        ("MarginRankingCriterion", nn.MarginRankingCriterion(0.5), [x, x2],
+         signs(n, c)),
+        ("MultiCriterion", nn.MultiCriterion().add(nn.MSECriterion())
+         .add(nn.AbsCriterion(), 0.1), x, x2),
+        ("ParallelCriterion", nn.ParallelCriterion()
+         .add(nn.CrossEntropyCriterion()).add(nn.MSECriterion(), 0.5),
+         [x, x2], [labels, x3]),
+        ("MultiLabelMarginCriterion", nn.MultiLabelMarginCriterion(), x,
+         multi),
+        ("MultiLabelSoftMarginCriterion",
+         nn.MultiLabelSoftMarginCriterion(), x, bits),
+        ("MultiMarginCriterion", nn.MultiMarginCriterion(), x, labels),
+        ("SmoothL1Criterion", nn.SmoothL1Criterion(), x, x2),
+        ("SmoothL1CriterionWithWeights", nn.SmoothL1CriterionWithWeights(
+            1.0, n), x, [x2, inside, inside.copy()]),
+        ("SoftMarginCriterion", nn.SoftMarginCriterion(), x, signs(n, c)),
+        ("SoftmaxWithCriterion", nn.SoftmaxWithCriterion(ignore_label=1),
+         x, labels),
+        ("CriterionTable", nn.CriterionTable(nn.MSECriterion()), [x, x2],
+         None),
+    ]
+
+
+def sweep_layers():
+    """(name, layer, input) of each table, shape and distance layer of
+    this slice at a shape where users meet it, f32, the layers seeded."""
+    import bigdl_tpu_torch.nn as nn
+    rng = np.random.RandomState(SEED + 96)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    gates = np.exp(normal(32, 4))
+    gates = (gates / gates.sum(1, keepdims=True)).astype(np.float32)
+    inception_3a = [normal(32, 64, 28, 28), normal(32, 128, 28, 28),
+                    normal(32, 32, 28, 28), normal(32, 32, 28, 28)]
+    maps = [normal(32, 256, 14, 14), normal(32, 256, 14, 14)]
+    divisor = (np.sign(normal(32, 256, 14, 14)) *
+               rng.uniform(0.5, 2.0, (32, 256, 14, 14))).astype(np.float32)
+    rcnn_out = [normal(256, 21), normal(256, 84)]
+    siamese = [normal(128, 512), normal(128, 512)]
+    layers = [
+        ("ParallelTable", nn.ParallelTable().add(nn.Linear(4096, 21))
+         .add(nn.Linear(4096, 84)), [normal(256, 4096), normal(256, 4096)]),
+        ("MapTable", nn.MapTable(nn.Linear(512, 512)),
+         [normal(32, 512) for _ in range(3)]),
+        ("MixtureTable", nn.MixtureTable(),
+         [gates, [normal(32, 1000) for _ in range(4)]]),
+        ("JoinTable", nn.JoinTable(2), inception_3a),
+        ("FlattenTable", nn.FlattenTable(),
+         [normal(32, 1000), [normal(32, 1000), [normal(32, 1000)]]]),
+        ("NarrowTable", nn.NarrowTable(2, 2), inception_3a),
+        ("SelectTable", nn.SelectTable(2), rcnn_out),
+        ("CSubTable", nn.CSubTable(), maps),
+        ("CMulTable", nn.CMulTable(), maps),
+        ("CDivTable", nn.CDivTable(), [maps[0], divisor]),
+        ("CMaxTable", nn.CMaxTable(), maps),
+        ("CMinTable", nn.CMinTable(), maps),
+        ("Echo", nn.Echo(), normal(32, 1000)),
+        ("Copy", nn.Copy(), normal(32, 1000)),
+        ("Contiguous", nn.Contiguous(), normal(32, 1000)),
+        ("Bottle", nn.Bottle(nn.Linear(512, 1000)), normal(32, 16, 512)),
+        ("InferReshape", nn.InferReshape([0, -1]), normal(32, 512, 7, 7)),
+        ("Select", nn.Select(2, -1), normal(32, 16, 512)),
+        ("Narrow", nn.Narrow(2, 65, 128), normal(32, 256, 28, 28)),
+        ("Squeeze", nn.Squeeze(), normal(32, 1024, 1, 1)),
+        ("Unsqueeze", nn.Unsqueeze(2), normal(32, 1000)),
+        ("Transpose", nn.Transpose([(2, 3)]), normal(32, 16, 512)),
+        ("Replicate", nn.Replicate(16, 1, 1), normal(32, 512)),
+        ("SpatialZeroPadding", nn.SpatialZeroPadding(1),
+         normal(32, 64, 56, 56)),
+        ("Index", nn.Index(1), [normal(1000, 512),
+                                rng.randint(1, 1001, 256).astype(np.int64)]),
+        ("MaskedSelect", nn.MaskedSelect(),
+         [normal(32, 1000), (rng.rand(32, 1000) > 0.5).astype(np.uint8)]),
+        ("Max", nn.Max(2), normal(128, 1000)),
+        ("Min", nn.Min(2), normal(128, 1000)),
+        ("Mean", nn.Mean(2), normal(32, 16, 512)),
+        ("Sum", nn.Sum(2), normal(32, 16, 512)),
+        ("Cosine", nn.Cosine(512, 100), normal(32, 512)),
+        ("Euclidean", nn.Euclidean(512, 100), normal(32, 512)),
+        ("CosineDistance", nn.CosineDistance(), siamese),
+        ("DotProduct", nn.DotProduct(), siamese),
+        ("PairwiseDistance", nn.PairwiseDistance(), siamese),
+        ("MM", nn.MM(trans_b=True), [normal(64, 128, 64),
+                                     normal(64, 128, 64)]),
+        ("MV", nn.MV(), [normal(32, 1000, 512), normal(32, 512)]),
+        ("L1Penalty", nn.L1Penalty(1e-4).training_(), normal(32, 4096)),
+    ]
+    for i, (_, m, _) in enumerate(layers):
+        m.reset(SEED + 97 + i)
+    return layers
+
+
+def _flat(tree):
+    from bigdl_tpu_torch.core.module import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def _held(what, got, want):
+    """max |got - want| over the leaves, of want's largest magnitude; fails
+    over SWEEP_RTOL."""
+    got, want = _flat(got), _flat(want)
+    if len(got) != len(want):
+        fail(f"sweep {what}: {len(got)} results, want {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        if a.shape != b.shape:
+            fail(f"sweep {what}: shape {tuple(a.shape)}, want "
+                 f"{tuple(b.shape)}")
+        scale = max(b.abs().max().item(), 1e-30)
+        worst = max(worst, (a - b).abs().max().item() / scale)
+    if not worst <= SWEEP_RTOL:
+        fail(f"sweep {what}: card vs CPU {worst:.3g} of the largest value "
+             f"(limit {SWEEP_RTOL})")
+    return worst
+
+
+def criterion_layer_sweep(device):
+    """Phase 3r-c: each of the 24 criterions' ``forward`` and ``backward``
+    (:func:`sweep_criterions`), and each table, shape and distance layer's
+    forward and input gradient (of the sum of its output times a seeded
+    tensor; :func:`sweep_layers`), on the card against the CPU on the same
+    inputs, within SWEEP_RTOL of each result's largest value; fails on the
+    first miss.  Returns {name: worst error}."""
+    import torch
+    from bigdl_tpu_torch.core.module import tree_map
+    cpu = torch.device("cpu")
+
+    def on(dev, tree):
+        return tree_map(lambda v: torch.from_numpy(np.asarray(v)).to(dev),
+                        tree)
+
+    out = {}
+    for name, crit, x, t in sweep_criterions():
+        res = []
+        for dev in (device, cpu):
+            c = crit.clone_criterion()
+            loss = c.forward(on(dev, x), None if t is None else on(dev, t))
+            grad = c.backward(on(dev, x), None if t is None else on(dev, t))
+            res.append((loss, grad))
+        (la, ga), (lb, gb) = res
+        out[name] = max(_held(f"{name} forward", [la], [lb]),
+                        _held(f"{name} backward", ga, gb))
+        log(f"sweep {name} (forward and backward, card vs CPU): "
+            f"{out[name]:.3g} of the largest value")
+    for name, layer, x in sweep_layers():
+        res = []
+        for dev, m in ((device, copy.deepcopy(layer).to(device)),
+                       (cpu, layer)):
+            xs = on(dev, x)
+            leaves = [v.requires_grad_(True) for v in _flat(xs)
+                      if v.is_floating_point()]
+            y = m(xs)
+            r = [torch.from_numpy(np.random.RandomState(SEED + 98 + i)
+                                  .standard_normal(tuple(v.shape))
+                                  .astype(np.float32)).to(dev)
+                 for i, v in enumerate(_flat(y))]
+            g = torch.autograd.grad(
+                sum((v * w).sum() for v, w in zip(_flat(y), r)), leaves,
+                allow_unused=True)
+            res.append((y, [torch.zeros_like(v) if d is None else d
+                            for v, d in zip(leaves, g)]))
+        (ya, ga), (yb, gb) = res
+        out[name] = max(_held(f"{name} forward", ya, yb),
+                        _held(f"{name} input gradient", ga, gb))
+        log(f"sweep {name} (forward and input gradient, card vs CPU): "
+            f"{out[name]:.3g} of the largest value")
+    return out
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -4641,12 +5330,14 @@ def time_pool_layers(device, dtype, backward, plain=True, library=True,
                                        ceil_mode=ceil,
                                        return_indices=with_idx)
         nops = idx.numel() * kh * kw
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS)
         rows.append({
             "layer": name, "shape": list(shape),
             "ms": median_ms(kern, device, flush=flush),
-            "device_ms": device_ms(kern, flush),
-            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                  nops / F32_FLOPS),
+            "device_ms": device_ms(
+                kern, flush, bound_ms=bound,
+                what=f"{'K3' if backward else 'K1'} at {name}"),
+            "bound_ms": bound,
             "plain_ms": median_ms(ref, device, flush=flush) if plain
             else None,
             "library_ms": median_ms(lib, device, flush=flush) if library
@@ -4720,12 +5411,14 @@ def time_lrn_layers(device, dtype, backward, with_scale=False, plain=True,
                                          return_scale=with_scale)
             ref = lambda: lrn_plain(x, size, alpha, beta, k)
             lib = lambda: F.local_response_norm(x, size, alpha, beta, k)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS)
         rows.append({
             "layer": name, "shape": list(shape),
             "ms": median_ms(kern, device, flush=flush),
-            "device_ms": device_ms(kern, flush),
-            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                                  nops / F32_FLOPS),
+            "device_ms": device_ms(
+                kern, flush, bound_ms=bound,
+                what=f"{'K4' if backward else 'K2'} at {name}"),
+            "bound_ms": bound,
             "plain_ms": median_ms(ref, device, flush=flush) if plain
             else None,
             "library_ms": median_ms(lib, device, flush=flush) if library
@@ -4763,6 +5456,30 @@ def time_train_kernels(device):
 
 
 # phase 4's K1-K4 at the harness's shapes: what each timing stands for
+def time_rcnn_pools(device, card):
+    """K1 (f32 with its index, as training calls it) and K3 at the Fast
+    R-CNN trunk's four pools (RCNN_POOLS: batch 2 on 600x800 input) per
+    layer and summed, by CUDA events and device time (L2 flushed), beside
+    their bounds, plain versions and ATen's calls; logs each launch's
+    instantiation and plan."""
+    import torch
+    f32 = torch.float32
+    out = {"max_pool2d_fwd": pool_sums(time_pool_layers(
+               device, f32, False, layers=RCNN_POOLS, with_idx=True)),
+           "max_pool2d_bwd": pool_sums(time_pool_layers(
+               device, f32, True, layers=RCNN_POOLS))}
+    for name, t in out.items():
+        log_pool_times(card, f"{name} (f32, the Fast R-CNN trunk, batch "
+                       f"{RCNN_IMAGES} on {RCNN_H}x{RCNN_W})", t)
+    for layer, shape, *geom in RCNN_POOLS:
+        for kernel, backward in (("K1", False), ("K3", True)):
+            variant, plan, mode = pool_take(shape, tuple(geom), f32,
+                                            backward)
+            log(f"{kernel} plan at {layer} {shape}: {variant}, {mode}, "
+                f"{fmt_plan(plan)}")
+    return out
+
+
 HARNESS_TIMES = {
     "max_pool2d_fwd": "f32 with its index, perf local",
     "max_pool2d_fwd_infer": "bf16, no index, perf infer",
@@ -4818,9 +5535,9 @@ def quant_stage(layer):
 _FLUSH_KERNELS = set()
 
 
-def _profiled_us(run):
-    """Device time in us by kernel (and copy) name of ``run()`` under
-    torch.profiler."""
+def _profiled(run):
+    """Device time in us and launch count by kernel (and copy) name of
+    ``run()`` under torch.profiler: ``{name: (us, count)}``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4835,17 +5552,35 @@ def _profiled_us(run):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        out[evt.key] = out.get(evt.key, 0.0) + us
+        was = out.get(evt.key, (0.0, 0))
+        out[evt.key] = (was[0] + us, was[1] + evt.count)
     return out
 
 
-def device_ms(fn, flush, reps=TIMING_REPS):
+def _profiled_us(run):
+    """Device time in us by kernel (and copy) name of ``run()`` under
+    torch.profiler."""
+    return {name: us for name, (us, _) in _profiled(run).items()}
+
+
+DEVICE_WINDOWS = 6     # profiled windows device_ms may take for one reading
+# untimed flushes and a pause before and after each profiled window: late in
+# a long run the profiler loses the first launches of a window
+PAD_FLUSHES, PAD_S = 16, 0.005
+
+
+def device_ms(fn, flush, reps=TIMING_REPS, bound_ms=None, what=None):
     """Device time of one ``fn()`` in ms from torch.profiler: every kernel
     it launches, summed, over ``reps`` calls each after an L2 flush (the
     flush's own kernels left out).  The profiler now and then misses a
-    kernel, which only lowers a sum, so this takes the larger of two
-    windows, and of four where both read nothing; None (not measured)
-    where all four do."""
+    kernel, which only lowers a sum, so a window counts only where it
+    recorded ``reps`` times the launches of one call alone, and, with
+    ``bound_ms``, only where its time is not under that bound; the larger
+    of the first two windows that count, of up to DEVICE_WINDOWS.  None
+    (not measured) where no window counts; windows dropped are logged with
+    their launch counts and times, under ``what``.  Each window runs
+    between PAD_FLUSHES untimed flushes and PAD_S pauses."""
+    import torch
     for _ in range(3):  # the flush's own kernels, once the profiler is warm
         if _FLUSH_KERNELS:
             break
@@ -4863,15 +5598,45 @@ def device_ms(fn, flush, reps=TIMING_REPS):
         return name in _FLUSH_KERNELS or "FillFunctor" in name or \
             name.startswith("Memset")
 
-    us = 0.0
-    for window in range(4):
-        us = max(us, sum(v for name, v in _profiled_us(run).items()
-                         if not flush_kernel(name)))
-        if window and us > 0:
-            return us / 1e3 / reps
-    log("torch.profiler recorded no kernel of a timed call in four windows: "
-        "its device time is not measured")
-    return None
+    def padded(body):
+        for _ in range(PAD_FLUSHES):
+            flush.zero_()
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+        body()
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+        for _ in range(PAD_FLUSHES):
+            flush.zero_()
+
+    def window(body):
+        """(us, launches) of the kernels ``body()`` launched."""
+        kept = [v for name, v in _profiled(lambda: padded(body)).items()
+                if not flush_kernel(name)]
+        return sum(us for us, _ in kept), sum(n for _, n in kept)
+
+    per_call = window(fn)[1]
+    good, dropped = [], []
+    for _ in range(DEVICE_WINDOWS):
+        us, n = window(run)
+        if n > per_call * reps and n % reps == 0:
+            per_call = n // reps    # the lone call's window missed some
+        ms = us / 1e3 / reps
+        if per_call and n == per_call * reps and \
+                (bound_ms is None or ms >= bound_ms):
+            good.append(ms)
+            if len(good) == 2:
+                break
+        else:
+            dropped.append(f"{n} of {per_call * reps} launches, "
+                           f"{ms:.4f} ms")
+    if dropped:
+        log(f"device_ms{' of ' + what if what else ''}: {len(dropped)} "
+            f"profiled window(s) dropped "
+            f"({'; '.join(dropped)}"
+            + (f"; bound {bound_ms:.4f} ms" if bound_ms is not None else "")
+            + ")" + ("" if good else ": device time not measured"))
+    return max(good) if good else None
 
 
 def host_ms(fn, reps=TIMING_REPS):
@@ -4985,16 +5750,19 @@ def time_product(name, dtype, m, k, n, gen, flush, device, plain=True):
             kern = lambda: fn(x, q, qt["scale"])
             pl = lambda: quant.int8_matmul_plain(x, q, qt["scale"])
         lib = lambda: F.linear(x, wide)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * m * n * k / peak
     r = {"M": m, "K": k, "N": n, "dtype": str(dtype).replace("torch.", ""),
          "ms": median_ms(kern, device, flush=flush),
-         "device_ms": device_ms(kern, flush), "host_ms": host_ms(kern),
+         "device_ms": device_ms(kern, flush,
+                                bound_ms=max(bytes_ms, ops_ms)),
+         "host_ms": host_ms(kern),
          "plain_ms": median_ms(pl, device, flush=flush) if plain else None,
          "library_ms": None if lib is None else
          median_ms(lib, device, flush=flush),
          "library_device_ms": None if lib is None else device_ms(lib, flush),
-         "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-         "ops_ms": 1e3 * 2 * m * n * k / peak}
-    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+         "bound_ms": max(bytes_ms, ops_ms)}
     r["plan"] = quant_plan(name, dtype, m, k, n)
     return r
 
@@ -5215,7 +5983,8 @@ def time_attention(device):
         out[key] = {
             "kernel": name, "shape": list(case[1:7]), "dtype": dt,
             "ms": median_ms(kern, device, flush=flush),
-            "device_ms": device_ms(kern, flush),
+            "device_ms": device_ms(kern, flush,
+                                   bound_ms=max(bytes_ms, ops_ms)),
             "plain_ms": median_ms(plain, device, reps=5, flush=flush),
             "library_ms": median_ms(lib, device, flush=flush),
             "library_device_ms": device_ms(lib, flush),
@@ -5505,7 +6274,8 @@ def time_paged(device):
             "dtype": "bfloat16", "plan": plan._asdict(), "blocks": blocks,
             "blocks_with_visible_keys": live,
             "ms": median_ms(kern, device, flush=flush),
-            "device_ms": device_ms(kern, flush),
+            "device_ms": device_ms(kern, flush,
+                                   bound_ms=max(bytes_ms, ops_ms)),
             "plain_ms": median_ms(lambda: attn.paged_attention_plain(
                 q, k, v, pages, pos, scale), device, reps=5, flush=flush),
             "library_ms": median_ms(lib, device, flush=flush),
@@ -5902,7 +6672,19 @@ def main() -> int:
     harness_report, harness_launches = perf_harness(device, card)
     cnn_launches.update(harness_launches)
     log("perf harness: " + json.dumps(harness_report))
+    # phase 3r: the autoencoder's MSE recipe, a Fast R-CNN head on VGG-16,
+    # and the criterions and table, shape and distance layers card vs CPU
+    ae_report, cnn_launches["autoencoder"] = autoencoder_recipe(device, card)
+    rcnn_report, more = fast_rcnn_head(device, card)
+    cnn_launches.update(more)
+    sweep_errs = criterion_layer_sweep(device)
+    log("autoencoder recipe: " + json.dumps(ae_report))
+    log("Fast R-CNN head: " + json.dumps(rcnn_report))
+    log(f"sweep: {len(sweep_errs)} criterions and layers held, worst "
+        f"{max(sweep_errs.values()):.3g} of the largest value (limit "
+        f"{SWEEP_RTOL})")
     # phase 4
+    rcnn_times = time_rcnn_pools(device, card)
     harness_times = time_harness_kernels(device)
     for key, tt in harness_times.items():
         for kname, t in tt.items():
@@ -6227,6 +7009,8 @@ def main() -> int:
             if name == "max_pool2d_bwd":
                 for key, (_, cnn_train) in cnn_times.items():
                     entry[key] = {"train_bf16": cnn_train[name]}
+        if name in rcnn_times:   # K1 and K3 at the Fast R-CNN trunk's pools
+            entry["fast_rcnn_f32"] = rcnn_times[name]
         harness = {key: {kname: tt[kname] for kname in tt
                          if kname.startswith(name)}
                    for key, tt in harness_times.items()}

@@ -52,6 +52,11 @@ uninterrupted run's dropout masks (the
 CUDA generator's state is restored exactly) and agrees with it to 1e-5.
 The perf harness's AlexNet and VGG-16 launch K1 and K2 (3 + 2 and 5) in a
 bf16 forward and K3 and K4 besides in an f32 step, and nothing else.
+``RoiPooling`` on the card is bit-equal to the CPU's forward and within
+1e-6 of its largest gradient (the bins' shares summed by ``index_add_`` in
+another order), a tie inside a bin split evenly; the 24 criterions'
+forward and backward agree with the CPU's within 1e-5 of the largest
+value.
 """
 
 import numpy as np
@@ -59,6 +64,7 @@ import pytest
 import torch
 
 import bigdl_tpu_torch.nn as tnn
+import chip_smoke
 from bigdl_tpu_torch.convert import export_params, load_jax_params
 from bigdl_tpu_torch.dataset import DataSet, Sample, SampleToBatch
 from bigdl_tpu_torch.models import TransformerLM
@@ -1426,3 +1432,89 @@ def test_parked_bf16_session_resumes_on_the_card(cuda_device):
     for a, b in zip(outs[True], outs[False]):
         np.testing.assert_array_equal(a, b)
         assert a.min() >= 1 and a.max() <= 300
+
+
+# -- criterions and RoiPooling on the card -------------------------------------
+
+def _roi_case(seed, n=2, c=16, h=37, w=50, count=64):
+    """Seeded features and rois in image pixels at scale 1/16: corners on
+    multiples of 8 (.5 after scaling), boxes past the map, one-cell boxes,
+    and boxes of every extent up to the map's height."""
+    rs = np.random.RandomState(seed)
+    feat = rs.standard_normal((n, c, h, w)).astype(np.float32)
+    feat[:, :, 5:9, 5:9] = 1.0                     # ties inside bins
+    x1 = rs.randint(-32, 16 * w, count)
+    y1 = rs.randint(-32, 16 * h, count)
+    x1[::4], y1[::4] = 8 * (x1[::4] // 8), 8 * (y1[::4] // 8)
+    rois = np.stack([rs.randint(1, n + 1, count), x1, y1,
+                     x1 + rs.randint(0, 640, count),
+                     y1 + rs.randint(0, 480, count)], 1).astype(np.float32)
+    # every extent from 1 to 38 cells: at some, a quotient by 7 rounded
+    # one step off moves a bin's edge
+    k = np.arange(38, dtype=np.float32)
+    sweep = np.stack([np.ones_like(k), np.zeros_like(k), 16 * k[::-1],
+                      16 * k, 16 * k[::-1] + 16 * k], 1)
+    return torch.from_numpy(feat), torch.from_numpy(
+        np.concatenate([rois, sweep]).astype(np.float32))
+
+
+def test_roipooling_on_the_card_matches_the_cpu(cuda_device):
+    """Output bit-equal (a max of the same values); the input gradient
+    within 1e-6 of its largest value (each cell sums the shares of every
+    bin of the overlapping rois that holds it, by ``index_add_`` in
+    another order; 2e-7 measured)."""
+    feat, rois = _roi_case(3)
+    g = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (len(rois), 16, 7, 7)).astype(np.float32))
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        x = feat.to(dev).requires_grad_(True)
+        y = tnn.RoiPooling(7, 7, 1.0 / 16)([x, rois.to(dev)])
+        y.backward(g.to(dev))
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    (ya, ga), (yb, gb) = outs
+    assert torch.equal(ya, yb)
+    err = ((ga - gb).abs().max() / gb.abs().max()).item()
+    assert err <= 1e-6, err
+
+
+def test_roipooling_splits_a_tie_on_the_card(cuda_device):
+    feat = torch.zeros(1, 1, 4, 6)
+    feat[0, 0, :2, :3] = torch.tensor([[5.0, 5.0, 1.0], [5.0, 0.0, 0.0]])
+    x = feat.to(cuda_device).requires_grad_(True)
+    rois = torch.tensor([[1.0, 0, 0, 5, 3]], device=cuda_device)
+    tnn.RoiPooling(2, 2, 1.0)([x, rois]).sum().backward()
+    third = torch.full((), 1.0 / 3)
+    want = torch.tensor([[third, third, 0], [third, 0, 0]])
+    torch.testing.assert_close(x.grad[0, 0, :2, :3].cpu(), want)
+
+
+# phase 3r-c's cases (``chip_smoke.sweep_criterions``) at 16 x 50
+_SWEEP = chip_smoke.sweep_criterions(16, 50)
+
+
+@pytest.mark.parametrize("case", _SWEEP, ids=[c[0] for c in _SWEEP])
+def test_criterion_on_the_card_matches_the_cpu(cuda_device, case):
+    """Forward and backward within 1e-5 of the largest value (f32 sums in
+    another order)."""
+    _, crit, x, t = case
+
+    def on(dev, tree):
+        if tree is None:
+            return None
+        if isinstance(tree, list):
+            return [on(dev, v) for v in tree]
+        return torch.from_numpy(np.asarray(tree)).to(dev)
+
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        c = crit.clone_criterion()
+        loss = c.forward(on(dev, x), on(dev, t))
+        grad = c.backward(on(dev, x), on(dev, t))
+        res.append((loss.cpu(), [g.cpu() for g in
+                                 (grad if isinstance(grad, list)
+                                  else [grad])]))
+    (la, ga), (lb, gb) = res
+    assert abs(la.item() - lb.item()) <= 1e-5 * abs(lb.item())
+    for a, b in zip(ga, gb):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
