@@ -8,9 +8,11 @@ builds a frequency-ranked dictionary and writes ``dictionary.txt``,
 indices with an out-of-vocabulary fallback; ``read_sentence`` and
 ``load_in_data`` (next-token pairs split 80/20 by the host RNG).  Written
 files and token ids equal the reference's.  ``LabeledSentenceToTokens``
-encodes a sentence as fixed-length 1-based token ids.  The one-hot
-``LabeledSentenceToSample`` and the GloVe helpers come with the recurrent
-models (``models/rnn.py``).
+encodes a sentence as fixed-length 1-based token ids for the transformer
+LM, ``LabeledSentenceToSample`` as a one-hot (T, vocab) matrix for the
+recurrent LM (``models/rnn.py``).  ``to_tokens``, ``shaping`` and
+``vectorization`` are the GloVe text classifier's tokenizer helpers
+(``example/textclassification.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,41 @@ class LabeledSentence:
 
     def __repr__(self):
         return f"LabeledSentence({self.data_length()} tokens)"
+
+
+class LabeledSentenceToSample(Transformer):
+    """LabeledSentence -> Sample with a one-hot ``(data_length,
+    vocab_length)`` feature (``dataset/text/LabeledSentenceToSample.scala``).
+    Rows past the sentence, up to ``fix_data_length``, are one-hot at its
+    end token (the last label; 0 for a one-label sentence); labels shift
+    to 1-based, and label padding up to ``fix_label_length`` repeats the
+    start token (the first datum) plus one."""
+
+    def __init__(self, vocab_length: int,
+                 fix_data_length: Optional[int] = None,
+                 fix_label_length: Optional[int] = None):
+        self.vocab_length = vocab_length
+        self.fix_data_length = fix_data_length
+        self.fix_label_length = fix_label_length
+
+    def apply(self, prev):
+        for sentence in prev:
+            data = sentence.data.astype(np.int64)
+            label = sentence.label.astype(np.int64)
+            data_length = self.fix_data_length or sentence.data_length()
+            label_length = self.fix_label_length or sentence.label_length()
+            end_token = 0 if sentence.label_length() == 1 else int(label[-1])
+            rows = np.concatenate(
+                [data, np.full((data_length - data.shape[0],), end_token,
+                               np.int64)])
+            feature = np.zeros((data_length, self.vocab_length), np.float32)
+            feature[np.arange(data_length), rows] = 1.0
+            start_token = float(sentence.data[0])
+            lab = np.concatenate(
+                [label.astype(np.float32) + 1.0,
+                 np.full((label_length - label.shape[0],), start_token + 1.0,
+                         np.float32)])
+            yield Sample(feature, lab)
 
 
 class LabeledSentenceToTokens(Transformer):
@@ -206,3 +243,34 @@ def load_in_data(folder: str, dictionary_size: int, split: float = 0.8,
     train_max = max((s.data_length() for s in train), default=0)
     val_max = max((s.data_length() for s in val), default=0)
     return train, val, train_max, val_max
+
+
+# -- the GloVe text classifier's tokenizer helpers ----------------------------
+
+def to_tokens(text: str, word2meta: Optional[Dict[str, int]] = None
+              ) -> List:
+    """Lower-cased words split on non-word characters; with
+    ``word2meta``, only the known words, as their indices."""
+    words = [w for w in _SPLIT.split(text.lower()) if w]
+    if word2meta is None:
+        return words
+    return [word2meta[w] for w in words if w in word2meta]
+
+
+def shaping(tokens: List, sequence_len: int, pad=0) -> List:
+    """``tokens`` cut or right-padded with ``pad`` to ``sequence_len``."""
+    out = list(tokens[:sequence_len])
+    out.extend([pad] * (sequence_len - len(out)))
+    return out
+
+
+def vectorization(tokens: Sequence, embedding_dim: int,
+                  word2vec: Dict) -> np.ndarray:
+    """A (len, embedding_dim) float32 matrix of the tokens' vectors, zero
+    for a token without one."""
+    out = np.zeros((len(tokens), embedding_dim), np.float32)
+    for i, t in enumerate(tokens):
+        vec = word2vec.get(t)
+        if vec is not None:
+            out[i] = vec
+    return out

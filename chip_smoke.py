@@ -27,8 +27,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
    no multiple of 16, an input off 16 bytes, planes over the shared-memory
    budget in bands and rows over it in column tiles at every
    instantiation, ResNet's stem, ceil-mode windows wholly past the plane),
-   and at the Fast R-CNN trunk's four pools (``RCNN_POOLS``, bands of
-   600x800 planes and pool4's odd 75 rows),
+   at the Fast R-CNN trunk's four pools (``RCNN_POOLS``, bands of
+   600x800 planes and pool4's odd 75 rows) and at the text classifier's
+   three (``TEXT_POOLS``: one-row planes at batch 128, 1x5/5 over 996 and
+   195 columns, 1x35/35 on the generic instantiation),
    logging the instantiation and plan of each case, and failing unless
    every instantiation (3x3/2, 3x3/1, 2x2/2, generic) ran on whole planes,
    on bands and on column tiles;
@@ -312,6 +314,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
    (128, 1000) and each table, shape and distance layer's forward and
    input gradient at a shape users meet, card vs CPU within 1e-5 of the
    largest value;
+3s. the recurrent layers, ``LookupTable``, the other convolutions and the
+   spatial normalizations: (a) ``example/textclassification.py`` ``main``
+   at its defaults but ``-e 2`` (seqLen 1000, embed 100, batch 128,
+   Adagrad 0.01 with decay 0.0002, Top-1 each epoch) on a folder staged
+   under ``build/`` and removed after (20 classes of 64 seeded documents
+   of Zipf-drawn words, half of them the class's own 10 words, and seeded
+   100-d vectors in ``glove.6B/glove.6B.100d.txt``): finite losses, the
+   second epoch's mean below the first's, the last Top-1 above twice
+   chance, exactly 3 K1 + 3 K3 a step and 3 K1 a validation forward, the
+   first loss within 1e-5 relative of a CPU forward of the same weights
+   on the same batch, step ms, records/s, busy share and peak memory;
+   (b) ``models/rnn.py`` ``train_main`` at its defaults but ``-e 2
+   --checkpoint`` on 1200 written lines (the split seeded): finite losses,
+   no kernel launched, the first loss within 1e-5 relative of the CPU's,
+   then ``test_main --words 8`` on the last snapshot, and a profile of 3
+   steps; (c) each new layer at users' shapes (``SpatialFullConvolution(
+   512, 256, 4, 4, 2, 2, 1, 1)`` on 64 x 512 x 8 x 8, a dilated 3x3 at
+   dilation 2 on 16 x 512 x 28 x 28, ``SpatialConvolutionMap(full(16,
+   32), 5, 5)`` and the three spatial normalizations (gaussian 7) on 128 x
+   16 x 32 x 32, ``LookupTable(20000, 100, max_norm)`` on 128 x 1000 ids,
+   ``Recurrent`` with each cell on 32 x 50 x 128, ...): forward within
+   1e-5 and input and parameter gradients within 1e-4 of the largest
+   value, card vs CPU; the text classifier, ``SimpleRNN(4001)`` and
+   ``TextClassifierRNN(20000)`` under ``quantize_model("w8")``, card vs
+   CPU on the same packed copy within 1e-4, with their launches (4 K13 +
+   3 K1; 1 K13; none);
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -378,7 +406,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
    autograd's backward of it), by events and device time; K1 (f32 with
    its index) and K3 at the Fast R-CNN trunk's four pools (batch 2 on
    600x800 input) the same way, with each launch's plan; the head's forward and step, RoiPooling's device
-   time, the 20 ``Nms`` calls and the autoencoder's step.
+   time, the 20 ``Nms`` calls and the autoencoder's step; K1 (f32 with its
+   index) and K3 at the text classifier's three pools (batch 128) the same
+   way.
 
 The line before the last is a JSON object with a ``kernels`` list; the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
@@ -1023,7 +1053,7 @@ def _offset_copy(t):
 def pool_cases():
     """Phase 2's and 2b's pool cases: (name, shape, geometry, offset)."""
     for case in (POOLS + RESNET_POOLS + V2_POOLS + ALEXNET_POOLS + VGG_POOLS
-                 + RCNN_POOLS + RAGGED_POOLS + POOL_EDGES):
+                 + RCNN_POOLS + TEXT_POOLS + RAGGED_POOLS + POOL_EDGES):
         name, shape = case[:2]
         yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
 
@@ -5196,23 +5226,25 @@ def _flat(tree):
     return list(tree_leaves(tree))
 
 
-def _held(what, got, want):
-    """max |got - want| over the leaves, of want's largest magnitude; fails
-    over SWEEP_RTOL."""
+def held_within(what, got, want, rtol):
+    """max |got - want| over the leaves (card against CPU), of want's
+    largest magnitude; fails over ``rtol`` or on a non-finite or misshapen
+    result."""
+    import torch
     got, want = _flat(got), _flat(want)
     if len(got) != len(want):
-        fail(f"sweep {what}: {len(got)} results, want {len(want)}")
+        fail(f"{what}: {len(got)} results, want {len(want)}")
     worst = 0.0
     for a, b in zip(got, want):
         a, b = a.detach().cpu().double(), b.detach().double()
-        if a.shape != b.shape:
-            fail(f"sweep {what}: shape {tuple(a.shape)}, want "
-                 f"{tuple(b.shape)}")
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            fail(f"{what}: shape {tuple(a.shape)} (want {tuple(b.shape)}) "
+                 "or non-finite values")
         scale = max(b.abs().max().item(), 1e-30)
         worst = max(worst, (a - b).abs().max().item() / scale)
-    if not worst <= SWEEP_RTOL:
-        fail(f"sweep {what}: card vs CPU {worst:.3g} of the largest value "
-             f"(limit {SWEEP_RTOL})")
+    if not worst <= rtol:
+        fail(f"{what}: card vs CPU {worst:.3g} of the largest value (limit "
+             f"{rtol})")
     return worst
 
 
@@ -5240,8 +5272,9 @@ def criterion_layer_sweep(device):
             grad = c.backward(on(dev, x), None if t is None else on(dev, t))
             res.append((loss, grad))
         (la, ga), (lb, gb) = res
-        out[name] = max(_held(f"{name} forward", [la], [lb]),
-                        _held(f"{name} backward", ga, gb))
+        out[name] = max(
+            held_within(f"sweep {name} forward", [la], [lb], SWEEP_RTOL),
+            held_within(f"sweep {name} backward", ga, gb, SWEEP_RTOL))
         log(f"sweep {name} (forward and backward, card vs CPU): "
             f"{out[name]:.3g} of the largest value")
     for name, layer, x in sweep_layers():
@@ -5262,11 +5295,446 @@ def criterion_layer_sweep(device):
             res.append((y, [torch.zeros_like(v) if d is None else d
                             for v, d in zip(leaves, g)]))
         (ya, ga), (yb, gb) = res
-        out[name] = max(_held(f"{name} forward", ya, yb),
-                        _held(f"{name} input gradient", ga, gb))
+        out[name] = max(
+            held_within(f"sweep {name} forward", ya, yb, SWEEP_RTOL),
+            held_within(f"sweep {name} input gradient", ga, gb, SWEEP_RTOL))
         log(f"sweep {name} (forward and input gradient, card vs CPU): "
             f"{out[name]:.3g} of the largest value")
     return out
+
+
+# -- phase 3s: the text classifier, SimpleRNN and this slice's layers --------
+
+# BigDL's TextClassifier (bigdl_tpu/example/textclassification.py) at its
+# defaults but -e TEXT_EPOCHS, on a staged stand-in for 20 Newsgroups and
+# GloVe (neither is in the repo): TEXT_CLASSES folders of TEXT_DOCS seeded
+# documents of TEXT_WORDS words (Zipf-drawn over TEXT_TYPES types, a
+# TEXT_OWN_SHARE of them from the class's own TEXT_OWN words) and seeded
+# 100-d vectors for all but every 20th type.  The recipe's 16 steps learn
+# from this corpus only at a high share of class words (at 0.25 the loss
+# stays at ln 20 after Adagrad's first step; at 0.5 the second epoch's
+# validation Top-1 reached 0.285 on the CPU), so the run must end above
+# TEXT_MIN_TOP1, twice chance
+TEXT_CLASSES, TEXT_DOCS, TEXT_TYPES, TEXT_OWN = 20, 64, 24000, 10
+TEXT_WORDS, TEXT_OWN_SHARE, TEXT_MIN_TOP1 = (150, 1400), 0.5, 0.1
+TEXT_BATCH, TEXT_SEQ, TEXT_EMBED, TEXT_EPOCHS = 128, 1000, 100, 2
+TEXT_LOSS_RTOL = 1e-5          # the first step's loss, card vs CPU
+# its three SpatialMaxPooling layers at batch 128 (K1, K3): one-row planes,
+# 1x5/5 over 996 columns (5 does not divide them) and 195, then 1x35/35
+TEXT_POOLS = [
+    (f"textclassifier/pool{i + 1} 1x{k}_s{k}", (TEXT_BATCH, 128, 1, w), 1, k,
+     1, k, 0, 0, False)
+    for i, (w, k) in enumerate(((996, 5), (195, 5), (35, 35)))]
+# models/rnn.py train_main at its defaults (vocab 4000, hidden 40, bptt 4,
+# batch 8, SGD 0.1) but -e RNN_EPOCHS, on RNN_LINES written lines of
+# RNN_WORDS Zipf-drawn words over RNN_TYPES types (the dictionary fills and
+# discards); test_main grows RNN_TEST sentences by RNN_GROW words
+RNN_LINES, RNN_WORDS, RNN_TYPES, RNN_EPOCHS = 1200, (6, 36), 20000, 2
+RNN_TEST, RNN_GROW = 3, 8
+RNN_LOSS_RTOL = 1e-5           # the first step's loss, card vs CPU
+# phase 3s-c: card vs CPU, of each result's largest magnitude
+SLICE_RTOL = 1e-5              # forward
+SLICE_GRAD_RTOL = 1e-4         # input and parameter gradients (long sums)
+SLICE_QUANT_RTOL = 1e-4        # quantized log-probs (K13's f32 sums)
+
+
+def stage_news(folder):
+    """The staged text classifier folder (``TEXT_*``): ``20_newsgroup/
+    <group>/<n>`` and ``glove.6B/glove.6B.100d.txt``."""
+    rng = np.random.RandomState(SEED + 500)
+    p = 1.0 / np.arange(1, TEXT_TYPES + 1) ** 1.1
+    p /= p.sum()
+    for c in range(TEXT_CLASSES):
+        cdir = os.path.join(folder, "20_newsgroup", f"group.{c:02d}")
+        os.makedirs(cdir)
+        for d in range(TEXT_DOCS):
+            n = rng.randint(*TEXT_WORDS)
+            words = [f"w{i}" for i in rng.choice(TEXT_TYPES, n, p=p)]
+            own = np.flatnonzero(rng.rand(n) < TEXT_OWN_SHARE)
+            for i, k in zip(own, rng.randint(0, TEXT_OWN, len(own))):
+                words[i] = f"c{c}k{k}"
+            lines = [" ".join(words[i:i + 12]) for i in range(0, n, 12)]
+            with open(os.path.join(cdir, str(50000 + 100 * c + d)),
+                      "w") as f:
+                f.write(f"Subject: group {c} note {d}\n\n" +
+                        ".\n".join(lines) + ".\n")
+    types = [f"w{i}" for i in range(TEXT_TYPES)] + \
+        [f"c{c}k{k}" for c in range(TEXT_CLASSES) for k in range(TEXT_OWN)]
+    vecs = rng.standard_normal((len(types), TEXT_EMBED)) * 0.4
+    os.makedirs(os.path.join(folder, "glove.6B"))
+    with open(os.path.join(folder, "glove.6B",
+                           f"glove.6B.{TEXT_EMBED}d.txt"), "w") as f:
+        for i, (w, v) in enumerate(zip(types, vecs)):
+            if i % 20 != 19:
+                f.write(w + " " + " ".join(f"{x:.5f}" for x in v) + "\n")
+
+
+def text_first_loss_cpu(train, classes):
+    """The text classifier's first step's loss on the CPU: ``build_model``'s
+    own seeded weights on the first batch ``main`` trains on (its split's
+    first TEXT_BATCH documents, in order), float32."""
+    import torch
+    from bigdl_tpu_torch.example import textclassification as tc
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    x = np.stack([s.feature for s in train[:TEXT_BATCH]])
+    y = np.stack([s.label for s in train[:TEXT_BATCH]])
+    model = tc.build_model(classes, TEXT_EMBED, TEXT_SEQ)
+    with torch.no_grad():
+        return ClassNLLCriterion()(model(torch.from_numpy(x)),
+                                   torch.from_numpy(y)).item()
+
+
+def text_classifier(device, card):
+    """Phase 3s-a: ``example/textclassification.py`` ``main`` at its
+    defaults but ``-e TEXT_EPOCHS`` on a folder staged under ``build/`` and
+    removed after: finite losses, the second epoch's mean below the
+    first's, 3 K1 + 3 K3 a step and 3 K1 a validation forward and no other
+    kernel, the last Top-1 above TEXT_MIN_TOP1, the first loss within
+    TEXT_LOSS_RTOL of a CPU forward of the same weights on the same batch;
+    step ms, records/s, peak
+    allocated memory and a profile of 3 more steps.  Returns (report,
+    launches by path)."""
+    import shutil
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.example import textclassification as tc
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adagrad, Optimizer, Trigger
+    from bigdl_tpu_torch.utils.table import T
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_news")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    try:
+        t0 = time.perf_counter()
+        stage_news(folder)
+        stage_s = time.perf_counter() - t0
+        torch.cuda.init()
+        torch.cuda.reset_peak_memory_stats(device)
+        with LogArgs("bigdl_tpu_torch.optim", "Epoch ") as steps, \
+                LogArgs("bigdl_tpu_torch.optim", "%s is %r") as vals:
+            ops.reset_launches()             # the path starts here
+            t0 = time.perf_counter()
+            model = tc.main(["--baseDir", folder, "-e", str(TEXT_EPOCHS)],
+                            device=device)
+            wall = time.perf_counter() - t0
+            launches = launches_now()        # and ends here
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        samples, classes = tc.load_samples(folder, TEXT_SEQ, 20000,
+                                           TEXT_EMBED)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    train, val = tc.split_samples(samples, 0.8)
+    cpu_loss = text_first_loss_cpu(train, classes)
+    n, n_val = len(steps), len(vals)
+    expect_launches("text classifier", launches,
+                    {"max_pool2d": 3 * n + 3 * n_val * (
+                        len(val) // TEXT_BATCH),
+                     "max_pool2d_bwd": 3 * n})
+    losses = [a[3] for a in steps]
+    epochs = [[a[3] for a in steps if a[0] == e]
+              for e in range(1, TEXT_EPOCHS + 1)]
+    top1 = [v[1].result()[0] for v in vals]
+    if n_val != TEXT_EPOCHS or not all(math.isfinite(v) for v in losses) \
+            or not np.mean(epochs[-1]) < np.mean(epochs[0]) \
+            or not top1[-1] > TEXT_MIN_TOP1:
+        fail(f"text classifier: losses by epoch {epochs}, Top-1 {top1} "
+             f"(want the last above {TEXT_MIN_TOP1})")
+    rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    if not rel <= TEXT_LOSS_RTOL:
+        fail(f"text classifier: first loss {losses[0]} on the card, "
+             f"{cpu_loss} on the CPU (relative {rel:.3g}, limit "
+             f"{TEXT_LOSS_RTOL})")
+    ms = [1e3 * TEXT_BATCH / a[4] for a in steps]
+    step_ms = statistics.median(ms[1:])
+    opt = Optimizer(model, DataSet.array(train) >> SampleToBatch(
+        TEXT_BATCH, drop_last=True), ClassNLLCriterion(),
+        Trigger.max_iteration(3), device=device)
+    opt.set_optim_method(Adagrad())
+    opt.set_config(T(learningRate=0.01, learningRateDecay=0.0002))
+    prof = device_profile(opt.optimize, 3)
+    report = {"steps": n, "losses": losses,
+              "epoch_mean_loss": [float(np.mean(e)) for e in epochs],
+              "cpu_first_loss": cpu_loss, "first_loss_rel": rel,
+              "top1": top1, "step_ms": ms, "step_ms_median": step_ms,
+              "records_per_s": TEXT_BATCH / step_ms * 1e3, "wall_s": wall,
+              "stage_s": stage_s, "peak_allocated_gib": peak,
+              "busy_share": prof["device_ms"] / step_ms, "profile": prof,
+              "launches": {k: v for k, v in launches.items() if v}}
+    log(f"[{card}] text classifier (main at its defaults, -e "
+        f"{TEXT_EPOCHS}: {TEXT_CLASSES} x {TEXT_DOCS} staged documents, "
+        f"seqLen {TEXT_SEQ}, embed {TEXT_EMBED}, batch {TEXT_BATCH}, f32): "
+        f"{n} steps, epoch mean loss {report['epoch_mean_loss']}, Top-1 "
+        f"{top1}; first loss {losses[0]:.7f} vs CPU {cpu_loss:.7f} "
+        f"(relative {rel:.3g}, limit {TEXT_LOSS_RTOL}); step {step_ms:.3f} "
+        f"ms (median after the first), {report['records_per_s']:.1f} "
+        f"records/s; device {prof['device_ms']:.3f} ms a step, busy share "
+        f"{report['busy_share']:.3f}; peak allocated {peak:.2f} GiB; "
+        f"launches {report['launches']}; staging {stage_s:.1f} s, main "
+        f"{wall:.1f} s; top (ms): " + json.dumps(prof["top"][:6]))
+    return report, {"text_classifier": launches}
+
+
+def write_rnn_corpus(folder):
+    """RNN_LINES lines of RNN_WORDS Zipf-drawn words (exponent 1.1) over
+    RNN_TYPES types, and a ``test.txt`` of the first 5 words of RNN_TEST
+    of them."""
+    rng = np.random.RandomState(SEED + 510)
+    p = 1.0 / np.arange(1, RNN_TYPES + 1) ** 1.1
+    p /= p.sum()
+    lines = [" ".join(f"w{i}" for i in rng.choice(
+        RNN_TYPES, rng.randint(*RNN_WORDS), p=p)) for _ in range(RNN_LINES)]
+    with open(os.path.join(folder, "input.txt"), "w") as f:
+        f.write(".\n".join(lines) + ".\n")
+    with open(os.path.join(folder, "test.txt"), "w") as f:
+        f.write("\n".join(" ".join(line.split()[:5])
+                          for line in lines[:RNN_TEST]) + "\n")
+
+
+def simple_rnn(device, card):
+    """Phase 3s-b: ``models/rnn.py`` ``train_main`` at its defaults but ``-e
+    RNN_EPOCHS --checkpoint`` on a corpus written under ``build/`` (removed
+    after), the split seeded: finite losses and validation losses, no
+    kernel launched, the first loss within RNN_LOSS_RTOL of a CPU forward
+    of the same weights on the same batch; then ``test_main`` on the last
+    snapshot grows each test sentence by RNN_GROW words; a profile of 3
+    steps at the same widths.  Returns (report, launches by path)."""
+    import shutil
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import (DataSet, LabeledSentenceToSample,
+                                         SampleToBatch, load_in_data)
+    from bigdl_tpu_torch.models import rnn
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.utils.random_generator import RNG
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_rnn")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    ck = os.path.join(folder, "ck")
+    crit = TimeDistributedCriterion(ClassNLLCriterion(), size_average=True)
+    try:
+        write_rnn_corpus(folder)
+        RNG().set_seed(SEED + 511)
+        with LogArgs("bigdl_tpu_torch.optim", "Epoch ") as steps, \
+                LogArgs("bigdl_tpu_torch.optim", "%s is %r") as vals:
+            ops.reset_launches()             # the path starts here
+            t0 = time.perf_counter()
+            rnn.train_main(["-f", folder, "-e", str(RNN_EPOCHS),
+                            "--checkpoint", ck], device=device)
+            wall = time.perf_counter() - t0
+            launches = launches_now()        # and ends here
+        snap = max((f for f in os.listdir(ck) if f.startswith("model.")),
+                   key=lambda f: int(f.split(".")[1]))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        grown = rnn.test_main(["-f", folder, "--model",
+                               os.path.join(ck, snap), "--words",
+                               str(RNN_GROW)], device=device)
+        test_s = time.perf_counter() - t0
+        test_launches = launches_now()
+        # the split and first batch train_main took, again, on the CPU
+        RNG().set_seed(SEED + 511)
+        train, _, train_max, _ = load_in_data(folder, 4001)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    to_batch = LabeledSentenceToSample(4001, train_max, train_max) >> \
+        SampleToBatch(8, drop_last=True)
+    batch = next(iter(to_batch(train[:8])))
+    with torch.no_grad():
+        cpu_loss = crit(rnn.SimpleRNN(4001, 40, 4001, 4)(
+            torch.from_numpy(batch.data)),
+            torch.from_numpy(batch.labels)).item()
+    expect_launches("SimpleRNN train_main", launches, {})
+    expect_launches("SimpleRNN test_main", test_launches, {})
+    losses = [a[3] for a in steps]
+    val = [v[1].result()[0] for v in vals]
+    if len(vals) != RNN_EPOCHS or not all(
+            math.isfinite(x) for x in losses + val):
+        fail(f"SimpleRNN: losses {losses}, validation {val}")
+    rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    if not rel <= RNN_LOSS_RTOL:
+        fail(f"SimpleRNN: first loss {losses[0]} on the card, {cpu_loss} on "
+             f"the CPU (relative {rel:.3g}, limit {RNN_LOSS_RTOL})")
+    test_words = [len(s.split()) for s in grown]
+    if len(grown) != RNN_TEST or test_words != [5 + RNN_GROW] * RNN_TEST:
+        fail(f"SimpleRNN test_main: {grown}")
+    ms = [1e3 * 8 / a[4] for a in steps]
+    step_ms = statistics.median(ms[1:])
+    opt = Optimizer(rnn.SimpleRNN(4001, 40, 4001, 4),
+                    DataSet.array(train) >> to_batch, crit,
+                    Trigger.max_iteration(3), device=device)
+    opt.set_optim_method(SGD(learning_rate=0.1))
+    prof = device_profile(opt.optimize, 3)
+    report = {"steps": len(steps), "losses": losses,
+              "validation_loss": val, "cpu_first_loss": cpu_loss,
+              "first_loss_rel": rel, "train_max": train_max,
+              "step_ms_median": step_ms, "records_per_s": 8 / step_ms * 1e3,
+              "busy_share": prof["device_ms"] / step_ms, "profile": prof,
+              "wall_s": wall, "test_main_s": test_s, "grown": grown}
+    log(f"[{card}] SimpleRNN train_main (defaults, -e {RNN_EPOCHS}, "
+        f"{RNN_LINES} lines, T {train_max}): {len(steps)} steps, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}, validation {val}; first loss "
+        f"vs CPU relative {rel:.3g} (limit {RNN_LOSS_RTOL}); step "
+        f"{step_ms:.3f} ms (median after the first), "
+        f"{report['records_per_s']:.1f} records/s; device "
+        f"{prof['device_ms']:.3f} ms a step, busy share "
+        f"{report['busy_share']:.3f}; main {wall:.1f} s; test_main "
+        f"({RNN_GROW} words x {RNN_TEST}) {test_s:.2f} s; top (ms): "
+        + json.dumps(prof["top"][:6]))
+    return report, {"simple_rnn": launches, "simple_rnn_test": test_launches}
+
+
+def slice_layers(small=False):
+    """(name, layer, input) of this slice's layers at shapes users meet
+    them (``small``: a cut of each for the card tests), f32, seeded."""
+    import bigdl_tpu_torch.nn as nn
+    from bigdl_tpu_torch.nn.normalization import _gaussian_kernel_2d
+    rng = np.random.RandomState(SEED + 520)
+    s = 4 if small else 1
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def ids(n, *shape):
+        return rng.randint(1, n + 1, shape).astype(np.float32)
+
+    b, t, d = 32 // s, 50 // s, 128 // s
+    gauss = _gaussian_kernel_2d(7)
+    planes = (128 // s, 16, 32 // s, 32 // s)
+    layers = [
+        ("SpatialShareConvolution", nn.SpatialShareConvolution(
+            64 // s, 64 // s, 3, 3, 1, 1, 1, 1),
+         normal(32 // s, 64 // s, 56 // s, 56 // s)),
+        ("SpatialDilatedConvolution", nn.SpatialDilatedConvolution(
+            512 // s, 512 // s, 3, 3, 1, 1, 2, 2, 2, 2),
+         normal(16 // s, 512 // s, 28 // s, 28 // s)),
+        ("SpatialFullConvolution", nn.SpatialFullConvolution(
+            512 // s, 256 // s, 4, 4, 2, 2, 1, 1),
+         normal(64 // s, 512 // s, 8, 8)),
+        ("SpatialConvolutionMap", nn.SpatialConvolutionMap(
+            nn.SpatialConvolutionMap.full(16, 32), 5, 5), normal(*planes)),
+        ("LookupTable", nn.LookupTable(20000 // s, 100, max_norm=12.0),
+         ids(20000 // s, 128 // s, 1000 // s)),
+        ("Normalize", nn.Normalize(2.0), normal(128 // s, 4096 // s)),
+        ("SpatialSubtractiveNormalization",
+         nn.SpatialSubtractiveNormalization(16, gauss), normal(*planes)),
+        ("SpatialDivisiveNormalization",
+         nn.SpatialDivisiveNormalization(16, gauss), normal(*planes)),
+        ("SpatialContrastiveNormalization",
+         nn.SpatialContrastiveNormalization(16, gauss), normal(*planes)),
+        ("Cell (LSTMCell, one step)", nn.LSTMCell(d, d),
+         [normal(b, d), [normal(b, d), normal(b, d)]]),
+        ("Recurrent(RnnCell), bptt 4", nn.Recurrent(d, 4).add(
+            nn.RnnCell(d, d)), normal(b, t, d)),
+        ("Recurrent(LSTMCell)", nn.Recurrent(d).add(nn.LSTMCell(d, d)),
+         normal(b, t, d)),
+        ("Recurrent(GRUCell)", nn.Recurrent(d).add(nn.GRUCell(d, d)),
+         normal(b, t, d)),
+        ("TimeDistributed(Linear)", nn.TimeDistributed(
+            nn.Linear(40, 4001 // s)), normal(8, t, 40)),
+    ]
+    for i, (_, m, _) in enumerate(layers):
+        m.reset(SEED + 521 + i)
+    return layers
+
+
+def slice_models(small=False):
+    """(name, packed model, input, launches a forward on the card) of the
+    slice's three models under ``quantize_model(..., "w8")``: the text
+    classifier (its 3 convs on the fused int8 conv and Linear(128, 100): 4
+    K13, and 3 K1), ``SimpleRNN(4001)`` (its output Linear: 1 K13) and
+    ``TextClassifierRNN(20000)`` (the packed table gathered; Linear(128,
+    20) under the packing size: no launch)."""
+    from bigdl_tpu_torch.example import textclassification as tc
+    from bigdl_tpu_torch.models import rnn
+    from bigdl_tpu_torch.ops import quant
+    rng = np.random.RandomState(SEED + 540)
+    s = 4 if small else 1
+    seq = 200 if small else TEXT_SEQ
+    onehot = np.zeros((8, 40 // s, 4001), np.float32)
+    for i, row in enumerate(rng.randint(0, 4001, onehot.shape[:2])):
+        onehot[i, np.arange(len(row)), row] = 1.0
+    models = [
+        ("text classifier", tc.build_model(20, TEXT_EMBED, seq),
+         (rng.standard_normal((32 // s, TEXT_EMBED, seq)) * 0.4)
+         .astype(np.float32), {"max_pool2d": 3, "w8_matmul": 4}),
+        ("SimpleRNN(4001)", rnn.SimpleRNN(4001, 40, 4001, 4), onehot,
+         {"w8_matmul": 1}),
+        ("TextClassifierRNN(20000)", rnn.TextClassifierRNN(20000),
+         rng.randint(1, 20001, (32 // s, 200 // s)).astype(np.float32), {}),
+    ]
+    return [(name, quant.quantize_model(m.reset(SEED + 541 + i), "w8"), x,
+             want) for i, (name, m, x, want) in enumerate(models)]
+
+
+def slice_grads(model, xs, dev, seed):
+    """``model`` on the numpy tree ``xs`` on ``dev``: its output, and the
+    gradients of the sum of the output times a seeded tensor with respect
+    to every floating input (not a table's indices) and every parameter."""
+    import torch
+    from bigdl_tpu_torch.core.module import tree_map
+    from bigdl_tpu_torch.nn import LookupTable
+    x = tree_map(lambda v: torch.from_numpy(np.asarray(v)).to(dev), xs)
+    leaves = [] if isinstance(model, LookupTable) else \
+        [v.requires_grad_(True) for v in _flat(x)]
+    params = list(model.parameters())
+    y = model(x)
+    r = [torch.from_numpy(np.random.RandomState(seed + i).standard_normal(
+        tuple(v.shape)).astype(np.float32)).to(dev)
+        for i, v in enumerate(_flat(y))]
+    g = torch.autograd.grad(sum((v * w).sum() for v, w in zip(_flat(y), r)),
+                            leaves + params, allow_unused=True)
+    return y, [torch.zeros_like(v) if d is None else d
+               for v, d in zip(leaves + params, g)]
+
+
+def slice_layer_sweep(device, card):
+    """Phase 3s-c: each of this slice's layers (:func:`slice_layers`) at
+    users' shapes, its forward and the gradients of the sum of its output
+    times a seeded tensor with respect to its input and its parameters,
+    card vs CPU on the same weights (SLICE_RTOL, SLICE_GRAD_RTOL of each
+    result's largest magnitude); then the three models of
+    :func:`slice_models` under ``quantize_model("w8")``, card vs CPU on the
+    same packed copy (SLICE_QUANT_RTOL), each forward's launches counted.
+    Returns ({name: worst errors}, launches by path)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    cpu = torch.device("cpu")
+    out = {}
+    for i, (name, layer, x) in enumerate(slice_layers()):
+        ya, ga = slice_grads(copy.deepcopy(layer).to(device), x, device,
+                             SEED + 530 + i)
+        yb, gb = slice_grads(layer, x, cpu, SEED + 530 + i)
+        out[name] = {"forward": held_within(f"3s-c {name} forward", ya, yb,
+                                            SLICE_RTOL),
+                     "gradients": held_within(f"3s-c {name} gradients", ga,
+                                              gb, SLICE_GRAD_RTOL)}
+        log(f"3s-c {name} (card vs CPU): forward {out[name]['forward']:.3g}"
+            f", gradients {out[name]['gradients']:.3g} of the largest value "
+            f"(limits {SLICE_RTOL}, {SLICE_GRAD_RTOL})")
+    by_path = {}
+    for name, qm, x, want in slice_models():
+        qc = copy.deepcopy(qm).to(device)
+        with torch.inference_mode():
+            ops.reset_launches()             # the path starts here
+            ya = qc(torch.from_numpy(x).to(device))
+            torch.cuda.synchronize()
+            launches = launches_now()        # and ends here
+            yb = qm(torch.from_numpy(x))
+        by_path[f"w8 {name}"] = launches
+        expect_launches(f"3s-c w8 {name}", launches, want)
+        out[f"w8 {name}"] = {"forward": held_within(
+            f"3s-c w8 {name}", ya, yb, SLICE_QUANT_RTOL)}
+        log(f"3s-c w8 {name} (card vs CPU, the same packed copy): forward "
+            f"{out[f'w8 {name}']['forward']:.3g} of the largest value (limit "
+            f"{SLICE_QUANT_RTOL}); launches a forward "
+            + json.dumps({k: v for k, v in launches.items() if v}))
+    log(f"[{card}] 3s-c: {len(out)} layers and packed models held card vs "
+        "CPU")
+    return out, by_path
 
 
 # -- phase 4: timings ---------------------------------------------------------
@@ -5472,6 +5940,30 @@ def time_rcnn_pools(device, card):
         log_pool_times(card, f"{name} (f32, the Fast R-CNN trunk, batch "
                        f"{RCNN_IMAGES} on {RCNN_H}x{RCNN_W})", t)
     for layer, shape, *geom in RCNN_POOLS:
+        for kernel, backward in (("K1", False), ("K3", True)):
+            variant, plan, mode = pool_take(shape, tuple(geom), f32,
+                                            backward)
+            log(f"{kernel} plan at {layer} {shape}: {variant}, {mode}, "
+                f"{fmt_plan(plan)}")
+    return out
+
+
+def time_text_pools(device, card):
+    """K1 (f32 with its index, as training calls it) and K3 at the text
+    classifier's three pools (TEXT_POOLS: batch 128, one-row planes) per
+    layer and summed, by CUDA events and device time (L2 flushed), beside
+    their bounds, plain versions and ATen's calls; logs each launch's
+    instantiation and plan."""
+    import torch
+    f32 = torch.float32
+    out = {"max_pool2d_fwd": pool_sums(time_pool_layers(
+               device, f32, False, layers=TEXT_POOLS, with_idx=True)),
+           "max_pool2d_bwd": pool_sums(time_pool_layers(
+               device, f32, True, layers=TEXT_POOLS))}
+    for name, t in out.items():
+        log_pool_times(card, f"{name} (f32, the text classifier, batch "
+                       f"{TEXT_BATCH})", t)
+    for layer, shape, *geom in TEXT_POOLS:
         for kernel, backward in (("K1", False), ("K3", True)):
             variant, plan, mode = pool_take(shape, tuple(geom), f32,
                                             backward)
@@ -6683,7 +7175,19 @@ def main() -> int:
     log(f"sweep: {len(sweep_errs)} criterions and layers held, worst "
         f"{max(sweep_errs.values()):.3g} of the largest value (limit "
         f"{SWEEP_RTOL})")
+    # phase 3s: the text classifier, SimpleRNN's mains, and this slice's
+    # layers and packed models card vs CPU
+    text_report, more = text_classifier(device, card)
+    cnn_launches.update(more)
+    rnn_report, more = simple_rnn(device, card)
+    cnn_launches.update(more)
+    slice_errs, more = slice_layer_sweep(device, card)
+    cnn_launches.update(more)
+    log("text classifier: " + json.dumps(text_report))
+    log("SimpleRNN: " + json.dumps(rnn_report))
+    log("slice layers and packed models: " + json.dumps(slice_errs))
     # phase 4
+    text_times = time_text_pools(device, card)
     rcnn_times = time_rcnn_pools(device, card)
     harness_times = time_harness_kernels(device)
     for key, tt in harness_times.items():
@@ -7011,6 +7515,8 @@ def main() -> int:
                     entry[key] = {"train_bf16": cnn_train[name]}
         if name in rcnn_times:   # K1 and K3 at the Fast R-CNN trunk's pools
             entry["fast_rcnn_f32"] = rcnn_times[name]
+        if name in text_times:   # and at the text classifier's
+            entry["text_classifier_f32"] = text_times[name]
         harness = {key: {kname: tt[kname] for kname in tt
                          if kname.startswith(name)}
                    for key, tt in harness_times.items()}

@@ -56,7 +56,12 @@ bf16 forward and K3 and K4 besides in an f32 step, and nothing else.
 1e-6 of its largest gradient (the bins' shares summed by ``index_add_`` in
 another order), a tie inside a bin split evenly; the 24 criterions'
 forward and backward agree with the CPU's within 1e-5 of the largest
-value.
+value.  K1 and K3 are bit-equal to their plain versions at the text
+classifier's three pools in both dtypes.  The recurrent layers,
+``LookupTable``, the other convolutions and the spatial normalizations
+agree with the CPU within 1e-5 of the largest value forward and 1e-4 of
+it in their input and parameter gradients, and the slice's three models
+under ``quantize_model("w8")`` within 1e-4 of their largest log-prob.
 """
 
 import numpy as np
@@ -1518,3 +1523,86 @@ def test_criterion_on_the_card_matches_the_cpu(cuda_device, case):
     assert abs(la.item() - lb.item()) <= 1e-5 * abs(lb.item())
     for a, b in zip(ga, gb):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+# K1 and K3 at the text classifier's three pools (``chip_smoke.TEXT_POOLS``:
+# one-row planes at batch 128, 1x5/5 over 996 and 195 columns, 1x35/35)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.TEXT_POOLS,
+                         ids=[c[0].split("/")[1] for c in chip_smoke.TEXT_POOLS])
+def test_max_pool_kernels_at_the_text_classifier_pools(cuda_device, case,
+                                                       dtype):
+    _, shape, *geom = case
+    geom = tuple(geom)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    dt = getattr(torch, dtype)
+    for ties in (False, True):
+        x = (torch.randint(-3, 4, shape, generator=g, device=cuda_device)
+             if ties else torch.randn(shape, generator=g,
+                                      device=cuda_device)).to(dt)
+        y, idx = max_pool2d(x, *geom, return_indices=True)
+        torch.cuda.synchronize()
+        py, pidx = max_pool2d_plain(x, *geom)
+        assert torch.equal(y, py) and torch.equal(idx, pidx)
+        dy = torch.randn(tuple(idx.shape), generator=g,
+                         device=cuda_device).to(dt)
+        dx = max_pool2d_bwd(dy, idx, geom, shape[2], shape[3])
+        torch.cuda.synchronize()
+        want = max_pool2d_bwd_plain(dy, idx, geom, shape[2], shape[3])
+        assert torch.equal(dx, want)
+        # 996 = 5 * 199 + 1: the last column is in no window
+        if shape[3] == 996:
+            assert (dx[..., 995] == 0).all()
+
+
+# phase 3s-c's layers and packed models (``chip_smoke.slice_layers`` and
+# ``slice_models``) at a cut of their users' shapes
+_SLICE = chip_smoke.slice_layers(small=True)
+
+
+@pytest.fixture
+def full_f32():
+    """TF32 off for cuDNN and cuBLAS, as ``chip_smoke.py`` runs (cuDNN's
+    default rounds a convolution's inputs to TF32), restored after."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@pytest.mark.parametrize("case", _SLICE, ids=[c[0] for c in _SLICE])
+def test_slice_layer_on_the_card_matches_the_cpu(cuda_device, full_f32,
+                                                 case):
+    """Forward within 1e-5 and the input and parameter gradients within
+    1e-4 of the largest value (f32 sums in another order), TF32 off."""
+    name, layer, x = case
+    ya, ga = chip_smoke.slice_grads(layer.to(cuda_device), x, cuda_device, 3)
+    yb, gb = chip_smoke.slice_grads(layer.cpu(), x, torch.device("cpu"), 3)
+    chip_smoke.held_within(name, ya, yb, chip_smoke.SLICE_RTOL)
+    chip_smoke.held_within(name, ga, gb, chip_smoke.SLICE_GRAD_RTOL)
+
+
+_SLICE_MODELS = chip_smoke.slice_models(small=True)
+
+
+@pytest.mark.parametrize("case", _SLICE_MODELS,
+                         ids=[c[0] for c in _SLICE_MODELS])
+def test_packed_slice_model_on_the_card_matches_the_cpu(cuda_device,
+                                                        full_f32, case):
+    """A ``quantize_model("w8")`` copy's log-probs within 1e-4 of their
+    largest magnitude, and its kernels launched as many times as the
+    forward's packed products and pools."""
+    from bigdl_tpu_torch import ops
+    name, qm, x, want = case
+    with torch.inference_mode():
+        yb = qm(torch.from_numpy(x))
+        ops.reset_launches()
+        ya = qm.to(cuda_device)(torch.from_numpy(x).to(cuda_device))
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in ops.KERNEL_WRAPPERS
+               if fn.launches}
+    assert got == want
+    chip_smoke.held_within(name, ya, yb, chip_smoke.SLICE_QUANT_RTOL)

@@ -43,9 +43,17 @@ def _is_float(v):
     return np.issubdtype(np.asarray(v).dtype, np.floating)
 
 
-def _hold(make, x, seed=0, training=False, grads=True):
+def _hold(make, x, seed=0, training=False, grads=True, scaled=False):
     """``make(tnn)`` against ``make(jnn)`` on the numpy tree ``x``; returns
-    the port's layer and output."""
+    the port's layer and output.  With ``scaled`` each result's atol is
+    ATOL times its largest magnitude (at least 1): for sums of many terms,
+    where cancellation leaves a small result beside large ones."""
+
+    def close(got, want):
+        atol = ATOL * max(1.0, float(np.abs(want).max())) if scaled \
+            else ATOL
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol)
+
     jm, tm = make(jnn), make(tnn)
     shapes, state = jax.eval_shape(jm.init, jax.random.PRNGKey(seed))
     params = _draw(shapes, np.random.RandomState(seed))
@@ -75,8 +83,7 @@ def _hold(make, x, seed=0, training=False, grads=True):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape and g.dtype == torch.float32
-        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
-                                   rtol=RTOL, atol=ATOL)
+        close(g.detach().numpy(), np.asarray(w))
     if not grads:
         return tm, b
 
@@ -89,13 +96,12 @@ def _hold(make, x, seed=0, training=False, grads=True):
           for t, f in zip(xt, isf) if f]
     assert len(gt) == len(gx)
     for g, w in zip(gt, gx):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
-                                   atol=ATOL)
+        close(g.numpy(), np.asarray(w))
     gparams = [p.grad.numpy() for p in tm.param_leaves()]
     want = jax.tree_util.tree_leaves(gp)
     assert len(gparams) == len(want)
     for g, w in zip(gparams, want):
-        np.testing.assert_allclose(g, np.asarray(w), rtol=RTOL, atol=ATOL)
+        close(g, np.asarray(w))
     return tm, b
 
 
