@@ -121,6 +121,21 @@ class Module(nn.Module):
     def get_name(self) -> str:
         return self.name
 
+    # -- files --------------------------------------------------------------
+
+    def save(self, path: str, overwrite: bool = False) -> "Module":
+        """``AbstractModule.save`` parity: the module pickled whole, every
+        tensor on the host (``utils/file.py``); ``nn.load`` reads it."""
+        from bigdl_tpu_torch.utils.file import File
+        File.save(self, path, overwrite)
+        return self
+
+    def save_torch(self, path: str, overwrite: bool = False) -> "Module":
+        """``AbstractModule.saveTorch`` parity: Torch7 ``.t7``."""
+        from bigdl_tpu_torch.utils import torch_file
+        torch_file.save_torch(self, path, overwrite=overwrite)
+        return self
+
     def param_tree(self):
         """This layer's parameters as the JAX package's pytree: a dict of
         its own parameters and of its children that hold any (a child list

@@ -1,5 +1,5 @@
 """Composable iterator transformers (``bigdl_tpu/dataset/transformer.py``,
-the part the trainer needs).
+the part the trainer and the python binding's helpers need).
 
 Parity: ``dataset/Transformer.scala:40-241``: a transformer maps an iterator
 to an iterator and composes with ``>>``; ``SampleToBatch`` stacks Samples
@@ -9,7 +9,7 @@ numpy on the host; the trainer copies each batch to its device.
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -38,6 +38,21 @@ class ChainedTransformer(Transformer):
         return self.second(self.first(prev))
 
 
+class Lambda(Transformer):
+    """Wrap a per-element function as a transformer."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def apply(self, prev):
+        return (self.fn(x) for x in prev)
+
+
+class Identity(Transformer):
+    def apply(self, prev):
+        return prev
+
+
 class Sample:
     """Feature + label pair (``dataset/Sample.scala:34-103``)."""
 
@@ -63,6 +78,17 @@ class MiniBatch:
 
     def size(self) -> int:
         return self.data.shape[0]
+
+
+def normalizer(mean, std):
+    """Sample -> Sample feature normalization (python-binding parity:
+    ``dl/src/main/python/dataset/transformer.py:22``).  Use with
+    ``Lambda``: ``ds >> Lambda(normalizer(mean, std))``, or map it over a
+    sample list before ``DataSet.array``."""
+    def apply(sample: Sample) -> Sample:
+        return Sample((np.asarray(sample.feature, np.float32) - mean) / std,
+                      sample.label)
+    return apply
 
 
 class SampleToBatch(Transformer):

@@ -100,4 +100,36 @@ __all__ = ["Abs", "AbsCriterion", "Add", "AddConstant", "BCECriterion",
            "SpatialZeroPadding", "Sqrt", "Square", "Squeeze", "Sum", "Tanh",
            "TanhShrink", "Threshold", "TimeDistributed",
            "TimeDistributedCriterion", "Transpose", "Unsqueeze", "View",
-           "apply_rope", "gelu"]
+           "apply_rope", "gelu", "load", "load_caffe", "load_torch"]
+
+
+# -- module-level load helpers (``nn/Module.scala:30-42`` parity) -----------
+
+def load(path, device="cuda"):
+    """A module saved with ``Module.save`` (``Module.load``), its
+    parameters and buffers on ``device`` (CUDA by default; without CUDA it
+    raises unless asked for the CPU).  A file the JAX package's
+    ``Module.save`` wrote is refused with ``ValueError`` (it pickles JAX
+    objects): ``.t7`` and ``.caffemodel`` carry models between the two."""
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.utils.file import File
+    dev = resolve_device(device)
+    module = File.load(path)
+    if not isinstance(module, Module):
+        raise ValueError(f"{path} holds a {type(module).__name__}, not a "
+                         "module saved with Module.save")
+    return module.to(dev)
+
+
+def load_torch(path, device="cuda"):
+    """A Torch7 ``.t7`` module file (``Module.loadTorch``) on ``device``."""
+    from bigdl_tpu_torch.utils import torch_file
+    return torch_file.load_torch(path, device)
+
+
+def load_caffe(model, prototxt_path, model_path, match_all=True):
+    """Copy weights from a caffemodel into ``model`` where its parameters
+    lie (``Module.loadCaffe``)."""
+    from bigdl_tpu_torch.utils.caffe_loader import CaffeLoader
+    return CaffeLoader.load(model, prototxt_path, model_path,
+                            match_all=match_all)

@@ -229,6 +229,10 @@ def cross_map_lrn(x, size=5, alpha=1.0, beta=0.75, k=1.0,
     if size < 1:
         raise ValueError(f"LRN size must be >= 1, got {size}")
     alpha, beta, k = float(alpha), float(beta), float(k)
+    if x.device.type == "cuda":
+        # the kernel reads NCHW in order: a channels-last input (cuDNN
+        # keeps a channels-last batch so) or another strided one is copied
+        x = x.contiguous()
     if torch.is_grad_enabled() and x.requires_grad:
         y, scale = _CrossMapLRN.apply(x, size, alpha, beta, k)
     else:

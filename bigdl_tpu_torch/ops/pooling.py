@@ -301,6 +301,10 @@ def max_pool2d(x, kh, kw, sh, sw, ph=0, pw=0, ceil_mode=False,
     asked for, the kernel skips that write."""
     _validate(x, kh, kw, sh, sw, ph, pw, ceil_mode)
     geom = (kh, kw, sh, sw, ph, pw, ceil_mode)
+    if x.device.type == "cuda":
+        # the kernel reads NCHW in order: a channels-last input (cuDNN
+        # keeps a channels-last batch so) or another strided one is copied
+        x = x.contiguous()
     if torch.is_grad_enabled() and x.requires_grad:
         y, idx = _MaxPool2d.apply(x, geom)
     else:

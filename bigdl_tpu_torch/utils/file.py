@@ -6,6 +6,15 @@ brought to the host as numpy before the pickle, so a file holds no torch
 object and has one format in both packages.  A ``model.<n>`` snapshot is
 ``{"params", "model_state"}`` with ``params`` and ``model_state`` the JAX
 package's pytrees (``convert.export_params``, ``convert.export_state``).
+
+A module (``Module.save``; ``nn.load`` reads it back onto a device) is
+pickled whole, the port's own classes by name: every tensor it holds
+(parameters, buffers, any tensor attribute) is written as a host copy and
+every ``torch.Generator`` as None, so the file loads without a card and
+the caller's device is chosen at load.  The JAX package pickles its
+modules with their JAX classes, which :meth:`File.load` refuses (below):
+``.t7`` and ``.caffemodel`` files carry models between the two packages.
+
 Local paths are published atomically
 (``durable_io.atomic_write_bytes``: a tmp file per writer, fsynced and
 renamed); a ``scheme://`` path goes through an opener given to
@@ -18,6 +27,7 @@ and resolving them would import the JAX package into the port.
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 from typing import Any, Callable, Dict
@@ -91,6 +101,35 @@ def to_host(obj: Any) -> Any:
     return obj
 
 
+def _no_generator():
+    return None
+
+
+def _host_tensor(t: torch.Tensor, requires_grad: bool) -> torch.Tensor:
+    return t.requires_grad_(requires_grad)
+
+
+class _HostPickler(pickle.Pickler):
+    """Pickles a tensor on a device as its host copy (a Parameter as a
+    Parameter) and a ``torch.Generator`` as None."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Generator):
+            return _no_generator, ()
+        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+            host = obj.detach().cpu()
+            if isinstance(obj, torch.nn.Parameter):
+                return torch.nn.Parameter, (host, obj.requires_grad)
+            return _host_tensor, (host, obj.requires_grad)
+        return NotImplemented
+
+
+def _dumps(obj: Any) -> bytes:
+    buf = io.BytesIO()
+    _HostPickler(buf, protocol=4).dump(obj)
+    return buf.getvalue()
+
+
 class _Unpickler(pickle.Unpickler):
 
     def find_class(self, module: str, name: str):
@@ -114,11 +153,11 @@ class File:
             d = os.path.dirname(local)
             if d:
                 os.makedirs(d, exist_ok=True)
-            atomic_write_bytes(local, pickle.dumps(obj, protocol=4))
+            atomic_write_bytes(local, _dumps(obj))
         else:
             # object stores upload whole objects: no tmp and rename
             with _open(path, "wb") as f:
-                pickle.dump(obj, f, protocol=4)
+                f.write(_dumps(obj))
 
     @staticmethod
     def load(path: str) -> Any:

@@ -340,6 +340,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
    ``TextClassifierRNN(20000)`` under ``quantize_model("w8")``, card vs
    CPU on the same packed copy within 1e-4, with their launches (4 K13 +
    3 K1; 1 K13; none);
+3t. the model loaders and the two image mains, f32 at batch 32, on PNG
+   files written under ``build/`` by the port's encoder (no PIL) and
+   removed after: 4 class folders of 16 at 256x341, 341x256, 300x300 and
+   256x256 (the resize runs on the host), rows through all five PNG
+   filters: (a) ``example/loadmodel.py`` ``main -m inception -t caffe``
+   with ``Inception_v1(1000)``'s seeded weights in a caffemodel (V2
+   records, its GoogLeNet names, match_all), every weighted parameter on
+   the card equal to its blob bit for bit, 64 images counted, exactly 13
+   K1 + 2 K2 a forward, 2 rows within 1e-5 of a CPU copy loaded from the
+   same file; (d) ``-t bigdl``: (a)'s model through ``Module.save`` and
+   ``nn.load``, Top-1 and Top-5 equal to (a)'s; (b) ``-m alexnet -t caffe
+   --meanFile`` with ``AlexNet(1000)`` (grouped convs) and a 256x256x3
+   mean file ``File.save`` wrote, on square images, 3 K1 + 2 K2 a forward,
+   the same checks; (e) ``example/imageclassification.py`` ``main
+   --modelType caffe --topN 5`` on 32 flat files with (b)'s caffemodel,
+   the classes equal to a CPU copy's wherever the top-6 gaps exceed 1e-4;
+   (c) ``-m inception -t torch`` with ``AlexNet_OWT(1000)`` written by
+   ``save_torch`` and read by ``nn.load_torch`` onto the card, 3 K1 a
+   forward, 2 rows within 1e-5 of the saved module's; each with images/s,
+   the host pipeline's and the forwards' shares, the busy share, the
+   files' bytes and the load, save, write and read times;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -986,6 +1007,22 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+class PhaseClock:
+    """Logs each phase's wall seconds and the run's so far (the run must
+    end inside its time limit, build included)."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def stamp(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.last
+        self.last = now
+        log(f"phase {phase}: {self.seconds[phase]:.1f} s "
+            f"({now - self.start:.1f} s so far)")
 
 
 def launches_now():
@@ -5737,6 +5774,433 @@ def slice_layer_sweep(device, card):
     return out, by_path
 
 
+# -- phase 3t: the model loaders and the two image mains ---------------------
+
+# ModelValidator (example/loadmodel.py) and ImagePredictor
+# (example/imageclassification.py) at batch LOAD_BATCH, f32, on PNG files
+# written here with the port's encoder (zlib and struct, no PIL): a val/
+# tree of LOAD_CLASSES folders of LOAD_PER_CLASS files at LOAD_SIZES in
+# turn (all but 256 x 256 resized on the host), their rows through the
+# five PNG filters, and LOAD_FLAT flat files for the ImagePredictor.
+# AlexNet's mean file is per pixel at 256 x 256, which the reference's
+# pipeline subtracts before its crop, so 3t-b's tree holds LOAD_SQUARE
+# images only.  Weights are each model's own seeded init, carried through
+# a caffemodel (V2 records under the model's names), a .t7 or Module.save.
+LOAD_CLASSES, LOAD_PER_CLASS, LOAD_BATCH, LOAD_FLAT = 4, 16, 32, 32
+LOAD_SIZES = ((256, 341), (341, 256), (300, 300), (256, 256))
+LOAD_SQUARE = ((300, 300), (256, 256))
+LOAD_CPU_ROWS = 2              # rows of each model held against the CPU
+LOAD_LOGIT_RTOL = 1e-5         # card vs CPU log-probs, of the largest
+# 3t-e: the top-5 classes are compared where every gap between the top 6
+# CPU log-probs exceeds this (card and CPU differ by about 1e-6), and at
+# least half the images must qualify
+LOAD_MARGIN = 1e-4
+# the classifier's bias is raised by this for the classes of the staged
+# folders (labels 1-4), so they lead every image's top 5 and the image's
+# content picks its top 1: Top-1 and Top-5 then count something
+LOAD_FAVOUR = 4.0
+
+
+def write_pngs(folder, n, sizes, seed):
+    """``n`` smooth seeded RGB images of ``sizes`` in turn, as PNG files
+    whose rows cycle through the five filters."""
+    from bigdl_tpu_torch.dataset import png
+    rng = np.random.RandomState(seed)
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        yy, xx = np.mgrid[0:h, 0:w]
+        f = rng.uniform(0.01, 0.08, 3)
+        img = np.stack([127 + 110 * np.sin(f[c] * (xx + (c + 1) * yy) + i)
+                        for c in range(3)], axis=2)
+        img += rng.uniform(-12, 12, img.shape)
+        with open(os.path.join(folder, f"{i:03d}.png"), "wb") as fh:
+            fh.write(png.encode_png(np.clip(img, 0, 255).astype(np.uint8),
+                                    [0, 1, 2, 3, 4]))
+
+
+def stage_val(folder, sizes, seed):
+    for c in range(LOAD_CLASSES):
+        write_pngs(os.path.join(folder, "val", f"n{c:08d}"), LOAD_PER_CLASS,
+                   sizes, seed + c)
+
+
+def favour_staged_classes(model, classifier):
+    """Raise ``classifier``'s bias by LOAD_FAVOUR for classes 1 to
+    LOAD_CLASSES; returns ``model``."""
+    import torch
+    from bigdl_tpu_torch.core.module import get_named_modules
+    with torch.no_grad():
+        get_named_modules(model)[classifier].bias[:LOAD_CLASSES] += \
+            LOAD_FAVOUR
+    return model
+
+
+def caffe_layers(model):
+    """The model's own weights as caffe layers (V2 records) under its
+    module names."""
+    from bigdl_tpu_torch.core.module import Container, get_named_modules
+    layers = []
+    for name, m in get_named_modules(model).items():
+        if isinstance(m, Container) or getattr(m, "weight", None) is None:
+            continue
+        blobs = [m.weight.detach().numpy().copy()]
+        if m.bias is not None:
+            blobs.append(m.bias.detach().numpy().copy())
+        layers.append({"name": name, "blobs": blobs, "type":
+                       "Convolution" if m.weight.dim() == 4
+                       else "InnerProduct"})
+    return layers
+
+
+def check_blobs(what, model, layers):
+    """Every weighted parameter on the card, f32, equal to its blob bit
+    for bit."""
+    import torch
+    from bigdl_tpu_torch.core.module import get_named_modules
+    named = get_named_modules(model)
+    for layer in layers:
+        m = named[layer["name"]]
+        for p, blob in zip((m.weight, m.bias), layer["blobs"]):
+            if p.device.type != "cuda" or p.dtype != torch.float32:
+                fail(f"{what}: {layer['name']} on {p.device} in {p.dtype}")
+            if not torch.equal(p.detach().cpu(), torch.from_numpy(blob)):
+                fail(f"{what}: {layer['name']} differs from its blob")
+    return len(layers)
+
+
+def run_validator(what, argv, device, counts, n_images):
+    """``loadmodel.main(argv)`` on ``device`` with every count set to 0
+    just before and read just after.  The model it loads is kept (its
+    ``load_model`` wrapped), and so are its batches, with the seconds its
+    host pipeline spent making them and, of those, decoding and resizing
+    (the dataset's iterator and ``LocalImgReader._read`` timed).  Fails
+    unless ``n_images`` were counted and each forward launched ``counts``
+    and nothing else.  Returns (results, model, load seconds, wall
+    seconds, launches, (host seconds, batches, decode seconds))."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset.dataset import TransformedDataSet
+    from bigdl_tpu_torch.dataset.image import LocalImgReader
+    from bigdl_tpu_torch.example import loadmodel as lm
+    kept = {"host_s": 0.0, "decode_s": 0.0, "batches": []}
+    load_model, data, read = (lm.load_model, TransformedDataSet.data,
+                              LocalImgReader._read)
+
+    def keep(*args, **kwargs):
+        t0 = time.perf_counter()
+        kept["model"] = load_model(*args, **kwargs)
+        torch.cuda.synchronize(device)
+        kept["load_s"] = time.perf_counter() - t0
+        return kept["model"]
+
+    def timed_data(self, train):
+        batches = data(self, train)
+        while True:
+            t0 = time.perf_counter()
+            b = next(batches, None)
+            kept["host_s"] += time.perf_counter() - t0
+            if b is None:
+                return
+            kept["batches"].append(b)
+            yield b
+
+    def timed_read(self, path):
+        t0 = time.perf_counter()
+        out = read(self, path)
+        kept["decode_s"] += time.perf_counter() - t0
+        return out
+    lm.load_model, TransformedDataSet.data = keep, timed_data
+    LocalImgReader._read = timed_read
+    try:
+        ops.reset_launches()             # the path starts here
+        t0 = time.perf_counter()
+        results = lm.main(argv + ["-b", str(LOAD_BATCH)], device=device)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = launches_now()        # and ends here
+    finally:
+        lm.load_model, TransformedDataSet.data = load_model, data
+        LocalImgReader._read = read
+    batches = -(-n_images // LOAD_BATCH)
+    expect_launches(what, launches,
+                    {k: v * batches for k, v in counts.items()})
+    if [r.count for r in results] != [n_images, n_images]:
+        fail(f"{what}: counted {[r.count for r in results]}, want "
+             f"{n_images} images")
+    return (results, kept["model"], kept["load_s"], wall, launches,
+            (kept["host_s"], kept["batches"], kept["decode_s"]))
+
+
+def forward_times(model, device, host):
+    """The validator's path in parts: its host pipeline's seconds (from
+    ``run_validator``), then the same batches' upload and forward on the
+    card (CUDA-synchronized, after one warm pass), and the forwards'
+    device time."""
+    import torch
+    host_s, batches, decode_s = host
+
+    def forwards():
+        with torch.inference_mode():
+            for b in batches:
+                model(torch.from_numpy(b.data).to(device))
+        torch.cuda.synchronize(device)
+    forwards()
+    t0 = time.perf_counter()
+    forwards()
+    fwd_s = time.perf_counter() - t0
+    prof = device_profile(forwards, len(batches))
+    return {"host_pipeline_s": host_s, "decode_resize_s": decode_s,
+            "decode_resize_ms_per_image": 1e3 * decode_s / sum(
+                b.size() for b in batches),
+            "upload_forward_s": fwd_s,
+            "device_ms_per_batch": prof["device_ms"],
+            "batches": len(batches), "top": prof["top"][:5]}
+
+
+def held_rows(what, model, cpu_model, host, device):
+    """LOAD_CPU_ROWS rows of the first of ``host``'s batches through the
+    card model and a CPU copy: the largest difference of the log-probs, of their largest
+    magnitude, within LOAD_LOGIT_RTOL."""
+    import torch
+    x = torch.from_numpy(host[1][0].data[:LOAD_CPU_ROWS])
+    with torch.inference_mode():
+        got = model(x.to(device)).cpu()
+        want = cpu_model.evaluate()(x)
+    if tuple(got.shape) != (LOAD_CPU_ROWS, CLASSES):
+        fail(f"{what}: log-probs of shape {tuple(got.shape)}")
+    return held_within(what, got, want, LOAD_LOGIT_RTOL)
+
+
+def validator_report(card, what, results, load_s, wall, parts, n,
+                     launches, extra):
+    validate_s = wall - load_s
+    r = {"images": n, "top1": results[0].result()[0],
+         "top5": results[1].result()[0], "load_s": load_s,
+         "validate_s": validate_s, "images_per_s": n / validate_s,
+         "host_share": parts["host_pipeline_s"] / validate_s,
+         "forward_share": parts["upload_forward_s"] / validate_s,
+         "busy_share": parts["device_ms_per_batch"] * parts["batches"]
+         / 1e3 / validate_s,
+         "launches": {k: v for k, v in launches.items() if v}}
+    r.update(parts)
+    r.update(extra)
+    log(f"[{card}] {what}: {n} images, Top-1 {r['top1']:.4f}, Top-5 "
+        f"{r['top5']:.4f}; load {load_s:.3f} s, validation {validate_s:.3f}"
+        f" s ({r['images_per_s']:.1f} images/s); host pipeline "
+        f"{parts['host_pipeline_s']:.3f} s (share {r['host_share']:.3f}; "
+        f"decode and resize {parts['decode_resize_s']:.3f} s, "
+        f"{parts['decode_resize_ms_per_image']:.2f} ms an image), "
+        f"upload + forward {parts['upload_forward_s']:.4f} s (share "
+        f"{r['forward_share']:.4f}), device "
+        f"{parts['device_ms_per_batch']:.3f} ms a batch of {LOAD_BATCH} "
+        f"(busy share {r['busy_share']:.4f}); launches {r['launches']}; "
+        + json.dumps(extra))
+    return r
+
+
+def image_predictor(device, card, flat, alex_path, cpu):
+    """Phase 3t-e: ``imageclassification.main --modelType caffe --topN 5``
+    on the flat folder, counted from 0; its classes against the CPU
+    model's on the same pipeline.  Returns (report, launches)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset import (BGRImgCropper, BGRImgNormalizer,
+                                         LocalImgReader)
+    from bigdl_tpu_torch.example import imageclassification as ic
+    ops.reset_launches()                 # the path starts here
+    t0 = time.perf_counter()
+    classes = ic.main(["-f", flat, "--modelType", "caffe", "--modelPath",
+                       alex_path, "--topN", "5"], device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = launches_now()            # and ends here
+    expect_launches("3t-e", launches,
+                    {"max_pool2d": 3 * -(-LOAD_FLAT // LOAD_BATCH),
+                     "cross_map_lrn": 2 * -(-LOAD_FLAT // LOAD_BATCH)})
+    files = sorted(os.listdir(flat))
+    reader = LocalImgReader(256)
+    crop = BGRImgCropper(227, 227, center=True)
+    norm = BGRImgNormalizer((123, 117, 104), (1, 1, 1))
+    imgs = list(norm(crop(reader((os.path.join(flat, f), 0.0)
+                                 for f in files))))
+    with torch.inference_mode():
+        lp = cpu.evaluate()(torch.from_numpy(np.stack(
+            [i.data.transpose(2, 0, 1) for i in imgs])))
+    top6 = lp.topk(6, dim=1)
+    gaps = (top6.values[:, :-1] - top6.values[:, 1:]).min(dim=1).values
+    firm = [i for i in range(len(files)) if gaps[i] > LOAD_MARGIN]
+    want = (top6.indices[:, :5] + 1).tolist()
+    if [os.path.basename(f) for f, _ in classes] != files:
+        fail(f"3t-e: classified {[f for f, _ in classes]}")
+    bad = [files[i] for i in firm if classes[i][1] != want[i]]
+    if bad or len(firm) < LOAD_FLAT // 2:
+        fail(f"3t-e: top-5 differs from the CPU's for {bad}; {len(firm)} of "
+             f"{LOAD_FLAT} images have top-6 gaps over {LOAD_MARGIN}")
+    report = {"images": LOAD_FLAT, "wall_s": wall,
+              "images_per_s": LOAD_FLAT / wall, "compared": len(firm),
+              "min_gap": float(gaps.min()),
+              "launches": {k: v for k, v in launches.items() if v}}
+    log(f"[{card}] 3t-e imageclassification --modelType caffe --topN 5 "
+        f"({LOAD_FLAT} files, AlexNet(1000), f32): {wall:.3f} s with the "
+        f"model's load ({LOAD_FLAT / wall:.1f} images/s); top-5 equal to the "
+        f"CPU's on the {len(firm)} images whose top-6 gaps exceed "
+        f"{LOAD_MARGIN} (smallest gap {float(gaps.min()):.3g}); launches "
+        f"{report['launches']}")
+    return report, launches
+
+
+def loaders_and_mains(device, card):
+    """Phase 3t: (a) ``loadmodel.main -m inception -t caffe`` with
+    ``Inception_v1(1000)``'s seeded weights in a caffemodel (V2, its
+    GoogLeNet names, match_all); (d) ``-t bigdl``: (a)'s card model
+    through ``Module.save`` and ``nn.load``, Top-1 and Top-5 equal to
+    (a)'s; (b) ``-m alexnet -t caffe --meanFile`` with ``AlexNet(1000)``
+    (grouped convs) and a 256 x 256 x 3 mean file ``File.save`` wrote; (e)
+    ``imageclassification.main`` with (b)'s caffemodel
+    (``image_predictor``); (c) ``-m inception -t torch`` with
+    ``AlexNet_OWT(1000)`` written by ``save_torch`` and read by
+    ``nn.load_torch``.  Each validator run on the card: every image
+    counted, 13 K1 + 2 K2 (Inception-v1), 3 K1 + 2 K2 (AlexNet) or 3 K1
+    (AlexNet-OWT) a forward and nothing else, the caffemodels' blobs on the
+    card bit for bit, LOAD_CPU_ROWS rows within LOAD_LOGIT_RTOL of a CPU
+    copy (the saved module for (c)); the host pipeline, the forwards and
+    their device time apart.  Files are staged under ``build/`` and
+    removed after.  Returns (report, launches by path)."""
+    import shutil
+    import torch
+    from bigdl_tpu_torch.example import loadmodel as lm
+    from bigdl_tpu_torch.models import AlexNet, AlexNet_OWT, Inception_v1
+    from bigdl_tpu_torch.utils.caffe_loader import encode_caffemodel
+    from bigdl_tpu_torch.utils.file import File
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_images")
+    shutil.rmtree(root, ignore_errors=True)
+    mixed, square = os.path.join(root, "mixed"), os.path.join(root, "square")
+    flat = os.path.join(root, "flat")
+    n = LOAD_CLASSES * LOAD_PER_CLASS
+    report, paths = {}, {}
+    try:
+        t0 = time.perf_counter()
+        stage_val(mixed, LOAD_SIZES, SEED + 600)
+        stage_val(square, LOAD_SQUARE, SEED + 610)
+        write_pngs(flat, LOAD_FLAT, LOAD_SIZES, SEED + 620)
+        report["stage_s"] = time.perf_counter() - t0
+        log(f"[{card}] 3t staging: {2 * n + LOAD_FLAT} PNG files written in "
+            f"{report['stage_s']:.2f} s")
+
+        # (a) Inception-v1 from a caffemodel
+        inc_layers = caffe_layers(favour_staged_classes(
+            Inception_v1(CLASSES).reset(SEED + 30), "loss3/classifier"))
+        inc_path = os.path.join(root, "googlenet.caffemodel")
+        with open(inc_path, "wb") as f:
+            f.write(encode_caffemodel(inc_layers))
+        inc_counts = {"max_pool2d": 13, "cross_map_lrn": 2}
+        argv = ["-f", mixed, "-m", "inception", "-t", "caffe",
+                "--caffeDefPath", os.path.join(root, "deploy.prototxt"),
+                "--modelPath", inc_path]
+        res_a, model_a, load_s, wall, paths["load_inception_caffe"], host = \
+            run_validator("3t-a", argv, device, inc_counts, n)
+        blobs = check_blobs("3t-a", model_a, inc_layers)
+        parts = forward_times(model_a, device, host)
+        cpu = lm.load_model("caffe", inc_path, None, "cpu",
+                            lambda: Inception_v1(CLASSES))
+        err = held_rows("3t-a", model_a, cpu, host, device)
+        report["a_inception_caffe"] = validator_report(
+            card, "3t-a loadmodel -m inception -t caffe (Inception_v1(1000),"
+            " f32)", res_a, load_s, wall, parts, n,
+            paths["load_inception_caffe"],
+            {"caffemodel_bytes": os.path.getsize(inc_path),
+             "blobs_equal": blobs, "card_vs_cpu": err})
+
+        # (d) the same card model through Module.save and nn.load
+        bigdl_path = os.path.join(root, "inception.bigdl")
+        t0 = time.perf_counter()
+        model_a.save(bigdl_path)
+        save_s = time.perf_counter() - t0
+        del model_a, cpu
+        argv = ["-f", mixed, "-m", "inception", "-t", "bigdl",
+                "--modelPath", bigdl_path]
+        res_d, model_d, load_s, wall, paths["load_inception_bigdl"], _ = \
+            run_validator("3t-d", argv, device, inc_counts, n)
+        if [(r.correct, r.count) for r in res_d] != \
+                [(r.correct, r.count) for r in res_a]:
+            fail(f"3t-d: -t bigdl {res_d}, -t caffe {res_a}")
+        if any(p.device.type != "cuda" for p in model_d.parameters()):
+            fail("3t-d: nn.load left a parameter off the card")
+        del model_d
+        report["d_inception_bigdl"] = {
+            "top1": res_d[0].result()[0], "top5": res_d[1].result()[0],
+            "save_s": save_s, "load_s": load_s, "validate_s": wall - load_s,
+            "file_bytes": os.path.getsize(bigdl_path),
+            "launches": {k: v for k, v in
+                         paths["load_inception_bigdl"].items() if v}}
+        log(f"[{card}] 3t-d loadmodel -m inception -t bigdl: Module.save "
+            f"{save_s:.3f} s ({report['d_inception_bigdl']['file_bytes']} "
+            f"B), nn.load {load_s:.3f} s, validation {wall - load_s:.3f} s; "
+            f"Top-1 and Top-5 equal to 3t-a's ({res_d[0]}, {res_d[1]})")
+
+        # (b) AlexNet from a caffemodel, with the mean file
+        alex_layers = caffe_layers(favour_staged_classes(
+            AlexNet(CLASSES).reset(SEED + 31), "fc8"))
+        alex_path = os.path.join(root, "alexnet.caffemodel")
+        with open(alex_path, "wb") as f:
+            f.write(encode_caffemodel(alex_layers))
+        mean_path = os.path.join(root, "mean")
+        File.save(np.random.RandomState(SEED + 32).uniform(
+            100, 130, (256, 256, 3)).astype(np.float32), mean_path)
+        argv = ["-f", square, "-m", "alexnet", "-t", "caffe",
+                "--modelPath", alex_path, "--meanFile", mean_path]
+        res_b, model_b, load_s, wall, paths["load_alexnet_caffe"], host = \
+            run_validator("3t-b", argv, device,
+                          {"max_pool2d": 3, "cross_map_lrn": 2}, n)
+        blobs = check_blobs("3t-b", model_b, alex_layers)
+        del alex_layers
+        parts = forward_times(model_b, device, host)
+        cpu = lm.load_model("caffe", alex_path, None, "cpu",
+                            lambda: AlexNet(CLASSES))
+        err = held_rows("3t-b", model_b, cpu, host, device)
+        del model_b
+        report["b_alexnet_caffe"] = validator_report(
+            card, "3t-b loadmodel -m alexnet -t caffe --meanFile "
+            "(AlexNet(1000), grouped convs, f32)", res_b, load_s, wall,
+            parts, n, paths["load_alexnet_caffe"],
+            {"caffemodel_bytes": os.path.getsize(alex_path),
+             "blobs_equal": blobs, "card_vs_cpu": err})
+
+        # (e) ImagePredictor with (b)'s caffemodel
+        report["e_imageclassification"], paths["imageclassification"] = \
+            image_predictor(device, card, flat, alex_path, cpu)
+        del cpu
+
+        # (c) AlexNet-OWT through save_torch and nn.load_torch
+        owt = favour_staged_classes(AlexNet_OWT(CLASSES).reset(SEED + 33),
+                                    "fc8").evaluate()
+        t7_path = os.path.join(root, "alexnet_owt.t7")
+        t0 = time.perf_counter()
+        owt.save_torch(t7_path)
+        write_s = time.perf_counter() - t0
+        argv = ["-f", mixed, "-m", "inception", "-t", "torch",
+                "--modelPath", t7_path]
+        res_c, model_c, load_s, wall, paths["load_owt_torch"], host = \
+            run_validator("3t-c", argv, device, {"max_pool2d": 3}, n)
+        if any(p.device.type != "cuda" or p.dtype != torch.float32
+               for p in model_c.parameters()):
+            fail("3t-c: nn.load_torch left a parameter off the card or "
+                 "out of f32")
+        parts = forward_times(model_c, device, host)
+        err = held_rows("3t-c", model_c, owt, host, device)
+        report["c_owt_torch"] = validator_report(
+            card, "3t-c loadmodel -m inception -t torch (AlexNet_OWT(1000),"
+            " f32)", res_c, load_s, wall, parts, n, paths["load_owt_torch"],
+            {"t7_bytes": os.path.getsize(t7_path), "t7_write_s": write_s,
+             "t7_read_s": load_s, "card_vs_saved_module": err})
+        del model_c, owt
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report, paths
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -7042,11 +7506,13 @@ def main() -> int:
 
     # phase 1
     card = card_line()
+    clock = PhaseClock()
     log(f"card: {card}")
     t0 = time.perf_counter()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc "
         f"{' '.join(_build.ARCH)}, {len(_build.sources())} sources)")
+    clock.stamp("1 (build)")
 
     # phase 2, 2b and 2c; 2c at the products of the w8 forward
     from bigdl_tpu_torch.ops import quant
@@ -7080,6 +7546,7 @@ def main() -> int:
         d.update(more)
     for d, more in zip((errs, cases, misses), check_codec_kernels(device)):
         d.update(more)
+    clock.stamp("2-2g (kernels against their plain versions)")
     # phase 3, 3b, 3c and 3d: each path's launches counted from 0
     report, serve_launches = serve(device)
     train_report, train_launches = train(device)
@@ -7095,21 +7562,26 @@ def main() -> int:
             f"{r['resident_ratio_vs_bf16']:.4f} of the bf16 tree (budget "
             f"{r['budget']['max_resident_ratio_vs_bf16']}), bytes "
             f"{r['bytes_by_dtype']}")
+    clock.stamp("3-3d (Inception-v1 serving, training, quantized)")
     lm_report, lm_launches, score_model, long_model = lm_scoring(device)
     lm_report["head_dim_256"], more = lm_head_dim_256(device)
     lm_launches.update(more)
     gen_report, gen_launches, gen_model, prompt = lm_generation(device)
     lm_launches.update(gen_launches)
+    clock.stamp("3e-3f (LM scoring and generation)")
     cg_report, cg_launches, cg_run = continuous_serving(device)
     lm_launches.update(cg_launches)
+    clock.stamp("3g (continuous serving)")
     # phase 3p: the LM quantized behind the generator, and speculating
     qcg_report, more = quantized_continuous(device, cg_run[0], card)
     lm_launches.update(more)
     spec_report, more = speculative_continuous(device, cg_run[0], card)
     lm_launches.update(more)
+    clock.stamp("3p (quantized and speculative serving)")
     # phase 3q: multi-turn sessions, parking and the memory budget
     sess_report, more = session_serving(device, cg_run[0], card)
     lm_launches.update(more)
+    clock.stamp("3q (sessions)")
     # phase 3h and 3i: TransformerLM training
     long_report, long_launches = long_context_training(device)
     lm_launches.update(long_launches)
@@ -7127,6 +7599,7 @@ def main() -> int:
         f"the model's upload), busy share {p['busy_share']:.3f} of the "
         f"{long_report['remat']['ms_per_step']:.1f} ms step; top kernels "
         "(ms a step): " + json.dumps(p["top"]))
+    clock.stamp("3h (long-context training)")
     tm_report, lm_launches["train_main"], (resume_report, resume_launches) \
         = train_main_long(device)
     lm_launches.update(resume_launches)
@@ -7142,6 +7615,7 @@ def main() -> int:
         f" s; generate_main (greedy, {GEN_WORDS} words after "
         f"{GEN_PROMPT_WORDS}) {resume_report['generate_s']:.2f} s, equal to "
         "TransformerLM.generate on the loaded model")
+    clock.stamp("3i-3j (train_main, snapshots and resume)")
     # phase 3k: the codec on the long-context model's gradients
     codec_report, lm_launches["codec"] = codec_chain(device)
     log(f"[{card}] train_main (f32, {' '.join(TM_FLAGS)}): "
@@ -7150,6 +7624,7 @@ def main() -> int:
         f"{tm_report['step_ms_median_after_first']:.1f} ms (median after the "
         f"first; {tm_report['step_ms'][0]:.1f} ms the first), launches "
         f"{tm_report['launches']}")
+    clock.stamp("3k (the codec on a gradient)")
     # phase 3l, 3m and 3n: ResNet-50, Inception-v2, the CIFAR-10 ResNet
     cnn = {"resnet50": cnn_path(device, "ResNet-50", resnet50, resnet_recipe,
                                 TRAIN_STEPS, 1, N_ROWS, WAVES),
@@ -7160,10 +7635,12 @@ def main() -> int:
     cnn_launches = {f"{key}_{p}": v for key, (_, _, by) in cnn.items()
                     for p, v in by.items()}
     cnn_launches["cifar_resnet20_train"] = cifar_launches
+    clock.stamp("3l-3n (ResNet-50, Inception-v2, CIFAR ResNet-20)")
     # phase 3o: the perf harness, local and infer, each model at batch 128
     harness_report, harness_launches = perf_harness(device, card)
     cnn_launches.update(harness_launches)
     log("perf harness: " + json.dumps(harness_report))
+    clock.stamp("3o (the perf harness)")
     # phase 3r: the autoencoder's MSE recipe, a Fast R-CNN head on VGG-16,
     # and the criterions and table, shape and distance layers card vs CPU
     ae_report, cnn_launches["autoencoder"] = autoencoder_recipe(device, card)
@@ -7175,6 +7652,7 @@ def main() -> int:
     log(f"sweep: {len(sweep_errs)} criterions and layers held, worst "
         f"{max(sweep_errs.values()):.3g} of the largest value (limit "
         f"{SWEEP_RTOL})")
+    clock.stamp("3r (criterions and detection)")
     # phase 3s: the text classifier, SimpleRNN's mains, and this slice's
     # layers and packed models card vs CPU
     text_report, more = text_classifier(device, card)
@@ -7186,6 +7664,12 @@ def main() -> int:
     log("text classifier: " + json.dumps(text_report))
     log("SimpleRNN: " + json.dumps(rnn_report))
     log("slice layers and packed models: " + json.dumps(slice_errs))
+    clock.stamp("3s (text and recurrent)")
+    # phase 3t: the model loaders and the two image mains
+    load_report, more = loaders_and_mains(device, card)
+    cnn_launches.update(more)
+    log("loaders and image mains: " + json.dumps(load_report))
+    clock.stamp("3t (loaders and image mains)")
     # phase 4
     text_times = time_text_pools(device, card)
     rcnn_times = time_rcnn_pools(device, card)
@@ -7211,6 +7695,7 @@ def main() -> int:
         f"{cifar_report['step_ms']:.3f} ms "
         f"({cifar_report['images_per_s']:.1f} images/s)")
     log("cifar_resnet20 training: " + json.dumps(cifar_report))
+    clock.stamp("4 (pools at the text, Fast R-CNN, harness and CNN shapes)")
     times = time_kernels(device)
     train_times = time_train_kernels(device)
     fwd_ms = time_forwards(report.pop("classifier"), device)
@@ -7263,6 +7748,7 @@ def main() -> int:
             "top kernels and copies (ms per step): " + json.dumps(p["top"]))
         train_report["profile_" + key] = p
     log("training: " + json.dumps(train_report))
+    clock.stamp("4 (K1-K4, forwards, quantized products, train steps)")
     attn_times, sweep = time_attention(device)
     for name, t in attn_times.items():
         log(f"[{card}] {t['kernel']} at {name} {t['shape']} ({t['dtype']}, "
@@ -7294,6 +7780,7 @@ def main() -> int:
     lm_report["generation"] = gen_report
     lm_report["kernel_sweep"] = sweep
     log("transformer LM: " + json.dumps(lm_report))
+    clock.stamp("4 (attention and LM)")
     paged_times = time_paged(device)
     for key, t in paged_times.items():
         pl = t["plan"]
@@ -7325,6 +7812,7 @@ def main() -> int:
         f"{park['park']:.4f} ms, a resume whole {park['resume']:.4f} ms "
         "(host clock)")
     log("sessions: " + json.dumps(sess_report))
+    clock.stamp("4 (paged attention, park and resume)")
     cg_prof, cg_static = time_continuous(*cg_run, device)
     cg_prof["busy_share"] = cg_prof["device_ms"] / (1e3 * cg_report["wall_s"])
     cg_report.update(profile=cg_prof, static_waves=cg_static)
@@ -7349,6 +7837,7 @@ def main() -> int:
         f"{cg_static['latency_p50_ms']:.1f} ms, max "
         f"{cg_static['latency_max_ms']:.1f} ms")
     log("continuous serving: " + json.dumps(cg_report))
+    clock.stamp("4 (continuous serving)")
     lm_quant_rungs, lm_quant_times = time_lm_quant(device)
     for mode, t in lm_quant_rungs.items():
         log(f"[{card}] {mode} kernels over one LM decode step ({t['calls']} "
@@ -7364,6 +7853,7 @@ def main() -> int:
     qcg_report["decode_step_kernels"] = lm_quant_rungs
     log("quantized continuous serving: " + json.dumps(qcg_report))
     log("speculative continuous serving: " + json.dumps(spec_report))
+    clock.stamp("4 (the packed LM's decode step)")
     flash_times = time_flash(device)
     for name, t in flash_times.items():
         log(f"[{card}] flash attention at {name} {t['shape']} (per call): K9 "
@@ -7391,6 +7881,7 @@ def main() -> int:
     long_report["kernel_times"] = flash_times
     long_report["train_main"] = tm_report
     long_report["snapshots_and_resume"] = resume_report
+    clock.stamp("4 (flash attention)")
     codec_times = time_codec(device)
     for name, t in codec_times.items():
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
@@ -7418,6 +7909,7 @@ def main() -> int:
             log(f"[{card}] {name} ({where}, per step): {t['ms']:.4f} ms, "
                 f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
                 f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms")
+    clock.stamp("4 (codec and the pool and LRN logs)")
     kernels = []
     for k in KERNELS:
         name, wrapper = k["name"], k["wrapper"]

@@ -62,7 +62,17 @@ classifier's three pools in both dtypes.  The recurrent layers,
 agree with the CPU within 1e-5 of the largest value forward and 1e-4 of
 it in their input and parameter gradients, and the slice's three models
 under ``quantize_model("w8")`` within 1e-4 of their largest log-prob.
+``nn.load_torch(device="cuda")``, ``nn.load(device="cuda")`` and
+``CaffeLoader`` into a model on the card leave every parameter and
+running statistic on the card in its dtype (bfloat16 kept), and an
+``Inception_v1(10)`` loaded from a caffemodel on the card agrees with its
+CPU copy within 1e-5 of the largest log-prob (TF32 off).  A
+channels-last batch reaches K1 and K2 (and K3 and K4 in its backward)
+with the plain versions' results: bit-equal for the pool, within the LRN
+tolerances above.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -283,8 +293,13 @@ def test_kernel_launches_are_counted(cuda_device):
     torch.cuda.synchronize()
     assert [fn.launches for fn in wrappers] == \
         [before[0] + 2, before[1] + 2, before[2] + 1, before[3] + 1]
-    with pytest.raises(ValueError, match="contiguous"):
-        max_pool2d(x.transpose(2, 3), 2, 2, 2, 2)
+    # a strided input is copied to NCHW, then the kernel runs once
+    xt = x.transpose(2, 3)
+    y = max_pool2d(xt, 2, 2, 2, 2)
+    torch.cuda.synchronize()
+    assert max_pool2d.launches == before[0] + 3
+    assert torch.equal(y, max_pool2d_plain(xt.contiguous(), 2, 2, 2, 2, 0,
+                                           0, False)[0])
 
 
 # ragged shapes; then the bf16 kernel's edges: M at its 64- and 128-row
@@ -1606,3 +1621,90 @@ def test_packed_slice_model_on_the_card_matches_the_cpu(cuda_device,
                if fn.launches}
     assert got == want
     chip_smoke.held_within(name, ya, yb, chip_smoke.SLICE_QUANT_RTOL)
+
+
+def _on_card(model, dtype=torch.float32):
+    tensors = list(model.parameters()) + list(model.buffers())
+    return bool(tensors) and all(t.device.type == "cuda" and t.dtype == dtype
+                                 for t in tensors)
+
+
+def test_loaders_leave_the_model_on_the_card(cuda_device, tmp_path):
+    from bigdl_tpu_torch.utils.caffe_loader import CaffeLoader
+    from bigdl_tpu_torch.utils.caffe_loader import encode_caffemodel
+    model = (tnn.Sequential()
+             .add(tnn.SpatialConvolution(3, 4, 3, 3).set_name("conv"))
+             .add(tnn.SpatialBatchNormalization(4).set_name("bn"))
+             .add(tnn.ReLU())
+             .add(tnn.View(4 * 4 * 4))
+             .add(tnn.Linear(64, 5).set_name("fc")))
+    model.save_torch(str(tmp_path / "m.t7"))
+    assert _on_card(tnn.load_torch(str(tmp_path / "m.t7"), device="cuda"))
+    model.save(str(tmp_path / "m.bigdl"))
+    assert _on_card(tnn.load(str(tmp_path / "m.bigdl"), device="cuda"))
+    layers = chip_smoke.caffe_layers(model)
+    with open(tmp_path / "m.caffemodel", "wb") as f:
+        f.write(encode_caffemodel(layers))
+    for dtype in (torch.float32, torch.bfloat16):
+        target = copy.deepcopy(model).reset(5).to(device=cuda_device,
+                                                  dtype=dtype)
+        CaffeLoader.load(target, None, str(tmp_path / "m.caffemodel"))
+        assert _on_card(target, dtype)
+        got = target.layers[0].weight.detach().float().cpu()
+        want = torch.from_numpy(layers[0]["blobs"][0]).to(dtype).float()
+        assert torch.equal(got, want)
+
+
+def test_inception_from_a_caffemodel_matches_its_cpu_copy(cuda_device,
+                                                          full_f32,
+                                                          tmp_path):
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.utils.caffe_loader import encode_caffemodel
+    layers = chip_smoke.caffe_layers(Inception_v1(10).reset(3))
+    path = str(tmp_path / "googlenet.caffemodel")
+    with open(path, "wb") as f:
+        f.write(encode_caffemodel(layers))
+    card = tnn.load_caffe(Inception_v1(10).to(cuda_device), None, path)
+    cpu = tnn.load_caffe(Inception_v1(10), None, path)
+    assert _on_card(card)
+    x = torch.from_numpy(np.random.RandomState(4).uniform(
+        -100, 100, (2, 3, 224, 224)).astype(np.float32))
+    with torch.inference_mode():
+        got = card.evaluate()(x.to(cuda_device))
+        want = cpu.evaluate()(x)
+    chip_smoke.held_within("Inception_v1(10) from a caffemodel", got, want,
+                           chip_smoke.LOAD_LOGIT_RTOL)
+
+
+@pytest.mark.parametrize("layer", ["pool", "lrn"])
+def test_channels_last_input_runs_the_kernels(cuda_device, layer):
+    """A channels-last batch (as cuDNN returns for a channels-last input,
+    and as ``np.stack`` of HWC images transposed to CHW gives) reaches K1
+    and K2 as NCHW in order: forward and input gradient equal the plain
+    versions' on the same values (the kernels refused such input before)."""
+    from bigdl_tpu_torch import ops
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randint(-3, 4, (4, 16, 13, 11), generator=g,
+                      device=cuda_device).float()
+    x_cl = x.to(memory_format=torch.channels_last).requires_grad_(True)
+    assert not x_cl.is_contiguous()
+    m = tnn.SpatialMaxPooling(3, 3, 2, 2).ceil() if layer == "pool" \
+        else tnn.SpatialCrossMapLRN(5, 1e-4, 0.75, 2.0)
+    ops.reset_launches()
+    y = m(x_cl)
+    dy = torch.randn(y.shape, generator=g, device=cuda_device)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    kernel = "max_pool2d" if layer == "pool" else "cross_map_lrn"
+    assert getattr(ops, kernel).launches == 1
+    xp = x.detach().cpu().requires_grad_(True)
+    yp = m.cpu()(xp)
+    yp.backward(dy.cpu())
+    if layer == "pool":
+        assert torch.equal(y.detach().cpu(), yp.detach())
+        assert torch.equal(x_cl.grad.cpu(), xp.grad)
+    else:
+        torch.testing.assert_close(y.detach().cpu(), yp.detach(), rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(x_cl.grad.cpu(), xp.grad, rtol=1e-5,
+                                   atol=1e-5)
