@@ -6,8 +6,10 @@ in-memory array with an index-shuffled looping iterator) and
 ``TransformedDataSet`` (``ds >> transformer``).  The shuffle stream is a
 ``np.random.RandomState(seed)`` permuting the index array in place once
 per epoch, the same stream as the reference's, so both trainers see the
-same batches in the same order.  The sharded dataset comes with the
-DistriOptimizer slice of the port.
+same batches in the same order.  ``DataSet.seq_file_folder`` is the
+record-file ImageNet dataset: its elements are the files, its ``size()``
+their records.  The sharded dataset comes with the DistriOptimizer slice
+of the port.
 """
 
 from __future__ import annotations
@@ -73,6 +75,26 @@ class LocalArrayDataSet(AbstractDataSet):
         return iter(self.buffer)
 
 
+def _count_seqfile_records(paths) -> int:
+    from bigdl_tpu_torch.dataset.seqfile import count_records
+    return sum(count_records(getattr(p, "path", p)) for p in paths)
+
+
+class _SeqFileLocalDataSet(LocalArrayDataSet):
+    """Record-file paths whose ``size()`` is their record count (a header
+    scan, at the first call), or ``total_size`` where given."""
+
+    def __init__(self, paths, seed: int = 1,
+                 total_size: Optional[int] = None):
+        super().__init__(paths, seed)
+        self._total = total_size
+
+    def size(self) -> int:
+        if self._total is None:
+            self._total = _count_seqfile_records(self.buffer)
+        return self._total
+
+
 class TransformedDataSet(AbstractDataSet):
     def __init__(self, base: AbstractDataSet, transformer: Transformer):
         self.base = base
@@ -102,3 +124,22 @@ class DataSet:
                 "DataSet.array(num_shards=...) builds the sharded dataset of "
                 "the DistriOptimizer slice of the port")
         return LocalArrayDataSet(data, seed)
+
+    @staticmethod
+    def seq_file_folder(folder: str, num_shards: Optional[int] = None,
+                        seed: int = 1, total_size: Optional[int] = None,
+                        host_shard: bool = False):
+        """Record-file ImageNet (``DataSet.SeqFileFolder.files``,
+        ``dataset/DataSet.scala:437-449``): the elements are the folder's
+        record-file paths, shuffled per epoch as whole files; pipe them
+        through ``seqfile.LocalSeqFileToBytes`` to stream records.
+        ``size()`` counts records (a header scan, or ``total_size``), so
+        epoch triggers count images as the reference's record RDD does."""
+        if num_shards or host_shard:
+            raise NotImplementedError(
+                "DataSet.seq_file_folder(num_shards=, host_shard=True) "
+                "comes with the DistriOptimizer slice of the port "
+                "(ROADMAP.md Queue 1 item 12)")
+        from bigdl_tpu_torch.dataset.seqfile import seq_file_paths
+        return _SeqFileLocalDataSet(seq_file_paths(folder), seed,
+                                    total_size=total_size)

@@ -29,6 +29,12 @@ class Transformer:
     def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
         return self.and_then(other)
 
+    def clone_transformer(self) -> "Transformer":
+        """A deep copy (``Transformer.scala`` cloneTransformer): its own
+        random streams, at the state this one's are in."""
+        import copy
+        return copy.deepcopy(self)
+
 
 class ChainedTransformer(Transformer):
     def __init__(self, first: Transformer, second: Transformer):

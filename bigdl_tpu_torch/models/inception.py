@@ -5,12 +5,24 @@ Input is NCHW 3x224x224; output LogSoftMax over ``class_num``.  Layer names
 follow the caffe GoogLeNet convention, as in the reference.  The builder
 makes the model on the CPU; move it with ``.to()`` (CUDA by default) or hand
 it to ``DLClassifier(device=...)``.
+
+``train_main`` and ``test_main`` are the reference's mains
+(``models/inception/Train.scala:37-116``, ``Test.scala``) on record-file
+ImageNet (``train/`` and ``val/`` folders of ``.seq`` files, as
+``dataset/seqfile.py``'s generator writes them), with their flags and
+defaults, on ``device`` (CUDA by default; they raise without CUDA unless
+asked for the CPU).
 """
 
 from __future__ import annotations
 
+import math
+import os
+
 import bigdl_tpu_torch.nn as nn
 from bigdl_tpu_torch.core import init as init_methods
+
+IMAGENET_TRAIN_SIZE = 1281167          # Train.scala's Poly horizon constant
 
 
 def inception_module(input_size: int, c1: int, c3r: int, c3: int,
@@ -184,3 +196,164 @@ def Inception_v2(class_num: int = 1000) -> nn.Sequential:
             .add(nn.Linear(1024, class_num,
                            init_method=init_methods.XAVIER))
             .add(nn.LogSoftMax()))
+
+
+def _imagenet_set(folder: str, batch_size: int, train: bool,
+                  image_size: int = 224, workers: int = 4,
+                  total_size=None):
+    """Record-file ImageNet (``models/inception/ImageNet2012.scala:36-96``):
+    decode -> crop (random for train, centre for val) -> HFlip(0.5) ->
+    per-channel normalize -> the multi-threaded batcher.  The val side's
+    HFlip is the reference pipeline's, as written."""
+    from bigdl_tpu_torch.dataset import (BGRImgCropper, BGRImgNormalizer,
+                                         DataSet, HFlip, LocalSeqFileToBytes,
+                                         SeqBytesToBGRImg)
+    from bigdl_tpu_torch.dataset.prefetch import MTLabeledBGRImgToBatch
+
+    sub = os.path.join(folder, "train" if train else "val")
+    return (DataSet.seq_file_folder(sub, total_size=total_size)
+            >> LocalSeqFileToBytes()
+            >> SeqBytesToBGRImg()
+            >> BGRImgCropper(image_size, image_size, center=not train)
+            >> HFlip(0.5)
+            >> BGRImgNormalizer((0.485, 0.456, 0.406),
+                                (0.229, 0.224, 0.225))
+            >> MTLabeledBGRImgToBatch(image_size, image_size, batch_size,
+                                      workers=workers))
+
+
+def _build_net(net: str, class_num: int):
+    return (Inception_v1 if net == "inception_v1" else Inception_v2)(
+        class_num)
+
+
+def train_main(argv=None, device="cuda"):
+    """CLI training (``models/inception/Train.scala:37-116``,
+    ``Options.scala:22-76``): Inception v1 or v2 on record-file ImageNet,
+    ``ClassNLLCriterion``, SGD (``-l``, momentum 0.9, ``--weightDecay``)
+    under ``Poly(0.5)`` over the run's horizon (``-e`` epochs of the
+    training set's record count, ``--trainSize`` where given, or ``-i``
+    iterations), bf16 mixed precision, Top-1/Top-5 validation and
+    ``--checkpoint`` snapshots every epoch (``-e``) or every 620
+    iterations.  ``--model``/``--state`` resume from a snapshot pair.
+    Returns the trained model."""
+    import argparse
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, Optimizer, Poly, Top1Accuracy,
+                                       Top5Accuracy, Trigger)
+    from bigdl_tpu_torch.utils.file import File, load_model_snapshot
+    from bigdl_tpu_torch.utils.log import init_logging
+
+    p = argparse.ArgumentParser("inception-train")
+    p.add_argument("-f", "--folder", default="./",
+                   help="record-file folder with train/ and val/")
+    p.add_argument("--model", default=None, help="model snapshot location")
+    p.add_argument("--state", default=None, help="state snapshot location")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--overWrite", action="store_true")
+    p.add_argument("-e", "--maxEpoch", type=int, default=None)
+    p.add_argument("-i", "--maxIteration", type=int, default=62000)
+    p.add_argument("-l", "--learningRate", type=float, default=0.01)
+    p.add_argument("-b", "--batchSize", type=int, default=32)
+    p.add_argument("--weightDecay", type=float, default=0.0002)
+    p.add_argument("--classNum", type=int, default=1000)
+    p.add_argument("--trainSize", type=int, default=None,
+                   help="training-set record count; skips the record-count "
+                        f"scan (ImageNet: {IMAGENET_TRAIN_SIZE})")
+    p.add_argument("--net", choices=["inception_v1", "inception_v2"],
+                   default="inception_v1")
+    args = p.parse_args(argv)
+    device = resolve_device(device)
+
+    init_logging()
+    train_set = _imagenet_set(args.folder, args.batchSize, train=True,
+                              total_size=args.trainSize)
+    val_set = _imagenet_set(args.folder, args.batchSize, train=False)
+    model = _build_net(args.net, args.classNum)
+    if args.model:
+        load_model_snapshot(model, args.model)
+
+    if args.maxEpoch is not None:
+        train_size = args.trainSize or train_set.size()
+        horizon = int(math.ceil(train_size / args.batchSize)) * args.maxEpoch
+        end = Trigger.max_epoch(args.maxEpoch)
+        cadence = Trigger.every_epoch()
+    else:
+        horizon = args.maxIteration
+        end = Trigger.max_iteration(args.maxIteration)
+        cadence = Trigger.several_iteration(620)
+
+    optimizer = Optimizer(model=model, dataset=train_set,
+                          criterion=ClassNLLCriterion(), device=device)
+    optimizer.set_optim_method(SGD(
+        learning_rate=args.learningRate, weight_decay=args.weightDecay,
+        momentum=0.9, dampening=0.0,
+        learning_rate_schedule=Poly(0.5, horizon)))
+    if args.state:
+        optimizer.set_state(File.load(args.state))
+    optimizer.set_end_when(end)
+    optimizer.set_validation(cadence, val_set,
+                             [Top1Accuracy(), Top5Accuracy()])
+    if args.checkpoint:
+        optimizer.set_checkpoint(args.checkpoint, cadence)
+    if args.overWrite:
+        optimizer.overwrite_checkpoint_()
+    optimizer.set_mixed_precision(True)
+    return optimizer.optimize()
+
+
+def test_main(argv=None, device="cuda"):
+    """CLI evaluation (``models/inception/Test.scala``): Top-1 and Top-5
+    over the val record files, from a ``model.<n>`` snapshot (``--model``)
+    or a Caffe checkpoint (``--caffeDefPath``/``--caffeModelPath``, copied
+    by layer name, unmatched layers kept).  Prints and returns the
+    results."""
+    import argparse
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.optim import (LocalValidator, Top1Accuracy,
+                                       Top5Accuracy)
+    from bigdl_tpu_torch.utils.file import load_model_snapshot
+    from bigdl_tpu_torch.utils.log import init_logging
+
+    p = argparse.ArgumentParser("inception-test")
+    p.add_argument("-f", "--folder", default="./")
+    p.add_argument("--model", default=None, help="model snapshot")
+    p.add_argument("--caffeDefPath", default=None)
+    p.add_argument("--caffeModelPath", default=None)
+    p.add_argument("-b", "--batchSize", type=int, default=32)
+    p.add_argument("--classNum", type=int, default=1000)
+    p.add_argument("--net", choices=["inception_v1", "inception_v2"],
+                   default="inception_v1")
+    args = p.parse_args(argv)
+    device = resolve_device(device)
+
+    init_logging()
+    model = _build_net(args.net, args.classNum)
+    if args.model:
+        load_model_snapshot(model, args.model)
+    elif args.caffeDefPath and args.caffeModelPath:
+        from bigdl_tpu_torch.utils.caffe_loader import CaffeLoader
+        CaffeLoader.load(model, args.caffeDefPath, args.caffeModelPath,
+                         match_all=False)
+    else:
+        p.error("provide --model or --caffeDefPath/--caffeModelPath")
+
+    val_set = _imagenet_set(args.folder, args.batchSize, train=False)
+    results = LocalValidator(model, val_set, device=device).test(
+        [Top1Accuracy(), Top5Accuracy()])
+    for r in results:
+        print(r)
+    return results
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["test"]:
+        test_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["train"]:
+        train_main(sys.argv[2:])
+    else:
+        train_main()

@@ -16,10 +16,13 @@ on seeded random ids (targets: the ids rolled by one) with bf16 mixed
 precision, ``remat`` and SGD 0.1, one warm-up step and then ``-i`` timed
 steps, and returns tokens per second; its attention runs K9 with its LSE
 forward and the flash backward K10 and K11.  None of them changes torch's
-global TF32 flags.
+global TF32 flags.  ``ingest_perf_main`` times the host's record-file
+pipeline (read, decode, crop and flip, the multi-threaded batcher) in
+images per second, in one process or in ``-w`` spawned worker processes,
+one record file a task.
 
 ``main`` dispatches as the reference's does (``local`` by default).  The
-``distri`` and ``ingest`` subcommands and ``--dataType double`` raise
+``distri`` subcommand and ``--dataType double`` raise
 ``NotImplementedError`` naming the work they wait for.
 """
 
@@ -42,9 +45,7 @@ _INPUT_SIZES = {
 
 # subcommands of the reference's dispatcher that wait for later work
 _LATER = {"distri": "the DistriOptimizer slice of the port (ROADMAP.md "
-                    "Queue 1 item 12)",
-          "ingest": "the data-feed slice of the port (ROADMAP.md Queue 1 "
-                    "item 11)"}
+                    "Queue 1 item 12)"}
 _DOUBLE = ("--dataType double needs float64 instantiations of the max-pool "
            "and LRN kernels (ROADMAP.md Queue 1 item 14, perf --dataType "
            "double); only float is ported")
@@ -297,10 +298,162 @@ def longcontext_perf_main(argv=None, device="cuda"):
     return toks
 
 
+def ingest_perf_main(argv=None, device="cuda"):
+    """Record-file ingest throughput on the host: ``-n`` seeded images of
+    ``--size``² written once under ``--workDir`` (rewritten when the
+    parameters change) as record files, then ``-e`` passes of the training
+    pipeline over them (``_ingest_pipeline``: read, decode, random
+    ``--crop`` crop, HFlip(0.5), the two-thread batcher), each logged in
+    images/s.  ``-w`` above 1 runs one pipeline a record file in that many
+    spawned worker processes, started and warmed before the timing.  The
+    device is checked as every entry point's (CUDA by default; it raises
+    without CUDA unless asked for the CPU), and the harness runs on the
+    host.  Returns the last pass's images/s."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.dataset import ingest_config
+    from bigdl_tpu_torch.dataset.image import LabeledImage
+    from bigdl_tpu_torch.dataset.seqfile import (BGRImgToLocalSeqFile,
+                                                 seq_file_paths)
+    from bigdl_tpu_torch.utils.log import init_logging
+
+    p = argparse.ArgumentParser("ingest-perf")
+    p.add_argument("-b", "--batchSize", type=int, default=256)
+    p.add_argument("-n", "--images", type=int, default=4096,
+                   help="synthetic images to generate")
+    p.add_argument("--size", type=int, default=256,
+                   help="stored image edge (the 256 short side)")
+    p.add_argument("--crop", type=int, default=224)
+    p.add_argument("-w", "--workers", type=int, default=1,
+                   help="ingest worker processes, one pipeline each; scale "
+                        "to the host's cores")
+    p.add_argument("--workDir", default=os.path.join(
+        tempfile.gettempdir(), "bigdl_tpu_torch_ingest"))
+    p.add_argument("-e", "--epochs", type=int, default=2,
+                   help="passes over the data (the first warms the page "
+                        "cache)")
+    args = p.parse_args(argv)
+    resolve_device(device)
+    init_logging()
+
+    os.makedirs(args.workDir, exist_ok=True)
+    # files of other parameters would time another workload
+    params = {"images": args.images, "size": args.size,
+              "workers": args.workers}
+    marker = os.path.join(args.workDir, "params.json")
+    try:
+        with open(marker) as f:
+            stale = json.load(f) != params
+    except (OSError, ValueError):   # a missing or torn marker
+        stale = True
+    if stale or not seq_file_paths(args.workDir):
+        for f in seq_file_paths(args.workDir):
+            os.remove(f)
+        rng = np.random.RandomState(0)
+
+        def imgs():
+            for i in range(args.images):
+                yield LabeledImage(
+                    rng.randint(0, 256, (args.size, args.size, 3))
+                    .astype(np.float32), float(i % 1000 + 1))
+
+        # at least one file a worker, else -w cannot scale
+        block = max(1, args.images // max(args.workers, 4))
+        files = list(BGRImgToLocalSeqFile(
+            block, os.path.join(args.workDir, "part")).apply(imgs()))
+        with open(marker, "w") as f:
+            json.dump(params, f)
+        logger.info("generated %d record files (%d images)", len(files),
+                    args.images)
+
+    shards = seq_file_paths(args.workDir)
+    pool = None
+    n_pool = 1
+    if args.workers > 1:
+        if args.workers > (os.cpu_count() or 1):
+            logger.warning("%d workers on a %d-core host: expect overhead, "
+                           "not speedup", args.workers, os.cpu_count() or 1)
+        if args.workers > len(shards):
+            logger.warning("only %d file shards for %d workers: "
+                           "parallelism capped", len(shards), args.workers)
+        # processes over file shards: the per-image Python chain holds the
+        # GIL, so each worker runs a whole pipeline over whole files
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        ctx = multiprocessing.get_context(ingest_config.start_method())
+        n_pool = min(args.workers, len(shards))
+        pool = ProcessPoolExecutor(n_pool, mp_context=ctx)
+
+    ips = 0.0
+    try:
+        if pool is not None:
+            # every worker imports before the timing: a barrier as wide as
+            # the pool keeps one quick worker from taking every warm-up
+            mgr = ctx.Manager()
+            try:
+                barrier = mgr.Barrier(n_pool)
+                list(pool.map(_ingest_warm, [barrier] * n_pool))
+            finally:
+                mgr.shutdown()
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            count = 0
+            if pool is not None:
+                for c in pool.map(
+                        _ingest_shard_count,
+                        [(s, args.crop, args.batchSize) for s in shards]):
+                    count += c
+            else:
+                pipeline = _ingest_pipeline(args.crop, args.batchSize)
+                for batch in pipeline(iter(shards)):
+                    count += batch.data.shape[0]
+            dt = time.time() - t0
+            ips = count / dt
+            logger.info("epoch %d: %d images in %.2fs -> %.1f images/sec "
+                        "(%d workers)", epoch, count, dt, ips, n_pool)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    return ips
+
+
+def _ingest_warm(barrier):
+    """A worker process's imports, before the timing; the barrier makes
+    every process of the pool take one."""
+    _ingest_pipeline(224, 256)
+    barrier.wait(timeout=300)
+    return 0
+
+
+def _ingest_pipeline(crop, batch_size):
+    from bigdl_tpu_torch.dataset import (BGRImgCropper, HFlip,
+                                         LocalSeqFileToBytes,
+                                         SeqBytesToBGRImg)
+    from bigdl_tpu_torch.dataset.prefetch import MTLabeledBGRImgToBatch
+    return (LocalSeqFileToBytes() >> SeqBytesToBGRImg() >>
+            BGRImgCropper(crop, crop) >> HFlip(0.5) >>
+            MTLabeledBGRImgToBatch(crop, crop, batch_size, workers=2))
+
+
+def _ingest_shard_count(job):
+    """One worker process: the whole pipeline over one record file; the
+    images it batched."""
+    path, crop, batch_size = job
+    n = 0
+    for batch in _ingest_pipeline(crop, batch_size)(iter([path])):
+        n += batch.data.shape[0]
+    return n
+
+
 def main(argv=None, device="cuda"):
     """Subcommand dispatcher (the reference's ``bigdl-tpu-perf``):
-    ``local`` (the default), ``infer`` and ``longcontext``; ``distri`` and
-    ``ingest`` raise until their slices."""
+    ``local`` (the default), ``infer``, ``ingest`` and ``longcontext``;
+    ``distri`` raises until its slice."""
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in _LATER:
@@ -308,6 +461,8 @@ def main(argv=None, device="cuda"):
             f"the {argv[0]!r} perf harness comes with {_LATER[argv[0]]}")
     if argv and argv[0] == "infer":
         return infer_perf_main(argv[1:], device=device)
+    if argv and argv[0] == "ingest":
+        return ingest_perf_main(argv[1:], device=device)
     if argv and argv[0] == "longcontext":
         return longcontext_perf_main(argv[1:], device=device)
     if argv and argv[0] == "local":

@@ -8,6 +8,11 @@ LogSoftMax over ``class_num``.  No convolution has a bias: every one feeds
 a BatchNorm, which cancels it.  The builder makes the model on the CPU;
 move it with ``.to()`` (CUDA by default) or hand it to a trainer or
 ``DLClassifier`` with its device.
+
+``train_main`` and ``test_main`` are the reference's CIFAR-10 mains
+(``models/resnet/Train.scala:41-118``, ``Test.scala``) on CIFAR-10 binary
+batches, with their flags and defaults, on ``device`` (CUDA by default;
+they raise without CUDA unless asked for the CPU).
 """
 
 from __future__ import annotations
@@ -131,3 +136,124 @@ def cifar10_decay(epoch: int) -> float:
     """The exponent of ``EpochDecay`` in the CIFAR-10 recipe
     (``models/resnet/Train.scala:38-39``)."""
     return 2.0 if epoch >= 122 else (1.0 if epoch >= 81 else 0.0)
+
+
+def _cifar_val_set(folder: str, batch_size: int):
+    from bigdl_tpu_torch.dataset import (BGRImgNormalizer, BGRImgToBatch,
+                                         BytesToBGRImg, DataSet,
+                                         load_cifar10)
+    from bigdl_tpu_torch.dataset.loaders import (CIFAR10_TEST_MEAN,
+                                                 CIFAR10_TEST_STD)
+    return DataSet.array(load_cifar10(folder, train=False)) >> \
+        BytesToBGRImg() >> BGRImgNormalizer(CIFAR10_TEST_MEAN,
+                                            CIFAR10_TEST_STD) >> \
+        BGRImgToBatch(batch_size)
+
+
+def train_main(argv=None, device="cuda"):
+    """CLI training of the CIFAR-10 ResNet (depth ``--depth``, shortcut
+    ``--shortcutType``): normalize, HFlip(0.5) and a pad-4 random crop,
+    ``CrossEntropyCriterion``, SGD with weight decay, momentum and nesterov
+    under ``EpochDecay(cifar10_decay)``, Top-1 on the test batch every
+    epoch, ``--checkpoint`` snapshots every epoch, ``--model``/``--state``
+    to resume.  Returns the trained model."""
+    import argparse
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.dataset import (BGRImgCropper, BGRImgNormalizer,
+                                         BGRImgToBatch, BytesToBGRImg,
+                                         DataSet, HFlip, load_cifar10)
+    from bigdl_tpu_torch.dataset.loaders import (CIFAR10_TRAIN_MEAN,
+                                                 CIFAR10_TRAIN_STD)
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import (SGD, EpochDecay, Optimizer,
+                                       Top1Accuracy, Trigger)
+    from bigdl_tpu_torch.utils.file import File, load_model_snapshot
+    from bigdl_tpu_torch.utils.log import init_logging
+
+    p = argparse.ArgumentParser("resnet-train")
+    p.add_argument("-f", "--folder", default="./")
+    p.add_argument("-b", "--batchSize", type=int, default=128)
+    p.add_argument("--nepochs", type=int, default=165)
+    p.add_argument("--depth", type=int, default=20)
+    p.add_argument("--classes", type=int, default=10)
+    p.add_argument("--shortcutType", default="A")
+    p.add_argument("-r", "--learningRate", type=float, default=0.1)
+    p.add_argument("--weightDecay", type=float, default=1e-4)
+    p.add_argument("-m", "--momentum", type=float, default=0.9)
+    p.add_argument("--dampening", type=float, default=0.0)
+    p.add_argument("--nesterov", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--model", default=None)
+    p.add_argument("--state", default=None, help="state snapshot to resume")
+    args = p.parse_args(argv)
+    device = resolve_device(device)
+
+    init_logging()
+    train_set = DataSet.array(load_cifar10(args.folder, train=True)) >> \
+        BytesToBGRImg() >> BGRImgNormalizer(CIFAR10_TRAIN_MEAN,
+                                            CIFAR10_TRAIN_STD) >> \
+        HFlip(0.5) >> BGRImgCropper(32, 32, padding=4) >> \
+        BGRImgToBatch(args.batchSize)
+    val_set = _cifar_val_set(args.folder, args.batchSize)
+    model = ResNet(class_num=args.classes, depth=args.depth,
+                   shortcut_type=args.shortcutType, dataset="cifar10")
+    if args.model:
+        load_model_snapshot(model, args.model)
+    optimizer = Optimizer(model=model, dataset=train_set,
+                          criterion=CrossEntropyCriterion(), device=device)
+    optimizer.set_optim_method(SGD(
+        learning_rate=args.learningRate, weight_decay=args.weightDecay,
+        momentum=args.momentum, dampening=args.dampening,
+        nesterov=args.nesterov,
+        learning_rate_schedule=EpochDecay(cifar10_decay)))
+    if args.state:
+        optimizer.set_state(File.load(args.state))
+    optimizer.set_end_when(Trigger.max_epoch(args.nepochs))
+    optimizer.set_validation(Trigger.every_epoch(), val_set,
+                             [Top1Accuracy()])
+    if args.checkpoint:
+        optimizer.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+    return optimizer.optimize()
+
+
+def test_main(argv=None, device="cuda"):
+    """CLI evaluation (``models/resnet/Test.scala``): Top-1 of a
+    ``model.<n>`` snapshot on the CIFAR-10 test batch.  Prints and returns
+    the results."""
+    import argparse
+
+    from bigdl_tpu_torch.core.device import resolve_device
+    from bigdl_tpu_torch.optim import LocalValidator, Top1Accuracy
+    from bigdl_tpu_torch.utils.file import load_model_snapshot
+    from bigdl_tpu_torch.utils.log import init_logging
+
+    p = argparse.ArgumentParser("resnet-test")
+    p.add_argument("-f", "--folder", default="./")
+    p.add_argument("--model", required=True)
+    p.add_argument("-b", "--batchSize", type=int, default=128)
+    p.add_argument("--depth", type=int, default=20)
+    p.add_argument("--classes", type=int, default=10)
+    p.add_argument("--shortcutType", default="A")
+    args = p.parse_args(argv)
+    device = resolve_device(device)
+
+    init_logging()
+    val_set = _cifar_val_set(args.folder, args.batchSize)
+    model = ResNet(class_num=args.classes, depth=args.depth,
+                   shortcut_type=args.shortcutType, dataset="cifar10")
+    load_model_snapshot(model, args.model)
+    results = LocalValidator(model, val_set, device=device).test(
+        [Top1Accuracy()])
+    for r in results:
+        print(r)
+    return results
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["test"]:
+        test_main(sys.argv[2:])
+    else:
+        train_main()

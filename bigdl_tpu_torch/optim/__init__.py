@@ -1,12 +1,13 @@
-"""Training of the port: the local trainer, SGD, Adam, AdamW, Adagrad and
-the schedules, triggers and validation methods (``bigdl_tpu/optim``)."""
+"""Training of the port: the local trainer, SGD, Adam, AdamW, Adagrad,
+LBFGS and the schedules, triggers and validation methods (``bigdl_tpu/optim``)."""
 
 from bigdl_tpu_torch.optim.local_optimizer import (SKIPPED_STEPS,
                                                    LocalOptimizer,
                                                    LocalValidator, Validator)
-from bigdl_tpu_torch.optim.optim_method import (SGD, Adagrad, Adam, AdamW,
-                                                Cosine, Default, EpochDecay,
-                                                EpochSchedule, EpochStep,
+from bigdl_tpu_torch.optim.optim_method import (LBFGS, SGD, Adagrad, Adam,
+                                                AdamW, Cosine, Default,
+                                                EpochDecay, EpochSchedule,
+                                                EpochStep,
                                                 LearningRateSchedule,
                                                 OptimMethod, Poly, Regime,
                                                 Step, Warmup)
@@ -18,7 +19,7 @@ from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
                                               ValidationResult)
 
 __all__ = ["AccuracyResult", "Adagrad", "Adam", "AdamW", "Cosine",
-           "Default", "EpochDecay", "EpochSchedule", "EpochStep",
+           "Default", "EpochDecay", "EpochSchedule", "EpochStep", "LBFGS",
            "LearningRateSchedule", "LocalOptimizer", "LocalValidator",
            "Loss", "LossResult", "OptimMethod", "Optimizer", "Poly", "Regime",
            "SGD", "SKIPPED_STEPS", "Step", "Top1Accuracy", "Top5Accuracy",

@@ -6,7 +6,9 @@ forward, backward and optimizer update on the trainer's device
 is its only host sync, as in the reference.  The host keeps what the
 reference's driver loop kept: the data iterator, the epoch and iteration
 counters, the learning-rate schedule, triggers, validation and the
-per-step log line.
+per-step log line.  A batch's arrays are copied to the device, or used
+where they lie when they are already tensors there (``PrefetchToDevice``'s
+batches).
 
 Random draws in training (``Dropout``) come from one ``torch.Generator`` on
 the device, seeded by :meth:`LocalOptimizer.set_seed` and handed to the
@@ -83,7 +85,20 @@ def _later(what: str, slice_name: str):
 
 
 def _to_device(array, device) -> torch.Tensor:
+    """A batch array as a tensor on ``device``: a tensor (a batch that
+    ``PrefetchToDevice`` already put on the card) is used as it is where it
+    lies there; a host array is copied."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device)
     return torch.from_numpy(np.asarray(array)).to(device)
+
+
+def _f32_input(data: torch.Tensor) -> torch.Tensor:
+    """A float32 model's input: floating data in a narrower dtype (a batch
+    cast to bf16 on the host) computes in float32, as jnp promotes it."""
+    if data.is_floating_point() and data.dtype != torch.float32:
+        return data.float()
+    return data
 
 
 class LocalOptimizer:
@@ -228,7 +243,7 @@ class LocalOptimizer:
         if self.mixed_precision:
             y = mixed_forward(self.model, data)
         else:
-            y = self.model(data)
+            y = self.model(_f32_input(data))
         loss = self.criterion(y, labels)
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
@@ -449,7 +464,7 @@ def _evaluate(model, dataset, methods, device):
     try:
         with torch.inference_mode():
             for batch in dataset.data(train=False):
-                y = model(_to_device(batch.data, device))
+                y = model(_f32_input(_to_device(batch.data, device)))
                 rs = [m(y, batch.labels) for m in methods]
                 results = rs if results is None else \
                     [a + b for a, b in zip(results, rs)]

@@ -361,6 +361,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
    forward, 2 rows within 1e-5 of the saved module's; each with images/s,
    the host pipeline's and the forwards' shares, the busy share, the
    files' bytes and the load, save, write and read times;
+3u. record-file training and the conv nets' mains, on files written under
+   ``build/`` and removed after: (a) ``dataset/seqfile.py`` ``main -p 2
+   -b 5`` over a PNG tree of 4 classes (train and val, mixed sizes),
+   ``check_file`` on every file, the records rewritten as Hadoop
+   SequenceFiles read back as the same images; (b)
+   ``models/inception.py`` ``train_main -b 32 -e 3 --checkpoint`` (bf16,
+   SGD under Poly over the record count) on 320 seeded 256-short-side
+   records in 5 files, 128 to validate, labels 1-1000: 13 K1 + 13 K3 +
+   2 K2 + 2 K4 a step and 13 K1 + 2 K2 a validation forward exactly, ms a
+   step, images/s and the share of ``next(data_iter)``, the pipeline's
+   host ms an image by stage, a profile of 3 more steps, ``test_main --model`` on the last snapshot equal to
+   ``LocalValidator`` on the in-memory model, ``-b 4 -i 2`` card vs CPU
+   (dropout 0, bf16 rule) and the run resumed from the first epoch's
+   snapshot pair (the same records, other crops: within 5 % a step);
+   (c) ``PrefetchToDevice`` after the pipeline: 6 batches equal to the
+   host's bit for bit (f32, bf16), ``train_main -e 1`` with it at (b)'s
+   losses, its step, a batch's pageable and pinned upload; (d) the
+   LeNet-5 (``-b 128``), ResNet-20, VggForCifar10 (``-b 112``) and
+   autoencoder (``-b 150``) mains, one epoch each on 6 000 MNIST and
+   5 000 CIFAR-10 records of seeded files, their launches exactly (2 K1 +
+   2 K3 a LeNet step, 5 a VGG one, none else), ms a step, the first loss
+   against the CPU within 1e-4 and ``test_main``; (e) ``perf ingest -n
+   1024 -e 2`` at ``-w 1`` and ``-w 4`` (images/s on the host); (f)
+   ``LBFGS.optimize`` (line search) and ``SGD``/``Adam``/``Adagrad.
+   optimize`` on a 4096 x 64 logistic regression on the card, losses
+   against the CPU's;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -428,7 +454,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
    its index) and K3 at the Fast R-CNN trunk's four pools (batch 2 on
    600x800 input) the same way, with each launch's plan; the head's forward and step, RoiPooling's device
    time, the 20 ``Nms`` calls and the autoencoder's step; K1 (f32 with its
-   index) and K3 at the text classifier's three pools (batch 128) the same
+   index) and K3 at the text classifier's three pools (batch 128) and at
+   LeNet-5's two (batch 128) and VggForCifar10's five (batch 112) the same
    way.
 
 The line before the last is a JSON object with a ``kernels`` list; the
@@ -1090,7 +1117,8 @@ def _offset_copy(t):
 def pool_cases():
     """Phase 2's and 2b's pool cases: (name, shape, geometry, offset)."""
     for case in (POOLS + RESNET_POOLS + V2_POOLS + ALEXNET_POOLS + VGG_POOLS
-                 + RCNN_POOLS + TEXT_POOLS + RAGGED_POOLS + POOL_EDGES):
+                 + RCNN_POOLS + TEXT_POOLS + LENET_POOLS + CIFAR_VGG_POOLS
+                 + RAGGED_POOLS + POOL_EDGES):
         name, shape = case[:2]
         yield name, shape, tuple(case[2:9]), len(case) > 9 and case[9]
 
@@ -6201,6 +6229,737 @@ def loaders_and_mains(device, card):
     return report, paths
 
 
+# -- phase 3u: record-file ImageNet training and the conv nets' mains ---------
+
+# 3u-a: the generator over a staged PNG tree (4 classes, mixed sizes)
+GEN_CLASSES, GEN_TRAIN, GEN_VAL = 4, 6, 3       # PNG files a class
+GEN_SIZES = ((256, 341), (341, 256), (300, 300), (288, 320))
+GEN_BLOCK = 5                                   # records a file
+# 3u-b: the record folder train_main reads (256-short-side BGR images,
+# labels 1-1000), its run and its checks
+SEQ_TRAIN, SEQ_VAL, SEQ_BLOCK = 320, 128, 64    # 5 train files, 2 val
+SEQ_SIDES = (256, 288, 320, 341)                # the long side, in turn
+SEQ_EPOCHS = 3                                  # 10 steps an epoch: 30
+SEQ_CPU_BATCH, SEQ_CPU_ITERS = 4, 2             # card vs CPU, bf16
+SEQ_PROFILE_STEPS = 3
+# the resumed run restarts its crop and flip draws (fresh transformers, as
+# a fresh process of the reference's has): the same records in the same
+# order, other crops of them, so its losses are held to this share of the
+# uninterrupted run's, per step
+SEQ_RESUME_RTOL = 0.05
+PREFETCH_BATCHES = 6                            # compared, > the depth 2
+UPLOAD_REPS = 20
+# 3u-d: the other mains' data, cut from 60 000/10 000 (MNIST) and
+# 50 000/10 000 (CIFAR-10)
+MAIN_MNIST = (6000, 1000)
+MAIN_CIFAR = (1000, 1000)                       # a data batch (x5), test
+MAIN_LOSS_RTOL = 1e-4                           # first loss, card vs CPU
+# LeNet-5's two 2x2/2 pools at its batch of 128, VggForCifar10's five
+# ceil-mode 2x2/2 pools at its batch of 112
+LENET_POOLS = [
+    ("lenet/pool1 2x2_s2", (128, 6, 24, 24), 2, 2, 2, 2, 0, 0, False),
+    ("lenet/pool2 2x2_s2", (128, 12, 8, 8), 2, 2, 2, 2, 0, 0, False)]
+CIFAR_VGG_POOLS = [
+    (f"vgg_cifar/pool{i + 1} 2x2_s2 ceil", (112, c, hw, hw), 2, 2, 2, 2, 0,
+     0, True)
+    for i, (c, hw) in enumerate(((64, 32), (128, 16), (256, 8), (512, 4),
+                                 (512, 2)))]
+# 3u-e and 3u-f
+INGEST_ARGS = ["-n", "1024", "-e", "2"]
+LBFGS_ROWS, LBFGS_DIM, LBFGS_ITERS = 4096, 64, 20
+OPTIMIZE_STEPS = 20
+LBFGS_RTOL = 1e-4              # card vs CPU losses (line search, f32 sums)
+OPTIMIZE_RTOL = 1e-5           # card vs CPU losses of SGD/Adam/Adagrad
+
+
+def quiet_step_logs():
+    """The mains' stdout handler (``utils/log.py``) raised to WARNING, so
+    their per-step lines stay out of the run's output; the trainer's
+    records still reach ``LogArgs``.  Returns a restore function."""
+    import logging
+    from bigdl_tpu_torch.utils.log import init_logging
+    init_logging()
+    handlers = logging.getLogger("bigdl_tpu_torch").handlers
+    levels = [h.level for h in handlers]
+    for h in handlers:
+        h.setLevel(logging.WARNING)
+
+    def restore():
+        for h, lv in zip(handlers, levels):
+            h.setLevel(lv)
+    return restore
+
+
+class StepCapture:
+    """Wraps ``LocalOptimizer``: keeps every trainer built in the block
+    (``.trainers``), the first step's batch, criterion and a host copy of
+    the model as the step found it (``.first``), and the host seconds each
+    step waited in ``next(data_iter)`` (``.waits``, the dataset's iterator
+    timed)."""
+
+    def __init__(self):
+        self.trainers, self.first, self.waits = [], None, []
+
+    def __enter__(self):
+        from bigdl_tpu_torch import optim
+        from bigdl_tpu_torch.dataset.dataset import TransformedDataSet
+        from bigdl_tpu_torch.optim import local_optimizer as lo
+        self._saved = (optim.Optimizer, lo.LocalOptimizer._step,
+                       TransformedDataSet.data)
+        make, step, data = self._saved
+        outer = self
+
+        def capture(*args, **kwargs):
+            opt = make(*args, **kwargs)
+            outer.trainers.append(opt)
+            return opt
+
+        def first_step(opt, params, x, y, *args, **kwargs):
+            if outer.first is None:
+                outer.first = {"data": x.detach().cpu().clone(),
+                               "labels": y.detach().cpu().clone(),
+                               "model": copy.deepcopy(opt.model).cpu(),
+                               "criterion": opt.criterion}
+            return step(opt, params, x, y, *args, **kwargs)
+
+        def timed(ds, train):
+            it = data(ds, train)
+            if not train:
+                yield from it
+                return
+            while True:
+                t0 = time.perf_counter()
+                b = next(it, None)
+                outer.waits.append(time.perf_counter() - t0)
+                if b is None:
+                    return
+                yield b
+        optim.Optimizer = capture
+        lo.LocalOptimizer._step = first_step
+        TransformedDataSet.data = timed
+        return self
+
+    def __exit__(self, *exc):
+        from bigdl_tpu_torch import optim
+        from bigdl_tpu_torch.dataset.dataset import TransformedDataSet
+        from bigdl_tpu_torch.optim import local_optimizer as lo
+        (optim.Optimizer, lo.LocalOptimizer._step,
+         TransformedDataSet.data) = self._saved
+
+
+def step_report(opt, waits, batch):
+    """Per-step numbers of a trainer's run: the median step (the wait in
+    ``next(data_iter)`` plus the trainer's upload-to-loss time) after the
+    first, the median upload-to-loss time alone, images/s at the step, and
+    the share of the steps' time spent waiting for the batch."""
+    durs = [r["dur_s"] for r in opt.step_records]
+    waits = waits[:len(durs)]
+    steps = [w + d for w, d in zip(waits, durs)]
+    ms = 1e3 * statistics.median(steps[1:] or steps)
+    return {"steps": len(durs), "step_ms": ms,
+            "train_ms": 1e3 * statistics.median(durs[1:] or durs),
+            "images_per_s": batch / ms * 1e3,
+            "data_wait_share": sum(waits[1:]) / max(sum(steps[1:]), 1e-12),
+            "first_step_ms": 1e3 * steps[0]}
+
+
+def write_records(folder, n, seed, block):
+    """``n`` seeded 256-short-side BGR images (the long side from
+    SEQ_SIDES in turn, landscape and portrait alternating), labels drawn
+    from 1-1000, written by ``BGRImgToLocalSeqFile`` in files of
+    ``block``."""
+    from bigdl_tpu_torch.dataset import BGRImgToLocalSeqFile, LabeledImage
+    rng = np.random.RandomState(seed)
+    os.makedirs(folder, exist_ok=True)
+
+    def images():
+        for i in range(n):
+            long_side = SEQ_SIDES[i % len(SEQ_SIDES)]
+            hw = (256, long_side) if i % 2 else (long_side, 256)
+            yield LabeledImage(rng.randint(0, 256, hw + (3,))
+                               .astype(np.float32),
+                               float(rng.randint(1, CLASSES + 1)))
+    return list(BGRImgToLocalSeqFile(block, os.path.join(folder, "part"))
+                .apply(images()))
+
+
+def seqfile_generator(root, card):
+    """Phase 3u-a: ``seqfile.main`` (-p 2, -b GEN_BLOCK) over a staged PNG
+    tree (GEN_CLASSES classes, train and val, mixed sizes); ``check_file``
+    on every file written; the records rewritten as Hadoop SequenceFiles
+    read back through ``LocalSeqFileToBytes`` as the same images."""
+    from bigdl_tpu_torch.dataset import (LocalSeqFileToBytes,
+                                         SeqBytesToBGRImg)
+    from bigdl_tpu_torch.dataset import hadoop_seqfile, seqfile
+    tree, out = os.path.join(root, "png"), os.path.join(root, "gen")
+    t0 = time.perf_counter()
+    for split, per in (("train", GEN_TRAIN), ("val", GEN_VAL)):
+        for c in range(GEN_CLASSES):
+            write_pngs(os.path.join(tree, split, f"n{c:08d}"), per,
+                       GEN_SIZES, SEED + 700 + 10 * c + (split == "val"))
+    stage_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    files = seqfile.main(["-f", tree, "-o", out, "-p", "2", "-b",
+                          str(GEN_BLOCK)])
+    gen_s = time.perf_counter() - t0
+    n = GEN_CLASSES * (GEN_TRAIN + GEN_VAL)
+    checks = [seqfile.check_file(f) for f in files]
+    if sum(c["records"] for c in checks) != n or any(
+            c["decoded_through_pipeline"] != min(4, c["records"])
+            for c in checks):
+        fail(f"3u-a: check_file over the generator's files: {checks}")
+    hadoop = os.path.join(root, "hadoop")
+    os.makedirs(hadoop)
+    for i, f in enumerate(files):
+        hadoop_seqfile.write_hadoop_seq_file(
+            os.path.join(hadoop, f"h{i:03d}.seq"), seqfile.read_seq_file(f))
+    pipe = LocalSeqFileToBytes() >> SeqBytesToBGRImg()
+    got = list(pipe(seqfile.seq_file_paths(hadoop)))
+    want = list(pipe(files))
+    if len(got) != n or any(not np.array_equal(g.data, w.data) or
+                            g.label != w.label for g, w in zip(got, want)):
+        fail("3u-a: the Hadoop SequenceFiles read back other images")
+    shapes = sorted({g.data.shape[:2] for g in got})
+    labels = sorted({g.label for g in got})
+    report = {"png_files": n, "record_files": len(files),
+              "stage_s": stage_s, "generate_s": gen_s,
+              "generate_ms_per_image": 1e3 * gen_s / n,
+              "shapes": [list(s) for s in shapes], "labels": labels}
+    log(f"[{card}] 3u-a seqfile generator (-p 2 -b {GEN_BLOCK}): {n} PNG "
+        f"files of {GEN_CLASSES} classes -> {len(files)} record files in "
+        f"{gen_s:.3f} s ({report['generate_ms_per_image']:.1f} ms an image;"
+        f" staging {stage_s:.2f} s); check_file passes on each; the Hadoop "
+        f"copies read back the same {n} images; shapes {shapes}, labels "
+        f"{labels}")
+    return report
+
+
+def pipeline_stages(folder, n):
+    """The training pipeline of ``_imagenet_set`` a stage at a time over
+    the first ``n`` training records, each stage's output kept in a list:
+    host ms an image of each stage (read, decode, crop, flip, normalize,
+    the 4-thread pack)."""
+    from bigdl_tpu_torch.dataset import (BGRImgCropper, BGRImgNormalizer,
+                                         HFlip, LocalSeqFileToBytes,
+                                         SeqBytesToBGRImg)
+    from bigdl_tpu_torch.dataset.prefetch import MTLabeledBGRImgToBatch
+    from bigdl_tpu_torch.dataset.seqfile import seq_file_paths
+    t0 = time.perf_counter()
+    records = list(LocalSeqFileToBytes()(seq_file_paths(
+        os.path.join(folder, "train"))))
+    out = {"read": 1e3 * (time.perf_counter() - t0) / len(records)}
+    items = records[:n]
+    for name, t in (("decode", SeqBytesToBGRImg()),
+                    ("crop", BGRImgCropper(IMAGE, IMAGE)),
+                    ("flip", HFlip(0.5)),
+                    ("normalize", BGRImgNormalizer((0.485, 0.456, 0.406),
+                                                   (0.229, 0.224, 0.225))),
+                    ("pack", MTLabeledBGRImgToBatch(IMAGE, IMAGE, BATCH))):
+        t0 = time.perf_counter()
+        items = list(t(items))
+        out[name] = 1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def imagenet_launches(steps, val_forwards):
+    return {"max_pool2d": 13 * (steps + val_forwards),
+            "cross_map_lrn": 2 * (steps + val_forwards),
+            "max_pool2d_bwd": 13 * steps, "lrn_bwd": 2 * steps}
+
+
+def inception_cpu_check(folder, device):
+    """Phase 3u-b's card vs CPU: ``train_main -b SEQ_CPU_BATCH -i
+    SEQ_CPU_ITERS`` on the card and on the CPU from the same weights on
+    the same batches, dropout 0 (the card's and the CPU's generators draw
+    other masks).  bf16 rule, as ``cnn_bf16_vs_cpu``'s: each loss within
+    the CPU's own bf16 error on the first (its bf16 loss against its f32
+    forward of the same batch), and never below 2 bfloat16 steps of the
+    loss (the log-probs round to bf16, in steps)."""
+    import torch
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.models import inception
+    argv = ["-f", folder, "-b", str(SEQ_CPU_BATCH), "-i",
+            str(SEQ_CPU_ITERS)]
+    inception.Inception_v1 = lambda n: Inception_v1(n, dropout=0.0)
+    losses, firsts = [], []
+    try:
+        for dev in (device, torch.device("cpu")):
+            with StepCapture() as cap:
+                inception.train_main(argv, device=dev)
+            losses.append([r["loss"] for r in cap.trainers[0].step_records])
+            firsts.append(cap.first)
+    finally:
+        inception.Inception_v1 = Inception_v1
+    first = firsts[1]
+    with torch.inference_mode():
+        f32 = float(first["criterion"](first["model"].training_()(
+            first["data"]), first["labels"]))
+    floor = abs(losses[1][0] - f32)
+    limits = [max(floor, 2 * bf16_step(abs(v))) for v in losses[1]]
+    diffs = [abs(a - b) for a, b in zip(*losses)]
+    if len(diffs) != SEQ_CPU_ITERS or any(
+            not d <= lim for d, lim in zip(diffs, limits)):
+        fail(f"3u-b: card vs CPU losses {losses[0]} vs {losses[1]}, limits "
+             f"{limits} (CPU f32 first loss {f32})")
+    same_batch = bool(torch.equal(firsts[0]["data"], firsts[1]["data"]))
+    if not same_batch:
+        fail("3u-b: the card's and the CPU's first batches differ")
+    return {"losses_card": losses[0], "losses_cpu": losses[1],
+            "cpu_f32_first_loss": f32, "limits": limits, "diffs": diffs}
+
+
+def record_file_training(root, card, device):
+    """Phase 3u-b: ``inception.train_main -b 32 -e SEQ_EPOCHS
+    --checkpoint`` on a record folder written by ``BGRImgToLocalSeqFile``
+    (SEQ_TRAIN training records in files of SEQ_BLOCK, SEQ_VAL validation
+    records); counts from 0 over the run: 13 K1 + 13 K3 + 2 K2 + 2 K4 a
+    step, 13 K1 + 2 K2 a validation forward.  Then ``test_main --model``
+    on its last snapshot against ``LocalValidator`` over the same set with
+    the in-memory model (equal Top-1 and Top-5); the pipeline's host time
+    by stage (``pipeline_stages``); 3 more steps under torch.profiler;
+    card vs CPU (``inception_cpu_check``); the resume from the first
+    epoch's snapshot.  Returns (report, launches by path,
+    the folder)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import inception
+    from bigdl_tpu_torch.optim import (SKIPPED_STEPS, LocalValidator,
+                                       Top1Accuracy, Top5Accuracy, Trigger)
+    folder = os.path.join(root, "imagenet")
+    t0 = time.perf_counter()
+    train_files = write_records(os.path.join(folder, "train"), SEQ_TRAIN,
+                                SEED + 720, SEQ_BLOCK)
+    write_records(os.path.join(folder, "val"), SEQ_VAL, SEED + 721,
+                  SEQ_BLOCK)
+    write_s = time.perf_counter() - t0
+    ck = os.path.join(root, "inception_ck")
+    steps = SEQ_EPOCHS * -(-SEQ_TRAIN // BATCH)
+    val_fwd = SEQ_EPOCHS * -(-SEQ_VAL // BATCH)
+    paths = {}
+    with StepCapture() as cap:
+        ops.reset_launches()                 # the path starts here
+        t0 = time.perf_counter()
+        model = inception.train_main(
+            ["-f", folder, "-b", str(BATCH), "-e", str(SEQ_EPOCHS),
+             "--checkpoint", ck], device=device)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        paths["imagenet_train_main"] = launches_now()   # and ends here
+    opt = cap.trainers[0]
+    losses = [r["loss"] for r in opt.step_records]
+    expect_launches("3u-b train_main", paths["imagenet_train_main"],
+                    imagenet_launches(steps, val_fwd))
+    if len(losses) != steps or not np.isfinite(losses).all() or \
+            opt.metrics.get(SKIPPED_STEPS):
+        fail(f"3u-b: {len(losses)} losses (want {steps}), finite "
+             f"{bool(np.isfinite(losses).all())}, skipped "
+             f"{opt.metrics.get(SKIPPED_STEPS)}")
+    if opt.optim_method.schedule.max_iteration != steps:
+        fail(f"3u-b: Poly horizon {opt.optim_method.schedule.max_iteration},"
+             f" want {steps} (records, not files)")
+    run = step_report(opt, cap.waits, BATCH)
+    run["pipeline_ms_per_image"] = pipeline_stages(folder, 4 * BATCH)
+    per_step = {k: v / steps for k, v in imagenet_launches(steps, 0).items()}
+
+    # test_main on the last snapshot against the in-memory model
+    snap = os.path.join(ck, f"model.{steps}")
+    ops.reset_launches()
+    results = inception.test_main(["-f", folder, "--model", snap],
+                                  device=device)
+    paths["imagenet_test_main"] = launches_now()
+    expect_launches("3u-b test_main", paths["imagenet_test_main"],
+                    {k: v for k, v in imagenet_launches(
+                        0, -(-SEQ_VAL // BATCH)).items() if v})
+    memory = LocalValidator(model, inception._imagenet_set(
+        folder, BATCH, train=False), device=device).test(
+            [Top1Accuracy(), Top5Accuracy()])
+    if results != memory or results[0].count != SEQ_VAL:
+        fail(f"3u-b: test_main {results} against LocalValidator {memory}")
+
+    # 3 more steps of the same trainer and pipeline, profiled
+    opt.set_end_when(Trigger.max_iteration(steps + SEQ_PROFILE_STEPS))
+    prof = device_profile(opt.optimize, SEQ_PROFILE_STEPS)
+    prof["busy_share"] = prof["device_ms"] / run["step_ms"]
+    del opt, cap
+
+    cpu = inception_cpu_check(folder, device)
+
+    # resume: the first epoch's snapshot pair, continued to the end
+    epoch = steps // SEQ_EPOCHS
+    with StepCapture() as cap:
+        inception.train_main(
+            ["-f", folder, "-b", str(BATCH), "-e", str(SEQ_EPOCHS),
+             "--model", os.path.join(ck, f"model.{epoch}"), "--state",
+             os.path.join(ck, f"state.{epoch}")], device=device)
+    resumed = [r["loss"] for r in cap.trainers[0].step_records]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, losses[epoch:])]
+    if len(resumed) != steps - epoch or max(rel) > SEQ_RESUME_RTOL:
+        fail(f"3u-b: resumed losses {resumed} against {losses[epoch:]} "
+             f"(rtol {SEQ_RESUME_RTOL})")
+    del cap
+    report = {"records": {"train": SEQ_TRAIN, "val": SEQ_VAL,
+                          "train_files": len(train_files)},
+              "write_s": write_s, "wall_s": wall, "losses": losses,
+              "top1": results[0].result()[0], "top5": results[1].result()[0],
+              "launches_per_step": per_step, "profile": prof,
+              "card_vs_cpu": cpu, "resumed_losses": resumed,
+              "resumed_worst_rel": max(rel)}
+    report.update(run)
+    log(f"[{card}] 3u-b inception.train_main -b {BATCH} -e {SEQ_EPOCHS} "
+        f"(bf16, {SEQ_TRAIN} records in {len(train_files)} files, "
+        f"{SEQ_VAL} to validate): {steps} steps in {wall:.2f} s with "
+        f"{SEQ_EPOCHS} validations; step {run['step_ms']:.2f} ms (median "
+        f"after the first; first {run['first_step_ms']:.1f} ms; upload to "
+        f"loss {run['train_ms']:.2f} ms), {run['images_per_s']:.1f} "
+        f"images/s, next(data_iter) {run['data_wait_share']:.3f} of the "
+        f"step; the pipeline's stages, host ms an image: "
+        + json.dumps({k: round(v, 3) for k, v in
+                      run["pipeline_ms_per_image"].items()})
+        + "; launches a step "
+        f"{per_step}; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"test_main Top-1/Top-5 {results[0]!r} / {results[1]!r}, equal to "
+        f"LocalValidator's on the in-memory model")
+    log(f"[{card}] 3u-b profile ({SEQ_PROFILE_STEPS} steps): device "
+        f"{prof['device_ms']:.3f} ms a step ({prof['htod_ms']:.3f} of it "
+        f"host-to-device copies), busy share {prof['busy_share']:.3f} of "
+        f"the {run['step_ms']:.2f} ms step; top kernels (ms a step): "
+        + json.dumps(prof["top"]))
+    log(f"[{card}] 3u-b card vs CPU (train_main -b {SEQ_CPU_BATCH} -i "
+        f"{SEQ_CPU_ITERS}, bf16, dropout 0): {cpu['losses_card']} vs "
+        f"{cpu['losses_cpu']}, |d| {cpu['diffs']}, limits {cpu['limits']} "
+        f"(the CPU's f32 first loss {cpu['cpu_f32_first_loss']:.6f}); "
+        f"resumed from model.{epoch}/state.{epoch}: {len(resumed)} steps, "
+        f"worst {max(rel):.4f} of the uninterrupted losses (limit "
+        f"{SEQ_RESUME_RTOL}: other crops of the same records)")
+    return report, paths, folder
+
+
+def prefetch_path(folder, card, device, base):
+    """Phase 3u-c: ``PrefetchToDevice`` after ``_imagenet_set``: its first
+    PREFETCH_BATCHES batches equal the host pipeline's bit for bit (f32,
+    and bf16 where cast on the host); ``train_main -e 1`` with it appended
+    to the training set takes (b)'s first epoch's losses (the first bit
+    for bit, the rest within 2 bfloat16 steps: cuDNN's weight gradients
+    may sum in another order); its step beside (b)'s; one batch's upload
+    from pageable memory against a pinned buffer."""
+    import itertools
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.dataset.prefetch import PrefetchToDevice
+    from bigdl_tpu_torch.models import inception
+    host = list(itertools.islice(inception._imagenet_set(
+        folder, BATCH, True).data(True), PREFETCH_BATCHES))
+    for dtype in (None, torch.bfloat16):
+        pipe = inception._imagenet_set(folder, BATCH, True) >> \
+            PrefetchToDevice(dtype=dtype, device=device)
+        got = list(itertools.islice(pipe.data(True), PREFETCH_BATCHES))
+        for g, h in zip(got, host):
+            want = torch.from_numpy(h.data)
+            if dtype is not None:
+                want = want.to(dtype)
+            if g.data.device.type != device.type or not torch.equal(
+                    g.data.cpu(), want) or not torch.equal(
+                        g.labels.cpu(), torch.from_numpy(h.labels)):
+                fail(f"3u-c: a prefetched batch ({dtype}) differs from the "
+                     "host's")
+        del got, pipe
+    make = inception._imagenet_set
+
+    def with_prefetch(folder, batch, train, **kw):
+        ds = make(folder, batch, train, **kw)
+        return ds >> PrefetchToDevice(device=device) if train else ds
+    inception._imagenet_set = with_prefetch
+    try:
+        with StepCapture() as cap:
+            ops.reset_launches()
+            inception.train_main(["-f", folder, "-b", str(BATCH), "-e", "1"],
+                                 device=device)
+            launches = launches_now()
+    finally:
+        inception._imagenet_set = make
+    opt = cap.trainers[0]
+    losses = [r["loss"] for r in opt.step_records]
+    want = base["losses"][:len(losses)]
+    n = -(-SEQ_TRAIN // BATCH)
+    expect_launches("3u-c", launches,
+                    imagenet_launches(n, -(-SEQ_VAL // BATCH)))
+    if len(losses) != n or losses[0] != want[0] or any(
+            abs(a - b) > 2 * bf16_step(abs(b)) for a, b in zip(losses, want)):
+        fail(f"3u-c: losses with PrefetchToDevice {losses} against {want}")
+    run = step_report(opt, cap.waits, BATCH)
+    del opt, cap
+
+    batch = host[0].data
+    pageable = lambda: torch.from_numpy(batch).to(device)  # noqa: E731
+    pinned = torch.from_numpy(batch).pin_memory()
+    pinned_copy = lambda: pinned.to(device, non_blocking=True)  # noqa: E731
+    up = {"pageable_ms": median_ms(pageable, device, reps=UPLOAD_REPS),
+          "pinned_ms": median_ms(pinned_copy, device, reps=UPLOAD_REPS),
+          "bytes": batch.nbytes}
+    report = {"batches_equal": PREFETCH_BATCHES, "losses": losses,
+              "upload": up, "launches": {k: v for k, v in launches.items()
+                                         if v}}
+    report.update(run)
+    log(f"[{card}] 3u-c PrefetchToDevice: {PREFETCH_BATCHES} batches equal "
+        f"to the host's bit for bit (f32 and bf16); train_main -e 1 with it: "
+        f"{len(losses)} losses as 3u-b's first epoch (the first bit for "
+        f"bit); step {run['step_ms']:.2f} ms ({run['images_per_s']:.1f} "
+        f"images/s, next(data_iter) {run['data_wait_share']:.3f} of the "
+        f"step, upload to loss {run['train_ms']:.2f} ms) against 3u-b's "
+        f"{base['step_ms']:.2f} ms ({base['train_ms']:.2f}); a batch's upload "
+        f"({batch.nbytes / 1e6:.1f} MB) {up['pageable_ms']:.3f} ms pageable, "
+        f"{up['pinned_ms']:.3f} ms pinned ({batch.nbytes / up['pinned_ms'] / 1e6:.2f} GB/s)")
+    return report, launches
+
+
+def write_main_data(root):
+    """MNIST idx files and CIFAR-10 binaries of seeded images, MAIN_MNIST
+    and MAIN_CIFAR records (``write_mnist``, ``write_cifar10_batch``)."""
+    from bigdl_tpu_torch.dataset import write_cifar10_batch, write_mnist
+    rng = np.random.RandomState(SEED + 730)
+    mnist, cifar = os.path.join(root, "mnist"), os.path.join(root, "cifar")
+    os.makedirs(mnist)
+    os.makedirs(cifar)
+    for prefix, n in zip(("train", "t10k"), MAIN_MNIST):
+        labels = rng.randint(0, 10, n)
+        imgs = rng.randint(0, 200, (n, 28, 28)) + 5 * labels[:, None, None]
+        write_mnist(os.path.join(mnist, f"{prefix}-images-idx3-ubyte"),
+                    os.path.join(mnist, f"{prefix}-labels-idx1-ubyte"),
+                    imgs.astype(np.uint8), labels)
+    for i in range(6):
+        name = f"data_batch_{i + 1}.bin" if i < 5 else "test_batch.bin"
+        n = MAIN_CIFAR[0] if i < 5 else MAIN_CIFAR[1]
+        write_cifar10_batch(os.path.join(cifar, name),
+                            rng.randint(0, 256, (n, 3, 32, 32)),
+                            rng.randint(0, 10, n))
+    return mnist, cifar
+
+
+def main_first_loss_vs_cpu(what, first, card_loss, device):
+    """The first step's loss of a main on the card against the same batch
+    through a CPU copy of the weights the step found (training mode).  A
+    model with dropout is held with dropout off on both sides (the card's
+    and the CPU's generators draw other masks)."""
+    import torch
+    from bigdl_tpu_torch.nn import Dropout
+    cpu_model = first["model"].training_()
+    dropout = [m for m in cpu_model.modules() if isinstance(m, Dropout)]
+    with torch.no_grad():
+        if dropout:
+            for m in dropout:
+                m.p = 0.0
+            card_model = copy.deepcopy(cpu_model).to(device)
+            card_loss = float(first["criterion"](
+                card_model(first["data"].to(device)),
+                first["labels"].to(device)))
+        cpu_loss = float(first["criterion"](cpu_model(first["data"]),
+                                            first["labels"]))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    if not rel <= MAIN_LOSS_RTOL:
+        fail(f"{what}: first loss card {card_loss} vs CPU {cpu_loss}")
+    return {"card": card_loss, "cpu": cpu_loss, "rel": rel,
+            "dropout_off": bool(dropout)}
+
+
+def other_mains(root, card, device):
+    """Phase 3u-d: LeNet-5, ResNet-20, VggForCifar10 and the autoencoder
+    through their mains at the reference's defaults, one epoch of the cut
+    data, each counted from 0 (K1/K3: 2 a LeNet forward, 5 a VGG one;
+    none for ResNet-20 and the autoencoder), its first loss against the
+    CPU, then each ``test_main`` on its snapshot.  Returns (report,
+    launches by path)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import autoencoder, lenet, resnet, vgg
+    mnist, cifar = write_main_data(root)
+    n_train, n_test = MAIN_MNIST
+    c_train, c_test = 5 * MAIN_CIFAR[0], MAIN_CIFAR[1]
+    mains = [  # (key, module, data, argv, batch, train n, test n, pools)
+        ("lenet", lenet, mnist, ["-b", "128", "-e", "1"], 128, n_train,
+         n_test, 2),
+        ("resnet20", resnet, cifar, ["--nepochs", "1"], 128, c_train,
+         c_test, 0),
+        ("vgg_cifar", vgg, cifar, ["-b", "112", "-e", "1"], 112, c_train,
+         c_test, 5),
+        ("autoencoder", autoencoder, mnist, ["-b", "150", "-e", "1"], 150,
+         n_train, 0, 0)]
+    report, paths = {}, {}
+    for key, mod, data, argv, batch, n, n_val, pools in mains:
+        ck = os.path.join(root, f"{key}_ck")
+        steps, val_fwd = -(-n // batch), -(-n_val // batch)
+        with StepCapture() as cap:
+            ops.reset_launches()             # the path starts here
+            t0 = time.perf_counter()
+            mod.train_main(["-f", data, "--checkpoint", ck] + argv,
+                           device=device)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            paths[f"{key}_train_main"] = launches_now()   # and ends here
+        opt = cap.trainers[0]
+        losses = [r["loss"] for r in opt.step_records]
+        expect_launches(f"3u-d {key} train_main", paths[f"{key}_train_main"],
+                        {"max_pool2d": pools * (steps + val_fwd),
+                         "max_pool2d_bwd": pools * steps})
+        if len(losses) != steps or not np.isfinite(losses).all():
+            fail(f"3u-d {key}: {len(losses)} losses (want {steps}), finite "
+                 f"{bool(np.isfinite(losses).all())}")
+        r = step_report(opt, cap.waits, batch)
+        r.update(wall_s=wall, first_loss=losses[0], last_loss=losses[-1],
+                 card_vs_cpu=main_first_loss_vs_cpu(
+                     f"3u-d {key}", cap.first, losses[0], device))
+        del opt, cap
+        if n_val:
+            ops.reset_launches()
+            res = mod.test_main(["-f", data, "--model",
+                                 os.path.join(ck, f"model.{steps}"), "-b",
+                                 str(batch)], device=device)
+            paths[f"{key}_test_main"] = launches_now()
+            expect_launches(f"3u-d {key} test_main",
+                            paths[f"{key}_test_main"],
+                            {"max_pool2d": pools * val_fwd})
+            if res[0].count != n_val:
+                fail(f"3u-d {key} test_main counted {res[0].count}")
+            r["test_top1"] = res[0].result()[0]
+        report[key] = r
+        log(f"[{card}] 3u-d {key} train_main {' '.join(argv)} (f32, {n} "
+            f"records): {steps} steps in {wall:.2f} s, step "
+            f"{r['step_ms']:.2f} ms ({r['images_per_s']:.1f} images/s, "
+            f"next(data_iter) {r['data_wait_share']:.3f} of the step), loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; first loss card vs CPU "
+            f"{r['card_vs_cpu']['rel']:.3g} (limit {MAIN_LOSS_RTOL}"
+            f"{', dropout off' if r['card_vs_cpu']['dropout_off'] else ''})"
+            + (f"; test_main Top-1 {r['test_top1']:.4f}" if n_val else "")
+            + f"; launches {({k: v for k, v in paths[f'{key}_train_main'].items() if v})}")
+    return report, paths
+
+
+def ingest_harness(card, device, root):
+    """Phase 3u-e: ``perf ingest -n 1024 -e 2`` at -w 1 and -w 4 on the
+    card machine's host: images/s of each pass."""
+    from bigdl_tpu_torch.models import perf
+    out = {}
+    for w in (1, 4):
+        with LogArgs("bigdl_tpu_torch.models.perf", "epoch ") as args:
+            ips = perf.main(["ingest"] + INGEST_ARGS + [
+                "-w", str(w), "--workDir", os.path.join(root, "ingest")],
+                device=device)
+        out[f"w{w}"] = {"images_per_s": ips,
+                        "passes": [a[3] for a in args]}
+    log(f"[{card}] 3u-e perf ingest {' '.join(INGEST_ARGS)} (256² records, "
+        f"224 crops, batch 256; {os.cpu_count()} host cores): -w 1 "
+        f"{out['w1']['images_per_s']:.1f} images/s (passes "
+        f"{[round(v, 1) for v in out['w1']['passes']]}), -w 4 "
+        f"{out['w4']['images_per_s']:.1f} (passes "
+        f"{[round(v, 1) for v in out['w4']['passes']]})")
+    return out
+
+
+def logistic_problem(device):
+    """A seeded logistic regression of LBFGS_ROWS rows on ``device``
+    (``rng``'s draws on the host, so both devices get the same problem):
+    ``(feval, x0)`` for ``optimize``."""
+    import torch
+    rng = np.random.RandomState(SEED + 740)
+    x = torch.from_numpy(rng.standard_normal(
+        (LBFGS_ROWS, LBFGS_DIM)).astype(np.float32)).to(device)
+    w_true = torch.from_numpy(rng.standard_normal(LBFGS_DIM)
+                              .astype(np.float32)).to(device)
+    # a tenth of the labels flipped: no separating plane, so the loss has
+    # a finite minimum
+    flip = torch.from_numpy(rng.rand(LBFGS_ROWS) < 0.1).to(device)
+    y = ((x @ w_true > 0) ^ flip).float()
+
+    def feval(p):
+        q = {k: v.detach().requires_grad_() for k, v in p.items()}
+        z = x @ q["w"] + q["b"]
+        loss = (torch.nn.functional.softplus(z) - y * z).mean()
+        gw, gb = torch.autograd.grad(loss, [q["w"], q["b"]])
+        return float(loss.detach()), {"w": gw, "b": gb}
+    return feval, {"w": torch.zeros(LBFGS_DIM, device=device),
+                   "b": torch.zeros((), device=device)}
+
+
+def optimize_methods(card, device):
+    """Phase 3u-f: ``LBFGS.optimize`` (strong-Wolfe line search) on the
+    card-resident logistic regression, then OPTIMIZE_STEPS of
+    ``SGD``/``Adam``/``Adagrad.optimize`` on it; each run's losses against
+    the same on the CPU."""
+    import torch
+    from bigdl_tpu_torch.optim import LBFGS, SGD, Adagrad, Adam
+    from bigdl_tpu_torch.utils.table import T
+    methods = {
+        "lbfgs": lambda: LBFGS(max_iter=LBFGS_ITERS, line_search=True),
+        "sgd": lambda: SGD(learning_rate=0.5, momentum=0.9),
+        "adam": lambda: Adam(learning_rate=0.05),
+        "adagrad": lambda: Adagrad(learning_rate=0.5)}
+    out = {}
+    for name, make in methods.items():
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            feval, x = logistic_problem(dev)
+            t0 = time.perf_counter()
+            if name == "lbfgs":
+                x, losses = make().optimize(feval, x)
+            else:
+                m, state, losses = make(), T(), []
+                for _ in range(OPTIMIZE_STEPS):
+                    x, ls = m.optimize(feval, x, state=state)
+                    losses += ls
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                if x["w"].device.type != "cuda":
+                    fail(f"3u-f {name}: x left the card")
+            runs.append((losses, time.perf_counter() - t0))
+        (card_l, card_s), (cpu_l, _) = runs
+        tol = LBFGS_RTOL if name == "lbfgs" else OPTIMIZE_RTOL
+        if len(card_l) != len(cpu_l) or not np.allclose(card_l, cpu_l,
+                                                        rtol=tol, atol=0):
+            fail(f"3u-f {name}: card losses {card_l} vs CPU {cpu_l} "
+                 f"(rtol {tol})")
+        if not card_l[-1] < card_l[0]:
+            fail(f"3u-f {name}: the loss did not fall: {card_l}")
+        out[name] = {"losses": card_l, "seconds": card_s,
+                     "worst_rel": max(abs(a - b) / abs(b)
+                                      for a, b in zip(card_l, cpu_l))}
+    log(f"[{card}] 3u-f optimize on a {LBFGS_ROWS} x {LBFGS_DIM} logistic "
+        "regression on the card: " + "; ".join(
+            f"{k} {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f} in "
+            f"{len(v['losses'])} losses, {v['seconds']:.3f} s, card vs CPU "
+            f"{v['worst_rel']:.3g}" for k, v in out.items()))
+    return out
+
+
+def record_file_mains(device, card):
+    """Phase 3u: (a) the seqfile generator and containers; (b) Inception-v1
+    trained from record files by ``inception.train_main``, then
+    ``test_main``; (c) ``PrefetchToDevice``; (d) the LeNet-5, ResNet-20,
+    VggForCifar10 and autoencoder mains; (e) ``perf ingest``; (f)
+    ``optimize``.  Files are staged under ``build/`` and removed after.
+    Returns (report, launches by path)."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_records")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    restore = quiet_step_logs()
+    report, paths = {}, {}
+    try:
+        report["a_generator"] = seqfile_generator(root, card)
+        report["b_train_main"], more, folder = record_file_training(
+            root, card, device)
+        paths.update(more)
+        report["c_prefetch"], paths["imagenet_prefetch"] = prefetch_path(
+            folder, card, device, report["b_train_main"])
+        report["d_mains"], more = other_mains(root, card, device)
+        paths.update(more)
+        report["e_ingest"] = ingest_harness(card, device, root)
+        report["f_optimize"] = optimize_methods(card, device)
+    finally:
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    return report, paths
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -6433,6 +7192,31 @@ def time_text_pools(device, card):
                                             backward)
             log(f"{kernel} plan at {layer} {shape}: {variant}, {mode}, "
                 f"{fmt_plan(plan)}")
+    return out
+
+
+def time_main_pools(device, card):
+    """K1 (f32 with its index, as the mains train) and K3 at LeNet-5's two
+    pools (batch 128) and VggForCifar10's five (batch 112) per layer and
+    summed, the way ``time_text_pools`` times the text classifier's."""
+    import torch
+    f32 = torch.float32
+    out = {}
+    for key, what, layers in (
+            ("lenet_f32", "LeNet-5, batch 128", LENET_POOLS),
+            ("vgg_cifar_f32", "VggForCifar10, batch 112", CIFAR_VGG_POOLS)):
+        out[key] = {"max_pool2d_fwd": pool_sums(time_pool_layers(
+                        device, f32, False, layers=layers, with_idx=True)),
+                    "max_pool2d_bwd": pool_sums(time_pool_layers(
+                        device, f32, True, layers=layers))}
+        for name, t in out[key].items():
+            log_pool_times(card, f"{name} (f32, {what})", t)
+        for layer, shape, *geom in layers:
+            for kernel, backward in (("K1", False), ("K3", True)):
+                variant, plan, mode = pool_take(shape, tuple(geom), f32,
+                                                backward)
+                log(f"{kernel} plan at {layer} {shape}: {variant}, {mode}, "
+                    f"{fmt_plan(plan)}")
     return out
 
 
@@ -7670,7 +8454,13 @@ def main() -> int:
     cnn_launches.update(more)
     log("loaders and image mains: " + json.dumps(load_report))
     clock.stamp("3t (loaders and image mains)")
+    # phase 3u: record-file training and the conv nets' mains
+    record_report, more = record_file_mains(device, card)
+    cnn_launches.update(more)
+    log("record-file training and mains: " + json.dumps(record_report))
+    clock.stamp("3u (record-file training and the mains)")
     # phase 4
+    main_pool_times = time_main_pools(device, card)
     text_times = time_text_pools(device, card)
     rcnn_times = time_rcnn_pools(device, card)
     harness_times = time_harness_kernels(device)
@@ -8009,6 +8799,9 @@ def main() -> int:
             entry["fast_rcnn_f32"] = rcnn_times[name]
         if name in text_times:   # and at the text classifier's
             entry["text_classifier_f32"] = text_times[name]
+        for key, tt in main_pool_times.items():   # LeNet's, VGG-CIFAR's
+            if name in tt:
+                entry[key] = tt[name]
         harness = {key: {kname: tt[kname] for kname in tt
                          if kname.startswith(name)}
                    for key, tt in harness_times.items()}

@@ -69,7 +69,11 @@ running statistic on the card in its dtype (bfloat16 kept), and an
 CPU copy within 1e-5 of the largest log-prob (TF32 off).  A
 channels-last batch reaches K1 and K2 (and K3 and K4 in its backward)
 with the plain versions' results: bit-equal for the pool, within the LRN
-tolerances above.
+tolerances above.  ``PrefetchToDevice`` on the card yields the host
+batches bit for bit (bf16 where asked) over more batches than its depth,
+while the default stream lags behind its side stream, and the trainer and
+``LocalValidator`` take such card batches as they are, with the host
+batches' losses and counts.
 """
 
 import copy
@@ -1708,3 +1712,72 @@ def test_channels_last_input_runs_the_kernels(cuda_device, layer):
                                    atol=1e-6)
         torch.testing.assert_close(x_cl.grad.cpu(), xp.grad, rtol=1e-5,
                                    atol=1e-5)
+
+
+def _host_batches(n, seed=0, shape=(64, 3, 32, 32)):
+    from bigdl_tpu_torch.dataset import MiniBatch
+    rs = np.random.RandomState(seed)
+    return [MiniBatch(rs.standard_normal(shape).astype(np.float32),
+                      rs.randint(1, 11, shape[0]).astype(np.float32))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_prefetch_to_device_yields_the_host_batches(cuda_device, depth,
+                                                     dtype):
+    """Each batch is read on the default stream only after a long sleep
+    kernel there, then dropped: a pinned slot refilled before its copy
+    ran, or a batch's memory handed to the next copy before the default
+    stream read it, would show as a changed batch."""
+    from bigdl_tpu_torch.dataset.prefetch import PrefetchToDevice
+    host = _host_batches(4 * depth + 3)
+    seen = []
+    for b in PrefetchToDevice(depth, dtype=dtype, device=cuda_device)(host):
+        assert b.data.device.type == "cuda"
+        torch.cuda._sleep(2_000_000)
+        seen.append((b.data.clone(), b.labels.clone()))
+        del b
+    torch.cuda.synchronize()
+    assert len(seen) == len(host)
+    for (data, labels), h in zip(seen, host):
+        want = torch.from_numpy(h.data)
+        if dtype:
+            want = want.to(torch.bfloat16)
+        assert data.dtype == want.dtype
+        assert torch.equal(data.cpu(), want)
+        assert torch.equal(labels.cpu(), torch.from_numpy(h.labels))
+
+
+def test_trainer_and_validator_take_card_batches(cuda_device):
+    """The trainer and the validator use a batch already on the card as it
+    is (``np.asarray`` of a CUDA tensor raises): the same losses and
+    weights as from the host batches, bit for bit (no convolution)."""
+    from bigdl_tpu_torch.dataset.prefetch import PrefetchToDevice
+    from bigdl_tpu_torch.optim import (LocalValidator, Top1Accuracy,
+                                       Top5Accuracy)
+
+    def net():
+        return (tnn.Sequential().add(tnn.View(3 * 8 * 8))
+                .add(tnn.Linear(3 * 8 * 8, 32)).add(tnn.Tanh())
+                .add(tnn.Linear(32, 10)).add(tnn.LogSoftMax())).reset(2)
+
+    def ds(prefetch):
+        d = DataSet.array(_host_batches(6, shape=(16, 3, 8, 8)))
+        return d >> PrefetchToDevice(device=cuda_device) if prefetch else d
+
+    runs = []
+    for prefetch in (False, True):
+        opt = LocalOptimizer(net(), tnn.ClassNLLCriterion(), ds(prefetch),
+                             Trigger.max_iteration(8), device=cuda_device)
+        opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+        opt.optimize()
+        runs.append(opt)
+    assert [r["loss"] for r in runs[0].step_records] == \
+        [r["loss"] for r in runs[1].step_records]
+    for a, b in zip(runs[0].model.param_leaves(),
+                    runs[1].model.param_leaves()):
+        assert torch.equal(a, b)
+    got = [LocalValidator(runs[0].model, ds(p), device=cuda_device).test(
+        [Top1Accuracy(), Top5Accuracy()]) for p in (False, True)]
+    assert got[0] == got[1] and got[0][0].count == 96

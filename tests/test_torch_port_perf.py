@@ -13,6 +13,7 @@ synthetic batch bit-equal.
 """
 
 import logging
+import os
 
 import jax
 import jax.numpy as jnp
@@ -188,17 +189,54 @@ def test_synthetic_batch_and_flags_follow_the_reference():
 @pytest.mark.parametrize("argv, item", [
     (["distri"], "DistriOptimizer slice of the port .ROADMAP.md Queue 1 "
      "item 12"),
-    (["ingest"], "data-feed slice of the port .ROADMAP.md Queue 1 item 11"),
     (["local", "--dataType", "double"], "Queue 1 item 14, perf --dataType "
      "double"),
     (["infer", "--dataType", "double"], "Queue 1 item 14, perf --dataType "
      "double"),
     (["--dataType", "double", "-m", "vgg16"], "Queue 1 item 14")],
-    ids=["distri", "ingest", "local-double", "infer-double",
-         "default-double"])
+    ids=["distri", "local-double", "infer-double", "default-double"])
 def test_dispatch_raises_for_what_is_not_ported(argv, item, logged):
     with pytest.raises(NotImplementedError, match=item):
         tperf.main(argv, device="cpu")
+
+
+def test_ingest_harness_matches_the_reference(tmp_path, monkeypatch,
+                                              logged):
+    """``perf ingest`` at a tiny size: the reference's record files byte for
+    byte, every image counted in images/s, and its pipeline's batches the
+    reference's bit for bit (the reference's plain numpy path)."""
+    from bigdl_tpu import native as jnative
+    argv = ["-n", "64", "-b", "16", "--size", "32", "--crop", "28", "-e",
+            "1", "-w", "1"]
+    ips = tperf.main(["ingest"] + argv + ["--workDir", str(tmp_path / "t")],
+                     device="cpu")
+    assert ips > 0
+    assert jperf.ingest_perf_main(argv + ["--workDir",
+                                          str(tmp_path / "j")]) > 0
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert sorted(os.listdir(tmp_path / "t")) == names
+    assert len([n for n in names if n.endswith(".seq")]) == 4
+    for n in names:
+        assert (tmp_path / "t" / n).read_bytes() == \
+            (tmp_path / "j" / n).read_bytes()
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    files = sorted(str(tmp_path / "t" / n) for n in names
+                   if n.endswith(".seq"))
+    got = list(tperf._ingest_pipeline(28, 16)(files))
+    want = list(jperf._ingest_pipeline(28, 16)(files))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.data, w.data)
+        np.testing.assert_array_equal(g.labels, w.labels)
+    assert tperf._ingest_shard_count((files[0], 28, 5)) == 16
+    # the parameters changed: the files are written anew
+    tperf.main(["ingest", "-n", "40", "--size", "32", "--crop", "28", "-e",
+                "1", "--workDir", str(tmp_path / "t")], device="cpu")
+    assert sum(1 for n in os.listdir(tmp_path / "t")
+               if n.endswith(".seq")) == 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tperf.main(["ingest"] + argv)
 
 
 def test_corePerNode_is_accepted_logged_and_ignored(monkeypatch, logged,
