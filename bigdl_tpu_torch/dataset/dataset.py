@@ -8,8 +8,9 @@ in-memory array with an index-shuffled looping iterator) and
 per epoch, the same stream as the reference's, so both trainers see the
 same batches in the same order.  ``DataSet.seq_file_folder`` is the
 record-file ImageNet dataset: its elements are the files, its ``size()``
-their records.  The sharded dataset comes with the DistriOptimizer slice
-of the port.
+their records.  The multi-process sharded dataset is ``ShardedDataSet``
+(``dataset/sharded.py``); sharding across hosts by the process group comes
+with the DistriOptimizer slice of the port.
 """
 
 from __future__ import annotations

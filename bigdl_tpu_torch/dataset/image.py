@@ -10,15 +10,24 @@ Parity: ``dataset/image/`` (SURVEY.md section 2.4): ``BytesToGreyImg``,
 
 Representation: a labeled image is (float32 ndarray HxW or HxWx3, label);
 batching emits NCHW MiniBatches (Torch layout parity).  Everything here
-runs on the host in numpy, with the JAX package's ``np.random.RandomState``
-draws, so the random crops, flips and jitters are the reference's for the
-same seed; the trainer or validator copies each batch to its device.
+runs on the host, with the JAX package's ``np.random.RandomState`` draws,
+so the random crops, flips and jitters are the reference's for the same
+seed; the trainer or validator copies each batch to its device.  The hot
+loops (``BGRImgNormalizer``, ``HFlip``, ``BGRImgToBatch``'s pack) run in
+the native host library (``bigdl_tpu_torch.native``, outside the
+interpreter lock) on an image of at least ``native.MIN_VALUES`` values, and
+in numpy below it, where the ctypes call costs more than the loop; the two
+are bit-equal.  ``BytesToBGRImg``'s planar-to-HWC decode stays numpy's,
+which is faster than the native loop at every size measured.
 
-``LocalImgReader`` decodes PNG files with the port's own decoder
-(``dataset/png.py``, the standard library's ``zlib`` and numpy), so it
-needs no PIL; other formats (JPEG) go through PIL when it is importable.
-It resizes with ``F.interpolate``'s antialiased bilinear filter on uint8
-(PIL's ``BILINEAR``: equal on an upscale, within 1 of 255 on a downscale).
+``LocalImgReader`` decodes a ``.jpg``/``.jpeg`` file through the native
+libjpeg path (a scaled IFAST decode, then one fused bilinear resize to BGR,
+the reference's fast path) where the library has libjpeg; PNG files with
+the port's own decoder (``dataset/png.py``, the standard library's ``zlib``
+and numpy); anything else through PIL, imported only then.  The PNG and
+PIL paths resize with ``F.interpolate``'s antialiased bilinear filter on
+uint8 (PIL's ``BILINEAR``: equal on an upscale, within 1 of 255 on a
+downscale).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch import native as _native
 from bigdl_tpu_torch.dataset import png
 from bigdl_tpu_torch.dataset.transformer import MiniBatch, Transformer
 
@@ -142,7 +152,7 @@ class GreyImgToBatch(Transformer):
 
 
 class BytesToBGRImg(Transformer):
-    """3*row*col uint8 BGR bytes -> HxWx3 float image
+    """3*row*col uint8 BGR bytes (three planes) -> HxWx3 float image
     (``image/BytesToBGRImg.scala``)."""
 
     def __init__(self, normalize: float = 255.0,
@@ -185,7 +195,11 @@ class BGRImgNormalizer(Transformer):
 
     def apply(self, prev):
         for img in prev:
-            yield LabeledImage((img.data - self.mean) / self.std, img.label)
+            if img.data.ndim == 3 and _native.pays(img.data):
+                out = _native.normalize(img.data, self.mean, self.std)
+            else:
+                out = _native.normalize_plain(img.data, self.mean, self.std)
+            yield LabeledImage(out, img.label)
 
 
 class BGRImgPixelNormalizer(Transformer):
@@ -240,8 +254,9 @@ class HFlip(Transformer):
     def apply(self, prev):
         for img in prev:
             if self._rng.rand() < self.threshold:
-                yield LabeledImage(np.ascontiguousarray(img.data[:, ::-1]),
-                                   img.label)
+                flip = _native.hflip if _native.pays(img.data) else \
+                    _native.hflip_plain
+                yield LabeledImage(flip(img.data), img.label)
             else:
                 yield img
 
@@ -304,23 +319,25 @@ class Lighting(Transformer):
 
 
 class BGRImgToBatch(Transformer):
-    """BGR images -> (N,3,H,W) MiniBatch with optional normalisation
-    (``image/BGRImgToBatch.scala``)."""
+    """BGR images -> (N,3,H,W) MiniBatch (``image/BGRImgToBatch.scala``),
+    each image packed into its CHW slot of one C-contiguous NCHW buffer by
+    the native pack where it pays (``native=False``: numpy's copy)."""
 
     def __init__(self, batch_size: int, to_rgb: bool = False,
-                 drop_last: bool = False):
+                 drop_last: bool = False, native: bool = True):
         self.batch_size = batch_size
         self.to_rgb = to_rgb
         self.drop_last = drop_last
+        self.native = native
 
     def _emit(self, imgs, labels):
-        # np.stack keeps its inputs' memory order: HWC images transposed
-        # to CHW would stack into a channels-last batch, which the card's
-        # convolutions keep channels-last; the batch is NCHW in order
-        stacked = np.ascontiguousarray(np.stack(
-            [(x[..., ::-1] if self.to_rgb else x).transpose(2, 0, 1)
-             for x in imgs]), np.float32)
-        return MiniBatch(stacked, np.asarray(labels, np.float32))
+        pack = _native.pack_chw if self.native and _native.pays(imgs[0]) \
+            else _native.pack_chw_plain
+        h, w, c = imgs[0].shape
+        batch = np.empty((len(imgs), c, h, w), np.float32)
+        for i, x in enumerate(imgs):
+            pack(x, batch[i], to_rgb=self.to_rgb)
+        return MiniBatch(batch, np.asarray(labels, np.float32))
 
     def apply(self, prev):
         imgs, labels = [], []
@@ -342,9 +359,13 @@ class LocalImgReader(Transformer):
 
     ``scale_to``: resize so the shorter edge equals this (keeping aspect),
     the reference's ``smallSideSize`` behavior; 0 disables resizing, and an
-    image already at its target size is not resampled.  PNG files decode
-    through ``dataset/png.py``; any other file through PIL, which is
-    imported only then.
+    image already at its target size is not resampled.  A ``.jpg``/``.jpeg``
+    file decodes through the native libjpeg path where the library has
+    libjpeg (``_read_native``: a scaled IFAST decode, then one fused
+    bilinear resize to BGR over 1/normalize; within a few levels of PIL's
+    ISLOW decode and antialiased resize); a file that path declines (no
+    libjpeg, not a JPEG) goes to ``decode_rgb``: PNG through
+    ``dataset/png.py``, anything else through PIL, imported only then.
     """
 
     def __init__(self, scale_to: int = 256, normalize: float = 1.0):
@@ -358,12 +379,35 @@ class LocalImgReader(Transformer):
         return scale_to, int(round(w * scale_to / h))
 
     def _read(self, path: str) -> np.ndarray:
+        bgr = self._read_native(path)
+        if bgr is not None:
+            return bgr
         rgb = decode_rgb(path)
         if self.scale_to:
             h, w = rgb.shape[:2]
             rgb = resize_bilinear(rgb, *self._short_edge_dims(
                 h, w, self.scale_to))
         return rgb[..., ::-1].astype(np.float32) / self.normalize  # -> BGR
+
+    def _read_native(self, path: str):
+        """The libjpeg path (``bigdl_tpu/dataset/image.py`` ``_read_native``):
+        decoded at the largest 1/2^k DCT scale that keeps the shorter edge
+        at least ``scale_to``, the resize target taken from the file's own
+        size; None where the file is not a ``.jpg``/``.jpeg`` the library
+        can decode (no libjpeg, another format, a truncated scan)."""
+        if not path.lower().endswith((".jpg", ".jpeg")) or \
+                not _native.has_jpeg():
+            return None
+        with open(path, "rb") as f:
+            data = f.read()
+        decoded = _native.jpeg_decode(data, min_short=self.scale_to,
+                                      with_orig_dims=True)
+        if decoded is None:
+            return None
+        img, (oh, ow) = decoded
+        nh, nw = self._short_edge_dims(oh, ow, self.scale_to) \
+            if self.scale_to else img.shape[:2]
+        return _native.u8rgb_resize_bgr(img, nh, nw, self.normalize)
 
     def apply(self, prev):
         for item in prev:
@@ -385,9 +429,9 @@ def decode_rgb(path: str) -> np.ndarray:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            f"{path} is not a PNG file: decoding it needs PIL (Pillow). The "
-            "port reads PNG files itself; other formats (JPEG) wait for the "
-            "native JPEG decode of ROADMAP.md item 11") from e
+            f"{path} is neither a PNG file nor a JPEG file the native "
+            "libjpeg path decoded: reading it needs PIL (Pillow), which is "
+            "not installed") from e
     with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"), np.uint8)
 

@@ -18,9 +18,11 @@ byte: the same logical record (key text, dim-prefixed BGR bytes), no JVM.
 Real Hadoop SequenceFiles ingest too: ``read_seq_file`` sniffs the magic
 per file and routes ``SEQ\\x06`` containers through
 ``dataset/hadoop_seqfile.py``.  Files are the unit a dataset shuffles.
-Records are read by a plain Python loop over the record headers; the JAX
-package's native mmap scan waits for the port's native host helpers
-(``ROADMAP.md`` item 11).
+A BTSF file's record offsets come from the native host library's scan
+(``bn_seqfile_scan``, one buffered pass in C) and its records are sliced
+out of an mmap; ``native=False`` reads them by the plain Python loop over
+the record headers.  A file opens through ``_open_retry`` (transient
+errors retried; the ``io.read`` fault site).
 """
 
 from __future__ import annotations
@@ -31,9 +33,11 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from bigdl_tpu_torch import native as _native
 from bigdl_tpu_torch.dataset import hadoop_seqfile
 from bigdl_tpu_torch.dataset.image import ByteRecord, LabeledImage
 from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.resilience.fault_injector import FaultInjector
 from bigdl_tpu_torch.resilience.retry import retry
 
 MAGIC = b"BTSF\x01"
@@ -42,9 +46,11 @@ MAGIC = b"BTSF\x01"
 def _open_retry(path: str):
     """Open a record file, retrying transient errors (NFS or object-store
     hiccups must not kill an epoch; the reference inherited this from
-    Spark's task re-execution)."""
-    return retry(open, path, "rb",
-                 label=f"seqfile open {os.path.basename(path)}")
+    Spark's task re-execution).  ``io.read`` is the fault site."""
+    def do_open():
+        FaultInjector.fire("io.read")
+        return open(path, "rb")
+    return retry(do_open, label=f"seqfile open {os.path.basename(path)}")
 
 
 class LocalSeqFilePath:
@@ -82,12 +88,27 @@ class SeqFileWriter:
         self.close()
 
 
-def read_seq_file(path: str) -> Iterator[Tuple[str, bytes]]:
+def read_seq_file(path: str, native: bool = True
+                  ) -> Iterator[Tuple[str, bytes]]:
     """Stream (key, value) records out of one file: a BTSF record file, or a
     Hadoop SequenceFile (``SEQ\\x06``, an existing BigDL ImageNet shard)
-    through ``dataset/hadoop_seqfile.py``."""
+    through ``dataset/hadoop_seqfile.py``.  A BTSF file's offsets come
+    from the native scan and its records from an mmap (``native=False``:
+    the Python loop over its headers)."""
     if hadoop_seqfile.is_hadoop_seq_file(path):
         yield from hadoop_seqfile.read_hadoop_seq_file(path)
+        return
+    if native:
+        import mmap
+        key_off, key_len, val_off, val_len = _native.seqfile_scan(path)
+        with _open_retry(path) as f:
+            mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            try:
+                for ko, kl, vo, vl in zip(key_off.tolist(), key_len.tolist(),
+                                          val_off.tolist(), val_len.tolist()):
+                    yield mm[ko:ko + kl].decode("utf-8"), mm[vo:vo + vl]
+            finally:
+                mm.close()
         return
     with _open_retry(path) as f:
         magic = f.read(len(MAGIC))
@@ -107,13 +128,16 @@ def read_seq_file(path: str) -> Iterator[Tuple[str, bytes]]:
             yield key, value
 
 
-def count_records(path: str) -> int:
+def count_records(path: str, native: bool = True) -> int:
     """Number of records in one file, by a header-skip pass that decodes no
-    payload.  ``DataSet.seq_file_folder``'s ``size()`` sums it, so epoch
+    payload (the native scan's counting pass; ``native=False``: a Python
+    loop).  ``DataSet.seq_file_folder``'s ``size()`` sums it, so epoch
     triggers count images, not files (the reference's RDD elements are
     records)."""
     if hadoop_seqfile.is_hadoop_seq_file(path):
         return hadoop_seqfile.count_hadoop_records(path)
+    if native:
+        return _native.seqfile_count(path)
     n = 0
     fsize = os.path.getsize(path)
     with open(path, "rb") as f:

@@ -3,7 +3,8 @@ the part the trainer and the python binding's helpers need).
 
 Parity: ``dataset/Transformer.scala:40-241``: a transformer maps an iterator
 to an iterator and composes with ``>>``; ``SampleToBatch`` stacks Samples
-into numpy MiniBatches, the last one possibly smaller.  Everything here is
+into numpy MiniBatches, the last one possibly smaller; ``reseed`` re-derives a
+chain's random streams per chunk for the sharded feed.  Everything here is
 numpy on the host; the trainer copies each batch to its device.
 """
 
@@ -35,6 +36,22 @@ class Transformer:
         import copy
         return copy.deepcopy(self)
 
+    def _walk(self) -> Iterator["Transformer"]:
+        """The leaf transformers of this (possibly chained) pipeline, in
+        order: the unit ``reseed`` salts by position."""
+        yield self
+
+    def reseed(self, seed: int) -> None:
+        """Re-derive every stochastic leaf's ``_rng`` from ``seed``, salted
+        by the leaf's position, so two augmentations of one chain never
+        draw alike.  The sharded feed reseeds a chain per chunk from the
+        chunk's place in the stream, so the draws a record gets depend on
+        where it sits, never on which worker ran it or how many ran."""
+        for i, t in enumerate(self._walk()):
+            if hasattr(t, "_rng"):
+                t._rng = np.random.RandomState(
+                    (seed ^ (0x9E3779B1 * (i + 1))) & 0xFFFFFFFF)
+
 
 class ChainedTransformer(Transformer):
     def __init__(self, first: Transformer, second: Transformer):
@@ -42,6 +59,10 @@ class ChainedTransformer(Transformer):
 
     def apply(self, prev):
         return self.second(self.first(prev))
+
+    def _walk(self):
+        yield from self.first._walk()
+        yield from self.second._walk()
 
 
 class Lambda(Transformer):
@@ -103,7 +124,7 @@ class SampleToBatch(Transformer):
     last batch, or none with ``drop_last`` (``train_main`` of the
     TransformerLM drops it).  The reference's padding options
     (``feature_padding``, ``label_padding``, ``fixed_length``) come with the
-    sharded data feed of the DistriOptimizer slice, their only caller."""
+    DistriOptimizer slice, their only caller."""
 
     def __init__(self, batch_size: int, feature_padding=None,
                  label_padding=None, fixed_length=None,
@@ -113,7 +134,7 @@ class SampleToBatch(Transformer):
             raise NotImplementedError(
                 "SampleToBatch's feature_padding, label_padding and "
                 "fixed_length come with the DistriOptimizer slice of the "
-                "port (the sharded data feed pads batches)")
+                "port (ROADMAP.md Queue 1 item 12)")
         self.batch_size = batch_size
         self.drop_last = drop_last
 

@@ -8,6 +8,10 @@ sources and the compiler flags; each ``.cu`` file compiles in its own
 ``nvcc`` process, all started together, then one link step makes the
 library.  Nothing here falls back: a missing ``nvcc`` or a failed build
 raises.
+
+``build_host`` does the same for the host helpers' C++ source
+(``csrc/host/``, compiled by ``g++``, no CUDA) into
+``build/bigdl_tpu_torch/host/<hash>/``.
 """
 
 from __future__ import annotations
@@ -152,6 +156,55 @@ def build() -> Path:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return lib
+
+
+HOST_ROOT = BUILD_ROOT / "host"
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+
+
+def host_hash(src: Path, variants, salt: str = "") -> str:
+    h = hashlib.sha256((" ".join(HOST_FLAGS) + "|" + salt).encode())
+    for extra in variants:
+        h.update(("|" + " ".join(extra)).encode())
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_host(src: Path, lib_name: str, variants, salt: str = "") -> Path:
+    """Compile one host C++ source with ``g++ HOST_FLAGS`` into
+    ``HOST_ROOT/<hash>/lib_name`` (a no-op when it is there) and return its
+    path.  ``variants`` are (flags before the source, flags after it) pairs
+    tried in turn; the first that compiles is the library.  ``salt`` joins
+    the hash: what of the machine decides which variant builds (a library
+    linked against a shared library this machine lacks must not load from
+    the cache).  Each process
+    compiles to a name of its own and renames it into place, so concurrent
+    first users never see a half-written file.  Raises ``RuntimeError``
+    with every variant's ``g++`` output when none compiles."""
+    out_dir = HOST_ROOT / host_hash(src, [a + b for a, b in variants], salt)
+    lib = out_dir / lib_name
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH; the host helpers of "
+                           "bigdl_tpu_torch cannot be built")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib_name}.{os.getpid()}.{threading.get_ident()}.tmp"
+    errors = []
+    for before, after in variants:
+        cmd = [gxx, *HOST_FLAGS, *before, "-o", str(tmp), str(src), *after]
+        run = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+        if run.returncode == 0:
+            os.replace(tmp, lib)
+            return lib
+        errors.append(" ".join(cmd) + ":\n" +
+                      run.stdout.decode(errors="replace"))
+        tmp.unlink(missing_ok=True)
+    raise RuntimeError("g++ failed to build " + src.name + ":\n" +
+                       "\n".join(errors))
 
 
 def load() -> ctypes.CDLL:

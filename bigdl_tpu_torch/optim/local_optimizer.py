@@ -86,8 +86,8 @@ def _later(what: str, slice_name: str):
 
 def _to_device(array, device) -> torch.Tensor:
     """A batch array as a tensor on ``device``: a tensor (a batch that
-    ``PrefetchToDevice`` already put on the card) is used as it is where it
-    lies there; a host array is copied."""
+    ``PrefetchToDevice`` or ``StagingRing`` already put on the card) is used
+    as it is where it lies there; a host array is copied."""
     if isinstance(array, torch.Tensor):
         return array.to(device)
     return torch.from_numpy(np.asarray(array)).to(device)
@@ -430,7 +430,18 @@ class LocalOptimizer:
 
         logger.info("Training finished in %.1fs (%d iterations)",
                     time.time() - wall_start, self.state["neval"])
+        self._close_ingest()
         return self.model
+
+    def _close_ingest(self) -> None:
+        """Stop a sharded feed's worker pool at the end of the run
+        (``ShardedDataSet`` keeps it across epochs on purpose); a dataset
+        without ``close()`` is left as it is.  On a failure path (say
+        ``IngestWorkerDied``) the pool has torn itself down already."""
+        for ds in (self.dataset, self.validation_dataset):
+            close = getattr(ds, "close", None)
+            if callable(close):
+                close()
 
     # -- validation -----------------------------------------------------------
 

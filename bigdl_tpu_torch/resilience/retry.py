@@ -2,11 +2,13 @@
 (``bigdl_tpu/resilience/retry.py``, without the run-ledger records).
 
 Only *transient* error types are retried (``retryable``); programming
-errors propagate on their first occurrence.
+errors propagate on their first occurrence.  ``RETRIES`` counts the
+retries taken, by label.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import random
 import time
@@ -17,6 +19,9 @@ logger = logging.getLogger("bigdl_tpu_torch.resilience")
 # the transient family: storage/network hiccups and timeouts
 RETRYABLE_IO_ERRORS: Tuple[Type[BaseException], ...] = (OSError,
                                                         TimeoutError)
+
+# retries taken in this process, by label
+RETRIES: "collections.Counter[str]" = collections.Counter()
 
 
 def retry(fn: Callable, *args,
@@ -58,5 +63,6 @@ def retry(fn: Callable, *args,
             logger.warning("%s failed (%s: %s); retry %d/%d in %.2fs",
                            label, type(e).__name__, e, attempt + 1,
                            retries, delay)
+            RETRIES[label] += 1
             time.sleep(delay)
             attempt += 1

@@ -386,7 +386,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
    1024 -e 2`` at ``-w 1`` and ``-w 4`` (images/s on the host); (f)
    ``LBFGS.optimize`` (line search) and ``SGD``/``Adam``/``Adagrad.
    optimize`` on a 4096 x 64 logistic regression on the card, losses
-   against the CPU's;
+   against the CPU's (3u's pipelines run the native host helpers);
+3v. the native host helpers and the sharded multi-process feed, on 3u's
+   320 seeded records written again under ``build/``: (a) the host
+   library (``bigdl_tpu_torch/native.py``, built by ``g++``, with or
+   without libjpeg) and each helper bit-equal to its numpy plain version
+   at the path's shapes (224x224x3 f32, 256x341 planar bytes, a 32-image
+   pack) and at the CIFAR mains' 32x32, ms an image of each, the native
+   record scan equal to the Python reader, and the committed JPEG
+   fixtures through ``LocalImgReader`` where the library has libjpeg; (b)
+   3u-b's and 3u-c's figures on the native branches beside the inline
+   pipeline's earlier figures, and 3u-d's mains' steps beside their
+   earlier ones; (c) Inception-v1 trained (bf16, batch
+   32, ``train_main``'s SGD under Poly) by ``LocalOptimizer`` over
+   ``ShardedDataSet.from_seq_folder(workers=4, staging=True)`` for 30
+   steps: 13 K1 + 13 K3 + 2 K2 + 2 K4 a step exactly, ms a step, images/s,
+   ``next(data_iter)``'s share, the busy share (3 more steps profiled),
+   the bf16 upload's ms; the first 4 batches and the first loss at
+   workers 0 and 4 bit-equal; (d) ``bench_ingest``'s curve (the seqfile
+   recipe, staged to the card in bf16) at workers 0, 1, 2 and 4 beside
+   the host's cores and 3u-e's ``perf ingest``; (e) the fault drills:
+   ``ingest.worker.kill`` under (c)'s trainer ends in ``IngestWorkerDied``
+   within a stated time, and a run armed with ``io.read*1`` and
+   ``prefetch.put*1`` (both ``OSError``) completes with both retries
+   counted;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -466,6 +489,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import copy
+import glob
 import json
 import math
 import os
@@ -6238,7 +6262,6 @@ GEN_BLOCK = 5                                   # records a file
 # 3u-b: the record folder train_main reads (256-short-side BGR images,
 # labels 1-1000), its run and its checks
 SEQ_TRAIN, SEQ_VAL, SEQ_BLOCK = 320, 128, 64    # 5 train files, 2 val
-SEQ_SIDES = (256, 288, 320, 341)                # the long side, in turn
 SEQ_EPOCHS = 3                                  # 10 steps an epoch: 30
 SEQ_CPU_BATCH, SEQ_CPU_ITERS = 4, 2             # card vs CPU, bf16
 SEQ_PROFILE_STEPS = 3
@@ -6364,23 +6387,12 @@ def step_report(opt, waits, batch):
 
 
 def write_records(folder, n, seed, block):
-    """``n`` seeded 256-short-side BGR images (the long side from
-    SEQ_SIDES in turn, landscape and portrait alternating), labels drawn
+    """``n`` seeded 256-short-side BGR images (the long side 256, 288, 320
+    or 341 in turn, landscape and portrait alternating), labels drawn
     from 1-1000, written by ``BGRImgToLocalSeqFile`` in files of
-    ``block``."""
-    from bigdl_tpu_torch.dataset import BGRImgToLocalSeqFile, LabeledImage
-    rng = np.random.RandomState(seed)
-    os.makedirs(folder, exist_ok=True)
-
-    def images():
-        for i in range(n):
-            long_side = SEQ_SIDES[i % len(SEQ_SIDES)]
-            hw = (256, long_side) if i % 2 else (long_side, 256)
-            yield LabeledImage(rng.randint(0, 256, hw + (3,))
-                               .astype(np.float32),
-                               float(rng.randint(1, CLASSES + 1)))
-    return list(BGRImgToLocalSeqFile(block, os.path.join(folder, "part"))
-                .apply(images()))
+    ``block`` (``bench_ingest.write_seq_records``)."""
+    from bigdl_tpu_torch.dataset.bench_ingest import write_seq_records
+    return write_seq_records(folder, n, block, seed=seed, classes=CLASSES)
 
 
 def seqfile_generator(root, card):
@@ -6958,6 +6970,447 @@ def record_file_mains(device, card):
         restore()
         shutil.rmtree(root, ignore_errors=True)
     return report, paths
+
+
+# -- phase 3v: the native host helpers and the sharded multi-process feed ----
+
+SHARD_WORKERS = 4
+SHARD_STEPS = 30                      # 3 epochs of 3u's 320 records
+SHARD_PROFILE_STEPS = 3
+SHARD_DET_BATCHES = 4                 # compared at workers 0 and 4
+CURVE_WORKERS = (0, 1, 2, 4)
+CURVE_RECORDS, CURVE_BLOCK = 640, 16  # bench_ingest's seqfile recipe
+KILL_LIMIT_S = 90.0                   # the kill drill ends typed within
+DRILL_STEPS = 3
+HELPER_REPS = 5
+# the figures PERF.md section 5 records for these paths before the native
+# helpers (H100 80GB HBM3, 700 W): 3u-b's and 3u-c's step, the inline
+# stages (host ms an image) and perf ingest's images/s
+EARLIER = {"step_ms": (134.2, 166.9), "prefetch_step_ms": (110.8, 124.1),
+        "stages": {"normalize": 1.063, "decode": 0.334, "pack": 0.296,
+                   "flip": 0.264, "read": 0.181, "crop": 0.010},
+        "perf_ingest": {"w1": (668, 899), "w4": (994, 1235)},
+        # 3u-d's mains, ms a step over three earlier runs (numpy's loops)
+        "mains_step_ms": {"lenet": (6.2, 7.0), "resnet20": (43.7, 56.0),
+                          "vgg_cifar": (32.9, 43.0),
+                          "autoencoder": (4.0, 6.1)}}
+NORM_MEAN, NORM_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def per_image_ms(fn, images, reps=HELPER_REPS):
+    """Host ms an image of ``fn`` over ``images`` (the median of ``reps``
+    passes)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for x in images:
+            fn(x)
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times) / len(images)
+
+
+def native_helpers(card, folder):
+    """Phase 3v-a: build the host library, hold each helper bit-equal to its
+    numpy plain version at the ImageNet path's shapes and at the CIFAR
+    mains' 32x32, and time both (the planar-bytes loop beside numpy's
+    decode, which ``BytesToBGRImg`` keeps), hold the
+    native record scan against the Python reader on the records, and read
+    the JPEG fixtures where the library has libjpeg."""
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.dataset import LocalImgReader
+    from bigdl_tpu_torch.dataset import seqfile
+    t0 = time.perf_counter()
+    path = native.library_path()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 740)
+    # the ImageNet path's 224x224 images and the CIFAR mains' 32x32 ones
+    # (under native.MIN_VALUES: the transformers take numpy's loop there)
+    sizes = {"": (IMAGE, 256, 341), "_cifar": (32, 32, 32)}
+    u8 = [rng.randint(0, 256, (256, 341, 3), dtype=np.uint8)
+          for _ in range(8)]
+    mean, std = np.float32(NORM_MEAN), np.float32(NORM_STD)
+    out = {}
+    for tag, (side, rows, cols) in sizes.items():
+        imgs = [rng.rand(side, side, 3).astype(np.float32) * 255
+                for _ in range(BATCH)]
+        raws = [rng.randint(0, 256, 3 * rows * cols, dtype=np.uint8)
+                for _ in range(8)]
+        if native.pays(imgs[0]) != (tag == ""):
+            fail(f"3v-a: native.pays gives {native.pays(imgs[0])} at "
+                 f"{side}x{side}")
+        batch = [np.empty((BATCH, 3, side, side), np.float32)
+                 for _ in (0, 1)]
+
+        def decode_c(b, rows=rows, cols=cols):
+            # the library's planar-bytes loop, which BytesToBGRImg does
+            # not call: numpy's decode beats it (timed here beside it)
+            y = np.empty((rows, cols, 3), np.float32)
+            native.lib().bn_bytes_chw_to_hwc(b, 3, rows, cols, 255.0, y)
+            return y
+
+        def decode_numpy(b, rows=rows, cols=cols):
+            return b.reshape(3, rows, cols).transpose(1, 2, 0).astype(
+                np.float32) / 255.0
+
+        cases = {   # name: (native, plain, inputs)
+            "normalize": (lambda x: native.normalize(x, mean, std),
+                          lambda x: native.normalize_plain(x, mean, std),
+                          imgs),
+            "hflip": (native.hflip, native.hflip_plain, imgs),
+            "bytes_chw_to_hwc": (decode_c, decode_numpy, raws),
+            "pack_chw": (lambda ix: native.pack_chw(ix[1], batch[0][ix[0]]),
+                         lambda ix: native.pack_chw_plain(ix[1],
+                                                          batch[1][ix[0]]),
+                         list(enumerate(imgs))),
+        }
+        if tag == "":
+            cases["u8rgb_resize_bgr"] = (
+                lambda x: native.u8rgb_resize_bgr(x, 224, 298, 255.0),
+                lambda x: native.u8rgb_resize_bgr_plain(x, 224, 298, 255.0),
+                u8)
+        for name, (fast, plain, xs) in cases.items():
+            for x in xs:
+                if not np.array_equal(fast(x), plain(x)):
+                    fail(f"3v-a: native {name}{tag} differs from its plain "
+                         "version")
+            if name == "pack_chw" and not np.array_equal(batch[0], batch[1]):
+                fail(f"3v-a: native pack_chw{tag} differs from its plain "
+                     "version")
+            out[name + tag] = {"ms": per_image_ms(fast, xs),
+                               "plain_ms": per_image_ms(plain, xs)}
+    files = seqfile.seq_file_paths(os.path.join(folder, "train"))
+    for f in files:
+        fast = list(seqfile.read_seq_file(f))
+        if fast != list(seqfile.read_seq_file(f, native=False)) or \
+                seqfile.count_records(f) != len(fast):
+            fail(f"3v-a: the native scan of {f} differs from the Python "
+                 "reader")
+    out["read_seq_file"] = {
+        "ms": 1e3 * min(timed(lambda: [list(seqfile.read_seq_file(f))
+                                       for f in files])
+                        for _ in range(3)) / SEQ_TRAIN,
+        "plain_ms": 1e3 * min(timed(lambda: [list(seqfile.read_seq_file(
+            f, native=False)) for f in files]) for _ in range(3))
+        / SEQ_TRAIN}
+    jpegs = []
+    if native.has_jpeg():
+        fixtures = sorted(glob.glob(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+            "torch_port", "*.jpg")))
+        reader = LocalImgReader(scale_to=128, normalize=255.0)
+        for f in fixtures:
+            got = list(reader([(f, 1.0)]))[0].data
+            if not np.isfinite(got).all() or got.ndim != 3 or \
+                    min(got.shape[:2]) != 128:
+                fail(f"3v-a: LocalImgReader read {f} as {got.shape}")
+            if "png_named" not in f:
+                with open(f, "rb") as fh:
+                    rgb, (h, w) = native.jpeg_decode(
+                        fh.read(), min_short=128, with_orig_dims=True)
+                nh, nw = reader._short_edge_dims(h, w, 128)
+                if not np.array_equal(got, native.u8rgb_resize_bgr_plain(
+                        rgb, nh, nw, 255.0)):
+                    fail(f"3v-a: the fused resize of {f} differs from its "
+                         "plain version")
+            jpegs.append([os.path.basename(f), list(got.shape)])
+        if len(jpegs) != 5:
+            fail(f"3v-a: {len(jpegs)} JPEG fixtures, want 5")
+    report = {"library": str(path), "has_jpeg": native.has_jpeg(),
+              "build_s": build_s, "helpers": out, "jpeg_fixtures": jpegs}
+    log(f"[{card}] 3v-a native host library {path} (has_jpeg "
+        f"{native.has_jpeg()}, built or found in {build_s:.2f} s): every "
+        "helper bit-equal to its plain version; host ms an image, native / "
+        "numpy: " + json.dumps({k: [round(v["ms"], 4), round(v["plain_ms"],
+                                                             4)]
+                                for k, v in out.items()})
+        + f"; the inline stages before (ms an image): {EARLIER['stages']}; the "
+        f"native scan equals the Python reader on {len(files)} files; JPEG "
+        f"fixtures read: {jpegs or 'none (no libjpeg)'}")
+    return report
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def native_branch_figures(card, record_report):
+    """Phase 3v-b: 3u-b's and 3u-c's figures, now on the native branches,
+    and 3u-d's mains' steps, beside the earlier ones (``EARLIER``)."""
+    b, c = record_report["b_train_main"], record_report["c_prefetch"]
+    mains = {k: v["step_ms"] for k, v in record_report["d_mains"].items()}
+    out = {"d_mains_step_ms": mains,
+           "b": {k: b[k] for k in ("step_ms", "train_ms", "images_per_s",
+                                    "data_wait_share",
+                                    "pipeline_ms_per_image")},
+           "c": {k: c[k] for k in ("step_ms", "train_ms", "images_per_s",
+                                   "data_wait_share")}}
+    out["b"]["busy_share"] = b["profile"]["busy_share"]
+    out["earlier"] = EARLIER
+    log(f"[{card}] 3v-b on the native branches: 3u-b step "
+        f"{b['step_ms']:.2f} ms ({b['images_per_s']:.1f} images/s, "
+        f"next(data_iter) {b['data_wait_share']:.3f}, busy "
+        f"{b['profile']['busy_share']:.3f}, upload to loss "
+        f"{b['train_ms']:.2f} ms) against the earlier {EARLIER['step_ms']} ms; "
+        f"3u-c step {c['step_ms']:.2f} ms (next {c['data_wait_share']:.3f}, "
+        f"upload to loss {c['train_ms']:.2f}) against the earlier "
+        f"{EARLIER['prefetch_step_ms']} ms; stages, host ms an image: "
+        + json.dumps({k: round(v, 3) for k, v in
+                      b["pipeline_ms_per_image"].items()})
+        + f" against the earlier {EARLIER['stages']}; 3u-d's mains, ms a "
+        "step: " + json.dumps({k: round(v, 2) for k, v in mains.items()})
+        + f" against the earlier {EARLIER['mains_step_ms']}")
+    return out
+
+
+def sharded_set(folder, device, workers, staging=True):
+    """3u's training recipe on the sharded feed: the record files, decode
+    in the workers, crop, flip and normalize reseeded per chunk, packed in
+    the workers, staged to ``device`` in bf16."""
+    from bigdl_tpu_torch.dataset import (BGRImgCropper, BGRImgNormalizer,
+                                         BGRImgToBatch, HFlip,
+                                         ShardedDataSet)
+    return ShardedDataSet.from_seq_folder(
+        os.path.join(folder, "train"),
+        augment=(BGRImgCropper(IMAGE, IMAGE) >> HFlip(0.5)
+                 >> BGRImgNormalizer(NORM_MEAN, NORM_STD)),
+        batcher=BGRImgToBatch(BATCH), pack_in_workers=True,
+        staging=staging, staging_dtype="bf16", device=device,
+        workers=workers, seed=SEED + 1)
+
+
+def recipe_trainer(ds, device, steps):
+    """``inception.train_main``'s recipe over ``ds``: Inception-v1 (1000
+    classes, seeded), ClassNLL, SGD 0.01 / momentum 0.9 / weight decay
+    2e-4 under Poly(0.5) over ``steps``, bf16 mixed precision."""
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Poly, Trigger
+    opt = LocalOptimizer(Inception_v1(CLASSES).reset(SEED),
+                         ClassNLLCriterion(), ds,
+                         Trigger.max_iteration(steps), device=device)
+    opt.set_optim_method(SGD(learning_rate=0.01, weight_decay=0.0002,
+                             momentum=0.9, dampening=0.0,
+                             learning_rate_schedule=Poly(0.5, steps)))
+    opt.set_mixed_precision(True)
+    return opt
+
+
+def waits_of(ds, keep=0):
+    """Times each ``next()`` on ``ds``'s training stream (``.waits``) and
+    keeps card copies of its first ``keep`` batches (``.kept``)."""
+    data = ds.data
+    ds.waits, ds.kept = [], []
+
+    def timed_data(train):
+        it = data(train)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            ds.waits.append(time.perf_counter() - t0)
+            if b is None:
+                return
+            if len(ds.kept) < keep:
+                ds.kept.append((b.data.clone(), b.labels.clone()))
+            yield b
+    ds.data = timed_data
+    return ds
+
+
+def sharded_training(card, device, folder):
+    """Phase 3v-c: Inception-v1 by ``LocalOptimizer`` over
+    ``ShardedDataSet.from_seq_folder(workers=4, staging=True)``, 30 steps;
+    its launches, step, images/s, wait share, busy share (3 more steps
+    profiled) and the bf16 upload; then the determinism contract on the
+    card: the first batches and the first loss at workers 0 and 4."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.core.device import synchronize
+    from bigdl_tpu_torch.optim import Trigger
+    ds = waits_of(sharded_set(folder, device, SHARD_WORKERS),
+                  keep=SHARD_DET_BATCHES)
+    opt = recipe_trainer(ds, device, SHARD_STEPS)
+    ops.reset_launches()                     # the path starts here
+    t0 = time.perf_counter()
+    opt.optimize()
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = launches_now()                # and ends here
+    expect_launches("3v-c", launches, imagenet_launches(SHARD_STEPS, 0))
+    losses = [r["loss"] for r in opt.step_records]
+    if len(losses) != SHARD_STEPS or not np.isfinite(losses).all():
+        fail(f"3v-c: losses {losses}")
+    if ds._pool is not None:
+        fail("3v-c: the run left its ingest pool open")
+    run = step_report(opt, ds.waits, BATCH)
+    stats = dict(ds.stats)
+    opt.set_end_when(Trigger.max_iteration(SHARD_STEPS +
+                                           SHARD_PROFILE_STEPS))
+    prof = device_profile(opt.optimize, SHARD_PROFILE_STEPS)
+    prof["busy_share"] = prof["device_ms"] / run["step_ms"]
+    kept = ds.kept
+
+    # the determinism contract: workers 0 against workers 4
+    ds0 = waits_of(sharded_set(folder, device, 0), keep=SHARD_DET_BATCHES)
+    opt0 = recipe_trainer(ds0, device, SHARD_DET_BATCHES)
+    opt0.optimize()
+    same = len(ds0.kept) == len(kept) == SHARD_DET_BATCHES and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(kept, ds0.kept))
+    first0 = opt0.step_records[0]["loss"]
+    if not same or first0 != losses[0]:
+        fail(f"3v-c: workers 0 and {SHARD_WORKERS} differ (batches equal "
+             f"{same}; first losses {first0} / {losses[0]})")
+    x = kept[0][0].cpu().pin_memory()
+    upload_ms = median_ms(lambda: x.to(device, non_blocking=True), device,
+                          reps=UPLOAD_REPS)
+    report = {"workers": SHARD_WORKERS, "wall_s": wall, "losses": losses,
+              "launches_per_step": {k: v / SHARD_STEPS
+                                    for k, v in launches.items() if v},
+              "profile": prof, "parent": stats, "upload_bf16_ms": upload_ms,
+              "upload_bytes": x.numel() * x.element_size(),
+              "determinism": {"batches_equal": SHARD_DET_BATCHES,
+                              "first_loss": first0}}
+    report.update(run)
+    del opt, opt0
+    log(f"[{card}] 3v-c Inception-v1 over ShardedDataSet(workers "
+        f"{SHARD_WORKERS}, staging bf16), {SHARD_STEPS} steps in "
+        f"{wall:.2f} s: step {run['step_ms']:.2f} ms (median after the "
+        f"first; first {run['first_step_ms']:.1f} ms; upload to loss "
+        f"{run['train_ms']:.2f} ms), {run['images_per_s']:.1f} images/s, "
+        f"next(data_iter) {run['data_wait_share']:.3f} of the step, busy "
+        f"{prof['busy_share']:.3f} ({prof['device_ms']:.3f} ms of device "
+        f"time a step, {prof['htod_ms']:.3f} of it copies to the card); a "
+        f"staged bf16 batch's upload {upload_ms:.3f} ms "
+        f"({report['upload_bytes'] / 1e6:.1f} MB); launches a step "
+        f"{report['launches_per_step']}; the parent packed "
+        f"{stats['pack_s']:.3f} s and waited {stats['wait_s']:.3f} s over "
+        f"{stats['batches']} batches; the first {SHARD_DET_BATCHES} batches "
+        f"and the first loss ({first0:.6f}) equal at workers 0 and "
+        f"{SHARD_WORKERS}; against the earlier {EARLIER['step_ms']} ms inline and "
+        f"{EARLIER['prefetch_step_ms']} ms with PrefetchToDevice")
+    return report, launches
+
+
+def ingest_curve(card, device, root, perf_ingest):
+    """Phase 3v-d: ``bench_ingest``'s curve (the seqfile recipe, staged to
+    the card in bf16) at workers 0, 1, 2 and 4, records/s beside the
+    host's cores and 3u-e's ``perf ingest``."""
+    from bigdl_tpu_torch.dataset import bench_ingest
+    items = bench_ingest.write_seq_records(os.path.join(root, "curve"),
+                                           CURVE_RECORDS, CURVE_BLOCK,
+                                           seed=SEED + 741)
+    curve = {}
+    for w in CURVE_WORKERS:
+        curve[str(w)] = bench_ingest.measure_workers(
+            items, w, BATCH, 1, True, None, "bf16", recipe="seqfile",
+            device=device)
+        if not curve[str(w)] > 0:
+            fail(f"3v-d: {curve[str(w)]} records/s at workers {w}")
+    report = {"records": CURVE_RECORDS, "files": len(items),
+              "host_cores": os.cpu_count(), "records_per_s": curve,
+              "perf_ingest": {k: v["images_per_s"]
+                              for k, v in perf_ingest.items()}}
+    log(f"[{card}] 3v-d bench_ingest seqfile recipe ({CURVE_RECORDS} records "
+        f"in {len(items)} files, batch {BATCH}, staged bf16 to the card; "
+        f"{os.cpu_count()} host cores): records/s by workers "
+        + json.dumps({k: round(v, 1) for k, v in curve.items()})
+        + f"; 3u-e perf ingest {report['perf_ingest']} images/s (earlier: "
+        f"{EARLIER['perf_ingest']})")
+    return report
+
+
+def fault_drills(card, device, folder):
+    """Phase 3v-e: ``ingest.worker.kill`` under 3v-c's trainer must end in
+    ``IngestWorkerDied`` within KILL_LIMIT_S; a run of 3u-b's pipeline
+    with ``PrefetchToDevice``, armed with ``io.read*1`` and
+    ``prefetch.put*1`` (``OSError``), must complete with both retries
+    counted."""
+    from bigdl_tpu_torch.dataset import IngestWorkerDied
+    from bigdl_tpu_torch.dataset.prefetch import PrefetchToDevice
+    from bigdl_tpu_torch.models import inception
+    from bigdl_tpu_torch.resilience import RETRIES, FaultInjector
+    FaultInjector.clear()                   # the parent stays unarmed
+    os.environ["BIGDL_TPU_FAULTS"] = "ingest.worker.kill@2"
+    ds = sharded_set(folder, device, SHARD_WORKERS)
+    opt = recipe_trainer(ds, device, SHARD_STEPS)
+    t0 = time.perf_counter()
+    died = None
+    try:
+        opt.optimize()
+    except IngestWorkerDied as e:
+        died = e
+    finally:
+        del os.environ["BIGDL_TPU_FAULTS"]
+        ds.close(wait=False)
+    kill_s = time.perf_counter() - t0
+    if died is None or kill_s > KILL_LIMIT_S:
+        fail(f"3v-e: the kill drill ended with {died!r} after {kill_s:.1f} "
+             f"s (want IngestWorkerDied within {KILL_LIMIT_S} s)")
+    steps_before = len(opt.step_records)
+
+    before = dict(RETRIES)
+    inj = FaultInjector().add("io.read", count=1, exc=OSError) \
+        .add("prefetch.put", count=1, exc=OSError)
+    FaultInjector.install(inj)
+    try:
+        train = inception._imagenet_set(folder, BATCH, True) >> \
+            PrefetchToDevice(device=device)
+        drill = recipe_trainer(train, device, DRILL_STEPS)
+        drill.optimize()
+    finally:
+        FaultInjector.clear()
+    retried = {k: v - before.get(k, 0) for k, v in RETRIES.items()
+               if v != before.get(k, 0)}
+    losses = [r["loss"] for r in drill.step_records]
+    if sorted(inj.fired) != ["io.read", "prefetch.put"] or \
+            retried.get("prefetch.device_put") != 1 or \
+            sum(v for k, v in retried.items()
+                if k.startswith("seqfile open")) != 1 or \
+            len(losses) != DRILL_STEPS or not np.isfinite(losses).all():
+        fail(f"3v-e: the retry drill fired {inj.fired}, retried {retried}, "
+             f"losses {losses}")
+    report = {"kill": {"error": type(died).__name__, "seconds": kill_s,
+                       "steps_before": steps_before,
+                       "limit_s": KILL_LIMIT_S},
+              "retry": {"fired": inj.fired, "retried": retried,
+                        "losses": losses}}
+    log(f"[{card}] 3v-e fault drills: ingest.worker.kill@2 under the "
+        f"trainer ended in {type(died).__name__} after {kill_s:.2f} s "
+        f"({steps_before} steps trained; limit {KILL_LIMIT_S} s); io.read*1 "
+        f"and prefetch.put*1 (OSError) fired, retried {retried}, and the "
+        f"run completed its {DRILL_STEPS} steps")
+    return report
+
+
+def sharded_feed(device, card, record_report):
+    """Phase 3v: (a) the native helpers; (b) 3u's figures on them; (c) the
+    sharded trainer; (d) the ingest curve; (e) the fault drills.  The
+    records are written under ``build/`` and removed after.  Returns
+    (report, launches by path)."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    folder = os.path.join(root, "imagenet")
+    write_records(os.path.join(folder, "train"), SEQ_TRAIN, SEED + 720,
+                  SEQ_BLOCK)                 # 3u-b's training records
+    restore = quiet_step_logs()
+    report = {}
+    try:
+        report["a_native"] = native_helpers(card, folder)
+        report["b_native_branches"] = native_branch_figures(card,
+                                                            record_report)
+        report["c_sharded"], launches = sharded_training(card, device,
+                                                         folder)
+        report["d_curve"] = ingest_curve(card, device, root,
+                                         record_report["e_ingest"])
+        report["e_drills"] = fault_drills(card, device, folder)
+    finally:
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    return report, {"imagenet_sharded": launches}
 
 
 # -- phase 4: timings ---------------------------------------------------------
@@ -8459,6 +8912,11 @@ def main() -> int:
     cnn_launches.update(more)
     log("record-file training and mains: " + json.dumps(record_report))
     clock.stamp("3u (record-file training and the mains)")
+    # phase 3v: the native host helpers and the sharded feed
+    sharded_report, more = sharded_feed(device, card, record_report)
+    cnn_launches.update(more)
+    log("native helpers and the sharded feed: " + json.dumps(sharded_report))
+    clock.stamp("3v (native helpers and the sharded feed)")
     # phase 4
     main_pool_times = time_main_pools(device, card)
     text_times = time_text_pools(device, card)

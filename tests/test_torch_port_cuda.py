@@ -73,7 +73,9 @@ tolerances above.  ``PrefetchToDevice`` on the card yields the host
 batches bit for bit (bf16 where asked) over more batches than its depth,
 while the default stream lags behind its side stream, and the trainer and
 ``LocalValidator`` take such card batches as they are, with the host
-batches' losses and counts.
+batches' losses and counts; so does ``StagingRing`` (a short last batch
+included), and the trainer takes a staged ``ShardedDataSet``'s batches as
+they are, with the host batches' losses and weights.
 """
 
 import copy
@@ -1781,3 +1783,84 @@ def test_trainer_and_validator_take_card_batches(cuda_device):
     got = [LocalValidator(runs[0].model, ds(p), device=cuda_device).test(
         [Top1Accuracy(), Top5Accuracy()]) for p in (False, True)]
     assert got[0] == got[1] and got[0][0].count == 96
+
+
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_staging_ring_yields_the_host_batches(cuda_device, depth, dtype):
+    """As ``PrefetchToDevice``'s test: each batch read on the default
+    stream behind a long sleep kernel, then dropped, and a short last
+    batch through a view of its slot; a slot refilled before its copy ran,
+    or a batch's memory reused before the default stream read it, would
+    show as a changed batch."""
+    from bigdl_tpu_torch.dataset import MiniBatch, StagingRing
+    host = _host_batches(4 * depth + 3)
+    host.append(MiniBatch(host[0].data[:5].copy(), host[0].labels[:5]))
+    seen = []
+    for b in StagingRing(depth, dtype=dtype, device=cuda_device)(host):
+        assert b.data.device.type == "cuda"
+        torch.cuda._sleep(2_000_000)
+        seen.append((b.data.clone(), b.labels.clone()))
+        del b
+    torch.cuda.synchronize()
+    assert len(seen) == len(host)
+    for (data, labels), h in zip(seen, host):
+        want = torch.from_numpy(h.data)
+        if dtype:
+            want = want.to(torch.bfloat16)
+        assert data.dtype == want.dtype
+        assert torch.equal(data.cpu(), want)
+        assert torch.equal(labels.cpu(), torch.from_numpy(h.labels))
+
+
+def test_prefetch_to_device_grows_a_slot_for_a_larger_batch(cuda_device):
+    """A short batch first, then full ones: the ring's slot grows (behind
+    its last copy's event) and every batch arrives bit for bit."""
+    from bigdl_tpu_torch.dataset import MiniBatch
+    from bigdl_tpu_torch.dataset.prefetch import PrefetchToDevice
+    host = _host_batches(5)
+    host.insert(0, MiniBatch(host[1].data[:3].copy(), host[1].labels[:3]))
+    got = [(b.data.cpu(), b.labels.cpu()) for b in
+           PrefetchToDevice(2, device=cuda_device)(host)]
+    assert len(got) == len(host)
+    for (data, labels), h in zip(got, host):
+        assert torch.equal(data, torch.from_numpy(h.data))
+        assert torch.equal(labels, torch.from_numpy(h.labels))
+
+
+def test_trainer_takes_staged_sharded_batches(cuda_device):
+    """A ``ShardedDataSet(staging=True)`` batch is a CUDA tensor, and the
+    trainer uses it as it is (``_to_device`` hands back the same tensor):
+    the same losses and weights as from the host batches, bit for bit."""
+    from bigdl_tpu_torch.dataset import ShardedDataSet
+    from bigdl_tpu_torch.optim.local_optimizer import _to_device
+
+    def net():
+        return (tnn.Sequential().add(tnn.View(3 * 8 * 8))
+                .add(tnn.Linear(3 * 8 * 8, 32)).add(tnn.Tanh())
+                .add(tnn.Linear(32, 10)).add(tnn.LogSoftMax())).reset(2)
+
+    rs = np.random.RandomState(4)
+    samples = [Sample(rs.standard_normal((3, 8, 8)).astype(np.float32),
+                      np.float32(rs.randint(1, 11))) for _ in range(96)]
+
+    def ds(staging):
+        return ShardedDataSet(samples, batcher=SampleToBatch(16),
+                              staging=staging, device=cuda_device,
+                              workers=0, chunk=8)
+
+    first = next(iter(ds(True).data(train=False)))
+    assert first.data.is_cuda
+    assert _to_device(first.data, cuda_device) is first.data
+    runs = []
+    for staging in (False, True):
+        opt = LocalOptimizer(net(), tnn.ClassNLLCriterion(), ds(staging),
+                             Trigger.max_iteration(8), device=cuda_device)
+        opt.set_optim_method(SGD(learning_rate=0.1, momentum=0.9))
+        opt.optimize()
+        runs.append(opt)
+    assert [r["loss"] for r in runs[0].step_records] == \
+        [r["loss"] for r in runs[1].step_records]
+    for a, b in zip(runs[0].model.param_leaves(),
+                    runs[1].model.param_leaves()):
+        assert torch.equal(a, b)

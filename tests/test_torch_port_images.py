@@ -11,9 +11,13 @@ palettes, PIL's per-row filter choice) and files whose rows cycle through
 the five PNG filters: its pixels equal the reference's (PIL) exactly where
 no resize runs, and within 1 of 255 where one runs, on at most 2 % of the
 values (0-0.64 % on these files).  With PIL blocked (a subprocess with
-``sys.modules["PIL"] = None``), a PNG still reads and a JPEG raises the
-``ImportError`` that names the native JPEG decode still to come.  Mirrors
-``tests/test_dataset.py:24-95, 147-165``.
+``sys.modules["PIL"] = None``), a PNG still reads, a JPEG reads through the
+native libjpeg path where the host library has libjpeg (else it raises the
+``ImportError`` that names PIL), and a file of another format (BMP) raises
+that ``ImportError``.  A ``.jpg`` read through ``LocalImgReader`` is the
+native path's output, bit for bit, within 0.03 of the range of PIL's
+decode on average where the library has libjpeg, and PIL's exactly where it has not.
+Mirrors ``tests/test_dataset.py:24-95, 147-165``.
 """
 
 import io
@@ -345,9 +349,12 @@ def test_local_img_reader_takes_path_objects(tmp_path):
 
 
 def test_png_reads_and_jpeg_refuses_without_pil(tmp_path):
+    from bigdl_tpu_torch import native
     png_path = _pil_file(str(tmp_path), "a.png", "RGB", 20, 30, 15)
     jpg_path = str(tmp_path / "a.jpg")
+    bmp_path = str(tmp_path / "a.bmp")
     Image.open(png_path).save(jpg_path, "JPEG")
+    Image.open(png_path).save(bmp_path, "BMP")
     want = np.asarray(Image.open(png_path).convert("RGB"))[..., ::-1]
     np.save(str(tmp_path / "want.npy"), want.astype(np.float32))
     code = (
@@ -357,27 +364,46 @@ def test_png_reads_and_jpeg_refuses_without_pil(tmp_path):
         "from bigdl_tpu_torch.dataset import LocalImgReader\n"
         f"got = list(LocalImgReader(0)([({png_path!r}, 1.0)]))[0].data\n"
         f"assert np.array_equal(got, np.load({str(tmp_path / 'want.npy')!r}))\n"
-        "try:\n"
-        f"    list(LocalImgReader(0)([({jpg_path!r}, 1.0)]))\n"
-        "except ImportError as e:\n"
-        "    print('refused:', e)\n"
+        f"for path in ({jpg_path!r}, {bmp_path!r}):\n"
+        "    try:\n"
+        "        img = list(LocalImgReader(0)([(path, 1.0)]))[0].data\n"
+        "        print('read:', path[-3:], img.shape)\n"
+        "    except ImportError as e:\n"
+        "        print('refused:', path[-3:], e)\n"
         "assert 'PIL.Image' not in sys.modules\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "refused:" in out.stdout and "item 11" in out.stdout
-    assert "JPEG" in out.stdout
+    lines = out.stdout.splitlines()
+    if native.has_jpeg():
+        assert lines[0] == "read: jpg (20, 30, 3)"
+    else:
+        assert lines[0].startswith("refused: jpg") and "PIL" in lines[0]
+    assert lines[1].startswith("refused: bmp") and "PIL" in lines[1]
+    assert "item 11" not in out.stdout
 
 
 def test_jpeg_goes_through_pil_when_it_is_there(tmp_path):
+    from bigdl_tpu_torch import native
     png_path = _pil_file(str(tmp_path), "a.png", "RGB", 24, 32, 16)
     jpg_path = str(tmp_path / "a.jpg")
     Image.open(png_path).save(jpg_path, "JPEG", quality=95)
     got = list(timage.LocalImgReader(0)([(jpg_path, 2.0)]))[0]
     want = np.asarray(Image.open(jpg_path).convert("RGB"), np.float32)
-    np.testing.assert_array_equal(got.data, want[..., ::-1])
+    if not native.has_jpeg():
+        np.testing.assert_array_equal(got.data, want[..., ::-1])
+        return
+    # the native path's output bit for bit, and PIL's within the IFAST
+    # decode and plain chroma upsampling: 0.03 of the range on average
+    # (the reference's bound, tests/test_native.py)
+    with open(jpg_path, "rb") as f:
+        rgb = native.jpeg_decode(f.read())
+    np.testing.assert_array_equal(
+        got.data, native.u8rgb_resize_bgr(rgb, 24, 32, 1.0))
+    assert got.data.shape == want.shape
+    assert np.abs(got.data - want[..., ::-1]).mean() < 0.03 * 255
 
 
 def test_png_encoder_round_trip_through_pil():

@@ -644,8 +644,19 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'bigdl_tpu' or "
-        "n.startswith('bigdl_tpu.'))\n"
+        "n.startswith('bigdl_tpu.') or n == 'torch_mirror')\n"
         "assert not bad, bad\n"
+        "feed = ['bigdl_tpu_torch.native', "
+        "'bigdl_tpu_torch.dataset.sharded', "
+        "'bigdl_tpu_torch.dataset.ingest_pool', "
+        "'bigdl_tpu_torch.dataset.staging', "
+        "'bigdl_tpu_torch.resilience.fault_injector']\n"
+        "assert all(m in sys.modules for m in feed)\n"
+        "import torch\n"
+        "from bigdl_tpu_torch import native\n"
+        "from bigdl_tpu_torch.ops import _build\n"
+        "assert native._lib is None and _build._lib is None\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print(len([n for n in sys.modules "
         "if n.startswith('bigdl_tpu_torch')]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
