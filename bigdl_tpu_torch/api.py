@@ -91,6 +91,8 @@ class DLClassifier:
                 calib = quant.calibrate(self.model, [np.stack(cal)])
             self.qmodel = quant.quantize_model(self.model, mode, calib=calib,
                                                cast_rest=compute_dtype)
+            quant.emit_param_bytes(self.qmodel, kind="DLClassifier",
+                                   mode=mode)
 
     # -- internals ----------------------------------------------------------
 

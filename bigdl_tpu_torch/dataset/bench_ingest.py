@@ -15,10 +15,12 @@ staging ring to the card in bf16 unless ``--no-staging``).  Two recipes:
   SeqBytesToBGRImg``, one file a task; needs nothing beyond the port
   (the files go to a temporary folder, removed after).
 
-The rates leave out the pool's start and the first batch.  The reference's
-per-stage attribution pass reads the run ledger and report, which come
-with the host subsystems (``ROADMAP.md`` Queue 1 item 13): ``--run-dir``
-raises ``NotImplementedError`` until then.  ``--smoke`` is a tiny run at
+The rates leave out the pool's start and the first batch.  Then one
+instrumented pass at the largest worker count writes its ``ingest.*``
+spans to a run ledger (``--run-dir``, a temporary directory by default),
+and the run report's ingest section turns them into per-stage capacities
+(records per busy second times lanes) and the bound stage, the lowest
+capacity.  ``--smoke`` is a tiny run at
 workers 0 and 1 without staging.  Spawned workers re-import the main
 module: a script that calls ``main`` keeps its entry point under ``if
 __name__ == "__main__":``.
@@ -143,13 +145,27 @@ def measure_workers(items, workers: int, batch: int, chunk: int,
         ds.close()
 
 
-def attribution_pass(*args, **kwargs) -> dict:
-    """The reference's per-stage attribution: one instrumented pass whose
-    ``ingest.*`` spans the run report turns into stage capacities and a
-    bound stage."""
-    raise NotImplementedError(
-        "bench_ingest's attribution pass reads the run ledger and report, "
-        "which come with the host subsystems (ROADMAP.md Queue 1 item 13)")
+def attribution_pass(items, workers: int, batch: int, chunk: int,
+                     staging: bool, depth: Optional[int], dtype,
+                     run_dir: str, recipe: str = "jpeg",
+                     device="cuda") -> dict:
+    """One instrumented pass; returns the run report's ``ingest`` section
+    (per-stage capacities and the bound stage) computed from its
+    ledger."""
+    from bigdl_tpu_torch.observability import ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+
+    prev = ledger.get_ledger()
+    led = ledger.set_run_dir(run_dir)
+    try:
+        measure_workers(items, workers, batch, chunk, staging, depth,
+                        dtype, recipe=recipe, device=device)
+        led.flush()
+    finally:
+        ledger.set_run_dir(prev.dir if prev is not None else None)
+    records, _ = load_ledger(run_dir)
+    return build_report(records)["ingest"] or {}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -177,7 +193,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default=None, help="write the result as JSON")
     p.add_argument("--run-dir", default=None,
-                   help="the attribution pass's ledger (item 13)")
+                   help="ledger dir of the attribution pass (default: a "
+                        "temp dir)")
     p.add_argument("--smoke", action="store_true",
                    help="a tiny run: workers 0,1, no staging")
     args = p.parse_args(argv)
@@ -191,8 +208,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
         args.no_staging = True
     if args.workers_list is None:
         args.workers_list = "0,1,2,4"
-    if args.run_dir is not None:
-        attribution_pass(args.run_dir)
     staging = not args.no_staging
     dtype = None if args.dtype in ("keep", "") else args.dtype
     workers_list = [int(w) for w in args.workers_list.split(",")]
@@ -202,7 +217,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         items, chunk = synth_jpeg_records(args.records), args.chunk
     else:
         import tempfile
-        tmp = tempfile.mkdtemp(prefix="bench_ingest_")
+        tmp = tempfile.mkdtemp(prefix="bench_ingest_records_")
         items = write_seq_records(tmp, args.records, args.chunk)
         chunk = 1
     try:
@@ -214,6 +229,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
             curve[str(w)] = rate
             print(json.dumps({"workers": w, "images_per_sec": rate}),
                   flush=True)
+        import tempfile
+        run_dir = args.run_dir or tempfile.mkdtemp(prefix="bench_ingest_")
+        attr_workers = max(workers_list)
+        ingest = attribution_pass(items, attr_workers, args.batch_size,
+                                  chunk, staging, args.depth, dtype,
+                                  run_dir, recipe=args.recipe,
+                                  device=args.device)
     finally:
         if tmp is not None:
             import shutil
@@ -237,7 +259,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "worker_scaling_imgs_per_sec": curve,
         "scaling_x_vs_1_worker": curve[best] / base if base else None,
         "best_workers": int(best),
-        "note": "rates leave out the pool's start and the first batch",
+        "stage_attribution": {
+            name: {"capacity_records_per_s": st["capacity_records_per_s"],
+                   "lanes": st["lanes"], "busy_s": st["busy_s"]}
+            for name, st in (ingest.get("stages") or {}).items()},
+        "bound_stage": ingest.get("bound_stage"),
+        "attribution_workers": attr_workers,
+        "run_dir": run_dir,
+        "note": "rates leave out the pool's start and the first batch; "
+                "stage capacities come from the ledger's spans (records "
+                "per busy second x lanes), the bound stage is the lowest "
+                "capacity",
     }
     if args.out:
         with open(args.out, "w") as f:

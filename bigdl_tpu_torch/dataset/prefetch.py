@@ -42,6 +42,7 @@ from bigdl_tpu_torch import native as _native
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.dataset import ingest_config
 from bigdl_tpu_torch.dataset.transformer import MiniBatch, Transformer
+from bigdl_tpu_torch.observability import tracer
 from bigdl_tpu_torch.resilience.fault_injector import FaultInjector
 from bigdl_tpu_torch.resilience.retry import retry
 
@@ -344,6 +345,9 @@ class PrefetchToDevice(Transformer):
 
 
 def _fire_put(stage, batch):
-    """The copy of one batch, behind its fault site ``prefetch.put``."""
+    """The copy of one batch, behind its fault site ``prefetch.put``, under
+    a ``prefetch.h2d`` span, so the ledger shows copy stalls on the
+    producer thread."""
     FaultInjector.fire("prefetch.put")
-    return stage(batch)
+    with tracer.span("prefetch.h2d"):
+        return stage(batch)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import os
 import struct
+import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +38,7 @@ from bigdl_tpu_torch import native as _native
 from bigdl_tpu_torch.dataset import hadoop_seqfile
 from bigdl_tpu_torch.dataset.image import ByteRecord, LabeledImage
 from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.observability import ledger as run_ledger
 from bigdl_tpu_torch.resilience.fault_injector import FaultInjector
 from bigdl_tpu_torch.resilience.retry import retry
 
@@ -221,13 +223,41 @@ class BGRImgToLocalSeqFile(Transformer):
 
 class LocalSeqFileToBytes(Transformer):
     """Record-file paths (or ``LocalSeqFilePath``s) -> ByteRecord stream
-    with float labels (``LocalSeqFileToBytes.scala:35-90``)."""
+    with float labels (``LocalSeqFileToBytes.scala:35-90``).
+
+    Each file's read is one ``seqfile.read`` ``io`` record in the run
+    ledger, its time added up around the generator pulls and written once
+    the file is done (or the consumer stops), so only the read is
+    attributed.  An ``io`` record, not a span: the same seconds already
+    sit inside the span pulling the pipeline (``data.next``), and the run
+    report lists them apart instead of counting them twice."""
 
     def apply(self, prev):
         for item in prev:
             path = item.path if isinstance(item, LocalSeqFilePath) else item
-            for key, value in read_seq_file(path):
-                yield ByteRecord(value, float(read_label(key)))
+            if run_ledger.get_ledger() is None:
+                for key, value in read_seq_file(path):
+                    yield ByteRecord(value, float(read_label(key)))
+                continue
+            spent = 0.0
+            count = 0
+            it = read_seq_file(path)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        key, value = next(it)
+                    except StopIteration:
+                        spent += time.perf_counter() - t0
+                        break
+                    spent += time.perf_counter() - t0
+                    count += 1
+                    yield ByteRecord(value, float(read_label(key)))
+            finally:
+                # a consumer that stops mid-file still gets its partial
+                # time ledgered
+                run_ledger.emit("io", name="seqfile.read", dur_s=spent,
+                                file=os.path.basename(path), records=count)
 
 
 class SeqBytesToBGRImg(Transformer):

@@ -26,8 +26,9 @@ and ``close()`` stops the pool at the end of a run::
 default to process 0 of 1 (reading them from the process group comes with
 the DistriOptimizer slice of the port, ``ROADMAP.md`` Queue 1 item 12).
 The parent's packing time and its wait on the workers are kept in
-``stats`` (the reference's ``ingest.pack``/``ingest.coalesce`` spans come
-with the run ledger, item 13).
+``stats``, and each batch's packing runs under an ``ingest.pack`` span
+(``ingest.coalesce`` for worker-packed blocks) that leaves the wait on the
+workers out, as in the reference.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from bigdl_tpu_torch.dataset import ingest_config
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet, _record_count
 from bigdl_tpu_torch.dataset.ingest_pool import IngestPool, fold_seed
 from bigdl_tpu_torch.dataset.transformer import MiniBatch, Transformer
+from bigdl_tpu_torch.observability import tracer
 
 
 def partition_range(n_items: int, index: int, count: int) -> range:
@@ -144,8 +146,10 @@ class ShardedDataSet(AbstractDataSet):
         self._epoch_serial = 0            # advanced by shuffle()
         self._pool: Optional[IngestPool] = None
         # the parent's side: seconds packing (or coalescing) and seconds
-        # waiting on the workers, and the batches made
-        self.stats = {"pack_s": 0.0, "wait_s": 0.0, "batches": 0}
+        # waiting on the workers, and the batches made; and the chunks
+        # each process served, by pid (the pool keeps it across epochs)
+        self.stats = {"pack_s": 0.0, "wait_s": 0.0, "batches": 0,
+                      "chunks_by_pid": {}}
 
     @classmethod
     def from_seq_folder(cls, folder: str, *,
@@ -209,7 +213,7 @@ class ShardedDataSet(AbstractDataSet):
             self._pool = IngestPool(
                 self.decode, self.augment, workers=self.workers,
                 pack=self._worker_pack() if self.pack_in_workers
-                else None)
+                else None, served=self.stats["chunks_by_pid"])
         return self._pool
 
     def close(self, wait: bool = True) -> None:
@@ -304,6 +308,7 @@ def _coalesced(batch_size: int, drop_last: bool, stream: Iterator,
         return MiniBatch(np.concatenate(take_d), np.concatenate(take_l))
 
     while True:
+        h = tracer.begin_span("ingest.coalesce")
         t0, w0 = time.perf_counter(), timed.waited_s
         try:
             while rows < batch_size:
@@ -311,13 +316,25 @@ def _coalesced(batch_size: int, drop_last: bool, stream: Iterator,
                 pending.append(blk)
                 rows += blk.size()
         except StopIteration:
+            h.exclude(timed.waited_s - w0)
             if rows and not drop_last:
                 out = emit(rows)
                 _account(stats, t0, timed.waited_s - w0)
+                h.set(records=out.size())
+                h.end()
                 yield out
+            else:
+                h.end()
             return
+        except BaseException as e:
+            h.exclude(timed.waited_s - w0)
+            h.end(error=type(e).__name__)
+            raise
         out = emit(batch_size)
         _account(stats, t0, timed.waited_s - w0)
+        h.exclude(timed.waited_s - w0)
+        h.set(records=out.size())
+        h.end()
         yield out
 
 
@@ -327,12 +344,22 @@ def _packed(batcher: Transformer, stream: Iterator, stats: dict) -> Iterator:
     timed = _TimedIter(stream)
     it = batcher(timed)
     while True:
+        h = tracer.begin_span("ingest.pack")
         t0, w0 = time.perf_counter(), timed.waited_s
         try:
             batch = next(it)
         except StopIteration:
+            h.exclude(timed.waited_s - w0)
+            h.end()
             return
+        except BaseException as e:
+            h.exclude(timed.waited_s - w0)
+            h.end(error=type(e).__name__)
+            raise
         _account(stats, t0, timed.waited_s - w0)
+        h.exclude(timed.waited_s - w0)
+        h.set(records=batch.size() if hasattr(batch, "size") else 0)
+        h.end()
         yield batch
 
 

@@ -23,7 +23,10 @@ Failures reach the consumer's ``next()`` as themselves (an upstream
 ``IngestWorkerDied`` included); a thread that dies without reporting
 cannot leave the consumer blocked (bounded waits and liveness checks); an
 abandoned consumer releases both threads.  The stager checks the
-``ingest.stage`` fault site before each batch.
+``ingest.stage`` fault site before each batch.  Each slot's fill runs
+under an ``ingest.stage`` span and each copy under ``ingest.h2d``; on the
+card the latter spans the enqueue of the copy and its event, not the
+transfer itself.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.dataset import ingest_config
 from bigdl_tpu_torch.dataset.prefetch import _END, _feed, _PinnedRing, _Pipe
 from bigdl_tpu_torch.dataset.transformer import Transformer
+from bigdl_tpu_torch.observability import tracer
 from bigdl_tpu_torch.resilience.fault_injector import FaultInjector
 
 
@@ -83,7 +87,11 @@ class StagingRing(Transformer):
                             "(the first batch sizes the ring; keep batch "
                             "sizes non-increasing or drop_last)")
                     i = free.get()
-                    if i is None or not staged.put(ring.stage(b, i)):
+                    if i is None:
+                        return
+                    with tracer.span("ingest.stage", records=b.size()):
+                        item = ring.stage(b, i)
+                    if not staged.put(item):
                         return
                 staged.put(_END)
             except BaseException as e:
@@ -98,7 +106,8 @@ class StagingRing(Transformer):
                     if item is _END or isinstance(item, BaseException):
                         ready.put(item)
                         return
-                    out = ring.upload(*item)
+                    with tracer.span("ingest.h2d", records=int(item[1])):
+                        out = ring.upload(*item)
                     free.put(item[0])
                     if not ready.put(out):
                         return

@@ -12,6 +12,10 @@ raises.
 ``build_host`` does the same for the host helpers' C++ source
 (``csrc/host/``, compiled by ``g++``, no CUDA) into
 ``build/bigdl_tpu_torch/host/<hash>/``.
+
+Each build that runs (not one found in the cache) writes one ``compile``
+record to the run ledger (``event`` ``nvcc`` or ``g++``, ``dur_s``), the
+port's counterpart of the reference's XLA compile records.
 """
 
 from __future__ import annotations
@@ -22,10 +26,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from bigdl_tpu_torch.observability import tracer
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "bigdl_tpu_torch"
@@ -128,6 +135,7 @@ def build() -> Path:
     if lib.exists():
         return lib
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     work = out_dir / f"tmp-{os.getpid()}-{threading.get_ident()}"
     work.mkdir(parents=True, exist_ok=True)
     try:
@@ -155,6 +163,10 @@ def build() -> Path:
         os.replace(tmp_lib, lib)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # the port's counterpart of an XLA compile record: what a first step
+    # waited for
+    tracer.record_compile("nvcc", time.perf_counter() - t0,
+                          sources=len(objs))
     return lib
 
 
@@ -193,12 +205,15 @@ def build_host(src: Path, lib_name: str, variants, salt: str = "") -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{lib_name}.{os.getpid()}.{threading.get_ident()}.tmp"
     errors = []
+    t0 = time.perf_counter()
     for before, after in variants:
         cmd = [gxx, *HOST_FLAGS, *before, "-o", str(tmp), str(src), *after]
         run = subprocess.run(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT)
         if run.returncode == 0:
             os.replace(tmp, lib)
+            tracer.record_compile("g++", time.perf_counter() - t0,
+                                  source=src.name)
             return lib
         errors.append(" ".join(cmd) + ":\n" +
                       run.stdout.decode(errors="replace"))

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.core.module import Container
 from bigdl_tpu_torch.core.precision import promote
+from bigdl_tpu_torch.observability import ledger as run_ledger
 from bigdl_tpu_torch.ops import _build
 
 # parameter names of matmul/conv weights the layers route through the
@@ -710,15 +711,17 @@ def calibrate(model, batches: Iterable) -> Dict[str, float]:
     record the max |x| of each quantizable weight's input, and return
     ``{param_path: absmax / 127}`` for :func:`quantize_model`'s ``calib=``.
     Integer batches (token ids) stay integers; any other batch goes in as
-    float32.  (The reference also writes a ``quant.calibration`` ledger
-    record; the port has no ledger yet.)"""
+    float32.  Writes a ``quant.calibration`` ledger record (sites, batches,
+    scales) so the deployed scales are auditable."""
     device = next(model.parameters()).device
     store: Dict = {}
+    nb = 0
     was_training = model.training
     model.eval()
     try:
         with calibrating(store), torch.inference_mode():
             for x in batches:
+                nb += 1
                 x = np.asarray(x)
                 if not np.issubdtype(x.dtype, np.integer):
                     x = x.astype(np.float32)
@@ -731,6 +734,8 @@ def calibrate(model, batches: Iterable) -> Dict[str, float]:
             if p is not None and id(p) in store and _quantizable(name, p):
                 scales[_param_path(path, name)] = \
                     max(store[id(p)], 1e-12) / 127.0
+    run_ledger.emit("quant.calibration", batches=nb, sites=len(scales),
+                    scales={p: float(s) for p, s in scales.items()})
     return scales
 
 
@@ -794,3 +799,12 @@ def param_bytes_by_dtype(model) -> Dict[str, int]:
         name = str(t.dtype).replace("torch.", "")
         out[name] = out.get(name, 0) + t.numel() * t.element_size()
     return out
+
+
+def emit_param_bytes(model, kind: str, **attrs) -> Dict[str, int]:
+    """Write the ``mem.params`` ledger record of a serving model and
+    return its bytes by dtype."""
+    by_dtype = param_bytes_by_dtype(model)
+    run_ledger.emit("mem.params", kind=kind, bytes_by_dtype=by_dtype,
+                    total_bytes=sum(by_dtype.values()), **attrs)
+    return by_dtype

@@ -4,6 +4,7 @@ LBFGS and the schedules, triggers and validation methods (``bigdl_tpu/optim``)."
 from bigdl_tpu_torch.optim.local_optimizer import (SKIPPED_STEPS,
                                                    LocalOptimizer,
                                                    LocalValidator, Validator)
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import (LBFGS, SGD, Adagrad, Adam,
                                                 AdamW, Cosine, Default,
                                                 EpochDecay, EpochSchedule,
@@ -21,7 +22,7 @@ from bigdl_tpu_torch.optim.validation import (AccuracyResult, Loss,
 __all__ = ["AccuracyResult", "Adagrad", "Adam", "AdamW", "Cosine",
            "Default", "EpochDecay", "EpochSchedule", "EpochStep", "LBFGS",
            "LearningRateSchedule", "LocalOptimizer", "LocalValidator",
-           "Loss", "LossResult", "OptimMethod", "Optimizer", "Poly", "Regime",
+           "Loss", "Metrics", "LossResult", "OptimMethod", "Optimizer", "Poly", "Regime",
            "SGD", "SKIPPED_STEPS", "Step", "Top1Accuracy", "Top5Accuracy",
            "Trigger", "ValidationMethod", "ValidationResult", "Validator",
            "Warmup"]

@@ -26,15 +26,31 @@ the updates and the dropout masks of an uninterrupted run.  A generator
 state of another device type (a snapshot taken on the card, resumed on the
 CPU) cannot be restored: that run keeps the batches and the updates, and
 its draws restart from the seed.
+
+Observability (``bigdl_tpu_torch.observability``): with the run ledger on
+(``BIGDL_TPU_RUN_DIR`` or ``set_run_dir``) a run writes ``run.start`` and
+``run.end``, one ``step`` record a step, the reference's spans (``init``,
+``data.next``, ``h2d``, ``train.step``, ``cost.analysis`` once,
+``loop.bookkeeping``, ``validate``, ``checkpoint.save``), ``mem.hbm``
+samples of a CUDA device, the first step's ``cost.analysis`` record and
+``step.skipped`` events, and dumps its ``Metrics`` as Prometheus text at
+run end.  ``train.step`` closes after ``float(loss)``, the step's one host
+sync, so on the card it spans the step's device time; ``h2d`` spans the
+enqueue of the copies.  The records add no synchronisation.
+``set_step_timeout`` (or ``BIGDL_TPU_STEP_TIMEOUT``) arms a
+:class:`~bigdl_tpu_torch.resilience.watchdog.Watchdog` over ``train.step``;
+``set_train_summary``/``set_val_summary`` tee the scalars into TensorBoard
+files and the ledger.  ``step_records`` keeps the step records in memory
+too.
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import math
 import os
 import re
+import threading
 import time
 from typing import List, Optional, Sequence
 
@@ -45,9 +61,14 @@ from bigdl_tpu_torch.convert import export_params
 from bigdl_tpu_torch.core.device import resolve_device
 from bigdl_tpu_torch.core.module import tree_leaves
 from bigdl_tpu_torch.core.precision import mixed_forward
+from bigdl_tpu_torch.observability import costs
+from bigdl_tpu_torch.observability import ledger as run_ledger
+from bigdl_tpu_torch.observability import tracer
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.resilience.watchdog import Watchdog
 from bigdl_tpu_torch.utils.file import File, load_model_snapshot
 from bigdl_tpu_torch.utils.table import T, Table
 
@@ -56,6 +77,18 @@ logger = logging.getLogger("bigdl_tpu_torch.optim")
 # counter of steps the non-finite guard skipped (the reference's
 # dropped-gradient accounting, DistriOptimizer.scala:244-272)
 SKIPPED_STEPS = "skipped steps (non-finite)"
+
+
+def _default_step_timeout() -> Optional[float]:
+    """Watchdog timeout from ``BIGDL_TPU_STEP_TIMEOUT`` (seconds; unset/0
+    disarms).  Per-optimizer override via ``set_step_timeout``."""
+    raw = os.environ.get("BIGDL_TPU_STEP_TIMEOUT", "")
+    try:
+        t = float(raw) if raw else 0.0
+    except ValueError:
+        raise ValueError(
+            f"BIGDL_TPU_STEP_TIMEOUT={raw!r} is not a number of seconds")
+    return t if t > 0 else None
 
 
 def _base_dataset(dataset):
@@ -125,13 +158,17 @@ class LocalOptimizer:
         self._resume_path: Optional[str] = None   # resume_from
         self._resume_opt_state = None    # from a state snapshot
         self._resume_rng = None
-        self.metrics = collections.Counter()
+        self.metrics = Metrics()
+        self.train_summary = None        # TrainSummary facade (optional)
+        self.val_summary = None          # ValidationSummary facade
+        self.step_timeout = _default_step_timeout()
         self.mixed_precision = False
         self.skip_nonfinite = True
         self.seed = 0
         self._generator: Optional[torch.Generator] = None
         self.opt_state = None
-        # one record per step: what the reference writes to its run ledger
+        # the step records of this trainer's runs, kept in memory beside
+        # the ledger's
         self.step_records: List[dict] = []
 
     # -- builder API (Optimizer.scala parity) -------------------------------
@@ -213,13 +250,26 @@ class LocalOptimizer:
         _later("set_mesh", "parallel-strategies")
 
     def set_step_timeout(self, seconds: Optional[float]):
-        _later("set_step_timeout (the step watchdog)", "host-subsystems")
+        """Arm the step watchdog: a step (up to its host sync) exceeding
+        ``seconds`` fails fast with a stack dump and a
+        ``WatchdogTimeout`` instead of hanging the run.  ``None``/0
+        disarms.  Default from ``BIGDL_TPU_STEP_TIMEOUT``."""
+        self.step_timeout = seconds
+        return self
 
     def set_train_summary(self, summary):
-        _later("set_train_summary", "host-subsystems")
+        """Tee per-step scalars (``Loss``, ``Throughput``,
+        ``LearningRate``) into a ``TrainSummary``: TensorBoard event files
+        and the run ledger.  Per-tag cadence via
+        ``summary.set_summary_trigger``."""
+        self.train_summary = summary
+        return self
 
     def set_val_summary(self, summary):
-        _later("set_val_summary", "host-subsystems")
+        """Tee validation results into a ``ValidationSummary``, one tag
+        per method."""
+        self.val_summary = summary
+        return self
 
     # -- the step -------------------------------------------------------------
 
@@ -274,7 +324,9 @@ class LocalOptimizer:
     def _record_skipped_step(self) -> int:
         skipped = self.state.get("skippedSteps", 0) + 1
         self.state["skippedSteps"] = skipped
-        self.metrics[SKIPPED_STEPS] += 1
+        self.metrics.incr(SKIPPED_STEPS)
+        run_ledger.emit("event", kind="step.skipped",
+                        step=self.state["neval"], total=skipped)
         logger.warning(
             "step %d: non-finite loss/gradient — update skipped, weights "
             "kept (%d skipped so far)", self.state["neval"], skipped)
@@ -342,47 +394,128 @@ class LocalOptimizer:
             return
         neval = self.state["neval"]
         suffix = "" if self.overwrite_checkpoint else f".{neval}"
-        File.save({"params": export_params(self.model),
-                   "model_state": self.model.state_tree()},
-                  f"{self.checkpoint_path}/model{suffix}", True)
-        # the state file is written last: it commits the pair
-        File.save({"state": dict(self.state), "opt_state": self.opt_state,
-                   "rng": self._generator.get_state()},
-                  f"{self.checkpoint_path}/state{suffix}", True)
+        with tracer.span("checkpoint.save", step=neval):
+            File.save({"params": export_params(self.model),
+                       "model_state": self.model.state_tree()},
+                      f"{self.checkpoint_path}/model{suffix}", True)
+            # the state file is written last: it commits the pair
+            File.save({"state": dict(self.state),
+                       "opt_state": self.opt_state,
+                       "rng": self._generator.get_state()},
+                      f"{self.checkpoint_path}/state{suffix}", True)
+
+    # -- observability (run ledger + summaries) ------------------------------
+
+    def _run_start(self) -> None:
+        """Open the run in the ledger when it is on; free otherwise."""
+        if not run_ledger.enabled():
+            return
+        tracer.reset_stack()     # a prior failed run must not parent us
+        cuda = self.device.type == "cuda"
+        run_ledger.emit(
+            "run.start", kind=type(self).__name__, pid=os.getpid(),
+            thread=threading.get_ident(),
+            trace=run_ledger.trace_id(),
+            process_index=0, process_count=1,
+            device_count=torch.cuda.device_count() if cuda else 1,
+            platform="gpu" if cuda else self.device.type,
+            start_step=self.state.get("neval", 0),
+            start_epoch=self.state.get("epoch", 1))
+
+    def _run_end(self, wall_s: float) -> None:
+        """Close the run record, dump the Metrics counters as Prometheus
+        text next to the ledger, and flush, so the files are complete the
+        moment ``optimize()`` returns."""
+        led = run_ledger.get_ledger()
+        if led is None:
+            return
+        run_ledger.emit("run.end", kind=type(self).__name__,
+                        pid=os.getpid(), wall_s=wall_s,
+                        steps=self.state["neval"],
+                        epoch=self.state["epoch"],
+                        skipped=self.state.get("skippedSteps", 0))
+        from bigdl_tpu_torch.observability.prometheus import \
+            write_prometheus
+        write_prometheus(self.metrics,
+                         os.path.join(led.dir,
+                                      f"metrics-{os.getpid()}.prom"))
+        led.flush()
+
+    def _emit_step_record(self, stepno: int, loss: float, records: int,
+                          dur_s: float, clr: float) -> None:
+        """One ``step`` record (the ledger's, and ``step_records``'), and
+        the train summary's scalars.  A non-finite loss is null in the
+        ledger: a bare NaN or inf would not be strict JSON."""
+        self.step_records.append({"step": stepno,
+                                  "epoch": self.state["epoch"],
+                                  "loss": loss, "records": records,
+                                  "dur_s": dur_s})
+        finite = math.isfinite(loss)
+        run_ledger.emit("step", step=stepno, epoch=self.state["epoch"],
+                        loss=loss if finite else None, records=records,
+                        dur_s=dur_s,
+                        records_per_s=records / max(dur_s, 1e-9),
+                        skipped=math.isnan(loss) and self.skip_nonfinite)
+        ts = self.train_summary
+        if ts is not None:
+            # called after the loop updates neval and isLastBatchOfEpoch,
+            # so the triggers read the post-step state the checkpoint and
+            # validation triggers read; ``clr`` is the rate the step ran
+            # with
+            for tag, val in (("Loss", loss),
+                             ("Throughput", records / max(dur_s, 1e-9)),
+                             ("LearningRate", clr)):
+                trig = ts.trigger_for(tag)
+                if (trig is None or trig(self.state)) and \
+                        math.isfinite(val):
+                    ts.add_scalar(tag, val, stepno)
+
+    def _tee_val_scalars(self, results) -> None:
+        vs = self.val_summary
+        if vs is None or not results:
+            return
+        for m, r in zip(self.validation_methods, results):
+            vs.add_scalar(str(m), float(r.result()[0]),
+                          self.state["neval"])
 
     # -- main loop -----------------------------------------------------------
 
     def optimize(self):
-        self._maybe_resume()
-        model = self.model.to(self.device).training_()
-        if self._generator is None:
-            self._generator = torch.Generator(device=self.device)
-            self._generator.manual_seed(self.seed)
-        self._restore_generator()
-        model.set_generator(self._generator)
-        params = list(model.param_leaves())
-        state = list(model.state_leaves())
-        if self._resume_opt_state is not None:
-            self.opt_state = {
-                k: [_to_device(a, self.device) for a in tree_leaves(v)]
-                for k, v in self._resume_opt_state.items()}
-            self._resume_opt_state = None
-        else:
-            self.opt_state = self.optim_method.init_state(
-                [p.detach() for p in params])
+        self._run_start()
+        with tracer.span("init", optimizer=type(self).__name__):
+            self._maybe_resume()
+            model = self.model.to(self.device).training_()
+            if self._generator is None:
+                self._generator = torch.Generator(device=self.device)
+                self._generator.manual_seed(self.seed)
+            self._restore_generator()
+            model.set_generator(self._generator)
+            params = list(model.param_leaves())
+            state = list(model.state_leaves())
+            if self._resume_opt_state is not None:
+                self.opt_state = {
+                    k: [_to_device(a, self.device) for a in tree_leaves(v)]
+                    for k, v in self._resume_opt_state.items()}
+                self._resume_opt_state = None
+            else:
+                self.opt_state = self.optim_method.init_state(
+                    [p.detach() for p in params])
 
-        count_this_epoch = self.state.get("recordsProcessedThisEpoch", 0)
-        # a resumed run replays the completed epochs' shuffles
-        _sync_shuffles(self.dataset, self.state.get("epoch", 1) - 1)
-        data_iter = self.dataset.data(train=True)
-        ds_size = self.dataset.size()
+            count_this_epoch = self.state.get("recordsProcessedThisEpoch",
+                                              0)
+            # a resumed run replays the completed epochs' shuffles
+            _sync_shuffles(self.dataset, self.state.get("epoch", 1) - 1)
+            data_iter = self.dataset.data(train=True)
+            ds_size = self.dataset.size()
         wall_start = time.time()
         # a fresh iterator restarts the epoch: skip the records the
         # interrupted run had trained, so the run takes the batches an
         # uninterrupted one would
         records_to_skip = count_this_epoch
+        cost_done = False          # one cost.analysis per optimize()
         while not self.end_when(self.state):
-            batch = next(data_iter)
+            with tracer.span("data.next"):
+                batch = next(data_iter)
             if records_to_skip >= batch.size():
                 records_to_skip -= batch.size()
                 continue
@@ -392,45 +525,76 @@ class LocalOptimizer:
                     f"than the batch ({batch.size()}): the batch size "
                     "changed since the snapshot; resume with the same "
                     "batching to keep the exact-resume contract")
+            # a staged feed's batch already lies on the device: the span
+            # records that its copy was the feed's (ingest.h2d)
+            staged = isinstance(batch.data, torch.Tensor) and \
+                batch.data.device.type == self.device.type
+            with tracer.span("h2d", staged=staged):
+                data = _to_device(batch.data, self.device)
+                labels = _to_device(batch.labels, self.device)
             stepno = self.state["neval"]
             t0 = time.time()
-            data = _to_device(batch.data, self.device)
-            labels = _to_device(batch.labels, self.device)
             clr = self._current_clr()
-            loss = float(self._step(params, data, labels, clr, stepno,
-                                    state))
+            probe = None
+            if not cost_done:
+                cost_done = True
+                # the FLOPs of the real first step: no extra step runs
+                probe = costs.cost_probe("train.step", params, data,
+                                         labels)
+            with tracer.span("train.step", step=stepno), \
+                    Watchdog(self.step_timeout,
+                             label=f"train step {stepno}"):
+                if probe is None:
+                    loss = self._step(params, data, labels, clr, stepno,
+                                      state)
+                else:
+                    with probe:
+                        loss = self._step(params, data, labels, clr,
+                                          stepno, state)
+                loss = float(loss)    # the host sync: the hang point
             dt = time.time() - t0
-            if self.skip_nonfinite and math.isnan(loss):
-                self._record_skipped_step()
+            if probe is not None:
+                with tracer.span("cost.analysis"):
+                    costs.emit_cost(probe, kind=type(self).__name__)
+            # everything after the step — metrics, ledger and summary
+            # bookkeeping, logging, epoch rollover, validation and
+            # checkpoint triggers — is span-attributed too
+            with tracer.span("loop.bookkeeping"):
+                self.metrics.add("computing time average", dt * 1e9)
+                costs.sample_hbm(self.device, step=stepno)
+                if self.skip_nonfinite and math.isnan(loss):
+                    self._record_skipped_step()
 
-            bs = batch.size()
-            count_this_epoch += bs
-            self.state["neval"] += 1
-            self.state["recordsProcessedThisEpoch"] = count_this_epoch
-            self.state["isLastBatchOfEpoch"] = count_this_epoch >= ds_size
-            self.step_records.append({"step": stepno,
-                                      "epoch": self.state["epoch"],
-                                      "loss": loss, "records": bs,
-                                      "dur_s": dt})
-            logger.info(
-                "Epoch %d %d/%d loss %.6f throughput %.1f records/second",
-                self.state["epoch"], count_this_epoch, ds_size, loss,
-                bs / max(dt, 1e-9))
+                bs = batch.size()
+                count_this_epoch += bs
+                self.state["neval"] += 1
+                self.state["recordsProcessedThisEpoch"] = count_this_epoch
+                self.state["isLastBatchOfEpoch"] = \
+                    count_this_epoch >= ds_size
+                # post-update, pre-rollover: summary triggers see the
+                # completed step's counters
+                self._emit_step_record(stepno, loss, bs, dt, clr)
+                logger.info(
+                    "Epoch %d %d/%d loss %.6f throughput %.1f "
+                    "records/second", self.state["epoch"],
+                    count_this_epoch, ds_size, loss, bs / max(dt, 1e-9))
 
-            if count_this_epoch >= ds_size:
-                self.state["epoch"] += 1
-                count_this_epoch = 0
-                self.state["recordsProcessedThisEpoch"] = 0
-                _sync_shuffles(self.dataset, self.state["epoch"] - 1)
-                data_iter = self.dataset.data(train=True)
+                if count_this_epoch >= ds_size:
+                    self.state["epoch"] += 1
+                    count_this_epoch = 0
+                    self.state["recordsProcessedThisEpoch"] = 0
+                    _sync_shuffles(self.dataset, self.state["epoch"] - 1)
+                    data_iter = self.dataset.data(train=True)
 
-            self._maybe_validate()
-            self._maybe_checkpoint()
-            self.state["isLastBatchOfEpoch"] = False
+                self._maybe_validate()
+                self._maybe_checkpoint()
+                self.state["isLastBatchOfEpoch"] = False
 
+        wall = time.time() - wall_start
         logger.info("Training finished in %.1fs (%d iterations)",
-                    time.time() - wall_start, self.state["neval"])
+                    wall, self.state["neval"])
         self._close_ingest()
+        self._run_end(wall)
         return self.model
 
     def _close_ingest(self) -> None:
@@ -452,8 +616,9 @@ class LocalOptimizer:
         return self.validate()
 
     def validate(self):
-        results = _evaluate(self.model, self.validation_dataset,
-                            self.validation_methods, self.device)
+        with tracer.span("validate", step=self.state.get("neval", 0)):
+            results = _evaluate(self.model, self.validation_dataset,
+                                self.validation_methods, self.device)
         if not results:
             logger.warning("validation dataset produced no batches — "
                            "skipping")
@@ -461,6 +626,7 @@ class LocalOptimizer:
         for m, r in zip(self.validation_methods, results):
             logger.info("%s is %r", m, r)
         self.state["lastValidation"] = results
+        self._tee_val_scalars(results)
         return results
 
 

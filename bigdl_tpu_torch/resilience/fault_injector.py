@@ -25,10 +25,10 @@ site                    where it fires
 ======================  ===================================================
 
 The trainer's, the checkpoint's and serving's sites (``train.step``,
-``grad.nan``, ``checkpoint.save``, ``serve.*``) come with the host
-subsystems (``ROADMAP.md`` Queue 1 item 13), and so does the reference's
-``fault.injected`` run-ledger record of each injection: here an injection
-is logged and kept in the injector's ``fired`` list only.
+``grad.nan``, ``checkpoint.save``, ``serve.*``) come with the resilience
+part of the host subsystems (``ROADMAP.md`` Queue 1 item 13).  Each
+injection is logged, kept in the injector's ``fired`` list and written
+to the run ledger as a flushed ``fault.injected`` event.
 
 Arming is programmatic (``FaultInjector.install(...)``) or by environment::
 
@@ -48,6 +48,8 @@ import logging
 import os
 import threading
 from typing import List, Optional
+
+from bigdl_tpu_torch.observability import ledger as run_ledger
 
 logger = logging.getLogger("bigdl_tpu_torch.resilience")
 
@@ -171,6 +173,7 @@ class FaultInjector:
                     inj.fired.append(site)
                     logger.warning("injecting fault at %s (step %s): %s",
                                    site, step, f.exc.__name__)
+                    _ledger_event(site, step, f.exc.__name__)
                     raise f.exc(f"injected fault at {site}"
                                 + (f" step {step}" if step is not None
                                    else ""))
@@ -189,5 +192,17 @@ class FaultInjector:
                     inj.fired.append(site)
                     logger.warning("injecting fault at %s (step %s)",
                                    site, step)
+                    _ledger_event(site, step, None)
                     return True
         return False
+
+
+def _ledger_event(site: str, step: Optional[int], exc: Optional[str]) -> None:
+    """Record an injected fault in the run ledger, flushed: the fault often
+    kills the process it was injected into."""
+    fields = {"site": site}
+    if step is not None:
+        fields["step"] = step
+    if exc is not None:
+        fields["exc"] = exc
+    run_ledger.emit_critical("event", kind="fault.injected", **fields)

@@ -1,9 +1,10 @@
 """Bounded retry with exponential backoff and jitter
-(``bigdl_tpu/resilience/retry.py``, without the run-ledger records).
+(``bigdl_tpu/resilience/retry.py``).
 
 Only *transient* error types are retried (``retryable``); programming
 errors propagate on their first occurrence.  ``RETRIES`` counts the
-retries taken, by label.
+retries taken, by label; the run ledger gets a ``retry`` event a retry
+and a flushed ``retry.giveup`` event when the retries run out.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import logging
 import random
 import time
 from typing import Callable, Optional, Tuple, Type
+
+from bigdl_tpu_torch.observability import ledger as run_ledger
 
 logger = logging.getLogger("bigdl_tpu_torch.resilience")
 
@@ -54,6 +57,12 @@ def retry(fn: Callable, *args,
                 logger.error("%s: giving up after %d attempts (%s)%s",
                              label, attempt + 1, e,
                              " — deadline exhausted" if exhausted else "")
+                # the give-up flushes: the raise may be the process's
+                # last act
+                run_ledger.emit_critical(
+                    "event", kind="retry.giveup", label=label,
+                    attempt=attempt + 1, exc=type(e).__name__,
+                    **({"deadline_exhausted": True} if exhausted else {}))
                 raise
             delay = min(backoff * (2 ** attempt), max_backoff)
             delay *= 1.0 + jitter * (2.0 * random.random() - 1.0)
@@ -64,5 +73,8 @@ def retry(fn: Callable, *args,
                            label, type(e).__name__, e, attempt + 1,
                            retries, delay)
             RETRIES[label] += 1
+            run_ledger.emit_critical(
+                "event", kind="retry", label=label, attempt=attempt + 1,
+                exc=type(e).__name__, flush_after=False)
             time.sleep(delay)
             attempt += 1

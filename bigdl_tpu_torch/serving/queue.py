@@ -46,15 +46,19 @@ class AdmissionQueue:
     """Bounded FIFO of :class:`Request` with reject-at-the-door admission.
 
     ``floor_fn`` returns the server's best-case service time; a deadline
-    closer than that floor sheds immediately.
+    closer than that floor sheds immediately.  ``on_depth`` (if given) is
+    called with the new depth after every enqueue and dequeue — the
+    queue-depth gauge hook.
     """
 
     def __init__(self, capacity: int,
-                 floor_fn: Optional[Callable[[], float]] = None):
+                 floor_fn: Optional[Callable[[], float]] = None,
+                 on_depth: Optional[Callable[[int], None]] = None):
         if capacity <= 0:
             raise ValueError(f"queue capacity must be > 0, got {capacity}")
         self.capacity = int(capacity)
         self._floor_fn = floor_fn
+        self._on_depth = on_depth
         self._q: deque = deque()
         self._cond = threading.Condition()
         self._closed = False
@@ -77,6 +81,9 @@ class AdmissionQueue:
                         "provably unmeetable")
             self._q.append(req)
             self._cond.notify()
+            depth = len(self._q)
+        if self._on_depth is not None:
+            self._on_depth(depth)
 
     def take(self, timeout: Optional[float] = None) -> Optional[Request]:
         """Pop the oldest request, blocking up to ``timeout`` seconds
@@ -94,7 +101,11 @@ class AdmissionQueue:
                     if remaining <= 0:
                         return None
                     self._cond.wait(remaining)
-            return self._q.popleft()
+            req = self._q.popleft()
+            depth = len(self._q)
+        if self._on_depth is not None:
+            self._on_depth(depth)
+        return req
 
     def close(self) -> None:
         """Stop admitting and wake every blocked consumer; queued requests

@@ -13,12 +13,15 @@ worker thread, the thread that will serve.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from bigdl_tpu_torch.observability import costs
 
 # EWMA weight for per-bucket service-time estimates
 _EST_ALPHA = 0.2
@@ -98,13 +101,20 @@ class BucketedRunner:
     def warmup(self) -> Dict[int, float]:
         """Run every rung twice (the first absorbs kernel builds and
         library autotuning) and seed its floor and estimate from the
-        second; returns {bucket: steady-state seconds}."""
+        second; returns {bucket: steady-state seconds}.  With the ledger
+        on, the first run of each rung is priced (``cost.analysis``: the
+        ATen FLOPs of a dispatch at that shape)."""
         out: Dict[int, float] = {}
         clf = self.classifier
         for bucket in self.ladder:
             x = torch.zeros((bucket,) + self._row_shape,
                             dtype=clf.compute_dtype or torch.float32)
-            self.run(x, bucket).cpu()
+            label = f"serve.forward[bucket={bucket}]"
+            probe = costs.cost_probe(label, x)
+            with probe or contextlib.nullcontext():
+                self.run(x, bucket).cpu()
+            costs.emit_cost(probe, bucket=bucket,
+                            quantize=getattr(clf, "quantize", None))
             clf.synchronize()
             t0 = time.monotonic()
             self.run(x, bucket).cpu()

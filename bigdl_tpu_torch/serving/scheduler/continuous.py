@@ -76,7 +76,15 @@ garbage K/V past a prompt's real length is hidden by the validity mask
   prefix-cache leaves, then idle resident sessions, least recently used
   first) and holds back what still does not fit.
 
-Left for later slices: ``ledger_tags`` and the run ledger's records.
+Run ledger (``bigdl_tpu_torch.observability``): the worker writes
+``run.start``/``run.end``, ``serve.warmup``/``serve.prefill``/
+``serve.decode`` spans, ``serve.request``, ``serve.cache``,
+``serve.slots``, ``serve.spec`` and ``serve.shed`` records, the session
+lifecycle's ``mem.offload`` records and, through the budgeter,
+``mem.budget``; ``ledger_tags`` (``{"tenant": name}`` for a fleet's
+tenant) is merged into every one of them.  ``serve.decode`` closes after
+the chunk's tokens reach the host, so on the card it spans the chunk's
+device time.
 """
 
 from __future__ import annotations
@@ -84,6 +92,7 @@ from __future__ import annotations
 import collections
 import itertools
 import logging
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -93,8 +102,11 @@ import numpy as np
 import torch
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.observability import ledger as run_ledger
+from bigdl_tpu_torch.observability import tracer
+from bigdl_tpu_torch.observability.report import _percentile
 from bigdl_tpu_torch.ops import quant
-from bigdl_tpu_torch.serving.counters import Counters, percentile
+from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.serving.errors import (DrainingError, InvalidRequestError,
                                             MemoryBudgetError,
                                             QueueFullError,
@@ -276,8 +288,14 @@ class ContinuousGenerator:
 
     ``budgeter``/``budget_tenant`` charge every page to a
     :class:`~.membudget.MemoryBudgeter` under the tenant name
-    ``budget_tenant`` (default ``"default"``); ``submit(..., session=)``
-    names a multi-turn session (module doc).
+    ``budget_tenant`` (default: the ``ledger_tags`` tenant, else
+    ``"default"``); ``submit(..., session=)`` names a multi-turn session
+    (module doc).
+
+    ``ledger_tags``: extra fields merged into every ledger record this
+    generator writes (``run.start``/``run.end``, ``serve.request``,
+    ``serve.shed``, ``serve.slots``, ``mem.offload``, ...), so a run
+    directory holding several tenants stays attributable per tenant.
     """
 
     def __init__(self, model, *, num_slots: int = 4,
@@ -293,7 +311,8 @@ class ContinuousGenerator:
                  quantize: Optional[str] = None, calibration_prompts=None,
                  draft_model=None, draft_quantize: Optional[str] = None,
                  spec_k: int = 4, budgeter=None,
-                 budget_tenant: Optional[str] = None, device="cuda"):
+                 budget_tenant: Optional[str] = None,
+                 ledger_tags: Optional[dict] = None, device="cuda"):
         qmode = quant.normalize_mode(quantize)
         if qmode is not None and qmode not in quant.MODES:
             raise ValueError(
@@ -306,6 +325,7 @@ class ContinuousGenerator:
                 "prompts run through the fp model once to fix the per-tensor "
                 "activation scales (weight-only quantization is 'w8')")
         self.spec_k = int(spec_k)
+        self._tags = dict(ledger_tags or {})
         dmode = self._check_draft(model, draft_model, draft_quantize, paged,
                                   paged_kernel, temperature)
         self.device = resolve_device(device)
@@ -317,6 +337,8 @@ class ContinuousGenerator:
                 if qmode == "w8a8" else None
             model = quant.quantize_model(model, qmode, calib=calib,
                                          extra_keys=("tok",))
+            quant.emit_param_bytes(model, kind="ContinuousGenerator",
+                                   mode=qmode, **self._tags)
         self.quantize = qmode
         self.model = model
         self._draft = None
@@ -326,6 +348,9 @@ class ContinuousGenerator:
             if dmode is not None:
                 self._draft = quant.quantize_model(self._draft, dmode,
                                                    extra_keys=("tok",))
+                quant.emit_param_bytes(self._draft,
+                                       kind="ContinuousGenerator.draft",
+                                       mode="w8")
         self.max_len = int(max_len or model.max_len)
         if model.position == "learned" and self.max_len > model.max_len:
             raise ValueError(
@@ -375,7 +400,7 @@ class ContinuousGenerator:
         # the pool itself is not charged: budgets size what is used, and
         # parking exists so that use can exceed the pool
         self._budget = budgeter
-        self._bt = budget_tenant or "default"
+        self._bt = budget_tenant or self._tags.get("tenant", "default")
         if paged_kernel and not self._paged:
             raise ValueError("paged_kernel requires paged=True (the kernel "
                              "reads through the page table)")
@@ -386,7 +411,7 @@ class ContinuousGenerator:
         self.slots = SlotManager(n, self.max_len, self.seq_ladder.max,
                                  pool_tokens=pool_tokens)
 
-        self.metrics = Counters()
+        self.metrics = Metrics()
         self._closed = False
         self.queue = AdmissionQueue(queue_capacity)
         # per-slot host state, owned by the worker thread
@@ -489,20 +514,44 @@ class ContinuousGenerator:
         zeroes it."""
         trash_row = (np.full(self._lp, self._alloc.trash, np.int32)
                      if self._paged else None)
-        for b in self.seq_ladder:
-            dummy = np.ones((1, b), np.int64)
-            if self._paged:
-                self._prefill_pages(dummy, 1, trash_row, 0)
-            else:
-                self._prefill_row(dummy, 1, 0)
+        with tracer.span("serve.warmup", buckets=list(self.seq_ladder),
+                         slots=self.slots.num_slots, paged=self._paged):
+            for b in self.seq_ladder:
+                dummy = np.ones((1, b), np.int64)
+                if self._paged:
+                    self._prefill_pages(dummy, 1, trash_row, 0)
+                else:
+                    self._prefill_row(dummy, 1, 0)
+                if self._draft is not None:
+                    self._row_prefill(self._draft, self._dcache, dummy, 0)
             if self._draft is not None:
-                self._row_prefill(self._draft, self._dcache, dummy, 0)
-        if self._draft is not None:
-            self._run_round()
-        else:
-            self._run_chunk()
+                self._run_round()
+            else:
+                self._run_chunk()
 
     def _loop(self) -> None:
+        if run_ledger.enabled():
+            run_ledger.emit("run.start", kind="ContinuousGenerator",
+                            pid=os.getpid(),
+                            thread=threading.get_ident(),
+                            trace=run_ledger.trace_id(),
+                            slots=self.slots.num_slots,
+                            max_len=self.max_len,
+                            seq_buckets=list(self.seq_ladder),
+                            steps_per_sync=self.steps_per_sync,
+                            quantize=self.quantize,
+                            paged=self._paged,
+                            paged_kernel=self._paged_kernel,
+                            page_size=(self._alloc.page_size
+                                       if self._paged else None),
+                            num_pages=(self._alloc.num_pages
+                                       if self._paged else None),
+                            prefix_cache=self._prefix is not None,
+                            speculative=self._draft is not None,
+                            spec_k=(self.spec_k if self._draft is not None
+                                    else None),
+                            **self._tags)
+        t0 = time.monotonic()
         while True:
             try:
                 self._admit()
@@ -528,6 +577,7 @@ class ContinuousGenerator:
             except BaseException:                # the worker must not die
                 logger.exception("continuous generator: unexpected error")
                 self._fail_all_and_recover()
+        self._run_end(time.monotonic() - t0)
 
     def _fail_all_and_recover(self) -> None:
         """Fail every live slot typed, then rebuild the pool (and the
@@ -563,29 +613,36 @@ class ContinuousGenerator:
         self._closed = True
         self.queue.close()
         self._worker.join(timeout)
-        return not self._worker.is_alive()
+        joined = not self._worker.is_alive()
+        run_ledger.flush()
+        return joined
 
     close = drain
 
     # -- admission -----------------------------------------------------------
 
     def _shed(self, exc) -> None:
+        """Every synchronous rejection feeds the shed census: a
+        per-reason counter and a ledger event."""
         self.metrics.incr(f"serve.shed.{exc.reason}")
+        run_ledger.emit("event", kind="serve.shed", reason=exc.reason,
+                        **self._tags)
         raise exc
 
     # -- the memory budget: no-ops without a budgeter ------------------------
 
-    def _budget_add(self, cls: str, nbytes: int) -> None:
+    def _budget_add(self, cls: str, nbytes: int, **detail) -> None:
         if self._budget is not None and nbytes:
-            self._budget.charge(self._bt, cls, nbytes)
+            self._budget.charge(self._bt, cls, nbytes, **detail)
 
-    def _budget_sub(self, cls: str, nbytes: int) -> None:
+    def _budget_sub(self, cls: str, nbytes: int, **detail) -> None:
         if self._budget is not None and nbytes:
-            self._budget.discharge(self._bt, cls, nbytes)
+            self._budget.discharge(self._bt, cls, nbytes, **detail)
 
-    def _budget_move(self, src: str, dst: str, nbytes: int) -> None:
+    def _budget_move(self, src: str, dst: str, nbytes: int,
+                     **detail) -> None:
         if self._budget is not None and nbytes:
-            self._budget.transfer(self._bt, src, dst, nbytes)
+            self._budget.transfer(self._bt, src, dst, nbytes, **detail)
 
     def _require_budget(self, tokens: int, what: str) -> None:
         """Shed ``MemoryBudgetError`` when the pages of ``tokens`` cache
@@ -785,10 +842,10 @@ class ContinuousGenerator:
         sess = self._sessions.get(sid)
         if sess is None or sess.state != "resident" or sess.busy:
             return False             # mid-turn, unknown or parked already
-        self._park(sess)
+        self._park(sess, reason="request")
         return True
 
-    def _park(self, sess: Session) -> None:
+    def _park(self, sess: Session, reason: str) -> None:
         """Copy the session's private pages to the host tier and free their
         ids; its shared prefix pages stay pinned on the device."""
         ids = sess.pages
@@ -797,20 +854,25 @@ class ContinuousGenerator:
         self._offload.park(sess.sid, payload, nbytes)
         if ids:
             self._alloc.free(ids)
-        self._budget_move("kv_pages", "host_offload", nbytes)
+        self._budget_move("kv_pages", "host_offload", nbytes,
+                          sid=sess.sid)
         sess.pages = []
         sess.state = "parked"
         self.metrics.incr("serve.gen.parks")
+        run_ledger.emit("mem.offload", action="park", sid=sess.sid,
+                        pages=len(ids), bytes=nbytes, reason=reason,
+                        kv_pos=sess.kv_pos, **self._tags)
 
     def _resume_into(self, sess: Session, ids: List[int]) -> None:
         """Write the parked pages into the fresh ``ids`` and re-point the
         session's row at them: contents copied verbatim, addressed through
         the table, so the session equals one that never parked."""
         payload = self._offload.resume(sess.sid)
+        nbytes = len(ids) * self._page_bytes
         if ids:
             scatter_pages(self._cache, ids, payload)
-        self._budget_move("host_offload", "kv_pages",
-                          len(ids) * self._page_bytes)
+        self._budget_move("host_offload", "kv_pages", nbytes,
+                          sid=sess.sid)
         row = np.array(sess.row)
         row[len(sess.keys):] = ids
         sess.row = row
@@ -818,6 +880,9 @@ class ContinuousGenerator:
         sess.state = "resident"
         sess.last_used = time.monotonic()
         self.metrics.incr("serve.gen.resumes")
+        run_ledger.emit("mem.offload", action="resume", sid=sess.sid,
+                        pages=len(ids), bytes=nbytes,
+                        kv_pos=sess.kv_pos, **self._tags)
 
     def _close_session(self, sid: str) -> bool:
         sess = self._sessions.get(sid)
@@ -833,12 +898,16 @@ class ContinuousGenerator:
         with self._lock:
             self._sessions.pop(sess.sid, None)
         if sess.state == "parked":
-            self._budget_sub("host_offload", self._offload.drop(sess.sid))
+            self._budget_sub("host_offload", self._offload.drop(sess.sid),
+                             sid=sess.sid)
         elif sess.pages:
             self._alloc.free(sess.pages)
-            self._budget_sub("kv_pages", len(sess.pages) * self._page_bytes)
+            self._budget_sub("kv_pages", len(sess.pages) * self._page_bytes,
+                             sid=sess.sid)
         if sess.keys and self._prefix is not None:
             self._prefix.release(sess.keys)
+        run_ledger.emit("mem.offload", action="close", sid=sess.sid,
+                        kv_pos=sess.kv_pos, **self._tags)
         sess.pages, sess.keys = [], []
         sess.state, sess.busy = "closed", False
 
@@ -879,8 +948,11 @@ class ContinuousGenerator:
         if pb and byte_deficit() > 0:
             need = max(need, -(-byte_deficit() // pb))
         if need > 0 and prefix is not None:
-            self._budget_sub("prefix_pages",
-                             prefix.evict_for(need, alloc) * pb)
+            freed = prefix.evict_for(need, alloc)
+            if freed:
+                self._budget_sub("prefix_pages", freed * pb)
+                run_ledger.emit("serve.cache", event="evict",
+                                pages=freed, **self._tags)
         while page_deficit() > 0 or byte_deficit() > 0:
             # any resident session may go, one whose next turn is queued
             # too (its KV sits idle; placement resumes it), so a burst of
@@ -890,7 +962,8 @@ class ContinuousGenerator:
                         if s.state == "resident" and s is not protect]
             if not idle:
                 break
-            self._park(min(idle, key=lambda s: s.last_used))
+            self._park(min(idle, key=lambda s: s.last_used),
+                       reason="pressure")
 
     def _budgeted(self) -> bool:
         return self._budget is not None and \
@@ -977,10 +1050,15 @@ class ContinuousGenerator:
                 prefix.release(slot_keys)
             self._session_abort(req)
             self.metrics.incr("serve.gen.cancelled")
+            run_ledger.emit("serve.request", rid=req.rid,
+                            status="cancelled",
+                            dur_s=time.monotonic() - req.t_submit,
+                            **self._tags)
             return True
         slot = self.slots.alloc()
         assert slot is not None, "placed with no free slot"
-        self._budget_add("kv_pages", len(priv) * self._page_bytes)
+        self._budget_add("kv_pages", len(priv) * self._page_bytes,
+                         rid=req.rid)
         # the slot's table row: shared prefix pages, its private pages,
         # trash beyond its allocation
         table_row = np.full(self._lp, alloc.trash, np.int32)
@@ -992,13 +1070,17 @@ class ContinuousGenerator:
         padded = np.ones((1, bucket), np.int64)
         padded[0, :ts] = req.prompt[start:]
         try:
-            first = self._prefill_pages(padded, ts, table_row, start)
-            if self._draft is not None:
-                # the draft ingests the whole prompt, prefix hit or not:
-                # its row cache shares nothing
-                full = np.ones((1, self.seq_ladder.pick(tp)), np.int64)
-                full[0, :tp] = req.prompt
-                self._row_prefill(self._draft, self._dcache, full, slot)
+            with tracer.span("serve.prefill", slot=slot, bucket=bucket,
+                             tp=tp, shared_tokens=start, rid=req.rid):
+                first = self._prefill_pages(padded, ts, table_row, start)
+                if self._draft is not None:
+                    # the draft ingests the whole prompt, prefix hit or
+                    # not: its row cache shares nothing
+                    full = np.ones((1, self.seq_ladder.pick(tp)),
+                                   np.int64)
+                    full[0, :tp] = req.prompt
+                    self._row_prefill(self._draft, self._dcache, full,
+                                      slot)
         except Exception as e:
             self._release_partial(slot, priv, slot_keys)
             self._prefill_failed(req, e)
@@ -1016,6 +1098,13 @@ class ContinuousGenerator:
                 # evict_for discharges exactly what it frees
                 self._budget_move("kv_pages", "prefix_pages",
                                   len(published) * self._page_bytes)
+            self.metrics.set("serve.prefix hit rate",
+                             prefix.stats()["hit_rate"], unit="scalar")
+            run_ledger.emit("serve.cache", event="admit", rid=req.rid,
+                            lookup_pages=len(keys), hit_pages=depth,
+                            shared_tokens=start,
+                            inserted=max(0, len(keys) - depth),
+                            **self._tags)
             self.metrics.incr("serve.gen.prefix.lookup_pages", len(keys))
             self.metrics.incr("serve.gen.prefix.hit_pages", depth)
         self._page_table[slot] = table_row
@@ -1067,6 +1156,10 @@ class ContinuousGenerator:
             alloc.free(got)
             self._session_abort(req)
             self.metrics.incr("serve.gen.cancelled")
+            run_ledger.emit("serve.request", rid=req.rid,
+                            status="cancelled",
+                            dur_s=time.monotonic() - req.t_submit,
+                            **self._tags)
             return True
         resumed, new_priv = got[:resume_pages], got[resume_pages:]
         if sess.state == "parked":
@@ -1076,11 +1169,13 @@ class ContinuousGenerator:
                 alloc.free(got)
                 if sess.sid not in self._offload:
                     # the payload was taken before the copy failed
-                    self._budget_sub("host_offload", resume_pages * pb)
+                    self._budget_sub("host_offload", resume_pages * pb,
+                                     sid=sess.sid)
                 self._destroy_session(sess)
                 self._prefill_failed(req, e)
                 return True
-        self._budget_add("kv_pages", len(new_priv) * pb)
+        self._budget_add("kv_pages", len(new_priv) * pb, rid=req.rid,
+                         sid=sess.sid)
         slot = self.slots.alloc()
         assert slot is not None, "placed with no free slot"
         table_row = np.full(self._lp, alloc.trash, np.int32)
@@ -1091,7 +1186,10 @@ class ContinuousGenerator:
         padded = np.ones((1, bucket), np.int64)
         padded[0, :ts] = req.prompt[start:]
         try:
-            first = self._prefill_pages(padded, ts, table_row, start)
+            with tracer.span("serve.prefill", slot=slot, bucket=bucket,
+                             tp=tp, shared_tokens=start,
+                             rid=req.rid, sid=sess.sid):
+                first = self._prefill_pages(padded, ts, table_row, start)
         except Exception as e:
             self.slots.release(slot)
             if new_priv:
@@ -1114,6 +1212,10 @@ class ContinuousGenerator:
         """Row-slot placement (``paged=False``)."""
         if not req.future.set_running_or_notify_cancel():
             self.metrics.incr("serve.gen.cancelled")
+            run_ledger.emit("serve.request", rid=req.rid,
+                            status="cancelled",
+                            dur_s=time.monotonic() - req.t_submit,
+                            **self._tags)
             return
         slot = self.slots.alloc()
         assert slot is not None, "placed with no free slot"
@@ -1122,7 +1224,9 @@ class ContinuousGenerator:
         padded = np.ones((1, bucket), np.int64)
         padded[0, :tp] = req.prompt
         try:
-            first = self._prefill_row(padded, tp, slot)
+            with tracer.span("serve.prefill", slot=slot, bucket=bucket,
+                             tp=tp, rid=req.rid):
+                first = self._prefill_row(padded, tp, slot)
         except Exception as e:
             self.slots.release(slot)
             self._prefill_failed(req, e)
@@ -1194,10 +1298,16 @@ class ContinuousGenerator:
 
     def _fail_typed(self, req: GenRequest, exc: Exception) -> None:
         self.metrics.incr(f"serve.shed.{getattr(exc, 'reason', 'error')}")
+        run_ledger.emit("event", kind="serve.shed",
+                        reason=getattr(exc, "reason", "error"),
+                        **self._tags)
         try:
             req.future.set_exception(exc)
         except Exception:                # the client cancelled
             pass
+        run_ledger.emit("serve.request", rid=req.rid, status="failed",
+                        tokens=0, dur_s=time.monotonic() - req.t_submit,
+                        **self._tags)
 
     def _prefill_failed(self, req: GenRequest, e: Exception) -> None:
         """A failed prefill may have written the pool half way: fail the
@@ -1210,6 +1320,10 @@ class ContinuousGenerator:
                 f"prefill failed: {type(e).__name__}: {e}"))
         except Exception:                # the client cancelled
             pass
+        run_ledger.emit("serve.request", rid=req.rid,
+                        status="failed", tokens=0,
+                        dur_s=time.monotonic() - req.t_submit,
+                        **self._tags)
 
     # -- decode --------------------------------------------------------------
 
@@ -1330,8 +1444,10 @@ class ContinuousGenerator:
         or a bonus token when all matched), replaying the limit and
         ``eos_id`` rule token by token."""
         n_active = int(self._active.sum())
-        drafts, greedy = self._run_round()
         k = self.spec_k
+        with tracer.span("serve.decode", chunk=self._chunks,
+                         active=n_active, steps=1, spec_k=k):
+            drafts, greedy = self._run_round()
         chunk_tokens = proposed = accepted = 0
         for j, req in enumerate(self._requests):
             if req is None or not self._active[j]:
@@ -1353,11 +1469,20 @@ class ContinuousGenerator:
                     break
         self.metrics.incr("serve.gen.spec.proposed", proposed)
         self.metrics.incr("serve.gen.spec.accepted", accepted)
+        total = self.metrics.get("serve.gen.spec.proposed")
+        self.metrics.set("serve.draft accept rate",
+                         self.metrics.get("serve.gen.spec.accepted") / total
+                         if total else 0.0, unit="scalar")
+        run_ledger.emit("serve.spec", chunk=self._chunks,
+                        proposed=proposed, accepted=accepted,
+                        emitted=chunk_tokens, **self._tags)
         self._account_chunk(n_active, chunk_tokens, 1)
 
     def _plain_chunk(self) -> None:
         n_active = int(self._active.sum())
-        tok, pos, active, toks, emitted = self._run_chunk()
+        with tracer.span("serve.decode", chunk=self._chunks,
+                         active=n_active, steps=self.steps_per_sync):
+            tok, pos, active, toks, emitted = self._run_chunk()
         self._tokens, self._pos = tok, pos
         self._account_chunk(n_active, int(emitted.sum()),
                             self.steps_per_sync)
@@ -1372,10 +1497,16 @@ class ContinuousGenerator:
 
     def _account_chunk(self, n_active: int, chunk_tokens: int,
                        steps: int) -> None:
+        occ = n_active / self.slots.num_slots
         self._emitted += chunk_tokens
         self._chunks += 1
-        self._occupancy_sum += n_active / self.slots.num_slots
+        self._occupancy_sum += occ
         self.metrics.incr("serve.gen.steps", steps)
+        self.metrics.set("serve.slot occupancy", occ, unit="scalar")
+        run_ledger.emit("serve.slots", chunk=self._chunks,
+                        active=n_active, slots=self.slots.num_slots,
+                        occupancy=occ, tokens=chunk_tokens,
+                        **self._tags)
         if self._paged:
             # tokens held, each shared page once: every slot's private
             # positions, the prefix cache's pages and the private positions
@@ -1390,7 +1521,18 @@ class ContinuousGenerator:
                 held += sum(s.kv_pos - len(s.keys) * ps
                             for s in self._sessions.values()
                             if s.state == "resident")
-            self._token_occupancy_sum += held / self._alloc.capacity_tokens
+            cap = self._alloc.capacity_tokens
+            tocc = held / cap
+            self._token_occupancy_sum += tocc
+            self.metrics.set("serve.token occupancy", tocc, unit="scalar")
+            run_ledger.emit(
+                "serve.pages", chunk=self._chunks, tokens_held=held,
+                capacity_tokens=cap, token_occupancy=tocc,
+                pages_used=self._alloc.used_count,
+                pages_total=self._alloc.num_pages,
+                prefix_pages=(self._prefix.held_pages
+                              if self._prefix is not None else 0),
+                **self._tags)
 
     def _evict(self, slot: int, status: str) -> None:
         """Finish the request in ``slot`` and free the slot: private pages
@@ -1425,12 +1567,13 @@ class ContinuousGenerator:
             self._slot_priv[slot] = []
             self._slot_shared[slot] = 0
             self._page_table[slot, :] = self._alloc.trash
+        dur = time.monotonic() - req.t_submit
         if status == "ok":
             try:
                 req.future.set_result(
                     np.asarray(req.tokens[:req.max_new], np.int64))
             except Exception:            # the client cancelled
-                pass
+                status = "cancelled"
             with self._lat_lock:
                 self._latencies.append(time.monotonic() - req.t_submit)
             self._completed += 1
@@ -1442,8 +1585,45 @@ class ContinuousGenerator:
                 req.future.set_exception(RuntimeError(
                     "generation failed (see the server log)"))
             except Exception:
-                pass
+                status = "cancelled"
             self.metrics.incr("serve.gen.failed")
+        run_ledger.emit("serve.request", rid=req.rid, status=status,
+                        dur_s=dur, tokens=len(req.tokens), slot=slot,
+                        **self._tags)
+
+    def _run_end(self, wall_s: float) -> None:
+        led = run_ledger.get_ledger()
+        if led is None:
+            return
+        proposed = self._counter("serve.gen.spec.proposed")
+        run_ledger.emit(
+            "run.end", kind="ContinuousGenerator", pid=os.getpid(),
+            wall_s=wall_s, chunks=self._chunks,
+            completed=self._completed, tokens=self._emitted,
+            mean_occupancy=(self._occupancy_sum / self._chunks
+                            if self._chunks else 0.0),
+            mean_token_occupancy=(
+                self._token_occupancy_sum / self._chunks
+                if self._paged and self._chunks else None),
+            prefix_hit_rate=(self._prefix.stats()["hit_rate"]
+                             if self._prefix is not None else None),
+            draft_accept_rate=(
+                self._counter("serve.gen.spec.accepted") / proposed
+                if proposed else None),
+            **self._tags)
+        from bigdl_tpu_torch.observability.prometheus import \
+            write_prometheus
+        write_prometheus(self.metrics,
+                         os.path.join(
+                             led.dir,
+                             f"metrics-generate-{os.getpid()}.prom"))
+        led.flush()
+
+    def _counter(self, name: str) -> int:
+        try:
+            return int(self.metrics.get(name))
+        except KeyError:
+            return 0
 
     def _retain(self, sess: Session, req: GenRequest, slot: int) -> None:
         """Keep a finished turn's KV for the session: positions ``[0,
@@ -1472,7 +1652,10 @@ class ContinuousGenerator:
         with self._lat_lock:
             lats = sorted(self._latencies)
         chunks = self._chunks
-        counters = self.metrics.snapshot()
+        local, _, units = self.metrics.snapshot()
+        # the event counters (the gauges are the .prom dump's)
+        counters = {n: int(v) for n, (v, _p) in local.items()
+                    if units.get(n) == "count"}
         out = {
             "counters": counters,
             "queue_depth": self.queue.depth,
@@ -1482,8 +1665,8 @@ class ContinuousGenerator:
             "completed": self._completed,
             "tokens": self._emitted,
             "mean_occupancy": self._occupancy_sum / chunks if chunks else 0.0,
-            "latency_p50_s": percentile(lats, 50),
-            "latency_p99_s": percentile(lats, 99),
+            "latency_p50_s": _percentile(lats, 50),
+            "latency_p99_s": _percentile(lats, 99),
             "latency_max_s": lats[-1] if lats else 0.0,
             "paged": self._paged,
             "paged_kernel": self._paged_kernel,

@@ -2,9 +2,11 @@
 (``bigdl_tpu/serving/scheduler/mem_drill.py``, phases A and B):
 
     python -m bigdl_tpu_torch.serving.scheduler.mem_drill [--smoke]
-        [--device cuda|cpu] [--out results.json]
+        [--device cuda|cpu] [--run-dir DIR] [--out results.json]
 
-Exit 0 only when both phases hold.
+Exit 0 only when both phases hold and the run ledger (``--run-dir``, a
+temporary directory by default) gives a run-report memory census with the
+drill's parks, resumes and sheds.
 
 **Phase A — sessions past the page pool.**  A paged
 :class:`~.continuous.ContinuousGenerator` with a tiny page pool (tokens are
@@ -31,7 +33,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
 from typing import List, Optional
 
@@ -236,6 +240,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--floods", type=int, default=3)
     p.add_argument("--device", default="cuda",
                    help="torch device of the generator (default cuda)")
+    p.add_argument("--run-dir", default=None,
+                   help="run-ledger directory (default: a temp dir)")
     p.add_argument("--out", default=None,
                    help="write the results to this JSON file")
     p.add_argument("--smoke", action="store_true",
@@ -246,9 +252,32 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.victims = 6
         args.floods = 2
 
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+    os.environ.pop("BIGDL_TPU_TRACE_ID", None)
+    run_dir = args.run_dir or tempfile.mkdtemp(prefix="bigdl-mem-drill-")
+    prev = run_ledger.get_ledger()
+    run_ledger.set_run_dir(run_dir)
     failures: List[str] = []
-    a = _phase_a(args, failures)
-    b = _phase_b(args, failures)
+    try:
+        a = _phase_a(args, failures)
+        b = _phase_b(args, failures)
+        run_ledger.flush()
+    finally:
+        run_ledger.set_run_dir(prev.dir if prev is not None else None)
+    # the ledger trail: mem.budget / mem.offload records feed run-report's
+    # memory census
+    records, _bad = load_ledger(run_dir)
+    census = build_report(records).get("memory") or {}
+    print("ledger: run-report memory census")
+    _expect(census.get("parks", 0) >= 1
+            and census.get("resumes", 0) >= 1
+            and census.get("sheds", 0) >= 1,
+            f"memory census carries the drill's parks/resumes/sheds "
+            f"(parks={census.get('parks')}, "
+            f"resumes={census.get('resumes')}, "
+            f"sheds={census.get('sheds')})", failures)
     gates = {
         "capacity_3x": a["resident_tokens"] >= 3 * a["pool_tokens"],
         "typed_attributed_sheds": a["typed_sheds"] >= 1,
@@ -262,13 +291,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"smoke": bool(args.smoke), "device": args.device,
-                       "phase_a": a, "phase_b": b, "gates": gates,
+                       "phase_a": a, "phase_b": b,
+                       "memory_census": census, "gates": gates,
                        "pass": passed}, f, indent=2, default=str)
     print("\n-- gates --")
     for k, v in gates.items():
         print(f"  [{'ok' if v else 'FAIL'}] {k}")
     if not passed:
-        print(f"\nmem_drill: {len(failures)} check(s) FAILED")
+        print(f"\nmem_drill: {len(failures)} check(s) FAILED (ledger "
+              f"kept under {run_dir})")
         return 1
     print("\nmem_drill: all checks passed")
     return 0

@@ -1,12 +1,20 @@
 """Device worker pool: per-worker breakers behind one admission queue
-(``bigdl_tpu/serving/scheduler/pool.py``, without the ledger, tracer and
-fault-injection seams).
+(``bigdl_tpu/serving/scheduler/pool.py``; its fault-injection sites come
+with the resilience part of ``ROADMAP.md`` Queue 1 item 13).
 
 N :class:`DeviceWorker` threads, each with its own circuit breaker and
 inbox, are fed by one dispatcher thread that forms batches through the
 ``DeadlineBatcher``.  A formed batch goes to the admitting worker with the
 fewest batches in flight; only when no worker admits does a batch fail
 fast with ``BreakerOpenError``.
+
+The pool owns the serving run's ``run.start``/``run.end`` ledger records.
+The dispatcher's ``serve.dispatch`` span rides to the worker as a trace
+link (``observability.trace.current_wire``), so a worker's ``serve.pack``
+and ``serve.forward`` spans stitch back to the dispatch that routed them;
+every batch writes one ``serve.batch`` record.  ``serve.forward`` closes
+after the predictions reach the host, so on the card it spans the
+forward's device time.
 """
 
 from __future__ import annotations
@@ -17,6 +25,9 @@ import threading
 import time
 from typing import List, Optional
 
+from bigdl_tpu_torch.observability import ledger as run_ledger
+from bigdl_tpu_torch.observability import trace as run_trace
+from bigdl_tpu_torch.observability import tracer
 from bigdl_tpu_torch.resilience import RETRYABLE_IO_ERRORS, retry
 from bigdl_tpu_torch.serving.breaker import CircuitBreaker
 from bigdl_tpu_torch.serving.errors import (BreakerOpenError,
@@ -49,7 +60,8 @@ class _Warmup:
 
 class DeviceWorker:
     """One serving worker: a thread, an inbox, a breaker.  It pulls
-    ``(seq, batch)`` items and runs the dispatch pipeline for each: expiry
+    ``(seq, batch, trace_ctx)`` items (``trace_ctx`` is the dispatcher's
+    shipped trace context, possibly None) and runs the dispatch pipeline for each: expiry
     and cancel filtering, its own breaker's gate, bucket pick and pack, the
     retried device forward, ordered delivery.  ``None`` is the drain
     sentinel."""
@@ -79,9 +91,10 @@ class DeviceWorker:
             if isinstance(item, _Warmup):
                 item.run()
                 continue
-            seq, batch = item
+            seq, batch, ctx = item
             try:
-                self.process(seq, batch)
+                with run_trace.attach(ctx):
+                    self.process(seq, batch)
             except Exception:            # the worker must never die
                 logger.exception("serving worker %d: unexpected error",
                                  self.wid)
@@ -93,6 +106,21 @@ class DeviceWorker:
     def _on_transition(self, old: str, new: str, failures: int) -> None:
         self.server._on_breaker_transition(self.wid, old, new, failures)
 
+    def _emit_batch(self, seq: int, size: int, status: str,
+                    bucket: Optional[int] = None,
+                    dur_s: Optional[float] = None) -> None:
+        s = self.server
+        fields = dict(seq=seq, size=size, capacity=s.batch_size,
+                      occupancy=size / s.batch_size, worker=self.wid,
+                      status=status)
+        if bucket is not None:
+            fields["bucket"] = bucket
+            fields["padding_efficiency"] = size / bucket
+        if dur_s is not None:
+            fields["dur_s"] = dur_s
+        fields.update(s.ledger_tags())
+        run_ledger.emit("serve.batch", **fields)
+
     def process(self, seq: int, batch: List) -> None:
         s = self.server
         now = time.monotonic()
@@ -103,6 +131,10 @@ class DeviceWorker:
         for r in batch:
             if not r.future.set_running_or_notify_cancel():
                 s.metrics.incr("serve.cancelled")
+                run_ledger.emit("serve.request", rid=r.rid,
+                                status="cancelled",
+                                dur_s=time.monotonic() - r.t_submit,
+                                **s.ledger_tags())
                 continue
             slack = r.slack(now)
             if slack is not None and slack < s._floor_s:
@@ -113,14 +145,22 @@ class DeviceWorker:
                     f"{s._floor_s * 1e3:.2f}ms)"))
             else:
                 live.append(r)
-        s.metrics.incr("serve.batches")
         if not live:
+            # still a dispatch cycle: the counter and the serve.batch
+            # census stay in agreement
+            s.metrics.incr("serve.batches")
+            self._emit_batch(seq, 0, "expired")
             return
 
         # 2. this worker's breaker gate
         gate = self.breaker.before_dispatch()
         if gate == "open":
             s.metrics.incr("serve.shed.breaker_open", len(live))
+            s.metrics.incr("serve.batches")
+            run_ledger.emit("event", kind="serve.shed",
+                            reason="breaker_open", count=len(live),
+                            worker=self.wid, **s.ledger_tags())
+            self._emit_batch(seq, len(live), "breaker_open")
             s._fail_batch(live, "breaker_open", lambda: BreakerOpenError(
                 f"circuit breaker is open on worker {self.wid}: "
                 "forward path is failing"))
@@ -129,9 +169,13 @@ class DeviceWorker:
         # 3. bucket + pack (host side; never a breaker failure)
         bucket = s.ladder.pick(len(live))
         try:
-            x = s.runner.pack([r.features for r in live], bucket)
+            with tracer.span("serve.pack", seq=seq, size=len(live),
+                             bucket=bucket, worker=self.wid):
+                x = s.runner.pack([r.features for r in live], bucket)
         except Exception as e:
             s.metrics.incr("serve.failed.pack", len(live))
+            s.metrics.incr("serve.batches")
+            self._emit_batch(seq, len(live), "pack_failed", bucket=bucket)
             s._fail_batch(live, "pack_failed", lambda: PackFailedError(
                 f"batch packing failed: {type(e).__name__}: {e}"))
             return
@@ -150,13 +194,18 @@ class DeviceWorker:
 
         t_fwd = time.monotonic()
         try:
-            preds = retry(fwd, retries=s.forward_retries,
-                          backoff=s.retry_backoff_s,
-                          retryable=RETRYABLE_IO_ERRORS,
-                          deadline=budget, label="serve.forward")
+            with tracer.span("serve.forward", seq=seq, size=len(live),
+                             bucket=bucket, worker=self.wid,
+                             probe=(gate == "probe")):
+                preds = retry(fwd, retries=s.forward_retries,
+                              backoff=s.retry_backoff_s,
+                              retryable=RETRYABLE_IO_ERRORS,
+                              deadline=budget, label="serve.forward")
         except Exception as e:
             self.breaker.record_failure()
             s.metrics.incr("serve.failed.forward", len(live))
+            s.metrics.incr("serve.batches")
+            self._emit_batch(seq, len(live), "failed", bucket=bucket)
             s._fail_batch(
                 live, "forward_failed", lambda: ForwardFailedError(
                     f"device forward failed on worker {self.wid}: "
@@ -167,7 +216,9 @@ class DeviceWorker:
         if preds.ndim < 1 or len(preds) < len(live):
             self.breaker.record_failure()
             s.metrics.incr("serve.failed.forward", len(live))
+            s.metrics.incr("serve.batches")
             got = 0 if preds.ndim < 1 else len(preds)
+            self._emit_batch(seq, len(live), "failed", bucket=bucket)
             s._fail_batch(
                 live, "forward_failed", lambda: ForwardFailedError(
                     f"model produced {got} predictions for "
@@ -182,14 +233,21 @@ class DeviceWorker:
         for r, p in zip(live, preds[:len(live)]):
             s.metrics.incr("serve.completed")
             s._finish(r, "ok", result=int(p))
+        s.metrics.incr("serve.batches")
         s.metrics.incr("serve.batch.rows", len(live))
         s.metrics.incr(f"serve.bucket.{bucket}")
+        s.metrics.set("serve.batch occupancy",
+                      len(live) / s.batch_size, unit="scalar")
+        s.metrics.set("serve.padding efficiency",
+                      len(live) / bucket, unit="scalar")
+        self._emit_batch(seq, len(live), "ok", bucket=bucket,
+                         dur_s=dur_fwd)
 
 
 class WorkerPool:
     """N device workers behind one dispatcher thread.  ``drain`` order:
     close the queue -> the batcher flushes partials and returns ``None`` ->
-    sentinel every inbox -> join workers."""
+    sentinel every inbox -> join workers -> ``run.end``."""
 
     def __init__(self, server, num_workers: int,
                  breaker_threshold: int, breaker_reset_s: float):
@@ -204,10 +262,10 @@ class WorkerPool:
             daemon=True)
 
     def start(self, warmup: bool = True) -> dict:
-        """Start the workers, let each warm every rung in its own thread
-        (when ``warmup``), then start the dispatcher.  Returns worker 0's
-        {bucket: steady-state seconds} ({} without warmup); a warmup
-        failure stops the workers and re-raises."""
+        """Start the workers and let each warm every rung in its own
+        thread (when ``warmup``); :meth:`open` then starts the dispatcher.
+        Returns worker 0's {bucket: steady-state seconds} ({} without
+        warmup); a warmup failure stops the workers and re-raises."""
         for w in self.workers:
             w.start()
         timings: dict = {}
@@ -223,8 +281,11 @@ class WorkerPool:
                     w.inbox.put(None)
                 raise err
             timings = jobs[0].timings
-        self._dispatcher.start()
         return timings
+
+    def open(self) -> None:
+        """Start the dispatcher: the server takes traffic from here."""
+        self._dispatcher.start()
 
     def admits(self) -> bool:
         """True while at least one worker can take traffic."""
@@ -246,23 +307,31 @@ class WorkerPool:
 
     def _dispatch_loop(self) -> None:
         s = self.server
+        if run_ledger.enabled():
+            s._emit_run_start()
+        t0 = time.monotonic()
         while True:
+            h = tracer.begin_span("serve.dispatch", seq=s._batch_seq)
             try:
                 batch = s.batcher.next_batch()
                 if batch is None:
+                    h.end()
                     break
                 seq = s._next_seq()
                 w = self._pick()
                 if w is None:
-                    s._fail_fleet_open(batch)
+                    s._fail_fleet_open(seq, batch)
                 else:
-                    w.inbox.put((seq, batch))
-            except Exception:            # the dispatcher must never die
+                    w.inbox.put((seq, batch, run_trace.current_wire()))
+                h.end()
+            except Exception as e:       # the dispatcher must never die
+                h.end(error=type(e).__name__)
                 logger.exception("serving dispatcher: unexpected error")
         for w in self.workers:
             w.inbox.put(None)
         for w in self.workers:
             w.thread.join()
+        s._run_end(time.monotonic() - t0)
 
     def join(self, timeout: Optional[float] = None) -> bool:
         self._dispatcher.join(timeout)

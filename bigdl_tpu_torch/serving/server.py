@@ -4,17 +4,22 @@
 Kept from the reference: admission control (bounded queue, typed
 synchronous sheds), deadline-aware dynamic batching, a batch-bucket
 ladder, a worker pool with per-worker circuit breakers, forward retries
-within the deadline, expiry cancellation before dispatch, and graceful
-drain that loses no admitted request.  The run ledger, tracer, fault
-injector, live ``/metrics`` endpoint, SLO tracker and trace captures are
-not part of this server; they come with the port's host-subsystems slice,
-and the constructor takes none of their knobs.
+within the deadline, expiry cancellation before dispatch, graceful drain
+that loses no admitted request, and the telemetry: ledger spans
+(``serve.warmup``, ``serve.dispatch``, ``serve.pack``, ``serve.forward``),
+per-request ``serve.request`` and per-batch ``serve.batch`` records,
+breaker and shed events, ``Metrics`` under the reference's names, the live
+``/metrics`` endpoint (``metrics_port``), periodic ``.prom`` snapshots,
+the SLO tracker and its trace captures.  The fault injector's serving
+sites come with the resilience part of ``ROADMAP.md`` Queue 1 item 13.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
+import os
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
@@ -23,8 +28,17 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 
 from bigdl_tpu_torch.core.device import resolve_device
+from bigdl_tpu_torch.observability import ledger as run_ledger
+from bigdl_tpu_torch.observability import tracer
+from bigdl_tpu_torch.observability.live import (LiveMetricsServer,
+                                                MetricsSnapshotter,
+                                                SLOTracker)
+from bigdl_tpu_torch.observability.prometheus import metrics_to_prometheus
+# the nearest-rank percentile run-report uses, so the live stats() and the
+# rendered report never disagree
+from bigdl_tpu_torch.observability.report import _percentile
+from bigdl_tpu_torch.optim.metrics import LATENCY_BUCKETS_S, Metrics
 from bigdl_tpu_torch.serving.batcher import DeadlineBatcher
-from bigdl_tpu_torch.serving.counters import Counters, percentile
 from bigdl_tpu_torch.serving.errors import (BreakerOpenError, DrainingError,
                                             InvalidRequestError, ShedError)
 from bigdl_tpu_torch.serving.queue import AdmissionQueue, Request
@@ -37,6 +51,10 @@ logger = logging.getLogger("bigdl_tpu_torch.serving")
 # request and forward latencies kept for stats() percentiles
 _LATENCY_WINDOW = 4096
 
+# capture files are pid-qualified and numbered across the process, so
+# two servers in one process never collide
+_capture_ids = itertools.count(1)
+
 
 class InferenceServer:
     """Online front for a :class:`bigdl_tpu_torch.api.DLClassifier`.
@@ -48,6 +66,15 @@ class InferenceServer:
 
     ``device`` must name the classifier's device; like every entry point of
     the port it defaults to ``"cuda"`` and raises when CUDA is absent.
+
+    Live telemetry: ``metrics_port`` starts a stdlib HTTP ``/metrics``
+    endpoint serving the Prometheus text live (0 = an ephemeral port, see
+    ``metrics_url``; None = off) bound to ``metrics_host``;
+    ``snapshot_interval_s`` writes periodic ``.prom`` snapshots next to
+    the ledger (0/None = off); the ``slo_*`` knobs configure the
+    deadline-hit-rate tracker, whose ``slo.burn`` event, with the ledger
+    on, flushes the last ``capture_window_s`` seconds as a Chrome-trace
+    capture file.
     """
 
     def __init__(self, classifier,
@@ -61,6 +88,15 @@ class InferenceServer:
                  warmup: bool = True,
                  num_workers: int = 1,
                  batch_buckets: Optional[Sequence[int]] = None,
+                 metrics_port: Optional[int] = None,
+                 metrics_host: str = "127.0.0.1",
+                 snapshot_interval_s: float = 5.0,
+                 slo_target: float = 0.99,
+                 slo_window: int = 128,
+                 slo_min_samples: int = 16,
+                 slo_burn_threshold: float = 1.0,
+                 slo_p99_threshold_s: Optional[float] = None,
+                 capture_window_s: float = 30.0,
                  device="cuda"):
         dev = resolve_device(device)
         if dev.type != classifier.device.type:
@@ -77,7 +113,7 @@ class InferenceServer:
         self.retry_backoff_s = float(retry_backoff_s)
         self.runner = BucketedRunner(classifier, self.ladder)
 
-        self.metrics = Counters()
+        self.metrics = Metrics()
         self._lat_lock = threading.Lock()
         self._pool_lock = threading.Lock()
         self._latencies: collections.deque = \
@@ -90,20 +126,57 @@ class InferenceServer:
         self._seq_lock = threading.Lock()
         self._closed = False
 
-        self.queue = AdmissionQueue(queue_capacity,
-                                    floor_fn=lambda: self._floor_s)
+        self.queue = AdmissionQueue(
+            queue_capacity, floor_fn=lambda: self._floor_s,
+            on_depth=lambda d: self.metrics.set("serve.queue depth", d,
+                                                unit="scalar"))
         self.batcher = DeadlineBatcher(
             self.queue, self.batch_size, max_delay_s=max_delay_s,
             est_fn=lambda: self._est_s)
         self.pool = WorkerPool(self, num_workers,
                                breaker_threshold=breaker_threshold,
                                breaker_reset_s=breaker_reset_s)
-        timings = self.pool.start(warmup=warmup)
+        # -- live telemetry (observability.live) --
+        self.capture_window_s = float(capture_window_s)
+        self._captures: List[threading.Thread] = []
+        self.slo = SLOTracker(target=slo_target, window=slo_window,
+                              min_samples=slo_min_samples,
+                              burn_threshold=slo_burn_threshold,
+                              p99_threshold_s=slo_p99_threshold_s,
+                              on_trigger=self._on_slo_burn)
+        self.live: Optional[LiveMetricsServer] = None
+        self._snapshotter: Optional[MetricsSnapshotter] = None
+
         if warmup:
+            # each worker warms every rung in its own thread
+            with tracer.span("serve.warmup", buckets=list(self.ladder)):
+                timings = self.pool.start(warmup=True)
             self._update_estimates()
             logger.info("serving warmup: %s",
                         ", ".join(f"bucket {b}={t:.4f}s"
                                   for b, t in sorted(timings.items())))
+        else:
+            self.pool.start(warmup=False)
+        # endpoint and snapshotter start once construction can no longer
+        # fail (the warmup can raise)
+        if metrics_port is not None:
+            self.live = LiveMetricsServer(
+                lambda: metrics_to_prometheus(self.metrics),
+                host=metrics_host, port=metrics_port)
+        led = run_ledger.get_ledger()
+        if led is not None and snapshot_interval_s:
+            self._snapshotter = MetricsSnapshotter(
+                lambda: metrics_to_prometheus(self.metrics),
+                os.path.join(led.dir,
+                             f"metrics-serving-{os.getpid()}.prom"),
+                interval_s=snapshot_interval_s)
+        self.pool.open()
+
+    @property
+    def metrics_url(self) -> Optional[str]:
+        """The live ``/metrics`` endpoint's URL (None without
+        ``metrics_port``)."""
+        return self.live.url if self.live is not None else None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -129,7 +202,15 @@ class InferenceServer:
         False if the pool did not join within ``timeout``."""
         self._closed = True
         self.queue.close()
-        return self.pool.join(timeout)
+        joined = self.pool.join(timeout)
+        if self.live is not None:
+            self.live.close()
+        if self._snapshotter is not None:
+            self._snapshotter.close()     # final on-disk snapshot
+        for t in self._captures:          # captures durable by shutdown
+            t.join(timeout=10.0)
+        run_ledger.flush()
+        return joined
 
     close = drain
 
@@ -142,10 +223,18 @@ class InferenceServer:
         """Worker 0's circuit breaker."""
         return self.pool.workers[0].breaker
 
+    def ledger_tags(self) -> dict:
+        """Census tags merged into every ``serve.batch``/``serve.shed``
+        record the worker pipeline writes for this server.  The
+        single-tenant server tags nothing (the reference's fleet front
+        returns ``{"tenant": name}``)."""
+        return {}
+
     # -- admission ----------------------------------------------------------
 
     def _shed(self, exc: ShedError) -> None:
         self.metrics.incr(f"serve.shed.{exc.reason}")
+        run_ledger.emit("event", kind="serve.shed", reason=exc.reason)
         raise exc
 
     def submit(self, row: Any,
@@ -157,6 +246,7 @@ class InferenceServer:
         mismatch = self.classifier._row_mismatch(feats)
         if mismatch is not None:
             self.metrics.incr("serve.invalid")
+            run_ledger.emit("event", kind="serve.shed", reason="invalid")
             raise InvalidRequestError(mismatch)
         if not self.pool.admits():
             self._shed(BreakerOpenError(
@@ -185,6 +275,9 @@ class InferenceServer:
     def _on_breaker_transition(self, wid: int, old: str, new: str,
                                failures: int) -> None:
         self.metrics.incr(f"serve.breaker.{new}")
+        run_ledger.emit_critical("event", kind="serve.breaker",
+                                 **{"from": old, "to": new,
+                                    "failures": failures, "worker": wid})
         logger.warning("circuit breaker (worker %d) %s -> %s (%d "
                        "consecutive forward failures)", wid, old, new,
                        failures)
@@ -210,14 +303,58 @@ class InferenceServer:
             self.metrics.incr("serve.cancelled")
         with self._lat_lock:
             self._latencies.append((status, dur))
+        if status == "ok":
+            # the fixed-ladder latency histogram (aggregatable across
+            # workers)
+            self.metrics.observe("serve.latency", dur, LATENCY_BUCKETS_S)
+        run_ledger.emit("serve.request", rid=req.rid, status=status,
+                        dur_s=dur)
+        # every terminal outcome is a hit or a miss of the deadline
+        # objective; a cancel is the client's choice, not a miss
+        if status != "cancelled":
+            self.slo.observe(status == "ok", dur)
+
+    def _on_slo_burn(self, info: dict) -> None:
+        """SLO breach trigger: flush a trace-export capture of the last
+        ``capture_window_s`` seconds next to the ledger, on a thread of
+        its own (the request-completion path that saw the burn must not
+        wait on file I/O); ``drain()`` joins outstanding captures."""
+        led = run_ledger.get_ledger()
+        if led is None:
+            return
+        seq = next(_capture_ids)
+        path = os.path.join(
+            led.dir, f"capture-{os.getpid()}-{seq}.json")
+
+        def _capture():
+            from bigdl_tpu_torch.observability import trace as run_trace
+            out = run_trace.export_file(led.dir, path,
+                                        since_s=self.capture_window_s)
+            if out is not None:
+                run_ledger.emit_critical("trace.capture", path=out,
+                                         reason=info.get("reason"),
+                                         burn=info.get("burn"),
+                                         window_s=self.capture_window_s)
+
+        t = threading.Thread(target=_capture, daemon=True,
+                             name="bigdl-torch-trace-capture")
+        self._captures = [c for c in self._captures if c.is_alive()]
+        self._captures.append(t)
+        t.start()
 
     def _fail_batch(self, requests: List[Request], status: str,
                     make_exc) -> None:
         for r in requests:
             self._finish(r, status, exc=make_exc())
 
-    def _fail_fleet_open(self, batch: List[Request]) -> None:
+    def _fail_fleet_open(self, seq: int, batch: List[Request]) -> None:
         """Every worker's breaker refuses: fail the batch fast."""
+        run_ledger.emit("event", kind="serve.shed",
+                        reason="breaker_open", count=len(batch))
+        run_ledger.emit("serve.batch", seq=seq, size=len(batch),
+                        capacity=self.batch_size,
+                        occupancy=len(batch) / self.batch_size,
+                        status="breaker_open")
         for r in batch:
             if not r.future.set_running_or_notify_cancel():
                 self.metrics.incr("serve.cancelled")
@@ -227,6 +364,44 @@ class InferenceServer:
                 "every worker's circuit breaker is open: forward path is "
                 "failing"))
         self.metrics.incr("serve.batches")
+
+    def _emit_run_start(self) -> None:
+        run_ledger.emit("run.start", kind="InferenceServer",
+                        pid=os.getpid(),
+                        thread=threading.get_ident(),
+                        trace=run_ledger.trace_id(),
+                        batch=self.batch_size,
+                        buckets=list(self.ladder),
+                        workers=len(self.pool.workers),
+                        queue_capacity=self.queue.capacity,
+                        metrics_url=self.metrics_url,
+                        slo_target=self.slo.target)
+
+    def _run_end(self, wall_s: float) -> None:
+        with self._lat_lock:
+            lats = sorted(d for s, d in self._latencies if s == "ok")
+        # ns values (no unit) export as _seconds gauges, like the trainers
+        self.metrics.set("serve.latency p50", _percentile(lats, 50) * 1e9)
+        self.metrics.set("serve.latency p95", _percentile(lats, 95) * 1e9)
+        self.metrics.set("serve.latency p99", _percentile(lats, 99) * 1e9)
+        slo = self.slo.snapshot()
+        self.metrics.set("serve.slo hit rate", slo["hit_rate"],
+                         unit="scalar")
+        led = run_ledger.get_ledger()
+        if led is None:
+            return
+        run_ledger.emit("run.end", kind="InferenceServer",
+                        pid=os.getpid(), wall_s=wall_s,
+                        batches=self._batch_seq,
+                        workers=len(self.pool.workers),
+                        slo=slo)
+        from bigdl_tpu_torch.observability.prometheus import \
+            write_prometheus
+        write_prometheus(self.metrics,
+                         os.path.join(
+                             led.dir,
+                             f"metrics-serving-{os.getpid()}.prom"))
+        led.flush()
 
     # -- introspection ------------------------------------------------------
 
@@ -242,16 +417,17 @@ class InferenceServer:
             rows = sum(n for n, _ in recs)
             busy = sum(durs)
             buckets[b] = {"batches": len(recs), "rows": rows,
-                          "forward_p50_s": percentile(durs, 50),
-                          "forward_p99_s": percentile(durs, 99),
+                          "forward_p50_s": _percentile(durs, 50),
+                          "forward_p99_s": _percentile(durs, 99),
                           "rows_per_s": rows / busy if busy > 0 else 0.0}
         with self._pool_lock:
             workers = {w.wid: {"breaker": w.breaker.state,
                                "pending": w.pending,
                                "batches": w.batches}
                        for w in self.pool.workers}
+        local, _, _ = self.metrics.snapshot()
         return {
-            "counters": self.metrics.snapshot(),
+            "counters": {name: v for name, (v, _p) in local.items()},
             "queue_depth": self.queue.depth,
             "breaker": self.pool.workers[0].breaker.state,
             "workers": workers,
@@ -259,7 +435,9 @@ class InferenceServer:
             "batches": self._batch_seq,
             "est_batch_s": self._est_s,
             "floor_s": self._floor_s,
-            "latency_p50_s": percentile(lats, 50),
-            "latency_p95_s": percentile(lats, 95),
-            "latency_p99_s": percentile(lats, 99),
+            "latency_p50_s": _percentile(lats, 50),
+            "latency_p95_s": _percentile(lats, 95),
+            "latency_p99_s": _percentile(lats, 99),
+            "slo": self.slo.snapshot(),
+            "metrics_url": self.metrics_url,
         }

@@ -410,6 +410,36 @@ Phases, each of which ends the run with a non-zero exit on failure:
    within a stated time, and a run armed with ``io.read*1`` and
    ``prefetch.put*1`` (both ``OSError``) completes with both retries
    counted;
+3w. the run ledger and what reads it (``bigdl_tpu_torch.observability``),
+   each part with the ledger on under ``build/`` and off after: (a)
+   Inception-v1 (bf16, batch 32) trained 20 steps by ``LocalOptimizer``
+   with a ``TrainSummary`` of every tag every step, a
+   ``ValidationSummary`` of one validation after step 10,
+   ``set_step_timeout(120)``, ``BIGDL_TPU_HBM_EVERY=4`` and the cost
+   record: 13 K1 + 13 K3 + 2 K2 + 2 K4 a step and 13 K1 + 2 K2 for the
+   validation forward exactly, 20 ``step`` records of strict JSON, the
+   tfevents ``Loss`` scalars equal to the step records' losses, the
+   report's ``mem.hbm`` peak between the parameters' bytes and
+   ``max_memory_allocated``, a ``cost.analysis`` record, and ``python -m
+   bigdl_tpu_torch.cli run-report`` and ``trace-export`` exiting 0 in
+   subprocesses; (b) the ledger's cost: 20 more steps with it off, on, on
+   and off, ms a step printed, not gated; (c) ``set_step_timeout(2)`` over
+   a criterion sleeping 6 s at step 2 ends in ``WatchdogTimeout`` within
+   10 s, with its ``watchdog.timeout`` record and a stack dump on stderr;
+   (d) 3v's records through ``ShardedDataSet(workers=2)`` (host batches)
+   for 6 steps (13/13/2/2 a step), then ``trace-export``: span rows from
+   the trainer's pid and every worker pid the pool's census shows served
+   a chunk, every worker chunk span linked back to the trainer, one trace
+   id, and a bound stage in the report; then ``bench_ingest --run-dir``
+   and its attribution pass (decode, augment, pack, stage and h2d
+   stages, a bound one); (e) Inception-v1 (f32, K1 and K2) behind
+   ``InferenceServer(metrics_port=0)``: 64 requests, 13 K1 + 2 K2 a
+   forward, the scraped ``/metrics`` counter 64; 3g's bf16 LM behind
+   ``ContinuousGenerator(ledger_tags={"tenant": ...})`` with a
+   ``MemoryBudgeter``, 8 requests, 8 K12 a prefill and a decode step:
+   every generator record tagged, the report's request count 64 + 8 and
+   its memory census equal to the budgeter's own (``mem_drill``'s census
+   check runs in 3q);
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -2287,7 +2317,6 @@ def train(device):
     and the launch counts of that run."""
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.models import Inception_v1
-    from bigdl_tpu_torch.optim import SKIPPED_STEPS
     model = Inception_v1(CLASSES, dropout=0.4).reset(SEED)
     opt = make_trainer(model, make_samples(TRAIN_SAMPLES, SEED + 100), BATCH,
                        TRAIN_STEPS, True, device,
@@ -2301,7 +2330,7 @@ def train(device):
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         fail(f"training gave {len(losses)} losses, finite: "
              f"{bool(np.isfinite(losses).all())}")
-    if opt.metrics.get(SKIPPED_STEPS) or opt.state.get("skippedSteps"):
+    if opt.state.get("skippedSteps"):
         fail(f"{opt.state.get('skippedSteps')} steps skipped as non-finite")
     top1, top5 = opt.state.get("lastValidation") or (None, None)
     if top1 is None or top1.count != VAL_SAMPLES or top5.count != VAL_SAMPLES:
@@ -4241,7 +4270,6 @@ def train_cnn(device, what, build, recipe, steps, counts, val_counts,
     ``val_counts`` a validation forward, and every BN layer's running
     statistics moved.  Returns (report, launches, trainer)."""
     from bigdl_tpu_torch import ops
-    from bigdl_tpu_torch.optim import SKIPPED_STEPS
     batch = BATCH if batch is None else batch
     n_samples = TRAIN_SAMPLES if n_samples is None else n_samples
     val = make_samples(VAL_SAMPLES, SEED + 200, image, classes) \
@@ -4259,7 +4287,7 @@ def train_cnn(device, what, build, recipe, steps, counts, val_counts,
     if len(losses) != steps or not np.isfinite(losses).all():
         fail(f"{what}: {len(losses)} losses, finite: "
              f"{bool(np.isfinite(losses).all())}")
-    if opt.metrics.get(SKIPPED_STEPS) or opt.state.get("skippedSteps"):
+    if opt.state.get("skippedSteps"):
         fail(f"{what}: {opt.state.get('skippedSteps')} steps skipped as "
              "non-finite")
     val_fwd = 0
@@ -6535,8 +6563,8 @@ def record_file_training(root, card, device):
     import torch
     from bigdl_tpu_torch import ops
     from bigdl_tpu_torch.models import inception
-    from bigdl_tpu_torch.optim import (SKIPPED_STEPS, LocalValidator,
-                                       Top1Accuracy, Top5Accuracy, Trigger)
+    from bigdl_tpu_torch.optim import (LocalValidator, Top1Accuracy,
+                                       Top5Accuracy, Trigger)
     folder = os.path.join(root, "imagenet")
     t0 = time.perf_counter()
     train_files = write_records(os.path.join(folder, "train"), SEQ_TRAIN,
@@ -6562,10 +6590,10 @@ def record_file_training(root, card, device):
     expect_launches("3u-b train_main", paths["imagenet_train_main"],
                     imagenet_launches(steps, val_fwd))
     if len(losses) != steps or not np.isfinite(losses).all() or \
-            opt.metrics.get(SKIPPED_STEPS):
+            opt.state.get("skippedSteps"):
         fail(f"3u-b: {len(losses)} losses (want {steps}), finite "
              f"{bool(np.isfinite(losses).all())}, skipped "
-             f"{opt.metrics.get(SKIPPED_STEPS)}")
+             f"{opt.state.get('skippedSteps')}")
     if opt.optim_method.schedule.max_iteration != steps:
         fail(f"3u-b: Poly horizon {opt.optim_method.schedule.max_iteration},"
              f" want {steps} (records, not files)")
@@ -7387,8 +7415,9 @@ def fault_drills(card, device, folder):
 def sharded_feed(device, card, record_report):
     """Phase 3v: (a) the native helpers; (b) 3u's figures on them; (c) the
     sharded trainer; (d) the ingest curve; (e) the fault drills.  The
-    records are written under ``build/`` and removed after.  Returns
-    (report, launches by path)."""
+    records are written under ``build/``, removed on a failure and kept
+    for phase 3w, which removes them.  Returns (report, launches by path,
+    the records' folder)."""
     import shutil
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "build", "chip_smoke_sharded")
@@ -7407,10 +7436,585 @@ def sharded_feed(device, card, record_report):
         report["d_curve"] = ingest_curve(card, device, root,
                                          record_report["e_ingest"])
         report["e_drills"] = fault_drills(card, device, folder)
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
     finally:
         restore()
+    return report, {"imagenet_sharded": launches}, folder
+
+
+# -- phase 3w: the run ledger, summaries, watchdog, trace and live metrics ----
+
+OBS_STEPS = 20                   # 3w-a: Inception-v1 steps with the ledger
+OBS_VAL_AT = 10                  # its one validation, after this step
+OBS_HBM_EVERY = 4                # BIGDL_TPU_HBM_EVERY for the phase
+OBS_COST_STEPS = 20              # 3w-b: steps a run, ledger off / on
+OBS_WATCHDOG_S, OBS_HANG_S, OBS_HANG_STEP = 2.0, 6.0, 2   # 3w-c
+OBS_HANG_LIMIT_S = 10.0          # WatchdogTimeout within this of the hang
+OBS_SHARD_WORKERS, OBS_SHARD_STEPS = 2, 6                 # 3w-d
+OBS_BENCH_RECORDS = 64           # 3w-d: bench_ingest's attribution pass
+OBS_REQUESTS = 64                # 3w-e: InferenceServer requests
+OBS_LM_REQUESTS = 8              # 3w-e: ContinuousGenerator requests
+OBS_TENANT = "chip-smoke"
+
+
+def read_tfevents(path):
+    """(step, tag, value) of every scalar in a TFRecord-framed tfevents
+    file (each frame: length, masked crc, an Event message, masked crc;
+    Event field 2 the step, field 5 a Summary whose field 1 holds a
+    Value: tag 1, simple_value 2)."""
+    import struct
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = varint(buf, i)
+            num, wire = key >> 3, key & 7
+            if wire == 0:
+                val, i = varint(buf, i)
+            elif wire == 1:
+                val, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                val, i = buf[i:i + 4], i + 4
+            else:
+                n, i = varint(buf, i)
+                val, i = buf[i:i + n], i + n
+            yield num, val
+
+    def varint(buf, i):
+        out = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return out, i
+
+    data = open(path, "rb").read()
+    out, off = [], 0
+    while off < len(data):
+        (n,) = struct.unpack("<Q", data[off:off + 8])
+        event = dict(fields(data[off + 12:off + 12 + n]))
+        off += 16 + n
+        if 5 not in event:
+            continue
+        value = dict(fields(dict(fields(event[5]))[1]))
+        out.append((event.get(2, 0), value[1].decode(),
+                    struct.unpack("<f", value[2])[0]))
+    return out
+
+
+def strict_lines(run_dir):
+    """Every ledger line of ``run_dir``, parsed as strict JSON (NaN and
+    Infinity spellings fail)."""
+    recs = []
+    for path in sorted(glob.glob(os.path.join(run_dir, "events-*.jsonl"))):
+        with open(path) as f:
+            for line in f:
+                recs.append(json.loads(line, parse_constant=lambda c: fail(
+                    f"3w: non-strict JSON constant {c} in {path}")))
+    return recs
+
+
+def obs_cli(what, *argv):
+    """``python -m bigdl_tpu_torch.cli <argv>`` in a subprocess from the
+    checkout's root; fails unless it exits with 0.  Returns its seconds
+    and the last line it printed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "bigdl_tpu_torch.cli",
+                          *argv], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"3w-{what}: cli {argv[0]} exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    return time.perf_counter() - t0, lines[-1] if lines else ""
+
+
+class _HangingNLL:
+    """ClassNLL that sleeps ``OBS_HANG_S`` in its call at step
+    ``OBS_HANG_STEP`` (a hung step for the watchdog)."""
+
+    def __init__(self):
+        from bigdl_tpu_torch.nn import ClassNLLCriterion
+        self.inner = ClassNLLCriterion()
+        self.calls = 0
+
+    def __call__(self, y, labels):
+        if self.calls == OBS_HANG_STEP:
+            time.sleep(OBS_HANG_S)
+        self.calls += 1
+        return self.inner(y, labels)
+
+
+def obs_trainer(card, device, root):
+    """3w-a: Inception-v1 (bf16, batch 32) trained OBS_STEPS steps with the
+    ledger on, a TrainSummary of every tag every step, a ValidationSummary
+    of one validation after step OBS_VAL_AT, ``set_step_timeout(120)``,
+    memory samples every OBS_HBM_EVERY steps and the cost record; returns
+    (report, launches)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.core.device import synchronize
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.observability import (TrainSummary,
+                                               ValidationSummary)
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+    from bigdl_tpu_torch.optim import Top1Accuracy
+    model = Inception_v1(CLASSES, dropout=0.4).reset(SEED)
+    opt = make_trainer(model, make_samples(TRAIN_SAMPLES, SEED + 100), BATCH,
+                       OBS_STEPS, True, device)
+    opt.set_validation(lambda state: state["neval"] == OBS_VAL_AT,
+                       DataSet.array(make_samples(VAL_SAMPLES, SEED + 200))
+                       >> SampleToBatch(BATCH), [Top1Accuracy()])
+    tb = os.path.join(root, "tb")
+    ts, vs = TrainSummary(tb, "inception"), ValidationSummary(tb, "inception")
+    opt.set_train_summary(ts).set_val_summary(vs).set_step_timeout(120)
+    run_dir = os.path.join(root, "a_run")
+    run_ledger.set_run_dir(run_dir)
+    synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launches()                 # the path starts here
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+        synchronize(device)
+    finally:
+        run_ledger.set_run_dir(None)
+    wall = time.perf_counter() - t0
+    launches = launches_now()            # and ends here
+    peak = torch.cuda.max_memory_allocated(device)
+    ts.close()
+    vs.close()
+    val_fwd = VAL_SAMPLES // BATCH
+    expect_launches("3w-a", launches, imagenet_launches(OBS_STEPS, val_fwd))
+    recs = strict_lines(run_dir)
+    steps = [r for r in recs if r["type"] == "step"]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != OBS_STEPS or [r["step"] for r in steps] != \
+            list(range(OBS_STEPS)) or None in losses:
+        fail(f"3w-a: {len(steps)} step records, losses {losses}")
+    if losses != [r["loss"] for r in opt.step_records]:
+        fail("3w-a: the ledger's losses differ from the trainer's")
+    (tf_path,) = glob.glob(os.path.join(tb, "inception", "train",
+                                        "events.out.tfevents.*"))
+    tf_loss = [(s, v) for s, tag, v in read_tfevents(tf_path)
+               if tag == "Loss"]
+    want = [(r["step"], float(np.float32(r["loss"]))) for r in steps]
+    if tf_loss != want:
+        fail(f"3w-a: tfevents Loss scalars {tf_loss} differ from the step "
+             f"records' {want}")
+    (vf_path,) = glob.glob(os.path.join(tb, "inception", "validation",
+                                        "events.out.tfevents.*"))
+    val = read_tfevents(vf_path)
+    if [s for s, _, _ in val] != [OBS_VAL_AT] or "Top1" not in val[0][1]:
+        fail(f"3w-a: validation scalars {val}")
+    rep = build_report(load_ledger(run_dir, strict=True)[0])
+    params = sum(p.numel() * p.element_size()
+                 for p in opt.model.parameters())
+    hbm = rep["hbm"] or {}
+    if hbm.get("samples") != OBS_STEPS // OBS_HBM_EVERY or \
+            not params <= hbm.get("peak_bytes", -1) <= peak:
+        fail(f"3w-a: mem.hbm {hbm}: want {OBS_STEPS // OBS_HBM_EVERY} "
+             f"samples, a peak between the parameters' {params} B and "
+             f"max_memory_allocated {peak} B")
+    cost = rep["costs"].get("train.step")
+    if not cost or cost["flops"] <= 0:
+        fail(f"3w-a: no cost.analysis record of the step: {rep['costs']}")
+    if rep["steps"]["count"] != OBS_STEPS or rep["coverage"] is None:
+        fail(f"3w-a: report steps {rep['steps']}, coverage "
+             f"{rep['coverage']}")
+    census = {}
+    for r in recs:
+        key = r["type"] if r["type"] != "span" else "span " + r["name"]
+        census[key] = census.get(key, 0) + 1
+    rr_s, rr_last = obs_cli("a", "run-report", run_dir)
+    te_s, te_last = obs_cli("a", "trace-export", run_dir)
+    report = {"wall_s": wall, "steps": OBS_STEPS,
+              "step_ms": 1e3 * statistics.median(
+                  r["dur_s"] for r in steps[1:]),
+              "first_step_ms": 1e3 * steps[0]["dur_s"],
+              "coverage": rep["coverage"],
+              "phases_s": {k: v["total_s"]
+                           for k, v in rep["phases"].items()},
+              "hbm_peak_bytes": hbm["peak_bytes"],
+              "max_memory_allocated": peak, "param_bytes": params,
+              "cost_flops": cost["flops"], "census": census,
+              "run_report_s": rr_s, "trace_export_s": te_s,
+              "trace_export": te_last,
+              "launches_per_step": {k: v / OBS_STEPS
+                                    for k, v in launches.items() if v}}
+    log(f"[{card}] 3w-a Inception-v1 (bf16, batch {BATCH}) with the ledger "
+        f"on, {OBS_STEPS} steps in {wall:.2f} s: step "
+        f"{report['step_ms']:.2f} ms (median after the first; first "
+        f"{report['first_step_ms']:.1f} ms, its ATen FLOPs counted: "
+        f"{cost['flops'] / 1e12:.3f} TFLOP), coverage "
+        f"{rep['coverage']:.3f}, {len(recs)} records {census}; mem.hbm "
+        f"peak {hbm['peak_bytes'] / 1e9:.3f} GB (parameters "
+        f"{params / 1e6:.1f} MB, max_memory_allocated {peak / 1e9:.3f} "
+        f"GB); tfevents Loss = the step records' losses; run-report "
+        f"{rr_s:.2f} s and trace-export {te_s:.2f} s in subprocesses "
+        f"({te_last}); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return report, launches, opt
+
+
+def obs_ledger_cost(card, device, root, opt):
+    """3w-b: the ledger's cost a step: OBS_COST_STEPS more steps of 3w-a's
+    trainer (no summary, no validation) with the ledger off, on, on, off;
+    ms a step (median after each run's first).  Printed, not gated."""
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.optim import Trigger
+    opt.set_train_summary(None).set_val_summary(None)
+    opt.validation_trigger = None
+    runs = []
+    for i, on in enumerate((False, True, True, False)):
+        done = opt.state["neval"]
+        opt.set_end_when(Trigger.max_iteration(done + OBS_COST_STEPS))
+        if on:
+            run_ledger.set_run_dir(os.path.join(root, f"b_run{i}"))
+        try:
+            opt.optimize()
+        finally:
+            run_ledger.set_run_dir(None)
+        durs = [r["dur_s"] for r in opt.step_records[done + 1:]]
+        runs.append((on, 1e3 * statistics.median(durs)))
+    off = [ms for on, ms in runs if not on]
+    on_ = [ms for on, ms in runs if on]
+    report = {"order": ["off", "on", "on", "off"],
+              "step_ms": [ms for _, ms in runs],
+              "off_ms": statistics.mean(off), "on_ms": statistics.mean(on_)}
+    report["cost_ms"] = report["on_ms"] - report["off_ms"]
+    log(f"[{card}] 3w-b the ledger's cost a step (Inception-v1 bf16, batch "
+        f"{BATCH}, {OBS_COST_STEPS} steps a run, median after the first): "
+        f"off/on/on/off {[round(ms, 3) for _, ms in runs]} ms; on "
+        f"{report['on_ms']:.3f} - off {report['off_ms']:.3f} = "
+        f"{report['cost_ms']:+.3f} ms a step")
+    return report
+
+
+def obs_watchdog(card, device, root, model):
+    """3w-c: ``set_step_timeout(OBS_WATCHDOG_S)`` over a criterion that
+    sleeps OBS_HANG_S at step OBS_HANG_STEP: the run ends in
+    ``WatchdogTimeout`` within OBS_HANG_LIMIT_S of the hang, with its
+    ledger record and a stack dump on stderr.  ``model`` is 3w-a's, warm,
+    so no step but the hung one comes near the timeout."""
+    import tempfile
+    from bigdl_tpu_torch.dataset import DataSet, SampleToBatch
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+    from bigdl_tpu_torch.resilience import WatchdogTimeout
+    opt = LocalOptimizer(model, _HangingNLL(),
+                         DataSet.array(make_samples(BATCH * 4, SEED + 400))
+                         >> SampleToBatch(BATCH),
+                         Trigger.max_iteration(OBS_HANG_STEP + 2),
+                         device=device)
+    opt.set_mixed_precision(True).set_step_timeout(OBS_WATCHDOG_S)
+    run_dir = os.path.join(root, "c_run")
+    run_ledger.set_run_dir(run_dir)
+    err = tempfile.TemporaryFile()
+    sys.stderr.flush()
+    saved = os.dup(2)
+    os.dup2(err.fileno(), 2)             # the stack dump goes to fd 2
+    raised, hang_t0 = None, None
+    try:
+        t0 = time.perf_counter()
+        try:
+            opt.optimize()
+        except WatchdogTimeout as e:
+            raised = e
+        ended = time.perf_counter()
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+        run_ledger.set_run_dir(None)
+    err.seek(0)
+    dump = err.read().decode(errors="replace")
+    err.close()
+    recs = strict_lines(run_dir)
+    steps = [r for r in recs if r["type"] == "span"
+             and r["name"] == "train.step"]
+    fired = [r for r in recs if r.get("kind") == "watchdog.timeout"]
+    if raised is None:
+        fail("3w-c: the hung step ended without WatchdogTimeout")
+    hang_t0 = steps[-1]["mono"] if steps else None
+    took = fired[0]["mono"] - hang_t0 if fired and hang_t0 else None
+    elapsed = ended - t0
+    if len(fired) != 1 or fired[0]["label"] != f"train step {OBS_HANG_STEP}" \
+            or fired[0]["timeout_s"] != OBS_WATCHDOG_S:
+        fail(f"3w-c: watchdog ledger records {fired}")
+    if len(steps) != OBS_HANG_STEP + 1 or not steps[-1].get("error"):
+        fail(f"3w-c: train.step spans {steps}")
+    hang_s = steps[-1]["dur_s"]
+    if hang_s > OBS_HANG_LIMIT_S:
+        fail(f"3w-c: the hung step ended after {hang_s:.2f} s (limit "
+             f"{OBS_HANG_LIMIT_S} s)")
+    if "most recent call first" not in dump or \
+            "chip_smoke.py" not in dump:
+        fail(f"3w-c: no stack dump on stderr: {dump[-2000:]}")
+    sys.stderr.write(dump[-4000:])
+    report = {"timeout_s": OBS_WATCHDOG_S, "hang_s": OBS_HANG_S,
+              "step_span_s": hang_s, "run_s": elapsed,
+              "fired_after_s": took, "error": type(raised).__name__,
+              "span_error": steps[-1]["error"],
+              "stack_dump_lines": len(dump.splitlines())}
+    log(f"[{card}] 3w-c watchdog: set_step_timeout({OBS_WATCHDOG_S:g}) over "
+        f"a criterion sleeping {OBS_HANG_S:g} s at step {OBS_HANG_STEP}: "
+        f"{type(raised).__name__} after the step's {hang_s:.2f} s (limit "
+        f"{OBS_HANG_LIMIT_S:g} s; the record {took:.2f} s into it), span "
+        f"error {steps[-1]['error']}, the stack dump "
+        f"{report['stack_dump_lines']} lines on stderr")
+    return report
+
+
+def obs_trace(card, device, folder, root):
+    """3w-d: 3v's records through ``ShardedDataSet(workers=2)`` for
+    OBS_SHARD_STEPS steps with the ledger on, then ``trace-export``: the
+    trace's span rows cover the trainer and every worker pid the pool's own
+    census shows served a chunk, every worker's chunk span links back to
+    the trainer, the report names a bound stage; then ``bench_ingest
+    --run-dir`` and its attribution pass.  Returns (report, launches)."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.core.device import synchronize
+    from bigdl_tpu_torch.dataset import bench_ingest
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+    run_dir = os.path.join(root, "d_run")
+    # host batches: the trainer's thread pulls the pool under data.next, so
+    # every chunk links back to the span that asked for it (a staging
+    # ring's stager thread would pull it outside any span)
+    ds = sharded_set(folder, device, OBS_SHARD_WORKERS, staging=False)
+    opt = recipe_trainer(ds, device, OBS_SHARD_STEPS)
+    run_ledger.set_run_dir(run_dir)
+    ops.reset_launches()                 # the path starts here
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+        synchronize(device)
+    finally:
+        run_ledger.set_run_dir(None)
+    wall = time.perf_counter() - t0
+    launches = launches_now()            # and ends here
+    expect_launches("3w-d", launches, imagenet_launches(OBS_SHARD_STEPS, 0))
+    me = os.getpid()
+    served = {p for p, n in ds.stats["chunks_by_pid"].items() if n}
+    records, _ = load_ledger(run_dir, strict=True)
+    spans = {(r["_pid"], r["span"]): r for r in records
+             if r["type"] == "span"}
+    chunk_spans = [r for r in records if r["type"] == "span"
+                   and r["_pid"] != me and "parent" not in r]
+    unlinked = [r for r in chunk_spans if r.get("link_pid") != me
+                or (me, r.get("link")) not in spans]
+    if not served or me in served or unlinked or not chunk_spans:
+        fail(f"3w-d: served pids {served}, {len(chunk_spans)} worker chunk "
+             f"spans, unlinked {unlinked[:3]}")
+    out = os.path.join(run_dir, "trace.json")
+    te_s, te_last = obs_cli("d", "trace-export", run_dir, "--out", out)
+    payload = json.load(open(out))
+    span_pids = {e["pid"] for e in payload["traceEvents"]
+                 if e.get("ph") == "X"}
+    st = payload["otherData"]["stitch"]
+    if not {me} | served <= span_pids or \
+            st["resolved_edges"] != st["link_edges"] or \
+            len(payload["otherData"]["trace_ids"]) != 1:
+        fail(f"3w-d: trace span pids {span_pids} (trainer {me}, served "
+             f"{served}), stitch {st}")
+    rep = build_report(records)
+    ingest = rep["ingest"] or {}
+    if ingest.get("bound_stage") not in (ingest.get("stages") or {}):
+        fail(f"3w-d: the report names no bound stage: {ingest}")
+    bench_dir = os.path.join(root, "d_bench")
+    t1 = time.perf_counter()
+    art = bench_ingest.main(["--recipe", "seqfile", "--workers-list", "0",
+                             "--records", str(OBS_BENCH_RECORDS),
+                             "--batch-size", str(BATCH), "--chunk", "16",
+                             "--run-dir", bench_dir,
+                             "--device", device.type])
+    bench_s = time.perf_counter() - t1
+    stages = set(art["stage_attribution"])
+    if art["bound_stage"] not in stages or not {
+            "ingest.decode", "ingest.augment", "ingest.pack",
+            "ingest.stage", "ingest.h2d"} <= stages:
+        fail(f"3w-d: bench_ingest's attribution {art['stage_attribution']}"
+             f", bound {art['bound_stage']}")
+    report = {"wall_s": wall, "served_chunks_by_pid": {
+        str(p): n for p, n in ds.stats["chunks_by_pid"].items()},
+        "stitch": st, "trace_events": len(payload["traceEvents"]),
+        "trace_export_s": te_s, "bound_stage": ingest["bound_stage"],
+        "stages": {k: v["capacity_records_per_s"]
+                   for k, v in ingest["stages"].items()},
+        "step_ms": 1e3 * statistics.median(
+            r["dur_s"] for r in opt.step_records[1:]),
+        "first_step_ms": 1e3 * opt.step_records[0]["dur_s"],
+        "bench_ingest": {"s": bench_s,
+                         "imgs_per_s": art["worker_scaling_imgs_per_sec"],
+                         "bound_stage": art["bound_stage"],
+                         "stages": art["stage_attribution"]}}
+    log(f"[{card}] 3w-d ShardedDataSet(workers {OBS_SHARD_WORKERS}) with the "
+        f"ledger on, {OBS_SHARD_STEPS} steps in {wall:.2f} s (the first "
+        f"{report['first_step_ms']:.0f} ms, the pool's start in it; then "
+        f"{report['step_ms']:.1f} ms a step): chunks by pid "
+        f"{report['served_chunks_by_pid']}, {len(chunk_spans)} worker chunk "
+        f"spans all linked; trace-export {te_s:.2f} s, "
+        f"{len(payload['traceEvents'])} events, stitch {st}; bound stage "
+        f"{ingest['bound_stage']} of {report['stages']} records/s; "
+        f"bench_ingest --run-dir ({OBS_BENCH_RECORDS} records, workers 0) "
+        f"{bench_s:.2f} s: bound {art['bound_stage']}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return report, launches
+
+
+def obs_serving(card, device, root, lm_run):
+    """3w-e: Inception-v1 (f32, K1 and K2) behind ``InferenceServer(
+    metrics_port=0)`` for OBS_REQUESTS requests, the scraped ``/metrics``
+    counter and the report's count both OBS_REQUESTS; then 3g's bf16 LM
+    behind ``ContinuousGenerator(ledger_tags=, budgeter=)`` for
+    OBS_LM_REQUESTS requests on K12: every record tagged, the memory
+    census an exact replay of the budgeter's own.  Returns (report,
+    server launches, generator launches)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.api import DLClassifier
+    from bigdl_tpu_torch.observability import live
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+    from bigdl_tpu_torch.serving import ContinuousGenerator, InferenceServer
+    from bigdl_tpu_torch.serving.scheduler.membudget import MemoryBudgeter
+    run_dir = os.path.join(root, "e_run")
+    run_ledger.set_run_dir(run_dir)
+    try:
+        clf = DLClassifier(build_model(), (BATCH, 3, IMAGE, IMAGE),
+                           device=device)
+        server = InferenceServer(clf, batch_buckets=BUCKETS, metrics_port=0,
+                                 device=device)
+        try:
+            ops.reset_launches()         # the server's path starts here
+            t0 = time.perf_counter()
+            preds = server.predict(make_rows(OBS_REQUESTS, SEED + 500))
+            wall = time.perf_counter() - t0
+            launches = launches_now()    # and ends here
+            stats = server.stats()
+            scraped = live.scrape(server.metrics_url)
+        finally:
+            if not server.drain(timeout=120):
+                fail("3w-e: the server did not drain")
+        forwards = sum(v["batches"] for v in stats["buckets"].values())
+        expect_launches("3w-e server", launches, {
+            "max_pool2d": 13 * forwards, "cross_map_lrn": 2 * forwards})
+        line = f"bigdl_tpu_serve_completed_total {float(OBS_REQUESTS)}"
+        if scraped is None or line not in scraped.splitlines() or \
+                len(preds) != OBS_REQUESTS:
+            fail(f"3w-e: /metrics lacks {line!r}: {scraped}")
+
+        model, prompts, budgets, kw = lm_run
+        bud = MemoryBudgeter()
+        gen = ContinuousGenerator(model, cache_dtype=torch.bfloat16,
+                                  budgeter=bud,
+                                  ledger_tags={"tenant": OBS_TENANT}, **kw)
+        ops.reset_launches()             # the generator's path starts here
+        run = drive_continuous(gen, prompts[:OBS_LM_REQUESTS],
+                               budgets[:OBS_LM_REQUESTS])
+        gen.drain()
+        glaunches = launches_now()       # and ends here
+        gst = gen.stats()
+        snap = bud.snapshot()["tenants"][OBS_TENANT]
+        run_ledger.flush()
+    finally:
+        run_ledger.set_run_dir(None)
+    prefills = gst["counters"]["serve.gen.prefills"]
+    steps = gst["counters"]["serve.gen.steps"]
+    expect_launches("3w-e generator", glaunches,
+                    {"paged_attention": LM_LAYERS * (prefills + steps)})
+    for out, n in zip(run["outputs"], budgets):
+        if out.shape != (n,) or out.min() < 1 or out.max() > LM_VOCAB:
+            fail(f"3w-e: generator ids {out.shape} for max_new {n}")
+    records, _ = load_ledger(run_dir, strict=True)
+    rep = build_report(records)
+    if rep["serving"]["requests"].get("ok") != OBS_REQUESTS + \
+            OBS_LM_REQUESTS:
+        fail(f"3w-e: the report's requests {rep['serving']['requests']}, "
+             f"want {OBS_REQUESTS} + {OBS_LM_REQUESTS} ok")
+    gen_kinds = ("serve.slots", "serve.pages", "serve.cache", "mem.budget")
+    untagged = [r for r in records if r["type"] in gen_kinds
+                and r.get("tenant") != OBS_TENANT]
+    served = [r for r in records if r["type"] == "serve.request"]
+    if untagged or sum(r.get("tenant") == OBS_TENANT
+                       for r in served) != OBS_LM_REQUESTS:
+        fail(f"3w-e: {len(untagged)} generator records without the tenant "
+             f"tag, {len(served)} serve.request records")
+    mem = (rep["memory"] or {}).get("tenants", {}).get(OBS_TENANT)
+    if not mem or any(mem["charged"].get(c, 0) != v
+                      for c, v in snap["charged"].items()) or \
+            snap["charged"]["kv_pages"] != 0:
+        fail(f"3w-e: the memory census {mem} is no replay of the "
+             f"budgeter's {snap}")
+    report = {"requests": OBS_REQUESTS, "wall_s": wall,
+              "forwards": forwards, "metrics_line": line,
+              "lm_requests": OBS_LM_REQUESTS, "lm": {
+                  k: run[k] for k in ("wall_s", "new_tokens_per_s",
+                                      "latency_p50_ms", "latency_max_ms")},
+              "memory_census": mem, "prefills": prefills,
+              "decode_steps": steps, "records": len(records)}
+    log(f"[{card}] 3w-e InferenceServer (f32, buckets {BUCKETS}, "
+        f"metrics_port=0): {OBS_REQUESTS} requests in {wall:.2f} s over "
+        f"{forwards} forwards, /metrics '{line}'; ContinuousGenerator "
+        f"(bf16, ledger_tags tenant {OBS_TENANT!r}, a MemoryBudgeter): "
+        f"{OBS_LM_REQUESTS} requests, {prefills} prefills and {steps} decode "
+        f"steps, {run['new_tokens_per_s']:.1f} new tokens/s; report "
+        f"requests {rep['serving']['requests']}; memory census "
+        f"{mem['charged']} equal to the budgeter's; launches "
+        f"{ {k: v for k, v in launches.items() if v} } and "
+        f"{ {k: v for k, v in glaunches.items() if v} }")
+    return report, launches, glaunches
+
+
+def observability(device, card, folder, lm_run):
+    """Phase 3w: (a) the ledger over Inception-v1 training; (b) its cost a
+    step; (c) the step watchdog; (d) the trace across processes on 3v's
+    records (removed after) and ``bench_ingest --run-dir``; (e) serving
+    with live /metrics, and the continuous LM with ledger tags.  The
+    ledger is on only inside each part, under ``build/``.  Returns
+    (report, image-path launches, LM launches)."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_obs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    saved = {k: os.environ.get(k) for k in ("BIGDL_TPU_HBM_EVERY",
+                                            "BIGDL_TPU_COSTS")}
+    os.environ["BIGDL_TPU_HBM_EVERY"] = str(OBS_HBM_EVERY)
+    os.environ.pop("BIGDL_TPU_COSTS", None)
+    restore = quiet_step_logs()
+    report = {}
+    try:
+        report["a_trainer"], la, opt = obs_trainer(card, device, root)
+        report["b_ledger_cost"] = obs_ledger_cost(card, device, root, opt)
+        report["c_watchdog"] = obs_watchdog(card, device, root, opt.model)
+        del opt
+        report["d_trace"], ld = obs_trace(card, device, folder, root)
+        report["e_serving"], le, lg = obs_serving(card, device, root, lm_run)
+    finally:
+        restore()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
-    return report, {"imagenet_sharded": launches}
+        shutil.rmtree(os.path.dirname(folder), ignore_errors=True)
+    return report, {"observability_train": la,
+                    "observability_sharded": ld,
+                    "observability_serve": le}, {"observability_lm": lg}
 
 
 # -- phase 4: timings ---------------------------------------------------------
@@ -8913,10 +9517,18 @@ def main() -> int:
     log("record-file training and mains: " + json.dumps(record_report))
     clock.stamp("3u (record-file training and the mains)")
     # phase 3v: the native host helpers and the sharded feed
-    sharded_report, more = sharded_feed(device, card, record_report)
+    sharded_report, more, shard_folder = sharded_feed(device, card,
+                                                      record_report)
     cnn_launches.update(more)
     log("native helpers and the sharded feed: " + json.dumps(sharded_report))
     clock.stamp("3v (native helpers and the sharded feed)")
+    # phase 3w: the run ledger and what reads it, on the paths above
+    obs_report, more, obs_lm = observability(device, card, shard_folder,
+                                             cg_run)
+    cnn_launches.update(more)
+    lm_launches.update(obs_lm)
+    log("run ledger and observability: " + json.dumps(obs_report))
+    clock.stamp("3w (the run ledger, watchdog, trace and live metrics)")
     # phase 4
     main_pool_times = time_main_pools(device, card)
     text_times = time_text_pools(device, card)

@@ -75,7 +75,10 @@ while the default stream lags behind its side stream, and the trainer and
 ``LocalValidator`` take such card batches as they are, with the host
 batches' losses and counts; so does ``StagingRing`` (a short last batch
 included), and the trainer takes a staged ``ShardedDataSet``'s batches as
-they are, with the host batches' losses and weights.
+they are, with the host batches' losses and weights.  With the run ledger
+on, the trainer on the card samples the card's memory (``mem.hbm``, its
+peak between the parameters' bytes and ``max_memory_allocated``) and
+prices its first step (``cost.analysis``).
 """
 
 import copy
@@ -1864,3 +1867,42 @@ def test_trainer_takes_staged_sharded_batches(cuda_device):
     for a, b in zip(runs[0].model.param_leaves(),
                     runs[1].model.param_leaves()):
         assert torch.equal(a, b)
+
+
+def test_trainer_ledger_on_the_card_samples_memory_and_prices_a_step(
+        cuda_device, tmp_path, monkeypatch):
+    """With the run ledger on, a LeNet-5 run on the card writes ``mem.hbm``
+    samples of the card (peak at least the parameters' bytes, at most
+    ``max_memory_allocated``) and one ``cost.analysis`` record of the
+    first step's ATen FLOPs."""
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+    monkeypatch.setenv("BIGDL_TPU_HBM_EVERY", "2")
+    rng = np.random.RandomState(0)
+    samples = [Sample(rng.rand(28, 28).astype(np.float32),
+                      np.float32(i % 10 + 1)) for i in range(48)]
+    run_dir = str(tmp_path / "run")
+    run_ledger.set_run_dir(run_dir)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model = LeNet5(10).reset(1)
+        opt = LocalOptimizer(model, tnn.ClassNLLCriterion(),
+                             DataSet.array(samples) >> SampleToBatch(8),
+                             Trigger.max_iteration(6), device=cuda_device)
+        opt.optimize()
+        run_ledger.flush()
+    finally:
+        run_ledger.set_run_dir(None)
+    records, bad = load_ledger(run_dir, strict=True)
+    assert bad == 0
+    hbm = [r for r in records if r["type"] == "mem.hbm"]
+    assert [r["step"] for r in hbm] == [0, 2, 4]
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    rep = build_report(records)
+    assert params <= rep["hbm"]["peak_bytes"] \
+        <= torch.cuda.max_memory_allocated()
+    cost = [r for r in records if r["type"] == "cost.analysis"]
+    assert len(cost) == 1 and cost[0]["flops"] > 0
+    assert rep["steps"]["count"] == 6

@@ -12,9 +12,8 @@ trainer over a staged sharded set takes the losses of the same trainer
 over the same batches in memory.  Failures are typed: a worker's own
 exception, ``IngestWorkerDied`` for a killed worker (and interpreter exit
 does not hang, in a subprocess), ``InjectedFault`` at ``ingest.stage``.
-The reference's report of the bound stage reads the run ledger, which
-comes with ``ROADMAP.md`` Queue 1 item 13; its trainer test runs here
-without the report.  Worker pools stay at 2 processes or fewer (each
+The report of the bound stage from the run ledger is held against the
+reference in ``tests/test_torch_port_obs_hooks.py``.  Worker pools stay at 2 processes or fewer (each
 spawned worker imports torch).
 """
 
@@ -597,5 +596,12 @@ def test_bench_ingest_single_process_smoke(tmp_path, capsys):
                              "--workers-list", "0", "--records", "24",
                              "--batch-size", "8", "--chunk", "6"])
     assert seq["worker_scaling_imgs_per_sec"]["0"] > 0 and seq["chunk"] == 1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        bench_ingest.main(["--smoke", "--run-dir", str(tmp_path / "l")])
+    # the attribution pass: the ledger's ingest spans name a bound stage
+    run_dir = str(tmp_path / "l")
+    att = bench_ingest.main(["--smoke", "--workers-list", "0", "--records",
+                             "24", "--batch-size", "8", "--chunk", "6",
+                             "--run-dir", run_dir])
+    assert att["run_dir"] == run_dir and att["attribution_workers"] == 0
+    assert att["bound_stage"] in att["stage_attribution"]
+    assert {"ingest.decode", "ingest.augment", "ingest.pack"} <= \
+        set(att["stage_attribution"])

@@ -652,6 +652,13 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "'bigdl_tpu_torch.dataset.staging', "
         "'bigdl_tpu_torch.resilience.fault_injector']\n"
         "assert all(m in sys.modules for m in feed)\n"
+        "obs = ['bigdl_tpu_torch.cli', 'bigdl_tpu_torch.optim.metrics', "
+        "'bigdl_tpu_torch.utils.profiler', "
+        "'bigdl_tpu_torch.resilience.watchdog'] + "
+        "['bigdl_tpu_torch.observability.' + m for m in ('ledger', "
+        "'tracer', 'trace', 'summary', 'prometheus', 'costs', 'report', "
+        "'live')]\n"
+        "assert all(m in sys.modules for m in obs), obs\n"
         "import torch\n"
         "from bigdl_tpu_torch import native\n"
         "from bigdl_tpu_torch.ops import _build\n"

@@ -521,12 +521,13 @@ def test_later_slices_raise_by_name():
     opt = _lenet_opt(_lenet_samples(4, 0), 1)
     # snapshots and resume came with the checkpoint slice
     # (tests/test_torch_port_checkpoint.py)
-    for call in (lambda: opt.set_mesh(None),
-                 lambda: opt.set_step_timeout(1.0),
-                 lambda: opt.set_train_summary(None),
-                 lambda: opt.set_val_summary(None)):
-        with pytest.raises(NotImplementedError, match="slice of the port"):
-            call()
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        opt.set_mesh(None)
+    # the watchdog and the summaries came with the host subsystems
+    # (tests/test_torch_port_obs_hooks.py)
+    assert opt.set_step_timeout(1.0) is opt and opt.step_timeout == 1.0
+    assert opt.set_train_summary(None) is opt and opt.train_summary is None
+    assert opt.set_val_summary(None) is opt and opt.val_summary is None
     with pytest.raises(NotImplementedError, match="DistriOptimizer"):
         Optimizer(LeNet5(10), DataSet.array(_lenet_samples(4, 0)),
                   tnn.ClassNLLCriterion(), device="cpu", compress="bf16")
