@@ -80,6 +80,11 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches so far, by wrapper name."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
 __all__ = ["a8_matmul", "attention_fwd", "attention_reference",
            "attention_stream_bwd_dkv", "attention_stream_bwd_dq",
            "attention_stream_fwd", "attention_stream_plain",
@@ -92,4 +97,4 @@ __all__ = ["a8_matmul", "attention_fwd", "attention_reference",
            "lrn_bwd", "lrn_bwd_plain", "lrn_plain", "max_pool2d",
            "max_pool2d_bwd", "max_pool2d_bwd_plain", "max_pool2d_plain",
            "paged_attention", "paged_attention_plain", "pool_geometry", "w4_matmul", "w8_matmul", "KERNEL_WRAPPERS",
-           "reset_launches"]
+           "launch_counts", "reset_launches"]

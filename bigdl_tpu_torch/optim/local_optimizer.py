@@ -42,6 +42,13 @@ enqueue of the copies.  The records add no synchronisation.
 ``set_train_summary``/``set_val_summary`` tee the scalars into TensorBoard
 files and the ledger.  ``step_records`` keeps the step records in memory
 too.
+
+Fault sites (``resilience/fault_injector.py``): ``grad.nan`` at step N
+poisons that step's batch inside its ``train.step`` span, as
+``jnp.full_like(data, jnp.nan)`` does in the reference (:func:`nan_like`),
+so the non-finite guard must skip the update; ``train.step`` at N raises
+after step N-1's validation and snapshot, the preemption that a relaunch
+with ``auto_resume`` recovers from.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ from bigdl_tpu_torch.optim.metrics import Metrics
 from bigdl_tpu_torch.optim.optim_method import SGD, Default, OptimMethod
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import ValidationMethod
+from bigdl_tpu_torch.resilience.fault_injector import FaultInjector
 from bigdl_tpu_torch.resilience.watchdog import Watchdog
 from bigdl_tpu_torch.utils.file import File, load_model_snapshot
 from bigdl_tpu_torch.utils.table import T, Table
@@ -124,6 +132,17 @@ def _to_device(array, device) -> torch.Tensor:
     if isinstance(array, torch.Tensor):
         return array.to(device)
     return torch.from_numpy(np.asarray(array)).to(device)
+
+
+def nan_like(data: torch.Tensor) -> torch.Tensor:
+    """The reference's poisoned batch, ``jnp.full_like(data, jnp.nan)``:
+    NaN in a floating batch; the cast of NaN elsewhere, 0 in an integer
+    batch (token ids) and True in a boolean one."""
+    if data.is_floating_point():
+        return torch.full_like(data, math.nan)
+    if data.dtype == torch.bool:
+        return torch.ones_like(data)
+    return torch.zeros_like(data)
 
 
 def _f32_input(data: torch.Tensor) -> torch.Tensor:
@@ -544,6 +563,9 @@ class LocalOptimizer:
             with tracer.span("train.step", step=stepno), \
                     Watchdog(self.step_timeout,
                              label=f"train step {stepno}"):
+                if FaultInjector.should("grad.nan", stepno):
+                    # inside the span: the poison is step work
+                    data = nan_like(data)
                 if probe is None:
                     loss = self._step(params, data, labels, clr, stepno,
                                       state)
@@ -589,6 +611,9 @@ class LocalOptimizer:
                 self._maybe_validate()
                 self._maybe_checkpoint()
                 self.state["isLastBatchOfEpoch"] = False
+                # an injected preemption after the snapshot: the crash a
+                # relaunch with auto_resume recovers from
+                FaultInjector.fire("train.step", step=self.state["neval"])
 
         wall = time.time() - wall_start
         logger.info("Training finished in %.1fs (%d iterations)",

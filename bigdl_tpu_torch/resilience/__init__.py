@@ -1,5 +1,6 @@
 """Host-side resilience helpers of the port: bounded retry, the fault
-injector of the data feed's sites and the step watchdog."""
+injector of the trainer's, serving's and the data feed's sites and the step
+watchdog."""
 
 from bigdl_tpu_torch.resilience.fault_injector import (Fault, FaultInjector,
                                                        InjectedFault)

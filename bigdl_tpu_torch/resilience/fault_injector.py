@@ -1,38 +1,57 @@
 """Deterministic fault injection (``bigdl_tpu/resilience/fault_injector.py``):
-the proof harness of the data feed's recovery paths.
+the proof harness of every recovery path the port has.
 
 The code plants normally inert injection sites and this module arms them.
-A site is a dotted string checked where the real fault would strike; the
-port wires the data feed's sites:
+A site is a dotted string checked where the real fault would strike:
 
-======================  ===================================================
-site                    where it fires
-======================  ===================================================
-``io.read``             a record file's open in ``dataset/seqfile``
-                        (inside the retried open: ``=OSError`` is retried)
-``mt.worker``           an ``MTTransformer`` thread, before its chunk
-``prefetch.producer``   ``PrefetchToDevice``'s producer thread, per batch
-``prefetch.put``        the copy of a batch to the device inside that thread
-                        (retried as a transient ``OSError``; the consumer
-                        never sees it)
-``ingest.worker``       a sharded-ingest worker PROCESS, before it touches
-                        its chunk (raises; propagates as itself)
-``ingest.worker.kill``  query site in the same worker: a hard ``os._exit``
-                        mid-chunk, the real death; the consumer gets a
-                        typed ``IngestWorkerDied``, never a hang
-``ingest.stage``        the staging ring's stager thread, before it copies
-                        a batch into a pinned slot (``dataset/staging``)
-======================  ===================================================
+============================  =============================================
+site                          where it fires
+============================  =============================================
+``train.step``                ``LocalOptimizer``'s loop, after step N-1's
+                              update, validation and snapshot (``@N`` =
+                              ``neval`` N): a preemption between steps
+``grad.nan``                  query site: step N's batch is poisoned as
+                              ``jnp.full_like(data, nan)`` poisons it, so
+                              the in-step non-finite guard must skip it
+``serve.forward``             every serving worker's forward
+                              (``serving/scheduler/pool.py``; ``@N`` =
+                              batch sequence N, inside the retried forward:
+                              ``=OSError`` is retried by ``forward_retries``)
+``serve.worker<i>.forward``   worker ``i``'s forward only: the pool drill's
+                              seam (its breaker opens, the others serve)
+``serve.pack``                a serving worker's host-side batch packing
+                              (fails only that batch; never the breaker)
+``io.read``                   a record file's open in ``dataset/seqfile``
+                              (inside the retried open: ``=OSError`` is
+                              retried)
+``mt.worker``                 an ``MTTransformer`` thread, before its chunk
+``prefetch.producer``         ``PrefetchToDevice``'s producer thread, per
+                              batch
+``prefetch.put``              the copy of a batch to the device inside that
+                              thread (retried as a transient ``OSError``;
+                              the consumer never sees it)
+``ingest.worker``             a sharded-ingest worker PROCESS, before it
+                              touches its chunk (raises; propagates as
+                              itself)
+``ingest.worker.kill``        query site in the same worker: a hard
+                              ``os._exit`` mid-chunk, the real death; the
+                              consumer gets a typed ``IngestWorkerDied``,
+                              never a hang
+``ingest.stage``              the staging ring's stager thread, before it
+                              copies a batch into a pinned slot
+                              (``dataset/staging``)
+============================  =============================================
 
-The trainer's, the checkpoint's and serving's sites (``train.step``,
-``grad.nan``, ``checkpoint.save``, ``serve.*``) come with the resilience
-part of the host subsystems (``ROADMAP.md`` Queue 1 item 13).  Each
-injection is logged, kept in the injector's ``fired`` list and written
-to the run ledger as a flushed ``fault.injected`` event.
+The reference's ``checkpoint.save`` site fires in ``save_sharded``, its
+orbax snapshots of ``DistriOptimizer``; it comes with them (``ROADMAP.md``
+Queue 1 item 12).  Each injection is logged, kept in the injector's
+``fired`` list and written to the run ledger as a flushed
+``fault.injected`` event.
 
-Arming is programmatic (``FaultInjector.install(...)``) or by environment::
+Arming is programmatic (``FaultInjector.install(...)``) or by environment,
+for a relaunched process::
 
-    BIGDL_TPU_FAULTS="io.read*2=OSError;ingest.worker.kill@3"
+    BIGDL_TPU_FAULTS="train.step@5;io.read*2=OSError;grad.nan@3"
 
 ``site@N`` fires at step N (a site checked without a step takes ``@N`` as
 "the Nth check"), ``site*K`` fires the first K times (default 1), and

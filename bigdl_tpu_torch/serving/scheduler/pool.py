@@ -1,6 +1,5 @@
 """Device worker pool: per-worker breakers behind one admission queue
-(``bigdl_tpu/serving/scheduler/pool.py``; its fault-injection sites come
-with the resilience part of ``ROADMAP.md`` Queue 1 item 13).
+(``bigdl_tpu/serving/scheduler/pool.py``).
 
 N :class:`DeviceWorker` threads, each with its own circuit breaker and
 inbox, are fed by one dispatcher thread that forms batches through the
@@ -15,6 +14,14 @@ and ``serve.forward`` spans stitch back to the dispatch that routed them;
 every batch writes one ``serve.batch`` record.  ``serve.forward`` closes
 after the predictions reach the host, so on the card it spans the
 forward's device time.
+
+Fault sites (``resilience/fault_injector.py``), each checked with the
+batch's sequence number: ``serve.pack`` inside the pack span (it fails only
+its batch, typed ``PackFailedError``, and never the breaker), then
+``serve.worker<i>.forward`` (worker ``i``'s forwards only: the seam that
+proves one faulted worker does not stall the pool) and ``serve.forward``
+inside the retried forward, so an ``=OSError`` fault is retried away by
+``forward_retries``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from bigdl_tpu_torch.observability import ledger as run_ledger
 from bigdl_tpu_torch.observability import trace as run_trace
 from bigdl_tpu_torch.observability import tracer
 from bigdl_tpu_torch.resilience import RETRYABLE_IO_ERRORS, retry
+from bigdl_tpu_torch.resilience.fault_injector import FaultInjector
 from bigdl_tpu_torch.serving.breaker import CircuitBreaker
 from bigdl_tpu_torch.serving.errors import (BreakerOpenError,
                                             DeadlineExceededError,
@@ -171,6 +179,7 @@ class DeviceWorker:
         try:
             with tracer.span("serve.pack", seq=seq, size=len(live),
                              bucket=bucket, worker=self.wid):
+                FaultInjector.fire("serve.pack", step=seq)
                 x = s.runner.pack([r.features for r in live], bucket)
         except Exception as e:
             s.metrics.incr("serve.failed.pack", len(live))
@@ -188,6 +197,8 @@ class DeviceWorker:
             if slacks else None
 
         def fwd():
+            FaultInjector.fire(f"serve.worker{self.wid}.forward", step=seq)
+            FaultInjector.fire("serve.forward", step=seq)
             # .cpu() waits for the device, surfacing device errors inside
             # the retry rather than at delivery
             return s.runner.run(x, bucket).cpu().numpy()

@@ -11,7 +11,9 @@ per-request ``serve.request`` and per-batch ``serve.batch`` records,
 breaker and shed events, ``Metrics`` under the reference's names, the live
 ``/metrics`` endpoint (``metrics_port``), periodic ``.prom`` snapshots,
 the SLO tracker and its trace captures.  The fault injector's serving
-sites come with the resilience part of ``ROADMAP.md`` Queue 1 item 13.
+sites (``serve.pack``, ``serve.forward``, ``serve.worker<i>.forward``) are
+the pool's (``scheduler/pool.py``); ``forward_retries`` retries a forward
+that raised one of ``RETRYABLE_IO_ERRORS``, as in the reference.
 """
 
 from __future__ import annotations

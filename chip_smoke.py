@@ -440,6 +440,32 @@ Phases, each of which ends the run with a non-zero exit on failure:
    every generator record tagged, the report's request count 64 + 8 and
    its memory census equal to the budgeter's own (``mem_drill``'s census
    check runs in 3q);
+3x. the trainer's and serving's fault sites, the drill and the benches,
+   files under ``build/`` removed after: (a) Inception-v1 (f32, batch 32)
+   trained one step under ``grad.nan@0`` keeps every weight bit for bit
+   with ``skippedSteps`` 1 and 13/13/2/2 launches, 3 steps under
+   ``grad.nan@1`` train steps 0 and 2, and ``train.step@2`` with File
+   snapshots every step and ``auto_resume`` raises ``InjectedFault`` after
+   step 2's snapshot; relaunched in this process the run resumes at
+   ``neval`` 2, ends at 4, and its weights lie within 1e-5 (max |dw|) and
+   its losses within rtol 1e-5 of an uninterrupted 4-step run (bit-equality
+   logged: cuDNN's backward may not be deterministic); (b) Inception-v1
+   (f32) behind ``InferenceServer(num_workers=2, forward_retries=2)`` with
+   the bucket ladder: ``serve.forward*2=OSError`` retried away with two
+   ``retry`` events and the unfaulted answers, ``serve.worker0.forward``
+   twice opens worker 0's breaker while worker 1 answers every later
+   request as the unfaulted forward, ``serve.pack`` fails one batch with
+   ``PackFailedError`` and leaves the breakers as they were, drain loses
+   no request, 13 K1 + 2 K2 a forward that ran; (c) ``cli serve-drill`` at
+   its defaults (phases 1-11) exits 0 and ``run-report``'s serving census
+   is ``tests/test_serving.py``'s but the fleet's workers, K12 launched in
+   phase 11; (d) ``cli bench-serve`` at its defaults: every ablation's
+   outputs equal to the row-slot run's, each mode's tokens/s, p95 and K12
+   and K13 launches, the prefix hit and draft accept rates logged; (e)
+   ``cli bench-infer`` without ``--smoke`` (tlm-2L128d, tlm-8L512d, LeNet-5
+   at batch 512) passes its accuracy gate, its int8 and bf16 rates,
+   resident bytes, quality deltas and one int8 forward's K8 and K13
+   launches logged;
 4. timings, each line stamped with the card: each kernel's median time at
    the serving shapes and at the training shapes (bf16) beside its bound,
    its plain version and the library call that computes the same
@@ -8017,6 +8043,466 @@ def observability(device, card, folder, lm_run):
                     "observability_serve": le}, {"observability_lm": lg}
 
 
+# -- phase 3x: the trainer's and serving's fault sites, drill and benches -----
+
+FAULT_RESUME_STEPS, FAULT_PREEMPT_AT = 4, 2      # 3x-a: train.step@2 of 4
+FAULT_RESUME_ATOL = 1e-5     # resumed vs uninterrupted weights, max |dw|
+FAULT_LOSS_RTOL = 1e-5       # and their losses at the resumed steps
+FAULT_THRESHOLD = 2          # 3x-b: the breaker's threshold
+FAULT_ROWS = 32              # 3x-b: rows a phase
+
+
+def fault_trainer(card, device, root):
+    """3x-a: Inception-v1 (f32, batch 32) under the trainer's sites: a
+    one-step run with ``grad.nan@0`` keeps every weight bit for bit, sets
+    ``skippedSteps`` to 1 and still launches 13/13/2/2; a 3-step run with
+    ``grad.nan@1`` trains steps 0 and 2; ``train.step@2`` with File
+    snapshots every step and ``auto_resume`` raises ``InjectedFault`` after
+    step 2's snapshot, the relaunch in this process resumes at ``neval`` 2
+    and ends at 4 within FAULT_RESUME_ATOL of an uninterrupted 4-step run.
+    Returns (report, launches)."""
+    import torch
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.models import Inception_v1
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience import FaultInjector, InjectedFault
+    samples = make_samples(2 * BATCH, SEED + 700)
+
+    def trainer(steps):
+        model = Inception_v1(CLASSES, dropout=0.4).reset(SEED)
+        return make_trainer(model, samples, BATCH, steps, False, device)
+
+    def weights(opt):
+        # host copies: the model moves to the card inside optimize()
+        return [p.detach().to("cpu", copy=True)
+                for p in opt.model.param_leaves()]
+
+    launches = {}
+    t0 = time.perf_counter()
+    # (i) the poisoned step alone
+    opt = trainer(1)
+    before = weights(opt)
+    FaultInjector.install(FaultInjector().add("grad.nan", step=0))
+    ops.reset_launches()                 # the poisoned step starts here
+    try:
+        opt.optimize()
+    finally:
+        FaultInjector.clear()
+    launches["nan"] = launches_now()     # and ends here
+    expect_launches("3x-a poisoned step", launches["nan"],
+                    imagenet_launches(1, 0))
+    same = all(torch.equal(a, b) for a, b in zip(before, weights(opt)))
+    if not same or opt.state.get("skippedSteps") != 1 or \
+            not math.isnan(opt.step_records[0]["loss"]):
+        fail(f"3x-a: grad.nan@0 left weights bit-unchanged {same}, "
+             f"skippedSteps {opt.state.get('skippedSteps')}, loss "
+             f"{opt.step_records[0]['loss']}")
+    # (ii) a poisoned step between two healthy ones
+    opt = trainer(3)
+    before = weights(opt)
+    FaultInjector.install(FaultInjector().add("grad.nan", step=1))
+    ops.reset_launches()
+    try:
+        opt.optimize()
+    finally:
+        FaultInjector.clear()
+    launches["nan_mid"] = launches_now()
+    expect_launches("3x-a grad.nan@1", launches["nan_mid"],
+                    imagenet_launches(3, 0))
+    losses_mid = [r["loss"] for r in opt.step_records]
+    moved = any(not torch.equal(a, b) for a, b in zip(before, weights(opt)))
+    if opt.state.get("skippedSteps") != 1 or not moved or \
+            not (math.isfinite(losses_mid[0]) and math.isnan(losses_mid[1])
+                 and math.isfinite(losses_mid[2])):
+        fail(f"3x-a: grad.nan@1 losses {losses_mid}, skippedSteps "
+             f"{opt.state.get('skippedSteps')}, weights moved {moved}")
+    # (iii) a preemption after step 2's snapshot, and the relaunch
+    path = os.path.join(root, "a_snapshots")
+    opt = trainer(FAULT_RESUME_STEPS)
+    opt.set_checkpoint(path, Trigger.several_iteration(1), auto_resume=True)
+    FaultInjector.install(FaultInjector().add("train.step",
+                                              step=FAULT_PREEMPT_AT))
+    ops.reset_launches()
+    try:
+        opt.optimize()
+        fail("3x-a: train.step@2 did not raise")
+    except InjectedFault:
+        pass
+    finally:
+        FaultInjector.clear()
+    launches["preempted"] = launches_now()
+    expect_launches("3x-a preempted run", launches["preempted"],
+                    imagenet_launches(FAULT_PREEMPT_AT, 0))
+    if opt.state["neval"] != FAULT_PREEMPT_AT or sorted(os.listdir(path)) != \
+            ["model.1", "model.2", "state.1", "state.2"]:
+        fail(f"3x-a: preempted at neval {opt.state['neval']}, snapshots "
+             f"{sorted(os.listdir(path))}")
+    resumed = trainer(FAULT_RESUME_STEPS)
+    resumed.set_checkpoint(path, Trigger.several_iteration(1),
+                           auto_resume=True)
+    ops.reset_launches()
+    resumed.optimize()
+    launches["resumed"] = launches_now()
+    expect_launches("3x-a resumed run", launches["resumed"],
+                    imagenet_launches(FAULT_RESUME_STEPS - FAULT_PREEMPT_AT,
+                                      0))
+    steps_run = [r["step"] for r in resumed.step_records]
+    if steps_run != list(range(FAULT_PREEMPT_AT, FAULT_RESUME_STEPS)) or \
+            resumed.state["neval"] != FAULT_RESUME_STEPS:
+        fail(f"3x-a: the relaunch ran steps {steps_run}, ended at neval "
+             f"{resumed.state['neval']}")
+    whole = trainer(FAULT_RESUME_STEPS)
+    ops.reset_launches()
+    whole.optimize()
+    launches["uninterrupted"] = launches_now()
+    dw = max((a - b).abs().max().item()
+             for a, b in zip(weights(resumed), weights(whole)))
+    bit_equal = all(torch.equal(a, b)
+                    for a, b in zip(weights(resumed), weights(whole)))
+    la = [r["loss"] for r in resumed.step_records]
+    lb = [r["loss"] for r in whole.step_records][FAULT_PREEMPT_AT:]
+    if dw > FAULT_RESUME_ATOL or not np.allclose(la, lb,
+                                                 rtol=FAULT_LOSS_RTOL,
+                                                 atol=0.0):
+        fail(f"3x-a: resumed vs uninterrupted max |dw| {dw} (limit "
+             f"{FAULT_RESUME_ATOL}), losses {la} vs {lb}")
+    wall = time.perf_counter() - t0
+    log(f"[{card}] 3x-a trainer sites (Inception-v1 f32, batch {BATCH}): "
+        f"grad.nan@0 alone: weights bit-unchanged, skippedSteps 1, launches "
+        f"{ {k: v for k, v in launches['nan'].items() if v} }; grad.nan@1 "
+        f"of 3: losses {losses_mid}; train.step@{FAULT_PREEMPT_AT} of "
+        f"{FAULT_RESUME_STEPS} with snapshots every step: InjectedFault at "
+        f"neval {FAULT_PREEMPT_AT}, the relaunch ran steps {steps_run}; "
+        f"resumed vs uninterrupted: max |dw| {dw:.3g} (limit "
+        f"{FAULT_RESUME_ATOL}), bit-equal {bit_equal}, losses {la} vs {lb}; "
+        f"{wall:.1f} s")
+    return {"losses_nan_mid": losses_mid, "resumed_losses": la,
+            "uninterrupted_losses": lb, "max_abs_dw": dw,
+            "bit_equal": bit_equal, "wall_s": wall}, launches
+
+
+def settle(server, timeout=10.0):
+    """Wait until no pool worker has a batch in flight (a worker drops its
+    count after the futures resolve; the least-loaded tie-break needs it)."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if all(w["pending"] == 0
+               for w in server.stats()["workers"].values()):
+            return
+        time.sleep(0.001)
+    fail("3x-b: a pool worker kept a batch in flight")
+
+
+def fault_serving(card, device, root):
+    """3x-b: Inception-v1 (f32) behind ``InferenceServer(num_workers=2,
+    forward_retries=2)`` with the bucket ladder: ``serve.forward*2=OSError``
+    retried away (two ``retry`` events, the unfaulted answers);
+    ``serve.worker0.forward`` armed FAULT_THRESHOLD times opens worker 0's
+    breaker while worker 1 answers every later request as the unfaulted
+    forward; ``serve.pack`` fails one batch with ``PackFailedError`` and
+    leaves every breaker as it was; drain loses no accepted request; 13 K1
+    + 2 K2 a forward that ran.  Returns (report, launches)."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.api import DLClassifier
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import load_ledger
+    from bigdl_tpu_torch.resilience import FaultInjector
+    from bigdl_tpu_torch.serving import (ForwardFailedError, InferenceServer,
+                                         PackFailedError)
+    rows = make_rows(3 * FAULT_ROWS, SEED + 800)
+    clf = DLClassifier(build_model(), (BATCH, 3, IMAGE, IMAGE), device=device)
+    want = [int(v) for v in clf.predict(rows)]      # the unfaulted answers
+    run_dir = os.path.join(root, "b_run")
+    run_ledger.set_run_dir(run_dir)
+    accepted = []
+    t0 = time.perf_counter()
+    try:
+        # a wave of 8 forms one batch within max_delay_s
+        server = InferenceServer(clf, num_workers=2, forward_retries=2,
+                                 retry_backoff_s=0.001, max_delay_s=0.05,
+                                 batch_buckets=BUCKETS,
+                                 breaker_threshold=FAULT_THRESHOLD,
+                                 breaker_reset_s=600.0, device=device)
+        try:
+            ops.reset_launches()         # the server's path starts here
+            FaultInjector.install(FaultInjector.from_env(
+                "serve.forward*2=OSError"))
+            futs = [server.submit(r) for r in rows[:FAULT_ROWS]]
+            accepted += futs
+            got_retry = [f.result(timeout=120) for f in futs]
+            fired_retry = list(FaultInjector.active().fired)
+            settle(server)
+            FaultInjector.install(FaultInjector().add(
+                "serve.worker0.forward", count=FAULT_THRESHOLD))
+            failed = 0
+            for i in range(FAULT_THRESHOLD):     # one wave a batch, to w0
+                futs = [server.submit(r) for r in rows[8 * i:8 * i + 8]]
+                accepted += futs
+                failed += sum(isinstance(f.exception(timeout=120),
+                                         ForwardFailedError) for f in futs)
+                settle(server)
+            st = server.stats()["workers"]
+            breakers = (st[0]["breaker"], st[1]["breaker"])
+            later = rows[FAULT_ROWS:2 * FAULT_ROWS]
+            futs = [server.submit(r) for r in later]
+            accepted += futs
+            got_w1 = [f.result(timeout=120) for f in futs]
+            settle(server)
+            FaultInjector.install(FaultInjector().add("serve.pack", count=1))
+            futs = [server.submit(r) for r in rows[2 * FAULT_ROWS:
+                                                   2 * FAULT_ROWS + 8]]
+            accepted += futs
+            packed = sum(isinstance(f.exception(timeout=120),
+                                    PackFailedError) for f in futs)
+            settle(server)
+            FaultInjector.clear()
+            tail = rows[2 * FAULT_ROWS + 8:]
+            futs = [server.submit(r) for r in tail]
+            accepted += futs
+            got_tail = [f.result(timeout=120) for f in futs]
+            st_after = server.stats()
+        finally:
+            FaultInjector.clear()
+            drained = server.drain(timeout=120)
+        launches = launches_now()        # and ends here
+        run_ledger.flush()
+    finally:
+        run_ledger.set_run_dir(None)
+    wall = time.perf_counter() - t0
+    records, _ = load_ledger(run_dir, strict=True)
+    retries = [r for r in records if r.get("kind") == "retry"]
+    if got_retry != want[:FAULT_ROWS] or len(retries) != 2 or \
+            fired_retry != ["serve.forward"] * 2 or \
+            any(r["label"] != "serve.forward" for r in retries):
+        fail(f"3x-b: serve.forward*2=OSError: answers equal "
+             f"{got_retry == want[:FAULT_ROWS]}, fired {fired_retry}, "
+             f"retry events {retries}")
+    if failed != 8 * FAULT_THRESHOLD or breakers != ("open", "closed") or \
+            got_w1 != want[FAULT_ROWS:2 * FAULT_ROWS]:
+        fail(f"3x-b: worker 0 faulted {failed} requests, breakers "
+             f"{breakers}, worker 1's answers equal "
+             f"{got_w1 == want[FAULT_ROWS:2 * FAULT_ROWS]}")
+    workers_after = st_after["workers"]
+    if packed != 8 or (workers_after[0]["breaker"],
+                       workers_after[1]["breaker"]) != ("open", "closed") \
+            or got_tail != want[2 * FAULT_ROWS + 8:]:
+        fail(f"3x-b: serve.pack failed {packed} of 8, breakers "
+             f"{workers_after}, tail answers equal "
+             f"{got_tail == want[2 * FAULT_ROWS + 8:]}")
+    if not drained or not all(f.done() for f in accepted):
+        fail(f"3x-b: drain {drained}, "
+             f"{sum(not f.done() for f in accepted)} requests lost")
+    forwards = sum(v["batches"] for v in st_after["buckets"].values())
+    expect_launches("3x-b server", launches, {
+        "max_pool2d": 13 * forwards, "cross_map_lrn": 2 * forwards})
+    report = {"requests": len(accepted), "forwards": forwards,
+              "retry_events": len(retries), "worker0_failed": failed,
+              "pack_failed": packed, "wall_s": wall,
+              "worker_batches": {w: v["batches"]
+                                 for w, v in workers_after.items()}}
+    log(f"[{card}] 3x-b InferenceServer (Inception-v1 f32, 2 workers, "
+        f"forward_retries 2, buckets {BUCKETS}): serve.forward*2=OSError "
+        f"retried away ({len(retries)} retry events, {FAULT_ROWS} answers "
+        f"equal to the unfaulted forward); serve.worker0.forward x"
+        f"{FAULT_THRESHOLD}: {failed} requests failed typed, breakers "
+        f"{breakers}, worker 1 answered {len(later)} later requests "
+        f"equal; serve.pack: {packed} of 8 PackFailedError, breakers "
+        f"unchanged; drain lost 0 of {len(accepted)}; {forwards} forwards, "
+        f"launches { {k: v for k, v in launches.items() if v} }, worker "
+        f"batches {report['worker_batches']}; {wall:.1f} s")
+    return report, launches
+
+
+def drill_census(rep):
+    """The serving census of ``tests/test_serving.py``'s drill test, less
+    the fleet phase's workers; returns the checks that failed."""
+    s = rep["serving"] or {}
+    req, shed = s.get("requests", {}), s.get("shed", {})
+    br, ws = s.get("breaker", {}), s.get("workers", {})
+    checks = {
+        "ok": req.get("ok", 0) > 0,
+        "forward_failed": req.get("forward_failed", 0) > 0,
+        "pack_failed": req.get("pack_failed", 0) > 0,
+        "expired": req.get("expired", 0) > 0,
+        "shed breaker_open": shed.get("breaker_open", 0) > 0,
+        "shed deadline_unmeetable": shed.get("deadline_unmeetable", 0) > 0,
+        "closed->open 2": br.get("closed->open") == 2,
+        "open->half_open 1": br.get("open->half_open") == 1,
+        "half_open->closed 1": br.get("half_open->closed") == 1,
+        "batches": s.get("batches", {}).get("count", 0) > 0,
+        "latency": s.get("latency", {}).get("p50_s", 0) > 0,
+        "workers 0, 1": set(ws) == {0, 1},
+        "worker 0 failed": ws.get(0, {}).get("failed", 0) > 0,
+        "worker 1 clean": ws.get(1, {}).get("failed", 1) == 0
+        and ws.get(1, {}).get("ok", 0) > 0,
+        "two buckets": len(s.get("buckets", {})) == 2,
+    }
+    return [k for k, ok in checks.items() if not ok]
+
+
+def fault_drill(card, root):
+    """3x-c: ``cli serve-drill`` at its defaults (phases 1-11, on the card)
+    exits 0, and ``run-report`` on its run directory gives the serving
+    census of ``tests/test_serving.py``'s drill test (the fleet phase's
+    workers aside).  Returns (report, launches)."""
+    import io
+    from contextlib import redirect_stdout
+    from bigdl_tpu_torch import cli, ops
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import (build_report,
+                                                      load_ledger)
+    run_dir = os.path.join(root, "c_drill")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    ops.reset_launches()                 # the drill's path starts here
+    try:
+        with redirect_stdout(out):
+            rc = cli.main(["serve-drill", "--run-dir", run_dir])
+    finally:
+        run_ledger.set_run_dir(None)
+    launches = launches_now()            # and ends here
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0:
+        fail(f"3x-c: serve-drill exited {rc}: {text[-3000:]}")
+    records, bad = load_ledger(run_dir, strict=True)
+    rep = build_report(records)
+    missing = drill_census(rep)
+    if bad or missing or launches["paged_attention"] == 0:
+        fail(f"3x-c: run-report census misses {missing} ({bad} bad lines), "
+             f"K12 launches {launches['paged_attention']}")
+    checks = sum(line.startswith("  [ok]") for line in text.splitlines())
+    s = rep["serving"]
+    log(f"[{card}] 3x-c serve-drill (phases 1-11 on the card): exit 0, "
+        f"{checks} checks ok in {wall:.1f} s; run-report requests "
+        f"{s['requests']}, sheds {s['shed']}, breaker {s['breaker']}, "
+        f"workers {s['workers']}; phase 11's launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return {"checks_ok": checks, "wall_s": wall,
+            "requests": s["requests"], "shed": s["shed"],
+            "breaker": s["breaker"]}, launches
+
+
+def fault_bench_serve(card, root):
+    """3x-d: ``cli bench-serve`` at its defaults (48 requests up to 48 new
+    tokens, the reference's full run) with ``--out`` under ``build/``: every
+    ablation's outputs equal the row-slot run's (the bench raises
+    otherwise), the live scrape answered.  Logs each mode's tokens/s and
+    p95, the prefix hit rate, the draft's accept rate and each mode's K12
+    and K13 launches.  Returns (report, launches)."""
+    import io
+    from contextlib import redirect_stdout
+    from bigdl_tpu_torch import cli, ops
+    path = os.path.join(root, "d_serve.json")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    ops.reset_launches()                 # the bench's path starts here
+    with redirect_stdout(out):
+        rc = cli.main(["bench-serve", "--out", path])
+    launches = launches_now()            # and ends here
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"3x-d: bench-serve exited {rc}: {out.getvalue()[-3000:]}")
+    with open(path) as f:
+        rep = json.load(f)
+    modes = dict(rep["modes"], **rep["ablations"])
+    if not rep["acceptance"]["outputs_bit_equal_across_variants"] or \
+            launches["paged_attention"] == 0 or launches["w8_matmul"] == 0:
+        fail(f"3x-d: acceptance {rep['acceptance']}, launches {launches}")
+    per_mode = {name: {k: m["kernel_launches"].get(k, 0)
+                       for k in ("paged_attention", "w8_matmul",
+                                 "attention_fwd")}
+                for name, m in modes.items()}
+    acc = rep["acceptance"]
+    log(f"[{card}] 3x-d bench-serve (defaults: {rep['meta']['requests']} "
+        f"requests, prompt {rep['meta']['prompt_len']}, "
+        f"{rep['modes']['static']['useful_tokens']} useful tokens, "
+        f"{rep['meta']['model']}): every ablation equal to row-slot; "
+        + "; ".join(f"{n} {m['tokens_per_s']:.1f} tok/s p95 "
+                    f"{m['latency_p95_s'] * 1e3:.1f} ms launches "
+                    f"{per_mode[n]}" for n, m in modes.items())
+        + f"; prefix hit rate {acc['prefix_hit_rate']:.3f}, draft accept "
+        f"rate {acc['draft_accept_rate']:.3f}, best {acc['best_ablation']} "
+        f"{acc['best_vs_row_slot_tokens_per_s']:.3f}x row-slot; "
+        f"{wall:.1f} s")
+    return {"modes": {n: {k: m[k] for k in ("tokens_per_s", "latency_p95_s",
+                                            "kernel_launches")}
+                      for n, m in modes.items()},
+            "acceptance": acc, "wall_s": wall}, launches
+
+
+def fault_bench_infer(card):
+    """3x-e: ``cli bench-infer`` without ``--smoke`` (tlm-2L128d,
+    tlm-8L512d at vocab 32000, embed 512, 8 layers, seq 512, batch 8, and
+    LeNet-5 at batch 512): the accuracy gate passes (exit 0); logs int8
+    tokens/s and images/s beside bf16, the resident-bytes ratio, the
+    quality deltas and the launches of one int8 forward (K8 and K13).
+    Returns (report, launches)."""
+    import io
+    from contextlib import redirect_stdout
+    from bigdl_tpu_torch import cli, ops
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    ops.reset_launches()                 # the bench's path starts here
+    with redirect_stdout(out):
+        rc = cli.main(["bench-infer"])
+    launches = launches_now()            # and ends here
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0:
+        fail(f"3x-e: bench-infer exited {rc}: {text[-3000:]}")
+    rows = [json.loads(line) for line in text.splitlines()
+            if line.startswith('{"config"')]
+    lm = {r["config"]: r for r in rows if "int8_tokens_per_sec" in r}
+    img = [r for r in rows if "int8_imgs_per_sec" in r]
+    big = lm.get("tlm-8L512d", {}).get("int8_kernel_launches", {})
+    if set(lm) != {"tlm-2L128d", "tlm-8L512d"} or len(img) != 1 or \
+            big.get("attention_fwd") != 8 or not big.get("w8_matmul") or \
+            not img[0]["int8_kernel_launches"].get("w8_matmul"):
+        fail(f"3x-e: rows {list(lm)} + {len(img)} image, tlm-8L512d int8 "
+             f"launches {big}")
+    for r in rows:
+        rate = "tokens_per_sec" if "int8_tokens_per_sec" in r else \
+            "imgs_per_sec"
+        log(f"[{card}] 3x-e bench-infer {r['config']}: int8 "
+            f"{r['int8_' + rate]} vs bf16 {r['bf16_' + rate]} "
+            f"{rate.replace('_per_sec', '/s')} ({r['speedup_int8_vs_bf16']}x)"
+            f", resident {r['resident_param_bytes']['ratio_int8_vs_bf16']} of "
+            f"bf16, quality {r['quality_vs_bf16']}, one int8 forward's "
+            f"launches {r['int8_kernel_launches']}")
+    log(f"[{card}] 3x-e bench-infer: gate passed, {wall:.1f} s")
+    return {"rows": rows, "wall_s": wall}, launches
+
+
+def faults_and_benches(device, card):
+    """Phase 3x: (a) the trainer's sites; (b) serving's sites; (c)
+    ``serve-drill``; (d) ``bench-serve``; (e) ``bench-infer``.  Files go
+    under ``build/``, removed after.  Returns (report, image-path
+    launches, LM launches)."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke_faults")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    restore = quiet_step_logs()
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        report["a_trainer"], la = fault_trainer(card, device, root)
+        report["b_serving"], lb = fault_serving(card, device, root)
+        report["c_drill"], lc = fault_drill(card, root)
+        report["d_bench_serve"], ld = fault_bench_serve(card, root)
+        report["e_bench_infer"], le = fault_bench_infer(card)
+    finally:
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    report["wall_s"] = time.perf_counter() - t0
+    image = {f"faults_train_{k}": v for k, v in la.items()}
+    image["faults_serve"] = lb
+    return report, image, {"faults_drill": lc, "faults_bench_serve": ld,
+                           "faults_bench_infer": le}
+
+
 # -- phase 4: timings ---------------------------------------------------------
 
 def time_forwards(clf, device):
@@ -9529,6 +10015,13 @@ def main() -> int:
     lm_launches.update(obs_lm)
     log("run ledger and observability: " + json.dumps(obs_report))
     clock.stamp("3w (the run ledger, watchdog, trace and live metrics)")
+    # phase 3x: the trainer's and serving's fault sites, the drill, benches
+    fault_report, more, fault_lm = faults_and_benches(device, card)
+    cnn_launches.update(more)
+    lm_launches.update(fault_lm)
+    log("fault sites, serve-drill, bench-serve and bench-infer: "
+        + json.dumps(fault_report))
+    clock.stamp("3x (fault sites, serve-drill, bench-serve, bench-infer)")
     # phase 4
     main_pool_times = time_main_pools(device, card)
     text_times = time_text_pools(device, card)

@@ -78,7 +78,9 @@ included), and the trainer takes a staged ``ShardedDataSet``'s batches as
 they are, with the host batches' losses and weights.  With the run ledger
 on, the trainer on the card samples the card's memory (``mem.hbm``, its
 peak between the parameters' bytes and ``max_memory_allocated``) and
-prices its first step (``cost.analysis``).
+prices its first step (``cost.analysis``).  An injected
+``serve.forward*1=OSError`` on the card is retried away by
+``forward_retries`` with the unfaulted answers.
 """
 
 import copy
@@ -1906,3 +1908,46 @@ def test_trainer_ledger_on_the_card_samples_memory_and_prices_a_step(
     cost = [r for r in records if r["type"] == "cost.analysis"]
     assert len(cost) == 1 and cost[0]["flops"] > 0
     assert rep["steps"]["count"] == 6
+
+
+def test_injected_forward_os_error_is_retried_away_on_the_card(
+        cuda_device, tmp_path):
+    """LeNet-5 on the card (K1 at its two pools) behind ``InferenceServer(
+    forward_retries=1)``: ``serve.forward*1=OSError`` fires inside the
+    retried forward, one ``retry`` event reaches the ledger, and every
+    answer equals the unfaulted classifier's (the same forward, so equal
+    classes)."""
+    from bigdl_tpu_torch.api import DLClassifier
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.observability import ledger as run_ledger
+    from bigdl_tpu_torch.observability.report import load_ledger
+    from bigdl_tpu_torch.resilience import FaultInjector
+    from bigdl_tpu_torch.serving import InferenceServer
+    rng = np.random.RandomState(3)
+    rows = [rng.rand(28, 28).astype(np.float32) for _ in range(16)]
+    clf = DLClassifier(LeNet5(10).reset(2), (8, 28, 28), device=cuda_device)
+    want = [int(v) for v in clf.predict(rows)]
+    run_dir = str(tmp_path / "run")
+    run_ledger.set_run_dir(run_dir)
+    try:
+        FaultInjector.install(FaultInjector.from_env(
+            "serve.forward*1=OSError"))
+        server = InferenceServer(clf, forward_retries=1,
+                                 retry_backoff_s=0.001, max_delay_s=0.05,
+                                 device=cuda_device)
+        try:
+            got = [f.result(timeout=60)
+                   for f in [server.submit(r) for r in rows]]
+        finally:
+            assert server.drain(timeout=60)
+        fired = FaultInjector.active().fired
+        run_ledger.flush()
+    finally:
+        FaultInjector.clear()
+        run_ledger.set_run_dir(None)
+    assert got == want
+    assert fired == ["serve.forward"]
+    records, bad = load_ledger(run_dir, strict=True)
+    assert bad == 0
+    assert [r["label"] for r in records if r.get("kind") == "retry"] == \
+        ["serve.forward"]

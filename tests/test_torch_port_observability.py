@@ -285,9 +285,8 @@ def test_cli_main_dispatch(tmp_path):
     assert cli.main(["no-such-command"]) == 2
     # the reference's other subcommands name the part they wait for
     for cmd, item in (("fleet-report", "item 13"), ("train-drill",
-                                                     "item 13"),
-                      ("bench-infer", "item 13"), ("mesh-explain",
-                                                   "item 12")):
+                                                     "item 12"),
+                      ("tune", "item 13"), ("mesh-explain", "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main([cmd])
     with pytest.raises(NotImplementedError, match="fleet"):
