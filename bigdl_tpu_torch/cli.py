@@ -7,9 +7,11 @@ Subcommands:
   are pure file reading and import neither torch nor numpy, so they start
   in a fraction of a second on any machine;
 * ``serve-drill`` (``serving/drill.py``): the serving chaos drill, phases
-  1-11, over the pool's fault sites;
+  1-12, over the pool's fault sites and the multi-tenant fleet
+  (``--fleet-smoke``: phase 12 alone);
 * ``bench-serve`` (``serving/bench_serve.py``): static, bucketed and
-  continuous generation with the paged ablations;
+  continuous generation with the paged ablations; ``--fleet`` the fleet's
+  bench (``serving/fleet/bench_fleet.py``);
 * ``bench-infer`` (``bench_quant.py``): int8 against bf16 forwards behind
   the accuracy budget, exit 1 over it;
 * ``mem-drill`` (``serving/scheduler/mem_drill.py``): the memory-pressure
@@ -86,8 +88,9 @@ def trace_export(argv=None) -> int:
 def serve_drill(argv=None) -> int:
     """The deterministic serving chaos drill: injected pack and forward
     faults, malformed rows, unmeetable deadlines, the breaker's open and
-    recovery, overload expiry, drain, the worker pool's isolation and the
-    paged generator under token pressure; exit 0 when every check holds."""
+    recovery, overload expiry, drain, the worker pool's isolation, the
+    paged generator under token pressure and the multi-tenant fleet's
+    noisy neighbour and worker kill; exit 0 when every check holds."""
     from bigdl_tpu_torch.serving.drill import main as drill_main
     return drill_main(argv)
 
@@ -96,7 +99,8 @@ def bench_serve(argv=None) -> int:
     """Static vs bucketed vs continuous-batching generation over a
     shared-system-prompt mix, with the paged, kernel, prefix-cache and
     speculative ablations: useful tokens/s, p95 latency, prefix-hit and
-    draft-accept rates."""
+    draft-accept rates.  ``--fleet``: the fleet's autoscaled, static-peak
+    and noisy-neighbour runs behind their gates."""
     from bigdl_tpu_torch.serving.bench_serve import main as bench_main
     return bench_main(argv)
 
@@ -127,9 +131,9 @@ def bench_ingest(argv=None) -> int:
 # waits for (ROADMAP.md Queue 1)
 _Q = "ROADMAP.md Queue 1 item"
 _LATER = {
-    "fleet-report": f"comes with the serving fleet ({_Q} 13)",
-    "fleet-drill": f"comes with the serving fleet ({_Q} 13)",
-    "rollout-drill": f"comes with the serving fleet ({_Q} 13)",
+    "fleet-report": f"comes with the cross-host cluster ({_Q} 13, part 3b)",
+    "fleet-drill": f"comes with the cross-host cluster ({_Q} 13, part 3b)",
+    "rollout-drill": f"comes with the live rollout ({_Q} 13, part 3c)",
     "train-drill": f"comes with DistriOptimizer and elastic training "
                    f"({_Q} 12)",
     "tune": f"comes with ops/tuning.py and bench_tune.py ({_Q} 13)",
@@ -153,10 +157,12 @@ def main(argv=None) -> int:
               "[--out PATH] [--since-s S]\n"
               "       python -m bigdl_tpu_torch.cli serve-drill "
               "[--batch-size N] [--forward-delay-ms MS] [--workers N] "
-              "[--device D] [--run-dir DIR]\n"
+              "[--device D] [--run-dir DIR] [--fleet-smoke]\n"
               "       python -m bigdl_tpu_torch.cli bench-serve "
               "[--requests N] [--batch N] [--smoke] [--device D] "
               "[--out PATH]\n"
+              "       python -m bigdl_tpu_torch.cli bench-serve --fleet "
+              "[--smoke] [--device D] [--out PATH]\n"
               "       python -m bigdl_tpu_torch.cli bench-infer "
               "[--smoke] [--device D] [--out PATH]\n"
               "       python -m bigdl_tpu_torch.cli mem-drill "

@@ -29,7 +29,7 @@ serving.  This module adds the missing two pieces:
 Dependency-free on purpose (stdlib + ledger + tracer): ingest worker
 processes attach contexts without importing torch, and the exporter is
 pure file reading.  ``--fleet`` (a fleet directory of per-host run dirs)
-comes with the port's serving fleet and raises until then.
+comes with the port's cross-host cluster and raises until then.
 """
 
 from __future__ import annotations
@@ -346,9 +346,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                       load_ledger)
     if args.fleet:
         raise NotImplementedError(
-            "trace-export --fleet comes with the serving fleet "
-            "(serving/fleet/, observability/fleet.py; ROADMAP.md Queue 1 "
-            "item 13)")
+            "trace-export --fleet comes with the cross-host cluster "
+            "(observability/fleet.py, serving/fleet/cluster.py; ROADMAP.md "
+            "Queue 1 item 13, part 3b)")
     if not ledger_files(args.run_dir):
         print(f"trace-export: no events-*.jsonl under {args.run_dir!r}",
               file=sys.stderr)

@@ -243,6 +243,17 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches.
+    Serving runs forwards on several worker threads at once, and a bare
+    ``launches += 1`` is a read-modify-write that can lose a count."""
+    with _launch_lock:
+        wrapper.launches += 1
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of the current stream on t's card (without
     building a ``torch.cuda.Stream``: a wrapper's host time counts where

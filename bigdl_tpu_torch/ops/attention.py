@@ -368,7 +368,7 @@ def _launch(wrapper, entry, q, k, v, bias, causal, scale, with_lse=False):
             *args, _build.DTYPE_CODES[q.dtype], b * h, h, hk, t, tk, kd,
             scale, int(bool(causal)), _build.stream_ptr(q))
         _build.check(rc, name)
-        wrapper.launches += 1
+        _build.count_launch(wrapper)
     o = o if kd == d else o[..., :d].contiguous()
     return (o, lse) if with_lse else o
 
@@ -489,7 +489,7 @@ def flash_bwd_delta(o, do):
             o.data_ptr(), do.data_ptr(), delta.data_ptr(),
             _build.DTYPE_CODES[o.dtype], b * h * t, d, _build.stream_ptr(o))
         _build.check(rc, "flash_bwd_delta")
-        flash_bwd_delta.launches += 1
+        _build.count_launch(flash_bwd_delta)
     return delta
 
 
@@ -520,7 +520,7 @@ def _launch_bwd(wrapper, entry, q, k, v, delta, lse, do, causal, scale,
             b, h, hk, t, tk, kd, scale, int(bool(causal)),
             _build.stream_ptr(q))
         _build.check(rc, name)
-        wrapper.launches += 1
+        _build.count_launch(wrapper)
     if kd != d:
         outs = [x[..., :d].contiguous() for x in outs]
     return outs[0] if len(outs) == 1 else tuple(outs)
@@ -750,7 +750,7 @@ def paged_attention(q, k_pool, v_pool, pages, positions, scale):
         int(plan.path == "tensor_core"), plan.rows_per_block, plan.splits,
         plan.pages_per_split, plan.keys_per_tile, _build.stream_ptr(q))
     _build.check(rc, "paged_attention")
-    paged_attention.launches += 1
+    _build.count_launch(paged_attention)
     return o
 
 

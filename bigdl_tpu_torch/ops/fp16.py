@@ -84,7 +84,7 @@ def fp16_compress(x):
         rc = _build.load().bigdl_fp16_compress(
             x.data_ptr(), out.data_ptr(), x.numel(), _build.stream_ptr(x))
         _build.check(rc, "fp16_compress")
-        fp16_compress.launches += 1
+        _build.count_launch(fp16_compress)
     return out
 
 
@@ -105,7 +105,7 @@ def fp16_decompress(u, shape=None):
             rc = _build.load().bigdl_fp16_decompress(
                 u.data_ptr(), out.data_ptr(), u.numel(), _build.stream_ptr(u))
             _build.check(rc, "fp16_decompress")
-            fp16_decompress.launches += 1
+            _build.count_launch(fp16_decompress)
     return out.reshape(shape) if shape is not None else out
 
 
@@ -132,7 +132,7 @@ def fp16_add(a, b):
                                           out.data_ptr(), a.numel(),
                                           _build.stream_ptr(a))
         _build.check(rc, "fp16_add")
-        fp16_add.launches += 1
+        _build.count_launch(fp16_add)
     return out
 
 

@@ -177,7 +177,7 @@ def _launch(x, size, alpha, beta, k, with_scale):
         k, _POW_MODES.get(beta, 2), *_plan_args((x, y), size),
         _build.stream_ptr(x))
     _build.check(rc, "lrn_fwd")
-    cross_map_lrn.launches += 1
+    _build.count_launch(cross_map_lrn)
     return y, scale
 
 
@@ -274,7 +274,7 @@ def lrn_bwd(x, scale, dy, size=5, alpha=1.0, beta=0.75):
         *_plan_args((x, scale, dy, dx), size, backward=True),
         _build.stream_ptr(x))
     _build.check(rc, "lrn_bwd")
-    lrn_bwd.launches += 1
+    _build.count_launch(lrn_bwd)
     return dx
 
 

@@ -238,7 +238,7 @@ def _launch(x, kh, kw, sh, sw, ph, pw, ceil_mode, with_idx):
         _build.DTYPE_CODES[x.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
         oh, ow, p.planes, p.rows, p.cols, p.threads, _build.stream_ptr(x))
     _build.check(rc, "max_pool2d_fwd")
-    max_pool2d.launches += 1
+    _build.count_launch(max_pool2d)
     return y, idx
 
 
@@ -350,7 +350,7 @@ def max_pool2d_bwd(dy, idx, geom, ih, iw):
         _build.DTYPE_CODES[dy.dtype], n, c, ih, iw, kh, kw, sh, sw, ph, pw,
         oh, ow, p.planes, p.rows, p.cols, p.threads, _build.stream_ptr(dy))
     _build.check(rc, "max_pool2d_bwd")
-    max_pool2d_bwd.launches += 1
+    _build.count_launch(max_pool2d_bwd)
     return dx
 
 

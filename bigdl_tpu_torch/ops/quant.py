@@ -499,7 +499,7 @@ def _dequant_matmul(wrapper, x, q, scale, wdtype):
                         (_build.DTYPE_CODES[x.dtype],
                          _build.WEIGHT_CODES[wdtype], m, q.shape[0], k),
                         False)
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     return y
 
 
@@ -543,7 +543,7 @@ def a8_matmul(xq, q8, s_combined, out_dtype):
             y, _build.DTYPE_CODES[out_dtype], m, n, k, p.bn, p.splits,
             None if ws is None else ws.data_ptr(),
             None if tickets is None else tickets.data_ptr())
-    a8_matmul.launches += 1
+    _build.count_launch(a8_matmul)
     return y
 
 
@@ -577,7 +577,7 @@ def w4_matmul(x, q4, scale, k: int):
     y = _dequant_launch(_build.load().bigdl_w4_matmul, "w4_matmul", x, q4,
                         scale, k, (_build.DTYPE_CODES[x.dtype], x.shape[0],
                                    q4.shape[0], k), True)
-    w4_matmul.launches += 1
+    _build.count_launch(w4_matmul)
     return y
 
 

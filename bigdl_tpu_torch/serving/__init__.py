@@ -6,7 +6,9 @@ RAM, and a ``MemoryBudgeter`` of device bytes).
 
 The deterministic chaos drill over the pool's fault sites is
 ``python -m bigdl_tpu_torch.cli serve-drill`` (:mod:`serving.drill`); the
-scheduler benchmark is ``bench-serve`` (:mod:`serving.bench_serve`)."""
+scheduler benchmark is ``bench-serve`` (:mod:`serving.bench_serve`).  The
+multi-tenant fleet (several models behind one admission plane, stride
+dispatch, the autoscaler) is :mod:`serving.fleet`."""
 
 from bigdl_tpu_torch.serving.batcher import DeadlineBatcher
 from bigdl_tpu_torch.serving.breaker import CircuitBreaker
@@ -19,7 +21,8 @@ from bigdl_tpu_torch.serving.errors import (BreakerOpenError,
                                             MemoryBudgetError,
                                             PackFailedError, QueueFullError,
                                             ServingError, ShedError,
-                                            SlotCapacityError)
+                                            SlotCapacityError,
+                                            UnknownTenantError)
 from bigdl_tpu_torch.serving.queue import AdmissionQueue, Request
 from bigdl_tpu_torch.serving.scheduler import (BucketedRunner, BucketLadder,
                                                ContinuousGenerator,
@@ -37,4 +40,4 @@ __all__ = ["AdmissionQueue", "BreakerOpenError", "BucketLadder",
            "MemoryBudgetError", "MemoryBudgeter", "PackFailedError",
            "PageAllocator", "PrefixCache", "QueueFullError", "Request",
            "ServingError", "ShedError", "SlotCapacityError", "SlotManager",
-           "WorkerPool", "pad_to_bucket"]
+           "UnknownTenantError", "WorkerPool", "pad_to_bucket"]

@@ -35,8 +35,10 @@ The model (seeded random weights) runs on ``--device``: CUDA by default,
 the CPU when asked.  ``--out`` writes the result as JSON; without it
 nothing is written.  Each mode's result names the kernel launches it made
 (``kernel_launches``; the plain versions on the CPU count none).
-``--fleet`` and ``--cluster`` (the reference's fleet rounds) raise
-``NotImplementedError``: they come with the serving fleet.
+``--fleet`` runs the multi-tenant fleet's bench instead
+(:mod:`serving.fleet.bench_fleet`, its own flags); ``--cluster``, the
+cross-host round, raises ``NotImplementedError`` naming its part of the
+port.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ import json
 import time
 from typing import List, Optional
 
-FLEET = ("bench-serve {flag} comes with the serving fleet (ROADMAP.md "
-         "Queue 1 item 13, serving/fleet/)")
+CLUSTER = ("bench-serve --cluster comes with the cross-host cluster "
+           "(ROADMAP.md Queue 1 item 13, part 3b: serving/fleet/cluster.py, "
+           "bench_cluster.py)")
 
 
 def _traffic(rng, n: int, prompt_len: int, prefix_len: int,
@@ -205,9 +208,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         import sys
         argv = sys.argv[1:]
     argv = list(argv)
-    for flag in ("--fleet", "--cluster"):
-        if flag in argv:
-            raise NotImplementedError(FLEET.format(flag=flag))
+    if "--fleet" in argv:
+        # the fleet round: two-tenant autoscaling vs static peak and
+        # noisy-neighbour isolation, with its own flags
+        argv.remove("--fleet")
+        from bigdl_tpu_torch.serving.fleet.bench_fleet import \
+            main as fleet_main
+        return fleet_main(argv)
+    if "--cluster" in argv:
+        raise NotImplementedError(CLUSTER)
     ap = argparse.ArgumentParser(
         "bench-serve",
         description="static vs bucketed vs continuous-batching generate, "

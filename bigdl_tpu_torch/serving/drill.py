@@ -2,7 +2,7 @@
 
     python -m bigdl_tpu_torch.cli serve-drill [--batch-size N]
         [--forward-delay-ms MS] [--workers N] [--device cuda|cpu]
-        [--run-dir DIR]
+        [--run-dir DIR] [--fleet-smoke]
 
 One scripted pass through every failure seam of :class:`InferenceServer`,
 driven by the deterministic :class:`FaultInjector` (sites ``serve.pack``,
@@ -33,12 +33,15 @@ phase that the runtime isolated the failure:
     page pool is far smaller than ``num_slots x max_len`` is flooded with
     mixed-length prompts; never-fit requests shed ``SlotCapacityError`` at
     the door, everything admitted decodes equal to a per-request
-    ``TransformerLM.generate``, and drain loses no request.
-
-The reference's phase 12, the multi-tenant fleet, comes with the serving
-fleet (``ROADMAP.md`` Queue 1 item 13): the default run ends after phase
-11, and ``--fleet-smoke`` (phase 12 alone) raises ``NotImplementedError``
-naming it.
+    ``TransformerLM.generate``, and drain loses no request;
+12. the multi-tenant fleet (``serving/fleet``): tenant "flood" is driven
+    far past its queue while one of its workers is killed mid-flood; the
+    victim tenant "steady" keeps every deadline (exclusive allocations and
+    weighted-fair dispatch), every flood shed is typed ``QueueFullError``
+    and attributed to the flooding tenant, the dead worker is reaped (its
+    abandoned batches salvaged, the allocation backfilled from the parked
+    worker: ``fleet.reap`` on the ledger), and drain loses no accepted
+    request.  ``--fleet-smoke`` runs this phase alone.
 
 Deadlines and batch boundaries are multiples of ``--forward-delay-ms``, the
 fixed time every forward sleeps, which keeps the phases deterministic on
@@ -65,8 +68,6 @@ from bigdl_tpu_torch.serving.server import InferenceServer
 
 FEATURES = 4
 CLASSES = 3
-FLEET = ("the multi-tenant fleet phase comes with the serving fleet "
-         "(ROADMAP.md Queue 1 item 13, serving/fleet/)")
 
 
 def _drill_classifier(batch_size: int, forward_delay_s: float, device):
@@ -251,6 +252,118 @@ def _paged_phase(rng, device, failures: List[str]) -> None:
         _expect(gen.drain(timeout=10), "paged generator drained", failures)
 
 
+def _fleet_phase(args, device, failures: List[str]) -> None:
+    """Phase 12: a noisy neighbour and a worker kill against the fleet.
+    Tenant ``flood`` (weight 3, 2 exclusive workers, a small queue) is
+    driven far past its capacity while one of its workers is killed
+    mid-flood; tenant ``steady`` (weight 1, 1 worker) serves
+    deadline-classed traffic throughout."""
+    import threading
+    from concurrent.futures import wait as fwait
+
+    from bigdl_tpu_torch.serving.errors import QueueFullError, ShedError
+    from bigdl_tpu_torch.serving.fleet import FleetServer, TenantSpec
+
+    delay = args.forward_delay_ms / 1e3
+    bsz = args.batch_size
+    rng = np.random.RandomState(12)
+    flood_clf, _ = _drill_classifier(bsz, delay, device)
+    steady_clf, _ = _drill_classifier(bsz, delay, device)
+    steady_ddl = 60 * delay
+    specs = [
+        TenantSpec("flood", classifier=flood_clf, weight=3,
+                   min_workers=2, max_workers=2,
+                   queue_capacity=8 * bsz, max_delay_s=delay / 2),
+        TenantSpec("steady", classifier=steady_clf, weight=1,
+                   min_workers=1, max_workers=1,
+                   priority_classes=("interactive",),
+                   deadline_classes={"interactive": steady_ddl},
+                   slo_target=0.9, slo_min_samples=8,
+                   queue_capacity=64 * bsz, max_delay_s=delay / 2),
+    ]
+    # one parked spare: the reap after the kill backfills from it
+    fleet = FleetServer(specs, max_workers=4, device=device)
+    t_flood = fleet.registry.get("flood")
+    flood_rows = 100 * bsz
+    flood_futs: List = []
+    sheds = {"queue_full": 0, "other": 0}
+    killed = threading.Event()
+
+    def run_flood():
+        r = np.random.RandomState(13)
+        for i in range(flood_rows):
+            if i == flood_rows // 4:
+                # kill one of flood's workers mid-flood: the thread takes
+                # no more work, abandoning its inbox
+                t_flood.workers[0].kill()
+                killed.set()
+            try:
+                flood_futs.append(fleet.submit(
+                    "flood", r.rand(FEATURES).astype(np.float32)))
+            except QueueFullError:
+                sheds["queue_full"] += 1
+            except ShedError:
+                sheds["other"] += 1
+
+    th = threading.Thread(target=run_flood)
+    th.start()
+    steady_futs: List = []
+    steady_sheds = 0
+    for _ in range(8):                     # the victim's waves ride it
+        for row in _rows(rng, bsz):
+            try:
+                steady_futs.append(fleet.submit(
+                    "steady", row, priority_class="interactive",
+                    deadline_class="interactive"))
+            except ShedError:
+                steady_sheds += 1
+        time.sleep(2 * delay)
+    th.join()
+    fwait(flood_futs + steady_futs, timeout=60)
+
+    _expect(killed.is_set(), "one flood worker was killed mid-flood",
+            failures)
+    steady_ok = sum(1 for f in steady_futs
+                    if f.done() and f.exception() is None)
+    _expect(steady_sheds == 0 and steady_ok == len(steady_futs),
+            f"victim tenant kept 100% of its deadlines through flood + "
+            f"worker kill ({steady_ok}/{len(steady_futs)} ok)", failures)
+    slo = fleet.registry.get("steady").slo.snapshot()
+    _expect(slo["hit_rate"] >= 0.9,
+            f"victim SLO hit rate {slo['hit_rate']:.3f} >= 0.9 target",
+            failures)
+    _expect(sheds["queue_full"] > 0 and sheds["other"] == 0,
+            f"flood sheds all typed QueueFullError "
+            f"({sheds['queue_full']} sheds)", failures)
+    flood_counters = fleet.stats()["tenants"]["flood"]["counters"]
+    _expect(int(flood_counters.get("serve.shed.queue_full", 0))
+            == sheds["queue_full"],
+            "every shed attributed to the flooding tenant on its own "
+            "counters", failures)
+    steady_counters = fleet.stats()["tenants"]["steady"]["counters"]
+    _expect(int(steady_counters.get("serve.shed.queue_full", 0)) == 0,
+            "zero sheds attributed to the victim tenant", failures)
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        if fleet.metrics.snapshot()[0].get("fleet.reaped", (0, 0))[0]:
+            break
+        time.sleep(0.01)
+    reaped = fleet.metrics.snapshot()[0].get("fleet.reaped", (0, 0))[0]
+    _expect(int(reaped) >= 1,
+            "dead worker reaped (inbox salvaged, allocation "
+            "backfilled from the parked pool)", failures)
+    alloc = fleet.stats()["allocations"]
+    _expect(len(alloc["flood"]) == 2,
+            f"flood allocation backfilled to 2 workers "
+            f"({alloc['flood']})", failures)
+    joined = fleet.drain(timeout=10)
+    _expect(joined, "fleet drain joined dispatcher and workers",
+            failures)
+    _expect(all(f.done() for f in flood_futs + steady_futs),
+            f"all {len(flood_futs) + len(steady_futs)} accepted fleet "
+            "requests reached a terminal state (zero lost)", failures)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         "serve-drill",
@@ -273,10 +386,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="run only the multi-tenant fleet phase (12)")
     args = p.parse_args(argv)
 
-    if args.fleet_smoke:
-        raise NotImplementedError(FLEET)
     if args.run_dir:
         run_ledger.set_run_dir(args.run_dir)
+
+    if args.fleet_smoke:
+        failures: List[str] = []
+        print("phase 12: multi-tenant fleet "
+              "(noisy neighbor + worker kill)")
+        _fleet_phase(args, args.device, failures)
+        if failures:
+            print(f"\nserve-drill: {len(failures)} check(s) FAILED")
+            return 1
+        print("\nserve-drill (fleet smoke): all checks passed")
+        return 0
 
     device = args.device
     delay = args.forward_delay_ms / 1e3
@@ -429,7 +551,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         print("phase 11: paged KV generation flood")
         _paged_phase(rng, device, failures)
-        print(f"phase 12: not run ({FLEET})")
+        print("phase 12: multi-tenant fleet "
+              "(noisy neighbor + worker kill)")
+        _fleet_phase(args, device, failures)
     finally:
         FaultInjector.clear()
         server.drain(timeout=10)

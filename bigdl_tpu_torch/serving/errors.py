@@ -73,6 +73,15 @@ class MemoryBudgetError(ShedError):
     reason = "byte_starved"
 
 
+class UnknownTenantError(ShedError):
+    """The fleet's admission plane has no tenant by that name: it was never
+    registered, or was deregistered while the client still held the
+    handle.  Shed synchronously and attributably, so a request for a
+    rolled-out model never lands in another tenant's queue."""
+
+    reason = "unknown_tenant"
+
+
 class InvalidRequestError(ServingError, ValueError):
     """The request's feature payload has the wrong shape or size for the
     classifier's batch shape — rejected at ``submit()``."""

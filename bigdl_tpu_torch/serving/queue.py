@@ -1,6 +1,5 @@
 """Bounded request queue with admission control
-(``bigdl_tpu/serving/queue.py``, host-only copy without the fleet's
-priority levels).
+(``bigdl_tpu/serving/queue.py``, host-only copy).
 
 A request is turned away synchronously when the queue is at capacity, when
 the server is draining, or when its deadline is provably unmeetable (even
@@ -26,16 +25,26 @@ _rids = itertools.count(1)
 class Request:
     """One admitted inference request.  ``deadline`` is an absolute
     ``time.monotonic()`` instant (or None); the result or typed failure is
-    delivered through ``future``."""
+    delivered through ``future``.  The fleet's admission plane stamps each
+    request with its ``(tenant, priority, deadline_class)`` triple:
+    ``priority`` is a 0-based class index (0 = most urgent, popped first),
+    the other two are census tags."""
 
-    __slots__ = ("rid", "features", "deadline", "future", "t_submit")
+    __slots__ = ("rid", "features", "deadline", "future", "t_submit",
+                 "tenant", "priority", "deadline_class")
 
-    def __init__(self, features, deadline: Optional[float] = None):
+    def __init__(self, features, deadline: Optional[float] = None,
+                 tenant: Optional[str] = None,
+                 priority: int = 0,
+                 deadline_class: Optional[str] = None):
         self.rid = next(_rids)
         self.features = features
         self.deadline = deadline
         self.future: Future = Future()
         self.t_submit = time.monotonic()
+        self.tenant = tenant
+        self.priority = int(priority)
+        self.deadline_class = deadline_class
 
     def slack(self, now: float) -> Optional[float]:
         """Seconds until the deadline (None when unbounded)."""
@@ -49,17 +58,27 @@ class AdmissionQueue:
     closer than that floor sheds immediately.  ``on_depth`` (if given) is
     called with the new depth after every enqueue and dequeue — the
     queue-depth gauge hook.
+
+    ``levels`` > 1 arms priority classes (the fleet's admission plane): a
+    request lands in the level of its ``Request.priority`` (clamped into
+    range; 0 = most urgent) and ``take`` pops the lowest non-empty level
+    first, FIFO within it.  The capacity bound covers all levels together.
+    ``levels=1`` (the default) is the plain FIFO.
     """
 
     def __init__(self, capacity: int,
                  floor_fn: Optional[Callable[[], float]] = None,
-                 on_depth: Optional[Callable[[int], None]] = None):
+                 on_depth: Optional[Callable[[int], None]] = None,
+                 levels: int = 1):
         if capacity <= 0:
             raise ValueError(f"queue capacity must be > 0, got {capacity}")
+        if levels < 1:
+            raise ValueError(f"priority levels must be >= 1, got {levels}")
         self.capacity = int(capacity)
+        self.levels = int(levels)
         self._floor_fn = floor_fn
         self._on_depth = on_depth
-        self._q: deque = deque()
+        self._qs = [deque() for _ in range(self.levels)]
         self._cond = threading.Condition()
         self._closed = False
 
@@ -68,7 +87,8 @@ class AdmissionQueue:
         with self._cond:
             if self._closed:
                 raise DrainingError("server is draining; request rejected")
-            if len(self._q) >= self.capacity:
+            depth = sum(len(q) for q in self._qs)
+            if depth >= self.capacity:
                 raise QueueFullError(
                     f"request queue full ({self.capacity} pending)")
             if req.deadline is not None:
@@ -79,9 +99,11 @@ class AdmissionQueue:
                         f"deadline {req.deadline - now:.4f}s away but the "
                         f"best-case service time is {floor:.4f}s — "
                         "provably unmeetable")
-            self._q.append(req)
+            level = min(max(int(getattr(req, "priority", 0)), 0),
+                        self.levels - 1)
+            self._qs[level].append(req)
             self._cond.notify()
-            depth = len(self._q)
+            depth += 1
         if self._on_depth is not None:
             self._on_depth(depth)
 
@@ -91,7 +113,7 @@ class AdmissionQueue:
         closed AND empty."""
         end = None if timeout is None else time.monotonic() + timeout
         with self._cond:
-            while not self._q:
+            while not any(self._qs):
                 if self._closed:
                     return None
                 if end is None:
@@ -101,8 +123,8 @@ class AdmissionQueue:
                     if remaining <= 0:
                         return None
                     self._cond.wait(remaining)
-            req = self._q.popleft()
-            depth = len(self._q)
+            req = next(q for q in self._qs if q).popleft()
+            depth = sum(len(q) for q in self._qs)
         if self._on_depth is not None:
             self._on_depth(depth)
         return req
@@ -121,4 +143,9 @@ class AdmissionQueue:
     @property
     def depth(self) -> int:
         with self._cond:
-            return len(self._q)
+            return sum(len(q) for q in self._qs)
+
+    def depth_by_level(self) -> list:
+        """Per-priority-level depths."""
+        with self._cond:
+            return [len(q) for q in self._qs]

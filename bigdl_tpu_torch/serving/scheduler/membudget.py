@@ -7,9 +7,10 @@ policy instead of an out-of-memory crash:
   sessions), ``prefix_pages`` (shared prefix-cache pages), ``params``,
   ``rung_executables`` and ``host_offload`` (parked sessions' pages in
   host RAM: reported, not counted against the device budget, which is why
-  parking frees headroom).  The port charges no ``params`` and no
-  ``rung_executables`` (it has no compiled programs to reclaim); both stay
-  classes so the census has the reference's keys.
+  parking frees headroom).  The fleet charges each tenant's ``params``;
+  the port charges no ``rung_executables`` (it compiles no program per
+  rung, so a warm rung holds no device bytes of its own); the class stays
+  so the census has the reference's keys.
 * **typed enforcement** — :meth:`require_possible` sheds a request whose
   bytes exceed the tenant's whole budget (``MemoryBudgetError``, reason
   ``byte_starved``); :meth:`admit` sheds one that cannot fit after the

@@ -47,19 +47,20 @@ logger = logging.getLogger("bigdl_tpu_torch.serving")
 
 
 class _Warmup:
-    """An inbox item that runs the bucket warmup IN the worker's thread:
-    PyTorch keeps its cuDNN and cuBLAS handles per thread, so a rung warmed
-    in another thread still pays their set-up on its first served batch."""
+    """An inbox item that runs a bucket warmup (``fn``, a runner's
+    ``warmup``) IN the worker's thread: PyTorch keeps its cuDNN and cuBLAS
+    handles per thread, so a rung warmed in another thread still pays their
+    set-up on its first served batch."""
 
-    def __init__(self, runner):
-        self.runner = runner
+    def __init__(self, fn):
+        self.fn = fn
         self.done = threading.Event()
         self.timings: Optional[dict] = None
         self.error: Optional[BaseException] = None
 
     def run(self) -> None:
         try:
-            self.timings = self.runner.warmup()
+            self.timings = self.fn()
         except Exception as e:           # re-raised in the server's thread
             self.error = e
         finally:
@@ -281,7 +282,8 @@ class WorkerPool:
             w.start()
         timings: dict = {}
         if warmup:
-            jobs = [_Warmup(self.server.runner) for _ in self.workers]
+            jobs = [_Warmup(self.server.runner.warmup)
+                    for _ in self.workers]
             for w, job in zip(self.workers, jobs):
                 w.inbox.put(job)
             for job in jobs:

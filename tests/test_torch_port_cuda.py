@@ -80,7 +80,10 @@ on, the trainer on the card samples the card's memory (``mem.hbm``, its
 peak between the parameters' bytes and ``max_memory_allocated``) and
 prices its first step (``cost.analysis``).  An injected
 ``serve.forward*1=OSError`` on the card is retried away by
-``forward_retries`` with the unfaulted answers.
+``forward_retries`` with the unfaulted answers.  A two-tenant
+``FleetServer`` on the card (LeNet-5 f32 and its ``w8`` copy) answers
+every row as a single-tenant ``InferenceServer`` of the same classifier,
+with 2 K1 a LeNet forward and K13 at the packed copy's products.
 """
 
 import copy
@@ -1951,3 +1954,46 @@ def test_injected_forward_os_error_is_retried_away_on_the_card(
     assert bad == 0
     assert [r["label"] for r in records if r.get("kind") == "retry"] == \
         ["serve.forward"]
+
+
+def test_two_tenant_fleet_on_the_card_equals_single_tenant_servers(
+        cuda_device):
+    """Two tenants behind one ``FleetServer`` on the card, a LeNet-5 and
+    its ``w8`` copy, each on two workers: every answer equals a
+    single-tenant ``InferenceServer`` of the same classifier on the same
+    rows, and the fleet's forwards launch 2 K1 each (and K13 at the packed
+    copy's products), counted exactly across the worker threads."""
+    from bigdl_tpu_torch import ops
+    from bigdl_tpu_torch.api import DLClassifier
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.serving import InferenceServer
+    from bigdl_tpu_torch.serving.fleet import FleetServer, TenantSpec
+    rng = np.random.RandomState(5)
+    rows = [rng.rand(28, 28).astype(np.float32) for _ in range(64)]
+    model = LeNet5(10).reset(4)
+    clfs = {"f32": DLClassifier(model, (8, 28, 28), device=cuda_device),
+            "w8": DLClassifier(copy.deepcopy(model), (8, 28, 28),
+                               quantize="w8", device=cuda_device)}
+    want = {}
+    for name, clf in clfs.items():
+        with InferenceServer(clf, batch_buckets=[4, 8],
+                             device=cuda_device) as single:
+            want[name] = [f.result(timeout=60)
+                          for f in [single.submit(r) for r in rows]]
+    specs = [TenantSpec(name, classifier=clf, weight=w, batch_buckets=[4, 8],
+                        min_workers=2, max_workers=2)
+             for (name, clf), w in zip(clfs.items(), (3, 1))]
+    with FleetServer(specs, max_workers=4, device=cuda_device) as fleet:
+        ops.reset_launches()
+        futs = {name: [fleet.submit(name, r) for r in rows]
+                for name in clfs}
+        got = {name: [f.result(timeout=60) for f in fs]
+               for name, fs in futs.items()}
+        forwards = {name: sum(b["batches"] for b in
+                              fleet.stats()["tenants"][name]["buckets"]
+                              .values()) for name in clfs}
+        counts = ops.launch_counts()
+    assert got == want
+    assert counts["max_pool2d"] == 2 * (forwards["f32"] + forwards["w8"])
+    assert counts["w8_matmul"] > 0 and counts["w8_matmul"] % \
+        forwards["w8"] == 0

@@ -284,12 +284,14 @@ def test_cli_main_dispatch(tmp_path):
     assert cli.main(["trace-export", str(tmp_path)]) == 0
     assert cli.main(["no-such-command"]) == 2
     # the reference's other subcommands name the part they wait for
-    for cmd, item in (("fleet-report", "item 13"), ("train-drill",
-                                                     "item 12"),
+    for cmd, item in (("fleet-report", "item 13, part 3b"),
+                      ("fleet-drill", "item 13, part 3b"),
+                      ("rollout-drill", "item 13, part 3c"),
+                      ("train-drill", "item 12"),
                       ("tune", "item 13"), ("mesh-explain", "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             cli.main([cmd])
-    with pytest.raises(NotImplementedError, match="fleet"):
+    with pytest.raises(NotImplementedError, match="part 3b"):
         run_trace.main([str(tmp_path), "--fleet"])
 
 

@@ -635,6 +635,39 @@ def test_build_is_lazy_and_keyed_by_the_sources(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def test_launch_counts_are_exact_under_threads():
+    """Serving runs forwards on several worker threads at once: every
+    wrapper counts its launches through one locked helper, so 8 threads
+    adding 5000 each give exactly 40000."""
+    import threading
+
+    def fn():
+        pass
+
+    fn.launches = 0
+    threads = [threading.Thread(
+        target=lambda: [_build.count_launch(fn) for _ in range(5000)])
+        for _ in range(8)]
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)     # interleave the threads as often as
+    try:                            # the interpreter allows
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sys.setswitchinterval(switch)
+    assert fn.launches == 8 * 5000
+    # and no wrapper adds to its count any other way
+    import inspect
+
+    from bigdl_tpu_torch.ops import attention, fp16, lrn, pooling, quant
+    for mod in (attention, fp16, lrn, pooling, quant):
+        src = inspect.getsource(mod)
+        assert ".launches += 1" not in src, mod.__name__
+        assert "_build.count_launch(" in src, mod.__name__
+
+
 def test_package_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -659,6 +692,10 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "'tracer', 'trace', 'summary', 'prometheus', 'costs', 'report', "
         "'live')]\n"
         "assert all(m in sys.modules for m in obs), obs\n"
+        "fleet = ['bigdl_tpu_torch.serving.fleet.' + m for m in ("
+        "'dispatch', 'registry', 'autoscaler', 'server', "
+        "'bench_fleet')]\n"
+        "assert all(m in sys.modules for m in fleet), fleet\n"
         "import torch\n"
         "from bigdl_tpu_torch import native\n"
         "from bigdl_tpu_torch.ops import _build\n"
